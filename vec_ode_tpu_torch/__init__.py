@@ -1,0 +1,89 @@
+"""vec_ode_tpu_torch: the PyTorch / CUDA port of vec_ode_tpu.
+
+Grows beside the JAX package, which stays the reference. So far it runs
+the adaptive embedded-RK ensemble path: ``parallel.ensemble_solve`` over
+``ops.fused_rk.FusedModulatedLinearRK`` (dx/dt = (M0 + cos(wt) M1) x with
+shared matrices), driven by the batched ``driver``. On CUDA tensors each
+step is one launch of the hand-written kernel ``csrc/fused_rk_step.cu``;
+on CPU tensors the plain torch twin runs. This package imports neither
+jax nor vec_ode_tpu.
+"""
+
+from . import controller, convert, driver, lc, models, ops, parallel, tableaus
+from .controller import StepControl
+from .driver import (
+    DONE,
+    DONE_EVENT,
+    ERR_BAD_GRID,
+    ERR_MAX_STEPS,
+    ERR_STALLED,
+    EVT_CHKPT,
+    EVT_END,
+    EVT_NONE,
+    EVT_REJECT,
+    EVT_STEP,
+    RUNNING,
+    IntState,
+    Solution,
+    init_state,
+    integrate,
+    make_grid,
+    resume,
+    step_once,
+)
+from .tableaus import (
+    BOSH32,
+    CASH_KARP,
+    DOPRI5,
+    EULER,
+    HEUN_RK2,
+    MIDPOINT_RK2,
+    RK4,
+    RKF45,
+    RKF45_REFERENCE,
+    TABLEAUS,
+    ButcherTableau,
+)
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "controller",
+    "convert",
+    "driver",
+    "lc",
+    "models",
+    "ops",
+    "parallel",
+    "tableaus",
+    "StepControl",
+    "Solution",
+    "IntState",
+    "integrate",
+    "resume",
+    "init_state",
+    "step_once",
+    "make_grid",
+    "ButcherTableau",
+    "RKF45",
+    "RKF45_REFERENCE",
+    "RK4",
+    "DOPRI5",
+    "BOSH32",
+    "CASH_KARP",
+    "EULER",
+    "MIDPOINT_RK2",
+    "HEUN_RK2",
+    "TABLEAUS",
+    "RUNNING",
+    "DONE",
+    "DONE_EVENT",
+    "ERR_BAD_GRID",
+    "ERR_MAX_STEPS",
+    "ERR_STALLED",
+    "EVT_NONE",
+    "EVT_STEP",
+    "EVT_CHKPT",
+    "EVT_REJECT",
+    "EVT_END",
+]
