@@ -3,12 +3,22 @@
     python3 chip_smoke.py
 
 Needs one CUDA card and the CUDA toolkit (nvcc). It builds the port's
-kernels from the sources in this checkout, holds each kernel against its
-plain torch version on the card, drives the port's main path once at full
-width (adaptive RKF45 over 16 384 trajectories of a 64-dim complex driven
-system, through ``vec_ode_tpu_torch.parallel.ensemble_solve``), checks the
-result, and times it. Every phase raises on failure, so any failure exits
-non-zero; without a CUDA card it exits non-zero before any result.
+kernels from the sources in this checkout (one nvcc per source, started
+together), holds each kernel against its plain torch version on the card,
+drives the port's two paths once at full width through
+``vec_ode_tpu_torch.parallel.ensemble_solve`` and checks them:
+
+* the main path: adaptive RKF45 over 16 384 trajectories of a 64-dim
+  complex driven system, a driver iteration per step and one launch of
+  the step kernel ``fused_rk_step`` (K1) in each;
+* the loop path: the same model and controller over 2 048 trajectories
+  (the largest batch the whole-loop path takes) with nine interior saves,
+  the whole adaptive loop in one launch of ``fused_loop`` (K2 with K3).
+
+Then it times both paths, the loop kernel at 16 384 trajectories, and
+each kernel against its plain version and its bound. Every phase raises
+on failure, so any failure exits non-zero; without a CUDA card it exits
+non-zero before any result.
 
 Output: progress lines, then the card's name and power limit as
 nvidia-smi reports them, then one JSON line describing each kernel, and
@@ -18,6 +28,7 @@ last one JSON line {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import time
@@ -25,19 +36,35 @@ import time
 import numpy as np
 import torch
 
-from vec_ode_tpu_torch import DONE, DOPRI5, RKF45, StepControl, driver
+from vec_ode_tpu_torch import (DONE, DOPRI5, ERR_MAX_STEPS, ERR_STALLED,
+                               RKF45, StepControl, driver, lc)
+from vec_ode_tpu_torch import tableaus as ttab
 from vec_ode_tpu_torch.models import DrivenDense
-from vec_ode_tpu_torch.ops import _build, fused_rk
+from vec_ode_tpu_torch.ops import _build, fused_loop, fused_rk
 from vec_ode_tpu_torch.ops.cplx import Cplx, from_complex
+from vec_ode_tpu_torch.ops.fused_loop import (RKStep, fused_loop_chunk,
+                                              fused_loop_integrate,
+                                              init_carries, torch_fused_loop)
 from vec_ode_tpu_torch.ops.fused_rk import (FusedModulatedLinearRK,
                                             fused_rk_step, torch_rk_step)
 from vec_ode_tpu_torch.parallel import ensemble_solve
 
 N_TRAJ, DIM = 16384, 64
+LOOP_TRAJ = 2048             # fused_loop.LOOP_MAX_BATCH
+SAVE_AT = tuple(round(0.1 * k, 10) for k in range(1, 10))
 CTL = StepControl(rtol=1e-8, min_dt=1e-6, max_dt=0.25)
 H0, TF = 1e-3, 1.0
-KERNEL_SOURCE = "vec_ode_tpu_torch/csrc/fused_rk_step.cu"
-REPLACES = "vec_ode_tpu/ops/pallas_rk.py:134"   # fused_rk_step -> pallas_call
+KERNELS = {
+    "fused_rk_step": ("vec_ode_tpu_torch/csrc/fused_rk_step.cu",
+                      "vec_ode_tpu/ops/pallas_rk.py:134"),
+    # K2's pallas_call; its step K3 (make_rk_step_builder, :890) is traced
+    # into it, as rk_step.cuh is compiled into fused_loop.cu
+    "fused_loop": ("vec_ode_tpu_torch/csrc/fused_loop.cu",
+                   "vec_ode_tpu/ops/pallas_loop.py:1135"),
+}
+# the card's published peaks (H100 SXM, dense, at 700 W): FP32 outside
+# the tensor cores (no TF32 may enter an error estimate), and HBM
+FP32_FLOP_S, HBM_BYTE_S = 67e12, 3.35e12
 
 
 def device_phase() -> str:
@@ -57,12 +84,44 @@ def device_phase() -> str:
     return card
 
 
+def ptxas_summary(name: str) -> str:
+    """Registers and spill stores of each instantiation (f32, f64) of the
+    kernel, from ptxas's report in its build log."""
+    log = _build.build_log(name)
+    if not log.exists():   # a library built before logs were kept
+        return "no build log"
+    out, inst = [], None
+    for line in log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '\S*_kernelI([fd])E", line)
+        if m:
+            inst, spill = {"f": "f32", "d": "f64"}[m.group(1)], "?"
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if inst and m:
+            spill = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if inst and m:
+            out.append(f"{inst} {m.group(1)} registers, {spill} B spilled")
+            inst = None
+    return "; ".join(out)
+
+
 def build_phase(card: str) -> None:
-    cached = _build.library_path("fused_rk_step").exists()
-    t0 = time.perf_counter()
+    cached = {n: _build.library_path(n).exists() for n in KERNELS}
+    ready = _build.build(*KERNELS)
     fused_rk._kernel_lib()
-    print(f"[build] fused_rk_step {'(cached) ' if cached else ''}"
-          f"{time.perf_counter() - t0:.2f} s ({card})", flush=True)
+    fused_loop._kernel_lib()
+    for name in KERNELS:
+        print(f"[build] {name} {'(cached) ' if cached[name] else ''}"
+              f"{ready[name]:.2f} s, nvcc per source started together; "
+              f"ptxas: {ptxas_summary(name)} ({card})", flush=True)
+
+
+def bound(flop: float, nbytes: float):
+    """The least time the card could take (ms) and what bounds it."""
+    ops_ms, bytes_ms = flop / FP32_FLOP_S * 1e3, nbytes / HBM_BYTE_S * 1e3
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes")
 
 
 def step_inputs(B, d, dtype, seed=7, dt_range=(1e-3, 5e-2)):
@@ -80,13 +139,14 @@ def step_inputs(B, d, dtype, seed=7, dt_range=(1e-3, 5e-2)):
     return st, t, dt, xw
 
 
-def plain_step(st, t, dt, xw, tab=RKF45, advance_lower=True):
+def plain_step(st, t, dt, xw, tab=RKF45, advance_lower=True, wnorm=None):
     return torch_rk_step(t, dt, xw, st.M0, st.M1,
                          u_fn=lambda ti: torch.cos(st.w * ti), tab=tab,
-                         advance_lower=advance_lower)
+                         advance_lower=advance_lower, wnorm=wnorm)
 
 
-def err_norm_limit(st, t, dt, xw, ep, tab=RKF45, advance_lower=True):
+def err_norm_limit(st, t, dt, xw, ep, tab=RKF45, advance_lower=True,
+                   wnorm=None):
     """Per-row limit on |err_kernel - err_plain| for the plain step's error
     norms ``ep``; returns (limit (B,), floor).
 
@@ -102,21 +162,29 @@ def err_norm_limit(st, t, dt, xw, ep, tab=RKF45, advance_lower=True):
         return 1e-9 * ep.abs() + 1e-18, 1e-18
     _, e64 = torch_rk_step(*(a.double() for a in (t, dt, xw, st.M0, st.M1)),
                            u_fn=lambda ti: torch.cos(st.w * ti), tab=tab,
-                           advance_lower=advance_lower)
+                           advance_lower=advance_lower, wnorm=wnorm)
     floor = 4 * float((ep.double() - e64).abs().max())
     return (1e-4 * ep.abs() + floor).to(ep.dtype), floor
 
 
+def weighted(kind: str, d: int, weights: bool = True):
+    """A declared WeightedNorm's kernel parts over the widened layout, with
+    a ramp of weights in [0.5, 2] or none."""
+    w = tuple(np.linspace(0.5, 2.0, d)) if weights else None
+    return lc.WeightedNorm(kind, w).kernel_parts(d, 2)
+
+
 def compare_step(B, d, dtype, tab=RKF45, advance_lower=True,
-                 dt_range=(1e-3, 5e-2)):
+                 dt_range=(1e-3, 5e-2), wnorm=None, label=""):
     """Kernel vs plain step on the card; returns (max |dx|, rows on which
     the error-norm check would catch a norm 10% off). The f32 state limit
     is bench.py's on-device limit; f64 differs only by summation order."""
     st, t, dt, xw = step_inputs(B, d, dtype, dt_range=dt_range)
     xk, ek = fused_rk_step(t, dt, xw, st.M0, st.M1, w=st.w, tab=tab,
-                           advance_lower=advance_lower)
-    xp, ep = plain_step(st, t, dt, xw, tab, advance_lower)
-    e_lim, floor = err_norm_limit(st, t, dt, xw, ep, tab, advance_lower)
+                           advance_lower=advance_lower, wnorm=wnorm)
+    xp, ep = plain_step(st, t, dt, xw, tab, advance_lower, wnorm)
+    e_lim, floor = err_norm_limit(st, t, dt, xw, ep, tab, advance_lower,
+                                  wnorm)
     torch.cuda.synchronize()
     dx = float((xk - xp).abs().max())
     de = (ek - ep).abs()
@@ -125,7 +193,7 @@ def compare_step(B, d, dtype, tab=RKF45, advance_lower=True,
     sensitive = int((0.1 * ep > e_lim).sum())
     ok = (dx <= x_lim and bool((de <= e_lim).all())
           and bool(torch.isfinite(xk).all()) and bool(torch.isfinite(ek).all()))
-    print(f"[step] {tab.name} {str(dtype)[6:]} B={B} d={d} dt in "
+    print(f"[step] {tab.name} {str(dtype)[6:]} B={B} d={d}{label} dt in "
           f"[{dt_range[0]:g}, {dt_range[1]:g}) advance_lower={advance_lower}: "
           f"max|dx|={dx:.3e} (<= {x_lim:.1e}); max|derr|={float(de.max()):.3e}"
           f", max|derr|/limit={float((de / e_lim).max()):.3f} (<= 1; limit "
@@ -134,7 +202,7 @@ def compare_step(B, d, dtype, tab=RKF45, advance_lower=True,
           f"{'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise AssertionError(f"kernel disagrees with the plain step: "
-                             f"{tab.name} {dtype} B={B} d={d}")
+                             f"{tab.name} {dtype} B={B} d={d}{label}")
     return dx, sensitive
 
 
@@ -158,11 +226,149 @@ def step_phase() -> float:
     return compare_step(N_TRAJ, DIM, torch.float32)[0]
 
 
-def main_inputs():
+def norm_phase() -> None:
+    """K1 with a declared WeightedNorm (weight row, l2 or max, post)."""
+    for dtype in (torch.float32, torch.float64):
+        for kind, weights in (("l2", True), ("max", True), ("rms", False)):
+            compare_step(1000, DIM, dtype, wnorm=weighted(kind, DIM, weights),
+                         label=f" {kind}{' weighted' if weights else ''}")
+    compare_step(1000, 5, torch.float32, wnorm=weighted("max", 5),
+                 label=" max weighted")
+    _, sensitive = compare_step(N_TRAJ, DIM, torch.float32,
+                                dt_range=(0.15, 0.25),
+                                wnorm=weighted("l2", DIM),
+                                label=" l2 weighted")
+    if sensitive != N_TRAJ:
+        raise AssertionError(
+            f"the weighted long-step check holds only {sensitive}/{N_TRAJ} "
+            "error norms to 10%")
+
+
+# The kernel-vs-twin cases of the loop kernel (the CPU tests hold the twin
+# to the JAX loop kernel on the same list). max_steps bounds every case.
+LOOP_BASE = dict(rtol=1e-8, min_dt=1e-6, max_dt=0.25, max_steps=3000)
+LOOP_CASES = {
+    "plain": {},
+    "save_grid": dict(grid=(0.0, 0.075, 0.15, 0.225, 0.3)),
+    "pi": dict(ctl=dict(pi=True)),
+    "scaled_error": dict(ctl=dict(scaled_error=True, rtol=1e-6, atol=1e-9)),
+    "strict_end_test": dict(ctl=dict(strict_end_test=True),
+                            grid=(0.0, 0.1, 0.3)),
+    "plain_time": dict(ctl=dict(time_compensated=False),
+                       grid=(0.0, 0.1, 0.3)),
+    "weighted_l2": dict(norm=("l2", True)),
+    "weighted_max": dict(norm=("max", False)),
+    "dopri5": dict(tab="dopri5"),
+    "advance_higher": dict(advance_lower=False),
+    "h0_per_row": dict(h0="per_row"),
+    "max_steps": dict(ctl=dict(max_steps=6)),
+    "stalled": dict(ctl=dict(max_reject_streak=2, rtol=1e-12), h0=0.2),
+    # the loop path's grid, t in [0, 1] with nine interior saves
+    "loop_path": dict(grid=(0.0, *SAVE_AT, TF)),
+}
+LOOP_STATUS = {"max_steps": ERR_MAX_STEPS, "stalled": ERR_STALLED}
+# ist columns compared: all but the event column, which follows the tiling
+# (a row that stopped before its tile's last iteration reads EVT_NONE)
+INT_COLS = [0, 1, 3, 4, 5, 6, 7]
+
+
+def unit_states(B, d, dtype, seed):
+    rng = np.random.default_rng(seed)
+    psi = rng.standard_normal((B, d)) + 1j * rng.standard_normal((B, d))
+    psi /= np.linalg.norm(psi, axis=-1, keepdims=True)
+    return from_complex(psi, dtype, device="cuda")
+
+
+def loop_case(name, B, d, dtype, seed=11):
+    """(carries, step, ctl, expected status) of a LOOP_CASES entry: the
+    model DrivenDense(d, seed 0), unit states, t in [0, 0.3]."""
+    case = LOOP_CASES[name]
+    ctl = StepControl(**{**LOOP_BASE, **case.get("ctl", {})})
+    st = FusedModulatedLinearRK.from_driven_dense(
+        DrivenDense.make(d=d, seed=0), dtype, device="cuda")
+    y0 = unit_states(B, d, dtype, seed)
+    h0 = case.get("h0", H0)
+    if h0 == "per_row":
+        h0 = 10.0 ** np.random.default_rng(seed).uniform(-4, -1, B)
+    norm = case.get("norm")
+    step = RKStep(M0=st.M0, M1=st.M1, w=st.w,
+                  tableau=ttab.TABLEAUS[case.get("tab", "rkf45")],
+                  advance_lower=case.get("advance_lower", True),
+                  scaled=(ctl.atol, ctl.rtol) if ctl.scaled_error else None,
+                  wnorm=None if norm is None else weighted(norm[0], d,
+                                                            norm[1]))
+    grid = torch.tensor(case.get("grid", (0.0, 0.3)), dtype=torch.float64)
+    carries = init_carries(grid, torch.cat([y0.re, y0.im], 1),
+                           torch.as_tensor(h0, dtype=torch.float64))
+    return carries, step, ctl, LOOP_STATUS.get(name, DONE)
+
+
+def run_loop_pair(name, B, d, dtype, chunk=None):
+    """The loop kernel and its twin on the same carries; returns both
+    final carries (fs, ist, x, saves) and the expected status."""
+    carries, step, ctl, status = loop_case(name, B, d, dtype)
+    saves_k = carries[4].clone()
+    got = fused_loop_chunk(*carries[:4], saves_k, step, ctl=ctl, chunk=chunk)
+    while chunk is not None and bool((got[1][:, 1] == 0).any()):
+        got = fused_loop_chunk(carries[0], *got, step, ctl=ctl, chunk=chunk)
+    want = torch_fused_loop(*carries, step, ctl=ctl)
+    torch.cuda.synchronize()
+    return got, want, status
+
+
+def check_loop_pair(name, B, d, dtype) -> float:
+    """K2 against torch_fused_loop. f64: status and counters equal per
+    trajectory, states and saves within 1e-10 of the states' scale (only
+    the summation order differs). f32 (rtol 1e-8 sits at f32 rounding, so
+    marginal accepts may flip): counters within 2, states within 1e-4, the
+    main path's bounds. Returns max |dx|."""
+    got, want, status = run_loop_pair(name, B, d, dtype)
+    dcount = int((got[1][:, INT_COLS] - want[1][:, INT_COLS]).abs().max())
+    scale = max(float(want[2].abs().max()), 1.0)
+    dx = float((got[2] - want[2]).abs().max())
+    ds = float((got[3] - want[3]).abs().max()) if got[3].numel() else 0.0
+    n_status = int((got[1][:, 1] == status).sum())
+    f64 = dtype == torch.float64
+    lim_c, lim_x = (0, 1e-10 * scale) if f64 else (2, 1e-4)
+    ok = (dcount <= lim_c and dx <= lim_x and ds <= lim_x and n_status == B
+          and bool(torch.isfinite(got[2]).all()))
+    print(f"[loop] {name} {str(dtype)[6:]} B={B} d={d}: status {status} on "
+          f"{n_status}/{B}, max|dcount|={dcount} (<= {lim_c}), "
+          f"max|dx|={dx:.3e}, max|dsaves|={ds:.3e} (<= {lim_x:.1e}), "
+          f"iterations up to {int(got[1][:, 5].max())}; "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"loop kernel disagrees with its twin: {name} "
+                             f"{dtype} B={B} d={d}")
+    return dx
+
+
+def check_persistent_is_chunked(name, B, d, dtype) -> None:
+    p, _, _ = run_loop_pair(name, B, d, dtype)
+    c, _, _ = run_loop_pair(name, B, d, dtype, chunk=5)
+    same = [bool(torch.equal(a, b)) for a, b in zip(p, c)]
+    print(f"[loop] persistent vs chunks of 5, {name} {str(dtype)[6:]} B={B} "
+          f"d={d}: fs/ist/x/saves bitwise equal {same}", flush=True)
+    if not all(same):
+        raise AssertionError("persistent and chunked loop kernels differ")
+
+
+def loop_kernel_phase() -> float:
+    for d in (DIM, 5):
+        for name in list(LOOP_CASES)[:-1]:
+            check_loop_pair(name, 1000, d, torch.float64)   # ragged tiles
+    for name in ("plain", "save_grid", "pi"):
+        check_loop_pair(name, LOOP_TRAJ, DIM, torch.float32)
+    check_persistent_is_chunked("save_grid", 1000, DIM, torch.float64)
+    check_persistent_is_chunked("pi", LOOP_TRAJ, DIM, torch.float32)
+    return check_loop_pair("loop_path", LOOP_TRAJ, DIM, torch.float32)
+
+
+def main_inputs(n: int = N_TRAJ):
     model = DrivenDense.make(d=DIM, seed=0)
     rng = np.random.default_rng(42)
-    psi0 = (rng.standard_normal((N_TRAJ, DIM))
-            + 1j * rng.standard_normal((N_TRAJ, DIM)))
+    psi0 = (rng.standard_normal((n, DIM))
+            + 1j * rng.standard_normal((n, DIM)))
     psi0 /= np.linalg.norm(psi0, axis=-1, keepdims=True)
     y0 = from_complex(psi0, torch.float32, device="cuda")
     st = FusedModulatedLinearRK.from_driven_dense(model, torch.float32,
@@ -170,17 +376,23 @@ def main_inputs():
     return st, y0
 
 
-def solve(st, y0):
+def solve(st, y0, save_at=None):
     return ensemble_solve(None, y0, 0.0, TF, stepper=st, ctl=CTL, h0=H0,
-                          adaptive=True, time_dtype=torch.float32)
+                          adaptive=True, save_at=save_at,
+                          time_dtype=torch.float32)
+
+
+def reset_counts() -> None:
+    fused_rk_step.launches = 0
+    fused_loop_chunk.launches = 0
 
 
 def main_path_phase(card: str) -> int:
     st, y0 = main_inputs()
-    fused_rk_step.launches = 0
+    reset_counts()
     sol = solve(st, y0)
     torch.cuda.synchronize()
-    launches = fused_rk_step.launches
+    launches, loop_launches = fused_rk_step.launches, fused_loop_chunk.launches
 
     n_iters = int(sol.n_iters.max())
     assert sol.y_final.re.shape == (N_TRAJ, DIM), sol.y_final.re.shape
@@ -193,9 +405,11 @@ def main_path_phase(card: str) -> int:
     assert norm_dev <= 1e-4, f"|psi| drifted by {norm_dev}"
     assert sol.path == "torch-driver+cuda-step", sol.path
     assert launches == n_iters, (launches, n_iters)
+    assert loop_launches == 0, loop_launches
     print(f"[main] {N_TRAJ}x{DIM}c RKF45 rtol={CTL.rtol:g}: all DONE, "
           f"max||psi|-1|={norm_dev:.3e}, path={sol.path}, "
-          f"kernel launches={launches} == max n_iters={n_iters}, "
+          f"kernel launches={launches} == max n_iters={n_iters} (loop "
+          f"kernel {loop_launches}), "
           f"n_accept {int(sol.n_accept.min())}..{int(sol.n_accept.max())}, "
           f"n_reject {int(sol.n_reject.min())}..{int(sol.n_reject.max())}",
           flush=True)
@@ -229,8 +443,58 @@ def main_path_phase(card: str) -> int:
     return launches
 
 
+def per_step_solve(st, y0, save_at=SAVE_AT):
+    """The per-step path on the same inputs: the host driver over the
+    stepper's step, a launch of K1 per iteration."""
+    grid = driver.make_grid(0.0, TF, save_at, dtype=torch.float32,
+                            device="cuda")
+    return driver.integrate(st.make_step_fn(), y0, grid, H0, ctl=CTL,
+                            error_norm=st.error_norm,
+                            batch_shape=(y0.re.shape[0],))
+
+
+def loop_path_phase(card: str) -> int:
+    st, y0 = main_inputs(LOOP_TRAJ)
+    reset_counts()
+    sol = solve(st, y0, SAVE_AT)
+    torch.cuda.synchronize()
+    launches, step_launches = fused_loop_chunk.launches, fused_rk_step.launches
+
+    assert sol.path == "cuda-loop-persistent", sol.path
+    assert launches == 1 and step_launches == 0, (launches, step_launches)
+    n_done = int((sol.status == DONE).sum())
+    assert n_done == LOOP_TRAJ, f"{LOOP_TRAJ - n_done} trajectories not DONE"
+    ys = torch.complex(sol.ys.re, sol.ys.im)           # (B, 11, d)
+    assert ys.shape == (LOOP_TRAJ, len(SAVE_AT) + 2, DIM), ys.shape
+    assert bool(torch.isfinite(ys.real).all() & torch.isfinite(ys.imag).all())
+    assert torch.equal(sol.ys.re[:, 0], y0.re)
+    assert torch.equal(sol.ys.re[:, -1], sol.y_final.re)
+    norm_dev = float((ys.abs().pow(2).sum(-1).sqrt() - 1).abs().max())
+    assert norm_dev <= 1e-4, f"|psi| drifted by {norm_dev}"
+    ref = per_step_solve(st, y0)
+    dcount = max(int((ref.n_accept - sol.n_accept).abs().max()),
+                 int((ref.n_reject - sol.n_reject).abs().max()),
+                 int((ref.n_iters - sol.n_iters).abs().max()))
+    dy = float(torch.maximum((ref.ys.re - sol.ys.re).abs(),
+                             (ref.ys.im - sol.ys.im).abs()).max())
+    assert int((ref.status == DONE).sum()) == LOOP_TRAJ
+    assert dy <= 1e-4 and dcount <= 2, (dy, dcount)
+    print(f"[loop-path] {LOOP_TRAJ}x{DIM}c RKF45 rtol={CTL.rtol:g}, "
+          f"{len(SAVE_AT)} interior saves: all DONE, path={sol.path}, loop "
+          f"kernel launches={launches} (step kernel {step_launches}), "
+          f"max||psi|-1| over saves and end={norm_dev:.3e}, n_iters up to "
+          f"{int(sol.n_iters.max())}; vs the per-step path on the card: "
+          f"max|dy| over saves and end={dy:.3e} (<= 1e-4), "
+          f"max|dcount|={dcount} (<= 2)", flush=True)
+    return launches
+
+
 def timed_ms(fn, reps: int = 3, inner: int = 1) -> float:
     """Median over ``reps`` of the CUDA-event time of ``inner`` calls."""
+    return statistics.median(timed_runs(fn, reps, inner))
+
+
+def timed_runs(fn, reps: int = 3, inner: int = 1) -> list:
     out = []
     for _ in range(reps):
         torch.cuda.synchronize()
@@ -242,32 +506,39 @@ def timed_ms(fn, reps: int = 3, inner: int = 1) -> float:
         b.record()
         torch.cuda.synchronize()
         out.append(a.elapsed_time(b) / inner)
-    return statistics.median(out)
+    return out
+
+
+def timed_solve(fn, label: str, card: str):
+    """Median of 3 CUDA-event timed solves after one warm solve, with
+    accepted steps per second and peak device memory. Returns (ms, the
+    first timed solution)."""
+    fn()
+    torch.cuda.reset_peak_memory_stats()
+    sols = []
+    walls = timed_runs(lambda: sols.append(fn()))
+    peak = torch.cuda.max_memory_allocated()
+    wall_ms = statistics.median(walls)
+    accepted = int(sols[0].n_accept.sum())
+    print(f"[time] {label}: median wall {wall_ms:.3f} ms of "
+          f"{[round(w, 3) for w in walls]}, {int(sols[0].n_iters.max())} "
+          f"iterations at most, {accepted} accepted steps, "
+          f"{accepted / (wall_ms / 1e3):.4e} accepted steps/s, peak memory "
+          f"{peak / 2**20:.1f} MiB ({card})", flush=True)
+    return wall_ms, sols[0]
+
+
+def k1_flop_bytes(B, D, stages, nbytes):
+    """One K1 launch: the stage products, and x in and out, t, dt, err and
+    [M0^T | M1^T] moved once."""
+    return (2 * stages * B * D * 2 * D,
+            nbytes * (2 * B * D + 3 * B + 2 * D * D))
 
 
 def timing_phase(card: str):
     st, y0 = main_inputs()
-    solve(st, y0)  # warm
-    torch.cuda.reset_peak_memory_stats()
-    walls, sols = [], []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        sols.append(solve(st, y0))
-        b.record()
-        torch.cuda.synchronize()
-        walls.append(a.elapsed_time(b))
-    peak = torch.cuda.max_memory_allocated()
-    wall_ms = statistics.median(walls)
-    accepted = int(sols[0].n_accept.sum())
-    iters = int(sols[0].n_iters.max())
-    print(f"[time] full solve {N_TRAJ}x{DIM}c f32: median wall "
-          f"{wall_ms:.3f} ms of {[round(w, 3) for w in walls]}, "
-          f"{iters} driver iterations, {accepted} accepted steps, "
-          f"{accepted / (wall_ms / 1e3):.4e} accepted steps/s, peak memory "
-          f"{peak / 2**20:.1f} MiB ({card})", flush=True)
+    timed_solve(lambda: solve(st, y0),
+                f"main path {N_TRAJ}x{DIM}c f32, per-step (K1)", card)
 
     sk, t, dt, xw = step_inputs(N_TRAJ, DIM, torch.float32)
     for _ in range(3):  # warm both
@@ -281,27 +552,121 @@ def timing_phase(card: str):
         p_runs.append(timed_ms(lambda: plain_step(sk, t, dt, xw),
                                reps=1, inner=20))
     k_ms, p_ms = statistics.median(k_runs), statistics.median(p_runs)
-    flop = 6 * N_TRAJ * (2 * DIM) * (4 * DIM) * 2
-    print(f"[time] one RKF45 step at B={N_TRAJ}, d={DIM}, f32: kernel "
+    flop, nbytes = k1_flop_bytes(N_TRAJ, 2 * DIM, RKF45.stages, 4)
+    b_ms, b_by = bound(flop, nbytes)
+    print(f"[time] K1 one RKF45 step at B={N_TRAJ}, d={DIM}, f32: kernel "
           f"{k_ms:.4f} ms ({flop / k_ms / 1e9:.2f} TFLOP/s), plain torch "
           f"{p_ms:.4f} ms ({flop / p_ms / 1e9:.2f} TFLOP/s); runs "
           f"kernel {[round(v, 4) for v in k_runs]}, plain "
-          f"{[round(v, 4) for v in p_runs]} ({card})", flush=True)
-    return k_ms, p_ms
+          f"{[round(v, 4) for v in p_runs]}; bound {b_ms:.4f} ms by {b_by} "
+          f"({flop / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB), kernel at "
+          f"{b_ms / k_ms:.1%} of it ({card})", flush=True)
+    return k_ms, p_ms, b_ms, b_by
+
+
+def k2_bound(ist, B, D, stages, n_grid, nbytes):
+    """The loop's least time: the stage products of every step the data
+    needs (accepted and rejected, Sum over rows), and the carries, the
+    state, the saves and the operators moved once."""
+    steps = int((ist[:, 3] + ist[:, 4]).sum())
+    flop = steps * 2 * stages * D * 2 * D
+    moved = (nbytes * (2 * B * (5 + D) + (n_grid - 2) * B * D + 2 * D * D
+                       + n_grid) + 2 * 4 * B * 8)
+    return bound(flop, moved), steps
+
+
+def loop_timing_phase(card: str):
+    st, y0 = main_inputs(LOOP_TRAJ)
+    loop_ms, _ = timed_solve(
+        lambda: solve(st, y0, SAVE_AT),
+        f"loop path {LOOP_TRAJ}x{DIM}c f32, {len(SAVE_AT)} saves, one K2 "
+        "launch", card)
+    step_ms, _ = timed_solve(
+        lambda: per_step_solve(st, y0),
+        f"per-step path on the same {LOOP_TRAJ} inputs and saves (K1)", card)
+
+    # the kernel alone and its twin, on the loop path's carries
+    grid = driver.make_grid(0.0, TF, SAVE_AT, dtype=torch.float32,
+                            device="cuda")
+    step = RKStep(M0=st.M0, M1=st.M1, w=st.w)
+    carries = init_carries(grid, torch.cat([y0.re, y0.im], 1), H0)
+    out = fused_loop_chunk(*carries, step, ctl=CTL)
+    k_runs, p_runs = [], []
+    for _ in range(3):  # in turns: kernel, plain
+        k_runs.append(timed_ms(lambda: fused_loop_chunk(*carries, step,
+                                                        ctl=CTL), reps=1))
+        p_runs.append(timed_ms(lambda: torch_fused_loop(
+            *carries[:4], carries[4].clone(), step, ctl=CTL), reps=1))
+    k_ms, p_ms = statistics.median(k_runs), statistics.median(p_runs)
+    (b_ms, b_by), steps = k2_bound(out[1], LOOP_TRAJ, 2 * DIM, RKF45.stages,
+                                   grid.shape[0], 4)
+    print(f"[time] K2 at the loop path ({LOOP_TRAJ}x{DIM}c, "
+          f"{len(SAVE_AT)} saves, f32): kernel {k_ms:.4f} ms (runs "
+          f"{[round(v, 4) for v in k_runs]}), plain twin {p_ms:.4f} ms "
+          f"(runs {[round(v, 4) for v in p_runs]}); bound {b_ms:.4f} ms by "
+          f"{b_by} ({steps} steps), kernel at {b_ms / k_ms:.1%} of it; loop "
+          f"path {loop_ms:.3f} ms vs per-step path {step_ms:.3f} ms "
+          f"({card})", flush=True)
+
+    # the loop kernel below the 2048 gate, at the main path's 16 384
+    st, y0 = main_inputs()
+    x0 = torch.cat([y0.re, y0.im], 1)
+    grid = driver.make_grid(0.0, TF, dtype=torch.float32, device="cuda")
+    big, sols = [], []
+
+    def run():
+        sols.append(fused_loop_integrate(grid, x0, H0, step, ctl=CTL,
+                                         persistent=True))
+
+    run()
+    torch.cuda.reset_peak_memory_stats()
+    big = timed_runs(run)
+    peak = torch.cuda.max_memory_allocated()
+    fs, ist, x, _ = sols[-1]
+    assert int((ist[:, 1] == DONE).sum()) == N_TRAJ
+    xc = torch.complex(x[:, :DIM], x[:, DIM:])
+    norm_dev = float((xc.abs().pow(2).sum(-1).sqrt() - 1).abs().max())
+    assert norm_dev <= 1e-4, norm_dev
+    big_ms = statistics.median(big)
+    accepted = int(ist[:, 3].sum())
+    (bb_ms, bb_by), bsteps = k2_bound(ist, N_TRAJ, 2 * DIM, RKF45.stages, 2,
+                                      4)
+    print(f"[time] K2 through fused_loop_integrate at {N_TRAJ}x{DIM}c f32, "
+          f"no saves: median {big_ms:.3f} ms of "
+          f"{[round(v, 3) for v in big]}, all DONE, max||psi|-1|="
+          f"{norm_dev:.3e}, {int(ist[:, 5].max())} iterations at most, "
+          f"{accepted} accepted steps, {accepted / (big_ms / 1e3):.4e} "
+          f"accepted steps/s, peak memory {peak / 2**20:.1f} MiB; bound "
+          f"{bb_ms:.4f} ms by {bb_by} ({bsteps} steps), kernel at "
+          f"{bb_ms / big_ms:.1%} of it ({card})", flush=True)
+    return k_ms, p_ms, b_ms, b_by
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     card = device_phase()
     build_phase(card)
-    max_abs_err = step_phase()
-    launches = main_path_phase(card)
-    k_ms, p_ms = timing_phase(card)
+    k1_err = step_phase()
+    norm_phase()
+    k2_err = loop_kernel_phase()
+    k1_launches = main_path_phase(card)
+    k2_launches = loop_path_phase(card)
+    k1 = timing_phase(card)
+    k2 = loop_timing_phase(card)
+    print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "fused_rk_step", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": launches,
-        "max_abs_err": max_abs_err, "ms": k_ms, "plain_ms": p_ms,
-    }]}), flush=True)
+    rows = []
+    for name, launches, err, (ms, plain_ms, b_ms, b_by) in (
+            ("fused_rk_step", k1_launches, k1_err, k1),
+            ("fused_loop", k2_launches, k2_err, k2)):
+        source, replaces = KERNELS[name]
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        })
+    print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

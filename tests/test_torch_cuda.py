@@ -1,7 +1,8 @@
-"""The hand-written CUDA kernel of the port against its plain torch twin,
-on a CUDA card. Every test here carries the ``cuda`` marker and skips
-without a card. The file imports no jax, so on a machine with a card but
-without jax it runs as
+"""The hand-written CUDA kernels of the port against their plain torch
+twins, on a CUDA card: the step kernel (K1) with and without a declared
+norm, and the whole-loop kernel (K2). Every test here carries the
+``cuda`` marker and skips without a card. The file imports no jax, so on
+a machine with a card but without jax it runs as
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
@@ -10,10 +11,12 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from chip_smoke import err_norm_limit
-from vec_ode_tpu_torch import DONE, StepControl, tableaus as ttab
+from vec_ode_tpu_torch import DONE, StepControl, lc, tableaus as ttab
 from vec_ode_tpu_torch.models import DrivenDense
 from vec_ode_tpu_torch.ops.cplx import Cplx, from_complex
+from vec_ode_tpu_torch.ops.fused_loop import fused_loop_chunk
 from vec_ode_tpu_torch.ops.fused_rk import (MAX_WIDTH,
                                             FusedModulatedLinearRK,
                                             fused_rk_step, torch_rk_step)
@@ -132,8 +135,10 @@ def test_step_fn_launches_the_kernel_once_per_step(card):
 
 
 def test_ensemble_on_the_card_matches_the_cpu_path_f64(card):
-    """The main path at a small size in f64: the kernel-driven solve on
-    the card against the plain-step solve on the CPU."""
+    """The ensemble at a small size in f64: on the card 300 trajectories
+    with f64 time take the whole-loop path (one launch of the loop kernel,
+    no step kernel), on the CPU the host driver over the plain step; the
+    same steps per trajectory."""
     model = DrivenDense.make(d=16, seed=0)
     rng = np.random.default_rng(42)
     psi = rng.standard_normal((300, 16)) + 1j * rng.standard_normal((300, 16))
@@ -143,16 +148,17 @@ def test_ensemble_on_the_card_matches_the_cpu_path_f64(card):
     for dev in ("cpu", "cuda"):
         st = FusedModulatedLinearRK.from_driven_dense(model, torch.float64,
                                                       device=dev)
-        before = fused_rk_step.launches
+        before = (fused_rk_step.launches, fused_loop_chunk.launches)
         sols[dev] = ensemble_solve(
             None, from_complex(psi, torch.float64, device=dev), 0.0, 1.0,
             stepper=st, ctl=ctl, h0=1e-3, save_at=(0.5,))
-        launched = fused_rk_step.launches - before
+        launched = (fused_rk_step.launches - before[0],
+                    fused_loop_chunk.launches - before[1])
         if dev == "cuda":
-            assert launched == int(sols[dev].n_iters.max())
-            assert sols[dev].path == "torch-driver+cuda-step"
+            assert launched == (0, 1)
+            assert sols[dev].path == "cuda-loop-persistent"
         else:
-            assert launched == 0 and sols[dev].path == "torch-driver"
+            assert launched == (0, 0) and sols[dev].path == "torch-driver"
     cpu, gpu = sols["cpu"], sols["cuda"]
     assert bool((gpu.status == DONE).all())
     for k in ("status", "n_accept", "n_reject", "n_iters"):
@@ -161,3 +167,108 @@ def test_ensemble_on_the_card_matches_the_cpu_path_f64(card):
         np.testing.assert_allclose(getattr(gpu.ys, part).cpu().numpy(),
                                    getattr(cpu.ys, part).numpy(), rtol=0,
                                    atol=1e-10)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind,weights", [("l2", True), ("max", True),
+                                          ("rms", False), ("max", False)])
+@pytest.mark.parametrize("B,d", [(1000, 64), (257, 5)])
+def test_kernel_declared_norm_matches_plain_step(card, B, d, kind, weights,
+                                                 dtype):
+    st, t, dt, xw = _inputs(B, d, dtype, card)
+    wnorm = chip_smoke.weighted(kind, d, weights)
+    kx, ke = fused_rk_step(t, dt, xw, st.M0, st.M1, w=st.w, wnorm=wnorm)
+    px, pe = torch_rk_step(t, dt, xw, st.M0, st.M1,
+                           u_fn=lambda ti: torch.cos(st.w * ti), wnorm=wnorm)
+    e_lim, _ = err_norm_limit(st, t, dt, xw, pe, wnorm=wnorm)
+    torch.cuda.synchronize()
+    assert torch.equal(kx, fused_rk_step(t, dt, xw, st.M0, st.M1, w=st.w)[0])
+    excess = (ke - pe).abs() - e_lim
+    assert bool((excess <= 0).all()), float(excess.max())
+
+
+LOOP_NAMES = [n for n in chip_smoke.LOOP_CASES if n != "loop_path"]
+
+
+@pytest.mark.parametrize("d", [64, 5])
+@pytest.mark.parametrize("name", LOOP_NAMES)
+def test_loop_kernel_matches_twin_f64(card, name, d):
+    """1000 trajectories (a ragged last tile): status and counters equal
+    per trajectory, states and saves within 1e-10 (chip_smoke's check)."""
+    chip_smoke.check_loop_pair(name, 1000, d, torch.float64)
+
+
+@pytest.mark.parametrize("name", ["plain", "save_grid", "pi", "loop_path"])
+def test_loop_kernel_matches_twin_f32(card, name):
+    chip_smoke.check_loop_pair(name, 2048, 64, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_loop_kernel_persistent_equals_chunked(card, dtype):
+    chip_smoke.check_persistent_is_chunked("save_grid", 1000, 64, dtype)
+
+
+def test_loop_path_through_ensemble_solve(card):
+    st, y0 = chip_smoke.main_inputs(512)
+    before = (fused_rk_step.launches, fused_loop_chunk.launches)
+    sol = chip_smoke.solve(st, y0, chip_smoke.SAVE_AT)
+    assert (fused_rk_step.launches - before[0],
+            fused_loop_chunk.launches - before[1]) == (0, 1)
+    assert sol.path == "cuda-loop-persistent"
+    assert bool((sol.status == DONE).all())
+    assert sol.ys.re.shape == (512, len(chip_smoke.SAVE_AT) + 2, 64)
+    # chunked on request, and the same result
+    chunked = st.fused_loop_solve(
+        y0, sol.ts[0], chip_smoke.H0, ctl=chip_smoke.CTL, adaptive=True,
+        persistent=False)
+    assert chunked.path == "cuda-loop-chunked"
+    assert torch.equal(chunked.ys.re, sol.ys.re)
+    assert torch.equal(chunked.n_iters, sol.n_iters)
+    # above the crossover, or with fixed steps: the per-step path
+    sol = chip_smoke.solve(*chip_smoke.main_inputs(2049))
+    assert sol.path == "torch-driver+cuda-step"
+    sol = ensemble_solve(None, y0, 0.0, 0.01, stepper=st, ctl=chip_smoke.CTL,
+                         h0=1e-3, adaptive=False, time_dtype=torch.float32)
+    assert sol.path == "torch-driver+cuda-step"
+    # a time dtype other than the state's: the loop declines, and the step
+    # kernel refuses it (the JAX package's per-step path fails there too)
+    grid64 = torch.tensor([0.0, 0.1], dtype=torch.float64, device="cuda")
+    assert st.fused_loop_solve(y0, grid64, 1e-3, ctl=chip_smoke.CTL,
+                               adaptive=True) is None
+    with pytest.raises(TypeError, match="float64"):
+        ensemble_solve(None, y0, 0.0, 0.1, stepper=st, ctl=chip_smoke.CTL,
+                       h0=1e-3)
+    # scaled_error runs in the loop kernel, and nowhere else
+    ctl = StepControl(rtol=1e-6, atol=1e-9, scaled_error=True)
+    sol = ensemble_solve(None, y0, 0.0, 0.1, stepper=st, ctl=ctl, h0=1e-3,
+                         time_dtype=torch.float32)
+    assert sol.path == "cuda-loop-persistent"
+    with pytest.raises(ValueError, match="scaled_error"):
+        ensemble_solve(None, y0, 0.0, 0.1, stepper=st, ctl=ctl, h0=1e-3)
+    # a declared norm runs in both kernels
+    norm = lc.WeightedNorm("max")
+    sol = ensemble_solve(None, y0, 0.0, 0.1, stepper=st, h0=1e-3,
+                         ctl=chip_smoke.CTL, error_norm=norm,
+                         time_dtype=torch.float32)
+    assert sol.path == "cuda-loop-persistent" and bool(
+        (sol.status == DONE).all())
+
+
+def test_loop_wrapper_refuses_what_the_kernel_does_not_take(card):
+    carries, step, ctl, _ = chip_smoke.loop_case("save_grid", 16, 4,
+                                                 torch.float32)
+    t_grid, fs, ist, x, saves = carries
+    with pytest.raises(ValueError, match="t_grid"):
+        fused_loop_chunk(t_grid.cpu(), fs, ist, x, saves, step, ctl=ctl)
+    with pytest.raises(TypeError, match="ist"):
+        fused_loop_chunk(t_grid, fs, ist.long(), x, saves, step, ctl=ctl)
+    with pytest.raises(ValueError, match="fs"):
+        fused_loop_chunk(t_grid, fs[:8], ist, x, saves, step, ctl=ctl)
+    with pytest.raises(ValueError, match="saves"):
+        fused_loop_chunk(t_grid, fs, ist, x, saves[:1], step, ctl=ctl)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_loop_chunk(t_grid, fs, ist, x.t().contiguous().t(), saves,
+                         step, ctl=ctl)
+    with pytest.raises(TypeError):
+        fused_loop_chunk(t_grid.double(), fs.double(), ist, x.double(),
+                         saves, step, ctl=ctl)

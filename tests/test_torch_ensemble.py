@@ -3,6 +3,8 @@ ensemble_solve`` over the fused RKF45 stepper, against the JAX package's
 ``ensemble_solve`` (XLA driver, ``use_pallas=False``) on the same numpy
 inputs, and against the native C++ oracle for a constant operator."""
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -43,9 +45,10 @@ def _solve_both(psi, M0, M1, w, dtype, ctl_kw, t0=0.0, tf=1.0, h0=1e-3,
         None, jcp.from_complex(psi, jdt), t0, tf, stepper=jst,
         ctl=vo.StepControl(**ctl_kw), h0=h0, save_at=save_at,
         time_dtype=jdt)
-    st = convert.stepper_from_numpy(M0, M1, w, dtype=tdt)
+    st = convert.stepper_from_numpy(M0, M1, w, dtype=tdt, device="cpu")
     got = ensemble_solve(
-        None, convert.state_from_numpy(psi.real, psi.imag, dtype=tdt), t0,
+        None, convert.state_from_numpy(psi.real, psi.imag, dtype=tdt,
+                                       device="cpu"), t0,
         tf, stepper=st, ctl=vt.StepControl(**ctl_kw), h0=h0,
         save_at=save_at, time_dtype=tdt)
     return want, got, convert.solution_to_numpy(got)
@@ -129,8 +132,8 @@ def test_zero_length_interval_is_done_immediately():
 ])
 def test_bad_inputs_raise_value_error(kw):
     _, M0, M1, psi = _problem(2, d=3)
-    st = convert.stepper_from_numpy(M0, M1, 1.0)
-    y0 = convert.state_from_numpy(psi.real, psi.imag)
+    st = convert.stepper_from_numpy(M0, M1, 1.0, device="cpu")
+    y0 = convert.state_from_numpy(psi.real, psi.imag, device="cpu")
     kw = dict(dict(h0=1e-3), **kw)
     with pytest.raises(ValueError):
         ensemble_solve(None, y0, 0.0, 1.0, stepper=st,
@@ -144,8 +147,9 @@ def test_bad_inputs_raise_value_error(kw):
 ])
 def test_unported_options_raise_not_implemented(kw):
     _, M0, M1, psi = _problem(2, d=3)
-    kw = dict(dict(stepper=convert.stepper_from_numpy(M0, M1, 1.0)), **kw)
-    y0 = convert.state_from_numpy(psi.real, psi.imag)
+    kw = dict(dict(stepper=convert.stepper_from_numpy(M0, M1, 1.0,
+                                                      device="cpu")), **kw)
+    y0 = convert.state_from_numpy(psi.real, psi.imag, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ensemble_solve(None, y0, 0.0, 1.0, h0=1e-3, **kw)
 
@@ -153,9 +157,10 @@ def test_unported_options_raise_not_implemented(kw):
 def test_scaled_error_needs_the_loop_kernel():
     _, M0, M1, psi = _problem(2, d=3)
     with pytest.raises(ValueError, match="scaled_error"):
-        ensemble_solve(None, convert.state_from_numpy(psi.real, psi.imag),
+        ensemble_solve(None, convert.state_from_numpy(psi.real, psi.imag,
+                                                      device="cpu"),
                        0.0, 1.0, stepper=convert.stepper_from_numpy(
-                           M0, M1, 1.0),
+                           M0, M1, 1.0, device="cpu"),
                        ctl=vt.StepControl(scaled_error=True), h0=1e-3)
 
 
@@ -164,10 +169,11 @@ def test_constant_operator_matches_native_oracle():
     oracle's reference semantics (plain time, strict end test)."""
     _, M0, _, psi = _problem(4, d=16, seed=7)
     kw = dict(rtol=1e-8, min_dt=1e-6, max_dt=0.25)
-    st = convert.stepper_from_numpy(M0, np.zeros_like(M0), 1.0)
+    st = convert.stepper_from_numpy(M0, np.zeros_like(M0), 1.0,
+                                    device="cpu")
     sol = ensemble_solve(
-        None, convert.state_from_numpy(psi.real, psi.imag), 0.0, 1.0,
-        stepper=st, h0=1e-3,
+        None, convert.state_from_numpy(psi.real, psi.imag, device="cpu"),
+        0.0, 1.0, stepper=st, h0=1e-3,
         ctl=vt.StepControl(time_compensated=False, strict_end_test=True,
                            **kw))
     g = convert.solution_to_numpy(sol)
@@ -198,7 +204,7 @@ def test_step_once_event_sequence_matches_jax():
     model, M0, M1, psi = _problem(4, d=8)
     jst = JStepper(M0=M0, M1=M1, u_fn=lambda t: jnp.cos(model.w * t),
                    use_pallas=False)
-    st = convert.stepper_from_numpy(M0, M1, model.w)
+    st = convert.stepper_from_numpy(M0, M1, model.w, device="cpu")
     kw = dict(rtol=1e-8, max_dt=0.25)
     jstep = jax.jit(functools.partial(
         jd.step_once, step_fn=jst.make_step_fn(), adaptive=True,
@@ -206,7 +212,8 @@ def test_step_once_event_sequence_matches_jax():
     grid = (0.0, 0.3, 1.0)
     js = jd.init_state(jcp.from_complex(psi, jnp.float64),
                        jnp.asarray(grid), 1e-3, batch_shape=(4,))
-    ts = td.init_state(convert.state_from_numpy(psi.real, psi.imag),
+    ts = td.init_state(convert.state_from_numpy(psi.real, psi.imag,
+                                                device="cpu"),
                        torch.tensor(grid, dtype=torch.float64), 1e-3,
                        batch_shape=(4,))
     tstep = st.make_step_fn()
@@ -258,3 +265,52 @@ def test_lc_helpers_match_jax():
     with pytest.raises(ValueError, match="lower rank"):
         tlc.tree_where(torch.ones(5, 3, dtype=torch.bool), torch.zeros(5),
                        torch.zeros(5))
+
+
+@pytest.mark.parametrize("kind,weighted", [("l2", True), ("rms", False),
+                                           ("max", True)])
+def test_declared_norm_parity_with_jax_f64(kind, weighted):
+    """error_norm=WeightedNorm on both sides (the driver tier: XLA driver
+    there, the port's host driver here): the same steps per trajectory."""
+    from vec_ode_tpu import lc as jlc
+    from vec_ode_tpu_torch import lc as tlc
+
+    d = 16
+    model, M0, M1, psi = _problem(12, d=d)
+    weights = tuple(np.linspace(0.5, 2.0, d)) if weighted else None
+    kw = dict(rtol=1e-8, min_dt=1e-6, max_dt=0.25)
+    jst = JStepper(M0=M0, M1=M1, u_fn=lambda t: jnp.cos(model.w * t),
+                   use_pallas=False)
+    want = jax_ensemble_solve(
+        None, jcp.from_complex(psi, jnp.float64), 0.0, 1.0, stepper=jst,
+        ctl=vo.StepControl(**kw), h0=1e-3, save_at=(0.5,),
+        error_norm=jlc.WeightedNorm(kind, weights))
+    got = ensemble_solve(
+        None, convert.state_from_numpy(psi.real, psi.imag, device="cpu"),
+        0.0, 1.0, stepper=convert.stepper_from_numpy(M0, M1, model.w,
+                                                      device="cpu"),
+        ctl=vt.StepControl(**kw), h0=1e-3, save_at=(0.5,),
+        error_norm=tlc.WeightedNorm(kind, weights))
+    assert got.path == "torch-driver"
+    g = convert.solution_to_numpy(got)
+    assert (g["status"] == vt.DONE).all()
+    for k in COUNTERS:
+        np.testing.assert_array_equal(g[k], np.asarray(getattr(want, k)),
+                                      err_msg=k)
+    for part in ("re", "im"):
+        np.testing.assert_allclose(getattr(g["ys"], part),
+                                   np.asarray(getattr(want.ys, part)),
+                                   rtol=1e-9, atol=1e-12)
+    np.testing.assert_allclose(g["h_final"], np.asarray(want.h_final),
+                               rtol=1e-9)
+    # a different norm than the stepper's own raises; so does scaled_error
+    st = convert.stepper_from_numpy(M0, M1, model.w, device="cpu")
+    y0 = convert.state_from_numpy(psi.real, psi.imag, device="cpu")
+    st = dataclasses.replace(st, norm=tlc.WeightedNorm("l2"))
+    with pytest.raises(ValueError, match="different norm"):
+        ensemble_solve(None, y0, 0.0, 1.0, stepper=st, h0=1e-3,
+                       error_norm=tlc.WeightedNorm("max"))
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        ensemble_solve(None, y0, 0.0, 1.0, stepper=st, h0=1e-3,
+                       error_norm=tlc.WeightedNorm("l2"),
+                       ctl=vt.StepControl(scaled_error=True))

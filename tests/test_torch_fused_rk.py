@@ -150,6 +150,19 @@ def test_kernel_module_imports_without_nvcc():
     assert (_build.CSRC / "fused_rk_step.cu").exists()
     assert "-use_fast_math" not in " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    assert _build.build_log("fused_rk_step") == path.with_suffix(".log")
+
+
+def test_library_name_follows_shared_headers(tmp_path, monkeypatch):
+    """An edited shared header (csrc/*.cuh) gives every library a new
+    name, so a stale build is never loaded."""
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "step.cuh"\n')
+    (tmp_path / "step.cuh").write_text("// v1\n")
+    first = _build.library_path("k")
+    assert _build.library_path("k") == first
+    (tmp_path / "step.cuh").write_text("// v2\n")
+    assert _build.library_path("k") != first
 
 
 def test_stepper_declarations():
@@ -172,7 +185,8 @@ def test_from_driven_dense_matches_jax():
     assert model.w == jmodel.w
     for dtype, jdtype in ((torch.float32, jnp.float32),
                           (torch.float64, jnp.float64)):
-        st = FusedModulatedLinearRK.from_driven_dense(model, dtype)
+        st = FusedModulatedLinearRK.from_driven_dense(model, dtype,
+                                                      device="cpu")
         jst = JStepper.from_driven_dense(jmodel, jdtype)
         assert st.M0.dtype == dtype
         np.testing.assert_array_equal(st.M0.numpy(), np.asarray(jst.M0))
@@ -184,7 +198,7 @@ def test_hermite_slope_matches_jax():
     jst = JStepper.from_driven_dense(JDrivenDense.make(d=6, seed=1),
                                      jnp.float64)
     st = FusedModulatedLinearRK.from_driven_dense(
-        DrivenDense.make(d=6, seed=1), torch.float64)
+        DrivenDense.make(d=6, seed=1), torch.float64, device="cpu")
     rng = np.random.default_rng(2)
     re, im = rng.standard_normal((2, 5, 6))
     t = rng.uniform(0, 1, 5)
@@ -205,12 +219,125 @@ def test_cplx_helpers_match_jax():
 
     rng = np.random.default_rng(4)
     z = rng.standard_normal((3, 4, 4)) + 1j * rng.standard_normal((3, 4, 4))
-    c = tcp.from_complex(z)
+    c = tcp.from_complex(z, device="cpu")
     assert c.dtype == torch.float64 and c.shape == (3, 4, 4)
     np.testing.assert_array_equal(tcp.to_complex(c).numpy(), z)
     np.testing.assert_array_equal(
-        tcp.from_complex(torch.as_tensor(z), torch.float32).re.numpy(),
+        tcp.from_complex(torch.as_tensor(z), torch.float32,
+                         device="cpu").re.numpy(),
         z.real.astype(np.float32))
     np.testing.assert_array_equal(
         tcp.embed(c).numpy(),
         np.asarray(jcp.embed(jcp.from_complex(z, jnp.float64))))
+
+
+NORMS = [("l2", None), ("l2", "ramp"), ("rms", "ramp"), ("max", None),
+         ("max", "ramp")]
+
+
+def _norm(kind, weights, d):
+    from vec_ode_tpu import lc as jlc
+    from vec_ode_tpu_torch import lc
+
+    w = None if weights is None else tuple(np.linspace(0.5, 2.0, d))
+    return lc.WeightedNorm(kind, w), jlc.WeightedNorm(kind, w)
+
+
+@pytest.mark.parametrize("kind,weights", NORMS)
+@pytest.mark.parametrize("d", [64, 5])
+def test_torch_step_with_declared_norm_matches_xla_step_f64(d, kind,
+                                                            weights):
+    M0, M1, w, t, dt, xw = _problem(8, d, np.float64)
+    tnorm, jnorm = _norm(kind, weights, d)
+    jx, je = xla_rk_step(
+        jnp.asarray(t), jnp.asarray(dt), jnp.asarray(xw), jnp.asarray(M0),
+        jnp.asarray(M1), u_fn=lambda ti: jnp.cos(w * ti),
+        wnorm=jnorm.kernel_parts(d, 2))
+    tx, te = torch_rk_step(
+        *_torch(t, dt, xw, M0, M1), u_fn=lambda ti: torch.cos(w * ti),
+        wnorm=tnorm.kernel_parts(d, 2))
+    # as test_torch_step_matches_xla_step_f64: the error vector is a
+    # cancelling sum, its last digits follow the BLAS summation order
+    np.testing.assert_allclose(tx.numpy(), np.asarray(jx), rtol=0,
+                               atol=1e-12)
+    np.testing.assert_allclose(te.numpy(), np.asarray(je), rtol=1e-9,
+                               atol=1e-18)
+    # the wrapper on CPU tensors is the same plain step
+    fx, fe = fused_rk_step(*_torch(t, dt, xw, M0, M1), w=w,
+                           wnorm=tnorm.kernel_parts(d, 2))
+    assert torch.equal(fx, tx) and torch.equal(fe, te)
+
+
+@pytest.mark.parametrize("advance_lower", [True, False])
+def test_torch_step_scaled_error_matches_error_measure_f64(advance_lower):
+    """``scaled=(atol, rtol)`` against the JAX package's
+    ``controller.error_measure`` applied to the unreduced error vector
+    (``xla_rk_step`` returns it for an identity norm executor)."""
+    from vec_ode_tpu import controller as jc
+    from vec_ode_tpu import lc as jlc
+    import vec_ode_tpu as vo
+
+    M0, M1, w, t, dt, xw = _problem(8, 64, np.float64)
+    ctl = vo.StepControl(rtol=1e-6, atol=1e-9, scaled_error=True)
+    args = (jnp.asarray(t), jnp.asarray(dt), jnp.asarray(xw),
+            jnp.asarray(M0), jnp.asarray(M1))
+    kw = dict(u_fn=lambda ti: jnp.cos(w * ti), advance_lower=advance_lower)
+    jx, jerr = xla_rk_step(*args, wnorm=lambda dv: dv, **kw)
+    want = jc.error_measure(jlc.norm_l2_batched, args[2], jx, jerr, ctl)
+    tx, te = torch_rk_step(
+        *_torch(t, dt, xw, M0, M1), u_fn=lambda ti: torch.cos(w * ti),
+        advance_lower=advance_lower, scaled=(ctl.atol, ctl.rtol))
+    np.testing.assert_allclose(tx.numpy(), np.asarray(jx), rtol=0,
+                               atol=1e-12)
+    # the unscaled test's floor of 1e-18 on the error vector, divided by
+    # atol at the least and multiplied by rtol
+    np.testing.assert_allclose(te.numpy(), np.asarray(want), rtol=1e-9,
+                               atol=1e-18 * ctl.rtol / ctl.atol)
+    # scaling at tiny atol on O(0.1) states makes the measure larger
+    _, plain = torch_rk_step(*_torch(t, dt, xw, M0, M1),
+                             u_fn=lambda ti: torch.cos(w * ti),
+                             advance_lower=advance_lower)
+    assert bool((te > plain).all())
+
+
+def test_stepper_runs_a_declared_norm_on_the_cpu():
+    from vec_ode_tpu_torch import lc
+
+    M0, M1, w, t, dt, xw = _problem(16, 5, np.float64)
+    norm = lc.WeightedNorm("max", tuple(np.linspace(1.0, 2.0, 5)))
+    st = FusedModulatedLinearRK(M0=torch.as_tensor(M0),
+                                M1=torch.as_tensor(M1), w=w, norm=norm)
+    t, dt, xw = _torch(t, dt, xw)
+    y, e = st.make_step_fn()(t, Cplx(xw[:, :5], xw[:, 5:]), dt)
+    want_x, want_e = torch_rk_step(t, dt, xw, st.M0, st.M1,
+                                   u_fn=lambda ti: torch.cos(w * ti),
+                                   wnorm=norm.kernel_parts(5, 2))
+    assert torch.equal(torch.cat([y.re, y.im], 1), want_x)
+    assert torch.equal(e, want_e)
+    bad = FusedModulatedLinearRK(M0=st.M0, M1=st.M1, w=w,
+                                 norm=lc.WeightedNorm("l2", (1.0, 2.0)))
+    with pytest.raises(ValueError, match="length 5"):
+        bad.make_step_fn()(t, Cplx(xw[:, :5], xw[:, 5:]), dt)
+
+
+def test_constructors_default_to_the_card():
+    """Without ``device=`` the port's constructors put their tensors on
+    the card; on a machine without one they raise instead of returning CPU
+    tensors."""
+    from vec_ode_tpu_torch import convert, driver
+    from vec_ode_tpu_torch.ops.cplx import from_complex
+
+    if torch.cuda.is_available():
+        pytest.skip("this box has a card: the defaults succeed there")
+    z = np.ones((2, 3), complex)
+    for make in (lambda: from_complex(z),
+                 lambda: from_complex(torch.as_tensor(z)),
+                 lambda: FusedModulatedLinearRK.from_driven_dense(
+                     DrivenDense.make(d=3, seed=0)),
+                 lambda: convert.stepper_from_numpy(np.eye(6), np.eye(6),
+                                                    1.0),
+                 lambda: convert.state_from_numpy(z.real, z.imag),
+                 lambda: driver.make_grid(0.0, 1.0)):
+        with pytest.raises((RuntimeError, AssertionError),
+                           match="CUDA|cuda|NVIDIA"):
+            make()

@@ -1,0 +1,96 @@
+"""The declared error norm of the port (``vec_ode_tpu_torch.lc``) against
+the JAX package's ``vec_ode_tpu.lc``: ``WeightedNorm`` (l2 / rms / max,
+with and without weights) on Cplx and plain states, ``kernel_parts`` and
+``apply_weighted_norm``, in f64 on the same numpy inputs."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vec_ode_tpu import lc as jlc
+from vec_ode_tpu.ops import cplx as jcp
+from vec_ode_tpu_torch import lc
+from vec_ode_tpu_torch.ops.cplx import Cplx
+
+torch.set_num_threads(1)
+
+B, D = 5, 6
+WEIGHTS = tuple(np.linspace(0.25, 3.0, D))
+
+
+def _errs(seed=2):
+    rng = np.random.default_rng(seed)
+    re, im = rng.standard_normal((2, B, D)) * 10.0 ** rng.uniform(-9, 0, D)
+    return re, im
+
+
+@pytest.mark.parametrize("weights", [None, WEIGHTS])
+@pytest.mark.parametrize("kind", ["l2", "rms", "max"])
+def test_weighted_norm_matches_jax(kind, weights):
+    re, im = _errs()
+    got, want = lc.WeightedNorm(kind, weights), jlc.WeightedNorm(kind, weights)
+    assert got.weights == want.weights
+    terr = Cplx(torch.as_tensor(re), torch.as_tensor(im))
+    jerr = jcp.Cplx(jnp.asarray(re), jnp.asarray(im))
+    np.testing.assert_allclose(got.batched(terr).numpy(),
+                               np.asarray(want.batched(jerr)), rtol=1e-15)
+    for i in range(B):   # per trajectory, and on a plain array
+        np.testing.assert_allclose(
+            float(got(Cplx(terr.re[i], terr.im[i]))),
+            float(want(jcp.Cplx(jerr.re[i], jerr.im[i]))), rtol=1e-15)
+        np.testing.assert_allclose(float(got(torch.as_tensor(re[i]))),
+                                   float(want(jnp.asarray(re[i]))),
+                                   rtol=1e-15)
+    parts, jparts = got.kernel_parts(D, 2), want.kernel_parts(D, 2)
+    assert parts[1:] == jparts[1:]
+    if weights is None:
+        assert parts[0] is None and jparts[0] is None
+    else:
+        np.testing.assert_array_equal(parts[0], jparts[0])
+    # the kernels' executor over the widened [re | im] layout
+    dv = np.concatenate([re, im], axis=1)
+    np.testing.assert_allclose(
+        lc.apply_weighted_norm(torch.as_tensor(dv), parts, axis=1).numpy(),
+        np.asarray(jlc.apply_weighted_norm(jnp.asarray(dv), jparts, axis=1)),
+        rtol=1e-15)
+    np.testing.assert_allclose(
+        lc.apply_weighted_norm(torch.as_tensor(dv), parts, axis=1).numpy(),
+        got.batched(terr).numpy(), rtol=1e-15)
+
+
+def test_plain_l2_executor_matches_jax():
+    re, im = _errs(3)
+    dv = np.concatenate([re, im], axis=1)
+    np.testing.assert_allclose(
+        lc.apply_weighted_norm(torch.as_tensor(dv), None, axis=1).numpy(),
+        np.asarray(jlc.apply_weighted_norm(jnp.asarray(dv), None, axis=1)),
+        rtol=1e-15)
+
+
+def test_max_norm_propagates_nan():
+    err = torch.tensor([[1.0, float("nan"), 2.0], [1.0, 3.0, 2.0]])
+    got = lc.WeightedNorm("max").batched(err)
+    assert torch.isnan(got[0]) and got[1] == 3.0
+
+
+def test_rejections():
+    for bad in ("l1", "L2"):
+        with pytest.raises(ValueError, match="kind"):
+            lc.WeightedNorm(bad)
+        with pytest.raises(ValueError, match="kind"):
+            jlc.WeightedNorm(bad)
+    with pytest.raises(NotImplementedError, match="item 26"):
+        lc.WeightedNorm("l2", weights=(np.ones(3), np.ones(4)))
+    with pytest.raises(NotImplementedError, match="item 26"):
+        lc.WeightedNorm("l2", weights=np.ones((2, 3)))
+    with pytest.raises(NotImplementedError, match="item 26"):
+        lc.TracedNorm(lambda e: e)
+    # weights that do not fit the layout: no kernel parts, on both sides
+    assert lc.WeightedNorm("l2", WEIGHTS).kernel_parts(D + 1, 2) is None
+    assert jlc.WeightedNorm("l2", WEIGHTS).kernel_parts(D + 1, 2) is None
+    assert lc.WeightedNorm("l2", 2.0).kernel_parts(D, 2) is None
+    # a declaration is hashable and compares by value
+    assert lc.WeightedNorm("max", np.asarray(WEIGHTS)) == lc.WeightedNorm(
+        "max", list(WEIGHTS))
+    assert len({lc.WeightedNorm("l2"), lc.WeightedNorm("l2")}) == 1

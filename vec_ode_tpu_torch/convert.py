@@ -13,10 +13,11 @@ from .tableaus import RKF45
 
 
 def stepper_from_numpy(M0, M1, w, *, tableau=RKF45, advance_lower=True,
-                       device=None, dtype=torch.float64):
+                       device="cuda", dtype=torch.float64):
     """A ``FusedModulatedLinearRK`` over the embedded (2d, 2d) matrices as
     the JAX package's ``FusedModulatedLinearRK.from_driven_dense`` builds
-    them (``np.asarray(stepper.M0)``), with the drive cos(w t)."""
+    them (``np.asarray(stepper.M0)``), with the drive cos(w t), on the
+    card unless ``device`` names another."""
     return FusedModulatedLinearRK(
         M0=torch.as_tensor(np.asarray(M0), dtype=dtype, device=device),
         M1=torch.as_tensor(np.asarray(M1), dtype=dtype, device=device),
@@ -24,8 +25,10 @@ def stepper_from_numpy(M0, M1, w, *, tableau=RKF45, advance_lower=True,
     )
 
 
-def state_from_numpy(re, im, *, device=None, dtype=torch.float64) -> Cplx:
-    """A Cplx state from numpy (re, im) parts."""
+def state_from_numpy(re, im, *, device="cuda",
+                     dtype=torch.float64) -> Cplx:
+    """A Cplx state from numpy (re, im) parts, on the card unless
+    ``device`` names another."""
     return Cplx(torch.as_tensor(np.asarray(re), dtype=dtype, device=device),
                 torch.as_tensor(np.asarray(im), dtype=dtype, device=device))
 

@@ -1,0 +1,315 @@
+// The whole adaptive Runge-Kutta driver loop for an ensemble of
+// trajectories of dx/dt = (M0 + cos(w t) M1) x, written by hand for Hopper
+// (sm_90a).
+//
+// Replaces the Pallas TPU kernel vec_ode_tpu/ops/pallas_loop.py:
+// _make_loop_kernel, launched by fused_loop_chunk (pallas_call at :1135),
+// with the RK step of make_rk_step_builder (:890) inside it; the step is
+// rk_step.cuh's rk_step_tile, which the per-step kernel runs too. Per
+// trajectory it runs driver iterations as _make_loop_kernel.iteration
+// (:268-551) does, row for row: the save-grid consult (chk_t, the end
+// tolerance, the compensated remaining time), dt = min(h, rem) on stepping
+// rows, the step with its embedded error measure (l2, a declared
+// WeightedNorm, or scaled_error), the controller (I, or PI with the I-term
+// after a reject, the NaN guard), the interior save at a grid hit, the
+// compensated (TwoSum + Fast2Sum) or plain time advance, the step-size
+// update with the grid-hit restore, and status, event, counters and reject
+// streak in the same order. Not here: events (:356-449), dense output
+// (:455-474), the lane-packed group mode and windowed saves (TPU layout).
+//
+// Blocks. One block owns a tile of R trajectories and loops until no row
+// of its tile is RUNNING (__syncthreads_or), or for `iters` iterations
+// when iters > 0 (chunked). ctl.max_steps bounds every row. Between
+// iterations nothing leaves the block: its rows' state x, the trial state
+// y and the s stage values live in shared memory, and the per-row scalars
+// (t, h, prev_h, err_prev, t_lo, tgt, status, event, counters, streak) in
+// the registers of thread r of the block, which runs row r's controller.
+// The grid point comes from device memory, chk_t = t_grid[min(tgt,
+// n_grid - 1)], and interior saves go straight into the (n_grid - 2, B, D)
+// buffer in device memory at their grid-hit iterations (no cap, no
+// window). The ragged last tile is masked. The carries are read at entry
+// and written back at exit.
+//
+// Choice of R: the largest of 16, 8, 4 rows whose (s + 2) x R x D state
+// slots take at most 64 KB and whose RT = 4 rows x CT = 4 columns per
+// thread need at most 256 threads. At B = 2048, d = 64, RKF45 that is
+// R = 16 in f32 (64 KB, 128 threads, 128 blocks for the 132 SMs) and
+// R = 8 in f64 (the same 64 KB, 256 blocks); widths up to 2d = 512 and
+// 7 stages fit down to R = 4. More rows per block would leave SMs idle at
+// B = 2048; fewer would reread the operators from L2 for fewer rows.
+//
+// What bounds it: FP32 FMA throughput, as in the per-step kernel: each
+// iteration of each row is 6 stages x 128 x 256 x 2 = 393 216 FLOP at
+// d = 64 (RKF45), and the loop touches device memory only for its
+// carries, the operators (from L2) and its saves. At B = 2048 it also has
+// too few blocks to fill the card (one slow row holds its whole tile), so
+// latency, not throughput, is likely to bound it; making it fast is later
+// work.
+//
+// Precision. The time arithmetic is written with explicitly rounded
+// operations (__fadd_rn, __fsub_rn, __fmul_rn and the f64 ones): the
+// compensated time is a TwoSum + Fast2Sum whose residual word would vanish
+// under contraction. The controller's power is powf / pow (not __powf and
+// not exp(log)); build without --use_fast_math.
+
+#include "rk_step.cuh"
+
+namespace {
+
+using namespace vec_ode;
+
+constexpr int RT = 4;                        // rows per thread in the step
+constexpr int MAX_ROWS = 16;                 // rows per block, at most
+constexpr int MAX_THREADS = 256;
+constexpr size_t SLOT_BUDGET = 64 * 1024;    // bytes of state slots per block
+constexpr int N_F = 5;                       // t, h, prev_h, err_norm, t_lo
+constexpr int N_I = 8;                       // tgt, status, event, n_acc, n_rej, n_it, streak, bits
+
+// status and event codes (vec_ode_tpu_torch/driver.py)
+constexpr int RUNNING = 0, DONE = 1, ERR_MAX_STEPS = 2, ERR_STALLED = 3, ERR_BAD_GRID = 4;
+constexpr int EVT_NONE = 0, EVT_STEP = 1, EVT_CHKPT = 2, EVT_REJECT = 3, EVT_END = 4;
+
+template <typename T>
+struct Ctl {
+  T rtol, alpha, inv_order, min_f, max_f, min_dt, max_dt, k_i, k_p, inv_pi_order;
+  int max_steps, max_streak, pi, comp, strict;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(MAX_THREADS)
+fused_loop_kernel(const T* __restrict__ t_grid, int n_grid, const T* __restrict__ fs_in,
+                  const int* __restrict__ ist_in, const T* __restrict__ x_in,
+                  T* __restrict__ fs_out, int* __restrict__ ist_out, T* __restrict__ x_out,
+                  T* __restrict__ saves, int B, int D, int tile, const T* __restrict__ mt,
+                  Tableau<T> tab, int s, int advance_lower, T w, ErrNorm<T> en, Ctl<T> ctl,
+                  int iters) {
+  extern __shared__ unsigned char smem_raw[];
+  const size_t n = (size_t)tile * D;
+  T* ks = reinterpret_cast<T*>(smem_raw);  // s slots of (tile, D)
+  T* xs = ks + s * n;                      // the state x (tile, D)
+  T* ys = xs + n;                          // the trial state y (tile, D)
+  T* s_t = ys + n;                         // per row: t, dt, err measure
+  T* s_dt = s_t + tile;
+  T* s_err = s_dt + tile;
+  int* s_act = reinterpret_cast<int*>(s_err + tile);  // bit 0: advance; >> 1: save slot + 1
+
+  const int tid = threadIdx.x;
+  const long row0 = (long)blockIdx.x * tile;
+  const int rows = (int)(B - row0 < tile ? B - row0 : tile);
+  const bool own = tid < rows;  // thread tid runs row tid's controller
+
+  for (size_t e = tid; e < n; e += blockDim.x)
+    xs[e] = e < (size_t)rows * D ? x_in[row0 * D + e] : T(0);
+  T t = T(0), h = T(0), prev_h = T(0), err_prev = T(0), t_lo = T(0);
+  int tgt = 0, status = DONE, event = EVT_NONE, n_acc = 0, n_rej = 0, n_it = 0, streak = 0;
+  if (own) {
+    const T* f = fs_in + (row0 + tid) * N_F;
+    t = f[0], h = f[1], prev_h = f[2], err_prev = f[3], t_lo = f[4];
+    const int* q = ist_in + (row0 + tid) * N_I;
+    tgt = q[0], status = q[1], event = q[2], n_acc = q[3], n_rej = q[4], n_it = q[5];
+    streak = q[6];
+  }
+  const T eps = eps_of<T>();
+  const T four_eps = T(4) * eps;  // exact: a power of two
+
+  for (int it = 0;; ++it) {
+    // also the barrier between one iteration's updates and the next's reads
+    const bool any_running = __syncthreads_or(own && status == RUNNING);
+    if (!any_running || (iters > 0 && it >= iters)) break;
+
+    // consult the save grid (pallas_loop.py:291-312)
+    const bool running = own && status == RUNNING;
+    bool at_grid = false, is_end = false, is_chk = false, bad = false, stepping = false;
+    T dt = T(0);
+    if (own) {
+      const T chk_t = t_grid[tgt < n_grid - 1 ? tgt : n_grid - 1];
+      const T tol = ctl.strict ? eps : mul_rn(four_eps, nan_max(T(1), fabs(chk_t)));
+      const T rem = sub_rn(sub_rn(chk_t, t), t_lo);
+      at_grid = fabs(rem) <= tol;
+      const bool past_end = tgt >= n_grid - 1;
+      is_end = running && at_grid && past_end;
+      is_chk = running && at_grid && !past_end;
+      bad = running && !at_grid && rem < T(0);
+      stepping = running && !at_grid && !bad;
+      dt = stepping ? nan_min(h, rem) : T(0);
+    }
+    if (tid < tile) {
+      s_t[tid] = t;
+      s_dt[tid] = dt;
+    }
+    __syncthreads();
+
+    rk_step_tile<T, RT>(s_t, s_dt, xs, ys, s_err, ks, rows, tile, D, mt, tab, s, 1,
+                        advance_lower, w, en);
+    __syncthreads();
+
+    // controller and bookkeeping, one thread per row (pallas_loop.py:316-539)
+    int act = 0;
+    if (own) {
+      const T err = s_err[tid];
+      const T f = ctl.rtol / err;
+      T fp;
+      if (ctl.pi) {
+        T f_prev = ctl.rtol / err_prev;
+        if (!(isfinite(f_prev) && f_prev > T(0))) f_prev = f;
+        T ratio = nan_clip(f / f_prev, T(1e-8), T(1e8));
+        if (is_nan(ratio)) ratio = T(1);
+        const T fp_pi = mul_rn(mul_rn(ctl.alpha, pow_full(f, ctl.k_i)), pow_full(ratio, ctl.k_p));
+        const T fp_rej = mul_rn(ctl.alpha, pow_full(f, ctl.inv_pi_order));
+        fp = streak > 0 ? fp_rej : fp_pi;
+      } else {
+        fp = mul_rn(ctl.alpha, pow_full(f, ctl.inv_order));
+      }
+      fp = nan_clip(fp, ctl.min_f, ctl.max_f);
+      const bool bad_f = is_nan(f);
+      if (bad_f) fp = ctl.min_f;
+      const T new_h = nan_clip(mul_rn(fp, h), ctl.min_dt, ctl.max_dt);
+      const bool accept = !bad_f && f > T(1);
+      const bool adv = stepping && accept;
+      const bool rej = stepping && !accept;
+      const bool hit = at_grid && running;
+
+      // the interior save slot of a grid hit: the state before the advance
+      const int slot = (hit && tgt >= 1 && tgt <= n_grid - 2) ? tgt - 1 : -1;
+      if (adv) {
+        if (ctl.comp) {  // driver.comp_time_advance
+          const T s_ = add_rn(t, dt);
+          const T bp = sub_rn(s_, t);
+          const T e_lo = add_rn(sub_rn(t, sub_rn(s_, bp)), sub_rn(dt, bp));
+          T lo = add_rn(t_lo, e_lo);
+          const T hi = add_rn(s_, lo);
+          lo = sub_rn(lo, sub_rn(hi, s_));
+          t = hi;
+          t_lo = lo;
+        } else {
+          t = add_rn(t, dt);
+        }
+      }
+      if (stepping) {
+        prev_h = h;
+        h = new_h;
+      }
+      if (hit) {
+        h = prev_h;
+        tgt += 1;
+      }
+      if (is_end) status = DONE;
+      if (bad) status = ERR_BAD_GRID;
+      n_it += running ? 1 : 0;
+      if (status == RUNNING && n_it >= ctl.max_steps) status = ERR_MAX_STEPS;
+      streak = rej ? streak + 1 : (adv ? 0 : streak);
+      if (ctl.max_streak > 0 && status == RUNNING && streak >= ctl.max_streak)
+        status = ERR_STALLED;
+      event = is_end ? EVT_END : is_chk ? EVT_CHKPT : rej ? EVT_REJECT : adv ? EVT_STEP : EVT_NONE;
+      if (stepping) err_prev = err;
+      n_acc += adv ? 1 : 0;
+      n_rej += rej ? 1 : 0;
+      act = (adv ? 1 : 0) | ((slot + 1) << 1);
+    }
+    if (tid < tile) s_act[tid] = act;
+    __syncthreads();
+
+    // the save, then the advance, element by element
+    for (size_t e = tid; e < (size_t)rows * D; e += blockDim.x) {
+      const int a = s_act[e / D];
+      if (a >> 1) saves[((size_t)((a >> 1) - 1) * B + row0) * D + e] = xs[e];
+      if (a & 1) xs[e] = ys[e];
+    }
+  }
+
+  if (own) {
+    T* f = fs_out + (row0 + tid) * N_F;
+    f[0] = t, f[1] = h, f[2] = prev_h, f[3] = err_prev, f[4] = t_lo;
+    int* q = ist_out + (row0 + tid) * N_I;
+    q[0] = tgt, q[1] = status, q[2] = event, q[3] = n_acc, q[4] = n_rej, q[5] = n_it;
+    q[6] = streak, q[7] = 0;
+  }
+  for (size_t e = tid; e < (size_t)rows * D; e += blockDim.x) x_out[row0 * D + e] = xs[e];
+}
+
+template <typename T>
+int launch(const void* t_grid, int n_grid, const void* fs_in, const void* ist_in,
+           const void* x_in, void* fs_out, void* ist_out, void* x_out, void* saves, int B, int D,
+           const void* mt, const double* tab_in, int s, int advance_lower, double w,
+           const void* w_row, double post, int kind_max, const double* c, int iters,
+           void* stream) {
+  if (B <= 0 || D <= 0 || D > MAX_WIDTH || s <= 0 || s > MAX_STAGES || n_grid < 2 || iters < 0)
+    return (int)cudaErrorInvalidValue;
+  Tableau<T> tab;
+  for (int i = 0; i < MAX_STAGES; ++i) {
+    for (int j = 0; j < MAX_STAGES; ++j) tab.a[i][j] = (T)tab_in[i * MAX_STAGES + j];
+    tab.b[i] = (T)tab_in[MAX_STAGES * MAX_STAGES + i];
+    tab.db[i] = (T)tab_in[MAX_STAGES * MAX_STAGES + MAX_STAGES + i];
+    tab.c[i] = (T)tab_in[MAX_STAGES * MAX_STAGES + 2 * MAX_STAGES + i];
+  }
+  // c: rtol, atol, alpha, 1/order, min_factor, max_factor, min_dt, max_dt,
+  // 0.7/pi_order, 0.4/pi_order, 1/pi_order, max_steps, max_reject_streak,
+  // pi, time_compensated, strict_end_test, scaled_error
+  const ErrNorm<T> en{(const T*)w_row, (T)post, kind_max, (int)c[16], (T)c[1], (T)c[0]};
+  const Ctl<T> ctl{(T)c[0],    (T)c[2],    (T)c[3],    (T)c[4],    (T)c[5],
+                   (T)c[6],    (T)c[7],    (T)c[8],    (T)c[9],    (T)c[10],
+                   (int)c[11], (int)c[12], (int)c[13], (int)c[14], (int)c[15]};
+  int dev = 0;
+  cudaError_t st = cudaGetDevice(&dev);
+  if (st != cudaSuccess) return (int)st;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  static int max_smem_of[MAX_DEVICES];
+  static size_t smem_allowed[MAX_DEVICES];
+  if (max_smem_of[dev] == 0) {
+    st = cudaDeviceGetAttribute(&max_smem_of[dev], cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (st != cudaSuccess) return (int)st;
+  }
+  const int max_smem = max_smem_of[dev];
+
+  const int ncg = (D + CT - 1) / CT;
+  auto slots_of = [&](int r) { return (size_t)(s + 2) * r * D * sizeof(T); };
+  auto smem_of = [&](int r) { return slots_of(r) + 3 * r * sizeof(T) + r * sizeof(int); };
+  int tile = MAX_ROWS;
+  while (tile > RT && ((tile / RT) * ncg > MAX_THREADS || slots_of(tile) > SLOT_BUDGET)) tile /= 2;
+  const int items = (tile / RT) * ncg;
+  if (items > MAX_THREADS || smem_of(tile) > (size_t)max_smem) return (int)cudaErrorInvalidValue;
+  const int threads = ((items > tile ? items : tile) + 31) / 32 * 32;
+  const size_t smem = smem_of(tile);
+  if (smem > smem_allowed[dev]) {
+    st = cudaFuncSetAttribute(fused_loop_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+    if (st != cudaSuccess) return (int)st;
+    smem_allowed[dev] = smem;
+  }
+  const int blocks = (B + tile - 1) / tile;
+  fused_loop_kernel<T><<<blocks, threads, smem, (cudaStream_t)stream>>>(
+      (const T*)t_grid, n_grid, (const T*)fs_in, (const int*)ist_in, (const T*)x_in, (T*)fs_out,
+      (int*)ist_out, (T*)x_out, (T*)saves, B, D, tile, (const T*)mt, tab, s, advance_lower, (T)w,
+      en, ctl, iters);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Advances every row of the carries (fs (B, 5), ist (B, 8) int32, x (B, D))
+// by `iters` driver iterations, or until it leaves RUNNING when iters == 0,
+// writing fs_out, ist_out and x_out; saves ((n_grid - 2), B, D) is updated
+// in place. tab as for the per-step kernel; w_row, post, kind_max declare
+// the error norm; ctl: the 17 float64 values listed in launch, in host
+// memory.
+int vec_ode_fused_loop_f32(const void* t_grid, int n_grid, const void* fs_in, const void* ist_in,
+                           const void* x_in, void* fs_out, void* ist_out, void* x_out,
+                           void* saves, int B, int D, const void* mt, const double* tab, int s,
+                           int advance_lower, double w, const void* w_row, double post,
+                           int kind_max, const double* ctl, int iters, void* stream) {
+  return launch<float>(t_grid, n_grid, fs_in, ist_in, x_in, fs_out, ist_out, x_out, saves, B, D,
+                       mt, tab, s, advance_lower, w, w_row, post, kind_max, ctl, iters, stream);
+}
+
+int vec_ode_fused_loop_f64(const void* t_grid, int n_grid, const void* fs_in, const void* ist_in,
+                           const void* x_in, void* fs_out, void* ist_out, void* x_out,
+                           void* saves, int B, int D, const void* mt, const double* tab, int s,
+                           int advance_lower, double w, const void* w_row, double post,
+                           int kind_max, const double* ctl, int iters, void* stream) {
+  return launch<double>(t_grid, n_grid, fs_in, ist_in, x_in, fs_out, ist_out, x_out, saves, B, D,
+                        mt, tab, s, advance_lower, w, w_row, post, kind_max, ctl, iters, stream);
+}
+
+}  // extern "C"

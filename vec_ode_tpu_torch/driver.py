@@ -75,9 +75,10 @@ class IntState(NamedTuple):
     ts_grid: torch.Tensor  # (n_grid,) save grid, [0] = t0, [-1] = tf
 
 
-def make_grid(t0, tf, save_at=None, dtype=torch.float64, device=None):
-    """The save grid [t0, *save_at, tf]. ``save_at`` must be strictly
-    increasing and strictly inside (t0, tf)."""
+def make_grid(t0, tf, save_at=None, dtype=torch.float64, device="cuda"):
+    """The save grid [t0, *save_at, tf], on the card unless ``device``
+    names another. ``save_at`` must be strictly increasing and strictly
+    inside (t0, tf)."""
     t0 = torch.as_tensor(t0, dtype=dtype, device=device).reshape(1)
     tf = torch.as_tensor(tf, dtype=dtype, device=device).reshape(1)
     if save_at is None:
@@ -268,9 +269,13 @@ class Solution:
     ``Solution``. ``ts``/``ys`` follow the save grid.
 
     ``path`` names the execution path that produced the result:
-    ``"torch-driver"`` (this module's driver over a plain torch step) or
+    ``"torch-driver"`` (this module's driver over a plain torch step),
     ``"torch-driver+cuda-step"`` (the same driver, each step one launch of
-    the hand-written CUDA kernel in ``ops/fused_rk.py``)."""
+    the hand-written CUDA kernel in ``ops/fused_rk.py``),
+    ``"cuda-loop-persistent"`` (the whole adaptive loop in one launch of
+    the CUDA loop kernel in ``ops/fused_loop.py``) or
+    ``"cuda-loop-chunked"`` (the same kernel, a launch per chunk of
+    iterations)."""
 
     ts: torch.Tensor
     ys: Pytree

@@ -1,8 +1,14 @@
-"""Vector-space helpers over states that are tensors or ``Cplx`` pairs
-(the parts of ``vec_ode_tpu/lc.py`` the batched driver uses)."""
+"""Vector-space helpers over states that are tensors or ``Cplx`` pairs, and
+the declared error norm ``WeightedNorm`` (the parts of
+``vec_ode_tpu/lc.py`` the batched driver and the kernels use)."""
 
 from __future__ import annotations
 
+import dataclasses
+import math
+from typing import Any
+
+import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
@@ -37,3 +43,117 @@ def tree_where(mask: torch.Tensor, a, b):
         return torch.where(mask.reshape(mask.shape + (1,) * extra), x, y)
 
     return pytree.tree_map(sel, a, b)
+
+
+_TRACED = ("lc.TracedNorm and opaque error-norm callables are ROADMAP "
+           "queue 1 item 26")
+
+
+@dataclasses.dataclass(frozen=True)
+class WeightedNorm:
+    """A declared error norm that the kernels execute natively: weighted
+    l2 / rms / max over the REAL components of the state (a ``Cplx``
+    state's re and im blocks share the weights).
+
+    kind: "l2"  -> sqrt(sum (w e)^2)
+          "rms" -> l2 / sqrt(n_real_components)
+          "max" -> max |w e|
+
+    ``weights``: None (all ones), or one array broadcast against each
+    leaf's trailing axis, stored as a tuple so the declaration stays
+    hashable. Pytree weights (one array per leaf) raise
+    ``NotImplementedError``. Callable per trajectory; ``.batched`` reduces
+    per trajectory over a leading batch axis.
+    """
+
+    kind: str = "l2"
+    weights: Any = None
+
+    def __post_init__(self):
+        if self.kind not in ("l2", "rms", "max"):
+            raise ValueError(
+                f"WeightedNorm kind must be l2|rms|max, got {self.kind!r}")
+        if self.weights is None:
+            return
+        try:
+            w = np.asarray(self.weights, np.float64)
+        except (TypeError, ValueError):
+            w = None
+        if w is None or w.ndim > 1:
+            raise NotImplementedError(
+                "WeightedNorm: pytree weights (one array per leaf) are not "
+                f"ported; pass one per-component array ({_TRACED})")
+        object.__setattr__(self, "weights",
+                           tuple(w.tolist()) if w.ndim else float(w))
+
+    def _reduce(self, err, batch_ndim: int) -> torch.Tensor:
+        leaves = pytree.tree_leaves(err)
+        if self.weights is None:
+            wl = leaves
+        else:
+            wl = [a * torch.as_tensor(self.weights, dtype=a.dtype,
+                                      device=a.device) for a in leaves]
+
+        def reduce(op, a):
+            # torch reads an empty dim tuple as "every axis"
+            axes = tuple(range(batch_ndim, a.ndim))
+            return op(a, dim=axes) if axes else a
+
+        if self.kind == "max":
+            out = None
+            for a in wl:
+                v = reduce(torch.amax, torch.abs(a))
+                out = v if out is None else torch.maximum(out, v)
+            return out
+        ss = None
+        for a in wl:
+            s = reduce(torch.sum, a * a)
+            ss = s if ss is None else ss + s
+        if self.kind == "rms":
+            ss = ss / sum(math.prod(a.shape[batch_ndim:]) for a in leaves)
+        return torch.sqrt(ss)
+
+    def __call__(self, err) -> torch.Tensor:
+        return self._reduce(err, 0)
+
+    def batched(self, err) -> torch.Tensor:
+        return self._reduce(err, 1)
+
+    def kernel_parts(self, d_part: int, n_parts: int):
+        """(w_row, post, kind) for the kernels' widened-real layout: a
+        numpy (1, n_parts*d_part) row or None, a constant post-factor, and
+        the reduction kind ("l2" or "max"). None when the weights cannot be
+        laid out (not one array of length ``d_part``)."""
+        if self.weights is None:
+            row = None
+        else:
+            w = np.asarray(self.weights, np.float64)
+            if w.ndim != 1 or w.shape[0] != d_part:
+                return None
+            row = np.concatenate([w] * n_parts)[None, :]
+        post = (1.0 / math.sqrt(n_parts * d_part) if self.kind == "rms"
+                else 1.0)
+        return row, post, ("max" if self.kind == "max" else "l2")
+
+
+class TracedNorm:
+    """An opaque per-trajectory norm callable promoted to the batched tier
+    (``vec_ode_tpu.lc.TracedNorm``): not ported."""
+
+    def __init__(self, fn):
+        raise NotImplementedError(_TRACED)
+
+
+def apply_weighted_norm(dv: torch.Tensor, wnorm, axis: int = -1):
+    """post * ||w_row * dv|| with kind l2|max over ``axis``: the plain
+    executor of a ``WeightedNorm.kernel_parts`` declaration
+    ``(w_row, post, kind)``, or the plain l2 norm for ``wnorm=None``."""
+    if wnorm is None:
+        return torch.sqrt(torch.sum(dv * dv, dim=axis))
+    w_row, post, kind = wnorm
+    if w_row is not None:
+        dv = dv * torch.as_tensor(w_row, dtype=dv.dtype,
+                                  device=dv.device).reshape(-1)
+    e = (torch.amax(torch.abs(dv), dim=axis) if kind == "max"
+         else torch.sqrt(torch.sum(dv * dv, dim=axis)))
+    return e if post == 1.0 else e * post

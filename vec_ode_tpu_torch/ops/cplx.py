@@ -29,8 +29,9 @@ class Cplx(NamedTuple):
         return self.re.dtype
 
 
-def from_complex(z, dtype=torch.float64, device=None) -> Cplx:
-    """Split a complex numpy array or tensor into a real pair."""
+def from_complex(z, dtype=torch.float64, device="cuda") -> Cplx:
+    """Split a complex numpy array or tensor into a real pair, on the card
+    unless ``device`` names another."""
     if isinstance(z, torch.Tensor):
         return Cplx(z.real.to(device=device, dtype=dtype),
                     z.imag.to(device=device, dtype=dtype))

@@ -8,16 +8,20 @@ driven Hamiltonian H(t) = H0 + cos(w t) V in real-pair form. States are
 
 * :func:`fused_rk_step` is the wrapper of the hand-written CUDA kernel
   ``csrc/fused_rk_step.cu``: the whole embedded step (all stages, the
-  advance, the embedded error and its per-trajectory l2 norm) in one
-  launch. It takes the declared drive u(t) = cos(w t).
+  advance, the embedded error and its per-trajectory l2 or declared
+  ``WeightedNorm`` norm) in one launch. It takes the declared drive
+  u(t) = cos(w t).
 * :func:`torch_rk_step` is its plain torch twin, the counterpart of
-  ``xla_rk_step``. The wrapper runs it only for tensors on the CPU; for
-  CUDA tensors it launches the kernel or raises.
+  ``xla_rk_step``, and also of the step inside the whole-loop kernel
+  (``scaled=``). The wrapper runs it only for tensors on the CPU; for CUDA
+  tensors it launches the kernel or raises.
 * :func:`kernel_operands` and :func:`launch` are the wrapper's two
   halves: the stepper packs the operators and the tableau once per solve
   and launches with them at every step.
 * :class:`FusedModulatedLinearRK` is the natively batched stepper the
-  driver runs.
+  driver runs; its :meth:`~FusedModulatedLinearRK.fused_loop_solve` runs
+  the whole adaptive loop in one launch of ``csrc/fused_loop.cu``
+  (``ops/fused_loop.py``) where the JAX package takes its whole-loop path.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .. import lc
 from ..tableaus import RKF45, ButcherTableau
 from . import _build
 from .cplx import Cplx
@@ -44,11 +49,30 @@ def _row_matmul(x: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
     return x @ M.T
 
 
+def _step_error_measure(err, xw, x_next, *, wnorm=None, scaled=None):
+    """The per-row measure of the error vector ``err`` (B, 2d) that the
+    kernels compute, in their order (``make_rk_step_builder``):
+    ``scaled=(atol, rtol)`` divides by atol + rtol*max(|xw|, |x_next|);
+    then ``wnorm=(w_row, post, kind)`` (``lc.WeightedNorm.kernel_parts``)
+    multiplies by the weight row and reduces by l2 or max; then the
+    scaled measure is multiplied by rtol, and last by post. Without either
+    it is the plain per-row l2 norm."""
+    if scaled is not None:
+        atol, rtol = scaled
+        err = err / (atol + rtol * torch.maximum(xw.abs(), x_next.abs()))
+    w_row, post, kind = (None, 1.0, "l2") if wnorm is None else wnorm
+    en = lc.apply_weighted_norm(err, (w_row, 1.0, kind), axis=1)
+    if scaled is not None:
+        en = en * scaled[1]
+    return en if post == 1.0 else en * post
+
+
 def torch_rk_step(t, dt, xw, M0, M1, *, u_fn: Callable, tab=RKF45,
-                  advance_lower: bool = True):
+                  advance_lower: bool = True, wnorm=None, scaled=None):
     """Plain torch batched RK step, the twin of ``xla_rk_step``: the same
     stage sums in the same order. Returns (x_next (B, 2d), err_norm (B,)),
-    with err_norm None when the tableau has no embedded pair."""
+    with err_norm None when the tableau has no embedded pair. ``wnorm`` and
+    ``scaled`` select the error measure (:func:`_step_error_measure`)."""
     s = tab.stages
     dtc = dt[:, None]
     tc = t[:, None]
@@ -75,7 +99,8 @@ def torch_rk_step(t, dt, xw, M0, M1, *, u_fn: Callable, tab=RKF45,
     db = tab.b - tab.b_err
     err = dtc * sum(float(db[j]) * K[j] for j in range(s) if db[j] != 0.0)
     x_next = (x_b - err) if advance_lower else x_b
-    return x_next, torch.sqrt(torch.sum(err * err, dim=1))
+    return x_next, _step_error_measure(err, xw, x_next, wnorm=wnorm,
+                                       scaled=scaled)
 
 
 def _tableau_array(tab) -> np.ndarray:
@@ -97,23 +122,56 @@ def _kernel_lib() -> ctypes.CDLL:
     """The kernel library, built on first use, with its entry points'
     argument types set."""
     lib = _build.load("fused_rk_step")
-    vp, ci = ctypes.c_void_p, ctypes.c_int
+    vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     for fn in (lib.vec_ode_fused_rk_step_f32, lib.vec_ode_fused_rk_step_f64):
         fn.restype = ci
         fn.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci,
-                       ctypes.POINTER(ctypes.c_double), ci, ci, ci,
-                       ctypes.c_double, vp]
+                       ctypes.POINTER(cd), ci, ci, ci, cd, vp, cd, ci, vp]
     return lib
 
 
-def _check_like(xw, **named) -> None:
+def check_kernel_inputs(kernel: str, xw, mt, w_row=None, **rows) -> None:
+    """Raise on what the kernels do not take: a state ``xw`` (B, 2d) on a
+    CUDA device in float32 or float64 with 2d <= MAX_WIDTH, the operators
+    ``mt`` (2d, 4d), an optional weight row (2d,), and per-row tensors
+    ``rows`` (B,), all on xw's device in its type and contiguous."""
+    if xw.device.type != "cuda":
+        raise ValueError(f"{kernel}: unsupported device {xw.device}")
+    if xw.dtype not in (torch.float32, torch.float64):
+        raise TypeError(
+            f"{kernel}: the kernel takes float32 or float64, not {xw.dtype}")
+    if xw.ndim != 2 or xw.shape[0] < 1:
+        raise ValueError(
+            f"{kernel}: xw must be (B, 2d) with B >= 1, got "
+            f"{tuple(xw.shape)}")
+    B, D = xw.shape
+    if D > MAX_WIDTH:
+        raise ValueError(
+            f"{kernel}: state width 2d = {D} exceeds the kernel's maximum "
+            f"{MAX_WIDTH}")
+    named = dict(rows, xw=xw, mt=mt)
+    if w_row is not None:
+        named["w_row"] = w_row
     for name, a in named.items():
         if a.device != xw.device:
             raise ValueError(
-                f"fused_rk_step: {name} is on {a.device}, xw on {xw.device}")
+                f"{kernel}: {name} is on {a.device}, xw on {xw.device}")
         if a.dtype != xw.dtype:
-            raise TypeError(
-                f"fused_rk_step: {name} is {a.dtype}, xw is {xw.dtype}")
+            raise TypeError(f"{kernel}: {name} is {a.dtype}, xw is {xw.dtype}")
+        if not a.is_contiguous():
+            raise ValueError(f"{kernel}: {name} must be contiguous")
+    for name, a in rows.items():
+        if a.shape != (B,):
+            raise ValueError(
+                f"{kernel}: {name} must be ({B},), got {tuple(a.shape)}")
+    if mt.shape != (D, 2 * D):
+        raise ValueError(
+            f"{kernel}: [M0^T | M1^T] must be ({D}, {2 * D}), got "
+            f"{tuple(mt.shape)}")
+    if w_row is not None and w_row.shape != (D,):
+        raise ValueError(
+            f"{kernel}: the weight row must be ({D},), got "
+            f"{tuple(w_row.shape)}")
 
 
 def kernel_operands(M0, M1, tab):
@@ -130,37 +188,35 @@ def kernel_operands(M0, M1, tab):
             (ctypes.c_double * arr.size)(*arr))
 
 
-def launch(t, dt, xw, mt, tab_c, *, w: float, tab, advance_lower: bool):
+def wnorm_on(wnorm, like: torch.Tensor):
+    """A ``kernel_parts`` declaration (w_row, post, kind) with its weight
+    row as a (2d,) tensor on ``like``'s device in its type, as the kernels
+    take it; None stays None."""
+    if wnorm is None:
+        return None
+    w_row, post, kind = wnorm
+    if w_row is not None:
+        w_row = torch.as_tensor(w_row, dtype=like.dtype,
+                                device=like.device).reshape(-1)
+    return w_row, float(post), kind
+
+
+def kernel_norm_args(wnorm):
+    """(w_row pointer or None, post, kind_max) for a kernel launch."""
+    w_row, post, kind = (None, 1.0, "l2") if wnorm is None else wnorm
+    return (None if w_row is None else w_row.data_ptr(), float(post),
+            int(kind == "max"))
+
+
+def launch(t, dt, xw, mt, tab_c, *, w: float, tab, advance_lower: bool,
+           wnorm=None):
     """Launch the kernel on CUDA tensors with operands from
-    :func:`kernel_operands`; raises on anything the kernel does not take.
-    Returns (x_next (B, D), err_norm (B,))."""
-    if xw.device.type != "cuda":
-        raise ValueError(f"fused_rk_step: unsupported device {xw.device}")
-    _check_like(xw, t=t, dt=dt, mt=mt)
-    if xw.dtype not in (torch.float32, torch.float64):
-        raise TypeError(
-            f"fused_rk_step: the kernel takes float32 or float64, "
-            f"not {xw.dtype}")
-    if xw.ndim != 2 or xw.shape[0] < 1:
-        raise ValueError(
-            f"fused_rk_step: xw must be (B, 2d) with B >= 1, "
-            f"got {tuple(xw.shape)}")
+    :func:`kernel_operands` and a declared norm from :func:`wnorm_on`;
+    raises on anything the kernel does not take. Returns
+    (x_next (B, D), err_norm (B,))."""
+    check_kernel_inputs("fused_rk_step", xw, mt,
+                        None if wnorm is None else wnorm[0], t=t, dt=dt)
     B, D = xw.shape
-    if D > MAX_WIDTH:
-        raise ValueError(
-            f"fused_rk_step: state width 2d = {D} exceeds the kernel's "
-            f"maximum {MAX_WIDTH}")
-    if t.shape != (B,) or dt.shape != (B,):
-        raise ValueError(
-            f"fused_rk_step: t and dt must be ({B},), got "
-            f"{tuple(t.shape)} and {tuple(dt.shape)}")
-    if mt.shape != (D, 2 * D):
-        raise ValueError(
-            f"fused_rk_step: [M0^T | M1^T] must be ({D}, {2 * D}), got "
-            f"{tuple(mt.shape)}")
-    for name, a in dict(t=t, dt=dt, xw=xw, mt=mt).items():
-        if not a.is_contiguous():
-            raise ValueError(f"fused_rk_step: {name} must be contiguous")
     lib = _kernel_lib()
     fn = (lib.vec_ode_fused_rk_step_f32 if xw.dtype == torch.float32
           else lib.vec_ode_fused_rk_step_f64)
@@ -170,7 +226,8 @@ def launch(t, dt, xw, mt, tab_c, *, w: float, tab, advance_lower: bool):
         rc = fn(t.data_ptr(), dt.data_ptr(), xw.data_ptr(), mt.data_ptr(),
                 x_out.data_ptr(), err_out.data_ptr(), B, D, tab_c,
                 tab.stages, int(tab.b_err is not None), int(advance_lower),
-                float(w), torch.cuda.current_stream(xw.device).cuda_stream)
+                float(w), *kernel_norm_args(wnorm),
+                torch.cuda.current_stream(xw.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(
             f"fused_rk_step: kernel launch failed with CUDA error {rc}")
@@ -179,13 +236,15 @@ def launch(t, dt, xw, mt, tab_c, *, w: float, tab, advance_lower: bool):
 
 
 def fused_rk_step(t, dt, xw, M0, M1, *, w: float, tab=RKF45,
-                  advance_lower: bool = True):
+                  advance_lower: bool = True, wnorm=None):
     """One fused RK step over the whole ensemble, with the drive
     u(t) = cos(w t).
 
     t, dt: (B,); xw: (B, 2d) widened state [re | im]; M0, M1: (2d, 2d),
-    applied as xw @ M^T. Returns (x_next (B, 2d), err_norm (B,));
-    err_norm is zero when the tableau has no embedded pair.
+    applied as xw @ M^T; ``wnorm``: a declared error norm
+    ``(w_row, post, kind)`` (``lc.WeightedNorm.kernel_parts``) or None for
+    l2. Returns (x_next (B, 2d), err_norm (B,)); err_norm is zero when the
+    tableau has no embedded pair.
 
     CUDA tensors go to the kernel (float32 or float64, 2d <= MAX_WIDTH,
     at most MAX_STAGES stages); anything else it does not take raises.
@@ -195,16 +254,22 @@ def fused_rk_step(t, dt, xw, M0, M1, *, w: float, tab=RKF45,
     if all(a.device.type == "cpu" for a in (t, dt, xw, M0, M1)):
         x_next, err = torch_rk_step(
             t, dt, xw, M0, M1, u_fn=lambda ti: torch.cos(w * ti), tab=tab,
-            advance_lower=advance_lower)
+            advance_lower=advance_lower, wnorm=wnorm)
         return x_next, (torch.zeros_like(t) if err is None else err)
-    _check_like(xw, M0=M0, M1=M1)
     D = xw.shape[-1]
+    for name, m in (("M0", M0), ("M1", M1)):
+        if m.device != xw.device:
+            raise ValueError(
+                f"fused_rk_step: {name} is on {m.device}, xw on {xw.device}")
+        if m.dtype != xw.dtype:
+            raise TypeError(
+                f"fused_rk_step: {name} is {m.dtype}, xw is {xw.dtype}")
     if M0.shape != (D, D) or M1.shape != (D, D):
         raise ValueError(
             f"fused_rk_step: M0 and M1 must be ({D}, {D}), got "
             f"{tuple(M0.shape)} and {tuple(M1.shape)}")
     return launch(t, dt, xw, *kernel_operands(M0, M1, tab), w=w, tab=tab,
-                  advance_lower=advance_lower)
+                  advance_lower=advance_lower, wnorm=wnorm_on(wnorm, xw))
 
 
 fused_rk_step.launches = 0
@@ -215,33 +280,51 @@ class FusedModulatedLinearRK:
     """Natively batched stepper for dx/dt = (M0 + u(t) M1) x over Cplx
     pairs, with the declared drive u(t) = cos(w t): each driver iteration
     is one :func:`fused_rk_step`, which returns per-trajectory error norms
-    (``error_norm`` is the identity)."""
+    (``error_norm`` is the identity), or the whole adaptive loop runs in
+    one launch (:meth:`fused_loop_solve`). ``norm``: a declared
+    ``lc.WeightedNorm`` that both kernels and the plain step execute."""
 
     M0: torch.Tensor                 # (2d, 2d) embedded -i*H0 (or A0)
     M1: torch.Tensor                 # (2d, 2d) embedded -i*V (or A1)
     w: float                         # the drive u(t) = cos(w t)
     tableau: ButcherTableau = RKF45
     advance_lower: bool = True
-    norm: Optional[object] = None    # declared error norm: not yet ported
+    norm: Optional[lc.WeightedNorm] = None   # declared error norm
 
     is_batched = True
     error_norm = staticmethod(lambda e: e)
 
     def __post_init__(self):
-        if self.norm is not None:
+        if self.norm is not None and not isinstance(self.norm,
+                                                    lc.WeightedNorm):
             raise NotImplementedError(
-                "norm=: declared error norms (lc.WeightedNorm) are not "
-                "ported yet (ROADMAP slice 3, queue 1 item 3)")
+                "norm=: only a declared lc.WeightedNorm runs in the port's "
+                "kernels; other norms (lc.TracedNorm, opaque callables) are "
+                "ROADMAP queue 1 item 26")
+
+    def _wnorm(self, d: int):
+        """(w_row, post, kind) of the declared ``norm`` over the widened
+        [re | im] layout (``lc.WeightedNorm.kernel_parts``), or None.
+        Raises for weights the batched layout cannot express."""
+        if self.norm is None:
+            return None
+        kp = self.norm.kernel_parts(d, 2)
+        if kp is None:
+            raise ValueError(
+                "WeightedNorm.weights must be a single per-(complex-)"
+                f"component array of length {d} for this batched stepper")
+        return kp
 
     @property
     def nfev_per_step(self) -> int:
         return self.tableau.stages
 
     @staticmethod
-    def from_driven_dense(model, dtype=torch.float32, device=None, **kw):
+    def from_driven_dense(model, dtype=torch.float32, device="cuda", **kw):
         """Build from a ``models.quantum.DrivenDense`` (H(t) = H0 +
         cos(wt) V): the same embedded matrices as the JAX package's
-        ``from_driven_dense``, made by the same numpy code."""
+        ``from_driven_dense``, made by the same numpy code, on the card
+        unless ``device`` names another."""
 
         def embed_np(re, im):
             return np.block([[re, -im], [im, re]])
@@ -266,7 +349,7 @@ class FusedModulatedLinearRK:
         return Cplx(fw[..., :d], fw[..., d:])
 
     def step_path(self, y0: Cplx) -> str:
-        """Execution-path tag for ``Solution.path``."""
+        """Execution-path tag of the per-step path for ``Solution.path``."""
         return ("torch-driver+cuda-step" if y0.re.is_cuda
                 else "torch-driver")
 
@@ -276,8 +359,9 @@ class FusedModulatedLinearRK:
                 "FusedModulatedLinearRK embeds its own RHS; pass rhs=None")
         has_err = self.tableau.b_err is not None
         tab, w, lower = self.tableau, self.w, self.advance_lower
-        # per (device, dtype) of the state: the operators in its type and,
-        # on a card, the kernel's operands, made once for the whole solve
+        # per (device, dtype) of the state: the operators and the declared
+        # norm in its type and, on a card, the kernel's operands, made once
+        # for the whole solve
         operands = {}
 
         def step_fn(t, x: Cplx, dt):
@@ -287,16 +371,89 @@ class FusedModulatedLinearRK:
             if key not in operands:
                 M0 = self.M0.to(device=xw.device, dtype=xw.dtype)
                 M1 = self.M1.to(device=xw.device, dtype=xw.dtype)
+                wn = wnorm_on(self._wnorm(d), xw)
                 operands[key] = ((M0, M1) if xw.device.type == "cpu"
-                                 else kernel_operands(M0, M1, tab))
+                                 else kernel_operands(M0, M1, tab)), wn
+            ops, wn = operands[key]
             if xw.device.type == "cpu":
-                ox, oe = fused_rk_step(t, dt, xw, *operands[key], w=w,
-                                       tab=tab, advance_lower=lower)
+                ox, oe = fused_rk_step(t, dt, xw, *ops, w=w, tab=tab,
+                                       advance_lower=lower, wnorm=wn)
             else:
-                ox, oe = launch(t, dt, xw, *operands[key], w=w, tab=tab,
-                                advance_lower=lower)
+                ox, oe = launch(t, dt, xw, *ops, w=w, tab=tab,
+                                advance_lower=lower, wnorm=wn)
             # no embedded pair -> no error estimate: None makes the
             # adaptive driver raise instead of accepting on a zero estimate
             return Cplx(ox[..., :d], ox[..., d:]), (oe if has_err else None)
 
         return step_fn
+
+    def fused_loop_solve(self, y0: Cplx, t_grid, h0, *, ctl, adaptive: bool,
+                         chunk: int = 8, persistent=None, events=None,
+                         dense: bool = False):
+        """The whole adaptive loop in one launch of the CUDA loop kernel
+        (``ops/fused_loop.py``; ``persistent=False``: launches of ``chunk``
+        iterations): stages, embedded error, controller (I or PI,
+        ``scaled_error``, ``strict_end_test``, compensated time), counters
+        and the save-grid hits, the counterpart of the JAX stepper's
+        ``fused_loop_solve``.
+
+        Returns None where the JAX package declines, so that the caller
+        runs the per-step path: fixed steps or a tableau without an
+        embedded pair, a state that is not (B, d), a time dtype other than
+        the state's, more than ``LOOP_MAX_BATCH`` trajectories, or tensors
+        on the CPU (the JAX package declines off the TPU)."""
+        from ..driver import Solution
+        from .fused_loop import (LOOP_MAX_BATCH, RKStep,
+                                 fused_loop_integrate)
+
+        if events is not None or dense:
+            raise NotImplementedError(
+                "events= and dense=True in the loop kernel are ROADMAP "
+                "slice 3b (queue 1 items 12 and 13)")
+        if not y0.re.is_cuda:
+            return None
+        if not adaptive or self.tableau.b_err is None:
+            return None
+        if y0.re.ndim != 2:
+            return None
+        B, d = y0.re.shape
+        if B > LOOP_MAX_BATCH or t_grid.dtype != y0.re.dtype:
+            return None
+        wnorm = None
+        if self.norm is not None:
+            if ctl.scaled_error:
+                raise ValueError(
+                    "scaled_error and a declared WeightedNorm are "
+                    "mutually exclusive")
+            wnorm = self._wnorm(d)
+        dtype, dev = y0.re.dtype, y0.re.device
+        step = RKStep(
+            M0=self.M0.to(device=dev, dtype=dtype),
+            M1=self.M1.to(device=dev, dtype=dtype), w=self.w,
+            tableau=self.tableau, advance_lower=self.advance_lower,
+            scaled=(ctl.atol, ctl.rtol) if ctl.scaled_error else None,
+            wnorm=wnorm)
+        persistent = persistent is None or persistent
+        fs, ist, x, saves = fused_loop_integrate(
+            t_grid, torch.cat([y0.re, y0.im], dim=1), h0, step, ctl=ctl,
+            chunk=chunk, persistent=persistent)
+        n_grid = t_grid.shape[0]
+        # ys = [y0, *interior saves, x_final where the trajectory reached
+        # tf else 0]
+        reached = (ist[:, 0] >= n_grid)[:, None, None]
+        yw = torch.cat([torch.cat([y0.re, y0.im], dim=1)[:, None],
+                        saves.transpose(0, 1),
+                        torch.where(reached, x[:, None],
+                                    torch.zeros_like(x[:, None]))], dim=1)
+        return Solution(
+            ts=t_grid.expand(B, n_grid),
+            ys=Cplx(yw[..., :d], yw[..., d:]),
+            t_final=fs[:, 0],
+            y_final=Cplx(x[:, :d], x[:, d:]),
+            status=ist[:, 1],
+            n_accept=ist[:, 3],
+            n_reject=ist[:, 4],
+            n_iters=ist[:, 5],
+            h_final=fs[:, 1],
+            path="cuda-loop-persistent" if persistent else "cuda-loop-chunked",
+        )

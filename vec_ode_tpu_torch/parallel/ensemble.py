@@ -1,9 +1,12 @@
 """Ensemble propagation: many independent trajectories in one batched
-driver loop (the natively batched, unsharded branch of
-``vec_ode_tpu/parallel/ensemble.py:ensemble_solve``)."""
+solve (the natively batched, unsharded branch of
+``vec_ode_tpu/parallel/ensemble.py:ensemble_solve``): the whole adaptive
+loop in one kernel launch where the stepper's ``fused_loop_solve`` takes
+the configuration, else one driver loop over per-step launches."""
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Optional
 
 import torch
@@ -12,6 +15,27 @@ from torch.utils import _pytree as pytree
 from .. import lc
 from ..controller import StepControl, check_h0
 from ..driver import Solution, integrate, make_grid
+
+
+def _install_norm(stepper, error_norm):
+    """The stepper with a declared ``lc.WeightedNorm`` installed as its
+    ``norm`` (its kernels and plain step execute it), as the JAX package's
+    ``ensemble_solve`` does for norm-returning steppers."""
+    declares = dataclasses.is_dataclass(stepper) and any(
+        f.name == "norm" for f in dataclasses.fields(stepper))
+    if not declares:
+        raise NotImplementedError(
+            "error_norm=: only steppers that declare a norm take a "
+            "WeightedNorm; vector-returning batched steppers are ROADMAP "
+            "queue 1 item 9")
+    existing = stepper.norm
+    if existing is None:
+        return dataclasses.replace(stepper, norm=error_norm)
+    if existing != error_norm:
+        raise ValueError(
+            "stepper already declares a different norm= than the "
+            "error_norm= passed to ensemble_solve")
+    return stepper
 
 
 def ensemble_solve(
@@ -36,11 +60,20 @@ def ensemble_solve(
 ) -> Solution:
     """Integrate a batch of independent trajectories (leading axis of every
     leaf of ``y0_batch``) with a natively batched ``stepper`` such as
-    ``ops.fused_rk.FusedModulatedLinearRK``: one driver loop over the
-    whole batch, on ``y0_batch``'s device.
+    ``ops.fused_rk.FusedModulatedLinearRK``, on ``y0_batch``'s device.
 
-    The signature is the JAX package's. What this port does not run yet
-    raises ``NotImplementedError`` naming its ROADMAP item. ``time_dtype``
+    The stepper's ``fused_loop_solve`` runs the whole adaptive loop in one
+    launch of the CUDA loop kernel where it takes the configuration; where
+    it declines (returns None), one driver loop runs over the whole batch
+    with a kernel launch per step on the card, or the plain torch step on
+    the CPU. ``Solution.path`` names the path taken.
+
+    The signature is the JAX package's. ``error_norm`` may be a declared
+    ``lc.WeightedNorm`` (installed as the stepper's ``norm``).
+    ``scaled_error`` needs the loop kernel (a norm-returning stepper's
+    errors cannot be rescaled by the driver) and raises ``ValueError``
+    where it declines. What this port does not run yet raises
+    ``NotImplementedError`` naming its ROADMAP item. ``time_dtype``
     defaults to float64 (the JAX package's default under x64); ``h0`` may
     be per-trajectory (B,). ``axis_name`` belongs to ``mesh``.
     """
@@ -62,18 +95,22 @@ def ensemble_solve(
             "tier, ROADMAP queue 1 item 9")
     if events is not None:
         raise NotImplementedError(
-            "events=: events are ROADMAP slice 3, queue 1 item 12")
+            "events=: events (in the driver and in the loop kernel) are "
+            "ROADMAP slice 3b, queue 1 item 12")
     if dense:
         raise NotImplementedError(
-            "dense=True: dense output is ROADMAP slice 3, queue 1 item 13")
-    if error_norm is not lc.norm_l2:
+            "dense=True: dense output (in the driver and in the loop "
+            "kernel) is ROADMAP slice 3b, queue 1 item 13")
+    if isinstance(error_norm, lc.WeightedNorm):
+        if ctl.scaled_error:
+            raise ValueError(
+                "scaled_error and a WeightedNorm are mutually exclusive "
+                "(both redefine the error measure)")
+        stepper = _install_norm(stepper, error_norm)
+    elif error_norm is not lc.norm_l2:
         raise NotImplementedError(
-            "error_norm=: declared and traced norms are ROADMAP slice 3 "
-            "and queue 1 items 3 and 26")
-    if ctl.scaled_error:
-        raise ValueError(
-            "scaled_error with a norm-returning stepper requires the fused "
-            "loop kernel (ROADMAP slice 3, kernel K2), which is not ported")
+            "error_norm=: opaque norm callables are ROADMAP queue 1 item "
+            "26; declare an lc.WeightedNorm")
 
     leaves = pytree.tree_leaves(y0_batch)
     b = leaves[0].shape[0]
@@ -82,6 +119,18 @@ def ensemble_solve(
         time_dtype = torch.float64
     t_grid = make_grid(t0, tf, save_at, dtype=time_dtype, device=device)
     h0 = check_h0(h0, ctl, adaptive)
+
+    fused = getattr(stepper, "fused_loop_solve", None)
+    if fused is not None:
+        sol = fused(y0_batch, t_grid, h0, ctl=ctl, adaptive=adaptive)
+        if sol is not None:
+            return sol
+    if ctl.scaled_error:
+        raise ValueError(
+            "scaled_error with a norm-returning stepper requires the fused "
+            "loop kernel, which did not engage for this configuration (it "
+            "runs on CUDA tensors, adaptive, with the time dtype of the "
+            "state, for at most LOOP_MAX_BATCH trajectories)")
     step_fn = stepper.make_step_fn(rhs_or_op)
     sol = integrate(step_fn, y0_batch, t_grid, h0, adaptive=adaptive,
                     ctl=ctl, error_norm=stepper.error_norm,
