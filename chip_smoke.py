@@ -5,20 +5,29 @@
 Needs one CUDA card and the CUDA toolkit (nvcc). It builds the port's
 kernels from the sources in this checkout (one nvcc per source, started
 together), holds each kernel against its plain torch version on the card,
-drives the port's two paths once at full width through
+drives the port's paths once at full width through
 ``vec_ode_tpu_torch.parallel.ensemble_solve`` and checks them:
 
-* the main path: adaptive RKF45 over 16 384 trajectories of a 64-dim
+* the RK main path: adaptive RKF45 over 16 384 trajectories of a 64-dim
   complex driven system, a driver iteration per step and one launch of
   the step kernel ``fused_rk_step`` (K1) in each;
-* the loop path: the same model and controller over 2 048 trajectories
-  (the largest batch the whole-loop path takes) with nine interior saves,
-  the whole adaptive loop in one launch of ``fused_loop`` (K2 with K3).
+* the RK loop path: the same model and controller over 2 048
+  trajectories with nine interior saves, the whole adaptive loop in one
+  launch of ``fused_loop`` (K2 with its RK step K3);
+* the Magnus loop path, this slice's main path: adaptive Magnus-4
+  (``exp.MagnusModulated4``) on the same model over 16 384 trajectories,
+  the whole loop in one launch of ``fused_loop`` with its chain step K5;
+* the Magnus per-step path: the same solve on an operator without a
+  declared coefficient form, a launch of the chain kernel
+  ``fused_chain_apply`` (K4) per driver iteration;
+* the Landau-Zener path: 16 384 fixed-step exponential-midpoint sweeps of
+  a 2-level avoided crossing in the loop kernel's fixed-step mode, held
+  against the closed-form transition probability.
 
-Then it times both paths, the loop kernel at 16 384 trajectories, and
-each kernel against its plain version and its bound. Every phase raises
-on failure, so any failure exits non-zero; without a CUDA card it exits
-non-zero before any result.
+Then it times the paths and each kernel against its plain version, its
+bound and, for K4, a library yardstick. Every phase raises on failure, so
+any failure exits non-zero; without a CUDA card it exits non-zero before
+any result.
 
 Output: progress lines, then the card's name and power limit as
 nvidia-smi reports them, then one JSON line describing each kernel, and
@@ -27,6 +36,7 @@ last one JSON line {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import statistics
@@ -39,10 +49,15 @@ import torch
 from vec_ode_tpu_torch import (DONE, DOPRI5, ERR_MAX_STEPS, ERR_STALLED,
                                RKF45, StepControl, driver, lc)
 from vec_ode_tpu_torch import tableaus as ttab
-from vec_ode_tpu_torch.models import DrivenDense
-from vec_ode_tpu_torch.ops import _build, fused_loop, fused_rk
+from vec_ode_tpu_torch.exp import MagnusModulated4, MidpointModulated
+from vec_ode_tpu_torch.exp.modulated import _taylor_params
+from vec_ode_tpu_torch.models import DrivenDense, LandauZener
+from vec_ode_tpu_torch.ops import _build, expmv, fused_loop, fused_rk
 from vec_ode_tpu_torch.ops.cplx import Cplx, from_complex
-from vec_ode_tpu_torch.ops.fused_loop import (RKStep, fused_loop_chunk,
+from vec_ode_tpu_torch.ops.expmv import (fused_chain_apply, node_times,
+                                         torch_chain_step)
+from vec_ode_tpu_torch.ops.fused_loop import (ChainStep, RKStep,
+                                              fused_loop_chunk,
                                               fused_loop_integrate,
                                               init_carries, torch_fused_loop)
 from vec_ode_tpu_torch.ops.fused_rk import (FusedModulatedLinearRK,
@@ -54,13 +69,20 @@ LOOP_TRAJ = 2048             # fused_loop.LOOP_MAX_BATCH
 SAVE_AT = tuple(round(0.1 * k, 10) for k in range(1, 10))
 CTL = StepControl(rtol=1e-8, min_dt=1e-6, max_dt=0.25)
 H0, TF = 1e-3, 1.0
+# K1-K5: the CUDA source of each and the TPU kernel it replaces. K3 and K5
+# are the steps inside K2 (device functions compiled into fused_loop.cu);
+# their rows carry the loop kernel's numbers on the path each step drives
 KERNELS = {
     "fused_rk_step": ("vec_ode_tpu_torch/csrc/fused_rk_step.cu",
                       "vec_ode_tpu/ops/pallas_rk.py:134"),
-    # K2's pallas_call; its step K3 (make_rk_step_builder, :890) is traced
-    # into it, as rk_step.cuh is compiled into fused_loop.cu
     "fused_loop": ("vec_ode_tpu_torch/csrc/fused_loop.cu",
                    "vec_ode_tpu/ops/pallas_loop.py:1135"),
+    "rk_step_tile": ("vec_ode_tpu_torch/csrc/rk_step.cuh",
+                     "vec_ode_tpu/ops/pallas_loop.py:890"),
+    "fused_chain_apply": ("vec_ode_tpu_torch/csrc/chain_expmv.cu",
+                          "vec_ode_tpu/ops/pallas_expmv.py:172"),
+    "chain_step_tile": ("vec_ode_tpu_torch/csrc/chain_step.cuh",
+                        "vec_ode_tpu/ops/pallas_loop.py:680"),
 }
 # the card's published peaks (H100 SXM, dense, at 700 W): FP32 outside
 # the tensor cores (no TF32 may enter an error estimate), and HBM
@@ -85,16 +107,23 @@ def device_phase() -> str:
 
 
 def ptxas_summary(name: str) -> str:
-    """Registers and spill stores of each instantiation (f32, f64) of the
-    kernel, from ptxas's report in its build log."""
+    """Registers and spill stores of each instantiation (f32, f64; the RK or
+    chain step and its KP) of the kernel, from ptxas's report in its build
+    log."""
     log = _build.build_log(name)
     if not log.exists():   # a library built before logs were kept
         return "no build log"
     out, inst = [], None
     for line in log.read_text().splitlines():
-        m = re.search(r"Compiling entry function '\S*_kernelI([fd])E", line)
+        m = re.search(r"Compiling entry function '\S*?_kernelI([fd])(\S*)'",
+                      line)
         if m:
             inst, spill = {"f": "f32", "d": "f64"}[m.group(1)], "?"
+            kp = re.match(r"(?:\w*ChainLoopStepI[fd])?Li(\d+)E", m.group(2))
+            if "RKLoopStep" in m.group(2):
+                inst += " rk"
+            elif kp:
+                inst += f" KP={kp.group(1)}"
             continue
         m = re.search(r"(\d+) bytes spill stores", line)
         if inst and m:
@@ -107,11 +136,12 @@ def ptxas_summary(name: str) -> str:
 
 
 def build_phase(card: str) -> None:
-    cached = {n: _build.library_path(n).exists() for n in KERNELS}
-    ready = _build.build(*KERNELS)
+    cached = {n: _build.library_path(n).exists() for n in _build.SOURCES}
+    ready = _build.build(*_build.SOURCES)
     fused_rk._kernel_lib()
     fused_loop._kernel_lib()
-    for name in KERNELS:
+    expmv._kernel_lib()
+    for name in _build.SOURCES:
         print(f"[build] {name} {'(cached) ' if cached[name] else ''}"
               f"{ready[name]:.2f} s, nvcc per source started together; "
               f"ptxas: {ptxas_summary(name)} ({card})", flush=True)
@@ -383,8 +413,16 @@ def solve(st, y0, save_at=None):
 
 
 def reset_counts() -> None:
+    """Every kernel wrapper's launch count to 0."""
     fused_rk_step.launches = 0
     fused_loop_chunk.launches = 0
+    fused_chain_apply.launches = 0
+
+
+def counts() -> tuple:
+    """The launch counts of K1, K2 and K4."""
+    return (fused_rk_step.launches, fused_loop_chunk.launches,
+            fused_chain_apply.launches)
 
 
 def main_path_phase(card: str) -> int:
@@ -392,7 +430,7 @@ def main_path_phase(card: str) -> int:
     reset_counts()
     sol = solve(st, y0)
     torch.cuda.synchronize()
-    launches, loop_launches = fused_rk_step.launches, fused_loop_chunk.launches
+    launches, loop_launches, chain_launches = counts()
 
     n_iters = int(sol.n_iters.max())
     assert sol.y_final.re.shape == (N_TRAJ, DIM), sol.y_final.re.shape
@@ -405,7 +443,8 @@ def main_path_phase(card: str) -> int:
     assert norm_dev <= 1e-4, f"|psi| drifted by {norm_dev}"
     assert sol.path == "torch-driver+cuda-step", sol.path
     assert launches == n_iters, (launches, n_iters)
-    assert loop_launches == 0, loop_launches
+    assert (loop_launches, chain_launches) == (0, 0), (loop_launches,
+                                                       chain_launches)
     print(f"[main] {N_TRAJ}x{DIM}c RKF45 rtol={CTL.rtol:g}: all DONE, "
           f"max||psi|-1|={norm_dev:.3e}, path={sol.path}, "
           f"kernel launches={launches} == max n_iters={n_iters} (loop "
@@ -458,10 +497,11 @@ def loop_path_phase(card: str) -> int:
     reset_counts()
     sol = solve(st, y0, SAVE_AT)
     torch.cuda.synchronize()
-    launches, step_launches = fused_loop_chunk.launches, fused_rk_step.launches
+    step_launches, launches, chain_launches = counts()
 
     assert sol.path == "cuda-loop-persistent", sol.path
-    assert launches == 1 and step_launches == 0, (launches, step_launches)
+    assert (step_launches, launches, chain_launches) == (0, 1, 0), (
+        step_launches, launches, chain_launches)
     n_done = int((sol.status == DONE).sum())
     assert n_done == LOOP_TRAJ, f"{LOOP_TRAJ - n_done} trajectories not DONE"
     ys = torch.complex(sol.ys.re, sol.ys.im)           # (B, 11, d)
@@ -642,6 +682,537 @@ def loop_timing_phase(card: str):
     return k_ms, p_ms, b_ms, b_by
 
 
+# -- the modulated exponential path (K4, K5, the loop kernel's fixed steps) --
+
+MAG_CTL = StepControl(rtol=1e-5, min_dt=1e-5, max_dt=0.2)   # bench.py:581
+LZ = dict(v=2.0, delta=0.4)
+LZ_T, LZ_H = 20.0, 0.01
+
+
+def chain_stepper(dtype, d=DIM, fast_error=False, midpoint=False, norm=None,
+                  lz=False):
+    """A Magnus-4 (or midpoint) stepper on DrivenDense(d, seed 0), or on the
+    Landau-Zener operator, on the card."""
+    model = LandauZener(**LZ) if lz else DrivenDense.make(d=d, seed=0)
+    op = model.modulated(dtype, device="cuda")
+    if midpoint:
+        return MidpointModulated(op)
+    return MagnusModulated4(op, fast_error=fast_error, norm=norm)
+
+
+def chain_operands(st, dtype):
+    mt, norms = st._operands(torch.device("cuda"), dtype)
+    m, theta = _taylor_params(dtype)
+    return mt, norms, m, theta
+
+
+def chain_inputs(st, B, dtype, seed=7, dt_range=(1e-3, 5e-2)):
+    """The step inputs of step_inputs (states of scale 0.1, t in [0, 1), dt
+    in dt_range) for a chain stepper, with the node samples of its
+    coefficient function."""
+    D = st._basis_w.shape[-1]
+    rng = np.random.default_rng(seed)
+    xw = torch.as_tensor(rng.standard_normal((B, D)) * 0.1, dtype=dtype,
+                         device="cuda")
+    t = torch.as_tensor(rng.uniform(0, 1, B), dtype=dtype, device="cuda")
+    dt = torch.as_tensor(rng.uniform(*dt_range, B), dtype=dtype,
+                         device="cuda")
+    samples = [st.op.coeff_fn(tn).contiguous()
+               for tn in node_times(st._recipe, t, dt)]
+    return samples, dt, xw
+
+
+def chain_pair(st, samples, dt, xw, wnorm=None, kernel=True):
+    """K4 and its twin on the same inputs: ((y, err), (y, err)); without
+    ``kernel`` the twin's alone."""
+    mt, norms, m, theta = chain_operands(st, xw.dtype)
+    kw = dict(recipe=st._recipe, C=st._chains, m=m, theta=theta,
+              wnorm=wnorm)
+    want = torch_chain_step(samples, dt, xw, mt, norms, **kw)
+    if not kernel:
+        return want
+    return fused_chain_apply(samples, dt, xw, mt, norms, **kw), want
+
+
+def check_chain_step(B, dtype, label, dt_range=(1e-3, 5e-2), wnorm=None,
+                     **stkw) -> tuple:
+    """K4 against torch_chain_step on the card. The state: f64 to 1e-12 of
+    its scale (only the products' summation order differs), f32 to
+    bench.py's on-device limit 1e-5. The error norm per row: f64 within
+    1e-9 of it plus 1e-18; f32 within 1e-4 of it plus a floor of four
+    times the plain f32 step's largest deviation from the plain f64 step
+    on the same inputs (the pair's error is a difference of two chains).
+    Returns (max |dy|, rows on which a norm 10% off would fail)."""
+    st = chain_stepper(dtype, **stkw)
+    samples, dt, xw = chain_inputs(st, B, dtype, dt_range=dt_range)
+    (yk, ek), (yp, ep) = chain_pair(st, samples, dt, xw, wnorm)
+    torch.cuda.synchronize()
+    has_err = ep is not None
+    if not has_err:
+        ep = torch.zeros_like(ek)
+    if dtype == torch.float64:
+        x_lim, e_lim, floor = 1e-12 * max(float(yp.abs().max()), 1.0), \
+            1e-9 * ep.abs() + 1e-18, 1e-18
+    else:
+        st64 = chain_stepper(torch.float64, **stkw)
+        _, e64 = chain_pair(st64, [g.double() for g in samples],
+                            dt.double(), xw.double(), wnorm, kernel=False)
+        floor = 4 * float((ep.double() - e64).abs().max()) if has_err else 0
+        x_lim = 1e-5 * max(float(yp.abs().max()), 1.0)
+        e_lim = (1e-4 * ep.abs() + floor).to(ep.dtype)
+    dy = float((yk - yp).abs().max())
+    de = (ek - ep).abs()
+    sensitive = int((0.1 * ep > e_lim).sum()) if has_err else 0
+    ok = (dy <= x_lim and bool((de <= e_lim).all())
+          and bool(torch.isfinite(yk).all()) and bool(torch.isfinite(ek).all()))
+    print(f"[chain-step] {label} {str(dtype)[6:]} B={B} D={xw.shape[1]} dt in "
+          f"[{dt_range[0]:g}, {dt_range[1]:g}): max|dy|={dy:.3e} (<= "
+          f"{x_lim:.1e}); "
+          + (f"max|derr|={float(de.max()):.3e}, max|derr|/limit="
+             f"{float((de / e_lim).max()):.3f} (<= 1; floor {floor:.2e}, err "
+             f"up to {float(ep.max()):.2e}); a norm 10% off fails on "
+             f"{sensitive}/{B} rows" if has_err else
+             f"no error estimate, err == 0: {bool((ek == 0).all())}")
+          + f"; {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"K4 disagrees with its twin: {label} {dtype}")
+    return dy, sensitive
+
+
+def chain_step_phase() -> float:
+    """K4 against its twin: f64 at B=1000 (a ragged last tile) for every
+    recipe and norm, D=4 (Landau-Zener) in both types, and the main path's
+    16384x64c in f32, where long steps hold every row's norm tightly."""
+    f64 = torch.float64
+    check_chain_step(1000, f64, "magnus4 pair")
+    check_chain_step(1000, f64, "magnus4 fast_error", fast_error=True)
+    check_chain_step(1000, f64, "magnus4 pair l2 weighted",
+                     wnorm=weighted("l2", DIM))
+    check_chain_step(1000, f64, "magnus4 pair max", wnorm=weighted("max", DIM,
+                                                                   False))
+    check_chain_step(1000, f64, "midpoint", midpoint=True)
+    for dtype in (torch.float32, f64):
+        check_chain_step(1000, dtype, "LZ magnus4 pair", lz=True)
+        check_chain_step(1000, dtype, "LZ midpoint", lz=True, midpoint=True,
+                         dt_range=(1e-3, 0.5))
+    check_chain_step(N_TRAJ, torch.float32, "magnus4 fast_error",
+                     fast_error=True)
+    for label, kw in (("magnus4 pair", {}),
+                      ("magnus4 fast_error", dict(fast_error=True))):
+        _, sensitive = check_chain_step(N_TRAJ, torch.float32, label,
+                                        dt_range=(0.1, 0.2), **kw)
+        if sensitive != N_TRAJ:
+            raise AssertionError(
+                f"the long-step check holds only {sensitive}/{N_TRAJ} error "
+                "norms to 10%")
+    return check_chain_step(N_TRAJ, torch.float32, "magnus4 pair")[0]
+
+
+# The kernel-vs-twin cases of the chain loop (the CPU tests hold the twin
+# to the JAX package on the same controller settings). max_steps bounds
+# every case and the steps stay short enough that s <= 4.
+CHAIN_BASE = dict(rtol=1e-5, min_dt=1e-5, max_dt=0.2, max_steps=3000)
+CHAIN_CASES = {
+    "plain": {},
+    "save_grid": dict(grid=(0.0, 0.075, 0.15, 0.225, 0.3)),
+    "pi": dict(ctl=dict(pi=True)),
+    "scaled_error": dict(ctl=dict(scaled_error=True, rtol=1e-6, atol=1e-9)),
+    "weighted_l2": dict(norm=("l2", True)),
+    "weighted_max": dict(norm=("max", False)),
+    "fast_error": dict(fast_error=True),
+    "h0_per_row": dict(h0="per_row"),
+    "max_steps": dict(ctl=dict(max_steps=6)),
+    "stalled": dict(ctl=dict(max_reject_streak=2, rtol=1e-14), h0=0.2),
+    "lz_magnus4": dict(lz=True, grid=(-2.0, 2.0)),
+    # fixed steps: the loop kernel's fixed-step mode
+    "lz_midpoint": dict(lz=True, midpoint=True, grid=(-2.0, 0.5, 2.0),
+                        h0=0.01),
+    # the Landau-Zener path's inputs (lz_inputs) and fixed steps: 4002
+    # iterations
+    "lz_path": dict(lz=True, midpoint=True, grid=(-LZ_T, LZ_T), h0=LZ_H,
+                    y0="lz", ctl=dict(max_steps=5000)),
+    # the main path's settings, t in [0, 1]
+    "magnus_path": dict(grid=(0.0, TF)),
+}
+# the cases run at their path's batch (the tiling the path runs) alone
+CHAIN_PATHS = ("lz_path", "magnus_path")
+
+
+def chain_loop_case(name, B, dtype, seed=11):
+    """(carries, step, ctl, adaptive, expected status) of a CHAIN_CASES
+    entry: unit states, t in [0, 0.3] unless the case says otherwise."""
+    case = CHAIN_CASES[name]
+    ctl = StepControl(**{**CHAIN_BASE, **case.get("ctl", {})})
+    norm = case.get("norm")
+    st = chain_stepper(
+        dtype, fast_error=case.get("fast_error", False),
+        midpoint=case.get("midpoint", False), lz=case.get("lz", False),
+        norm=None if norm is None else lc.WeightedNorm(
+            norm[0], tuple(np.linspace(0.5, 2.0, DIM)) if norm[1] else None))
+    d = 2 if case.get("lz") else DIM
+    y0 = (lz_inputs(B, dtype)[1] if case.get("y0") == "lz"
+          else unit_states(B, d, dtype, seed))
+    h0 = case.get("h0", H0)
+    if h0 == "per_row":
+        h0 = 10.0 ** np.random.default_rng(seed).uniform(-4, -1, B)
+    mt, norms, m, theta = chain_operands(st, dtype)
+    step = ChainStep(mt=mt, norms=norms, form=st.op.form, recipe=st._recipe,
+                     C=st._chains, m=m, theta=theta,
+                     scaled=(ctl.atol, ctl.rtol) if ctl.scaled_error
+                     else None,
+                     wnorm=None if norm is None else st._wnorm_of(y0))
+    grid = torch.tensor(case.get("grid", (0.0, 0.3)), dtype=torch.float64)
+    carries = init_carries(grid, torch.cat([y0.re, y0.im], 1),
+                           torch.as_tensor(h0, dtype=torch.float64))
+    status = {"max_steps": ERR_MAX_STEPS, "stalled": ERR_STALLED}.get(name,
+                                                                      DONE)
+    return carries, step, ctl, st._adaptive, status
+
+
+def run_chain_loop_pair(name, B, dtype, chunk=None):
+    """The loop kernel with the chain step and its twin on the same
+    carries; returns both final carries, the expected status and whether
+    the steps were adaptive."""
+    carries, step, ctl, adaptive, status = chain_loop_case(name, B, dtype)
+    saves_k = carries[4].clone()
+    got = fused_loop_chunk(*carries[:4], saves_k, step, ctl=ctl, chunk=chunk,
+                           adaptive=adaptive)
+    while chunk is not None and bool((got[1][:, 1] == 0).any()):
+        got = fused_loop_chunk(carries[0], *got, step, ctl=ctl, chunk=chunk,
+                               adaptive=adaptive)
+    want = torch_fused_loop(*carries, step, ctl=ctl, adaptive=adaptive)
+    torch.cuda.synchronize()
+    return got, want, status, adaptive
+
+
+def check_chain_loop_pair(name, B, dtype) -> float:
+    """The loop kernel with the chain step (K5) against torch_fused_loop.
+    f64: status and every counter equal per trajectory, states and saves
+    within 1e-12. f32: states within 1e-4; counters equal for fixed steps
+    (every step accepts), within 2 for adaptive ones (marginal accepts
+    may flip at f32 rounding). Returns max |dx|."""
+    got, want, status, adaptive = run_chain_loop_pair(name, B, dtype)
+    dcount = int((got[1][:, INT_COLS] - want[1][:, INT_COLS]).abs().max())
+    dx = float((got[2] - want[2]).abs().max())
+    ds = float((got[3] - want[3]).abs().max()) if got[3].numel() else 0.0
+    n_status = int((got[1][:, 1] == status).sum())
+    f64 = dtype == torch.float64
+    lim_c = 0 if f64 or not adaptive else 2
+    lim_x = 1e-12 if f64 else 1e-4
+    ok = (dcount <= lim_c and dx <= lim_x and ds <= lim_x and n_status == B
+          and bool(torch.isfinite(got[2]).all()))
+    print(f"[chain-loop] {name} {str(dtype)[6:]} B={B} D={got[2].shape[1]}: "
+          f"status {status} on {n_status}/{B}, max|dcount|={dcount} (<= "
+          f"{lim_c}), max|dx|={dx:.3e}, max|dsaves|={ds:.3e} (<= "
+          f"{lim_x:.1e}), iterations up to {int(got[1][:, 5].max())}; "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"the chain loop disagrees with its twin: "
+                             f"{name} {dtype} B={B}")
+    return dx
+
+
+def check_chain_persistent_is_chunked(name, B, dtype) -> None:
+    p = run_chain_loop_pair(name, B, dtype)[0]
+    c = run_chain_loop_pair(name, B, dtype, chunk=5)[0]
+    same = [bool(torch.equal(a, b)) for a, b in zip(p, c)]
+    print(f"[chain-loop] persistent vs chunks of 5, {name} {str(dtype)[6:]} "
+          f"B={B}: fs/ist/x/saves bitwise equal {same}", flush=True)
+    if not all(same):
+        raise AssertionError("persistent and chunked chain loops differ")
+
+
+def chain_loop_kernel_phase() -> float:
+    for name in CHAIN_CASES:
+        if name not in CHAIN_PATHS:
+            check_chain_loop_pair(name, 1000, torch.float64)   # ragged tiles
+    for name in ("plain", "save_grid", "pi", "lz_magnus4", "lz_midpoint"):
+        check_chain_loop_pair(name, LOOP_TRAJ, torch.float32)
+    check_chain_persistent_is_chunked("save_grid", 1000, torch.float64)
+    check_chain_persistent_is_chunked("lz_midpoint", LOOP_TRAJ,
+                                      torch.float32)
+    # both paths' own inputs at their batch, so at the tiles they run
+    check_chain_loop_pair("lz_path", N_TRAJ, torch.float32)
+    return check_chain_loop_pair("magnus_path", N_TRAJ, torch.float32)
+
+
+def magnus_inputs(n=N_TRAJ, form=True):
+    """The Magnus path's inputs: the main path's unit states and
+    DrivenDense(64, seed 0) as a modulated operator, with its declared
+    coefficient form or (form=False) only its coefficient function."""
+    op = DrivenDense.make(d=DIM, seed=0).modulated(torch.float32,
+                                                   device="cuda")
+    if not form:
+        op = dataclasses.replace(op, form=None)
+    _, y0 = main_inputs(n)
+    return MagnusModulated4(op), y0
+
+
+def magnus_solve(st, y0):
+    return ensemble_solve(None, y0, 0.0, TF, stepper=st, ctl=MAG_CTL, h0=H0,
+                          time_dtype=torch.float32)
+
+
+def magnus_loop_path_phase():
+    """The slice's main path: 16384x64c Magnus-4 in one loop launch."""
+    st, y0 = magnus_inputs()
+    reset_counts()
+    sol = magnus_solve(st, y0)
+    torch.cuda.synchronize()
+    k1, k2, k4 = counts()
+    assert sol.path == "cuda-loop-persistent", sol.path
+    assert (k1, k2, k4) == (0, 1, 0), (k1, k2, k4)
+    n_done = int((sol.status == DONE).sum())
+    assert n_done == N_TRAJ, f"{N_TRAJ - n_done} trajectories not DONE"
+    y = torch.complex(sol.y_final.re, sol.y_final.im)
+    assert y.shape == (N_TRAJ, DIM) and bool(torch.isfinite(y.real).all()
+                                             & torch.isfinite(y.imag).all())
+    norm_dev = float((y.abs().pow(2).sum(-1).sqrt() - 1).abs().max())
+    assert norm_dev <= 1e-4, f"|psi| drifted by {norm_dev}"
+    print(f"[magnus-loop] {N_TRAJ}x{DIM}c MagnusModulated4 rtol="
+          f"{MAG_CTL.rtol:g}: all DONE, max||psi|-1|={norm_dev:.3e}, path="
+          f"{sol.path}, launches K1/K2/K4 = {k1}/{k2}/{k4}, n_accept "
+          f"{int(sol.n_accept.min())}..{int(sol.n_accept.max())}, n_reject "
+          f"{int(sol.n_reject.min())}..{int(sol.n_reject.max())}, n_iters up "
+          f"to {int(sol.n_iters.max())}", flush=True)
+    return k2, sol
+
+
+def magnus_step_path_phase(loop_sol):
+    """The same solve with only a coefficient function: the host driver and
+    a K4 launch per iteration; counters within 1 of the loop path's."""
+    st, y0 = magnus_inputs(form=False)
+    reset_counts()
+    sol = magnus_solve(st, y0)
+    torch.cuda.synchronize()
+    k1, k2, k4 = counts()
+    n_iters = int(sol.n_iters.max())
+    assert sol.path == "torch-driver+cuda-step", sol.path
+    assert (k1, k2) == (0, 0) and k4 == n_iters, (k1, k2, k4, n_iters)
+    assert int((sol.status == DONE).sum()) == N_TRAJ
+    dcount = max(int((getattr(sol, k) - getattr(loop_sol, k)).abs().max())
+                 for k in ("n_accept", "n_reject", "n_iters"))
+    dy = float(torch.maximum((sol.y_final.re - loop_sol.y_final.re).abs(),
+                             (sol.y_final.im - loop_sol.y_final.im).abs())
+               .max())
+    assert dcount <= 1 and dy <= 1e-4, (dcount, dy)
+    print(f"[magnus-step] {N_TRAJ}x{DIM}c, operator without a declared form: "
+          f"path={sol.path}, K4 launches={k4} == max n_iters={n_iters} "
+          f"(K1/K2 {k1}/{k2}); vs the loop path: max|dcount|={dcount} (<= 1), "
+          f"max|dy|={dy:.3e} (<= 1e-4)", flush=True)
+    return k4
+
+
+def lz_inputs(n=N_TRAJ, dtype=torch.float32):
+    """Half the sweeps start in |0>, the rest at random unit states."""
+    rng = np.random.default_rng(42)
+    psi = rng.standard_normal((n, 2)) + 1j * rng.standard_normal((n, 2))
+    psi /= np.linalg.norm(psi, axis=-1, keepdims=True)
+    psi[: n // 2] = [1.0, 0.0]
+    st = MidpointModulated(LandauZener(**LZ).modulated(dtype, device="cuda"))
+    return st, from_complex(psi, dtype, device="cuda")
+
+
+def lz_solve(st, y0):
+    return ensemble_solve(None, y0, -LZ_T, LZ_T, stepper=st, h0=LZ_H,
+                          adaptive=False, time_dtype=torch.float32)
+
+
+def lz_path_phase():
+    """16384 fixed-step Landau-Zener sweeps in the loop kernel's fixed-step
+    mode: the |0> rows within 0.02 of the closed-form transition
+    probability (the JAX package's tolerance for a finite sweep), every
+    row at |psi| = 1 within 1e-4."""
+    st, y0 = lz_inputs()
+    reset_counts()
+    sol = lz_solve(st, y0)
+    torch.cuda.synchronize()
+    k1, k2, k4 = counts()
+    assert sol.path == "cuda-loop-persistent", sol.path
+    assert (k1, k2, k4) == (0, 1, 0), (k1, k2, k4)
+    n_steps = round(2 * LZ_T / LZ_H)
+    assert int((sol.status == DONE).sum()) == N_TRAJ
+    assert bool((sol.n_accept == n_steps).all()), sol.n_accept.unique()
+    assert int(sol.n_reject.max()) == 0
+    psi = torch.complex(sol.y_final.re, sol.y_final.im)
+    p_stay = psi[: N_TRAJ // 2, 0].abs().pow(2)
+    p = LandauZener(**LZ).p_transition
+    dp = float((p_stay - p).abs().max())
+    norm_dev = float((psi.abs().pow(2).sum(-1).sqrt() - 1).abs().max())
+    assert dp <= 0.02 and norm_dev <= 1e-4, (dp, norm_dev)
+    print(f"[lz] {N_TRAJ} Landau-Zener sweeps (v={LZ['v']}, delta="
+          f"{LZ['delta']}), t in [-{LZ_T:g}, {LZ_T:g}], {n_steps} fixed "
+          f"midpoint steps: path={sol.path}, launches K1/K2/K4 = "
+          f"{k1}/{k2}/{k4}; |0> rows: P_stay {float(p_stay.min()):.5f}.."
+          f"{float(p_stay.max()):.5f} vs P_LZ {p:.5f}, max|dP|={dp:.4f} "
+          f"(<= 0.02); max||psi|-1|={norm_dev:.3e} (<= 1e-4)", flush=True)
+    return k2
+
+
+def chain_flops(passes, D: int, m: int, recipe: str, K0: int,
+                fast_rows: int = 0, zero_columns: bool = False) -> float:
+    """Operations of passes[c] Taylor passes of chain c (each m terms: a
+    (D, K_c D) product, the K_c-term weighted sum, the division and the
+    running sum) and of fast_rows fast-error products over the commutator
+    columns. K_c counts the basis terms chain c's row can hold nonzero:
+    the Magnus-4 pair's comparison chain (c = 1) has zero commutator
+    columns, which the kernels multiply all the same (so that a non-finite
+    state reaches the error) and which only ``zero_columns`` counts."""
+    Kp = expmv.n_working_terms(recipe, K0)
+    flop = 0
+    for c, n in enumerate(passes):
+        k = K0 if c == 1 and not zero_columns else Kp
+        flop += n * m * (2 * D * k * D + 2 * k * D + 2 * D)
+    return flop + fast_rows * 2 * D * (Kp - K0) * D
+
+
+def passes_needed(st, samples, dt) -> list:
+    """The Taylor passes these inputs need per chain, summed over rows (the
+    twin's scaling rule)."""
+    mt, norms, m, theta = chain_operands(st, dt.dtype)
+    rows = expmv.chain_rows(st._recipe, samples, dt, st._chains)
+    _, n_pass = expmv.scale_rows(rows, norms, theta, st.max_squarings)
+    return n_pass.sum(0).tolist()
+
+
+def k4_timing_phase(card: str):
+    """K4 per launch at the main path's 16384x64c f32 Magnus-4 pair (CUDA
+    events over 20 launches), its twin, and the library yardstick:
+    torch.linalg.matrix_exp of the assembled (2B, D, D) exponents of both
+    chains and bmm applying them, in batches of 4096 exponents (16 calls;
+    the error norm is not in it), checked against K4's advanced state."""
+    st = chain_stepper(torch.float32)
+    samples, dt, xw = chain_inputs(st, N_TRAJ, torch.float32)
+    mt, norms, m, theta = chain_operands(st, torch.float32)
+    kw = dict(recipe=st._recipe, C=st._chains, m=m, theta=theta)
+    for _ in range(3):
+        fused_chain_apply(samples, dt, xw, mt, norms, **kw)
+        torch_chain_step(samples, dt, xw, mt, norms, **kw)
+    rows = expmv.chain_rows(st._recipe, samples, dt, st._chains)
+    A = torch.einsum("bck,kij->bcij", rows,
+                     st._basis_w.to(rows)).reshape(-1, 2 * DIM, 2 * DIM)
+    xs = xw.repeat_interleave(st._chains, 0)[:, :, None]
+    # in batches of 4096 exponents: one matrix_exp over all 32 768 faulted
+    # with an illegal memory access on the H100 (torch 2.11.0+cu128)
+    n_lib = 4096
+
+    def library():
+        return torch.cat([torch.bmm(torch.linalg.matrix_exp(a), x)
+                          for a, x in zip(A.split(n_lib), xs.split(n_lib))])
+
+    y_lib = library()[:, :, 0].reshape(N_TRAJ, st._chains, 2 * DIM)
+    y_k4, _ = fused_chain_apply(samples, dt, xw, mt, norms, **kw)
+    torch.cuda.synchronize()
+    d_lib = float((y_lib[:, 0] - y_k4).abs().max())
+    assert d_lib <= 1e-5, f"the library yardstick disagrees with K4: {d_lib}"
+    k_runs, p_runs, l_runs = [], [], []
+    for _ in range(3):  # in turns: kernel, plain, library
+        k_runs.append(timed_ms(lambda: fused_chain_apply(
+            samples, dt, xw, mt, norms, **kw), reps=1, inner=20))
+        p_runs.append(timed_ms(lambda: torch_chain_step(
+            samples, dt, xw, mt, norms, **kw), reps=1, inner=5))
+        l_runs.append(timed_ms(library, reps=1, inner=5))
+    k_ms, p_ms, l_ms = (statistics.median(r) for r in (k_runs, p_runs,
+                                                        l_runs))
+    passes = passes_needed(st, samples, dt)
+    D, Kp, K0 = 2 * DIM, mt.shape[1] // (2 * DIM), samples[0].shape[1]
+    flop = chain_flops(passes, D, m, st._recipe, K0)
+    nbytes = 4 * (2 * N_TRAJ * D + 2 * N_TRAJ * 2 + 2 * N_TRAJ
+                  + Kp * D * D)
+    b_ms, b_by = bound(flop, nbytes)
+    b0_ms, _ = bound(chain_flops(passes, D, m, st._recipe, K0,
+                                 zero_columns=True), nbytes)
+    print(f"[time] K4 one Magnus-4 pair step at B={N_TRAJ}, d={DIM}, f32 "
+          f"(Taylor passes over rows, per chain {passes}): kernel "
+          f"{k_ms:.4f} ms ({flop / k_ms / 1e9:.2f} TFLOP/s), plain twin "
+          f"{p_ms:.4f} ms, library (matrix_exp + bmm of both chains) "
+          f"{l_ms:.4f} ms (max|y_lib - y_K4|={d_lib:.2e}); runs kernel "
+          f"{[round(v, 4) for v in k_runs]}, plain "
+          f"{[round(v, 4) for v in p_runs]}, library "
+          f"{[round(v, 4) for v in l_runs]}; bound {b_ms:.4f} ms by {b_by} "
+          f"({flop / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB; "
+          f"{b0_ms:.4f} ms with the comparison chain's zero columns), "
+          f"kernel at {b_ms / k_ms:.1%} of it ({card})", flush=True)
+    return k_ms, p_ms, b_ms, b_by, l_ms
+
+
+class PassCounter:
+    """A ChainStep's twin that also counts the Taylor passes its stepping
+    rows take per chain, for the loop's bound."""
+
+    def __init__(self, step):
+        self.step, self.passes, self.fast_rows = step, [0] * step.C, 0
+        self.has_err, self.scaled, self.wnorm = (step.has_err, step.scaled,
+                                                 step.wnorm)
+
+    def plain(self, t, dt, xw):
+        st = self.step
+        samples = [st.form.sample(tn) for tn in node_times(st.recipe, t, dt)]
+        rows = expmv.chain_rows(st.recipe, samples, dt, st.C)
+        _, n_pass = expmv.scale_rows(rows, st.norms, st.theta,
+                                     st.max_squarings)
+        stepping = (dt != 0)[:, None]
+        self.passes = [a + b for a, b in zip(
+            self.passes, (n_pass * stepping).sum(0).tolist())]
+        if st.recipe == "magnus4_fast":
+            self.fast_rows += int(stepping.sum())
+        return st.plain(t, dt, xw)
+
+
+def k5_timing_phase(card: str):
+    """The Magnus path's solve (one loop launch) and the per-step path's,
+    and the loop kernel with the chain step alone against its twin per
+    solve, beside the bound of the Taylor passes the twin takes."""
+    st, y0 = magnus_inputs()
+    loop_ms, _ = timed_solve(
+        lambda: magnus_solve(st, y0),
+        f"Magnus loop path {N_TRAJ}x{DIM}c f32, one loop launch (K5)", card)
+    st_step, _ = magnus_inputs(form=False)
+    step_ms, _ = timed_solve(
+        lambda: magnus_solve(st_step, y0),
+        f"Magnus per-step path on the same {N_TRAJ} inputs (K4)", card)
+    grid = driver.make_grid(0.0, TF, dtype=torch.float32, device="cuda")
+    mt, norms, m, theta = chain_operands(st, torch.float32)
+    step = ChainStep(mt=mt, norms=norms, form=st.op.form, recipe=st._recipe,
+                     C=st._chains, m=m, theta=theta)
+    carries = init_carries(grid, torch.cat([y0.re, y0.im], 1), H0)
+    out = fused_loop_chunk(*carries, step, ctl=MAG_CTL)
+    k_runs, p_runs = [], []
+    counter = PassCounter(step)
+    for i in range(3):  # in turns: kernel, plain
+        k_runs.append(timed_ms(lambda: fused_loop_chunk(
+            *carries, step, ctl=MAG_CTL), reps=1))
+        p_runs.append(timed_ms(lambda: torch_fused_loop(
+            *carries[:4], carries[4].clone(), counter if i == 0 else step,
+            ctl=MAG_CTL), reps=1))
+    k_ms, p_ms = statistics.median(k_runs), statistics.median(p_runs)
+    D, Kp, K0 = 2 * DIM, mt.shape[1] // (2 * DIM), step.form.n_terms
+    steps = int((out[1][:, 3] + out[1][:, 4]).sum())
+    flop = chain_flops(counter.passes, D, m, step.recipe, K0,
+                       counter.fast_rows)
+    nbytes = 4 * (2 * N_TRAJ * (5 + D) + Kp * D * D + 2) + 2 * 4 * N_TRAJ * 8
+    b_ms, b_by = bound(flop, nbytes)
+    b0_ms, _ = bound(chain_flops(counter.passes, D, m, step.recipe, K0,
+                                 counter.fast_rows, zero_columns=True),
+                     nbytes)
+    print(f"[time] K2 with the chain step (K5) at the Magnus path "
+          f"({N_TRAJ}x{DIM}c, f32): kernel {k_ms:.4f} ms (runs "
+          f"{[round(v, 4) for v in k_runs]}), plain twin {p_ms:.4f} ms (runs "
+          f"{[round(v, 4) for v in p_runs]}); bound {b_ms:.4f} ms by {b_by} "
+          f"({steps} steps, Taylor passes per chain {counter.passes}, "
+          f"{flop / 1e9:.1f} GFLOP; {b0_ms:.4f} ms with the comparison "
+          f"chain's zero columns), kernel at {b_ms / k_ms:.1%} of it; loop "
+          f"path {loop_ms:.3f} ms vs per-step path {step_ms:.3f} ms ({card})",
+          flush=True)
+    st_lz, y_lz = lz_inputs()
+    lz_ms, _ = timed_solve(lambda: lz_solve(st_lz, y_lz),
+                           f"Landau-Zener path {N_TRAJ} sweeps, "
+                           f"{round(2 * LZ_T / LZ_H)} fixed steps, one loop "
+                           "launch", card)
+    return k_ms, p_ms, b_ms, b_by
+
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = device_phase()
@@ -649,22 +1220,33 @@ def main() -> None:
     k1_err = step_phase()
     norm_phase()
     k2_err = loop_kernel_phase()
+    k4_err = chain_step_phase()
+    k5_err = chain_loop_kernel_phase()
     k1_launches = main_path_phase(card)
     k2_launches = loop_path_phase(card)
+    k5_launches, loop_sol = magnus_loop_path_phase()
+    k4_launches = magnus_step_path_phase(loop_sol)
+    lz_path_phase()
     k1 = timing_phase(card)
     k2 = loop_timing_phase(card)
+    k4 = k4_timing_phase(card)
+    k5 = k5_timing_phase(card)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     rows = []
-    for name, launches, err, (ms, plain_ms, b_ms, b_by) in (
+    for name, launches, err, (ms, plain_ms, b_ms, b_by, *lib) in (
             ("fused_rk_step", k1_launches, k1_err, k1),
-            ("fused_loop", k2_launches, k2_err, k2)):
+            ("fused_loop", k2_launches, k2_err, k2),
+            ("rk_step_tile", k2_launches, k2_err, k2),
+            ("fused_chain_apply", k4_launches, k4_err, k4),
+            ("chain_step_tile", k5_launches, k5_err, k5)):
         source, replaces = KERNELS[name]
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib[0] if lib else None,
         })
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

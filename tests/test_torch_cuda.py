@@ -1,11 +1,14 @@
 """The hand-written CUDA kernels of the port against their plain torch
 twins, on a CUDA card: the step kernel (K1) with and without a declared
-norm, and the whole-loop kernel (K2). Every test here carries the
+norm, the whole-loop kernel (K2) with its RK step (K3) and its chain step
+(K5) and fixed-step mode, and the chain kernel (K4). Every test here carries the
 ``cuda`` marker and skips without a card. The file imports no jax, so on
 a machine with a card but without jax it runs as
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -14,7 +17,10 @@ import torch
 import chip_smoke
 from chip_smoke import err_norm_limit
 from vec_ode_tpu_torch import DONE, StepControl, lc, tableaus as ttab
+from vec_ode_tpu_torch.exp import (CoeffForm, MagnusModulated4,
+                                   MidpointModulated, ModulatedOperator)
 from vec_ode_tpu_torch.models import DrivenDense
+from vec_ode_tpu_torch.ops.expmv import fused_chain_apply
 from vec_ode_tpu_torch.ops.cplx import Cplx, from_complex
 from vec_ode_tpu_torch.ops.fused_loop import fused_loop_chunk
 from vec_ode_tpu_torch.ops.fused_rk import (MAX_WIDTH,
@@ -272,3 +278,185 @@ def test_loop_wrapper_refuses_what_the_kernel_does_not_take(card):
     with pytest.raises(TypeError):
         fused_loop_chunk(t_grid.double(), fs.double(), ist, x.double(),
                          saves, step, ctl=ctl)
+
+
+# -- the modulated exponential path: K4 and the loop kernel's chain step --
+
+CHAIN_STEP_CASES = {
+    "pair_f64": dict(B=1000, dtype=torch.float64),
+    "fast_f64": dict(B=1000, dtype=torch.float64, fast_error=True),
+    "l2_weighted_f64": dict(B=1000, dtype=torch.float64,
+                            wnorm=("l2", True)),
+    "max_f64": dict(B=1000, dtype=torch.float64, wnorm=("max", False)),
+    "midpoint_f64": dict(B=1000, dtype=torch.float64, midpoint=True),
+    "lz_pair_f32": dict(B=1000, dtype=torch.float32, lz=True),
+    "lz_midpoint_f64": dict(B=1000, dtype=torch.float64, lz=True,
+                            midpoint=True),
+    "pair_f32": dict(B=16384, dtype=torch.float32),
+    "fast_f32": dict(B=16384, dtype=torch.float32, fast_error=True),
+}
+
+
+@pytest.mark.parametrize("name", list(CHAIN_STEP_CASES))
+def test_chain_kernel_matches_twin(card, name):
+    """K4 against torch_chain_step (chip_smoke.check_chain_step's limits):
+    f64 at B=1000 (a ragged last tile), the main path's 16384x64c in f32,
+    D=4 (Landau-Zener)."""
+    kw = dict(CHAIN_STEP_CASES[name])
+    B, dtype, wn = kw.pop("B"), kw.pop("dtype"), kw.pop("wnorm", None)
+    before = fused_chain_apply.launches
+    chip_smoke.check_chain_step(
+        B, dtype, name, wnorm=None if wn is None else chip_smoke.weighted(
+            wn[0], 64, wn[1]), **kw)
+    assert fused_chain_apply.launches == before + 1
+
+
+def test_chain_kernel_error_norm_holds_to_the_row_on_long_steps(card):
+    _, sensitive = chip_smoke.check_chain_step(16384, torch.float32, "pair",
+                                               dt_range=(0.1, 0.2))
+    assert sensitive == 16384
+
+
+CHAIN_LOOP_NAMES = [n for n in chip_smoke.CHAIN_CASES
+                    if n not in chip_smoke.CHAIN_PATHS]
+
+
+@pytest.mark.parametrize("name", CHAIN_LOOP_NAMES)
+def test_chain_loop_kernel_matches_twin_f64(card, name):
+    """1000 trajectories: status and every counter equal per trajectory,
+    states and saves within 1e-12 (chip_smoke's check)."""
+    chip_smoke.check_chain_loop_pair(name, 1000, torch.float64)
+
+
+@pytest.mark.parametrize("name", ["plain", "save_grid", "pi", "lz_magnus4",
+                                  "lz_midpoint", "magnus_path"])
+def test_chain_loop_kernel_matches_twin_f32(card, name):
+    chip_smoke.check_chain_loop_pair(name, 2048, torch.float32)
+
+
+@pytest.mark.parametrize("name,dtype", [("save_grid", torch.float64),
+                                        ("fast_error", torch.float32),
+                                        ("lz_midpoint", torch.float32)])
+def test_chain_loop_persistent_equals_chunked(card, name, dtype):
+    chip_smoke.check_chain_persistent_is_chunked(name, 1000, dtype)
+
+
+def test_chain_loop_kernel_matches_twin_at_the_landau_zener_path(card):
+    """The Landau-Zener path's own inputs, batch and 4000 fixed steps
+    through the loop kernel and its twin: counters equal, states within
+    1e-4."""
+    chip_smoke.check_chain_loop_pair("lz_path", chip_smoke.N_TRAJ,
+                                     torch.float32)
+
+
+def test_landau_zener_fixed_steps_on_the_card(card):
+    """16384 sweeps in the loop kernel's fixed-step mode: one launch, the
+    |0> rows within 0.02 of the closed form, |psi| = 1 within 1e-4."""
+    assert chip_smoke.lz_path_phase() == 1
+
+
+def test_magnus_ensemble_on_the_card_matches_the_cpu_path_f64(card):
+    """300 trajectories of a 16-dim driven system in f64: on the card the
+    declared form takes the loop kernel (one launch) and a bare
+    coefficient function the per-step kernel (a launch per iteration); on
+    the CPU the loop's twin. The same steps per trajectory."""
+    model = DrivenDense.make(d=16, seed=0)
+    rng = np.random.default_rng(42)
+    psi = rng.standard_normal((300, 16)) + 1j * rng.standard_normal((300, 16))
+    psi /= np.linalg.norm(psi, axis=-1, keepdims=True)
+    ctl = StepControl(rtol=1e-8, min_dt=1e-6, max_dt=0.2)
+    sols = {}
+    for dev, form in (("cpu", True), ("cuda", True), ("cuda", False)):
+        op = model.modulated(torch.float64, device=dev)
+        if not form:
+            op = dataclasses.replace(op, form=None)
+        before = (fused_loop_chunk.launches, fused_chain_apply.launches)
+        sol = ensemble_solve(
+            None, from_complex(psi, torch.float64, device=dev), 0.0, 1.0,
+            stepper=MagnusModulated4(op), ctl=ctl, h0=1e-3, save_at=(0.5,))
+        launched = (fused_loop_chunk.launches - before[0],
+                    fused_chain_apply.launches - before[1])
+        if dev == "cpu":
+            assert launched == (0, 0) and sol.path == "torch-loop"
+        elif form:
+            assert launched == (1, 0) and sol.path == "cuda-loop-persistent"
+        else:
+            assert launched == (0, int(sol.n_iters.max()))
+            assert sol.path == "torch-driver+cuda-step"
+        sols[(dev, form)] = sol
+    cpu = sols[("cpu", True)]
+    assert bool((cpu.status == DONE).all())
+    for key in (("cuda", True), ("cuda", False)):
+        gpu = sols[key]
+        for k in ("status", "n_accept", "n_reject", "n_iters"):
+            assert torch.equal(getattr(gpu, k).cpu(), getattr(cpu, k)), k
+        for part in ("re", "im"):
+            np.testing.assert_allclose(getattr(gpu.ys, part).cpu().numpy(),
+                                       getattr(cpu.ys, part).numpy(), rtol=0,
+                                       atol=1e-10)
+
+
+def _one_term_operator(device):
+    """DrivenDense(64)'s drive term alone: A(t) = cos(w t) (-i V), one
+    basis term (K' = 1)."""
+    op = DrivenDense.make(d=64, seed=0).modulated(torch.float64,
+                                                  device=device)
+    form = CoeffForm(a=(0.0,), b=(0.0,), c=(1.0,), w=op.form.w[1:])
+    return ModulatedOperator(Cplx(op.basis.re[1:], op.basis.im[1:]),
+                             form.sample, form=form)
+
+
+@pytest.mark.parametrize("stepper", [MagnusModulated4, MidpointModulated])
+def test_chain_kernels_on_one_basis_term(card, stepper):
+    """K' = 1, f64: K4 against its twin (for Magnus-4 the two chains
+    coincide without a commutator, so err is 0), and the loop kernel
+    against the loop's twin on the CPU through ensemble_solve: the same
+    counters, states within 1e-10."""
+    st = stepper(_one_term_operator(card))
+    samples, dt, xw = chip_smoke.chain_inputs(st, 1000, torch.float64)
+    (yk, ek), (yp, ep) = chip_smoke.chain_pair(st, samples, dt, xw)
+    assert float((yk - yp).abs().max()) <= 1e-12
+    assert not bool(ek.any()) and (ep is None or not bool(ep.any()))
+    psi = chip_smoke.unit_states(300, 64, torch.float64, seed=3)
+    sols = {}
+    for dev in ("cpu", card):
+        sol = ensemble_solve(
+            None, Cplx(psi.re.to(dev), psi.im.to(dev)), 0.0, 0.3,
+            stepper=stepper(_one_term_operator(dev)),
+            ctl=StepControl(rtol=1e-8, min_dt=1e-6, max_dt=0.2,
+                            max_steps=1000), h0=0.01,
+            adaptive=stepper is MagnusModulated4)
+        assert bool((sol.status == DONE).all()), dev
+        sols[dev] = sol
+    assert sols[card].path == "cuda-loop-persistent"
+    for k in ("n_accept", "n_reject", "n_iters"):
+        assert torch.equal(getattr(sols[card], k).cpu(),
+                           getattr(sols["cpu"], k)), k
+    for part in ("re", "im"):
+        np.testing.assert_allclose(
+            getattr(sols[card].y_final, part).cpu().numpy(),
+            getattr(sols["cpu"].y_final, part).numpy(), rtol=0, atol=1e-10)
+
+
+def test_chain_wrapper_refuses_what_the_kernel_does_not_take(card):
+    st = chip_smoke.chain_stepper(torch.float32, d=8)
+    samples, dt, xw = chip_smoke.chain_inputs(st, 16, torch.float32)
+    mt, norms, m, theta = chip_smoke.chain_operands(st, torch.float32)
+    kw = dict(recipe="magnus4", C=2, m=m, theta=theta)
+    fused_chain_apply(samples, dt, xw, mt, norms, **kw)
+    with pytest.raises(TypeError):
+        fused_chain_apply(samples, dt.double(), xw, mt, norms, **kw)
+    with pytest.raises(TypeError):
+        fused_chain_apply(samples, dt, xw, mt.double(), norms, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_chain_apply(samples, dt, xw.t().contiguous().t(), mt, norms,
+                          **kw)
+    with pytest.raises(ValueError):
+        fused_chain_apply(samples, dt[:8], xw, mt, norms, **kw)
+    with pytest.raises(ValueError, match="stacked basis"):
+        fused_chain_apply(samples, dt, xw, mt[:, :16], norms, **kw)
+    with pytest.raises(ValueError, match="basis terms"):
+        g4 = [torch.zeros(16, 4, device=card) for _ in range(2)]
+        fused_chain_apply(g4, dt, xw, mt, norms, **kw)
+    with pytest.raises(ValueError, match="samples"):
+        fused_chain_apply(samples[:1], dt, xw, mt, norms, **kw)

@@ -1,5 +1,7 @@
 """The port stands alone: importing every module of vec_ode_tpu_torch
-loads neither jax nor the JAX package, and builds no kernel."""
+loads neither jax nor the JAX package, and builds no kernel; neither the
+package nor the scripts that drive it on a card (chip_smoke.py,
+tools/profile_solve.py) import them."""
 
 import pathlib
 import re
@@ -37,5 +39,6 @@ def test_sources_name_no_jax_import():
                          r"(?!_torch)", re.M)
     sources = sorted(PKG.rglob("*.py"))
     assert len(sources) >= 10
+    sources += [ROOT / "chip_smoke.py", ROOT / "tools" / "profile_solve.py"]
     for path in sources:
         assert not pattern.search(path.read_text()), path

@@ -1,15 +1,18 @@
 """vec_ode_tpu_torch: the PyTorch / CUDA port of vec_ode_tpu.
 
 Grows beside the JAX package, which stays the reference. So far it runs
-the adaptive embedded-RK ensemble path: ``parallel.ensemble_solve`` over
-``ops.fused_rk.FusedModulatedLinearRK`` (dx/dt = (M0 + cos(wt) M1) x with
-shared matrices), driven by the batched ``driver``. On CUDA tensors each
-step is one launch of the hand-written kernel ``csrc/fused_rk_step.cu``;
-on CPU tensors the plain torch twin runs. This package imports neither
-jax nor vec_ode_tpu.
+two ensemble paths through ``parallel.ensemble_solve``: the adaptive
+embedded-RK stepper ``ops.fused_rk.FusedModulatedLinearRK`` (dx/dt =
+(M0 + cos(wt) M1) x with shared matrices), and the modulated exponential
+steppers ``exp.MidpointModulated`` / ``exp.MagnusModulated4`` (A(t) =
+sum_k c_k(t) M_k). On CUDA tensors they run hand-written kernels
+(``csrc/``): a step kernel per driver iteration, or the whole loop in one
+launch; on CPU tensors the plain torch twins run. This package imports
+neither jax nor vec_ode_tpu.
 """
 
-from . import controller, convert, driver, lc, models, ops, parallel, tableaus
+from . import (controller, convert, driver, exp, lc, models, ops, parallel,
+               tableaus)
 from .controller import StepControl
 from .driver import (
     DONE,
@@ -51,6 +54,7 @@ __all__ = [
     "controller",
     "convert",
     "driver",
+    "exp",
     "lc",
     "models",
     "ops",

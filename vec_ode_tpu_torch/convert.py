@@ -7,7 +7,9 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
+from .exp.modulated import ModulatedOperator
 from .ops.cplx import Cplx
+from .ops.expmv import CoeffForm
 from .ops.fused_rk import FusedModulatedLinearRK
 from .tableaus import RKF45
 
@@ -23,6 +25,27 @@ def stepper_from_numpy(M0, M1, w, *, tableau=RKF45, advance_lower=True,
         M1=torch.as_tensor(np.asarray(M1), dtype=dtype, device=device),
         w=float(w), tableau=tableau, advance_lower=advance_lower,
     )
+
+
+def modulated_from_numpy(basis_re, basis_im, form: CoeffForm, *,
+                         dtype=torch.float64, device="cuda",
+                         ext_basis_w=None) -> ModulatedOperator:
+    """A ``ModulatedOperator`` over the basis the JAX package's operator
+    holds (``np.asarray(op.basis.re)``, ``.im``; ``basis_im=None`` for a
+    real (K, D, D) basis) with the declared coefficient ``form`` as its
+    ``coeff_fn``, on the card unless ``device`` names another.
+    ``ext_basis_w``: the JAX stepper's commutator-extended working basis
+    (``np.asarray(MagnusModulated4(...)._ext_basis_w)``), which Magnus-4
+    then uses as it is, so that both packages step over identical
+    matrices."""
+    def tensor(a):  # a copy: arrays from jax are read-only
+        return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+    basis = (tensor(basis_re) if basis_im is None
+             else Cplx(tensor(basis_re), tensor(basis_im)))
+    return ModulatedOperator(
+        basis=basis, coeff_fn=form.sample, form=form,
+        ext_basis=None if ext_basis_w is None else tensor(ext_basis_w))
 
 
 def state_from_numpy(re, im, *, device="cuda",

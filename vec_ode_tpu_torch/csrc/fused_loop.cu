@@ -1,50 +1,67 @@
-// The whole adaptive Runge-Kutta driver loop for an ensemble of
-// trajectories of dx/dt = (M0 + cos(w t) M1) x, written by hand for Hopper
-// (sm_90a).
+// The whole driver loop for an ensemble of trajectories of a linear system
+// with shared operators, written by hand for Hopper (sm_90a): the
+// modulated-linear RK stepper dx/dt = (M0 + cos(w t) M1) x, or the
+// modulated exponential steppers (Magnus-4, exponential midpoint) on
+// A(t) = sum_k c_k(t) M_k.
 //
 // Replaces the Pallas TPU kernel vec_ode_tpu/ops/pallas_loop.py:
 // _make_loop_kernel, launched by fused_loop_chunk (pallas_call at :1135),
-// with the RK step of make_rk_step_builder (:890) inside it; the step is
-// rk_step.cuh's rk_step_tile, which the per-step kernel runs too. Per
-// trajectory it runs driver iterations as _make_loop_kernel.iteration
-// (:268-551) does, row for row: the save-grid consult (chk_t, the end
-// tolerance, the compensated remaining time), dt = min(h, rem) on stepping
-// rows, the step with its embedded error measure (l2, a declared
-// WeightedNorm, or scaled_error), the controller (I, or PI with the I-term
-// after a reject, the NaN guard), the interior save at a grid hit, the
-// compensated (TwoSum + Fast2Sum) or plain time advance, the step-size
-// update with the grid-hit restore, and status, event, counters and reject
-// streak in the same order. Not here: events (:356-449), dense output
-// (:455-474), the lane-packed group mode and windowed saves (TPU layout).
+// with the step of make_rk_step_builder (:890) or make_chain_step_builder
+// (:680) inside it. The step is a template argument: RKLoopStep runs
+// rk_step.cuh's rk_step_tile, which the per-step kernel K1 runs too;
+// ChainLoopStep samples the declared coefficient form at the step's nodes
+// and runs chain_step.cuh's chain_step_tile, which the per-step kernel K4
+// runs too. Per trajectory the kernel runs driver iterations as
+// _make_loop_kernel.iteration (:268-551) does, row for row: the save-grid
+// consult (chk_t, the end tolerance, the compensated remaining time),
+// dt = min(h, rem) on stepping rows, the step with its error measure (l2,
+// a declared WeightedNorm, or scaled_error), the controller (I, or PI
+// with the I-term after a reject, the NaN guard) or, with adaptive = 0,
+// fixed steps (every stepping row accepts and h changes only at the
+// grid-hit restore, :316 and :499-502), the interior save at a grid hit,
+// the compensated (TwoSum + Fast2Sum) or plain time advance, the
+// step-size update with the grid-hit restore, and status, event, counters
+// and reject streak in the same order. Not here: events (:356-449), dense
+// output (:455-474), the lane-packed group mode and windowed saves (TPU
+// layout).
 //
 // Blocks. One block owns a tile of R trajectories and loops until no row
 // of its tile is RUNNING (__syncthreads_or), or for `iters` iterations
 // when iters > 0 (chunked). ctl.max_steps bounds every row. Between
 // iterations nothing leaves the block: its rows' state x, the trial state
-// y and the s stage values live in shared memory, and the per-row scalars
-// (t, h, prev_h, err_prev, t_lo, tgt, status, event, counters, streak) in
-// the registers of thread r of the block, which runs row r's controller.
-// The grid point comes from device memory, chk_t = t_grid[min(tgt,
-// n_grid - 1)], and interior saves go straight into the (n_grid - 2, B, D)
-// buffer in device memory at their grid-hit iterations (no cap, no
-// window). The ragged last tile is masked. The carries are read at entry
-// and written back at exit.
+// y and the step's scratch (the s stage values, or the chain step's
+// Taylor term and per-row coefficients) live in shared memory, and the
+// per-row scalars (t, h, prev_h, err_prev, t_lo, tgt, status, event,
+// counters, streak) in the registers of thread r of the block, which runs
+// row r's controller. The grid point comes from device memory, chk_t =
+// t_grid[min(tgt, n_grid - 1)], and interior saves go straight into the
+// (n_grid - 2, B, D) buffer in device memory at their grid-hit iterations
+// (no cap, no window). The ragged last tile is masked. The carries are
+// read at entry and written back at exit.
 //
-// Choice of R: the largest of 16, 8, 4 rows whose (s + 2) x R x D state
-// slots take at most 64 KB and whose RT = 4 rows x CT = 4 columns per
+// Choice of R, RK step: the largest of 16, 8, 4 rows whose (s + 2) x R x D
+// state slots take at most 64 KB and whose RT = 4 rows x CT = 4 columns per
 // thread need at most 256 threads. At B = 2048, d = 64, RKF45 that is
 // R = 16 in f32 (64 KB, 128 threads, 128 blocks for the 132 SMs) and
 // R = 8 in f64 (the same 64 KB, 256 blocks); widths up to 2d = 512 and
 // 7 stages fit down to R = 4. More rows per block would leave SMs idle at
 // B = 2048; fewer would reread the operators from L2 for fewer rows.
+// Chain step: the largest power of two up to 256 rows whose threads
+// (R / 4 x ceil(D / 4)) stay within 256 and whose three (R, D) slots (x, y,
+// the Taylor term) take at most 96 KB, halved further while the batch
+// gives fewer than two blocks per SM (down to 16 rows): at B = 16384,
+// D = 128 that is R = 32 (256 threads, 512 blocks; 48 KB in f32, 96 KB in
+// f64), at D = 4 R = 32 too (8 threads in one warp, 512 blocks), so that
+// every SM holds blocks; one slow row holds its tile either way.
 //
-// What bounds it: FP32 FMA throughput, as in the per-step kernel: each
-// iteration of each row is 6 stages x 128 x 256 x 2 = 393 216 FLOP at
-// d = 64 (RKF45), and the loop touches device memory only for its
-// carries, the operators (from L2) and its saves. At B = 2048 it also has
-// too few blocks to fill the card (one slow row holds its whole tile), so
-// latency, not throughput, is likely to bound it; making it fast is later
-// work.
+// What bounds it: FP32 FMA throughput. RK: each iteration of each row is
+// 6 stages x 128 x 256 x 2 = 393 216 FLOP at d = 64 (RKF45). Magnus-4:
+// each Taylor term of each row is 128 x 384 x 2 = 98 304 FLOP, m = 8 terms
+// per pass in f32, one or more passes per chain, two chains. The loop
+// touches device memory only for its carries, the operators (from L2) and
+// its saves. At B = 2048 it also has too few blocks to fill the card (one
+// slow row holds its whole tile), so latency, not throughput, is likely
+// to bound it; making it fast is later work.
 //
 // Precision. The time arithmetic is written with explicitly rounded
 // operations (__fadd_rn, __fsub_rn, __fmul_rn and the f64 ones): the
@@ -52,6 +69,7 @@
 // under contraction. The controller's power is powf / pow (not __powf and
 // not exp(log)); build without --use_fast_math.
 
+#include "chain_step.cuh"
 #include "rk_step.cuh"
 
 namespace {
@@ -61,7 +79,7 @@ using namespace vec_ode;
 constexpr int RT = 4;                        // rows per thread in the step
 constexpr int MAX_ROWS = 16;                 // rows per block, at most
 constexpr int MAX_THREADS = 256;
-constexpr size_t SLOT_BUDGET = 64 * 1024;    // bytes of state slots per block
+constexpr size_t SLOT_BUDGET = 64 * 1024;    // bytes of state slots per block (RK)
 constexpr int N_F = 5;                       // t, h, prev_h, err_norm, t_lo
 constexpr int N_I = 8;                       // tgt, status, event, n_acc, n_rej, n_it, streak, bits
 
@@ -75,20 +93,56 @@ struct Ctl {
   int max_steps, max_streak, pi, comp, strict;
 };
 
+// The RK step: rk_step_tile over s stage slots of (tile, D).
 template <typename T>
+struct RKLoopStep {
+  const T* mt;
+  Tableau<T> tab;
+  int s, advance_lower;
+  T w;
+
+  __host__ __device__ size_t scratch_elems(int tile, int D) const {
+    return (size_t)s * tile * D;
+  }
+  __device__ void operator()(const T* s_t, const T* s_dt, T* xs, T* ys, T* s_err, T* scratch,
+                             int rows, int tile, int D, const ErrNorm<T>& en) const {
+    rk_step_tile<T, RT>(s_t, s_dt, xs, ys, s_err, scratch, rows, tile, D, mt, tab, s, 1,
+                        advance_lower, w, en);
+  }
+};
+
+// The chain step: the declared form sampled at the nodes, then
+// chain_step_tile over KP working terms.
+template <typename T, int KP>
+struct ChainLoopStep {
+  const T* mt;
+  ChainParams<T> p;
+
+  __host__ __device__ size_t scratch_elems(int tile, int D) const {
+    return ChainSmem<T>::elems(tile, D, KP);
+  }
+  __device__ void operator()(const T* s_t, const T* s_dt, T* xs, T* ys, T* s_err, T* scratch,
+                             int rows, int tile, int D, const ErrNorm<T>& en) const {
+    const ChainSmem<T> sm = ChainSmem<T>::carve(scratch, tile, D, KP);
+    sample_form(s_t, s_dt, sm, tile, p);
+    __syncthreads();
+    chain_step_tile<T, RT, KP>(s_dt, xs, ys, s_err, sm, rows, tile, D, mt, p, en);
+  }
+};
+
+template <typename T, class Step>
 __global__ void __launch_bounds__(MAX_THREADS)
 fused_loop_kernel(const T* __restrict__ t_grid, int n_grid, const T* __restrict__ fs_in,
                   const int* __restrict__ ist_in, const T* __restrict__ x_in,
                   T* __restrict__ fs_out, int* __restrict__ ist_out, T* __restrict__ x_out,
-                  T* __restrict__ saves, int B, int D, int tile, const T* __restrict__ mt,
-                  Tableau<T> tab, int s, int advance_lower, T w, ErrNorm<T> en, Ctl<T> ctl,
-                  int iters) {
+                  T* __restrict__ saves, int B, int D, int tile, Step step, ErrNorm<T> en,
+                  Ctl<T> ctl, int iters, int adaptive) {
   extern __shared__ unsigned char smem_raw[];
   const size_t n = (size_t)tile * D;
-  T* ks = reinterpret_cast<T*>(smem_raw);  // s slots of (tile, D)
-  T* xs = ks + s * n;                      // the state x (tile, D)
-  T* ys = xs + n;                          // the trial state y (tile, D)
-  T* s_t = ys + n;                         // per row: t, dt, err measure
+  T* scratch = reinterpret_cast<T*>(smem_raw);          // the step's scratch
+  T* xs = scratch + step.scratch_elems(tile, D);        // the state x (tile, D)
+  T* ys = xs + n;                                       // the trial state y (tile, D)
+  T* s_t = ys + n;                                      // per row: t, dt, err measure
   T* s_dt = s_t + tile;
   T* s_err = s_dt + tile;
   int* s_act = reinterpret_cast<int*>(s_err + tile);  // bit 0: advance; >> 1: save slot + 1
@@ -139,32 +193,36 @@ fused_loop_kernel(const T* __restrict__ t_grid, int n_grid, const T* __restrict_
     }
     __syncthreads();
 
-    rk_step_tile<T, RT>(s_t, s_dt, xs, ys, s_err, ks, rows, tile, D, mt, tab, s, 1,
-                        advance_lower, w, en);
+    step(s_t, s_dt, xs, ys, s_err, scratch, rows, tile, D, en);
     __syncthreads();
 
     // controller and bookkeeping, one thread per row (pallas_loop.py:316-539)
     int act = 0;
     if (own) {
       const T err = s_err[tid];
-      const T f = ctl.rtol / err;
-      T fp;
-      if (ctl.pi) {
-        T f_prev = ctl.rtol / err_prev;
-        if (!(isfinite(f_prev) && f_prev > T(0))) f_prev = f;
-        T ratio = nan_clip(f / f_prev, T(1e-8), T(1e8));
-        if (is_nan(ratio)) ratio = T(1);
-        const T fp_pi = mul_rn(mul_rn(ctl.alpha, pow_full(f, ctl.k_i)), pow_full(ratio, ctl.k_p));
-        const T fp_rej = mul_rn(ctl.alpha, pow_full(f, ctl.inv_pi_order));
-        fp = streak > 0 ? fp_rej : fp_pi;
-      } else {
-        fp = mul_rn(ctl.alpha, pow_full(f, ctl.inv_order));
+      T new_h = h;
+      bool accept = true;  // fixed steps: every stepping row accepts
+      if (adaptive) {
+        const T f = ctl.rtol / err;
+        T fp;
+        if (ctl.pi) {
+          T f_prev = ctl.rtol / err_prev;
+          if (!(isfinite(f_prev) && f_prev > T(0))) f_prev = f;
+          T ratio = nan_clip(f / f_prev, T(1e-8), T(1e8));
+          if (is_nan(ratio)) ratio = T(1);
+          const T fp_pi =
+              mul_rn(mul_rn(ctl.alpha, pow_full(f, ctl.k_i)), pow_full(ratio, ctl.k_p));
+          const T fp_rej = mul_rn(ctl.alpha, pow_full(f, ctl.inv_pi_order));
+          fp = streak > 0 ? fp_rej : fp_pi;
+        } else {
+          fp = mul_rn(ctl.alpha, pow_full(f, ctl.inv_order));
+        }
+        fp = nan_clip(fp, ctl.min_f, ctl.max_f);
+        const bool bad_f = is_nan(f);
+        if (bad_f) fp = ctl.min_f;
+        new_h = nan_clip(mul_rn(fp, h), ctl.min_dt, ctl.max_dt);
+        accept = !bad_f && f > T(1);
       }
-      fp = nan_clip(fp, ctl.min_f, ctl.max_f);
-      const bool bad_f = is_nan(f);
-      if (bad_f) fp = ctl.min_f;
-      const T new_h = nan_clip(mul_rn(fp, h), ctl.min_dt, ctl.max_dt);
-      const bool accept = !bad_f && f > T(1);
       const bool adv = stepping && accept;
       const bool rej = stepping && !accept;
       const bool hit = at_grid && running;
@@ -185,7 +243,7 @@ fused_loop_kernel(const T* __restrict__ t_grid, int n_grid, const T* __restrict_
           t = add_rn(t, dt);
         }
       }
-      if (stepping) {
+      if (stepping && adaptive) {
         prev_h = h;
         h = new_h;
       }
@@ -201,7 +259,7 @@ fused_loop_kernel(const T* __restrict__ t_grid, int n_grid, const T* __restrict_
       if (ctl.max_streak > 0 && status == RUNNING && streak >= ctl.max_streak)
         status = ERR_STALLED;
       event = is_end ? EVT_END : is_chk ? EVT_CHKPT : rej ? EVT_REJECT : adv ? EVT_STEP : EVT_NONE;
-      if (stepping) err_prev = err;
+      if (stepping && adaptive) err_prev = err;
       n_acc += adv ? 1 : 0;
       n_rej += rej ? 1 : 0;
       act = (adv ? 1 : 0) | ((slot + 1) << 1);
@@ -227,61 +285,111 @@ fused_loop_kernel(const T* __restrict__ t_grid, int n_grid, const T* __restrict_
   for (size_t e = tid; e < (size_t)rows * D; e += blockDim.x) x_out[row0 * D + e] = xs[e];
 }
 
+// The controller as the kernel reads it. c: rtol, atol, alpha, 1/order,
+// min_factor, max_factor, min_dt, max_dt, 0.7/pi_order, 0.4/pi_order,
+// 1/pi_order, max_steps, max_reject_streak, pi, time_compensated,
+// strict_end_test, scaled_error
+template <typename T>
+Ctl<T> parse_ctl(const double* c) {
+  return Ctl<T>{(T)c[0],    (T)c[2],    (T)c[3],    (T)c[4],    (T)c[5],
+                (T)c[6],    (T)c[7],    (T)c[8],    (T)c[9],    (T)c[10],
+                (int)c[11], (int)c[12], (int)c[13], (int)c[14], (int)c[15]};
+}
+
+template <typename T>
+ErrNorm<T> parse_norm(const void* w_row, double post, int kind_max, const double* c) {
+  return ErrNorm<T>{(const T*)w_row, (T)post, kind_max, (int)c[16], (T)c[1], (T)c[0]};
+}
+
+// Launches the loop kernel with `step` over tiles of `tile` rows.
+template <typename T, class Step>
+int run(const Step& step, int tile, const void* t_grid, int n_grid, const void* fs_in,
+        const void* ist_in, const void* x_in, void* fs_out, void* ist_out, void* x_out,
+        void* saves, int B, int D, const ErrNorm<T>& en, const Ctl<T>& ctl, int iters,
+        int adaptive, int dev, int max_smem, void* stream) {
+  static size_t smem_allowed[MAX_DEVICES];
+  const int ncg = (D + CT - 1) / CT;
+  const int items = (tile / RT) * ncg;
+  const size_t smem = (step.scratch_elems(tile, D) + 2 * (size_t)tile * D + 3 * (size_t)tile) *
+                          sizeof(T) + tile * sizeof(int);
+  if (items > MAX_THREADS || smem > (size_t)max_smem) return (int)cudaErrorInvalidValue;
+  const int threads = ((items > tile ? items : tile) + 31) / 32 * 32;
+  if (smem > smem_allowed[dev]) {
+    cudaError_t st = cudaFuncSetAttribute(fused_loop_kernel<T, Step>,
+                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (st != cudaSuccess) return (int)st;
+    smem_allowed[dev] = smem;
+  }
+  const int blocks = (B + tile - 1) / tile;
+  fused_loop_kernel<T, Step><<<blocks, threads, smem, (cudaStream_t)stream>>>(
+      (const T*)t_grid, n_grid, (const T*)fs_in, (const int*)ist_in, (const T*)x_in, (T*)fs_out,
+      (int*)ist_out, (T*)x_out, (T*)saves, B, D, tile, step, en, ctl, iters, adaptive);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch(const void* t_grid, int n_grid, const void* fs_in, const void* ist_in,
            const void* x_in, void* fs_out, void* ist_out, void* x_out, void* saves, int B, int D,
            const void* mt, const double* tab_in, int s, int advance_lower, double w,
            const void* w_row, double post, int kind_max, const double* c, int iters,
-           void* stream) {
+           int adaptive, void* stream) {
   if (B <= 0 || D <= 0 || D > MAX_WIDTH || s <= 0 || s > MAX_STAGES || n_grid < 2 || iters < 0)
     return (int)cudaErrorInvalidValue;
-  Tableau<T> tab;
+  RKLoopStep<T> step;
+  step.mt = (const T*)mt;
   for (int i = 0; i < MAX_STAGES; ++i) {
-    for (int j = 0; j < MAX_STAGES; ++j) tab.a[i][j] = (T)tab_in[i * MAX_STAGES + j];
-    tab.b[i] = (T)tab_in[MAX_STAGES * MAX_STAGES + i];
-    tab.db[i] = (T)tab_in[MAX_STAGES * MAX_STAGES + MAX_STAGES + i];
-    tab.c[i] = (T)tab_in[MAX_STAGES * MAX_STAGES + 2 * MAX_STAGES + i];
+    for (int j = 0; j < MAX_STAGES; ++j) step.tab.a[i][j] = (T)tab_in[i * MAX_STAGES + j];
+    step.tab.b[i] = (T)tab_in[MAX_STAGES * MAX_STAGES + i];
+    step.tab.db[i] = (T)tab_in[MAX_STAGES * MAX_STAGES + MAX_STAGES + i];
+    step.tab.c[i] = (T)tab_in[MAX_STAGES * MAX_STAGES + 2 * MAX_STAGES + i];
   }
-  // c: rtol, atol, alpha, 1/order, min_factor, max_factor, min_dt, max_dt,
-  // 0.7/pi_order, 0.4/pi_order, 1/pi_order, max_steps, max_reject_streak,
-  // pi, time_compensated, strict_end_test, scaled_error
-  const ErrNorm<T> en{(const T*)w_row, (T)post, kind_max, (int)c[16], (T)c[1], (T)c[0]};
-  const Ctl<T> ctl{(T)c[0],    (T)c[2],    (T)c[3],    (T)c[4],    (T)c[5],
-                   (T)c[6],    (T)c[7],    (T)c[8],    (T)c[9],    (T)c[10],
-                   (int)c[11], (int)c[12], (int)c[13], (int)c[14], (int)c[15]};
-  int dev = 0;
-  cudaError_t st = cudaGetDevice(&dev);
+  step.s = s, step.advance_lower = advance_lower, step.w = (T)w;
+  int dev = 0, max_smem = 0, n_sm = 0;
+  cudaError_t st = device_limits(&dev, &max_smem, &n_sm);
   if (st != cudaSuccess) return (int)st;
-  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  static int max_smem_of[MAX_DEVICES];
-  static size_t smem_allowed[MAX_DEVICES];
-  if (max_smem_of[dev] == 0) {
-    st = cudaDeviceGetAttribute(&max_smem_of[dev], cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (st != cudaSuccess) return (int)st;
-  }
-  const int max_smem = max_smem_of[dev];
-
   const int ncg = (D + CT - 1) / CT;
   auto slots_of = [&](int r) { return (size_t)(s + 2) * r * D * sizeof(T); };
-  auto smem_of = [&](int r) { return slots_of(r) + 3 * r * sizeof(T) + r * sizeof(int); };
   int tile = MAX_ROWS;
   while (tile > RT && ((tile / RT) * ncg > MAX_THREADS || slots_of(tile) > SLOT_BUDGET)) tile /= 2;
-  const int items = (tile / RT) * ncg;
-  if (items > MAX_THREADS || smem_of(tile) > (size_t)max_smem) return (int)cudaErrorInvalidValue;
-  const int threads = ((items > tile ? items : tile) + 31) / 32 * 32;
-  const size_t smem = smem_of(tile);
-  if (smem > smem_allowed[dev]) {
-    st = cudaFuncSetAttribute(fused_loop_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
-    if (st != cudaSuccess) return (int)st;
-    smem_allowed[dev] = smem;
+  return run<T>(step, tile, t_grid, n_grid, fs_in, ist_in, x_in, fs_out, ist_out, x_out, saves,
+                B, D, parse_norm<T>(w_row, post, kind_max, c), parse_ctl<T>(c), iters, adaptive,
+                dev, max_smem, stream);
+}
+
+template <typename T, int KP>
+int run_chain(const ChainParams<T>& p, const void* mt, int B, int D, const void* t_grid,
+              int n_grid, const void* fs_in, const void* ist_in, const void* x_in, void* fs_out,
+              void* ist_out, void* x_out, void* saves, const ErrNorm<T>& en, const Ctl<T>& ctl,
+              int iters, int adaptive, int dev, int max_smem, int n_sm, void* stream) {
+  const ChainLoopStep<T, KP> step{(const T*)mt, p};
+  return run<T>(step, chain_tile<T>(B, D, n_sm, RT, MAX_THREADS), t_grid, n_grid, fs_in, ist_in, x_in, fs_out,
+                ist_out, x_out, saves, B, D, en, ctl, iters, adaptive, dev, max_smem, stream);
+}
+
+template <typename T>
+int launch_chain(const void* t_grid, int n_grid, const void* fs_in, const void* ist_in,
+                 const void* x_in, void* fs_out, void* ist_out, void* x_out, void* saves, int B,
+                 int D, const void* mt, const double* chain, const void* w_row, double post,
+                 int kind_max, const double* c, int iters, int adaptive, void* stream) {
+  if (B <= 0 || D <= 0 || D > MAX_WIDTH || n_grid < 2 || iters < 0)
+    return (int)cudaErrorInvalidValue;
+  const ChainParams<T> p = parse_chain_params<T>(chain, true);
+  if (!chain_params_ok(p)) return (int)cudaErrorInvalidValue;
+  int dev = 0, max_smem = 0, n_sm = 0;
+  cudaError_t st = device_limits(&dev, &max_smem, &n_sm);
+  if (st != cudaSuccess) return (int)st;
+  const ErrNorm<T> en = parse_norm<T>(w_row, post, kind_max, c);
+  const Ctl<T> ctl = parse_ctl<T>(c);
+#define VEC_ODE_RUN_CHAIN(KP_)                                                                \
+  return run_chain<T, KP_>(p, mt, B, D, t_grid, n_grid, fs_in, ist_in, x_in, fs_out, ist_out, \
+                           x_out, saves, en, ctl, iters, adaptive, dev, max_smem, n_sm, stream)
+  switch (p.KP) {
+    case 1: VEC_ODE_RUN_CHAIN(1);
+    case 2: VEC_ODE_RUN_CHAIN(2);
+    case 3: VEC_ODE_RUN_CHAIN(3);
+    default: return (int)cudaErrorInvalidValue;
   }
-  const int blocks = (B + tile - 1) / tile;
-  fused_loop_kernel<T><<<blocks, threads, smem, (cudaStream_t)stream>>>(
-      (const T*)t_grid, n_grid, (const T*)fs_in, (const int*)ist_in, (const T*)x_in, (T*)fs_out,
-      (int*)ist_out, (T*)x_out, (T*)saves, B, D, tile, (const T*)mt, tab, s, advance_lower, (T)w,
-      en, ctl, iters);
-  return (int)cudaGetLastError();
+#undef VEC_ODE_RUN_CHAIN
 }
 
 }  // namespace
@@ -291,25 +399,54 @@ extern "C" {
 // Advances every row of the carries (fs (B, 5), ist (B, 8) int32, x (B, D))
 // by `iters` driver iterations, or until it leaves RUNNING when iters == 0,
 // writing fs_out, ist_out and x_out; saves ((n_grid - 2), B, D) is updated
-// in place. tab as for the per-step kernel; w_row, post, kind_max declare
-// the error norm; ctl: the 17 float64 values listed in launch, in host
-// memory.
+// in place. The RK step: tab as for the per-step kernel; w_row, post,
+// kind_max declare the error norm; ctl: the 17 float64 values of
+// parse_ctl, in host memory; adaptive = 0 takes fixed steps.
 int vec_ode_fused_loop_f32(const void* t_grid, int n_grid, const void* fs_in, const void* ist_in,
                            const void* x_in, void* fs_out, void* ist_out, void* x_out,
                            void* saves, int B, int D, const void* mt, const double* tab, int s,
                            int advance_lower, double w, const void* w_row, double post,
-                           int kind_max, const double* ctl, int iters, void* stream) {
+                           int kind_max, const double* ctl, int iters, int adaptive,
+                           void* stream) {
   return launch<float>(t_grid, n_grid, fs_in, ist_in, x_in, fs_out, ist_out, x_out, saves, B, D,
-                       mt, tab, s, advance_lower, w, w_row, post, kind_max, ctl, iters, stream);
+                       mt, tab, s, advance_lower, w, w_row, post, kind_max, ctl, iters, adaptive,
+                       stream);
 }
 
 int vec_ode_fused_loop_f64(const void* t_grid, int n_grid, const void* fs_in, const void* ist_in,
                            const void* x_in, void* fs_out, void* ist_out, void* x_out,
                            void* saves, int B, int D, const void* mt, const double* tab, int s,
                            int advance_lower, double w, const void* w_row, double post,
-                           int kind_max, const double* ctl, int iters, void* stream) {
+                           int kind_max, const double* ctl, int iters, int adaptive,
+                           void* stream) {
   return launch<double>(t_grid, n_grid, fs_in, ist_in, x_in, fs_out, ist_out, x_out, saves, B, D,
-                        mt, tab, s, advance_lower, w, w_row, post, kind_max, ctl, iters, stream);
+                        mt, tab, s, advance_lower, w, w_row, post, kind_max, ctl, iters, adaptive,
+                        stream);
+}
+
+// The same loop with the chain step: mt = [M_0^T | ... ] (D, KP*D), chain:
+// the float64 parameters of ops/expmv.py:chain_params with the declared
+// form.
+int vec_ode_fused_loop_chain_f32(const void* t_grid, int n_grid, const void* fs_in,
+                                 const void* ist_in, const void* x_in, void* fs_out,
+                                 void* ist_out, void* x_out, void* saves, int B, int D,
+                                 const void* mt, const double* chain, const void* w_row,
+                                 double post, int kind_max, const double* ctl, int iters,
+                                 int adaptive, void* stream) {
+  return launch_chain<float>(t_grid, n_grid, fs_in, ist_in, x_in, fs_out, ist_out, x_out, saves,
+                             B, D, mt, chain, w_row, post, kind_max, ctl, iters, adaptive,
+                             stream);
+}
+
+int vec_ode_fused_loop_chain_f64(const void* t_grid, int n_grid, const void* fs_in,
+                                 const void* ist_in, const void* x_in, void* fs_out,
+                                 void* ist_out, void* x_out, void* saves, int B, int D,
+                                 const void* mt, const double* chain, const void* w_row,
+                                 double post, int kind_max, const double* ctl, int iters,
+                                 int adaptive, void* stream) {
+  return launch_chain<double>(t_grid, n_grid, fs_in, ist_in, x_in, fs_out, ist_out, x_out, saves,
+                              B, D, mt, chain, w_row, post, kind_max, ctl, iters, adaptive,
+                              stream);
 }
 
 }  // extern "C"

@@ -272,10 +272,11 @@ class Solution:
     ``"torch-driver"`` (this module's driver over a plain torch step),
     ``"torch-driver+cuda-step"`` (the same driver, each step one launch of
     the hand-written CUDA kernel in ``ops/fused_rk.py``),
-    ``"cuda-loop-persistent"`` (the whole adaptive loop in one launch of
-    the CUDA loop kernel in ``ops/fused_loop.py``) or
-    ``"cuda-loop-chunked"`` (the same kernel, a launch per chunk of
-    iterations)."""
+    ``"cuda-loop-persistent"`` (the whole loop in one launch of the CUDA
+    loop kernel in ``ops/fused_loop.py``), ``"cuda-loop-chunked"`` (the
+    same kernel, a launch per chunk of iterations) or ``"torch-loop"``
+    (that kernel's plain twin, which the modulated exponential steppers
+    run on CPU tensors)."""
 
     ts: torch.Tensor
     ys: Pytree

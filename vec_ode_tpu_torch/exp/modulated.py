@@ -1,0 +1,377 @@
+"""Modulated-operator exponential integrators: A(t) = sum_k c_k(t) M_k, the
+counterpart of ``vec_ode_tpu/exp/modulated.py``.
+
+The operator is K shared basis matrices M_k (real-pair complex or real)
+and a coefficient function c(t) -> (K,). Every exponent a Magnus step
+needs is a linear combination of the basis, for Magnus-4 extended by the
+commutators [M_j, M_k] made once at stepper construction, so the
+propagator is never formed: e^Omega x is a scaled Taylor action whose
+every term is one shared (B, D) @ (D, K'D) product
+(``ops/expmv.py``).
+
+* :class:`ModulatedOperator`: the basis, the coefficient function
+  ``coeff_fn`` and optionally its declared form (``CoeffForm``), which the
+  whole-loop kernel samples in-kernel.
+* :class:`MidpointModulated` (exponential midpoint, fixed steps) and
+  :class:`MagnusModulated4` (Magnus-4 with its order-2 comparison chain,
+  or ``fast_error``): natively batched steppers for
+  ``parallel.ensemble_solve``. Their per-step path runs the chain kernel
+  K4 (``ops/expmv.fused_chain_apply``) on CUDA tensors and its twin on CPU
+  tensors; ``fused_loop_solve`` runs the whole loop in the loop kernel
+  (``ops/fused_loop.py``, the chain step K5) where the operator declares
+  its form, and the loop's plain twin on CPU tensors.
+
+Scaling: one squaring count per trajectory and chain row (see
+``ops/expmv.scale_rows``); the JAX package's XLA tier takes one per
+batch, its Pallas kernels one per tile. The results differ by rounding.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Optional
+
+import torch
+
+from .. import lc
+from ..ops.cplx import Cplx, cmatmul, embed
+from ..ops.expmv import (CoeffForm, basis_norms, fused_chain_apply,
+                         has_error_estimate, n_working_terms, node_times,
+                         pairs_of, scale_rows, stacked_transpose,
+                         torch_chain_expmv)
+
+__all__ = ["ModulatedOperator", "CoeffForm", "MidpointModulated",
+           "MagnusModulated4", "modulated_exp_apply"]
+
+# Taylor-action (degree, theta) per dtype (exp/modulated.py:53): the
+# smallest degree whose remainder |e^t - T_m(t)| at |t| <= theta sits well
+# under the dtype's eps (f32: m=8 gives 2.3e-10 at 0.35; f64: m=12 gives
+# 2.4e-18 at 0.25)
+_TAYLOR_CFG = {32: (8, 0.35), 64: (12, 0.25)}
+
+
+def _taylor_params(dtype, m=None, theta=None):
+    """Resolve (m, theta) for a dtype; an explicit m gets a theta making
+    the truncation error ~eps for that degree."""
+    bits = torch.finfo(dtype).bits
+    m_def, theta_def = _TAYLOR_CFG[bits]
+    if m is None:
+        m = m_def
+    if theta is None:
+        if m == m_def:
+            theta = theta_def
+        else:
+            eps = 2.0 ** (-(23 if bits == 32 else 52))
+            lo, hi = 1e-6, 10.0
+            for _ in range(60):
+                mid = 0.5 * (lo + hi)
+                r = sum(mid ** k / math.factorial(k)
+                        for k in range(m + 1, m + 30))
+                lo, hi = (mid, hi) if r < 0.25 * eps else (lo, mid)
+            theta = lo
+    return m, theta
+
+
+def _real_basis(basis) -> torch.Tensor:
+    """(K, D, D) real working basis: ring-embed a Cplx basis, pass a real
+    one through."""
+    return embed(basis) if isinstance(basis, Cplx) else basis
+
+
+def _widen(x, is_cplx: bool) -> torch.Tensor:
+    return torch.cat([x.re, x.im], dim=-1) if is_cplx else x
+
+
+def _unwiden(xw, is_cplx: bool):
+    if is_cplx:
+        d = xw.shape[-1] // 2
+        return Cplx(xw[..., :d], xw[..., d:])
+    return xw
+
+
+@dataclasses.dataclass(frozen=True)
+class ModulatedOperator:
+    """A(t) = sum_k coeff_fn(t)[k] * basis[k].
+
+    ``basis``: a Cplx of (K, d, d) (real-pair complex) or a real (K, D, D)
+    tensor. ``coeff_fn``: t (...,) -> (..., K) REAL coefficients (complex
+    structure belongs in the basis, e.g. M = -i H). ``form``: the declared
+    :class:`~vec_ode_tpu_torch.ops.expmv.CoeffForm` of ``coeff_fn``, which
+    the whole-loop kernel samples in-kernel (the JAX package's
+    ``coeff_cols_fn``); None leaves the per-step path. ``ext_basis``: the
+    commutator-extended working basis (K + K(K-1)/2, D, D) when it was
+    made elsewhere (``convert.modulated_from_numpy``), else None.
+    """
+
+    basis: Any
+    coeff_fn: Callable
+    form: Optional[CoeffForm] = None
+    ext_basis: Optional[torch.Tensor] = None
+
+    @property
+    def is_cplx(self) -> bool:
+        return isinstance(self.basis, Cplx)
+
+    @property
+    def n_terms(self) -> int:
+        return (self.basis.re if self.is_cplx else self.basis).shape[0]
+
+    def assemble(self, t):
+        """Dense A(t), the generic-path and test view of this operator."""
+        c = self.coeff_fn(torch.as_tensor(t))
+        if self.is_cplx:
+            return Cplx(torch.einsum("...k,kij->...ij", c, self.basis.re),
+                        torch.einsum("...k,kij->...ij", c, self.basis.im))
+        return torch.einsum("...k,kij->...ij", c, self.basis)
+
+    def commutator_extension(self):
+        """(extended_basis, pairs): the basis followed by the K(K-1)/2
+        commutators C_jk = [M_j, M_k], j < k, made once at stepper
+        construction."""
+        pairs = pairs_of(self.n_terms)
+        if self.is_cplx:
+            def take(i):
+                return Cplx(self.basis.re[i], self.basis.im[i])
+
+            comms = [Cplx(c1.re - c2.re, c1.im - c2.im) for c1, c2 in
+                     ((cmatmul(take(j), take(k)), cmatmul(take(k), take(j)))
+                      for j, k in pairs)]
+            ext = Cplx(torch.cat([self.basis.re, *(c.re[None]
+                                                   for c in comms)]),
+                       torch.cat([self.basis.im, *(c.im[None]
+                                                   for c in comms)]))
+        else:
+            comms = [self.basis[j] @ self.basis[k]
+                     - self.basis[k] @ self.basis[j] for j, k in pairs]
+            ext = torch.cat([self.basis, *(c[None] for c in comms)])
+        return ext, pairs
+
+
+def modulated_exp_apply(basis_w, coeffs, xw, *, m: Optional[int] = None,
+                        max_squarings: int = 16,
+                        theta: Optional[float] = None):
+    """y = exp(sum_k coeffs[b, k] basis_w[k]) xw[b] without forming the
+    exponent or its propagator: basis_w (K, D, D) real, coeffs (B, K), xw
+    (B, D). Scaling per trajectory (``ops/expmv.scale_rows``), then the
+    Taylor action."""
+    dtype = xw.dtype
+    m, theta = _taylor_params(dtype, m, theta)
+    basis_w = basis_w.to(dtype)
+    cs, n_pass = scale_rows(coeffs.to(dtype)[:, None], basis_norms(basis_w),
+                            theta, max_squarings)
+    return torch_chain_expmv(cs, n_pass, xw, stacked_transpose(basis_w),
+                             m=m)[0]
+
+
+def _stepper_wnorm(stepper, d_part: int, n_parts: int):
+    """(w_row, post, kind) of the stepper's declared ``norm``
+    (lc.WeightedNorm) over the kernels' widened-real layout, or None.
+    Raises for weights the batched layout cannot express."""
+    wn = getattr(stepper, "norm", None)
+    if wn is None:
+        return None
+    kp = wn.kernel_parts(d_part, n_parts)
+    if kp is None:
+        raise ValueError(
+            "WeightedNorm.weights must be a single per-(complex-)component "
+            f"array of length {d_part} for the batched tiers")
+    return kp
+
+
+def _check_norm(norm):
+    if norm is not None and not isinstance(norm, lc.WeightedNorm):
+        raise NotImplementedError(
+            "norm=: only a declared lc.WeightedNorm runs in the port's "
+            "kernels; other norms (lc.TracedNorm, opaque callables) are "
+            "ROADMAP queue 1 item 26")
+
+
+def _modulated_step_path(self, y0) -> str:
+    """Execution-path tag of the per-step path for ``Solution.path``."""
+    leaf = y0.re if isinstance(y0, Cplx) else y0
+    return "torch-driver+cuda-step" if leaf.is_cuda else "torch-driver"
+
+
+class _ChainStepper:
+    """What the modulated steppers share: the working basis and its kernel
+    operands per (device, dtype), the per-step function over
+    ``fused_chain_apply`` and the whole-loop solve over ``ChainStep``.
+    Subclasses set ``_recipe`` / ``_chains`` / ``_adaptive`` and
+    ``_basis_w``."""
+
+    is_batched = True
+    # err comes back as a per-trajectory NORM (computed in the step), not an
+    # error vector: the driver applies error_norm = identity
+    error_norm = staticmethod(lambda e: e)
+    step_path = _modulated_step_path
+
+    def _operands(self, device, dtype):
+        """(stacked basis (D, K'D) in the state's type and device, its K'
+        1-norms as floats), made once per (device, dtype)."""
+        key = (device, dtype)
+        cache = self._cache
+        if key not in cache:
+            bw = self._basis_w.to(device=device, dtype=dtype)
+            cache[key] = (stacked_transpose(bw), basis_norms(bw))
+        return cache[key]
+
+    def _wnorm_of(self, x):
+        leaf = x.re if self.op.is_cplx else x
+        return _stepper_wnorm(self, leaf.shape[-1], 2 if self.op.is_cplx
+                              else 1)
+
+    def make_step_fn(self, rhs=None):
+        if rhs is not None:
+            raise ValueError(
+                f"{type(self).__name__} embeds its own operator; pass "
+                "rhs=None")
+        recipe, C = self._recipe, self._chains
+        coeff_fn, is_cplx = self.op.coeff_fn, self.op.is_cplx
+        has_err = has_error_estimate(recipe, C)
+
+        def step_fn(t, x, dt):
+            xw = _widen(x, is_cplx)
+            mt, norms = self._operands(xw.device, xw.dtype)
+            m, theta = _taylor_params(xw.dtype, self.m)
+            samples = [coeff_fn(tn).to(xw.dtype).contiguous()
+                       for tn in node_times(recipe, t, dt)]
+            y, err = fused_chain_apply(
+                samples, dt.to(xw.dtype).contiguous(), xw, mt, norms,
+                recipe=recipe, C=C, m=m, theta=theta,
+                max_squarings=self.max_squarings,
+                wnorm=self._wnorm_of(x) if has_err else None)
+            # no error estimate -> None makes the adaptive driver raise
+            # instead of accepting on a zero estimate
+            return _unwiden(y, is_cplx), (err if has_err else None)
+
+        return step_fn
+
+    def fused_loop_solve(self, y0, t_grid, h0, *, ctl, adaptive: bool,
+                         chunk: int = 8, persistent=None, events=None,
+                         dense: bool = False):
+        """The whole loop (stepper, controller or fixed steps, counters,
+        save grid) in one launch of the loop kernel with the chain step
+        K5 (``persistent=False``: launches of ``chunk`` iterations), the
+        port of ``_fused_loop_run`` without lane packing, windows or caps.
+        CUDA tensors take the kernel (path ``cuda-loop-persistent`` /
+        ``cuda-loop-chunked``), CPU tensors its plain twin
+        (``torch-loop``).
+
+        Returns None where the JAX package declines for a reason that is
+        not TPU layout, so that the caller runs the per-step path: an
+        adaptivity other than the stepper's, an operator without a
+        declared form, a state that is not (B, d), or a time dtype other
+        than the state's."""
+        from ..driver import Solution
+        from ..ops.fused_loop import ChainStep, fused_loop_integrate
+
+        if events is not None or dense:
+            raise NotImplementedError(
+                "events= and dense=True in the loop kernel are ROADMAP "
+                "slice 3b (queue 1 items 12 and 13)")
+        if adaptive != self._adaptive or self.op.form is None:
+            return None
+        is_cplx = self.op.is_cplx
+        leaf = y0.re if is_cplx else y0
+        if leaf.ndim != 2 or t_grid.dtype != leaf.dtype:
+            return None
+        wnorm = None
+        if getattr(self, "norm", None) is not None:
+            if ctl.scaled_error:
+                raise ValueError(
+                    "scaled_error and a declared WeightedNorm are "
+                    "mutually exclusive (both redefine the controller's "
+                    "error measure)")
+            wnorm = self._wnorm_of(y0)
+        B = leaf.shape[0]
+        dtype, dev = leaf.dtype, leaf.device
+        mt, norms = self._operands(dev, dtype)
+        m, theta = _taylor_params(dtype, self.m)
+        step = ChainStep(
+            mt=mt, norms=norms, form=self.op.form, recipe=self._recipe,
+            C=self._chains, m=m, theta=theta,
+            max_squarings=self.max_squarings,
+            scaled=(ctl.atol, ctl.rtol) if ctl.scaled_error else None,
+            wnorm=wnorm)
+        persistent = persistent is None or persistent
+        x0 = _widen(y0, is_cplx)
+        fs, ist, x, saves = fused_loop_integrate(
+            t_grid, x0, h0, step, ctl=ctl, chunk=chunk,
+            persistent=persistent, adaptive=adaptive)
+        n_grid = t_grid.shape[0]
+        # ys = [y0, *interior saves, x_final where the trajectory reached
+        # tf else 0]
+        reached = (ist[:, 0] >= n_grid)[:, None, None]
+        yw = torch.cat([x0[:, None], saves.transpose(0, 1),
+                        torch.where(reached, x[:, None],
+                                    torch.zeros_like(x[:, None]))], dim=1)
+        if not leaf.is_cuda:
+            path = "torch-loop"
+        else:
+            path = ("cuda-loop-persistent" if persistent
+                    else "cuda-loop-chunked")
+        return Solution(
+            ts=t_grid.expand(B, n_grid), ys=_unwiden(yw, is_cplx),
+            t_final=fs[:, 0], y_final=_unwiden(x, is_cplx),
+            status=ist[:, 1], n_accept=ist[:, 3], n_reject=ist[:, 4],
+            n_iters=ist[:, 5], h_final=fs[:, 1], path=path)
+
+
+@dataclasses.dataclass(frozen=True)
+class MidpointModulated(_ChainStepper):
+    """Exponential midpoint (Magnus-2) on a modulated operator: the
+    propagator action e^{dt A(t + dt/2)} x by the shared-basis Taylor
+    action; fixed steps only (no error estimate)."""
+
+    op: ModulatedOperator
+    m: Optional[int] = None          # Taylor degree; None = dtype default
+    max_squarings: int = 16
+
+    nfev_per_step = 1
+    _recipe = "midpoint"
+    _chains = 1
+    _adaptive = False
+
+    def __post_init__(self):
+        object.__setattr__(self, "_basis_w", _real_basis(self.op.basis))
+        object.__setattr__(self, "_cache", {})
+
+
+@dataclasses.dataclass(frozen=True)
+class MagnusModulated4(_ChainStepper):
+    """Magnus-4 on a modulated operator: the per-step commutator
+    [A(t1), A(t2)] collapses onto the precomputed commutator basis, and the
+    order-4 and order-2 propagator actions run as two chains of one
+    shared-basis Taylor action (``adaptive``); ``fast_error`` estimates the
+    error as (sum_k w2_k C_k) y on the advanced state instead of the
+    second chain. ``norm``: a declared ``lc.WeightedNorm``."""
+
+    op: ModulatedOperator
+    adaptive: bool = True
+    m: Optional[int] = None          # Taylor degree; None = dtype default
+    max_squarings: int = 16
+    norm: Optional[Any] = None
+    fast_error: bool = False
+
+    nfev_per_step = 2
+
+    def __post_init__(self):
+        _check_norm(self.norm)
+        if self.op.ext_basis is not None:
+            ext_w = self.op.ext_basis
+        else:
+            ext_w = _real_basis(self.op.commutator_extension()[0])
+        if ext_w.shape[0] != n_working_terms("magnus4", self.op.n_terms):
+            raise ValueError(
+                f"the extended basis has {ext_w.shape[0]} terms, Magnus-4 "
+                f"on {self.op.n_terms} basis terms needs "
+                f"{n_working_terms('magnus4', self.op.n_terms)}")
+        fast = self.adaptive and self.fast_error
+        for name, value in (("_basis_w", ext_w), ("_cache", {}),
+                            ("_recipe", "magnus4_fast" if fast
+                             else "magnus4"),
+                            ("_chains", 2 if self.adaptive and not fast
+                             else 1),
+                            ("_adaptive", self.adaptive)):
+            object.__setattr__(self, name, value)

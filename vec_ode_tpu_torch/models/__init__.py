@@ -1,5 +1,5 @@
 """Problem/model library."""
 
-from .quantum import DrivenDense
+from .quantum import DrivenDense, LandauZener
 
-__all__ = ["DrivenDense"]
+__all__ = ["DrivenDense", "LandauZener"]

@@ -1,5 +1,6 @@
 """Quantum model family (the part of ``vec_ode_tpu/models/quantum.py`` the
-ensemble path uses)."""
+ensemble paths use): time-dependent Schrödinger problems
+dpsi/dt = -i H(t) psi."""
 
 from __future__ import annotations
 
@@ -7,6 +8,46 @@ import dataclasses
 import math
 
 import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class LandauZener:
+    """2-level avoided crossing: H(t) = (v t) sigma_z / 2 + (delta / 2)
+    sigma_x. Asymptotic transition probability (diabatic basis, sweep
+    -T -> +T): P_LZ = exp(-pi delta^2 / (2 v))."""
+
+    v: float = 1.0      # sweep rate
+    delta: float = 0.5  # gap
+
+    def hamiltonian(self, t) -> torch.Tensor:
+        """H(t) as a complex128 tensor (..., 2, 2)."""
+        sz = torch.tensor([[0.5, 0.0], [0.0, -0.5]], dtype=torch.complex128)
+        sx = torch.tensor([[0.0, 0.5], [0.5, 0.0]], dtype=torch.complex128)
+        td = torch.as_tensor(t, dtype=torch.float64)[..., None, None]
+        return (self.v * td) * sz + self.delta * sx
+
+    @property
+    def p_transition(self) -> float:
+        return math.exp(-math.pi * self.delta ** 2 / (2.0 * self.v))
+
+    def modulated(self, dtype=torch.float32, device="cuda"):
+        """A(t) = v t (-i sz) + delta (-i sx) as a ModulatedOperator with
+        the declared form [v t, delta], on the card unless ``device`` names
+        another."""
+        from ..exp.modulated import CoeffForm, ModulatedOperator
+        from ..ops.cplx import Cplx
+
+        sz = torch.tensor([[0.5, 0.0], [0.0, -0.5]], dtype=dtype,
+                          device=device)
+        sx = torch.tensor([[0.0, 0.5], [0.5, 0.0]], dtype=dtype,
+                          device=device)
+        basis = Cplx(torch.zeros(2, 2, 2, dtype=dtype, device=device),
+                     torch.stack([-sz, -sx]))
+        form = CoeffForm(a=(0.0, self.delta), b=(self.v, 0.0),
+                         c=(0.0, 0.0), w=(0.0, 0.0))
+        return ModulatedOperator(basis=basis, coeff_fn=form.sample,
+                                 form=form)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,3 +68,26 @@ class DrivenDense:
         N = rng.standard_normal((d, d)) + 1j * rng.standard_normal((d, d))
         V = (N + N.conj().T) / (2 * math.sqrt(d))
         return DrivenDense(H0=H0, V=V, w=w)
+
+    def pair_parts(self, dtype=torch.float32, device="cuda"):
+        """(H0, V) as Cplx pairs in the given real dtype, on the card
+        unless ``device`` names another."""
+        from ..ops.cplx import from_complex
+
+        return (from_complex(self.H0, dtype, device=device),
+                from_complex(self.V, dtype, device=device))
+
+    def modulated(self, dtype=torch.float32, device="cuda"):
+        """A(t) = -i H0 + cos(w t) (-i V) as a ModulatedOperator with the
+        declared form [1, cos(w t)], on the card unless ``device`` names
+        another."""
+        from ..exp.modulated import CoeffForm, ModulatedOperator
+        from ..ops.cplx import Cplx
+
+        H0, V = self.pair_parts(dtype, device)
+        basis = Cplx(torch.stack([H0.im, V.im]),      # re(-iH) = im(H)
+                     torch.stack([-H0.re, -V.re]))    # im(-iH) = -re(H)
+        form = CoeffForm(a=(1.0, 0.0), b=(0.0, 0.0), c=(0.0, 1.0),
+                         w=(0.0, float(self.w)))
+        return ModulatedOperator(basis=basis, coeff_fn=form.sample,
+                                 form=form)

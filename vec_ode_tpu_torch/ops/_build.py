@@ -1,9 +1,11 @@
 """Builds the package's hand-written CUDA kernels with ``nvcc`` and loads
 them with ``ctypes``.
 
-Each ``csrc/<name>.cu`` has a plain ``extern "C"`` interface and is
-compiled on first use into ``build/kernels/`` at the repository root, for
-``sm_90a`` (Hopper). The library's file name carries a hash of the source,
+Each ``csrc/<name>.cu`` of ``SOURCES`` has a plain ``extern "C"``
+interface and is compiled on first use into ``build/kernels/`` at the
+repository root, for ``sm_90a`` (Hopper); ``build`` compiles several
+sources at once, one ``nvcc`` each, started together. The library's file
+name carries a hash of the source,
 the shared headers ``csrc/*.cuh`` and the flags, so an edited source or
 header is rebuilt and a built one is reused.
 Nothing here runs at import time: machines without ``nvcc`` import the
@@ -21,6 +23,9 @@ import subprocess
 import time
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
+# the step kernel K1, the loop kernel K2 (with the steps K3 and K5), the
+# chain step kernel K4
+SOURCES = ("fused_rk_step", "fused_loop", "chain_expmv")
 BUILD_DIR = CSRC.parents[1] / "build" / "kernels"
 # no --use_fast_math: the kernels' drive and norms need the full-precision
 # cos and sqrt; -Xptxas -v leaves each kernel's registers and spills in

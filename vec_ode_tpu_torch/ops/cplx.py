@@ -51,3 +51,18 @@ def embed(A: Cplx) -> torch.Tensor:
     top = torch.cat([A.re, -A.im], dim=-1)
     bot = torch.cat([A.im, A.re], dim=-1)
     return torch.cat([top, bot], dim=-2)
+
+
+def extract(M: torch.Tensor) -> Cplx:
+    """Inverse of :func:`embed` (reads the first block column)."""
+    d = M.shape[-1] // 2
+    return Cplx(M[..., :d, :d], M[..., d:, :d])
+
+
+def cmatmul(A: Cplx, B: Cplx) -> Cplx:
+    """Complex matmul via 3 real matmuls (the Karatsuba/Gauss trick, as the
+    JAX package computes it)."""
+    t1 = A.re @ B.re
+    t2 = A.im @ B.im
+    t3 = (A.re + A.im) @ (B.re + B.im)
+    return Cplx(t1 - t2, t3 - t1 - t2)

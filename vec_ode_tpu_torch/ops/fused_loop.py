@@ -1,23 +1,28 @@
-"""The whole adaptive RK driver loop in one kernel launch, the counterpart
-of ``vec_ode_tpu/ops/pallas_loop.py`` for the modulated-linear RK stepper.
+"""The whole driver loop in one kernel launch, the counterpart of
+``vec_ode_tpu/ops/pallas_loop.py``.
 
 One launch of the hand-written CUDA kernel ``csrc/fused_loop.cu`` runs
-every trajectory's driver iterations on the card: the RK step with its
-embedded error measure (``csrc/rk_step.cuh``, shared with the per-step
-kernel), the controller (I or PI, ``scaled_error``, ``strict_end_test``),
-compensated time, the save-grid hits, counters, status and reject streak.
-Persistent (``chunk=None``: each tile of trajectories runs until none of
-its rows is RUNNING) or chunked (``chunk`` iterations per launch).
+every trajectory's driver iterations on the card: the step with its error
+measure, the controller (I or PI, ``scaled_error``, ``strict_end_test``)
+or fixed steps (``adaptive=False``), compensated time, the save-grid hits,
+counters, status and reject streak. Persistent (``chunk=None``: each tile
+of trajectories runs until none of its rows is RUNNING) or chunked
+(``chunk`` iterations per launch).
 
+* The step is declared, not injected (JAX passes a step builder's
+  callable; a hand-written kernel takes a declaration):
+  :class:`RKStep`, the embedded RK step of the modulated-linear stepper
+  (``csrc/rk_step.cuh``, shared with the per-step kernel K1), or
+  :class:`ChainStep`, the chain-exponential step of the modulated
+  exponential steppers (``csrc/chain_step.cuh``, shared with the per-step
+  kernel K4), whose coefficients the kernel samples from a declared
+  ``CoeffForm`` at its quadrature nodes.
 * :func:`fused_loop_chunk` is the kernel's wrapper; for CPU tensors it
   runs :func:`torch_fused_loop`, for CUDA tensors it launches or raises.
   ``fused_loop_chunk.launches`` counts the launches.
 * :func:`torch_fused_loop` is the plain twin: the same iteration over the
-  whole batch in torch, on the same carries, with ``torch_rk_step`` as
-  its step.
+  whole batch in torch, on the same carries, with the step's ``plain``.
 * :func:`fused_loop_integrate` sets up the carries and runs a whole solve.
-* :class:`RKStep` declares the step (JAX injects ``make_rk_step_builder``'s
-  callable; a hand-written kernel takes the declaration instead).
 
 Carries, per trajectory (``pallas_loop.py:60-62``): floats (B, N_F)
 [t, h, prev_h, err_norm, t_lo] in the state's type; int32 (B, N_I)
@@ -44,6 +49,8 @@ from ..driver import (DONE, ERR_BAD_GRID, ERR_MAX_STEPS, ERR_STALLED,
                       RUNNING, comp_time_advance)
 from ..tableaus import RKF45, ButcherTableau
 from . import _build
+from .expmv import (CoeffForm, chain_params, check_chain_operands,
+                    has_error_estimate, node_times, torch_chain_step)
 from .fused_rk import (check_kernel_inputs, kernel_norm_args,
                        kernel_operands, torch_rk_step, wnorm_on)
 
@@ -82,13 +89,57 @@ class RKStep:
                              advance_lower=self.advance_lower,
                              wnorm=self.wnorm, scaled=self.scaled)
 
+    @property
+    def has_err(self) -> bool:
+        return self.tableau.b_err is not None
 
-def torch_fused_loop(t_grid, fs, ist, x, saves, step: RKStep, *,
-                     ctl: StepControl, iters: Optional[int] = None):
+
+@dataclasses.dataclass(frozen=True)
+class ChainStep:
+    """The chain-exponential step the loop kernel runs (the counterpart of
+    ``pallas_loop.make_chain_step_builder``, K5): the coefficients
+    ``form`` sampled at the quadrature nodes of ``recipe``
+    (``ops/expmv.node_times``), the recipe's C coefficient rows over the
+    working basis (stacked as ``mt`` = [M_0^T | ... ], (D, K'D), with the
+    terms' 1-norms ``norms``), each row scaled per trajectory, the
+    degree-``m`` Taylor chains, and the error measure of chain1 - chain0
+    or of ``magnus4_fast``: ``scaled=(atol, rtol)`` (scaled_error) or
+    ``wnorm=(w_row, post, kind)`` or plain l2."""
+
+    mt: torch.Tensor        # (D, K'D), in the state's type and device
+    norms: tuple            # K' floats (ops/expmv.basis_norms)
+    form: CoeffForm
+    recipe: str
+    C: int
+    m: int
+    theta: float
+    max_squarings: int = 16
+    scaled: Optional[tuple] = None
+    wnorm: Optional[tuple] = None
+
+    def plain(self, t, dt, xw):
+        """The step in plain torch (``torch_chain_step``)."""
+        samples = [self.form.sample(tn)
+                   for tn in node_times(self.recipe, t, dt)]
+        return torch_chain_step(
+            samples, dt, xw, self.mt, self.norms, recipe=self.recipe,
+            C=self.C, m=self.m, theta=self.theta,
+            max_squarings=self.max_squarings, wnorm=self.wnorm,
+            scaled=self.scaled)
+
+    @property
+    def has_err(self) -> bool:
+        return has_error_estimate(self.recipe, self.C)
+
+
+def torch_fused_loop(t_grid, fs, ist, x, saves, step, *, ctl: StepControl,
+                     iters: Optional[int] = None, adaptive: bool = True):
     """Plain twin of the loop kernel: ``iters`` driver iterations of the
     whole batch (None: until no trajectory is RUNNING), line for line
     ``pallas_loop._make_loop_kernel.iteration`` without events or dense
-    output. Returns (fs, ist, x, saves); ``saves`` is updated in place."""
+    output; ``adaptive=False`` takes fixed steps (every stepping row
+    accepts, h changes only at the grid-hit restore). Returns (fs, ist, x,
+    saves); ``saves`` is updated in place."""
     n_grid = t_grid.shape[0]
     t, h, prev_h, err_prev, t_lo = fs.unbind(1)
     tgt, status, event, n_acc, n_rej, n_it, streak, bits = ist.unbind(1)
@@ -106,8 +157,12 @@ def torch_fused_loop(t_grid, fs, ist, x, saves, step: RKStep, *,
         dt = torch.where(stepping, torch.minimum(h, rem), 0.0)
 
         y, err = step.plain(t, dt, x)
-        new_h, accept = controller_update(h, err, ctl, prev_err_norm=err_prev,
-                                          prev_rejected=streak > 0)
+        if adaptive:
+            new_h, accept = controller_update(h, err, ctl,
+                                              prev_err_norm=err_prev,
+                                              prev_rejected=streak > 0)
+        else:
+            new_h, accept = h, torch.ones_like(stepping)
         adv = stepping & accept
         rej = stepping & ~accept
         hit = at_grid & running
@@ -123,8 +178,9 @@ def torch_fused_loop(t_grid, fs, ist, x, saves, step: RKStep, *,
         else:
             t = torch.where(adv, t + dt, t)
         x = torch.where(adv[:, None], y, x)
-        prev_h = torch.where(stepping, h, prev_h)
-        h = torch.where(stepping, new_h, h)
+        if adaptive:
+            prev_h = torch.where(stepping, h, prev_h)
+            h = torch.where(stepping, new_h, h)
         h = torch.where(hit, prev_h, h)
         tgt = tgt + hit.to(torch.int32)
 
@@ -143,7 +199,8 @@ def torch_fused_loop(t_grid, fs, ist, x, saves, step: RKStep, *,
                 is_chk, EVT_CHKPT, torch.where(
                     rej, EVT_REJECT, torch.where(adv, EVT_STEP, EVT_NONE))))
         event = event.to(torch.int32)
-        err_prev = torch.where(stepping, err, err_prev)
+        if adaptive:
+            err_prev = torch.where(stepping, err, err_prev)
         n_acc = n_acc + adv.to(torch.int32)
         n_rej = n_rej + rej.to(torch.int32)
         it += 1
@@ -163,7 +220,12 @@ def _kernel_lib() -> ctypes.CDLL:
     for fn in (lib.vec_ode_fused_loop_f32, lib.vec_ode_fused_loop_f64):
         fn.restype = ci
         fn.argtypes = [vp, ci, vp, vp, vp, vp, vp, vp, vp, ci, ci, vp, pd,
-                       ci, ci, cd, vp, cd, ci, pd, ci, vp]
+                       ci, ci, cd, vp, cd, ci, pd, ci, ci, vp]
+    for fn in (lib.vec_ode_fused_loop_chain_f32,
+               lib.vec_ode_fused_loop_chain_f64):
+        fn.restype = ci
+        fn.argtypes = [vp, ci, vp, vp, vp, vp, vp, vp, vp, ci, ci, vp, pd,
+                       vp, cd, ci, pd, ci, ci, vp]
     return lib
 
 
@@ -205,46 +267,62 @@ def _check_carries(t_grid, fs, ist, x, saves) -> None:
             raise ValueError(f"fused_loop_chunk: {name} must be contiguous")
 
 
-def fused_loop_chunk(t_grid, fs, ist, x, saves, step: RKStep, *,
-                     ctl: StepControl, chunk: Optional[int] = None):
+def fused_loop_chunk(t_grid, fs, ist, x, saves, step, *, ctl: StepControl,
+                     chunk: Optional[int] = None, adaptive: bool = True):
     """Advance every trajectory by ``chunk`` driver iterations in one
     launch of the loop kernel, or with ``chunk=None`` until it leaves
-    RUNNING (persistent). Returns (fs, ist, x, saves); ``saves`` is
-    updated in place.
+    RUNNING (persistent), with the declared ``step`` (:class:`RKStep` or
+    :class:`ChainStep`); ``adaptive=False`` takes fixed steps. Returns
+    (fs, ist, x, saves); ``saves`` is updated in place.
 
-    CUDA tensors go to the kernel (float32 or float64, 2d <= 512, at most
-    7 stages, contiguous carries); anything else it does not take raises.
-    CPU tensors run :func:`torch_fused_loop`.
+    CUDA tensors go to the kernel (float32 or float64, D <= 512,
+    contiguous carries; RK tableaus of at most 7 stages, chain steps over
+    at most 2 basis terms); anything else it does not take raises. CPU
+    tensors run :func:`torch_fused_loop`.
     """
     if chunk is not None and chunk < 1:
         raise ValueError(f"fused_loop_chunk: chunk must be >= 1, got {chunk}")
-    if step.tableau.b_err is None:
+    if adaptive and not step.has_err:
         raise ValueError(
-            f"fused_loop_chunk: tableau {step.tableau.name} has no embedded "
-            "pair; the loop kernel is adaptive")
-    tensors = (t_grid, fs, ist, x, saves, step.M0, step.M1)
-    if all(a.device.type == "cpu" for a in tensors):
+            "fused_loop_chunk: the step has no error estimate (no embedded "
+            "pair, or a chain step with C = 1); adaptive=True needs one")
+    if step.scaled is not None and step.wnorm is not None:
+        raise ValueError("fused_loop_chunk: scaled and wnorm are mutually "
+                         "exclusive")
+    ops = ((step.M0, step.M1) if isinstance(step, RKStep) else (step.mt,))
+    if all(a.device.type == "cpu" for a in (t_grid, fs, ist, x, saves, *ops)):
         return torch_fused_loop(t_grid, fs, ist, x, saves, step, ctl=ctl,
-                                iters=chunk)
-    mt, tab_c = kernel_operands(step.M0, step.M1, step.tableau)
+                                iters=chunk, adaptive=adaptive)
     wn = wnorm_on(step.wnorm, x)
-    check_kernel_inputs("fused_loop_chunk", x, mt,
-                        None if wn is None else wn[0])
-    _check_carries(t_grid, fs, ist, x, saves)
+    w_row = None if wn is None else wn[0]
     B, D = x.shape
     lib = _kernel_lib()
-    fn = (lib.vec_ode_fused_loop_f32 if x.dtype == torch.float32
-          else lib.vec_ode_fused_loop_f64)
+    f32 = x.dtype == torch.float32
+    if isinstance(step, RKStep):
+        mt, tab_c = kernel_operands(step.M0, step.M1, step.tableau)
+        check_kernel_inputs("fused_loop_chunk", x, mt, w_row)
+        fn = lib.vec_ode_fused_loop_f32 if f32 else lib.vec_ode_fused_loop_f64
+        step_args = (mt.data_ptr(), tab_c, step.tableau.stages,
+                     int(step.advance_lower), float(step.w))
+    else:
+        K0 = step.form.n_terms
+        Kp = check_chain_operands("fused_loop_chunk", x, step.mt, step.norms,
+                                  K0, step.recipe, step.C, w_row)
+        fn = (lib.vec_ode_fused_loop_chain_f32 if f32
+              else lib.vec_ode_fused_loop_chain_f64)
+        step_args = (step.mt.data_ptr(),
+                     chain_params(step.recipe, step.C, K0, Kp, step.m,
+                                  step.theta, step.max_squarings, step.norms,
+                                  step.form))
+    _check_carries(t_grid, fs, ist, x, saves)
     fs_out, ist_out, x_out = (torch.empty_like(a) for a in (fs, ist, x))
     with torch.cuda.device(x.device):
         rc = fn(t_grid.data_ptr(), t_grid.shape[0], fs.data_ptr(),
                 ist.data_ptr(), x.data_ptr(), fs_out.data_ptr(),
                 ist_out.data_ptr(), x_out.data_ptr(), saves.data_ptr(), B, D,
-                mt.data_ptr(), tab_c, step.tableau.stages,
-                int(step.advance_lower), float(step.w),
-                *kernel_norm_args(wn),
+                *step_args, *kernel_norm_args(wn),
                 _ctl_array(ctl, step.scaled is not None),
-                0 if chunk is None else int(chunk),
+                0 if chunk is None else int(chunk), int(adaptive),
                 torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(
@@ -273,17 +351,20 @@ def init_carries(t_grid, x0, h0):
     return t_grid, fs, ist, x0.contiguous(), saves
 
 
-def fused_loop_integrate(t_grid, x0, h0, step: RKStep, *, ctl: StepControl,
-                         chunk: int = 8, persistent: bool = False):
+def fused_loop_integrate(t_grid, x0, h0, step, *, ctl: StepControl,
+                         chunk: int = 8, persistent: bool = False,
+                         adaptive: bool = True):
     """A whole solve over [t_grid[0], t_grid[-1]] from the widened state
-    ``x0`` (B, 2d): one persistent launch, or launches of ``chunk``
+    ``x0`` (B, D): one persistent launch, or launches of ``chunk``
     iterations until no trajectory is RUNNING (one host sync each).
     ``h0`` is a scalar or per trajectory (B,). Interior grid times are hit
     exactly and recorded. Returns the final (fs, ist, x, saves)."""
     t_grid, fs, ist, x, saves = init_carries(t_grid, x0, h0)
     if persistent:
-        return fused_loop_chunk(t_grid, fs, ist, x, saves, step, ctl=ctl)
+        return fused_loop_chunk(t_grid, fs, ist, x, saves, step, ctl=ctl,
+                                adaptive=adaptive)
     while bool((ist[:, 1] == RUNNING).any()):
         fs, ist, x, saves = fused_loop_chunk(t_grid, fs, ist, x, saves, step,
-                                             ctl=ctl, chunk=chunk)
+                                             ctl=ctl, chunk=chunk,
+                                             adaptive=adaptive)
     return fs, ist, x, saves

@@ -1,8 +1,8 @@
 """Ensemble propagation: many independent trajectories in one batched
 solve (the natively batched, unsharded branch of
-``vec_ode_tpu/parallel/ensemble.py:ensemble_solve``): the whole adaptive
-loop in one kernel launch where the stepper's ``fused_loop_solve`` takes
-the configuration, else one driver loop over per-step launches."""
+``vec_ode_tpu/parallel/ensemble.py:ensemble_solve``): the whole loop in
+one kernel launch where the stepper's ``fused_loop_solve`` takes the
+configuration, else one driver loop over per-step launches."""
 
 from __future__ import annotations
 
@@ -59,14 +59,16 @@ def ensemble_solve(
     dense: bool = False,
 ) -> Solution:
     """Integrate a batch of independent trajectories (leading axis of every
-    leaf of ``y0_batch``) with a natively batched ``stepper`` such as
-    ``ops.fused_rk.FusedModulatedLinearRK``, on ``y0_batch``'s device.
+    leaf of ``y0_batch``) with a natively batched ``stepper``
+    (``ops.fused_rk.FusedModulatedLinearRK``, ``exp.MidpointModulated``,
+    ``exp.MagnusModulated4``), on ``y0_batch``'s device.
 
-    The stepper's ``fused_loop_solve`` runs the whole adaptive loop in one
-    launch of the CUDA loop kernel where it takes the configuration; where
-    it declines (returns None), one driver loop runs over the whole batch
-    with a kernel launch per step on the card, or the plain torch step on
-    the CPU. ``Solution.path`` names the path taken.
+    The stepper's ``fused_loop_solve`` runs the whole loop (adaptive, or
+    fixed steps with ``adaptive=False``) in one launch of the CUDA loop
+    kernel where it takes the configuration; where it declines (returns
+    None), one driver loop runs over the whole batch with a kernel launch
+    per step on the card, or the plain torch step on the CPU.
+    ``Solution.path`` names the path taken.
 
     The signature is the JAX package's. ``error_norm`` may be a declared
     ``lc.WeightedNorm`` (installed as the stepper's ``norm``).
@@ -79,9 +81,11 @@ def ensemble_solve(
     """
     if stepper is None or not getattr(stepper, "is_batched", False):
         raise NotImplementedError(
-            "only natively batched steppers are ported (e.g. "
-            "FusedModulatedLinearRK); the generic RungeKutta tier is "
-            "ROADMAP queue 1, items 6 and 9")
+            "only natively batched steppers are ported "
+            "(FusedModulatedLinearRK, MidpointModulated, MagnusModulated4); "
+            "the generic RungeKutta tier is ROADMAP queue 1, items 6 and 9, "
+            "MagnusModulated6 and CFMModulated slice 4b (queue 1 item 16), "
+            "the generic exponential steppers slice 5")
     if mesh is not None:
         raise NotImplementedError(
             "mesh=: sharded ensembles are ROADMAP slice 7, queue 1 item 27")
@@ -128,9 +132,9 @@ def ensemble_solve(
     if ctl.scaled_error:
         raise ValueError(
             "scaled_error with a norm-returning stepper requires the fused "
-            "loop kernel, which did not engage for this configuration (it "
-            "runs on CUDA tensors, adaptive, with the time dtype of the "
-            "state, for at most LOOP_MAX_BATCH trajectories)")
+            "loop kernel, which did not engage for this configuration (see "
+            "the stepper's fused_loop_solve: e.g. the time dtype must be "
+            "the state's)")
     step_fn = stepper.make_step_fn(rhs_or_op)
     sol = integrate(step_fn, y0_batch, t_grid, h0, adaptive=adaptive,
                     ctl=ctl, error_norm=stepper.error_norm,
