@@ -22,10 +22,17 @@ drives the port's paths once at full width through
   ``fused_chain_apply`` (K4) per driver iteration;
 * the Landau-Zener path: 16 384 fixed-step exponential-midpoint sweeps of
   a 2-level avoided crossing in the loop kernel's fixed-step mode, held
-  against the closed-form transition probability.
+  against the closed-form transition probability;
+* the generic dense path: adaptive Magnus-4 (``exp.Magnus4`` over
+  ``DenseCplxSplit``) with a black-box operator callback over 4 096
+  trajectories of the same model, every trajectory with its own dense
+  operator samples, a launch of the dense chain kernel
+  ``fused_dense_chain_apply`` (K9) per driver iteration; the same solve
+  with each step by a stacked batched ``expm`` (the library reference) and
+  against the Magnus loop path.
 
 Then it times the paths and each kernel against its plain version, its
-bound and, for K4, a library yardstick. Every phase raises on failure, so
+bound and, for K4 and K9, a library yardstick. Every phase raises on failure, so
 any failure exits non-zero; without a CUDA card it exits non-zero before
 any result.
 
@@ -49,11 +56,20 @@ import torch
 from vec_ode_tpu_torch import (DONE, DOPRI5, ERR_MAX_STEPS, ERR_STALLED,
                                RKF45, StepControl, driver, lc)
 from vec_ode_tpu_torch import tableaus as ttab
+from vec_ode_tpu_torch import exp as texp
 from vec_ode_tpu_torch.exp import MagnusModulated4, MidpointModulated
+from vec_ode_tpu_torch.exp import cfm as tcfm
+from vec_ode_tpu_torch.exp import dense_fast
+from vec_ode_tpu_torch.exp import magnus as tmagnus
+from vec_ode_tpu_torch.exp import split_solvers as tsplit
 from vec_ode_tpu_torch.exp.modulated import _taylor_params
 from vec_ode_tpu_torch.models import DrivenDense, LandauZener
-from vec_ode_tpu_torch.ops import _build, expmv, fused_loop, fused_rk
-from vec_ode_tpu_torch.ops.cplx import Cplx, from_complex
+from vec_ode_tpu_torch.ops import (_build, dense_chains, expmv, fused_loop,
+                                   fused_rk)
+from vec_ode_tpu_torch.ops.cplx import Cplx, embed, from_complex
+from vec_ode_tpu_torch.ops.dense_chains import (chain_products,
+                                                fused_dense_chain_apply,
+                                                torch_dense_chains)
 from vec_ode_tpu_torch.ops.expmv import (fused_chain_apply, node_times,
                                          torch_chain_step)
 from vec_ode_tpu_torch.ops.fused_loop import (ChainStep, RKStep,
@@ -69,7 +85,7 @@ LOOP_TRAJ = 2048             # fused_loop.LOOP_MAX_BATCH
 SAVE_AT = tuple(round(0.1 * k, 10) for k in range(1, 10))
 CTL = StepControl(rtol=1e-8, min_dt=1e-6, max_dt=0.25)
 H0, TF = 1e-3, 1.0
-# K1-K5: the CUDA source of each and the TPU kernel it replaces. K3 and K5
+# K1-K5, K9: the CUDA source of each and the TPU kernel it replaces. K3 and K5
 # are the steps inside K2 (device functions compiled into fused_loop.cu);
 # their rows carry the loop kernel's numbers on the path each step drives
 KERNELS = {
@@ -83,6 +99,8 @@ KERNELS = {
                           "vec_ode_tpu/ops/pallas_expmv.py:172"),
     "chain_step_tile": ("vec_ode_tpu_torch/csrc/chain_step.cuh",
                         "vec_ode_tpu/ops/pallas_loop.py:680"),
+    "fused_dense_chain_apply": ("vec_ode_tpu_torch/csrc/dense_chains.cu",
+                                "vec_ode_tpu/ops/pallas_dense.py:121"),
 }
 # the card's published peaks (H100 SXM, dense, at 700 W): FP32 outside
 # the tensor cores (no TF32 may enter an error estimate), and HBM
@@ -141,6 +159,7 @@ def build_phase(card: str) -> None:
     fused_rk._kernel_lib()
     fused_loop._kernel_lib()
     expmv._kernel_lib()
+    dense_chains._kernel_lib()
     for name in _build.SOURCES:
         print(f"[build] {name} {'(cached) ' if cached[name] else ''}"
               f"{ready[name]:.2f} s, nvcc per source started together; "
@@ -417,6 +436,7 @@ def reset_counts() -> None:
     fused_rk_step.launches = 0
     fused_loop_chunk.launches = 0
     fused_chain_apply.launches = 0
+    fused_dense_chain_apply.launches = 0
 
 
 def counts() -> tuple:
@@ -1209,8 +1229,410 @@ def k5_timing_phase(card: str):
                            f"Landau-Zener path {N_TRAJ} sweeps, "
                            f"{round(2 * LZ_T / LZ_H)} fixed steps, one loop "
                            "launch", card)
+    lz_b_ms, lz_b_by, lz_flop, lz_passes = lz_bound(st_lz)
+    print(f"[time] Landau-Zener path's bound: {lz_b_ms:.4f} ms by {lz_b_by} "
+          f"({lz_flop / 1e9:.2f} GFLOP: {lz_passes} Taylor passes per sweep "
+          f"over its {round(2 * LZ_T / LZ_H)} steps, D = 4), the solve at "
+          f"{lz_b_ms / lz_ms:.2%} of it: the path is bound by latency, a "
+          f"step is {lz_ms / round(2 * LZ_T / LZ_H) * 1e3:.1f} us of "
+          f"dependent block barriers ({card})", flush=True)
     return k_ms, p_ms, b_ms, b_by
 
+
+def lz_bound(st):
+    """The Landau-Zener path's least time: every sweep takes the same fixed
+    steps, so the Taylor passes per sweep come from the coefficient rows of
+    the steps' midpoints (the twin's scaling rule); the state and the
+    carries moved once."""
+    n_steps = round(2 * LZ_T / LZ_H)
+    mt, norms, m, theta = chain_operands(st, torch.float32)
+    t = -LZ_T + LZ_H * torch.arange(n_steps, dtype=torch.float32,
+                                    device="cuda")
+    dt = torch.full_like(t, LZ_H)
+    samples = [st.op.form.sample(tn) for tn in node_times(st._recipe, t, dt)]
+    rows = expmv.chain_rows(st._recipe, samples, dt, st._chains)
+    _, n_pass = expmv.scale_rows(rows, norms, theta, st.max_squarings)
+    passes = int(n_pass.sum())
+    flop = chain_flops([N_TRAJ * passes], 4, m, st._recipe,
+                       st.op.form.n_terms)
+    nbytes = 4 * (2 * N_TRAJ * (5 + 4) + mt.numel() + 2) + 2 * 4 * N_TRAJ * 8
+    b_ms, b_by = bound(flop, nbytes)
+    return b_ms, b_by, flop, passes
+
+
+# -- the generic dense exponential path (K9) ---------------------------------
+
+GEN_TRAJ = 4096              # the generic path's batch on the card
+GEN_SMALL = 256              # and the batch of the JAX package's record
+GEN_CTL = StepControl(rtol=1e-5, min_dt=1e-5, max_dt=0.25)
+GEN_H0 = 1e-2
+# checks bound the squarings: a row gone wrong cannot hold a block for long
+GEN_MAX_SQUARINGS = 16
+
+
+def dense_tables() -> dict:
+    """Every stepper's chain table."""
+    return {
+        "midpoint": tmagnus.midpoint_table(),
+        "magnus4 pair": tmagnus.magnus4_table(pair=True),
+        "magnus4 one chain (fast_error, non-adaptive)":
+            tmagnus.magnus4_table(pair=False),
+        "magnus6": tmagnus.magnus6_table(adaptive=True),
+        "cfm4": tcfm.cfm_table(ttab.CFM_R4_J2_GL, ttab.CFM_R2_J1_GL),
+        "cfm4_blanes17 (4 + 1 exponents)": tcfm.cfm_table(
+            ttab.BLANES17_R4_J4, [[5 / 18, 4 / 9, 5 / 18]]),
+        "split midpoint": tsplit.split_midpoint_table(False),
+        "split midpoint strict": tsplit.split_midpoint_table(True),
+        "split cfm": tsplit.split_cfm_table(
+            ((0.5, 0.5),), ((0.5, 0.0), (0.0, 0.5))),
+    }
+
+
+def dense_inputs(table, B, D, dtype, seed=5, big_row=None, nan_row=None):
+    """Random per-trajectory samples of 1-norm about sqrt(D), dt in
+    [1e-3, 5e-2) and states of scale 0.1; ``big_row`` gets dt = 0.7 (past
+    theta, so only it squares in f32), ``nan_row`` a NaN sample."""
+    rng = np.random.default_rng(seed)
+    ops = rng.standard_normal((table.n_nodes, B, D, D)) / D ** 0.5
+    dt = rng.uniform(1e-3, 5e-2, B)
+    if big_row is not None:
+        dt[big_row] = 0.7
+    if nan_row is not None:
+        ops[0, nan_row, 0, 0] = np.nan
+    xw = rng.standard_normal((B, D)) * 0.1
+    return (torch.as_tensor(a, dtype=dtype, device="cuda")
+            for a in (ops, dt, xw))
+
+
+def check_dense(label, table, node_ops, dt, xw, nan_row=None,
+                wnorm=None) -> float:
+    """K9 against its twin on the card. f64: only the order of the sums
+    differs, 1e-11 on states of scale <= 1 and 1e-9 of each error norm.
+    f32: 2e-5 of the largest state entry; the error norm is a difference
+    of two propagated states, so its limit is 1e-3 of the norm plus four
+    times the f32 twin's own distance from the f64 twin on these inputs.
+    ``wnorm``: a declared error norm, which both execute."""
+    dtype = xw.dtype
+    m, theta = dense_fast.ps_params(dtype)
+    kw = dict(m=m, theta=theta, max_squarings=GEN_MAX_SQUARINGS, wnorm=wnorm)
+    counts_s = []
+    yk, ek = fused_dense_chain_apply(table, node_ops, dt, xw, **kw)
+    yp, ep = torch_dense_chains(table, node_ops, dt, xw, counts=counts_s,
+                                **kw)
+    torch.cuda.synchronize()
+    e64 = None
+    if ep is not None and dtype == torch.float32:
+        _, e64 = torch_dense_chains(table, node_ops.double(), dt.double(),
+                                    xw.double(), **kw)
+    ok = True
+    if nan_row is not None:
+        keep = torch.ones(xw.shape[0], dtype=torch.bool, device="cuda")
+        keep[nan_row] = False
+        ok = bool(torch.isnan(yk[nan_row]).all())
+        if ep is not None:
+            ok = ok and bool(torch.isnan(ek[nan_row]))
+        yk, yp, ek = yk[keep], yp[keep], ek[keep]
+        ep = None if ep is None else ep[keep]
+        e64 = None if e64 is None else e64[keep]
+    ok = ok and bool(torch.isfinite(yk).all() & torch.isfinite(ek).all())
+    dy = float((yk - yp).abs().max())
+    if dtype == torch.float64:
+        y_lim = 1e-11
+    else:
+        y_lim = 2e-5 * max(float(yp.abs().max()), 1.0)
+    if ep is None:
+        de_txt = f"one chain, err == 0: {bool((ek == 0).all())}"
+        ok = ok and bool((ek == 0).all())
+    else:
+        if dtype == torch.float64:
+            e_lim = 1e-9 * ep.abs() + 1e-15
+        else:
+            floor = 4 * float((ep.double() - e64).abs().max())
+            e_lim = 1e-3 * ep.abs() + floor
+        de = (ek - ep).abs()
+        ok = ok and bool((de <= e_lim).all())
+        de_txt = (f"max|derr|={float(de.max()):.3e}, max|derr|/limit="
+                  f"{float((de / e_lim).max()):.3f} (<= 1), err up to "
+                  f"{float(ep.max()):.2e}")
+    s_all = torch.stack(counts_s)
+    ok = ok and dy <= y_lim
+    print(f"[dense] {label} {str(dtype)[6:]} B={xw.shape[0]} D={xw.shape[1]} "
+          f"({table.n_nodes} nodes, chains of "
+          f"{[len(c) for c in table.chains]}): max|dy|={dy:.3e} (<= "
+          f"{y_lim:.1e}); {de_txt}; squarings up to {int(s_all.max())}, "
+          f"{int(s_all.amax(0).gt(0).sum())} row(s) square"
+          f"{'' if nan_row is None else f'; NaN stays in row {nan_row}'}"
+          f"; {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"K9 disagrees with its twin: {label} {dtype}")
+    return dy
+
+
+def generic_op_fn(dtype=torch.float32):
+    model = DrivenDense.make(d=DIM, seed=0)
+    return lambda t: model.op_pair(t, dtype)
+
+
+def model_dense_inputs(B, seed=7):
+    """The generic path's own samples: the Magnus-4 pair's two nodes of
+    DrivenDense(64, seed 0) at t in [0, 1), dt in [1e-3, 5e-2), f32."""
+    rng = np.random.default_rng(seed)
+    t = torch.as_tensor(rng.uniform(0, 1, B), dtype=torch.float32,
+                        device="cuda")
+    dt = torch.as_tensor(rng.uniform(1e-3, 5e-2, B), dtype=torch.float32,
+                         device="cuda")
+    xw = torch.as_tensor(rng.standard_normal((B, 2 * DIM)) * 0.1,
+                         dtype=torch.float32, device="cuda")
+    tv = torch.cat(tmagnus.gl2_times(t, dt))
+    E = embed(torch.func.vmap(generic_op_fn())(tv))
+    return E.reshape(2, B, 2 * DIM, 2 * DIM), dt, xw
+
+
+def dense_chain_phase() -> float:
+    """K9 against its twin: every table in f64 at D = 8 and D = 128, with
+    a row past theta and a NaN row; the Magnus-4 pair under each declared
+    norm in f64 and f32; the main path's table in f32 at D = 4 and at
+    4096 x 128, on random samples and on the path's own."""
+    for name, table in dense_tables().items():
+        for B, D in ((1500, 8), (300, 128)):
+            check_dense(name, table,
+                        *dense_inputs(table, B, D, torch.float64, big_row=3,
+                                      nan_row=5), nan_row=5)
+    pair = tmagnus.magnus4_table(pair=True)
+    for kind, weights in (("l2", True), ("rms", False), ("max", True)):
+        label = (f"magnus4 pair, norm {kind}"
+                 f"{' weighted' if weights else ''}")
+        for B, D, dtype in ((1500, 8, torch.float64),
+                            (300, 128, torch.float64),
+                            (1000, 128, torch.float32)):
+            check_dense(label, pair,
+                        *dense_inputs(pair, B, D, dtype, big_row=3,
+                                      nan_row=5), nan_row=5,
+                        wnorm=weighted(kind, D // 2, weights))
+    # samples at an offset and with a stride of their own over the nodes
+    ops, dt, xw = dense_inputs(pair, 300, 128, torch.float32)
+    store = torch.zeros(2, 301, 128, 128, device="cuda")
+    store[:, 1:] = ops
+    check_dense("magnus4 pair, samples as a strided view", pair,
+                store[:, 1:], dt, xw)
+    check_dense("magnus4 pair", pair,
+                *dense_inputs(pair, 1000, 4, torch.float32, big_row=3))
+    check_dense("magnus4 pair", pair,
+                *dense_inputs(pair, GEN_TRAJ, 2 * DIM, torch.float32,
+                              big_row=3, nan_row=5), nan_row=5)
+    return check_dense("magnus4 pair, the generic path's samples", pair,
+                       *model_dense_inputs(GEN_TRAJ))
+
+
+def generic_solve(y0):
+    return ensemble_solve(
+        generic_op_fn(), y0, 0.0, TF,
+        stepper=texp.Magnus4(texp.DenseCplxSplit()),
+        adaptive=True, ctl=GEN_CTL, h0=GEN_H0, time_dtype=torch.float32)
+
+
+def stacked_generic_solve(y0):
+    """The generic solve through the same host driver with each step by
+    the stacked batched expm (``dense_fast.run_stacked_chains``:
+    torch.matmul, one scaling count per batch): the library reference of
+    the path, which no stepper runs."""
+    op_fn, split = generic_op_fn(), texp.DenseCplxSplit()
+    table = tmagnus.magnus4_table(pair=True)
+
+    def step(t, x, dt):
+        E = embed(torch.func.vmap(op_fn)(torch.cat(tmagnus.gl2_times(t, dt))))
+        return dense_fast.run_stacked_chains(
+            split, x, dt, E.reshape(2, -1, 2 * DIM, 2 * DIM), table,
+            adaptive=True)
+
+    grid = driver.make_grid(0.0, TF, dtype=torch.float32, device="cuda")
+    return driver.integrate(step, y0, grid, GEN_H0, ctl=GEN_CTL,
+                            error_norm=lambda e: e,
+                            batch_shape=(y0.re.shape[0],))
+
+
+def max_dy(a, b) -> float:
+    return float(torch.maximum((a.y_final.re - b.y_final.re).abs(),
+                               (a.y_final.im - b.y_final.im).abs()).max())
+
+
+def generic_path_phase() -> int:
+    """This slice's main path: 4096x64c adaptive Magnus-4 with a black-box
+    operator callback, one K9 launch per driver iteration; then the same
+    solve by the stacked reference, under a declared norm, and on the
+    Magnus loop path (the same operator as a ModulatedOperator)."""
+    _, y0 = main_inputs(GEN_TRAJ)
+    reset_counts()
+    sol = generic_solve(y0)
+    torch.cuda.synchronize()
+    k9 = fused_dense_chain_apply.launches
+    n_iters = int(sol.n_iters.max())
+    assert sol.path == "torch-driver+cuda-step", sol.path
+    assert k9 == n_iters and counts() == (0, 0, 0), (k9, n_iters, counts())
+    n_done = int((sol.status == DONE).sum())
+    assert n_done == GEN_TRAJ, f"{GEN_TRAJ - n_done} trajectories not DONE"
+    y = torch.complex(sol.y_final.re, sol.y_final.im)
+    assert y.shape == (GEN_TRAJ, DIM) and bool(torch.isfinite(y.real).all()
+                                               & torch.isfinite(y.imag).all())
+    norm_dev = float((y.abs().pow(2).sum(-1).sqrt() - 1).abs().max())
+    assert norm_dev <= 1e-4, f"|psi| drifted by {norm_dev}"
+    print(f"[generic] {GEN_TRAJ}x{DIM}c Magnus4(DenseCplxSplit) rtol="
+          f"{GEN_CTL.rtol:g}, op_fn callback: all DONE, max||psi|-1|="
+          f"{norm_dev:.3e} (<= 1e-4), path={sol.path}, K9 launches={k9} == "
+          f"max n_iters={n_iters} (K1/K2/K4 {counts()}), n_accept "
+          f"{int(sol.n_accept.min())}..{int(sol.n_accept.max())}, n_reject "
+          f"{int(sol.n_reject.min())}..{int(sol.n_reject.max())}", flush=True)
+
+    # the stacked reference: one scaling count per batch where K9 takes one
+    # per trajectory, so the states differ by f32 rounding per step and a
+    # step at the controller's edge may fall the other way
+    reset_counts()
+    ref = stacked_generic_solve(y0)
+    torch.cuda.synchronize()
+    assert fused_dense_chain_apply.launches == 0 and counts() == (0, 0, 0)
+    assert int((ref.status == DONE).sum()) == GEN_TRAJ
+    d_acc, d_rej, d_it = (
+        int((getattr(sol, k) - getattr(ref, k)).abs().max())
+        for k in ("n_accept", "n_reject", "n_iters"))
+    dy = max_dy(sol, ref)
+    # a row that rejects once more also accepts once more: n_iters by 2
+    assert d_acc <= 1 and d_rej <= 1 and d_it <= 2 and dy <= 1e-4, (
+        d_acc, d_rej, d_it, dy)
+    print(f"[generic] the stacked reference (no K9 launch) vs K9: max|dy|={dy:.3e} (<= 1e-4), n_accept / n_reject / n_iters "
+          f"differ by at most {d_acc} / {d_rej} / {d_it} (<= 1 / 1 / 2) on "
+          f"{int((sol.n_iters != ref.n_iters).sum())} of {GEN_TRAJ} rows",
+          flush=True)
+
+    # a declared norm stays on the kernel: weights in [0.5, 1] measure
+    # between half the l2 error and all of it, so the solve ends at the
+    # same states within the two tolerances
+    wn = lc.WeightedNorm("l2", tuple(np.linspace(0.5, 1.0, DIM)))
+    reset_counts()
+    wsol = ensemble_solve(
+        generic_op_fn(), y0, 0.0, TF,
+        stepper=texp.Magnus4(texp.DenseCplxSplit()), adaptive=True,
+        ctl=GEN_CTL, h0=GEN_H0, time_dtype=torch.float32, error_norm=wn)
+    torch.cuda.synchronize()
+    k9w, dyw = fused_dense_chain_apply.launches, max_dy(sol, wsol)
+    assert wsol.path == "torch-driver+cuda-step", wsol.path
+    assert k9w == int(wsol.n_iters.max()) and counts() == (0, 0, 0)
+    assert int((wsol.status == DONE).sum()) == GEN_TRAJ
+    assert dyw <= 5e-4, dyw
+    print(f"[generic] under WeightedNorm(l2, weights): path={wsol.path}, K9 "
+          f"launches={k9w} == max n_iters; n_accept "
+          f"{int(wsol.n_accept.min())}..{int(wsol.n_accept.max())}, max|dy| "
+          f"vs the plain l2 solve={dyw:.3e} (<= 5e-4)", flush=True)
+
+    # two routes to one answer: the modulated Magnus-4 loop path takes the
+    # Taylor action (degree 8) in a step sequence of its own, both at
+    # rtol 1e-5
+    op = DrivenDense.make(d=DIM, seed=0).modulated(torch.float32,
+                                                   device="cuda")
+    mod = ensemble_solve(None, y0, 0.0, TF, stepper=MagnusModulated4(op),
+                         ctl=GEN_CTL, h0=GEN_H0, time_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert mod.path == "cuda-loop-persistent", mod.path
+    assert int((mod.status == DONE).sum()) == GEN_TRAJ
+    dy_mod = max_dy(sol, mod)
+    dc_mod = int((sol.n_accept - mod.n_accept).abs().max())
+    assert dy_mod <= 5e-4, dy_mod
+    print(f"[generic] vs the Magnus loop path (MagnusModulated4, "
+          f"{mod.path}) on the same y0: max|dy|={dy_mod:.3e} (<= 5e-4), "
+          f"n_accept differs by at most {dc_mod}", flush=True)
+    return k9
+
+
+def k9_flop_bytes(table, counts_s, B, D, nbytes):
+    """One K9 launch: the (D, D) products the data needs (two per
+    commutator term, five per exponent and one per squaring, from the
+    twin's counts) and a matvec per exponent; the samples, dt and x read
+    once, y and err written once."""
+    n_exp = len(table.exponents_flat)
+    flop = (chain_products(table, counts_s) * 2 * D ** 3
+            + B * n_exp * 2 * D * D)
+    return flop, nbytes * (table.n_nodes * B * D * D + 2 * B * D + 2 * B)
+
+
+def k9_timing_at(B: int, card: str):
+    """K9 per launch for the Magnus-4 pair at B x 64c f32 on the generic
+    path's samples, in turns with its twin, the stacked reference and the
+    library yardstick (matrix_exp of both chains' exponents + bmm, in
+    batches of 4096 exponents)."""
+    table = tmagnus.magnus4_table(pair=True)
+    node_ops, dt, xw = model_dense_inputs(B)
+    D = 2 * DIM
+    m, theta = dense_fast.ps_params(torch.float32)
+    kw = dict(m=m, theta=theta, max_squarings=GEN_MAX_SQUARINGS)
+    split = texp.DenseCplxSplit()
+    x = Cplx(xw[:, :DIM].contiguous(), xw[:, DIM:].contiguous())
+
+    def stacked():
+        return dense_fast.run_stacked_chains(
+            split, x, dt, node_ops, table, adaptive=True)
+
+    n_lib = 4096
+
+    def library():
+        W = torch.cat([w for chain in table.exponents(node_ops, dt)
+                       for w in chain])
+        xs = xw.repeat(2, 1)[:, :, None]
+        return torch.cat([torch.bmm(torch.linalg.matrix_exp(a), v)
+                          for a, v in zip(W.split(n_lib), xs.split(n_lib))])
+
+    counts_s = []
+    torch_dense_chains(table, node_ops, dt, xw, counts=counts_s, **kw)
+    y_k9, _ = fused_dense_chain_apply(table, node_ops, dt, xw, **kw)
+    y_st, _ = stacked()
+    y_lib = library()[:B, :, 0]
+    torch.cuda.synchronize()
+    d_st = float((torch.cat([y_st.re, y_st.im], 1) - y_k9).abs().max())
+    d_lib = float((y_lib - y_k9).abs().max())
+    assert d_st <= 1e-5 and d_lib <= 1e-5, (d_st, d_lib)
+    inner = max(1, min(10, 8192 // B))
+    runs = {"kernel": [], "plain": [], "stacked": [], "library": []}
+    for _ in range(3):  # in turns
+        runs["kernel"].append(timed_ms(lambda: fused_dense_chain_apply(
+            table, node_ops, dt, xw, **kw), reps=1, inner=inner))
+        runs["plain"].append(timed_ms(lambda: torch_dense_chains(
+            table, node_ops, dt, xw, **kw), reps=1, inner=inner))
+        runs["stacked"].append(timed_ms(stacked, reps=1, inner=inner))
+        runs["library"].append(timed_ms(library, reps=1, inner=inner))
+    k_ms, p_ms, s_ms, l_ms = (statistics.median(runs[k]) for k in runs)
+    # what torch.matmul reaches on B such products, FP32 without TF32
+    mm_ms = timed_ms(lambda: node_ops[0] @ node_ops[1], reps=3, inner=inner)
+    flop, nbytes = k9_flop_bytes(table, counts_s, B, D, 4)
+    b_ms, b_by = bound(flop, nbytes)
+    sq = sum(int(s.sum()) for s in counts_s)
+    print(f"[time] K9 one Magnus-4 pair step at B={B}, d={DIM}, f32 "
+          f"({chain_products(table, counts_s)} products of {D}^3, {sq} of "
+          f"them squarings): kernel {k_ms:.4f} ms "
+          f"({flop / k_ms / 1e9:.2f} TFLOP/s), plain twin {p_ms:.4f} ms, "
+          f"stacked reference (exponents, batched expm, matvecs) "
+          f"{s_ms:.4f} ms (max|y - y_K9|={d_st:.2e}), library (matrix_exp + "
+          f"bmm of both chains) {l_ms:.4f} ms (max|y - y_K9|={d_lib:.2e}); "
+          f"runs " + ", ".join(f"{k} {[round(v, 4) for v in r]}"
+                               for k, r in runs.items())
+          + f"; bound {b_ms:.4f} ms by {b_by} ({flop / 1e9:.2f} GFLOP, "
+          f"{nbytes / 1e6:.1f} MB), kernel at {b_ms / k_ms:.1%} of it; "
+          f"torch.matmul on {B} products of {D}^3 {mm_ms:.4f} ms "
+          f"({B * 2 * D ** 3 / mm_ms / 1e9:.2f} TFLOP/s) ({card})",
+          flush=True)
+    return k_ms, p_ms, b_ms, b_by, l_ms
+
+
+def k9_timing_phase(card: str):
+    """K9 per launch, and the generic path's solve beside its stacked
+    reference, at the path's 4096 trajectories and at the 256 of the JAX
+    package's record."""
+    out = k9_timing_at(GEN_TRAJ, card)
+    k9_timing_at(GEN_SMALL, card)
+    for n in (GEN_TRAJ, GEN_SMALL):
+        _, y0 = main_inputs(n)
+        for fn, name in ((generic_solve, "K9 per iteration"),
+                         (stacked_generic_solve, "stacked reference")):
+            timed_solve(lambda: fn(y0),
+                        f"generic path {n}x{DIM}c f32 Magnus4, {name}", card)
+    return out
 
 
 def main() -> None:
@@ -1222,15 +1644,18 @@ def main() -> None:
     k2_err = loop_kernel_phase()
     k4_err = chain_step_phase()
     k5_err = chain_loop_kernel_phase()
+    k9_err = dense_chain_phase()
     k1_launches = main_path_phase(card)
     k2_launches = loop_path_phase(card)
     k5_launches, loop_sol = magnus_loop_path_phase()
     k4_launches = magnus_step_path_phase(loop_sol)
     lz_path_phase()
+    k9_launches = generic_path_phase()
     k1 = timing_phase(card)
     k2 = loop_timing_phase(card)
     k4 = k4_timing_phase(card)
     k5 = k5_timing_phase(card)
+    k9 = k9_timing_phase(card)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     rows = []
@@ -1239,7 +1664,8 @@ def main() -> None:
             ("fused_loop", k2_launches, k2_err, k2),
             ("rk_step_tile", k2_launches, k2_err, k2),
             ("fused_chain_apply", k4_launches, k4_err, k4),
-            ("chain_step_tile", k5_launches, k5_err, k5)):
+            ("chain_step_tile", k5_launches, k5_err, k5),
+            ("fused_dense_chain_apply", k9_launches, k9_err, k9)):
         source, replaces = KERNELS[name]
         rows.append({
             "name": name, "route": "cuda", "source": source,

@@ -1,8 +1,9 @@
 """The hand-written CUDA kernels of the port against their plain torch
 twins, on a CUDA card: the step kernel (K1) with and without a declared
 norm, the whole-loop kernel (K2) with its RK step (K3) and its chain step
-(K5) and fixed-step mode, and the chain kernel (K4). Every test here carries the
-``cuda`` marker and skips without a card. The file imports no jax, so on
+(K5) and fixed-step mode, the chain kernel (K4), and the per-trajectory
+dense chain kernel (K9) with the generic exponential path over it. Every
+test here carries the ``cuda`` marker and skips without a card. The file imports no jax, so on
 a machine with a card but without jax it runs as
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -17,11 +18,13 @@ import torch
 import chip_smoke
 from chip_smoke import err_norm_limit
 from vec_ode_tpu_torch import DONE, StepControl, lc, tableaus as ttab
+from vec_ode_tpu_torch import exp as texp
 from vec_ode_tpu_torch.exp import (CoeffForm, MagnusModulated4,
                                    MidpointModulated, ModulatedOperator)
 from vec_ode_tpu_torch.models import DrivenDense
 from vec_ode_tpu_torch.ops.expmv import fused_chain_apply
 from vec_ode_tpu_torch.ops.cplx import Cplx, from_complex
+from vec_ode_tpu_torch.ops.dense_chains import fused_dense_chain_apply
 from vec_ode_tpu_torch.ops.fused_loop import fused_loop_chunk
 from vec_ode_tpu_torch.ops.fused_rk import (MAX_WIDTH,
                                             FusedModulatedLinearRK,
@@ -460,3 +463,172 @@ def test_chain_wrapper_refuses_what_the_kernel_does_not_take(card):
         fused_chain_apply(g4, dt, xw, mt, norms, **kw)
     with pytest.raises(ValueError, match="samples"):
         fused_chain_apply(samples[:1], dt, xw, mt, norms, **kw)
+
+
+# -- the per-trajectory dense chain kernel (K9) and the generic path --------
+
+@pytest.mark.parametrize("dtype,B,D", [(torch.float64, 300, 8),
+                                       (torch.float64, 140, 128),
+                                       (torch.float32, 300, 128),
+                                       (torch.float32, 1000, 4),
+                                       (torch.float64, 3, 1)])
+@pytest.mark.parametrize("name", list(chip_smoke.dense_tables()))
+def test_dense_chain_kernel_matches_twin(card, name, dtype, B, D):
+    """K9 against its twin to chip_smoke.check_dense's limits, with a row
+    past theta and a NaN row where the batch has them."""
+    table = chip_smoke.dense_tables()[name]
+    rows = dict(big_row=1, nan_row=2 if B > 3 else None)
+    before = fused_dense_chain_apply.launches
+    chip_smoke.check_dense(name, table,
+                           *chip_smoke.dense_inputs(table, B, D, dtype,
+                                                    **rows),
+                           nan_row=rows["nan_row"])
+    assert fused_dense_chain_apply.launches == before + 1
+
+
+def test_dense_chain_kernel_reads_strided_samples_and_is_deterministic(card):
+    """Trajectory-major and node-major samples give the same bits, and so
+    do two launches."""
+    table = chip_smoke.dense_tables()["magnus4 pair"]
+    node_ops, dt, xw = chip_smoke.dense_inputs(table, 200, 16, torch.float32)
+    kw = dict(m=12, theta=1.0)
+    y1, e1 = fused_dense_chain_apply(table, node_ops, dt, xw, **kw)
+    y2, e2 = fused_dense_chain_apply(table, node_ops, dt, xw, **kw)
+    major = node_ops.transpose(0, 1).contiguous().transpose(0, 1)
+    assert major.stride(1) > major.stride(0)
+    y3, e3 = fused_dense_chain_apply(table, major, dt, xw, **kw)
+    torch.cuda.synchronize()
+    for y, e in ((y2, e2), (y3, e3)):
+        assert torch.equal(y, y1) and torch.equal(e, e1)
+
+
+def test_dense_chain_wrapper_refuses_what_the_kernel_does_not_take(card):
+    table = chip_smoke.dense_tables()["magnus4 pair"]
+    node_ops, dt, xw = chip_smoke.dense_inputs(table, 16, 8, torch.float32)
+    kw = dict(m=12, theta=1.0)
+    fused_dense_chain_apply(table, node_ops, dt, xw, **kw)
+    with pytest.raises(TypeError):
+        fused_dense_chain_apply(table, node_ops, dt.double(), xw, **kw)
+    with pytest.raises(TypeError):
+        fused_dense_chain_apply(table, node_ops.double(), dt, xw, **kw)
+    with pytest.raises(TypeError):
+        fused_dense_chain_apply(table, node_ops.half(), dt.half(), xw.half(),
+                                **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_dense_chain_apply(table, node_ops.transpose(2, 3), dt, xw, **kw)
+    with pytest.raises(ValueError):
+        fused_dense_chain_apply(table, node_ops, dt[:8], xw, **kw)
+    with pytest.raises(ValueError, match="node_ops"):
+        fused_dense_chain_apply(table, node_ops[:1], dt, xw, **kw)
+    with pytest.raises(ValueError, match="exceeds"):
+        wide = torch.zeros(2, 2, 260, 260, device=card)
+        fused_dense_chain_apply(table, wide, dt[:2], torch.zeros(
+            2, 260, device=card), **kw)
+    with pytest.raises(ValueError, match="max_squarings"):
+        fused_dense_chain_apply(table, node_ops, dt, xw, max_squarings=65,
+                                **kw)
+
+
+@pytest.mark.parametrize("name", ["magnus4", "magnus6", "cfm4_blanes17",
+                                  "midpoint"])
+def test_generic_ensemble_on_the_card_matches_the_cpu_path_f64(card, name):
+    """ensemble_solve with a generic stepper on the card (K9 per
+    iteration) against the CPU path (its twin) in f64: the same counters,
+    states within 1e-10."""
+    make = {"magnus4": lambda **kw: texp.Magnus4(texp.DenseCplxSplit(), **kw),
+            "magnus6": lambda **kw: texp.Magnus6(texp.DenseCplxSplit(), **kw),
+            "cfm4_blanes17": lambda **kw: texp.CFM4_BLANES17(
+                texp.DenseCplxSplit(), **kw),
+            "midpoint": lambda **kw: texp.ExpMidpoint(texp.DenseCplxSplit(),
+                                                      **kw)}[name]
+    model = DrivenDense.make(d=16, seed=0)
+    psi = chip_smoke.unit_states(200, 16, torch.float64, seed=3)
+    sols = {}
+    for dev in ("cpu", card):
+        before = fused_dense_chain_apply.launches
+        sol = ensemble_solve(
+            lambda t: model.op_pair(t, torch.float64, t.device),
+            Cplx(psi.re.to(dev), psi.im.to(dev)), 0.0, 0.4, stepper=make(),
+            ctl=StepControl(rtol=1e-7, min_dt=1e-6, max_dt=0.25,
+                            max_steps=1000), h0=0.02,
+            adaptive=name != "midpoint")
+        assert bool((sol.status == DONE).all()), dev
+        launched = fused_dense_chain_apply.launches - before
+        assert launched == (int(sol.n_iters.max()) if dev == card else 0)
+        sols[dev] = sol
+    assert sols[card].path == "torch-driver+cuda-step"
+    assert sols["cpu"].path == "torch-driver"
+    for k in ("n_accept", "n_reject", "n_iters"):
+        assert torch.equal(getattr(sols[card], k).cpu(),
+                           getattr(sols["cpu"], k)), k
+    for part in ("re", "im"):
+        np.testing.assert_allclose(
+            getattr(sols[card].y_final, part).cpu().numpy(),
+            getattr(sols["cpu"].y_final, part).numpy(), rtol=0, atol=1e-10)
+
+
+def test_generic_path_stays_on_the_kernel_under_a_declared_norm(card):
+    """A declared norm takes a K9 launch per iteration like the plain l2,
+    and says so in Solution.path; the unweighted l2 declaration gives the
+    plain solve's bits, and the stacked reference agrees in f32."""
+    _, y0 = chip_smoke.main_inputs(256)
+    sols = {}
+    for key, kw in (("k9", {}), ("norm", dict(norm=lc.WeightedNorm("l2"))),
+                    ("max", dict(norm=lc.WeightedNorm(
+                        "max", tuple(np.linspace(0.5, 1.0, chip_smoke.DIM)))))):
+        before = fused_dense_chain_apply.launches
+        sols[key] = ensemble_solve(
+            chip_smoke.generic_op_fn(), y0, 0.0, 1.0,
+            stepper=texp.Magnus4(texp.DenseCplxSplit(), **kw),
+            ctl=chip_smoke.GEN_CTL, h0=chip_smoke.GEN_H0,
+            time_dtype=torch.float32)
+        launched = fused_dense_chain_apply.launches - before
+        assert launched == int(sols[key].n_iters.max())
+        assert bool((sols[key].status == DONE).all())
+        assert sols[key].path == "torch-driver+cuda-step"
+    assert torch.equal(sols["k9"].y_final.re, sols["norm"].y_final.re)
+    assert torch.equal(sols["k9"].n_iters, sols["norm"].n_iters)
+    before = fused_dense_chain_apply.launches
+    ref = chip_smoke.stacked_generic_solve(y0)
+    assert fused_dense_chain_apply.launches == before
+    assert chip_smoke.max_dy(sols["k9"], ref) <= 1e-4
+    assert chip_smoke.max_dy(sols["k9"], sols["max"]) <= 2e-3
+
+
+@pytest.mark.parametrize("dtype,B,D", [(torch.float64, 300, 8),
+                                       (torch.float64, 140, 128),
+                                       (torch.float32, 300, 128),
+                                       (torch.float32, 1000, 4)])
+@pytest.mark.parametrize("kind,weights", [("l2", True), ("rms", False),
+                                          ("rms", True), ("max", False),
+                                          ("max", True)])
+def test_dense_chain_kernel_declared_norm_matches_twin(card, kind, weights,
+                                                       dtype, B, D):
+    """K9's error under each declared norm against its twin, with a row
+    past theta and a NaN row."""
+    table = chip_smoke.dense_tables()["magnus4 pair"]
+    chip_smoke.check_dense(
+        f"norm {kind}", table,
+        *chip_smoke.dense_inputs(table, B, D, dtype, big_row=1, nan_row=2),
+        nan_row=2, wnorm=chip_smoke.weighted(kind, D // 2, weights))
+
+
+def test_dense_chain_wrapper_refuses_misaligned_samples(card):
+    """Where the kernel reads in 16-byte vectors (D a multiple of 128), an
+    offset or a stride off that grid raises before the launch; at other D
+    the same view runs."""
+    table = chip_smoke.dense_tables()["magnus4 pair"]
+    kw = dict(m=12, theta=1.0)
+    for D, refuses in ((128, True), (8, False)):
+        node_ops, dt, xw = chip_smoke.dense_inputs(table, 6, D, torch.float32)
+        flat = torch.zeros(2, 6, D * D + 1, device=card)
+        flat[..., 1:] = node_ops.reshape(2, 6, -1)
+        off = flat[..., 1:].unflatten(-1, (D, D))
+        assert off.stride(2) == D and off.stride(3) == 1
+        if refuses:
+            with pytest.raises(ValueError, match="16 bytes"):
+                fused_dense_chain_apply(table, off, dt, xw, **kw)
+        else:
+            y, e = fused_dense_chain_apply(table, off, dt, xw, **kw)
+            y0, e0 = fused_dense_chain_apply(table, node_ops, dt, xw, **kw)
+            assert torch.equal(y, y0) and torch.equal(e, e0)

@@ -18,6 +18,7 @@ from vec_ode_tpu.parallel import ensemble_solve as jax_ensemble_solve
 from vec_ode_tpu.utils import oracle
 import vec_ode_tpu_torch as vt
 from vec_ode_tpu_torch import convert
+from vec_ode_tpu_torch import exp as texp
 from vec_ode_tpu_torch.parallel import ensemble_solve
 
 torch.set_num_threads(1)
@@ -129,6 +130,8 @@ def test_zero_length_interval_is_done_immediately():
 @pytest.mark.parametrize("kw", [
     dict(h0=1e-9), dict(h0=0.5), dict(h0=float("nan")),
     dict(save_at=(0.5, 0.25)), dict(save_at=(1.5,)),
+    # this stepper embeds its operator: no per-trajectory params (as in JAX)
+    dict(params=np.ones(2)),
 ])
 def test_bad_inputs_raise_value_error(kw):
     _, M0, M1, psi = _problem(2, d=3)
@@ -142,7 +145,9 @@ def test_bad_inputs_raise_value_error(kw):
 
 @pytest.mark.parametrize("kw", [
     dict(stepper=None), dict(mesh=object()), dict(method="scan"),
-    dict(params=np.ones(2)), dict(events=object()), dict(dense=True),
+    # the vmapped tier: a generic exponential stepper asked not to batch
+    dict(stepper=texp.Magnus4(texp.DenseCplxSplit(), batched=False)),
+    dict(events=object()), dict(dense=True),
     dict(error_norm=lambda e: e),
 ])
 def test_unported_options_raise_not_implemented(kw):

@@ -15,11 +15,21 @@ torch.set_num_threads(1)
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "vec_ode_tpu_torch"
 
-PROBE = """
+# the modules of the generic exponential path, beside the earlier ones
+MODULES = ["ops.expm", "ops.dense_chains", "ops.cplx", "ops.expmv",
+           "ops.fused_rk", "ops.fused_loop", "exp.protocol", "exp.leaves",
+           "exp.dense_fast", "exp.magnus", "exp.cfm", "exp.split_solvers",
+           "exp.modulated", "models.quantum", "parallel.ensemble", "convert"]
+
+PROBE = f"MODULES = {MODULES!r}" + """
 import importlib, pkgutil, sys
 import vec_ode_tpu_torch as pkg
-for m in pkgutil.walk_packages(pkg.__path__, "vec_ode_tpu_torch."):
-    importlib.import_module(m.name)
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                               "vec_ode_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+for name in MODULES:
+    assert "vec_ode_tpu_torch." + name in names, name
 from vec_ode_tpu_torch.ops import _build
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "vec_ode_tpu"))
@@ -39,6 +49,8 @@ def test_sources_name_no_jax_import():
                          r"(?!_torch)", re.M)
     sources = sorted(PKG.rglob("*.py"))
     assert len(sources) >= 10
+    for name in MODULES:
+        assert PKG / (name.replace(".", "/") + ".py") in sources, name
     sources += [ROOT / "chip_smoke.py", ROOT / "tools" / "profile_solve.py"]
     for path in sources:
         assert not pattern.search(path.read_text()), path

@@ -1,7 +1,8 @@
 """The declared error norm of the port (``vec_ode_tpu_torch.lc``) against
 the JAX package's ``vec_ode_tpu.lc``: ``WeightedNorm`` (l2 / rms / max,
 with and without weights) on Cplx and plain states, ``kernel_parts`` and
-``apply_weighted_norm``, in f64 on the same numpy inputs."""
+``apply_weighted_norm``, and the vector-space helpers (scale, add, sub,
+lincomb), in f64 on the same numpy inputs."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -94,3 +95,45 @@ def test_rejections():
     assert lc.WeightedNorm("max", np.asarray(WEIGHTS)) == lc.WeightedNorm(
         "max", list(WEIGHTS))
     assert len({lc.WeightedNorm("l2"), lc.WeightedNorm("l2")}) == 1
+
+
+LC_OPS = {
+    "scale_float": lambda m, a, b, k: m.scale(a, 0.3),
+    "scale_scalar_tensor": lambda m, a, b, k: m.scale(a, k(0.3)),
+    "scale_batched": lambda m, a, b, k: m.scale(a, k(np.linspace(0.1, 2, B))),
+    "add": lambda m, a, b, k: m.add(a, b),
+    "sub": lambda m, a, b, k: m.sub(a, b),
+    "lincomb": lambda m, a, b, k: m.lincomb([a, b, a], [0.4, -1.3, 2.0]),
+    "lincomb_batched": lambda m, a, b, k: m.lincomb(
+        [a, b], [k(np.linspace(0.1, 2, B)), 0.5]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LC_OPS))
+def test_vector_space_ops_match_jax(name):
+    """scale / add / sub / lincomb on Cplx states; a batched coefficient
+    scales per trajectory and a tensor coefficient never widens the
+    state."""
+    (re, im), (re2, im2) = _errs(), _errs(3)
+    ta = Cplx(torch.as_tensor(re), torch.as_tensor(im))
+    tb = Cplx(torch.as_tensor(re2), torch.as_tensor(im2))
+    ja = jcp.Cplx(jnp.asarray(re), jnp.asarray(im))
+    jb = jcp.Cplx(jnp.asarray(re2), jnp.asarray(im2))
+    got = LC_OPS[name](lc, ta, tb, lambda v: torch.as_tensor(
+        v, dtype=torch.float64))
+    want = LC_OPS[name](jlc, ja, jb, jnp.asarray)
+    assert isinstance(got, Cplx)
+    np.testing.assert_allclose(got.re.numpy(), np.asarray(want.re),
+                               rtol=1e-15)
+    np.testing.assert_allclose(got.im.numpy(), np.asarray(want.im),
+                               rtol=1e-15)
+
+
+def test_vector_space_ops_keep_the_state_dtype_and_check_lengths():
+    x = torch.ones(B, D, dtype=torch.float32)
+    assert lc.scale(x, torch.tensor(0.5, dtype=torch.float64)).dtype \
+        == torch.float32
+    with pytest.raises(ValueError):
+        lc.lincomb([], [])
+    with pytest.raises(ValueError):
+        lc.lincomb([x], [1.0, 2.0])

@@ -1,4 +1,5 @@
-"""The port's Butcher tableaus equal the JAX package's, entry for entry."""
+"""The port's Butcher tableaus, quadrature nodes and commutator-free Magnus
+coefficient tables equal the JAX package's, entry for entry."""
 
 import dataclasses
 
@@ -33,3 +34,12 @@ def test_tableau_equal(name):
             assert b == a, field.name
     assert got.stages == want.stages
     assert got.is_fsal == want.is_fsal
+
+
+@pytest.mark.parametrize("name", ["C_GAUSS_LEGENDRE_4", "C_GAUSS_LEGENDRE_6",
+                                  "CFM_R2_J1_GL", "CFM_R4_J2_GL",
+                                  "BLANES17_R4_J4"])
+def test_quadrature_and_cfm_tables_equal(name):
+    want, got = getattr(jt, name), getattr(tt, name)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)

@@ -1,14 +1,17 @@
 """vec_ode_tpu_torch: the PyTorch / CUDA port of vec_ode_tpu.
 
 Grows beside the JAX package, which stays the reference. So far it runs
-two ensemble paths through ``parallel.ensemble_solve``: the adaptive
+three ensemble paths through ``parallel.ensemble_solve``: the adaptive
 embedded-RK stepper ``ops.fused_rk.FusedModulatedLinearRK`` (dx/dt =
-(M0 + cos(wt) M1) x with shared matrices), and the modulated exponential
+(M0 + cos(wt) M1) x with shared matrices), the modulated exponential
 steppers ``exp.MidpointModulated`` / ``exp.MagnusModulated4`` (A(t) =
-sum_k c_k(t) M_k). On CUDA tensors they run hand-written kernels
-(``csrc/``): a step kernel per driver iteration, or the whole loop in one
-launch; on CPU tensors the plain torch twins run. This package imports
-neither jax nor vec_ode_tpu.
+sum_k c_k(t) M_k), and the generic exponential steppers
+(``exp.ExpMidpoint``, ``Magnus4``, ``Magnus6``, ``CFM4``,
+``CFM4_BLANES17``, ``SplitMidpoint``, ``SplitCFM``) with a black-box
+operator callback over ``exp.DenseSplit`` / ``exp.DenseCplxSplit``. On
+CUDA tensors they run hand-written kernels (``csrc/``): a step kernel per
+driver iteration, or the whole loop in one launch; on CPU tensors the
+plain torch twins run. This package imports neither jax nor vec_ode_tpu.
 """
 
 from . import (controller, convert, driver, exp, lc, models, ops, parallel,

@@ -48,6 +48,26 @@ def modulated_from_numpy(basis_re, basis_im, form: CoeffForm, *,
         ext_basis=None if ext_basis_w is None else tensor(ext_basis_w))
 
 
+def driven_op_from_numpy(H0, V, w, *, dtype=torch.float64, device="cuda"):
+    """The generic steppers' ``op_fn(t) -> Cplx`` for A(t) = -i (H0 +
+    cos(w t) V) from the JAX model's numpy ``H0``, ``V`` (complex (d, d))
+    and ``w`` (``vec_ode_tpu.models.DrivenDense``), as
+    ``DrivenDense.op_pair`` assembles it: -i (Hr + i Hi) = (Hi, -Hr), the
+    cosine taken in ``dtype``. H0 and V are put on ``device`` (the card
+    unless it names another) once; the callable runs under
+    ``torch.func.vmap``."""
+    H0 = state_from_numpy(np.real(H0), np.imag(H0), device=device,
+                          dtype=dtype)
+    V = state_from_numpy(np.real(V), np.imag(V), device=device, dtype=dtype)
+    w = float(w)
+
+    def op_fn(t):
+        c = torch.cos(w * t.to(dtype))
+        return Cplx(H0.im + c * V.im, -(H0.re + c * V.re))
+
+    return op_fn
+
+
 def state_from_numpy(re, im, *, device="cuda",
                      dtype=torch.float64) -> Cplx:
     """A Cplx state from numpy (re, im) parts, on the card unless

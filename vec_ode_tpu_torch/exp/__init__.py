@@ -1,13 +1,46 @@
-"""Exponential integrators (the modulated-operator fast path of
-``vec_ode_tpu/exp``)."""
+"""Exponential integrators, the counterpart of ``vec_ode_tpu/exp``: the
+modulated-operator fast path, and the generic steppers (Magnus, CFM, split
+solvers) over the split leaves."""
 
+from .cfm import CFM, CFM4, CFM4_BLANES17, cfm_exp, cfm_step
+from .leaves import (AntiHermitianCplxSplit, AntiHermitianSplit,
+                     DenseCplxSplit, DenseSplit, DiagonalCplxSplit,
+                     DiagonalSplit)
+from .magnus import (ExpMidpoint, Magnus4, Magnus6, magnus4_step,
+                     magnus6_step, midpoint_step)
 from .modulated import (CoeffForm, MagnusModulated4, MidpointModulated,
                         ModulatedOperator, modulated_exp_apply)
+from .protocol import ExponentialSplit, index_u
+from .split_solvers import (SplitCFM, SplitMidpoint, split_cfm_step,
+                            split_midpoint_step)
 
 __all__ = [
+    "AntiHermitianCplxSplit",
+    "AntiHermitianSplit",
+    "CFM",
+    "CFM4",
+    "CFM4_BLANES17",
     "CoeffForm",
+    "DenseCplxSplit",
+    "DenseSplit",
+    "DiagonalCplxSplit",
+    "DiagonalSplit",
+    "ExpMidpoint",
+    "ExponentialSplit",
+    "Magnus4",
+    "Magnus6",
     "MagnusModulated4",
     "MidpointModulated",
     "ModulatedOperator",
+    "SplitCFM",
+    "SplitMidpoint",
+    "cfm_exp",
+    "cfm_step",
+    "index_u",
+    "magnus4_step",
+    "magnus6_step",
+    "midpoint_step",
     "modulated_exp_apply",
+    "split_cfm_step",
+    "split_midpoint_step",
 ]

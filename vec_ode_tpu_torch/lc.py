@@ -1,6 +1,7 @@
-"""Vector-space helpers over states that are tensors or ``Cplx`` pairs, and
-the declared error norm ``WeightedNorm`` (the parts of
-``vec_ode_tpu/lc.py`` the batched driver and the kernels use)."""
+"""Vector-space helpers over states that are tensors or ``Cplx`` pairs
+(scale, add, sub, lincomb, norms, ``tree_where``) and the declared error
+norm ``WeightedNorm`` (the parts of ``vec_ode_tpu/lc.py`` the batched
+driver, the exponential steppers and the kernels use)."""
 
 from __future__ import annotations
 
@@ -11,6 +12,52 @@ from typing import Any
 import numpy as np
 import torch
 from torch.utils import _pytree as pytree
+
+
+def _match_scalar(k, leaf):
+    """A coefficient aligned with a leaf: python scalars pass through; a
+    tensor is cast to the leaf's dtype (an f64 time step never widens an
+    f32 state) and a batched one (leading batch axes only) gets trailing
+    axes so that it scales per trajectory."""
+    if isinstance(k, (int, float, complex)):
+        return k
+    k = torch.as_tensor(k, device=leaf.device)
+    if k.dtype != leaf.dtype:
+        k = k.to(leaf.dtype)
+    if 0 < k.ndim < leaf.ndim:
+        k = k.reshape(k.shape + (1,) * (leaf.ndim - k.ndim))
+    return k
+
+
+def scale(v, k):
+    """k * v."""
+    return pytree.tree_map(lambda a: a * _match_scalar(k, a), v)
+
+
+def add(v, u):
+    """v + u."""
+    return pytree.tree_map(torch.add, v, u)
+
+
+def sub(v, u):
+    """v - u."""
+    return pytree.tree_map(torch.sub, v, u)
+
+
+def lincomb(vs, ks):
+    """sum_i ks[i] * vs[i] over same-structure pytrees, summed in order."""
+    if len(vs) == 0 or len(ks) == 0:
+        raise ValueError("lincomb: sequences cannot be empty")
+    if len(vs) != len(ks):
+        raise ValueError("lincomb: sequences must be the same length")
+
+    def leaf_comb(*leaves):
+        acc = leaves[0] * _match_scalar(ks[0], leaves[0])
+        for k, leaf in zip(ks[1:], leaves[1:]):
+            acc = acc + _match_scalar(k, leaf) * leaf
+        return acc
+
+    return pytree.tree_map(leaf_comb, *vs)
 
 
 def norm_l2(v) -> torch.Tensor:

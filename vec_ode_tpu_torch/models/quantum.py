@@ -60,6 +60,10 @@ class DrivenDense:
     V: np.ndarray
     w: float = 1.0
 
+    def __post_init__(self):
+        # op_pair's operators by (dtype, device), made at first use
+        object.__setattr__(self, "_op_fns", {})
+
     @staticmethod
     def make(d: int = 64, seed: int = 0, w: float = 1.0):
         rng = np.random.default_rng(seed)
@@ -69,6 +73,34 @@ class DrivenDense:
         V = (N + N.conj().T) / (2 * math.sqrt(d))
         return DrivenDense(H0=H0, V=V, w=w)
 
+    @staticmethod
+    def _time_on(t, device) -> torch.Tensor:
+        """A time on ``device``: a python number is created there as
+        float64; a tensor must already lie there."""
+        device = torch.device(device)
+        if not isinstance(t, torch.Tensor):
+            return torch.tensor(t, dtype=torch.float64, device=device)
+        if t.device.type != device.type or (
+                device.index is not None and t.device.index != device.index):
+            raise ValueError(
+                f"DrivenDense: t lies on {t.device}, the operator was asked "
+                f"for on {device}; pass device={str(t.device)!r}")
+        return t
+
+    def hamiltonian(self, t, dtype=torch.complex128,
+                    device="cuda") -> torch.Tensor:
+        """H(t) = H0 + cos(w t) V as a complex tensor, the cosine taken in
+        float64, on the card unless ``device`` names another."""
+        td = self._time_on(t, device).to(torch.float64)
+        c = torch.cos(self.w * td).to(dtype)
+        return (torch.as_tensor(self.H0, dtype=dtype, device=td.device)
+                + c * torch.as_tensor(self.V, dtype=dtype, device=td.device))
+
+    def op(self, t, device="cuda") -> torch.Tensor:
+        """A(t) = -i H(t), complex128, on the card unless ``device`` names
+        another."""
+        return -1j * self.hamiltonian(t, device=device)
+
     def pair_parts(self, dtype=torch.float32, device="cuda"):
         """(H0, V) as Cplx pairs in the given real dtype, on the card
         unless ``device`` names another."""
@@ -76,6 +108,21 @@ class DrivenDense:
 
         return (from_complex(self.H0, dtype, device=device),
                 from_complex(self.V, dtype, device=device))
+
+    def op_pair(self, t, dtype=torch.float32, device="cuda"):
+        """A(t) = -i H(t) as a Cplx pair, -i (Hr + i Hi) = (Hi, -Hr), the
+        cosine taken in ``dtype``, on the card unless ``device`` names
+        another. Callable under ``torch.func.vmap``: the generic steppers'
+        ``op_fn``. H0 and V go to the device once per (dtype, device) and
+        stay there."""
+        from ..convert import driven_op_from_numpy
+
+        t = self._time_on(t, device)
+        key = (dtype, t.device)
+        if key not in self._op_fns:
+            self._op_fns[key] = driven_op_from_numpy(
+                self.H0, self.V, self.w, dtype=dtype, device=t.device)
+        return self._op_fns[key](t)
 
     def modulated(self, dtype=torch.float32, device="cuda"):
         """A(t) = -i H0 + cos(w t) (-i V) as a ModulatedOperator with the

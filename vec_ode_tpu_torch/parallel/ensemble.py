@@ -61,7 +61,16 @@ def ensemble_solve(
     """Integrate a batch of independent trajectories (leading axis of every
     leaf of ``y0_batch``) with a natively batched ``stepper``
     (``ops.fused_rk.FusedModulatedLinearRK``, ``exp.MidpointModulated``,
-    ``exp.MagnusModulated4``), on ``y0_batch``'s device.
+    ``exp.MagnusModulated4``, or a generic exponential stepper over a
+    dense leaf: ``exp.ExpMidpoint``, ``Magnus4``, ``Magnus6``, ``CFM``,
+    ``SplitMidpoint``, ``SplitCFM``), on ``y0_batch``'s device.
+
+    ``rhs_or_op`` is the generic steppers' operator assembly ``op_fn(t)``
+    for ONE trajectory (scalar time in, operator out; the steppers vmap it
+    over the batch), or None for a stepper that embeds its operator. With
+    ``params`` (a pytree with the same leading batch axis) the signature
+    becomes ``op_fn(t, p)``, so an ensemble can sweep model parameters;
+    only steppers with ``supports_batched_params`` take it.
 
     The stepper's ``fused_loop_solve`` runs the whole loop (adaptive, or
     fixed steps with ``adaptive=False``) in one launch of the CUDA loop
@@ -82,10 +91,12 @@ def ensemble_solve(
     if stepper is None or not getattr(stepper, "is_batched", False):
         raise NotImplementedError(
             "only natively batched steppers are ported "
-            "(FusedModulatedLinearRK, MidpointModulated, MagnusModulated4); "
-            "the generic RungeKutta tier is ROADMAP queue 1, items 6 and 9, "
-            "MagnusModulated6 and CFMModulated slice 4b (queue 1 item 16), "
-            "the generic exponential steppers slice 5")
+            "(FusedModulatedLinearRK, MidpointModulated, MagnusModulated4, "
+            "and the generic exponential steppers over DenseSplit / "
+            "DenseCplxSplit); the vmapped tier (the generic RungeKutta "
+            "stepper, exponential steppers with batched=False or over "
+            "another split) is ROADMAP queue 1, items 6 and 9, "
+            "MagnusModulated6 and CFMModulated slice 4b (queue 1 item 16)")
     if mesh is not None:
         raise NotImplementedError(
             "mesh=: sharded ensembles are ROADMAP slice 7, queue 1 item 27")
@@ -93,10 +104,11 @@ def ensemble_solve(
         raise NotImplementedError(
             f"method={method!r}: the scan driver is ROADMAP slice 6, "
             "queue 1 item 22")
-    if params is not None:
-        raise NotImplementedError(
-            "params=: per-trajectory parameters arrive with the vmapped "
-            "tier, ROADMAP queue 1 item 9")
+    if params is not None and not getattr(stepper, "supports_batched_params",
+                                          False):
+        raise ValueError(
+            "params is unsupported for this natively batched stepper (it "
+            "embeds its own operator)")
     if events is not None:
         raise NotImplementedError(
             "events=: events (in the driver and in the loop kernel) are "
@@ -130,12 +142,21 @@ def ensemble_solve(
         if sol is not None:
             return sol
     if ctl.scaled_error:
+        if fused is None and getattr(stepper, "auto_batched", False):
+            # the JAX package runs this call on the vmapped path, where
+            # the driver holds the error vector
+            raise NotImplementedError(
+                "scaled_error with an auto-batched generic exponential "
+                "stepper runs on the vmapped tier, ROADMAP queue 1 item 9")
         raise ValueError(
             "scaled_error with a norm-returning stepper requires the fused "
             "loop kernel, which did not engage for this configuration (see "
             "the stepper's fused_loop_solve: e.g. the time dtype must be "
             "the state's)")
-    step_fn = stepper.make_step_fn(rhs_or_op)
+    if params is None:
+        step_fn = stepper.make_step_fn(rhs_or_op)
+    else:
+        step_fn = stepper.make_step_fn(rhs_or_op, params=params)
     sol = integrate(step_fn, y0_batch, t_grid, h0, adaptive=adaptive,
                     ctl=ctl, error_norm=stepper.error_norm,
                     batch_shape=(b,))

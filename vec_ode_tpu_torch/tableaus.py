@@ -13,6 +13,7 @@ unpacked.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
@@ -237,3 +238,32 @@ TABLEAUS = {
         DOPRI5, BOSH32, CASH_KARP,
     ]
 }
+
+
+# --- Gauss-Legendre quadrature nodes ------------------------------------------
+# 2-node Gauss-Legendre on [0, 1]: 1/2 -/+ 1/(2 sqrt(3)).
+C_GAUSS_LEGENDRE_4 = np.array(
+    [0.5 - 0.5 / math.sqrt(3.0), 0.5 + 0.5 / math.sqrt(3.0)], dtype=np.float64
+)
+
+# 3-node Gauss-Legendre on [0, 1].
+C_GAUSS_LEGENDRE_6 = np.array(
+    [0.5 - 0.5 * math.sqrt(3.0 / 5.0), 0.5, 0.5 + 0.5 * math.sqrt(3.0 / 5.0)],
+    dtype=np.float64,
+)
+
+# --- Commutator-free Magnus coefficient matrices -------------------------------
+# Rows = exponentials, columns = Gauss-Legendre samples of A(t).
+CFM_R2_J1_GL = np.array([[0.5, 0.5]], dtype=np.float64)               # 1 exp, order 2
+CFM_R4_J2_GL = np.array(                                              # 2 exps, order 4
+    [[0.53867513459481288225, -0.038675134594812882255],
+     [-0.038675134594812882255, 0.53867513459481288225]],
+    dtype=np.float64,
+)
+BLANES17_R4_J4 = np.array(                                            # 4 exps, order 4
+    [[0.2463347584748155, -0.0469610812011527, 0.0119511881315244],
+     [0.0622500005170514, 0.2691833034233750, -0.0427581693456134],
+     [-0.0427581693456134, 0.2691833034233750, 0.0622500005170514],
+     [0.0119511881315244, -0.0469610812011527, 0.2463347584748155]],
+    dtype=np.float64,
+)
