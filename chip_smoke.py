@@ -53,6 +53,7 @@ import time
 import numpy as np
 import torch
 
+from vec_ode_tpu_torch import diff as tdiff
 from vec_ode_tpu_torch import (DONE, DOPRI5, ERR_MAX_STEPS, ERR_STALLED,
                                RKF45, StepControl, driver, lc)
 from vec_ode_tpu_torch import tableaus as ttab
@@ -63,7 +64,8 @@ from vec_ode_tpu_torch.exp import dense_fast
 from vec_ode_tpu_torch.exp import magnus as tmagnus
 from vec_ode_tpu_torch.exp import split_solvers as tsplit
 from vec_ode_tpu_torch.exp.modulated import _taylor_params
-from vec_ode_tpu_torch.models import DrivenDense, LandauZener
+from vec_ode_tpu_torch.models import DrivenDense, LandauZener, PulseControl
+from vec_ode_tpu_torch.ops import adjoint as tadj
 from vec_ode_tpu_torch.ops import (_build, dense_chains, expmv, fused_loop,
                                    fused_rk)
 from vec_ode_tpu_torch.ops.cplx import Cplx, embed, from_complex
@@ -85,7 +87,7 @@ LOOP_TRAJ = 2048             # fused_loop.LOOP_MAX_BATCH
 SAVE_AT = tuple(round(0.1 * k, 10) for k in range(1, 10))
 CTL = StepControl(rtol=1e-8, min_dt=1e-6, max_dt=0.25)
 H0, TF = 1e-3, 1.0
-# K1-K5, K9: the CUDA source of each and the TPU kernel it replaces. K3 and K5
+# K1-K9: the CUDA source of each and the TPU kernel it replaces. K3 and K5
 # are the steps inside K2 (device functions compiled into fused_loop.cu);
 # their rows carry the loop kernel's numbers on the path each step drives
 KERNELS = {
@@ -101,6 +103,12 @@ KERNELS = {
                         "vec_ode_tpu/ops/pallas_loop.py:680"),
     "fused_dense_chain_apply": ("vec_ode_tpu_torch/csrc/dense_chains.cu",
                                 "vec_ode_tpu/ops/pallas_dense.py:121"),
+    "adjoint_bwd": ("vec_ode_tpu_torch/csrc/adjoint.cu",
+                    "vec_ode_tpu/ops/pallas_expmv.py:420"),
+    "adjoint_sweep_fwd": ("vec_ode_tpu_torch/csrc/adjoint.cu",
+                          "vec_ode_tpu/ops/pallas_expmv.py:507"),
+    "adjoint_sweep_bwd": ("vec_ode_tpu_torch/csrc/adjoint.cu",
+                          "vec_ode_tpu/ops/pallas_expmv.py:582"),
 }
 # the card's published peaks (H100 SXM, dense, at 700 W): FP32 outside
 # the tensor cores (no TF32 may enter an error estimate), and HBM
@@ -133,12 +141,15 @@ def ptxas_summary(name: str) -> str:
         return "no build log"
     out, inst = [], None
     for line in log.read_text().splitlines():
-        m = re.search(r"Compiling entry function '\S*?_kernelI([fd])(\S*)'",
-                      line)
+        m = re.search(r"Compiling entry function "
+                      r"'\S*?([a-z_]+?)_kernelI([fd])(\S*)'", line)
         if m:
-            inst, spill = {"f": "f32", "d": "f64"}[m.group(1)], "?"
-            kp = re.match(r"(?:\w*ChainLoopStepI[fd])?Li(\d+)E", m.group(2))
-            if "RKLoopStep" in m.group(2):
+            inst, spill = {"f": "f32", "d": "f64"}[m.group(2)], "?"
+            if name == "adjoint":  # three kernels, narrow and wide blocks
+                inst = f"{m.group(1)} {inst}" + (" wide" if "Lb1E" in
+                                                 m.group(3) else "")
+            kp = re.match(r"(?:\w*ChainLoopStepI[fd])?Li(\d+)E", m.group(3))
+            if "RKLoopStep" in m.group(3):
                 inst += " rk"
             elif kp:
                 inst += f" KP={kp.group(1)}"
@@ -160,6 +171,7 @@ def build_phase(card: str) -> None:
     fused_loop._kernel_lib()
     expmv._kernel_lib()
     dense_chains._kernel_lib()
+    tadj._kernel_lib()
     for name in _build.SOURCES:
         print(f"[build] {name} {'(cached) ' if cached[name] else ''}"
               f"{ready[name]:.2f} s, nvcc per source started together; "
@@ -437,6 +449,9 @@ def reset_counts() -> None:
     fused_loop_chunk.launches = 0
     fused_chain_apply.launches = 0
     fused_dense_chain_apply.launches = 0
+    tadj.adjoint_bwd.launches = 0
+    tadj.adjoint_sweep_fwd.launches = 0
+    tadj.adjoint_sweep_bwd.launches = 0
 
 
 def counts() -> tuple:
@@ -1635,6 +1650,579 @@ def k9_timing_phase(card: str):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The reversible adjoint (K6, K7, K8) on the JAX package's own adjoint
+# configuration (benchmarks.py:741-781): PulseControl.make(d=64, seed=0,
+# T=1.0, n_modes=6), so D = 128 widened and K' = 3 at order 4; 256 unit
+# states from default_rng(3), target roll(psi0, 1), theta = 0.1 ones(6),
+# 256 fixed Magnus-4 steps, f32
+# ---------------------------------------------------------------------------
+
+ADJ_B, ADJ_STEPS, ADJ_BIG = 256, 256, 4096
+ADJ_CTL = StepControl(rtol=1e-5, min_dt=1e-5, max_dt=0.25, max_steps=512)
+ADJ_H0 = 1e-2
+ADJ_SAVES = (64, 128, 192, 256)
+ADJ_ANCHOR = 64
+ADJ_TWINS = ("torch_adjoint_row", "torch_adjoint_sweep_fwd",
+             "torch_adjoint_sweep_bwd")
+
+
+def adj_counts() -> tuple:
+    """The launch counts of K6, K7, K8 and K4."""
+    return (tadj.adjoint_bwd.launches, tadj.adjoint_sweep_fwd.launches,
+            tadj.adjoint_sweep_bwd.launches, fused_chain_apply.launches)
+
+
+class TwinCalls:
+    """Counts the calls of the adjoint kernels' plain twins while active
+    (the wrappers look them up in their module at each call)."""
+
+    def __enter__(self):
+        self.n = 0
+        self.saved = {nm: getattr(tadj, nm) for nm in ADJ_TWINS}
+        for nm, fn in self.saved.items():
+            def counted(*a, _fn=fn, **k):
+                self.n += 1
+                return _fn(*a, **k)
+            setattr(tadj, nm, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for nm, fn in self.saved.items():
+            setattr(tadj, nm, fn)
+
+
+def adjoint_inputs(dtype=torch.float32, n=ADJ_B):
+    """The model, psi0, the target and theta of bench_adjoint_grad."""
+    pc = PulseControl.make(d=DIM, seed=0, T=1.0, n_modes=6)
+    rng = np.random.default_rng(3)
+    psi0 = rng.standard_normal((n, DIM)) + 1j * rng.standard_normal((n, DIM))
+    psi0 /= np.linalg.norm(psi0, axis=-1, keepdims=True)
+    tgt = np.roll(psi0, 1, axis=-1)
+    return (pc, from_complex(psi0, dtype, device="cuda"),
+            from_complex(tgt, dtype, device="cuda"),
+            torch.full((6,), 0.1, dtype=dtype, device="cuda"))
+
+
+def adjoint_case(B, D, Kp, R, dtype, seed, scale):
+    """A norm-preserving random basis (K', D, D) (antisymmetric: the
+    reconstruction stays well conditioned), per-lane rows (B, K'), shared
+    rows (R, K') and states (B, D)."""
+    rng = np.random.default_rng(seed)
+    S = rng.standard_normal((Kp, D, D)) / np.sqrt(D)
+
+    def t(a):
+        return torch.tensor(a, dtype=dtype, device="cuda")
+
+    W = t(S - np.swapaxes(S, -1, -2))
+    return (W, t(rng.standard_normal((B, Kp)) * scale),
+            t(rng.standard_normal((R, Kp)) * scale),
+            t(rng.standard_normal((B, D))), t(rng.standard_normal((B, D))))
+
+
+def adj_operands(W):
+    return (expmv.stacked_transpose(W), expmv.stacked_basis(W),
+            expmv.basis_norms(W))
+
+
+def rel(a, b) -> float:
+    """max |a - b| over the finite entries of b, relative to max |b|."""
+    ok = torch.isfinite(b)
+    return float((a - b)[ok].abs().max() / b[ok].abs().max().clamp_min(1e-30))
+
+
+# (B, D, K', R, row scale): the path's shape below theta, a ragged batch
+# with rows past theta (squarings run), D a multiple of neither 32 nor 4
+# (the products' checked loads), K' = 6 at a small D
+ADJ_CASES = ((256, 128, 3, 8, 0.02), (77, 128, 3, 5, 0.25),
+             (256, 102, 2, 4, 0.25), (33, 16, 6, 3, 0.5))
+
+
+def adj_tolerances(dtype):
+    """K6-K8 against their twins: f64 to summation order (FMA in the
+    kernels, BLAS in the twins), f32 the same over up to 64 passes of 8
+    terms; cbar relative to its largest entry."""
+    return (1e-10, 1e-9) if dtype == torch.float64 else (1e-4, 1e-3)
+
+
+def check_adjoint_case(B, D, Kp, R, dtype, seed, scale) -> dict:
+    """K6, K7 and K8 on adjoint_case's inputs against their twins; raises
+    on a disagreement. Returns the relative and absolute differences."""
+    m, theta = _taylor_params(dtype)
+    kw = dict(m=m, theta=theta, max_squarings=16)
+    tol, cb_tol = adj_tolerances(dtype)
+    W, c, c_all, x, a = adjoint_case(B, D, Kp, R, dtype, seed, scale)
+    mt, ms, norms = adj_operands(W)
+    _, n_pass = expmv.scale_rows(c[:, None], norms, theta, 16)
+    _, n_row = expmv.scale_rows(c_all[:, None], norms, theta, 16)
+    k6 = tadj.adjoint_bwd(c, x, a, mt, ms, norms, **kw)
+    p6 = tadj.torch_adjoint_row(c, x, a, mt, ms, norms, **kw)
+    y7 = tadj.adjoint_sweep_fwd(c_all, x, mt, norms, **kw)
+    p7 = tadj.torch_adjoint_sweep_fwd(c_all, x, mt, norms, **kw)
+    k8 = tadj.adjoint_sweep_bwd(c_all, y7, a, mt, ms, norms, **kw)
+    p8 = tadj.torch_adjoint_sweep_bwd(c_all, y7, a, mt, ms, norms, **kw)
+    torch.cuda.synchronize()
+    d = dict(xn=rel(k6[0], p6[0]), an=rel(k6[1], p6[1]), cb6=rel(k6[2], p6[2]),
+             y=rel(y7, p7), a0=rel(k8[0], p8[0]), cb8=rel(k8[1], p8[1]),
+             k6=float(max((k6[j] - p6[j]).abs().max() for j in (0, 1))),
+             k7=float((y7 - p7).abs().max()),
+             k8=float((k8[0] - p8[0]).abs().max()),
+             passes=(int(n_pass.min()), int(n_pass.max()), int(n_row.min()),
+                     int(n_row.max())))
+    assert max(d["xn"], d["an"], d["y"], d["a0"]) <= tol, d
+    assert max(d["cb6"], d["cb8"]) <= cb_tol, d
+    if scale > 0.1:  # rows past theta: squarings ran
+        assert int(n_pass.max()) > 1 and int(n_row.max()) > 1, d
+    return d
+
+
+def check_adjoint_nan(dtype) -> None:
+    """A NaN state row stays in its own row of x_n and cbar (K6) and of
+    the reconstruction (K8, whose cbar sums it: NaN; a0 stays finite),
+    as in the twins."""
+    m, theta = _taylor_params(dtype)
+    kw = dict(m=m, theta=theta, max_squarings=16)
+    tol, _ = adj_tolerances(dtype)
+    W, c, c_all, x, a = adjoint_case(9, 128, 3, 3, dtype, 90, 0.5)
+    x[4, 7] = float("nan")
+    mt, ms, norms = adj_operands(W)
+    xn, an, cb = tadj.adjoint_bwd(c, x, a, mt, ms, norms, **kw)
+    p6 = tadj.torch_adjoint_row(c, x, a, mt, ms, norms, **kw)
+    a0, cb8 = tadj.adjoint_sweep_bwd(c_all, x, a, mt, ms, norms, **kw)
+    p8 = tadj.torch_adjoint_sweep_bwd(c_all, x, a, mt, ms, norms, **kw)
+    torch.cuda.synchronize()
+    rows_nan = torch.isnan(xn).any(1)
+    assert rows_nan.tolist() == [r == 4 for r in range(9)], rows_nan
+    assert bool(torch.isnan(cb[4]).all()) and bool(
+        torch.isfinite(cb[rows_nan.logical_not()]).all())
+    assert bool(torch.isfinite(an).all()) and bool(
+        torch.isfinite(a0).all()) and bool(torch.isnan(cb8).all())
+    assert bool(torch.isnan(p8[1]).all())
+    assert rel(xn, p6[0]) <= tol and rel(a0, p8[0]) <= tol
+
+
+def adjoint_kernel_phase():
+    """K6, K7 and K8 against their twins on the card, f32 and f64, on
+    ADJ_CASES and a NaN state row. Returns the f32 max |d| at the path's
+    shape (K6 x_n / a_n, K7 y, K8 a0)."""
+    errs = {}
+    for dtype in (torch.float64, torch.float32):
+        for i, (B, D, Kp, R, scale) in enumerate(ADJ_CASES):
+            d = check_adjoint_case(B, D, Kp, R, dtype, 80 + i, scale)
+            p = d["passes"]
+            print(f"[adjoint-kernels] {str(dtype)[6:]} B={B} D={D} K'={Kp} "
+                  f"R={R}, passes per lane {p[0]}..{p[1]}, per row "
+                  f"{p[2]}..{p[3]}: relative max|d| K6 x_n {d['xn']:.2e} a_n "
+                  f"{d['an']:.2e} cbar {d['cb6']:.2e}; K7 y {d['y']:.2e}; K8 "
+                  f"a0 {d['a0']:.2e} cbar {d['cb8']:.2e}", flush=True)
+            if dtype == torch.float32 and i == 0:
+                errs = {k: d[k] for k in ("k6", "k7", "k8")}
+        check_adjoint_nan(dtype)
+        print(f"[adjoint-kernels] {str(dtype)[6:]} NaN in row 4 of 9: K6 "
+              f"x_n and cbar NaN in that row only, a_n finite; K8 a0 "
+              f"finite, cbar NaN; as the twins", flush=True)
+    return errs
+
+
+def adjoint_oracle(pc, y0, tg, theta, n_steps):
+    """infidelity and its theta / psi0 gradients through a scan of
+    torch.linalg.matrix_exp steps over the same Magnus-4 rows, in the
+    inputs' type (tests/test_adjoint.py:36-55's _oracle_solve)."""
+    dtype = theta.dtype
+    core = tdiff._adjoint_core(pc.basis_pair(dtype), pc.coeff_fn, order=4)
+    th = theta.detach().clone().requires_grad_(True)
+    yr = y0.re.detach().clone().requires_grad_(True)
+    yi = y0.im.detach().clone().requires_grad_(True)
+    t0, tf = (torch.tensor(v, dtype=torch.float64, device="cuda")
+              for v in (0.0, pc.T))
+    rows = tdiff._make_rows_all(core.cols, 4, n_steps)(th, t0, tf)
+    U = torch.linalg.matrix_exp(torch.einsum(
+        "rk,kij->rij", rows.to(dtype), core.W.to(dtype)))
+    x = torch.cat([yr, yi], -1)
+    for r in range(n_steps):
+        x = x @ U[r].T
+    value = 1.0 - torch.sum(pc.fidelity(Cplx(x[:, :DIM], x[:, DIM:]), tg))
+    return value, torch.autograd.grad(value, (th, yr, yi))
+
+
+def value_and_grads(pc, y0, tg, theta, n_steps=ADJ_STEPS, **kw):
+    """The infidelity through the port's adjoint and its theta and psi0
+    gradients."""
+    th = theta.detach().clone().requires_grad_(True)
+    yr = y0.re.detach().clone().requires_grad_(True)
+    yi = y0.im.detach().clone().requires_grad_(True)
+    if kw:
+        ys = tdiff.adjoint_solve(pc.basis_pair(theta.dtype), pc.coeff_fn, th,
+                                 Cplx(yr, yi), 0.0, pc.T, n_steps, **kw)
+        value = sum(1.0 - torch.sum(pc.fidelity(Cplx(ys.re[j], ys.im[j]),
+                                                tg))
+                    for j in range(ys.re.shape[0])) if ys.re.ndim == 3 \
+            else 1.0 - torch.sum(pc.fidelity(ys, tg))
+    else:
+        value = pc.infidelity(th, Cplx(yr, yi), tg, n_steps=n_steps,
+                              dtype=theta.dtype)
+    return value, torch.autograd.grad(value, (th, yr, yi))
+
+
+def grad_diff(g, ref) -> float:
+    """The largest of the gradients' max |d| relative to max |ref|."""
+    return max(rel(a.to(b.dtype), b) for a, b in zip(g, ref))
+
+
+def adjoint_path_phase():
+    """The fixed-step adjoint at 256x64c f32 through PulseControl.infidelity
+    and torch.autograd.grad: exactly one K7 and one K8 launch and no twin
+    call; the f64 port against the f64 matrix_exp oracle at rtol 1e-8, the
+    f32 port's difference from it; then 4 uniform saves (4 + 4 launches)
+    and anchor_every=64. Returns (K7, K8) launches of the first run."""
+    pc, y0, tg, theta = adjoint_inputs(torch.float32)
+    reset_counts()
+    with TwinCalls() as tw:
+        value, grads = value_and_grads(pc, y0, tg, theta)
+        torch.cuda.synchronize()
+    k6, k7, k8, k4 = adj_counts()
+    assert (k6, k7, k8, k4, tw.n) == (0, 1, 1, 0, 0), (k6, k7, k8, k4, tw.n)
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    _, y64, tg64, th64 = adjoint_inputs(torch.float64)
+    v64, g64 = value_and_grads(pc, y64, tg64, th64)
+    vo, go = adjoint_oracle(pc, y64, tg64, th64, ADJ_STEPS)
+    torch.cuda.synchronize()
+    d64, d32 = grad_diff(g64, go), grad_diff(grads, go)
+    dv64 = abs(float(v64) - float(vo)) / abs(float(vo))
+    dv32 = abs(float(value) - float(vo)) / abs(float(vo))
+    assert d64 <= 1e-8 and dv64 <= 1e-8, (d64, dv64)
+    print(f"[adjoint-path] {ADJ_B}x{DIM}c PulseControl infidelity, "
+          f"{ADJ_STEPS} Magnus-4 steps, f32: value {float(value):.6f}, one "
+          f"K7 and one K8 launch (K6 {k6}, K4 {k4}), no twin call; f64 port "
+          f"vs f64 matrix_exp oracle: value {dv64:.2e}, gradients (theta, "
+          f"psi0) {d64:.2e} relative (<= 1e-8); f32 port vs the f64 oracle: "
+          f"value {dv32:.2e}, gradients {d32:.2e} relative; theta grad "
+          f"{[round(float(v), 5) for v in grads[0]]}", flush=True)
+
+    reset_counts()
+    vs, gs = value_and_grads(pc, y0, tg, theta, save_at_steps=ADJ_SAVES)
+    torch.cuda.synchronize()
+    k6s, k7s, k8s, _ = adj_counts()
+    assert (k6s, k7s, k8s) == (0, len(ADJ_SAVES), len(ADJ_SAVES)), (
+        k6s, k7s, k8s)
+    vs64, gs64 = value_and_grads(pc, y64, tg64, th64,
+                                 save_at_steps=ADJ_SAVES)
+    ds = grad_diff(gs, gs64)
+    assert ds <= 1e-3, ds
+    reset_counts()
+    va, ga = value_and_grads(pc, y0, tg, theta, anchor_every=ADJ_ANCHOR)
+    torch.cuda.synchronize()
+    k6a, k7a, k8a, _ = adj_counts()
+    n_seg = ADJ_STEPS // ADJ_ANCHOR
+    assert (k6a, k7a, k8a) == (0, n_seg, n_seg), (k6a, k7a, k8a)
+    assert float(va) == float(value), (float(va), float(value))
+    da = grad_diff(ga, grads)
+    assert da <= 1e-3, da
+    print(f"[adjoint-path] {len(ADJ_SAVES)} uniform saves: {k7s} K7 + {k8s} "
+          f"K8 launches, loss over the saves {float(vs):.6f}, gradients "
+          f"{ds:.2e} from the f64 port's (<= 1e-3); anchor_every="
+          f"{ADJ_ANCHOR}: {k7a} + {k8a} launches, the same value, gradients "
+          f"{da:.2e} from the plain sweep's (<= 1e-3)", flush=True)
+    return k7, k8
+
+
+def adjoint_training_phase():
+    """Five Adam(lr=0.05) steps on the f32 infidelity: the loss falls."""
+    pc, y0, tg, theta = adjoint_inputs(torch.float32)
+    th = theta.clone().requires_grad_(True)
+    opt = torch.optim.Adam([th], lr=0.05)
+    losses = []
+    for _ in range(5):
+        opt.zero_grad()
+        loss = pc.infidelity(th, y0, tg, n_steps=ADJ_STEPS,
+                             dtype=torch.float32)
+        loss.backward()
+        opt.step()
+        losses.append(float(loss))
+    assert losses[-1] < losses[0] and all(np.isfinite(losses)), losses
+    print(f"[adjoint-train] five Adam(lr=0.05) steps on the infidelity: "
+          f"{[round(v, 6) for v in losses]}", flush=True)
+
+
+def recorded_times(basis, pc, y0, theta):
+    """The adaptive forward's per-iteration times (n_it + 1, B), by the
+    adjoint's own forward (K4 per iteration: bitwise the same steps)."""
+    core = tdiff._adjoint_core(basis, pc.coeff_fn, order=4)
+    plan = tdiff._AdaptivePlan(None, core, basis, pc.coeff_fn, ADJ_CTL)
+    t0, tf, h0 = (torch.tensor(v, dtype=torch.float32, device="cuda")
+                  for v in (0.0, 1.0, ADJ_H0))
+    return tdiff._adaptive_forward(plan, theta, torch.cat([y0.re, y0.im], -1),
+                                   t0, tf, h0)[2]
+
+
+def adjoint_adaptive_phase():
+    """adjoint_solve_adaptive at 256x64c f32, Magnus-4, rtol 1e-5: all
+    lanes DONE, one K4 launch per forward iteration, one K6 launch per
+    replayed iteration, the gradient against the frozen-step-sequence
+    f64 matrix_exp oracle (tests/test_adjoint.py:169-250). Returns the K6
+    launches and the recorded times (n_it + 1, B)."""
+    pc, y0, tg, theta = adjoint_inputs(torch.float32)
+    basis = pc.basis_pair(torch.float32)
+    th = theta.clone().requires_grad_(True)
+    yr, yi = (v.clone().requires_grad_(True) for v in (y0.re, y0.im))
+    reset_counts()
+    with TwinCalls() as tw:
+        yf, status = tdiff.adjoint_solve_adaptive(
+            basis, pc.coeff_fn, th, Cplx(yr, yi), 0.0, 1.0, ctl=ADJ_CTL,
+            h0=ADJ_H0, return_status=True)
+        torch.cuda.synchronize()
+        k4_fwd = fused_chain_apply.launches
+        value = 1.0 - torch.sum(pc.fidelity(yf, tg))
+        grads = torch.autograd.grad(value, (th, yr, yi))
+        torch.cuda.synchronize()
+    k6, k7, k8, k4 = adj_counts()
+    assert bool((status == DONE).all()), "adaptive lanes not DONE"
+    ts = recorded_times(basis, pc, y0, theta)
+    n_it = ts.shape[0] - 1
+    assert (k4_fwd, k4, k6, k7, k8, tw.n) == (n_it, n_it, n_it, 0, 0, 0), (
+        k4_fwd, k4, k6, k7, k8, tw.n, n_it)
+
+    # the oracle: matrix_exp steps over the recorded times in f64
+    _, y64, tg64, th64 = adjoint_inputs(torch.float64)
+    core = tdiff._adjoint_core(pc.basis_pair(torch.float64), pc.coeff_fn,
+                               order=4)
+    tho = th64.clone().requires_grad_(True)
+    xr, xi = (v.clone().requires_grad_(True) for v in (y64.re, y64.im))
+    t64 = ts.to(torch.float64)
+    x = torch.cat([xr, xi], -1)
+    for r in range(n_it):
+        c = torch.func.vmap(lambda t_, d_: core.cols(tho, t_, d_))(
+            t64[r], t64[r + 1] - t64[r])
+        U = torch.linalg.matrix_exp(torch.einsum("bk,kij->bij", c, core.W))
+        x = torch.bmm(U, x[:, :, None])[:, :, 0]
+    vo = 1.0 - torch.sum(pc.fidelity(Cplx(x[:, :DIM], x[:, DIM:]), tg64))
+    go = torch.autograd.grad(vo, (tho, xr, xi))
+    d = grad_diff(grads, go)
+    dv = abs(float(value) - float(vo)) / abs(float(vo))
+    assert d <= 1e-3 and dv <= 1e-4, (d, dv)
+    n_acc = (torch.diff(ts, dim=0) > 0).sum(0)
+    print(f"[adjoint-adaptive] {ADJ_B}x{DIM}c Magnus-4 rtol="
+          f"{ADJ_CTL.rtol:g}, f32: all DONE, {n_it} iterations, "
+          f"{int(n_acc.min())}..{int(n_acc.max())} accepted steps per lane; "
+          f"K4 {k4_fwd} == forward iterations, K6 {k6} == replayed "
+          f"iterations, no twin call; vs the frozen-sequence f64 oracle: "
+          f"value {dv:.2e}, gradients {d:.2e} relative", flush=True)
+    return k6, ts
+
+
+def adj_flops(passes: int, D: int, Kp: int, m: int, reverse: bool,
+              formed: int, rows: int = 0, idle: int = 0) -> float:
+    """Operations the function needs: the exponent A = sum_k c_k W_k formed
+    once per distinct nonzero row (``formed``: per shared row in K7 / K8,
+    per trajectory row in K6), then per Taylor term of ``passes``
+    trajectory-row passes one (D, D) action per chain with its division
+    and running sum: the state chain alone forward; in reverse the x, a
+    and w chains, the K' stacked W_k w and the K' Fréchet u-chains
+    (2 K' + 3 actions); per trajectory row (``rows``) the K' inner
+    products of cbar. A zero row (``idle`` trajectory rows, an iteration
+    that did not advance) needs only the K' actions of cbar_k =
+    <a, W_k x>."""
+    act = 2 * D * D + 2 * D
+    term = (2 * Kp + 3 if reverse else 1) * act
+    return (passes * m * term + (formed + idle) * 2 * Kp * D * D
+            + rows * 2 * Kp * D)
+
+
+def adj_library(W, c_all, x, a, reverse: bool, per_lane: bool = False):
+    """The library yardstick: matrix_exp of the exponents M = sum_k c_k W_k
+    and products with the states; in reverse also matrix_exp of -M and of
+    M^T and of the (2D)-wide blocks [[M, W_k], [0, M]] for the Fréchet
+    terms. ``per_lane``: one exponent per trajectory (K6's rows)."""
+    M = torch.einsum("rk,kij->rij", c_all, W)
+    D = W.shape[1]
+    if not reverse:
+        U = torch.linalg.matrix_exp(M)
+        for r in range(M.shape[0]):
+            x = x @ U[r].T
+        return x
+    Kp = W.shape[0]
+    Ui = torch.linalg.matrix_exp(-M)
+    Ut = torch.linalg.matrix_exp(M.transpose(-1, -2))
+    blk = torch.zeros(M.shape[0], Kp, 2 * D, 2 * D, dtype=M.dtype,
+                      device=M.device)
+    blk[:, :, :D, :D] = M[:, None]
+    blk[:, :, D:, D:] = M[:, None]
+    blk[:, :, :D, D:] = W
+    F = torch.linalg.matrix_exp(blk)[:, :, :D, D:]
+    if per_lane:
+        xn = torch.bmm(Ui, x[:, :, None])[:, :, 0]
+        an = torch.bmm(Ut, a[:, :, None])[:, :, 0]
+        cb = torch.einsum("bkij,bj,bi->bk", F, xn, a)
+        return xn, an, cb
+    cb = []
+    for r in range(M.shape[0] - 1, -1, -1):
+        x = x @ Ui[r].T
+        cb.append(torch.einsum("kij,bj,bi->k", F[r], x, a))
+        a = a @ Ut[r].T
+    return a, torch.stack(cb[::-1])
+
+
+def adj_timing_at(B: int, card: str, basis_f32, c_all, ts):
+    """K7, K8 and K6 per launch at B x 64c f32 on the path's basis: the
+    fixed-step rows c_all (R, K'); for K6 the adaptive path's own per-lane
+    rows from its recorded times ts (n_it + 1, 256), its lanes repeated
+    above 256, timed as the path runs them: one replay of n_it launches in
+    reverse, per launch its mean. At the path's batch in turns with their
+    twins and the library yardstick; above it the kernels alone."""
+    pc, y0, _, theta = adjoint_inputs(torch.float32, B)
+    core = tdiff._adjoint_core(basis_f32, pc.coeff_fn, order=4)
+    x = torch.cat([y0.re, y0.im], -1)
+    rng = np.random.default_rng(9)
+    a = torch.tensor(rng.standard_normal(x.shape) / np.sqrt(x.shape[1]),
+                     dtype=torch.float32, device="cuda")
+    mt, ms, norms, m, th_t = core.operands(x)
+    kw = dict(m=m, theta=th_t, max_squarings=16)
+    D, Kp, R = x.shape[1], core.Kp, c_all.shape[0]
+    n_it = ts.shape[0] - 1
+    lanes = torch.arange(B, device="cuda") % ts.shape[1]
+    t_r, dt_r = ts[:-1][:, lanes], (ts[1:] - ts[:-1])[:, lanes]
+    c_lane = torch.func.vmap(lambda t_, d_: core.cols(theta, t_, d_))(
+        t_r.reshape(-1), dt_r.reshape(-1)).reshape(n_it, B, Kp).contiguous()
+    W = core.W
+
+    def replay(row):
+        def run():
+            xr, ar = x, a
+            for r in range(n_it - 1, -1, -1):
+                xr, ar, _ = row(c_lane[r], xr, ar)
+            return xr, ar
+        return run
+
+    # (kernel, plain, library, the kernel's and the library's first launch,
+    # launches per timed call)
+    cases = {
+        "K7": (lambda: tadj.adjoint_sweep_fwd(c_all, x, mt, norms, **kw),
+               lambda: tadj.torch_adjoint_sweep_fwd(c_all, x, mt, norms,
+                                                    **kw),
+               lambda: adj_library(W, c_all, x, a, False), None, 1),
+        "K8": (lambda: tadj.adjoint_sweep_bwd(c_all, x, a, mt, ms, norms,
+                                              **kw),
+               lambda: tadj.torch_adjoint_sweep_bwd(c_all, x, a, mt, ms,
+                                                    norms, **kw),
+               lambda: adj_library(W, c_all, x, a, True), None, 1),
+        "K6": (replay(lambda c, xr, ar: tadj.adjoint_bwd(c, xr, ar, mt, ms,
+                                                         norms, **kw)),
+               replay(lambda c, xr, ar: tadj.torch_adjoint_row(
+                   c, xr, ar, mt, ms, norms, **kw)),
+               replay(lambda c, xr, ar: adj_library(W, c, xr, ar, True,
+                                                    per_lane=True)),
+               (lambda: tadj.adjoint_bwd(c_lane[-1], x, a, mt, ms, norms,
+                                         **kw),
+                lambda: adj_library(W, c_lane[-1], x, a, True,
+                                    per_lane=True)), n_it),
+    }
+    with_lib = B <= ADJ_B
+    out = {}
+    for name, (kern, plain, lib, first, n_launch) in cases.items():
+        kern_1, lib_1 = first or (kern, lib)
+        got = kern_1()
+        d_lib = None
+        if with_lib:
+            lb = lib_1()
+            lb = (lb,) if name == "K7" else lb
+            gk = (got,) if name == "K7" else got
+            d_lib = max(rel(u, v) for u, v in zip(gk, lb))
+            assert d_lib <= 1e-3, (name, d_lib)
+        torch.cuda.synchronize()
+        runs = {"kernel": [], "plain": [], "library": []}
+        for _ in range(3):  # in turns
+            runs["kernel"].append(timed_ms(kern, reps=1) / n_launch)
+            if with_lib:
+                runs["plain"].append(timed_ms(plain, reps=1) / n_launch)
+                runs["library"].append(timed_ms(lib, reps=1) / n_launch)
+        k_ms = statistics.median(runs["kernel"])
+        p_ms = statistics.median(runs["plain"]) if with_lib else None
+        l_ms = statistics.median(runs["library"]) if with_lib else None
+        if name == "K6":
+            # per launch: the mean over the replay of each row's own bound
+            passes = formed = 0
+            flop = nbytes = b_sum = 0.0
+            row_bytes = 4 * (5 * B * D + 2 * B * Kp + 2 * Kp * D * D)
+            for r in range(n_it):
+                nz = c_lane[r].abs().sum(-1) > 0
+                _, n_pass = expmv.scale_rows(c_lane[r][:, None], norms,
+                                             th_t, 16)
+                p_r, f_r = int(n_pass[nz].sum()), int(nz.sum())
+                fl = adj_flops(p_r, D, Kp, m, True, f_r, B, B - f_r)
+                passes, formed = passes + p_r, formed + f_r
+                flop, nbytes = flop + fl, nbytes + row_bytes
+                b_sum += bound(fl, row_bytes)[0]
+            b_by = bound(flop, nbytes)[1]
+            b_ms, flop, nbytes = b_sum / n_it, flop / n_it, nbytes / n_it
+            what = (f", the adaptive path's per-lane rows over {n_it} "
+                    f"launches: {formed} advancing trajectory rows, "
+                    f"{passes} passes, {passes / max(formed, 1):.3f} a row, "
+                    f"{n_it * B - formed} rows with dt = 0")
+        else:
+            _, n_pass = expmv.scale_rows(c_all[:, None], norms, th_t, 16)
+            passes = int(n_pass.sum()) * B
+            nbytes = 4 * ((2 if name == "K7" else 3) * B * D + R * Kp
+                          + (1 if name == "K7" else 2) * Kp * D * D)
+            flop = adj_flops(passes, D, Kp, m, name == "K8", R,
+                             R * B if name == "K8" else 0)
+            b_ms, b_by = bound(flop, nbytes)
+            what = f", R={R} rows ({passes} trajectory-row passes)"
+        print(f"[time] {name} at B={B}, d={DIM}, K'={Kp}, f32{what}: kernel "
+              f"{k_ms:.4f} ms per launch ({flop / k_ms / 1e9:.2f} TFLOP/s)"
+              + (f", plain twin {p_ms:.4f} ms, library {l_ms:.4f} ms (max "
+                 f"rel |d| {d_lib:.2e})" if with_lib else "")
+              + f"; runs " + ", ".join(f"{k} {[round(v, 4) for v in r]}"
+                                       for k, r in runs.items() if r)
+              + f"; bound {b_ms:.4f} ms by {b_by} ({flop / 1e9:.2f} GFLOP, "
+              f"{nbytes / 1e6:.2f} MB a launch), kernel at {b_ms / k_ms:.1%} "
+              f"of it ({card})", flush=True)
+        out[name] = (k_ms, p_ms, b_ms, b_by, l_ms)
+    return out
+
+
+def adjoint_timing_phase(card: str, ts):
+    """The kernels per launch at the path's 256 and at 4096 trajectories
+    (K6 on the adaptive path's recorded times ``ts``),
+    the value-and-grad wall (median of 3 after a warm run) with adjoint
+    steps/s = 2 n_steps B / wall (benchmarks.py:776), and peak memory at
+    256 and 1024 steps."""
+    pc, y0, tg, theta = adjoint_inputs(torch.float32)
+    basis = pc.basis_pair(torch.float32)
+    core = tdiff._adjoint_core(basis, pc.coeff_fn, order=4)
+    t0, tf = (torch.tensor(v, dtype=torch.float64, device="cuda")
+              for v in (0.0, pc.T))
+    c_all = tdiff._make_rows_all(core.cols, 4, ADJ_STEPS)(
+        theta, t0, tf).to(torch.float32).contiguous()
+    out = adj_timing_at(ADJ_B, card, basis, c_all, ts)
+    adj_timing_at(ADJ_BIG, card, basis, c_all, ts)
+
+    def vg():
+        return value_and_grads(pc, y0, tg, theta)
+
+    vg()
+    walls = timed_runs(vg)
+    wall = statistics.median(walls)
+    peaks = {}
+    for n in (ADJ_STEPS, 4 * ADJ_STEPS):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        live = torch.cuda.memory_allocated()  # what earlier phases hold
+        value_and_grads(pc, y0, tg, theta, n_steps=n)
+        torch.cuda.synchronize()
+        peaks[n] = ((torch.cuda.max_memory_allocated() - live) / 2 ** 20,
+                    torch.cuda.max_memory_allocated() / 2 ** 20)
+    print(f"[time] adjoint value-and-grad {ADJ_B}x{DIM}c f32, {ADJ_STEPS} "
+          f"Magnus-4 steps (one K7 + one K8 launch): median wall "
+          f"{wall:.3f} ms of {[round(w, 3) for w in walls]}, "
+          f"{2 * ADJ_STEPS * ADJ_B / (wall / 1e3):.4e} adjoint steps/s "
+          f"(fwd + bwd counted); peak memory above what was allocated "
+          f"before (total peak) "
+          + ", ".join(f"{v:.2f} MiB ({t:.1f}) at n_steps={n}"
+                      for n, (v, t) in peaks.items())
+          + f" ({card})", flush=True)
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = device_phase()
@@ -1651,11 +2239,16 @@ def main() -> None:
     k4_launches = magnus_step_path_phase(loop_sol)
     lz_path_phase()
     k9_launches = generic_path_phase()
+    adj_errs = adjoint_kernel_phase()
+    k7_launches, k8_launches = adjoint_path_phase()
+    adjoint_training_phase()
+    k6_launches, adaptive_ts = adjoint_adaptive_phase()
     k1 = timing_phase(card)
     k2 = loop_timing_phase(card)
     k4 = k4_timing_phase(card)
     k5 = k5_timing_phase(card)
     k9 = k9_timing_phase(card)
+    adj = adjoint_timing_phase(card, adaptive_ts)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     rows = []
@@ -1665,7 +2258,10 @@ def main() -> None:
             ("rk_step_tile", k2_launches, k2_err, k2),
             ("fused_chain_apply", k4_launches, k4_err, k4),
             ("chain_step_tile", k5_launches, k5_err, k5),
-            ("fused_dense_chain_apply", k9_launches, k9_err, k9)):
+            ("fused_dense_chain_apply", k9_launches, k9_err, k9),
+            ("adjoint_bwd", k6_launches, adj_errs["k6"], adj["K6"]),
+            ("adjoint_sweep_fwd", k7_launches, adj_errs["k7"], adj["K7"]),
+            ("adjoint_sweep_bwd", k8_launches, adj_errs["k8"], adj["K8"])):
         source, replaces = KERNELS[name]
         rows.append({
             "name": name, "route": "cuda", "source": source,

@@ -1,10 +1,12 @@
 """The hand-written CUDA kernels of the port against their plain torch
 twins, on a CUDA card: the step kernel (K1) with and without a declared
 norm, the whole-loop kernel (K2) with its RK step (K3) and its chain step
-(K5) and fixed-step mode, the chain kernel (K4), and the per-trajectory
-dense chain kernel (K9) with the generic exponential path over it. Every
-test here carries the ``cuda`` marker and skips without a card. The file imports no jax, so on
-a machine with a card but without jax it runs as
+(K5) and fixed-step mode, the chain kernel (K4), the per-trajectory
+dense chain kernel (K9) with the generic exponential path over it, and the
+adjoint kernels (K6, K7, K8) with the fixed-step and adaptive adjoint over
+them. Every test here carries the ``cuda`` marker and skips without a
+card. The file imports no jax, so on a machine with a card but without
+jax it runs as
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
@@ -18,10 +20,12 @@ import torch
 import chip_smoke
 from chip_smoke import err_norm_limit
 from vec_ode_tpu_torch import DONE, StepControl, lc, tableaus as ttab
+from vec_ode_tpu_torch import diff as tdiff
 from vec_ode_tpu_torch import exp as texp
 from vec_ode_tpu_torch.exp import (CoeffForm, MagnusModulated4,
                                    MidpointModulated, ModulatedOperator)
-from vec_ode_tpu_torch.models import DrivenDense
+from vec_ode_tpu_torch.models import DrivenDense, PulseControl
+from vec_ode_tpu_torch.ops import adjoint as tadj
 from vec_ode_tpu_torch.ops.expmv import fused_chain_apply
 from vec_ode_tpu_torch.ops.cplx import Cplx, from_complex
 from vec_ode_tpu_torch.ops.dense_chains import fused_dense_chain_apply
@@ -632,3 +636,147 @@ def test_dense_chain_wrapper_refuses_misaligned_samples(card):
             y, e = fused_dense_chain_apply(table, off, dt, xw, **kw)
             y0, e0 = fused_dense_chain_apply(table, node_ops, dt, xw, **kw)
             assert torch.equal(y, y0) and torch.equal(e, e0)
+
+
+# the adjoint kernels K6, K7, K8 (ops/adjoint.py, csrc/adjoint.cu)
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("B,D,Kp,R,scale", [
+    *chip_smoke.ADJ_CASES, (1, 128, 1, 2, 0.5), (1000, 64, 4, 3, 0.3),
+    (5, 512, 6, 2, 0.2), (300, 8, 5, 4, 2.0), (40, 18, 3, 3, 0.5)])
+def test_adjoint_kernels_match_twins(card, dtype, B, D, Kp, R, scale):
+    """K6, K7 and K8 against their twins: ragged batches, D not a multiple
+    of 32 and the largest D, K' from 1 to 6, rows past theta."""
+    before = (tadj.adjoint_bwd.launches, tadj.adjoint_sweep_fwd.launches,
+              tadj.adjoint_sweep_bwd.launches)
+    chip_smoke.check_adjoint_case(B, D, Kp, R, dtype, 7, scale)
+    assert (tadj.adjoint_bwd.launches, tadj.adjoint_sweep_fwd.launches,
+            tadj.adjoint_sweep_bwd.launches) == tuple(b + 1 for b in before)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_adjoint_kernels_keep_a_nan_row_in_its_row(card, dtype):
+    chip_smoke.check_adjoint_nan(dtype)
+
+
+def test_adjoint_sweep_bwd_is_deterministic(card):
+    """K8's cbar is summed per block and then in block order: the same
+    bits from run to run."""
+    W, _, c_all, x, a = chip_smoke.adjoint_case(4096, 128, 3, 6,
+                                                torch.float32, 3, 0.3)
+    mt, ms, norms = chip_smoke.adj_operands(W)
+    kw = dict(m=8, theta=0.35)
+    first = tadj.adjoint_sweep_bwd(c_all, x, a, mt, ms, norms, **kw)
+    for _ in range(3):
+        again = tadj.adjoint_sweep_bwd(c_all, x, a, mt, ms, norms, **kw)
+        assert all(torch.equal(u, v) for u, v in zip(first, again))
+
+
+def test_adjoint_wrappers_refuse_what_the_kernels_do_not_take(card):
+    W, c, c_all, x, a = chip_smoke.adjoint_case(4, 16, 3, 2, torch.float32,
+                                                1, 0.3)
+    mt, ms, norms = chip_smoke.adj_operands(W)
+    kw = dict(m=8, theta=0.35)
+    W7, c7, _, x7, a7 = chip_smoke.adjoint_case(4, 16, 7, 2, torch.float32,
+                                                1, 0.3)
+    mt7, ms7, n7 = chip_smoke.adj_operands(W7)
+    with pytest.raises(ValueError, match="1 to 6 basis terms"):
+        tadj.adjoint_bwd(c7, x7, a7, mt7, ms7, n7, **kw)
+    xb = torch.zeros(4, 520, device=card)
+    with pytest.raises(ValueError, match="D <= 512"):
+        tadj.adjoint_sweep_fwd(c_all, xb, torch.zeros(520, 3 * 520,
+                                                      device=card),
+                               norms, **kw)
+    with pytest.raises(TypeError):
+        tadj.adjoint_sweep_bwd(c_all.double(), x, a, mt, ms, norms, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        tadj.adjoint_bwd(c, x.t().contiguous().t(), a, mt, ms, norms, **kw)
+    with pytest.raises(ValueError, match="rows must be"):
+        tadj.adjoint_bwd(c[:3], x, a, mt, ms, norms, **kw)
+
+
+def _small_pulse(device, dtype=torch.float64, B=5, d=4):
+    pc = PulseControl.make(d=d, seed=0, T=2.0, n_modes=4)
+    rng = np.random.default_rng(3)
+    z = rng.standard_normal((B, d)) + 1j * rng.standard_normal((B, d))
+    z /= np.linalg.norm(z, axis=-1, keepdims=True)
+    return (pc, from_complex(z, dtype, device=device),
+            from_complex(np.roll(z, 1, axis=-1), dtype, device=device),
+            torch.linspace(0.1, 0.4, 4, dtype=dtype, device=device))
+
+
+@pytest.mark.parametrize("kw", [dict(order=4), dict(order=6), dict(order=2),
+                                dict(save_at_steps=(4, 8, 16)),
+                                dict(anchor_every=4)])
+def test_fixed_step_adjoint_on_the_card_matches_the_cpu_path_f64(card, kw):
+    """Value and theta / psi0 gradients of the same loss through K7 and K8
+    and through their twins; one launch of each per segment."""
+    out = {}
+    for dev in (card, "cpu"):
+        pc, y0, tg, theta = _small_pulse(dev)
+        th = theta.clone().requires_grad_(True)
+        yr, yi = (v.clone().requires_grad_(True) for v in (y0.re, y0.im))
+        before = (tadj.adjoint_sweep_fwd.launches,
+                  tadj.adjoint_sweep_bwd.launches)
+        ys = tdiff.adjoint_solve(pc.basis_pair(torch.float64, dev),
+                                 pc.coeff_fn, th, Cplx(yr, yi), 0.0, pc.T,
+                                 16, **kw)
+        value = torch.sum(pc.fidelity(ys, tg))
+        grads = torch.autograd.grad(value, (th, yr, yi))
+        launched = (tadj.adjoint_sweep_fwd.launches - before[0],
+                    tadj.adjoint_sweep_bwd.launches - before[1])
+        n_seg = (3 if "save_at_steps" in kw else 4 if "anchor_every" in kw
+                 else 1)
+        assert launched == ((n_seg, n_seg) if dev == card else (0, 0))
+        out[dev] = [value.detach().cpu()] + [g.cpu() for g in grads]
+    for u, v in zip(out[card], out["cpu"]):
+        np.testing.assert_allclose(u.numpy(), v.numpy(), rtol=1e-10,
+                                   atol=1e-13)
+
+
+def test_adaptive_adjoint_on_the_card_matches_the_cpu_path_f64(card):
+    """The adaptive adjoint through K4 forward and K6 backward against the
+    twins: the same status and iterations, one K6 launch per iteration,
+    value and gradients to f64 rounding."""
+    ctl = StepControl(rtol=1e-7, atol=1e-10, min_dt=1e-7, max_dt=0.4,
+                      max_steps=400)
+    out = {}
+    for dev in (card, "cpu"):
+        pc, y0, tg, theta = _small_pulse(dev)
+        th = theta.clone().requires_grad_(True)
+        yr, yi = (v.clone().requires_grad_(True) for v in (y0.re, y0.im))
+        before = (tadj.adjoint_bwd.launches, fused_chain_apply.launches)
+        yf, st = tdiff.adjoint_solve_adaptive(
+            pc.basis_pair(torch.float64, dev), pc.coeff_fn, th, Cplx(yr, yi),
+            0.0, pc.T, ctl=ctl, h0=0.3, return_status=True)
+        n_fwd = fused_chain_apply.launches - before[1]
+        value = torch.sum(pc.fidelity(yf, tg))
+        grads = torch.autograd.grad(value, (th, yr, yi))
+        n_bwd = tadj.adjoint_bwd.launches - before[0]
+        assert bool((st == DONE).all())
+        assert n_bwd == (n_fwd if dev == card else 0)
+        out[dev] = ([st.cpu(), n_fwd], [value.detach().cpu()]
+                    + [g.cpu() for g in grads])
+    assert torch.equal(out[card][0][0], out["cpu"][0][0])
+    assert out[card][0][1] > 0
+    for u, v in zip(out[card][1], out["cpu"][1]):
+        np.testing.assert_allclose(u.numpy(), v.numpy(), rtol=1e-8,
+                                   atol=1e-12)
+
+
+def test_pulse_control_infidelity_runs_only_the_kernels(card):
+    """On CUDA tensors the value-and-grad makes one K7 and one K8 launch
+    and calls no twin."""
+    pc, y0, tg, theta = _small_pulse(card, torch.float32, B=16, d=8)
+    th = theta.clone().requires_grad_(True)
+    before = (tadj.adjoint_sweep_fwd.launches, tadj.adjoint_sweep_bwd.launches,
+              tadj.adjoint_bwd.launches)
+    with chip_smoke.TwinCalls() as tw:
+        value = pc.infidelity(th, y0, tg, n_steps=32, dtype=torch.float32)
+        (g,) = torch.autograd.grad(value, th)
+        torch.cuda.synchronize()
+    assert tw.n == 0
+    assert (tadj.adjoint_sweep_fwd.launches - before[0],
+            tadj.adjoint_sweep_bwd.launches - before[1],
+            tadj.adjoint_bwd.launches - before[2]) == (1, 1, 0)
+    assert bool(torch.isfinite(g).all())

@@ -15,8 +15,9 @@ torch.set_num_threads(1)
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "vec_ode_tpu_torch"
 
-# the modules of the generic exponential path, beside the earlier ones
-MODULES = ["ops.expm", "ops.dense_chains", "ops.cplx", "ops.expmv",
+# the modules of the adjoint and generic exponential paths, beside the
+# earlier ones
+MODULES = ["diff", "ops.adjoint", "ops.expm", "ops.dense_chains", "ops.cplx", "ops.expmv",
            "ops.fused_rk", "ops.fused_loop", "exp.protocol", "exp.leaves",
            "exp.dense_fast", "exp.magnus", "exp.cfm", "exp.split_solvers",
            "exp.modulated", "models.quantum", "parallel.ensemble", "convert"]

@@ -11,11 +11,14 @@ sum_k c_k(t) M_k), and the generic exponential steppers
 operator callback over ``exp.DenseSplit`` / ``exp.DenseCplxSplit``. On
 CUDA tensors they run hand-written kernels (``csrc/``): a step kernel per
 driver iteration, or the whole loop in one launch; on CPU tensors the
-plain torch twins run. This package imports neither jax nor vec_ode_tpu.
+plain torch twins run. ``diff`` holds the O(1)-memory reversible adjoint
+(``adjoint_solve``, ``adjoint_solve_adaptive``) over the adjoint kernels,
+whose workload is ``models.PulseControl``. This package imports neither
+jax nor vec_ode_tpu.
 """
 
-from . import (controller, convert, driver, exp, lc, models, ops, parallel,
-               tableaus)
+from . import (controller, convert, diff, driver, exp, lc, models, ops,
+               parallel, tableaus)
 from .controller import StepControl
 from .driver import (
     DONE,
@@ -37,6 +40,7 @@ from .driver import (
     resume,
     step_once,
 )
+from .models import PulseControl
 from .tableaus import (
     BOSH32,
     CASH_KARP,
@@ -56,6 +60,7 @@ __version__ = "0.1.0"
 __all__ = [
     "controller",
     "convert",
+    "diff",
     "driver",
     "exp",
     "lc",
@@ -64,6 +69,7 @@ __all__ = [
     "parallel",
     "tableaus",
     "StepControl",
+    "PulseControl",
     "Solution",
     "IntState",
     "integrate",

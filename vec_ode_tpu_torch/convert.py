@@ -8,6 +8,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from .exp.modulated import ModulatedOperator
+from .models.quantum import PulseControl
 from .ops.cplx import Cplx
 from .ops.expmv import CoeffForm
 from .ops.fused_rk import FusedModulatedLinearRK
@@ -66,6 +67,24 @@ def driven_op_from_numpy(H0, V, w, *, dtype=torch.float64, device="cuda"):
         return Cplx(H0.im + c * V.im, -(H0.re + c * V.re))
 
     return op_fn
+
+
+def pulse_control_from_numpy(H0, Hc, T, n_modes) -> PulseControl:
+    """The port's ``PulseControl`` from a JAX ``PulseControl``'s fields
+    (``np.asarray(pc.H0)``, ``pc.Hc``, ``pc.T``, ``pc.n_modes``)."""
+    return PulseControl(H0=np.array(H0), Hc=np.array(Hc), T=float(T),
+                        n_modes=int(n_modes))
+
+
+def basis_from_numpy(re, im=None, *, dtype=torch.float64, device="cuda"):
+    """A basis from numpy: a Cplx (K, d, d) from (re, im) (``np.asarray
+    (basis.re)``, ``.im`` of a JAX Cplx basis), or a real (K, D, D) tensor
+    when ``im`` is None, in ``dtype`` on the card unless ``device`` names
+    another."""
+    def tensor(a):  # a copy: arrays from jax are read-only
+        return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+    return tensor(re) if im is None else Cplx(tensor(re), tensor(im))
 
 
 def state_from_numpy(re, im, *, device="cuda",

@@ -193,18 +193,13 @@ __device__ void sample_form(const T* __restrict__ t_rows, const T* __restrict__ 
   }
 }
 
-// y_k[q][c] = sum_j term[row q][j] M_k[col c][j] for the thread's RT rows and
-// CT columns, k < KP, from the (tile, D) slot `term` and MT (D, KP*D).
-template <typename T, int RT, int KP>
-__device__ __forceinline__ void chain_products(const T* term, const T* __restrict__ mt, int D,
-                                               int rg, int cg, int ncg, T (&y)[KP][RT][CT]) {
-#pragma unroll
-  for (int k = 0; k < KP; ++k)
-#pragma unroll
-    for (int q = 0; q < RT; ++q)
-#pragma unroll
-      for (int c = 0; c < CT; ++c) y[k][q][c] = T(0);
-  const T* trow = term + (size_t)(rg * RT) * D;
+// The body of chain_products. FULL: every column of the thread lies inside
+// the row (D a multiple of CT), so the basis loads carry no bounds check
+// and a thread's loads of one j go out together.
+template <bool FULL, typename T, int RT, int KP>
+__device__ __forceinline__ void chain_products_body(const T* trow, const T* __restrict__ mt,
+                                                    int D, int cg, int ncg,
+                                                    T (&y)[KP][RT][CT]) {
   const size_t ld = (size_t)KP * D;
 #pragma unroll 2
   for (int j = 0; j < D; ++j) {
@@ -218,7 +213,7 @@ __device__ __forceinline__ void chain_products(const T* term, const T* __restric
 #pragma unroll
       for (int c = 0; c < CT; ++c) {
         const int col = cg + c * ncg;
-        mv[c] = col < D ? __ldg(mrow + (size_t)k * D + col) : T(0);
+        mv[c] = (FULL || col < D) ? __ldg(mrow + (size_t)k * D + col) : T(0);
       }
 #pragma unroll
       for (int q = 0; q < RT; ++q)
@@ -226,6 +221,24 @@ __device__ __forceinline__ void chain_products(const T* term, const T* __restric
         for (int c = 0; c < CT; ++c) y[k][q][c] = fma_full(xv[q], mv[c], y[k][q][c]);
     }
   }
+}
+
+// y_k[q][c] = sum_j term[row q][j] M_k[col c][j] for the thread's RT rows and
+// CT columns, k < KP, from the (tile, D) slot `term` and MT (D, KP*D).
+template <typename T, int RT, int KP>
+__device__ __forceinline__ void chain_products(const T* term, const T* __restrict__ mt, int D,
+                                               int rg, int cg, int ncg, T (&y)[KP][RT][CT]) {
+#pragma unroll
+  for (int k = 0; k < KP; ++k)
+#pragma unroll
+    for (int q = 0; q < RT; ++q)
+#pragma unroll
+      for (int c = 0; c < CT; ++c) y[k][q][c] = T(0);
+  const T* trow = term + (size_t)(rg * RT) * D;
+  if (D % CT == 0)
+    chain_products_body<true, T, RT, KP>(trow, mt, D, cg, ncg, y);
+  else
+    chain_products_body<false, T, RT, KP>(trow, mt, D, cg, ncg, y);
 }
 
 // One chain step of a tile (see the note above); every thread of the block

@@ -1,5 +1,5 @@
 """Problem/model library."""
 
-from .quantum import DrivenDense, LandauZener
+from .quantum import DrivenDense, LandauZener, PulseControl
 
-__all__ = ["DrivenDense", "LandauZener"]
+__all__ = ["DrivenDense", "LandauZener", "PulseControl"]

@@ -1,5 +1,5 @@
 """Quantum model family (the part of ``vec_ode_tpu/models/quantum.py`` the
-ensemble paths use): time-dependent Schrödinger problems
+ensemble and adjoint paths use): time-dependent Schrödinger problems
 dpsi/dt = -i H(t) psi."""
 
 from __future__ import annotations
@@ -138,3 +138,105 @@ class DrivenDense:
                          w=(0.0, float(self.w)))
         return ModulatedOperator(basis=basis, coeff_fn=form.sample,
                                  form=form)
+
+
+@dataclasses.dataclass(frozen=True)
+class PulseControl:
+    """Quantum optimal control (state transfer): H(t; theta) = H0 +
+    u(t; theta) Hc with the sine-series pulse u(t; theta) = sum_j theta_j
+    sin(j pi t / T), which vanishes at both ends. Maximising the transfer
+    fidelity |<tgt|psi(T)>|^2 over theta is the workload of
+    :func:`vec_ode_tpu_torch.diff.adjoint_solve`: many optimiser steps,
+    each a full solve and an O(1)-memory gradient. H0 and Hc are host-side
+    complex numpy arrays; ``make`` is the JAX package's numpy code, so a
+    seed gives bit-identical matrices."""
+
+    H0: np.ndarray          # (d, d) complex Hermitian drift
+    Hc: np.ndarray          # (d, d) complex Hermitian control
+    T: float = 3.0          # pulse duration
+    n_modes: int = 4        # sine modes of the pulse
+
+    def __post_init__(self):
+        # basis_pair's bases by (dtype, device), made at first use
+        object.__setattr__(self, "_bases", {})
+
+    @staticmethod
+    def make(d: int = 4, seed: int = 0, T: float = 3.0, n_modes: int = 4):
+        rng = np.random.default_rng(seed)
+        M = rng.standard_normal((d, d)) + 1j * rng.standard_normal((d, d))
+        H0 = (M + M.conj().T) / (2 * math.sqrt(d))
+        N = rng.standard_normal((d, d)) + 1j * rng.standard_normal((d, d))
+        Hc = (N + N.conj().T) / (2 * math.sqrt(d))
+        return PulseControl(H0=H0, Hc=Hc, T=T, n_modes=n_modes)
+
+    def basis_pair(self, dtype=torch.float64, device="cuda"):
+        """The Cplx (2, d, d) basis [-i H0, -i Hc], -i (Hr + i Hi) = (Hi,
+        -Hr), on the card unless ``device`` names another; made once per
+        (dtype, device)."""
+        from ..ops.cplx import Cplx, from_complex
+
+        key = (dtype, torch.device(device))
+        if key not in self._bases:
+            H0 = from_complex(self.H0, dtype, device=device)
+            Hc = from_complex(self.Hc, dtype, device=device)
+            self._bases[key] = Cplx(torch.stack([H0.im, Hc.im]),
+                                    torch.stack([-H0.re, -Hc.re]))
+        return self._bases[key]
+
+    def coeff_fn(self, t, theta):
+        """(..., 2) coefficients [1, u(t; theta)] for times t (...,),
+        differentiable in theta and t; the operations in the JAX package's
+        order (pi / T first). A Python time is taken in float64."""
+        if not isinstance(t, torch.Tensor):
+            t = torch.tensor(t, dtype=torch.float64, device=theta.device)
+        j = torch.arange(1, self.n_modes + 1, dtype=theta.dtype,
+                         device=theta.device)
+        u = torch.sum(theta * torch.sin(j * (math.pi / self.T)
+                                        * t[..., None]), dim=-1)
+        return torch.stack([torch.ones_like(u), u], dim=-1)
+
+    def pulse(self, t, theta):
+        """u(t; theta) alone."""
+        return self.coeff_fn(t, theta)[..., 1]
+
+    @staticmethod
+    def fidelity(psi, tgt):
+        """|<tgt|psi>|^2 for Cplx states (trailing state axis)."""
+        re = torch.sum(tgt.re * psi.re + tgt.im * psi.im, dim=-1)
+        im = torch.sum(tgt.re * psi.im - tgt.im * psi.re, dim=-1)
+        return re * re + im * im
+
+    def infidelity(self, theta, psi0, tgt, *, n_steps=256, order=4,
+                   dtype=torch.float64):
+        """1 - the fidelity summed over the batch of the theta-controlled
+        transfer psi0 -> tgt at t = T, differentiable through the
+        O(1)-memory reversible adjoint; runs where psi0 lies."""
+        from ..diff import adjoint_solve
+
+        yf = adjoint_solve(self.basis_pair(dtype, psi0.re.device),
+                           self.coeff_fn, theta, psi0, 0.0, self.T,
+                           n_steps=n_steps, order=order)
+        return 1.0 - torch.sum(self.fidelity(yf, tgt))
+
+    def gate_infidelity(self, theta, U_target, *, n_steps=256, order=4,
+                        dtype=torch.float64):
+        """1 - |tr(U_target^dagger U(T; theta)) / d|^2, gate synthesis: the
+        d basis columns go through the same adjoint solve as one batch;
+        runs where theta lies."""
+        from ..diff import adjoint_solve
+        from ..ops.cplx import Cplx
+
+        Ut = np.asarray(U_target)
+        d = Ut.shape[-1]
+        dev = theta.device
+        cols0 = Cplx(torch.eye(d, dtype=dtype, device=dev),
+                     torch.zeros((d, d), dtype=dtype, device=dev))
+        yf = adjoint_solve(self.basis_pair(dtype, dev), self.coeff_fn,
+                           theta, cols0, 0.0, self.T, n_steps=n_steps,
+                           order=order)
+        # yf rows are U(T) columns: yf[j] = U e_j; overlap tr(Ut^dagger U)/d
+        Ur = torch.tensor(Ut.real, dtype=dtype, device=dev)
+        Ui = torch.tensor(Ut.imag, dtype=dtype, device=dev)
+        re = torch.sum(Ur.T * yf.re + Ui.T * yf.im) / d
+        im = torch.sum(Ur.T * yf.im - Ui.T * yf.re) / d
+        return 1.0 - (re * re + im * im)

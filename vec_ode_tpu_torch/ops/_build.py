@@ -24,8 +24,10 @@ import time
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 # the step kernel K1, the loop kernel K2 (with the steps K3 and K5), the
-# chain step kernel K4, the per-trajectory dense chain kernel K9
-SOURCES = ("fused_rk_step", "fused_loop", "chain_expmv", "dense_chains")
+# chain step kernel K4, the per-trajectory dense chain kernel K9, the
+# adjoint kernels K6, K7 and K8
+SOURCES = ("fused_rk_step", "fused_loop", "chain_expmv", "dense_chains",
+           "adjoint")
 BUILD_DIR = CSRC.parents[1] / "build" / "kernels"
 # no --use_fast_math: the kernels' drive and norms need the full-precision
 # cos and sqrt; -Xptxas -v leaves each kernel's registers and spills in

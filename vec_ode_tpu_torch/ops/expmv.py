@@ -254,6 +254,15 @@ def stacked_transpose(basis_w: torch.Tensor) -> torch.Tensor:
     return basis_w.permute(2, 0, 1).reshape(D, Kp * D).contiguous()
 
 
+def stacked_basis(basis_w: torch.Tensor) -> torch.Tensor:
+    """[M_0 | ... | M_{K'-1}], (D, K'D) contiguous: the operand of the
+    transposed action v -> M_k^T v in the same product as
+    :func:`stacked_transpose` (row j holds M_k[j, :]), so no transposed
+    copy of the basis is made."""
+    Kp, D, _ = basis_w.shape
+    return basis_w.permute(1, 0, 2).reshape(D, Kp * D).contiguous()
+
+
 @functools.cache
 def _kernel_lib() -> ctypes.CDLL:
     """K4's library, built on first use, with its entry points' argument
