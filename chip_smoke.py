@@ -20,6 +20,12 @@ drives the port's paths once at full width through
 * the Magnus per-step path: the same solve on an operator without a
   declared coefficient form, a launch of the chain kernel
   ``fused_chain_apply`` (K4) per driver iteration;
+* the order-6 and commutator-free paths: adaptive Magnus-6
+  (``exp.MagnusModulated6``, three exponentials per chain) and CFM-4
+  (``exp.CFM4Modulated``, two) on the same model over 16 384 trajectories,
+  in one loop launch (K2 with K5) and per step (K4), and per step at the
+  JAX package's own record of 256; K4 and K5 held against their twins for
+  these and BLANES17's four rows over three nodes;
 * the Landau-Zener path: 16 384 fixed-step exponential-midpoint sweeps of
   a 2-level avoided crossing in the loop kernel's fixed-step mode, held
   against the closed-form transition probability;
@@ -29,10 +35,15 @@ drives the port's paths once at full width through
   operator samples, a launch of the dense chain kernel
   ``fused_dense_chain_apply`` (K9) per driver iteration; the same solve
   with each step by a stacked batched ``expm`` (the library reference) and
-  against the Magnus loop path.
+  against the Magnus loop path;
+* the reversible adjoint (K6, K7, K8) on ``PulseControl``: fixed-step,
+  with saves and anchors, and adaptive at Magnus orders 4 and 6 and over
+  CFM-4 rows, against f64 ``matrix_exp`` oracles;
+* ``Lindblad`` open-system ensembles (256 density matrices, d = 8) with
+  Magnus-4 and Magnus-6, the trace kept.
 
 Then it times the paths and each kernel against its plain version, its
-bound and, for K4 and K9, a library yardstick. Every phase raises on failure, so
+bound and, for K4, K6-K8 and K9, a library yardstick. Every phase raises on failure, so
 any failure exits non-zero; without a CUDA card it exits non-zero before
 any result.
 
@@ -58,13 +69,16 @@ from vec_ode_tpu_torch import (DONE, DOPRI5, ERR_MAX_STEPS, ERR_STALLED,
                                RKF45, StepControl, driver, lc)
 from vec_ode_tpu_torch import tableaus as ttab
 from vec_ode_tpu_torch import exp as texp
-from vec_ode_tpu_torch.exp import MagnusModulated4, MidpointModulated
+from vec_ode_tpu_torch.exp import (CFM4Modulated, CFMModulated,
+                                   MagnusModulated4, MagnusModulated6,
+                                   MidpointModulated)
 from vec_ode_tpu_torch.exp import cfm as tcfm
 from vec_ode_tpu_torch.exp import dense_fast
 from vec_ode_tpu_torch.exp import magnus as tmagnus
 from vec_ode_tpu_torch.exp import split_solvers as tsplit
 from vec_ode_tpu_torch.exp.modulated import _taylor_params
-from vec_ode_tpu_torch.models import DrivenDense, LandauZener, PulseControl
+from vec_ode_tpu_torch.models import (DrivenDense, LandauZener, Lindblad,
+                                      PulseControl)
 from vec_ode_tpu_torch.ops import adjoint as tadj
 from vec_ode_tpu_torch.ops import (_build, dense_chains, expmv, fused_loop,
                                    fused_rk)
@@ -724,12 +738,36 @@ LZ = dict(v=2.0, delta=0.4)
 LZ_T, LZ_H = 20.0, 0.01
 
 
+# BLANES17's four exponentials over the three Gauss-Legendre nodes, with an
+# exponential-midpoint comparison row (zero alphas; three zero pad rows)
+BLANES_ERR = ((0.0, 1.0, 0.0),)
+
+
+def r_stepper(kind, op, norm=None):
+    """The adaptive Magnus-4 pair, and the steppers with R > 1
+    exponentials per chain: Magnus-6 (adaptive or fixed), CFM-4 (adaptive
+    or fixed), BLANES17 with BLANES_ERR."""
+    if kind == "magnus4":
+        return MagnusModulated4(op, norm=norm)
+    if kind.startswith("magnus6"):
+        return MagnusModulated6(op, adaptive=kind == "magnus6", norm=norm)
+    if kind.startswith("cfm4"):
+        return CFM4Modulated(op, adaptive=kind == "cfm4", norm=norm)
+    assert kind == "blanes", kind
+    return CFMModulated(op, alpha=ttab.BLANES17_R4_J4,
+                        c=ttab.C_GAUSS_LEGENDRE_6, alpha_err=BLANES_ERR,
+                        norm=norm)
+
+
 def chain_stepper(dtype, d=DIM, fast_error=False, midpoint=False, norm=None,
-                  lz=False):
-    """A Magnus-4 (or midpoint) stepper on DrivenDense(d, seed 0), or on the
-    Landau-Zener operator, on the card."""
+                  lz=False, kind="magnus4"):
+    """A Magnus-4 (or midpoint, or ``kind`` of r_stepper) stepper on
+    DrivenDense(d, seed 0), or on the Landau-Zener operator, on the
+    card."""
     model = LandauZener(**LZ) if lz else DrivenDense.make(d=d, seed=0)
     op = model.modulated(dtype, device="cuda")
+    if kind != "magnus4":
+        return r_stepper(kind, op, norm)
     if midpoint:
         return MidpointModulated(op)
     return MagnusModulated4(op, fast_error=fast_error, norm=norm)
@@ -752,8 +790,8 @@ def chain_inputs(st, B, dtype, seed=7, dt_range=(1e-3, 5e-2)):
     t = torch.as_tensor(rng.uniform(0, 1, B), dtype=dtype, device="cuda")
     dt = torch.as_tensor(rng.uniform(*dt_range, B), dtype=dtype,
                          device="cuda")
-    samples = [st.op.coeff_fn(tn).contiguous()
-               for tn in node_times(st._recipe, t, dt)]
+    samples = [st.op.coeff_fn(tn).contiguous() for tn in
+               node_times(st._recipe, t, dt, st._chains, st._table)]
     return samples, dt, xw
 
 
@@ -762,7 +800,7 @@ def chain_pair(st, samples, dt, xw, wnorm=None, kernel=True):
     ``kernel`` the twin's alone."""
     mt, norms, m, theta = chain_operands(st, xw.dtype)
     kw = dict(recipe=st._recipe, C=st._chains, m=m, theta=theta,
-              wnorm=wnorm)
+              wnorm=wnorm, table=st._table)
     want = torch_chain_step(samples, dt, xw, mt, norms, **kw)
     if not kernel:
         return want
@@ -770,9 +808,9 @@ def chain_pair(st, samples, dt, xw, wnorm=None, kernel=True):
 
 
 def check_chain_step(B, dtype, label, dt_range=(1e-3, 5e-2), wnorm=None,
-                     **stkw) -> tuple:
-    """K4 against torch_chain_step on the card. The state: f64 to 1e-12 of
-    its scale (only the products' summation order differs), f32 to
+                     x_rel=1e-12, **stkw) -> tuple:
+    """K4 against torch_chain_step on the card. The state: f64 to ``x_rel``
+    of its scale (only the products' summation order differs), f32 to
     bench.py's on-device limit 1e-5. The error norm per row: f64 within
     1e-9 of it plus 1e-18; f32 within 1e-4 of it plus a floor of four
     times the plain f32 step's largest deviation from the plain f64 step
@@ -786,7 +824,7 @@ def check_chain_step(B, dtype, label, dt_range=(1e-3, 5e-2), wnorm=None,
     if not has_err:
         ep = torch.zeros_like(ek)
     if dtype == torch.float64:
-        x_lim, e_lim, floor = 1e-12 * max(float(yp.abs().max()), 1.0), \
+        x_lim, e_lim, floor = x_rel * max(float(yp.abs().max()), 1.0), \
             1e-9 * ep.abs() + 1e-18, 1e-18
     else:
         st64 = chain_stepper(torch.float64, **stkw)
@@ -868,9 +906,26 @@ CHAIN_CASES = {
                     y0="lz", ctl=dict(max_steps=5000)),
     # the main path's settings, t in [0, 1]
     "magnus_path": dict(grid=(0.0, TF)),
+    # R > 1 exponentials per chain
+    "magnus6": dict(kind="magnus6"),
+    "magnus6_save_grid": dict(kind="magnus6",
+                              grid=(0.0, 0.075, 0.15, 0.225, 0.3)),
+    "magnus6_weighted_l2": dict(kind="magnus6", norm=("l2", True)),
+    "magnus6_fixed": dict(kind="magnus6_fixed", h0=0.05),
+    "magnus6_h0_per_row": dict(kind="magnus6", h0="per_row"),
+    "cfm4": dict(kind="cfm4"),
+    "cfm4_scaled_error": dict(kind="cfm4", ctl=dict(scaled_error=True,
+                                                    rtol=1e-6, atol=1e-9)),
+    "cfm4_weighted_max": dict(kind="cfm4", norm=("max", False)),
+    "cfm4_fixed": dict(kind="cfm4_fixed", grid=(0.0, 0.1, 0.3), h0=0.03),
+    "blanes": dict(kind="blanes", ctl=dict(pi=True)),
+    "magnus6_path": dict(kind="magnus6", grid=(0.0, TF)),
+    "cfm4_path": dict(kind="cfm4", grid=(0.0, TF)),
 }
 # the cases run at their path's batch (the tiling the path runs) alone
-CHAIN_PATHS = ("lz_path", "magnus_path")
+CHAIN_PATHS = ("lz_path", "magnus_path", "magnus6_path", "cfm4_path")
+# the cases of the steppers with R > 1 exponentials per chain
+R_CASES = [k for k, c in CHAIN_CASES.items() if "kind" in c]
 
 
 def chain_loop_case(name, B, dtype, seed=11):
@@ -882,6 +937,7 @@ def chain_loop_case(name, B, dtype, seed=11):
     st = chain_stepper(
         dtype, fast_error=case.get("fast_error", False),
         midpoint=case.get("midpoint", False), lz=case.get("lz", False),
+        kind=case.get("kind", "magnus4"),
         norm=None if norm is None else lc.WeightedNorm(
             norm[0], tuple(np.linspace(0.5, 2.0, DIM)) if norm[1] else None))
     d = 2 if case.get("lz") else DIM
@@ -895,7 +951,8 @@ def chain_loop_case(name, B, dtype, seed=11):
                      C=st._chains, m=m, theta=theta,
                      scaled=(ctl.atol, ctl.rtol) if ctl.scaled_error
                      else None,
-                     wnorm=None if norm is None else st._wnorm_of(y0))
+                     wnorm=None if norm is None else st._wnorm_of(y0),
+                     table=st._table)
     grid = torch.tensor(case.get("grid", (0.0, 0.3)), dtype=torch.float64)
     carries = init_carries(grid, torch.cat([y0.re, y0.im], 1),
                            torch.as_tensor(h0, dtype=torch.float64))
@@ -959,7 +1016,7 @@ def check_chain_persistent_is_chunked(name, B, dtype) -> None:
 
 def chain_loop_kernel_phase() -> float:
     for name in CHAIN_CASES:
-        if name not in CHAIN_PATHS:
+        if name not in CHAIN_PATHS and name not in R_CASES:
             check_chain_loop_pair(name, 1000, torch.float64)   # ragged tiles
     for name in ("plain", "save_grid", "pi", "lz_magnus4", "lz_midpoint"):
         check_chain_loop_pair(name, LOOP_TRAJ, torch.float32)
@@ -969,73 +1026,6 @@ def chain_loop_kernel_phase() -> float:
     # both paths' own inputs at their batch, so at the tiles they run
     check_chain_loop_pair("lz_path", N_TRAJ, torch.float32)
     return check_chain_loop_pair("magnus_path", N_TRAJ, torch.float32)
-
-
-def magnus_inputs(n=N_TRAJ, form=True):
-    """The Magnus path's inputs: the main path's unit states and
-    DrivenDense(64, seed 0) as a modulated operator, with its declared
-    coefficient form or (form=False) only its coefficient function."""
-    op = DrivenDense.make(d=DIM, seed=0).modulated(torch.float32,
-                                                   device="cuda")
-    if not form:
-        op = dataclasses.replace(op, form=None)
-    _, y0 = main_inputs(n)
-    return MagnusModulated4(op), y0
-
-
-def magnus_solve(st, y0):
-    return ensemble_solve(None, y0, 0.0, TF, stepper=st, ctl=MAG_CTL, h0=H0,
-                          time_dtype=torch.float32)
-
-
-def magnus_loop_path_phase():
-    """The slice's main path: 16384x64c Magnus-4 in one loop launch."""
-    st, y0 = magnus_inputs()
-    reset_counts()
-    sol = magnus_solve(st, y0)
-    torch.cuda.synchronize()
-    k1, k2, k4 = counts()
-    assert sol.path == "cuda-loop-persistent", sol.path
-    assert (k1, k2, k4) == (0, 1, 0), (k1, k2, k4)
-    n_done = int((sol.status == DONE).sum())
-    assert n_done == N_TRAJ, f"{N_TRAJ - n_done} trajectories not DONE"
-    y = torch.complex(sol.y_final.re, sol.y_final.im)
-    assert y.shape == (N_TRAJ, DIM) and bool(torch.isfinite(y.real).all()
-                                             & torch.isfinite(y.imag).all())
-    norm_dev = float((y.abs().pow(2).sum(-1).sqrt() - 1).abs().max())
-    assert norm_dev <= 1e-4, f"|psi| drifted by {norm_dev}"
-    print(f"[magnus-loop] {N_TRAJ}x{DIM}c MagnusModulated4 rtol="
-          f"{MAG_CTL.rtol:g}: all DONE, max||psi|-1|={norm_dev:.3e}, path="
-          f"{sol.path}, launches K1/K2/K4 = {k1}/{k2}/{k4}, n_accept "
-          f"{int(sol.n_accept.min())}..{int(sol.n_accept.max())}, n_reject "
-          f"{int(sol.n_reject.min())}..{int(sol.n_reject.max())}, n_iters up "
-          f"to {int(sol.n_iters.max())}", flush=True)
-    return k2, sol
-
-
-def magnus_step_path_phase(loop_sol):
-    """The same solve with only a coefficient function: the host driver and
-    a K4 launch per iteration; counters within 1 of the loop path's."""
-    st, y0 = magnus_inputs(form=False)
-    reset_counts()
-    sol = magnus_solve(st, y0)
-    torch.cuda.synchronize()
-    k1, k2, k4 = counts()
-    n_iters = int(sol.n_iters.max())
-    assert sol.path == "torch-driver+cuda-step", sol.path
-    assert (k1, k2) == (0, 0) and k4 == n_iters, (k1, k2, k4, n_iters)
-    assert int((sol.status == DONE).sum()) == N_TRAJ
-    dcount = max(int((getattr(sol, k) - getattr(loop_sol, k)).abs().max())
-                 for k in ("n_accept", "n_reject", "n_iters"))
-    dy = float(torch.maximum((sol.y_final.re - loop_sol.y_final.re).abs(),
-                             (sol.y_final.im - loop_sol.y_final.im).abs())
-               .max())
-    assert dcount <= 1 and dy <= 1e-4, (dcount, dy)
-    print(f"[magnus-step] {N_TRAJ}x{DIM}c, operator without a declared form: "
-          f"path={sol.path}, K4 launches={k4} == max n_iters={n_iters} "
-          f"(K1/K2 {k1}/{k2}); vs the loop path: max|dcount|={dcount} (<= 1), "
-          f"max|dy|={dy:.3e} (<= 1e-4)", flush=True)
-    return k4
 
 
 def lz_inputs(n=N_TRAJ, dtype=torch.float32):
@@ -1089,61 +1079,95 @@ def chain_flops(passes, D: int, m: int, recipe: str, K0: int,
     """Operations of passes[c] Taylor passes of chain c (each m terms: a
     (D, K_c D) product, the K_c-term weighted sum, the division and the
     running sum) and of fast_rows fast-error products over the commutator
-    columns. K_c counts the basis terms chain c's row can hold nonzero:
+    columns. K_c counts the basis terms chain c's rows can hold nonzero:
     the Magnus-4 pair's comparison chain (c = 1) has zero commutator
     columns, which the kernels multiply all the same (so that a non-finite
     state reaches the error) and which only ``zero_columns`` counts."""
     Kp = expmv.n_working_terms(recipe, K0)
     flop = 0
     for c, n in enumerate(passes):
-        k = K0 if c == 1 and not zero_columns else Kp
+        k = K0 if c == 1 and recipe == "magnus4" and not zero_columns else Kp
         flop += n * m * (2 * D * k * D + 2 * k * D + 2 * D)
     return flop + fast_rows * 2 * D * (Kp - K0) * D
 
 
+def work_passes(rows, n_pass, recipe, C, stepping=None) -> list:
+    """The Taylor passes per chain, summed over trajectories and rows, that
+    the data needs: a declared identity row, a zero row (CFM's pad rows)
+    and, with ``stepping``, a row that does not step need none, though the
+    kernels run one pass of a zero row."""
+    need = rows.abs().sum(-1) > 0
+    for c, r in expmv.identity_rows(recipe, C):
+        need[:, c, r] = False
+    if stepping is not None:
+        need &= stepping[:, None, None]
+    return (n_pass * need).sum((0, 2)).tolist()
+
+
 def passes_needed(st, samples, dt) -> list:
-    """The Taylor passes these inputs need per chain, summed over rows (the
-    twin's scaling rule)."""
+    """The Taylor passes these inputs need per chain (the twin's scaling
+    rule; work_passes)."""
     mt, norms, m, theta = chain_operands(st, dt.dtype)
-    rows = expmv.chain_rows(st._recipe, samples, dt, st._chains)
+    rows = expmv.chain_rows(st._recipe, samples, dt, st._chains, st._table)
     _, n_pass = expmv.scale_rows(rows, norms, theta, st.max_squarings)
-    return n_pass.sum(0).tolist()
+    return work_passes(rows, n_pass, st._recipe, st._chains)
 
 
-def k4_timing_phase(card: str):
-    """K4 per launch at the main path's 16384x64c f32 Magnus-4 pair (CUDA
-    events over 20 launches), its twin, and the library yardstick:
-    torch.linalg.matrix_exp of the assembled (2B, D, D) exponents of both
-    chains and bmm applying them, in batches of 4096 exponents (16 calls;
-    the error norm is not in it), checked against K4's advanced state."""
-    st = chain_stepper(torch.float32)
-    samples, dt, xw = chain_inputs(st, N_TRAJ, torch.float32)
+def chain_library(st, samples, dt, xw, n_lib=4096):
+    """The library yardstick of one K4 step: torch.linalg.matrix_exp of
+    the assembled (D, D) exponents of every row the step runs (the
+    declared identity rows left out), in batches of ``n_lib`` (one call
+    over 32 768 faulted with an illegal memory access on the H100, torch
+    2.11.0+cu128), then bmm applying each chain's in row order. Returns a
+    function of no arguments giving the C results."""
+    rows = expmv.chain_rows(st._recipe, samples, dt, st._chains, st._table)
+    ident = expmv.identity_rows(st._recipe, st._chains)
+    used = [(c, r) for c in range(rows.shape[1]) for r in range(rows.shape[2])
+            if (c, r) not in ident]
+    W = st._basis_w.to(rows)
+    A = torch.einsum("bnk,kij->bnij",
+                     torch.stack([rows[:, c, r] for c, r in used], 1), W)
+    B, n, D = A.shape[0], A.shape[1], A.shape[2]
+    flat = A.reshape(B * n, D, D)
+
+    def library():
+        E = torch.cat([torch.linalg.matrix_exp(a) for a in
+                       flat.split(n_lib)]).reshape(B, n, D, D)
+        out = []
+        for c in range(rows.shape[1]):
+            v = xw[:, :, None]
+            for i, (cc, _) in enumerate(used):
+                if cc == c:
+                    v = torch.bmm(E[:, i], v)
+            out.append(v[:, :, 0])
+        return out
+
+    return library
+
+
+def time_k4(st, B, label, card, dt_range=(1e-3, 5e-2)):
+    """K4 per launch on one step of ``st`` at B x 64c f32 (CUDA events over
+    20 launches), its twin, and the library yardstick (chain_library, the
+    error norm not in it), checked against K4's advanced state. Returns
+    (ms, plain_ms, bound_ms, bound_by, library_ms)."""
+    samples, dt, xw = chain_inputs(st, B, torch.float32, dt_range=dt_range)
     mt, norms, m, theta = chain_operands(st, torch.float32)
-    kw = dict(recipe=st._recipe, C=st._chains, m=m, theta=theta)
+    kw = dict(recipe=st._recipe, C=st._chains, m=m, theta=theta,
+              table=st._table)
     for _ in range(3):
         fused_chain_apply(samples, dt, xw, mt, norms, **kw)
         torch_chain_step(samples, dt, xw, mt, norms, **kw)
-    rows = expmv.chain_rows(st._recipe, samples, dt, st._chains)
-    A = torch.einsum("bck,kij->bcij", rows,
-                     st._basis_w.to(rows)).reshape(-1, 2 * DIM, 2 * DIM)
-    xs = xw.repeat_interleave(st._chains, 0)[:, :, None]
-    # in batches of 4096 exponents: one matrix_exp over all 32 768 faulted
-    # with an illegal memory access on the H100 (torch 2.11.0+cu128)
-    n_lib = 4096
-
-    def library():
-        return torch.cat([torch.bmm(torch.linalg.matrix_exp(a), x)
-                          for a, x in zip(A.split(n_lib), xs.split(n_lib))])
-
-    y_lib = library()[:, :, 0].reshape(N_TRAJ, st._chains, 2 * DIM)
+    library = chain_library(st, samples, dt, xw)
+    y_lib = library()[0]
     y_k4, _ = fused_chain_apply(samples, dt, xw, mt, norms, **kw)
     torch.cuda.synchronize()
-    d_lib = float((y_lib[:, 0] - y_k4).abs().max())
+    d_lib = float((y_lib - y_k4).abs().max())
     assert d_lib <= 1e-5, f"the library yardstick disagrees with K4: {d_lib}"
+    inner = 20 if B >= 4096 else 100
     k_runs, p_runs, l_runs = [], [], []
     for _ in range(3):  # in turns: kernel, plain, library
         k_runs.append(timed_ms(lambda: fused_chain_apply(
-            samples, dt, xw, mt, norms, **kw), reps=1, inner=20))
+            samples, dt, xw, mt, norms, **kw), reps=1, inner=inner))
         p_runs.append(timed_ms(lambda: torch_chain_step(
             samples, dt, xw, mt, norms, **kw), reps=1, inner=5))
         l_runs.append(timed_ms(library, reps=1, inner=5))
@@ -1152,28 +1176,35 @@ def k4_timing_phase(card: str):
     passes = passes_needed(st, samples, dt)
     D, Kp, K0 = 2 * DIM, mt.shape[1] // (2 * DIM), samples[0].shape[1]
     flop = chain_flops(passes, D, m, st._recipe, K0)
-    nbytes = 4 * (2 * N_TRAJ * D + 2 * N_TRAJ * 2 + 2 * N_TRAJ
-                  + Kp * D * D)
+    nbytes = 4 * (2 * B * D + len(samples) * B * K0 + 2 * B + Kp * D * D)
     b_ms, b_by = bound(flop, nbytes)
     b0_ms, _ = bound(chain_flops(passes, D, m, st._recipe, K0,
                                  zero_columns=True), nbytes)
-    print(f"[time] K4 one Magnus-4 pair step at B={N_TRAJ}, d={DIM}, f32 "
-          f"(Taylor passes over rows, per chain {passes}): kernel "
-          f"{k_ms:.4f} ms ({flop / k_ms / 1e9:.2f} TFLOP/s), plain twin "
-          f"{p_ms:.4f} ms, library (matrix_exp + bmm of both chains) "
-          f"{l_ms:.4f} ms (max|y_lib - y_K4|={d_lib:.2e}); runs kernel "
+    print(f"[time] K4 one {label} step at B={B}, d={DIM}, f32 (R="
+          f"{expmv.n_rows(st._recipe, st._table)}; Taylor passes over rows "
+          f"that need work, per chain {passes}): kernel {k_ms:.4f} ms "
+          f"({flop / k_ms / 1e9:.2f} TFLOP/s), plain twin {p_ms:.4f} ms, "
+          f"library (matrix_exp + bmm of every row run) {l_ms:.4f} ms "
+          f"(max|y_lib - y_K4|={d_lib:.2e}); runs kernel "
           f"{[round(v, 4) for v in k_runs]}, plain "
           f"{[round(v, 4) for v in p_runs]}, library "
           f"{[round(v, 4) for v in l_runs]}; bound {b_ms:.4f} ms by {b_by} "
           f"({flop / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB; "
-          f"{b0_ms:.4f} ms with the comparison chain's zero columns), "
-          f"kernel at {b_ms / k_ms:.1%} of it ({card})", flush=True)
+          f"{b0_ms:.4f} ms counting the zero columns), kernel at "
+          f"{b_ms / k_ms:.1%} of it ({card})", flush=True)
     return k_ms, p_ms, b_ms, b_by, l_ms
+
+
+def k4_timing_phase(card: str):
+    """K4 per launch at the Magnus per-step path's 16384x64c f32 Magnus-4
+    pair."""
+    return time_k4(chain_stepper(torch.float32), N_TRAJ, "Magnus-4 pair",
+                   card)
 
 
 class PassCounter:
     """A ChainStep's twin that also counts the Taylor passes its stepping
-    rows take per chain, for the loop's bound."""
+    rows need per chain (work_passes), for the loop's bound."""
 
     def __init__(self, step):
         self.step, self.passes, self.fast_rows = step, [0] * step.C, 0
@@ -1182,63 +1213,75 @@ class PassCounter:
 
     def plain(self, t, dt, xw):
         st = self.step
-        samples = [st.form.sample(tn) for tn in node_times(st.recipe, t, dt)]
-        rows = expmv.chain_rows(st.recipe, samples, dt, st.C)
+        samples = [st.form.sample(tn) for tn in
+                   node_times(st.recipe, t, dt, st.C, st.table)]
+        rows = expmv.chain_rows(st.recipe, samples, dt, st.C, st.table)
         _, n_pass = expmv.scale_rows(rows, st.norms, st.theta,
                                      st.max_squarings)
-        stepping = (dt != 0)[:, None]
-        self.passes = [a + b for a, b in zip(
-            self.passes, (n_pass * stepping).sum(0).tolist())]
+        stepping = dt != 0
+        self.passes = [a + b for a, b in zip(self.passes, work_passes(
+            rows, n_pass, st.recipe, st.C, stepping))]
         if st.recipe == "magnus4_fast":
             self.fast_rows += int(stepping.sum())
         return st.plain(t, dt, xw)
 
 
-def k5_timing_phase(card: str):
-    """The Magnus path's solve (one loop launch) and the per-step path's,
-    and the loop kernel with the chain step alone against its twin per
-    solve, beside the bound of the Taylor passes the twin takes."""
-    st, y0 = magnus_inputs()
-    loop_ms, _ = timed_solve(
-        lambda: magnus_solve(st, y0),
-        f"Magnus loop path {N_TRAJ}x{DIM}c f32, one loop launch (K5)", card)
-    st_step, _ = magnus_inputs(form=False)
-    step_ms, _ = timed_solve(
-        lambda: magnus_solve(st_step, y0),
-        f"Magnus per-step path on the same {N_TRAJ} inputs (K4)", card)
+def time_k5(st, y0, ctl, label, card):
+    """The loop kernel with the chain step alone (one persistent launch
+    over t in [0, TF] from h0 = H0) against its twin per solve, beside the
+    bound of the Taylor passes the twin's stepping rows need. Returns
+    (ms, plain_ms, bound_ms, bound_by)."""
+    B = y0.re.shape[0]
     grid = driver.make_grid(0.0, TF, dtype=torch.float32, device="cuda")
     mt, norms, m, theta = chain_operands(st, torch.float32)
     step = ChainStep(mt=mt, norms=norms, form=st.op.form, recipe=st._recipe,
-                     C=st._chains, m=m, theta=theta)
+                     C=st._chains, m=m, theta=theta, table=st._table)
     carries = init_carries(grid, torch.cat([y0.re, y0.im], 1), H0)
-    out = fused_loop_chunk(*carries, step, ctl=MAG_CTL)
+    out = fused_loop_chunk(*carries, step, ctl=ctl, adaptive=st._adaptive)
     k_runs, p_runs = [], []
     counter = PassCounter(step)
     for i in range(3):  # in turns: kernel, plain
         k_runs.append(timed_ms(lambda: fused_loop_chunk(
-            *carries, step, ctl=MAG_CTL), reps=1))
+            *carries, step, ctl=ctl, adaptive=st._adaptive), reps=1))
         p_runs.append(timed_ms(lambda: torch_fused_loop(
             *carries[:4], carries[4].clone(), counter if i == 0 else step,
-            ctl=MAG_CTL), reps=1))
+            ctl=ctl, adaptive=st._adaptive), reps=1))
     k_ms, p_ms = statistics.median(k_runs), statistics.median(p_runs)
     D, Kp, K0 = 2 * DIM, mt.shape[1] // (2 * DIM), step.form.n_terms
     steps = int((out[1][:, 3] + out[1][:, 4]).sum())
     flop = chain_flops(counter.passes, D, m, step.recipe, K0,
                        counter.fast_rows)
-    nbytes = 4 * (2 * N_TRAJ * (5 + D) + Kp * D * D + 2) + 2 * 4 * N_TRAJ * 8
+    nbytes = 4 * (2 * B * (5 + D) + Kp * D * D + 2) + 2 * 4 * B * 8
     b_ms, b_by = bound(flop, nbytes)
     b0_ms, _ = bound(chain_flops(counter.passes, D, m, step.recipe, K0,
                                  counter.fast_rows, zero_columns=True),
                      nbytes)
-    print(f"[time] K2 with the chain step (K5) at the Magnus path "
-          f"({N_TRAJ}x{DIM}c, f32): kernel {k_ms:.4f} ms (runs "
-          f"{[round(v, 4) for v in k_runs]}), plain twin {p_ms:.4f} ms (runs "
-          f"{[round(v, 4) for v in p_runs]}); bound {b_ms:.4f} ms by {b_by} "
-          f"({steps} steps, Taylor passes per chain {counter.passes}, "
-          f"{flop / 1e9:.1f} GFLOP; {b0_ms:.4f} ms with the comparison "
-          f"chain's zero columns), kernel at {b_ms / k_ms:.1%} of it; loop "
-          f"path {loop_ms:.3f} ms vs per-step path {step_ms:.3f} ms ({card})",
-          flush=True)
+    print(f"[time] K2 with the chain step (K5) at the {label} "
+          f"({B}x{DIM}c, f32, R={expmv.n_rows(st._recipe, st._table)}): "
+          f"kernel {k_ms:.4f} ms (runs {[round(v, 4) for v in k_runs]}), "
+          f"plain twin {p_ms:.4f} ms (runs {[round(v, 4) for v in p_runs]}); "
+          f"bound {b_ms:.4f} ms by {b_by} ({steps} steps, Taylor passes per "
+          f"chain {counter.passes} (identity and zero rows need none), "
+          f"{flop / 1e9:.1f} GFLOP; {b0_ms:.4f} ms counting the zero "
+          f"columns), kernel at {b_ms / k_ms:.1%} of it ({card})", flush=True)
+    return k_ms, p_ms, b_ms, b_by
+
+
+def k5_timing_phase(card: str):
+    """The Magnus path's solve (one loop launch) and the per-step path's,
+    the loop kernel with the chain step alone against its twin per solve,
+    and the Landau-Zener path."""
+    st, y0 = r_inputs("magnus4")
+    loop_ms, _ = timed_solve(
+        lambda: r_solve(st, y0),
+        f"Magnus loop path {N_TRAJ}x{DIM}c f32, one loop launch (K5)", card)
+    st_step, _ = r_inputs("magnus4", form=False)
+    step_ms, _ = timed_solve(
+        lambda: r_solve(st_step, y0),
+        f"Magnus per-step path on the same {N_TRAJ} inputs (K4)", card)
+    k5 = time_k5(st, y0, MAG_CTL, "Magnus path", card)
+    print(f"[time] Magnus loop path {loop_ms:.3f} ms vs per-step path "
+          f"{step_ms:.3f} ms ({card})", flush=True)
     st_lz, y_lz = lz_inputs()
     lz_ms, _ = timed_solve(lambda: lz_solve(st_lz, y_lz),
                            f"Landau-Zener path {N_TRAJ} sweeps, "
@@ -1251,7 +1294,7 @@ def k5_timing_phase(card: str):
           f"{lz_b_ms / lz_ms:.2%} of it: the path is bound by latency, a "
           f"step is {lz_ms / round(2 * LZ_T / LZ_H) * 1e3:.1f} us of "
           f"dependent block barriers ({card})", flush=True)
-    return k_ms, p_ms, b_ms, b_by
+    return k5
 
 
 def lz_bound(st):
@@ -1273,6 +1316,260 @@ def lz_bound(st):
     nbytes = 4 * (2 * N_TRAJ * (5 + 4) + mt.numel() + 2) + 2 * 4 * N_TRAJ * 8
     b_ms, b_by = bound(flop, nbytes)
     return b_ms, b_by, flop, passes
+
+
+# -- R > 1 exponentials per chain: Magnus-6 and CFM (K4 and K5) -------------
+
+# the JAX package's record of these steppers (benchmarks.py:546-561 and
+# 668-688): rtol 1e-5, min_dt 1e-5, max_dt 0.25, h0 1e-2, 256 states from
+# default_rng(3)
+REC_B, REC_CTL, REC_H0 = 256, StepControl(rtol=1e-5, min_dt=1e-5,
+                                          max_dt=0.25), 1e-2
+LABELS = {"magnus4": "Magnus-4", "magnus6": "Magnus-6", "cfm4": "CFM-4"}
+R_KINDS = ("magnus6", "cfm4")
+
+
+def check_chain_edges(kind, dtype) -> None:
+    """K4 on a row whose dt is 0 (x exactly) and a row with a NaN state
+    (its error NaN, the other rows finite and as the twin's)."""
+    st = chain_stepper(dtype, kind=kind)
+    samples, dt, xw = chain_inputs(st, 300, dtype)
+    dt[3] = 0.0
+    xw[5, 0] = float("nan")
+    (yk, ek), (yp, ep) = chain_pair(st, samples, dt, xw)
+    torch.cuda.synchronize()
+    rest = torch.ones(300, dtype=torch.bool, device="cuda")
+    rest[5] = False
+    ok = (torch.equal(yk[3], xw[3]) and bool(torch.isnan(yk[5]).any())
+          and bool(torch.isfinite(yk[rest]).all())
+          and float((yk[rest] - yp[rest]).abs().max()) <= 1e-4)
+    if ep is not None:
+        ok = ok and bool(torch.isnan(ek[5])) and bool(
+            torch.isfinite(ek[rest]).all()) and float(ek[3]) == 0.0
+    print(f"[chain-step] {kind} {str(dtype)[6:]} edges: dt = 0 row returns "
+          f"x exactly, the NaN row stays in its row"
+          f"{' (its error NaN)' if ep is not None else ''}; "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"K4 edge rows: {kind} {dtype}")
+
+
+# steps long enough that each row's f64 error (the difference of two
+# chains whose roundings do not cancel: the Magnus-6 sub-rows against the
+# full row, the CFM rows against the comparison rows) is above 1e-5 of the
+# state, so that it is held to 1e-9 of itself; and f32 steps where it is
+# above 1e-4, so that every row's norm is held to 10%
+R_DT64 = {"magnus6": (0.3, 0.6), "cfm4": (0.1, 0.4), "blanes": (0.1, 0.4)}
+R_DT32 = {"magnus6": (0.4, 0.8), "cfm4": (0.2, 0.4)}
+
+
+def chain_step_r_phase() -> dict:
+    """K4 with R > 1 against its twin: f64 at B = 1000 for Magnus-6 (C = 2
+    and fixed), CFM-4 (C = 2 and fixed) and BLANES17 (four rows, three
+    nodes, zero alphas, three zero pad rows), with declared norms, states
+    to 1e-13 of their scale; f32 at B = 1000 for each and at the path's
+    16384 for Magnus-6 and CFM-4, on short steps and on long ones where
+    every row's norm is held to 10%; the edge rows. Returns {kind: max
+    |dy| at the path's shape}."""
+    f64, f32 = torch.float64, torch.float32
+    for kind in ("magnus6", "magnus6_fixed", "cfm4", "cfm4_fixed", "blanes"):
+        check_chain_step(1000, f64, kind, dt_range=R_DT64[kind.split("_")[0]],
+                         x_rel=1e-13, kind=kind)
+        check_chain_step(1000, f32, kind, kind=kind)
+        for dtype in (f32, f64):
+            check_chain_edges(kind, dtype)
+    check_chain_step(1000, f64, "magnus6 l2 weighted", kind="magnus6",
+                     dt_range=R_DT64["magnus6"], x_rel=1e-13,
+                     wnorm=weighted("l2", DIM))
+    check_chain_step(1000, f64, "cfm4 max", kind="cfm4",
+                     dt_range=R_DT64["cfm4"], x_rel=1e-13,
+                     wnorm=weighted("max", DIM, False))
+    errs = {}
+    for kind in R_KINDS:
+        _, sensitive = check_chain_step(N_TRAJ, f32, kind,
+                                        dt_range=R_DT32[kind], kind=kind)
+        if sensitive != N_TRAJ:
+            raise AssertionError(
+                f"the long-step check of {kind} holds only "
+                f"{sensitive}/{N_TRAJ} error norms to 10%")
+        errs[kind] = check_chain_step(N_TRAJ, f32, kind, kind=kind)[0]
+    return errs
+
+
+def chain_loop_r_phase() -> dict:
+    """K5 with R > 1 in the loop kernel against the loop's twin: f64 at
+    B = 1000 (counters equal per trajectory), f32 at 2048, persistent
+    against chunked, and each path's own inputs at 16384. Returns {kind:
+    max |dx| at the path}."""
+    for name in R_CASES:
+        if name not in CHAIN_PATHS:
+            check_chain_loop_pair(name, 1000, torch.float64)
+    for name in ("magnus6", "magnus6_fixed", "cfm4", "cfm4_fixed"):
+        check_chain_loop_pair(name, LOOP_TRAJ, torch.float32)
+    check_chain_persistent_is_chunked("magnus6_save_grid", 1000,
+                                      torch.float64)
+    check_chain_persistent_is_chunked("cfm4_fixed", LOOP_TRAJ, torch.float32)
+    return {kind: check_chain_loop_pair(f"{kind}_path", N_TRAJ,
+                                        torch.float32) for kind in R_KINDS}
+
+
+def r_inputs(kind, n=N_TRAJ, form=True, seed=42):
+    """The kind's stepper on DrivenDense(64, seed 0) in f32 (with its
+    declared form, or only its coefficient function) and n unit states
+    from default_rng(seed) (at seed 42 the main path's)."""
+    op = DrivenDense.make(d=DIM, seed=0).modulated(torch.float32,
+                                                   device="cuda")
+    if not form:
+        op = dataclasses.replace(op, form=None)
+    return r_stepper(kind, op), unit_states(n, DIM, torch.float32, seed)
+
+
+def r_solve(st, y0, ctl=MAG_CTL, h0=H0):
+    return ensemble_solve(None, y0, 0.0, TF, stepper=st, ctl=ctl, h0=h0,
+                          time_dtype=torch.float32)
+
+
+def check_unit_solution(sol, n, label):
+    n_done = int((sol.status == DONE).sum())
+    assert n_done == n, f"{label}: {n - n_done} trajectories not DONE"
+    y = torch.complex(sol.y_final.re, sol.y_final.im)
+    assert y.shape == (n, DIM) and bool(torch.isfinite(y.real).all()
+                                        & torch.isfinite(y.imag).all())
+    norm_dev = float((y.abs().pow(2).sum(-1).sqrt() - 1).abs().max())
+    assert norm_dev <= 1e-4, f"{label}: |psi| drifted by {norm_dev}"
+    return norm_dev
+
+
+def r_loop_path_phase(kind):
+    """A Magnus loop path: 16384x64c of the kind (Magnus-4, or R > 1
+    exponentials per chain) in one loop launch (K2 with K5), all DONE,
+    |psi| = 1 within 1e-4."""
+    st, y0 = r_inputs(kind)
+    reset_counts()
+    sol = r_solve(st, y0)
+    torch.cuda.synchronize()
+    k1, k2, k4 = counts()
+    assert sol.path == "cuda-loop-persistent", sol.path
+    assert (k1, k2, k4) == (0, 1, 0), (k1, k2, k4)
+    norm_dev = check_unit_solution(sol, N_TRAJ, kind)
+    print(f"[{kind}-loop] {N_TRAJ}x{DIM}c {type(st).__name__} rtol="
+          f"{MAG_CTL.rtol:g}: all DONE, max||psi|-1|={norm_dev:.3e}, path="
+          f"{sol.path}, launches K1/K2/K4 = {k1}/{k2}/{k4}, n_accept "
+          f"{int(sol.n_accept.min())}..{int(sol.n_accept.max())}, n_reject "
+          f"{int(sol.n_reject.min())}..{int(sol.n_reject.max())}, n_iters up "
+          f"to {int(sol.n_iters.max())}", flush=True)
+    return k2, sol
+
+
+def r_step_path_phase(kind, loop_sol):
+    """The same solve with only a coefficient function: the host driver and
+    a K4 launch per iteration; counters within 1 of the loop path's, the
+    first trajectories' states within 1e-4 of it. Then the JAX record's
+    configuration at 256 on the per-step path."""
+    st, y0 = r_inputs(kind, form=False)
+    reset_counts()
+    sol = r_solve(st, y0)
+    torch.cuda.synchronize()
+    k1, k2, k4 = counts()
+    n_iters = int(sol.n_iters.max())
+    assert sol.path == "torch-driver+cuda-step", sol.path
+    assert (k1, k2) == (0, 0) and k4 == n_iters, (k1, k2, k4, n_iters)
+    check_unit_solution(sol, N_TRAJ, kind)
+    dcount = max(int((getattr(sol, k) - getattr(loop_sol, k)).abs().max())
+                 for k in ("n_accept", "n_reject", "n_iters"))
+    first = slice(0, 64)
+    dy = float(torch.maximum(
+        (sol.y_final.re - loop_sol.y_final.re).abs(),
+        (sol.y_final.im - loop_sol.y_final.im).abs()).max())
+    dy_first = float(torch.maximum(
+        (sol.y_final.re[first] - loop_sol.y_final.re[first]).abs(),
+        (sol.y_final.im[first] - loop_sol.y_final.im[first]).abs()).max())
+    assert dcount <= 1 and dy <= 1e-4, (dcount, dy)
+    st256, y256 = r_inputs(kind, n=REC_B, form=False, seed=3)
+    reset_counts()
+    sol256 = r_solve(st256, y256, REC_CTL, REC_H0)
+    torch.cuda.synchronize()
+    k4_256 = counts()[2]
+    assert sol256.path == "torch-driver+cuda-step"
+    assert k4_256 == int(sol256.n_iters.max())
+    check_unit_solution(sol256, REC_B, kind)
+    print(f"[{kind}-step] {N_TRAJ}x{DIM}c, operator without a declared "
+          f"form: path={sol.path}, K4 launches={k4} == max n_iters={n_iters} "
+          f"(K1/K2 {k1}/{k2}); vs the loop path: max|dcount|={dcount} (<= 1),"
+          f" max|dy|={dy:.3e} (<= 1e-4; the first 64: {dy_first:.3e}); the "
+          f"JAX record's configuration at {REC_B}: {k4_256} K4 launches, "
+          f"all DONE", flush=True)
+    return k4
+
+
+def r_timing_phase(kind, card):
+    """The kind's loop path and per-step paths (16384 and the record's
+    256) timed end to end, K2 + K5 alone against its twin and bound, and
+    K4 per launch at both batches. Returns (K4 numbers at 16384, K5
+    numbers)."""
+    label = LABELS[kind]
+    st, y0 = r_inputs(kind)
+    timed_solve(lambda: r_solve(st, y0),
+                f"{label} loop path {N_TRAJ}x{DIM}c f32, one loop launch "
+                f"(K5, R = {expmv.n_rows(st._recipe, st._table)})", card)
+    st_step, _ = r_inputs(kind, form=False)
+    timed_solve(lambda: r_solve(st_step, y0),
+                f"{label} per-step path on the same {N_TRAJ} inputs (K4)",
+                card)
+    st256, y256 = r_inputs(kind, n=REC_B, form=False, seed=3)
+    timed_solve(lambda: r_solve(st256, y256, REC_CTL, REC_H0),
+                f"{label} per-step path at {REC_B}x{DIM}c, the JAX record's "
+                "configuration (K4)", card)
+    k5 = time_k5(st, y0, MAG_CTL, f"{label} loop path", card)
+    k4 = time_k4(st, N_TRAJ, label, card)
+    time_k4(st, REC_B, label, card)
+    return k4, k5
+
+
+def lindblad_phase(card):
+    """Lindblad.make(d=8, seed=9, gamma=0.2) (D = 128), 256 density
+    matrices (benchmarks.py:697-735): MM4 and MM6 on the per-step path
+    with the callable control 0.8 sin(2.1 t) (a K4 launch per iteration),
+    and MM6 with the declared control 0.8 cos(2.1 t) in one loop launch;
+    all DONE, the trace kept within 1e-5 in f32, the wall timed."""
+    lb = Lindblad.make(d=8, seed=9, gamma=0.2)
+    rng = np.random.default_rng(3)
+    V = rng.standard_normal((REC_B, 8, 8)) + 1j * rng.standard_normal(
+        (REC_B, 8, 8))
+    rho = np.einsum("bij,bkj->bik", V, V.conj())
+    rho /= np.trace(rho, axis1=-2, axis2=-1)[:, None, None]
+    y0 = Lindblad.vec_rho(rho, torch.float32, device="cuda")
+    sin_u = lb.modulated(lambda t: 0.8 * torch.sin(2.1 * t), torch.float32,
+                         device="cuda")
+    cos_u = lb.modulated(texp.CoeffForm(a=(0.0,), b=(0.0,), c=(0.8,),
+                                        w=(2.1,)), torch.float32,
+                         device="cuda")
+    for name, st, path in (
+            ("MM4", MagnusModulated4(sin_u), "torch-driver+cuda-step"),
+            ("MM6", MagnusModulated6(sin_u), "torch-driver+cuda-step"),
+            ("MM6 declared cos", MagnusModulated6(cos_u),
+             "cuda-loop-persistent")):
+        reset_counts()
+        sol = ensemble_solve(None, y0, 0.0, 1.0, stepper=st, ctl=REC_CTL,
+                             h0=REC_H0, time_dtype=torch.float32)
+        torch.cuda.synchronize()
+        k1, k2, k4 = counts()
+        assert sol.path == path, sol.path
+        want = ((0, 1, 0) if path == "cuda-loop-persistent"
+                else (0, 0, int(sol.n_iters.max())))
+        assert (k1, k2, k4) == want, (name, k1, k2, k4)
+        assert bool((sol.status == DONE).all()), name
+        tr_re, tr_im = Lindblad.trace(sol.y_final)
+        d_tr = float(torch.maximum((tr_re - 1).abs(), tr_im.abs()).max())
+        assert d_tr <= 1e-5, (name, d_tr)
+        wall, _ = timed_solve(lambda: ensemble_solve(
+            None, y0, 0.0, 1.0, stepper=st, ctl=REC_CTL, h0=REC_H0,
+            time_dtype=torch.float32),
+            f"Lindblad d=8 ({REC_B} density matrices) {name}, {path}", card)
+        print(f"[lindblad] {name}: path={path}, launches K1/K2/K4 = "
+              f"{k1}/{k2}/{k4}, all DONE, max|tr(rho) - 1|={d_tr:.2e} (<= "
+              f"1e-5), n_accept {int(sol.n_accept.min())}.."
+              f"{int(sol.n_accept.max())}", flush=True)
 
 
 # -- the generic dense exponential path (K9) ---------------------------------
@@ -1944,70 +2241,100 @@ def adjoint_training_phase():
           f"{[round(v, 6) for v in losses]}", flush=True)
 
 
-def recorded_times(basis, pc, y0, theta):
+def recorded_times(basis, pc, y0, theta, **scheme):
     """The adaptive forward's per-iteration times (n_it + 1, B), by the
-    adjoint's own forward (K4 per iteration: bitwise the same steps)."""
-    core = tdiff._adjoint_core(basis, pc.coeff_fn, order=4)
-    plan = tdiff._AdaptivePlan(None, core, basis, pc.coeff_fn, ADJ_CTL)
+    adjoint's own forward (K4 per iteration: bitwise the same steps);
+    ``scheme``: order= or scheme= of adjoint_solve_adaptive."""
+    core, stepper, step_rows = tdiff._adaptive_scheme(basis, pc.coeff_fn,
+                                                      **scheme)
+    plan = tdiff._AdaptivePlan(None, core, basis, pc.coeff_fn, ADJ_CTL,
+                               stepper, step_rows)
     t0, tf, h0 = (torch.tensor(v, dtype=torch.float32, device="cuda")
                   for v in (0.0, 1.0, ADJ_H0))
     return tdiff._adaptive_forward(plan, theta, torch.cat([y0.re, y0.im], -1),
                                    t0, tf, h0)[2]
 
 
-def adjoint_adaptive_phase():
-    """adjoint_solve_adaptive at 256x64c f32, Magnus-4, rtol 1e-5: all
-    lanes DONE, one K4 launch per forward iteration, one K6 launch per
-    replayed iteration, the gradient against the frozen-step-sequence
-    f64 matrix_exp oracle (tests/test_adjoint.py:169-250). Returns the K6
-    launches and the recorded times (n_it + 1, B)."""
+def adaptive_adjoint_check(label, card=None, **scheme):
+    """adjoint_solve_adaptive at 256x64c f32, rtol 1e-5 (ADJ_CTL, the
+    Magnus-4 adaptive configuration) with ``scheme`` (order= or scheme=): all lanes DONE,
+    one K4 launch per forward iteration, n_sub K6 launches per replayed
+    iteration (one reverse row per exponential: 1 at Magnus order 4, 3 at
+    order 6, 2 for cfm4), no twin call, the gradient against the
+    frozen-step-sequence f64 matrix_exp oracle over the same rows
+    (tests/test_adjoint.py:169-250). With ``card`` the value-and-grad wall
+    is timed (median of 3 after a warm run). Returns the K6 launches and
+    the recorded times (n_it + 1, B)."""
     pc, y0, tg, theta = adjoint_inputs(torch.float32)
     basis = pc.basis_pair(torch.float32)
-    th = theta.clone().requires_grad_(True)
-    yr, yi = (v.clone().requires_grad_(True) for v in (y0.re, y0.im))
-    reset_counts()
-    with TwinCalls() as tw:
+
+    def value_and_grad():
+        th = theta.clone().requires_grad_(True)
+        yr, yi = (v.clone().requires_grad_(True) for v in (y0.re, y0.im))
         yf, status = tdiff.adjoint_solve_adaptive(
             basis, pc.coeff_fn, th, Cplx(yr, yi), 0.0, 1.0, ctl=ADJ_CTL,
-            h0=ADJ_H0, return_status=True)
-        torch.cuda.synchronize()
+            h0=ADJ_H0, return_status=True, **scheme)
         k4_fwd = fused_chain_apply.launches
         value = 1.0 - torch.sum(pc.fidelity(yf, tg))
-        grads = torch.autograd.grad(value, (th, yr, yi))
+        return status, k4_fwd, value, torch.autograd.grad(value,
+                                                          (th, yr, yi))
+
+    reset_counts()
+    with TwinCalls() as tw:
+        status, k4_fwd, value, grads = value_and_grad()
         torch.cuda.synchronize()
     k6, k7, k8, k4 = adj_counts()
     assert bool((status == DONE).all()), "adaptive lanes not DONE"
-    ts = recorded_times(basis, pc, y0, theta)
+    ts = recorded_times(basis, pc, y0, theta, **scheme)
     n_it = ts.shape[0] - 1
-    assert (k4_fwd, k4, k6, k7, k8, tw.n) == (n_it, n_it, n_it, 0, 0, 0), (
-        k4_fwd, k4, k6, k7, k8, tw.n, n_it)
+    n_sub = 3 if scheme.get("order") == 6 else (
+        2 if scheme.get("scheme") == "cfm4" else 1)
+    assert (k4_fwd, k4, k6, k7, k8, tw.n) == (
+        n_it, n_it, n_sub * n_it, 0, 0, 0), (k4_fwd, k4, k6, k7, k8, tw.n,
+                                              n_it, n_sub)
 
-    # the oracle: matrix_exp steps over the recorded times in f64
+    # the oracle: matrix_exp of each replayed row over the recorded times,
+    # in f64
     _, y64, tg64, th64 = adjoint_inputs(torch.float64)
-    core = tdiff._adjoint_core(pc.basis_pair(torch.float64), pc.coeff_fn,
-                               order=4)
+    core, _, step_rows = tdiff._adaptive_scheme(
+        pc.basis_pair(torch.float64), pc.coeff_fn, **scheme)
     tho = th64.clone().requires_grad_(True)
     xr, xi = (v.clone().requires_grad_(True) for v in (y64.re, y64.im))
     t64 = ts.to(torch.float64)
     x = torch.cat([xr, xi], -1)
     for r in range(n_it):
-        c = torch.func.vmap(lambda t_, d_: core.cols(tho, t_, d_))(
+        c = torch.func.vmap(lambda t_, d_: step_rows(tho, t_, d_))(
             t64[r], t64[r + 1] - t64[r])
-        U = torch.linalg.matrix_exp(torch.einsum("bk,kij->bij", c, core.W))
-        x = torch.bmm(U, x[:, :, None])[:, :, 0]
+        for j in range(c.shape[1]):
+            U = torch.linalg.matrix_exp(torch.einsum("bk,kij->bij", c[:, j],
+                                                     core.W))
+            x = torch.bmm(U, x[:, :, None])[:, :, 0]
     vo = 1.0 - torch.sum(pc.fidelity(Cplx(x[:, :DIM], x[:, DIM:]), tg64))
     go = torch.autograd.grad(vo, (tho, xr, xi))
     d = grad_diff(grads, go)
-    dv = abs(float(value) - float(vo)) / abs(float(vo))
+    dv = abs(float(value.detach()) - float(vo.detach())) / abs(float(
+        vo.detach()))
     assert d <= 1e-3 and dv <= 1e-4, (d, dv)
     n_acc = (torch.diff(ts, dim=0) > 0).sum(0)
-    print(f"[adjoint-adaptive] {ADJ_B}x{DIM}c Magnus-4 rtol="
+    wall = ""
+    if card is not None:
+        value_and_grad()
+        walls = timed_runs(value_and_grad)
+        wall = (f"; value-and-grad wall median {statistics.median(walls):.3f}"
+                f" ms of {[round(w, 3) for w in walls]} ({card})")
+    print(f"[adjoint-adaptive] {ADJ_B}x{DIM}c {label} rtol="
           f"{ADJ_CTL.rtol:g}, f32: all DONE, {n_it} iterations, "
           f"{int(n_acc.min())}..{int(n_acc.max())} accepted steps per lane; "
-          f"K4 {k4_fwd} == forward iterations, K6 {k6} == replayed "
+          f"K4 {k4_fwd} == forward iterations, K6 {k6} == {n_sub} x replayed "
           f"iterations, no twin call; vs the frozen-sequence f64 oracle: "
-          f"value {dv:.2e}, gradients {d:.2e} relative", flush=True)
+          f"value {dv:.2e}, gradients {d:.2e} relative{wall}", flush=True)
     return k6, ts
+
+
+def adjoint_adaptive_phase():
+    """The adaptive adjoint at Magnus order 4. Returns the K6 launches and
+    the recorded times (n_it + 1, B)."""
+    return adaptive_adjoint_check("Magnus-4", order=4)
 
 
 def adj_flops(passes: int, D: int, Kp: int, m: int, reverse: bool,
@@ -2232,21 +2559,31 @@ def main() -> None:
     k2_err = loop_kernel_phase()
     k4_err = chain_step_phase()
     k5_err = chain_loop_kernel_phase()
+    k4r_err = chain_step_r_phase()
+    k5r_err = chain_loop_r_phase()
     k9_err = dense_chain_phase()
     k1_launches = main_path_phase(card)
     k2_launches = loop_path_phase(card)
-    k5_launches, loop_sol = magnus_loop_path_phase()
-    k4_launches = magnus_step_path_phase(loop_sol)
+    k5_launches, loop_sol = r_loop_path_phase("magnus4")
+    k4_launches = r_step_path_phase("magnus4", loop_sol)
+    r_launches = {}
+    for kind in R_KINDS:
+        k5r_launches, r_sol = r_loop_path_phase(kind)
+        r_launches[kind] = (r_step_path_phase(kind, r_sol), k5r_launches)
     lz_path_phase()
     k9_launches = generic_path_phase()
     adj_errs = adjoint_kernel_phase()
     k7_launches, k8_launches = adjoint_path_phase()
     adjoint_training_phase()
     k6_launches, adaptive_ts = adjoint_adaptive_phase()
+    adaptive_adjoint_check("Magnus-6", card, order=6)
+    adaptive_adjoint_check("CFM-4", card, scheme="cfm4")
+    lindblad_phase(card)
     k1 = timing_phase(card)
     k2 = loop_timing_phase(card)
     k4 = k4_timing_phase(card)
     k5 = k5_timing_phase(card)
+    r_times = {kind: r_timing_phase(kind, card) for kind in R_KINDS}
     k9 = k9_timing_phase(card)
     adj = adjoint_timing_phase(card, adaptive_ts)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -2258,11 +2595,15 @@ def main() -> None:
             ("rk_step_tile", k2_launches, k2_err, k2),
             ("fused_chain_apply", k4_launches, k4_err, k4),
             ("chain_step_tile", k5_launches, k5_err, k5),
+            *((f"fused_chain_apply/{kind}", r_launches[kind][0],
+               k4r_err[kind], r_times[kind][0]) for kind in R_KINDS),
+            *((f"chain_step_tile/{kind}", r_launches[kind][1],
+               k5r_err[kind], r_times[kind][1]) for kind in R_KINDS),
             ("fused_dense_chain_apply", k9_launches, k9_err, k9),
             ("adjoint_bwd", k6_launches, adj_errs["k6"], adj["K6"]),
             ("adjoint_sweep_fwd", k7_launches, adj_errs["k7"], adj["K7"]),
             ("adjoint_sweep_bwd", k8_launches, adj_errs["k8"], adj["K8"])):
-        source, replaces = KERNELS[name]
+        source, replaces = KERNELS[name.split("/")[0]]
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,

@@ -3,7 +3,8 @@ package's (vec_ode_tpu.diff) on the same numpy inputs, in f64 on the CPU:
 values and gradients with respect to theta (a tensor and a pytree), the
 initial state and both endpoints, for the fixed-step solver at orders 2, 4
 and 6, with saves and anchors, over CFM rows, and for the adaptive solver
-(status per lane, NaN-poisoned truncation); PulseControl's matrices and
+at Magnus orders 4 and 6 and over CFM-4 rows (status per lane,
+NaN-poisoned truncation); PulseControl's matrices and
 losses; what the port does not take. On CPU tensors the port runs the
 kernels' plain twins. Every tolerance is stated beside the difference
 measured on this machine."""
@@ -388,8 +389,8 @@ def test_adaptive_rejects_an_unbatched_state():
 
 
 def test_unported_options_raise():
-    """basis_grad (no kernel) is ROADMAP item 23; the adaptive adjoint at
-    order 6 and over CFM rows needs the slice-4b steppers."""
+    """basis_grad (no kernel) is ROADMAP item 23; the adaptive adjoint
+    takes Magnus order 4 or 6 or scheme="cfm4", and nothing else."""
     _, tb = _pair(*_basis(2, 3, 8))
     y0 = Cplx(torch.ones(1, 3, dtype=F64), torch.zeros(1, 3, dtype=F64))
     theta = torch.tensor([0.9, 2.2], dtype=F64)
@@ -397,15 +398,87 @@ def test_unported_options_raise():
         tdiff.adjoint_solve(tb, _tcoeff, theta, y0, 0.0, 1.0, 8,
                             basis_grad=True)
     ctl = vt.StepControl(rtol=1e-6, max_steps=64)
-    for kw in (dict(order=6), dict(scheme="cfm4")):
-        with pytest.raises(NotImplementedError, match="slice 4b"):
-            tdiff.adjoint_solve_adaptive(tb, _tcoeff, theta, y0, 0.0, 1.0,
-                                         ctl=ctl, **kw)
     with pytest.raises(ValueError):
         tdiff.adjoint_solve_adaptive(tb, _tcoeff, theta, y0, 0.0, 1.0,
                                      ctl=ctl, order=2)
+    with pytest.raises(ValueError, match="scheme"):
+        tdiff.adjoint_solve_adaptive(tb, _tcoeff, theta, y0, 0.0, 1.0,
+                                     ctl=ctl, scheme="cfm6")
     with pytest.raises(ValueError):
         tdiff.adjoint_solve(tb, _tcoeff, theta, y0, 0.0, 1.0, 8, order=3)
+
+
+@pytest.mark.parametrize("kw", [dict(order=6), dict(scheme="cfm4")],
+                         ids=["order6", "cfm4"])
+def test_adaptive_order6_and_cfm4_match_jax(kw):
+    """The adaptive adjoint over MagnusModulated6 (three Yoshida sub-rows
+    replayed per step) and CFM4Modulated (two CFM rows on the un-extended
+    basis), h0 = 0.4 forcing rejects: the same status per lane, value and
+    theta, y0, t0, tf gradients; measured <= 3.0e-12 (order 6) and
+    1.8e-13 (cfm4), held to 1e-10."""
+    jb, tb = _pair(*_basis(2, 3, 8))
+    z = _states(4, 3, 9)
+    theta = np.array([0.9, 2.2])
+    _, jst = jdiff.adjoint_solve_adaptive(
+        jb, _jcoeff, jnp.asarray(theta), jcp.from_complex(z, jnp.float64),
+        0.0, 1.0, ctl=vo.StepControl(**ADAPTIVE), h0=0.4,
+        return_status=True, **kw)
+    _, tst = tdiff.adjoint_solve_adaptive(
+        tb, _tcoeff, torch.as_tensor(theta),
+        Cplx(torch.as_tensor(z.real), torch.as_tensor(z.imag)), 0.0, 1.0,
+        ctl=vt.StepControl(**ADAPTIVE), h0=0.4, return_status=True, **kw)
+    np.testing.assert_array_equal(tst.numpy(), np.asarray(jst))
+    assert (tst == vt.DONE).all()
+
+    def jfn(th, y, t0, tf):
+        return _jloss(jdiff.adjoint_solve_adaptive(
+            jb, _jcoeff, th, y, t0, tf, ctl=vo.StepControl(**ADAPTIVE),
+            h0=0.4, **kw))
+
+    def tfn(th, y, t0, tf):
+        return _tloss(tdiff.adjoint_solve_adaptive(
+            tb, _tcoeff, th, y, t0, tf, ctl=vt.StepControl(**ADAPTIVE),
+            h0=0.4, **kw))
+
+    _compare(jfn, tfn, theta, z, 0.0, 1.0, rtol=1e-10)
+
+
+def test_adaptive_replays_each_exponential_once():
+    """On CPU tensors the adaptive adjoint runs the twins: one chain step
+    (K4's twin) per forward iteration, and per recorded iteration n_sub
+    reverse rows (K6's twin: 1 at order 4, 3 at order 6, 2 for cfm4)."""
+    from vec_ode_tpu_torch.ops import adjoint as tadj
+    from vec_ode_tpu_torch.ops import expmv
+
+    _, tb = _pair(*_basis(2, 3, 8))
+    z = _states(2, 3, 9)
+    calls = {"fwd": 0, "bwd": 0}
+    row, step = tadj.torch_adjoint_row, expmv.torch_chain_step
+
+    def counted(key, fn):
+        def wrapped(*a, **k):
+            calls[key] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    try:
+        tadj.torch_adjoint_row = counted("bwd", row)
+        expmv.torch_chain_step = counted("fwd", step)
+        for kw, n_sub in ((dict(order=4), 1), (dict(order=6), 3),
+                          (dict(scheme="cfm4"), 2)):
+            calls.update(fwd=0, bwd=0)
+            th = _leaf(np.array([0.9, 2.2]))
+            yf, st = tdiff.adjoint_solve_adaptive(
+                tb, _tcoeff, th,
+                Cplx(torch.as_tensor(z.real), torch.as_tensor(z.imag)), 0.0,
+                1.0, ctl=vt.StepControl(**ADAPTIVE), h0=0.4,
+                return_status=True, **kw)
+            n_it = calls["fwd"]
+            torch.autograd.grad(_tloss(yf), th)
+            assert bool((st == vt.DONE).all()) and n_it > 0
+            assert calls["bwd"] == n_sub * n_it, (kw, calls, n_it)
+    finally:
+        tadj.torch_adjoint_row, expmv.torch_chain_step = row, step
 
 
 def test_pulse_control_matches_jax_bitwise():

@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels of the port against their plain torch
 twins, on a CUDA card: the step kernel (K1) with and without a declared
 norm, the whole-loop kernel (K2) with its RK step (K3) and its chain step
-(K5) and fixed-step mode, the chain kernel (K4), the per-trajectory
+(K5) and fixed-step mode, the chain kernel (K4), both chain kernels with
+R > 1 exponentials per chain (Magnus-6, CFM), the per-trajectory
 dense chain kernel (K9) with the generic exponential path over it, and the
 adjoint kernels (K6, K7, K8) with the fixed-step and adaptive adjoint over
 them. Every test here carries the ``cuda`` marker and skips without a
@@ -22,7 +23,8 @@ from chip_smoke import err_norm_limit
 from vec_ode_tpu_torch import DONE, StepControl, lc, tableaus as ttab
 from vec_ode_tpu_torch import diff as tdiff
 from vec_ode_tpu_torch import exp as texp
-from vec_ode_tpu_torch.exp import (CoeffForm, MagnusModulated4,
+from vec_ode_tpu_torch.exp import (CFM4Modulated, CFMModulated, CoeffForm,
+                                   MagnusModulated4, MagnusModulated6,
                                    MidpointModulated, ModulatedOperator)
 from vec_ode_tpu_torch.models import DrivenDense, PulseControl
 from vec_ode_tpu_torch.ops import adjoint as tadj
@@ -467,6 +469,200 @@ def test_chain_wrapper_refuses_what_the_kernel_does_not_take(card):
         fused_chain_apply(g4, dt, xw, mt, norms, **kw)
     with pytest.raises(ValueError, match="samples"):
         fused_chain_apply(samples[:1], dt, xw, mt, norms, **kw)
+
+
+# -- R > 1 exponentials per chain: Magnus-6 and CFM in K4 and K5 -----------
+
+CHAIN_R_STEP_CASES = {
+    "magnus6_f64": dict(B=1000, dtype=torch.float64, kind="magnus6"),
+    "magnus6_fixed_f64": dict(B=1000, dtype=torch.float64,
+                              kind="magnus6_fixed"),
+    "cfm4_f64": dict(B=1000, dtype=torch.float64, kind="cfm4"),
+    "cfm4_fixed_f64": dict(B=1000, dtype=torch.float64, kind="cfm4_fixed"),
+    "blanes_f64": dict(B=1000, dtype=torch.float64, kind="blanes"),
+    "magnus6_l2_weighted_f64": dict(B=1000, dtype=torch.float64,
+                                    kind="magnus6", wnorm=("l2", True)),
+    "cfm4_max_f64": dict(B=1000, dtype=torch.float64, kind="cfm4",
+                         wnorm=("max", False)),
+    "blanes_f32": dict(B=1000, dtype=torch.float32, kind="blanes"),
+    "magnus6_f32": dict(B=16384, dtype=torch.float32, kind="magnus6"),
+    "cfm4_f32": dict(B=16384, dtype=torch.float32, kind="cfm4"),
+}
+
+
+@pytest.mark.parametrize("name", list(CHAIN_R_STEP_CASES))
+def test_chain_kernel_r_matches_twin(card, name):
+    """K4 with R > 1 against torch_chain_step (chip_smoke.check_chain_step's
+    limits; f64 states to 1e-13 of their scale on steps where each error
+    is held to 1e-9 of itself), one launch."""
+    kw = dict(CHAIN_R_STEP_CASES[name])
+    B, dtype, wn = kw.pop("B"), kw.pop("dtype"), kw.pop("wnorm", None)
+    extra = {}
+    if dtype == torch.float64:
+        extra = dict(dt_range=chip_smoke.R_DT64[kw["kind"].split("_")[0]],
+                     x_rel=1e-13)
+    before = fused_chain_apply.launches
+    chip_smoke.check_chain_step(
+        B, dtype, name, wnorm=None if wn is None else chip_smoke.weighted(
+            wn[0], 64, wn[1]), **extra, **kw)
+    assert fused_chain_apply.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["magnus6", "magnus6_fixed", "cfm4",
+                                  "blanes"])
+def test_chain_kernel_r_edge_rows(card, kind, dtype):
+    """A NaN state stays in its row (its error NaN, through the zero pad
+    rows for CFM); a row with dt = 0 returns x exactly."""
+    chip_smoke.check_chain_edges(kind, dtype)
+
+
+@pytest.mark.parametrize("kind", ["magnus6", "cfm4"])
+def test_chain_kernel_r_error_norm_holds_to_the_row_on_long_steps(card,
+                                                                   kind):
+    _, sensitive = chip_smoke.check_chain_step(
+        16384, torch.float32, kind, dt_range=chip_smoke.R_DT32[kind],
+        kind=kind)
+    assert sensitive == 16384
+
+
+CHAIN_R_LOOP_NAMES = [n for n in chip_smoke.R_CASES
+                      if n not in chip_smoke.CHAIN_PATHS]
+
+
+@pytest.mark.parametrize("name", CHAIN_R_LOOP_NAMES)
+def test_chain_loop_kernel_r_matches_twin_f64(card, name):
+    """K5 with R > 1 in the loop kernel, 1000 trajectories: status and every
+    counter equal per trajectory, states and saves within 1e-12."""
+    chip_smoke.check_chain_loop_pair(name, 1000, torch.float64)
+
+
+@pytest.mark.parametrize("name", ["magnus6", "magnus6_fixed", "cfm4",
+                                  "cfm4_fixed", "magnus6_path", "cfm4_path"])
+def test_chain_loop_kernel_r_matches_twin_f32(card, name):
+    chip_smoke.check_chain_loop_pair(name, 2048, torch.float32)
+
+
+@pytest.mark.parametrize("name,dtype", [("magnus6_save_grid", torch.float64),
+                                        ("cfm4_fixed", torch.float32),
+                                        ("blanes", torch.float64)])
+def test_chain_loop_r_persistent_equals_chunked(card, name, dtype):
+    chip_smoke.check_chain_persistent_is_chunked(name, 1000, dtype)
+
+
+@pytest.mark.parametrize("stepper", [
+    MagnusModulated6, CFM4Modulated,
+    lambda op: CFMModulated(op, alpha=ttab.BLANES17_R4_J4,
+                            c=ttab.C_GAUSS_LEGENDRE_6,
+                            alpha_err=chip_smoke.BLANES_ERR)],
+    ids=["magnus6", "cfm4", "blanes"])
+def test_r_ensemble_on_the_card_matches_the_cpu_path_f64(card, stepper):
+    """300 trajectories of a 16-dim driven system in f64: on the card the
+    declared form takes the loop kernel (one launch) and a bare
+    coefficient function the per-step kernel (a launch per iteration); on
+    the CPU the loop's twin. The same steps per trajectory."""
+    model = DrivenDense.make(d=16, seed=0)
+    rng = np.random.default_rng(42)
+    psi = rng.standard_normal((300, 16)) + 1j * rng.standard_normal((300, 16))
+    psi /= np.linalg.norm(psi, axis=-1, keepdims=True)
+    ctl = StepControl(rtol=1e-8, min_dt=1e-6, max_dt=0.2)
+    sols = {}
+    for dev, form in (("cpu", True), ("cuda", True), ("cuda", False)):
+        op = model.modulated(torch.float64, device=dev)
+        if not form:
+            op = dataclasses.replace(op, form=None)
+        before = (fused_loop_chunk.launches, fused_chain_apply.launches)
+        sol = ensemble_solve(
+            None, from_complex(psi, torch.float64, device=dev), 0.0, 1.0,
+            stepper=stepper(op), ctl=ctl, h0=1e-3, save_at=(0.5,))
+        launched = (fused_loop_chunk.launches - before[0],
+                    fused_chain_apply.launches - before[1])
+        if dev == "cpu":
+            assert launched == (0, 0) and sol.path == "torch-loop"
+        elif form:
+            assert launched == (1, 0) and sol.path == "cuda-loop-persistent"
+        else:
+            assert launched == (0, int(sol.n_iters.max()))
+            assert sol.path == "torch-driver+cuda-step"
+        sols[(dev, form)] = sol
+    cpu = sols[("cpu", True)]
+    assert bool((cpu.status == DONE).all())
+    for key in (("cuda", True), ("cuda", False)):
+        gpu = sols[key]
+        for k in ("status", "n_accept", "n_reject", "n_iters"):
+            assert torch.equal(getattr(gpu, k).cpu(), getattr(cpu, k)), k
+        for part in ("re", "im"):
+            np.testing.assert_allclose(getattr(gpu.ys, part).cpu().numpy(),
+                                       getattr(cpu.ys, part).numpy(), rtol=0,
+                                       atol=1e-10)
+
+
+def test_out_of_limit_tables_raise_on_the_card(card):
+    """A CFM table of R = 5 exponentials or J = 9 nodes is past the
+    kernels' limits: on CUDA tensors the per-step kernel and the loop
+    kernel raise, and no twin runs in their place."""
+    op = DrivenDense.make(d=8, seed=0).modulated(torch.float64,
+                                                 device=card)
+    c9 = tuple(np.linspace(0.05, 0.95, 9))
+    tables = {"R=5": dict(alpha=np.full((5, 2), 0.1), c=(0.3, 0.7),
+                          alpha_err=((0.5, 0.5),)),
+              "J=9": dict(alpha=(tuple(np.full(9, 1.0 / 9)),), c=c9,
+                          alpha_err=(tuple(np.full(9, 1.0 / 9)),))}
+    psi = chip_smoke.unit_states(16, 8, torch.float64, seed=3)
+    twin = chip_smoke.expmv.torch_chain_step
+    try:
+        def refuse(*a, **k):
+            raise AssertionError("the twin ran on CUDA tensors")
+        chip_smoke.expmv.torch_chain_step = refuse
+        for name, tab in tables.items():
+            for form in (True, False):
+                st = CFMModulated(op if form else dataclasses.replace(
+                    op, form=None), **tab)
+                before = (fused_loop_chunk.launches,
+                          fused_chain_apply.launches)
+                with pytest.raises(ValueError, match="at most 4 "
+                                   "exponentials per chain and 8"):
+                    ensemble_solve(None, psi, 0.0, 0.3, stepper=st,
+                                   ctl=StepControl(rtol=1e-6, max_steps=50),
+                                   h0=1e-2)
+                assert (fused_loop_chunk.launches,
+                        fused_chain_apply.launches) == before, (name, form)
+    finally:
+        chip_smoke.expmv.torch_chain_step = twin
+
+
+@pytest.mark.parametrize("kw,n_sub", [(dict(order=6), 3),
+                                      (dict(scheme="cfm4"), 2)])
+def test_adaptive_adjoint_r_on_the_card_matches_the_cpu_path_f64(card, kw,
+                                                                 n_sub):
+    """The adaptive adjoint at order 6 and with cfm4 through K4 forward
+    (one launch per iteration) and K6 backward (n_sub launches per
+    iteration) against the twins: the same status, value and gradients
+    to f64 rounding."""
+    ctl = StepControl(rtol=1e-7, atol=1e-10, min_dt=1e-7, max_dt=0.4,
+                      max_steps=400)
+    out = {}
+    for dev in (card, "cpu"):
+        pc, y0, tg, theta = _small_pulse(dev)
+        th = theta.clone().requires_grad_(True)
+        yr, yi = (v.clone().requires_grad_(True) for v in (y0.re, y0.im))
+        before = (tadj.adjoint_bwd.launches, fused_chain_apply.launches)
+        yf, st = tdiff.adjoint_solve_adaptive(
+            pc.basis_pair(torch.float64, dev), pc.coeff_fn, th, Cplx(yr, yi),
+            0.0, pc.T, ctl=ctl, h0=0.3, return_status=True, **kw)
+        n_fwd = fused_chain_apply.launches - before[1]
+        value = torch.sum(pc.fidelity(yf, tg))
+        grads = torch.autograd.grad(value, (th, yr, yi))
+        n_bwd = tadj.adjoint_bwd.launches - before[0]
+        assert bool((st == DONE).all())
+        assert n_bwd == (n_sub * n_fwd if dev == card else 0)
+        out[dev] = ([st.cpu(), n_fwd], [value.detach().cpu()]
+                    + [g.cpu() for g in grads])
+    assert torch.equal(out[card][0][0], out["cpu"][0][0])
+    assert out[card][0][1] > 0
+    for u, v in zip(out[card][1], out["cpu"][1]):
+        np.testing.assert_allclose(u.numpy(), v.numpy(), rtol=1e-8,
+                                   atol=1e-12)
 
 
 # -- the per-trajectory dense chain kernel (K9) and the generic path --------

@@ -16,13 +16,17 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "vec_ode_tpu_torch"
 
 # the modules of the adjoint and generic exponential paths, beside the
-# earlier ones
+# earlier ones; NAMES, what the order-6 / CFM modulated path added to them
+NAMES = {"exp": ["MagnusModulated6", "CFMModulated", "CFM4Modulated",
+                 "CfmTable"],
+         "models": ["Lindblad"],
+         "ops.expmv": ["CfmTable", "identity_rows", "n_rows", "n_nodes"]}
 MODULES = ["diff", "ops.adjoint", "ops.expm", "ops.dense_chains", "ops.cplx", "ops.expmv",
            "ops.fused_rk", "ops.fused_loop", "exp.protocol", "exp.leaves",
            "exp.dense_fast", "exp.magnus", "exp.cfm", "exp.split_solvers",
            "exp.modulated", "models.quantum", "parallel.ensemble", "convert"]
 
-PROBE = f"MODULES = {MODULES!r}" + """
+PROBE = f"MODULES = {MODULES!r}; NAMES = {NAMES!r}" + """
 import importlib, pkgutil, sys
 import vec_ode_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
@@ -31,6 +35,9 @@ for name in names:
     importlib.import_module(name)
 for name in MODULES:
     assert "vec_ode_tpu_torch." + name in names, name
+for mod, attrs in NAMES.items():
+    for attr in attrs:
+        getattr(importlib.import_module("vec_ode_tpu_torch." + mod), attr)
 from vec_ode_tpu_torch.ops import _build
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "vec_ode_tpu"))

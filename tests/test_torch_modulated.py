@@ -294,7 +294,7 @@ def test_chain_step_edges():
     xw = torch.cat([x.re, x.im], 1)
     with pytest.raises(ValueError, match="recipe"):
         expmv.fused_chain_apply([t[:, None]], dt, xw, mt, norms,
-                                recipe="magnus6", C=1, m=12, theta=0.25)
+                                recipe="magnus8", C=1, m=12, theta=0.25)
     with pytest.raises(ValueError, match="C = 1"):
         expmv.fused_chain_apply([t[:, None]], dt, xw, mt, norms,
                                 recipe="midpoint", C=2, m=12, theta=0.25)

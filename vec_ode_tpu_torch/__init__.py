@@ -4,8 +4,10 @@ Grows beside the JAX package, which stays the reference. So far it runs
 three ensemble paths through ``parallel.ensemble_solve``: the adaptive
 embedded-RK stepper ``ops.fused_rk.FusedModulatedLinearRK`` (dx/dt =
 (M0 + cos(wt) M1) x with shared matrices), the modulated exponential
-steppers ``exp.MidpointModulated`` / ``exp.MagnusModulated4`` (A(t) =
-sum_k c_k(t) M_k), and the generic exponential steppers
+steppers ``exp.MidpointModulated`` / ``MagnusModulated4`` /
+``MagnusModulated6`` / ``CFMModulated`` (A(t) = sum_k c_k(t) M_k; the
+models ``DrivenDense``, ``LandauZener`` and the open-system
+``Lindblad``), and the generic exponential steppers
 (``exp.ExpMidpoint``, ``Magnus4``, ``Magnus6``, ``CFM4``,
 ``CFM4_BLANES17``, ``SplitMidpoint``, ``SplitCFM``) with a black-box
 operator callback over ``exp.DenseSplit`` / ``exp.DenseCplxSplit``. On

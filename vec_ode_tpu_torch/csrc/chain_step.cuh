@@ -6,43 +6,54 @@
 // vec_ode_tpu/ops/pallas_loop.py:make_chain_step_builder, K5).
 //
 // It computes what vec_ode_tpu/ops/pallas_expmv.py:_make_kernel and
-// make_chain_step_builder's step compute, for one exponential per chain
-// (R = 1) and C <= 2 chains, in this order:
+// make_chain_step_builder's step compute: C <= 2 chains of R <= MAX_R
+// sequential exponentials, y_c = e^{A_{c,R-1}} ... e^{A_{c,0}} x, in this
+// order:
 //   1. the coefficient rows of the declared recipe from the node samples
-//      g (n_nodes, tile, K0) and dt: midpoint dt g; Magnus-4
-//      w1_k = (dt/2)(g1_k + g2_k), w2_jk = (b2 dt dt)(g1_j g2_k - g1_k g2_j),
-//      chain 0 = [w1, w2] and, for C = 2, chain 1 = [w1, 0] (the zero
-//      commutator columns are still multiplied, so a NaN state still gives
-//      a NaN error and a reject);
-//   2. the scaling: per trajectory and chain row the bound
+//      g (J, tile, K0) and dt (ops/expmv.py:chain_rows): midpoint dt g;
+//      Magnus-4 w1_k = (dt/2)(g1_k + g2_k), w2_jk = (b2 dt dt)(g1_j g2_k -
+//      g1_k g2_j), chain 0 = [w1, w2] and, for C = 2, chain 1 = [w1, 0];
+//      Magnus-6 the Magnus-4 rows of the three Yoshida sub-intervals over
+//      (ln_i dt), and for C = 2 chain 1 = [the full interval's row,
+//      identity, identity]; CFM dt sum_j alpha_ij g_j (zero alphas left
+//      out, j in order) and for C = 2 the alpha_err rows, padded with zero
+//      rows. Zero columns and zero rows are still run (a NaN state still
+//      gives a NaN error and a reject); the declared identity rows are
+//      skipped;
+//   2. the scaling: per trajectory, chain and row the bound
 //      sum_k |c_k| ||M_k||_1 gives the least s >= 0 with bound/theta <= 2^s
 //      (at most max_sq; s = 0 for a non-finite bound), and the row is
 //      divided by 2^s (ops/expmv.py:scale_rows);
-//   3. 2^s passes of the degree-m Taylor polynomial per row: each term is
-//      one (rows, D) @ (D, KP*D) product with MT = [M_0^T | ... |
+//   3. per chain, its rows in order, each 2^s passes of the degree-m
+//      Taylor polynomial on the running state: each term is one
+//      (rows, D) @ (D, KP*D) product with MT = [M_0^T | ... |
 //      M_{KP-1}^T], the KP actions combined with the row's coefficients in
-//      k order and divided by the term's index. Rows that have finished
-//      their passes are masked while the block runs to its largest count;
+//      k order and divided by the term's index. Within a row, trajectories
+//      that have finished their passes are masked while the block runs to
+//      its largest count; row r + 1 starts when the whole block has
+//      finished row r;
 //   4. the error: chain1 - chain0, or for magnus4_fast
 //      sum_{k >= K0} w2_k (M_k y) on the advanced state; measured as
 //      rk_step.cuh's ErrNorm (scaled_error, weight row, l2 or max, post).
-// A row whose dt is 0 runs one pass with zero coefficients and returns x
-// exactly.
+// A row whose dt is 0 runs one pass with zero coefficients per exponential
+// and returns x exactly.
 //
 // Layout. Each thread owns RT rows x CT columns (columns cg, cg + ncg, ...),
 // as in rk_step.cuh, and keeps that part of the chain's running sum in
-// registers; the Taylor term of the whole tile lives in shared memory (one
-// (tile, D) slot), and the basis is read from device memory (L2) at each
-// term: 3 x 128 x 128 values are 196 KB in f32 and 393 KB in f64, too
-// large for shared memory beside the state. x and x_out are (tile, D)
-// slots in shared memory; the per-row coefficients and pass counts too.
+// registers across the chain's exponentials; the Taylor term of the whole
+// tile lives in shared memory (one (tile, D) slot), and the basis is read
+// from device memory (L2) at each term: 3 x 128 x 128 values are 196 KB in
+// f32 and 393 KB in f64, too large for shared memory beside the state. x
+// and x_out are (tile, D) slots in shared memory; the node samples, the
+// per-row coefficients and pass counts of every (chain, exponential) too.
 //
 // Precision. Products accumulate by IEEE FMA in the state's type, never
-// TF32. The recipe's coefficient arithmetic, the bound, the weighted sum
-// of the KP actions and the scaled_error denominator are written with
-// explicitly rounded operations (no contraction), in the plain twin's
-// order; the pass count comes from frexp, exactly. Build without
-// --use_fast_math.
+// TF32. The nodes, the recipe's coefficient arithmetic, the bound, the
+// weighted sum of the KP actions and the scaled_error denominator are
+// written with explicitly rounded operations (no contraction), in the
+// plain twin's order, the Python constants folded in f64 by the wrapper
+// and rounded once here; the pass count comes from frexp, exactly. Build
+// without --use_fast_math.
 
 #pragma once
 
@@ -50,33 +61,48 @@
 
 namespace vec_ode {
 
-constexpr int MAX_K0 = 2;  // basis terms (ops/expmv.py: MAX_K0)
-constexpr int MAX_KP = 3;  // working terms: K0 + K0 (K0 - 1) / 2
-constexpr int RECIPE_MIDPOINT = 0, RECIPE_MAGNUS4 = 1, RECIPE_MAGNUS4_FAST = 2;
+constexpr int MAX_K0 = 2;     // basis terms (ops/expmv.py: MAX_K0)
+constexpr int MAX_KP = 3;     // working terms: K0 + K0 (K0 - 1) / 2
+constexpr int MAX_R = 4;      // exponentials per chain (ops/expmv.py: MAX_R)
+constexpr int MAX_NODES = 8;  // quadrature nodes per step (ops/expmv.py: MAX_NODES)
+constexpr int RECIPE_MIDPOINT = 0, RECIPE_MAGNUS4 = 1, RECIPE_MAGNUS4_FAST = 2,
+              RECIPE_MAGNUS6 = 3, RECIPE_CFM = 4;
 
 __device__ __forceinline__ float frexp_full(float a, int* e) { return frexpf(a, e); }
 __device__ __forceinline__ double frexp_full(double a, int* e) { return frexp(a, e); }
 
 template <typename T>
 struct ChainParams {
-  int K0, KP, recipe, C, m, max_sq;
+  int K0, KP, recipe, C, R, J, m, max_sq, n_err;
   T theta;
-  T c_mid, b2;         // ops/expmv.py: _C_MID, _B2 in the state's type
-  T norms[MAX_KP];     // ||M_k||_1
-  T form[MAX_K0][4];   // c_k(t) = a + b t + c cos(w t): a, b, c, w (loop kernel)
+  T c_mid, b2;                    // ops/expmv.py: _C_MID, _B2 in the state's type
+  T norms[MAX_KP];                // ||M_k||_1
+  T sub[3][3];                    // Magnus-6 sub-interval i: off + ln/2, c_mid ln, ln
+  T nodes[MAX_NODES];             // CFM: c_j
+  T alpha[MAX_R][MAX_NODES];      // CFM: the main chain's rows
+  T alpha_err[MAX_R][MAX_NODES];  // CFM: the comparison chain's n_err rows
+  T form[MAX_K0][4];              // c_k(t) = a + b t + c cos(w t): a, b, c, w (loop kernel)
 };
 
-// Parses the float64 parameter array of ops/expmv.py:chain_params.
+// Parses the float64 parameter array of ops/expmv.py:chain_params (its
+// _P_* offsets).
 template <typename T>
-ChainParams<T> parse_chain_params(const double* c, bool with_form) {
+ChainParams<T> parse_chain_params(const double* c) {
   ChainParams<T> p{};
   p.K0 = (int)c[0], p.KP = (int)c[1], p.recipe = (int)c[2], p.C = (int)c[3];
-  p.m = (int)c[4], p.max_sq = (int)c[5];
-  p.theta = (T)c[6], p.c_mid = (T)c[7], p.b2 = (T)c[8];
-  for (int k = 0; k < p.KP && k < MAX_KP; ++k) p.norms[k] = (T)c[9 + k];
-  if (with_form)
-    for (int k = 0; k < p.K0 && k < MAX_K0; ++k)
-      for (int f = 0; f < 4; ++f) p.form[k][f] = (T)c[9 + p.KP + 4 * k + f];
+  p.R = (int)c[4], p.J = (int)c[5], p.m = (int)c[6], p.max_sq = (int)c[7];
+  p.theta = (T)c[8], p.c_mid = (T)c[9], p.b2 = (T)c[10], p.n_err = (int)c[11];
+  for (int k = 0; k < MAX_KP; ++k) p.norms[k] = (T)c[12 + k];
+  for (int i = 0; i < 3; ++i)
+    for (int f = 0; f < 3; ++f) p.sub[i][f] = (T)c[15 + 3 * i + f];
+  for (int j = 0; j < MAX_NODES; ++j) p.nodes[j] = (T)c[24 + j];
+  for (int i = 0; i < MAX_R; ++i)
+    for (int j = 0; j < MAX_NODES; ++j) {
+      p.alpha[i][j] = (T)c[32 + MAX_NODES * i + j];
+      p.alpha_err[i][j] = (T)c[32 + MAX_R * MAX_NODES + MAX_NODES * i + j];
+    }
+  for (int k = 0; k < MAX_K0; ++k)
+    for (int f = 0; f < 4; ++f) p.form[k][f] = (T)c[32 + 2 * MAX_R * MAX_NODES + 4 * k + f];
   return p;
 }
 
@@ -84,10 +110,31 @@ ChainParams<T> parse_chain_params(const double* c, bool with_form) {
 // them first).
 template <typename T>
 bool chain_params_ok(const ChainParams<T>& p) {
-  const int kp = p.recipe == RECIPE_MIDPOINT ? p.K0 : p.K0 + p.K0 * (p.K0 - 1) / 2;
-  return p.K0 >= 1 && p.K0 <= MAX_K0 && p.KP == kp && p.m >= 1 && p.max_sq >= 0 &&
-         p.max_sq <= 30 && p.recipe >= 0 && p.recipe <= 2 &&
-         (p.C == 1 || (p.C == 2 && p.recipe == RECIPE_MAGNUS4));
+  const bool plain = p.recipe == RECIPE_MIDPOINT || p.recipe == RECIPE_CFM;
+  const int kp = plain ? p.K0 : p.K0 + p.K0 * (p.K0 - 1) / 2;
+  bool shape = false;
+  switch (p.recipe) {
+    case RECIPE_MIDPOINT: shape = p.C == 1 && p.R == 1 && p.J == 1; break;
+    case RECIPE_MAGNUS4: shape = (p.C == 1 || p.C == 2) && p.R == 1 && p.J == 2; break;
+    case RECIPE_MAGNUS4_FAST: shape = p.C == 1 && p.R == 1 && p.J == 2; break;
+    case RECIPE_MAGNUS6:
+      shape = (p.C == 1 || p.C == 2) && p.R == 3 && p.J == (p.C == 2 ? 8 : 6);
+      break;
+    case RECIPE_CFM:
+      shape = p.R >= 1 && p.R <= MAX_R && p.J >= 1 && p.J <= MAX_NODES &&
+              ((p.C == 1 && p.n_err == 0) || (p.C == 2 && p.n_err >= 1 && p.n_err <= p.R));
+      break;
+    default: break;
+  }
+  return shape && p.K0 >= 1 && p.K0 <= MAX_K0 && p.KP == kp && p.m >= 1 && p.max_sq >= 0 &&
+         p.max_sq <= 30;
+}
+
+// The declared identity rows, which the step skips (ops/expmv.py:
+// identity_rows): the Magnus-6 comparison chain's rows 1 and 2.
+template <typename T>
+__host__ __device__ __forceinline__ bool identity_row(const ChainParams<T>& p, int c, int r) {
+  return p.recipe == RECIPE_MAGNUS6 && c == 1 && r >= 1;
 }
 
 // The device's opt-in shared memory per block and SM count, read once.
@@ -128,23 +175,25 @@ inline int chain_tile(int B, int D, int n_sm, int rt, int max_threads) {
 template <typename T>
 struct ChainSmem {
   T* term;     // (tile, D): the Taylor term; then the error partials
-  T* g;        // (2, tile, MAX_K0): the coefficients at the nodes
-  T* rows;     // (2, tile, KP): the unscaled coefficient rows
-  T* cs;       // (2, tile, KP): the scaled rows
-  int* npass;  // (2, tile): 2^s per chain row, 0 for rows past the batch
+  T* g;        // (J, tile, MAX_K0): the coefficients at the nodes
+  T* rows;     // (C R, tile, KP): the unscaled coefficient rows
+  T* cs;       // (C R, tile, KP): the scaled rows
+  int* npass;  // (C R, tile): 2^s per row, 0 for rows past the batch
 
-  __host__ __device__ static size_t elems(int tile, int D, int KP) {
-    const size_t ints = 2 * (size_t)tile * sizeof(int);
-    return (size_t)tile * D + 2 * (size_t)tile * MAX_K0 + 4 * (size_t)tile * KP +
+  __host__ __device__ static size_t elems(int tile, int D, int KP, const ChainParams<T>& p) {
+    const size_t nr = (size_t)p.C * p.R;
+    const size_t ints = nr * tile * sizeof(int);
+    return (size_t)tile * D + (size_t)p.J * tile * MAX_K0 + 2 * nr * tile * KP +
            (ints + sizeof(T) - 1) / sizeof(T);
   }
-  __device__ static ChainSmem carve(T* base, int tile, int D, int KP) {
+  __device__ static ChainSmem carve(T* base, int tile, int D, int KP, const ChainParams<T>& p) {
+    const size_t nr = (size_t)p.C * p.R;
     ChainSmem s;
     s.term = base;
     s.g = s.term + (size_t)tile * D;
-    s.rows = s.g + 2 * (size_t)tile * MAX_K0;
-    s.cs = s.rows + 2 * (size_t)tile * KP;
-    s.npass = reinterpret_cast<int*>(s.cs + 2 * (size_t)tile * KP);
+    s.rows = s.g + (size_t)p.J * tile * MAX_K0;
+    s.cs = s.rows + nr * tile * KP;
+    s.npass = reinterpret_cast<int*>(s.cs + nr * tile * KP);
     return s;
   }
 };
@@ -171,25 +220,99 @@ __device__ __forceinline__ T form_at(const T* f, T t) {
   return col;
 }
 
-// Fills sm.g with the declared form at the recipe's nodes of each row:
-// tm = t + dt/2, and for Magnus-4 tm -/+ c_mid dt (ops/expmv.py:node_times).
+// Node nd of a step from t over dt (ops/expmv.py:node_times): tm = t + dt/2
+// (midpoint); tm -/+ c_mid dt (Magnus-4, and Magnus-6's nodes 6 and 7);
+// Magnus-6's sub-interval i = nd / 2: tm_i -/+ (c_mid ln_i) dt with
+// tm_i = t + (off_i + ln_i / 2) dt; CFM t + c_j dt.
+template <typename T>
+__device__ __forceinline__ T node_time(const ChainParams<T>& p, int nd, T t, T dt) {
+  if (p.recipe == RECIPE_CFM) return add_rn(t, mul_rn(p.nodes[nd], dt));
+  if (p.recipe == RECIPE_MAGNUS6 && nd < 6) {
+    const int i = nd / 2;
+    const T tm = add_rn(t, mul_rn(p.sub[i][0], dt));
+    const T off = mul_rn(p.sub[i][1], dt);
+    return nd % 2 == 0 ? sub_rn(tm, off) : add_rn(tm, off);
+  }
+  const T tm = add_rn(t, mul_rn(T(0.5), dt));
+  if (p.recipe == RECIPE_MIDPOINT) return tm;
+  const T off = mul_rn(p.c_mid, dt);
+  return nd % 2 == 0 ? sub_rn(tm, off) : add_rn(tm, off);
+}
+
+// Fills sm.g with the declared form at the recipe's J nodes of each row.
 // One thread per row; the caller synchronises before the step reads it.
 template <typename T>
 __device__ void sample_form(const T* __restrict__ t_rows, const T* __restrict__ dt_rows,
                             const ChainSmem<T>& sm, int tile, const ChainParams<T>& p) {
   for (int lr = threadIdx.x; lr < tile; lr += blockDim.x) {
     const T t = t_rows[lr], dt = dt_rows[lr];
-    const T tm = add_rn(t, mul_rn(T(0.5), dt));
-    const int n_nodes = p.recipe == RECIPE_MIDPOINT ? 1 : 2;
-    for (int nd = 0; nd < n_nodes; ++nd) {
-      T tn = tm;
-      if (n_nodes == 2) {
-        const T off = mul_rn(p.c_mid, dt);
-        tn = nd == 0 ? sub_rn(tm, off) : add_rn(tm, off);
-      }
+    for (int nd = 0; nd < p.J; ++nd) {
+      const T tn = node_time(p, nd, t, dt);
       for (int k = 0; k < p.K0; ++k)
         sm.g[((size_t)nd * tile + lr) * MAX_K0 + k] = form_at(p.form[k], tn);
     }
+  }
+}
+
+// The Magnus-4 row [w1, w2] over the node samples ga, gb and the step dts:
+// w1_k = (dts/2)(ga_k + gb_k), w2 = (b2 dts dts)(ga_0 gb_1 - ga_1 gb_0) for
+// KP = 3 (K0 = 2; the one commutator pair), nothing more for KP = 1.
+template <typename T, int KP>
+__device__ __forceinline__ void m4_row(const T* ga, const T* gb, T dts, T b2, T (&row)[KP]) {
+  constexpr int K0 = KP == 3 ? 2 : 1;
+  const T hdt = mul_rn(T(0.5), dts);
+#pragma unroll
+  for (int k = 0; k < K0; ++k) row[k] = mul_rn(hdt, add_rn(ga[k], gb[k]));
+  if (KP == 3) {
+    const T bdd = mul_rn(mul_rn(b2, dts), dts);
+    row[KP - 1] = mul_rn(bdd, sub_rn(mul_rn(ga[0], gb[1]), mul_rn(ga[1], gb[0])));
+  }
+}
+
+// Row r of chain c of trajectory lr, unscaled (zero where the recipe has a
+// zero row); g holds the node samples, dt the row's step.
+template <typename T, int KP>
+__device__ void chain_row(const ChainParams<T>& p, int c, int r, const T* g, int tile, int lr,
+                          T dt, T (&row)[KP]) {
+#pragma unroll
+  for (int k = 0; k < KP; ++k) row[k] = T(0);
+  const T* g0 = g + (size_t)lr * MAX_K0;  // node nd at g0 + nd * tile * MAX_K0
+  const size_t gs = (size_t)tile * MAX_K0;
+  switch (p.recipe) {
+    case RECIPE_MIDPOINT:
+#pragma unroll
+      for (int k = 0; k < KP; ++k) row[k] = mul_rn(dt, g0[k]);
+      break;
+    case RECIPE_CFM: {
+      if (c == 1 && r >= p.n_err) break;  // a zero pad row
+      const T* a = c == 0 ? p.alpha[r] : p.alpha_err[r];
+#pragma unroll
+      for (int k = 0; k < KP; ++k) {
+        T acc = T(0);
+        bool any = false;
+        for (int j = 0; j < p.J; ++j) {
+          if (a[j] == T(0)) continue;
+          const T term = mul_rn(a[j], g0[j * gs + k]);
+          acc = any ? add_rn(acc, term) : term;
+          any = true;
+        }
+        row[k] = any ? mul_rn(dt, acc) : T(0);
+      }
+      break;
+    }
+    case RECIPE_MAGNUS6:
+      if (c == 0)
+        m4_row<T, KP>(g0 + 2 * r * gs, g0 + (2 * r + 1) * gs, mul_rn(p.sub[r][2], dt), p.b2,
+                      row);
+      else if (r == 0)
+        m4_row<T, KP>(g0 + 6 * gs, g0 + 7 * gs, dt, p.b2, row);
+      break;
+    default:  // Magnus-4; its comparison chain has zero commutator columns
+      m4_row<T, KP>(g0, g0 + gs, dt, p.b2, row);
+      if (c == 1)
+#pragma unroll
+        for (int k = 0; k < KP; ++k)
+          if (k >= p.K0) row[k] = T(0);
   }
 }
 
@@ -258,7 +381,7 @@ __device__ void chain_step_tile(const T* __restrict__ dt_rows, const T* x, T* x_
   const bool active = tid < items;
   const int cg = tid % ncg;
   const int rg = tid / ncg;
-  const int K0 = p.K0, C = p.C;
+  const int K0 = p.K0, C = p.C, R = p.R;
   const bool fast = p.recipe == RECIPE_MAGNUS4_FAST;
   const bool has_err = C == 2 || fast;
 
@@ -266,114 +389,96 @@ __device__ void chain_step_tile(const T* __restrict__ dt_rows, const T* x, T* x_
   for (int lr = tid; lr < tile; lr += blockDim.x) {
     const bool ok = lr < rows;
     const T dt = ok ? dt_rows[lr] : T(0);
-    const T* g1 = sm.g + (size_t)lr * MAX_K0;
-    const T* g2 = sm.g + ((size_t)tile + lr) * MAX_K0;
-    T row[2][KP];
-    if (p.recipe == RECIPE_MIDPOINT) {
+    for (int c = 0; c < C; ++c)
+      for (int r = 0; r < R; ++r) {
+        const size_t cr = (size_t)c * R + r;
+        T row[KP];
+        chain_row<T, KP>(p, c, r, sm.g, tile, lr, dt, row);
+        T bound = T(0);
 #pragma unroll
-      for (int k = 0; k < KP; ++k) row[0][k] = row[1][k] = ok ? mul_rn(dt, g1[k]) : T(0);
-    } else {
-      const T hdt = mul_rn(T(0.5), dt);
-      const T bdd = mul_rn(mul_rn(p.b2, dt), dt);
-      int q = K0;
-#pragma unroll
-      for (int k = 0; k < KP; ++k) {
-        if (k >= K0) continue;
-        const T w1 = ok ? mul_rn(hdt, add_rn(g1[k], g2[k])) : T(0);
-        row[0][k] = row[1][k] = w1;
-      }
-      for (int j = 0; j < K0; ++j)
-        for (int k = j + 1; k < K0; ++k, ++q) {
-          const T w2 = ok ? mul_rn(bdd, sub_rn(mul_rn(g1[j], g2[k]), mul_rn(g1[k], g2[j])))
-                          : T(0);
-#pragma unroll
-          for (int kk = 0; kk < KP; ++kk)
-            if (kk == q) {
-              row[0][kk] = w2;
-              row[1][kk] = T(0);
-            }
+        for (int k = 0; k < KP; ++k) {
+          if (!ok) row[k] = T(0);
+          const T term = mul_rn(fabs(row[k]), p.norms[k]);
+          bound = k == 0 ? term : add_rn(bound, term);
         }
-    }
-    for (int c = 0; c < C; ++c) {
-      T bound = T(0);
+        const T ratio = bound / p.theta;
+        int s = 0;
+        if (isfinite(bound) && ratio > T(1)) {
+          int e = 0;
+          const T mant = frexp_full(ratio, &e);
+          s = e - (mant == T(0.5) ? 1 : 0);
+          s = s < 0 ? 0 : (s > p.max_sq ? p.max_sq : s);
+        }
+        const int n_pass = 1 << s;
+        const T scale = T(1) / T(n_pass);  // exact
 #pragma unroll
-      for (int k = 0; k < KP; ++k) {
-        const T term = mul_rn(fabs(row[c][k]), p.norms[k]);
-        bound = k == 0 ? term : add_rn(bound, term);
+        for (int k = 0; k < KP; ++k) {
+          sm.rows[(cr * tile + lr) * KP + k] = row[k];
+          sm.cs[(cr * tile + lr) * KP + k] = row[k] * scale;
+        }
+        sm.npass[cr * tile + lr] = ok && !identity_row(p, c, r) ? n_pass : 0;
       }
-      const T ratio = bound / p.theta;
-      int s = 0;
-      if (isfinite(bound) && ratio > T(1)) {
-        int e = 0;
-        const T mant = frexp_full(ratio, &e);
-        s = e - (mant == T(0.5) ? 1 : 0);
-        s = s < 0 ? 0 : (s > p.max_sq ? p.max_sq : s);
-      }
-      const int n_pass = 1 << s;
-      const T scale = T(1) / T(n_pass);  // exact
-#pragma unroll
-      for (int k = 0; k < KP; ++k) {
-        sm.rows[((size_t)c * tile + lr) * KP + k] = row[c][k];
-        sm.cs[((size_t)c * tile + lr) * KP + k] = row[c][k] * scale;
-      }
-      sm.npass[c * tile + lr] = ok ? n_pass : 0;
-    }
   }
   __syncthreads();
 
-  // 3. the chains
+  // 3. the chains: per chain its rows in order on the running sum
   T acc[RT][CT];
   T y[KP][RT][CT];
   for (int c = 0; c < C; ++c) {
-    int np[RT];
 #pragma unroll
     for (int q = 0; q < RT; ++q) {
       const int lr = rg * RT + q;
-      np[q] = active ? sm.npass[c * tile + lr] : 0;
 #pragma unroll
       for (int k = 0; k < CT; ++k) {
         const int col = cg + k * ncg;
         acc[q][k] = (active && col < D) ? x[(size_t)lr * D + col] : T(0);
       }
     }
-    for (int pass = 0;; ++pass) {
-      bool mine = false;
-      if (active) {
+    for (int r = 0; r < R; ++r) {
+      if (identity_row(p, c, r)) continue;  // e^0 = I: skipped, as the JAX kernels do
+      const size_t cr = (size_t)c * R + r;
+      int np[RT];
 #pragma unroll
-        for (int q = 0; q < RT; ++q) {
-          mine = mine || np[q] > pass;
-#pragma unroll
-          for (int k = 0; k < CT; ++k) {
-            const int col = cg + k * ncg;
-            if (col < D) sm.term[(size_t)(rg * RT + q) * D + col] = acc[q][k];
-          }
-        }
-      }
-      // the pass's start state is written; go on while any row has passes
-      if (!__syncthreads_or(mine)) break;
-      for (int kk = 1; kk <= p.m; ++kk) {
-        if (active) chain_products<T, RT, KP>(sm.term, mt, D, rg, cg, ncg, y);
-        __syncthreads();  // every read of the term is done
+      for (int q = 0; q < RT; ++q) np[q] = active ? sm.npass[cr * tile + rg * RT + q] : 0;
+      for (int pass = 0;; ++pass) {
+        bool mine = false;
         if (active) {
-          const T div = T(kk);
 #pragma unroll
           for (int q = 0; q < RT; ++q) {
-            const int lr = rg * RT + q;
-            const T* cq = sm.cs + ((size_t)c * tile + lr) * KP;
+            mine = mine || np[q] > pass;
 #pragma unroll
             for (int k = 0; k < CT; ++k) {
               const int col = cg + k * ncg;
-              if (col >= D) continue;
-              T w = mul_rn(cq[0], y[0][q][k]);
-#pragma unroll
-              for (int b = 1; b < KP; ++b) w = add_rn(w, mul_rn(cq[b], y[b][q][k]));
-              const T nt = w / div;
-              sm.term[(size_t)lr * D + col] = nt;
-              if (pass < np[q]) acc[q][k] = acc[q][k] + nt;
+              if (col < D) sm.term[(size_t)(rg * RT + q) * D + col] = acc[q][k];
             }
           }
         }
-        __syncthreads();  // the new term is written
+        // the pass's start state is written; go on while any row has passes
+        if (!__syncthreads_or(mine)) break;
+        for (int kk = 1; kk <= p.m; ++kk) {
+          if (active) chain_products<T, RT, KP>(sm.term, mt, D, rg, cg, ncg, y);
+          __syncthreads();  // every read of the term is done
+          if (active) {
+            const T div = T(kk);
+#pragma unroll
+            for (int q = 0; q < RT; ++q) {
+              const int lr = rg * RT + q;
+              const T* cq = sm.cs + (cr * tile + lr) * KP;
+#pragma unroll
+              for (int k = 0; k < CT; ++k) {
+                const int col = cg + k * ncg;
+                if (col >= D) continue;
+                T w = mul_rn(cq[0], y[0][q][k]);
+#pragma unroll
+                for (int b = 1; b < KP; ++b) w = add_rn(w, mul_rn(cq[b], y[b][q][k]));
+                const T nt = w / div;
+                sm.term[(size_t)lr * D + col] = nt;
+                if (pass < np[q]) acc[q][k] = acc[q][k] + nt;
+              }
+            }
+          }
+          __syncthreads();  // the new term is written
+        }
       }
     }
     if (active) {

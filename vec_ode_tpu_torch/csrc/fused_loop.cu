@@ -1,8 +1,8 @@
 // The whole driver loop for an ensemble of trajectories of a linear system
 // with shared operators, written by hand for Hopper (sm_90a): the
 // modulated-linear RK stepper dx/dt = (M0 + cos(w t) M1) x, or the
-// modulated exponential steppers (Magnus-4, exponential midpoint) on
-// A(t) = sum_k c_k(t) M_k.
+// modulated exponential steppers (exponential midpoint, Magnus-4, Magnus-6,
+// commutator-free Magnus over a declared table) on A(t) = sum_k c_k(t) M_k.
 //
 // Replaces the Pallas TPU kernel vec_ode_tpu/ops/pallas_loop.py:
 // _make_loop_kernel, launched by fused_loop_chunk (pallas_call at :1135),
@@ -57,11 +57,13 @@
 // What bounds it: FP32 FMA throughput. RK: each iteration of each row is
 // 6 stages x 128 x 256 x 2 = 393 216 FLOP at d = 64 (RKF45). Magnus-4:
 // each Taylor term of each row is 128 x 384 x 2 = 98 304 FLOP, m = 8 terms
-// per pass in f32, one or more passes per chain, two chains. The loop
-// touches device memory only for its carries, the operators (from L2) and
-// its saves. At B = 2048 it also has too few blocks to fill the card (one
-// slow row holds its whole tile), so latency, not throughput, is likely
-// to bound it; making it fast is later work.
+// per pass in f32, one or more passes per exponential, two chains (an
+// adaptive Magnus-6 step: four exponentials at K' = 3, the comparison
+// chain's two identity rows skipped; CFM-4: three at K' = 2 and a zero
+// pad row). The loop touches device memory only for its carries, the
+// operators (from L2) and its saves. At B = 2048 it also has too few
+// blocks to fill the card (one slow row holds its whole tile), so latency,
+// not throughput, is likely to bound it; making it fast is later work.
 //
 // Precision. The time arithmetic is written with explicitly rounded
 // operations (__fadd_rn, __fsub_rn, __fmul_rn and the f64 ones): the
@@ -111,19 +113,19 @@ struct RKLoopStep {
   }
 };
 
-// The chain step: the declared form sampled at the nodes, then
-// chain_step_tile over KP working terms.
+// The chain step: the declared form sampled at the recipe's nodes, then
+// chain_step_tile over KP working terms, C chains of R exponentials.
 template <typename T, int KP>
 struct ChainLoopStep {
   const T* mt;
   ChainParams<T> p;
 
   __host__ __device__ size_t scratch_elems(int tile, int D) const {
-    return ChainSmem<T>::elems(tile, D, KP);
+    return ChainSmem<T>::elems(tile, D, KP, p);
   }
   __device__ void operator()(const T* s_t, const T* s_dt, T* xs, T* ys, T* s_err, T* scratch,
                              int rows, int tile, int D, const ErrNorm<T>& en) const {
-    const ChainSmem<T> sm = ChainSmem<T>::carve(scratch, tile, D, KP);
+    const ChainSmem<T> sm = ChainSmem<T>::carve(scratch, tile, D, KP, p);
     sample_form(s_t, s_dt, sm, tile, p);
     __syncthreads();
     chain_step_tile<T, RT, KP>(s_dt, xs, ys, s_err, sm, rows, tile, D, mt, p, en);
@@ -373,7 +375,7 @@ int launch_chain(const void* t_grid, int n_grid, const void* fs_in, const void* 
                  int kind_max, const double* c, int iters, int adaptive, void* stream) {
   if (B <= 0 || D <= 0 || D > MAX_WIDTH || n_grid < 2 || iters < 0)
     return (int)cudaErrorInvalidValue;
-  const ChainParams<T> p = parse_chain_params<T>(chain, true);
+  const ChainParams<T> p = parse_chain_params<T>(chain);
   if (!chain_params_ok(p)) return (int)cudaErrorInvalidValue;
   int dev = 0, max_smem = 0, n_sm = 0;
   cudaError_t st = device_limits(&dev, &max_smem, &n_sm);

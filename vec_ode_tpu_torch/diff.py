@@ -34,10 +34,8 @@ as in JAX).
 
 Not ported: ``basis_grad=True`` (``make_adjoint_basis_solver``, gradients
 with respect to the basis, no kernel) and the dense adjoint
-(``adjoint_solve_dense``), ROADMAP queue 1 item 23; the adaptive adjoint
-at order 6 and with ``scheme="cfm4"``, which need ``MagnusModulated6`` /
-``CFM4Modulated`` (ROADMAP slice 4b); ``solve_for_grad`` (item 22) and
-``fit_loop`` (item 24).
+(``adjoint_solve_dense``), ROADMAP queue 1 item 23; ``solve_for_grad``
+(item 22) and ``fit_loop`` (item 24).
 """
 
 from __future__ import annotations
@@ -58,8 +56,9 @@ from .exp.magnus import _B2, _C_MID
 # over [g1, 1 - 2 g1, g1] dt, g1 = 1 / (2 - 2^(1/5)), raises the order to 6
 from .exp.magnus import _SUB_LEN as _YOSHIDA_LEN
 from .exp.magnus import _SUB_OFF as _YOSHIDA_OFF
-from .exp.modulated import (MagnusModulated4, ModulatedOperator,
-                            _real_basis, _taylor_params, _unwiden, _widen)
+from .exp.modulated import (CFM4Modulated, MagnusModulated4,
+                            MagnusModulated6, ModulatedOperator, _real_basis,
+                            _taylor_params, _unwiden, _widen)
 from .ops.adjoint import adjoint_bwd, adjoint_sweep_bwd, adjoint_sweep_fwd
 from .ops.cplx import Cplx
 from .ops.expmv import basis_norms, stacked_basis, stacked_transpose
@@ -391,6 +390,29 @@ def make_adjoint_saves_solver(basis, coeff_fn: Callable, *, n_steps: int,
     return _solver(rows_all, forward, backward)
 
 
+def _cfm_multi_cols(coeff_fn, alpha, c_nodes):
+    """multi_cols(theta, t, dt) -> (s, K0): the CFM rows dt sum_j alpha[i,
+    j] g(t + c_j dt), the zero alphas left out and the sum taken in j
+    order (the kernels' order, ops/expmv.chain_rows)."""
+    s_rows = alpha.shape[0]
+
+    def multi_cols(theta, t, dt):
+        gs = [coeff_fn(t + cj * dt, theta) for cj in c_nodes]
+        rows = []
+        for i in range(s_rows):
+            acc = None
+            for j, g in enumerate(gs):
+                if alpha[i, j] == 0.0:
+                    continue
+                term = float(alpha[i, j]) * g
+                acc = term if acc is None else acc + term
+            rows.append(dt * (acc if acc is not None
+                              else torch.zeros_like(gs[0])))
+        return torch.stack(rows)
+
+    return multi_cols
+
+
 def make_adjoint_cfm_solver(basis, coeff_fn: Callable, *, n_steps: int,
                             alpha=None, c=None, m: Optional[int] = None,
                             max_squarings: int = 16):
@@ -410,23 +432,8 @@ def make_adjoint_cfm_solver(basis, coeff_fn: Callable, *, n_steps: int,
     # the order-2 core: the un-extended basis, no commutator directions
     core = _adjoint_core(basis, coeff_fn, order=2, m=m,
                          max_squarings=max_squarings)
-    s_rows = alpha.shape[0]
-
-    def multi_cols(theta, t, dt):
-        gs = [coeff_fn(t + cj * dt, theta) for cj in c_nodes]
-        rows = []
-        for i in range(s_rows):
-            acc = None
-            for j, g in enumerate(gs):
-                if alpha[i, j] == 0.0:
-                    continue
-                term = float(alpha[i, j]) * g
-                acc = term if acc is None else acc + term
-            rows.append(dt * (acc if acc is not None
-                              else torch.zeros_like(gs[0])))
-        return torch.stack(rows)
-
-    rows_all = _make_rows_all_multi(multi_cols, s_rows, n_steps)
+    rows_all = _make_rows_all_multi(
+        _cfm_multi_cols(coeff_fn, alpha, c_nodes), alpha.shape[0], n_steps)
     return _solver(rows_all,
                    lambda c_all, y0w: _rows_forward(core, c_all, y0w),
                    lambda c_all, yf, ybar: _rows_backward(core, c_all, yf,
@@ -435,16 +442,24 @@ def make_adjoint_cfm_solver(basis, coeff_fn: Callable, *, n_steps: int,
 
 @dataclasses.dataclass(eq=False)
 class _AdaptivePlan:
+    """An adaptive adjoint: the core, the forward stepper's class (over
+    an operator on the core's working basis) and ``step_rows(theta, t,
+    dt) -> (n_sub, K')``, the exponentials of one recorded step in
+    order."""
+
     spec: Any
     core: _Core
     basis: Any
     coeff_fn: Callable
     ctl: StepControl
+    stepper: Callable
+    step_rows: Callable
 
 
 def _adaptive_forward(plan, theta, y0w, t0, tf, h0):
-    """The adaptive driver forward (``driver.step_once`` with
-    ``MagnusModulated4`` over coeff_fn(., theta)): one chain-kernel launch
+    """The adaptive driver forward (``driver.step_once`` with the plan's
+    stepper, ``MagnusModulated4`` / ``MagnusModulated6`` /
+    ``CFM4Modulated`` over coeff_fn(., theta)): one chain-kernel launch
     per iteration on the card. Records the per-iteration times only and
     stops at the first iteration with no lane RUNNING (the JAX package
     runs all ``ctl.max_steps``; its later rows have dt = 0, are the
@@ -459,8 +474,8 @@ def _adaptive_forward(plan, theta, y0w, t0, tf, h0):
     is_cplx = isinstance(plan.basis, Cplx)
     op = ModulatedOperator(plan.basis, lambda t: plan.coeff_fn(t, theta),
                            ext_basis=core.W)
-    stepper = MagnusModulated4(op, adaptive=True, m=core.m,
-                               max_squarings=core.max_squarings)
+    stepper = plan.stepper(op, adaptive=True, m=core.m,
+                           max_squarings=core.max_squarings)
     step_fn = stepper.make_step_fn()
     B = y0w.shape[0]
     state = init_state(_unwiden(y0w, is_cplx), torch.stack([t0, tf]), h0,
@@ -497,18 +512,22 @@ class _AdaptiveAdjoint(torch.autograd.Function):
         ybar = ybar.to(yfw.dtype)
         with torch.enable_grad():
             lv, _, theta = _recompute(leaves, plan.spec, (), needs[5:])
-            # the (n_it, B, K') rows of every recorded iteration at once:
-            # the same sum as one vjp per iteration, in another order;
-            # rows with dt = 0 are zero
+            # the (n_it, n_sub, B, K') rows of every recorded iteration at
+            # once: the same sum as one vjp per iteration, in another
+            # order; rows with dt = 0 are zero
             t_r = ts_all[:-1].reshape(-1)
             dt_r = (ts_all[1:] - ts_all[:-1]).reshape(-1)
-            rows = torch.func.vmap(lambda t_, d_: core.cols(theta, t_, d_))(
-                t_r, dt_r).reshape(n_it, B, core.Kp)
+            rows = torch.func.vmap(
+                lambda t_, d_: plan.step_rows(theta, t_, d_))(t_r, dt_r)
+            rows = rows.reshape(n_it, B, -1, core.Kp).transpose(1, 2)
         rk = rows.detach().to(yfw.dtype).contiguous()
         cbs = torch.empty_like(rk)
         x, a = yfw, ybar
-        for r in range(n_it - 1, -1, -1):   # one K6 launch per iteration
-            x, a, cbs[r] = _bwd_row(core, rk[r], x, a)
+        # one K6 launch per exponential, the steps and their sub-rows in
+        # reverse
+        for r in range(n_it - 1, -1, -1):
+            for j in range(rk.shape[1] - 1, -1, -1):
+                x, a, cbs[r, j] = _bwd_row(core, rk[r, j], x, a)
         grads = _grads_of(rows, lv, needs[5:], cbs.to(rows.dtype))
 
         # the endpoints by the continuous adjoint identity dL/dtf =
@@ -534,38 +553,63 @@ class _AdaptiveAdjoint(torch.autograd.Function):
                 torch.zeros_like(h0) if needs[4] else None, *grads)
 
 
+def _adaptive_scheme(basis, coeff_fn: Callable, *, order: int = 4,
+                    scheme: str = "magnus", m: Optional[int] = None,
+                    max_squarings: int = 16):
+    """(core, stepper class, step_rows) of the adaptive adjoint:
+    ``step_rows(theta, t, dt) -> (n_sub, K')`` gives the exponentials of
+    one recorded step in order (the Magnus-4 row; the three Yoshida
+    sub-rows of order 6; the two CFM-4 rows on the un-extended basis), the
+    rows the backward replays."""
+    if scheme not in ("magnus", "cfm4"):
+        raise ValueError(f"scheme must be 'magnus' or 'cfm4', got {scheme}")
+    if scheme == "cfm4":
+        # CFM rows live on the un-extended basis (the order-2 core)
+        core = _adjoint_core(basis, coeff_fn, order=2, m=m,
+                             max_squarings=max_squarings)
+        return core, CFM4Modulated, _cfm_multi_cols(
+            coeff_fn, np.asarray(tb.CFM_R4_J2_GL, np.float64),
+            tuple(float(cj) for cj in tb.C_GAUSS_LEGENDRE_4))
+    if order not in (4, 6):
+        raise ValueError(
+            f"adaptive adjoint order must be 4 or 6, got {order}")
+    core = _adjoint_core(basis, coeff_fn, order=order, m=m,
+                         max_squarings=max_squarings)
+    # order 6 replays the three Yoshida sub-rows of each step
+    subs = (tuple(zip(_YOSHIDA_OFF, _YOSHIDA_LEN)) if order == 6
+            else ((0.0, 1.0),))
+
+    def step_rows(theta, t, dt):
+        return torch.stack([core.cols(theta, t + o * dt, ln * dt)
+                            for o, ln in subs])
+
+    return core, (MagnusModulated6 if order == 6 else MagnusModulated4), \
+        step_rows
+
+
 def make_adaptive_adjoint_solver(basis, coeff_fn: Callable, *,
                                  ctl: StepControl, order: int = 4,
                                  scheme: str = "magnus",
                                  m: Optional[int] = None,
                                  max_squarings: int = 16):
-    """The adaptive adjoint, Magnus order 4: ``solve(theta, y0w, t0, tf,
-    h0) -> (y_final_w, status)`` runs the adaptive driver forward
-    (``step_once`` semantics with ``MagnusModulated4``, at most
-    ``ctl.max_steps`` iterations), recording only the per-iteration times,
-    and replays the step sequence in reverse, one K6 launch per recorded
-    iteration (the frozen-step-sequence discrete adjoint: the step sizes
-    are constants in theta). Iterations that did not advance have dt = 0:
-    the identity, with a zero coefficient Jacobian, so a rejected trial
-    never reaches the gradient. ``coeff_fn`` must take batched times (B,)
-    -> (B, K) (the steppers sample it so). ``status`` holds the driver's
-    codes per lane; a lane that ran out of ``ctl.max_steps`` holds a
-    mid-integration state (see :func:`adjoint_solve_adaptive`)."""
-    if scheme not in ("magnus", "cfm4"):
-        raise ValueError(f"scheme must be 'magnus' or 'cfm4', got {scheme}")
-    if scheme == "cfm4":
-        raise NotImplementedError(
-            "the adaptive adjoint with scheme='cfm4' needs CFM4Modulated, "
-            "ROADMAP slice 4b")
-    if order not in (4, 6):
-        raise ValueError(
-            f"adaptive adjoint order must be 4 or 6, got {order}")
-    if order == 6:
-        raise NotImplementedError(
-            "the adaptive adjoint at order 6 needs MagnusModulated6, "
-            "ROADMAP slice 4b")
-    core = _adjoint_core(basis, coeff_fn, order=4, m=m,
-                         max_squarings=max_squarings)
+    """The adaptive adjoint: ``solve(theta, y0w, t0, tf, h0) ->
+    (y_final_w, status)`` runs the adaptive driver forward (``step_once``
+    semantics, at most ``ctl.max_steps`` iterations) with
+    ``MagnusModulated4`` (order 4), ``MagnusModulated6`` (order 6) or
+    ``CFM4Modulated`` (``scheme="cfm4"``, the un-extended basis), recording
+    only the per-iteration times, and replays the step sequence in
+    reverse: per recorded iteration its exponentials in reverse, one K6
+    launch each (the Magnus-4 row; the three Yoshida sub-rows; the two CFM
+    rows). This is the frozen-step-sequence discrete adjoint: the step
+    sizes are constants in theta. Iterations that did not advance have
+    dt = 0: the identity, with a zero coefficient Jacobian, so a rejected
+    trial never reaches the gradient. ``coeff_fn`` must take batched times
+    (B,) -> (B, K) (the steppers sample it so). ``status`` holds the
+    driver's codes per lane; a lane that ran out of ``ctl.max_steps``
+    holds a mid-integration state (see :func:`adjoint_solve_adaptive`)."""
+    core, stepper, step_rows = _adaptive_scheme(
+        basis, coeff_fn, order=order, scheme=scheme, m=m,
+        max_squarings=max_squarings)
 
     def solve(theta, y0w, t0, tf, h0):
         leaves, spec = _theta_leaves(theta, y0w.device)
@@ -576,7 +620,8 @@ def make_adaptive_adjoint_solver(basis, coeff_fn: Callable, *,
         t0, tf, h0 = (v if isinstance(v, torch.Tensor)
                       else torch.tensor(v, dtype=tdt, device=y0w.device)
                       for v in (t0, tf, h0))
-        plan = _AdaptivePlan(spec, core, basis, coeff_fn, ctl)
+        plan = _AdaptivePlan(spec, core, basis, coeff_fn, ctl, stepper,
+                             step_rows)
         # one time type for the solve; the cotangents keep their own
         return _AdaptiveAdjoint.apply(plan, y0w, t0.to(tdt), tf.to(tdt),
                                       h0.to(tdt), *leaves)
@@ -589,8 +634,8 @@ def adjoint_solve_adaptive(basis, coeff_fn: Callable, theta: Pytree, y0,
                            scheme: str = "magnus", h0=None,
                            m: Optional[int] = None, max_squarings: int = 16,
                            return_status: bool = False):
-    """Terminal state of the ADAPTIVE Magnus-4 solve of dx/dt =
-    A(t; theta) x, differentiable with respect to theta, y0, t0 and tf with
+    """Terminal state of the ADAPTIVE solve of dx/dt = A(t; theta) x
+    (Magnus order 4 or 6, or ``scheme="cfm4"``), differentiable with respect to theta, y0, t0 and tf with
     O(iterations x B) scalar memory (see
     :func:`make_adaptive_adjoint_solver`). Lanes that do not reach tf
     within ``ctl.max_steps`` iterations are NaN-poisoned, so that a loss

@@ -8,8 +8,10 @@ from .leaves import (AntiHermitianCplxSplit, AntiHermitianSplit,
                      DiagonalSplit)
 from .magnus import (ExpMidpoint, Magnus4, Magnus6, magnus4_step,
                      magnus6_step, midpoint_step)
-from .modulated import (CoeffForm, MagnusModulated4, MidpointModulated,
-                        ModulatedOperator, modulated_exp_apply)
+from .modulated import (CFM4Modulated, CFMModulated, CfmTable, CoeffForm,
+                        MagnusModulated4, MagnusModulated6,
+                        MidpointModulated, ModulatedOperator,
+                        modulated_exp_apply)
 from .protocol import ExponentialSplit, index_u
 from .split_solvers import (SplitCFM, SplitMidpoint, split_cfm_step,
                             split_midpoint_step)
@@ -20,6 +22,9 @@ __all__ = [
     "CFM",
     "CFM4",
     "CFM4_BLANES17",
+    "CFM4Modulated",
+    "CFMModulated",
+    "CfmTable",
     "CoeffForm",
     "DenseCplxSplit",
     "DenseSplit",
@@ -30,6 +35,7 @@ __all__ = [
     "Magnus4",
     "Magnus6",
     "MagnusModulated4",
+    "MagnusModulated6",
     "MidpointModulated",
     "ModulatedOperator",
     "SplitCFM",

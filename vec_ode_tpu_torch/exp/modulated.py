@@ -12,9 +12,13 @@ every term is one shared (B, D) @ (D, K'D) product
 * :class:`ModulatedOperator`: the basis, the coefficient function
   ``coeff_fn`` and optionally its declared form (``CoeffForm``), which the
   whole-loop kernel samples in-kernel.
-* :class:`MidpointModulated` (exponential midpoint, fixed steps) and
+* :class:`MidpointModulated` (exponential midpoint, fixed steps),
   :class:`MagnusModulated4` (Magnus-4 with its order-2 comparison chain,
-  or ``fast_error``): natively batched steppers for
+  or ``fast_error``), :class:`MagnusModulated6` (the Yoshida triple jump
+  of Magnus-4, three exponentials per step, with the full-interval
+  Magnus-4 row as its comparison) and :class:`CFMModulated` /
+  :func:`CFM4Modulated` (commutator-free Magnus over a declared
+  ``CfmTable``): natively batched steppers for
   ``parallel.ensemble_solve``. Their per-step path runs the chain kernel
   K4 (``ops/expmv.fused_chain_apply``) on CUDA tensors and its twin on CPU
   tensors; ``fused_loop_solve`` runs the whole loop in the loop kernel
@@ -35,14 +39,16 @@ from typing import Any, Callable, Optional
 import torch
 
 from .. import lc
+from .. import tableaus as tb
 from ..ops.cplx import Cplx, cmatmul, embed
-from ..ops.expmv import (CoeffForm, basis_norms, fused_chain_apply,
+from ..ops.expmv import (CfmTable, CoeffForm, basis_norms, fused_chain_apply,
                          has_error_estimate, n_working_terms, node_times,
                          pairs_of, scale_rows, stacked_transpose,
                          torch_chain_expmv)
 
-__all__ = ["ModulatedOperator", "CoeffForm", "MidpointModulated",
-           "MagnusModulated4", "modulated_exp_apply"]
+__all__ = ["ModulatedOperator", "CoeffForm", "CfmTable", "MidpointModulated",
+           "MagnusModulated4", "MagnusModulated6", "CFMModulated",
+           "CFM4Modulated", "modulated_exp_apply"]
 
 # Taylor-action (degree, theta) per dtype (exp/modulated.py:53): the
 # smallest degree whose remainder |e^t - T_m(t)| at |t| <= theta sits well
@@ -158,8 +164,8 @@ def modulated_exp_apply(basis_w, coeffs, xw, *, m: Optional[int] = None,
     dtype = xw.dtype
     m, theta = _taylor_params(dtype, m, theta)
     basis_w = basis_w.to(dtype)
-    cs, n_pass = scale_rows(coeffs.to(dtype)[:, None], basis_norms(basis_w),
-                            theta, max_squarings)
+    cs, n_pass = scale_rows(coeffs.to(dtype)[:, None, None],
+                            basis_norms(basis_w), theta, max_squarings)
     return torch_chain_expmv(cs, n_pass, xw, stacked_transpose(basis_w),
                              m=m)[0]
 
@@ -198,9 +204,10 @@ class _ChainStepper:
     operands per (device, dtype), the per-step function over
     ``fused_chain_apply`` and the whole-loop solve over ``ChainStep``.
     Subclasses set ``_recipe`` / ``_chains`` / ``_adaptive`` and
-    ``_basis_w``."""
+    ``_basis_w``, and the ``"cfm"`` recipe its ``_table``."""
 
     is_batched = True
+    _table = None
     # err comes back as a per-trajectory NORM (computed in the step), not an
     # error vector: the driver applies error_norm = identity
     error_norm = staticmethod(lambda e: e)
@@ -226,7 +233,7 @@ class _ChainStepper:
             raise ValueError(
                 f"{type(self).__name__} embeds its own operator; pass "
                 "rhs=None")
-        recipe, C = self._recipe, self._chains
+        recipe, C, table = self._recipe, self._chains, self._table
         coeff_fn, is_cplx = self.op.coeff_fn, self.op.is_cplx
         has_err = has_error_estimate(recipe, C)
 
@@ -235,12 +242,12 @@ class _ChainStepper:
             mt, norms = self._operands(xw.device, xw.dtype)
             m, theta = _taylor_params(xw.dtype, self.m)
             samples = [coeff_fn(tn).to(xw.dtype).contiguous()
-                       for tn in node_times(recipe, t, dt)]
+                       for tn in node_times(recipe, t, dt, C, table)]
             y, err = fused_chain_apply(
                 samples, dt.to(xw.dtype).contiguous(), xw, mt, norms,
                 recipe=recipe, C=C, m=m, theta=theta,
                 max_squarings=self.max_squarings,
-                wnorm=self._wnorm_of(x) if has_err else None)
+                wnorm=self._wnorm_of(x) if has_err else None, table=table)
             # no error estimate -> None makes the adaptive driver raise
             # instead of accepting on a zero estimate
             return _unwiden(y, is_cplx), (err if has_err else None)
@@ -293,7 +300,7 @@ class _ChainStepper:
             C=self._chains, m=m, theta=theta,
             max_squarings=self.max_squarings,
             scaled=(ctl.atol, ctl.rtol) if ctl.scaled_error else None,
-            wnorm=wnorm)
+            wnorm=wnorm, table=self._table)
         persistent = persistent is None or persistent
         x0 = _widen(y0, is_cplx)
         fs, ist, x, saves = fused_loop_integrate(
@@ -318,6 +325,27 @@ class _ChainStepper:
             n_iters=ist[:, 5], h_final=fs[:, 1], path=path)
 
 
+def _extended_basis(op: ModulatedOperator) -> torch.Tensor:
+    """The commutator-extended real working basis of the Magnus recipes
+    (made once per stepper, or taken from ``op.ext_basis``)."""
+    if op.ext_basis is not None:
+        ext_w = op.ext_basis
+    else:
+        ext_w = _real_basis(op.commutator_extension()[0])
+    if ext_w.shape[0] != n_working_terms("magnus4", op.n_terms):
+        raise ValueError(
+            f"the extended basis has {ext_w.shape[0]} terms, Magnus-4 "
+            f"on {op.n_terms} basis terms needs "
+            f"{n_working_terms('magnus4', op.n_terms)}")
+    return ext_w
+
+
+def _set(stepper, **values) -> None:
+    """Set the derived fields of a frozen stepper."""
+    for name, value in values.items():
+        object.__setattr__(stepper, name, value)
+
+
 @dataclasses.dataclass(frozen=True)
 class MidpointModulated(_ChainStepper):
     """Exponential midpoint (Magnus-2) on a modulated operator: the
@@ -334,8 +362,7 @@ class MidpointModulated(_ChainStepper):
     _adaptive = False
 
     def __post_init__(self):
-        object.__setattr__(self, "_basis_w", _real_basis(self.op.basis))
-        object.__setattr__(self, "_cache", {})
+        _set(self, _basis_w=_real_basis(self.op.basis), _cache={})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -358,20 +385,81 @@ class MagnusModulated4(_ChainStepper):
 
     def __post_init__(self):
         _check_norm(self.norm)
-        if self.op.ext_basis is not None:
-            ext_w = self.op.ext_basis
-        else:
-            ext_w = _real_basis(self.op.commutator_extension()[0])
-        if ext_w.shape[0] != n_working_terms("magnus4", self.op.n_terms):
-            raise ValueError(
-                f"the extended basis has {ext_w.shape[0]} terms, Magnus-4 "
-                f"on {self.op.n_terms} basis terms needs "
-                f"{n_working_terms('magnus4', self.op.n_terms)}")
         fast = self.adaptive and self.fast_error
-        for name, value in (("_basis_w", ext_w), ("_cache", {}),
-                            ("_recipe", "magnus4_fast" if fast
-                             else "magnus4"),
-                            ("_chains", 2 if self.adaptive and not fast
-                             else 1),
-                            ("_adaptive", self.adaptive)):
-            object.__setattr__(self, name, value)
+        _set(self, _basis_w=_extended_basis(self.op), _cache={},
+             _recipe="magnus4_fast" if fast else "magnus4",
+             _chains=2 if self.adaptive and not fast else 1,
+             _adaptive=self.adaptive)
+
+
+@dataclasses.dataclass(frozen=True)
+class MagnusModulated6(_ChainStepper):
+    """Magnus-6 on a modulated operator: the Yoshida triple jump of the
+    symmetric Magnus-4 step over [g1, 1 - 2 g1, g1] dt, three
+    exponentials per step over the commutator-extended basis (one chain
+    of three rows). ``adaptive``: the comparison chain is the full
+    interval's Magnus-4 row followed by two declared identity rows, which
+    the kernels skip (an order 6(4) pair; 8 samples a step, 6 without).
+    At f32 its estimate has a noise floor near 1e-7: an rtol below it
+    rejects every step and ends in ``ERR_MAX_STEPS`` with a finite state.
+    ``norm``: a declared ``lc.WeightedNorm``."""
+
+    op: ModulatedOperator
+    adaptive: bool = True
+    m: Optional[int] = None          # Taylor degree; None = dtype default
+    max_squarings: int = 16
+    norm: Optional[Any] = None
+
+    @property
+    def nfev_per_step(self) -> int:
+        return 8 if self.adaptive else 6
+
+    def __post_init__(self):
+        _check_norm(self.norm)
+        _set(self, _basis_w=_extended_basis(self.op), _cache={},
+             _recipe="magnus6", _chains=2 if self.adaptive else 1,
+             _adaptive=self.adaptive)
+
+
+@dataclasses.dataclass(frozen=True)
+class CFMModulated(_ChainStepper):
+    """Commutator-free Magnus on a modulated operator: each exponential is
+    a basis combination dt sum_j alpha[i, j] c(t + c_j dt) over the
+    un-extended basis, applied in row order (x_i = e^{rho_i} x_{i-1});
+    ``alpha_err`` (at most as many rows) gives the embedded comparison
+    chain, padded with zero rows, and makes the stepper adaptive. The
+    scheme is declared as an ``ops.expmv.CfmTable``, which the kernels and
+    the twin read. ``norm``: a declared ``lc.WeightedNorm``."""
+
+    op: ModulatedOperator
+    alpha: tuple
+    c: tuple
+    alpha_err: Optional[tuple] = None
+    m: Optional[int] = None          # Taylor degree; None = dtype default
+    max_squarings: int = 16
+    norm: Optional[Any] = None
+
+    @property
+    def nfev_per_step(self) -> int:
+        return len(self.c)
+
+    def __post_init__(self):
+        _check_norm(self.norm)
+        table = CfmTable(self.alpha, self.c, self.alpha_err)
+        adaptive = table.alpha_err is not None
+        _set(self, alpha=table.alpha, c=table.c, alpha_err=table.alpha_err,
+             _basis_w=_real_basis(self.op.basis), _cache={}, _recipe="cfm",
+             _chains=2 if adaptive else 1, _adaptive=adaptive, _table=table)
+
+
+def CFM4Modulated(op: ModulatedOperator, *, adaptive: bool = True,
+                  m: Optional[int] = None, max_squarings: int = 16,
+                  norm: Optional[Any] = None) -> CFMModulated:
+    """The reference's ExpCFMSolver configuration on the modulated path:
+    the order-4 scheme CFM_R4_J2_GL on the 2-node Gauss-Legendre nodes,
+    with the order-2 CFM_R2_J1_GL as its comparison chain when
+    ``adaptive``."""
+    return CFMModulated(
+        op=op, alpha=tb.CFM_R4_J2_GL, c=tb.C_GAUSS_LEGENDRE_4,
+        alpha_err=tb.CFM_R2_J1_GL if adaptive else None, m=m,
+        max_squarings=max_squarings, norm=norm)

@@ -1,5 +1,5 @@
 """Problem/model library."""
 
-from .quantum import DrivenDense, LandauZener, PulseControl
+from .quantum import DrivenDense, LandauZener, Lindblad, PulseControl
 
-__all__ = ["DrivenDense", "LandauZener", "PulseControl"]
+__all__ = ["DrivenDense", "LandauZener", "Lindblad", "PulseControl"]

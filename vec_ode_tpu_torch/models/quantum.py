@@ -1,6 +1,7 @@
 """Quantum model family (the part of ``vec_ode_tpu/models/quantum.py`` the
 ensemble and adjoint paths use): time-dependent Schrödinger problems
-dpsi/dt = -i H(t) psi."""
+dpsi/dt = -i H(t) psi, and open systems (Lindblad master equations) over
+vectorised density matrices."""
 
 from __future__ import annotations
 
@@ -240,3 +241,113 @@ class PulseControl:
         re = torch.sum(Ur.T * yf.re + Ui.T * yf.im) / d
         im = torch.sum(Ur.T * yf.im - Ui.T * yf.re) / d
         return 1.0 - (re * re + im * im)
+
+
+@dataclasses.dataclass(frozen=True)
+class Lindblad:
+    """Open-system (Lindblad master equation) dynamics as a modulated
+    linear ODE over vectorised density matrices:
+
+        d rho / dt = -i [H0 + u(t) Hc, rho] + sum_j gamma_j D[L_j] rho,
+        D[L] rho = L rho L^dagger - (L^dagger L rho + rho L^dagger L) / 2.
+
+    Column-stacking vec(rho) turns every term into a d^2-dim
+    superoperator, so A(t) = S_drift + u(t) S_ctrl has the shared-basis
+    structure of the modulated steppers (K = 2 terms; at d = 8 the widened
+    width 2 d^2 is 128). H0, Hc and the jump operators are host-side
+    complex numpy arrays; ``make`` and the superoperators are the JAX
+    package's numpy code, so a seed gives bit-identical matrices."""
+
+    H0: np.ndarray                  # (d, d) complex Hermitian drift
+    Hc: np.ndarray                  # (d, d) complex Hermitian control
+    jumps: tuple                    # ((gamma_j, L_j (d, d) complex), ...)
+
+    @staticmethod
+    def make(d: int = 4, seed: int = 0, gamma: float = 0.1):
+        """A random drift and control and one lowering-ladder jump."""
+        rng = np.random.default_rng(seed)
+        M = rng.standard_normal((d, d)) + 1j * rng.standard_normal((d, d))
+        H0 = (M + M.conj().T) / (2 * math.sqrt(d))
+        N = rng.standard_normal((d, d)) + 1j * rng.standard_normal((d, d))
+        Hc = (N + N.conj().T) / (2 * math.sqrt(d))
+        L = np.diag(np.ones(d - 1), k=1).astype(complex)
+        return Lindblad(H0=H0, Hc=Hc, jumps=((gamma, L),))
+
+    def _super_commutator(self, H):
+        d = H.shape[0]
+        eye = np.eye(d)
+        return -1j * (np.kron(eye, H) - np.kron(H.T, eye))
+
+    def _super_dissipator(self):
+        d = self.H0.shape[0]
+        eye = np.eye(d)
+        S = np.zeros((d * d, d * d), complex)
+        for g, L in self.jumps:
+            LdL = L.conj().T @ L
+            S += g * (np.kron(L.conj(), L)
+                      - 0.5 * (np.kron(eye, LdL) + np.kron(LdL.T, eye)))
+        return S
+
+    def superop_basis(self, dtype=torch.float64, device="cuda"):
+        """Cplx (2, d^2, d^2): [drift + dissipators, control commutator],
+        on the card unless ``device`` names another."""
+        from ..ops.cplx import Cplx
+
+        S = np.stack([self._super_commutator(self.H0)
+                      + self._super_dissipator(),
+                      self._super_commutator(self.Hc)])
+        return Cplx(torch.as_tensor(S.real, dtype=dtype, device=device),
+                    torch.as_tensor(S.imag, dtype=dtype, device=device))
+
+    def modulated(self, u_fn, dtype=torch.float32, device="cuda", form=None):
+        """A(t) = S0 + u(t) S1 as a ModulatedOperator, on the card unless
+        ``device`` names another. ``u_fn`` is the control envelope: a
+        callable t -> u(t) (the operator then has no declared form and its
+        solves take the per-step path, as the JAX package's do), or a
+        one-term ``CoeffForm`` u(t) = a + b t + c cos(w t), which declares
+        it, so that the whole loop runs in the loop kernel. ``form``
+        declares a callable ``u_fn`` the same way (it must compute that
+        form)."""
+        from ..exp.modulated import CoeffForm, ModulatedOperator
+
+        if isinstance(u_fn, CoeffForm):
+            form = u_fn if form is None else form
+        if form is not None and form.n_terms != 1:
+            raise ValueError(f"Lindblad.modulated: the control's form has "
+                             f"one term, got {form.n_terms}")
+        op_form = None if form is None else CoeffForm(
+            a=(1.0, form.a[0]), b=(0.0, form.b[0]), c=(0.0, form.c[0]),
+            w=(0.0, form.w[0]))
+        if isinstance(u_fn, CoeffForm):
+            coeff = op_form.sample
+        else:
+            def coeff(t):
+                return torch.stack([torch.ones_like(t), u_fn(t)], dim=-1)
+        return ModulatedOperator(basis=self.superop_basis(dtype, device),
+                                 coeff_fn=coeff, form=op_form)
+
+    @staticmethod
+    def vec_rho(rho, dtype=torch.float64, device="cuda"):
+        """Density matrices (..., d, d) complex (numpy) -> a Cplx (...,
+        d^2) column-stacked state (Fortran order, the Kronecker
+        convention), on the card unless ``device`` names another."""
+        from ..ops.cplx import from_complex
+
+        r = np.asarray(rho)
+        v = np.reshape(np.swapaxes(r, -1, -2), r.shape[:-2] + (-1,))
+        return from_complex(v, dtype, device=device)
+
+    @staticmethod
+    def unvec_rho(v):
+        """A Cplx (..., d^2) state -> complex numpy (..., d, d)."""
+        z = v.re.detach().cpu().numpy() + 1j * v.im.detach().cpu().numpy()
+        d = int(round(math.sqrt(z.shape[-1])))
+        return np.swapaxes(z.reshape(z.shape[:-1] + (d, d)), -1, -2)
+
+    @staticmethod
+    def trace(v):
+        """tr(rho) of Cplx (..., d^2) states, as (re, im) tensors: the sum
+        of the diagonal entries, at column-stacked indices i (d + 1)."""
+        d = int(round(math.sqrt(v.re.shape[-1])))
+        diag = torch.arange(d, device=v.re.device) * (d + 1)
+        return v.re[..., diag].sum(-1), v.im[..., diag].sum(-1)

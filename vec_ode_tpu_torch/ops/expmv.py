@@ -1,10 +1,12 @@
 """The chain-exponential action for modulated operators, the counterpart of
 ``vec_ode_tpu/ops/pallas_expmv.py``.
 
-For each trajectory b and chain c it computes y[b, c] = e^{A(rows[b, c])} x[b]
-with A(row) = sum_k row[k] M_k over a shared working basis M_k (one row per
-chain: R = 1), by scaling and a degree-m Taylor chain whose every term is
-one (B, D) @ (D, K'D) product with the stacked basis.
+For each trajectory b and chain c it computes
+y[b, c] = e^{A(rows[b, c, R-1])} ... e^{A(rows[b, c, 0])} x[b] with
+A(row) = sum_k row[k] M_k over a shared working basis M_k (R sequential
+exponentials per chain, C <= 2 chains), by scaling and a degree-m Taylor
+chain whose every term is one (B, D) @ (D, K'D) product with the stacked
+basis.
 
 * :class:`CoeffForm` declares the coefficient functions a kernel samples
   in-kernel: c_k(t) = a_k + b_k t + c_k cos(w_k t).
@@ -12,10 +14,15 @@ one (B, D) @ (D, K'D) product with the stacked basis.
   from raw inputs (node samples and dt) where the JAX package passes a
   ``cols_builder`` callback: ``"midpoint"``, ``"magnus4"`` (C = 2: the
   order-4 row and the order-2 comparison row; C = 1 without an error
-  estimate) and ``"magnus4_fast"`` (``fast_error``: C = 1 and the error
-  (sum_k w2_k C_k) y on the advanced state).
+  estimate), ``"magnus4_fast"`` (``fast_error``: C = 1 and the error
+  (sum_k w2_k C_k) y on the advanced state), ``"magnus6"`` (the three
+  Yoshida sub-interval Magnus-4 rows; C = 2 adds the comparison chain
+  [full-interval Magnus-4 row, identity, identity], whose identity rows
+  are skipped) and ``"cfm"`` (the alpha rows of a declared
+  :class:`CfmTable` over its nodes; C = 2 adds the alpha_err rows padded
+  with zero rows, which are run).
 * :func:`scale_rows` is the scaling rule of the port: ONE squaring count
-  per trajectory and chain row, from that row's 1-norm bound
+  per trajectory, chain and row, from that row's 1-norm bound
   sum_k |c_k| ||M_k||_1, s = 0 for a non-finite bound (the JAX package's
   XLA rule); the JAX tiers take one count per batch (XLA) or per kernel
   tile (Pallas), which differs from this only by rounding.
@@ -36,6 +43,7 @@ import functools
 import math
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from . import _build
@@ -45,12 +53,22 @@ from .fused_rk import MAX_WIDTH, _step_error_measure, kernel_norm_args
 # commutator weight -sqrt(3)/12: copies of vec_ode_tpu/exp/magnus.py:29-31
 _C_MID = 0.5 / math.sqrt(3.0)
 _B2 = -math.sqrt(3.0) / 12.0
+# the Yoshida triple jump [g1, 1 - 2 g1, g1] dt, g1 = 1 / (2 - 2^(1/5)):
+# copies of vec_ode_tpu/exp/magnus.py:35-37
+_G1 = 1.0 / (2.0 - 2.0 ** 0.2)
+_SUB_OFF = (0.0, _G1, 1.0 - _G1)
+_SUB_LEN = (_G1, 1.0 - 2.0 * _G1, _G1)
 
-RECIPES = {"midpoint": 0, "magnus4": 1, "magnus4_fast": 2}
-# the kernels' limit (csrc/chain_step.cuh): at most MAX_K0 basis terms, so
+RECIPES = {"midpoint": 0, "magnus4": 1, "magnus4_fast": 2, "magnus6": 3,
+           "cfm": 4}
+# the kernels' limits (csrc/chain_step.cuh): at most MAX_K0 basis terms, so
 # a working basis of at most 3 terms (K0, plus their K0 (K0 - 1) / 2
-# commutators for the Magnus recipes); both models have two
+# commutators for the Magnus recipes; both models have two), at most
+# MAX_R exponentials per chain and MAX_NODES quadrature nodes per step
+# (BLANES17_R4_J4 has 4 rows; MAGNUS6 samples 8 nodes)
 MAX_K0 = 2
+MAX_R = 4
+MAX_NODES = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,6 +119,53 @@ class CoeffForm:
                 for v in (self.a[k], self.b[k], self.c[k], self.w[k])]
 
 
+@dataclasses.dataclass(frozen=True)
+class CfmTable:
+    """A commutator-free Magnus scheme as the kernels read it, in place of
+    the JAX package's ``cols_builder`` closure: the quadrature nodes ``c``
+    (J,) on [0, 1], the main chain's rows ``alpha`` (R, J) and, for an
+    error estimate, the comparison chain's rows ``alpha_err`` (n_err, J),
+    n_err <= R. Row i of a chain is dt sum_j alpha[i][j] g(t + c_j dt),
+    summed in j order with the zero alphas left out (the JAX kernels'
+    order); the comparison chain is padded to R rows with zero rows."""
+
+    alpha: tuple
+    c: tuple
+    alpha_err: Optional[tuple] = None
+
+    def __post_init__(self):
+        c = tuple(float(v) for v in np.asarray(self.c, np.float64).ravel())
+        mats = []
+        for name in ("alpha", "alpha_err"):
+            a = getattr(self, name)
+            if a is None:
+                mats.append(None)
+                continue
+            a = np.asarray(a, np.float64)
+            if a.ndim != 2 or a.shape[1] != len(c) or a.shape[0] < 1:
+                raise ValueError(f"CfmTable: {name} must be (rows, "
+                                 f"{len(c)}), got {a.shape}")
+            mats.append(tuple(tuple(float(v) for v in row) for row in a))
+        if not c:
+            raise ValueError("CfmTable: at least one node")
+        alpha, alpha_err = mats
+        if alpha_err is not None and len(alpha_err) > len(alpha):
+            raise ValueError(
+                "error chain longer than the main chain is unsupported "
+                f"({len(alpha_err)} > {len(alpha)})")
+        for name, value in (("alpha", alpha), ("c", c),
+                            ("alpha_err", alpha_err)):
+            object.__setattr__(self, name, value)
+
+    @property
+    def n_rows(self) -> int:
+        return len(self.alpha)
+
+    @property
+    def n_err(self) -> int:
+        return 0 if self.alpha_err is None else len(self.alpha_err)
+
+
 def pairs_of(K0: int) -> list:
     """The commutator pairs (j, k), j < k, in the order of the extended
     basis (``ModulatedOperator.commutator_extension``)."""
@@ -109,17 +174,29 @@ def pairs_of(K0: int) -> list:
 
 def n_working_terms(recipe: str, K0: int) -> int:
     """K': the basis terms a recipe's rows span."""
-    return K0 if recipe == "midpoint" else K0 + len(pairs_of(K0))
+    return K0 if recipe in ("midpoint", "cfm") else K0 + len(pairs_of(K0))
 
 
-def check_recipe(recipe: str, C: int) -> None:
+def check_recipe(recipe: str, C: int, table: Optional[CfmTable] = None
+                 ) -> None:
     if recipe not in RECIPES:
         raise ValueError(f"unknown chain recipe {recipe!r}; one of "
                          f"{sorted(RECIPES)}")
-    if C not in (1, 2) or (C == 2 and recipe != "magnus4"):
+    if (recipe == "cfm") != (table is not None):
+        raise ValueError("the recipe 'cfm', and only it, takes a CfmTable")
+    if recipe == "cfm" and not isinstance(table, CfmTable):
+        raise TypeError(f"recipe 'cfm' takes a CfmTable, got {table!r}")
+    if recipe == "cfm":
+        want = 2 if table.alpha_err is not None else 1
+        if C != want:
+            raise ValueError(f"recipe 'cfm' takes C = {want} for a table "
+                             + ("with" if want == 2 else "without")
+                             + f" alpha_err, got C = {C}")
+        return
+    two = recipe in ("magnus4", "magnus6")
+    if C not in (1, 2) or (C == 2 and not two):
         raise ValueError(f"recipe {recipe!r} takes C = 1"
-                         + (" or 2" if recipe == "magnus4" else "")
-                         + f", got C = {C}")
+                         + (" or 2" if two else "") + f", got C = {C}")
 
 
 def has_error_estimate(recipe: str, C: int) -> bool:
@@ -128,37 +205,119 @@ def has_error_estimate(recipe: str, C: int) -> bool:
     return C == 2 or recipe == "magnus4_fast"
 
 
-def node_times(recipe: str, t, dt) -> list:
-    """The quadrature nodes of one step from t over dt: the midpoint
-    t + dt/2, or the two Gauss-Legendre nodes tm -/+ _C_MID dt around
-    tm = t + dt/2 (exp/modulated.py's step_fn and step_cols)."""
+def n_rows(recipe: str, table: Optional[CfmTable] = None) -> int:
+    """R: the exponentials per chain."""
+    if recipe == "magnus6":
+        return 3
+    return table.n_rows if recipe == "cfm" else 1
+
+
+def identity_rows(recipe: str, C: int) -> frozenset:
+    """The declared identity rows (c, r), which the kernels and the twin
+    skip: the Magnus-6 comparison chain's rows 1 and 2."""
+    if recipe == "magnus6" and C == 2:
+        return frozenset({(1, 1), (1, 2)})
+    return frozenset()
+
+
+def n_nodes(recipe: str, C: int = 1, table: Optional[CfmTable] = None
+            ) -> int:
+    """The quadrature nodes of one step (:func:`node_times`)."""
+    return len(node_times(recipe, 0.0, 1.0, C, table))
+
+
+def node_times(recipe: str, t, dt, C: int = 1,
+               table: Optional[CfmTable] = None) -> list:
+    """The quadrature nodes of one step from t over dt, in the JAX
+    package's arithmetic (exp/modulated.py's step_fn and step_cols, the
+    Python constants folded in f64 and rounded once to t's type):
+    midpoint tm = t + dt/2; Magnus-4 the two Gauss-Legendre nodes
+    tm -/+ _C_MID dt; Magnus-6 per sub-interval (off, ln)
+    tm_i -/+ (_C_MID ln) dt with tm_i = t + (off + ln/2) dt, and for C = 2
+    the full interval's two nodes; CFM t + c_j dt."""
+    if recipe == "cfm":
+        return [t + cj * dt for cj in table.c]
+    if recipe == "magnus6":
+        out = []
+        for off, ln in zip(_SUB_OFF, _SUB_LEN):
+            tm = t + (off + 0.5 * ln) * dt
+            out += [tm - _C_MID * ln * dt, tm + _C_MID * ln * dt]
+        if C == 1:
+            return out
+        return out + node_times("magnus4", t, dt)
     tm = t + 0.5 * dt
     if recipe == "midpoint":
         return [tm]
     return [tm - _C_MID * dt, tm + _C_MID * dt]
 
 
-def chain_rows(recipe: str, samples: Sequence[torch.Tensor], dt, C: int):
-    """Coefficient rows (B, C, K') from the node samples (each (B, K0)) and
-    dt (B,), in the JAX package's arithmetic order: midpoint dt g;
-    Magnus-4 w1 = (dt/2)(g1 + g2) and w2 = (_B2 dt dt)(g1_j g2_k -
-    g1_k g2_j), chain 0 = [w1, w2], chain 1 (C = 2) = [w1, 0]."""
+def _m4_row(ga, gb, dts):
+    """The Magnus-4 row [w1, w2] over (ga, gb) (B, K0) and the step dts
+    (B, 1): w1 = (dts/2)(ga + gb), w2 = (_B2 dts dts)(ga_j gb_k -
+    ga_k gb_j) on the commutator pairs."""
+    w1 = 0.5 * dts * (ga + gb)
+    pairs = pairs_of(ga.shape[1])
+    if not pairs:
+        return w1
+    j = [p[0] for p in pairs]
+    k = [p[1] for p in pairs]
+    w2 = (_B2 * dts * dts) * (ga[:, j] * gb[:, k] - ga[:, k] * gb[:, j])
+    return torch.cat([w1, w2], dim=1)
+
+
+def _cfm_rows(mat, samples, dt1, R):
+    """dt sum_j mat[i][j] g_j per row i < len(mat), the zero entries left
+    out and the sum taken in j order (the JAX kernels' order; its XLA
+    tier forms the same rows with one einsum), then zero rows up to R."""
+    rows = []
+    for i in range(R):
+        acc = None
+        for a, g in zip(mat[i] if i < len(mat) else (), samples):
+            if a == 0.0:
+                continue
+            term = a * g
+            acc = term if acc is None else acc + term
+        rows.append(torch.zeros_like(samples[0]) if acc is None
+                    else dt1 * acc)
+    return torch.stack(rows, dim=1)
+
+
+def chain_rows(recipe: str, samples: Sequence[torch.Tensor], dt, C: int,
+               table: Optional[CfmTable] = None):
+    """Coefficient rows (B, C, R, K') from the node samples (each (B, K0),
+    in :func:`node_times` order) and dt (B,), in the JAX package's
+    arithmetic order: midpoint dt g; Magnus-4 chain 0 = [w1, w2] of
+    :func:`_m4_row`, chain 1 (C = 2) = [w1, 0]; Magnus-6 chain 0 = the
+    three sub-interval rows over (ln dt), chain 1 = [the full interval's
+    row, 0, 0] (rows 1 and 2 are :func:`identity_rows`); CFM the alpha
+    rows of :func:`_cfm_rows` and the alpha_err rows padded with zero
+    rows."""
     dt1 = dt[:, None]
     if recipe == "midpoint":
-        return (dt1 * samples[0])[:, None]
-    g1, g2 = samples
-    w1 = 0.5 * dt1 * (g1 + g2)
-    pairs = pairs_of(g1.shape[1])
-    if pairs:
-        j = [p[0] for p in pairs]
-        k = [p[1] for p in pairs]
-        w2 = (_B2 * dt1 * dt1) * (g1[:, j] * g2[:, k] - g1[:, k] * g2[:, j])
-    else:
-        w2 = w1[:, :0]
-    main = torch.cat([w1, w2], dim=1)
+        return (dt1 * samples[0])[:, None, None]
+    if recipe == "cfm":
+        R = table.n_rows
+        main = _cfm_rows(table.alpha, samples, dt1, R)
+        if C == 1:
+            return main[:, None]
+        return torch.stack([main, _cfm_rows(table.alpha_err, samples, dt1,
+                                            R)], 1)
+    if recipe == "magnus6":
+        main = torch.stack([_m4_row(samples[2 * i], samples[2 * i + 1],
+                                    float(_SUB_LEN[i]) * dt1)
+                            for i in range(3)], 1)
+        if C == 1:
+            return main[:, None]
+        full = _m4_row(samples[6], samples[7], dt1)
+        zero = torch.zeros_like(full)
+        return torch.stack([main, torch.stack([full, zero, zero], 1)], 1)
+    g1, g2 = samples[0], samples[1]
+    main = _m4_row(g1, g2, dt1)
     if C == 1:
-        return main[:, None]
-    return torch.stack([main, torch.cat([w1, torch.zeros_like(w2)], 1)], 1)
+        return main[:, None, None]
+    K0 = g1.shape[1]
+    lower = torch.cat([main[:, :K0], torch.zeros_like(main[:, K0:])], 1)
+    return torch.stack([main, lower], 1)[:, :, None]
 
 
 def scale_rows(rows, norms, theta: float, max_squarings: int):
@@ -183,45 +342,53 @@ def scale_rows(rows, norms, theta: float, max_squarings: int):
     return rows * (1.0 / n_pass.to(rows.dtype))[..., None], n_pass
 
 
-def torch_chain_expmv(cs, n_pass, xw, mt, *, m: int) -> list:
-    """Plain twin of the chain action: for each chain c, n_pass[b, c]
-    passes of the degree-m Taylor polynomial of sum_k cs[b, c, k] M_k on
-    xw[b], each term one (B, D) @ (D, K'D) product with ``mt`` = [M_0^T |
-    ... | M_{K'-1}^T], combined in k order and divided by the term's
-    index (chain_expmv_xla's arithmetic). Rows past their pass count keep
-    their value. Returns the C results (B, D)."""
+def torch_chain_expmv(cs, n_pass, xw, mt, *, m: int,
+                      identity: frozenset = frozenset()) -> list:
+    """Plain twin of the chain action: for each chain c, the rows r in
+    order, row (c, r) n_pass[b, c, r] passes of the degree-m Taylor
+    polynomial of sum_k cs[b, c, r, k] M_k on the running state (xw[b] at
+    r = 0), each term one (B, D) @ (D, K'D) product with ``mt`` =
+    [M_0^T | ... | M_{K'-1}^T], combined in k order and divided by the
+    term's index (chain_expmv_xla's arithmetic). Rows past their pass
+    count keep their value; the rows of ``identity`` are skipped. Returns
+    the C results (B, D)."""
     D = xw.shape[1]
     outs = []
     for c in range(cs.shape[1]):
-        csc, npc = cs[:, c], n_pass[:, c]
         v = xw
-        for p in range(int(npc.max())):
-            acc = term = v
-            for kk in range(1, m + 1):
-                mv = term @ mt
-                w = None
-                for k in range(csc.shape[1]):
-                    part = csc[:, k:k + 1] * mv[:, k * D:(k + 1) * D]
-                    w = part if w is None else w + part
-                term = w / kk
-                acc = acc + term
-            v = torch.where((npc > p)[:, None], acc, v)
+        for r in range(cs.shape[2]):
+            if (c, r) in identity:
+                continue
+            csc, npc = cs[:, c, r], n_pass[:, c, r]
+            for p in range(int(npc.max())):
+                acc = term = v
+                for kk in range(1, m + 1):
+                    mv = term @ mt
+                    w = None
+                    for k in range(csc.shape[1]):
+                        part = csc[:, k:k + 1] * mv[:, k * D:(k + 1) * D]
+                        w = part if w is None else w + part
+                    term = w / kk
+                    acc = acc + term
+                v = torch.where((npc > p)[:, None], acc, v)
         outs.append(v)
     return outs
 
 
 def torch_chain_step(samples, dt, xw, mt, norms, *, recipe: str, C: int,
                      m: int, theta: float, max_squarings: int = 16,
-                     wnorm=None, scaled=None):
+                     wnorm=None, scaled=None,
+                     table: Optional[CfmTable] = None):
     """One whole chain step in plain torch, what the kernels compute: the
     rows of ``recipe`` from the node ``samples`` and dt, the per-row
     scaling, the chains from xw, and the error measure of
     ``fused_rk._step_error_measure`` (``scaled=(atol, rtol)`` or a declared
     ``wnorm``) of chain1 - chain0 (C = 2) or of ``magnus4_fast``'s
     (sum_{k >= K0} w2_k M_k) y. Returns (y (B, D), err (B,) or None)."""
-    rows = chain_rows(recipe, samples, dt, C)
+    rows = chain_rows(recipe, samples, dt, C, table)
     cs, n_pass = scale_rows(rows, norms, theta, max_squarings)
-    outs = torch_chain_expmv(cs, n_pass, xw, mt, m=m)
+    outs = torch_chain_expmv(cs, n_pass, xw, mt, m=m,
+                             identity=identity_rows(recipe, C))
     y = outs[0]
     if C == 2:
         dv = outs[1] - y
@@ -230,7 +397,7 @@ def torch_chain_step(samples, dt, xw, mt, norms, *, recipe: str, C: int,
         mv = y @ mt
         dv = None
         for k in range(K0, rows.shape[-1]):
-            part = rows[:, 0, k:k + 1] * mv[:, k * D:(k + 1) * D]
+            part = rows[:, 0, 0, k:k + 1] * mv[:, k * D:(k + 1) * D]
             dv = part if dv is None else dv + part
         if dv is None:
             dv = torch.zeros_like(y)
@@ -271,27 +438,52 @@ def _kernel_lib() -> ctypes.CDLL:
     vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     for fn in (lib.vec_ode_chain_expmv_f32, lib.vec_ode_chain_expmv_f64):
         fn.restype = ci
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci,
-                       ctypes.POINTER(cd), vp, cd, ci, vp]
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ctypes.POINTER(cd),
+                       vp, cd, ci, vp]
     return lib
+
+
+# the layout of the parameter array (parse_chain_params in
+# csrc/chain_step.cuh): 12 header values, then fixed-size blocks
+_P_NORMS, _P_SUB, _P_NODES, _P_ALPHA, _P_ALPHA_ERR, _P_FORM = (
+    12, 15, 24, 32, 32 + MAX_R * MAX_NODES, 32 + 2 * MAX_R * MAX_NODES)
+_P_LEN = _P_FORM + 4 * MAX_K0
 
 
 def chain_params(recipe: str, C: int, K0: int, Kp: int, m: int,
                  theta: float, max_squarings: int, norms: Sequence[float],
-                 form: Optional[CoeffForm] = None):
+                 form: Optional[CoeffForm] = None,
+                 table: Optional[CfmTable] = None):
     """The chain step's parameters as the kernels read them (``ChainParams``
-    in csrc/chain_step.cuh): float64 values in host memory."""
-    vals = [K0, Kp, RECIPES[recipe], C, m, max_squarings, theta, _C_MID, _B2,
-            *norms]
+    in csrc/chain_step.cuh): float64 values in host memory, the Python
+    constants of the node and row arithmetic folded here in f64 (the
+    kernels round each once to the state's type, as the JAX package's
+    weak-typed constants are)."""
+    R = n_rows(recipe, table)
+    vals = [0.0] * _P_LEN
+    vals[:12] = [K0, Kp, RECIPES[recipe], C, R, n_nodes(recipe, C, table),
+                 m, max_squarings, theta, _C_MID, _B2,
+                 0 if table is None else table.n_err]
+    vals[_P_NORMS:_P_NORMS + len(norms)] = norms
+    for i, (off, ln) in enumerate(zip(_SUB_OFF, _SUB_LEN)):
+        vals[_P_SUB + 3 * i:_P_SUB + 3 * i + 3] = [off + 0.5 * ln,
+                                                   _C_MID * ln, ln]
+    if table is not None:
+        vals[_P_NODES:_P_NODES + len(table.c)] = table.c
+        for at, mat in ((_P_ALPHA, table.alpha),
+                        (_P_ALPHA_ERR, table.alpha_err or ())):
+            for i, row in enumerate(mat):
+                vals[at + i * MAX_NODES:at + i * MAX_NODES + len(row)] = row
     if form is not None:
-        vals += form.kernel_array()
-    return (ctypes.c_double * len(vals))(*vals)
+        vals[_P_FORM:_P_FORM + 4 * form.n_terms] = form.kernel_array()
+    return (ctypes.c_double * _P_LEN)(*vals)
 
 
 def check_chain_operands(kernel: str, xw, mt, norms, K0: int, recipe: str,
-                         C: int, w_row=None) -> int:
+                         C: int, w_row=None,
+                         table: Optional[CfmTable] = None) -> int:
     """Raise on what the chain kernels do not take; returns K'."""
-    check_recipe(recipe, C)
+    check_recipe(recipe, C, table)
     if xw.device.type != "cuda":
         raise ValueError(f"{kernel}: unsupported device {xw.device}")
     if xw.dtype not in (torch.float32, torch.float64):
@@ -307,6 +499,11 @@ def check_chain_operands(kernel: str, xw, mt, norms, K0: int, recipe: str,
     if not 1 <= K0 <= MAX_K0:
         raise ValueError(f"{kernel}: the kernel takes 1 to {MAX_K0} basis "
                          f"terms, got {K0}")
+    R, J = n_rows(recipe, table), n_nodes(recipe, C, table)
+    if R > MAX_R or J > MAX_NODES:
+        raise ValueError(
+            f"{kernel}: the kernel takes at most {MAX_R} exponentials per "
+            f"chain and {MAX_NODES} quadrature nodes, got {R} and {J}")
     Kp = n_working_terms(recipe, K0)
     if mt.shape != (D, Kp * D):
         raise ValueError(f"{kernel}: the stacked basis must be ({D}, "
@@ -329,42 +526,45 @@ def check_chain_operands(kernel: str, xw, mt, norms, K0: int, recipe: str,
     return Kp
 
 
-def fused_chain_apply(samples: Sequence[torch.Tensor], dt, xw, mt, norms, *,
-                      recipe: str, C: int, m: int, theta: float,
-                      max_squarings: int = 16, wnorm=None):
+def fused_chain_apply(samples, dt, xw, mt, norms, *, recipe: str, C: int,
+                      m: int, theta: float, max_squarings: int = 16,
+                      wnorm=None, table: Optional[CfmTable] = None):
     """One chain step (K4) over the whole ensemble: ``samples`` are the
-    coefficients at the recipe's nodes (:func:`node_times`), each (B, K0);
-    dt (B,); xw (B, D) the widened state; ``mt`` the stacked basis of
+    coefficients at the recipe's nodes (:func:`node_times`), a sequence
+    of (B, K0) tensors or one (n_nodes, B, K0) tensor; dt (B,); xw (B, D)
+    the widened state; ``mt`` the stacked basis of
     :func:`stacked_transpose` and ``norms`` its terms' 1-norms
-    (:func:`basis_norms`, floats); ``wnorm``
-    a declared norm ``(w_row, post, kind)`` or None for l2. Returns
-    (y (B, D), err (B,)); err is zero without an error estimate.
+    (:func:`basis_norms`, floats); ``wnorm`` a declared norm ``(w_row,
+    post, kind)`` or None for l2; ``table`` the :class:`CfmTable` of the
+    ``"cfm"`` recipe. Returns (y (B, D), err (B,)); err is zero without an
+    error estimate.
 
     CUDA tensors go to the kernel (float32 or float64, D <= 512, at most
-    2 basis terms); anything else it does not take raises. CPU tensors run
-    :func:`torch_chain_step`."""
-    check_recipe(recipe, C)
-    n_nodes = 1 if recipe == "midpoint" else 2
-    if len(samples) != n_nodes:
+    2 basis terms, 4 exponentials per chain and 8 nodes); anything else it
+    does not take raises. CPU tensors run :func:`torch_chain_step`."""
+    check_recipe(recipe, C, table)
+    want = n_nodes(recipe, C, table)
+    if len(samples) != want:
         raise ValueError(f"fused_chain_apply: recipe {recipe!r} samples "
-                         f"{n_nodes} node(s), got {len(samples)}")
+                         f"{want} node(s), got {len(samples)}")
     if all(a.device.type == "cpu" for a in (*samples, dt, xw, mt)):
         y, err = torch_chain_step(
             [g.to(xw.dtype) for g in samples], dt.to(xw.dtype), xw, mt,
             norms, recipe=recipe, C=C, m=m, theta=theta,
-            max_squarings=max_squarings, wnorm=wnorm)
+            max_squarings=max_squarings, wnorm=wnorm, table=table)
         return y, (torch.zeros_like(dt, dtype=xw.dtype) if err is None
                    else err)
     from .fused_rk import wnorm_on
 
     wn = wnorm_on(wnorm, xw)
     B, D = xw.shape
-    K0 = samples[0].shape[-1]
+    g = samples if isinstance(samples, torch.Tensor) else torch.stack(
+        list(samples))
+    K0 = g.shape[-1]
     Kp = check_chain_operands("fused_chain_apply", xw, mt, norms, K0,
-                              recipe, C, None if wn is None else wn[0])
-    for name, a, shape in (*((f"samples[{i}]", g, (B, K0))
-                             for i, g in enumerate(samples)),
-                           ("dt", dt, (B,))):
+                              recipe, C, None if wn is None else wn[0],
+                              table)
+    for name, a, shape in (("samples", g, (want, B, K0)), ("dt", dt, (B,))):
         if a.device != xw.device or a.dtype != xw.dtype:
             raise TypeError(f"fused_chain_apply: {name} is {a.dtype} on "
                             f"{a.device}, xw is {xw.dtype} on {xw.device}")
@@ -377,12 +577,10 @@ def fused_chain_apply(samples: Sequence[torch.Tensor], dt, xw, mt, norms, *,
     y = torch.empty_like(xw)
     err = torch.empty_like(dt)
     with torch.cuda.device(xw.device):
-        rc = fn(samples[0].data_ptr(),
-                samples[1].data_ptr() if n_nodes == 2 else None,
-                dt.data_ptr(), xw.data_ptr(), mt.data_ptr(), y.data_ptr(),
-                err.data_ptr(), B, D,
+        rc = fn(g.data_ptr(), dt.data_ptr(), xw.data_ptr(), mt.data_ptr(),
+                y.data_ptr(), err.data_ptr(), B, D,
                 chain_params(recipe, C, K0, Kp, m, theta, max_squarings,
-                             norms),
+                             norms, table=table),
                 *kernel_norm_args(wn),
                 torch.cuda.current_stream(xw.device).cuda_stream)
     if rc != 0:

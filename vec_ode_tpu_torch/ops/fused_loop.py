@@ -49,7 +49,7 @@ from ..driver import (DONE, ERR_BAD_GRID, ERR_MAX_STEPS, ERR_STALLED,
                       RUNNING, comp_time_advance)
 from ..tableaus import RKF45, ButcherTableau
 from . import _build
-from .expmv import (CoeffForm, chain_params, check_chain_operands,
+from .expmv import (CfmTable, CoeffForm, chain_params, check_chain_operands,
                     has_error_estimate, node_times, torch_chain_step)
 from .fused_rk import (check_kernel_inputs, kernel_norm_args,
                        kernel_operands, torch_rk_step, wnorm_on)
@@ -99,12 +99,13 @@ class ChainStep:
     """The chain-exponential step the loop kernel runs (the counterpart of
     ``pallas_loop.make_chain_step_builder``, K5): the coefficients
     ``form`` sampled at the quadrature nodes of ``recipe``
-    (``ops/expmv.node_times``), the recipe's C coefficient rows over the
-    working basis (stacked as ``mt`` = [M_0^T | ... ], (D, K'D), with the
-    terms' 1-norms ``norms``), each row scaled per trajectory, the
-    degree-``m`` Taylor chains, and the error measure of chain1 - chain0
-    or of ``magnus4_fast``: ``scaled=(atol, rtol)`` (scaled_error) or
-    ``wnorm=(w_row, post, kind)`` or plain l2."""
+    (``ops/expmv.node_times``; ``table`` the :class:`~.expmv.CfmTable` of
+    the ``"cfm"`` recipe), the recipe's C chains of R coefficient rows
+    over the working basis (stacked as ``mt`` = [M_0^T | ... ], (D, K'D),
+    with the terms' 1-norms ``norms``), each row scaled per trajectory,
+    the degree-``m`` Taylor chains, and the error measure of chain1 -
+    chain0 or of ``magnus4_fast``: ``scaled=(atol, rtol)``
+    (scaled_error) or ``wnorm=(w_row, post, kind)`` or plain l2."""
 
     mt: torch.Tensor        # (D, K'D), in the state's type and device
     norms: tuple            # K' floats (ops/expmv.basis_norms)
@@ -116,16 +117,17 @@ class ChainStep:
     max_squarings: int = 16
     scaled: Optional[tuple] = None
     wnorm: Optional[tuple] = None
+    table: Optional[CfmTable] = None
 
     def plain(self, t, dt, xw):
         """The step in plain torch (``torch_chain_step``)."""
-        samples = [self.form.sample(tn)
-                   for tn in node_times(self.recipe, t, dt)]
+        samples = [self.form.sample(tn) for tn in
+                   node_times(self.recipe, t, dt, self.C, self.table)]
         return torch_chain_step(
             samples, dt, xw, self.mt, self.norms, recipe=self.recipe,
             C=self.C, m=self.m, theta=self.theta,
             max_squarings=self.max_squarings, wnorm=self.wnorm,
-            scaled=self.scaled)
+            scaled=self.scaled, table=self.table)
 
     @property
     def has_err(self) -> bool:
@@ -277,7 +279,8 @@ def fused_loop_chunk(t_grid, fs, ist, x, saves, step, *, ctl: StepControl,
 
     CUDA tensors go to the kernel (float32 or float64, D <= 512,
     contiguous carries; RK tableaus of at most 7 stages, chain steps over
-    at most 2 basis terms); anything else it does not take raises. CPU
+    at most 2 basis terms, 4 exponentials per chain and 8 nodes); anything
+    else it does not take raises. CPU
     tensors run :func:`torch_fused_loop`.
     """
     if chunk is not None and chunk < 1:
@@ -307,13 +310,14 @@ def fused_loop_chunk(t_grid, fs, ist, x, saves, step, *, ctl: StepControl,
     else:
         K0 = step.form.n_terms
         Kp = check_chain_operands("fused_loop_chunk", x, step.mt, step.norms,
-                                  K0, step.recipe, step.C, w_row)
+                                  K0, step.recipe, step.C, w_row,
+                                  step.table)
         fn = (lib.vec_ode_fused_loop_chain_f32 if f32
               else lib.vec_ode_fused_loop_chain_f64)
         step_args = (step.mt.data_ptr(),
                      chain_params(step.recipe, step.C, K0, Kp, step.m,
                                   step.theta, step.max_squarings, step.norms,
-                                  step.form))
+                                  step.form, step.table))
     _check_carries(t_grid, fs, ist, x, saves)
     fs_out, ist_out, x_out = (torch.empty_like(a) for a in (fs, ist, x))
     with torch.cuda.device(x.device):

@@ -61,7 +61,9 @@ def ensemble_solve(
     """Integrate a batch of independent trajectories (leading axis of every
     leaf of ``y0_batch``) with a natively batched ``stepper``
     (``ops.fused_rk.FusedModulatedLinearRK``, ``exp.MidpointModulated``,
-    ``exp.MagnusModulated4``, or a generic exponential stepper over a
+    ``exp.MagnusModulated4``, ``exp.MagnusModulated6``,
+    ``exp.CFMModulated`` / ``CFM4Modulated``, or a generic exponential
+    stepper over a
     dense leaf: ``exp.ExpMidpoint``, ``Magnus4``, ``Magnus6``, ``CFM``,
     ``SplitMidpoint``, ``SplitCFM``), on ``y0_batch``'s device.
 
@@ -91,12 +93,12 @@ def ensemble_solve(
     if stepper is None or not getattr(stepper, "is_batched", False):
         raise NotImplementedError(
             "only natively batched steppers are ported "
-            "(FusedModulatedLinearRK, MidpointModulated, MagnusModulated4, "
-            "and the generic exponential steppers over DenseSplit / "
-            "DenseCplxSplit); the vmapped tier (the generic RungeKutta "
-            "stepper, exponential steppers with batched=False or over "
-            "another split) is ROADMAP queue 1, items 6 and 9, "
-            "MagnusModulated6 and CFMModulated slice 4b (queue 1 item 16)")
+            "(FusedModulatedLinearRK, the modulated steppers "
+            "MidpointModulated, MagnusModulated4, MagnusModulated6, "
+            "CFMModulated, and the generic exponential steppers over "
+            "DenseSplit / DenseCplxSplit); the vmapped tier (the generic "
+            "RungeKutta stepper, exponential steppers with batched=False or "
+            "over another split) is ROADMAP queue 1, items 6 and 9")
     if mesh is not None:
         raise NotImplementedError(
             "mesh=: sharded ensembles are ROADMAP slice 7, queue 1 item 27")
