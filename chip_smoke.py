@@ -40,7 +40,18 @@ drives the port's paths once at full width through
   with saves and anchors, and adaptive at Magnus orders 4 and 6 and over
   CFM-4 rows, against f64 ``matrix_exp`` oracles;
 * ``Lindblad`` open-system ensembles (256 density matrices, d = 8) with
-  Magnus-4 and Magnus-6, the trace kept.
+  Magnus-4 and Magnus-6, the trace kept;
+* events and dense output: the loop kernel with its event / dense switch
+  against its twin on every step (f64 and f32); the RK loop path with
+  Re z_3 (three located crossings) and a terminal population threshold,
+  against the host driver with K1 per step, and the RK main path at
+  16 384 with the events in the host driver against the loop kernel
+  ([events-loop]); the Magnus-4 and CFM-4 loop paths with the same
+  events against the per-step path ([events-chain]); 16 384 Landau-Zener
+  sweeps with a terminal threshold and, at v = 0, five crossings counted
+  and three located at their closed-form times ([events-lz]); dense
+  output at the nine save times on the RK, Magnus-4 and CFM-4 loop paths
+  ([dense-loop]) and on the Magnus-4 per-step path ([dense-step]).
 
 Then it times the paths and each kernel against its plain version, its
 bound and, for K4, K6-K8 and K9, a library yardstick. Every phase raises on failure, so
@@ -65,8 +76,8 @@ import numpy as np
 import torch
 
 from vec_ode_tpu_torch import diff as tdiff
-from vec_ode_tpu_torch import (DONE, DOPRI5, ERR_MAX_STEPS, ERR_STALLED,
-                               RKF45, StepControl, driver, lc)
+from vec_ode_tpu_torch import (DONE, DONE_EVENT, DOPRI5, ERR_MAX_STEPS,
+                               ERR_STALLED, RKF45, StepControl, driver, lc)
 from vec_ode_tpu_torch import tableaus as ttab
 from vec_ode_tpu_torch import exp as texp
 from vec_ode_tpu_torch.exp import (CFM4Modulated, CFMModulated,
@@ -76,6 +87,9 @@ from vec_ode_tpu_torch.exp import cfm as tcfm
 from vec_ode_tpu_torch.exp import dense_fast
 from vec_ode_tpu_torch.exp import magnus as tmagnus
 from vec_ode_tpu_torch.exp import split_solvers as tsplit
+from vec_ode_tpu_torch.dense import hermite_from_endpoints
+from vec_ode_tpu_torch.events import (Event, EventConfig, LinearObservable,
+                                     QuadraticObservable)
 from vec_ode_tpu_torch.exp.modulated import _taylor_params
 from vec_ode_tpu_torch.models import (DrivenDense, LandauZener, Lindblad,
                                       PulseControl)
@@ -91,10 +105,13 @@ from vec_ode_tpu_torch.ops.expmv import (fused_chain_apply, node_times,
 from vec_ode_tpu_torch.ops.fused_loop import (ChainStep, RKStep,
                                               fused_loop_chunk,
                                               fused_loop_integrate,
-                                              init_carries, torch_fused_loop)
+                                              init_carries, init_dense_carry,
+                                              init_event_carry, loop_solution,
+                                              torch_fused_loop)
 from vec_ode_tpu_torch.ops.fused_rk import (FusedModulatedLinearRK,
                                             fused_rk_step, torch_rk_step)
 from vec_ode_tpu_torch.parallel import ensemble_solve
+from vec_ode_tpu_torch.parallel.ensemble import _batched_dense_fallback
 
 N_TRAJ, DIM = 16384, 64
 LOOP_TRAJ = 2048             # fused_loop.LOOP_MAX_BATCH
@@ -148,8 +165,8 @@ def device_phase() -> str:
 
 def ptxas_summary(name: str) -> str:
     """Registers and spill stores of each instantiation (f32, f64; the RK or
-    chain step and its KP) of the kernel, from ptxas's report in its build
-    log."""
+    chain step and its KP; the loop kernel with its events / dense switch
+    on) of the kernel, from ptxas's report in its build log."""
     log = _build.build_log(name)
     if not log.exists():   # a library built before logs were kept
         return "no build log"
@@ -167,6 +184,8 @@ def ptxas_summary(name: str) -> str:
                 inst += " rk"
             elif kp:
                 inst += f" KP={kp.group(1)}"
+            if name == "fused_loop" and "Lb1E" in m.group(3):
+                inst += " events/dense"
             continue
         m = re.search(r"(\d+) bytes spill stores", line)
         if inst and m:
@@ -2550,6 +2569,658 @@ def adjoint_timing_phase(card: str, ts):
     return out
 
 
+# -- events and dense output (slice 3b): K2's event and dense switches -----
+
+EV_TOL = 1e-5   # t_tol of the DrivenDense events (the f32 loop paths)
+# bench.py:779-826's controller for the Landau-Zener event checks
+LZ_EV_CTL = StepControl(rtol=1e-5, max_steps=20000, min_dt=1e-4, max_dt=1.0)
+LZ_EV_H0, LZ_EV_TOL = 0.05, 1e-4
+
+
+def drive_events(d=DIM, t_tol=EV_TOL):
+    """Re z_3 over the widened [re | im] (direction 0, three located
+    crossings; tests/test_kernel_events.py:155) and a terminal rising
+    threshold |z_0|^2 = 0.03 (unit states of d = 64 start near 1/64):
+    some rows stop at it, the others run to tf."""
+    w = np.zeros(2 * d)
+    w[3] = 1.0
+    q = np.zeros(d)
+    q[0] = 1.0
+    return EventConfig(events=(
+        Event(LinearObservable(w=w)),
+        Event(QuadraticObservable(q=q, c=0.03), direction=1, terminal=True)),
+        max_crossings=3, t_tol=t_tol)
+
+
+def lz_events(v):
+    """bench.py:779-826: at v = 2 a terminal rising population threshold
+    |c1|^2 = 0.05; at v = 0 (a pure Rabi drive) |c1|^2 = 1/2 in both
+    directions, three crossings located of the five in [-20, 20]."""
+    if v:
+        return EventConfig(events=(Event(QuadraticObservable(
+            q=[0.0, 1.0], c=0.05), direction=1, terminal=True),),
+            t_tol=LZ_EV_TOL)
+    return EventConfig(events=(Event(QuadraticObservable(
+        q=[0.0, 1.0], c=0.5)),), max_crossings=3, t_tol=LZ_EV_TOL)
+
+
+# the kernel-vs-twin cases: the step of a LOOP_CASES / CHAIN_CASES entry
+# over t in [0, 1] (Landau-Zener: [-20, 20]) with drive_events / lz_events
+EXTRA_STEPS = {"rk": "plain", "magnus4": "plain", "magnus4_fast":
+               "fast_error", "magnus6": "magnus6", "cfm4": "cfm4",
+               "lz_magnus4": "lz_magnus4", "lz_midpoint": "lz_midpoint"}
+EXTRA_MODES = ("events", "dense", "both", "saves")
+
+
+def extra_case(name, B, dtype, mode):
+    """(carries, step, ctl, adaptive, spec, ev, dn) of a kernel-vs-twin
+    case: ``mode`` events (on [t0, tf]), dense (nine dense times), both,
+    or saves (events and nine grid-hit saves)."""
+    if name == "rk":
+        carries, step, ctl, _ = loop_case("plain", B, DIM, dtype)
+        adaptive = True
+    else:
+        carries, step, ctl, adaptive, _ = chain_loop_case(EXTRA_STEPS[name],
+                                                          B, dtype)
+    lz = name.startswith("lz")
+    t0, tf = (-LZ_T / 4, LZ_T / 4) if lz else (0.0, TF)
+    times = torch.linspace(t0, tf, 11, dtype=torch.float64)[1:-1]
+    grid = ([t0, *times.tolist(), tf] if mode == "saves" else [t0, tf])
+    x0, h0 = carries[3], carries[1][:, 1]
+    new = init_carries(torch.tensor(grid, dtype=torch.float64), x0, h0)
+    spec = ev = dn = None
+    if mode != "dense":
+        D = x0.shape[1]
+        spec = (lz_events(2.0) if lz else drive_events(D // 2)).kernel_spec(
+            D // 2, 2)
+        ev = init_event_carry(spec, new[3])
+    if mode in ("dense", "both"):
+        dn = init_dense_carry(times, new[3])
+        new[2][:, 0] = 1
+    return new, step, ctl, adaptive, spec, ev, dn
+
+
+def _copy(c):
+    return None if c is None else type(c)(
+        *(None if a is None else a.clone() for a in c))
+
+
+def run_extra_pair(name, B, dtype, mode, chunk=None):
+    """K2 with its event / dense switches and the twin on the same
+    carries: ((fs, ist, x, saves, ev, dn) of each, whether the steps
+    were adaptive, the step)."""
+    carries, step, ctl, adaptive, spec, ev, dn = extra_case(name, B, dtype,
+                                                            mode)
+    kw = dict(ctl=ctl, adaptive=adaptive, events=spec)
+    ev_k, dn_k = _copy(ev), _copy(dn)
+    got = fused_loop_chunk(*carries[:4], carries[4].clone(), step,
+                           chunk=chunk, ev=ev_k, dense=dn_k, **kw)
+    while chunk is not None and bool((got[1][:, 1] == 0).any()):
+        got = fused_loop_chunk(carries[0], *got, step, chunk=chunk, ev=ev_k,
+                               dense=dn_k, **kw)
+    want = torch_fused_loop(*carries, step, ev=ev, dense=dn, **kw)
+    torch.cuda.synchronize()
+    return (*got, ev_k, dn_k), (*want, ev, dn), adaptive, step
+
+
+def _max(a) -> float:
+    return float(a.abs().max()) if a.numel() else 0.0
+
+
+def step_slope(step):
+    """The endpoint slope f(t, x) of a loop step over widened rows, as the
+    dense-output Hermite pass takes it: (M0 + cos(w t) M1) x for an RK
+    step, sum_k c_k(t) M_k x over the declared form's basis terms (the
+    first K0 of the working basis) for a chain step."""
+    if isinstance(step, RKStep):
+        def slope(t, xw):
+            return (xw @ step.M0.T
+                    + torch.cos(step.w * t)[:, None] * (xw @ step.M1.T))
+        return slope
+    D = step.mt.shape[0]
+
+    def slope(t, xw):
+        c = step.form.sample(t)
+        return sum(c[:, k:k + 1] * (xw @ step.mt[:, k * D:(k + 1) * D])
+                   for k in range(step.form.n_terms))
+    return slope
+
+
+def check_extra_pair(name, B, dtype, mode) -> float:
+    """K2 with events / dense output against torch_fused_loop.
+
+    f64: every counter, status, found and count equal per trajectory,
+    located times and dense (t, dt) within 1e-10, states within 1e-12
+    (the RK step: 1e-10 of the states' scale; only the summation order of
+    its products differs), the dense endpoints within 1e-9.
+
+    f32: the error estimate is a cancelling sum, so its rounding moves h
+    by ~1e-4 relative and the two runs' step sequences drift apart (the
+    same slots are crossed by steps of other lengths, and at rtol 1e-8
+    the RK counters differ by a step or two). The gate is what users
+    read: status, found and count equal and every located time within
+    2 t_tol (each run's is within t_tol of its crossing) on at least 98%
+    of the rows (a grazing crossing, g touching zero, can register in one
+    run and not the other: 1 of 16 384 Landau-Zener sweeps on the H100),
+    and on those the first crossing's and final states within 1e-4 (rows
+    an event stopped: plus |f(t, x)| 2 t_tol, their locate steps end up
+    to 2 t_tol apart); the dense output's Hermite values within 1e-4 on
+    every row. Returns max |dx| (f64: every row; f32: the rows
+    whose events agree)."""
+    got, want, _, step = run_extra_pair(name, B, dtype, mode)
+    f64 = dtype == torch.float64
+    ev_g, ev_w, dn_g, dn_w = got[4], want[4], got[5], want[5]
+    dcount = int((got[1][:, INT_COLS] - want[1][:, INT_COLS]).abs().max())
+    if f64:
+        agree = (got[1][:, INT_COLS] == want[1][:, INT_COLS]).all(1)
+    else:
+        agree = got[1][:, 1] == want[1][:, 1]
+    if ev_g is not None:
+        agree &= (ev_g.count == ev_w.count).all(1)
+        agree &= (ev_g.found == ev_w.found).all(1)
+    # f64: t and h differ in their last digits (the error norms' sums
+    # differ in order; ROADMAP queue 3). f32: each run locates a crossing
+    # inside its own last bracket, at most t_tol wide: 2 t_tol apart
+    t_lim = 1e-10 if f64 else 2 * (LZ_EV_TOL if name.startswith("lz")
+                                   else EV_TOL)
+    n_time = 0
+    if ev_g is not None and not f64:
+        # a grazing crossing (g touching zero) may register in one run and
+        # a step later, or at a later crossing, in the other: such a row
+        # stops elsewhere, so it leaves the rows compared
+        d_t = torch.nan_to_num(ev_g.t_ev - ev_w.t_ev, nan=0.0, posinf=0.0,
+                               neginf=0.0).abs()
+        near = (d_t <= t_lim).flatten(1).all(1)
+        n_time = int((agree & ~near).sum())
+        agree &= near
+    n_agree = int(agree.sum())
+    if f64:
+        lim_x = (1e-10 * max(float(want[2].abs().max()), 1.0)
+                 if name == "rk" else 1e-12)
+        # a dense endpoint is a state at a time off by the t_lim above,
+        # moving by |A x| (up to ~10 here) times it
+        lim_dense = 1e-9
+    else:
+        lim_x = lim_dense = 1e-4
+    # per row: f32 rows stopped by a terminal event end a locate step of
+    # at most t_tol past a crossing located up to t_lim apart, so their
+    # final and located states are |f(t, x)| t_lim apart on top
+    row_lim = torch.full_like(want[0][:, 0], lim_x)
+    if ev_g is not None and not f64:
+        stopped = want[1][:, 1] == DONE_EVENT
+        fx = step_slope(step)(want[0][:, 0], want[2]).abs().amax(1)
+        row_lim = torch.where(stopped, lim_x + fx * t_lim, row_lim)
+    row_dx = (got[2] - want[2]).abs().amax(1)
+    dx = _max(row_dx[agree])
+    x_ok = bool((row_dx <= row_lim)[agree].all())
+    ds = _max((got[3] - want[3])[:, agree])
+    dt_ev = dy_ev = ddense = dx_dense = 0.0
+    n_found = n_ev = 0
+    if ev_g is not None:
+        tg, tw = ev_g.t_ev[agree], ev_w.t_ev[agree]
+        fin = torch.isfinite(tw)
+        assert bool((torch.isfinite(tg) == fin).all()), name
+        dt_ev = _max(tg[fin] - tw[fin])
+        if ev_g.y_ev is not None:
+            row_dy = (ev_g.y_ev - ev_w.y_ev).abs().amax(2).amax(0)
+            dy_ev = _max(row_dy[agree])
+            x_ok &= bool((row_dy <= row_lim)[agree].all())
+        n_found = int(ev_w.found.sum())
+        n_ev = int((want[1][:, 1] == DONE_EVENT).sum())
+    if dn_g is not None:
+        fin = torch.isfinite(dn_w.td)
+        assert bool((torch.isfinite(dn_g.td) == fin).all()), name
+        if f64:
+            ddense = max(_max((dn_g.td - dn_w.td)[fin]),
+                         _max(dn_g.dtd - dn_w.dtd))
+            dx_dense = _max(dn_g.dx - dn_w.dx)
+        else:
+            slope = step_slope(step)
+            ys = [hermite_from_endpoints(dn.times, dn.td, dn.dtd, dn.dx[0::2],
+                                         dn.dx[1::2], slope)
+                  for dn in (dn_g, dn_w)]
+            dx_dense = _max(ys[0] - ys[1])
+    min_agree = B if f64 else int(0.98 * B)
+    ok = (n_agree >= min_agree and x_ok and ds <= lim_x
+          and dx_dense <= lim_dense and max(dt_ev, ddense) <= t_lim
+          and bool(torch.isfinite(got[2]).all()))
+    print(f"[extra-kernel] {name} {mode} {str(dtype)[6:]} B={B} "
+          f"D={got[2].shape[1]}: {'counters, ' if f64 else ''}status, "
+          f"found and count equal{'' if f64 else ', located times near,'} "
+          f"on {n_agree}/{B} rows (>= {min_agree}), "
+          f"max|dcount|={dcount}; on those max|dx|={dx:.3e}, max|dsaves|="
+          f"{ds:.3e}, max|dy_ev|={dy_ev:.3e} (<= {lim_x:.1e}"
+          f"{'' if f64 else ', + |f| t_lim on rows an event stopped'}), "
+          f"{'max|d endpoints|' if f64 else 'max|d Hermite values|'}="
+          f"{dx_dense:.3e} (<= {lim_dense:.1e}), max|dt| of located times="
+          f"{dt_ev:.3e}{f', of dense (t, dt)={ddense:.3e}' if f64 else ''} "
+          f"(<= {t_lim:.0e}; {n_time} rows left out for a crossing located "
+          f"elsewhere); {n_found} crossings found, {n_ev} rows "
+          f"DONE_EVENT, iterations up to {int(got[1][:, 5].max())}; "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"K2 with {mode} disagrees with its twin: "
+                             f"{name} {dtype} B={B}")
+    return dx
+
+
+def check_extra_persistent_is_chunked(name, B, dtype, mode) -> None:
+    p = run_extra_pair(name, B, dtype, mode)[0]
+    c = run_extra_pair(name, B, dtype, mode, chunk=5)[0]
+    same = [bool(torch.equal(a, b)) for a, b in zip(p[:4], c[:4])]
+    for cp, cc in zip(p[4:], c[4:]):
+        if cp is not None:
+            same += [a is None or bool(torch.equal(a, b))
+                     for a, b in zip(cp, cc)]
+    print(f"[extra-kernel] persistent vs chunks of 5, {name} {mode} "
+          f"{str(dtype)[6:]} B={B}: every carry bitwise equal {all(same)}",
+          flush=True)
+    if not all(same):
+        raise AssertionError("persistent and chunked K2 with events differ")
+
+
+def extra_kernel_phase() -> float:
+    """K2's event / dense switch against its twin on every step: f64 at
+    1000 rows (ragged tiles) with events and dense output together and
+    with events and saves (tests/test_torch_cuda.py runs each mode
+    alone), f32 events and dense output at the paths' batches."""
+    for name in EXTRA_STEPS:
+        for mode in ("both", "saves"):
+            if not (name.startswith("lz") and mode == "saves"):
+                check_extra_pair(name, 1000, torch.float64, mode)
+    check_extra_persistent_is_chunked("rk", 1000, torch.float64, "both")
+    check_extra_persistent_is_chunked("magnus4", 1000, torch.float64, "saves")
+    errs = {}
+    for mode in ("events", "dense"):
+        check_extra_pair("magnus4", N_TRAJ, torch.float32, mode)
+        check_extra_pair("cfm4", LOOP_TRAJ, torch.float32, mode)
+        check_extra_pair("lz_magnus4", N_TRAJ, torch.float32, mode)
+        errs[mode] = check_extra_pair("rk", LOOP_TRAJ, torch.float32, mode)
+    return errs
+
+
+def compare_events(a, b, label, t_tol, min_frac=0.99):
+    """Two solves of the same events on different paths (f32): status,
+    found and count equal on at least ``min_frac`` of the rows, and on
+    those the located times within t_tol. Returns (rows agreeing, max
+    |dt|)."""
+    agree = ((a.status == b.status) & (a.event_found == b.event_found).all(1)
+             & (a.event_count == b.event_count).all(1))
+    ta, tb = a.event_t_k[agree], b.event_t_k[agree]
+    fin = torch.isfinite(tb)
+    same_mask = bool((torch.isfinite(ta) == fin).all())
+    dt = _max(ta[fin] - tb[fin])
+    n = a.status.shape[0]
+    ok = int(agree.sum()) >= min_frac * n and same_mask and dt <= t_tol
+    print(f"[{label}] status, found and count equal on {int(agree.sum())}/"
+          f"{n} rows (>= {min_frac:.0%}); located times within {dt:.3e} "
+          f"(<= {t_tol:g}); {int(b.event_found.sum())} crossings found, "
+          f"{int((b.status == DONE_EVENT).sum())} rows DONE_EVENT; "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{label}: the paths disagree on the events")
+    return int(agree.sum()), dt
+
+
+def check_event_solution(sol, n, label):
+    """Every row DONE or DONE_EVENT, finite, |psi| = 1 within 1e-4."""
+    ended = int(((sol.status == DONE) | (sol.status == DONE_EVENT)).sum())
+    assert ended == n, f"{label}: {n - ended} rows neither DONE nor stopped"
+    y = torch.complex(sol.y_final.re, sol.y_final.im)
+    norm_dev = float((y.abs().pow(2).sum(-1).sqrt() - 1).abs().max())
+    assert norm_dev <= 1e-4, f"{label}: |psi| drifted by {norm_dev}"
+    return norm_dev
+
+
+def events_loop_phase():
+    """Path 1: the RK loop path (2048x64c) with drive_events in one K2
+    launch, against the same solve through the host driver with a K1
+    launch per iteration; path 2: the RK main path at 16384 with the
+    events in the host driver (K1 per iteration), against K2 run on the
+    same 16384 rows. Returns the K2 launches of path 1."""
+    cfg = drive_events()
+    st, y0 = main_inputs(LOOP_TRAJ)
+    reset_counts()
+    sol = ensemble_solve(None, y0, 0.0, TF, stepper=st, ctl=CTL, h0=H0,
+                         time_dtype=torch.float32, events=cfg)
+    torch.cuda.synchronize()
+    k = counts()
+    assert sol.path == "cuda-loop-persistent", sol.path
+    assert k == (0, 1, 0), k
+    check_event_solution(sol, LOOP_TRAJ, "events-loop")
+    grid = driver.make_grid(0.0, TF, dtype=torch.float32, device="cuda")
+    reset_counts()
+    ref = driver.integrate(st.make_step_fn(), y0, grid, H0, ctl=CTL,
+                           error_norm=st.error_norm,
+                           batch_shape=(LOOP_TRAJ,), event_cfg=cfg)
+    torch.cuda.synchronize()
+    k_ref = counts()
+    assert k_ref == (int(ref.n_iters.max()), 0, 0), k_ref
+    print(f"[events-loop] {LOOP_TRAJ}x{DIM}c RKF45 with Re z_3 (K = 3) and "
+          f"a terminal |z_0|^2 = 0.03: path={sol.path}, launches K1/K2/K4 = "
+          f"{k[0]}/{k[1]}/{k[2]}; the host driver's run: {k_ref[0]} K1 "
+          f"launches; n_iters up to {int(sol.n_iters.max())} (loop) and "
+          f"{int(ref.n_iters.max())} (driver)", flush=True)
+    compare_events(sol, ref, "events-loop", EV_TOL)
+
+    st, y0 = main_inputs()
+    reset_counts()
+    main = ensemble_solve(None, y0, 0.0, TF, stepper=st, ctl=CTL, h0=H0,
+                          time_dtype=torch.float32, events=cfg)
+    torch.cuda.synchronize()
+    k1 = counts()
+    assert main.path == "torch-driver+cuda-step", main.path
+    assert k1 == (int(main.n_iters.max()), 0, 0), k1
+    check_event_solution(main, N_TRAJ, "events-main")
+    x0 = torch.cat([y0.re, y0.im], 1)
+    out = fused_loop_integrate(grid, x0, H0, RKStep(M0=st.M0, M1=st.M1,
+                                                    w=st.w),
+                               ctl=CTL, persistent=True,
+                               events=cfg.kernel_spec(DIM, 2))
+    loop = loop_solution(grid, x0, out, path="k2",
+                         unwiden=lambda xw: Cplx(xw[..., :DIM],
+                                                 xw[..., DIM:]))
+    print(f"[events-loop] the main path at {N_TRAJ}x{DIM}c with the same "
+          f"events in the host driver: path={main.path}, K1 launches="
+          f"{k1[0]} == max n_iters; held against K2 on the same rows",
+          flush=True)
+    compare_events(main, loop, "events-loop main path vs K2", EV_TOL)
+    return k[1]
+
+
+def events_chain_phase():
+    """Path 3: the Magnus-4 loop path (16384x64c) with drive_events in one
+    K2 launch (K5), against the per-step path (no declared form: K4 per
+    iteration, the events in the host driver); CFM-4 (R = 2) the same in
+    the loop. Returns the K2 launches of the Magnus-4 run."""
+    cfg = drive_events()
+    sols = {}
+    for kind in ("magnus4", "cfm4"):
+        st, y0 = r_inputs(kind)
+        reset_counts()
+        sols[kind] = ensemble_solve(None, y0, 0.0, TF, stepper=st,
+                                    ctl=MAG_CTL, h0=H0,
+                                    time_dtype=torch.float32, events=cfg)
+        torch.cuda.synchronize()
+        k = counts()
+        assert sols[kind].path == "cuda-loop-persistent", sols[kind].path
+        assert k == (0, 1, 0), (kind, k)
+        check_event_solution(sols[kind], N_TRAJ, f"events-chain {kind}")
+        print(f"[events-chain] {kind} {N_TRAJ}x{DIM}c with Re z_3 and the "
+              f"terminal threshold: path={sols[kind].path}, launches K1/K2/"
+              f"K4 = {k[0]}/{k[1]}/{k[2]}, n_iters up to "
+              f"{int(sols[kind].n_iters.max())}", flush=True)
+    st, y0 = r_inputs("magnus4", form=False)
+    reset_counts()
+    ref = ensemble_solve(None, y0, 0.0, TF, stepper=st, ctl=MAG_CTL, h0=H0,
+                         time_dtype=torch.float32, events=cfg)
+    torch.cuda.synchronize()
+    k = counts()
+    assert ref.path == "torch-driver+cuda-step", ref.path
+    assert k == (0, 0, int(ref.n_iters.max())), k
+    print(f"[events-chain] the per-step path (no declared form): path="
+          f"{ref.path}, {k[2]} K4 launches == max n_iters", flush=True)
+    compare_events(sols["magnus4"], ref, "events-chain loop vs per-step",
+                   EV_TOL)
+
+
+def events_lz_phase():
+    """Path 5: 16384 Landau-Zener sweeps from |0> (d = 2), adaptive
+    Magnus-4 in the loop (K2 + K5) with bench.py:779-826's two checks,
+    each against the per-step path (K4, the events in the host driver):
+    at v = 2 a terminal threshold stops every sweep; at v = 0 every sweep
+    counts five crossings of |c1|^2 = sin^2(delta (t + 20) / 2) = 1/2 and
+    locates the first three at t_n = -20 + (2n + 1) pi / (2 delta), within
+    t_tol = 1e-4: the located time is the regula-falsi point of a bracket
+    of at most t_tol, and the f32 integration error at rtol 1e-5 moves
+    |c1|^2 by ~1e-6 at a slope of delta / 2 = 0.2 (9.7e-7 in the twin on
+    the CPU)."""
+    psi = np.zeros((N_TRAJ, 2), np.complex64)
+    psi[:, 0] = 1.0
+    y0 = from_complex(psi, torch.float32, device="cuda")
+    delta = LZ["delta"]
+    for v in (LZ["v"], 0.0):
+        op = LandauZener(v=v, delta=delta).modulated(torch.float32,
+                                                     device="cuda")
+        out = {}
+        for form in (True, False):
+            st = MagnusModulated4(op if form
+                                  else dataclasses.replace(op, form=None))
+            reset_counts()
+            out[form] = ensemble_solve(
+                None, y0, -LZ_T, LZ_T, stepper=st, ctl=LZ_EV_CTL,
+                h0=LZ_EV_H0, time_dtype=torch.float32, events=lz_events(v))
+            torch.cuda.synchronize()
+            k = counts()
+            want = (0, 1, 0) if form else (0, 0, int(out[form].n_iters.max()))
+            assert k == want, (v, form, k)
+        loop, step = out[True], out[False]
+        assert loop.path == "cuda-loop-persistent", loop.path
+        assert step.path == "torch-driver+cuda-step", step.path
+        compare_events(loop, step, f"events-lz v={v:g} loop vs per-step",
+                       LZ_EV_TOL, min_frac=1.0)
+        if v:
+            assert bool((loop.status == DONE_EVENT).all())
+            print(f"[events-lz] v={v:g}: all {N_TRAJ} sweeps stopped at the "
+                  f"terminal threshold, t = {float(loop.event_t.min()):.6f}"
+                  f"..{float(loop.event_t.max()):.6f}", flush=True)
+            continue
+        assert bool((loop.status == DONE).all())
+        assert bool((loop.event_count == 5).all()), loop.event_count.unique()
+        t_n = -LZ_T + (2 * np.arange(3) + 1) * np.pi / (2 * delta)
+        dt = float((loop.event_t_k[:, 0].double()
+                    - torch.as_tensor(t_n, device="cuda")).abs().max())
+        assert dt <= LZ_EV_TOL, dt
+        print(f"[events-lz] v=0: every sweep counts 5 crossings and locates "
+              f"3 at {[round(x, 6) for x in t_n.tolist()]}, max |t - t_n|="
+              f"{dt:.3e} (<= {LZ_EV_TOL:g}); one loop launch a solve",
+              flush=True)
+
+
+def dense_loop_phase():
+    """Paths 1 and 3 with dense output at the nine save times: one K2
+    launch each (path ``-dense``); the step sequence is the plain [t0, tf]
+    solve's (n_accept equal, one iteration fewer: no t0 iteration), fewer
+    iterations than grid-hit saves at the same times, and the interpolant
+    against the host driver's dense tier on the per-step path (K1) and
+    against the grid-hit saves. Returns (K2 launches, the Magnus-4 dense
+    solution)."""
+    st, y0 = main_inputs(LOOP_TRAJ)
+    reset_counts()
+    sol = ensemble_solve(None, y0, 0.0, TF, stepper=st, ctl=CTL, h0=H0,
+                         time_dtype=torch.float32, save_at=SAVE_AT,
+                         dense=True)
+    torch.cuda.synchronize()
+    k = counts()
+    launches = k[1]
+    assert sol.path == "cuda-loop-persistent-dense", sol.path
+    assert k == (0, 1, 0), k
+    plain = solve(st, y0)
+    hit = solve(st, y0, SAVE_AT)
+    # the same controller and step over [t0, tf], free-running: the same
+    # accepted steps where the two kernel builds round alike, and no t0
+    # iteration; grid-hit saves take more
+    same = int(((sol.n_accept == plain.n_accept)
+                & (sol.n_iters + 1 == plain.n_iters)).sum())
+    assert (float(sol.n_iters.float().mean())
+            < float(hit.n_iters.float().mean()))
+    grid = driver.make_grid(0.0, TF, SAVE_AT, dtype=torch.float32,
+                            device="cuda")
+    reset_counts()
+    ref = _batched_dense_fallback(st, st.make_step_fn(), y0, grid, H0,
+                                  adaptive=True, ctl=CTL,
+                                  batch_shape=(LOOP_TRAJ,))
+    torch.cuda.synchronize()
+    assert ref.path == "torch-driver+cuda-step-dense", ref.path
+    assert counts()[0] == int(ref.n_iters.max())
+    dcount = int((sol.n_accept - ref.n_accept).abs().max())
+    dy = max(_max(sol.ys.re - ref.ys.re), _max(sol.ys.im - ref.ys.im))
+    dhit = max(_max(sol.ys.re - hit.ys.re), _max(sol.ys.im - hit.ys.im))
+    assert dcount <= 2 and dy <= 1e-4 and dhit <= 1e-4, (dcount, dy, dhit)
+    print(f"[dense-loop] {LOOP_TRAJ}x{DIM}c RKF45, dense at {len(SAVE_AT)} "
+          f"times: path={sol.path}, launches K1/K2/K4 = {k[0]}/{k[1]}/{k[2]};"
+          f" n_iters up to {int(sol.n_iters.max())} against "
+          f"{int(plain.n_iters.max())} on [t0, tf] (n_accept equal and one "
+          f"t0 iteration fewer on {same}/{LOOP_TRAJ} rows) and "
+          f"{int(hit.n_iters.max())} with grid-hit "
+          f"saves (mean {float(sol.n_iters.float().mean()):.2f} / "
+          f"{float(hit.n_iters.float().mean()):.2f}); against the host "
+          f"driver's dense tier (K1): max|dcount|={dcount} (<= 2), "
+          f"max|dys|={dy:.3e} (<= 1e-4); against the grid-hit saves "
+          f"{dhit:.3e} (<= 1e-4)", flush=True)
+    dense_sols = {}
+    for kind in ("magnus4", "cfm4"):
+        st, y0 = r_inputs(kind)
+        reset_counts()
+        dense_sols[kind] = ensemble_solve(
+            None, y0, 0.0, TF, stepper=st, ctl=MAG_CTL, h0=H0,
+            time_dtype=torch.float32, save_at=SAVE_AT, dense=True)
+        torch.cuda.synchronize()
+        k = counts()
+        s = dense_sols[kind]
+        assert s.path == "cuda-loop-persistent-dense", s.path
+        assert k == (0, 1, 0), (kind, k)
+        check_unit_solution(s, N_TRAJ, kind)
+        ys = torch.complex(s.ys.re, s.ys.im)
+        norm_dev = float((ys.abs().pow(2).sum(-1).sqrt() - 1).abs().max())
+        assert norm_dev <= 1e-4, norm_dev
+        print(f"[dense-loop] {kind} {N_TRAJ}x{DIM}c dense at {len(SAVE_AT)} "
+              f"times: path={s.path}, launches K1/K2/K4 = {k[0]}/{k[1]}/"
+              f"{k[2]}, all DONE, every slot's |psi| within {norm_dev:.3e} "
+              f"of 1, n_iters up to {int(s.n_iters.max())}", flush=True)
+    return launches, dense_sols["magnus4"]
+
+
+def dense_step_phase(loop_sol):
+    """Path 4: the Magnus-4 per-step path (no declared form) with dense
+    output: the host driver's integrate_interp with Hermite slopes A(t) x,
+    a K4 launch per iteration; against the loop path's dense output."""
+    st, y0 = r_inputs("magnus4", form=False)
+    reset_counts()
+    sol = ensemble_solve(None, y0, 0.0, TF, stepper=st, ctl=MAG_CTL, h0=H0,
+                         time_dtype=torch.float32, save_at=SAVE_AT,
+                         dense=True)
+    torch.cuda.synchronize()
+    k = counts()
+    assert sol.path == "torch-driver+cuda-step-dense", sol.path
+    assert k == (0, 0, int(sol.n_iters.max())), k
+    dcount = max(int((getattr(sol, c) - getattr(loop_sol, c)).abs().max())
+                 for c in ("n_accept", "n_reject", "n_iters"))
+    dy = max(_max(sol.ys.re - loop_sol.ys.re),
+             _max(sol.ys.im - loop_sol.ys.im))
+    assert dcount <= 1 and dy <= 1e-4, (dcount, dy)
+    print(f"[dense-step] Magnus-4 {N_TRAJ}x{DIM}c per step, dense at "
+          f"{len(SAVE_AT)} times: path={sol.path}, {k[2]} K4 launches == max "
+          f"n_iters; against the loop path's dense output: max|dcount|="
+          f"{dcount} (<= 1), max|dys|={dy:.3e} (<= 1e-4)", flush=True)
+    return k[2]
+
+
+def event_flops(spec, iters) -> float:
+    """g of every event at ``iters`` row-iterations: 2 D (lin) or 3 D
+    (quad) operations a row."""
+    D = spec.rows.shape[1]
+    return iters * sum(2 * D if k == "lin" else 3 * D for k in spec.kinds)
+
+
+def time_extra(kind, card):
+    """K2 alone per solve at path 1 (kind "rk", 2048x64c) or path 3
+    ("magnus4", 16384x64c), f32, t in [0, 1]: without events or dense
+    output, with drive_events, with dense output at the nine save times,
+    and with grid-hit saves at them (in turns, median of 3); the twin once
+    with events and once with dense output; the bound of each: the step's
+    operations on every stepping row-iteration, g's, and the state, the
+    carries and the dense endpoints moved once. Returns {mode: (ms,
+    plain_ms, bound_ms, bound_by)} for events and dense."""
+    cfg = drive_events()
+    spec = cfg.kernel_spec(DIM, 2)
+    if kind == "rk":
+        st, y0 = main_inputs(LOOP_TRAJ)
+        step, ctl = RKStep(M0=st.M0, M1=st.M1, w=st.w), CTL
+    else:
+        st, y0 = r_inputs(kind)
+        mt, norms, m, theta = chain_operands(st, torch.float32)
+        step = ChainStep(mt=mt, norms=norms, form=st.op.form,
+                         recipe=st._recipe, C=st._chains, m=m, theta=theta,
+                         table=st._table)
+        ctl = MAG_CTL
+    B, D = y0.re.shape[0], 2 * DIM
+    x0 = torch.cat([y0.re, y0.im], 1)
+    full = driver.make_grid(0.0, TF, SAVE_AT, dtype=torch.float32,
+                            device="cuda")
+    bare = full[[0, -1]]
+    runs = {
+        "none": lambda: fused_loop_integrate(bare, x0, H0, step, ctl=ctl,
+                                             persistent=True),
+        "events": lambda: fused_loop_integrate(bare, x0, H0, step, ctl=ctl,
+                                               persistent=True, events=spec),
+        "dense": lambda: fused_loop_integrate(
+            bare, x0, H0, step, ctl=ctl, persistent=True,
+            dense_times=full[1:-1]),
+        "saves": lambda: fused_loop_integrate(full, x0, H0, step, ctl=ctl,
+                                              persistent=True),
+    }
+    outs = {m: fn() for m, fn in runs.items()}
+    times = {m: [] for m in runs}
+    for _ in range(3):  # in turns
+        for m, fn in runs.items():
+            times[m].append(timed_ms(fn, reps=1))
+    ms = {m: statistics.median(v) for m, v in times.items()}
+    result = {}
+    for mode in ("events", "dense"):
+        t_grid = bare.clone()
+        fs, ist, x, saves = init_carries(t_grid, x0, H0)[1:]
+        ev = init_event_carry(spec, x) if mode == "events" else None
+        dn = None
+        if mode == "dense":
+            dn = init_dense_carry(full[1:-1], x)
+            ist[:, 0] = 1
+        counter = step if kind == "rk" else PassCounter(step)
+        p_ms = timed_ms(lambda: torch_fused_loop(
+            t_grid, fs, ist, x, saves, counter, ctl=ctl,
+            events=None if ev is None else spec, ev=ev, dense=dn), reps=1)
+        ist_k = outs[mode][1]
+        stepping = int((ist_k[:, 5] - (ist_k[:, 0] - (1 if dn else 0))).sum())
+        if kind == "rk":
+            flop = stepping * 2 * RKF45.stages * D * 2 * D
+            op_bytes = 2 * D * D
+        else:
+            flop = chain_flops(counter.passes, D, step.m, step.recipe,
+                               step.form.n_terms, counter.fast_rows)
+            op_bytes = step.mt.numel()
+        if mode == "events":
+            flop += event_flops(spec, stepping)
+        moved = 4 * (2 * B * (5 + D) + op_bytes + 2) + 2 * 4 * B * 8
+        if mode == "events":
+            E, K = spec.n, spec.k
+            moved += 4 * (B * E * (K + 3) + 2 * B + E * B * D + E * D)
+        else:
+            n = full.shape[0] - 2
+            moved += 4 * (2 * B * n + 2 * n * B * D + n)
+        b_ms, b_by = bound(flop, moved)
+        result[mode] = (ms[mode], p_ms, b_ms, b_by)
+        print(f"[time] K2 {mode} at {kind} {B}x{DIM}c f32: kernel "
+              f"{ms[mode]:.4f} ms (runs {[round(v, 4) for v in times[mode]]})"
+              f", plain twin {p_ms:.4f} ms; bound {b_ms:.4f} ms by {b_by} "
+              f"({stepping} stepping row-iterations, {flop / 1e9:.2f} GFLOP"
+              f" with g, {moved / 1e6:.2f} MB), kernel at "
+              f"{b_ms / ms[mode]:.1%} of it ({card})", flush=True)
+    its = {m: int(o[1][:, 5].sum()) for m, o in outs.items()}
+    print(f"[time] K2 at {kind} {B}x{DIM}c f32 per solve: none "
+          f"{ms['none']:.4f} ms, events {ms['events']:.4f} ms, dense "
+          f"{ms['dense']:.4f} ms, grid-hit saves {ms['saves']:.4f} ms "
+          f"(runs {({m: [round(v, 4) for v in t] for m, t in times.items()})}"
+          f"); row-iterations {its}, max n_iters "
+          f"{({m: int(o[1][:, 5].max()) for m, o in outs.items()})} "
+          f"({card})", flush=True)
+    return result
+
+
+def extra_timing_phase(card):
+    out = {kind: time_extra(kind, card) for kind in ("rk", "magnus4")}
+    return out["rk"]
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = device_phase()
@@ -2561,6 +3232,7 @@ def main() -> None:
     k5_err = chain_loop_kernel_phase()
     k4r_err = chain_step_r_phase()
     k5r_err = chain_loop_r_phase()
+    extra_errs = extra_kernel_phase()
     k9_err = dense_chain_phase()
     k1_launches = main_path_phase(card)
     k2_launches = loop_path_phase(card)
@@ -2579,6 +3251,11 @@ def main() -> None:
     adaptive_adjoint_check("Magnus-6", card, order=6)
     adaptive_adjoint_check("CFM-4", card, scheme="cfm4")
     lindblad_phase(card)
+    ev_launches = events_loop_phase()
+    events_chain_phase()
+    events_lz_phase()
+    dense_launches, dense_sol = dense_loop_phase()
+    dense_step_phase(dense_sol)
     k1 = timing_phase(card)
     k2 = loop_timing_phase(card)
     k4 = k4_timing_phase(card)
@@ -2586,6 +3263,7 @@ def main() -> None:
     r_times = {kind: r_timing_phase(kind, card) for kind in R_KINDS}
     k9 = k9_timing_phase(card)
     adj = adjoint_timing_phase(card, adaptive_ts)
+    extra = extra_timing_phase(card)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     rows = []
@@ -2602,7 +3280,11 @@ def main() -> None:
             ("fused_dense_chain_apply", k9_launches, k9_err, k9),
             ("adjoint_bwd", k6_launches, adj_errs["k6"], adj["K6"]),
             ("adjoint_sweep_fwd", k7_launches, adj_errs["k7"], adj["K7"]),
-            ("adjoint_sweep_bwd", k8_launches, adj_errs["k8"], adj["K8"])):
+            ("adjoint_sweep_bwd", k8_launches, adj_errs["k8"], adj["K8"]),
+            ("fused_loop/events", ev_launches, extra_errs["events"],
+             extra["events"]),
+            ("fused_loop/dense", dense_launches, extra_errs["dense"],
+             extra["dense"])):
         source, replaces = KERNELS[name.split("/")[0]]
         rows.append({
             "name": name, "route": "cuda", "source": source,

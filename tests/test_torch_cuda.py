@@ -976,3 +976,120 @@ def test_pulse_control_infidelity_runs_only_the_kernels(card):
             tadj.adjoint_sweep_bwd.launches - before[1],
             tadj.adjoint_bwd.launches - before[2]) == (1, 1, 0)
     assert bool(torch.isfinite(g).all())
+
+
+# -- events and dense output in the loop kernel (K2's switches) ----------
+
+EXTRA_NAMES = list(chip_smoke.EXTRA_STEPS)
+EXTRA_F64 = [(n, m) for n in EXTRA_NAMES for m in chip_smoke.EXTRA_MODES
+             if not (n.startswith("lz") and m == "saves")]
+
+
+@pytest.mark.parametrize("name,mode", EXTRA_F64)
+def test_loop_kernel_events_and_dense_match_twin_f64(card, name, mode):
+    """300 trajectories (a ragged last tile), both steps: counters,
+    status, found and count equal per trajectory, located times and
+    dense (t, dt) within 1e-10, states within 1e-12 (chip_smoke's
+    check)."""
+    chip_smoke.check_extra_pair(name, 300, torch.float64, mode)
+
+
+@pytest.mark.parametrize("mode", ["events", "dense"])
+@pytest.mark.parametrize("name", ["rk", "magnus4", "cfm4", "lz_magnus4"])
+def test_loop_kernel_events_and_dense_match_twin_f32(card, name, mode):
+    """f32: status, found and count equal on 98% of the rows at least, and
+    on those the located times within 2 t_tol, the states and the dense
+    output's Hermite values within 1e-4 (chip_smoke's check)."""
+    chip_smoke.check_extra_pair(name, 1024, torch.float32, mode)
+
+
+@pytest.mark.parametrize("name,mode", [("rk", "both"), ("cfm4", "saves")])
+def test_loop_kernel_events_persistent_equals_chunked(card, name, mode):
+    chip_smoke.check_extra_persistent_is_chunked(name, 300, torch.float64,
+                                                 mode)
+
+
+def test_ensemble_names_the_event_and_dense_paths(card):
+    """The declared observables run in K2 on both steps (one launch, the
+    loop paths' names, ``-dense`` with dense output); opaque callables,
+    batches past the loop's and operators without a declared form run in
+    the host driver with a step kernel per iteration."""
+    cfg = chip_smoke.drive_events()
+    st, y0 = chip_smoke.main_inputs(256)
+    kw = dict(ctl=chip_smoke.CTL, h0=chip_smoke.H0, time_dtype=torch.float32)
+
+    def run(stepper, y, **extra):
+        chip_smoke.reset_counts()
+        sol = ensemble_solve(None, y, 0.0, 0.5, stepper=stepper, **kw,
+                             **extra)
+        torch.cuda.synchronize()
+        return sol, chip_smoke.counts()
+
+    sol, k = run(st, y0, events=cfg)
+    assert (sol.path, k) == ("cuda-loop-persistent", (0, 1, 0))
+    assert sol.event_t_k.shape == (256, 2, 3) and sol.event_t_k.is_cuda
+    sol, k = run(st, y0, save_at=(0.1, 0.3), dense=True)
+    assert (sol.path, k) == ("cuda-loop-persistent-dense", (0, 1, 0))
+    sol, k = run(st, y0, save_at=(0.1, 0.3), dense=True, events=cfg)
+    assert (sol.path, k) == ("cuda-loop-persistent-dense", (0, 1, 0))
+    chunked = st.fused_loop_solve(
+        y0, sol.ts[0], chip_smoke.H0, ctl=chip_smoke.CTL, adaptive=True,
+        persistent=False, chunk=7, events=cfg, dense=True)
+    assert chunked.path == "cuda-loop-chunked-dense"
+    for f in ("n_iters", "event_count", "event_t_k"):
+        assert torch.equal(getattr(chunked, f), getattr(sol, f)), f
+    assert torch.equal(chunked.ys.re, sol.ys.re)
+    opaque = chip_smoke.EventConfig(events=(chip_smoke.Event(
+        lambda t, x: x.re[0] - 0.05),))
+    sol, k = run(st, y0, events=opaque)
+    assert sol.path == "torch-driver+cuda-step"
+    assert k == (int(sol.n_iters.max()), 0, 0)
+    big_st, big = chip_smoke.main_inputs(2049)
+    sol, k = run(big_st, big, events=cfg)
+    assert sol.path == "torch-driver+cuda-step" and k[1] == 0
+    sol, k = run(big_st, big, save_at=(0.1, 0.3), dense=True)
+    assert sol.path == "torch-driver+cuda-step-dense" and k[1] == 0
+    kw["ctl"] = chip_smoke.MAG_CTL
+    mst, my0 = chip_smoke.r_inputs("cfm4", n=256)
+    sol, k = run(mst, my0, events=cfg, save_at=(0.2,))
+    assert (sol.path, k) == ("cuda-loop-persistent", (0, 1, 0))
+    sol, k = run(mst, my0, save_at=(0.2,), dense=True)
+    assert (sol.path, k) == ("cuda-loop-persistent-dense", (0, 1, 0))
+    pst, _ = chip_smoke.r_inputs("magnus4", n=256, form=False)
+    sol, k = run(pst, my0, save_at=(0.2,), dense=True)
+    assert sol.path == "torch-driver+cuda-step-dense"
+    assert k == (0, 0, int(sol.n_iters.max()))
+    sol, k = run(pst, my0, events=cfg)
+    assert sol.path == "torch-driver+cuda-step"
+    with pytest.raises(ValueError, match="events="):
+        run(pst, my0, save_at=(0.2,), dense=True, events=cfg)
+
+
+def test_no_event_or_dense_path_gives_way_to_a_twin(card, monkeypatch):
+    """On CUDA tensors every event and dense route launches its kernel:
+    with the plain twins made to fail, each still runs."""
+    from vec_ode_tpu_torch.ops import expmv, fused_loop, fused_rk
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain twin ran on CUDA tensors")
+
+    for mod, name in ((fused_loop, "torch_fused_loop"),
+                      (expmv, "torch_chain_step"),
+                      (fused_rk, "torch_rk_step")):
+        monkeypatch.setattr(mod, name, refuse)
+    cfg = chip_smoke.drive_events()
+    st, y0 = chip_smoke.main_inputs(128)
+    kw = dict(ctl=chip_smoke.CTL, h0=chip_smoke.H0, time_dtype=torch.float32)
+    for extra in (dict(events=cfg), dict(save_at=(0.2,), dense=True)):
+        for stepper in (st, chip_smoke.main_inputs(2049)[0]):
+            y = y0 if stepper is st else chip_smoke.main_inputs(2049)[1]
+            sol = ensemble_solve(None, y, 0.0, 0.3, stepper=stepper, **kw,
+                                 **extra)
+            assert sol.path.startswith(("cuda-loop", "torch-driver+cuda"))
+    kw["ctl"] = chip_smoke.MAG_CTL
+    for form in (True, False):
+        mst, my0 = chip_smoke.r_inputs("magnus4", n=128, form=form)
+        for extra in (dict(events=cfg), dict(save_at=(0.2,), dense=True)):
+            sol = ensemble_solve(None, my0, 0.0, 0.3, stepper=mst, **kw,
+                                 **extra)
+            assert sol.path.startswith(("cuda-loop", "torch-driver+cuda"))

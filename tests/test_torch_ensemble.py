@@ -147,7 +147,13 @@ def test_bad_inputs_raise_value_error(kw):
     dict(stepper=None), dict(mesh=object()), dict(method="scan"),
     # the vmapped tier: a generic exponential stepper asked not to batch
     dict(stepper=texp.Magnus4(texp.DenseCplxSplit(), batched=False)),
-    dict(events=object()), dict(dense=True),
+    # scaled_error with an auto-batched generic stepper, and dense output
+    # on the vmapped tier (events and dense output on batched steppers are
+    # ported: tests/test_torch_events.py, test_torch_dense.py)
+    dict(stepper=texp.Magnus4(texp.DenseCplxSplit()),
+         ctl=vt.StepControl(scaled_error=True)),
+    dict(stepper=texp.Magnus4(texp.DenseCplxSplit(), batched=False),
+         dense=True),
     dict(error_norm=lambda e: e),
 ])
 def test_unported_options_raise_not_implemented(kw):

@@ -222,6 +222,8 @@ def test_fused_loop_solve_declines_on_the_cpu():
     grid = torch.tensor(case.grid, dtype=torch.float64)
     assert st.fused_loop_solve(y0, grid, 1e-3, ctl=vt.StepControl(),
                                adaptive=True) is None
-    with pytest.raises(NotImplementedError, match="3b"):
-        st.fused_loop_solve(y0, grid, 1e-3, ctl=vt.StepControl(),
-                            adaptive=True, dense=True)
+    # with events and dense output too: the host driver runs them
+    ev = vt.EventConfig(events=(vt.Event(vt.LinearObservable(
+        w=np.eye(2 * D)[3])),))
+    assert st.fused_loop_solve(y0, grid, 1e-3, ctl=vt.StepControl(),
+                               adaptive=True, dense=True, events=ev) is None

@@ -16,12 +16,17 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "vec_ode_tpu_torch"
 
 # the modules of the adjoint and generic exponential paths, beside the
-# earlier ones; NAMES, what the order-6 / CFM modulated path added to them
+# earlier ones; NAMES, what the order-6 / CFM modulated path and the
+# events and dense output added to them
 NAMES = {"exp": ["MagnusModulated6", "CFMModulated", "CFM4Modulated",
                  "CfmTable"],
          "models": ["Lindblad"],
-         "ops.expmv": ["CfmTable", "identity_rows", "n_rows", "n_nodes"]}
-MODULES = ["diff", "ops.adjoint", "ops.expm", "ops.dense_chains", "ops.cplx", "ops.expmv",
+         "ops.expmv": ["CfmTable", "identity_rows", "n_rows", "n_nodes"],
+         "events": ["Event", "EventConfig", "LinearObservable",
+                    "QuadraticObservable", "KernelEvents", "event_step"],
+         "dense": ["integrate_interp", "hermite_from_endpoints"],
+         "ops.fused_loop": ["EventCarry", "DenseCarry", "loop_solution"]}
+MODULES = ["events", "dense", "diff", "ops.adjoint", "ops.expm", "ops.dense_chains", "ops.cplx", "ops.expmv",
            "ops.fused_rk", "ops.fused_loop", "exp.protocol", "exp.leaves",
            "exp.dense_fast", "exp.magnus", "exp.cfm", "exp.split_solvers",
            "exp.modulated", "models.quantum", "parallel.ensemble", "convert"]

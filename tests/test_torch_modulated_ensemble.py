@@ -198,9 +198,17 @@ def test_loop_solve_declines_and_routes():
                                ctl=ctl, adaptive=True) is None
     assert st.fused_loop_solve(y0, grid.float(), 1e-3, ctl=ctl,
                                adaptive=True) is None
-    with pytest.raises(NotImplementedError, match="3b"):
-        st.fused_loop_solve(y0, grid, 1e-3, ctl=ctl, adaptive=True,
-                            dense=True)
+    # an opaque event declines (the kernel runs declared observables);
+    # dense output on the bare [t0, tf] is the plain solve, with interior
+    # times the free-running loop
+    opaque = vt.EventConfig(events=(vt.Event(lambda t, x: x.re[0]),))
+    assert st.fused_loop_solve(y0, grid, 1e-3, ctl=ctl, adaptive=True,
+                               events=opaque) is None
+    assert st.fused_loop_solve(y0, grid, 1e-3, ctl=ctl, adaptive=True,
+                               dense=True).path == "torch-loop"
+    grid3 = vt.make_grid(0.0, TF, (0.1,), dtype=torch.float64, device="cpu")
+    assert st.fused_loop_solve(y0, grid3, 1e-3, ctl=ctl, adaptive=True,
+                               dense=True).path == "torch-loop-dense"
     # the per-step twin launches nothing on CPU tensors
     before = (expmv.fused_chain_apply.launches,
               fused_loop.fused_loop_chunk.launches)

@@ -15,12 +15,15 @@ CUDA tensors they run hand-written kernels (``csrc/``): a step kernel per
 driver iteration, or the whole loop in one launch; on CPU tensors the
 plain torch twins run. ``diff`` holds the O(1)-memory reversible adjoint
 (``adjoint_solve``, ``adjoint_solve_adaptive``) over the adjoint kernels,
-whose workload is ``models.PulseControl``. This package imports neither
+whose workload is ``models.PulseControl``. ``events`` (declared
+observables, run in the loop kernel, or callables, run by the host
+driver) and ``dense`` (free-running interpolated saves) are taken by
+``ensemble_solve(events=..., dense=True)``. This package imports neither
 jax nor vec_ode_tpu.
 """
 
-from . import (controller, convert, diff, driver, exp, lc, models, ops,
-               parallel, tableaus)
+from . import (controller, convert, dense, diff, driver, events, exp, lc,
+               models, ops, parallel, tableaus)
 from .controller import StepControl
 from .driver import (
     DONE,
@@ -42,6 +45,8 @@ from .driver import (
     resume,
     step_once,
 )
+from .events import (Event, EventConfig, LinearObservable,
+                     QuadraticObservable)
 from .models import PulseControl
 from .tableaus import (
     BOSH32,
@@ -62,8 +67,10 @@ __version__ = "0.1.0"
 __all__ = [
     "controller",
     "convert",
+    "dense",
     "diff",
     "driver",
+    "events",
     "exp",
     "lc",
     "models",
@@ -71,6 +78,10 @@ __all__ = [
     "parallel",
     "tableaus",
     "StepControl",
+    "Event",
+    "EventConfig",
+    "LinearObservable",
+    "QuadraticObservable",
     "PulseControl",
     "Solution",
     "IntState",

@@ -97,12 +97,15 @@ def state_from_numpy(re, im, *, device="cuda",
 
 def solution_to_numpy(sol) -> dict:
     """The Solution's array fields as numpy arrays (Cplx fields as Cplx of
-    arrays), keyed by field name, plus ``path``."""
+    arrays), keyed by field name (the event fields where set), plus
+    ``path``."""
     def conv(v):
         return pytree.tree_map(lambda a: a.detach().cpu().numpy(), v)
 
     keys = ("ts", "ys", "t_final", "y_final", "status", "n_accept",
-            "n_reject", "n_iters", "h_final")
-    out = {k: conv(getattr(sol, k)) for k in keys}
+            "n_reject", "n_iters", "h_final", "event_t", "event_found",
+            "event_y", "event_t_k", "event_count")
+    out = {k: conv(getattr(sol, k)) for k in keys
+           if getattr(sol, k) is not None}
     out["path"] = sol.path
     return out

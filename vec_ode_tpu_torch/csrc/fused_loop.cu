@@ -21,9 +21,36 @@
 // grid-hit restore, :316 and :499-502), the interior save at a grid hit,
 // the compensated (TwoSum + Fast2Sum) or plain time advance, the
 // step-size update with the grid-hit restore, and status, event, counters
-// and reject streak in the same order. Not here: events (:356-449), dense
-// output (:455-474), the lane-packed group mode and windowed saves (TPU
-// layout).
+// and reject streak in the same order; with EXTRA (a template switch,
+// so that the instantiations without it are the code they were) the
+// events (:354-449) and dense output (:455-474) below. Not here: traced
+// event callables (a kernel runs declared forms), the lane-packed group
+// mode and windowed saves (TPU layout).
+//
+// Events. Per declared event e (kind lin: g = sum_j w_j y_j - c, quad:
+// g = sum_j w_j y_j^2 - c) the block evaluates g at every row's trial
+// state with a row reduction over D in a fixed order (column group cg of
+// ceil(D / 4) sums columns cg, cg + ncg, ... ; then the groups in order;
+// the plain twin sums in the same order) into the step's free scratch;
+// thread r then runs row r's crossing test (direction filtered), the
+// regula-falsi search as step control (a search vetoes the accept and
+// retries with h = max(clip(theta_min, 0.1, 0.9) dt, t_tol / 4); the
+// pre-search h is restored after the locate; search iterations are not
+// rejects), records the first K crossings' times in their slots, counts
+// every crossing and stops the row with DONE_EVENT at a terminal n-th
+// crossing. g_prev, the located times, the counter and the found flags
+// live in device memory (the carries, read and written in place by
+// thread r), the search flag and h_entry in thread r's registers; the
+// first crossing's state is a lerp written straight to device memory in
+// the element pass. No cap on the number of events.
+//
+// Dense output (n_grid == 2, the grid cursor starting past t0): an
+// accepted step that crosses a dense time t_j (t_j > t + tol_j, t_j <=
+// t_new + tol_j, tol_j = 4 eps max(1, |t_j|), t_new the compensated hi
+// word when time is compensated) records (t, dt) in row r's slot j and
+// its entry and exit states straight to device memory; the Hermite
+// interpolant is evaluated afterwards (ops/fused_loop.py). No cap on the
+// number of dense times.
 //
 // Blocks. One block owns a tile of R trajectories and loops until no row
 // of its tile is RUNNING (__syncthreads_or), or for `iters` iterations
@@ -64,6 +91,10 @@
 // operators (from L2) and its saves. At B = 2048 it also has too few
 // blocks to fill the card (one slow row holds its whole tile), so latency,
 // not throughput, is likely to bound it; making it fast is later work.
+// With events a tile runs until its slowest row's bracket searches end:
+// on the DrivenDense paths (64c, three located crossings, t_tol 1e-5)
+// twice the plain solve's iterations for a sixth more row-iterations. g
+// itself is 2 D (lin) or 3 D (quad) operations a row-iteration.
 //
 // Precision. The time arithmetic is written with explicitly rounded
 // operations (__fadd_rn, __fsub_rn, __fmul_rn and the f64 ones): the
@@ -86,7 +117,8 @@ constexpr int N_F = 5;                       // t, h, prev_h, err_norm, t_lo
 constexpr int N_I = 8;                       // tgt, status, event, n_acc, n_rej, n_it, streak, bits
 
 // status and event codes (vec_ode_tpu_torch/driver.py)
-constexpr int RUNNING = 0, DONE = 1, ERR_MAX_STEPS = 2, ERR_STALLED = 3, ERR_BAD_GRID = 4;
+constexpr int RUNNING = 0, DONE = 1, ERR_MAX_STEPS = 2, ERR_STALLED = 3, ERR_BAD_GRID = 4,
+              DONE_EVENT = 5;
 constexpr int EVT_NONE = 0, EVT_STEP = 1, EVT_CHKPT = 2, EVT_REJECT = 3, EVT_END = 4;
 
 template <typename T>
@@ -132,13 +164,95 @@ struct ChainLoopStep {
   }
 };
 
-template <typename T, class Step>
+// The events and the dense output (ops/fused_loop.py: EventCarry,
+// DenseCarry; n_ev = 0 / n_dense = 0: off). Row r's entries of the
+// carries are read and written by thread r only.
+template <typename T>
+struct LoopExtra {
+  int n_ev, K, record_y, has_ttol;
+  T t_tol;
+  const T* rows;   // (E, D) the events' weight rows
+  const T* par;    // (E, 4): kind (0 lin, 1 quad), direction, terminal n, offset c
+  T* g_prev;       // (B, E) g at the current point
+  T* t_ev;         // (B, E, K) located times
+  int* count;      // (B, E) crossings counted
+  int* found;      // (B, E) 0 / 1
+  int* searching;  // (B,) 0 / 1
+  T* h_entry;      // (B,) the pre-search step size
+  T* y_ev;         // (E, B, D) the first crossing's state, or nullptr
+  T* g_new;        // (B, E) scratch: g at the trial point
+  T* th_rec;       // (B, E) scratch: theta of a state to record, else -1
+  int n_dense;
+  const T* dense_t;  // (n,) the dense times
+  T* td;             // (B, n) the crossing step's t, inf until crossed
+  T* dtd;            // (B, n) its dt
+  T* dx;             // (2n, B, D) its entry (2j) and exit (2j + 1) states
+};
+
+// g of every event at the trial states ys of the tile's rows into
+// ex.g_new, reduced over D in the twin's order (ops/fused_loop.py:
+// row_reduce); red: (tile, ceil(D / CT)) of free scratch. Every thread of
+// the block calls it.
+template <typename T>
+__device__ void event_values(const T* ys, T* red, int rows, int tile, int D, long row0,
+                             const LoopExtra<T>& ex) {
+  const int ncg = (D + CT - 1) / CT;
+  const int items = (tile / RT) * ncg;
+  const int tid = threadIdx.x;
+  const int cg = tid % ncg, rg = tid / ncg;
+  for (int e = 0; e < ex.n_ev; ++e) {
+    const T* w = ex.rows + (size_t)e * D;
+    const bool quad = ex.par[e * 4] != T(0);
+    if (tid < items) {
+      for (int q = 0; q < RT; ++q) {
+        const int lr = rg * RT + q;
+        T part = T(0);
+        for (int k = 0; k < CT; ++k) {
+          const int col = cg + k * ncg;
+          if (col >= D || lr >= rows) continue;
+          const T y = ys[(size_t)lr * D + col];
+          part = add_rn(part, mul_rn(quad ? mul_rn(y, y) : y, w[col]));
+        }
+        red[lr * ncg + cg] = part;
+      }
+    }
+    __syncthreads();
+    if (tid < rows) {
+      T acc = red[tid * ncg];
+      for (int g = 1; g < ncg; ++g) acc = add_rn(acc, red[tid * ncg + g]);
+      ex.g_new[(row0 + tid) * ex.n_ev + e] = sub_rn(acc, ex.par[e * 4 + 3]);
+    }
+    __syncthreads();
+  }
+}
+
+// Row r's crossing of event e over the trial step (events.event_step):
+// whether it crossed in the event's direction, and theta.
+template <typename T>
+__device__ __forceinline__ bool crossing(const LoopExtra<T>& ex, long r, int e, T* theta) {
+  const T gp = ex.g_prev[r * ex.n_ev + e], gn = ex.g_new[r * ex.n_ev + e];
+  const bool rising = gp < T(0) && gn >= T(0);
+  const bool falling = gp > T(0) && gn <= T(0);
+  const T dir = ex.par[e * 4 + 1];
+  const T denom = gp - gn;
+  *theta = nan_clip(gp / (denom == T(0) ? T(1) : denom), T(0), T(1));
+  return dir > T(0) ? rising : (dir < T(0) ? falling : (rising || falling));
+}
+
+// Whether dense time j lies in (t, t_new] (dense._dense_step's test).
+template <typename T>
+__device__ __forceinline__ bool crosses(T tg, T t, T t_new, T four_eps) {
+  const T tol = mul_rn(four_eps, nan_max(T(1), fabs(tg)));
+  return tg > add_rn(t, tol) && tg <= add_rn(t_new, tol);
+}
+
+template <typename T, class Step, bool EXTRA>
 __global__ void __launch_bounds__(MAX_THREADS)
 fused_loop_kernel(const T* __restrict__ t_grid, int n_grid, const T* __restrict__ fs_in,
                   const int* __restrict__ ist_in, const T* __restrict__ x_in,
                   T* __restrict__ fs_out, int* __restrict__ ist_out, T* __restrict__ x_out,
                   T* __restrict__ saves, int B, int D, int tile, Step step, ErrNorm<T> en,
-                  Ctl<T> ctl, int iters, int adaptive) {
+                  Ctl<T> ctl, int iters, int adaptive, LoopExtra<T> ex) {
   extern __shared__ unsigned char smem_raw[];
   const size_t n = (size_t)tile * D;
   T* scratch = reinterpret_cast<T*>(smem_raw);          // the step's scratch
@@ -147,7 +261,11 @@ fused_loop_kernel(const T* __restrict__ t_grid, int n_grid, const T* __restrict_
   T* s_t = ys + n;                                      // per row: t, dt, err measure
   T* s_dt = s_t + tile;
   T* s_err = s_dt + tile;
-  int* s_act = reinterpret_cast<int*>(s_err + tile);  // bit 0: advance; >> 1: save slot + 1
+  T* s_tnew = s_err + tile;  // EXTRA: the row's post-advance time (dense output)
+  // bit 0: advance; with EXTRA bit 1: record event states, bit 2: dense
+  // endpoints; >> SHIFT: save slot + 1
+  constexpr int SHIFT = EXTRA ? 3 : 1;
+  int* s_act = reinterpret_cast<int*>(s_tnew + (EXTRA ? tile : 0));
 
   const int tid = threadIdx.x;
   const long row0 = (long)blockIdx.x * tile;
@@ -165,6 +283,10 @@ fused_loop_kernel(const T* __restrict__ t_grid, int n_grid, const T* __restrict_
     tgt = q[0], status = q[1], event = q[2], n_acc = q[3], n_rej = q[4], n_it = q[5];
     streak = q[6];
   }
+  const long r = row0 + tid;
+  int searching = 0;
+  T h_entry = T(0);
+  if (EXTRA && own && ex.n_ev > 0) searching = ex.searching[r], h_entry = ex.h_entry[r];
   const T eps = eps_of<T>();
   const T four_eps = T(4) * eps;  // exact: a power of two
 
@@ -197,6 +319,7 @@ fused_loop_kernel(const T* __restrict__ t_grid, int n_grid, const T* __restrict_
 
     step(s_t, s_dt, xs, ys, s_err, scratch, rows, tile, D, en);
     __syncthreads();
+    if (EXTRA && ex.n_ev > 0) event_values(ys, scratch, rows, tile, D, row0, ex);
 
     // controller and bookkeeping, one thread per row (pallas_loop.py:316-539)
     int act = 0;
@@ -225,9 +348,78 @@ fused_loop_kernel(const T* __restrict__ t_grid, int n_grid, const T* __restrict_
         new_h = nan_clip(mul_rn(fp, h), ctl.min_dt, ctl.max_dt);
         accept = !bad_f && f > T(1);
       }
+
+      // events (pallas_loop.py:354-449)
+      bool search = false, restore = false, term_hit = false, rec_y = false;
+      T h_ovr = T(0);
+      if (EXTRA && ex.n_ev > 0) {
+        bool any_active = false;
+        T theta_min = T(1);
+        for (int e = 0; e < ex.n_ev; ++e) {
+          T th;
+          const bool act_e = crossing(ex, r, e, &th) && stepping && accept &&
+                             ex.count[r * ex.n_ev + e] < ex.K;
+          theta_min = nan_min(theta_min, act_e ? th : T(1));
+          any_active = any_active || act_e;
+        }
+        const T tol_ev = ex.has_ttol ? ex.t_tol
+                                     : mul_rn(T(64) * eps, nan_max(T(1), fabs(t)));
+        const bool tight = dt <= tol_ev;
+        const bool locate = any_active && tight;
+        search = any_active && !tight;
+        h_ovr = nan_max(mul_rn(nan_clip(theta_min, T(0.1), T(0.9)), dt), mul_rn(T(0.25), tol_ev));
+        if (search && !searching) h_entry = dt;
+        restore = locate && searching;
+        searching = (searching || search) && !locate;
+        const bool adv_ev = stepping && accept && !search;
+        for (int e = 0; e < ex.n_ev; ++e) {
+          T th;
+          const long i = r * ex.n_ev + e;
+          const int cnt = ex.count[i];
+          const bool crossed = crossing(ex, r, e, &th);
+          const bool rec = crossed && stepping && accept && cnt < ex.K && locate;
+          if (rec) {
+            ex.t_ev[i * ex.K + cnt] = add_rn(t, mul_rn(th, dt));
+            ex.found[i] = 1;
+            const int term_n = (int)ex.par[e * 4 + 2];
+            if (term_n > 0 && cnt + 1 >= term_n) term_hit = true;
+          }
+          if (ex.record_y && locate) {  // the FIRST crossing's state only
+            const bool ry = rec && cnt == 0;
+            ex.th_rec[i] = ry ? th : T(-1);
+            rec_y = rec_y || ry;
+          }
+          if (adv_ev) ex.g_prev[i] = ex.g_new[i];
+          if (crossed && adv_ev) ex.count[i] = cnt + 1;
+        }
+        accept = accept && !search;
+      }
+
       const bool adv = stepping && accept;
       const bool rej = stepping && !accept;
+      const bool true_rej = rej && !search;  // search iterations are not rejects
       const bool hit = at_grid && running;
+
+      // dense output (pallas_loop.py:455-474), against the pre-advance t
+      bool dense_rec = false;
+      if (EXTRA && ex.n_dense > 0 && adv) {
+        T t_new;
+        if (ctl.comp) {  // the compensated hi word
+          const T s_ = add_rn(t, dt);
+          const T bp = sub_rn(s_, t);
+          const T e_lo = add_rn(sub_rn(t, sub_rn(s_, bp)), sub_rn(dt, bp));
+          t_new = add_rn(s_, add_rn(t_lo, e_lo));
+        } else {
+          t_new = add_rn(t, dt);
+        }
+        for (int j = 0; j < ex.n_dense; ++j) {
+          if (!crosses(ex.dense_t[j], t, t_new, four_eps)) continue;
+          ex.td[r * ex.n_dense + j] = t;
+          ex.dtd[r * ex.n_dense + j] = dt;
+          dense_rec = true;
+        }
+        s_tnew[tid] = t_new;
+      }
 
       // the interior save slot of a grid hit: the state before the advance
       const int slot = (hit && tgt >= 1 && tgt <= n_grid - 2) ? tgt - 1 : -1;
@@ -253,26 +445,47 @@ fused_loop_kernel(const T* __restrict__ t_grid, int n_grid, const T* __restrict_
         h = prev_h;
         tgt += 1;
       }
+      if (EXTRA) {  // the search's h, then the locate's restore
+        if (search) h = h_ovr;
+        if (restore) h = h_entry, prev_h = h_entry;
+      }
       if (is_end) status = DONE;
       if (bad) status = ERR_BAD_GRID;
       n_it += running ? 1 : 0;
       if (status == RUNNING && n_it >= ctl.max_steps) status = ERR_MAX_STEPS;
-      streak = rej ? streak + 1 : (adv ? 0 : streak);
+      if (EXTRA && term_hit) status = DONE_EVENT;
+      streak = true_rej ? streak + 1 : (adv ? 0 : streak);
       if (ctl.max_streak > 0 && status == RUNNING && streak >= ctl.max_streak)
         status = ERR_STALLED;
       event = is_end ? EVT_END : is_chk ? EVT_CHKPT : rej ? EVT_REJECT : adv ? EVT_STEP : EVT_NONE;
       if (stepping && adaptive) err_prev = err;
       n_acc += adv ? 1 : 0;
-      n_rej += rej ? 1 : 0;
-      act = (adv ? 1 : 0) | ((slot + 1) << 1);
+      n_rej += true_rej ? 1 : 0;
+      act = (adv ? 1 : 0) | (rec_y ? 2 : 0) | (dense_rec ? 4 : 0) | ((slot + 1) << SHIFT);
     }
     if (tid < tile) s_act[tid] = act;
     __syncthreads();
 
-    // the save, then the advance, element by element
+    // the save, the event states and dense endpoints, then the advance,
+    // element by element
     for (size_t e = tid; e < (size_t)rows * D; e += blockDim.x) {
-      const int a = s_act[e / D];
-      if (a >> 1) saves[((size_t)((a >> 1) - 1) * B + row0) * D + e] = xs[e];
+      const int row = (int)(e / D);
+      const int a = s_act[row];
+      if (a >> SHIFT) saves[((size_t)((a >> SHIFT) - 1) * B + row0) * D + e] = xs[e];
+      if (EXTRA && (a & 2)) {
+        for (int ev = 0; ev < ex.n_ev; ++ev) {
+          const T th = ex.th_rec[(row0 + row) * ex.n_ev + ev];
+          if (th != T(-1))
+            ex.y_ev[((size_t)ev * B + row0) * D + e] = add_rn(xs[e], mul_rn(th, sub_rn(ys[e], xs[e])));
+        }
+      }
+      if (EXTRA && (a & 4)) {
+        for (int j = 0; j < ex.n_dense; ++j) {
+          if (!crosses(ex.dense_t[j], s_t[row], s_tnew[row], four_eps)) continue;
+          ex.dx[((size_t)(2 * j) * B + row0) * D + e] = xs[e];
+          ex.dx[((size_t)(2 * j + 1) * B + row0) * D + e] = ys[e];
+        }
+      }
       if (a & 1) xs[e] = ys[e];
     }
   }
@@ -283,6 +496,7 @@ fused_loop_kernel(const T* __restrict__ t_grid, int n_grid, const T* __restrict_
     int* q = ist_out + (row0 + tid) * N_I;
     q[0] = tgt, q[1] = status, q[2] = event, q[3] = n_acc, q[4] = n_rej, q[5] = n_it;
     q[6] = streak, q[7] = 0;
+    if (EXTRA && ex.n_ev > 0) ex.searching[r] = searching, ex.h_entry[r] = h_entry;
   }
   for (size_t e = tid; e < (size_t)rows * D; e += blockDim.x) x_out[row0 * D + e] = xs[e];
 }
@@ -303,30 +517,77 @@ ErrNorm<T> parse_norm(const void* w_row, double post, int kind_max, const double
   return ErrNorm<T>{(const T*)w_row, (T)post, kind_max, (int)c[16], (T)c[1], (T)c[0]};
 }
 
+// The events and dense output. ptr: 15 device pointers (rows, par, g_prev,
+// t_ev, count, found, searching, h_entry, y_ev, g_new, th_rec, dense_t,
+// td, dtd, dx); par: n_ev, K, record_y, has_ttol, t_tol, n_dense; both in
+// host memory, both null when neither is on. Returns false for arguments
+// the kernel does not take.
+template <typename T>
+bool parse_extra(const void* const* ptr, const double* par, int n_grid, LoopExtra<T>* ex) {
+  *ex = LoopExtra<T>{};
+  if (par == nullptr) return true;
+  if (ptr == nullptr) return false;
+  ex->n_ev = (int)par[0], ex->K = (int)par[1], ex->record_y = (int)par[2];
+  ex->has_ttol = (int)par[3], ex->t_tol = (T)par[4], ex->n_dense = (int)par[5];
+  ex->rows = (const T*)ptr[0], ex->par = (const T*)ptr[1];
+  ex->g_prev = (T*)ptr[2], ex->t_ev = (T*)ptr[3], ex->count = (int*)ptr[4];
+  ex->found = (int*)ptr[5], ex->searching = (int*)ptr[6], ex->h_entry = (T*)ptr[7];
+  ex->y_ev = (T*)ptr[8], ex->g_new = (T*)ptr[9], ex->th_rec = (T*)ptr[10];
+  ex->dense_t = (const T*)ptr[11], ex->td = (T*)ptr[12], ex->dtd = (T*)ptr[13];
+  ex->dx = (T*)ptr[14];
+  if (ex->n_ev < 0 || ex->n_dense < 0) return false;
+  if (ex->n_ev > 0) {
+    if (ex->K < 1) return false;
+    for (int i = 0; i < 11; ++i)
+      if (ptr[i] == nullptr && !(i == 8 && !ex->record_y)) return false;
+  }
+  if (ex->n_dense > 0) {
+    if (n_grid != 2) return false;  // free-running: the grid is [t0, tf]
+    for (int i = 11; i < 15; ++i)
+      if (ptr[i] == nullptr) return false;
+  }
+  return true;
+}
+
 // Launches the loop kernel with `step` over tiles of `tile` rows.
-template <typename T, class Step>
+template <typename T, class Step, bool EXTRA>
 int run(const Step& step, int tile, const void* t_grid, int n_grid, const void* fs_in,
         const void* ist_in, const void* x_in, void* fs_out, void* ist_out, void* x_out,
         void* saves, int B, int D, const ErrNorm<T>& en, const Ctl<T>& ctl, int iters,
-        int adaptive, int dev, int max_smem, void* stream) {
+        int adaptive, const LoopExtra<T>& ex, int dev, int max_smem, void* stream) {
   static size_t smem_allowed[MAX_DEVICES];
   const int ncg = (D + CT - 1) / CT;
   const int items = (tile / RT) * ncg;
-  const size_t smem = (step.scratch_elems(tile, D) + 2 * (size_t)tile * D + 3 * (size_t)tile) *
-                          sizeof(T) + tile * sizeof(int);
+  const size_t smem = (step.scratch_elems(tile, D) + 2 * (size_t)tile * D +
+                       (EXTRA ? 4 : 3) * (size_t)tile) * sizeof(T) + tile * sizeof(int);
   if (items > MAX_THREADS || smem > (size_t)max_smem) return (int)cudaErrorInvalidValue;
   const int threads = ((items > tile ? items : tile) + 31) / 32 * 32;
   if (smem > smem_allowed[dev]) {
-    cudaError_t st = cudaFuncSetAttribute(fused_loop_kernel<T, Step>,
+    cudaError_t st = cudaFuncSetAttribute(fused_loop_kernel<T, Step, EXTRA>,
                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (st != cudaSuccess) return (int)st;
     smem_allowed[dev] = smem;
   }
   const int blocks = (B + tile - 1) / tile;
-  fused_loop_kernel<T, Step><<<blocks, threads, smem, (cudaStream_t)stream>>>(
+  fused_loop_kernel<T, Step, EXTRA><<<blocks, threads, smem, (cudaStream_t)stream>>>(
       (const T*)t_grid, n_grid, (const T*)fs_in, (const int*)ist_in, (const T*)x_in, (T*)fs_out,
-      (int*)ist_out, (T*)x_out, (T*)saves, B, D, tile, step, en, ctl, iters, adaptive);
+      (int*)ist_out, (T*)x_out, (T*)saves, B, D, tile, step, en, ctl, iters, adaptive, ex);
   return (int)cudaGetLastError();
+}
+
+// run with EXTRA where the events or the dense output are on.
+template <typename T, class Step>
+int run_any(const Step& step, int tile, const void* t_grid, int n_grid, const void* fs_in,
+            const void* ist_in, const void* x_in, void* fs_out, void* ist_out, void* x_out,
+            void* saves, int B, int D, const ErrNorm<T>& en, const Ctl<T>& ctl, int iters,
+            int adaptive, const LoopExtra<T>& ex, int dev, int max_smem, void* stream) {
+  if (ex.n_ev > 0 || ex.n_dense > 0)
+    return run<T, Step, true>(step, tile, t_grid, n_grid, fs_in, ist_in, x_in, fs_out, ist_out,
+                              x_out, saves, B, D, en, ctl, iters, adaptive, ex, dev, max_smem,
+                              stream);
+  return run<T, Step, false>(step, tile, t_grid, n_grid, fs_in, ist_in, x_in, fs_out, ist_out,
+                             x_out, saves, B, D, en, ctl, iters, adaptive, ex, dev, max_smem,
+                             stream);
 }
 
 template <typename T>
@@ -334,8 +595,10 @@ int launch(const void* t_grid, int n_grid, const void* fs_in, const void* ist_in
            const void* x_in, void* fs_out, void* ist_out, void* x_out, void* saves, int B, int D,
            const void* mt, const double* tab_in, int s, int advance_lower, double w,
            const void* w_row, double post, int kind_max, const double* c, int iters,
-           int adaptive, void* stream) {
-  if (B <= 0 || D <= 0 || D > MAX_WIDTH || s <= 0 || s > MAX_STAGES || n_grid < 2 || iters < 0)
+           int adaptive, const void* const* ex_ptr, const double* ex_par, void* stream) {
+  LoopExtra<T> ex;
+  if (B <= 0 || D <= 0 || D > MAX_WIDTH || s <= 0 || s > MAX_STAGES || n_grid < 2 || iters < 0 ||
+      !parse_extra<T>(ex_ptr, ex_par, n_grid, &ex))
     return (int)cudaErrorInvalidValue;
   RKLoopStep<T> step;
   step.mt = (const T*)mt;
@@ -353,27 +616,32 @@ int launch(const void* t_grid, int n_grid, const void* fs_in, const void* ist_in
   auto slots_of = [&](int r) { return (size_t)(s + 2) * r * D * sizeof(T); };
   int tile = MAX_ROWS;
   while (tile > RT && ((tile / RT) * ncg > MAX_THREADS || slots_of(tile) > SLOT_BUDGET)) tile /= 2;
-  return run<T>(step, tile, t_grid, n_grid, fs_in, ist_in, x_in, fs_out, ist_out, x_out, saves,
-                B, D, parse_norm<T>(w_row, post, kind_max, c), parse_ctl<T>(c), iters, adaptive,
-                dev, max_smem, stream);
+  return run_any<T>(step, tile, t_grid, n_grid, fs_in, ist_in, x_in, fs_out, ist_out, x_out,
+                    saves, B, D, parse_norm<T>(w_row, post, kind_max, c), parse_ctl<T>(c), iters,
+                    adaptive, ex, dev, max_smem, stream);
 }
 
 template <typename T, int KP>
 int run_chain(const ChainParams<T>& p, const void* mt, int B, int D, const void* t_grid,
               int n_grid, const void* fs_in, const void* ist_in, const void* x_in, void* fs_out,
               void* ist_out, void* x_out, void* saves, const ErrNorm<T>& en, const Ctl<T>& ctl,
-              int iters, int adaptive, int dev, int max_smem, int n_sm, void* stream) {
+              int iters, int adaptive, const LoopExtra<T>& ex, int dev, int max_smem, int n_sm,
+              void* stream) {
   const ChainLoopStep<T, KP> step{(const T*)mt, p};
-  return run<T>(step, chain_tile<T>(B, D, n_sm, RT, MAX_THREADS), t_grid, n_grid, fs_in, ist_in, x_in, fs_out,
-                ist_out, x_out, saves, B, D, en, ctl, iters, adaptive, dev, max_smem, stream);
+  return run_any<T>(step, chain_tile<T>(B, D, n_sm, RT, MAX_THREADS), t_grid, n_grid, fs_in,
+                    ist_in, x_in, fs_out, ist_out, x_out, saves, B, D, en, ctl, iters, adaptive,
+                    ex, dev, max_smem, stream);
 }
 
 template <typename T>
 int launch_chain(const void* t_grid, int n_grid, const void* fs_in, const void* ist_in,
                  const void* x_in, void* fs_out, void* ist_out, void* x_out, void* saves, int B,
                  int D, const void* mt, const double* chain, const void* w_row, double post,
-                 int kind_max, const double* c, int iters, int adaptive, void* stream) {
-  if (B <= 0 || D <= 0 || D > MAX_WIDTH || n_grid < 2 || iters < 0)
+                 int kind_max, const double* c, int iters, int adaptive,
+                 const void* const* ex_ptr, const double* ex_par, void* stream) {
+  LoopExtra<T> ex;
+  if (B <= 0 || D <= 0 || D > MAX_WIDTH || n_grid < 2 || iters < 0 ||
+      !parse_extra<T>(ex_ptr, ex_par, n_grid, &ex))
     return (int)cudaErrorInvalidValue;
   const ChainParams<T> p = parse_chain_params<T>(chain);
   if (!chain_params_ok(p)) return (int)cudaErrorInvalidValue;
@@ -384,7 +652,8 @@ int launch_chain(const void* t_grid, int n_grid, const void* fs_in, const void* 
   const Ctl<T> ctl = parse_ctl<T>(c);
 #define VEC_ODE_RUN_CHAIN(KP_)                                                                \
   return run_chain<T, KP_>(p, mt, B, D, t_grid, n_grid, fs_in, ist_in, x_in, fs_out, ist_out, \
-                           x_out, saves, en, ctl, iters, adaptive, dev, max_smem, n_sm, stream)
+                           x_out, saves, en, ctl, iters, adaptive, ex, dev, max_smem, n_sm,   \
+                           stream)
   switch (p.KP) {
     case 1: VEC_ODE_RUN_CHAIN(1);
     case 2: VEC_ODE_RUN_CHAIN(2);
@@ -403,16 +672,18 @@ extern "C" {
 // writing fs_out, ist_out and x_out; saves ((n_grid - 2), B, D) is updated
 // in place. The RK step: tab as for the per-step kernel; w_row, post,
 // kind_max declare the error norm; ctl: the 17 float64 values of
-// parse_ctl, in host memory; adaptive = 0 takes fixed steps.
+// parse_ctl, in host memory; adaptive = 0 takes fixed steps; ex_ptr and
+// ex_par: the events and dense output of parse_extra (null: off), whose
+// carries are updated in place.
 int vec_ode_fused_loop_f32(const void* t_grid, int n_grid, const void* fs_in, const void* ist_in,
                            const void* x_in, void* fs_out, void* ist_out, void* x_out,
                            void* saves, int B, int D, const void* mt, const double* tab, int s,
                            int advance_lower, double w, const void* w_row, double post,
                            int kind_max, const double* ctl, int iters, int adaptive,
-                           void* stream) {
+                           const void* const* ex_ptr, const double* ex_par, void* stream) {
   return launch<float>(t_grid, n_grid, fs_in, ist_in, x_in, fs_out, ist_out, x_out, saves, B, D,
                        mt, tab, s, advance_lower, w, w_row, post, kind_max, ctl, iters, adaptive,
-                       stream);
+                       ex_ptr, ex_par, stream);
 }
 
 int vec_ode_fused_loop_f64(const void* t_grid, int n_grid, const void* fs_in, const void* ist_in,
@@ -420,10 +691,10 @@ int vec_ode_fused_loop_f64(const void* t_grid, int n_grid, const void* fs_in, co
                            void* saves, int B, int D, const void* mt, const double* tab, int s,
                            int advance_lower, double w, const void* w_row, double post,
                            int kind_max, const double* ctl, int iters, int adaptive,
-                           void* stream) {
+                           const void* const* ex_ptr, const double* ex_par, void* stream) {
   return launch<double>(t_grid, n_grid, fs_in, ist_in, x_in, fs_out, ist_out, x_out, saves, B, D,
                         mt, tab, s, advance_lower, w, w_row, post, kind_max, ctl, iters, adaptive,
-                        stream);
+                        ex_ptr, ex_par, stream);
 }
 
 // The same loop with the chain step: mt = [M_0^T | ... ] (D, KP*D), chain:
@@ -434,10 +705,11 @@ int vec_ode_fused_loop_chain_f32(const void* t_grid, int n_grid, const void* fs_
                                  void* ist_out, void* x_out, void* saves, int B, int D,
                                  const void* mt, const double* chain, const void* w_row,
                                  double post, int kind_max, const double* ctl, int iters,
-                                 int adaptive, void* stream) {
+                                 int adaptive, const void* const* ex_ptr, const double* ex_par,
+                                 void* stream) {
   return launch_chain<float>(t_grid, n_grid, fs_in, ist_in, x_in, fs_out, ist_out, x_out, saves,
                              B, D, mt, chain, w_row, post, kind_max, ctl, iters, adaptive,
-                             stream);
+                             ex_ptr, ex_par, stream);
 }
 
 int vec_ode_fused_loop_chain_f64(const void* t_grid, int n_grid, const void* fs_in,
@@ -445,10 +717,11 @@ int vec_ode_fused_loop_chain_f64(const void* t_grid, int n_grid, const void* fs_
                                  void* ist_out, void* x_out, void* saves, int B, int D,
                                  const void* mt, const double* chain, const void* w_row,
                                  double post, int kind_max, const double* ctl, int iters,
-                                 int adaptive, void* stream) {
+                                 int adaptive, const void* const* ex_ptr, const double* ex_par,
+                                 void* stream) {
   return launch_chain<double>(t_grid, n_grid, fs_in, ist_in, x_in, fs_out, ist_out, x_out, saves,
                               B, D, mt, chain, w_row, post, kind_max, ctl, iters, adaptive,
-                              stream);
+                              ex_ptr, ex_par, stream);
 }
 
 }  // extern "C"

@@ -30,7 +30,7 @@ DONE = 1
 ERR_MAX_STEPS = 2
 ERR_STALLED = 3   # reject streak reached StepControl.max_reject_streak
 ERR_BAD_GRID = 4  # negative remaining time (misordered grid)
-DONE_EVENT = 5    # a terminal event was located (events are not ported yet)
+DONE_EVENT = 5    # a terminal event was located (events.py)
 
 
 def comp_time_advance(t, t_lo, dt):
@@ -73,6 +73,7 @@ class IntState(NamedTuple):
     reject_streak: torch.Tensor
     ys: Pytree            # (B, n_grid, ...) states recorded on the grid
     ts_grid: torch.Tensor  # (n_grid,) save grid, [0] = t0, [-1] = tf
+    ev: Pytree = ()       # events.EventState, or () without events
 
 
 def make_grid(t0, tf, save_at=None, dtype=torch.float64, device="cuda"):
@@ -97,9 +98,10 @@ def make_grid(t0, tf, save_at=None, dtype=torch.float64, device="cuda"):
 
 
 def init_state(x0: Pytree, t_grid: torch.Tensor, h0,
-               batch_shape: tuple) -> IntState:
+               batch_shape: tuple, event_state: Pytree = ()) -> IntState:
     """The batched loop carry at t0. Every leaf of ``x0`` carries the
-    leading ``batch_shape``; ``h0`` is a scalar or per-trajectory."""
+    leading ``batch_shape``; ``h0`` is a scalar or per-trajectory;
+    ``event_state`` is an ``events.EventState`` or ()."""
     tdt, dev = t_grid.dtype, t_grid.device
     n_grid = t_grid.shape[0]
     t0 = t_grid[0].expand(batch_shape).clone()
@@ -128,20 +130,25 @@ def init_state(x0: Pytree, t_grid: torch.Tensor, h0,
         reject_streak=zero_i,
         ys=ys,
         ts_grid=t_grid,
+        ev=event_state,
     )
 
 
 def step_once(state: IntState, step_fn: Callable, *, adaptive: bool,
               ctl: StepControl, error_norm: Callable = lc.norm_l2_batched,
-              record_ys: bool = True) -> IntState:
+              record_ys: bool = True, event_cfg=None) -> IntState:
     """One driver iteration over the whole batch (the batched branch of
-    the JAX ``step_once``, without events or ``grad_safe``).
+    the JAX ``step_once``, without ``grad_safe``).
 
     ``step_fn(t, x, dt) -> (x_next, err)`` is called for every lane;
     lanes that do not step get dt = 0. ``err`` may be None for a stepper
     with no error estimate, which adaptive mode refuses. ``error_norm``
     reduces ``err`` per trajectory (the identity for steppers that return
     norms already). ``record_ys=False`` skips recording the save grid.
+    ``event_cfg`` (an ``events.EventConfig``, with ``state.ev`` its state)
+    runs the event search as step control: a search vetoes the advance
+    before it is applied, and its step size overrides the controller's
+    after the grid-hit restore.
     """
     t_grid = state.ts_grid
     n_grid = t_grid.shape[0]
@@ -187,6 +194,15 @@ def step_once(state: IntState, step_fn: Callable, *, adaptive: bool,
         measure = state.err_norm
         new_h, accept = state.h, torch.ones_like(stepping)
 
+    has_events = (event_cfg is not None
+                  and len(pytree.tree_leaves(state.ev)) > 0)
+    if has_events:
+        from .events import event_step
+
+        eo = event_step(event_cfg, state.ev, state.t, dt, state.x, x_next,
+                        stepping, accept)
+        accept = eo.accept
+
     do_advance = stepping & accept
     do_reject = stepping & ~accept
 
@@ -209,6 +225,12 @@ def step_once(state: IntState, step_fn: Callable, *, adaptive: bool,
     hit_grid = at_grid & running
     h = torch.where(hit_grid, prev_h, h)
     tgt_idx = torch.where(hit_grid, state.tgt_idx + 1, state.tgt_idx)
+    if has_events:
+        # the search overrides the controller's h; a locate restores the
+        # pre-search step
+        h = torch.where(eo.search, eo.h_override.to(h.dtype), h)
+        h = torch.where(eo.restore_h, eo.h_entry.to(h.dtype), h)
+        prev_h = torch.where(eo.restore_h, eo.h_entry.to(h.dtype), prev_h)
 
     if record_ys:
         hit = (torch.arange(n_grid, device=idx.device) == idx[..., None]) \
@@ -227,8 +249,12 @@ def step_once(state: IntState, step_fn: Callable, *, adaptive: bool,
     n_iters = state.n_iters + running.to(torch.int32)
     status = torch.where((status == RUNNING) & (n_iters >= ctl.max_steps),
                          ERR_MAX_STEPS, status)
+    # search iterations are not numerical rejections
+    true_reject = do_reject & ~eo.search if has_events else do_reject
+    if has_events:
+        status = torch.where(eo.terminal_hit, DONE_EVENT, status)
     streak = torch.where(
-        do_reject, state.reject_streak + 1,
+        true_reject, state.reject_streak + 1,
         torch.where(do_advance, 0, state.reject_streak),
     )
     if ctl.max_reject_streak > 0:
@@ -255,11 +281,12 @@ def step_once(state: IntState, step_fn: Callable, *, adaptive: bool,
         err_norm=torch.where(stepping, measure.to(state.err_norm.dtype),
                              state.err_norm),
         n_accept=state.n_accept + do_advance.to(torch.int32),
-        n_reject=state.n_reject + do_reject.to(torch.int32),
+        n_reject=state.n_reject + true_reject.to(torch.int32),
         n_iters=n_iters,
         reject_streak=streak,
         ys=ys,
         ts_grid=state.ts_grid,
+        ev=eo.ev_next if has_events else state.ev,
     )
 
 
@@ -317,18 +344,26 @@ class Solution:
 def integrate(step_fn: Callable, x0: Pytree, t_grid: torch.Tensor, h0, *,
               adaptive: bool = True, ctl: StepControl = StepControl(),
               error_norm: Callable = lc.norm_l2_batched,
-              method: str = "while", batch_shape: tuple) -> Solution:
+              method: str = "while", batch_shape: tuple,
+              event_cfg=None) -> Solution:
     """Run the batched loop over [t_grid[0], t_grid[-1]] until no
-    trajectory is RUNNING."""
-    state = init_state(x0, t_grid, h0, batch_shape)
+    trajectory is RUNNING; ``event_cfg`` (``events.EventConfig``) locates
+    events on the way."""
+    ev0 = ()
+    if event_cfg is not None:
+        from .events import init_event_state
+
+        ev0 = init_event_state(event_cfg, t_grid[0].expand(batch_shape), x0,
+                               batch_shape=batch_shape)
+    state = init_state(x0, t_grid, h0, batch_shape, event_state=ev0)
     return resume(state, step_fn, adaptive=adaptive, ctl=ctl,
-                  error_norm=error_norm, method=method)
+                  error_norm=error_norm, method=method, event_cfg=event_cfg)
 
 
 def resume(state: IntState, step_fn: Callable, *, adaptive: bool = True,
            ctl: StepControl = StepControl(),
            error_norm: Callable = lc.norm_l2_batched,
-           method: str = "while") -> Solution:
+           method: str = "while", event_cfg=None) -> Solution:
     """Continue integration from an existing carry.
 
     On the default [t0, tf] grid the loop records nothing: ys is rebuilt
@@ -346,7 +381,8 @@ def resume(state: IntState, step_fn: Callable, *, adaptive: bool = True,
     # one host sync per iteration: the loop's condition
     while bool((state.status == RUNNING).any()):
         state = step_once(state, step_fn, adaptive=adaptive, ctl=ctl,
-                          error_norm=error_norm, record_ys=not elide_ys)
+                          error_norm=error_norm, record_ys=not elide_ys,
+                          event_cfg=event_cfg)
 
     ys = state.ys
     if elide_ys:
@@ -356,6 +392,15 @@ def resume(state: IntState, step_fn: Callable, *, adaptive: bool = True,
                             pytree.tree_map(lambda a: a[:, 1], init_ys))
         ys = pytree.tree_map(lambda a, b: torch.stack([a, b], dim=1),
                              ys0, ys1)
+    ev_kw = {}
+    if event_cfg is not None and len(pytree.tree_leaves(state.ev)) > 0:
+        ev_kw = dict(
+            event_t=state.ev.t_ev[..., 0],
+            event_found=state.ev.found,
+            event_y=state.ev.y_ev if event_cfg.record_y else None,
+            event_t_k=state.ev.t_ev,
+            event_count=state.ev.count,
+        )
     return Solution(
         ts=state.ts_grid,
         ys=ys,
@@ -366,4 +411,5 @@ def resume(state: IntState, step_fn: Callable, *, adaptive: bool = True,
         n_reject=state.n_reject,
         n_iters=state.n_iters,
         h_final=state.h,
+        **ev_kw,
     )

@@ -170,6 +170,17 @@ def modulated_exp_apply(basis_w, coeffs, xw, *, m: Optional[int] = None,
                              m=m)[0]
 
 
+def operator_slope(op: ModulatedOperator, t, x):
+    """The slope A(t) x = sum_k c_k(t) M_k x of ``op`` for a batch: ``t``
+    (B,), ``x`` a Cplx pair or real tensor with a leading batch axis (the
+    dense-output Hermite endpoints)."""
+    xw = _widen(x, op.is_cplx)
+    basis_w = _real_basis(op.basis).to(device=xw.device, dtype=xw.dtype)
+    c = op.coeff_fn(t).to(xw.dtype)
+    return _unwiden(torch.einsum("bk,kij,bj->bi", c, basis_w, xw),
+                    op.is_cplx)
+
+
 def _stepper_wnorm(stepper, d_part: int, n_parts: int):
     """(w_row, post, kind) of the stepper's declared ``norm``
     (lc.WeightedNorm) over the kernels' widened-real layout, or None.
@@ -263,26 +274,33 @@ class _ChainStepper:
         port of ``_fused_loop_run`` without lane packing, windows or caps.
         CUDA tensors take the kernel (path ``cuda-loop-persistent`` /
         ``cuda-loop-chunked``), CPU tensors its plain twin
-        (``torch-loop``).
+        (``torch-loop``). ``events`` (an ``events.EventConfig`` of
+        declared observables) run in the loop; ``dense=True`` runs it on
+        the bare [t0, tf] with the interior grid times as dense-output
+        times, then one batched Hermite pass with the operator's slope
+        A(t) x (``_fused_dense_interp``; path suffix ``-dense``).
 
         Returns None where the JAX package declines for a reason that is
         not TPU layout, so that the caller runs the per-step path: an
         adaptivity other than the stepper's, an operator without a
-        declared form, a state that is not (B, d), or a time dtype other
-        than the state's."""
-        from ..driver import Solution
-        from ..ops.fused_loop import ChainStep, fused_loop_integrate
+        declared form, a state that is not (B, d), a time dtype other
+        than the state's, or an event that is not a declared observable
+        (the kernel runs no Python callable)."""
+        from ..ops.fused_loop import (ChainStep, fused_loop_integrate,
+                                      loop_solution)
 
-        if events is not None or dense:
-            raise NotImplementedError(
-                "events= and dense=True in the loop kernel are ROADMAP "
-                "slice 3b (queue 1 items 12 and 13)")
         if adaptive != self._adaptive or self.op.form is None:
             return None
         is_cplx = self.op.is_cplx
         leaf = y0.re if is_cplx else y0
         if leaf.ndim != 2 or t_grid.dtype != leaf.dtype:
             return None
+        ev_spec = None
+        if events is not None:
+            ev_spec = events.kernel_spec(leaf.shape[-1], 2 if is_cplx else 1)
+            if ev_spec is None:
+                return None
+        dense = dense and t_grid.shape[0] > 2
         wnorm = None
         if getattr(self, "norm", None) is not None:
             if ctl.scaled_error:
@@ -291,7 +309,6 @@ class _ChainStepper:
                     "mutually exclusive (both redefine the controller's "
                     "error measure)")
             wnorm = self._wnorm_of(y0)
-        B = leaf.shape[0]
         dtype, dev = leaf.dtype, leaf.device
         mt, norms = self._operands(dev, dtype)
         m, theta = _taylor_params(dtype, self.m)
@@ -303,26 +320,22 @@ class _ChainStepper:
             wnorm=wnorm, table=self._table)
         persistent = persistent is None or persistent
         x0 = _widen(y0, is_cplx)
-        fs, ist, x, saves = fused_loop_integrate(
-            t_grid, x0, h0, step, ctl=ctl, chunk=chunk,
-            persistent=persistent, adaptive=adaptive)
-        n_grid = t_grid.shape[0]
-        # ys = [y0, *interior saves, x_final where the trajectory reached
-        # tf else 0]
-        reached = (ist[:, 0] >= n_grid)[:, None, None]
-        yw = torch.cat([x0[:, None], saves.transpose(0, 1),
-                        torch.where(reached, x[:, None],
-                                    torch.zeros_like(x[:, None]))], dim=1)
+        out = fused_loop_integrate(
+            t_grid[[0, -1]] if dense else t_grid, x0, h0, step, ctl=ctl,
+            chunk=chunk, persistent=persistent, adaptive=adaptive,
+            events=ev_spec, dense_times=t_grid[1:-1] if dense else None)
         if not leaf.is_cuda:
             path = "torch-loop"
         else:
             path = ("cuda-loop-persistent" if persistent
                     else "cuda-loop-chunked")
-        return Solution(
-            ts=t_grid.expand(B, n_grid), ys=_unwiden(yw, is_cplx),
-            t_final=fs[:, 0], y_final=_unwiden(x, is_cplx),
-            status=ist[:, 1], n_accept=ist[:, 3], n_reject=ist[:, 4],
-            n_iters=ist[:, 5], h_final=fs[:, 1], path=path)
+
+        def slope(t, xw):
+            return _widen(operator_slope(self.op, t, _unwiden(xw, is_cplx)),
+                          is_cplx)
+
+        return loop_solution(t_grid, x0, out, path=path, slope=slope,
+                             unwiden=lambda xw: _unwiden(xw, is_cplx))
 
 
 def _extended_basis(op: ModulatedOperator) -> torch.Tensor:

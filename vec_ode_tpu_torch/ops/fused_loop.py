@@ -23,15 +23,25 @@ of trajectories runs until none of its rows is RUNNING) or chunked
 * :func:`torch_fused_loop` is the plain twin: the same iteration over the
   whole batch in torch, on the same carries, with the step's ``plain``.
 * :func:`fused_loop_integrate` sets up the carries and runs a whole solve.
+* Events (``pallas_loop.py:354-449``): declared observables
+  (``events.KernelEvents``, kinds ``"lin"`` and ``"quad"``) evaluated at
+  every trial point, the crossing test, the regula-falsi search run as
+  step control, K located times per event, the first crossing's state,
+  the crossing counter and ``DONE_EVENT``.
+* Dense output (``pallas_loop.py:455-474``): on the bare [t0, tf] grid the
+  controller runs free, and the accepted step that crosses an interior
+  dense time records its entry and exit states and its (t, dt);
+  ``dense.hermite_from_endpoints`` evaluates them afterwards.
 
 Carries, per trajectory (``pallas_loop.py:60-62``): floats (B, N_F)
 [t, h, prev_h, err_norm, t_lo] in the state's type; int32 (B, N_I)
 [tgt, status, event, n_accept, n_reject, n_iters, streak, bits]; the
 widened state (B, 2d) = [re | im]; the interior saves (n_grid - 2, B, 2d),
-updated in place. Without events ``bits`` is 0. The event column of a
-trajectory that stopped before its tile's last iteration reads EVT_NONE,
-as in the JAX kernel, so it depends on the tiling; every other carry
-does not.
+updated in place. ``bits`` is always 0: the event state has carries of
+its own (:class:`EventCarry`, :class:`DenseCarry`), updated in place like
+the saves. The event column of a trajectory that stopped before its
+tile's last iteration reads EVT_NONE, as in the JAX kernel, so it depends
+on the tiling; every other carry does not.
 """
 
 from __future__ import annotations
@@ -39,14 +49,15 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from ..controller import StepControl, controller_update, end_tolerance
-from ..driver import (DONE, ERR_BAD_GRID, ERR_MAX_STEPS, ERR_STALLED,
-                      EVT_CHKPT, EVT_END, EVT_NONE, EVT_REJECT, EVT_STEP,
-                      RUNNING, comp_time_advance)
+from ..driver import (DONE, DONE_EVENT, ERR_BAD_GRID, ERR_MAX_STEPS,
+                      ERR_STALLED, EVT_CHKPT, EVT_END, EVT_NONE, EVT_REJECT,
+                      EVT_STEP, RUNNING, comp_time_advance)
+from ..events import KernelEvents
 from ..tableaus import RKF45, ButcherTableau
 from . import _build
 from .expmv import (CfmTable, CoeffForm, chain_params, check_chain_operands,
@@ -134,17 +145,126 @@ class ChainStep:
         return has_error_estimate(self.recipe, self.C)
 
 
+class EventCarry(NamedTuple):
+    """The loop's event state, updated in place by each launch: g at the
+    current point, the located times (inf until found), the crossing
+    counter, the found flags, the search flag and the pre-search step,
+    and the first crossing's state (None with ``record_y=False``)."""
+
+    g_prev: torch.Tensor      # (B, E), the state's type
+    t_ev: torch.Tensor        # (B, E, K)
+    count: torch.Tensor       # (B, E) int32
+    found: torch.Tensor       # (B, E) int32, 0 or 1
+    searching: torch.Tensor   # (B,) int32, 0 or 1
+    h_entry: torch.Tensor     # (B,)
+    y_ev: Optional[torch.Tensor]  # (E, B, D) or None
+
+
+class DenseCarry(NamedTuple):
+    """The loop's dense-output recordings, updated in place: per interior
+    dense time j the entry time and dt of the step that crossed it (inf
+    and 0 until crossed) and its entry / exit states ``dx[2 j]`` /
+    ``dx[2 j + 1]``."""
+
+    times: torch.Tensor       # (n,) the dense times, the state's type
+    td: torch.Tensor          # (B, n)
+    dtd: torch.Tensor         # (B, n)
+    dx: torch.Tensor          # (2n, B, D)
+
+
+def row_reduce(v: torch.Tensor) -> torch.Tensor:
+    """sum over the last axis of (B, D) in the loop kernel's order: column
+    group cg (of ceil(D / 4)) sums columns cg, cg + ncg, cg + 2 ncg,
+    cg + 3 ncg, then the groups are added in order."""
+    B, D = v.shape
+    ncg = (D + 3) // 4
+    vp = torch.nn.functional.pad(v, (0, 4 * ncg - D)).reshape(B, 4, ncg)
+    part = ((vp[:, 0] + vp[:, 1]) + vp[:, 2]) + vp[:, 3]
+    acc = part[:, 0]
+    for g in range(1, ncg):
+        acc = acc + part[:, g]
+    return acc
+
+
+def event_params(events: KernelEvents, like: torch.Tensor):
+    """The events' rows (E, D) and (E, 4) [kind (0 lin, 1 quad),
+    direction, terminal n, offset c] in ``like``'s type and device, as the
+    kernel reads them."""
+    rows = torch.as_tensor(events.rows, dtype=like.dtype, device=like.device)
+    par = torch.tensor(
+        [[float(k == "quad"), float(d), float(n), c] for k, d, n, c in
+         zip(events.kinds, events.dirs, events.terminal, events.offsets)],
+        dtype=like.dtype, device=like.device)
+    return rows.contiguous(), par
+
+
+def event_values(events: KernelEvents, rows, x: torch.Tensor):
+    """g of every event at the widened states x (B, D): (B, E), summed in
+    the kernel's order."""
+    cols = []
+    for e, kind in enumerate(events.kinds):
+        src = x if kind == "lin" else x * x
+        cols.append(row_reduce(src * rows[e]) - events.offsets[e])
+    return torch.stack(cols, dim=1)
+
+
+def init_event_carry(events: KernelEvents, x0: torch.Tensor) -> EventCarry:
+    """The event carry at t0 for the widened states ``x0`` (B, D)."""
+    B, D = x0.shape
+    E, K = events.n, events.k
+    dtype, dev = x0.dtype, x0.device
+    rows, _ = event_params(events, x0)
+    zi = dict(dtype=torch.int32, device=dev)
+    return EventCarry(
+        g_prev=event_values(events, rows, x0).contiguous(),
+        t_ev=torch.full((B, E, K), torch.inf, dtype=dtype, device=dev),
+        count=torch.zeros(B, E, **zi), found=torch.zeros(B, E, **zi),
+        searching=torch.zeros(B, **zi),
+        h_entry=torch.zeros(B, dtype=dtype, device=dev),
+        y_ev=(torch.zeros(E, B, D, dtype=dtype, device=dev)
+              if events.record_y else None))
+
+
+def init_dense_carry(times, x0: torch.Tensor) -> DenseCarry:
+    """The dense carry for the interior dense ``times`` (n,) and the
+    widened states ``x0`` (B, D)."""
+    B, D = x0.shape
+    times = torch.as_tensor(times).to(dtype=x0.dtype, device=x0.device)
+    n = times.shape[0]
+    kw = dict(dtype=x0.dtype, device=x0.device)
+    return DenseCarry(times=times.contiguous(),
+                      td=torch.full((B, n), torch.inf, **kw),
+                      dtd=torch.zeros(B, n, **kw),
+                      dx=torch.zeros(2 * n, B, D, **kw))
+
+
 def torch_fused_loop(t_grid, fs, ist, x, saves, step, *, ctl: StepControl,
-                     iters: Optional[int] = None, adaptive: bool = True):
+                     iters: Optional[int] = None, adaptive: bool = True,
+                     events: Optional[KernelEvents] = None,
+                     ev: Optional[EventCarry] = None,
+                     dense: Optional[DenseCarry] = None):
     """Plain twin of the loop kernel: ``iters`` driver iterations of the
     whole batch (None: until no trajectory is RUNNING), line for line
-    ``pallas_loop._make_loop_kernel.iteration`` without events or dense
-    output; ``adaptive=False`` takes fixed steps (every stepping row
-    accepts, h changes only at the grid-hit restore). Returns (fs, ist, x,
-    saves); ``saves`` is updated in place."""
+    ``pallas_loop._make_loop_kernel.iteration``; ``adaptive=False`` takes
+    fixed steps (every stepping row accepts, h changes only at the
+    grid-hit restore). ``events`` with its carry ``ev`` runs the event
+    search, ``dense`` records the dense-output endpoints. Returns (fs,
+    ist, x, saves); ``saves``, ``ev`` and ``dense`` are updated in
+    place."""
     n_grid = t_grid.shape[0]
     t, h, prev_h, err_prev, t_lo = fs.unbind(1)
     tgt, status, event, n_acc, n_rej, n_it, streak, bits = ist.unbind(1)
+    eps = torch.finfo(x.dtype).eps
+    if events is not None:
+        rows, _ = event_params(events, x)
+        E, K = events.n, events.k
+        dirs, terms = events.dirs, events.terminal
+        g_prev, t_ev, count = (a.clone() for a in ev[:3])
+        found, searching = ev.found != 0, ev.searching != 0
+        h_entry = ev.h_entry.clone()
+        slots = torch.arange(K, device=x.device)
+    if dense is not None:
+        td, dtd = dense.td.clone(), dense.dtd.clone()
     it = 0
     while bool((status == RUNNING).any()) and (iters is None or it < iters):
         running = status == RUNNING
@@ -165,9 +285,83 @@ def torch_fused_loop(t_grid, fs, ist, x, saves, step, *, ctl: StepControl,
                                               prev_rejected=streak > 0)
         else:
             new_h, accept = h, torch.ones_like(stepping)
+
+        if events is not None:
+            # pallas_loop.py:354-449: g at the trial point, the crossing
+            # test, regula falsi as step control
+            g_next = event_values(events, rows, y)
+            rising = (g_prev < 0) & (g_next >= 0)
+            falling = (g_prev > 0) & (g_next <= 0)
+            d = torch.tensor(dirs, device=x.device)
+            crossed = torch.where(d > 0, rising,
+                                  torch.where(d < 0, falling,
+                                              rising | falling))
+            active = crossed & (stepping & accept)[:, None] & (count < K)
+            denom = g_prev - g_next
+            theta = g_prev / torch.where(denom == 0.0,
+                                         torch.ones_like(denom), denom)
+            theta = torch.clamp(theta, 0.0, 1.0)
+            theta_min = torch.where(active, theta, 1.0).amin(1)
+            any_active = active.any(1)
+            if events.t_tol is not None:
+                tol_ev = torch.full_like(t, events.t_tol)
+            else:
+                tol_ev = 64.0 * eps * torch.clamp(t.abs(), min=1.0)
+            tight = dt <= tol_ev
+            locate = any_active & tight
+            search = any_active & ~tight
+            accept = accept & ~search
+            h_override = torch.maximum(torch.clamp(theta_min, 0.1, 0.9) * dt,
+                                       0.25 * tol_ev)
+            entering = search & ~searching
+            h_entry = torch.where(entering, dt, h_entry)
+            restore_h = locate & searching
+            searching = (searching | search) & ~locate
+            rec = active & locate[:, None]
+            t_loc = t[:, None] + theta * dt[:, None]
+            t_ev = torch.where((slots == count[..., None].long())
+                               & rec[..., None], t_loc[..., None], t_ev)
+            found = found | rec
+            n_term = torch.tensor(terms, device=x.device)
+            terminal_hit = (rec & (n_term > 0)
+                            & (count + 1 >= n_term)).any(1)
+            if ev.y_ev is not None:
+                # the state at the FIRST crossing only
+                rec_y = rec & (count == 0)
+                for e in range(E):
+                    ev.y_ev[e] = torch.where(
+                        rec_y[:, e, None],
+                        x + theta[:, e, None] * (y - x), ev.y_ev[e])
+            adv_ev = stepping & accept
+            g_prev = torch.where(adv_ev[:, None], g_next, g_prev)
+            count = count + (crossed & adv_ev[:, None]).to(torch.int32)
+
         adv = stepping & accept
         rej = stepping & ~accept
+        # event-search iterations are not numerical rejections
+        true_rej = rej & ~search if events is not None else rej
         hit = at_grid & running
+
+        if dense is not None:
+            # pallas_loop.py:455-474: the crossing test against the
+            # post-advance time (the compensated hi word)
+            if ctl.time_compensated:
+                s_ = t + dt
+                bp = s_ - t
+                e_lo = (t - (s_ - bp)) + (dt - bp)
+                t_new = s_ + (t_lo + e_lo)
+            else:
+                t_new = t + dt
+            for j in range(dense.times.shape[0]):
+                tgj = dense.times[j]
+                tolj = 4.0 * eps * torch.clamp(tgj.abs(), min=1.0)
+                cr = adv & (tgj > t + tolj) & (tgj <= t_new + tolj)
+                dense.dx[2 * j] = torch.where(cr[:, None], x,
+                                              dense.dx[2 * j])
+                dense.dx[2 * j + 1] = torch.where(cr[:, None], y,
+                                                  dense.dx[2 * j + 1])
+                td[:, j] = torch.where(cr, t, td[:, j])
+                dtd[:, j] = torch.where(cr, dt, dtd[:, j])
 
         # interior saves: the state at the grid hit, before the advance
         for g in range(n_grid - 2):
@@ -184,6 +378,10 @@ def torch_fused_loop(t_grid, fs, ist, x, saves, step, *, ctl: StepControl,
             prev_h = torch.where(stepping, h, prev_h)
             h = torch.where(stepping, new_h, h)
         h = torch.where(hit, prev_h, h)
+        if events is not None:
+            h = torch.where(search, h_override, h)
+            h = torch.where(restore_h, h_entry, h)
+            prev_h = torch.where(restore_h, h_entry, prev_h)
         tgt = tgt + hit.to(torch.int32)
 
         status = torch.where(is_end, DONE, status)
@@ -191,7 +389,10 @@ def torch_fused_loop(t_grid, fs, ist, x, saves, step, *, ctl: StepControl,
         n_it = n_it + running.to(torch.int32)
         status = torch.where((status == RUNNING) & (n_it >= ctl.max_steps),
                              ERR_MAX_STEPS, status)
-        streak = torch.where(rej, streak + 1, torch.where(adv, 0, streak))
+        if events is not None:
+            status = torch.where(terminal_hit, DONE_EVENT, status)
+        streak = torch.where(true_rej, streak + 1,
+                             torch.where(adv, 0, streak))
         if ctl.max_reject_streak > 0:
             status = torch.where(
                 (status == RUNNING) & (streak >= ctl.max_reject_streak),
@@ -204,8 +405,16 @@ def torch_fused_loop(t_grid, fs, ist, x, saves, step, *, ctl: StepControl,
         if adaptive:
             err_prev = torch.where(stepping, err, err_prev)
         n_acc = n_acc + adv.to(torch.int32)
-        n_rej = n_rej + rej.to(torch.int32)
+        n_rej = n_rej + true_rej.to(torch.int32)
         it += 1
+    if events is not None:
+        for dst, src in ((ev.g_prev, g_prev), (ev.t_ev, t_ev),
+                         (ev.count, count), (ev.found, found),
+                         (ev.searching, searching), (ev.h_entry, h_entry)):
+            dst.copy_(src)
+    if dense is not None:
+        dense.td.copy_(td)
+        dense.dtd.copy_(dtd)
     fs = torch.stack([t, h, prev_h, err_prev, t_lo], dim=1)
     ist = torch.stack([tgt, status, event, n_acc, n_rej, n_it, streak,
                        torch.zeros_like(bits)], dim=1)
@@ -218,16 +427,16 @@ def _kernel_lib() -> ctypes.CDLL:
     points' argument types set."""
     lib = _build.load("fused_loop")
     vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    pd = ctypes.POINTER(cd)
+    pd, pv = ctypes.POINTER(cd), ctypes.POINTER(vp)
     for fn in (lib.vec_ode_fused_loop_f32, lib.vec_ode_fused_loop_f64):
         fn.restype = ci
         fn.argtypes = [vp, ci, vp, vp, vp, vp, vp, vp, vp, ci, ci, vp, pd,
-                       ci, ci, cd, vp, cd, ci, pd, ci, ci, vp]
+                       ci, ci, cd, vp, cd, ci, pd, ci, ci, pv, pd, vp]
     for fn in (lib.vec_ode_fused_loop_chain_f32,
                lib.vec_ode_fused_loop_chain_f64):
         fn.restype = ci
         fn.argtypes = [vp, ci, vp, vp, vp, vp, vp, vp, vp, ci, ci, vp, pd,
-                       vp, cd, ci, pd, ci, ci, vp]
+                       vp, cd, ci, pd, ci, ci, pv, pd, vp]
     return lib
 
 
@@ -269,19 +478,92 @@ def _check_carries(t_grid, fs, ist, x, saves) -> None:
             raise ValueError(f"fused_loop_chunk: {name} must be contiguous")
 
 
+def _check_extras(events, ev, dense, x, n_grid) -> None:
+    """The event and dense carries as the kernel takes them."""
+    B, D = x.shape
+    if (events is None) != (ev is None):
+        raise ValueError("fused_loop_chunk: events and ev come together")
+    want = {}
+    if events is not None:
+        E, K = events.n, events.k
+        want.update(g_prev=(ev.g_prev, (B, E), x.dtype),
+                    t_ev=(ev.t_ev, (B, E, K), x.dtype),
+                    count=(ev.count, (B, E), torch.int32),
+                    found=(ev.found, (B, E), torch.int32),
+                    searching=(ev.searching, (B,), torch.int32),
+                    h_entry=(ev.h_entry, (B,), x.dtype))
+        if events.record_y:
+            if ev.y_ev is None:
+                raise ValueError("fused_loop_chunk: record_y needs ev.y_ev")
+            want["y_ev"] = (ev.y_ev, (E, B, D), x.dtype)
+    if dense is not None:
+        if n_grid != 2:
+            raise ValueError(
+                "fused_loop_chunk: dense output is free-running: the grid "
+                f"must be [t0, tf] (got {n_grid} points)")
+        n = dense.times.shape[0]
+        want.update(times=(dense.times, (n,), x.dtype),
+                    td=(dense.td, (B, n), x.dtype),
+                    dtd=(dense.dtd, (B, n), x.dtype),
+                    dx=(dense.dx, (2 * n, B, D), x.dtype))
+    for name, (a, shape, dtype) in want.items():
+        if a.device != x.device or a.dtype != dtype:
+            raise TypeError(f"fused_loop_chunk: {name} is {a.dtype} on "
+                            f"{a.device}, the kernel takes {dtype} on "
+                            f"{x.device}")
+        if tuple(a.shape) != shape or not a.is_contiguous():
+            raise ValueError(f"fused_loop_chunk: {name} must be a contiguous "
+                             f"{shape}, got {tuple(a.shape)}")
+
+
+def _extra_args(events, ev, dense, x):
+    """The kernel's event and dense arguments: an array of 15 device
+    pointers and 6 float64 values [n_ev, K, record_y, has t_tol, t_tol,
+    n_dense] in host memory (both None when neither is on), and the
+    tensors that must outlive the launch."""
+    if events is None and dense is None:
+        return None, None, ()
+    keep, ptrs = [], [None] * 15
+    par = [0.0] * 6
+    if events is not None:
+        rows, evp = event_params(events, x)
+        g_new = torch.empty_like(ev.g_prev)
+        th_rec = torch.empty_like(ev.g_prev)
+        keep += [rows, evp, g_new, th_rec]
+        for i, a in enumerate((rows, evp, ev.g_prev, ev.t_ev, ev.count,
+                               ev.found, ev.searching, ev.h_entry, ev.y_ev,
+                               g_new, th_rec)):
+            ptrs[i] = None if a is None else a.data_ptr()
+        par[:5] = [events.n, events.k, int(events.record_y),
+                   int(events.t_tol is not None),
+                   0.0 if events.t_tol is None else events.t_tol]
+    if dense is not None:
+        for i, a in enumerate(dense, start=11):
+            ptrs[i] = a.data_ptr()
+        par[5] = dense.times.shape[0]
+    return ((ctypes.c_void_p * 15)(*ptrs), (ctypes.c_double * 6)(*par),
+            keep)
+
+
 def fused_loop_chunk(t_grid, fs, ist, x, saves, step, *, ctl: StepControl,
-                     chunk: Optional[int] = None, adaptive: bool = True):
+                     chunk: Optional[int] = None, adaptive: bool = True,
+                     events: Optional[KernelEvents] = None,
+                     ev: Optional[EventCarry] = None,
+                     dense: Optional[DenseCarry] = None):
     """Advance every trajectory by ``chunk`` driver iterations in one
     launch of the loop kernel, or with ``chunk=None`` until it leaves
     RUNNING (persistent), with the declared ``step`` (:class:`RKStep` or
-    :class:`ChainStep`); ``adaptive=False`` takes fixed steps. Returns
-    (fs, ist, x, saves); ``saves`` is updated in place.
+    :class:`ChainStep`); ``adaptive=False`` takes fixed steps; ``events``
+    (declared observables) with their carry ``ev`` locate events, and
+    ``dense`` records the dense-output endpoints (a [t0, tf] grid).
+    Returns (fs, ist, x, saves); ``saves``, ``ev`` and ``dense`` are
+    updated in place.
 
     CUDA tensors go to the kernel (float32 or float64, D <= 512,
     contiguous carries; RK tableaus of at most 7 stages, chain steps over
-    at most 2 basis terms, 4 exponentials per chain and 8 nodes); anything
-    else it does not take raises. CPU
-    tensors run :func:`torch_fused_loop`.
+    at most 2 basis terms, 4 exponentials per chain and 8 nodes; any
+    number of events and dense times); anything else it does not take
+    raises. CPU tensors run :func:`torch_fused_loop`.
     """
     if chunk is not None and chunk < 1:
         raise ValueError(f"fused_loop_chunk: chunk must be >= 1, got {chunk}")
@@ -293,9 +575,11 @@ def fused_loop_chunk(t_grid, fs, ist, x, saves, step, *, ctl: StepControl,
         raise ValueError("fused_loop_chunk: scaled and wnorm are mutually "
                          "exclusive")
     ops = ((step.M0, step.M1) if isinstance(step, RKStep) else (step.mt,))
+    _check_extras(events, ev, dense, x, t_grid.shape[0])
     if all(a.device.type == "cpu" for a in (t_grid, fs, ist, x, saves, *ops)):
         return torch_fused_loop(t_grid, fs, ist, x, saves, step, ctl=ctl,
-                                iters=chunk, adaptive=adaptive)
+                                iters=chunk, adaptive=adaptive, events=events,
+                                ev=ev, dense=dense)
     wn = wnorm_on(step.wnorm, x)
     w_row = None if wn is None else wn[0]
     B, D = x.shape
@@ -319,6 +603,7 @@ def fused_loop_chunk(t_grid, fs, ist, x, saves, step, *, ctl: StepControl,
                                   step.theta, step.max_squarings, step.norms,
                                   step.form, step.table))
     _check_carries(t_grid, fs, ist, x, saves)
+    ex_ptrs, ex_par, keep = _extra_args(events, ev, dense, x)
     fs_out, ist_out, x_out = (torch.empty_like(a) for a in (fs, ist, x))
     with torch.cuda.device(x.device):
         rc = fn(t_grid.data_ptr(), t_grid.shape[0], fs.data_ptr(),
@@ -327,7 +612,9 @@ def fused_loop_chunk(t_grid, fs, ist, x, saves, step, *, ctl: StepControl,
                 *step_args, *kernel_norm_args(wn),
                 _ctl_array(ctl, step.scaled is not None),
                 0 if chunk is None else int(chunk), int(adaptive),
+                ex_ptrs, ex_par,
                 torch.cuda.current_stream(x.device).cuda_stream)
+    del keep
     if rc != 0:
         raise RuntimeError(
             f"fused_loop_chunk: kernel launch failed with CUDA error {rc}")
@@ -357,18 +644,73 @@ def init_carries(t_grid, x0, h0):
 
 def fused_loop_integrate(t_grid, x0, h0, step, *, ctl: StepControl,
                          chunk: int = 8, persistent: bool = False,
-                         adaptive: bool = True):
+                         adaptive: bool = True,
+                         events: Optional[KernelEvents] = None,
+                         dense_times=None):
     """A whole solve over [t_grid[0], t_grid[-1]] from the widened state
     ``x0`` (B, D): one persistent launch, or launches of ``chunk``
     iterations until no trajectory is RUNNING (one host sync each).
     ``h0`` is a scalar or per trajectory (B,). Interior grid times are hit
-    exactly and recorded. Returns the final (fs, ist, x, saves)."""
+    exactly and recorded. Returns the final (fs, ist, x, saves).
+
+    ``events`` (declared observables) locates events; ``dense_times``
+    (n,) are interior dense-output times of the bare [t0, tf] grid: the
+    controller runs free and the grid cursor starts past t0, as
+    ``dense._dense_step`` has no t0 iteration (``pallas_loop.py:1433``).
+    With either, the return grows the final :class:`EventCarry` (or None)
+    and :class:`DenseCarry` (or None)."""
     t_grid, fs, ist, x, saves = init_carries(t_grid, x0, h0)
+    ev = None if events is None else init_event_carry(events, x)
+    dn = None
+    if dense_times is not None:
+        dn = init_dense_carry(dense_times, x)
+        ist[:, 0] = 1
+    kw = dict(ctl=ctl, adaptive=adaptive, events=events, ev=ev, dense=dn)
     if persistent:
-        return fused_loop_chunk(t_grid, fs, ist, x, saves, step, ctl=ctl,
-                                adaptive=adaptive)
-    while bool((ist[:, 1] == RUNNING).any()):
-        fs, ist, x, saves = fused_loop_chunk(t_grid, fs, ist, x, saves, step,
-                                             ctl=ctl, chunk=chunk,
-                                             adaptive=adaptive)
-    return fs, ist, x, saves
+        out = fused_loop_chunk(t_grid, fs, ist, x, saves, step, **kw)
+    else:
+        out = fs, ist, x, saves
+        while bool((out[1][:, 1] == RUNNING).any()):
+            out = fused_loop_chunk(t_grid, *out, step, chunk=chunk, **kw)
+    if events is None and dn is None:
+        return out
+    return (*out, ev, dn)
+
+
+def loop_solution(t_grid, x0w, out, *, path: str, unwiden, slope=None):
+    """The ``Solution`` of a :func:`fused_loop_integrate` run from the
+    widened states ``x0w`` over the caller's grid ``t_grid`` (for dense
+    output [t0, *dense times, tf]): ys = [x0, the interior saves or the
+    Hermite values of the dense recordings (``slope(t, xw)``: the widened
+    endpoint slopes), the final state where the trajectory reached tf else
+    0], the counters, and the event fields. ``unwiden`` maps widened
+    (..., D) rows to the caller's state; dense output appends ``-dense``
+    to ``path``."""
+    from ..dense import hermite_from_endpoints
+    from ..driver import Solution
+
+    fs, ist, x, saves = out[:4]
+    ev, dn = out[4:] if len(out) > 4 else (None, None)
+    B = x.shape[0]
+    n_grid = t_grid.shape[0]
+    if dn is not None:
+        interior = hermite_from_endpoints(t_grid[1:-1], dn.td, dn.dtd,
+                                          dn.dx[0::2], dn.dx[1::2], slope)
+        n_grid_k = 2
+    else:
+        interior, n_grid_k = saves, n_grid
+    reached = (ist[:, 0] >= n_grid_k)[:, None, None]
+    yw = torch.cat([x0w[:, None], interior.transpose(0, 1),
+                    torch.where(reached, x[:, None],
+                                torch.zeros_like(x[:, None]))], dim=1)
+    ev_kw = {}
+    if ev is not None:
+        ev_kw = dict(event_t=ev.t_ev[..., 0], event_found=ev.found != 0,
+                     event_y=(None if ev.y_ev is None
+                              else unwiden(ev.y_ev.transpose(0, 1))),
+                     event_t_k=ev.t_ev, event_count=ev.count)
+    return Solution(
+        ts=t_grid.expand(B, n_grid), ys=unwiden(yw), t_final=fs[:, 0],
+        y_final=unwiden(x), status=ist[:, 1], n_accept=ist[:, 3],
+        n_reject=ist[:, 4], n_iters=ist[:, 5], h_final=fs[:, 1],
+        path=path + ("-dense" if dn is not None else ""), **ev_kw)

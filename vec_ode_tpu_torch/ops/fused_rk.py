@@ -395,21 +395,21 @@ class FusedModulatedLinearRK:
         iterations): stages, embedded error, controller (I or PI,
         ``scaled_error``, ``strict_end_test``, compensated time), counters
         and the save-grid hits, the counterpart of the JAX stepper's
-        ``fused_loop_solve``.
+        ``fused_loop_solve``. ``events`` (an ``events.EventConfig`` of
+        declared observables) run in the kernel; ``dense=True`` runs it on
+        the bare [t0, tf] with the interior grid times as dense-output
+        times, then one batched Hermite pass with :meth:`hermite_slope`.
 
         Returns None where the JAX package declines, so that the caller
         runs the per-step path: fixed steps or a tableau without an
         embedded pair, a state that is not (B, d), a time dtype other than
-        the state's, more than ``LOOP_MAX_BATCH`` trajectories, or tensors
-        on the CPU (the JAX package declines off the TPU)."""
-        from ..driver import Solution
+        the state's, more than ``LOOP_MAX_BATCH`` trajectories, tensors
+        on the CPU (the JAX package declines off the TPU), or an event
+        that is not a declared observable (the kernel runs no Python
+        callable)."""
         from .fused_loop import (LOOP_MAX_BATCH, RKStep,
-                                 fused_loop_integrate)
+                                 fused_loop_integrate, loop_solution)
 
-        if events is not None or dense:
-            raise NotImplementedError(
-                "events= and dense=True in the loop kernel are ROADMAP "
-                "slice 3b (queue 1 items 12 and 13)")
         if not y0.re.is_cuda:
             return None
         if not adaptive or self.tableau.b_err is None:
@@ -419,6 +419,12 @@ class FusedModulatedLinearRK:
         B, d = y0.re.shape
         if B > LOOP_MAX_BATCH or t_grid.dtype != y0.re.dtype:
             return None
+        ev_spec = None
+        if events is not None:
+            ev_spec = events.kernel_spec(d, 2)
+            if ev_spec is None:
+                return None
+        dense = dense and t_grid.shape[0] > 2
         wnorm = None
         if self.norm is not None:
             if ctl.scaled_error:
@@ -434,26 +440,19 @@ class FusedModulatedLinearRK:
             scaled=(ctl.atol, ctl.rtol) if ctl.scaled_error else None,
             wnorm=wnorm)
         persistent = persistent is None or persistent
-        fs, ist, x, saves = fused_loop_integrate(
-            t_grid, torch.cat([y0.re, y0.im], dim=1), h0, step, ctl=ctl,
-            chunk=chunk, persistent=persistent)
-        n_grid = t_grid.shape[0]
-        # ys = [y0, *interior saves, x_final where the trajectory reached
-        # tf else 0]
-        reached = (ist[:, 0] >= n_grid)[:, None, None]
-        yw = torch.cat([torch.cat([y0.re, y0.im], dim=1)[:, None],
-                        saves.transpose(0, 1),
-                        torch.where(reached, x[:, None],
-                                    torch.zeros_like(x[:, None]))], dim=1)
-        return Solution(
-            ts=t_grid.expand(B, n_grid),
-            ys=Cplx(yw[..., :d], yw[..., d:]),
-            t_final=fs[:, 0],
-            y_final=Cplx(x[:, :d], x[:, d:]),
-            status=ist[:, 1],
-            n_accept=ist[:, 3],
-            n_reject=ist[:, 4],
-            n_iters=ist[:, 5],
-            h_final=fs[:, 1],
-            path="cuda-loop-persistent" if persistent else "cuda-loop-chunked",
-        )
+        x0 = torch.cat([y0.re, y0.im], dim=1)
+        out = fused_loop_integrate(
+            t_grid[[0, -1]] if dense else t_grid, x0, h0, step, ctl=ctl,
+            chunk=chunk, persistent=persistent, events=ev_spec,
+            dense_times=t_grid[1:-1] if dense else None)
+
+        def unwiden(xw):
+            return Cplx(xw[..., :d], xw[..., d:])
+
+        def slope(t, xw):
+            f = self.hermite_slope(t, unwiden(xw))
+            return torch.cat([f.re, f.im], dim=-1)
+
+        return loop_solution(
+            t_grid, x0, out, unwiden=unwiden, slope=slope,
+            path="cuda-loop-persistent" if persistent else "cuda-loop-chunked")

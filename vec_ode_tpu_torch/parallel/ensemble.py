@@ -15,6 +15,7 @@ from torch.utils import _pytree as pytree
 from .. import lc
 from ..controller import StepControl, check_h0
 from ..driver import Solution, integrate, make_grid
+from ..events import as_event_config
 
 
 def _install_norm(stepper, error_norm):
@@ -81,6 +82,15 @@ def ensemble_solve(
     per step on the card, or the plain torch step on the CPU.
     ``Solution.path`` names the path taken.
 
+    ``events`` (an ``events.EventConfig``, an ``Event``, a callable or a
+    sequence of them) locates event crossings: declared observables run
+    in the loop kernel, opaque callables in the host driver (the
+    ``Solution.event_*`` fields). ``dense=True`` makes the interior
+    ``save_at`` times free-running interpolated saves: the loop kernel
+    records the crossing steps' endpoints, else the host driver's
+    ``dense.integrate_interp`` runs; the path name gains ``-dense``.
+    ``dense=True`` with events needs the loop kernel.
+
     The signature is the JAX package's. ``error_norm`` may be a declared
     ``lc.WeightedNorm`` (installed as the stepper's ``norm``).
     ``scaled_error`` needs the loop kernel (a norm-returning stepper's
@@ -98,7 +108,9 @@ def ensemble_solve(
             "CFMModulated, and the generic exponential steppers over "
             "DenseSplit / DenseCplxSplit); the vmapped tier (the generic "
             "RungeKutta stepper, exponential steppers with batched=False or "
-            "over another split) is ROADMAP queue 1, items 6 and 9")
+            "over another split) is ROADMAP queue 1, items 6 and 9"
+            + ("; its dense output (solve_ivp_dense / solve_linear_dense) "
+               "is item 13" if dense else ""))
     if mesh is not None:
         raise NotImplementedError(
             "mesh=: sharded ensembles are ROADMAP slice 7, queue 1 item 27")
@@ -111,14 +123,7 @@ def ensemble_solve(
         raise ValueError(
             "params is unsupported for this natively batched stepper (it "
             "embeds its own operator)")
-    if events is not None:
-        raise NotImplementedError(
-            "events=: events (in the driver and in the loop kernel) are "
-            "ROADMAP slice 3b, queue 1 item 12")
-    if dense:
-        raise NotImplementedError(
-            "dense=True: dense output (in the driver and in the loop "
-            "kernel) is ROADMAP slice 3b, queue 1 item 13")
+    event_cfg = as_event_config(events)
     if isinstance(error_norm, lc.WeightedNorm):
         if ctl.scaled_error:
             raise ValueError(
@@ -140,7 +145,12 @@ def ensemble_solve(
 
     fused = getattr(stepper, "fused_loop_solve", None)
     if fused is not None:
-        sol = fused(y0_batch, t_grid, h0, ctl=ctl, adaptive=adaptive)
+        kw = {}
+        if event_cfg is not None:
+            kw["events"] = event_cfg
+        if dense:
+            kw["dense"] = True
+        sol = fused(y0_batch, t_grid, h0, ctl=ctl, adaptive=adaptive, **kw)
         if sol is not None:
             return sol
     if ctl.scaled_error:
@@ -159,10 +169,54 @@ def ensemble_solve(
         step_fn = stepper.make_step_fn(rhs_or_op)
     else:
         step_fn = stepper.make_step_fn(rhs_or_op, params=params)
-    sol = integrate(step_fn, y0_batch, t_grid, h0, adaptive=adaptive,
-                    ctl=ctl, error_norm=stepper.error_norm,
-                    batch_shape=(b,))
-    sol.path = stepper.step_path(y0_batch)
+    if dense:
+        if event_cfg is not None:
+            raise ValueError(
+                "dense=True with events= needs the fused loop kernel, which "
+                "did not engage for this configuration (the dense driver "
+                "carries no event state; see fused_loop_solve eligibility)")
+        sol = _batched_dense_fallback(
+            stepper, step_fn, y0_batch, t_grid, h0, adaptive=adaptive,
+            ctl=ctl, batch_shape=(b,))
+    else:
+        sol = integrate(step_fn, y0_batch, t_grid, h0, adaptive=adaptive,
+                        ctl=ctl, error_norm=stepper.error_norm,
+                        batch_shape=(b,), event_cfg=event_cfg)
+        sol.path = stepper.step_path(y0_batch)
     # the shared save grid, per trajectory (as the JAX package returns it)
     sol.ts = t_grid.expand(b, t_grid.shape[0])
+    return sol
+
+
+def _batched_dense_fallback(stepper, fn, y0, t_grid, h0, *, adaptive, ctl,
+                            batch_shape) -> Solution:
+    """The host driver's dense tier for a natively batched stepper:
+    free-running ``dense.integrate_interp`` with cubic-Hermite saves whose
+    endpoint slopes are the stepper's ``hermite_slope``, or the operator
+    action A(t) x of its ``ModulatedOperator``."""
+    from ..dense import integrate_interp
+
+    slope = getattr(stepper, "hermite_slope", None)
+    if slope is None:
+        op = getattr(stepper, "op", None)
+        if op is None or not hasattr(op, "coeff_fn"):
+            raise ValueError(
+                "dense=True on a natively-batched stepper needs its "
+                "ModulatedOperator (or a hermite_slope method) for the "
+                "Hermite endpoint slopes; for generic exp steppers pass "
+                "batched=False (the vmapped dense driver computes slopes "
+                "from the split)")
+        from ..exp.modulated import operator_slope
+
+        def slope(t, x):
+            return operator_slope(op, t, x)
+
+    def sfd(t, x, dt):
+        xn, err = fn(t, x, dt)
+        return xn, err, (slope(t, x), slope(t + dt, xn))
+
+    sol = integrate_interp(sfd, y0, t_grid, h0, adaptive=adaptive, ctl=ctl,
+                           error_norm=stepper.error_norm,
+                           batch_shape=batch_shape)
+    sol.path = stepper.step_path(y0) + "-dense"
     return sol
