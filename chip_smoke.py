@@ -51,10 +51,19 @@ drives the port's paths once at full width through
   sweeps with a terminal threshold and, at v = 0, five crossings counted
   and three located at their closed-form times ([events-lz]); dense
   output at the nine save times on the RK, Magnus-4 and CFM-4 loop paths
-  ([dense-loop]) and on the Magnus-4 per-step path ([dense-step]).
+  ([dense-loop]) and on the Magnus-4 per-step path ([dense-step]);
+* black-box operators through ``exp.auto_modulated``: K4 and K5 against
+  their twins over 3, 5 and 8 basis terms (K' up to 36) on every recipe
+  and with K2's event / dense switch; the black-box DrivenDense at 16 384
+  and 256 on the loop route (K2 with K5 sampling the fitted ChebForm) and
+  the per-step route (K4), against the declared-CoeffForm loop and the
+  generic path (K9) ([auto]); 1024 black-box Landau-Zener sweeps
+  ([auto-lz]); an I/Q-driven qudit (three terms) at 16 384 on both routes
+  and an eight-term drive in one loop solve ([k0]).
 
 Then it times the paths and each kernel against its plain version, its
-bound and, for K4, K6-K8 and K9, a library yardstick. Every phase raises on failure, so
+bound and, for K4 (also at K' = 6 and 36), K6-K8 and K9, a library
+yardstick. Every phase raises on failure, so
 any failure exits non-zero; without a CUDA card it exits non-zero before
 any result.
 
@@ -66,7 +75,9 @@ last one JSON line {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -182,8 +193,8 @@ def ptxas_summary(name: str) -> str:
             kp = re.match(r"(?:\w*ChainLoopStepI[fd])?Li(\d+)E", m.group(3))
             if "RKLoopStep" in m.group(3):
                 inst += " rk"
-            elif kp:
-                inst += f" KP={kp.group(1)}"
+            elif kp:  # KP 0: the k-outer body, K0 > 2, K' at run time
+                inst += " K0>2" if kp.group(1) == "0" else f" KP={kp.group(1)}"
             if name == "fused_loop" and "Lb1E" in m.group(3):
                 inst += " events/dense"
             continue
@@ -779,12 +790,18 @@ def r_stepper(kind, op, norm=None):
 
 
 def chain_stepper(dtype, d=DIM, fast_error=False, midpoint=False, norm=None,
-                  lz=False, kind="magnus4"):
+                  lz=False, kind="magnus4", k0=None):
     """A Magnus-4 (or midpoint, or ``kind`` of r_stepper) stepper on
-    DrivenDense(d, seed 0), or on the Landau-Zener operator, on the
-    card."""
-    model = LandauZener(**LZ) if lz else DrivenDense.make(d=d, seed=0)
-    op = model.modulated(dtype, device="cuda")
+    DrivenDense(d, seed 0), on the Landau-Zener operator, or (``k0``) on
+    the k0-term drive with its Chebyshev form (multi_op), on the card."""
+    if k0 in ("auto", "iq"):  # recovered from a black box, in f32
+        assert dtype == torch.float32, dtype
+        op = auto_drive_op() if k0 == "auto" else iq_op()
+    elif k0 is not None:
+        op = multi_op(k0, dtype, multi_cheb(k0))
+    else:
+        model = LandauZener(**LZ) if lz else DrivenDense.make(d=d, seed=0)
+        op = model.modulated(dtype, device="cuda")
     if kind != "magnus4":
         return r_stepper(kind, op, norm)
     if midpoint:
@@ -827,15 +844,17 @@ def chain_pair(st, samples, dt, xw, wnorm=None, kernel=True):
 
 
 def check_chain_step(B, dtype, label, dt_range=(1e-3, 5e-2), wnorm=None,
-                     x_rel=1e-12, **stkw) -> tuple:
+                     x_rel=1e-12, make=None, **stkw) -> tuple:
     """K4 against torch_chain_step on the card. The state: f64 to ``x_rel``
     of its scale (only the products' summation order differs), f32 to
     bench.py's on-device limit 1e-5. The error norm per row: f64 within
     1e-9 of it plus 1e-18; f32 within 1e-4 of it plus a floor of four
     times the plain f32 step's largest deviation from the plain f64 step
     on the same inputs (the pair's error is a difference of two chains).
-    Returns (max |dy|, rows on which a norm 10% off would fail)."""
-    st = chain_stepper(dtype, **stkw)
+    Returns (max |dy|, rows on which a norm 10% off would fail). ``make``:
+    dtype -> the stepper, in place of chain_stepper(dtype, **stkw)."""
+    make = make or (lambda dt_: chain_stepper(dt_, **stkw))
+    st = make(dtype)
     samples, dt, xw = chain_inputs(st, B, dtype, dt_range=dt_range)
     (yk, ek), (yp, ep) = chain_pair(st, samples, dt, xw, wnorm)
     torch.cuda.synchronize()
@@ -846,7 +865,7 @@ def check_chain_step(B, dtype, label, dt_range=(1e-3, 5e-2), wnorm=None,
         x_lim, e_lim, floor = x_rel * max(float(yp.abs().max()), 1.0), \
             1e-9 * ep.abs() + 1e-18, 1e-18
     else:
-        st64 = chain_stepper(torch.float64, **stkw)
+        st64 = make(torch.float64)
         _, e64 = chain_pair(st64, [g.double() for g in samples],
                             dt.double(), xw.double(), wnorm, kernel=False)
         floor = 4 * float((ep.double() - e64).abs().max()) if has_err else 0
@@ -950,13 +969,13 @@ R_CASES = [k for k, c in CHAIN_CASES.items() if "kind" in c]
 def chain_loop_case(name, B, dtype, seed=11):
     """(carries, step, ctl, adaptive, expected status) of a CHAIN_CASES
     entry: unit states, t in [0, 0.3] unless the case says otherwise."""
-    case = CHAIN_CASES[name]
+    case = CHAIN_CASES[name] if name in CHAIN_CASES else K0_LOOP_CASES[name]
     ctl = StepControl(**{**CHAIN_BASE, **case.get("ctl", {})})
     norm = case.get("norm")
     st = chain_stepper(
         dtype, fast_error=case.get("fast_error", False),
         midpoint=case.get("midpoint", False), lz=case.get("lz", False),
-        kind=case.get("kind", "magnus4"),
+        kind=case.get("kind", "magnus4"), k0=case.get("k0"),
         norm=None if norm is None else lc.WeightedNorm(
             norm[0], tuple(np.linspace(0.5, 2.0, DIM)) if norm[1] else None))
     d = 2 if case.get("lz") else DIM
@@ -2620,8 +2639,8 @@ def extra_case(name, B, dtype, mode):
         carries, step, ctl, _ = loop_case("plain", B, DIM, dtype)
         adaptive = True
     else:
-        carries, step, ctl, adaptive, _ = chain_loop_case(EXTRA_STEPS[name],
-                                                          B, dtype)
+        carries, step, ctl, adaptive, _ = chain_loop_case(
+            EXTRA_STEPS.get(name, name), B, dtype)
     lz = name.startswith("lz")
     t0, tf = (-LZ_T / 4, LZ_T / 4) if lz else (0.0, TF)
     times = torch.linspace(t0, tf, 11, dtype=torch.float64)[1:-1]
@@ -3123,6 +3142,390 @@ def event_flops(spec, iters) -> float:
     return iters * sum(2 * D if k == "lin" else 3 * D for k in spec.kinds)
 
 
+# -- 3 to 8 basis terms (K' up to 36) in K4 and K5 ------------------------
+
+K0_CASES = (3, 5, 8)
+# the recipes K4 is held to its twin on at each K0
+K0_KINDS = ("midpoint", "magnus4", "magnus4_fast", "magnus6", "magnus6_fixed",
+            "cfm4", "blanes")
+
+
+def multi_coeffs(t, K0):
+    """The coefficients of the K0-term drive on [0, 1]: [1, t, cos 2 pi t,
+    sin 2 pi t, cos 4 pi t, sin 4 pi t, cos 6 pi t, sin 6 pi t][:K0]
+    (their probe matrix has sigma_8 / sigma_1 ~ 0.13), (...,) -> (...,
+    K0)."""
+    cols = [torch.ones_like(t), t]
+    for n in (1, 2, 3):
+        a = (2.0 * math.pi * n) * t
+        cols += [torch.cos(a), torch.sin(a)]
+    return torch.stack(cols[:K0], -1)
+
+
+def multi_basis(K0, dtype, device="cuda", d=DIM):
+    """-i H0 of DrivenDense(d, seed 0) and -i V of DrivenDense(d, seed s),
+    s = 1 .. K0 - 1: the drift and K0 - 1 controls, a Cplx (K0, d, d)."""
+    hs = [DrivenDense.make(d=d, seed=0).H0] + [
+        DrivenDense.make(d=d, seed=s).V for s in range(1, K0)]
+    H = from_complex(np.stack(hs), dtype, device=device)
+    return Cplx(H.im, -H.re)
+
+
+def multi_op(K0, dtype, form=None, device="cuda"):
+    """The K0-term drive as a ModulatedOperator: its exact coefficients,
+    or the declared ``form`` (sampled in-kernel in the loop)."""
+    return texp.ModulatedOperator(
+        basis=multi_basis(K0, dtype, device),
+        coeff_fn=(lambda t: multi_coeffs(t, K0)) if form is None
+        else form.sample, form=form)
+
+
+def multi_cheb(K0, deg=40):
+    """multi_coeffs fitted on [0, 1] by a Chebyshev series of degree deg
+    at 2 deg + 2 Chebyshev-Gauss points, in float64."""
+    n = 2 * deg + 2
+    u = np.cos(np.pi * (2 * np.arange(n) + 1) / (2 * n))
+    C = multi_coeffs(torch.as_tensor(0.5 + 0.5 * u), K0).numpy()
+    return texp.ChebForm(np.polynomial.chebyshev.chebfit(u, C, deg), 0.0,
+                         1.0)
+
+
+def k0_stepper(kind, op):
+    if kind == "midpoint":
+        return MidpointModulated(op)
+    if kind == "magnus4_fast":
+        return MagnusModulated4(op, fast_error=True)
+    return r_stepper(kind, op)
+
+
+# the loop kernel's cases over the k0-term drive with its Chebyshev form
+K0_LOOP_CASES = {
+    **{f"k0_{K}_{kind}": dict(k0=K, kind=kind) for K, kind in (
+        (3, "magnus4"), (3, "magnus6"), (5, "magnus4"), (5, "cfm4"),
+        (8, "magnus4"), (8, "magnus6"), (8, "cfm4"))},
+    "k0_8_fast_error": dict(k0=8, fast_error=True),
+    "k0_8_midpoint": dict(k0=8, midpoint=True, h0=0.05),
+    "k0_8_magnus6_fixed": dict(k0=8, kind="magnus6_fixed", h0=0.05),
+    "k0_8_save_grid": dict(k0=8, grid=(0.0, 0.075, 0.15, 0.225, 0.3)),
+    "k0_8_pi_weighted": dict(k0=8, ctl=dict(pi=True), norm=("l2", True)),
+}
+# the recovered operators' loops at their paths' batch: the I/Q drive
+# (K' = 6) and the black-box DrivenDense with its ChebForm (K' = 3)
+K0_PATHS = {"iq_path": dict(k0="iq", grid=(0.0, TF)),
+            "auto_path": dict(k0="auto", grid=(0.0, TF))}
+K0_LOOP_CASES.update(K0_PATHS)
+
+
+def k0_step_phase() -> float:
+    """K4 over 3, 5 and 8 basis terms (K' up to 36 for the Magnus
+    recipes) against its twin at 2048x64c in f64 and f32, on every recipe:
+    check_chain_step's limits. Returns max |dy| of Magnus-4 at K0 = 8 in
+    f32."""
+    err = 0.0
+    for K0 in K0_CASES:
+        for kind in K0_KINDS:
+            for dtype in (torch.float64, torch.float32):
+                dy, _ = check_chain_step(
+                    LOOP_TRAJ, dtype, f"K0={K0} {kind}",
+                    make=lambda dt_, k=kind, K=K0: k0_stepper(
+                        k, multi_op(K, dt_)))
+                if (K0, kind, dtype) == (8, "magnus4", torch.float32):
+                    err = dy
+    return err
+
+
+def k0_loop_phase() -> float:
+    """K5 over 3, 5 and 8 basis terms with a ChebForm in the loop kernel
+    against the loop's twin: f64 at B = 1000 (counters equal per
+    trajectory), f32 at 2048, persistent against chunked, K2's event /
+    dense switch on at K0 = 8, and the recovered operators' loops at their
+    paths' 16384 (the I/Q drive, K' = 6; the black-box DrivenDense, K' =
+    3, sampling its ChebForm). Returns {"k0": max |dx| of the I/Q path,
+    "cheb": of the black-box DrivenDense path}."""
+    for name in K0_LOOP_CASES:
+        if name not in K0_PATHS:
+            check_chain_loop_pair(name, 1000, torch.float64)
+    check_chain_loop_pair("k0_8_magnus6", LOOP_TRAJ, torch.float32)
+    check_chain_persistent_is_chunked("k0_8_save_grid", 1000, torch.float64)
+    check_extra_pair("k0_8_magnus4", 1000, torch.float64, "both")
+    check_extra_pair("k0_8_cfm4", 1000, torch.float64, "saves")
+    check_chain_loop_pair("k0_8_magnus4", LOOP_TRAJ, torch.float32)
+    return {"k0": check_chain_loop_pair("iq_path", N_TRAJ, torch.float32),
+            "cheb": check_chain_loop_pair("auto_path", N_TRAJ,
+                                          torch.float32)}
+
+
+# -- black-box operators through auto_modulated ----------------------------
+
+AUTO_REC_SEED = 2   # benchmarks.py:609-660: the record's 256 states
+
+
+def make_auto_drive_op(fit_cols: bool = True):
+    """DrivenDense(64, seed 0)'s op_pair as a black box through
+    auto_modulated on [0, 1] (benchmarks.py:609): two terms, with a fitted
+    ChebForm unless fit_cols is off."""
+    dd = DrivenDense.make(d=DIM, seed=0)
+    mod = texp.auto_modulated(lambda t: dd.op_pair(t, torch.float32), 0.0,
+                              TF, fit_cols=fit_cols)
+    assert mod is not None and mod.n_terms == 2, mod
+    assert isinstance(mod.form, texp.ChebForm) == fit_cols, mod.form
+    return mod
+
+
+auto_drive_op = functools.cache(make_auto_drive_op)
+
+
+def timed_setup(fn):
+    """(fn(), seconds of host wall until the card is idle) of one call."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+@functools.cache
+def iq_parts():
+    """H0, V of DrivenDense(64, seed 0) and V2 = DrivenDense(64, seed 1).V
+    on the card, and w."""
+    m0 = DrivenDense.make(d=DIM, seed=0)
+    H = from_complex(np.stack([m0.H0, m0.V,
+                               DrivenDense.make(d=DIM, seed=1).V]),
+                     torch.float32, device="cuda")
+    return H, float(m0.w)
+
+
+def iq_op_fn(t):
+    """The I/Q-driven qudit as a black box: A(t) = -i (H0 + cos(w t) V +
+    sin(w t) V2), the rotating-frame pulse with in-phase and quadrature
+    controls, f32 on the card."""
+    H, w = iq_parts()
+    t = (t.to(torch.float32) if isinstance(t, torch.Tensor)
+         else torch.tensor(t, dtype=torch.float32, device="cuda"))
+    c = torch.stack([torch.ones_like(t), torch.cos(w * t),
+                     torch.sin(w * t)])
+    return Cplx(torch.einsum("k,kij->ij", c, H.im),
+                -torch.einsum("k,kij->ij", c, H.re))
+
+
+@functools.cache
+def iq_op(fit_cols: bool = True):
+    mod = texp.auto_modulated(iq_op_fn, 0.0, TF, fit_cols=fit_cols)
+    assert mod is not None and mod.n_terms == 3, mod
+    assert isinstance(mod.form, texp.ChebForm) == fit_cols, mod.form
+    return mod
+
+
+def auto_solve(mod, y0):
+    """Adaptive Magnus-4 at benchmarks.py:609's settings (rtol 1e-5,
+    min_dt 1e-5, max_dt 0.25, h0 1e-2), f32, t in [0, 1]."""
+    return ensemble_solve(None, y0, 0.0, TF, stepper=MagnusModulated4(mod),
+                          ctl=GEN_CTL, h0=GEN_H0, time_dtype=torch.float32)
+
+
+def counted(fn):
+    """(fn(), (K1, K2, K4 launches), K9 launches) of one run."""
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, counts(), fused_dense_chain_apply.launches
+
+
+def dcounts(a, b) -> tuple:
+    return tuple(int((getattr(a, k) - getattr(b, k)).abs().max())
+                 for k in ("n_accept", "n_reject", "n_iters"))
+
+
+def check_routes(label, loop, step, n, *others):
+    """The loop route's solution (one K2 launch) and the per-step route's
+    (a K4 launch per iteration) on the same states: all DONE, |psi| = 1
+    within 1e-4, counters within 1 / 1 / 2 and states within 1e-4 of each
+    other (f32 rounding moves a step at the controller's edge); each of
+    ``others`` (label, solution, state limit) within its limit of the
+    loop route."""
+    (sol, c_loop, _), (ssol, c_step, _) = loop, step
+    assert sol.path == "cuda-loop-persistent", sol.path
+    assert ssol.path == "torch-driver+cuda-step", ssol.path
+    assert c_loop == (0, 1, 0), c_loop
+    assert c_step[:2] == (0, 0) and c_step[2] == int(ssol.n_iters.max()), \
+        c_step
+    dev = max(check_unit_solution(sol, n, label),
+              check_unit_solution(ssol, n, label))
+    dc, dy = dcounts(sol, ssol), max_dy(sol, ssol)
+    assert dc[0] <= 1 and dc[1] <= 1 and dc[2] <= 2 and dy <= 1e-4, (dc, dy)
+    line = (f"[{label}] {n}x{DIM}c: loop route {sol.path} (K1/K2/K4 "
+            f"{c_loop}), per-step route {ssol.path} ({c_step[2]} K4 launches"
+            f" == max n_iters); all DONE, max||psi|-1|={dev:.3e} (<= 1e-4); "
+            f"n_iters up to {int(sol.n_iters.max())}; per-step vs loop: "
+            f"counters differ by {dc} (<= 1 / 1 / 2), max|dy|={dy:.3e} "
+            f"(<= 1e-4)")
+    for name, other, lim in others:
+        dy_o = max_dy(sol, other)
+        assert int((other.status == DONE).sum()) == n, name
+        assert dy_o <= lim, (name, dy_o)
+        line += (f"; {name} vs loop: counters differ by "
+                 f"{dcounts(sol, other)}, max|dy|={dy_o:.3e} (<= {lim:g})")
+    print(line, flush=True)
+
+
+def auto_phase() -> int:
+    """[auto] The black-box DrivenDense (benchmarks.py:609): auto_modulated
+    recovers two terms and a ChebForm; adaptive Magnus-4 at 16 384 (the
+    main path's states) and at the record's 256 (default_rng(2)) on the
+    loop route (one K2 launch, K5 sampling the ChebForm) and the per-step
+    route (fit_cols off: a K4 launch per iteration), held against the
+    declared-CoeffForm loop (DrivenDense.modulated) and the generic
+    Magnus4(DenseCplxSplit) over the same op_fn (K9). Returns the 16 384
+    loop's K2 launches."""
+    # each set-up timed on its own uncached call: probes, SVD and, with
+    # fit_cols, the Chebyshev fit and its validation
+    mod, fit_s = timed_setup(lambda: make_auto_drive_op(True))
+    mod_step, proj_s = timed_setup(lambda: make_auto_drive_op(False))
+    print(f"[auto] auto_modulated(DrivenDense(64).op_pair, 0, 1): "
+          f"{mod.n_terms} terms, ChebForm of {mod.form.n_coeffs} "
+          f"coefficients per term; set-up {fit_s:.4f} s", flush=True)
+    print(f"[auto] auto_modulated(..., fit_cols=False): {mod_step.n_terms} "
+          f"terms, no form; set-up {proj_s:.4f} s", flush=True)
+    declared = MagnusModulated4(DrivenDense.make(d=DIM, seed=0).modulated(
+        torch.float32, device="cuda"))
+    k2 = 0
+    for n, seed in ((N_TRAJ, 42), (REC_B, AUTO_REC_SEED)):
+        y0 = unit_states(n, DIM, torch.float32, seed)
+        loop = counted(lambda: auto_solve(mod, y0))
+        k2 = k2 or loop[1][1]
+        step = counted(lambda: auto_solve(mod_step, y0))
+        dsol = ensemble_solve(None, y0, 0.0, TF, stepper=declared,
+                              ctl=GEN_CTL, h0=GEN_H0,
+                              time_dtype=torch.float32)
+        gen, c_gen, k9 = counted(lambda: generic_solve(y0))
+        assert gen.path == "torch-driver+cuda-step" and c_gen == (0, 0, 0)
+        assert k9 == int(gen.n_iters.max()), (k9, int(gen.n_iters.max()))
+        check_routes("auto", loop, step, n,
+                     ("declared CoeffForm loop", dsol, 1e-4),
+                     (f"generic Magnus4 over op_fn ({k9} K9 launches)", gen,
+                      5e-4))
+    return k2
+
+
+def auto_lz_phase() -> None:
+    """[auto-lz] benchmarks.py:284: LandauZener(2.0, 0.4).op_pair as a
+    black box over [-20, 20]: two terms and a ChebForm; 1024 sweeps from
+    |0> by adaptive Magnus-4 (rtol 1e-5, max_steps 20000, h0 0.05) in one
+    loop launch (unpacked), all DONE, |psi| = 1 within 1e-4, the |0>
+    population within 0.02 of the closed form P_LZ."""
+    lz = LandauZener(**LZ)
+    mod = texp.auto_modulated(lambda t: lz.op_pair(t, torch.float32),
+                              -LZ_T, LZ_T, dtype=torch.float32)
+    assert mod is not None and mod.n_terms == 2
+    assert isinstance(mod.form, texp.ChebForm)
+    psi = np.zeros((1024, 2), np.complex64)
+    psi[:, 0] = 1.0
+    y0 = from_complex(psi, torch.float32, device="cuda")
+    ctl = StepControl(rtol=1e-5, max_steps=20000)
+    sol, c, _ = counted(lambda: ensemble_solve(
+        None, y0, -LZ_T, LZ_T, stepper=MagnusModulated4(mod), ctl=ctl,
+        h0=0.05, time_dtype=torch.float32))
+    assert sol.path == "cuda-loop-persistent" and c == (0, 1, 0), (sol.path,
+                                                                   c)
+    assert int((sol.status == DONE).sum()) == 1024
+    y = torch.complex(sol.y_final.re, sol.y_final.im)
+    dev = float((y.abs().pow(2).sum(-1).sqrt() - 1).abs().max())
+    p_stay = y[:, 0].abs().pow(2)
+    dp = float((p_stay - lz.p_transition).abs().max())
+    assert dev <= 1e-4 and dp <= 0.02, (dev, dp)
+    print(f"[auto-lz] 1024 Landau-Zener sweeps, black-box op_pair through "
+          f"auto_modulated ({mod.n_terms} terms, ChebForm of "
+          f"{mod.form.n_coeffs} coefficients): path={sol.path}, K1/K2/K4 "
+          f"{c}; all DONE, max||psi|-1|={dev:.3e}, |P(|0>) - P_LZ|="
+          f"{dp:.4f} (<= 0.02; P_LZ={lz.p_transition:.4f}), n_iters "
+          f"{int(sol.n_iters.min())}..{int(sol.n_iters.max())}", flush=True)
+
+
+def k0_path_phase() -> tuple:
+    """[k0] The I/Q drive (K = 3, K' = 6) recovered from its black box, at
+    16 384x64c f32 on the loop and per-step routes (check_routes); K4
+    against its twin on the I/Q step at that batch; the eight-term drive
+    recovered from its black box (K = 8, K' = 36) in one loop solve at
+    2048x64c against the per-step route. Returns (K4 launches of the I/Q
+    per-step solve, K2 launches of its loop solve, K4 max |dy| at the
+    path)."""
+    y0 = unit_states(N_TRAJ, DIM, torch.float32, 42)
+    loop = counted(lambda: auto_solve(iq_op(), y0))
+    step = counted(lambda: auto_solve(iq_op(fit_cols=False), y0))
+    check_routes("k0 iq", loop, step, N_TRAJ)
+    k4_err = check_chain_step(N_TRAJ, torch.float32, "I/Q magnus4 pair",
+                              make=lambda dt_: MagnusModulated4(
+                                  iq_op(fit_cols=False)))[0]
+    fn = multi_op_fn(8)
+    mod = texp.auto_modulated(fn, 0.0, TF)
+    assert mod is not None and mod.n_terms == 8, mod
+    assert isinstance(mod.form, texp.ChebForm)
+    y8 = unit_states(LOOP_TRAJ, DIM, torch.float32, 42)
+    check_routes("k0 eight terms", counted(lambda: auto_solve(mod, y8)),
+                 counted(lambda: auto_solve(
+                     dataclasses.replace(mod, form=None), y8)), LOOP_TRAJ)
+    return step[1][2], loop[1][1], k4_err
+
+
+def multi_op_fn(K0):
+    """The K0-term drive as a black box, f32 on the card."""
+    basis = multi_basis(K0, torch.float32)
+
+    def op_fn(t):
+        t = (t.to(torch.float32) if isinstance(t, torch.Tensor)
+             else torch.tensor(t, dtype=torch.float32, device="cuda"))
+        c = multi_coeffs(t, K0)
+        return Cplx(torch.einsum("k,kij->ij", c, basis.re),
+                    torch.einsum("k,kij->ij", c, basis.im))
+    return op_fn
+
+
+def k0_timing_phase(card):
+    """K4 per launch at K' = 6 (the I/Q step) and 36 (the eight-term
+    drive) at 16384x64c f32 against its twin, bound and library
+    yardstick; K2 + K5 per solve for the I/Q loop; the ChebForm loop
+    against the declared CoeffForm loop on DrivenDense (the same steps, in
+    turns). Returns the numbers of fused_chain_apply/k0 (K' = 6),
+    chain_step_tile/k0 (I/Q) and chain_step_tile/cheb."""
+    k4 = time_k4(MagnusModulated4(iq_op(fit_cols=False)), N_TRAJ,
+                 "I/Q Magnus-4 pair (K' = 6)", card)
+    time_k4(MagnusModulated4(multi_op(8, torch.float32)), N_TRAJ,
+            "eight-term Magnus-4 pair (K' = 36)", card)
+    y0 = unit_states(N_TRAJ, DIM, torch.float32, 42)
+    timed_solve(lambda: auto_solve(iq_op(), y0),
+                f"I/Q loop route {N_TRAJ}x{DIM}c f32, one loop launch", card)
+    timed_solve(lambda: auto_solve(iq_op(fit_cols=False), y0),
+                f"I/Q per-step route on the same {N_TRAJ} inputs (K4)", card)
+    k5 = time_k5(MagnusModulated4(iq_op()), y0, MAG_CTL, "I/Q loop", card)
+    cheb = MagnusModulated4(auto_drive_op())
+    coeff = MagnusModulated4(DrivenDense.make(d=DIM, seed=0).modulated(
+        torch.float32, device="cuda"))
+    grid = driver.make_grid(0.0, TF, dtype=torch.float32, device="cuda")
+    runs = {}
+    for name, st in (("cheb", cheb), ("coeff", coeff)):
+        mt, norms, m, theta = chain_operands(st, torch.float32)
+        step = ChainStep(mt=mt, norms=norms, form=st.op.form,
+                         recipe=st._recipe, C=st._chains, m=m, theta=theta)
+        carries = init_carries(grid, torch.cat([y0.re, y0.im], 1), H0)
+        runs[name] = (lambda c=carries, s=step: fused_loop_chunk(
+            *c, s, ctl=MAG_CTL))
+    times = {name: [] for name in runs}
+    for _ in range(3):  # in turns
+        for name, fn in runs.items():
+            times[name].append(timed_ms(fn, reps=1))
+    ms = {name: statistics.median(v) for name, v in times.items()}
+    print(f"[time] K2 + K5 per solve on DrivenDense {N_TRAJ}x{DIM}c f32, "
+          f"the same steps (not the same passes: the recovered orthonormal "
+          f"basis and the declared one bound a row's 1-norm differently): "
+          f"ChebForm (black box through auto_modulated) "
+          f"{ms['cheb']:.4f} ms, declared CoeffForm {ms['coeff']:.4f} ms "
+          f"(in turns: "
+          f"{({n: [round(v, 4) for v in t] for n, t in times.items()})}) "
+          f"({card})", flush=True)
+    k5_cheb = time_k5(cheb, y0, MAG_CTL, "black-box DrivenDense loop", card)
+    return k4, k5, k5_cheb
+
+
 def time_extra(kind, card):
     """K2 alone per solve at path 1 (kind "rk", 2048x64c) or path 3
     ("magnus4", 16384x64c), f32, t in [0, 1]: without events or dense
@@ -3233,6 +3636,8 @@ def main() -> None:
     k4r_err = chain_step_r_phase()
     k5r_err = chain_loop_r_phase()
     extra_errs = extra_kernel_phase()
+    k0_err = k0_step_phase()
+    k0_loop_errs = k0_loop_phase()
     k9_err = dense_chain_phase()
     k1_launches = main_path_phase(card)
     k2_launches = loop_path_phase(card)
@@ -3256,6 +3661,9 @@ def main() -> None:
     events_lz_phase()
     dense_launches, dense_sol = dense_loop_phase()
     dense_step_phase(dense_sol)
+    cheb_launches = auto_phase()
+    auto_lz_phase()
+    k0_k4_launches, k0_k2_launches, k0_k4_err = k0_path_phase()
     k1 = timing_phase(card)
     k2 = loop_timing_phase(card)
     k4 = k4_timing_phase(card)
@@ -3264,6 +3672,7 @@ def main() -> None:
     k9 = k9_timing_phase(card)
     adj = adjoint_timing_phase(card, adaptive_ts)
     extra = extra_timing_phase(card)
+    k0_times = k0_timing_phase(card)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     rows = []
@@ -3284,7 +3693,13 @@ def main() -> None:
             ("fused_loop/events", ev_launches, extra_errs["events"],
              extra["events"]),
             ("fused_loop/dense", dense_launches, extra_errs["dense"],
-             extra["dense"])):
+             extra["dense"]),
+            ("fused_chain_apply/k0", k0_k4_launches,
+             max(k0_err, k0_k4_err), k0_times[0]),
+            ("chain_step_tile/k0", k0_k2_launches, k0_loop_errs["k0"],
+             k0_times[1]),
+            ("chain_step_tile/cheb", cheb_launches, k0_loop_errs["cheb"],
+             k0_times[2])):
         source, replaces = KERNELS[name.split("/")[0]]
         rows.append({
             "name": name, "route": "cuda", "source": source,

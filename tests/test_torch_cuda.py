@@ -5,7 +5,9 @@ norm, the whole-loop kernel (K2) with its RK step (K3) and its chain step
 R > 1 exponentials per chain (Magnus-6, CFM), the per-trajectory
 dense chain kernel (K9) with the generic exponential path over it, and the
 adjoint kernels (K6, K7, K8) with the fixed-step and adaptive adjoint over
-them. Every test here carries the ``cuda`` marker and skips without a
+them, the chain kernels over 3 to 8 basis terms and the loop kernel
+sampling a ChebForm, with black-box operators through auto_modulated on
+both routes. Every test here carries the ``cuda`` marker and skips without a
 card. The file imports no jax, so on a machine with a card but without
 jax it runs as
 
@@ -465,8 +467,8 @@ def test_chain_wrapper_refuses_what_the_kernel_does_not_take(card):
     with pytest.raises(ValueError, match="stacked basis"):
         fused_chain_apply(samples, dt, xw, mt[:, :16], norms, **kw)
     with pytest.raises(ValueError, match="basis terms"):
-        g4 = [torch.zeros(16, 4, device=card) for _ in range(2)]
-        fused_chain_apply(g4, dt, xw, mt, norms, **kw)
+        g9 = [torch.zeros(16, 9, device=card) for _ in range(2)]
+        fused_chain_apply(g9, dt, xw, mt, norms, **kw)
     with pytest.raises(ValueError, match="samples"):
         fused_chain_apply(samples[:1], dt, xw, mt, norms, **kw)
 
@@ -1093,3 +1095,96 @@ def test_no_event_or_dense_path_gives_way_to_a_twin(card, monkeypatch):
             sol = ensemble_solve(None, my0, 0.0, 0.3, stepper=mst, **kw,
                                  **extra)
             assert sol.path.startswith(("cuda-loop", "torch-driver+cuda"))
+
+
+# -- 3 to 8 basis terms (K' up to 36) and the ChebForm ---------------------
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("kind", chip_smoke.K0_KINDS)
+@pytest.mark.parametrize("K0", chip_smoke.K0_CASES)
+def test_chain_kernel_k0_matches_twin(card, K0, kind, dtype):
+    """K4 over 3, 5 and 8 basis terms against torch_chain_step at 2048x64c
+    (chip_smoke.check_chain_step's limits), every recipe."""
+    before = fused_chain_apply.launches
+    chip_smoke.check_chain_step(
+        2048, dtype, f"K0={K0} {kind}",
+        make=lambda dt_: chip_smoke.k0_stepper(
+            kind, chip_smoke.multi_op(K0, dt_)))
+    assert fused_chain_apply.launches == before + 1
+
+
+@pytest.mark.parametrize("name", [k for k in chip_smoke.K0_LOOP_CASES
+                                  if k not in chip_smoke.K0_PATHS])
+def test_loop_kernel_cheb_k0_matches_twin_f64(card, name):
+    """K2 with K5 sampling a ChebForm over 3 to 8 terms against
+    torch_fused_loop: counters equal per trajectory, states within
+    1e-12."""
+    chip_smoke.check_chain_loop_pair(name, 1000, torch.float64)
+
+
+@pytest.mark.parametrize("name", ["auto_path", "iq_path"])
+def test_loop_kernel_recovered_operators_match_twin_f32(card, name):
+    """The ChebForm of a recovered black box in K2 (two terms, the
+    register body; three, the k-outer one) against its twin at 2048."""
+    chip_smoke.check_chain_loop_pair(name, 2048, torch.float32)
+
+
+@pytest.mark.parametrize("name,mode", [("k0_8_magnus4", "events"),
+                                       ("k0_8_magnus4", "dense"),
+                                       ("k0_8_cfm4", "both"),
+                                       ("k0_3_magnus6", "saves")])
+def test_loop_kernel_cheb_events_and_dense_match_twin(card, name, mode):
+    chip_smoke.check_extra_pair(name, 1000, torch.float64, mode)
+
+
+def test_loop_kernel_cheb_events_f32(card):
+    chip_smoke.check_extra_pair("auto_path", 2048, torch.float32, "events")
+
+
+def test_loop_kernel_k0_persistent_equals_chunked(card):
+    chip_smoke.check_chain_persistent_is_chunked("k0_8_save_grid", 1000,
+                                                 torch.float64)
+    chip_smoke.check_extra_persistent_is_chunked("k0_5_magnus4", 1000,
+                                                 torch.float64, "both")
+
+
+@pytest.mark.parametrize("kind", ["auto", "iq"])
+def test_black_box_routes_count_launches_and_name_paths(card, kind):
+    """A black box through auto_modulated: with its ChebForm one K2 launch
+    (cuda-loop-persistent), without it a K4 launch per iteration
+    (torch-driver+cuda-step); all DONE, the two within f32 rounding."""
+    op = (chip_smoke.auto_drive_op if kind == "auto" else chip_smoke.iq_op)
+    y0 = chip_smoke.unit_states(256, chip_smoke.DIM, torch.float32, 2)
+    loop = chip_smoke.counted(lambda: chip_smoke.auto_solve(op(), y0))
+    step = chip_smoke.counted(
+        lambda: chip_smoke.auto_solve(op(fit_cols=False), y0))
+    chip_smoke.check_routes(kind, loop, step, 256)
+
+
+def test_more_than_eight_terms_raise_before_any_launch(card, monkeypatch):
+    """Nine basis terms on CUDA tensors: the chain kernel and the loop
+    kernel raise ValueError, launch nothing and run no twin."""
+    from vec_ode_tpu_torch.ops import expmv, fused_loop
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain twin ran on CUDA tensors")
+
+    monkeypatch.setattr(expmv, "torch_chain_step", refuse)
+    monkeypatch.setattr(fused_loop, "torch_fused_loop", refuse)
+    D, B = 8, 16
+    xw = torch.zeros(B, D, device=card)
+    dt = torch.full((B,), 0.1, device=card)
+    mt = torch.zeros(D, 45 * D, device=card)
+    g9 = [torch.zeros(B, 9, device=card) for _ in range(2)]
+    before = (fused_chain_apply.launches, fused_loop_chunk.launches)
+    with pytest.raises(ValueError, match="1 to 8 basis terms"):
+        fused_chain_apply(g9, dt, xw, mt, (1.0,) * 45, recipe="magnus4",
+                          C=2, m=8, theta=0.35)
+    form = texp.ChebForm(np.zeros((3, 9)), 0.0, 1.0)
+    step = chip_smoke.ChainStep(mt=mt, norms=(1.0,) * 45, form=form,
+                                recipe="magnus4", C=2, m=8, theta=0.35)
+    grid = torch.tensor([0.0, 1.0], device=card)
+    carries = chip_smoke.init_carries(grid, xw, 0.01)
+    with pytest.raises(ValueError, match="1 to 8 basis terms"):
+        fused_loop_chunk(*carries, step, ctl=chip_smoke.MAG_CTL)
+    assert (fused_chain_apply.launches, fused_loop_chunk.launches) == before

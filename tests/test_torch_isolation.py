@@ -16,17 +16,24 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "vec_ode_tpu_torch"
 
 # the modules of the adjoint and generic exponential paths, beside the
-# earlier ones; NAMES, what the order-6 / CFM modulated path and the
-# events and dense output added to them
+# earlier ones; NAMES, what the order-6 / CFM modulated path, the events
+# and dense output, and the black-box front door (auto_modulated,
+# ChebForm) and quadrature added to them
 NAMES = {"exp": ["MagnusModulated6", "CFMModulated", "CFM4Modulated",
                  "CfmTable"],
          "models": ["Lindblad"],
-         "ops.expmv": ["CfmTable", "identity_rows", "n_rows", "n_nodes"],
+         "ops.expmv": ["CfmTable", "identity_rows", "n_rows", "n_nodes",
+                       "ChebForm", "MAX_KP"],
          "events": ["Event", "EventConfig", "LinearObservable",
                     "QuadraticObservable", "KernelEvents", "event_step"],
          "dense": ["integrate_interp", "hermite_from_endpoints"],
-         "ops.fused_loop": ["EventCarry", "DenseCarry", "loop_solution"]}
-MODULES = ["events", "dense", "diff", "ops.adjoint", "ops.expm", "ops.dense_chains", "ops.cplx", "ops.expmv",
+         "ops.fused_loop": ["EventCarry", "DenseCarry", "loop_solution"],
+         "exp.auto": ["auto_modulated"],
+         "quad": ["gauss_legendre", "fixed_quad", "trapezoid",
+                  "averaged_operator"],
+         "": ["auto_modulated", "ChebForm", "quad"]}
+MODULES = ["exp.auto", "quad", "events", "dense", "diff", "ops.adjoint",
+           "ops.expm", "ops.dense_chains", "ops.cplx", "ops.expmv",
            "ops.fused_rk", "ops.fused_loop", "exp.protocol", "exp.leaves",
            "exp.dense_fast", "exp.magnus", "exp.cfm", "exp.split_solvers",
            "exp.modulated", "models.quantum", "parallel.ensemble", "convert"]
@@ -42,7 +49,8 @@ for name in MODULES:
     assert "vec_ode_tpu_torch." + name in names, name
 for mod, attrs in NAMES.items():
     for attr in attrs:
-        getattr(importlib.import_module("vec_ode_tpu_torch." + mod), attr)
+        getattr(importlib.import_module(("vec_ode_tpu_torch." + mod)
+                                        .rstrip(".")), attr)
 from vec_ode_tpu_torch.ops import _build
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "vec_ode_tpu"))

@@ -7,7 +7,9 @@ embedded-RK stepper ``ops.fused_rk.FusedModulatedLinearRK`` (dx/dt =
 steppers ``exp.MidpointModulated`` / ``MagnusModulated4`` /
 ``MagnusModulated6`` / ``CFMModulated`` (A(t) = sum_k c_k(t) M_k; the
 models ``DrivenDense``, ``LandauZener`` and the open-system
-``Lindblad``), and the generic exponential steppers
+``Lindblad``; ``exp.auto_modulated`` recovers such an operator, with a
+Chebyshev ``ChebForm``, from a black-box callback), and the generic
+exponential steppers
 (``exp.ExpMidpoint``, ``Magnus4``, ``Magnus6``, ``CFM4``,
 ``CFM4_BLANES17``, ``SplitMidpoint``, ``SplitCFM``) with a black-box
 operator callback over ``exp.DenseSplit`` / ``exp.DenseCplxSplit``. On
@@ -18,12 +20,13 @@ plain torch twins run. ``diff`` holds the O(1)-memory reversible adjoint
 whose workload is ``models.PulseControl``. ``events`` (declared
 observables, run in the loop kernel, or callables, run by the host
 driver) and ``dense`` (free-running interpolated saves) are taken by
-``ensemble_solve(events=..., dense=True)``. This package imports neither
+``ensemble_solve(events=..., dense=True)``. ``quad`` holds the
+Gauss-Legendre and trapezoid quadratures. This package imports neither
 jax nor vec_ode_tpu.
 """
 
 from . import (controller, convert, dense, diff, driver, events, exp, lc,
-               models, ops, parallel, tableaus)
+               models, ops, parallel, quad, tableaus)
 from .controller import StepControl
 from .driver import (
     DONE,
@@ -47,6 +50,7 @@ from .driver import (
 )
 from .events import (Event, EventConfig, LinearObservable,
                      QuadraticObservable)
+from .exp import ChebForm, auto_modulated
 from .models import PulseControl
 from .tableaus import (
     BOSH32,
@@ -76,7 +80,10 @@ __all__ = [
     "models",
     "ops",
     "parallel",
+    "quad",
     "tableaus",
+    "auto_modulated",
+    "ChebForm",
     "StepControl",
     "Event",
     "EventConfig",

@@ -10,7 +10,7 @@ from torch.utils import _pytree as pytree
 from .exp.modulated import ModulatedOperator
 from .models.quantum import PulseControl
 from .ops.cplx import Cplx
-from .ops.expmv import CoeffForm
+from .ops.expmv import ChebForm, CoeffForm
 from .ops.fused_rk import FusedModulatedLinearRK
 from .tableaus import RKF45
 
@@ -28,13 +28,16 @@ def stepper_from_numpy(M0, M1, w, *, tableau=RKF45, advance_lower=True,
     )
 
 
-def modulated_from_numpy(basis_re, basis_im, form: CoeffForm, *,
+def modulated_from_numpy(basis_re, basis_im, form: CoeffForm | ChebForm, *,
                          dtype=torch.float64, device="cuda",
                          ext_basis_w=None) -> ModulatedOperator:
     """A ``ModulatedOperator`` over the basis the JAX package's operator
     holds (``np.asarray(op.basis.re)``, ``.im``; ``basis_im=None`` for a
     real (K, D, D) basis) with the declared coefficient ``form`` as its
-    ``coeff_fn``, on the card unless ``device`` names another.
+    ``coeff_fn``, on the card unless ``device`` names another. ``form``: a
+    ``CoeffForm``, or a ``ChebForm(series, lo, hi)`` made from the numpy
+    (n, K) series and interval of a JAX ``auto_modulated`` fit, which
+    carries a recovered operator across.
     ``ext_basis_w``: the JAX stepper's commutator-extended working basis
     (``np.asarray(MagnusModulated4(...)._ext_basis_w)``), which Magnus-4
     then uses as it is, so that both packages step over identical

@@ -9,8 +9,10 @@
 // Magnus-6 (three Yoshida sub-interval exponentials; the comparison chain
 // a full-interval Magnus-4 row and two identity rows, skipped) and
 // commutator-free Magnus over a declared table (R <= 4 alpha rows over
-// J <= 8 nodes; the comparison chain padded with zero rows). It reads the
-// coefficients sampled at the recipe's nodes, (J, B, K0), dt (B,) and the
+// J <= 8 nodes; the comparison chain padded with zero rows), over 1 to 8
+// basis terms (K' <= 36 working terms with the Magnus commutators: the
+// step's register body for K0 <= 2, K' <= 3, its k-outer body past it).
+// It reads the coefficients sampled at the recipe's nodes, (J, B, K0), dt (B,) and the
 // widened state x (B, D), and writes y (B, D) and the per-row error norm
 // (B,). The step itself is the device function chain_step_tile of
 // chain_step.cuh, which the whole-loop kernel (fused_loop.cu) runs too;
@@ -23,7 +25,8 @@
 // about 25.8 GFLOP per Taylor pass against 8 MB in and 8 MB out, 0.38 ms
 // per pass at the card's 67 TFLOP/s FP32 (non-tensor) rate; an adaptive
 // Magnus-6 step runs four such exponentials, a CFM-4 step three at
-// K' = 2 and one zero pad row. TF32 must not enter: the error norm is a
+// K' = 2 and one zero pad row; at K0 = 8 a Magnus-4 term is 36 products
+// where K0 = 2 has 3. TF32 must not enter: the error norm is a
 // difference of two chains near rounding level. This first version is a
 // plain SIMT kernel reading the basis from L2 at every term; tensor cores
 // (in an FP32-emulating form), TMA, persistent blocks and regrouping rows
@@ -45,11 +48,12 @@ chain_expmv_kernel(const T* __restrict__ g, const T* __restrict__ dt, const T* _
                    int D, int tile, ChainParams<T> p, ErrNorm<T> en) {
   extern __shared__ unsigned char smem_raw[];
   const size_t n = (size_t)tile * D;
+  const int kp = kp_of<KP>(p), gs = g_stride<KP>(p);
   T* scratch = reinterpret_cast<T*>(smem_raw);
-  T* xs = scratch + ChainSmem<T>::elems(tile, D, KP, p);  // x (tile, D)
-  T* ys = xs + n;                                         // y (tile, D)
-  T* s_dt = ys + n;                                       // dt (tile)
-  const ChainSmem<T> sm = ChainSmem<T>::carve(scratch, tile, D, KP, p);
+  T* xs = scratch + ChainSmem<T>::elems(tile, D, kp, gs, p);  // x (tile, D)
+  T* ys = xs + n;                                             // y (tile, D)
+  T* s_dt = ys + n;                                           // dt (tile)
+  const ChainSmem<T> sm = ChainSmem<T>::carve(scratch, tile, D, kp, gs, p);
 
   const int tid = threadIdx.x;
   const long row0 = (long)blockIdx.x * tile;
@@ -62,7 +66,7 @@ chain_expmv_kernel(const T* __restrict__ g, const T* __restrict__ dt, const T* _
     s_dt[lr] = lr < rows ? dt[row0 + lr] : T(0);
     for (int nd = 0; nd < p.J; ++nd)
       for (int k = 0; k < K0; ++k)
-        sm.g[((size_t)nd * tile + lr) * MAX_K0 + k] =
+        sm.g[((size_t)nd * tile + lr) * gs + k] =
             lr < rows ? g[((size_t)nd * B + row0 + lr) * K0 + k] : T(0);
   }
   __syncthreads();
@@ -78,11 +82,14 @@ int run(const ChainParams<T>& p, const ErrNorm<T>& en, const void* g, const void
   int dev = 0, max_smem = 0, n_sm = 0;
   cudaError_t st = device_limits(&dev, &max_smem, &n_sm);
   if (st != cudaSuccess) return (int)st;
-  const int tile = chain_tile<T>(B, D, n_sm, RT, MAX_THREADS);
+  auto smem_of = [&](int tl) {
+    return (ChainSmem<T>::elems(tl, D, kp_of<KP>(p), g_stride<KP>(p), p) +
+            2 * (size_t)tl * D + tl) * sizeof(T);
+  };
+  const int tile = chain_tile<T>(B, D, n_sm, RT, MAX_THREADS, (size_t)max_smem, smem_of);
   const int ncg = (D + CT - 1) / CT;
   const int items = (tile / RT) * ncg;
-  const size_t smem =
-      (ChainSmem<T>::elems(tile, D, KP, p) + 2 * (size_t)tile * D + tile) * sizeof(T);
+  const size_t smem = smem_of(tile);
   if (items > MAX_THREADS || smem > (size_t)max_smem) return (int)cudaErrorInvalidValue;
   const int threads = ((items > tile ? items : tile) + 31) / 32 * 32;
   if (smem > smem_allowed[dev]) {
@@ -105,6 +112,7 @@ int launch(const void* g, const void* dt, const void* x, const void* mt, void* y
   const ChainParams<T> p = parse_chain_params<T>(chain);
   if (!chain_params_ok(p)) return (int)cudaErrorInvalidValue;
   const ErrNorm<T> en{(const T*)w_row, (T)post, kind_max, 0, T(0), T(0)};
+  if (p.K0 > REG_K0) return run<T, KP_DYN>(p, en, g, dt, x, mt, y, err, B, D, stream);
   switch (p.KP) {
     case 1: return run<T, 1>(p, en, g, dt, x, mt, y, err, B, D, stream);
     case 2: return run<T, 2>(p, en, g, dt, x, mt, y, err, B, D, stream);

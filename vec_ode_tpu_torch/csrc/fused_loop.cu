@@ -145,20 +145,23 @@ struct RKLoopStep {
   }
 };
 
-// The chain step: the declared form sampled at the recipe's nodes, then
-// chain_step_tile over KP working terms, C chains of R exponentials.
+// The chain step: the declared form (CoeffForm or ChebForm) sampled at
+// the recipe's nodes, then chain_step_tile over KP working terms (its
+// k-outer body for KP == KP_DYN: K0 > 2, K' read at run time), C chains of
+// R exponentials.
 template <typename T, int KP>
 struct ChainLoopStep {
   const T* mt;
   ChainParams<T> p;
 
   __host__ __device__ size_t scratch_elems(int tile, int D) const {
-    return ChainSmem<T>::elems(tile, D, KP, p);
+    return ChainSmem<T>::elems(tile, D, kp_of<KP>(p), g_stride<KP>(p), p);
   }
   __device__ void operator()(const T* s_t, const T* s_dt, T* xs, T* ys, T* s_err, T* scratch,
                              int rows, int tile, int D, const ErrNorm<T>& en) const {
-    const ChainSmem<T> sm = ChainSmem<T>::carve(scratch, tile, D, KP, p);
-    sample_form(s_t, s_dt, sm, tile, p);
+    const ChainSmem<T> sm =
+        ChainSmem<T>::carve(scratch, tile, D, kp_of<KP>(p), g_stride<KP>(p), p);
+    sample_form<KP>(s_t, s_dt, sm, tile, p);
     __syncthreads();
     chain_step_tile<T, RT, KP>(s_dt, xs, ys, s_err, sm, rows, tile, D, mt, p, en);
   }
@@ -549,6 +552,14 @@ bool parse_extra(const void* const* ptr, const double* par, int n_grid, LoopExtr
   return true;
 }
 
+// The shared memory of a block of `tile` rows.
+template <typename T, class Step>
+size_t loop_smem(const Step& step, int tile, int D, bool extra) {
+  return (step.scratch_elems(tile, D) + 2 * (size_t)tile * D + (extra ? 4 : 3) * (size_t)tile) *
+             sizeof(T) +
+         tile * sizeof(int);
+}
+
 // Launches the loop kernel with `step` over tiles of `tile` rows.
 template <typename T, class Step, bool EXTRA>
 int run(const Step& step, int tile, const void* t_grid, int n_grid, const void* fs_in,
@@ -558,8 +569,7 @@ int run(const Step& step, int tile, const void* t_grid, int n_grid, const void* 
   static size_t smem_allowed[MAX_DEVICES];
   const int ncg = (D + CT - 1) / CT;
   const int items = (tile / RT) * ncg;
-  const size_t smem = (step.scratch_elems(tile, D) + 2 * (size_t)tile * D +
-                       (EXTRA ? 4 : 3) * (size_t)tile) * sizeof(T) + tile * sizeof(int);
+  const size_t smem = loop_smem<T>(step, tile, D, EXTRA);
   if (items > MAX_THREADS || smem > (size_t)max_smem) return (int)cudaErrorInvalidValue;
   const int threads = ((items > tile ? items : tile) + 31) / 32 * 32;
   if (smem > smem_allowed[dev]) {
@@ -628,23 +638,26 @@ int run_chain(const ChainParams<T>& p, const void* mt, int B, int D, const void*
               int iters, int adaptive, const LoopExtra<T>& ex, int dev, int max_smem, int n_sm,
               void* stream) {
   const ChainLoopStep<T, KP> step{(const T*)mt, p};
-  return run_any<T>(step, chain_tile<T>(B, D, n_sm, RT, MAX_THREADS), t_grid, n_grid, fs_in,
-                    ist_in, x_in, fs_out, ist_out, x_out, saves, B, D, en, ctl, iters, adaptive,
-                    ex, dev, max_smem, stream);
+  const int tile = chain_tile<T>(B, D, n_sm, RT, MAX_THREADS, (size_t)max_smem,
+                                 [&](int tl) { return loop_smem<T>(step, tl, D, true); });
+  return run_any<T>(step, tile, t_grid, n_grid, fs_in, ist_in, x_in, fs_out, ist_out, x_out,
+                    saves, B, D, en, ctl, iters, adaptive, ex, dev, max_smem, stream);
 }
 
 template <typename T>
 int launch_chain(const void* t_grid, int n_grid, const void* fs_in, const void* ist_in,
                  const void* x_in, void* fs_out, void* ist_out, void* x_out, void* saves, int B,
-                 int D, const void* mt, const double* chain, const void* w_row, double post,
-                 int kind_max, const double* c, int iters, int adaptive,
-                 const void* const* ex_ptr, const double* ex_par, void* stream) {
+                 int D, const void* mt, const double* chain, const void* cheb,
+                 const void* w_row, double post, int kind_max, const double* c, int iters,
+                 int adaptive, const void* const* ex_ptr, const double* ex_par, void* stream) {
   LoopExtra<T> ex;
   if (B <= 0 || D <= 0 || D > MAX_WIDTH || n_grid < 2 || iters < 0 ||
       !parse_extra<T>(ex_ptr, ex_par, n_grid, &ex))
     return (int)cudaErrorInvalidValue;
-  const ChainParams<T> p = parse_chain_params<T>(chain);
-  if (!chain_params_ok(p)) return (int)cudaErrorInvalidValue;
+  ChainParams<T> p = parse_chain_params<T>(chain);
+  p.cheb = (const T*)cheb;
+  if (!chain_params_ok(p) || (p.form_kind == FORM_CHEB && cheb == nullptr))
+    return (int)cudaErrorInvalidValue;
   int dev = 0, max_smem = 0, n_sm = 0;
   cudaError_t st = device_limits(&dev, &max_smem, &n_sm);
   if (st != cudaSuccess) return (int)st;
@@ -654,6 +667,7 @@ int launch_chain(const void* t_grid, int n_grid, const void* fs_in, const void* 
   return run_chain<T, KP_>(p, mt, B, D, t_grid, n_grid, fs_in, ist_in, x_in, fs_out, ist_out, \
                            x_out, saves, en, ctl, iters, adaptive, ex, dev, max_smem, n_sm,   \
                            stream)
+  if (p.K0 > REG_K0) VEC_ODE_RUN_CHAIN(KP_DYN);
   switch (p.KP) {
     case 1: VEC_ODE_RUN_CHAIN(1);
     case 2: VEC_ODE_RUN_CHAIN(2);
@@ -699,28 +713,29 @@ int vec_ode_fused_loop_f64(const void* t_grid, int n_grid, const void* fs_in, co
 
 // The same loop with the chain step: mt = [M_0^T | ... ] (D, KP*D), chain:
 // the float64 parameters of ops/expmv.py:chain_params with the declared
-// form.
+// form; cheb: a ChebForm's (K0, n) series in the state's type in device
+// memory (null for a CoeffForm).
 int vec_ode_fused_loop_chain_f32(const void* t_grid, int n_grid, const void* fs_in,
                                  const void* ist_in, const void* x_in, void* fs_out,
                                  void* ist_out, void* x_out, void* saves, int B, int D,
-                                 const void* mt, const double* chain, const void* w_row,
-                                 double post, int kind_max, const double* ctl, int iters,
-                                 int adaptive, const void* const* ex_ptr, const double* ex_par,
-                                 void* stream) {
+                                 const void* mt, const double* chain, const void* cheb,
+                                 const void* w_row, double post, int kind_max, const double* ctl,
+                                 int iters, int adaptive, const void* const* ex_ptr,
+                                 const double* ex_par, void* stream) {
   return launch_chain<float>(t_grid, n_grid, fs_in, ist_in, x_in, fs_out, ist_out, x_out, saves,
-                             B, D, mt, chain, w_row, post, kind_max, ctl, iters, adaptive,
+                             B, D, mt, chain, cheb, w_row, post, kind_max, ctl, iters, adaptive,
                              ex_ptr, ex_par, stream);
 }
 
 int vec_ode_fused_loop_chain_f64(const void* t_grid, int n_grid, const void* fs_in,
                                  const void* ist_in, const void* x_in, void* fs_out,
                                  void* ist_out, void* x_out, void* saves, int B, int D,
-                                 const void* mt, const double* chain, const void* w_row,
-                                 double post, int kind_max, const double* ctl, int iters,
-                                 int adaptive, const void* const* ex_ptr, const double* ex_par,
-                                 void* stream) {
+                                 const void* mt, const double* chain, const void* cheb,
+                                 const void* w_row, double post, int kind_max, const double* ctl,
+                                 int iters, int adaptive, const void* const* ex_ptr,
+                                 const double* ex_par, void* stream) {
   return launch_chain<double>(t_grid, n_grid, fs_in, ist_in, x_in, fs_out, ist_out, x_out, saves,
-                              B, D, mt, chain, w_row, post, kind_max, ctl, iters, adaptive,
+                              B, D, mt, chain, cheb, w_row, post, kind_max, ctl, iters, adaptive,
                               ex_ptr, ex_par, stream);
 }
 

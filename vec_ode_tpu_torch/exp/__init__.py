@@ -1,14 +1,17 @@
 """Exponential integrators, the counterpart of ``vec_ode_tpu/exp``: the
-modulated-operator fast path, and the generic steppers (Magnus, CFM, split
+modulated-operator fast path (with ``auto_modulated``, which recovers it
+from a black-box operator), and the generic steppers (Magnus, CFM, split
 solvers) over the split leaves."""
 
+from .auto import auto_modulated
 from .cfm import CFM, CFM4, CFM4_BLANES17, cfm_exp, cfm_step
 from .leaves import (AntiHermitianCplxSplit, AntiHermitianSplit,
                      DenseCplxSplit, DenseSplit, DiagonalCplxSplit,
                      DiagonalSplit)
 from .magnus import (ExpMidpoint, Magnus4, Magnus6, magnus4_step,
                      magnus6_step, midpoint_step)
-from .modulated import (CFM4Modulated, CFMModulated, CfmTable, CoeffForm,
+from .modulated import (CFM4Modulated, CFMModulated, CfmTable, ChebForm,
+                        CoeffForm,
                         MagnusModulated4, MagnusModulated6,
                         MidpointModulated, ModulatedOperator,
                         modulated_exp_apply)
@@ -25,6 +28,7 @@ __all__ = [
     "CFM4Modulated",
     "CFMModulated",
     "CfmTable",
+    "ChebForm",
     "CoeffForm",
     "DenseCplxSplit",
     "DenseSplit",
@@ -43,6 +47,7 @@ __all__ = [
     "cfm_exp",
     "cfm_step",
     "index_u",
+    "auto_modulated",
     "magnus4_step",
     "magnus6_step",
     "midpoint_step",

@@ -10,8 +10,9 @@ every term is one shared (B, D) @ (D, K'D) product
 (``ops/expmv.py``).
 
 * :class:`ModulatedOperator`: the basis, the coefficient function
-  ``coeff_fn`` and optionally its declared form (``CoeffForm``), which the
-  whole-loop kernel samples in-kernel.
+  ``coeff_fn`` and optionally its declared form (``CoeffForm``, or the
+  ``ChebForm`` that ``exp.auto_modulated`` fits), which the whole-loop
+  kernel samples in-kernel.
 * :class:`MidpointModulated` (exponential midpoint, fixed steps),
   :class:`MagnusModulated4` (Magnus-4 with its order-2 comparison chain,
   or ``fast_error``), :class:`MagnusModulated6` (the Yoshida triple jump
@@ -34,21 +35,21 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Optional, Union
 
 import torch
 
 from .. import lc
 from .. import tableaus as tb
 from ..ops.cplx import Cplx, cmatmul, embed
-from ..ops.expmv import (CfmTable, CoeffForm, basis_norms, fused_chain_apply,
-                         has_error_estimate, n_working_terms, node_times,
-                         pairs_of, scale_rows, stacked_transpose,
-                         torch_chain_expmv)
+from ..ops.expmv import (CfmTable, ChebForm, CoeffForm, basis_norms,
+                         fused_chain_apply, has_error_estimate,
+                         n_working_terms, node_times, pairs_of, scale_rows,
+                         stacked_transpose, torch_chain_expmv)
 
-__all__ = ["ModulatedOperator", "CoeffForm", "CfmTable", "MidpointModulated",
-           "MagnusModulated4", "MagnusModulated6", "CFMModulated",
-           "CFM4Modulated", "modulated_exp_apply"]
+__all__ = ["ModulatedOperator", "CoeffForm", "ChebForm", "CfmTable",
+           "MidpointModulated", "MagnusModulated4", "MagnusModulated6",
+           "CFMModulated", "CFM4Modulated", "modulated_exp_apply"]
 
 # Taylor-action (degree, theta) per dtype (exp/modulated.py:53): the
 # smallest degree whose remainder |e^t - T_m(t)| at |t| <= theta sits well
@@ -103,7 +104,8 @@ class ModulatedOperator:
     ``basis``: a Cplx of (K, d, d) (real-pair complex) or a real (K, D, D)
     tensor. ``coeff_fn``: t (...,) -> (..., K) REAL coefficients (complex
     structure belongs in the basis, e.g. M = -i H). ``form``: the declared
-    :class:`~vec_ode_tpu_torch.ops.expmv.CoeffForm` of ``coeff_fn``, which
+    :class:`~vec_ode_tpu_torch.ops.expmv.CoeffForm` or
+    :class:`~vec_ode_tpu_torch.ops.expmv.ChebForm` of ``coeff_fn``, which
     the whole-loop kernel samples in-kernel (the JAX package's
     ``coeff_cols_fn``); None leaves the per-step path. ``ext_basis``: the
     commutator-extended working basis (K + K(K-1)/2, D, D) when it was
@@ -112,7 +114,7 @@ class ModulatedOperator:
 
     basis: Any
     coeff_fn: Callable
-    form: Optional[CoeffForm] = None
+    form: Optional[Union[CoeffForm, ChebForm]] = None
     ext_basis: Optional[torch.Tensor] = None
 
     @property

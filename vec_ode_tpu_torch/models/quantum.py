@@ -12,6 +12,20 @@ import numpy as np
 import torch
 
 
+def _time_on(t, device, model: str) -> torch.Tensor:
+    """A time on ``device``: a python number is created there as float64;
+    a tensor must already lie there."""
+    device = torch.device(device)
+    if not isinstance(t, torch.Tensor):
+        return torch.tensor(t, dtype=torch.float64, device=device)
+    if t.device.type != device.type or (
+            device.index is not None and t.device.index != device.index):
+        raise ValueError(
+            f"{model}: t lies on {t.device}, the operator was asked for on "
+            f"{device}; pass device={str(t.device)!r}")
+    return t
+
+
 @dataclasses.dataclass(frozen=True)
 class LandauZener:
     """2-level avoided crossing: H(t) = (v t) sigma_z / 2 + (delta / 2)
@@ -22,11 +36,34 @@ class LandauZener:
     delta: float = 0.5  # gap
 
     def hamiltonian(self, t) -> torch.Tensor:
-        """H(t) as a complex128 tensor (..., 2, 2)."""
-        sz = torch.tensor([[0.5, 0.0], [0.0, -0.5]], dtype=torch.complex128)
-        sx = torch.tensor([[0.0, 0.5], [0.5, 0.0]], dtype=torch.complex128)
-        td = torch.as_tensor(t, dtype=torch.float64)[..., None, None]
-        return (self.v * td) * sz + self.delta * sx
+        """H(t) as a complex128 tensor (..., 2, 2), where t lies (a python
+        time on the CPU)."""
+        td = torch.as_tensor(t, dtype=torch.float64)
+        sz = torch.tensor([[0.5, 0.0], [0.0, -0.5]], dtype=torch.complex128,
+                          device=td.device)
+        sx = torch.tensor([[0.0, 0.5], [0.5, 0.0]], dtype=torch.complex128,
+                          device=td.device)
+        return (self.v * td[..., None, None]) * sz + self.delta * sx
+
+    def op(self, t, device="cuda") -> torch.Tensor:
+        """A(t) = -i H(t), complex128, on the card unless ``device`` names
+        another."""
+        return -1j * self.hamiltonian(_time_on(t, device, "LandauZener"))
+
+    def op_pair(self, t, dtype=torch.float32, device="cuda"):
+        """A(t) = -i H(t) as a Cplx pair, (0, -H) since H = v t sz + delta sx
+        is real, in the JAX package's order ((t v) sz + delta sx, t taken in
+        ``dtype``), on the card unless ``device`` names another. Callable
+        under ``torch.func.vmap``: a black-box ``op_fn``."""
+        from ..ops.cplx import Cplx
+
+        t = _time_on(t, device, "LandauZener")
+        sz = torch.tensor([[0.5, 0.0], [0.0, -0.5]], dtype=dtype,
+                          device=t.device)
+        sx = torch.tensor([[0.0, 0.5], [0.5, 0.0]], dtype=dtype,
+                          device=t.device)
+        H = t.to(dtype) * self.v * sz + self.delta * sx
+        return Cplx(torch.zeros_like(H), -H)
 
     @property
     def p_transition(self) -> float:
@@ -74,25 +111,11 @@ class DrivenDense:
         V = (N + N.conj().T) / (2 * math.sqrt(d))
         return DrivenDense(H0=H0, V=V, w=w)
 
-    @staticmethod
-    def _time_on(t, device) -> torch.Tensor:
-        """A time on ``device``: a python number is created there as
-        float64; a tensor must already lie there."""
-        device = torch.device(device)
-        if not isinstance(t, torch.Tensor):
-            return torch.tensor(t, dtype=torch.float64, device=device)
-        if t.device.type != device.type or (
-                device.index is not None and t.device.index != device.index):
-            raise ValueError(
-                f"DrivenDense: t lies on {t.device}, the operator was asked "
-                f"for on {device}; pass device={str(t.device)!r}")
-        return t
-
     def hamiltonian(self, t, dtype=torch.complex128,
                     device="cuda") -> torch.Tensor:
         """H(t) = H0 + cos(w t) V as a complex tensor, the cosine taken in
         float64, on the card unless ``device`` names another."""
-        td = self._time_on(t, device).to(torch.float64)
+        td = _time_on(t, device, "DrivenDense").to(torch.float64)
         c = torch.cos(self.w * td).to(dtype)
         return (torch.as_tensor(self.H0, dtype=dtype, device=td.device)
                 + c * torch.as_tensor(self.V, dtype=dtype, device=td.device))
@@ -118,7 +141,7 @@ class DrivenDense:
         stay there."""
         from ..convert import driven_op_from_numpy
 
-        t = self._time_on(t, device)
+        t = _time_on(t, device, "DrivenDense")
         key = (dtype, t.device)
         if key not in self._op_fns:
             self._op_fns[key] = driven_op_from_numpy(

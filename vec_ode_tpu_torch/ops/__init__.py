@@ -7,11 +7,13 @@ from .cplx import (Cplx, apply_embedded, cabs2, cconj, cexp, cexpm, cexpm1,
 from .dense_chains import (ChainTable, Exponent, fused_dense_chain_apply,
                            torch_dense_chains)
 from .expm import expm, expm_apply, expm_frechet, expm_m1
-from .expmv import CoeffForm, fused_chain_apply, torch_chain_step
+from .expmv import (ChebForm, CoeffForm, fused_chain_apply,
+                    torch_chain_step)
 from .fused_rk import FusedModulatedLinearRK, fused_rk_step, torch_rk_step
 
 __all__ = [
     "ChainTable",
+    "ChebForm",
     "CoeffForm",
     "Cplx",
     "Exponent",

@@ -208,7 +208,9 @@ def _check(kernel: str, x, mats: dict, norms, rows, n_rows: int) -> int:
     if not 1 <= D <= MAX_WIDTH or not 1 <= Kp <= MAX_KP:
         raise ValueError(
             f"{kernel}: the kernel takes a state width D <= {MAX_WIDTH} and "
-            f"1 to {MAX_KP} basis terms, got D = {D}, K' = {Kp}")
+            f"1 to {MAX_KP} basis terms, got D = {D}, K' = {Kp} (K' > "
+            f"{MAX_KP}, an operator of four or more terms at order 4, is "
+            "ROADMAP queue 2's 'K6, K' > 6')")
     if rows.shape != (n_rows, Kp):
         raise ValueError(f"{kernel}: the rows must be ({n_rows}, {Kp}), got "
                          f"{tuple(rows.shape)}")

@@ -8,8 +8,10 @@ exponentials per chain, C <= 2 chains), by scaling and a degree-m Taylor
 chain whose every term is one (B, D) @ (D, K'D) product with the stacked
 basis.
 
-* :class:`CoeffForm` declares the coefficient functions a kernel samples
-  in-kernel: c_k(t) = a_k + b_k t + c_k cos(w_k t).
+* :class:`CoeffForm` and :class:`ChebForm` declare the coefficient
+  functions a kernel samples in-kernel: c_k(t) = a_k + b_k t + c_k
+  cos(w_k t), or a Chebyshev series on [lo, hi] (the fit of
+  ``exp.auto_modulated``).
 * :func:`chain_rows` is the declared row recipe that the kernels build
   from raw inputs (node samples and dt) where the JAX package passes a
   ``cols_builder`` callback: ``"midpoint"``, ``"magnus4"`` (C = 2: the
@@ -61,14 +63,18 @@ _SUB_LEN = (_G1, 1.0 - 2.0 * _G1, _G1)
 
 RECIPES = {"midpoint": 0, "magnus4": 1, "magnus4_fast": 2, "magnus6": 3,
            "cfm": 4}
-# the kernels' limits (csrc/chain_step.cuh): at most MAX_K0 basis terms, so
-# a working basis of at most 3 terms (K0, plus their K0 (K0 - 1) / 2
-# commutators for the Magnus recipes; both models have two), at most
-# MAX_R exponentials per chain and MAX_NODES quadrature nodes per step
-# (BLANES17_R4_J4 has 4 rows; MAGNUS6 samples 8 nodes)
-MAX_K0 = 2
+# the kernels' limits (csrc/chain_step.cuh): at most MAX_K0 basis terms
+# (exp.auto_modulated's default k_max), so a working basis of at most
+# MAX_KP = 36 terms (K0, plus their K0 (K0 - 1) / 2 commutators for the
+# Magnus recipes), at most MAX_R exponentials per chain and MAX_NODES
+# quadrature nodes per step (BLANES17_R4_J4 has 4 rows; MAGNUS6 samples 8
+# nodes)
+MAX_K0 = 8
+MAX_KP = MAX_K0 + MAX_K0 * (MAX_K0 - 1) // 2
 MAX_R = 4
 MAX_NODES = 8
+# the declared forms, as the kernels' form_kind reads them
+FORMS = {"coeff": 0, "cheb": 1}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,6 +123,71 @@ class CoeffForm:
         """(a_k, b_k, c_k, w_k) per term, flat, as the kernels read it."""
         return [v for k in range(self.n_terms)
                 for v in (self.a[k], self.b[k], self.c[k], self.w[k])]
+
+
+@dataclasses.dataclass(frozen=True)
+class ChebForm:
+    """Declared coefficient functions as Chebyshev series on [lo, hi]:
+    c_k(t) = sum_j series[j][k] T_j(u), u = (2 t - (lo + hi)) / (hi - lo),
+    the port of ``exp/auto.py``'s ``coeff_cols_fn`` (the fit of
+    ``exp.auto_modulated``), which a kernel samples in-kernel. ``series``
+    is (n, K) float64 (numpy ``chebfit``'s layout). :meth:`sample` runs
+    JAX's Clenshaw in its order, in t's type: u = (2 t - (lo + hi)) *
+    (1 / (hi - lo)) with lo + hi and 1 / (hi - lo) folded in float64 and
+    rounded once; then per term b1, b2 = ((2 u) b1 - b2) + c_j, b1 for j =
+    n - 1 .. 1 and c_k = (u b1 - b2) + c_0, every coefficient rounded once
+    from float64. No term is skipped (u 0 still carries a NaN). The series
+    is valid on [lo, hi] only."""
+
+    series: tuple
+    lo: float
+    hi: float
+
+    def __post_init__(self):
+        a = np.asarray(self.series, np.float64)
+        if a.ndim != 2 or a.shape[0] < 1 or a.shape[1] < 1:
+            raise ValueError("ChebForm: series must be (n, K) with n, K >= "
+                             f"1, got shape {a.shape}")
+        lo, hi = float(self.lo), float(self.hi)
+        if not (math.isfinite(lo) and math.isfinite(hi)) or lo == hi:
+            raise ValueError(f"ChebForm: [lo, hi] must be a finite interval,"
+                             f" got [{lo}, {hi}]")
+        object.__setattr__(self, "series",
+                           tuple(tuple(float(v) for v in row) for row in a))
+        object.__setattr__(self, "lo", lo)
+        object.__setattr__(self, "hi", hi)
+
+    @property
+    def n_terms(self) -> int:
+        return len(self.series[0])
+
+    @property
+    def n_coeffs(self) -> int:
+        """n: the series' length per term."""
+        return len(self.series)
+
+    def folded(self) -> tuple:
+        """(lo + hi, 1 / (hi - lo)) in float64, as the kernels read them."""
+        return self.lo + self.hi, 1.0 / (self.hi - self.lo)
+
+    def sample(self, t: torch.Tensor) -> torch.Tensor:
+        """The coefficients at times ``t`` (...,): a (..., K) tensor in t's
+        type."""
+        mid, inv = self.folded()
+        coef = torch.tensor(self.series, dtype=torch.float64).to(
+            device=t.device, dtype=t.dtype)
+        u = ((2.0 * t - t.new_tensor(mid)) * t.new_tensor(inv))[..., None]
+        u2 = 2.0 * u
+        b1 = b2 = torch.zeros_like(u)
+        for j in range(self.n_coeffs - 1, 0, -1):
+            b1, b2 = (u2 * b1 - b2) + coef[j], b1
+        return (u * b1 - b2) + coef[0]
+
+    def kernel_table(self, dtype, device) -> torch.Tensor:
+        """The series as the loop kernel reads it: (K, n) contiguous in
+        ``dtype`` on ``device``, each coefficient rounded once."""
+        return torch.tensor(self.series, dtype=torch.float64).T.to(
+            device=device, dtype=dtype).contiguous()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -443,27 +514,35 @@ def _kernel_lib() -> ctypes.CDLL:
     return lib
 
 
-# the layout of the parameter array (parse_chain_params in
-# csrc/chain_step.cuh): 12 header values, then fixed-size blocks
-_P_NORMS, _P_SUB, _P_NODES, _P_ALPHA, _P_ALPHA_ERR, _P_FORM = (
-    12, 15, 24, 32, 32 + MAX_R * MAX_NODES, 32 + 2 * MAX_R * MAX_NODES)
+# the layout of the parameter array (parse_chain_params and the P_*
+# offsets in csrc/chain_step.cuh): 16 header values, then fixed-size blocks
+_P_NORMS = 16
+_P_SUB = _P_NORMS + MAX_KP
+_P_NODES = _P_SUB + 9
+_P_ALPHA = _P_NODES + MAX_NODES
+_P_ALPHA_ERR = _P_ALPHA + MAX_R * MAX_NODES
+_P_FORM = _P_ALPHA_ERR + MAX_R * MAX_NODES
 _P_LEN = _P_FORM + 4 * MAX_K0
 
 
 def chain_params(recipe: str, C: int, K0: int, Kp: int, m: int,
                  theta: float, max_squarings: int, norms: Sequence[float],
-                 form: Optional[CoeffForm] = None,
-                 table: Optional[CfmTable] = None):
+                 form=None, table: Optional[CfmTable] = None):
     """The chain step's parameters as the kernels read them (``ChainParams``
     in csrc/chain_step.cuh): float64 values in host memory, the Python
     constants of the node and row arithmetic folded here in f64 (the
     kernels round each once to the state's type, as the JAX package's
-    weak-typed constants are)."""
+    weak-typed constants are). ``form``: a :class:`CoeffForm` (its four
+    values per term), a :class:`ChebForm` (its kind, length and folded
+    interval; the series itself goes to the loop kernel as a device
+    table) or None (the per-step kernel samples nothing)."""
     R = n_rows(recipe, table)
     vals = [0.0] * _P_LEN
     vals[:12] = [K0, Kp, RECIPES[recipe], C, R, n_nodes(recipe, C, table),
                  m, max_squarings, theta, _C_MID, _B2,
                  0 if table is None else table.n_err]
+    if isinstance(form, ChebForm):
+        vals[12:16] = [FORMS["cheb"], form.n_coeffs, *form.folded()]
     vals[_P_NORMS:_P_NORMS + len(norms)] = norms
     for i, (off, ln) in enumerate(zip(_SUB_OFF, _SUB_LEN)):
         vals[_P_SUB + 3 * i:_P_SUB + 3 * i + 3] = [off + 0.5 * ln,
@@ -474,7 +553,7 @@ def chain_params(recipe: str, C: int, K0: int, Kp: int, m: int,
                         (_P_ALPHA_ERR, table.alpha_err or ())):
             for i, row in enumerate(mat):
                 vals[at + i * MAX_NODES:at + i * MAX_NODES + len(row)] = row
-    if form is not None:
+    if isinstance(form, CoeffForm):
         vals[_P_FORM:_P_FORM + 4 * form.n_terms] = form.kernel_array()
     return (ctypes.c_double * _P_LEN)(*vals)
 
@@ -540,7 +619,7 @@ def fused_chain_apply(samples, dt, xw, mt, norms, *, recipe: str, C: int,
     error estimate.
 
     CUDA tensors go to the kernel (float32 or float64, D <= 512, at most
-    2 basis terms, 4 exponentials per chain and 8 nodes); anything else it
+    8 basis terms, 4 exponentials per chain and 8 nodes); anything else it
     does not take raises. CPU tensors run :func:`torch_chain_step`."""
     check_recipe(recipe, C, table)
     want = n_nodes(recipe, C, table)

@@ -16,7 +16,7 @@ of trajectories runs until none of its rows is RUNNING) or chunked
   :class:`ChainStep`, the chain-exponential step of the modulated
   exponential steppers (``csrc/chain_step.cuh``, shared with the per-step
   kernel K4), whose coefficients the kernel samples from a declared
-  ``CoeffForm`` at its quadrature nodes.
+  ``CoeffForm`` or ``ChebForm`` at its quadrature nodes.
 * :func:`fused_loop_chunk` is the kernel's wrapper; for CPU tensors it
   runs :func:`torch_fused_loop`, for CUDA tensors it launches or raises.
   ``fused_loop_chunk.launches`` counts the launches.
@@ -49,7 +49,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 
@@ -60,8 +60,9 @@ from ..driver import (DONE, DONE_EVENT, ERR_BAD_GRID, ERR_MAX_STEPS,
 from ..events import KernelEvents
 from ..tableaus import RKF45, ButcherTableau
 from . import _build
-from .expmv import (CfmTable, CoeffForm, chain_params, check_chain_operands,
-                    has_error_estimate, node_times, torch_chain_step)
+from .expmv import (CfmTable, ChebForm, CoeffForm, chain_params,
+                    check_chain_operands, has_error_estimate, node_times,
+                    torch_chain_step)
 from .fused_rk import (check_kernel_inputs, kernel_norm_args,
                        kernel_operands, torch_rk_step, wnorm_on)
 
@@ -109,7 +110,9 @@ class RKStep:
 class ChainStep:
     """The chain-exponential step the loop kernel runs (the counterpart of
     ``pallas_loop.make_chain_step_builder``, K5): the coefficients
-    ``form`` sampled at the quadrature nodes of ``recipe``
+    ``form`` (a :class:`~.expmv.CoeffForm` or :class:`~.expmv.ChebForm`,
+    whose series is put beside ``mt`` once) sampled at the quadrature
+    nodes of ``recipe``
     (``ops/expmv.node_times``; ``table`` the :class:`~.expmv.CfmTable` of
     the ``"cfm"`` recipe), the recipe's C chains of R coefficient rows
     over the working basis (stacked as ``mt`` = [M_0^T | ... ], (D, K'D),
@@ -120,7 +123,7 @@ class ChainStep:
 
     mt: torch.Tensor        # (D, K'D), in the state's type and device
     norms: tuple            # K' floats (ops/expmv.basis_norms)
-    form: CoeffForm
+    form: Union[CoeffForm, ChebForm]
     recipe: str
     C: int
     m: int
@@ -129,6 +132,11 @@ class ChainStep:
     scaled: Optional[tuple] = None
     wnorm: Optional[tuple] = None
     table: Optional[CfmTable] = None
+
+    def __post_init__(self):
+        object.__setattr__(
+            self, "cheb", self.form.kernel_table(self.mt.dtype, self.mt.device)
+            if isinstance(self.form, ChebForm) else None)
 
     def plain(self, t, dt, xw):
         """The step in plain torch (``torch_chain_step``)."""
@@ -436,7 +444,7 @@ def _kernel_lib() -> ctypes.CDLL:
                lib.vec_ode_fused_loop_chain_f64):
         fn.restype = ci
         fn.argtypes = [vp, ci, vp, vp, vp, vp, vp, vp, vp, ci, ci, vp, pd,
-                       vp, cd, ci, pd, ci, ci, pv, pd, vp]
+                       vp, vp, cd, ci, pd, ci, ci, pv, pd, vp]
     return lib
 
 
@@ -561,7 +569,7 @@ def fused_loop_chunk(t_grid, fs, ist, x, saves, step, *, ctl: StepControl,
 
     CUDA tensors go to the kernel (float32 or float64, D <= 512,
     contiguous carries; RK tableaus of at most 7 stages, chain steps over
-    at most 2 basis terms, 4 exponentials per chain and 8 nodes; any
+    at most 8 basis terms, 4 exponentials per chain and 8 nodes; any
     number of events and dense times); anything else it does not take
     raises. CPU tensors run :func:`torch_fused_loop`.
     """
@@ -601,7 +609,8 @@ def fused_loop_chunk(t_grid, fs, ist, x, saves, step, *, ctl: StepControl,
         step_args = (step.mt.data_ptr(),
                      chain_params(step.recipe, step.C, K0, Kp, step.m,
                                   step.theta, step.max_squarings, step.norms,
-                                  step.form, step.table))
+                                  step.form, step.table),
+                     None if step.cheb is None else step.cheb.data_ptr())
     _check_carries(t_grid, fs, ist, x, saves)
     ex_ptrs, ex_par, keep = _extra_args(events, ev, dense, x)
     fs_out, ist_out, x_out = (torch.empty_like(a) for a in (fs, ist, x))

@@ -252,6 +252,34 @@ C_GAUSS_LEGENDRE_6 = np.array(
     dtype=np.float64,
 )
 
+# Gauss-Legendre nodes and weights on [0, 1] by point count (quad.py's table;
+# copies of vec_ode_tpu/quad.py:25-60).
+_S65 = math.sqrt(6.0 / 5.0)
+_S107 = math.sqrt(10.0 / 7.0)
+GAUSS_LEGENDRE = {
+    1: (np.array([0.5]), np.array([1.0])),
+    2: (C_GAUSS_LEGENDRE_4, np.array([0.5, 0.5])),
+    3: (C_GAUSS_LEGENDRE_6, np.array([5.0 / 18.0, 4.0 / 9.0, 5.0 / 18.0])),
+    4: (np.array([0.5 - 0.5 * math.sqrt(3.0 / 7.0 + 2.0 / 7.0 * _S65),
+                  0.5 - 0.5 * math.sqrt(3.0 / 7.0 - 2.0 / 7.0 * _S65),
+                  0.5 + 0.5 * math.sqrt(3.0 / 7.0 - 2.0 / 7.0 * _S65),
+                  0.5 + 0.5 * math.sqrt(3.0 / 7.0 + 2.0 / 7.0 * _S65)]),
+        np.array([(18.0 - math.sqrt(30.0)) / 72.0,
+                  (18.0 + math.sqrt(30.0)) / 72.0,
+                  (18.0 + math.sqrt(30.0)) / 72.0,
+                  (18.0 - math.sqrt(30.0)) / 72.0])),
+    5: (np.array([0.5 - 0.5 / 3.0 * math.sqrt(5.0 + 2.0 * _S107),
+                  0.5 - 0.5 / 3.0 * math.sqrt(5.0 - 2.0 * _S107),
+                  0.5,
+                  0.5 + 0.5 / 3.0 * math.sqrt(5.0 - 2.0 * _S107),
+                  0.5 + 0.5 / 3.0 * math.sqrt(5.0 + 2.0 * _S107)]),
+        np.array([(322.0 - 13.0 * math.sqrt(70.0)) / 1800.0,
+                  (322.0 + 13.0 * math.sqrt(70.0)) / 1800.0,
+                  128.0 / 450.0,
+                  (322.0 + 13.0 * math.sqrt(70.0)) / 1800.0,
+                  (322.0 - 13.0 * math.sqrt(70.0)) / 1800.0])),
+}
+
 # --- Commutator-free Magnus coefficient matrices -------------------------------
 # Rows = exponentials, columns = Gauss-Legendre samples of A(t).
 CFM_R2_J1_GL = np.array([[0.5, 0.5]], dtype=np.float64)               # 1 exp, order 2
