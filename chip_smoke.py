@@ -62,8 +62,9 @@ drives the port's paths once at full width through
   and an eight-term drive in one loop solve ([k0]).
 
 Then it times the paths and each kernel against its plain version, its
-bound and, for K4 (also at K' = 6 and 36), K6-K8 and K9, a library
-yardstick. Every phase raises on failure, so
+bound and, for K4 (also at K' = 6 and 36, with the many-term body's
+masked share of passes), K6-K8 (at 256 and 4096; K7 with its launch
+shape) and K9, a library yardstick. Every phase raises on failure, so
 any failure exits non-zero; without a CUDA card it exits non-zero before
 any result.
 
@@ -191,7 +192,10 @@ def ptxas_summary(name: str) -> str:
                 inst = f"{m.group(1)} {inst}" + (" wide" if "Lb1E" in
                                                  m.group(3) else "")
             kp = re.match(r"(?:\w*ChainLoopStepI[fd])?Li(\d+)E", m.group(3))
-            if "RKLoopStep" in m.group(3):
+            if m.group(1).endswith("gemm"):  # K4's many-term body, K7
+                inst += (" K0>2 many-term" if name == "chain_expmv" else "")
+                inst += f" RM={kp.group(1)}"
+            elif "RKLoopStep" in m.group(3):
                 inst += " rk"
             elif kp:  # KP 0: the k-outer body, K0 > 2, K' at run time
                 inst += " K0>2" if kp.group(1) == "0" else f" KP={kp.group(1)}"
@@ -206,6 +210,11 @@ def ptxas_summary(name: str) -> str:
             out.append(f"{inst} {m.group(1)} registers, {spill} B spilled")
             inst = None
     return "; ".join(out)
+
+
+def ptxas_of(name: str, key: str) -> str:
+    """The ptxas_summary items of library ``name`` that contain ``key``."""
+    return "; ".join(v for v in ptxas_summary(name).split("; ") if key in v)
 
 
 def build_phase(card: str) -> None:
@@ -1151,6 +1160,27 @@ def passes_needed(st, samples, dt) -> list:
     return work_passes(rows, n_pass, st._recipe, st._chains)
 
 
+# K4's rows per block at 16384 x 128 in the k-outer body, which K4 ran for
+# K0 > 2 before its many-term body (chain_step.cuh:chain_tile)
+KOUTER_TILE = 32
+
+
+def block_passes(st, samples, dt, tile: int) -> int:
+    """Trajectory-row Taylor passes that blocks of ``tile`` rows run: per
+    block and (chain, row) its slowest row's count, for every row of the
+    block (the rows that have finished compute masked); the declared
+    identity rows skipped."""
+    mt, norms, m, theta = chain_operands(st, dt.dtype)
+    rows = expmv.chain_rows(st._recipe, samples, dt, st._chains, st._table)
+    _, n_pass = expmv.scale_rows(rows, norms, theta, st.max_squarings)
+    for c, r in expmv.identity_rows(st._recipe, st._chains):
+        n_pass[:, c, r] = 0
+    pad = (-n_pass.shape[0]) % tile
+    n_pass = torch.cat([n_pass, n_pass.new_zeros((pad,) + n_pass.shape[1:])])
+    blocks = n_pass.reshape(-1, tile, *n_pass.shape[1:]).amax(1)
+    return int(blocks.sum()) * tile
+
+
 def chain_library(st, samples, dt, xw, n_lib=4096):
     """The library yardstick of one K4 step: torch.linalg.matrix_exp of
     the assembled (D, D) exponents of every row the step runs (the
@@ -1218,6 +1248,23 @@ def time_k4(st, B, label, card, dt_range=(1e-3, 5e-2)):
     b_ms, b_by = bound(flop, nbytes)
     b0_ms, _ = bound(chain_flops(passes, D, m, st._recipe, K0,
                                  zero_columns=True), nbytes)
+    body = ""
+    if K0 > 2:  # the many-term body: its tile, masked passes, registers
+        props = torch.cuda.get_device_properties(0)
+        tile = expmv.gemm_tile(
+            B, D, 4, st._recipe, st._chains, K0, st._table,
+            n_sm=props.multi_processor_count,
+            max_smem=getattr(props, "shared_memory_per_block_optin", 232448))
+        need = int(sum(passes))
+        shares = {t: block_passes(st, samples, dt, t)
+                  for t in (KOUTER_TILE, tile)}
+        smem = expmv.gemm_smem_bytes(tile, D, 4, st._recipe, st._chains, K0,
+                                     st._table)
+        body = (f"; many-term body: {tile} rows a block, {smem} B of shared "
+                f"memory, ptxas {ptxas_of('chain_expmv', 'many-term')}; "
+                f"trajectory-row passes needed {need}, run by blocks of "
+                + ", ".join(f"{t} rows {n} ({1 - need / n:.1%} masked)"
+                            for t, n in shares.items()))
     print(f"[time] K4 one {label} step at B={B}, d={DIM}, f32 (R="
           f"{expmv.n_rows(st._recipe, st._table)}; Taylor passes over rows "
           f"that need work, per chain {passes}): kernel {k_ms:.4f} ms "
@@ -1229,7 +1276,7 @@ def time_k4(st, B, label, card, dt_range=(1e-3, 5e-2)):
           f"{[round(v, 4) for v in l_runs]}; bound {b_ms:.4f} ms by {b_by} "
           f"({flop / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB; "
           f"{b0_ms:.4f} ms counting the zero columns), kernel at "
-          f"{b_ms / k_ms:.1%} of it ({card})", flush=True)
+          f"{b_ms / k_ms:.1%} of it{body} ({card})", flush=True)
     return k_ms, p_ms, b_ms, b_by, l_ms
 
 
@@ -2397,23 +2444,30 @@ def adj_library(W, c_all, x, a, reverse: bool, per_lane: bool = False):
     """The library yardstick: matrix_exp of the exponents M = sum_k c_k W_k
     and products with the states; in reverse also matrix_exp of -M and of
     M^T and of the (2D)-wide blocks [[M, W_k], [0, M]] for the Fréchet
-    terms. ``per_lane``: one exponent per trajectory (K6's rows)."""
+    terms. ``per_lane``: one exponent per trajectory (K6's rows).
+    matrix_exp takes at most 4096 matrices a call (chain_library)."""
     M = torch.einsum("rk,kij->rij", c_all, W)
     D = W.shape[1]
+
+    def expm(a):
+        flat = a.reshape(-1, *a.shape[-2:])
+        return torch.cat([torch.linalg.matrix_exp(v) for v in
+                          flat.split(4096)]).reshape(a.shape)
+
     if not reverse:
-        U = torch.linalg.matrix_exp(M)
+        U = expm(M)
         for r in range(M.shape[0]):
             x = x @ U[r].T
         return x
     Kp = W.shape[0]
-    Ui = torch.linalg.matrix_exp(-M)
-    Ut = torch.linalg.matrix_exp(M.transpose(-1, -2))
+    Ui = expm(-M)
+    Ut = expm(M.transpose(-1, -2))
     blk = torch.zeros(M.shape[0], Kp, 2 * D, 2 * D, dtype=M.dtype,
                       device=M.device)
     blk[:, :, :D, :D] = M[:, None]
     blk[:, :, D:, D:] = M[:, None]
     blk[:, :, :D, D:] = W
-    F = torch.linalg.matrix_exp(blk)[:, :, :D, D:]
+    F = expm(blk)[:, :, :D, D:]
     if per_lane:
         xn = torch.bmm(Ui, x[:, :, None])[:, :, 0]
         an = torch.bmm(Ut, a[:, :, None])[:, :, 0]
@@ -2425,6 +2479,17 @@ def adj_library(W, c_all, x, a, reverse: bool, per_lane: bool = False):
         cb.append(torch.einsum("kij,bj,bi->k", F[r], x, a))
         a = a @ Ut[r].T
     return a, torch.stack(cb[::-1])
+
+
+def k7_shape(x, B: int) -> str:
+    """K7's launch shape at B (ops/adjoint.py:sweep_plan on this card) and
+    its ptxas lines."""
+    props = torch.cuda.get_device_properties(0)
+    shape = tadj.sweep_plan(
+        B, x.shape[1], 4, n_sm=props.multi_processor_count,
+        max_smem=getattr(props, "shared_memory_per_block_optin", 232448))
+    return (f"; shape {shape}, ptxas "
+            f"{ptxas_of('adjoint', 'adjoint_sweep_gemm f32')}")
 
 
 def adj_timing_at(B: int, card: str, basis_f32, c_all, ts):
@@ -2481,28 +2546,29 @@ def adj_timing_at(B: int, card: str, basis_f32, c_all, ts):
                 lambda: adj_library(W, c_lane[-1], x, a, True,
                                     per_lane=True)), n_it),
     }
-    with_lib = B <= ADJ_B
+    # the plain twins at the path's batch; the library at both (above it
+    # K6's per launch on the replay's first row, not the whole replay)
+    with_plain = B <= ADJ_B
     out = {}
     for name, (kern, plain, lib, first, n_launch) in cases.items():
         kern_1, lib_1 = first or (kern, lib)
         got = kern_1()
-        d_lib = None
-        if with_lib:
-            lb = lib_1()
-            lb = (lb,) if name == "K7" else lb
-            gk = (got,) if name == "K7" else got
-            d_lib = max(rel(u, v) for u, v in zip(gk, lb))
-            assert d_lib <= 1e-3, (name, d_lib)
+        lb = lib_1()
+        lb = (lb,) if name == "K7" else lb
+        gk = (got,) if name == "K7" else got
+        d_lib = max(rel(u, v) for u, v in zip(gk, lb))
+        assert d_lib <= 1e-3, (name, d_lib)
         torch.cuda.synchronize()
+        lib_t, lib_n = (lib, n_launch) if with_plain else (lib_1, 1)
         runs = {"kernel": [], "plain": [], "library": []}
         for _ in range(3):  # in turns
             runs["kernel"].append(timed_ms(kern, reps=1) / n_launch)
-            if with_lib:
+            if with_plain:
                 runs["plain"].append(timed_ms(plain, reps=1) / n_launch)
-                runs["library"].append(timed_ms(lib, reps=1) / n_launch)
+            runs["library"].append(timed_ms(lib_t, reps=1) / lib_n)
         k_ms = statistics.median(runs["kernel"])
-        p_ms = statistics.median(runs["plain"]) if with_lib else None
-        l_ms = statistics.median(runs["library"]) if with_lib else None
+        p_ms = statistics.median(runs["plain"]) if with_plain else None
+        l_ms = statistics.median(runs["library"])
         if name == "K6":
             # per launch: the mean over the replay of each row's own bound
             passes = formed = 0
@@ -2532,10 +2598,12 @@ def adj_timing_at(B: int, card: str, basis_f32, c_all, ts):
                              R * B if name == "K8" else 0)
             b_ms, b_by = bound(flop, nbytes)
             what = f", R={R} rows ({passes} trajectory-row passes)"
+        if name == "K7":
+            what += k7_shape(x, B)
         print(f"[time] {name} at B={B}, d={DIM}, K'={Kp}, f32{what}: kernel "
               f"{k_ms:.4f} ms per launch ({flop / k_ms / 1e9:.2f} TFLOP/s)"
-              + (f", plain twin {p_ms:.4f} ms, library {l_ms:.4f} ms (max "
-                 f"rel |d| {d_lib:.2e})" if with_lib else "")
+              + (f", plain twin {p_ms:.4f} ms" if with_plain else "")
+              + f", library {l_ms:.4f} ms (max rel |d| {d_lib:.2e})"
               + f"; runs " + ", ".join(f"{k} {[round(v, 4) for v in r]}"
                                        for k, r in runs.items() if r)
               + f"; bound {b_ms:.4f} ms by {b_by} ({flop / 1e9:.2f} GFLOP, "
@@ -3492,6 +3560,13 @@ def k0_timing_phase(card):
     time_k4(MagnusModulated4(multi_op(8, torch.float32)), N_TRAJ,
             "eight-term Magnus-4 pair (K' = 36)", card)
     y0 = unit_states(N_TRAJ, DIM, torch.float32, 42)
+    # the eight-term drive per step (K4 at K' = 36 each iteration)
+    eight = counted(lambda: auto_solve(multi_op(8, torch.float32), y0))
+    check_unit_solution(eight[0], N_TRAJ, "eight-term per-step route")
+    assert eight[1][2] == int(eight[0].n_iters.max()), eight[1]
+    timed_solve(lambda: auto_solve(multi_op(8, torch.float32), y0),
+                f"eight-term per-step route {N_TRAJ}x{DIM}c f32 (K' = 36): "
+                f"{eight[1][2]} K4 launches a solve", card)
     timed_solve(lambda: auto_solve(iq_op(), y0),
                 f"I/Q loop route {N_TRAJ}x{DIM}c f32, one loop launch", card)
     timed_solve(lambda: auto_solve(iq_op(fit_cols=False), y0),

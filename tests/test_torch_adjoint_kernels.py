@@ -6,6 +6,9 @@ tests/test_adjoint.py) and its XLA composition (f64, rtol 1e-10), and the
 scaling count per row. The twins are what the kernels compute; the CUDA
 kernels are held against them on a card (tests/test_torch_cuda.py)."""
 
+import pathlib
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -63,11 +66,18 @@ def test_row_twin_matches_pallas_interpret():
                                atol=2e-4)
 
 
-def test_sweep_twins_match_pallas_interpret():
+@pytest.mark.parametrize("Kp", [1, 2, 3, 4, 5, 6])
+def test_sweep_twins_match_pallas_interpret(Kp):
     """K7's and K8's twins against the persistent sweep kernels (rows
-    counted per row in the twins, over all rows in the kernels): measured
-    ~1e-6 for y and a0, ~1e-5 for cbar against 3e-5 / 3e-4."""
-    W, _, c_all, x, a = _pallas_inputs(23, scale=0.3)
+    counted per row in the twins, over all rows in the kernels; K7's twin
+    forms each row's exponent once, the kernel sums K' actions a term).
+    The shared rows are scaled by 3 / K', so that their 1-norm bound, and
+    with it the passes and the growth of the states over this non-normal
+    basis, stays at K' = 3's (the inputs of K' = 3 are the unparametrised
+    test's): measured <= 2.3e-5 for y (the sum-of-actions twin the same),
+    ~1e-6 for a0, ~1e-5 for cbar against 3e-5 / 3e-4."""
+    W, _, c_all, x, a = _pallas_inputs(23, Kp=Kp, scale=0.3)
+    c_all = c_all * np.float32(3.0 / Kp)
     yk = adjoint_sweep_fwd_pallas(jnp.asarray(c_all), jnp.asarray(x),
                                   jnp.asarray(W), m=8, theta=0.25, tile=8,
                                   interpret=True)
@@ -126,13 +136,14 @@ def test_row_twin_matches_xla_composition_f64(Kp):
                                    atol=1e-12)
 
 
-def test_sweep_twins_match_xla_composition_f64():
+@pytest.mark.parametrize("Kp", [1, 2, 3, 4, 5, 6])
+def test_sweep_twins_match_xla_composition_f64(Kp):
     """K7's and K8's twins against diff._rows_forward / _rows_backward on
     the XLA path (a scan of per-row actions), over a norm-preserving basis
     (a non-normal one amplifies the rounding of the reconstruction by
     e^{sum |A|}, in both packages alike); measured <= 3e-15 relative, held
     to rtol 1e-10."""
-    W, _, c_all, x, a = _f64_inputs(41, R=6, antisym=True)
+    W, _, c_all, x, a = _f64_inputs(41, Kp=Kp, R=6, antisym=True)
     core = _xla_core(W)
     yr = jdiff._rows_forward(core, jnp.asarray(c_all), jnp.asarray(x))
     a0r, cbr = jdiff._rows_backward(core, jnp.asarray(c_all), yr,
@@ -148,13 +159,36 @@ def test_sweep_twins_match_xla_composition_f64():
                                    atol=1e-12)
 
 
+@pytest.mark.parametrize("Kp", [4, 5, 6])
+def test_sweep_fwd_twin_matches_xla_at_the_unscaled_pallas_rows_f64(Kp):
+    """K7's twin, which forms each row's exponent, against
+    diff._rows_forward on the XLA path (a scan of per-row sums of K'
+    actions) in f64 on test_sweep_twins_match_pallas_interpret's inputs
+    without its 3 / K' scaling of the rows (non-normal basis, D = 128, up
+    to 128 passes a row): measured <= 6e-16 relative to the largest entry,
+    held to rtol 1e-10."""
+    W, _, c_all, x, _ = _pallas_inputs(23, Kp=Kp, scale=0.3)
+    W, c_all, x = (np.asarray(v, np.float64) for v in (W, c_all, x))
+    yr = jdiff._rows_forward(_xla_core(W), jnp.asarray(c_all),
+                             jnp.asarray(x))
+    mt, _, norms = _operands(_t(W, torch.float64))
+    ca = _t(c_all, torch.float64)
+    assert int(scale_rows(ca[:, None], norms, 0.25, 16)[1].max()) >= 64
+    y = tadj.torch_adjoint_sweep_fwd(ca, _t(x, torch.float64), mt, norms,
+                                     m=12, theta=0.25)
+    np.testing.assert_allclose(y.numpy(), np.asarray(yr), rtol=1e-10,
+                               atol=1e-12)
+
+
 def test_scaling_count_per_row_is_scale_rows():
     """One squaring count per lane and row, the port's rule: on rows past
     theta with counts that differ between lanes, the twin's reconstruction
     and transport are bitwise the per-trajectory action
     ``modulated_exp_apply`` (which counts by ``scale_rows``) of -c on W and
-    of c on W^T (an antisymmetric basis, so that ||W^T||_1 = ||W||_1), and
-    the sweep's forward is bitwise R such actions."""
+    of c on W^T (an antisymmetric basis, so that ||W^T||_1 = ||W||_1);
+    the sweep's forward, which forms each shared row's exponent once, is
+    bitwise R Taylor chains over sum_k (c_k / 2^s) W_k with scale_rows'
+    counts, and R such actions to rounding (held to 1e-14)."""
     rng = np.random.default_rng(5)
     D, Kp, B = 6, 2, 6
     S = rng.standard_normal((Kp, D, D))
@@ -174,10 +208,20 @@ def test_scaling_count_per_row_is_scale_rows():
     assert torch.equal(an, modulated_exp_apply(W.transpose(-1, -2), c, a))
     c_all = c[2:5]
     y = tadj.torch_adjoint_sweep_fwd(c_all, x, mt, norms, m=12, theta=0.25)
-    ref = x
+    ref, chain = x, x
     for r in range(c_all.shape[0]):
         ref = modulated_exp_apply(W, c_all[r].expand(B, Kp), ref)
-    assert torch.equal(y, ref)
+        cs_r, n_r = scale_rows(c_all[r], norms, 0.25, 16)
+        A = (cs_r[0] * W[0]).T + (cs_r[1] * W[1]).T
+        for _ in range(int(n_r)):
+            acc = term = chain
+            for j in range(1, 13):
+                term = (term @ A) / j
+                acc = acc + term
+            chain = acc
+    assert torch.equal(y, chain)
+    assert int(scale_rows(c_all, norms, 0.25, 16)[1].max()) > 1
+    torch.testing.assert_close(y, ref, rtol=1e-14, atol=1e-14)
 
 
 def test_wrappers_run_the_twins_on_cpu_tensors():
@@ -218,3 +262,36 @@ def test_nan_state_stays_in_its_row():
     assert bool(torch.isfinite(xn[~bad]).all())
     assert bool(torch.isfinite(an[~bad]).all())
     assert bool(torch.isfinite(cb[~bad]).all())
+
+
+def test_sweep_plan_matches_the_kernel_and_fits():
+    """K7's launch plan: ops/adjoint.py's mirror reads csrc/adjoint.cu's
+    constants, and every (type, D, K') the wrapper accepts has a shape at
+    every batch, its threads within GEMM_THREADS plus the producer warps,
+    its shared memory within 227 KB (K' does not enter it: the exponent is
+    formed, never the K' actions). The plans by shape: both exponents in
+    f32 at D = 128 (2 trajectories a block at B = 256, 32 at 4096), one in
+    f64 at D = 128, panels at D = 512."""
+    src = (pathlib.Path(tadj.__file__).parents[1] / "csrc"
+           / "adjoint.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (SWEEP_\w+) = (\d+);", src))
+    assert int(consts["SWEEP_PRODUCER_WARPS"]) == tadj.SWEEP_PRODUCER_WARPS
+    assert int(consts["SWEEP_MAX_TILE"]) == tadj.SWEEP_MAX_TILE
+    plans = re.search(r"constexpr int SWEEP_DOUBLE = (\d+), SWEEP_SINGLE = "
+                      r"(\d+), SWEEP_PANEL = (\d+);", src).groups()
+    assert [int(v) for v in plans] == [0, 1, 2]
+    assert tadj.SWEEP_PLANS == ("double", "single", "panel")
+    want = {(256, 128, 4): ("double", 2), (4096, 128, 4): ("double", 32),
+            (256, 128, 8): ("single", 2), (5, 512, 4): ("panel", 1),
+            (5, 512, 8): ("panel", 1)}
+    for (Bn, D, elem), (plan, tile) in want.items():
+        got = tadj.sweep_plan(Bn, D, elem)
+        assert (got["plan"], got["tile"]) == (plan, tile), (Bn, D, got)
+    for elem in (4, 8):
+        for D in range(1, tadj.MAX_WIDTH + 1):
+            for Bn in (1, 256, 1 << 20):
+                got = tadj.sweep_plan(Bn, D, elem)
+                assert got is not None, (elem, D, Bn)
+                assert got["smem"] <= 232448, (elem, D, got)
+                assert got["threads"] <= tadj.GEMM_THREADS + 32 * \
+                    tadj.SWEEP_PRODUCER_WARPS

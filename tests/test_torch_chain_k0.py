@@ -221,3 +221,56 @@ def test_cheb_form_is_the_clenshaw_sum():
     want = np.polynomial.chebyshev.chebval((2 * t - 1.0) / 4.0, series).T
     got = form.sample(torch.as_tensor(t)).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-13)
+
+
+def _gemm_constants() -> dict:
+    """The constexpr ints of csrc/gemm_tile.cuh."""
+    src = (pathlib.Path(expmv.__file__).parents[1] / "csrc"
+           / "gemm_tile.cuh").read_text()
+    out = {}
+    for decl in re.findall(r"constexpr int (GEMM_[^;]*);", src):
+        for part in decl.split(","):
+            name, value = (v.strip() for v in part.split("="))
+            out[name] = int(value)
+    return out
+
+
+# every recipe shape the kernels take, at its largest row count: (recipe,
+# C, table)
+_WIDEST_TABLE = expmv.CfmTable(alpha=np.ones((4, 8)), c=np.linspace(0, 1, 8),
+                               alpha_err=np.ones((4, 8)))
+_SHAPES = (("midpoint", 1, None), ("magnus4", 1, None), ("magnus4", 2, None),
+           ("magnus4_fast", 1, None), ("magnus6", 1, None),
+           ("magnus6", 2, None), ("cfm", 2, _WIDEST_TABLE))
+
+
+def test_gemm_plan_matches_the_kernel_and_fits():
+    """K4's many-term body: expmv's mirror of the launch plan reads
+    gemm_tile.cuh's constants, and for every (type, D, K0 > 2, recipe) the
+    wrapper accepts, the tile it picks at any batch runs at most
+    GEMM_THREADS threads in at most 227 KB of shared memory, with whole
+    rows per thread (the f32 tile at the path's 16384 x 128: 64 rows)."""
+    env = _gemm_constants()
+    for name in ("GEMM_THREADS", "GEMM_CN", "GEMM_PANEL_BYTES",
+                 "GEMM_STAGES", "GEMM_MAX_JC"):
+        assert env[name] == getattr(expmv, name), name
+    assert expmv.GEMM_RM == {4: env["GEMM_RM_F32"], 8: env["GEMM_RM_F64"]}
+    src = (pathlib.Path(expmv.__file__).parents[1] / "csrc"
+           / "chain_expmv.cu").read_text()
+    assert "GemmLayout<T>(tile, D, p).total > max_smem" in src
+    assert expmv.gemm_tile(16384, 128, 4, "magnus4", 2, 8) == 64
+    assert expmv.gemm_tile(16384, 128, 8, "magnus4", 2, 8) == 32
+    for elem in (4, 8):
+        rm = expmv.GEMM_RM[elem]
+        for D in range(1, expmv.MAX_WIDTH + 1):
+            ncg = expmv.gemm_dp(D) // expmv.GEMM_CN
+            for K0 in range(3, expmv.MAX_K0 + 1):
+                for recipe, C, table in _SHAPES:
+                    for Bn in (1, 1 << 20):
+                        tile = expmv.gemm_tile(Bn, D, elem, recipe, C, K0,
+                                               table)
+                        smem = expmv.gemm_smem_bytes(tile, D, elem, recipe,
+                                                     C, K0, table)
+                        assert tile >= rm and tile % rm == 0, (D, K0)
+                        assert (tile // rm) * ncg <= expmv.GEMM_THREADS
+                        assert smem <= 232448, (elem, D, K0, recipe, smem)

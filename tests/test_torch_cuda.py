@@ -7,8 +7,9 @@ dense chain kernel (K9) with the generic exponential path over it, and the
 adjoint kernels (K6, K7, K8) with the fixed-step and adaptive adjoint over
 them, the chain kernels over 3 to 8 basis terms and the loop kernel
 sampling a ChebForm, with black-box operators through auto_modulated on
-both routes. Every test here carries the ``cuda`` marker and skips without a
-card. The file imports no jax, so on a machine with a card but without
+both routes, K4's many-term body (the tiled GEMM for K0 > 2) and K7 with
+its formed exponent on every launch shape. Every test here carries the
+``cuda`` marker and skips without a card. The file imports no jax, so on a machine with a card but without
 jax it runs as
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -29,7 +30,9 @@ from vec_ode_tpu_torch.exp import (CFM4Modulated, CFMModulated, CoeffForm,
                                    MagnusModulated4, MagnusModulated6,
                                    MidpointModulated, ModulatedOperator)
 from vec_ode_tpu_torch.models import DrivenDense, PulseControl
+from vec_ode_tpu_torch.exp.modulated import _taylor_params
 from vec_ode_tpu_torch.ops import adjoint as tadj
+from vec_ode_tpu_torch.ops import expmv
 from vec_ode_tpu_torch.ops.expmv import fused_chain_apply
 from vec_ode_tpu_torch.ops.cplx import Cplx, from_complex
 from vec_ode_tpu_torch.ops.dense_chains import fused_dense_chain_apply
@@ -1188,3 +1191,151 @@ def test_more_than_eight_terms_raise_before_any_launch(card, monkeypatch):
     with pytest.raises(ValueError, match="1 to 8 basis terms"):
         fused_loop_chunk(*carries, step, ctl=chip_smoke.MAG_CTL)
     assert (fused_chain_apply.launches, fused_loop_chunk.launches) == before
+
+
+# -- K4's many-term body (K0 > 2, the tiled GEMM) and K7's formed exponent --
+
+GEMM_KINDS = ("magnus4", "magnus4_fast", "magnus6", "cfm4")
+
+
+def _gemm_case(B, D, K0, kind, dtype, seed=0):
+    """fused_chain_apply's inputs for the recipe of ``kind`` over K0 basis
+    terms: a random antisymmetric working basis of width D (any D, not
+    only 2d), node samples, dt in [1e-3, 5e-2) and states."""
+    st = chip_smoke.k0_stepper(kind, chip_smoke.multi_op(K0, dtype))
+    _, _, m, theta = chip_smoke.chain_operands(st, dtype)
+    Kp = expmv.n_working_terms(st._recipe, K0)
+    rng = np.random.default_rng(seed)
+    S = rng.standard_normal((Kp, D, D)) / np.sqrt(D)
+
+    def t(a):
+        return torch.tensor(a, dtype=dtype, device="cuda")
+
+    W = t(S - np.swapaxes(S, -1, -2))
+    J = expmv.n_nodes(st._recipe, st._chains, st._table)
+    kw = dict(recipe=st._recipe, C=st._chains, m=m, theta=theta,
+              table=st._table)
+    return (t(rng.standard_normal((J, B, K0))),
+            t(rng.uniform(1e-3, 5e-2, B)), t(rng.standard_normal((B, D))),
+            expmv.stacked_transpose(W), expmv.basis_norms(W), kw)
+
+
+def _check_gemm_body(B, D, K0, kind, dtype, nan_row=None):
+    """K4 on _gemm_case's inputs against torch_chain_step on the card, at
+    check_chain_step's limits (f64: y to 1e-12 of its scale, the error
+    norm to 1e-9 of itself plus 1e-18; f32: y to 1e-5, the norm to 1e-4
+    plus four times the f32 twin's largest distance from the f64 twin on
+    1000 or more rows of the same draw: one row alone understates the
+    rounding of a difference of two chains); with ``nan_row``, that row
+    NaN in y and err and every other row finite."""
+    g, dt, xw, mt, norms, kw = _gemm_case(B, D, K0, kind, dtype)
+    if nan_row is not None:
+        xw[nan_row, D // 2] = float("nan")
+    before = fused_chain_apply.launches
+    yk, ek = fused_chain_apply(g, dt, xw, mt, norms, **kw)
+    assert fused_chain_apply.launches == before + 1
+    yp, ep = expmv.torch_chain_step(list(g), dt, xw, mt, norms, **kw)
+    has_err = ep is not None
+    ep = ep if has_err else torch.zeros_like(ek)
+    ok = torch.ones(B, dtype=torch.bool, device="cuda")
+    if nan_row is not None:
+        ok[nan_row] = False
+        assert bool(torch.isnan(yk[nan_row]).all())
+        assert not has_err or bool(torch.isnan(ek[nan_row]))
+    scale = max(float(yp[ok].abs().max()), 1.0)
+    if dtype == torch.float64:
+        x_lim, e_lim = 1e-12 * scale, 1e-9 * ep[ok].abs() + 1e-18
+    else:
+        floor = 0.0
+        if has_err:
+            gf, dtf, xf, mtf, nf, _ = _gemm_case(max(B, 1000), D, K0, kind,
+                                                 dtype)
+            _, e32 = expmv.torch_chain_step(list(gf), dtf, xf, mtf, nf, **kw)
+            _, e64 = expmv.torch_chain_step(
+                [v.double() for v in gf], dtf.double(), xf.double(),
+                mtf.double(), nf, **kw)
+            floor = 4 * float((e32.double() - e64).abs().max())
+        x_lim, e_lim = 1e-5 * scale, 1e-4 * ep[ok].abs() + floor
+    assert bool(torch.isfinite(yk[ok]).all() & torch.isfinite(ek[ok]).all())
+    assert float((yk - yp)[ok].abs().max()) <= x_lim
+    assert bool(((ek - ep)[ok].abs() <= e_lim).all())
+    if not has_err:
+        assert bool((ek == 0).all())
+    return yk, ek
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("kind", GEMM_KINDS)
+@pytest.mark.parametrize("K0", [3, 5, 8])
+@pytest.mark.parametrize("B,D", [(1, 128), (33, 5), (33, 64), (1000, 5),
+                                 (1000, 64), (1000, 128)])
+def test_chain_gemm_body_matches_twin(card, B, D, K0, kind, dtype):
+    """K4's many-term body against its twin: K0 = 3, 5, 8 on every recipe
+    (the Magnus-4 pair and fast_error, Magnus-6, CFM-4), a batch of one,
+    ragged last tiles, D = 5 (not a multiple of the 4 columns a thread
+    or of a panel), 64 and 128."""
+    _check_gemm_body(B, D, K0, kind, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("kind", GEMM_KINDS)
+def test_chain_gemm_body_at_the_path_batch(card, kind, dtype):
+    """The same at the per-step path's 16384 x 128 with eight terms (K' =
+    36 for the Magnus recipes), and two launches equal bit for bit."""
+    yk, ek = _check_gemm_body(16384, 128, 8, kind, dtype)
+    g, dt, xw, mt, norms, kw = _gemm_case(16384, 128, 8, kind, dtype)
+    y2, e2 = fused_chain_apply(g, dt, xw, mt, norms, **kw)
+    assert torch.equal(yk, y2) and torch.equal(ek, e2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("kind", GEMM_KINDS)
+def test_chain_gemm_body_keeps_a_nan_row_in_its_row(card, kind, dtype):
+    _check_gemm_body(300, 128, 5, kind, dtype, nan_row=77)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("D", [8, 128, 512])
+@pytest.mark.parametrize("Kp", [1, 2, 3, 4, 5, 6])
+@pytest.mark.parametrize("B", [1, 3, 256, 4096])
+def test_adjoint_sweep_fwd_matches_twin(card, B, Kp, D, dtype):
+    """K7 against torch_adjoint_sweep_fwd (adj_tolerances: f64 1e-10, f32
+    1e-4 relative to the largest entry), on rows that need squarings; D =
+    8 and 128 take both exponents in shared memory in f32 (one, formed
+    between rows, in f64 at 128), D = 512 the panels."""
+    W, _, c_all, x, _ = chip_smoke.adjoint_case(B, D, Kp, 4, dtype, 11 + Kp,
+                                                0.4)
+    mt, _, norms = chip_smoke.adj_operands(W)
+    m, theta = _taylor_params(dtype)
+    kw = dict(m=m, theta=theta, max_squarings=16)
+    before = tadj.adjoint_sweep_fwd.launches
+    y = tadj.adjoint_sweep_fwd(c_all, x, mt, norms, **kw)
+    assert tadj.adjoint_sweep_fwd.launches == before + 1
+    want = tadj.torch_adjoint_sweep_fwd(c_all, x, mt, norms, **kw)
+    _, n_row = expmv.scale_rows(c_all[:, None], norms, theta, 16)
+    assert int(n_row.max()) > 1
+    assert chip_smoke.rel(y, want) <= chip_smoke.adj_tolerances(dtype)[0]
+    shape = tadj.sweep_plan(B, D, x.element_size())
+    assert shape["plan"] == ("panel" if D == 512 else "single" if (
+        D == 128 and dtype == torch.float64) else "double"), shape
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("D", [8, 128, 512])
+def test_adjoint_sweep_fwd_keeps_a_nan_row(card, D, dtype):
+    """A NaN state row stays in its row of K7's result, the other rows agree
+    with the twin, and two launches give the same bits."""
+    W, _, c_all, x, _ = chip_smoke.adjoint_case(40, D, 3, 3, dtype, 5, 0.4)
+    x[9, 1] = float("nan")
+    mt, _, norms = chip_smoke.adj_operands(W)
+    m, theta = _taylor_params(dtype)
+    kw = dict(m=m, theta=theta, max_squarings=16)
+    y = tadj.adjoint_sweep_fwd(c_all, x, mt, norms, **kw)
+    bad = torch.isnan(y).any(1)
+    assert bad.tolist() == [r == 9 for r in range(40)]
+    assert bool(torch.isnan(y[9]).all())
+    want = tadj.torch_adjoint_sweep_fwd(c_all, x, mt, norms, **kw)
+    assert chip_smoke.rel(y[~bad], want[~bad]) <= \
+        chip_smoke.adj_tolerances(dtype)[0]
+    again = tadj.adjoint_sweep_fwd(c_all, x, mt, norms, **kw)
+    assert torch.equal(torch.nan_to_num(again), torch.nan_to_num(y))

@@ -43,6 +43,9 @@
 // commutators). chain_step_tile has two bodies for the products of a
 // Taylor term: the register body for K0 <= 2 (K' <= 3) and, past it, the
 // k-outer body, one basis term at a time in the same order and rounding.
+// K4 runs the register body from here and, for K0 > 2, its own tiled
+// many-term body (chain_expmv.cu, the same rows prologue and the same
+// bits); the loop kernel's K5 runs both bodies here.
 //
 // Layout. Each thread owns RT rows x CT columns (columns cg, cg + ncg, ...),
 // as in rk_step.cuh, and keeps that part of the chain's running sum in

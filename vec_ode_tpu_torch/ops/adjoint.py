@@ -24,14 +24,18 @@ kernels' single count over all rows (``_global_scaling``) is not copied:
 the JAX package's XLA path takes one count per row too.
 
 Three kernels, each a wrapper and a plain twin with the kernel's
-arithmetic (every Taylor term one (B, D) @ (D, K'D) product with
-``mt`` = [W_0^T | ...] for W v, or ``ms`` = [W_0 | ...] for W^T v;
+arithmetic (K6 and K8: every Taylor term one (B, D) @ (D, K'D) product
+with ``mt`` = [W_0^T | ...] for W v, or ``ms`` = [W_0 | ...] for W^T v;
 the K' actions combined in k order and divided by the term's index):
 
 * K6 :func:`adjoint_bwd` (twin :func:`torch_adjoint_row`): one reverse
   row with per-lane coefficients (B, K');
 * K7 :func:`adjoint_sweep_fwd` (twin :func:`torch_adjoint_sweep_fwd`):
-  all R rows of a fixed-step forward, y = e^{A_{R-1}} ... e^{A_0} x;
+  all R rows of a fixed-step forward, y = e^{A_{R-1}} ... e^{A_0} x; the
+  rows are shared by the batch, so each row's exponent A^T = sum_k cs_k
+  W_k^T is formed once (:func:`_exponent`, k order) and every Taylor term
+  is one (B, D) @ (D, D) product with it (the TPU kernel's sum of K'
+  actions, to rounding);
 * K8 :func:`adjoint_sweep_bwd` (twin :func:`torch_adjoint_sweep_bwd`):
   the whole reverse sweep, a0 and the batch-summed cbar (R, K').
 
@@ -49,7 +53,8 @@ from typing import Sequence
 import torch
 
 from . import _build
-from .expmv import scale_rows
+from .expmv import (GEMM_CN, GEMM_RM, GEMM_THREADS, _align16, gemm_dp,
+                    gemm_jc, scale_rows)
 from .fused_rk import MAX_WIDTH
 
 # the kernels' limit on the working basis (csrc/adjoint_row.cuh:
@@ -141,13 +146,32 @@ def _shared_rows(c_all, B: int, norms, theta, max_squarings):
             for r in range(c_all.shape[0])]
 
 
+def _exponent(cs, mt, D: int):
+    """A^T = sum_k cs[k] W_k^T, (D, D), from ``mt``'s K' blocks in k order:
+    the matrix K7 forms in shared memory, bit for bit."""
+    at = None
+    for k in range(cs.shape[0]):
+        part = cs[k] * mt[:, k * D:(k + 1) * D]
+        at = part if at is None else at + part
+    return at
+
+
 def torch_adjoint_sweep_fwd(c_all, x, mt, norms, *, m: int, theta: float,
                             max_squarings: int = 16):
     """Plain twin of K7: y = e^{A_{R-1}} ... e^{A_0} x with the rows c_all
-    (R, K') shared by the batch x (B, D), one squaring count per row."""
-    for cs, _, n_pass in _shared_rows(c_all, x.shape[0], norms, theta,
-                                      max_squarings):
-        x = _taylor_chain(x, cs, mt, n_pass, m)
+    (R, K') shared by the batch x (B, D), one squaring count per row: per
+    row its exponent (:func:`_exponent`), then 2^s passes of the degree-m
+    Taylor polynomial, each term one product with it."""
+    D = x.shape[1]
+    cs, _, n_pass = _scaled(c_all, norms, theta, max_squarings)
+    for r, passes in enumerate(n_pass.tolist()):
+        at = _exponent(cs[r], mt, D)
+        for _ in range(passes):
+            acc = term = x
+            for j in range(1, m + 1):
+                term = (term @ at) / j
+                acc = acc + term
+            x = acc
     return x
 
 
@@ -191,6 +215,58 @@ def _kernel_lib() -> ctypes.CDLL:
     lib.vec_ode_adjoint_blocks.restype = ci
     lib.vec_ode_adjoint_blocks.argtypes = [ci, ci, ci, ci]
     return lib
+
+
+# K7's plans and limits (csrc/adjoint.cu: SWEEP_*): both exponents in
+# shared memory, one formed between rows, or panels formed every term
+SWEEP_PLANS = ("double", "single", "panel")
+SWEEP_PRODUCER_WARPS = 4
+SWEEP_MAX_TILE = 64
+
+
+def sweep_smem_bytes(plan: str, tile: int, ks: int, D: int,
+                     elem: int) -> int:
+    """K7's shared memory (csrc/adjoint.cu: SweepLayout): the exponent or
+    its panel, the second exponent, the term rows of DP + 4 values, the
+    partial products of ks - 1 contraction groups."""
+    row, trow = gemm_dp(D) * elem, (gemm_dp(D) + GEMM_CN) * elem
+    a = (gemm_jc(D, elem) if plan == "panel" else D) * row
+    return (_align16(a) + (_align16(D * row) if plan == "double" else 0)
+            + _align16(tile * trow) + _align16((ks - 1) * tile * trow))
+
+
+def sweep_plan(B: int, D: int, elem: int, n_sm: int = 132,
+               max_smem: int = 232448) -> dict:
+    """K7's launch shape (csrc/adjoint.cu: sweep_shape) on a card of
+    ``n_sm`` SMs with ``max_smem`` bytes of shared memory a block (an
+    H100's by default): {plan, tile, rm, ks, threads, smem} (rm rows a
+    thread, ks contraction groups), or None where no shape fits."""
+    ncg = gemm_dp(D) // GEMM_CN
+    rm_max = GEMM_RM[elem]
+    tile = SWEEP_MAX_TILE
+    while tile > 1 and -(-B // tile) < n_sm // 2:
+        tile //= 2
+    while True:
+        rm = 1
+        while rm < rm_max and rm < tile and (tile // rm) * ncg > GEMM_THREADS:
+            rm *= 2
+        per = (tile // rm) * ncg
+        if per <= GEMM_THREADS:
+            for plan in SWEEP_PLANS:
+                ks = 1
+                while (plan != "panel" and ks < 8
+                       and 2 * ks * per <= GEMM_THREADS and D >= 32 * ks):
+                    ks *= 2
+                smem = sweep_smem_bytes(plan, tile, ks, D, elem)
+                if smem <= max_smem:
+                    nc = -(-ks * per // 32) * 32
+                    if plan == "double":
+                        nc += 32 * SWEEP_PRODUCER_WARPS
+                    return dict(plan=plan, tile=tile, rm=rm, ks=ks,
+                                threads=nc, smem=smem)
+        if tile == 1:
+            return None
+        tile //= 2
 
 
 def _check(kernel: str, x, mats: dict, norms, rows, n_rows: int) -> int:
@@ -282,8 +358,8 @@ adjoint_bwd.launches = 0
 def adjoint_sweep_fwd(c_all, x, mt, norms, *, m: int, theta: float,
                       max_squarings: int = 16):
     """K7: all R rows c_all (R, K') of a fixed-step forward on x (B, D) in
-    one launch. Returns y (B, D). CPU tensors run
-    :func:`torch_adjoint_sweep_fwd`."""
+    one launch (its shape: :func:`sweep_plan`). Returns y (B, D). CPU
+    tensors run :func:`torch_adjoint_sweep_fwd`."""
     if _on_cpu(c_all, x, mt):
         return torch_adjoint_sweep_fwd(c_all, x, mt, norms, m=m, theta=theta,
                                        max_squarings=max_squarings)

@@ -34,7 +34,9 @@ basis.
 * :func:`fused_chain_apply` is the wrapper of the hand-written CUDA kernel
   ``csrc/chain_expmv.cu`` (K4): CPU tensors run the twin, CUDA tensors
   launch the kernel or raise. ``fused_chain_apply.launches`` counts the
-  launches.
+  launches. Over more than two basis terms K4 runs its many-term body, a
+  tiled product through ``csrc/gemm_tile.cuh``, whose launch plan
+  :func:`gemm_tile` and :func:`gemm_smem_bytes` mirror.
 """
 
 from __future__ import annotations
@@ -512,6 +514,65 @@ def _kernel_lib() -> ctypes.CDLL:
         fn.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ctypes.POINTER(cd),
                        vp, cd, ci, vp]
     return lib
+
+
+# the tiled products of csrc/gemm_tile.cuh (K4's many-term body and K7):
+# threads a block at most, columns per thread, a panel's bytes, panels in
+# the ring, contraction rows a panel at most, K4's rows per thread by type
+GEMM_THREADS = 256
+GEMM_CN = 4
+GEMM_PANEL_BYTES = 16384
+GEMM_STAGES = 3
+GEMM_MAX_JC = 32
+GEMM_RM = {4: 8, 8: 4}
+
+
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def gemm_dp(D: int) -> int:
+    """A right operand's padded row in shared memory (gemm_tile.cuh)."""
+    return (D + GEMM_CN - 1) // GEMM_CN * GEMM_CN
+
+
+def gemm_jc(D: int, elem: int) -> int:
+    """Contraction rows of a panel for elements of ``elem`` bytes."""
+    jc = GEMM_PANEL_BYTES // (gemm_dp(D) * elem) // 8 * 8
+    return min(max(jc, 8), GEMM_MAX_JC)
+
+
+def gemm_smem_bytes(tile: int, D: int, elem: int, recipe: str, C: int,
+                    K0: int, table: Optional[CfmTable] = None) -> int:
+    """Shared memory of K4's many-term body for ``tile`` rows
+    (chain_expmv.cu: GemmLayout): the term, the ring, the scaled rows,
+    magnus4_fast's unscaled rows, the node samples, dt, the pass counts."""
+    nr = C * n_rows(recipe, table)
+    kp = n_working_terms(recipe, K0)
+    J = n_nodes(recipe, C, table)
+    parts = [D * tile * elem,
+             GEMM_STAGES * gemm_jc(D, elem) * gemm_dp(D) * elem,
+             nr * tile * kp * elem,
+             tile * kp * elem if recipe == "magnus4_fast" else 0,
+             J * tile * K0 * elem, tile * elem, nr * tile * 4]
+    return sum(_align16(p) for p in parts)
+
+
+def gemm_tile(B: int, D: int, elem: int, recipe: str, C: int, K0: int,
+              table: Optional[CfmTable] = None, n_sm: int = 132,
+              max_smem: int = 232448) -> int:
+    """Rows per block of K4's many-term body (K0 > 2; chain_expmv.cu:
+    gemm_tile_of) on a card of ``n_sm`` SMs with ``max_smem`` bytes of
+    shared memory a block (an H100's by default)."""
+    rm, ncg = GEMM_RM[elem], gemm_dp(D) // GEMM_CN
+    tile = 128
+    while tile > rm and ((tile // rm) * ncg > GEMM_THREADS
+                         or gemm_smem_bytes(tile, D, elem, recipe, C, K0,
+                                            table) > max_smem):
+        tile //= 2
+    while tile > 16 and -(-B // tile) < n_sm:
+        tile //= 2
+    return tile
 
 
 # the layout of the parameter array (parse_chain_params and the P_*
