@@ -63,8 +63,9 @@ drives the port's paths once at full width through
 
 Then it times the paths and each kernel against its plain version, its
 bound and, for K4 (also at K' = 6 and 36, with the many-term body's
-masked share of passes), K6-K8 (at 256 and 4096; K7 with its launch
-shape) and K9, a library yardstick. Every phase raises on failure, so
+masked share of passes), K6-K8 (at 256 and 4096; K7 and K8 with their
+launch shapes and ptxas lines, and the value-and-grad wall with K7's and
+K8's shares of it) and K9, a library yardstick. Every phase raises on failure, so
 any failure exits non-zero; without a CUDA card it exits non-zero before
 any result.
 
@@ -192,7 +193,8 @@ def ptxas_summary(name: str) -> str:
                 inst = f"{m.group(1)} {inst}" + (" wide" if "Lb1E" in
                                                  m.group(3) else "")
             kp = re.match(r"(?:\w*ChainLoopStepI[fd])?Li(\d+)E", m.group(3))
-            if m.group(1).endswith("gemm"):  # K4's many-term body, K7
+            if m.group(1).endswith("gemm") or m.group(1).endswith(
+                    "sweep_bwd"):  # K4's many-term body, K7, K8
                 inst += (" K0>2 many-term" if name == "chain_expmv" else "")
                 inst += f" RM={kp.group(1)}"
             elif "RKLoopStep" in m.group(3):
@@ -2422,22 +2424,34 @@ def adjoint_adaptive_phase():
     return adaptive_adjoint_check("Magnus-4", order=4)
 
 
-def adj_flops(passes: int, D: int, Kp: int, m: int, reverse: bool,
-              formed: int, rows: int = 0, idle: int = 0) -> float:
-    """Operations the function needs: the exponent A = sum_k c_k W_k formed
-    once per distinct nonzero row (``formed``: per shared row in K7 / K8,
-    per trajectory row in K6), then per Taylor term of ``passes``
-    trajectory-row passes one (D, D) action per chain with its division
-    and running sum: the state chain alone forward; in reverse the x, a
-    and w chains, the K' stacked W_k w and the K' Fréchet u-chains
-    (2 K' + 3 actions); per trajectory row (``rows``) the K' inner
-    products of cbar. A zero row (``idle`` trajectory rows, an iteration
-    that did not advance) needs only the K' actions of cbar_k =
-    <a, W_k x>."""
-    act = 2 * D * D + 2 * D
-    term = (2 * Kp + 3 if reverse else 1) * act
-    return (passes * m * term + (formed + idle) * 2 * Kp * D * D
-            + rows * 2 * Kp * D)
+def adj_flops(n_pass, B: int, D: int, Kp: int, m: int,
+              reverse: bool) -> float:
+    """Operations the function needs over rows of ``n_pass`` passes each,
+    each row shared by ``B`` trajectories (K7, K8) or one trajectory's own
+    (K6: B = 1 per advancing lane), the least of two routes per row. A row
+    forms A = sum_k c_k W_k (2 K' D^2) and runs p passes of the degree-m
+    Taylor polynomial P of A / p. A state chain (K7's y; K6's and K8's x)
+    costs p m (D, D) actions a trajectory, or P formed as a matrix (m - 1
+    products of its Taylor chain) and one action a pass. In reverse the a
+    chain and cbar cost, per trajectory, the a chain, a u chain from each
+    pass's state and its K' actions W_k u_l ((2 + K') m actions a pass),
+    paired with the a chain's terms (K' m (m + 1) D); or, per row, one
+    adjoint Frechet chain of P in the direction G = sum a x^T over the
+    passes and trajectories (2 p B D^2; 3 products a term past the first,
+    its power chain giving P^T, which then moves a in one action a pass)
+    and the K' inner products <W_k, L>. Each action or product counts its
+    division and running sum; Paterson-Stockmeyer's fewer products are not
+    counted."""
+    p = np.asarray(n_pass, dtype=np.float64)
+    act, mm = 2 * D * D + 2 * D, 2 * D ** 3 + 2 * D * D
+    fl = 2 * Kp * D * D + np.minimum(B * p * m * act,
+                                     (m - 1) * mm + B * p * act)
+    if reverse:
+        lane = B * p * ((2 + Kp) * m * act + Kp * m * (m + 1) * D)
+        row = (3 * (m - 1) * mm + B * p * act + 2 * p * B * D * D
+               + 2 * Kp * D * D)
+        fl = fl + np.minimum(lane, row)
+    return float(fl.sum())
 
 
 def adj_library(W, c_all, x, a, reverse: bool, per_lane: bool = False):
@@ -2481,15 +2495,20 @@ def adj_library(W, c_all, x, a, reverse: bool, per_lane: bool = False):
     return a, torch.stack(cb[::-1])
 
 
-def k7_shape(x, B: int) -> str:
-    """K7's launch shape at B (ops/adjoint.py:sweep_plan on this card) and
-    its ptxas lines."""
+def sweep_shape(x, B: int, Kp: int, name: str) -> str:
+    """K7's or K8's launch shape at B (ops/adjoint.py:sweep_plan, bwd_plan
+    on this card) and its ptxas lines."""
     props = torch.cuda.get_device_properties(0)
-    shape = tadj.sweep_plan(
-        B, x.shape[1], 4, n_sm=props.multi_processor_count,
-        max_smem=getattr(props, "shared_memory_per_block_optin", 232448))
+    card = dict(n_sm=props.multi_processor_count,
+                max_smem=getattr(props, "shared_memory_per_block_optin",
+                                 232448))
+    if name == "K7":
+        shape, key = tadj.sweep_plan(B, x.shape[1], 4, **card), "sweep_gemm"
+    else:
+        shape = tadj.bwd_plan(B, x.shape[1], Kp, 4, **card)
+        key = "sweep_bwd"
     return (f"; shape {shape}, ptxas "
-            f"{ptxas_of('adjoint', 'adjoint_sweep_gemm f32')}")
+            f"{ptxas_of('adjoint', f'adjoint_{key} f32')}")
 
 
 def adj_timing_at(B: int, card: str, basis_f32, c_all, ts):
@@ -2579,7 +2598,9 @@ def adj_timing_at(B: int, card: str, basis_f32, c_all, ts):
                 _, n_pass = expmv.scale_rows(c_lane[r][:, None], norms,
                                              th_t, 16)
                 p_r, f_r = int(n_pass[nz].sum()), int(nz.sum())
-                fl = adj_flops(p_r, D, Kp, m, True, f_r, B, B - f_r)
+                # a lane that did not advance needs only cbar_k = <a, W_k x>
+                fl = (adj_flops(n_pass[nz].flatten().tolist(), 1, D, Kp, m,
+                                True) + (B - f_r) * 2 * Kp * D * D)
                 passes, formed = passes + p_r, formed + f_r
                 flop, nbytes = flop + fl, nbytes + row_bytes
                 b_sum += bound(fl, row_bytes)[0]
@@ -2594,12 +2615,12 @@ def adj_timing_at(B: int, card: str, basis_f32, c_all, ts):
             passes = int(n_pass.sum()) * B
             nbytes = 4 * ((2 if name == "K7" else 3) * B * D + R * Kp
                           + (1 if name == "K7" else 2) * Kp * D * D)
-            flop = adj_flops(passes, D, Kp, m, name == "K8", R,
-                             R * B if name == "K8" else 0)
+            flop = adj_flops(n_pass.flatten().tolist(), B, D, Kp, m,
+                             name == "K8")
             b_ms, b_by = bound(flop, nbytes)
             what = f", R={R} rows ({passes} trajectory-row passes)"
-        if name == "K7":
-            what += k7_shape(x, B)
+        if name != "K6":
+            what += sweep_shape(x, B, Kp, name)
         print(f"[time] {name} at B={B}, d={DIM}, K'={Kp}, f32{what}: kernel "
               f"{k_ms:.4f} ms per launch ({flop / k_ms / 1e9:.2f} TFLOP/s)"
               + (f", plain twin {p_ms:.4f} ms" if with_plain else "")
@@ -2616,9 +2637,9 @@ def adj_timing_at(B: int, card: str, basis_f32, c_all, ts):
 def adjoint_timing_phase(card: str, ts):
     """The kernels per launch at the path's 256 and at 4096 trajectories
     (K6 on the adaptive path's recorded times ``ts``),
-    the value-and-grad wall (median of 3 after a warm run) with adjoint
-    steps/s = 2 n_steps B / wall (benchmarks.py:776), and peak memory at
-    256 and 1024 steps."""
+    the value-and-grad wall (median of 3 after a warm run) with K7's and
+    K8's spans inside it and adjoint steps/s = 2 n_steps B / wall
+    (benchmarks.py:776), and peak memory at 256 and 1024 steps."""
     pc, y0, tg, theta = adjoint_inputs(torch.float32)
     basis = pc.basis_pair(torch.float32)
     core = tdiff._adjoint_core(basis, pc.coeff_fn, order=4)
@@ -2632,9 +2653,40 @@ def adjoint_timing_phase(card: str, ts):
     def vg():
         return value_and_grads(pc, y0, tg, theta)
 
+    reset_counts()
     vg()
-    walls = timed_runs(vg)
+    torch.cuda.synchronize()
+    _, n7, n8, _ = adj_counts()
+    # K7's and K8's spans inside the timed wall: CUDA events around each
+    # wrapper call that diff.py makes (the launch; K8's also the sum of its
+    # partials), read after each run
+    spans = {"K7": [], "K8": []}
+
+    def evented(name, fn):
+        def run(*args, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            res = fn(*args, **kw)
+            ev[1].record()
+            spans[name].append(ev)
+            return res
+        return run
+
+    plain_fns = tdiff.adjoint_sweep_fwd, tdiff.adjoint_sweep_bwd
+    tdiff.adjoint_sweep_fwd = evented("K7", plain_fns[0])
+    tdiff.adjoint_sweep_bwd = evented("K8", plain_fns[1])
+    walls, in_wall = [], {"K7": [], "K8": []}
+    try:
+        for _ in range(3):
+            for v in spans.values():
+                v.clear()
+            walls += timed_runs(vg, reps=1)  # synchronises at its end
+            for name, v in spans.items():
+                in_wall[name].append(sum(a.elapsed_time(b) for a, b in v))
+    finally:
+        tdiff.adjoint_sweep_fwd, tdiff.adjoint_sweep_bwd = plain_fns
     wall = statistics.median(walls)
+    k7_ms, k8_ms = (statistics.median(in_wall[n]) for n in ("K7", "K8"))
     peaks = {}
     for n in (ADJ_STEPS, 4 * ADJ_STEPS):
         torch.cuda.synchronize()
@@ -2645,8 +2697,14 @@ def adjoint_timing_phase(card: str, ts):
         peaks[n] = ((torch.cuda.max_memory_allocated() - live) / 2 ** 20,
                     torch.cuda.max_memory_allocated() / 2 ** 20)
     print(f"[time] adjoint value-and-grad {ADJ_B}x{DIM}c f32, {ADJ_STEPS} "
-          f"Magnus-4 steps (one K7 + one K8 launch): median wall "
-          f"{wall:.3f} ms of {[round(w, 3) for w in walls]}, "
+          f"Magnus-4 steps ({n7} K7 + {n8} K8 launch): median wall "
+          f"{wall:.3f} ms of {[round(w, 3) for w in walls]}; inside it, "
+          f"by CUDA events around the wrapper calls (medians), K7 "
+          f"{k7_ms:.3f} ms ({k7_ms / wall:.1%}) of "
+          f"{[round(v, 3) for v in in_wall['K7']]}, K8 {k8_ms:.3f} ms "
+          f"({k8_ms / wall:.1%}) of {[round(v, 3) for v in in_wall['K8']]}"
+          f", the rest {wall - k7_ms - k8_ms:.3f} ms on the host and in "
+          f"small kernels; "
           f"{2 * ADJ_STEPS * ADJ_B / (wall / 1e3):.4e} adjoint steps/s "
           f"(fwd + bwd counted); peak memory above what was allocated "
           f"before (total peak) "

@@ -180,6 +180,33 @@ def test_sweep_fwd_twin_matches_xla_at_the_unscaled_pallas_rows_f64(Kp):
                                atol=1e-12)
 
 
+@pytest.mark.parametrize("Kp", [4, 5, 6])
+def test_sweep_bwd_twin_matches_xla_at_the_unscaled_pallas_rows_f64(Kp):
+    """K8's twin, which forms each row's exponent (2K' + 2 actions a term,
+    each term scaled by RN(1/j)), against diff._rows_backward on the XLA
+    path (a scan of per-row augmented actions) in f64 on
+    test_sweep_twins_match_pallas_interpret's inputs without its 3 / K'
+    scaling of the rows (non-normal basis, D = 128, up to 128 passes a
+    row), from the XLA forward's final state: measured <= 3.9e-15 for a0
+    and <= 5.6e-15 for cbar relative to the largest entry, held to rtol
+    1e-10."""
+    W, _, c_all, x, a = _pallas_inputs(23, Kp=Kp, scale=0.3)
+    W, c_all, x, a = (np.asarray(v, np.float64) for v in (W, c_all, x, a))
+    core = _xla_core(W)
+    yr = jdiff._rows_forward(core, jnp.asarray(c_all), jnp.asarray(x))
+    a0r, cbr = jdiff._rows_backward(core, jnp.asarray(c_all), yr,
+                                    jnp.asarray(a))
+    mt, ms, norms = _operands(_t(W, torch.float64))
+    ca = _t(c_all, torch.float64)
+    assert int(scale_rows(ca[:, None], norms, 0.25, 16)[1].max()) >= 64
+    a0, cb = tadj.torch_adjoint_sweep_bwd(ca, _t(yr, torch.float64),
+                                          _t(a, torch.float64), mt, ms,
+                                          norms, m=12, theta=0.25)
+    for got, ref in ((a0, a0r), (cb, cbr)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-10,
+                                   atol=1e-12)
+
+
 def test_scaling_count_per_row_is_scale_rows():
     """One squaring count per lane and row, the port's rule: on rows past
     theta with counts that differ between lanes, the twin's reconstruction
@@ -295,3 +322,135 @@ def test_sweep_plan_matches_the_kernel_and_fits():
                 assert got["smem"] <= 232448, (elem, D, got)
                 assert got["threads"] <= tadj.GEMM_THREADS + 32 * \
                     tadj.SWEEP_PRODUCER_WARPS
+
+
+def _per_action_sweep_bwd(c_all, x, a, mt, ms, norms, **kw):
+    """The reverse sweep in the per-action arithmetic of K6's row (every
+    chain K' basis actions a term, the shared row broadcast to each lane):
+    the arithmetic K8 ran before it formed the exponents."""
+    B = x.shape[0]
+    cbar = [None] * c_all.shape[0]
+    for r in range(c_all.shape[0] - 1, -1, -1):
+        x, a_n, cb = tadj.torch_adjoint_row(c_all[r].expand(B, -1), x, a,
+                                            mt, ms, norms, **kw)
+        cbar[r] = cb.sum(0)
+        a = a_n
+    return a, torch.stack(cbar)
+
+
+@pytest.mark.parametrize("antisym", [True, False])
+@pytest.mark.parametrize("Kp", [1, 2, 3, 4, 5, 6])
+def test_sweep_bwd_twin_matches_the_per_action_rows_f64(Kp, antisym):
+    """K8's twin, over formed exponents (2K' + 2 actions a term), against
+    the same sweep in K6's per-action arithmetic (K'^2 + 3K'), rows past
+    theta (64 to 256 passes in the largest row), a norm-preserving and a
+    non-normal basis: the same function to rounding; measured <= 3.9e-15
+    relative to the largest entry for a0 and <= 5.5e-15 for cbar (which
+    reaches 1.7e11 over the non-normal basis), held to rtol 1e-12."""
+    W, _, c_all, x, a = _f64_inputs(40 + Kp, D=12, R=6, antisym=antisym)
+    W, c_all, x, a = (_t(v, torch.float64) for v in (W, c_all, x, a))
+    mt, ms, norms = _operands(W)
+    kw = dict(m=12, theta=0.25)
+    assert int(scale_rows(c_all[:, None], norms, 0.25, 16)[1].max()) >= 64
+    a0, cb = tadj.torch_adjoint_sweep_bwd(c_all, x, a, mt, ms, norms, **kw)
+    a0r, cbr = _per_action_sweep_bwd(c_all, x, a, mt, ms, norms, **kw)
+    for got, ref in ((a0, a0r), (cb, cbr)):
+        assert float((got - ref).abs().max()) <= 1e-12 * float(
+            ref.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sweep_bwd_with_no_rows(dtype):
+    """R = 0: the sweep returns a0 = a_final and cbar of shape (0, K'),
+    through the wrapper on CPU tensors too."""
+    W, _, _, x, a = _f64_inputs(71, Kp=4)
+    W, x, a = (_t(v, dtype) for v in (W, x, a))
+    mt, ms, norms = _operands(W)
+    c_all = torch.zeros((0, 4), dtype=dtype)
+    for fn in (tadj.torch_adjoint_sweep_bwd, tadj.adjoint_sweep_bwd):
+        a0, cb = fn(c_all, x, a, mt, ms, norms, m=8, theta=0.25)
+        assert torch.equal(a0, a) and cb.shape == (0, 4)
+        assert cb.dtype == dtype
+
+
+def test_sweep_bwd_twin_forms_the_exponent_bitwise():
+    """The twin's arithmetic on one row of one pass at m = 1 is _exponent's
+    matrix bit for bit: x_n = x - x A^T, a_n = a + a A with A the transpose
+    of the same matrix (the one buffer K8 reads both ways; _exponent over
+    ``ms`` gives it bit for bit), u_k = 2^-s W_k x_n from u = 0 and cbar_k
+    = sum_b <a_b, u_k,b>."""
+    rng = np.random.default_rng(8)
+    D, Kp, B = 7, 3, 4
+    W = _t(rng.standard_normal((Kp, D, D)), torch.float64)
+    x = _t(rng.standard_normal((B, D)), torch.float64)
+    a = _t(rng.standard_normal((B, D)), torch.float64)
+    c_all = _t(rng.standard_normal((1, Kp)) * 0.01, torch.float64)
+    mt, ms, norms = _operands(W)
+    cs, n_pass = scale_rows(c_all[:, None], norms, 0.25, 16)
+    assert int(n_pass) == 1
+    at = tadj._exponent(cs[0, 0], mt, D)
+    assert torch.equal(at, tadj._exponent(cs[0, 0], ms, D).T)
+    fold = cs[0, 0, 0] * W[0].T
+    for k in range(1, Kp):
+        fold = fold + cs[0, 0, k] * W[k].T
+    assert torch.equal(at, fold)
+    a0, cb = tadj.torch_adjoint_sweep_bwd(c_all, x, a, mt, ms, norms, m=1,
+                                          theta=0.25)
+    x_n = x + (-(x @ at) / 1)
+    assert torch.equal(a0, a + (a @ at.T) / 1)
+    u = torch.stack([((x_n @ mt)[:, k * D:(k + 1) * D] * 1.0) / 1
+                     for k in range(Kp)])
+    assert torch.equal(cb[0], (a * (torch.zeros_like(x_n) @ at + u)).sum(
+        -1).sum(-1))
+
+
+def test_bwd_plan_matches_the_kernel_and_fits():
+    """K8's launch plan: ops/adjoint.py's mirror reads csrc/adjoint.cu's
+    constants, and every (type, D, K') the wrapper accepts has a shape at
+    every batch, its threads within BWD_THREADS (BWD_WIDE_THREADS only at
+    one trajectory a block), its contraction groups' threads within the
+    block, its shared memory within 227 KB. The shapes at the adjoint
+    path's D = 128, K' = 3: the exponent and mt's ring in shared memory,
+    2 trajectories a block at B = 256 (2 rows a thread, 4 contraction
+    groups, 512 threads), 16 at 4096 (4 rows a thread, 512 threads) in
+    f32, 4 in f64;
+    panels at D = 512, where K' >= 4 takes a wide block, and in f64 at D =
+    128 with K' = 6 (the ring does not fit)."""
+    src = (pathlib.Path(tadj.__file__).parents[1] / "csrc"
+           / "adjoint.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (BWD_\w+) = (\d+);", src))
+    for name in ("BWD_STAGES", "BWD_RING_BYTES", "BWD_THREADS",
+                 "BWD_WIDE_THREADS", "BWD_MAX_TILE", "BWD_MAX_GROUPS"):
+        assert int(consts[name]) == getattr(tadj, name), name
+    plans = re.search(r"constexpr int BWD_BUFFER = (\d+), BWD_PANEL = "
+                      r"(\d+);", src).groups()
+    assert [int(v) for v in plans] == [0, 1]
+    assert tadj.BWD_PLANS == ("buffer", "panel")
+    assert re.search(r"return sizeof\(T\) == 4 \? (\d+) : (\d+);",
+                     src).groups() == ("4", "2")
+    assert tadj.BWD_RM_MAX == {4: 4, 8: 2}
+    want = {(256, 128, 3, 4): ("buffer", 2, 2, 4, 512),
+            (4096, 128, 3, 4): ("buffer", 16, 4, 1, 512),
+            (4096, 128, 3, 8): ("buffer", 2, 2, 1, 128),
+            (256, 128, 6, 8): ("buffer", 1, 1, 1, 224),
+            (5, 512, 3, 4): ("panel", 1, 1, 1, 512),
+            (5, 512, 6, 8): ("panel", 1, 1, 1, 896)}
+    for (Bn, D, Kp, elem), shape in want.items():
+        got = tadj.bwd_plan(Bn, D, Kp, elem)
+        assert (got["plan"], got["tile"], got["rm"], got["ks"],
+                got["threads"]) == shape, (Bn, D, Kp, got)
+    for elem in (4, 8):
+        for Kp in range(1, tadj.MAX_KP + 1):
+            for D in range(1, tadj.MAX_WIDTH + 1):
+                per_col = tadj.gemm_dp(D) // tadj.GEMM_CN
+                for Bn in (1, 256, 4096, 1 << 20):
+                    got = tadj.bwd_plan(Bn, D, Kp, elem)
+                    assert got is not None, (elem, Kp, D, Bn)
+                    assert got["smem"] <= 232448, (elem, Kp, D, got)
+                    assert got["threads"] <= (
+                        tadj.BWD_WIDE_THREADS if got["tile"] == 1
+                        else tadj.BWD_THREADS), (elem, Kp, D, got)
+                    per = got["tile"] // got["rm"] * per_col
+                    assert got["tile"] % got["rm"] == 0
+                    assert got["ks"] * (Kp + 1) * per <= got["threads"]
+                    assert got["ks1"] * per <= got["threads"]

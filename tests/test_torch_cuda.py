@@ -7,8 +7,8 @@ dense chain kernel (K9) with the generic exponential path over it, and the
 adjoint kernels (K6, K7, K8) with the fixed-step and adaptive adjoint over
 them, the chain kernels over 3 to 8 basis terms and the loop kernel
 sampling a ChebForm, with black-box operators through auto_modulated on
-both routes, K4's many-term body (the tiled GEMM for K0 > 2) and K7 with
-its formed exponent on every launch shape. Every test here carries the
+both routes, K4's many-term body (the tiled GEMM for K0 > 2), and K7 and
+K8 with their formed exponents on every launch shape. Every test here carries the
 ``cuda`` marker and skips without a card. The file imports no jax, so on a machine with a card but without
 jax it runs as
 
@@ -1339,3 +1339,82 @@ def test_adjoint_sweep_fwd_keeps_a_nan_row(card, D, dtype):
         chip_smoke.adj_tolerances(dtype)[0]
     again = tadj.adjoint_sweep_fwd(c_all, x, mt, norms, **kw)
     assert torch.equal(torch.nan_to_num(again), torch.nan_to_num(y))
+
+
+# K8 over formed exponents: (B, D, K') reaching each plan and tile (the
+# exponent in shared memory at D <= 128, panels at 512, a wide block at
+# 512 with K' >= 4; 1 to 32 trajectories a block, 1, 2 or 4 rows a
+# thread, 1, 2 or 4 contraction groups)
+BWD_CASES = [(1, 8, 1), (5, 8, 6), (256, 8, 2), (4096, 8, 6), (5, 18, 3),
+             (256, 18, 5), (4096, 18, 4), (1, 64, 2), (256, 64, 3),
+             (4096, 64, 6), (1, 128, 1), (5, 128, 4), (256, 128, 3),
+             (256, 128, 6), (4096, 128, 3), (4096, 128, 6), (1, 512, 1),
+             (5, 512, 3), (5, 512, 4), (5, 512, 6), (256, 512, 2)]
+
+
+def _bwd_case(B, D, Kp, dtype, seed):
+    W, _, c_all, x, a = chip_smoke.adjoint_case(B, D, Kp, 4, dtype, seed,
+                                                0.4)
+    mt, ms, norms = chip_smoke.adj_operands(W)
+    m, theta = _taylor_params(dtype)
+    return (c_all, x, a, mt, ms, norms), dict(m=m, theta=theta,
+                                              max_squarings=16)
+
+
+def _bwd_tolerances(dtype):
+    """K8 against its twin: f64 a0 and cbar to summation order (FMA chains
+    in the kernel, BLAS in the twin), relative to the largest entry; f32
+    as check_adjoint_case."""
+    return (1e-12, 1e-12) if dtype == torch.float64 else \
+        chip_smoke.adj_tolerances(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("B,D,Kp", BWD_CASES)
+def test_adjoint_sweep_bwd_matches_twin(card, B, D, Kp, dtype):
+    """K8 against torch_adjoint_sweep_bwd on rows that need squarings, its
+    partials' block count the plan mirror's (ops/adjoint.py:bwd_plan on
+    this card)."""
+    args, kw = _bwd_case(B, D, Kp, dtype, 13 + Kp)
+    before = tadj.adjoint_sweep_bwd.launches
+    a0, cb = tadj.adjoint_sweep_bwd(*args, **kw)
+    assert tadj.adjoint_sweep_bwd.launches == before + 1
+    a0p, cbp = tadj.torch_adjoint_sweep_bwd(*args, **kw)
+    _, n_row = expmv.scale_rows(args[0][:, None], args[-1], kw["theta"], 16)
+    assert int(n_row.max()) > 1
+    tol, cb_tol = _bwd_tolerances(dtype)
+    assert chip_smoke.rel(a0, a0p) <= tol
+    assert chip_smoke.rel(cb, cbp) <= cb_tol
+    props = torch.cuda.get_device_properties(0)
+    shape = tadj.bwd_plan(B, D, Kp, a0.element_size(),
+                          n_sm=props.multi_processor_count,
+                          max_smem=getattr(props,
+                                           "shared_memory_per_block_optin",
+                                           232448))
+    assert shape["plan"] == ("panel" if D == 512 else "buffer"), shape
+    assert tadj._kernel_lib().vec_ode_adjoint_blocks(
+        B, D, Kp, a0.element_size()) == shape["blocks"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("D", [8, 128, 512])
+def test_adjoint_sweep_bwd_keeps_a_nan_row(card, D, dtype):
+    """A NaN state row reaches only cbar (all NaN: it sums the batch); a
+    NaN cotangent row stays in its row of a0; the other rows agree with
+    the twin, on both plans."""
+    args, kw = _bwd_case(40, D, 3, dtype, 5)
+    c_all, x, a, mt, ms, norms = args
+    tol, _ = _bwd_tolerances(dtype)
+    xn = x.clone()
+    xn[9, 1] = float("nan")
+    a0, cb = tadj.adjoint_sweep_bwd(c_all, xn, a, mt, ms, norms, **kw)
+    a0p, _ = tadj.torch_adjoint_sweep_bwd(c_all, xn, a, mt, ms, norms, **kw)
+    assert bool(torch.isfinite(a0).all()) and bool(torch.isnan(cb).all())
+    assert chip_smoke.rel(a0, a0p) <= tol
+    an = a.clone()
+    an[3, 0] = float("nan")
+    a0, _ = tadj.adjoint_sweep_bwd(c_all, x, an, mt, ms, norms, **kw)
+    a0p, _ = tadj.torch_adjoint_sweep_bwd(c_all, x, an, mt, ms, norms, **kw)
+    bad = torch.isnan(a0).any(1)
+    assert bad.tolist() == [r == 3 for r in range(40)]
+    assert chip_smoke.rel(a0[~bad], a0p[~bad]) <= tol

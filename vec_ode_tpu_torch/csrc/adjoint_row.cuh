@@ -1,12 +1,12 @@
-// One reverse row of the reversible adjoint for a tile of trajectories, as
-// device functions that every thread of a block calls together: the
-// counterpart of vec_ode_tpu/ops/pallas_expmv.py:_adjoint_row_chains,
-// shared by the single-row kernel (K6) and the whole reverse sweep (K8) of
-// adjoint.cu, as K4 and K2 share chain_step_tile. K7 runs its forward
-// chain.
+// One reverse row of the reversible adjoint with per-lane rows for a tile
+// of trajectories, as device functions that every thread of a block calls
+// together: the counterpart of
+// vec_ode_tpu/ops/pallas_expmv.py:_adjoint_row_chains, run by the
+// single-row kernel K6 of adjoint.cu (the reverse sweep K8 shares the rows
+// of the batch and forms their exponents instead; adjoint.cu's note).
 //
 // With A = sum_k c_k W_k over the working basis (K' = KP terms), scaled by
-// 2^-s (ops/adjoint.py: one count per row from sum_k |c_k| ||W_k||_1; the
+// 2^-s (ops/adjoint.py: one count per lane from sum_k |c_k| ||W_k||_1; the
 // Fréchet direction adds nothing to it), a row computes
 //   1. x_n = e^{-A} x and a_n = e^{A^T} a: 2^s passes of the degree-m
 //      Taylor polynomial each, side by side in two thread groups;
@@ -17,12 +17,13 @@
 //      direction terms, so a term costs K'^2 + K' actions;
 //   3. cbar_k = <a, u_k> per trajectory, summed over its columns in a
 //      fixed order.
-// Every action of a Taylor term is chain_step.cuh's product chain_products
-// (one (rows, D) @ (D, KP*D) product; MT = [W_0^T | ...] for W v and
-// MS = [W_0 | ...] for W^T v), the KP actions combined in k order with
-// explicitly rounded operations and divided by the term's index, as the
-// twin ops/adjoint.py does. Trajectories that have finished their passes
-// are masked while the block runs to its largest count.
+// Every lane has its own row, so no exponent is shared: every action of a
+// Taylor term is chain_step.cuh's product chain_products (one (rows, D) @
+// (D, KP*D) product; MT = [W_0^T | ...] for W v and MS = [W_0 | ...] for
+// W^T v), the KP actions combined in k order with explicitly rounded
+// operations and divided by the term's index, as the twin
+// ops/adjoint.py:torch_adjoint_row does. Trajectories that have finished
+// their passes are masked while the block runs to its largest count.
 //
 // Layout. Each thread owns one trajectory (RT = 1) and CT columns of one
 // chain (thread group); the chains' running sums stay in registers, their
@@ -70,27 +71,20 @@ struct AdjSmem {
   T* cbr;   // (tile, KP): cbar per trajectory
   int* np;  // (tile): 2^s, 0 for rows past the batch
 
-  // frechet = false: K7's forward, x and one term slot
-  __host__ __device__ static size_t elems(int tile, int D, int KP, bool frechet) {
-    const size_t slots = frechet ? 3 + (KP + 1) + KP : 2;
+  __host__ __device__ static size_t elems(int tile, int D, int KP) {
+    const size_t slots = 3 + (KP + 1) + KP;
     const size_t ints = (size_t)tile * sizeof(int);
     return slots * tile * D + 2 * (size_t)tile * KP + tile + (ints + sizeof(T) - 1) / sizeof(T);
   }
-  __device__ static AdjSmem carve(T* base, int tile, int D, int KP, bool frechet) {
+  __device__ static AdjSmem carve(T* base, int tile, int D, int KP) {
     AdjSmem s;
     const size_t n = (size_t)tile * D;
     s.x = base;
-    if (frechet) {
-      s.a = s.x + n;
-      s.an = s.a + n;
-      s.term = s.an + n;
-      s.prod = s.term + (size_t)(KP + 1) * n;
-      s.cs = s.prod + (size_t)KP * n;
-    } else {
-      s.a = s.an = s.prod = nullptr;
-      s.term = s.x + n;
-      s.cs = s.term + n;
-    }
+    s.a = s.x + n;
+    s.an = s.a + n;
+    s.term = s.an + n;
+    s.prod = s.term + (size_t)(KP + 1) * n;
+    s.cs = s.prod + (size_t)KP * n;
     s.scl = s.cs + (size_t)tile * KP;
     s.cbr = s.scl + tile;
     s.np = reinterpret_cast<int*>(s.cbr + (size_t)tile * KP);
@@ -100,27 +94,24 @@ struct AdjSmem {
 
 // Bytes of shared memory a block takes.
 template <typename T>
-inline size_t adj_smem_bytes(int tile, int D, int KP, bool frechet) {
-  return AdjSmem<T>::elems(tile, D, KP, frechet) * sizeof(T);
+inline size_t adj_smem_bytes(int tile, int D, int KP) {
+  return AdjSmem<T>::elems(tile, D, KP) * sizeof(T);
 }
 
-// Thread groups a block runs: KP + 1 chains for a reverse row, one for K7.
-inline int adj_groups(int KP, bool frechet) { return frechet ? KP + 1 : 1; }
-
 // Trajectories per block: the largest power of two up to ADJ_MAX_TILE
-// whose threads (groups x tile x ceil(D / CT)) fit a narrow block (a wide
-// one where one trajectory needs more) and whose shared memory fits,
-// halved while the batch gives fewer than n_sm / 2 blocks (at B = 256,
-// D = 128, K' = 3: 2 trajectories, 128 blocks). The results do not depend
-// on it.
+// whose threads (KP + 1 groups x tile x ceil(D / CT)) fit a narrow block
+// (a wide one where one trajectory needs more) and whose shared memory
+// fits, halved while the batch gives fewer than n_sm / 2 blocks (at B =
+// 256, D = 128, K' = 3: 2 trajectories, 128 blocks). The results do not
+// depend on it.
 template <typename T>
-inline int adj_tile(int B, int D, int KP, bool frechet, int n_sm, int max_smem) {
+inline int adj_tile(int B, int D, int KP, int n_sm, int max_smem) {
   const int ncg = (D + CT - 1) / CT;
-  const int G = adj_groups(KP, frechet);
+  const int G = KP + 1;
   const long limit = G * ncg <= ADJ_NARROW_THREADS ? ADJ_NARROW_THREADS : ADJ_MAX_THREADS;
   int tile = ADJ_MAX_TILE;
   while (tile > 1 && ((long)G * tile * ncg > limit ||
-                      adj_smem_bytes<T>(tile, D, KP, frechet) > (size_t)max_smem))
+                      adj_smem_bytes<T>(tile, D, KP) > (size_t)max_smem))
     tile /= 2;
   while (tile > 1 && (B + tile - 1) / tile < n_sm / 2) tile /= 2;
   return tile;
@@ -174,18 +165,18 @@ __device__ __forceinline__ T adj_combine(const T* c, T sgn, const T (&y)[KP][1][
   return w;
 }
 
-// Phase 1: group 0 takes x to e^{x_sign A} x in place (MT); with with_a,
-// group 1 takes a to e^{A^T} a into s.an (MS). Every thread calls it.
+// Phase 1: group 0 takes x to e^{-A} x in place (MT), group 1 takes a to
+// e^{A^T} a into s.an (MS). Every thread calls it.
 template <typename T, int KP>
 __device__ void adj_state_chains(const AdjSmem<T>& s, int tile, int D, const T* __restrict__ mt,
-                                 const T* __restrict__ ms, int m, T x_sign, bool with_a) {
+                                 const T* __restrict__ ms, int m) {
   const AdjLane ln(tile, D);
-  const bool in = ln.grp == 0 || (with_a && ln.grp == 1);
+  const bool in = ln.grp <= 1;
   const bool is_x = ln.grp == 0;
   T* slot = s.term + (size_t)(in ? ln.grp : 0) * tile * D;
   const T* mat = is_x ? mt : ms;
   const T* src = is_x ? s.x : s.a;
-  const T sgn = is_x ? x_sign : T(1);
+  const T sgn = is_x ? T(-1) : T(1);
   const int my_np = in ? s.np[ln.lr] : 0;
   const T* cq = s.cs + (size_t)(in ? ln.lr : 0) * KP;
   const size_t row = (size_t)ln.lr * D;
@@ -323,7 +314,7 @@ __device__ void adj_frechet(const AdjSmem<T>& s, int rows, int tile, int D,
 template <typename T, int KP>
 __device__ void adjoint_row_tile(const AdjSmem<T>& s, int rows, int tile, int D,
                                  const T* __restrict__ mt, const T* __restrict__ ms, int m) {
-  adj_state_chains<T, KP>(s, tile, D, mt, ms, m, T(-1), true);
+  adj_state_chains<T, KP>(s, tile, D, mt, ms, m);
   adj_frechet<T, KP>(s, rows, tile, D, mt, m);
 }
 

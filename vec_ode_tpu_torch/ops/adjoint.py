@@ -24,12 +24,13 @@ kernels' single count over all rows (``_global_scaling``) is not copied:
 the JAX package's XLA path takes one count per row too.
 
 Three kernels, each a wrapper and a plain twin with the kernel's
-arithmetic (K6 and K8: every Taylor term one (B, D) @ (D, K'D) product
-with ``mt`` = [W_0^T | ...] for W v, or ``ms`` = [W_0 | ...] for W^T v;
-the K' actions combined in k order and divided by the term's index):
+arithmetic:
 
 * K6 :func:`adjoint_bwd` (twin :func:`torch_adjoint_row`): one reverse
-  row with per-lane coefficients (B, K');
+  row with per-lane coefficients (B, K'); every Taylor term one (B, D) @
+  (D, K'D) product with ``mt`` = [W_0^T | ...] for W v, or ``ms`` =
+  [W_0 | ...] for W^T v, the K' actions combined in k order and divided
+  by the term's index (K'^2 + 3K' actions a term);
 * K7 :func:`adjoint_sweep_fwd` (twin :func:`torch_adjoint_sweep_fwd`):
   all R rows of a fixed-step forward, y = e^{A_{R-1}} ... e^{A_0} x; the
   rows are shared by the batch, so each row's exponent A^T = sum_k cs_k
@@ -37,7 +38,11 @@ the K' actions combined in k order and divided by the term's index):
   is one (B, D) @ (D, D) product with it (the TPU kernel's sum of K'
   actions, to rounding);
 * K8 :func:`adjoint_sweep_bwd` (twin :func:`torch_adjoint_sweep_bwd`):
-  the whole reverse sweep, a0 and the batch-summed cbar (R, K').
+  the whole reverse sweep, a0 and the batch-summed cbar (R, K'), over the
+  same formed exponents: per term one product with -A^T (x), A^T (each
+  u_k, plus 2^-s W_k w) and A (a), and the w chain's K' actions W_k w,
+  which also give A w combined in k order: 2K' + 2 actions a term, each
+  term scaled by RN(1/j); the per-action row's arithmetic to rounding.
 
 CPU tensors run the twin; CUDA tensors launch the kernel of
 ``csrc/adjoint.cu`` or raise. Each wrapper counts its launches
@@ -138,14 +143,6 @@ def torch_adjoint_row(c, x, a, mt, ms, norms, *, m: int, theta: float,
     return _row(cs, scale, n_pass, x, a, mt, ms, m)
 
 
-def _shared_rows(c_all, B: int, norms, theta, max_squarings):
-    """The scaled rows of a sweep, each broadcast over the batch: a list
-    of (cs (B, K'), scale (B,), n_pass (B,))."""
-    cs, scale, n_pass = _scaled(c_all, norms, theta, max_squarings)
-    return [(cs[r].expand(B, -1), scale[r].expand(B), n_pass[r].expand(B))
-            for r in range(c_all.shape[0])]
-
-
 def _exponent(cs, mt, D: int):
     """A^T = sum_k cs[k] W_k^T, (D, D), from ``mt``'s K' blocks in k order:
     the matrix K7 forms in shared memory, bit for bit."""
@@ -178,18 +175,51 @@ def torch_adjoint_sweep_fwd(c_all, x, mt, norms, *, m: int, theta: float,
 def torch_adjoint_sweep_bwd(c_all, x_final, a_final, mt, ms, norms, *,
                             m: int, theta: float, max_squarings: int = 16):
     """Plain twin of K8: the reverse sweep over the rows c_all (R, K') from
-    the final state and its cotangent (B, D). Returns (a0 (B, D), cbar
-    (R, K') summed over the batch)."""
-    rows = _shared_rows(c_all, x_final.shape[0], norms, theta,
-                        max_squarings)
+    the final state and its cotangent (B, D), one squaring count per row.
+    Per row its exponent A^T (:func:`_exponent`), then 2^s passes of the
+    degree-m Taylor polynomial per chain: x_n = e^{-A} x, each term a
+    product with -A^T; then from u_k = 0, w = x_n and a side by side, per
+    term u_k' = (u_k A^T + 2^-s W_k w) r_j, w' = (sum_k cs_k W_k w) r_j
+    from the K' actions W_k w (``w @ mt``) and a' = (a A) r_j; cbar_k =
+    <a, u_k> summed over the batch. Each term is scaled by r_j = RN(1/j),
+    the reciprocal rounded to the state's type, not divided by j (the
+    kernel's IEEE divisions had cost a tenth of its time). Returns (a0
+    (B, D), cbar (R, K'))."""
+    B, D = x_final.shape
+    Kp = c_all.shape[-1]
+    cs, scale, n_pass = _scaled(c_all, norms, theta, max_squarings)
+    # the term scales RN(1/j), as the kernel rounds them
+    rj = [None] + [x_final.new_ones(()) / j for j in range(1, m + 1)]
     x, a = x_final, a_final
-    cbar = [None] * len(rows)
-    for r in range(len(rows) - 1, -1, -1):
-        x, a_n, cb = _row(*rows[r], x, a, mt, ms, m)
-        cbar[r] = cb.sum(0)
+    cbar = [None] * c_all.shape[0]
+    for r in range(c_all.shape[0] - 1, -1, -1):
+        at = _exponent(cs[r], mt, D)
+        cs_b = cs[r].expand(B, Kp)
+        passes = int(n_pass[r])
+        for _ in range(passes):
+            acc = term = x
+            for j in range(1, m + 1):
+                term = -(term @ at) * rj[j]
+                acc = acc + term
+            x = acc
+        us, w, a_n = x.new_zeros((Kp, B, D)), x, a
+        for _ in range(passes):
+            acc_u = term_u = us
+            acc_w = term_w = w
+            acc_a = term_a = a_n
+            for j in range(1, m + 1):
+                mw = term_w @ mt
+                dirs = mw.view(B, Kp, D).transpose(0, 1)
+                term_u = ((term_u @ at) + scale[r] * dirs) * rj[j]
+                term_w = _combine(cs_b, mw, D) * rj[j]
+                term_a = (term_a @ at.T) * rj[j]
+                acc_u, acc_w = acc_u + term_u, acc_w + term_w
+                acc_a = acc_a + term_a
+            us, w, a_n = acc_u, acc_w, acc_a
+        cbar[r] = (a * us).sum(-1).sum(-1)
         a = a_n
     if not cbar:
-        return a, c_all.new_zeros((0, c_all.shape[-1]))
+        return a, c_all.new_zeros((0, Kp))
     return a, torch.stack(cbar)
 
 
@@ -267,6 +297,88 @@ def sweep_plan(B: int, D: int, elem: int, n_sm: int = 132,
         if tile == 1:
             return None
         tile //= 2
+
+
+# K8's plans and limits (csrc/adjoint.cu: BWD_*): the exponent and the
+# ring of mt's rows in shared memory, the exponent formed between rows, or
+# panels of A^T and A formed every term
+BWD_PLANS = ("buffer", "panel")
+BWD_THREADS, BWD_WIDE_THREADS = 512, 1024
+BWD_MAX_TILE, BWD_MAX_GROUPS = 64, 8
+BWD_STAGES, BWD_RING_BYTES = 3, 24576
+BWD_RM_MAX = {4: 4, 8: 2}
+
+
+def bwd_as(D: int) -> int:
+    """K8's exponent row (csrc/adjoint.cu: bwd_as): DP values where DP / 4
+    is odd, else DP + 4."""
+    dp = gemm_dp(D)
+    return dp if (dp // GEMM_CN) % 2 else dp + GEMM_CN
+
+
+def bwd_jw(D: int, Kp: int, elem: int, ks: int) -> int:
+    """Rows of ``mt`` a stage of K8's ring carries (csrc/adjoint.cu:
+    bwd_jw): a multiple of 4 up to 32 with K' blocks of DP values within
+    BWD_RING_BYTES, at least 4 for each of the ks contraction groups."""
+    jw = min(32, BWD_RING_BYTES // (Kp * gemm_dp(D) * elem) // 4 * 4)
+    return max(jw, 4 * ks)
+
+
+def bwd_smem_bytes(plan: str, tile: int, Kp: int, D: int, elem: int,
+                   ks: int = 1, ks1: int = 1) -> int:
+    """K8's shared memory (csrc/adjoint.cu: BwdLayout): the exponent (D,
+    AS) or two panels (jc, DP); 2K' + 5 slabs of (tile, TS) values (TS =
+    DP at D > 124, else DP + 4) and the later contraction groups' partial
+    products; for the buffer plan the ring of BWD_STAGES stages of (jw,
+    K' DP)."""
+    ts = gemm_dp(D) + (0 if gemm_dp(D) // GEMM_CN >= 32 else GEMM_CN)
+    slab = _align16(tile * ts * elem)
+    nred = max((ks - 1) * (2 * Kp + 1), ks1 - 1 - (2 * Kp + 2))
+    if plan == "panel":
+        exp = 2 * _align16(gemm_jc(D, elem) * gemm_dp(D) * elem)
+    else:
+        exp = _align16(D * bwd_as(D) * elem) + BWD_STAGES * _align16(
+            bwd_jw(D, Kp, elem, ks) * Kp * gemm_dp(D) * elem)
+    return exp + (2 * Kp + 5 + nred) * slab
+
+
+def bwd_plan(B: int, D: int, Kp: int, elem: int, n_sm: int = 132,
+             max_smem: int = 232448) -> dict:
+    """K8's launch shape (csrc/adjoint.cu: bwd_shape) on a card of ``n_sm``
+    SMs with ``max_smem`` bytes of shared memory a block (an H100's by
+    default): {plan, tile, rm, ks, ks1, threads, smem, blocks} (rm rows a
+    thread, ks and ks1 contraction groups in phases 2 and 1), or None
+    where no shape fits."""
+    ncg = gemm_dp(D) // GEMM_CN
+    start = BWD_MAX_TILE
+    while start > 1 and -(-B // start) < n_sm // 2:
+        start //= 2
+    for plan in BWD_PLANS:
+        tile = start
+        while True:
+            rm = min(tile, BWD_RM_MAX[elem])
+            cap = BWD_THREADS
+            per = tile // rm * ncg
+            items = (Kp + 1) * per
+            ks = 1
+            while (plan == "buffer" and ks < BWD_MAX_GROUPS
+                   and 2 * ks * items <= cap and D >= 64 * ks):
+                ks *= 2
+            while ks >= 1:
+                threads = -(-ks * items // 32) * 32
+                ks1 = (min(BWD_MAX_GROUPS, threads // per)
+                       if plan == "buffer" else 1)
+                smem = bwd_smem_bytes(plan, tile, Kp, D, elem, ks, ks1)
+                if smem <= max_smem and (threads <= cap or (
+                        tile == 1 and threads <= BWD_WIDE_THREADS)):
+                    return dict(plan=plan, tile=tile, rm=rm, ks=ks, ks1=ks1,
+                                threads=threads, smem=smem,
+                                blocks=-(-B // tile))
+                ks //= 2
+            if tile == 1:
+                break
+            tile //= 2
+    return None
 
 
 def _check(kernel: str, x, mats: dict, norms, rows, n_rows: int) -> int:
@@ -384,11 +496,11 @@ adjoint_sweep_fwd.launches = 0
 def adjoint_sweep_bwd(c_all, x_final, a_final, mt, ms, norms, *, m: int,
                       theta: float, max_squarings: int = 16):
     """K8: the whole reverse sweep over the rows c_all (R, K') in one
-    launch, from the final state and its cotangent (B, D). Returns (a0
-    (B, D), cbar (R, K')): each block writes its batch-summed (R, K')
-    partial, and the partials are summed here in block order (no atomics:
-    the result does not change from run to run). CPU tensors run
-    :func:`torch_adjoint_sweep_bwd`."""
+    launch (its shape: :func:`bwd_plan`), from the final state and its
+    cotangent (B, D). Returns (a0 (B, D), cbar (R, K')): each block writes
+    its batch-summed (R, K') partial, and the partials are summed here in
+    block order (no atomics: the result does not change from run to run).
+    CPU tensors run :func:`torch_adjoint_sweep_bwd`."""
     if _on_cpu(c_all, x_final, a_final, mt, ms):
         return torch_adjoint_sweep_bwd(c_all, x_final, a_final, mt, ms,
                                        norms, m=m, theta=theta,
