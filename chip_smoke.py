@@ -59,10 +59,15 @@ drives the port's paths once at full width through
   the per-step route (K4), against the declared-CoeffForm loop and the
   generic path (K9) ([auto]); 1024 black-box Landau-Zener sweeps
   ([auto-lz]); an I/Q-driven qudit (three terms) at 16 384 on both routes
-  and an eight-term drive in one loop solve ([k0]).
+  and an eight-term drive in one loop solve ([k0]);
+* K4's two launch routes: its cluster route at the JAX record's 256 on
+  every recipe in f32 and f64 against its twin, two launches equal bit
+  for bit, and the same rows on the tiled route at 16 384 with the same
+  bits ([cluster]).
 
 Then it times the paths and each kernel against its plain version, its
-bound and, for K4 (also at K' = 6 and 36, with the many-term body's
+bound and, for K4 (at 256 on its cluster route and 16 384 on its tiled
+one, also at K' = 6 and 36, each with its launch plan, ptxas lines and
 masked share of passes), K6-K8 (at 256 and 4096; K7 and K8 with their
 launch shapes and ptxas lines, and the value-and-grad wall with K7's and
 K8's shares of it) and K9, a library yardstick. Every phase raises on failure, so
@@ -178,8 +183,9 @@ def device_phase() -> str:
 
 def ptxas_summary(name: str) -> str:
     """Registers and spill stores of each instantiation (f32, f64; the RK or
-    chain step and its KP; the loop kernel with its events / dense switch
-    on) of the kernel, from ptxas's report in its build log."""
+    chain step; K4's tiled or cluster route with its rows a thread; the
+    loop kernel with its events / dense switch on) of the kernel, from
+    ptxas's report in its build log."""
     log = _build.build_log(name)
     if not log.exists():   # a library built before logs were kept
         return "no build log"
@@ -192,15 +198,18 @@ def ptxas_summary(name: str) -> str:
             if name == "adjoint":  # three kernels, narrow and wide blocks
                 inst = f"{m.group(1)} {inst}" + (" wide" if "Lb1E" in
                                                  m.group(3) else "")
-            kp = re.match(r"(?:\w*ChainLoopStepI[fd])?Li(\d+)E", m.group(3))
-            if m.group(1).endswith("gemm") or m.group(1).endswith(
-                    "sweep_bwd"):  # K4's many-term body, K7, K8
-                inst += (" K0>2 many-term" if name == "chain_expmv" else "")
-                inst += f" RM={kp.group(1)}"
+            route = re.match(r"Li(\d+)ELi(\d+)ELb([01])E", m.group(3))
+            rm = re.match(r"Li(\d+)E", m.group(3))
+            if name == "chain_expmv" and route:  # K4: the route, RM x CN
+                inst += (" cluster" if route.group(3) == "1" else " tiled")
+                inst += f" RM={route.group(1)} CN={route.group(2)}"
+            elif name == "adjoint" and rm:  # K8's rows a thread, else K'
+                inst += (" RM=" if m.group(1).endswith("sweep_bwd")
+                         else " KP=") + rm.group(1)
             elif "RKLoopStep" in m.group(3):
                 inst += " rk"
-            elif kp:  # KP 0: the k-outer body, K0 > 2, K' at run time
-                inst += " K0>2" if kp.group(1) == "0" else f" KP={kp.group(1)}"
+            elif "ChainLoopStep" in m.group(3):
+                inst += " chain"
             if name == "fused_loop" and "Lb1E" in m.group(3):
                 inst += " events/dense"
             continue
@@ -1162,9 +1171,17 @@ def passes_needed(st, samples, dt) -> list:
     return work_passes(rows, n_pass, st._recipe, st._chains)
 
 
-# K4's rows per block at 16384 x 128 in the k-outer body, which K4 ran for
-# K0 > 2 before its many-term body (chain_step.cuh:chain_tile)
-KOUTER_TILE = 32
+def k4_plan(B, D, st, K0, elem=4) -> dict:
+    """K4's launch plan for the stepper's recipe on this card
+    (expmv.chain_plan) and the bytes of its resident basis slice."""
+    props = torch.cuda.get_device_properties(0)
+    plan = expmv.chain_plan(
+        B, D, elem, st._recipe, st._chains, K0, st._table,
+        n_sm=props.multi_processor_count,
+        max_smem=getattr(props, "shared_memory_per_block_optin", 232448))
+    kp = expmv.n_working_terms(st._recipe, K0)
+    plan["resident_bytes"] = kp * D * expmv.gemm_dp(plan["dc"]) * elem
+    return plan
 
 
 def block_passes(st, samples, dt, tile: int) -> int:
@@ -1250,23 +1267,19 @@ def time_k4(st, B, label, card, dt_range=(1e-3, 5e-2)):
     b_ms, b_by = bound(flop, nbytes)
     b0_ms, _ = bound(chain_flops(passes, D, m, st._recipe, K0,
                                  zero_columns=True), nbytes)
-    body = ""
-    if K0 > 2:  # the many-term body: its tile, masked passes, registers
-        props = torch.cuda.get_device_properties(0)
-        tile = expmv.gemm_tile(
-            B, D, 4, st._recipe, st._chains, K0, st._table,
-            n_sm=props.multi_processor_count,
-            max_smem=getattr(props, "shared_memory_per_block_optin", 232448))
-        need = int(sum(passes))
-        shares = {t: block_passes(st, samples, dt, t)
-                  for t in (KOUTER_TILE, tile)}
-        smem = expmv.gemm_smem_bytes(tile, D, 4, st._recipe, st._chains, K0,
-                                     st._table)
-        body = (f"; many-term body: {tile} rows a block, {smem} B of shared "
-                f"memory, ptxas {ptxas_of('chain_expmv', 'many-term')}; "
-                f"trajectory-row passes needed {need}, run by blocks of "
-                + ", ".join(f"{t} rows {n} ({1 - need / n:.1%} masked)"
-                            for t, n in shares.items()))
+    plan = k4_plan(B, D, st, K0)
+    need = int(sum(passes))
+    run = block_passes(st, samples, dt, plan["tile"])
+    body = (f"; {plan['route']} route: {plan['n']} block(s) a tile of "
+            f"{plan['tile']} rows, {plan['dc']} columns a block, "
+            f"{plan['rm']} x {plan['cn']} outputs a thread, {plan['threads']}"
+            f" threads, {plan['blocks']} blocks, {plan['smem']} B of shared "
+            f"memory, basis "
+            + (f"resident ({plan['resident_bytes']} B a block)"
+               if plan["resident"] else "streamed through the ring")
+            + f", ptxas {ptxas_of('chain_expmv', plan['route'])}; "
+            f"trajectory-row passes needed {need}, run {run} "
+            f"({1 - need / run:.1%} masked)")
     print(f"[time] K4 one {label} step at B={B}, d={DIM}, f32 (R="
           f"{expmv.n_rows(st._recipe, st._table)}; Taylor passes over rows "
           f"that need work, per chain {passes}): kernel {k_ms:.4f} ms "
@@ -1284,9 +1297,64 @@ def time_k4(st, B, label, card, dt_range=(1e-3, 5e-2)):
 
 def k4_timing_phase(card: str):
     """K4 per launch at the Magnus per-step path's 16384x64c f32 Magnus-4
-    pair."""
-    return time_k4(chain_stepper(torch.float32), N_TRAJ, "Magnus-4 pair",
-                   card)
+    pair (the tiled route), and at the JAX record's 256 (the cluster
+    route)."""
+    st = chain_stepper(torch.float32)
+    time_k4(st, REC_B, "Magnus-4 pair", card)
+    return time_k4(st, N_TRAJ, "Magnus-4 pair", card)
+
+
+CLUSTER_KINDS = (("magnus4 pair", {}),
+                 ("magnus4 fast_error", dict(fast_error=True)),
+                 ("magnus6", dict(kind="magnus6")), ("cfm4", dict(kind="cfm4")),
+                 ("midpoint", dict(midpoint=True)))
+
+
+def cluster_phase() -> float:
+    """K4's cluster route at the JAX record's batch, 256x64c: every recipe
+    (the Magnus-4 pair and fast_error, Magnus-6, CFM-4, midpoint) in f32
+    and f64 against its twin (check_chain_step's limits); two launches
+    equal bit for bit; and the same rows inside a 16384-row launch (the
+    tiled route) give the same bits. Returns max |dy| of Magnus-6 in
+    f32."""
+    err = 0.0
+    for label, kw in CLUSTER_KINDS:
+        for dtype in (torch.float32, torch.float64):
+            st = chain_stepper(dtype, **kw)
+            D = st._basis_w.shape[-1]
+            K0 = st.op.form.n_terms
+            elem = 4 if dtype == torch.float32 else 8
+            plans = [k4_plan(n, D, st, K0, elem) for n in (REC_B, N_TRAJ)]
+            assert [p["route"] for p in plans] == ["cluster", "tiled"], plans
+            extra = {}
+            if dtype == torch.float64 and label in R_DT64:
+                # steps on which each f64 error stands above rounding
+                extra = dict(dt_range=R_DT64[label], x_rel=1e-13)
+            dy, _ = check_chain_step(REC_B, dtype, f"cluster route {label}",
+                                     **extra, **kw)
+            if (label, dtype) == ("magnus6", torch.float32):
+                err = dy
+            samples, dt, xw = chain_inputs(st, REC_B, dtype)
+            mt, norms, m, theta = chain_operands(st, dtype)
+            kwk = dict(recipe=st._recipe, C=st._chains, m=m, theta=theta,
+                       table=st._table)
+            y1, e1 = fused_chain_apply(samples, dt, xw, mt, norms, **kwk)
+            y2, e2 = fused_chain_apply(samples, dt, xw, mt, norms, **kwk)
+            reps = N_TRAJ // REC_B
+            yb, eb = fused_chain_apply(
+                [g.repeat(reps, 1) for g in samples], dt.repeat(reps),
+                xw.repeat(reps, 1), mt, norms, **kwk)
+            same = (torch.equal(y1, y2) and torch.equal(e1, e2)
+                    and torch.equal(y1, yb[:REC_B])
+                    and torch.equal(e1, eb[:REC_B]))
+            print(f"[cluster] {label} {str(dtype)[6:]} B={REC_B}: "
+                  f"{plans[0]['n']} blocks a tile of {plans[0]['tile']} rows"
+                  f" ({plans[0]['blocks']} blocks), two launches and the "
+                  f"same rows on the tiled route at {N_TRAJ} equal bit for "
+                  f"bit: {same}", flush=True)
+            if not same:
+                raise AssertionError(f"K4's routes disagree: {label} {dtype}")
+    return err
 
 
 class PassCounter:
@@ -1580,20 +1648,21 @@ def r_step_path_phase(kind, loop_sol):
     assert sol256.path == "torch-driver+cuda-step"
     assert k4_256 == int(sol256.n_iters.max())
     check_unit_solution(sol256, REC_B, kind)
+    assert k4_plan(REC_B, 2 * DIM, st256, 2)["route"] == "cluster"
     print(f"[{kind}-step] {N_TRAJ}x{DIM}c, operator without a declared "
           f"form: path={sol.path}, K4 launches={k4} == max n_iters={n_iters} "
           f"(K1/K2 {k1}/{k2}); vs the loop path: max|dcount|={dcount} (<= 1),"
           f" max|dy|={dy:.3e} (<= 1e-4; the first 64: {dy_first:.3e}); the "
-          f"JAX record's configuration at {REC_B}: {k4_256} K4 launches, "
-          f"all DONE", flush=True)
-    return k4
+          f"JAX record's configuration at {REC_B}: {k4_256} K4 launches "
+          f"(the cluster route), all DONE", flush=True)
+    return k4, k4_256
 
 
 def r_timing_phase(kind, card):
     """The kind's loop path and per-step paths (16384 and the record's
     256) timed end to end, K2 + K5 alone against its twin and bound, and
     K4 per launch at both batches. Returns (K4 numbers at 16384, K5
-    numbers)."""
+    numbers, K4 numbers at 256)."""
     label = LABELS[kind]
     st, y0 = r_inputs(kind)
     timed_solve(lambda: r_solve(st, y0),
@@ -1609,8 +1678,7 @@ def r_timing_phase(kind, card):
                 "configuration (K4)", card)
     k5 = time_k5(st, y0, MAG_CTL, f"{label} loop path", card)
     k4 = time_k4(st, N_TRAJ, label, card)
-    time_k4(st, REC_B, label, card)
-    return k4, k5
+    return k4, k5, time_k4(st, REC_B, label, card)
 
 
 def lindblad_phase(card):
@@ -3765,6 +3833,7 @@ def main() -> None:
     norm_phase()
     k2_err = loop_kernel_phase()
     k4_err = chain_step_phase()
+    cluster_err = cluster_phase()
     k5_err = chain_loop_kernel_phase()
     k4r_err = chain_step_r_phase()
     k5r_err = chain_loop_r_phase()
@@ -3775,11 +3844,11 @@ def main() -> None:
     k1_launches = main_path_phase(card)
     k2_launches = loop_path_phase(card)
     k5_launches, loop_sol = r_loop_path_phase("magnus4")
-    k4_launches = r_step_path_phase("magnus4", loop_sol)
+    k4_launches, _ = r_step_path_phase("magnus4", loop_sol)
     r_launches = {}
     for kind in R_KINDS:
         k5r_launches, r_sol = r_loop_path_phase(kind)
-        r_launches[kind] = (r_step_path_phase(kind, r_sol), k5r_launches)
+        r_launches[kind] = (*r_step_path_phase(kind, r_sol), k5r_launches)
     lz_path_phase()
     k9_launches = generic_path_phase()
     adj_errs = adjoint_kernel_phase()
@@ -3817,8 +3886,10 @@ def main() -> None:
             ("chain_step_tile", k5_launches, k5_err, k5),
             *((f"fused_chain_apply/{kind}", r_launches[kind][0],
                k4r_err[kind], r_times[kind][0]) for kind in R_KINDS),
-            *((f"chain_step_tile/{kind}", r_launches[kind][1],
+            *((f"chain_step_tile/{kind}", r_launches[kind][2],
                k5r_err[kind], r_times[kind][1]) for kind in R_KINDS),
+            ("fused_chain_apply/cluster", r_launches["magnus6"][1],
+             cluster_err, r_times["magnus6"][2]),
             ("fused_dense_chain_apply", k9_launches, k9_err, k9),
             ("adjoint_bwd", k6_launches, adj_errs["k6"], adj["K6"]),
             ("adjoint_sweep_fwd", k7_launches, adj_errs["k7"], adj["K7"]),

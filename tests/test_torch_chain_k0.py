@@ -245,8 +245,8 @@ _SHAPES = (("midpoint", 1, None), ("magnus4", 1, None), ("magnus4", 2, None),
 
 
 def test_gemm_plan_matches_the_kernel_and_fits():
-    """K4's many-term body: expmv's mirror of the launch plan reads
-    gemm_tile.cuh's constants, and for every (type, D, K0 > 2, recipe) the
+    """K4's tiled route: expmv's mirror of the launch plan reads
+    gemm_tile.cuh's constants, and for every (type, D, K0, recipe) the
     wrapper accepts, the tile it picks at any batch runs at most
     GEMM_THREADS threads in at most 227 KB of shared memory, with whole
     rows per thread (the f32 tile at the path's 16384 x 128: 64 rows)."""
@@ -257,20 +257,20 @@ def test_gemm_plan_matches_the_kernel_and_fits():
     assert expmv.GEMM_RM == {4: env["GEMM_RM_F32"], 8: env["GEMM_RM_F64"]}
     src = (pathlib.Path(expmv.__file__).parents[1] / "csrc"
            / "chain_expmv.cu").read_text()
-    assert "GemmLayout<T>(tile, D, p).total > max_smem" in src
+    assert "ChainLayout<T>(tile, D, D, p, false, true).total > max_smem" in src
     assert expmv.gemm_tile(16384, 128, 4, "magnus4", 2, 8) == 64
     assert expmv.gemm_tile(16384, 128, 8, "magnus4", 2, 8) == 32
     for elem in (4, 8):
         rm = expmv.GEMM_RM[elem]
         for D in range(1, expmv.MAX_WIDTH + 1):
             ncg = expmv.gemm_dp(D) // expmv.GEMM_CN
-            for K0 in range(3, expmv.MAX_K0 + 1):
+            for K0 in range(1, expmv.MAX_K0 + 1):
                 for recipe, C, table in _SHAPES:
                     for Bn in (1, 1 << 20):
                         tile = expmv.gemm_tile(Bn, D, elem, recipe, C, K0,
                                                table)
-                        smem = expmv.gemm_smem_bytes(tile, D, elem, recipe,
-                                                     C, K0, table)
+                        smem = expmv.chain_smem_bytes(tile, D, D, elem,
+                                                      recipe, C, K0, table)
                         assert tile >= rm and tile % rm == 0, (D, K0)
                         assert (tile // rm) * ncg <= expmv.GEMM_THREADS
                         assert smem <= 232448, (elem, D, K0, recipe, smem)

@@ -7,8 +7,10 @@ dense chain kernel (K9) with the generic exponential path over it, and the
 adjoint kernels (K6, K7, K8) with the fixed-step and adaptive adjoint over
 them, the chain kernels over 3 to 8 basis terms and the loop kernel
 sampling a ChebForm, with black-box operators through auto_modulated on
-both routes, K4's many-term body (the tiled GEMM for K0 > 2), and K7 and
-K8 with their formed exponents on every launch shape. Every test here carries the
+both routes, K4's one body on its two launch routes (tiled, and a
+thread-block cluster per tile below the card's SM count of tiled blocks)
+with the same bits on both, and K7 and K8 with their formed exponents on
+every launch shape. Every test here carries the
 ``cuda`` marker and skips without a card. The file imports no jax, so on a machine with a card but without
 jax it runs as
 
@@ -308,14 +310,22 @@ CHAIN_STEP_CASES = {
                             midpoint=True),
     "pair_f32": dict(B=16384, dtype=torch.float32),
     "fast_f32": dict(B=16384, dtype=torch.float32, fast_error=True),
+    # the batch of the JAX package's record: K4's cluster route
+    "pair_256_f32": dict(B=256, dtype=torch.float32),
+    "pair_256_f64": dict(B=256, dtype=torch.float64),
+    "fast_256_f32": dict(B=256, dtype=torch.float32, fast_error=True),
+    "midpoint_256_f64": dict(B=256, dtype=torch.float64, midpoint=True),
+    "l2_weighted_256_f64": dict(B=256, dtype=torch.float64,
+                                wnorm=("l2", True)),
 }
 
 
 @pytest.mark.parametrize("name", list(CHAIN_STEP_CASES))
 def test_chain_kernel_matches_twin(card, name):
     """K4 against torch_chain_step (chip_smoke.check_chain_step's limits):
-    f64 at B=1000 (a ragged last tile), the main path's 16384x64c in f32,
-    D=4 (Landau-Zener)."""
+    f64 at B=1000 (a ragged last tile), the main path's 16384x64c in f32
+    (the tiled route), D=4 (Landau-Zener), and 256x64c (the cluster
+    route)."""
     kw = dict(CHAIN_STEP_CASES[name])
     B, dtype, wn = kw.pop("B"), kw.pop("dtype"), kw.pop("wnorm", None)
     before = fused_chain_apply.launches
@@ -492,6 +502,11 @@ CHAIN_R_STEP_CASES = {
     "blanes_f32": dict(B=1000, dtype=torch.float32, kind="blanes"),
     "magnus6_f32": dict(B=16384, dtype=torch.float32, kind="magnus6"),
     "cfm4_f32": dict(B=16384, dtype=torch.float32, kind="cfm4"),
+    # the JAX record's batch: K4's cluster route
+    "magnus6_256_f32": dict(B=256, dtype=torch.float32, kind="magnus6"),
+    "magnus6_256_f64": dict(B=256, dtype=torch.float64, kind="magnus6"),
+    "cfm4_256_f32": dict(B=256, dtype=torch.float32, kind="cfm4"),
+    "blanes_256_f64": dict(B=256, dtype=torch.float64, kind="blanes"),
 }
 
 
@@ -1127,8 +1142,8 @@ def test_loop_kernel_cheb_k0_matches_twin_f64(card, name):
 
 @pytest.mark.parametrize("name", ["auto_path", "iq_path"])
 def test_loop_kernel_recovered_operators_match_twin_f32(card, name):
-    """The ChebForm of a recovered black box in K2 (two terms, the
-    register body; three, the k-outer one) against its twin at 2048."""
+    """The ChebForm of a recovered black box in K2 (two terms, K' = 3;
+    three, K' = 6) against its twin at 2048."""
     chip_smoke.check_chain_loop_pair(name, 2048, torch.float32)
 
 
@@ -1193,9 +1208,10 @@ def test_more_than_eight_terms_raise_before_any_launch(card, monkeypatch):
     assert (fused_chain_apply.launches, fused_loop_chunk.launches) == before
 
 
-# -- K4's many-term body (K0 > 2, the tiled GEMM) and K7's formed exponent --
+# -- K4's one body on its two routes (tiled, cluster) and K7's formed
+# exponent --
 
-GEMM_KINDS = ("magnus4", "magnus4_fast", "magnus6", "cfm4")
+GEMM_KINDS = ("magnus4", "magnus4_fast", "magnus6", "cfm4", "midpoint")
 
 
 def _gemm_case(B, D, K0, kind, dtype, seed=0):
@@ -1223,7 +1239,8 @@ def _gemm_case(B, D, K0, kind, dtype, seed=0):
 def _check_gemm_body(B, D, K0, kind, dtype, nan_row=None):
     """K4 on _gemm_case's inputs against torch_chain_step on the card, at
     check_chain_step's limits (f64: y to 1e-12 of its scale, the error
-    norm to 1e-9 of itself plus 1e-18; f32: y to 1e-5, the norm to 1e-4
+    norm to 1e-9 of itself plus 1e-18, over one basis term to 64 eps of
+    the state's scale; f32: y to 1e-5, the norm to 1e-4
     plus four times the f32 twin's largest distance from the f64 twin on
     1000 or more rows of the same draw: one row alone understates the
     rounding of a difference of two chains); with ``nan_row``, that row
@@ -1241,9 +1258,20 @@ def _check_gemm_body(B, D, K0, kind, dtype, nan_row=None):
     if nan_row is not None:
         ok[nan_row] = False
         assert bool(torch.isnan(yk[nan_row]).all())
-        assert not has_err or bool(torch.isnan(ek[nan_row]))
+        # the error of magnus4_fast over one term has no commutator to
+        # carry the NaN: zero there, as the twin's
+        fast_one = kind == "magnus4_fast" and K0 == 1
+        assert not has_err or bool(torch.isnan(ek[nan_row])) != fast_one
+        assert not has_err or bool(torch.isnan(ep[nan_row])) != fast_one
     scale = max(float(yp[ok].abs().max()), 1.0)
-    if dtype == torch.float64:
+    if dtype == torch.float64 and K0 == 1:
+        # over one basis term with a constant coefficient (multi_coeffs:
+        # 1) every exponential commutes and every quadrature is exact: both
+        # chains are e^{dt M_0} x to rounding, and the error estimate is a
+        # difference at the rounding level of the state
+        x_lim = 1e-12 * scale
+        e_lim = torch.full_like(ep[ok], 64 * 2.0 ** -52 * scale)
+    elif dtype == torch.float64:
         x_lim, e_lim = 1e-12 * scale, 1e-9 * ep[ok].abs() + 1e-18
     else:
         floor = 0.0
@@ -1264,34 +1292,81 @@ def _check_gemm_body(B, D, K0, kind, dtype, nan_row=None):
     return yk, ek
 
 
+# (B, D, K0): 3 to 8 basis terms at a batch of one, ragged last tiles and D
+# = 5 (not a multiple of the columns a thread or of a panel); 1 and 2 terms
+# (K' <= 3) at the batches where K4 takes its cluster route, D up to 512
+# (the basis columns streamed there); at 1000 x 128 the cluster route too
+GEMM_CASES = ([(B, D, K0) for K0 in (3, 5, 8) for B, D in (
+    (1, 128), (33, 5), (33, 64), (1000, 5), (1000, 64), (1000, 128))]
+    + [(B, D, K0) for K0 in (1, 2) for B in (1, 33, 256)
+       for D in (5, 64, 128, 512)])
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("kind", GEMM_KINDS)
-@pytest.mark.parametrize("K0", [3, 5, 8])
-@pytest.mark.parametrize("B,D", [(1, 128), (33, 5), (33, 64), (1000, 5),
-                                 (1000, 64), (1000, 128)])
+@pytest.mark.parametrize("B,D,K0", GEMM_CASES)
 def test_chain_gemm_body_matches_twin(card, B, D, K0, kind, dtype):
-    """K4's many-term body against its twin: K0 = 3, 5, 8 on every recipe
-    (the Magnus-4 pair and fast_error, Magnus-6, CFM-4), a batch of one,
-    ragged last tiles, D = 5 (not a multiple of the 4 columns a thread
-    or of a panel), 64 and 128."""
+    """K4's one body against its twin on every recipe (the Magnus-4 pair
+    and fast_error, Magnus-6, CFM-4, midpoint) at GEMM_CASES; each case's
+    route is the plan's (expmv.chain_plan: the cluster route below the
+    card's SM count of tiled blocks, every case here but D = 5 at 1000
+    rows)."""
     _check_gemm_body(B, D, K0, kind, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("kind", GEMM_KINDS)
-def test_chain_gemm_body_at_the_path_batch(card, kind, dtype):
-    """The same at the per-step path's 16384 x 128 with eight terms (K' =
-    36 for the Magnus recipes), and two launches equal bit for bit."""
-    yk, ek = _check_gemm_body(16384, 128, 8, kind, dtype)
-    g, dt, xw, mt, norms, kw = _gemm_case(16384, 128, 8, kind, dtype)
+@pytest.mark.parametrize("B,K0", [(16384, 8), (16384, 2), (256, 2),
+                                  (256, 8)])
+def test_chain_gemm_body_at_the_path_batch(card, B, K0, kind, dtype):
+    """The same at the per-step paths' 16384 x 128 (the tiled route) and
+    256 x 128 (the cluster route) with eight terms (K' = 36 for the Magnus
+    recipes) and two, and two launches equal bit for bit."""
+    elem = {torch.float32: 4, torch.float64: 8}[dtype]
+    route = expmv.chain_plan(B, 128, elem, *_recipe_of(kind, K0))["route"]
+    assert route == ("tiled" if B == 16384 else "cluster")
+    yk, ek = _check_gemm_body(B, 128, K0, kind, dtype)
+    g, dt, xw, mt, norms, kw = _gemm_case(B, 128, K0, kind, dtype)
     y2, e2 = fused_chain_apply(g, dt, xw, mt, norms, **kw)
     assert torch.equal(yk, y2) and torch.equal(ek, e2)
 
 
+def _recipe_of(kind, K0):
+    """(recipe, C, K0, table) of the k0_stepper of ``kind``."""
+    st = chip_smoke.k0_stepper(kind, chip_smoke.multi_op(K0, torch.float64))
+    return st._recipe, st._chains, K0, st._table
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("kind", GEMM_KINDS)
-def test_chain_gemm_body_keeps_a_nan_row_in_its_row(card, kind, dtype):
-    _check_gemm_body(300, 128, 5, kind, dtype, nan_row=77)
+@pytest.mark.parametrize("B,D,K0", [(300, 128, 5), (256, 128, 2),
+                                    (33, 64, 1), (256, 512, 2)])
+def test_chain_gemm_body_keeps_a_nan_row_in_its_row(card, B, D, K0, kind,
+                                                     dtype):
+    _check_gemm_body(B, D, K0, kind, dtype, nan_row=min(77, B - 1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("B,D,K0", [(256, 128, 2), (256, 128, 8),
+                                    (16384, 128, 2), (1000, 5, 2)])
+def test_chain_routes_give_the_same_bits(card, B, D, K0, dtype):
+    """Where the plan takes the cluster route, its rows give the tiled
+    route's bits: the same inputs at B rows and stacked to the tiled
+    route's batch (16384 rows, the first B of them these) agree bit for bit
+    on those rows; and each route's two launches are equal."""
+    g, dt, xw, mt, norms, kw = _gemm_case(B, D, K0, "magnus4", dtype)
+    reps = -(-16384 // B)
+    gb = torch.cat([g] * reps, 1)[:, :16384].contiguous()
+    xb = torch.cat([xw] * reps, 0)[:16384].contiguous()
+    db = torch.cat([dt] * reps, 0)[:16384].contiguous()
+    plans = [expmv.chain_plan(n, D, xw.element_size(), "magnus4", 2,
+                              K0)["route"] for n in (B, 16384)]
+    assert plans[1] == "tiled", plans
+    y1, e1 = fused_chain_apply(g, dt, xw, mt, norms, **kw)
+    y2, e2 = fused_chain_apply(g, dt, xw, mt, norms, **kw)
+    yb, eb = fused_chain_apply(gb, db, xb, mt, norms, **kw)
+    assert torch.equal(y1, y2) and torch.equal(e1, e2)
+    assert torch.equal(y1, yb[:B]) and torch.equal(e1, eb[:B])
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])

@@ -1,0 +1,262 @@
+"""This checkout's chain kernels against another checkout's, on one CUDA card,
+in turns, on chip_smoke.py's inputs.
+
+    python -m tools.compare_parent PARENT_DIR [--only REGEX]
+
+Run from the repository root on a machine with one CUDA card and nvcc.
+PARENT_DIR holds another checkout of the repository whose
+``vec_ode_tpu_torch/csrc/chain_expmv.cu`` (K4) and ``fused_loop.cu`` (K2
+with its chain step K5) keep the same C entry points, for example one
+unpacked by ``git archive <commit> | tar -x -C build/parent``. Its two
+libraries are built with this checkout's nvcc flags into
+``build/parent_kernels/``; this checkout's are built as usual. Then each
+case runs on both, in turns (parent, this, this, parent; each run the
+median of CUDA-event times), and prints, beside the card's name and
+power limit, both times and whether the two gave the same bits:
+
+* K4 per launch, f32: the Magnus-4 pair, Magnus-6 and CFM-4 steps on
+  DrivenDense(64) at 256 and 16 384 trajectories, the I/Q drive (K' = 6)
+  and the eight-term drive (K' = 36) at 16 384;
+* K2 + K5 per solve, f32: the Magnus-4, Magnus-6 and CFM-4 loop paths,
+  the I/Q and the black-box DrivenDense (ChebForm) loops at 16 384, the
+  Magnus-4 loop with chip_smoke's events and with dense output, and the
+  16 384 fixed-step Landau-Zener sweeps;
+* the adaptive Magnus-6 value-and-grad of PulseControl at 256 (K4 per
+  forward iteration; K6 is this checkout's in both).
+
+``--only`` runs the cases whose label matches REGEX. It exits non-zero if
+any case's bits differ.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import pathlib
+import re
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+import chip_smoke as cs
+from vec_ode_tpu_torch import diff as tdiff
+from vec_ode_tpu_torch import driver
+from vec_ode_tpu_torch.exp import MagnusModulated4
+from vec_ode_tpu_torch.ops import _build, expmv, fused_loop
+from vec_ode_tpu_torch.ops.cplx import Cplx
+from vec_ode_tpu_torch.ops.fused_loop import (ChainStep, fused_loop_chunk,
+                                              fused_loop_integrate,
+                                              init_carries)
+
+MODULES = {"chain_expmv": expmv, "fused_loop": fused_loop}
+OUT = _build.BUILD_DIR.parent / "parent_kernels"
+
+
+def build_parent(parent: pathlib.Path) -> dict:
+    """The parent's K4 and K2 libraries, built together, loaded with the
+    argument types this checkout's wrappers set."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in MODULES:
+        src = parent / "vec_ode_tpu_torch" / "csrc" / f"{name}.cu"
+        so = OUT / f"lib{name}.so"
+        log = open(OUT / f"{name}.log", "w")
+        procs[name] = (subprocess.Popen(
+            [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(src)],
+            stdout=log, stderr=subprocess.STDOUT), so, log)
+    libs = {}
+    for name, (proc, so, log) in procs.items():
+        rc = proc.wait()
+        log.close()
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed on the parent's {name}.cu:\n"
+                               + (OUT / f"{name}.log").read_text())
+        lib = ctypes.CDLL(str(so))
+        load = _build.load
+        _build.load = lambda _n, lib=lib: lib   # the wrapper sets argtypes
+        try:
+            libs[name] = MODULES[name]._kernel_lib.__wrapped__()
+        finally:
+            _build.load = load
+    return libs
+
+
+class Using:
+    """Runs the wrappers on the given libraries (None: this checkout's)."""
+
+    def __init__(self, libs):
+        self.libs = libs
+
+    def __enter__(self):
+        self.saved = {n: m._kernel_lib for n, m in MODULES.items()}
+        if self.libs is not None:
+            for n, m in MODULES.items():
+                m._kernel_lib = (lambda lib=self.libs[n]: lib)
+
+    def __exit__(self, *exc):
+        for n, m in MODULES.items():
+            m._kernel_lib = self.saved[n]
+
+
+def flat(out) -> list:
+    """The tensors of a result, in order (Solutions, carries, tuples)."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, Cplx):
+        return [out.re, out.im]
+    if out is None or isinstance(out, (int, float, str)):
+        return []
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in flat(o)]
+    return [t for v in vars(out).values() for t in flat(v)]
+
+
+def same_bits(a, b) -> bool:
+    fa, fb = flat(a), flat(b)
+    return len(fa) == len(fb) and all(
+        x.shape == y.shape and torch.equal(torch.nan_to_num(x, 7.0),
+                                           torch.nan_to_num(y, 7.0))
+        and bool((torch.isnan(x) == torch.isnan(y)).all())
+        for x, y in zip(fa, fb))
+
+
+def compare(label, fn, parent, card, inner=1, only=None) -> bool:
+    """fn on the parent's libraries and on this checkout's: the results'
+    bits, then the times in turns (parent, this, this, parent). A case
+    whose label ``only`` does not match is skipped (True)."""
+    if only is not None and not re.search(only, label):
+        return True
+    fn = fn()
+    with Using(parent):
+        ref = fn()
+    with Using(None):
+        new = fn()
+    torch.cuda.synchronize()
+    ok = same_bits(ref, new)
+    runs = {"parent": [], "this": []}
+    for who in ("parent", "this", "this", "parent"):
+        with Using(parent if who == "parent" else None):
+            runs[who].append(cs.timed_ms(fn, reps=1, inner=inner))
+    p, t = (statistics.median(runs[w]) for w in ("parent", "this"))
+    print(f"[parent] {label}: parent {p:.4f} ms "
+          f"{[round(v, 4) for v in runs['parent']]}, this {t:.4f} ms "
+          f"{[round(v, 4) for v in runs['this']]}, this / parent "
+          f"{t / p:.3f}; the same bits: {ok} ({card})", flush=True)
+    return ok
+
+
+def k4_case(st, B):
+    samples, dt, xw = cs.chain_inputs(st, B, torch.float32)
+    mt, norms, m, theta = cs.chain_operands(st, torch.float32)
+    kw = dict(recipe=st._recipe, C=st._chains, m=m, theta=theta,
+              table=st._table)
+    return lambda: expmv.fused_chain_apply(samples, dt, xw, mt, norms, **kw)
+
+
+def loop_case(st, y0, **extra):
+    mt, norms, m, theta = cs.chain_operands(st, torch.float32)
+    step = ChainStep(mt=mt, norms=norms, form=st.op.form, recipe=st._recipe,
+                     C=st._chains, m=m, theta=theta, table=st._table)
+    x0 = torch.cat([y0.re, y0.im], 1)
+    if not extra:
+        grid = driver.make_grid(0.0, cs.TF, dtype=torch.float32,
+                                device="cuda")
+        carries = init_carries(grid, x0, cs.H0)
+        return lambda: fused_loop_chunk(*carries, step, ctl=cs.MAG_CTL,
+                                        adaptive=st._adaptive)
+    full = driver.make_grid(0.0, cs.TF, cs.SAVE_AT, dtype=torch.float32,
+                            device="cuda")
+    if "dense" in extra:
+        extra = dict(dense_times=full[1:-1])
+    return lambda: fused_loop_integrate(full[[0, -1]], x0, cs.H0, step,
+                                        ctl=cs.MAG_CTL, persistent=True,
+                                        **extra)
+
+
+def value_and_grad_case():
+    pc, y0, tg, theta = cs.adjoint_inputs(torch.float32)
+    basis = pc.basis_pair(torch.float32)
+
+    def run():
+        th = theta.clone().requires_grad_(True)
+        yr, yi = (v.clone().requires_grad_(True) for v in (y0.re, y0.im))
+        yf = tdiff.adjoint_solve_adaptive(
+            basis, pc.coeff_fn, th, Cplx(yr, yi), 0.0, 1.0, ctl=cs.ADJ_CTL,
+            h0=cs.ADJ_H0, order=6)
+        value = 1.0 - torch.sum(pc.fidelity(yf, tg))
+        return (value.detach(), *torch.autograd.grad(value, (th, yr, yi)))
+
+    return run
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("parent", type=pathlib.Path)
+    ap.add_argument("--only", default=None,
+                    help="run only the cases whose label matches")
+    args = ap.parse_args()
+    t0 = time.perf_counter()
+    card = cs.device_phase()
+    _build.build(*MODULES)
+    parent = build_parent(args.parent.resolve())
+    print(f"[parent] built {sorted(parent)} from {args.parent} and this "
+          f"checkout's in {time.perf_counter() - t0:.1f} s", flush=True)
+    ok, only = [], args.only
+    for kind in ("magnus4", "magnus6", "cfm4"):
+        st, _ = cs.r_inputs(kind)
+        for B in (cs.REC_B, cs.N_TRAJ):
+            ok.append(compare(f"K4 {cs.LABELS[kind]} {B}x{cs.DIM}c f32",
+                              lambda st=st, B=B: k4_case(st, B), parent,
+                              card, inner=20 if B > cs.REC_B else 100,
+                              only=only))
+    ok.append(compare("K4 I/Q Magnus-4 pair (K' = 6) 16384x64c f32",
+                      lambda: k4_case(MagnusModulated4(
+                          cs.iq_op(fit_cols=False)), cs.N_TRAJ), parent,
+                      card, inner=20, only=only))
+    ok.append(compare("K4 eight-term Magnus-4 pair (K' = 36) 16384x64c f32",
+                      lambda: k4_case(MagnusModulated4(
+                          cs.multi_op(8, torch.float32)), cs.N_TRAJ),
+                      parent, card, inner=2, only=only))
+    y0 = cs.unit_states(cs.N_TRAJ, cs.DIM, torch.float32, 42)
+    for kind in ("magnus4", "magnus6", "cfm4"):
+        ok.append(compare(f"K2 + K5 {cs.LABELS[kind]} loop {cs.N_TRAJ}x"
+                          f"{cs.DIM}c f32",
+                          lambda kind=kind: loop_case(*cs.r_inputs(kind)),
+                          parent, card, only=only))
+    ok.append(compare("K2 + K5 I/Q loop 16384x64c f32",
+                      lambda: loop_case(MagnusModulated4(cs.iq_op()), y0),
+                      parent, card, only=only))
+    ok.append(compare("K2 + K5 black-box DrivenDense (ChebForm) loop "
+                      "16384x64c f32",
+                      lambda: loop_case(MagnusModulated4(cs.auto_drive_op()),
+                                        y0), parent, card, only=only))
+    spec = cs.drive_events().kernel_spec(cs.DIM, 2)
+    ok.append(compare("K2 + K5 Magnus-4 loop with events 16384x64c f32",
+                      lambda: loop_case(*cs.r_inputs("magnus4"),
+                                        events=spec), parent, card,
+                      only=only))
+    ok.append(compare("K2 + K5 Magnus-4 loop with dense output 16384x64c "
+                      "f32", lambda: loop_case(*cs.r_inputs("magnus4"),
+                                               dense=True), parent, card,
+                      only=only))
+
+    def lz():
+        st_lz, y_lz = cs.lz_inputs()
+        return lambda: cs.lz_solve(st_lz, y_lz)
+
+    ok.append(compare(f"K2 + K5 Landau-Zener {cs.N_TRAJ} sweeps, fixed "
+                      "steps", lz, parent, card, only=only))
+    ok.append(compare("adaptive Magnus-6 value-and-grad 256x64c f32 (K4 + "
+                      "K6)", value_and_grad_case, parent, card, only=only))
+    print(f"[parent] {sum(ok)}/{len(ok)} cases with the parent's bits, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print(card, flush=True)
+    if not all(ok):
+        sys.exit(1)
+
+
+if __name__ == "__main__":
+    main()

@@ -18,9 +18,8 @@
 //   3. cbar_k = <a, u_k> per trajectory, summed over its columns in a
 //      fixed order.
 // Every lane has its own row, so no exponent is shared: every action of a
-// Taylor term is chain_step.cuh's product chain_products (one (rows, D) @
-// (D, KP*D) product; MT = [W_0^T | ...] for W v and MS = [W_0 | ...] for
-// W^T v), the KP actions combined in k order with explicitly rounded
+// Taylor term is row_products below (one (rows, D) @ (D, KP*D) product;
+// MT = [W_0^T | ...] for W v and MS = [W_0 | ...] for W^T v), the KP actions combined in k order with explicitly rounded
 // operations and divided by the term's index, as the twin
 // ops/adjoint.py:torch_adjoint_row does. Trajectories that have finished
 // their passes are masked while the block runs to its largest count.
@@ -50,6 +49,56 @@ constexpr int ADJ_MAX_KP = 6;         // ops/adjoint.py: MAX_KP
 constexpr int ADJ_NARROW_THREADS = 256;
 constexpr int ADJ_MAX_THREADS = 1024;
 constexpr int ADJ_MAX_TILE = 8;
+
+// The body of row_products. FULL: every column of the thread lies inside
+// the row (D a multiple of CT), so the basis loads carry no bounds check
+// and a thread's loads of one j go out together.
+template <bool FULL, typename T, int RT, int KP>
+__device__ __forceinline__ void row_products_body(const T* trow, const T* __restrict__ mt,
+                                                    int D, int cg, int ncg,
+                                                    T (&y)[KP][RT][CT]) {
+  const size_t ld = (size_t)KP * D;
+#pragma unroll 2
+  for (int j = 0; j < D; ++j) {
+    T xv[RT];
+#pragma unroll
+    for (int q = 0; q < RT; ++q) xv[q] = trow[(size_t)q * D + j];
+    const T* mrow = mt + (size_t)j * ld;
+#pragma unroll
+    for (int k = 0; k < KP; ++k) {
+      T mv[CT];
+#pragma unroll
+      for (int c = 0; c < CT; ++c) {
+        const int col = cg + c * ncg;
+        mv[c] = (FULL || col < D) ? __ldg(mrow + (size_t)k * D + col) : T(0);
+      }
+#pragma unroll
+      for (int q = 0; q < RT; ++q)
+#pragma unroll
+        for (int c = 0; c < CT; ++c) y[k][q][c] = fma_full(xv[q], mv[c], y[k][q][c]);
+    }
+  }
+}
+
+// y_k[q][c] = sum_j term[row q][j] M_k[col c][j] for the thread's RT rows and
+// CT columns (cg, cg + ncg, ...), k < KP, from the (tile, D) slot `term`
+// and MT (D, KP*D) read from L2 at every term: all KP products of a Taylor
+// term in registers.
+template <typename T, int RT, int KP>
+__device__ __forceinline__ void row_products(const T* term, const T* __restrict__ mt, int D,
+                                               int rg, int cg, int ncg, T (&y)[KP][RT][CT]) {
+#pragma unroll
+  for (int k = 0; k < KP; ++k)
+#pragma unroll
+    for (int q = 0; q < RT; ++q)
+#pragma unroll
+      for (int c = 0; c < CT; ++c) y[k][q][c] = T(0);
+  const T* trow = term + (size_t)(rg * RT) * D;
+  if (D % CT == 0)
+    row_products_body<true, T, RT, KP>(trow, mt, D, cg, ncg, y);
+  else
+    row_products_body<false, T, RT, KP>(trow, mt, D, cg, ncg, y);
+}
 
 template <typename T>
 struct AdjParams {
@@ -198,7 +247,7 @@ __device__ void adj_state_chains(const AdjSmem<T>& s, int tile, int D, const T* 
     if (!__syncthreads_or(in && my_np > pass)) break;
     for (int kk = 1; kk <= m; ++kk) {
       T y[KP][1][CT];
-      if (in) chain_products<T, 1, KP>(slot, mat, D, ln.lr, ln.cg, ln.ncg, y);
+      if (in) row_products<T, 1, KP>(slot, mat, D, ln.lr, ln.cg, ln.ncg, y);
       __syncthreads();  // every read of the terms is done
       if (in) {
         const T div = T(kk);
@@ -257,7 +306,7 @@ __device__ void adj_frechet(const AdjSmem<T>& s, int rows, int tile, int D,
     if (!__syncthreads_or(in && my_np > pass)) break;
     for (int kk = 1; kk <= m; ++kk) {
       T y[KP][1][CT];
-      if (in) chain_products<T, 1, KP>(slot, mt, D, ln.lr, ln.cg, ln.ncg, y);
+      if (in) row_products<T, 1, KP>(slot, mt, D, ln.lr, ln.cg, ln.ncg, y);
       if (is_w) {  // W_k w for the direction terms of every u_k
 #pragma unroll
         for (int k = 0; k < KP; ++k)

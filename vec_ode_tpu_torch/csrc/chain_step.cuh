@@ -40,21 +40,32 @@
 // and returns x exactly.
 //
 // Basis terms: 1 to MAX_K0 = 8 (K' <= 36 working terms with the Magnus
-// commutators). chain_step_tile has two bodies for the products of a
-// Taylor term: the register body for K0 <= 2 (K' <= 3) and, past it, the
-// k-outer body, one basis term at a time in the same order and rounding.
-// K4 runs the register body from here and, for K0 > 2, its own tiled
-// many-term body (chain_expmv.cu, the same rows prologue and the same
-// bits); the loop kernel's K5 runs both bodies here.
+// commutators), one product body for every K': per basis term one (RM, CN)
+// product tile term @ M_k^T (gemm_tile.cuh: tile_fma, or tile_fma_n for
+// up to four terms side by side from a resident basis), folded at once
+// into w = cs_0 y_0, w = w + cs_k y_k in k order (mul_rn, add_rn), then
+// divided by the term's index. Each output element is one FMA chain from
+// zero in j order in one thread, so the bits do not depend on the launch
+// shape: K4's tiled route, K4's cluster route and the loop kernel's K5
+// all run this body and give the same results.
 //
-// Layout. Each thread owns RT rows x CT columns (columns cg, cg + ncg, ...),
-// as in rk_step.cuh, and keeps that part of the chain's running sum in
-// registers across the chain's exponentials; the Taylor term of the whole
-// tile lives in shared memory (one (tile, D) slot), and the basis is read
-// from device memory (L2) at each term: 3 x 128 x 128 values are 196 KB in
-// f32 and 393 KB in f64, too large for shared memory beside the state. x
-// and x_out are (tile, D) slots in shared memory; the node samples, the
-// per-row coefficients and pass counts of every (chain, exponential) too.
+// Layout. A block owns a tile of rows and the columns [c0, c0 + dc) of
+// them: all D columns, or on K4's cluster route (CLUSTER) the block's
+// slice of a tile that a cluster of N blocks shares. Each thread owns RM
+// rows x CN contiguous columns of that slice and keeps them of the
+// chain's running sum in registers across the chain's exponentials. The
+// Taylor term of the whole tile lives in shared memory transposed, (D,
+// tile), so that a thread's rows at one contraction index are one load;
+// the basis columns the block needs come through a PanelRing (resident
+// when they fit, else streamed from L2 by cp.async). A new term is
+// published into the block's term buffer, on the cluster route into every
+// block's copy through distributed shared memory, with one barrier (a
+// cluster barrier) before it is read; two term buffers alternate where no
+// ring barrier separates the reads of one term from the writes of the
+// next. x and x_out are (rows, D) in device memory (K4) or shared memory
+// (K5); the node samples, the per-row coefficients and pass counts of
+// every (chain, exponential) are in shared memory, the same in every block
+// of a cluster.
 //
 // Precision. Products accumulate by IEEE FMA in the state's type, never
 // TF32. The nodes, the recipe's coefficient arithmetic, the bound, the
@@ -66,6 +77,11 @@
 
 #pragma once
 
+#include <cooperative_groups.h>
+
+#include <type_traits>
+
+#include "gemm_tile.cuh"
 #include "rk_step.cuh"
 
 namespace vec_ode {
@@ -77,11 +93,6 @@ constexpr int MAX_NODES = 8;  // quadrature nodes per step (ops/expmv.py: MAX_NO
 constexpr int RECIPE_MIDPOINT = 0, RECIPE_MAGNUS4 = 1, RECIPE_MAGNUS4_FAST = 2,
               RECIPE_MAGNUS6 = 3, RECIPE_CFM = 4;
 constexpr int FORM_COEFF = 0, FORM_CHEB = 1;  // the declared form (ops/expmv.py: FORMS)
-// The register body (template value KP = K') holds all K' products of a
-// Taylor term (y[KP][RT][CT]) and runs the launches with K0 <= REG_K0 (K'
-// <= 3); every launch with more basis terms runs the k-outer body
-// (template value KP_DYN), which reads K' at run time.
-constexpr int REG_K0 = 2, KP_DYN = 0;
 // the parameter array of ops/expmv.py:chain_params: a 16-value header, then
 // fixed-size blocks at these offsets
 constexpr int P_NORMS = 16, P_SUB = P_NORMS + MAX_KP, P_NODES = P_SUB + 9,
@@ -156,29 +167,6 @@ bool chain_params_ok(const ChainParams<T>& p) {
          p.max_sq >= 0 && p.max_sq <= 30;
 }
 
-// The stride of the node samples in shared memory, for the code that
-// writes them and the code that reads them: the launch's K0 in the k-outer
-// body; REG_K0 in the register body, whose registers (ptxas) move when the
-// stride does.
-template <int KP, typename T>
-__host__ __device__ __forceinline__ int g_stride(const ChainParams<T>& p) {
-  return KP == KP_DYN ? p.K0 : REG_K0;
-}
-
-// K' of a launch: the register body's template value, else the
-// parameters'.
-template <int KP, typename T>
-__host__ __device__ __forceinline__ int kp_of(const ChainParams<T>& p) {
-  return KP == KP_DYN ? p.KP : KP;
-}
-
-// K0 of a launch: the register body's from its K' (1 -> 1, 2 and 3 -> 2),
-// known at compile time; else the parameters'.
-template <int KP, typename T>
-__host__ __device__ __forceinline__ int k0_of(const ChainParams<T>& p) {
-  return KP == KP_DYN ? p.K0 : (KP == 1 ? 1 : 2);
-}
-
 // The declared identity rows, which the step skips (ops/expmv.py:
 // identity_rows): the Magnus-6 comparison chain's rows 1 and 2.
 template <typename T>
@@ -204,21 +192,18 @@ inline cudaError_t device_limits(int* dev, int* max_smem, int* n_sm) {
   return cudaSuccess;
 }
 
-// Rows per block of a chain-step kernel: the largest power of two up to
-// 256 whose threads ((R / rt) x ceil(D / CT), and one per row) stay within
-// max_threads, whose three (R, D) slots (x, y, the Taylor term) take at
-// most 96 KB and whose whole shared memory smem_of(R) (with the per-row
-// coefficient rows, C R K' of them: 2 x 6 x 36 for Magnus-6 at K0 = 8)
-// fits the device's max_smem, halved further while the batch gives fewer
-// than two blocks per SM, down to 16 rows. The rows' results do not depend
-// on it. For K' <= 3 the shared-memory test never binds below the 96 KB
-// one, so those tiles are what they were.
+// Rows per block of the loop kernel's chain step: the largest power of two
+// up to 256 whose threads ((tile / rm) x ceil(D / 4), and one per row)
+// stay within max_threads, whose (tile, D) slots (x, y, the Taylor term)
+// take at most 96 KB and whose whole shared memory smem_of(tile) fits the
+// device's max_smem, halved further while the batch gives fewer than two
+// blocks per SM, down to 16 rows. The rows' results do not depend on it.
 template <typename T, class SmemOf>
-inline int chain_tile(int B, int D, int n_sm, int rt, int max_threads, size_t max_smem,
+inline int chain_tile(int B, int D, int n_sm, int rm, int max_threads, size_t max_smem,
                       SmemOf smem_of) {
-  const int ncg = (D + CT - 1) / CT;
+  const int ncg = gemm_dp(D) / GEMM_CN;
   int tile = 256;
-  while (tile > rt && (tile > max_threads || (tile / rt) * ncg > max_threads ||
+  while (tile > rm && (tile > max_threads || (tile / rm) * ncg > max_threads ||
                        3 * (size_t)tile * D * sizeof(T) > 96 * 1024 ||
                        smem_of(tile) > max_smem))
     tile /= 2;
@@ -226,33 +211,58 @@ inline int chain_tile(int B, int D, int n_sm, int rt, int max_threads, size_t ma
   return tile;
 }
 
-// The scratch the step needs in shared memory, carved from one block of T.
+// The step's scratch in shared memory, byte offsets of each region (each
+// 16-byte aligned), in this order: the Taylor term transposed (D, tile),
+// twice where the term alternates between two buffers (nbuf; the first
+// buffer then takes the error vector (tile, D)); the basis (PanelRing:
+// ring_bytes); the scaled rows (C R, tile, K'); the unscaled rows (tile,
+// K'), magnus4_fast only (the others build each row in place in its scaled
+// slot); the node samples (J, tile, K0); dt (tile), where the launcher
+// keeps it here; the pass counts (C R, tile). ops/expmv.py:chain_smem_bytes
+// mirrors it.
+template <typename T>
+struct ChainLayout {
+  size_t term, ring, cs, rows, g, dt, npass, total;
+  int nbuf;
+  __host__ __device__ ChainLayout(int tile, int D, int dc, const ChainParams<T>& p, bool cluster,
+                                  bool with_dt) {
+    const size_t nr = (size_t)p.C * p.R, kp = (size_t)p.KP;
+    nbuf = cluster || ring_resident<T>(D, p.KP, dc) ? 2 : 1;
+    size_t at = 0;
+    term = at, at += align16((size_t)nbuf * D * tile * sizeof(T));
+    ring = at, at += align16(ring_bytes<T>(D, p.KP, dc));
+    cs = at, at += align16(nr * tile * kp * sizeof(T));
+    rows = cs;
+    if (p.recipe == RECIPE_MAGNUS4_FAST) rows = at, at += align16((size_t)tile * kp * sizeof(T));
+    g = at, at += align16((size_t)p.J * tile * p.K0 * sizeof(T));
+    dt = at;
+    if (with_dt) at += align16((size_t)tile * sizeof(T));
+    npass = at, at += align16(nr * tile * sizeof(int));
+    total = at;
+  }
+};
+
+// The regions of a ChainLayout at `base`.
 template <typename T>
 struct ChainSmem {
-  T* term;     // (tile, D): the Taylor term; then the error partials
-  T* g;        // (J, tile, gs): the coefficients at the nodes (gs: g_stride)
-  T* rows;     // (C R, tile, K'): the unscaled coefficient rows
+  T* term;     // nbuf x (D, tile): the Taylor term, transposed
+  T* g;        // (J, tile, K0): the coefficients at the nodes
+  T* rows;     // (C R, tile, K'): the unscaled rows (magnus4_fast), else cs
   T* cs;       // (C R, tile, K'): the scaled rows
+  T* ring;     // the basis (PanelRing)
+  T* dt;       // (tile): dt, where the launcher keeps it here
   int* npass;  // (C R, tile): 2^s per row, 0 for rows past the batch
+  int nbuf;
 
-  __host__ __device__ static size_t elems(int tile, int D, int KP, int gs,
-                                          const ChainParams<T>& p) {
-    const size_t nr = (size_t)p.C * p.R;
-    const size_t ints = nr * tile * sizeof(int);
-    return (size_t)tile * D + (size_t)p.J * tile * gs + 2 * nr * tile * KP +
-           (ints + sizeof(T) - 1) / sizeof(T);
-  }
-  __device__ static ChainSmem carve(T* base, int tile, int D, int KP, int gs,
-                                    const ChainParams<T>& p) {
-    const size_t nr = (size_t)p.C * p.R;
-    ChainSmem s;
-    s.term = base;
-    s.g = s.term + (size_t)tile * D;
-    s.rows = s.g + (size_t)p.J * tile * gs;
-    s.cs = s.rows + nr * tile * KP;
-    s.npass = reinterpret_cast<int*>(s.cs + nr * tile * KP);
-    return s;
-  }
+  __device__ ChainSmem(unsigned char* base, const ChainLayout<T>& L)
+      : term(reinterpret_cast<T*>(base + L.term)),
+        g(reinterpret_cast<T*>(base + L.g)),
+        rows(reinterpret_cast<T*>(base + L.rows)),
+        cs(reinterpret_cast<T*>(base + L.cs)),
+        ring(reinterpret_cast<T*>(base + L.ring)),
+        dt(reinterpret_cast<T*>(base + L.dt)),
+        npass(reinterpret_cast<int*>(base + L.npass)),
+        nbuf(L.nbuf) {}
 };
 
 // c_k(t) of the declared form, its terms added in the order a, b t,
@@ -321,15 +331,14 @@ __device__ __forceinline__ void cheb_at(const ChainParams<T>& p, T t, T* out) {
 // Fills sm.g with the declared form (a CoeffForm or a ChebForm, by
 // p.form_kind) at the recipe's J nodes of each row. One thread per row;
 // the caller synchronises before the step reads it.
-template <int KP, typename T>
+template <typename T>
 __device__ void sample_form(const T* __restrict__ t_rows, const T* __restrict__ dt_rows,
                             const ChainSmem<T>& sm, int tile, const ChainParams<T>& p) {
-  const int gs = g_stride<KP>(p);
   for (int lr = threadIdx.x; lr < tile; lr += blockDim.x) {
     const T t = t_rows[lr], dt = dt_rows[lr];
     for (int nd = 0; nd < p.J; ++nd) {
       const T tn = node_time(p, nd, t, dt);
-      T* g = sm.g + ((size_t)nd * tile + lr) * gs;
+      T* g = sm.g + ((size_t)nd * tile + lr) * p.K0;
       if (p.form_kind == FORM_CHEB)
         cheb_at(p, tn, g);
       else
@@ -354,49 +363,31 @@ __device__ __forceinline__ int pass_count(T bound, const ChainParams<T>& p) {
   return 1 << s;
 }
 
-// The error measure of each row from the thread's part of the error vector
-// dv (acc): rk_step.cuh's ErrNorm (scaled_error against x and x_out, the
-// weight row, l2 or a NaN-propagating max, post), reduced over the
-// column groups in order through the term slot, into err_out.
-template <typename T, int RT>
-__device__ __forceinline__ void chain_err_measure(const T (&acc)[RT][CT], const T* x,
-                                                  const T* x_out, T* __restrict__ err_out,
-                                                  T* term, int rows, int D, bool active, int rg,
-                                                  int cg, const ErrNorm<T>& en) {
+// The error measure of each row lr < rows from the error vector dv
+// (tile, D) in shared memory: rk_step.cuh's ErrNorm (scaled_error against
+// x and x_out, the weight row, l2 or a NaN-propagating max, post), column
+// group cg of ceil(D / CT) summing columns cg, cg + ncg, ..., then the
+// groups in order, into err_out. One thread per row.
+template <typename T>
+__device__ __forceinline__ void chain_err_measure(const T* dv, const T* x, const T* x_out,
+                                                  T* __restrict__ err_out, int rows, int D,
+                                                  const ErrNorm<T>& en) {
   const int ncg = (D + CT - 1) / CT;
-  const int tid = threadIdx.x;
-  T part[RT];
-#pragma unroll
-  for (int q = 0; q < RT; ++q) part[q] = T(0);
-  if (active) {
-#pragma unroll
-    for (int q = 0; q < RT; ++q) {
-      const int lr = rg * RT + q;
-#pragma unroll
+  for (int lr = threadIdx.x; lr < rows; lr += blockDim.x) {
+    T a = T(0);
+    for (int cg = 0; cg < ncg; ++cg) {
+      T part = T(0);
       for (int k = 0; k < CT; ++k) {
         const int col = cg + k * ncg;
-        if (col >= D || lr >= rows) continue;
+        if (col >= D) continue;
         const size_t e = (size_t)lr * D + col;
-        T v = acc[q][k];
+        T v = dv[e];
         if (en.scaled)
           v = v / add_rn(en.atol, mul_rn(en.rtol, nan_max(fabs(x[e]), fabs(x_out[e]))));
         if (en.w_row != nullptr) v = v * en.w_row[col];
-        part[q] = en.kind_max ? nan_max(fabs(v), part[q]) : part[q] + v * v;
+        part = en.kind_max ? nan_max(fabs(v), part) : part + v * v;
       }
-    }
-  }
-  __syncthreads();  // the term slot is free: it takes the partials
-  T* red = term;  // (tile, ncg)
-  if (active) {
-#pragma unroll
-    for (int q = 0; q < RT; ++q) red[(rg * RT + q) * ncg + cg] = part[q];
-  }
-  __syncthreads();
-  for (int lr = tid; lr < rows; lr += blockDim.x) {
-    T a = T(0);
-    for (int g = 0; g < ncg; ++g) {
-      const T pv = red[lr * ncg + g];
-      a = en.kind_max ? nan_max(pv, a) : a + pv;
+      a = en.kind_max ? nan_max(part, a) : a + part;
     }
     T norm = en.kind_max ? a : sqrt_full(a);
     if (en.scaled) norm = norm * en.rtol;
@@ -423,27 +414,24 @@ __device__ __forceinline__ void m4_row(const T* ga, const T* gb, T dts, T b2, in
       row[at++] = mul_rn(bdd, sub_rn(mul_rn(ga[j], gb[k]), mul_rn(ga[k], gb[j])));
 }
 
+
 // Row r of chain c of trajectory lr into row[0 .. K'), unscaled (zero where
-// the recipe has a zero row); g holds the node samples (J, tile, gs), dt
-// the row's step. KP is the body's template value: the register body's
-// loops have K' and K0 known at compile time (row then lives in registers).
-template <int KP_, typename T>
+// the recipe has a zero row); g holds the node samples (J, tile, K0), dt
+// the row's step.
+template <typename T>
 __device__ __forceinline__ void chain_row(const ChainParams<T>& p, int c, int r, const T* g,
                                           int tile, int lr, T dt, T* row) {
-  const int KP = kp_of<KP_>(p), K0 = k0_of<KP_>(p);
-#pragma unroll
+  const int KP = p.KP, K0 = p.K0;
   for (int k = 0; k < KP; ++k) row[k] = T(0);
-  const T* g0 = g + (size_t)lr * g_stride<KP_>(p);  // node nd at g0 + nd * gs
-  const size_t gs = (size_t)tile * g_stride<KP_>(p);
+  const T* g0 = g + (size_t)lr * K0;  // node nd at g0 + nd * gs
+  const size_t gs = (size_t)tile * K0;
   switch (p.recipe) {
     case RECIPE_MIDPOINT:
-#pragma unroll
       for (int k = 0; k < KP; ++k) row[k] = mul_rn(dt, g0[k]);
       break;
     case RECIPE_CFM: {
       if (c == 1 && r >= p.n_err) break;  // a zero pad row
       const T* a = c == 0 ? p.alpha[r] : p.alpha_err[r];
-#pragma unroll
       for (int k = 0; k < KP; ++k) {
         T acc = T(0);
         bool any = false;
@@ -466,34 +454,30 @@ __device__ __forceinline__ void chain_row(const ChainParams<T>& p, int c, int r,
     default:  // Magnus-4; its comparison chain has zero commutator columns
       m4_row(g0, g0 + gs, dt, p.b2, K0, row);
       if (c == 1)
-#pragma unroll
-        for (int k = 0; k < KP; ++k)
-          if (k >= p.K0) row[k] = T(0);
+        for (int k = K0; k < KP; ++k) row[k] = T(0);
   }
 }
 
 // Steps 1-2 of the note, one thread per trajectory: every (chain,
-// exponential) row, its bound sum_k |c_k| ||M_k||_1, its pass count into
-// sm.npass and the row into sm.rows and, divided by the count, sm.cs; rows
-// past `rows` are zero and run no pass. The register body builds a row in
-// registers, the k-outer body in place in sm.rows. Ends with a barrier.
-template <int KP, typename T>
+// exponential) row, built in place in its sm.rows slot, its bound sum_k
+// |c_k| ||M_k||_1, its pass count into sm.npass and, divided by the
+// count, the row into sm.cs (the same slot but for magnus4_fast); rows
+// past `rows` are zero and run no pass. Ends with a barrier.
+template <typename T>
 __device__ __forceinline__ void chain_rows_setup(const T* __restrict__ dt_rows,
                                                  const ChainSmem<T>& sm, int rows, int tile,
                                                  const ChainParams<T>& p) {
-  constexpr bool KOUTER = KP == KP_DYN;
-  const int kp = kp_of<KP>(p);
+  const int kp = p.KP;
   for (int lr = threadIdx.x; lr < tile; lr += blockDim.x) {
     const bool ok = lr < rows;
     const T dt = ok ? dt_rows[lr] : T(0);
     for (int c = 0; c < p.C; ++c)
       for (int r = 0; r < p.R; ++r) {
         const size_t cr = (size_t)c * p.R + r;
-        T reg[KOUTER ? 1 : KP];
-        T* row = KOUTER ? sm.rows + (cr * tile + lr) * kp : reg;
-        chain_row<KP>(p, c, r, sm.g, tile, lr, dt, row);
+        // magnus4_fast (C = R = 1) keeps its one unscaled row apart
+        T* row = sm.rows + (cr * tile + lr) * kp;
+        chain_row(p, c, r, sm.g, tile, lr, dt, row);
         T bound = T(0);
-#pragma unroll
         for (int k = 0; k < kp; ++k) {
           if (!ok) row[k] = T(0);
           const T term = mul_rn(fabs(row[k]), p.norms[k]);
@@ -501,302 +485,221 @@ __device__ __forceinline__ void chain_rows_setup(const T* __restrict__ dt_rows,
         }
         const int n_pass = pass_count(bound, p);
         const T scale = T(1) / T(n_pass);  // exact
-#pragma unroll
-        for (int k = 0; k < kp; ++k) {
-          if (!KOUTER) sm.rows[(cr * tile + lr) * kp + k] = row[k];
-          sm.cs[(cr * tile + lr) * kp + k] = row[k] * scale;
-        }
+        for (int k = 0; k < kp; ++k) sm.cs[(cr * tile + lr) * kp + k] = row[k] * scale;
         sm.npass[cr * tile + lr] = ok && !identity_row(p, c, r) ? n_pass : 0;
       }
   }
   __syncthreads();
 }
 
-// The body of chain_products. FULL: every column of the thread lies inside
-// the row (D a multiple of CT), so the basis loads carry no bounds check
-// and a thread's loads of one j go out together.
-template <bool FULL, typename T, int RT, int KP>
-__device__ __forceinline__ void chain_products_body(const T* trow, const T* __restrict__ mt,
-                                                    int D, int cg, int ncg,
-                                                    T (&y)[KP][RT][CT]) {
-  const size_t ld = (size_t)KP * D;
-#pragma unroll 2
-  for (int j = 0; j < D; ++j) {
-    T xv[RT];
-#pragma unroll
-    for (int q = 0; q < RT; ++q) xv[q] = trow[(size_t)q * D + j];
-    const T* mrow = mt + (size_t)j * ld;
-#pragma unroll
-    for (int k = 0; k < KP; ++k) {
-      T mv[CT];
-#pragma unroll
-      for (int c = 0; c < CT; ++c) {
-        const int col = cg + c * ncg;
-        mv[c] = (FULL || col < D) ? __ldg(mrow + (size_t)k * D + col) : T(0);
-      }
-#pragma unroll
-      for (int q = 0; q < RT; ++q)
-#pragma unroll
-        for (int c = 0; c < CT; ++c) y[k][q][c] = fma_full(xv[q], mv[c], y[k][q][c]);
-    }
-  }
-}
-
-// y_k[q][c] = sum_j term[row q][j] M_k[col c][j] for the thread's RT rows and
-// CT columns, k < KP, from the (tile, D) slot `term` and MT (D, KP*D): the
-// register body's products of a Taylor term.
-template <typename T, int RT, int KP>
-__device__ __forceinline__ void chain_products(const T* term, const T* __restrict__ mt, int D,
-                                               int rg, int cg, int ncg, T (&y)[KP][RT][CT]) {
-#pragma unroll
-  for (int k = 0; k < KP; ++k)
-#pragma unroll
-    for (int q = 0; q < RT; ++q)
-#pragma unroll
-      for (int c = 0; c < CT; ++c) y[k][q][c] = T(0);
-  const T* trow = term + (size_t)(rg * RT) * D;
-  if (D % CT == 0)
-    chain_products_body<true, T, RT, KP>(trow, mt, D, cg, ncg, y);
-  else
-    chain_products_body<false, T, RT, KP>(trow, mt, D, cg, ncg, y);
-}
-
-// y[q][c] = sum_j term[row q][j] M_k[col c][j] for one basis term: mk =
-// MT + k D, rows of ld = K' D values (chain_products_body's order).
-template <bool FULL, typename T, int RT>
-__device__ __forceinline__ void chain_product_one(const T* trow, const T* __restrict__ mk,
-                                                  size_t ld, int D, int cg, int ncg,
-                                                  T (&y)[RT][CT]) {
-#pragma unroll
-  for (int q = 0; q < RT; ++q)
-#pragma unroll
-    for (int c = 0; c < CT; ++c) y[q][c] = T(0);
-#pragma unroll 2
-  for (int j = 0; j < D; ++j) {
-    T xv[RT];
-#pragma unroll
-    for (int q = 0; q < RT; ++q) xv[q] = trow[(size_t)q * D + j];
-    const T* mrow = mk + (size_t)j * ld;
-    T mv[CT];
-#pragma unroll
-    for (int c = 0; c < CT; ++c) {
-      const int col = cg + c * ncg;
-      mv[c] = (FULL || col < D) ? __ldg(mrow + col) : T(0);
-    }
-#pragma unroll
-    for (int q = 0; q < RT; ++q)
-#pragma unroll
-      for (int c = 0; c < CT; ++c) y[q][c] = fma_full(xv[q], mv[c], y[q][c]);
-  }
-}
-
-// The k-outer body's product of basis term k (K' read at run time).
-template <typename T, int RT>
-__device__ __forceinline__ void chain_product_k(const T* term, const T* __restrict__ mt, int k,
-                                                int KP, int D, int rg, int cg, int ncg,
-                                                T (&y)[RT][CT]) {
-  const T* trow = term + (size_t)(rg * RT) * D;
-  const size_t ld = (size_t)KP * D;
-  if (D % CT == 0)
-    chain_product_one<true, T, RT>(trow, mt + (size_t)k * D, ld, D, cg, ncg, y);
-  else
-    chain_product_one<false, T, RT>(trow, mt + (size_t)k * D, ld, D, cg, ncg, y);
-}
-
 // One chain step of a tile (see the note above); every thread of the block
-// calls it. Before the call sm.g holds the node samples of rows < `rows`,
-// and dt_rows, x are written; the block needs (tile / RT) * ceil(D / CT)
-// threads or more. Writes x_out (rows, D) and err_out (rows,), err_out zero
-// without an error estimate. x and x_out are (tile, D) slots in shared
-// memory whose rows past `rows` are zero.
-//
-// Two bodies for the products of a Taylor term, chosen by the template
-// value KP. The register body (KP = K' <= 3) keeps all K' products in
-// registers (y[KP][RT][CT]) and combines them after the barrier. The
-// k-outer body (KP == KP_DYN, K' up to MAX_KP read at run time; at K' = 36
-// y would be 576 values a thread) takes one (RT, CT) product tile term @
-// M_k^T per basis term and folds it at once into w = cs_0 y_0, w = w +
-// cs_k y_k: the same k order and rounding, so the same results bit for
-// bit; the term's rows are read from shared memory K' times per term.
-template <typename T, int RT, int KP>
+// (every block of the cluster, CLUSTER) calls it. Before the call sm.g
+// holds the node samples of rows < `rows` and dt_rows is written; x (rows,
+// D) is read and x_out (rows, D) written, both row-major with rows of D,
+// in device or shared memory; err_out (rows,) gets the error measure, zero
+// without an error estimate (by the cluster's first block only). The block
+// owns columns [c0, c0 + dc) and needs (tile / RM) * ceil(dc / CN) threads
+// or more; on the cluster route every block of the cluster runs the same
+// rows. ring streams or holds the basis columns the block needs, and the
+// step leaves it at the start of a term (the loop kernel's next step goes
+// on with it).
+template <typename T, int RM, int CN, bool CLUSTER>
 __device__ void chain_step_tile(const T* __restrict__ dt_rows, const T* x, T* x_out,
-                                T* __restrict__ err_out, const ChainSmem<T>& sm, int rows,
-                                int tile, int D, const T* __restrict__ mt,
+                                T* __restrict__ err_out, const ChainSmem<T>& sm,
+                                PanelRing<T>& ring, int rows, int tile, int D, int c0, int dc,
                                 const ChainParams<T>& p, const ErrNorm<T>& en) {
-  constexpr bool KOUTER = KP == KP_DYN;
-  const int ncg = (D + CT - 1) / CT;
-  const int items = (tile / RT) * ncg;
+  namespace cg = cooperative_groups;
+  const int ncl = (dc + CN - 1) / CN;  // the block's column groups
   const int tid = threadIdx.x;
-  const bool active = tid < items;
-  const int cg = tid % ncg;
-  const int rg = tid / ncg;
-  const int K0 = p.K0, C = p.C, R = p.R;
-  const int kp = kp_of<KP>(p);
+  const bool active = tid < (tile / RM) * ncl;
+  const int col0 = c0 + (tid % ncl) * CN, lr0 = (tid / ncl) * RM;
+  const int cend = c0 + dc;
+  const int kp = p.KP, K0 = p.K0, C = p.C, R = p.R;
   const bool fast = p.recipe == RECIPE_MAGNUS4_FAST;
-  const bool has_err = C == 2 || fast;
+  const bool dbl = sm.nbuf == 2;
+  const size_t tsz = (size_t)D * tile;
+  int nblk = 1, rank = 0;
+  if constexpr (CLUSTER) {
+    nblk = (int)cg::this_cluster().num_blocks();
+    rank = (int)cg::this_cluster().block_rank();
+  }
 
-  // 1-2. the rows, their bounds and pass counts
-  chain_rows_setup<KP>(dt_rows, sm, rows, tile, p);
+  // a barrier of every thread that reads what the others wrote
+  auto xsync = [&]() {
+    if constexpr (CLUSTER)
+      cg::this_cluster().sync();
+    else
+      __syncthreads();
+  };
+
+  // 1-2. the rows, their bounds and pass counts (the same in every block)
+  chain_rows_setup(dt_rows, sm, rows, tile, p);
+  if constexpr (CLUSTER) xsync();  // every block of the cluster has started
+
+  // v into term buffer b of the block (of every block of the cluster)
+  auto publish = [&](const T (&v)[RM][CN], int b) {
+    if (!active) return;
+    for (int blk = 0; blk < nblk; ++blk) {
+      T* dst = sm.term + b * tsz;
+      if constexpr (CLUSTER) dst = cg::this_cluster().map_shared_rank(dst, blk);
+#pragma unroll
+      for (int q = 0; q < RM; ++q)
+#pragma unroll
+        for (int k = 0; k < CN; ++k)
+          if (col0 + k < cend) dst[(size_t)(col0 + k) * tile + lr0 + q] = v[q][k];
+    }
+  };
+  // a new term: with one buffer once every read of the old one is done,
+  // read after the next ring barrier; with two into the other buffer,
+  // then the barrier
+  int cur = 0;
+  auto put_term = [&](const T (&v)[RM][CN]) {
+    if (dbl) {
+      publish(v, cur ^ 1);
+      xsync();
+      cur ^= 1;
+    } else {
+      __syncthreads();
+      publish(v, cur);
+    }
+  };
+
+  // the products of one Taylor term: y_b = term @ M_b^T panel by panel,
+  // folded at once into w in b order (b from b0; cf the row's
+  // coefficients); w = 0 where no b >= b0. Streamed, every thread takes
+  // every panel of the stream; resident, a microtile of fewer than 8
+  // outputs (the cluster route's) runs KB basis terms' chains side by side
+  // and folds them in order.
+  T acc[RM][CN], w[RM][CN];
+  auto fold = [&](int b, int b0, const T* cf, const T (&yv)[RM][CN]) {
+#pragma unroll
+    for (int q = 0; q < RM; ++q) {
+      const T cq = cf[(size_t)(lr0 + q) * kp + b];
+#pragma unroll
+      for (int k = 0; k < CN; ++k) {
+        const T part = mul_rn(cq, yv[q][k]);
+        w[q][k] = b == b0 ? part : add_rn(w[q][k], part);
+      }
+    }
+  };
+  constexpr int KB = RM * CN < 8 ? 4 : 1;
+  auto block = [&](auto nb, int b, int b0, const T* cf) {
+    constexpr int N = decltype(nb)::value;
+    if (!active || b + N <= b0) return;
+    T yv[N][RM][CN];
+#pragma unroll
+    for (int n = 0; n < N; ++n) tile_zero<T, RM, CN>(yv[n]);
+    tile_fma_n<T, RM, CN, N>(sm.term + cur * tsz + lr0, tile, ring.panel(b) + (col0 - c0),
+                             ring.stage, ring.DP, D, yv);
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+      if (b + n >= b0) fold(b + n, b0, cf, yv[n]);
+  };
+  auto products = [&](int b0, const T* cf) {
+    tile_zero<T, RM, CN>(w);
+    if (ring.resident) {
+      int b = 0;
+      for (; b + KB <= kp; b += KB) block(std::integral_constant<int, KB>{}, b, b0, cf);
+      if constexpr (KB > 1) {
+        const int left = kp - b;
+        if (left == 1) block(std::integral_constant<int, 1>{}, b, b0, cf);
+        if (left == 2) block(std::integral_constant<int, 2>{}, b, b0, cf);
+        if (left == 3) block(std::integral_constant<int, 3>{}, b, b0, cf);
+      }
+      return;
+    }
+    const T* term = sm.term + cur * tsz;
+    for (int b = 0; b < kp; ++b) {
+      T yv[RM][CN];
+      tile_zero<T, RM, CN>(yv);
+      for (int j0 = 0; j0 < D; j0 += ring.jc) {
+        const T* st = ring.acquire();
+        if (active && b >= b0)
+          tile_fma<T, RM, false, CN>(term + (size_t)j0 * tile + lr0, tile, st + (col0 - c0),
+                                     ring.DP, ring.rows_of(j0), yv);
+      }
+      if (active && b >= b0) fold(b, b0, cf, yv);
+    }
+  };
 
   // 3. the chains: per chain its rows in order on the running sum
-  T acc[RT][CT];
-  T y[KOUTER ? 1 : KP][RT][CT];  // the register body's K' products; the k-outer body's one
-  T w[RT][CT];                   // the k-outer body's combination
   for (int c = 0; c < C; ++c) {
 #pragma unroll
-    for (int q = 0; q < RT; ++q) {
-      const int lr = rg * RT + q;
+    for (int q = 0; q < RM; ++q)
 #pragma unroll
-      for (int k = 0; k < CT; ++k) {
-        const int col = cg + k * ncg;
-        acc[q][k] = (active && col < D) ? x[(size_t)lr * D + col] : T(0);
-      }
-    }
+      for (int k = 0; k < CN; ++k)
+        acc[q][k] = active && lr0 + q < rows && col0 + k < cend
+                        ? x[(size_t)(lr0 + q) * D + col0 + k] : T(0);
     for (int r = 0; r < R; ++r) {
       if (identity_row(p, c, r)) continue;  // e^0 = I: skipped, as the JAX kernels do
       const size_t cr = (size_t)c * R + r;
-      int np[RT];
+      int np[RM], np_max = 0;
 #pragma unroll
-      for (int q = 0; q < RT; ++q) np[q] = active ? sm.npass[cr * tile + rg * RT + q] : 0;
-      for (int pass = 0;; ++pass) {
-        bool mine = false;
-        if (active) {
-#pragma unroll
-          for (int q = 0; q < RT; ++q) {
-            mine = mine || np[q] > pass;
-#pragma unroll
-            for (int k = 0; k < CT; ++k) {
-              const int col = cg + k * ncg;
-              if (col < D) sm.term[(size_t)(rg * RT + q) * D + col] = acc[q][k];
-            }
-          }
-        }
-        // the pass's start state is written; go on while any row has passes
-        if (!__syncthreads_or(mine)) break;
+      for (int q = 0; q < RM; ++q) np[q] = active ? sm.npass[cr * tile + lr0 + q] : 0;
+      for (int lr = 0; lr < tile; ++lr) np_max = max(np_max, sm.npass[cr * tile + lr]);
+      // the block runs to the tile's largest count, masking finished rows
+      for (int pass = 0; pass < np_max; ++pass) {
+        put_term(acc);  // the pass's start state
         for (int kk = 1; kk <= p.m; ++kk) {
-          if constexpr (KOUTER) {
-            if (active) {
-              for (int b = 0; b < kp; ++b) {
-                chain_product_k<T, RT>(sm.term, mt, b, kp, D, rg, cg, ncg, y[0]);
-#pragma unroll
-                for (int q = 0; q < RT; ++q) {
-                  const T cq = sm.cs[(cr * tile + rg * RT + q) * kp + b];
-#pragma unroll
-                  for (int k = 0; k < CT; ++k) {
-                    const T part = mul_rn(cq, y[0][q][k]);
-                    w[q][k] = b == 0 ? part : add_rn(w[q][k], part);
-                  }
-                }
-              }
-            }
-          } else {
-            if (active) chain_products<T, RT, KP>(sm.term, mt, D, rg, cg, ncg, y);
-          }
-          __syncthreads();  // every read of the term is done
+          products(0, sm.cs + cr * tile * kp);
           if (active) {
             const T div = T(kk);
 #pragma unroll
-            for (int q = 0; q < RT; ++q) {
-              const int lr = rg * RT + q;
-              const T* cq = sm.cs + (cr * tile + lr) * kp;
+            for (int q = 0; q < RM; ++q)
 #pragma unroll
-              for (int k = 0; k < CT; ++k) {
-                const int col = cg + k * ncg;
-                if (col >= D) continue;
-                T wv;
-                if constexpr (KOUTER) {
-                  wv = w[q][k];
-                } else {
-                  wv = mul_rn(cq[0], y[0][q][k]);
-#pragma unroll
-                  for (int b = 1; b < KP; ++b) wv = add_rn(wv, mul_rn(cq[b], y[b][q][k]));
-                }
-                const T nt = wv / div;
-                sm.term[(size_t)lr * D + col] = nt;
+              for (int k = 0; k < CN; ++k) {
+                const T nt = w[q][k] / div;
+                w[q][k] = nt;
                 if (pass < np[q]) acc[q][k] = acc[q][k] + nt;
               }
-            }
           }
-          __syncthreads();  // the new term is written
+          put_term(w);
         }
       }
     }
     if (active) {
 #pragma unroll
-      for (int q = 0; q < RT; ++q) {
-        const int lr = rg * RT + q;
+      for (int q = 0; q < RM; ++q)
 #pragma unroll
-        for (int k = 0; k < CT; ++k) {
-          const int col = cg + k * ncg;
-          if (col >= D || lr >= rows) continue;
+        for (int k = 0; k < CN; ++k) {
+          if (col0 + k >= cend || lr0 + q >= rows) continue;
+          const size_t e = (size_t)(lr0 + q) * D + col0 + k;
           if (c == 0)
-            x_out[(size_t)lr * D + col] = acc[q][k];
+            x_out[e] = acc[q][k];
           else  // chain 1 - chain 0 (the thread wrote that element itself)
-            acc[q][k] = acc[q][k] - x_out[(size_t)lr * D + col];
+            acc[q][k] = acc[q][k] - x_out[e];
         }
-      }
     }
   }
-  if (!has_err) {
-    for (int lr = tid; lr < rows; lr += blockDim.x) err_out[lr] = T(0);
+  if (C == 1 && !fast) {
+    if (rank == 0)
+      for (int lr = tid; lr < rows; lr += blockDim.x) err_out[lr] = T(0);
     return;
   }
 
   // 4. the error vector dv (in acc) and its measure
   if (fast) {  // dv = sum_{k >= K0} w2_k (M_k y) on y, k in order
-    if (active) {
+    put_term(acc);  // y, zero past the batch
+    products(K0, sm.rows);
 #pragma unroll
-      for (int q = 0; q < RT; ++q) {
-        const int lr = rg * RT + q;
+    for (int q = 0; q < RM; ++q)
 #pragma unroll
-        for (int k = 0; k < CT; ++k) {
-          const int col = cg + k * ncg;
-          if (col < D) sm.term[(size_t)lr * D + col] = lr < rows ? x_out[(size_t)lr * D + col] : T(0);
-        }
-      }
-    }
-    __syncthreads();
-    if (active) {
-      if constexpr (KOUTER) {  // one product per k
-#pragma unroll
-        for (int q = 0; q < RT; ++q)
-#pragma unroll
-          for (int k = 0; k < CT; ++k) acc[q][k] = T(0);
-        for (int b = K0; b < kp; ++b) {
-          chain_product_k<T, RT>(sm.term, mt, b, kp, D, rg, cg, ncg, y[0]);
-#pragma unroll
-          for (int q = 0; q < RT; ++q) {
-            const T rq = sm.rows[(size_t)(rg * RT + q) * kp + b];
-#pragma unroll
-            for (int k = 0; k < CT; ++k) {
-              const T part = mul_rn(rq, y[0][q][k]);
-              acc[q][k] = b == K0 ? part : add_rn(acc[q][k], part);
-            }
-          }
-        }
-      } else {  // one product on y
-        chain_products<T, RT, KP>(sm.term, mt, D, rg, cg, ncg, y);
-#pragma unroll
-        for (int q = 0; q < RT; ++q) {
-          const T* rq = sm.rows + (size_t)(rg * RT + q) * KP;
-#pragma unroll
-          for (int k = 0; k < CT; ++k) {
-            T dv = T(0);
-            bool any = false;
-#pragma unroll
-            for (int b = 0; b < KP; ++b) {
-              if (b < K0) continue;
-              const T part = mul_rn(rq[b], y[b][q][k]);
-              dv = any ? add_rn(dv, part) : part;
-              any = true;
-            }
-            acc[q][k] = dv;
-          }
-        }
-      }
-    }
+      for (int k = 0; k < CN; ++k) acc[q][k] = w[q][k];
   }
-  chain_err_measure<T, RT>(acc, x, x_out, err_out, sm.term, rows, D, active, rg, cg, en);
+  // dv into the first term buffer of the first block, row-major (tile, D),
+  // once every read of the term is done; then chain_err_measure there
+  xsync();
+  T* dv = sm.term;
+  if constexpr (CLUSTER) dv = cg::this_cluster().map_shared_rank(dv, 0);
+  if (active) {
+#pragma unroll
+    for (int q = 0; q < RM; ++q)
+#pragma unroll
+      for (int k = 0; k < CN; ++k)
+        if (col0 + k < cend) dv[(size_t)(lr0 + q) * D + col0 + k] = acc[q][k];
+  }
+  xsync();
+  if (rank == 0) chain_err_measure(sm.term, x, x_out, err_out, rows, D, en);
 }
 
 }  // namespace vec_ode

@@ -74,12 +74,15 @@
 // 7 stages fit down to R = 4. More rows per block would leave SMs idle at
 // B = 2048; fewer would reread the operators from L2 for fewer rows.
 // Chain step: the largest power of two up to 256 rows whose threads
-// (R / 4 x ceil(D / 4)) stay within 256 and whose three (R, D) slots (x, y,
-// the Taylor term) take at most 96 KB, halved further while the batch
-// gives fewer than two blocks per SM (down to 16 rows): at B = 16384,
-// D = 128 that is R = 32 (256 threads, 512 blocks; 48 KB in f32, 96 KB in
-// f64), at D = 4 R = 32 too (8 threads in one warp, 512 blocks), so that
-// every SM holds blocks; one slow row holds its tile either way.
+// (R / 4 x ceil(D / 4): CHAIN_RM = 4 rows x 4 contiguous columns a thread)
+// stay within 256 and whose three (R, D) slots (x, y, the Taylor term)
+// take at most 96 KB, halved further while the batch gives fewer than two
+// blocks per SM (down to 16 rows): at B = 16384, D = 128 that is R = 32
+// (256 threads, 512 blocks; in f32 the term, x and y 48 KB and the basis
+// ring 48 KB, about 99 KB a block, two blocks an SM), at D = 4 R = 32 too
+// (8 threads in one warp, 512 blocks, the basis resident), so that every
+// SM holds blocks; one slow row holds its tile either way. The chain step
+// keeps its basis ring (or resident basis) from one step to the next.
 //
 // What bounds it: FP32 FMA throughput. RK: each iteration of each row is
 // 6 stages x 128 x 256 x 2 = 393 216 FLOP at d = 64 (RKF45). Magnus-4:
@@ -109,7 +112,8 @@ namespace {
 
 using namespace vec_ode;
 
-constexpr int RT = 4;                        // rows per thread in the step
+constexpr int RT = 4;                        // rows per thread in the RK step
+constexpr int CHAIN_RM = 4;                  // rows per thread in the chain step
 constexpr int MAX_ROWS = 16;                 // rows per block, at most
 constexpr int MAX_THREADS = 256;
 constexpr size_t SLOT_BUDGET = 64 * 1024;    // bytes of state slots per block (RK)
@@ -127,6 +131,10 @@ struct Ctl {
   int max_steps, max_streak, pi, comp, strict;
 };
 
+// A step keeps a State across the block's iterations (start() at entry,
+// finish() at exit) and its scratch in shared memory (scratch_bytes, a
+// multiple of 16 for the chain step).
+//
 // The RK step: rk_step_tile over s stage slots of (tile, D).
 template <typename T>
 struct RKLoopStep {
@@ -135,35 +143,51 @@ struct RKLoopStep {
   int s, advance_lower;
   T w;
 
-  __host__ __device__ size_t scratch_elems(int tile, int D) const {
-    return (size_t)s * tile * D;
+  struct State {};
+  __host__ __device__ size_t scratch_bytes(int tile, int D) const {
+    return (size_t)s * tile * D * sizeof(T);
   }
-  __device__ void operator()(const T* s_t, const T* s_dt, T* xs, T* ys, T* s_err, T* scratch,
-                             int rows, int tile, int D, const ErrNorm<T>& en) const {
-    rk_step_tile<T, RT>(s_t, s_dt, xs, ys, s_err, scratch, rows, tile, D, mt, tab, s, 1,
-                        advance_lower, w, en);
+  __device__ State start(unsigned char*, int, int) const { return State{}; }
+  __device__ void finish(State&) const {}
+  __device__ void operator()(State&, const T* s_t, const T* s_dt, T* xs, T* ys, T* s_err,
+                             unsigned char* scratch, int rows, int tile, int D,
+                             const ErrNorm<T>& en) const {
+    rk_step_tile<T, RT>(s_t, s_dt, xs, ys, s_err, reinterpret_cast<T*>(scratch), rows, tile, D,
+                        mt, tab, s, 1, advance_lower, w, en);
   }
 };
 
 // The chain step: the declared form (CoeffForm or ChebForm) sampled at
-// the recipe's nodes, then chain_step_tile over KP working terms (its
-// k-outer body for KP == KP_DYN: K0 > 2, K' read at run time), C chains of
-// R exponentials.
-template <typename T, int KP>
+// the recipe's nodes, then chain_step_tile over the K' working terms of
+// the parameters, C chains of R exponentials, CHAIN_RM x 4 outputs a
+// thread. Its State is the basis ring (resident or streamed), started
+// once and carried from step to step.
+template <typename T>
 struct ChainLoopStep {
   const T* mt;
   ChainParams<T> p;
 
-  __host__ __device__ size_t scratch_elems(int tile, int D) const {
-    return ChainSmem<T>::elems(tile, D, kp_of<KP>(p), g_stride<KP>(p), p);
+  using State = PanelRing<T>;
+  __host__ __device__ ChainLayout<T> layout(int tile, int D) const {
+    return ChainLayout<T>(tile, D, D, p, false, false);
   }
-  __device__ void operator()(const T* s_t, const T* s_dt, T* xs, T* ys, T* s_err, T* scratch,
-                             int rows, int tile, int D, const ErrNorm<T>& en) const {
-    const ChainSmem<T> sm =
-        ChainSmem<T>::carve(scratch, tile, D, kp_of<KP>(p), g_stride<KP>(p), p);
-    sample_form<KP>(s_t, s_dt, sm, tile, p);
+  __host__ __device__ size_t scratch_bytes(int tile, int D) const {
+    return layout(tile, D).total;
+  }
+  __device__ State start(unsigned char* scratch, int tile, int D) const {
+    State ring(mt, reinterpret_cast<T*>(scratch + layout(tile, D).ring), D, p.KP, 0, D, D);
+    ring.prologue();
+    return ring;
+  }
+  __device__ void finish(State& ring) const { ring.drain(); }
+  __device__ void operator()(State& ring, const T* s_t, const T* s_dt, T* xs, T* ys, T* s_err,
+                             unsigned char* scratch, int rows, int tile, int D,
+                             const ErrNorm<T>& en) const {
+    const ChainSmem<T> sm(scratch, layout(tile, D));
+    sample_form(s_t, s_dt, sm, tile, p);
     __syncthreads();
-    chain_step_tile<T, RT, KP>(s_dt, xs, ys, s_err, sm, rows, tile, D, mt, p, en);
+    chain_step_tile<T, CHAIN_RM, GEMM_CN, false>(s_dt, xs, ys, s_err, sm, ring, rows, tile, D,
+                                                 0, D, p, en);
   }
 };
 
@@ -256,10 +280,10 @@ fused_loop_kernel(const T* __restrict__ t_grid, int n_grid, const T* __restrict_
                   T* __restrict__ fs_out, int* __restrict__ ist_out, T* __restrict__ x_out,
                   T* __restrict__ saves, int B, int D, int tile, Step step, ErrNorm<T> en,
                   Ctl<T> ctl, int iters, int adaptive, LoopExtra<T> ex) {
-  extern __shared__ unsigned char smem_raw[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const size_t n = (size_t)tile * D;
-  T* scratch = reinterpret_cast<T*>(smem_raw);          // the step's scratch
-  T* xs = scratch + step.scratch_elems(tile, D);        // the state x (tile, D)
+  unsigned char* scratch = smem_raw;                                // the step's scratch
+  T* xs = reinterpret_cast<T*>(smem_raw + step.scratch_bytes(tile, D));  // the state x (tile, D)
   T* ys = xs + n;                                       // the trial state y (tile, D)
   T* s_t = ys + n;                                      // per row: t, dt, err measure
   T* s_dt = s_t + tile;
@@ -292,6 +316,7 @@ fused_loop_kernel(const T* __restrict__ t_grid, int n_grid, const T* __restrict_
   if (EXTRA && own && ex.n_ev > 0) searching = ex.searching[r], h_entry = ex.h_entry[r];
   const T eps = eps_of<T>();
   const T four_eps = T(4) * eps;  // exact: a power of two
+  auto state = step.start(scratch, tile, D);
 
   for (int it = 0;; ++it) {
     // also the barrier between one iteration's updates and the next's reads
@@ -320,9 +345,10 @@ fused_loop_kernel(const T* __restrict__ t_grid, int n_grid, const T* __restrict_
     }
     __syncthreads();
 
-    step(s_t, s_dt, xs, ys, s_err, scratch, rows, tile, D, en);
+    step(state, s_t, s_dt, xs, ys, s_err, scratch, rows, tile, D, en);
     __syncthreads();
-    if (EXTRA && ex.n_ev > 0) event_values(ys, scratch, rows, tile, D, row0, ex);
+    if (EXTRA && ex.n_ev > 0)
+      event_values(ys, reinterpret_cast<T*>(scratch), rows, tile, D, row0, ex);
 
     // controller and bookkeeping, one thread per row (pallas_loop.py:316-539)
     int act = 0;
@@ -493,6 +519,7 @@ fused_loop_kernel(const T* __restrict__ t_grid, int n_grid, const T* __restrict_
     }
   }
 
+  step.finish(state);
   if (own) {
     T* f = fs_out + (row0 + tid) * N_F;
     f[0] = t, f[1] = h, f[2] = prev_h, f[3] = err_prev, f[4] = t_lo;
@@ -555,9 +582,8 @@ bool parse_extra(const void* const* ptr, const double* par, int n_grid, LoopExtr
 // The shared memory of a block of `tile` rows.
 template <typename T, class Step>
 size_t loop_smem(const Step& step, int tile, int D, bool extra) {
-  return (step.scratch_elems(tile, D) + 2 * (size_t)tile * D + (extra ? 4 : 3) * (size_t)tile) *
-             sizeof(T) +
-         tile * sizeof(int);
+  return step.scratch_bytes(tile, D) +
+         (2 * (size_t)tile * D + (extra ? 4 : 3) * (size_t)tile) * sizeof(T) + tile * sizeof(int);
 }
 
 // Launches the loop kernel with `step` over tiles of `tile` rows.
@@ -631,19 +657,6 @@ int launch(const void* t_grid, int n_grid, const void* fs_in, const void* ist_in
                     adaptive, ex, dev, max_smem, stream);
 }
 
-template <typename T, int KP>
-int run_chain(const ChainParams<T>& p, const void* mt, int B, int D, const void* t_grid,
-              int n_grid, const void* fs_in, const void* ist_in, const void* x_in, void* fs_out,
-              void* ist_out, void* x_out, void* saves, const ErrNorm<T>& en, const Ctl<T>& ctl,
-              int iters, int adaptive, const LoopExtra<T>& ex, int dev, int max_smem, int n_sm,
-              void* stream) {
-  const ChainLoopStep<T, KP> step{(const T*)mt, p};
-  const int tile = chain_tile<T>(B, D, n_sm, RT, MAX_THREADS, (size_t)max_smem,
-                                 [&](int tl) { return loop_smem<T>(step, tl, D, true); });
-  return run_any<T>(step, tile, t_grid, n_grid, fs_in, ist_in, x_in, fs_out, ist_out, x_out,
-                    saves, B, D, en, ctl, iters, adaptive, ex, dev, max_smem, stream);
-}
-
 template <typename T>
 int launch_chain(const void* t_grid, int n_grid, const void* fs_in, const void* ist_in,
                  const void* x_in, void* fs_out, void* ist_out, void* x_out, void* saves, int B,
@@ -661,20 +674,12 @@ int launch_chain(const void* t_grid, int n_grid, const void* fs_in, const void* 
   int dev = 0, max_smem = 0, n_sm = 0;
   cudaError_t st = device_limits(&dev, &max_smem, &n_sm);
   if (st != cudaSuccess) return (int)st;
-  const ErrNorm<T> en = parse_norm<T>(w_row, post, kind_max, c);
-  const Ctl<T> ctl = parse_ctl<T>(c);
-#define VEC_ODE_RUN_CHAIN(KP_)                                                                \
-  return run_chain<T, KP_>(p, mt, B, D, t_grid, n_grid, fs_in, ist_in, x_in, fs_out, ist_out, \
-                           x_out, saves, en, ctl, iters, adaptive, ex, dev, max_smem, n_sm,   \
-                           stream)
-  if (p.K0 > REG_K0) VEC_ODE_RUN_CHAIN(KP_DYN);
-  switch (p.KP) {
-    case 1: VEC_ODE_RUN_CHAIN(1);
-    case 2: VEC_ODE_RUN_CHAIN(2);
-    case 3: VEC_ODE_RUN_CHAIN(3);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef VEC_ODE_RUN_CHAIN
+  const ChainLoopStep<T> step{(const T*)mt, p};
+  const int tile = chain_tile<T>(B, D, n_sm, CHAIN_RM, MAX_THREADS, (size_t)max_smem,
+                                 [&](int tl) { return loop_smem<T>(step, tl, D, true); });
+  return run_any<T>(step, tile, t_grid, n_grid, fs_in, ist_in, x_in, fs_out, ist_out, x_out,
+                    saves, B, D, parse_norm<T>(w_row, post, kind_max, c), parse_ctl<T>(c), iters,
+                    adaptive, ex, dev, max_smem, stream);
 }
 
 }  // namespace

@@ -1,24 +1,24 @@
-// Tiled SIMT products for Hopper (sm_90a), shared by K4's many-term body
-// (chain_expmv.cu) and K7 (adjoint.cu): a Taylor term of a tile of
-// trajectories is a (tile, D) @ (D, D) product whose right operand sits in
-// shared memory, either streamed through a ring of panels (K4: the basis
-// M_k^T, slab by slab) or formed there once per row (K7: the row's
-// exponent).
+// Tiled SIMT products for Hopper (sm_90a), shared by K4 and the loop
+// kernel's chain step K5 (chain_step.cuh) and by K7 (adjoint.cu): a Taylor
+// term of a tile of trajectories is a (tile, D) @ (D, D) product whose
+// right operand sits in shared memory, either the basis M_k^T (K4, K5:
+// resident, loaded once, or streamed through a ring of panels, slab by
+// slab) or formed there once per row (K7: the row's exponent).
 //
 // Layout. The right operand is row-major with a padded row of DP =
-// ceil(D / 4) * 4 values, so that a thread's GEMM_CN = 4 columns are one
-// 16-byte load (two for f64). A thread owns an RM x 4 tile of the product
-// and, per contraction index j, reads RM + 4 values from shared memory for
-// 4 RM FMAs. K4 holds the term transposed, termT[j * tile + row], so that a
-// thread's RM rows at one j are contiguous (8 x 4: 32 FMAs per three
-// 16-byte loads); K7 holds it row-major, where its
-// 16-byte stores of a new term meet no bank conflict. The threads of a
-// warp share their rows (a broadcast) and read consecutive columns.
+// ceil(width / 4) * 4 values, so that a thread's CN <= 4 columns are one
+// load of 8 or 16 bytes (two for f64 at CN = 4). A thread owns an RM x CN
+// tile of the product and, per contraction index j, reads RM + CN values
+// from shared memory for RM CN FMAs. K4 and K5 hold the term transposed,
+// termT[j * tile + row], so that a thread's RM rows at one j are
+// contiguous (8 x 4: 32 FMAs per three 16-byte loads); K7 holds it
+// row-major, where its 16-byte stores of a new term meet no bank
+// conflict. The threads of a warp share their rows (a broadcast) and read
+// consecutive columns.
 //
 // Precision. Each element of a product is the IEEE FMA chain over j in
-// increasing order from zero, in the state's type: what the per-element
-// loops of chain_step.cuh compute, so a panel split of j changes no bit.
-// Never TF32; build without --use_fast_math.
+// increasing order from zero, in the state's type, so a panel split of j
+// changes no bit. Never TF32; build without --use_fast_math.
 
 #pragma once
 
@@ -31,17 +31,34 @@ constexpr int GEMM_CN = 4;                 // columns per thread, contiguous
 constexpr int GEMM_PANEL_BYTES = 16384;    // one panel of the ring
 constexpr int GEMM_STAGES = 3;             // panels in flight and in use
 constexpr int GEMM_MAX_JC = 32;            // contraction rows per panel at most
-constexpr int GEMM_RM_F32 = 8, GEMM_RM_F64 = 4;  // K4's rows per thread
+constexpr int GEMM_RM_F32 = 8, GEMM_RM_F64 = 4;  // K4's tiled rows per thread
 
 // The padded row of a right operand in shared memory.
 __host__ __device__ inline int gemm_dp(int D) { return (D + GEMM_CN - 1) / GEMM_CN * GEMM_CN; }
 
-// Contraction rows of a panel: GEMM_PANEL_BYTES of padded rows, a
-// multiple of 8, from 8 to GEMM_MAX_JC.
+// Contraction rows of a panel of a right operand `width` columns wide:
+// GEMM_PANEL_BYTES of padded rows, a multiple of 8, from 8 to GEMM_MAX_JC.
 template <typename T>
-__host__ __device__ inline int gemm_jc(int D) {
-  int jc = GEMM_PANEL_BYTES / (gemm_dp(D) * (int)sizeof(T)) / 8 * 8;
+__host__ __device__ inline int gemm_jc(int width) {
+  int jc = GEMM_PANEL_BYTES / (gemm_dp(width) * (int)sizeof(T)) / 8 * 8;
   return jc < 8 ? 8 : (jc > GEMM_MAX_JC ? GEMM_MAX_JC : jc);
+}
+
+// The basis slice of a block (dc of each M_k^T's D columns, K' terms)
+// stays resident in shared memory, loaded once, when it takes no more
+// than the ring would; else it streams through the ring.
+template <typename T>
+__host__ __device__ inline bool ring_resident(int D, int kp, int dc) {
+  return (size_t)kp * D * gemm_dp(dc) * sizeof(T) <=
+         (size_t)GEMM_STAGES * GEMM_PANEL_BYTES;
+}
+
+// Bytes of the basis in shared memory: the resident slice or the ring.
+template <typename T>
+__host__ __device__ inline size_t ring_bytes(int D, int kp, int dc) {
+  return ring_resident<T>(D, kp, dc)
+             ? (size_t)kp * D * gemm_dp(dc) * sizeof(T)
+             : (size_t)GEMM_STAGES * gemm_jc<T>(dc) * gemm_dp(dc) * sizeof(T);
 }
 
 // Bytes rounded up to 16, so that every carved region stays 16-byte aligned.
@@ -73,27 +90,55 @@ __device__ __forceinline__ void lds_vec(const T* p, T (&v)[N]) {
 }
 
 // y[q][c] = fma(a_q(j), b[j * bs + c], y[q][c]) for j = 0 .. jn - 1 in
-// order: a thread's RM rows of the term against its 4 columns of the right
-// operand (b = its first column). The term is transposed (ROWS false: a_q(j)
-// = a[j * as + q], a thread's rows one or two 16-byte loads) or row-major
-// (ROWS true: a_q(j) = a[q * as + j]); a points at the thread's first row
-// at the first contraction index.
-template <typename T, int RM, bool ROWS>
+// order: a thread's RM rows of the term against its CN columns of the
+// right operand (b = its first column). The term is transposed (ROWS
+// false: a_q(j) = a[j * as + q], a thread's rows one or two 16-byte loads)
+// or row-major (ROWS true: a_q(j) = a[q * as + j]); a points at the
+// thread's first row at the first contraction index.
+template <typename T, int RM, bool ROWS, int CN = GEMM_CN>
 __device__ __forceinline__ void tile_fma(const T* a, int as, const T* b, int bs, int jn,
-                                         T (&y)[RM][GEMM_CN]) {
+                                         T (&y)[RM][CN]) {
   auto step = [&](int j) {
-    T av[RM], bv[GEMM_CN];
+    T av[RM], bv[CN];
     if constexpr (ROWS) {
 #pragma unroll
       for (int q = 0; q < RM; ++q) av[q] = a[(size_t)q * as + j];
     } else {
       lds_vec<T, RM>(a + (size_t)j * as, av);
     }
-    lds_vec<T, GEMM_CN>(b + (size_t)j * bs, bv);
+    lds_vec<T, CN>(b + (size_t)j * bs, bv);
 #pragma unroll
     for (int q = 0; q < RM; ++q)
 #pragma unroll
-      for (int c = 0; c < GEMM_CN; ++c) y[q][c] = fma_full(av[q], bv[c], y[q][c]);
+      for (int c = 0; c < CN; ++c) y[q][c] = fma_full(av[q], bv[c], y[q][c]);
+  };
+  int j = 0;
+  for (; j + 8 <= jn; j += 8) {
+#pragma unroll
+    for (int u = 0; u < 8; ++u) step(j + u);
+  }
+  for (; j < jn; ++j) step(j);
+}
+
+// tile_fma for N right operands at once, b + n * bn (n < N), each with its
+// own products y[n]: one load of the term's rows serves N operands, and a
+// thread runs N * RM * CN independent chains (more in flight where the
+// microtile is small). Each y[n][q][c] is the same FMA chain as tile_fma's.
+template <typename T, int RM, int CN, int N>
+__device__ __forceinline__ void tile_fma_n(const T* a, int as, const T* b, size_t bn, int bs,
+                                           int jn, T (&y)[N][RM][CN]) {
+  auto step = [&](int j) {
+    T av[RM];
+    lds_vec<T, RM>(a + (size_t)j * as, av);
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      T bv[CN];
+      lds_vec<T, CN>(b + n * bn + (size_t)j * bs, bv);
+#pragma unroll
+      for (int q = 0; q < RM; ++q)
+#pragma unroll
+        for (int c = 0; c < CN; ++c) y[n][q][c] = fma_full(av[q], bv[c], y[n][q][c]);
+    }
   };
   int j = 0;
   for (; j + 8 <= jn; j += 8) {
@@ -114,12 +159,12 @@ __device__ __forceinline__ void sts_vec4(T* p, const T (&v)[GEMM_CN]) {
   }
 }
 
-template <typename T, int RM>
-__device__ __forceinline__ void tile_zero(T (&y)[RM][GEMM_CN]) {
+template <typename T, int RM, int CN = GEMM_CN>
+__device__ __forceinline__ void tile_zero(T (&y)[RM][CN]) {
 #pragma unroll
   for (int q = 0; q < RM; ++q)
 #pragma unroll
-    for (int c = 0; c < GEMM_CN; ++c) y[q][c] = T(0);
+    for (int c = 0; c < CN; ++c) y[q][c] = T(0);
 }
 
 // cp.async: BYTES (4, 8 or 16) from global to shared memory, no registers
@@ -142,33 +187,45 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// The periodic stream of panels of MT = [M_0^T | ... | M_{KP-1}^T] (D,
-// KP*D) through a ring of GEMM_STAGES panels in shared memory: the stream
-// runs over blocks b = 0 .. KP - 1 and, in each, panels of jc contraction
-// rows j0 = 0, jc, ..., so every Taylor term takes the same KP * npan
-// panels in order (k outer, j inner) and the copy of a later term's first
-// panels overlaps this term's last. Every thread of the block copies and
-// waits; positions advance by counters (no division per panel), a
-// thread's copies by a fixed stride of blockDim.
+// The basis of a chain step in shared memory: columns [c0, c0 + dc) of
+// every M_k^T of MT = [M_0^T | ... | M_{KP-1}^T] (D, KP*D), the block's
+// slice (all D columns but on K4's cluster route, where the last block of
+// a cluster may own fewer than the `width` its layout holds), read as
+// panels of jc contraction rows in the order every Taylor term takes them:
+// k outer, j inner, KP * npan panels a term.
+//  * resident (ring_resident at `width`): all KP panels of D rows, loaded
+//    once by prologue(), read through panel(b) with no barrier;
+//  * streamed: a ring of GEMM_STAGES panels taken in turn by acquire(),
+//    the copy of panel p + 2 in flight while panel p is multiplied; the
+//    periodic stream runs on across terms, rows, chains and (in the loop
+//    kernel) steps.
+// Every thread of the block copies and waits; positions advance by
+// counters (no division per panel), a thread's copies by a fixed stride
+// of blockDim. Padding columns of a panel are never written.
 template <typename T>
 struct PanelRing {
   static constexpr int V = 16 / sizeof(T);  // values a 16-byte copy moves
   const T* mt;
   T* ring;
-  size_t ld;     // KP * D
-  int D, DP, kp, jc, npan;
-  size_t stage;  // jc * DP values
-  bool vec16;    // 16-byte copies: D a multiple of V, mt 16-byte aligned
-  int chunks;    // copies per contraction row
+  size_t ld;      // KP * D
+  int D, DP, kp, jc, npan, nst;  // DP: the slice's padded row; nst: stages
+  size_t stage;   // jc * DP values
+  bool resident;
+  bool vec16;     // 16-byte copies: the slice's rows 16-byte aligned
+  int chunks;     // copies per contraction row
   int jj0, ci0, djj, dci;  // this thread's first copy, the stride between its copies
   int nb = 0, nj = 0, ns = 0;  // the next panel to issue: block, panel index, stage
   int cs = 0;                  // the stage of the next panel to acquire
 
-  __device__ PanelRing(const T* mt_, T* ring_, int D_, int kp_, int jc_)
-      : mt(mt_), ring(ring_), ld((size_t)kp_ * D_), D(D_), DP(gemm_dp(D_)), kp(kp_), jc(jc_),
-        npan((D_ + jc_ - 1) / jc_), stage((size_t)jc_ * gemm_dp(D_)) {
-    vec16 = D % V == 0 && ((size_t)mt % 16) == 0;
-    chunks = vec16 ? D / V : D;
+  __device__ PanelRing(const T* mt_, T* ring_, int D_, int kp_, int c0, int dc, int width)
+      : mt(mt_ + c0), ring(ring_), ld((size_t)kp_ * D_), D(D_), DP(gemm_dp(width)), kp(kp_) {
+    resident = ring_resident<T>(D_, kp_, width);
+    jc = resident ? D_ : gemm_jc<T>(width);
+    npan = (D_ + jc - 1) / jc;
+    nst = resident ? kp_ : GEMM_STAGES;
+    stage = (size_t)jc * DP;
+    vec16 = D % V == 0 && c0 % V == 0 && dc % V == 0 && ((size_t)mt_ % 16) == 0;
+    chunks = vec16 ? dc / V : dc;
     jj0 = threadIdx.x / chunks, ci0 = threadIdx.x % chunks;
     djj = blockDim.x / chunks, dci = blockDim.x % chunks;
   }
@@ -198,24 +255,35 @@ struct PanelRing {
       nj = 0;
       if (++nb == kp) nb = 0;
     }
-    if (++ns == GEMM_STAGES) ns = 0;
+    if (++ns == nst) ns = 0;
   }
-  // The first GEMM_STAGES - 1 panels.
+  // Resident: the whole slice, landed and visible to the block. Streamed:
+  // the first GEMM_STAGES - 1 panels, in flight.
   __device__ void prologue() {
+    if (resident) {
+      for (int p = 0; p < kp; ++p) issue();
+      cp_async_wait<0>();
+      __syncthreads();
+      return;
+    }
     for (int p = 0; p < GEMM_STAGES - 1; ++p) issue();
   }
-  // The next panel of the stream once every thread's copy of it has
-  // landed; then the copy of the panel GEMM_STAGES - 1 further on goes into
-  // the stage the previous panel used, which every thread has finished
-  // with (the barrier).
+  // Streamed: the next panel of the stream, once every thread's copy of it
+  // has landed; then the copy of the panel GEMM_STAGES - 1 further on goes
+  // into the stage the previous panel used, which every thread has
+  // finished with (the barrier).
   __device__ const T* acquire() {
     cp_async_wait<GEMM_STAGES - 2>();
     __syncthreads();
     issue();
     const T* s = ring + (size_t)cs * stage;
-    if (++cs == GEMM_STAGES) cs = 0;
+    if (++cs == nst) cs = 0;
     return s;
   }
+  // Resident: panel b (all D rows of M_b^T's slice).
+  __device__ const T* panel(int b) const { return ring + (size_t)b * stage; }
+  // The stream's last speculative copies, before the block exits.
+  __device__ void drain() { cp_async_wait<0>(); }
 };
 
 }  // namespace vec_ode

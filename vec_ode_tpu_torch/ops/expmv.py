@@ -34,9 +34,16 @@ basis.
 * :func:`fused_chain_apply` is the wrapper of the hand-written CUDA kernel
   ``csrc/chain_expmv.cu`` (K4): CPU tensors run the twin, CUDA tensors
   launch the kernel or raise. ``fused_chain_apply.launches`` counts the
-  launches. Over more than two basis terms K4 runs its many-term body, a
-  tiled product through ``csrc/gemm_tile.cuh``, whose launch plan
-  :func:`gemm_tile` and :func:`gemm_smem_bytes` mirror.
+  launches. K4 and the loop kernel's chain step K5 run one product body
+  for every K' (``csrc/chain_step.cuh`` over ``csrc/gemm_tile.cuh``): per
+  basis term a tiled product of the transposed term with M_k^T streamed
+  through a cp.async ring (or resident in shared memory), folded at once
+  in k order. K4 launches it on one of two routes, tiled or, where that
+  gives fewer blocks than SMs, a thread-block cluster per tile sharing
+  the term through distributed shared memory; :func:`chain_plan` mirrors
+  the choice, :func:`chain_smem_bytes` the shared memory and
+  :func:`loop_plan` K5's tile in the loop kernel. The routes give the
+  same bits.
 """
 
 from __future__ import annotations
@@ -516,15 +523,24 @@ def _kernel_lib() -> ctypes.CDLL:
     return lib
 
 
-# the tiled products of csrc/gemm_tile.cuh (K4's many-term body and K7):
-# threads a block at most, columns per thread, a panel's bytes, panels in
-# the ring, contraction rows a panel at most, K4's rows per thread by type
+# the tiled products of csrc/gemm_tile.cuh (K4, K5 and K7): threads a block
+# at most, columns per thread, a panel's bytes, panels in the ring,
+# contraction rows a panel at most, K4's tiled rows per thread by type
 GEMM_THREADS = 256
 GEMM_CN = 4
 GEMM_PANEL_BYTES = 16384
 GEMM_STAGES = 3
 GEMM_MAX_JC = 32
 GEMM_RM = {4: 8, 8: 4}
+# K4's cluster route (csrc/chain_expmv.cu): blocks a cluster at most, the
+# outputs a thread (rows, columns), rows a cluster at most
+CLUSTER_MAX = 4
+CLUSTER_RM, CLUSTER_CN = 1, 2
+CLUSTER_TILE = 16
+# the loop kernel's chain step (csrc/fused_loop.cu): rows a thread, threads
+# a block at most
+LOOP_RM = 4
+LOOP_THREADS = 256
 
 
 def _align16(n: int) -> int:
@@ -537,42 +553,128 @@ def gemm_dp(D: int) -> int:
 
 
 def gemm_jc(D: int, elem: int) -> int:
-    """Contraction rows of a panel for elements of ``elem`` bytes."""
+    """Contraction rows of a panel of a right operand D columns wide, for
+    elements of ``elem`` bytes."""
     jc = GEMM_PANEL_BYTES // (gemm_dp(D) * elem) // 8 * 8
     return min(max(jc, 8), GEMM_MAX_JC)
 
 
-def gemm_smem_bytes(tile: int, D: int, elem: int, recipe: str, C: int,
-                    K0: int, table: Optional[CfmTable] = None) -> int:
-    """Shared memory of K4's many-term body for ``tile`` rows
-    (chain_expmv.cu: GemmLayout): the term, the ring, the scaled rows,
-    magnus4_fast's unscaled rows, the node samples, dt, the pass counts."""
+def ring_resident(D: int, Kp: int, dc: int, elem: int) -> bool:
+    """Whether a block's basis slice (dc of each M_k^T's D columns, K'
+    terms) stays resident in shared memory: when it takes no more than the
+    ring (gemm_tile.cuh)."""
+    return Kp * D * gemm_dp(dc) * elem <= GEMM_STAGES * GEMM_PANEL_BYTES
+
+
+def ring_bytes(D: int, Kp: int, dc: int, elem: int) -> int:
+    """Bytes of a block's basis in shared memory: resident or the ring."""
+    if ring_resident(D, Kp, dc, elem):
+        return Kp * D * gemm_dp(dc) * elem
+    return GEMM_STAGES * gemm_jc(dc, elem) * gemm_dp(dc) * elem
+
+
+def chain_smem_bytes(tile: int, D: int, dc: int, elem: int, recipe: str,
+                     C: int, K0: int, table: Optional[CfmTable] = None,
+                     cluster: bool = False, with_dt: bool = True) -> int:
+    """Shared memory of the chain step's scratch for ``tile`` rows of
+    which a block owns ``dc`` columns (csrc/chain_step.cuh: ChainLayout):
+    the term (twice where it alternates: on the cluster route or with the
+    basis resident), the basis, the scaled rows, magnus4_fast's unscaled
+    rows, the node samples, dt (K4 keeps it there), the pass counts."""
     nr = C * n_rows(recipe, table)
     kp = n_working_terms(recipe, K0)
     J = n_nodes(recipe, C, table)
-    parts = [D * tile * elem,
-             GEMM_STAGES * gemm_jc(D, elem) * gemm_dp(D) * elem,
+    nbuf = 2 if cluster or ring_resident(D, kp, dc, elem) else 1
+    parts = [nbuf * D * tile * elem, ring_bytes(D, kp, dc, elem),
              nr * tile * kp * elem,
              tile * kp * elem if recipe == "magnus4_fast" else 0,
-             J * tile * K0 * elem, tile * elem, nr * tile * 4]
+             J * tile * K0 * elem, tile * elem if with_dt else 0,
+             nr * tile * 4]
     return sum(_align16(p) for p in parts)
 
 
 def gemm_tile(B: int, D: int, elem: int, recipe: str, C: int, K0: int,
               table: Optional[CfmTable] = None, n_sm: int = 132,
               max_smem: int = 232448) -> int:
-    """Rows per block of K4's many-term body (K0 > 2; chain_expmv.cu:
-    gemm_tile_of) on a card of ``n_sm`` SMs with ``max_smem`` bytes of
-    shared memory a block (an H100's by default)."""
+    """Rows per block of K4's tiled route (chain_expmv.cu: chain_plan) on a
+    card of ``n_sm`` SMs with ``max_smem`` bytes of shared memory a block
+    (an H100's by default)."""
     rm, ncg = GEMM_RM[elem], gemm_dp(D) // GEMM_CN
     tile = 128
     while tile > rm and ((tile // rm) * ncg > GEMM_THREADS
-                         or gemm_smem_bytes(tile, D, elem, recipe, C, K0,
-                                            table) > max_smem):
+                         or chain_smem_bytes(tile, D, D, elem, recipe, C,
+                                             K0, table) > max_smem):
         tile //= 2
     while tile > 16 and -(-B // tile) < n_sm:
         tile //= 2
     return tile
+
+
+def chain_plan(B: int, D: int, elem: int, recipe: str, C: int, K0: int,
+               table: Optional[CfmTable] = None, n_sm: int = 132,
+               max_smem: int = 232448) -> dict:
+    """K4's launch plan (chain_expmv.cu: chain_plan): the tiled route
+    (:func:`gemm_tile`) unless it gives fewer blocks than SMs, then the
+    cluster route: dc = ceil(D / CLUSTER_MAX) columns a block (rounded up
+    to CLUSTER_CN), n = ceil(D / dc) >= 2 blocks a tile, and tiles of the
+    largest power of two up to CLUSTER_TILE rows that fits, halved while
+    the clusters' blocks are fewer than SMs. Returns the route, n, tile,
+    dc, rows and columns a thread, threads, blocks, shared memory a block
+    and whether the basis stays resident."""
+    kp = n_working_terms(recipe, K0)
+    tile = gemm_tile(B, D, elem, recipe, C, K0, table, n_sm, max_smem)
+    dc = -(-(-(-D // CLUSTER_MAX)) // CLUSTER_CN) * CLUSTER_CN
+    n = -(-D // dc)
+    if -(-B // tile) >= n_sm or n < 2:
+        rm, cn, n, dc, cluster = GEMM_RM[elem], GEMM_CN, 1, D, False
+    else:
+        rm, cn, cluster = CLUSTER_RM, CLUSTER_CN, True
+        ncl = -(-dc // cn)
+        tile = CLUSTER_TILE
+        while tile > rm and ((tile // rm) * ncl > GEMM_THREADS
+                             or chain_smem_bytes(tile, D, dc, elem, recipe, C,
+                                                 K0, table, True)
+                             > max_smem):
+            tile //= 2
+        while tile > rm and -(-B // tile) * n < n_sm:
+            tile //= 2
+    items = (tile // rm) * -(-dc // cn)
+    return dict(route="cluster" if cluster else "tiled", n=n, tile=tile,
+                dc=dc, rm=rm, cn=cn, threads=-(-items // 32) * 32,
+                blocks=-(-B // tile) * n,
+                smem=chain_smem_bytes(tile, D, dc, elem, recipe, C, K0,
+                                      table, cluster),
+                resident=ring_resident(D, kp, dc, elem))
+
+
+def loop_plan(B: int, D: int, elem: int, recipe: str, C: int, K0: int,
+              table: Optional[CfmTable] = None, extra: bool = False,
+              n_sm: int = 132, max_smem: int = 232448) -> dict:
+    """The loop kernel's chain-step tile and shared memory a block
+    (fused_loop.cu: chain_tile with loop_smem, sized with its events / dense
+    switch on; ``extra`` gives the shared memory of that instantiation):
+    the largest power of two up to 256 rows whose threads fit LOOP_THREADS,
+    whose three (tile, D) slots take at most 96 KB and whose shared memory
+    fits, halved while the batch gives fewer than two blocks per SM, down
+    to 16."""
+    ncg = gemm_dp(D) // GEMM_CN
+
+    def smem(tile, ext):
+        return (chain_smem_bytes(tile, D, D, elem, recipe, C, K0, table,
+                                 with_dt=False)
+                + (2 * tile * D + (4 if ext else 3) * tile) * elem + tile * 4)
+
+    tile = 256
+    while tile > LOOP_RM and (tile > LOOP_THREADS
+                              or (tile // LOOP_RM) * ncg > LOOP_THREADS
+                              or 3 * tile * D * elem > 96 * 1024
+                              or smem(tile, True) > max_smem):
+        tile //= 2
+    while tile > 16 and -(-B // tile) < 2 * n_sm:
+        tile //= 2
+    return dict(tile=tile, smem=smem(tile, extra),
+                resident=ring_resident(D, n_working_terms(recipe, K0), D,
+                                       elem))
 
 
 # the layout of the parameter array (parse_chain_params and the P_*
