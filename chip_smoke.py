@@ -35,7 +35,10 @@ drives the port's paths once at full width through
   operator samples, a launch of the dense chain kernel
   ``fused_dense_chain_apply`` (K9) per driver iteration; the same solve
   with each step by a stacked batched ``expm`` (the library reference) and
-  against the Magnus loop path;
+  against the Magnus loop path; K9 against its twin on both of its routes
+  (Taylor actions from the resident exponent, and the formed polynomial
+  past the route rule) in f32 and f64, D = 4 to 256 (clusters at 256),
+  with NaN rows and the declared norms, counting each route's exponents;
 * the reversible adjoint (K6, K7, K8) on ``PulseControl``: fixed-step,
   with saves and anchors, and adaptive at Magnus orders 4 and 6 and over
   CFM-4 rows, against f64 ``matrix_exp`` oracles;
@@ -70,7 +73,9 @@ bound and, for K4 (at 256 on its cluster route and 16 384 on its tiled
 one, also at K' = 6 and 36, each with its launch plan, ptxas lines and
 masked share of passes), K6-K8 (at 256 and 4096; K7 and K8 with their
 launch shapes and ptxas lines, and the value-and-grad wall with K7's and
-K8's shares of it) and K9, a library yardstick. Every phase raises on failure, so
+K8's shares of it) and K9 (at 4096 and 256, with its launch plan and
+its bound by the least work, k9_flop_bytes), a library yardstick. Every
+phase raises on failure, so
 any failure exits non-zero; without a CUDA card it exits non-zero before
 any result.
 
@@ -115,8 +120,7 @@ from vec_ode_tpu_torch.ops import adjoint as tadj
 from vec_ode_tpu_torch.ops import (_build, dense_chains, expmv, fused_loop,
                                    fused_rk)
 from vec_ode_tpu_torch.ops.cplx import Cplx, embed, from_complex
-from vec_ode_tpu_torch.ops.dense_chains import (chain_products,
-                                                fused_dense_chain_apply,
+from vec_ode_tpu_torch.ops.dense_chains import (fused_dense_chain_apply,
                                                 torch_dense_chains)
 from vec_ode_tpu_torch.ops.expmv import (fused_chain_apply, node_times,
                                          torch_chain_step)
@@ -184,8 +188,8 @@ def device_phase() -> str:
 def ptxas_summary(name: str) -> str:
     """Registers and spill stores of each instantiation (f32, f64; the RK or
     chain step; K4's tiled or cluster route with its rows a thread; the
-    loop kernel with its events / dense switch on) of the kernel, from
-    ptxas's report in its build log."""
+    loop kernel with its events / dense switch on; K9 on one block or a
+    cluster) of the kernel, from ptxas's report in its build log."""
     log = _build.build_log(name)
     if not log.exists():   # a library built before logs were kept
         return "no build log"
@@ -212,6 +216,8 @@ def ptxas_summary(name: str) -> str:
                 inst += " chain"
             if name == "fused_loop" and "Lb1E" in m.group(3):
                 inst += " events/dense"
+            if name == "dense_chains":  # K9: one block, or a cluster
+                inst += " cluster" if "Lb1E" in m.group(3) else " one block"
             continue
         m = re.search(r"(\d+) bytes spill stores", line)
         if inst and m:
@@ -1755,10 +1761,16 @@ def dense_tables() -> dict:
     }
 
 
-def dense_inputs(table, B, D, dtype, seed=5, big_row=None, nan_row=None):
+def dense_inputs(table, B, D, dtype, seed=5, big_row=None, nan_row=None,
+                 formed_row=None):
     """Random per-trajectory samples of 1-norm about sqrt(D), dt in
     [1e-3, 5e-2) and states of scale 0.1; ``big_row`` gets dt = 0.7 (past
-    theta, so only it squares in f32), ``nan_row`` a NaN sample."""
+    theta, so only it squares in f32), ``nan_row`` a NaN sample and
+    ``formed_row`` dt = 1 and independent skew-symmetric samples, scaled
+    together so that the table's largest exponent has 1-norm 1.5 2^s
+    theta, s the least count the route rule forms at this D: that exponent
+    takes the formed route with s squarings (7 at D = 128), its
+    propagator orthogonal."""
     rng = np.random.default_rng(seed)
     ops = rng.standard_normal((table.n_nodes, B, D, D)) / D ** 0.5
     dt = rng.uniform(1e-3, 5e-2, B)
@@ -1766,19 +1778,49 @@ def dense_inputs(table, B, D, dtype, seed=5, big_row=None, nan_row=None):
         dt[big_row] = 0.7
     if nan_row is not None:
         ops[0, nan_row, 0, 0] = np.nan
+    if formed_row is not None:
+        G = rng.standard_normal((table.n_nodes, D, D))
+        S = G - np.swapaxes(G, 1, 2)
+        m, theta = dense_fast.ps_params(dtype)
+        sq = next(k for k in range(64)
+                  if not dense_chains.takes_actions(k, m, D))
+        ops[:, formed_row] = S * formed_scale(table, S,
+                                              1.5 * 2.0 ** sq * theta)
+        dt[formed_row] = 1.0
     xw = rng.standard_normal((B, D)) * 0.1
     return (torch.as_tensor(a, dtype=dtype, device="cuda")
             for a in (ops, dt, xw))
 
 
+def formed_scale(table, S, target: float) -> float:
+    """The factor c > 0 at which the largest 1-norm of the table's
+    exponents over the samples c S (n_nodes, D, D) at dt = 1 is ``target``
+    (bisection: the norm grows with c, its commutators as c^2)."""
+    one = torch.ones(1, dtype=torch.float64)
+
+    def top(c):
+        ops = torch.as_tensor(c * S)[:, None]
+        return max(float(W.abs().sum(-2).amax())
+                   for chain in table.exponents(ops, one) for W in chain)
+
+    lo, hi = 0.0, 1.0
+    while top(hi) < target:
+        lo, hi = hi, 2 * hi
+    for _ in range(50):
+        mid = 0.5 * (lo + hi)
+        lo, hi = (mid, hi) if top(mid) < target else (lo, mid)
+    return hi
+
+
 def check_dense(label, table, node_ops, dt, xw, nan_row=None,
-                wnorm=None) -> float:
-    """K9 against its twin on the card. f64: only the order of the sums
-    differs, 1e-11 on states of scale <= 1 and 1e-9 of each error norm.
-    f32: 2e-5 of the largest state entry; the error norm is a difference
-    of two propagated states, so its limit is 1e-3 of the norm plus four
-    times the f32 twin's own distance from the f64 twin on these inputs.
-    ``wnorm``: a declared error norm, which both execute."""
+                wnorm=None, formed_row=None) -> float:
+    """K9 against its twin on the card, printing how many exponents took
+    each route (``formed_row``: one must be formed). f64: only the order of
+    the sums differs, 1e-11 on states of scale <= 1 and 1e-9 of each error
+    norm. f32: 2e-5 of the largest state entry; the error norm is a
+    difference of two propagated states, so its limit is 1e-3 of the norm
+    plus four times the f32 twin's own distance from the f64 twin on these
+    inputs. ``wnorm``: a declared error norm, which both execute."""
     dtype = xw.dtype
     m, theta = dense_fast.ps_params(dtype)
     kw = dict(m=m, theta=theta, max_squarings=GEN_MAX_SQUARINGS, wnorm=wnorm)
@@ -1823,11 +1865,15 @@ def check_dense(label, table, node_ops, dt, xw, nan_row=None,
                   f"{float(ep.max()):.2e}")
     s_all = torch.stack(counts_s)
     ok = ok and dy <= y_lim
+    n_act, n_formed = k9_routes(table, counts_s, m, xw.shape[1])
+    if formed_row is not None:
+        ok = ok and n_formed > 0
     print(f"[dense] {label} {str(dtype)[6:]} B={xw.shape[0]} D={xw.shape[1]} "
           f"({table.n_nodes} nodes, chains of "
           f"{[len(c) for c in table.chains]}): max|dy|={dy:.3e} (<= "
           f"{y_lim:.1e}); {de_txt}; squarings up to {int(s_all.max())}, "
-          f"{int(s_all.amax(0).gt(0).sum())} row(s) square"
+          f"{int(s_all.amax(0).gt(0).sum())} row(s) square; exponents "
+          f"{n_act} by actions, {n_formed} formed"
           f"{'' if nan_row is None else f'; NaN stays in row {nan_row}'}"
           f"; {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
@@ -1856,15 +1902,18 @@ def model_dense_inputs(B, seed=7):
 
 
 def dense_chain_phase() -> float:
-    """K9 against its twin: every table in f64 at D = 8 and D = 128, with
-    a row past theta and a NaN row; the Magnus-4 pair under each declared
-    norm in f64 and f32; the main path's table in f32 at D = 4 and at
-    4096 x 128, on random samples and on the path's own."""
+    """K9 against its twin on both routes: every table in f64 at D = 8
+    and D = 128, with a row past theta, a row on the formed route and a
+    NaN row; the Magnus-4 pair under each declared norm in f64 and f32;
+    the cluster plans at D = 256 in f32 and f64; the main path's table in
+    f32 at D = 4 and at 4096 x 128, on random samples and on the path's
+    own (every exponent by actions)."""
+    rows = dict(big_row=3, nan_row=5, formed_row=4)
     for name, table in dense_tables().items():
         for B, D in ((1500, 8), (300, 128)):
             check_dense(name, table,
-                        *dense_inputs(table, B, D, torch.float64, big_row=3,
-                                      nan_row=5), nan_row=5)
+                        *dense_inputs(table, B, D, torch.float64, **rows),
+                        nan_row=5, formed_row=4)
     pair = tmagnus.magnus4_table(pair=True)
     for kind, weights in (("l2", True), ("rms", False), ("max", True)):
         label = (f"magnus4 pair, norm {kind}"
@@ -1873,20 +1922,23 @@ def dense_chain_phase() -> float:
                             (300, 128, torch.float64),
                             (1000, 128, torch.float32)):
             check_dense(label, pair,
-                        *dense_inputs(pair, B, D, dtype, big_row=3,
-                                      nan_row=5), nan_row=5,
-                        wnorm=weighted(kind, D // 2, weights))
+                        *dense_inputs(pair, B, D, dtype, **rows), nan_row=5,
+                        wnorm=weighted(kind, D // 2, weights), formed_row=4)
+    for dtype in (torch.float32, torch.float64):
+        check_dense("magnus4 pair, a cluster a trajectory", pair,
+                    *dense_inputs(pair, 200, 256, dtype, **rows), nan_row=5,
+                    formed_row=4)
     # samples at an offset and with a stride of their own over the nodes
     ops, dt, xw = dense_inputs(pair, 300, 128, torch.float32)
-    store = torch.zeros(2, 301, 128, 128, device="cuda")
-    store[:, 1:] = ops
-    check_dense("magnus4 pair, samples as a strided view", pair,
-                store[:, 1:], dt, xw)
+    store = torch.zeros(2, 301, 128 * 128 + 1, device="cuda")
+    store[:, 1:, 1:] = ops.reshape(2, 300, -1)
+    check_dense("magnus4 pair, samples as an unaligned strided view", pair,
+                store[:, 1:, 1:].unflatten(-1, (128, 128)), dt, xw)
     check_dense("magnus4 pair", pair,
                 *dense_inputs(pair, 1000, 4, torch.float32, big_row=3))
     check_dense("magnus4 pair", pair,
-                *dense_inputs(pair, GEN_TRAJ, 2 * DIM, torch.float32,
-                              big_row=3, nan_row=5), nan_row=5)
+                *dense_inputs(pair, GEN_TRAJ, 2 * DIM, torch.float32, **rows),
+                nan_row=5, formed_row=4)
     return check_dense("magnus4 pair, the generic path's samples", pair,
                        *model_dense_inputs(GEN_TRAJ))
 
@@ -2009,15 +2061,45 @@ def generic_path_phase() -> int:
     return k9
 
 
-def k9_flop_bytes(table, counts_s, B, D, nbytes):
-    """One K9 launch: the (D, D) products the data needs (two per
-    commutator term, five per exponent and one per squaring, from the
-    twin's counts) and a matvec per exponent; the samples, dt and x read
-    once, y and err written once."""
-    n_exp = len(table.exponents_flat)
-    flop = (chain_products(table, counts_s) * 2 * D ** 3
-            + B * n_exp * 2 * D * D)
+def k9_flop_bytes(table, counts_s, B, D, nbytes, m=12):
+    """One K9 launch by the least work the data needs, whatever route the
+    kernel takes: per trajectory and exponent (``counts_s``: each
+    exponent's (B,) squaring counts s from the twin) its formation
+    (n_nodes D^2), two products of 2 D^3 per commutator term, and the least
+    of the formed route (ps_products(m) + s products and one
+    matrix-vector product of 2 D^2) and the Taylor actions (2^s m
+    matrix-vector products); the samples, dt and x read once, y and err
+    written once."""
+    mm, mv = 2 * D ** 3, 2 * D * D
+    flop = 0
+    for ex, s in zip(table.exponents_flat, counts_s):
+        s = s.to(torch.float64).cpu()
+        formed = (dense_chains.ps_products(m) + s) * mm + mv
+        actions = torch.exp2(s) * (m * mv)
+        flop += (int(torch.minimum(formed, actions).sum())
+                 + B * (table.n_nodes * D * D + 2 * len(ex.comms) * mm))
     return flop, nbytes * (table.n_nodes * B * D * D + 2 * B * D + 2 * B)
+
+
+def k9_plan_text(B, D, dtype) -> str:
+    """K9's launch plan on this card, and whether the Python mirror agrees."""
+    kp = dense_chains.kernel_plan(B, D, dtype)
+    mirror = dense_chains.dense_plan(B, D, torch.finfo(dtype).bits // 8)
+    same = all(mirror[k] == v for k, v in kp.items())
+    if not same:
+        raise AssertionError(f"K9's plan {kp} is not its mirror's {mirror}")
+    return (f"{kp['clusters']} clusters of {kp['cs']} block(s), "
+            f"{kp['rows']} rows of W a block, {kp['smem']} B of shared "
+            f"memory a block, product chunks of {kp['rc']} rows, "
+            f"{kp['tpr']} threads a matrix-vector row; the mirror agrees")
+
+
+def k9_routes(table, counts_s, m, D) -> tuple:
+    """(exponents on the actions route, exponents formed) over the
+    trajectories, by the route rule the kernel and its twin share."""
+    act = sum(int(dense_chains.takes_actions(s, m, D).sum())
+              for s in counts_s)
+    return act, sum(s.numel() for s in counts_s) - act
 
 
 def k9_timing_at(B: int, card: str):
@@ -2067,12 +2149,14 @@ def k9_timing_at(B: int, card: str):
     k_ms, p_ms, s_ms, l_ms = (statistics.median(runs[k]) for k in runs)
     # what torch.matmul reaches on B such products, FP32 without TF32
     mm_ms = timed_ms(lambda: node_ops[0] @ node_ops[1], reps=3, inner=inner)
-    flop, nbytes = k9_flop_bytes(table, counts_s, B, D, 4)
+    flop, nbytes = k9_flop_bytes(table, counts_s, B, D, 4, m=m)
     b_ms, b_by = bound(flop, nbytes)
     sq = sum(int(s.sum()) for s in counts_s)
+    n_act, n_formed = k9_routes(table, counts_s, m, D)
     print(f"[time] K9 one Magnus-4 pair step at B={B}, d={DIM}, f32 "
-          f"({chain_products(table, counts_s)} products of {D}^3, {sq} of "
-          f"them squarings): kernel {k_ms:.4f} ms "
+          f"(exponents: {n_act} by actions, {n_formed} formed; {sq} "
+          f"squarings in all; plan {k9_plan_text(B, D, torch.float32)}): "
+          f"kernel {k_ms:.4f} ms "
           f"({flop / k_ms / 1e9:.2f} TFLOP/s), plain twin {p_ms:.4f} ms, "
           f"stacked reference (exponents, batched expm, matvecs) "
           f"{s_ms:.4f} ms (max|y - y_K9|={d_st:.2e}), library (matrix_exp + "

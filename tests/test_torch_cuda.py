@@ -37,6 +37,7 @@ from vec_ode_tpu_torch.ops import adjoint as tadj
 from vec_ode_tpu_torch.ops import expmv
 from vec_ode_tpu_torch.ops.expmv import fused_chain_apply
 from vec_ode_tpu_torch.ops.cplx import Cplx, from_complex
+from vec_ode_tpu_torch.ops import dense_chains as dc
 from vec_ode_tpu_torch.ops.dense_chains import fused_dense_chain_apply
 from vec_ode_tpu_torch.ops.fused_loop import fused_loop_chunk
 from vec_ode_tpu_torch.ops.fused_rk import (MAX_WIDTH,
@@ -691,27 +692,39 @@ def test_adaptive_adjoint_r_on_the_card_matches_the_cpu_path_f64(card, kw,
                                        (torch.float64, 140, 128),
                                        (torch.float32, 300, 128),
                                        (torch.float32, 1000, 4),
-                                       (torch.float64, 3, 1)])
+                                       (torch.float64, 3, 1),
+                                       (torch.float32, 100, 64),
+                                       (torch.float64, 100, 64),
+                                       (torch.float32, 40, 256),
+                                       (torch.float64, 40, 256)])
 @pytest.mark.parametrize("name", list(chip_smoke.dense_tables()))
 def test_dense_chain_kernel_matches_twin(card, name, dtype, B, D):
     """K9 against its twin to chip_smoke.check_dense's limits, with a row
-    past theta and a NaN row where the batch has them."""
+    past theta, a row on the formed route and a NaN row where the batch
+    has them: both routes, and at D = 256 the cluster plans."""
     table = chip_smoke.dense_tables()[name]
-    rows = dict(big_row=1, nan_row=2 if B > 3 else None)
+    rows = dict(big_row=1, nan_row=2 if B > 3 else None,
+                formed_row=0 if D >= 4 else None)
     before = fused_dense_chain_apply.launches
     chip_smoke.check_dense(name, table,
                            *chip_smoke.dense_inputs(table, B, D, dtype,
                                                     **rows),
-                           nan_row=rows["nan_row"])
+                           nan_row=rows["nan_row"],
+                           formed_row=rows["formed_row"])
     assert fused_dense_chain_apply.launches == before + 1
 
 
-def test_dense_chain_kernel_reads_strided_samples_and_is_deterministic(card):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("D", [4, 16, 64, 128, 256])
+def test_dense_chain_kernel_reads_strided_samples_and_is_deterministic(
+        card, D, dtype):
     """Trajectory-major and node-major samples give the same bits, and so
-    do two launches."""
+    do two launches, on both routes."""
     table = chip_smoke.dense_tables()["magnus4 pair"]
-    node_ops, dt, xw = chip_smoke.dense_inputs(table, 200, 16, torch.float32)
-    kw = dict(m=12, theta=1.0)
+    node_ops, dt, xw = chip_smoke.dense_inputs(table, 200, D, dtype,
+                                               formed_row=3)
+    m, theta = (12, 1.0) if dtype == torch.float32 else (12, 0.25)
+    kw = dict(m=m, theta=theta)
     y1, e1 = fused_dense_chain_apply(table, node_ops, dt, xw, **kw)
     y2, e2 = fused_dense_chain_apply(table, node_ops, dt, xw, **kw)
     major = node_ops.transpose(0, 1).contiguous().transpose(0, 1)
@@ -720,6 +733,19 @@ def test_dense_chain_kernel_reads_strided_samples_and_is_deterministic(card):
     torch.cuda.synchronize()
     for y, e in ((y2, e2), (y3, e3)):
         assert torch.equal(y, y1) and torch.equal(e, e1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("D", [1, 4, 8, 64, 100, 128, 200, 256])
+def test_dense_chain_plan_matches_its_mirror(card, D, dtype):
+    """The plan the kernel launches with (cluster, rows of W a block,
+    shared memory, grid, scratch) is ops/dense_chains.dense_plan's."""
+    elem = torch.finfo(dtype).bits // 8
+    props = torch.cuda.get_device_properties(0)
+    for B in (1, 3, 256, 4096):
+        got = dc.kernel_plan(B, D, dtype)
+        want = dc.dense_plan(B, D, elem, n_sm=props.multi_processor_count)
+        assert got == {k: want[k] for k in got}, (B, got, want)
 
 
 def test_dense_chain_wrapper_refuses_what_the_kernel_does_not_take(card):
@@ -834,24 +860,25 @@ def test_dense_chain_kernel_declared_norm_matches_twin(card, kind, weights,
 
 
 def test_dense_chain_wrapper_refuses_misaligned_samples(card):
-    """Where the kernel reads in 16-byte vectors (D a multiple of 128), an
-    offset or a stride off that grid raises before the launch; at other D
-    the same view runs."""
+    """The kernel reads the samples value by value (the panels go through
+    registers), so samples at an offset off the 16-byte grid run and give
+    the aligned samples' bits at every D; what it does not take still
+    raises."""
     table = chip_smoke.dense_tables()["magnus4 pair"]
     kw = dict(m=12, theta=1.0)
-    for D, refuses in ((128, True), (8, False)):
-        node_ops, dt, xw = chip_smoke.dense_inputs(table, 6, D, torch.float32)
+    for D in (128, 8):
+        node_ops, dt, xw = chip_smoke.dense_inputs(table, 6, D, torch.float32,
+                                                   formed_row=1)
         flat = torch.zeros(2, 6, D * D + 1, device=card)
         flat[..., 1:] = node_ops.reshape(2, 6, -1)
         off = flat[..., 1:].unflatten(-1, (D, D))
         assert off.stride(2) == D and off.stride(3) == 1
-        if refuses:
-            with pytest.raises(ValueError, match="16 bytes"):
-                fused_dense_chain_apply(table, off, dt, xw, **kw)
-        else:
-            y, e = fused_dense_chain_apply(table, off, dt, xw, **kw)
-            y0, e0 = fused_dense_chain_apply(table, node_ops, dt, xw, **kw)
-            assert torch.equal(y, y0) and torch.equal(e, e0)
+        assert off.data_ptr() % 16 != 0
+        y, e = fused_dense_chain_apply(table, off, dt, xw, **kw)
+        y0, e0 = fused_dense_chain_apply(table, node_ops, dt, xw, **kw)
+        assert torch.equal(y, y0) and torch.equal(e, e0)
+        with pytest.raises(ValueError, match="contiguous"):
+            fused_dense_chain_apply(table, off.transpose(2, 3), dt, xw, **kw)
 
 
 # the adjoint kernels K6, K7, K8 (ops/adjoint.py, csrc/adjoint.cu)

@@ -73,6 +73,7 @@ def test_sources_name_no_jax_import():
     for name in MODULES:
         assert PKG / (name.replace(".", "/") + ".py") in sources, name
     sources += [ROOT / "chip_smoke.py", ROOT / "tools" / "profile_solve.py",
-                ROOT / "tools" / "compare_parent.py"]
+                ROOT / "tools" / "compare_parent.py",
+                ROOT / "tools" / "k9_breakdown.py"]
     for path in sources:
         assert not pattern.search(path.read_text()), path

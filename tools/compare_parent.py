@@ -6,13 +6,18 @@ in turns, on chip_smoke.py's inputs.
 Run from the repository root on a machine with one CUDA card and nvcc.
 PARENT_DIR holds another checkout of the repository whose
 ``vec_ode_tpu_torch/csrc/chain_expmv.cu`` (K4) and ``fused_loop.cu`` (K2
-with its chain step K5) keep the same C entry points, for example one
-unpacked by ``git archive <commit> | tar -x -C build/parent``. Its two
-libraries are built with this checkout's nvcc flags into
-``build/parent_kernels/``; this checkout's are built as usual. Then each
-case runs on both, in turns (parent, this, this, parent; each run the
-median of CUDA-event times), and prints, beside the card's name and
-power limit, both times and whether the two gave the same bits:
+with its chain step K5) keep the same C entry points, and whose
+``dense_chains.cu`` (K9) has the entry points it had before its actions
+route (``vec_ode_dense_chains_blocks_*`` and a launch taking the grid's
+block count), for example one unpacked by ``git archive <commit> | tar -x
+-C build/parent``. Its three libraries are built with this checkout's nvcc
+flags into ``build/parent_kernels/``; this checkout's are built as usual.
+Then each case runs on both, in turns (parent, this, this, parent; each
+run the median of CUDA-event times), and prints, beside the card's name
+and power limit, both times and whether the two gave the same bits, or,
+for K9, whose route changes the rounding, whether they agree within the
+f32 tolerance (states and errors within 2e-5 + 1e-3 of their size; the
+solve's states within 1e-4 and its counters within 2):
 
 * K4 per launch, f32: the Magnus-4 pair, Magnus-6 and CFM-4 steps on
   DrivenDense(64) at 256 and 16 384 trajectories, the I/Q drive (K' = 6)
@@ -22,10 +27,13 @@ power limit, both times and whether the two gave the same bits:
   Magnus-4 loop with chip_smoke's events and with dense output, and the
   16 384 fixed-step Landau-Zener sweeps;
 * the adaptive Magnus-6 value-and-grad of PulseControl at 256 (K4 per
-  forward iteration; K6 is this checkout's in both).
+  forward iteration; K6 is this checkout's in both);
+* K9 per launch, f32: the Magnus-4 pair step on the generic path's own
+  samples at 4096 and 256 trajectories, and the generic path's solve at
+  4096 (K9 per driver iteration; the parent's through its own wrapper).
 
 ``--only`` runs the cases whose label matches REGEX. It exits non-zero if
-any case's bits differ.
+any case's bits differ (K9: if any case disagrees).
 """
 
 from __future__ import annotations
@@ -45,8 +53,11 @@ import chip_smoke as cs
 from vec_ode_tpu_torch import diff as tdiff
 from vec_ode_tpu_torch import driver
 from vec_ode_tpu_torch.exp import MagnusModulated4
-from vec_ode_tpu_torch.ops import _build, expmv, fused_loop
+from vec_ode_tpu_torch.exp import dense_fast
+from vec_ode_tpu_torch.exp import magnus as tmagnus
+from vec_ode_tpu_torch.ops import _build, dense_chains, expmv, fused_loop
 from vec_ode_tpu_torch.ops.cplx import Cplx
+from vec_ode_tpu_torch.ops.fused_rk import kernel_norm_args, wnorm_on
 from vec_ode_tpu_torch.ops.fused_loop import (ChainStep, fused_loop_chunk,
                                               fused_loop_integrate,
                                               init_carries)
@@ -56,11 +67,12 @@ OUT = _build.BUILD_DIR.parent / "parent_kernels"
 
 
 def build_parent(parent: pathlib.Path) -> dict:
-    """The parent's K4 and K2 libraries, built together, loaded with the
-    argument types this checkout's wrappers set."""
+    """The parent's K4, K2 and K9 libraries, built together; K4's and K2's
+    loaded with the argument types this checkout's wrappers set, K9's with
+    its own (``parent_k9``)."""
     OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in MODULES:
+    for name in (*MODULES, "dense_chains"):
         src = parent / "vec_ode_tpu_torch" / "csrc" / f"{name}.cu"
         so = OUT / f"lib{name}.so"
         log = open(OUT / f"{name}.log", "w")
@@ -75,6 +87,9 @@ def build_parent(parent: pathlib.Path) -> dict:
             raise RuntimeError(f"nvcc failed on the parent's {name}.cu:\n"
                                + (OUT / f"{name}.log").read_text())
         lib = ctypes.CDLL(str(so))
+        if name == "dense_chains":
+            libs[name] = lib
+            continue
         load = _build.load
         _build.load = lambda _n, lib=lib: lib   # the wrapper sets argtypes
         try:
@@ -82,6 +97,63 @@ def build_parent(parent: pathlib.Path) -> dict:
         finally:
             _build.load = load
     return libs
+
+
+def parent_k9(lib):
+    """The parent's K9 wrapper, on its C entry points: the grid's blocks
+    from ``vec_ode_dense_chains_blocks_*``, six (D, D) scratch buffers a
+    block, the block count passed to the launch."""
+    vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for fn in (lib.vec_ode_dense_chains_f32, lib.vec_ode_dense_chains_f64):
+        fn.restype = ci
+        fn.argtypes = [vp, ll, ll, vp, vp, vp, vp, vp, ci, ci, ci,
+                       ctypes.POINTER(ctypes.c_double), ci, vp,
+                       ctypes.c_double, ci, vp]
+    for fn in (lib.vec_ode_dense_chains_blocks_f32,
+               lib.vec_ode_dense_chains_blocks_f64):
+        fn.restype = ci
+        fn.argtypes = [ci]
+
+    def apply(table, node_ops, dt, xw, *, m, theta, max_squarings=16,
+              wnorm=None):
+        f32 = xw.dtype == torch.float32
+        B, D = xw.shape
+        n_blocks = (lib.vec_ode_dense_chains_blocks_f32 if f32 else
+                    lib.vec_ode_dense_chains_blocks_f64)(B)
+        if n_blocks < 1:
+            raise RuntimeError(f"parent K9: CUDA error {-n_blocks}")
+        scratch = torch.empty(n_blocks * 6 * D * D, dtype=xw.dtype,
+                              device=xw.device)
+        y, err = torch.empty_like(xw), torch.empty_like(dt)
+        arr = table.kernel_array(m, theta, max_squarings)
+        rc = (lib.vec_ode_dense_chains_f32 if f32 else
+              lib.vec_ode_dense_chains_f64)(
+            node_ops.data_ptr(), node_ops.stride(1), node_ops.stride(0),
+            dt.data_ptr(), xw.data_ptr(), y.data_ptr(), err.data_ptr(),
+            scratch.data_ptr(), n_blocks, B, D, arr, len(arr),
+            *kernel_norm_args(wnorm_on(wnorm, xw)),
+            torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"parent K9: launch failed with CUDA error {rc}")
+        return y, err
+
+    return apply
+
+
+class K9Using:
+    """Runs the generic steppers' K9 calls on the parent's wrapper (None:
+    this checkout's)."""
+
+    def __init__(self, apply):
+        self.apply = apply
+
+    def __enter__(self):
+        self.saved = dense_fast.fused_dense_chain_apply
+        if self.apply is not None:
+            dense_fast.fused_dense_chain_apply = self.apply
+
+    def __exit__(self, *exc):
+        dense_fast.fused_dense_chain_apply = self.saved
 
 
 class Using:
@@ -123,29 +195,74 @@ def same_bits(a, b) -> bool:
         for x, y in zip(fa, fb))
 
 
-def compare(label, fn, parent, card, inner=1, only=None) -> bool:
+def k9_close(ref, new) -> tuple:
+    """K9's results within the f32 tolerance: (ok, text). A step's y and
+    err within 2e-5 + 1e-3 of their size; a solve's states within 1e-4
+    and its counters within 2 (a step at the controller's edge may fall
+    the other way)."""
+    if isinstance(ref, tuple):
+        d = max(float(((a - b).abs() / (2e-5 + 1e-3 * b.abs())).max())
+                for a, b in zip(ref, new))
+        return d <= 1.0, f"max |diff| / limit {d:.3f} (<= 1)"
+    dy = cs.max_dy(ref, new)
+    dc = max(int((getattr(ref, k) - getattr(new, k)).abs().max())
+             for k in ("n_accept", "n_reject", "n_iters"))
+    ok = dy <= 1e-4 and dc <= 2 and bool(torch.equal(ref.status, new.status))
+    return ok, f"max|dy| {dy:.3e} (<= 1e-4), counters within {dc} (<= 2)"
+
+
+def compare(label, fn, parent, card, inner=1, only=None, k9=False) -> bool:
     """fn on the parent's libraries and on this checkout's: the results'
-    bits, then the times in turns (parent, this, this, parent). A case
-    whose label ``only`` does not match is skipped (True)."""
+    bits (``k9``: their agreement, k9_close), then the times in turns
+    (parent, this, this, parent). A case whose label ``only`` does not
+    match is skipped (True)."""
     if only is not None and not re.search(only, label):
         return True
     fn = fn()
-    with Using(parent):
+
+    def using(who):
+        if k9:
+            return K9Using(parent_k9(parent["dense_chains"]) if who ==
+                           "parent" else None)
+        return Using(parent if who == "parent" else None)
+
+    with using("parent"):
         ref = fn()
-    with Using(None):
+    with using("this"):
         new = fn()
     torch.cuda.synchronize()
-    ok = same_bits(ref, new)
+    if k9:
+        ok, text = k9_close(ref, new)
+        text = f"within the f32 tolerance: {ok}, {text}"
+    else:
+        ok = same_bits(ref, new)
+        text = f"the same bits: {ok}"
     runs = {"parent": [], "this": []}
     for who in ("parent", "this", "this", "parent"):
-        with Using(parent if who == "parent" else None):
+        with using(who):
             runs[who].append(cs.timed_ms(fn, reps=1, inner=inner))
     p, t = (statistics.median(runs[w]) for w in ("parent", "this"))
     print(f"[parent] {label}: parent {p:.4f} ms "
           f"{[round(v, 4) for v in runs['parent']]}, this {t:.4f} ms "
           f"{[round(v, 4) for v in runs['this']]}, this / parent "
-          f"{t / p:.3f}; the same bits: {ok} ({card})", flush=True)
+          f"{t / p:.3f}; {text} ({card})", flush=True)
     return ok
+
+
+def k9_case(B):
+    """One Magnus-4 pair step on the generic path's samples; the K9 in
+    force (K9Using) is looked up at each call."""
+    table = tmagnus.magnus4_table(pair=True)
+    node_ops, dt, xw = cs.model_dense_inputs(B)
+    m, theta = dense_fast.ps_params(torch.float32)
+    return lambda: dense_fast.fused_dense_chain_apply(
+        table, node_ops, dt, xw, m=m, theta=theta,
+        max_squarings=cs.GEN_MAX_SQUARINGS)
+
+
+def generic_case():
+    _, y0 = cs.main_inputs(cs.GEN_TRAJ)
+    return lambda: cs.generic_solve(y0)
 
 
 def k4_case(st, B):
@@ -200,7 +317,7 @@ def main() -> None:
     args = ap.parse_args()
     t0 = time.perf_counter()
     card = cs.device_phase()
-    _build.build(*MODULES)
+    _build.build(*MODULES, "dense_chains")
     parent = build_parent(args.parent.resolve())
     print(f"[parent] built {sorted(parent)} from {args.parent} and this "
           f"checkout's in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -251,7 +368,16 @@ def main() -> None:
                       "steps", lz, parent, card, only=only))
     ok.append(compare("adaptive Magnus-6 value-and-grad 256x64c f32 (K4 + "
                       "K6)", value_and_grad_case, parent, card, only=only))
-    print(f"[parent] {sum(ok)}/{len(ok)} cases with the parent's bits, "
+    for B in (cs.GEN_TRAJ, cs.GEN_SMALL):
+        ok.append(compare(f"K9 Magnus-4 pair {B}x{cs.DIM}c f32",
+                          lambda B=B: k9_case(B), parent, card,
+                          inner=10 if B > cs.GEN_SMALL else 50, only=only,
+                          k9=True))
+    ok.append(compare(f"K9 generic path solve {cs.GEN_TRAJ}x{cs.DIM}c f32 "
+                      "(K9 per iteration)", generic_case, parent, card,
+                      only=only, k9=True))
+    print(f"[parent] {sum(ok)}/{len(ok)} cases with the parent's bits "
+          f"(K9: within the f32 tolerance), "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     print(card, flush=True)
     if not all(ok):

@@ -8,58 +8,99 @@
 // samples M_q = A_b(t_q), so nothing is shared across the batch. For each
 // trajectory b, from its n_nodes samples (D, D), its dt and its state row
 // x (D,), it
-//   1. builds the exponents of C in {1, 2} chains from the declared chain
+//   1. forms the exponents of C in {1, 2} chains from the declared chain
 //      table (ops/dense_chains.py:ChainTable, in place of the Pallas
-//      kernel's traced chain_builder callback):
+//      kernel's traced chain_builder callback), once each, in shared
+//      memory:
 //        W = dt * sum_q lin[q] M_q  +  sum_k (g_k dt dt) (M_p M_q - M_q M_p);
-//   2. for each exponent: the 1-norm, the squaring count s (the least
+//   2. for each exponent: the 1-norm and the squaring count s (the least
 //      s >= 0 with norm / theta <= 2^s, found with frexp, at most
-//      max_squarings, 0 for a non-finite norm), As = W 2^-s, the degree-m
-//      Taylor polynomial by Paterson-Stockmeyer (m = 8 or 12, five
-//      products), then s squarings;
-//   3. applies the propagators in order, y = P[0][R0-1] ... P[0][0] x, and
-//      with C = 2 writes err = || P[1][..] x - y ||: the l2 norm, or a
-//      declared WeightedNorm (a weight per column, l2 or max, a post
-//      factor), as the other kernels of the package take it.
+//      max_squarings; 0 for a NaN norm, max_squarings for an infinite
+//      one), then one of two routes, chosen from (s, m, D) alone
+//      (takes_actions, mirrored in ops/dense_chains.py):
+//      * actions: 2^s passes of the degree-m Taylor polynomial of
+//        2^-s W on the running vector, a matrix-vector product a term
+//        from the resident W (term = (2^-s W term) / j, summed), while
+//        2^s m 2 D^2 < (products of the formed route) 2 D^3, e.g. s <= 6
+//        at D = 128 and m = 12;
+//      * formed (large s): T_m(2^-s W) by Paterson-Stockmeyer (five
+//        products at m = 12, four at m = 8), s squarings, then one
+//        matrix-vector product, through a scratch in global memory;
+//      both apply (T_m(2^-s W))^{2^s} and differ by rounding only;
+//   3. chain 0 gives y; with C = 2 it writes err = || chain 1 - y ||: the
+//      l2 norm, or a declared WeightedNorm (a weight per column, l2 or max,
+//      a post factor), as the other kernels of the package take it.
 //
-// Design. One trajectory per block, a persistent grid striding over the
-// batch: the squaring count is then uniform within a block, so no row
-// waits masked for another. The live matrices of one exponential (As, its
-// powers, two accumulators) are six (D, D) buffers, 384 KB at D = 128 in
-// f32: more than a block's shared memory, so they live in a per-block
-// scratch in global memory (the wrapper allocates it; one block per
-// multiprocessor is resident at this register count, so on an H100 the
-// 132 blocks' scratch is 51 MB in f32, about what its L2 holds), and each
-// product runs tile by tile through shared memory: a 128 x 128 output
-// tile, depth 8, 8 x 8 accumulators per thread, the next depth slice
-// fetched into registers while the current one is multiplied. A block is
-// only eight warps, so what it loads from global memory must be in flight
-// together: full tiles and whole batches of the passes between the
-// products take paths without bounds checks (a check per entry serialises
-// the loads) and in 16-byte vectors; the edges keep the checked paths.
+// What bounds it: FP32 (FP64) FMAs. A step of the generic Magnus-4 path
+// (two nodes, one commutator, two exponents at s = 0, D = 128) needs the
+// commutator's two products of 2 D^3 and 24 matrix-vector products of
+// 2 D^2, ~9.2 MFLOP per trajectory against 128 KB of samples read.
 //
-// What bounds it: FP32 (or FP64) FMA throughput. A Magnus-4 pair at D = 128
-// is 12 products of 2 D^3 = 50 MFLOP per trajectory against 128 KB of
-// samples read. No TF32, no fast math: the error is the difference of two
-// propagated states. Every sum has a fixed order, so a launch is
-// deterministic. A NaN sample stays in its trajectory: blocks share nothing.
-// No loop waits on convergence; the longest runs max_squarings products.
+// Design. A persistent grid of clusters (plan: dense_plan), each cluster
+// one trajectory at a time; a cluster of cs blocks holds W's rows in
+// shared memory, ceil(D / cs) rows a block, cs the least of 1, 2, 4, 8
+// whose layout fits (1 at D = 128 in f32 and f64, 2 at D = 256 in f32,
+// 4 in f64). The products of a block's rows (the commutators, and on the
+// formed route every product) run through one routine: chunks of up to
+// 64 rows, RM x 4 outputs a thread (gemm_tile.cuh's tile_fma microtile),
+// panels of 8 contraction indices of both operands streamed from global
+// memory through two stages of shared memory, each panel brought in while
+// the previous one is multiplied. The left operand goes in transposed, so
+// that a thread's RM rows at one index are one or two 16-byte loads;
+// cp.async (as in gemm_tile.cuh's PanelRing) copies without transposing,
+// so the left panels are staged through registers; the right panels go by
+// cp.async. A commutator entry is one FMA chain: the panels in order, in
+// each M_p M_q's indices, then -M_q M_p's. The matrix-vector products
+// read W's rows in
+// 16-byte loads, TPR threads a row (a butterfly sum over them), each
+// writing its row's value into every block of the cluster (distributed
+// shared memory); one cluster barrier a Taylor term, two term buffers in
+// turn. A block's shared memory at D = 128 in f32 is ~97 KB, two blocks an
+// SM. No global scratch is touched on the actions route; the formed route
+// keeps six (D, D) buffers a cluster in global memory (the wrapper
+// allocates them), its products ordered by cluster barriers.
+//
+// No TF32, no fast math: the error is the difference of two propagated
+// states. Every sum has a fixed order and every block of a cluster
+// computes the norm and s identically, so a launch is deterministic. A NaN
+// sample stays in its trajectory: clusters share nothing. No loop waits on
+// convergence; the longest runs 2^s m matrix-vector products with
+// 2^s m < (5 + s) D, or max_squarings products.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "gemm_tile.cuh"
+
 namespace {
+
+using namespace vec_ode;
+namespace cg = cooperative_groups;
 
 constexpr int MAX_NODES = 8;       // operator samples per trajectory
 constexpr int MAX_EXPONENTS = 12;  // exponents over both chains
 constexpr int MAX_COMMS = 12;      // commutator terms over all exponents
-constexpr int MAX_DIM = 256;       // D: one thread per column, THREADS wide
+constexpr int MAX_DIM = 256;       // D
 constexpr int THREADS = 256;
-constexpr int BT = 128;            // output tile of a product, rows and cols
-constexpr int BK = 8;              // its depth slice
-constexpr int LD = BT + 4;         // padded row of a slice in shared memory
-constexpr int N_BUF = 6;           // (D, D) scratch buffers per block
+constexpr int JC = 8;              // contraction indices a panel of a product
+constexpr int MAX_RC = 64;         // rows a chunk of a product at most
+constexpr int MAX_CLUSTER = 8;     // blocks a cluster at most (the portable limit)
+constexpr int RM_F32 = 8, RM_F64 = 4;  // product rows a thread
+constexpr int N_BUF = 6;           // (D, D) scratch buffers a cluster, formed route
+constexpr int N_VEC = 5;           // (D,) vectors a block: two terms, v, the sum, chain 0
+constexpr int FU = 4;              // rows a thread forms at a time
 constexpr int TABLE_HEAD = 8;      // scalars before the lin rows
+
+template <typename T>
+__host__ __device__ constexpr int rm_of() {
+  return sizeof(T) == 4 ? RM_F32 : RM_F64;
+}
+// blocks an SM the launch bounds keep registers for
+template <typename T>
+__host__ __device__ constexpr int min_blocks() {
+  return sizeof(T) == 4 ? 2 : 1;
+}
 
 // 1 / k!, k <= 12
 __device__ const double FACT_INV[13] = {
@@ -87,427 +128,603 @@ struct Table {
   double comm_g[MAX_COMMS];
 };
 
-// NaN-propagating max (torch.amax)
+// Products of the formed route: Paterson-Stockmeyer's (A^2, A^3, A^4 and
+// two more at m = 12, one more at m = 8), before the squarings.
+__host__ __device__ inline int ps_products(int m) { return m == 12 ? 5 : 4; }
+
+// The route rule (ops/dense_chains.py: takes_actions): the Taylor actions
+// while their 2^s m products of 2 D^2 cost less than the formed route's
+// (ps_products(m) + s) products of 2 D^3. Integer arithmetic.
+__host__ __device__ inline bool takes_actions(int s, int m, int D) {
+  return s < 31 && (1LL << s) * m < (long long)(ps_products(m) + s) * D;
+}
+
+// A launch's shape (ops/dense_chains.py: dense_plan mirrors it): the
+// cluster, the rows of W a block holds, the products' chunks and the
+// shared memory a block, carved at the byte offsets given.
+struct Plan {
+  int cs;               // blocks a cluster (1: no cluster)
+  int rows;             // rows of W a block owns, ceil(D / cs)
+  int dpr;              // D rounded up to 4: the vectors, a panel's right operand
+  int dp;               // W's row in shared memory: a multiple of 128 bytes + 32
+  int ncg, nrg, rc, rcp;  // a product: column groups, row groups, rows a chunk, padded
+  int tpr;              // threads a row of a matrix-vector product
+  size_t off_ring, off_vec, off_colpart, off_red, off_s, smem;
+};
+
 template <typename T>
-__device__ inline T nan_max(T a, T b) {
-  return (a != a || a > b) ? a : b;
+Plan plan_with(int D, int cs) {
+  constexpr int e = (int)sizeof(T), RM = rm_of<T>();
+  Plan p;
+  p.cs = cs;
+  p.rows = (D + cs - 1) / cs;
+  p.dpr = gemm_dp(D);
+  // rows 32 bytes past a multiple of 128: the 16-byte loads of a quarter
+  // warp (TPR = 2: four rows, two column groups each) meet no conflict
+  p.dp = (D + 128 / e - 1) / (128 / e) * (128 / e) + 32 / e;
+  p.ncg = p.dpr / GEMM_CN;
+  int nrg = THREADS / p.ncg;
+  if (nrg > MAX_RC / RM) nrg = MAX_RC / RM;
+  const int need = (p.rows + RM - 1) / RM;
+  if (nrg > need) nrg = need;
+  p.nrg = nrg;
+  p.rc = nrg * RM;
+  p.rcp = p.rc + 4;  // the transposed left panel's row: 16-byte aligned, stores spread over banks
+  const int per_row = THREADS / p.rows;
+  int tpr = 1;
+  while (tpr * 2 <= per_row && tpr < 32) tpr *= 2;
+  p.tpr = tpr;
+  size_t off = align16((size_t)p.rows * p.dp * e);
+  p.off_ring = off;
+  off += align16((size_t)2 * 2 * JC * (p.rcp + p.dpr) * e);  // two stages of two products
+  p.off_vec = off;
+  off += align16((size_t)N_VEC * p.dpr * e);
+  p.off_colpart = off;
+  off += align16((size_t)cs * p.dpr * e);
+  p.off_red = off;
+  off += align16((size_t)THREADS * e);
+  p.off_s = off;  // the squaring count, an int
+  p.smem = off + 16;
+  return p;
 }
 
-__device__ inline void load4(const float* p, float* o) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
-}
-
-__device__ inline void load4(const double* p, double* o) {
-  const double2 a = *reinterpret_cast<const double2*>(p);
-  const double2 b = *reinterpret_cast<const double2*>(p + 2);
-  o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
-}
-
-__device__ inline void store4(float* p, const float* v) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
-__device__ inline void store4(double* p, const double* v) {
-  *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
-  *reinterpret_cast<double2*>(p + 2) = make_double2(v[2], v[3]);
-}
-
-// One depth slice k0 of a product's operands into registers: A's (BT, BK)
-// block and B's (BK, BT) block, four entries of each per thread. FULL (the
-// tile and the slice lie inside the matrices, D a multiple of 4): one
-// 4-vector of A's row tid / 2 and one of B's row tid / 32, loaded without a
-// bounds check so that nothing serialises them. Otherwise entry by entry,
-// entries outside D reading as 0.
-template <typename T, bool FULL>
-__device__ inline void fetch_slice(const T* A, const T* B, int D, int i0, int j0, int k0, T* ra,
-                                   T* rb) {
-  const int tid = threadIdx.x;
-  if (FULL) {
-    load4(A + (size_t)(i0 + tid / 2) * D + k0 + (tid % 2) * 4, ra);
-    load4(B + (size_t)(k0 + tid / 32) * D + j0 + (tid % 32) * 4, rb);
-  } else {
-#pragma unroll
-    for (int l = 0; l < 4; ++l) {
-      const int e = tid + l * THREADS;
-      const int arow = i0 + e / BK, ak = k0 + e % BK;
-      ra[l] = (arow < D && ak < D) ? A[(size_t)arow * D + ak] : T(0);
-      const int bk = k0 + e / BT, bcol = j0 + e % BT;
-      rb[l] = (bk < D && bcol < D) ? B[(size_t)bk * D + bcol] : T(0);
-    }
+// The least cluster whose blocks' layout fits max_smem; cs = 0: none.
+template <typename T>
+Plan dense_plan(int D, size_t max_smem) {
+  for (int cs = 1; cs <= MAX_CLUSTER && cs <= D; cs *= 2) {
+    const Plan p = plan_with<T>(D, cs);
+    if (p.smem <= max_smem) return p;
   }
+  Plan none = {};
+  return none;
 }
 
-// ... and from the registers into shared memory: As[kk][row] (A's block
-// transposed) and Bs[kk][col]
-template <typename T, bool FULL>
-__device__ inline void stash_slice(T* As, T* Bs, const T* ra, const T* rb) {
-  const int tid = threadIdx.x;
-  if (FULL) {
-#pragma unroll
-    for (int l = 0; l < 4; ++l) As[((tid % 2) * 4 + l) * LD + tid / 2] = ra[l];
-    store4(Bs + (tid / 32) * LD + (tid % 32) * 4, rb);
-  } else {
-#pragma unroll
-    for (int l = 0; l < 4; ++l) {
-      const int e = tid + l * THREADS;
-      As[(e % BK) * LD + e / BK] = ra[l];
-      Bs[(e / BT) * LD + e % BT] = rb[l];
-    }
-  }
+// Clusters of the persistent grid: what the SMs hold by shared memory,
+// at most min_blocks an SM, at most one per trajectory.
+template <typename T>
+int grid_clusters(const Plan& p, int B, int n_sm, int smem_sm, int reserved) {
+  int per_sm = (int)((size_t)smem_sm / (p.smem + (size_t)reserved));
+  if (per_sm > min_blocks<T>()) per_sm = min_blocks<T>();
+  if (per_sm < 1) per_sm = 1;
+  long long g = (long long)n_sm * per_sm / p.cs;
+  if (g < 1) g = 1;
+  return (int)(B < g ? B : g);
 }
 
-// The (BT, BT) output tile at (i0, j0) of C = alpha (A @ B) + beta Base.
-// FULL as in fetch_slice; then the tile's Base entries are loaded and its
-// results stored as 4-vectors, a few rows at a time.
-template <typename T, bool FULL>
-__device__ inline void gemm_tile(const T* A, const T* B, T* C, int D, int i0, int j0, T alpha,
-                                 const T* Base, T beta, T* As, T* Bs) {
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  T acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = T(0);
-  T ra[4], rb[4];
-  fetch_slice<T, FULL>(A, B, D, i0, j0, 0, ra, rb);
-  stash_slice<T, FULL>(As, Bs, ra, rb);
-  __syncthreads();
-  for (int k0 = 0; k0 < D; k0 += BK) {
-    const bool more = k0 + BK < D;
-    if (more) fetch_slice<T, FULL>(A, B, D, i0, j0, k0 + BK, ra, rb);
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      T a[8], b[8];
-      load4(As + kk * LD + ty * 4, a);
-      load4(As + kk * LD + 64 + ty * 4, a + 4);
-      load4(Bs + kk * LD + tx * 4, b);
-      load4(Bs + kk * LD + 64 + tx * 4, b + 4);
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] += a[i] * b[j];
-    }
+template <bool CLUSTER>
+__device__ __forceinline__ void sync_all() {
+  if constexpr (CLUSTER)
+    cg::this_cluster().sync();
+  else
     __syncthreads();
-    if (more) {
-      stash_slice<T, FULL>(As, Bs, ra, rb);
-      __syncthreads();
-    }
-  }
-  if (FULL) {
-    // ER of the thread's eight rows at a time: their Base entries in flight
-    // together, within the registers the accumulators leave
-    constexpr int ER = sizeof(T) == 4 ? 4 : 2;
-#pragma unroll
-    for (int part = 0; part < 8 / ER; ++part) {
-      T base[ER][8];
-      if (Base != nullptr) {
-#pragma unroll
-        for (int i = 0; i < ER; ++i) {
-          const int ai = part * ER + i;
-          const T* row =
-              Base + (size_t)(i0 + (ai / 4) * 64 + ty * 4 + ai % 4) * D + j0 + tx * 4;
-          load4(row, base[i]);
-          load4(row + 64, base[i] + 4);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < ER; ++i) {
-        const int ai = part * ER + i;
-        T v[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          v[j] = alpha * acc[ai][j];
-          if (Base != nullptr) v[j] += beta * base[i][j];
-        }
-        T* row = C + (size_t)(i0 + (ai / 4) * 64 + ty * 4 + ai % 4) * D + j0 + tx * 4;
-        store4(row, v);
-        store4(row + 64, v + 4);
-      }
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = i0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-      if (r >= D) continue;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = j0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-        if (c >= D) continue;
-        T v = alpha * acc[i][j];
-        if (Base != nullptr) v += beta * Base[(size_t)r * D + c];
-        C[(size_t)r * D + c] = v;
-      }
-    }
-  }
 }
 
-// C = alpha (A @ B) + beta Base for (D, D) row-major matrices, by the whole
-// block, all 16-byte aligned. Base may be null (no second term) or C
-// itself; A and B may be the same matrix but neither may be C. As, Bs:
-// BK * LD values each of shared memory. The sum over the depth runs in
-// ascending order on either path. Ends with a block barrier, so C may be
-// read at once.
+// p in block r of the cluster (p itself without a cluster)
+template <bool CLUSTER, typename T>
+__device__ __forceinline__ T* peer(T* p, int r) {
+  if constexpr (CLUSTER)
+    return cg::this_cluster().map_shared_rank(p, (unsigned)r);
+  else
+    return p;
+}
+
+// four values of global memory at p (16-byte aligned) in 16-byte loads
 template <typename T>
-__device__ __noinline__ void gemm(const T* A, const T* B, T* C, int D, T alpha, const T* Base,
-                                  T beta, T* As, T* Bs) {
-  for (int i0 = 0; i0 < D; i0 += BT) {
-    for (int j0 = 0; j0 < D; j0 += BT) {
-      if (i0 + BT <= D && j0 + BT <= D && D % BK == 0)
-        gemm_tile<T, true>(A, B, C, D, i0, j0, alpha, Base, beta, As, Bs);
-      else
-        gemm_tile<T, false>(A, B, C, D, i0, j0, alpha, Base, beta, As, Bs);
+__device__ __forceinline__ void ldg_vec4(const T* p, T (&v)[GEMM_CN]) {
+  if constexpr (sizeof(T) == 4) {
+    const float4 f = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
+  } else {
+    const double2 a = __ldg(reinterpret_cast<const double2*>(p));
+    const double2 b = __ldg(reinterpret_cast<const double2*>(p + 2));
+    v[0] = a.x, v[1] = a.y, v[2] = b.x, v[3] = b.y;
+  }
+}
+
+template <typename T>
+struct Smem {
+  T *W, *ring, *t0, *t1, *v, *acc, *ymain, *colpart, *red;
+  int* s;
+  __device__ Smem(unsigned char* base, const Plan& p) {
+    W = reinterpret_cast<T*>(base);
+    ring = reinterpret_cast<T*>(base + p.off_ring);
+    T* vec = reinterpret_cast<T*>(base + p.off_vec);
+    t0 = vec;
+    t1 = vec + p.dpr;
+    v = vec + 2 * p.dpr;
+    acc = vec + 3 * p.dpr;
+    ymain = vec + 4 * p.dpr;
+    colpart = reinterpret_cast<T*>(base + p.off_colpart);
+    red = reinterpret_cast<T*>(base + p.off_red);
+    s = reinterpret_cast<int*>(base + p.off_s);
+  }
+};
+
+// y[q][c] = fma(a[j * as + q], b[j * bs + c], y[q][c]) for j = 0 .. jn - 1
+// in order: tile_fma's microtile (gemm_tile.cuh) with the index loop
+// unrolled by four, not eight, so that the operands of few indices are in
+// registers at once (the launch bounds leave 128 registers in f32)
+template <typename T, int RM>
+__device__ __forceinline__ void panel_fma(const T* a, int as, const T* b, int bs, int jn,
+                                          T (&y)[RM][GEMM_CN]) {
+#pragma unroll 4
+  for (int j = 0; j < jn; ++j) {
+    T av[RM], bv[GEMM_CN];
+    lds_vec<T, RM>(a + (size_t)j * as, av);
+    lds_vec<T, GEMM_CN>(b + (size_t)j * bs, bv);
+#pragma unroll
+    for (int q = 0; q < RM; ++q)
+#pragma unroll
+      for (int c = 0; c < GEMM_CN; ++c) y[q][c] = fma_full(av[q], bv[c], y[q][c]);
+  }
+}
+
+// out(i, c, value) for the rows [r_lo, r_hi) of A0 B0, or with NEG of
+// A0 B0 - A1 B1 as one FMA chain an entry (the panels in order, in each
+// A0 B0's indices, then -A1 B1's: A1's panel goes in negated, which is
+// exact); A and B (D, D) row-major in global memory, written by no one
+// during the call. Chunks of p.rc rows; panels
+// of JC contraction indices through two stages of the ring: the right
+// operands' rows copied by cp.async (16-byte copies where D is a multiple
+// of 4 and both B are 16-byte aligned), the left operands' fetched into
+// registers and stored transposed (cp.async cannot transpose), each while
+// the previous panel is multiplied; one block barrier a panel. Thread t
+// owns RM rows (row group t / ncg) and four columns (t % ncg) of a chunk.
+// Ends with a block barrier. Not inlined: its registers are then its own
+// and not the kernel's bookkeeping's too (fewer spills in f32; 6% faster
+// on an H100 at 4096 trajectories).
+template <typename T, bool NEG, typename Out>
+__device__ __noinline__ void rows_product(const T* A0, const T* B0, const T* A1, const T* B1, int D,
+                             int r_lo, int r_hi, const Plan& p, T* ring, Out out) {
+  constexpr int RM = rm_of<T>(), NP = NEG ? 2 : 1, V = 16 / (int)sizeof(T);
+  constexpr int LR = THREADS / JC, LK = MAX_RC / LR;  // left rows a sweep; sweeps
+  const int tid = threadIdx.x, cgi = tid % p.ncg, rg = tid / p.ncg;
+  const bool computes = rg < p.nrg;
+  const size_t lt = (size_t)JC * p.rcp, rt = (size_t)JC * p.dpr, stage = 2 * (lt + rt);
+  const int npan = (D + JC - 1) / JC;
+  const int li = tid / JC, lj = tid % JC;
+  const bool vec16 = D % GEMM_CN == 0 && (size_t)B0 % 16 == 0 &&
+                     (!NEG || (size_t)B1 % 16 == 0);
+  const int chunks = p.dpr / V;  // 16-byte copies a right row (vec16)
+  // the right operands' rows j0 .. j0 + JC - 1 into stage st, rows past D zero
+  auto copy_right = [&](T* st, int j0) {
+#pragma unroll
+    for (int n = 0; n < NP; ++n) {
+      const T* Bm = n == 0 ? B0 : B1;
+      T* R = st + 2 * lt + n * rt;
+      if (vec16) {
+        for (int e = tid; e < JC * chunks; e += THREADS) {
+          const int jj = e / chunks, g = e - jj * chunks;
+          T* dst = R + (size_t)jj * p.dpr + g * V;
+          if (j0 + jj < D) {
+            cp_async<16>(dst, Bm + (size_t)(j0 + jj) * D + g * V);
+          } else {
+#pragma unroll
+            for (int u = 0; u < V; ++u) dst[u] = T(0);
+          }
+        }
+      } else if (tid < p.dpr) {
+#pragma unroll
+        for (int jj = 0; jj < JC; ++jj) {
+          T* dst = R + (size_t)jj * p.dpr + tid;
+          if (j0 + jj < D && tid < D)
+            cp_async<sizeof(T)>(dst, Bm + (size_t)(j0 + jj) * D + tid);
+          else
+            *dst = T(0);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  for (int c0 = r_lo; c0 < r_hi; c0 += p.rc) {
+    const int nr = r_hi - c0 < p.rc ? r_hi - c0 : p.rc;
+    T lv[NP][LK];
+    auto fetch_left = [&](int j0) {
+      const int j = j0 + lj;
+#pragma unroll
+      for (int n = 0; n < NP; ++n) {
+        const T* A = n == 0 ? A0 : A1;
+#pragma unroll
+        for (int k = 0; k < LK; ++k) {
+          const int i = li + k * LR;
+          lv[n][k] = (i < nr && j < D) ? A[(size_t)(c0 + i) * D + j] : T(0);
+        }
+      }
+    };
+    auto stash_left = [&](T* st) {
+#pragma unroll
+      for (int n = 0; n < NP; ++n) {
+#pragma unroll
+        for (int k = 0; k < LK; ++k) {
+          const int i = li + k * LR;
+          if (i < p.rc) st[n * lt + (size_t)lj * p.rcp + i] = n == 1 ? -lv[n][k] : lv[n][k];
+        }
+      }
+    };
+    T y[RM][GEMM_CN];
+    tile_zero<T, RM>(y);
+    copy_right(ring, 0);
+    fetch_left(0);
+    stash_left(ring);
+    cp_async_wait<0>();
+    __syncthreads();
+    for (int pn = 0; pn < npan; ++pn) {
+      const bool more = pn + 1 < npan;
+      T* const nxt = ring + (size_t)((pn + 1) & 1) * stage;
+      if (more) {
+        copy_right(nxt, (pn + 1) * JC);
+        fetch_left((pn + 1) * JC);
+      }
+      const T* st = ring + (size_t)(pn & 1) * stage;
+      if (computes) {
+        const int jn = D - pn * JC < JC ? D - pn * JC : JC;
+#pragma unroll
+        for (int n = 0; n < NP; ++n)
+          panel_fma<T, RM>(st + n * lt + rg * RM, p.rcp, st + 2 * lt + n * rt + cgi * GEMM_CN,
+                           p.dpr, jn, y);
+      }
+      if (more) stash_left(nxt);
+      cp_async_wait<0>();
       __syncthreads();
     }
-  }
-}
-
-// The passes over a (D, D) matrix between the products are bound by memory
-// latency (a block is eight warps), so each thread keeps VEC_ODE_EW entries
-// (8 floats or 4 doubles, the same registers) in flight: it loads them all,
-// then computes and stores. Entry u of the batch at base is idx = base +
-// u * THREADS; WHOLE batches (every entry below n) carry no bounds check,
-// which would serialise the loads.
-#define VEC_ODE_EW (32 / (int)sizeof(T))
-#define VEC_ODE_ENTRIES(u, idx)                                                  \
-  _Pragma("unroll") for (int u = 0, idx = base; u < VEC_ODE_EW;                  \
-                         ++u, idx += THREADS) if (WHOLE || idx < n)
-// runs BATCH<T, WHOLE>(base, n, ...) over all batches, then a block barrier
-#define VEC_ODE_PASS(BATCH, ...)                                                 \
-  for (int base = threadIdx.x; base < n; base += THREADS * VEC_ODE_EW) {         \
-    if (base + (VEC_ODE_EW - 1) * THREADS < n)                                   \
-      BATCH<T, true>(base, n, __VA_ARGS__);                                      \
-    else                                                                         \
-      BATCH<T, false>(base, n, __VA_ARGS__);                                     \
-  }                                                                              \
-  __syncthreads()
-
-// W = dt * sum_q lin[q] M_q over the nonzero lin, summed in node order
-template <typename T, bool WHOLE>
-__device__ inline void exponent_batch(int base, int n, const T* __restrict__ ops,
-                                      long long stride_q, const T* lin, T dt,
-                                      T* __restrict__ W) {
-  T acc[VEC_ODE_EW];
-  VEC_ODE_ENTRIES(u, idx) {
-    bool first = true;
-    acc[u] = T(0);
+    if (computes) {
 #pragma unroll
-    for (int q = 0; q < MAX_NODES; ++q) {
-      if (lin[q] == T(0)) continue;
-      const T term = lin[q] * ops[(size_t)q * stride_q + idx];
-      acc[u] = first ? term : acc[u] + term;
-      first = false;
+      for (int q = 0; q < RM; ++q) {
+        const int i = c0 + rg * RM + q;
+#pragma unroll
+        for (int c = 0; c < GEMM_CN; ++c) {
+          const int col = cgi * GEMM_CN + c;
+          if (i < r_hi && col < D) out(i, col, y[q][c]);
+        }
+      }
     }
   }
-  VEC_ODE_ENTRIES(u, idx) W[idx] = dt * acc[u];
+  __syncthreads();
 }
 
-// W = W + coef * A
-template <typename T, bool WHOLE>
-__device__ inline void add_scaled_batch(int base, int n, T* __restrict__ W,
-                                        const T* __restrict__ A, T coef) {
-  T w[VEC_ODE_EW], a[VEC_ODE_EW];
-  VEC_ODE_ENTRIES(u, idx) {
-    w[u] = W[idx];
-    a[u] = A[idx];
+// out[r_lo + i], in every block of the cluster, = sum_c W_s[i][c] t[c] for
+// the block's `own` rows, divided by div where div > 0: p.tpr threads a
+// row, each over the four-column groups h, h + tpr, ... (a 16-byte load
+// of the row and one of t; four FMA chains, one per column of a group,
+// summed in order), then a butterfly sum over the row's lanes. The
+// padding columns of W_s and t are zero.
+template <typename T, bool CLUSTER>
+__device__ void matvec(const T* Ws, const Plan& p, int own, int r_lo, const T* t, T* out,
+                       int div) {
+  const int tid = threadIdx.x, h = tid % p.tpr, per = THREADS / p.tpr, ng = p.dpr / GEMM_CN;
+  for (int base = 0; base < own; base += per) {
+    const int i = base + tid / p.tpr;
+    T part = T(0);
+    if (i < own) {
+      const T* row = Ws + (size_t)i * p.dp;
+      T pc[GEMM_CN] = {};
+      for (int g = h; g < ng; g += p.tpr) {
+        T w[GEMM_CN], x[GEMM_CN];
+        lds_vec<T, GEMM_CN>(row + GEMM_CN * g, w);
+        lds_vec<T, GEMM_CN>(t + GEMM_CN * g, x);
+#pragma unroll
+        for (int c = 0; c < GEMM_CN; ++c) pc[c] = fma_full(w[c], x[c], pc[c]);
+      }
+      part = add_rn(add_rn(add_rn(pc[0], pc[1]), pc[2]), pc[3]);
+    }
+    for (int o = p.tpr / 2; o > 0; o >>= 1)
+      part = add_rn(part, __shfl_xor_sync(0xffffffffu, part, o));
+    if (i < own && h == 0) {
+      const T val = div > 0 ? part / T(div) : part;
+      for (int r = 0; r < p.cs; ++r) peer<CLUSTER>(out, r)[r_lo + i] = val;
+    }
   }
-  VEC_ODE_ENTRIES(u, idx) W[idx] = w[u] + coef * a[u];
-}
-
-// W = W * scale
-template <typename T, bool WHOLE>
-__device__ inline void scale_batch(int base, int n, T* W, T scale) {
-  T w[VEC_ODE_EW];
-  VEC_ODE_ENTRIES(u, idx) w[u] = W[idx];
-  VEC_ODE_ENTRIES(u, idx) W[idx] = w[u] * scale;
 }
 
 // block(j) of the Paterson-Stockmeyer form at one entry: c[4j] I + c[4j+1]
-// As + c[4j+2] A2 + c[4j+3] A3, summed left to right
+// As + c[4j+2] A2 + c[4j+3] A3, summed left to right, each product rounded
+// (ops/expm.taylor_ps)
 template <typename T>
 __device__ inline T ps_block(int j, bool diag, T as, T a2, T a3) {
   T v = diag ? (T)FACT_INV[4 * j] : T(0);
-  v = v + (T)FACT_INV[4 * j + 1] * as;
-  v = v + (T)FACT_INV[4 * j + 2] * a2;
-  return v + (T)FACT_INV[4 * j + 3] * a3;
+  v = add_rn(v, mul_rn((T)FACT_INV[4 * j + 1], as));
+  v = add_rn(v, mul_rn((T)FACT_INV[4 * j + 2], a2));
+  return add_rn(v, mul_rn((T)FACT_INV[4 * j + 3], a3));
 }
 
-// out0 = block(j0) (+ c4 A4 if A4), and out1 = block(j1) if out1. Entry
-// idx = r D + c lies on the diagonal iff D + 1 divides it.
-template <typename T, bool WHOLE>
-__device__ inline void ps_blocks_batch(int base, int n, const T* __restrict__ As,
-                                       const T* __restrict__ A2, const T* __restrict__ A3,
-                                       const T* __restrict__ A4, T c4, int j0,
-                                       T* __restrict__ out0, int j1, T* __restrict__ out1,
-                                       int D) {
-  T as[VEC_ODE_EW], a2[VEC_ODE_EW], a3[VEC_ODE_EW], a4[VEC_ODE_EW];
-  VEC_ODE_ENTRIES(u, idx) {
-    as[u] = As[idx];
-    a2[u] = A2[idx];
-    a3[u] = A3[idx];
-    a4[u] = A4 != nullptr ? A4[idx] : T(0);
-  }
-  VEC_ODE_ENTRIES(u, idx) {
-    const bool diag = idx % (D + 1) == 0;
-    const T b0 = ps_block<T>(j0, diag, as[u], a2[u], a3[u]);
-    out0[idx] = A4 != nullptr ? b0 + c4 * a4[u] : b0;
-    if (out1 != nullptr) out1[idx] = ps_block<T>(j1, diag, as[u], a2[u], a3[u]);
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+template <typename T, bool CLUSTER>
+__global__ void __launch_bounds__(THREADS, min_blocks<T>())
 dense_chains_kernel(const T* __restrict__ node_ops, long long stride_b, long long stride_q,
                     const T* __restrict__ dt, const T* __restrict__ x, T* __restrict__ y,
                     T* __restrict__ err, T* scratch, int B, int D, Table tb,
-                    const T* __restrict__ w_row, T post, int kind_max) {
-  __shared__ __align__(16) T As[BK * LD];
-  __shared__ __align__(16) T Bs[BK * LD];
-  __shared__ T xs[MAX_DIM], v[MAX_DIM], v2[MAX_DIM], ymain[MAX_DIM], red[THREADS];
-  __shared__ int s_sh;
+                    const T* __restrict__ w_row, T post, int kind_max, Plan p) {
+  extern __shared__ __align__(16) unsigned char dense_smem[];
+  const Smem<T> sm(dense_smem, p);
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int n = D * D;        // D <= MAX_DIM: fits an int
-  T* const buf = scratch + (size_t)blockIdx.x * N_BUF * n;
-  T* const W = buf;           // the exponent, then As
-  T* const A2 = buf + n;      // also the commutator
-  T* const A3 = buf + 2 * n;
-  T* const A4 = buf + 3 * n;
-  T* const X = buf + 4 * n;
-  T* const Y = buf + 5 * n;
+  const int tid = threadIdx.x;
+  int rank = 0, cid = blockIdx.x;
+  if constexpr (CLUSTER) {
+    rank = (int)cg::this_cluster().block_rank();
+    cid = blockIdx.x / p.cs;
+  }
+  const int n_clusters = gridDim.x / p.cs;
+  const int r_lo = rank * p.rows < D ? rank * p.rows : D;
+  const int r_hi = r_lo + p.rows < D ? r_lo + p.rows : D;
+  const int own = r_hi - r_lo;
+  const size_t n = (size_t)D * D;
+  T* const buf = scratch + (size_t)cid * N_BUF * n;  // the formed route's
   const T theta = (T)tb.theta;
-  // the column sums of the norm: groups of rows per column, THREADS
-  // partial sums in all
-  const int n_grp = THREADS / D > 0 ? THREADS / D : 1;
+  // the column sums of the norm: groups of rows per column
+  const int n_grp = THREADS / D;
+  // the samples in 16-byte loads: every row of every sample 16-byte aligned
+  const bool vec_ops = D % GEMM_CN == 0 && (size_t)node_ops % 16 == 0 &&
+                       (stride_b * (long long)sizeof(T)) % 16 == 0 &&
+                       (stride_q * (long long)sizeof(T)) % 16 == 0;
 
-  for (int b = blockIdx.x; b < B; b += gridDim.x) {
+  // the term buffers' padding stays zero; every block of the cluster has
+  // started before the first remote write
+  if (tid < p.dpr) sm.t0[tid] = sm.t1[tid] = sm.acc[tid] = T(0);
+  sync_all<CLUSTER>();
+
+  for (int b = cid; b < B; b += n_clusters) {
     const T* const ops = node_ops + (size_t)b * stride_b;
     const T dtb = dt[b];
-    if (tid < D) xs[tid] = x[(size_t)b * D + tid];
-    __syncthreads();
-
     int e = 0;  // the exponent's index over both chains
     for (int c = 0; c < tb.n_chains; ++c) {
-      if (tid < D) v[tid] = xs[tid];
+      if (tid < p.dpr) sm.v[tid] = tid < D ? x[(size_t)b * D + tid] : T(0);
       __syncthreads();
       for (int r = 0; r < tb.n_exp[c]; ++r, ++e) {
-        // 1. the exponent: W = dt * sum_q lin[q] M_q over the nonzero lin
+        // 1. the exponent's rows: dt * sum_q lin[q] M_q over the nonzero
+        // lin, summed in node order; zero in the padding columns. Thread t
+        // takes the four columns t % ncg of rows t / ncg, + rps, ..., FU
+        // rows at a time, their loads in flight together (the samples'
+        // first reads come from device memory): 16-byte loads where D is a
+        // multiple of 4 and the samples are 16-byte aligned
         T lin[MAX_NODES];
 #pragma unroll
         for (int q = 0; q < MAX_NODES; ++q) lin[q] = q < tb.n_nodes ? (T)tb.lin[e][q] : T(0);
-        VEC_ODE_PASS(exponent_batch, ops, stride_q, lin, dtb, W);
+        {
+          const int rps = THREADS / p.ncg, g4 = tid % p.ncg * GEMM_CN;
+          for (int i0 = tid / p.ncg; i0 < own && tid < rps * p.ncg; i0 += FU * rps) {
+            T a[FU][GEMM_CN];
+            bool first = true;
+#pragma unroll
+            for (int q = 0; q < MAX_NODES; ++q) {
+              if (lin[q] == T(0)) continue;
+              const T* src = ops + (size_t)q * stride_q + (size_t)r_lo * D + g4;
+              T v[FU][GEMM_CN];
+#pragma unroll
+              for (int u = 0; u < FU; ++u) {
+                const int i = i0 + u * rps;
+                if (i < own && vec_ops) {
+                  ldg_vec4(src + (size_t)i * D, v[u]);
+                } else {
+#pragma unroll
+                  for (int c = 0; c < GEMM_CN; ++c)
+                    v[u][c] = (i < own && g4 + c < D) ? src[(size_t)i * D + c] : T(0);
+                }
+              }
+#pragma unroll
+              for (int u = 0; u < FU; ++u)
+#pragma unroll
+                for (int c = 0; c < GEMM_CN; ++c) {
+                  const T term = mul_rn(lin[q], v[u][c]);
+                  a[u][c] = first ? term : add_rn(a[u][c], term);
+                }
+              first = false;
+            }
+#pragma unroll
+            for (int u = 0; u < FU; ++u) {
+              const int i = i0 + u * rps;
+              if (i >= own) continue;
+              T w[GEMM_CN];
+#pragma unroll
+              for (int c = 0; c < GEMM_CN; ++c)
+                w[c] = g4 + c < D ? mul_rn(dtb, first ? T(0) : a[u][c]) : T(0);
+              sts_vec4(sm.W + (size_t)i * p.dp + g4, w);
+            }
+          }
+        }
+        __syncthreads();
         // ... plus (g dt dt) (M_p M_q - M_q M_p) for its commutator terms
         for (int k = 0; k < tb.n_comm; ++k) {
           if (tb.comm_exp[k] != e) continue;
           const T* Mp = ops + (size_t)tb.comm_p[k] * stride_q;
           const T* Mq = ops + (size_t)tb.comm_q[k] * stride_q;
-          gemm<T>(Mp, Mq, A2, D, T(1), nullptr, T(0), As, Bs);
-          gemm<T>(Mq, Mp, A2, D, T(-1), A2, T(1), As, Bs);
-          VEC_ODE_PASS(add_scaled_batch, W, A2, ((T)tb.comm_g[k] * dtb) * dtb);
+          const T coef = mul_rn(mul_rn((T)tb.comm_g[k], dtb), dtb);
+          T* const Ws = sm.W;
+          const int dp = p.dp;
+          rows_product<T, true>(Mp, Mq, Mq, Mp, D, r_lo, r_hi, p, sm.ring,
+                                [=](int i, int col, T v) {
+                                  T* w = Ws + (size_t)(i - r_lo) * dp + col;
+                                  *w = add_rn(*w, mul_rn(coef, v));
+                                });
         }
 
-        // 2. the 1-norm (largest column sum) and the squaring count
-        // (group g of column c sums rows g, g + n_grp, ...; then the
-        // groups in order)
+        // 2. the 1-norm (largest column sum): group g of a column sums the
+        // block's rows g, g + n_grp, ...; then the groups in order, then
+        // the cluster's blocks in rank order; a NaN column sum propagates
         T colsum = T(0);
         if (tid < n_grp * D) {
-          const int c = tid % D;
-#pragma unroll 8
-          for (int i = tid / D; i < D; i += n_grp) colsum += fabs(W[i * D + c]);
+          const int col = tid % D;
+          for (int i = tid / D; i < own; i += n_grp)
+            colsum = add_rn(colsum, fabs(sm.W[(size_t)i * p.dp + col]));
         }
-        red[tid] = colsum;
+        sm.red[tid] = colsum;
         __syncthreads();
-        colsum = T(0);
         if (tid < D) {
-          for (int g = 0; g < n_grp; ++g) colsum += red[g * D + tid];
-          if (!isfinite(colsum)) colsum = (T)INFINITY;
+          T part = sm.red[tid];
+          for (int g = 1; g < n_grp; ++g) part = add_rn(part, sm.red[g * D + tid]);
+          for (int q = 0; q < p.cs; ++q) peer<CLUSTER>(sm.colpart, q)[rank * p.dpr + tid] = part;
         }
+        sync_all<CLUSTER>();
+        T tot = T(0);
+        if (tid < D) {
+          tot = sm.colpart[tid];
+          for (int q = 1; q < p.cs; ++q) tot = add_rn(tot, sm.colpart[q * p.dpr + tid]);
+        }
+        sm.red[tid] = tot;
         __syncthreads();
-        red[tid] = colsum;
-        __syncthreads();
-        for (int h = THREADS / 2; h > 0; h >>= 1) {
-          if (tid < h) red[tid] = fmax(red[tid], red[tid + h]);
+        for (int hh = THREADS / 2; hh > 0; hh >>= 1) {
+          if (tid < hh) sm.red[tid] = nan_max(sm.red[tid], sm.red[tid + hh]);
           __syncthreads();
         }
         if (tid == 0) {
-          const T ratio = red[0] / theta;
+          const T ratio = sm.red[0] / theta;
           int s = 0;
-          if (isfinite(ratio) && ratio > T(1)) {
+          if (isinf(ratio)) {
+            s = tb.max_squarings;
+          } else if (ratio > T(1)) {  // false for NaN: s = 0
             int ex;
             const T mant = frexp(ratio, &ex);
             s = ex - (mant == T(0.5) ? 1 : 0);
             s = s < 0 ? 0 : (s > tb.max_squarings ? tb.max_squarings : s);
           }
-          s_sh = s;
+          *sm.s = s;
         }
         __syncthreads();
-        const int s = s_sh;
-        if (s > 0) {
-          const T scale = ldexp(T(1), -s);  // exact
-          VEC_ODE_PASS(scale_batch, W, scale);
-        }
+        const int s = *sm.s;
+        const T scale = ldexp(T(1), -s);  // exact
 
-        // the Taylor polynomial T_m(As) by Paterson-Stockmeyer
-        gemm<T>(W, W, A2, D, T(1), nullptr, T(0), As, Bs);
-        gemm<T>(A2, W, A3, D, T(1), nullptr, T(0), As, Bs);
-        gemm<T>(A3, W, A4, D, T(1), nullptr, T(0), As, Bs);
-        T* P;
-        if (tb.m == 12) {
-          // X = B2 + c12 A4, Y = B1; Y = A4 X + Y; X = B0; X = A4 Y + X
-          VEC_ODE_PASS(ps_blocks_batch, W, A2, A3, A4, (T)FACT_INV[12], 2, X, 1, Y, D);
-          gemm<T>(A4, X, Y, D, T(1), Y, T(1), As, Bs);
-          VEC_ODE_PASS(ps_blocks_batch, W, A2, A3, (const T*)nullptr, T(0), 0, X, 0,
-                       (T*)nullptr, D);
-          gemm<T>(A4, Y, X, D, T(1), X, T(1), As, Bs);
-          P = X;
+        if (takes_actions(s, tb.m, D)) {
+          // 3a. 2^s passes of T_m(2^-s W) on v: term = (As term) / j
+          if (s > 0) {
+            for (int idx = tid; idx < own * p.dpr; idx += THREADS) {
+              const int i = idx / p.dpr, col = idx - i * p.dpr;
+              sm.W[(size_t)i * p.dp + col] = mul_rn(sm.W[(size_t)i * p.dp + col], scale);
+            }
+            __syncthreads();
+          }
+          const long long n_pass = 1LL << s;
+          for (long long pass = 0; pass < n_pass; ++pass) {
+            if (tid < D) sm.t0[tid] = sm.acc[tid] = sm.v[tid];
+            __syncthreads();
+            for (int j = 1; j <= tb.m; ++j) {
+              const T* tin = (j & 1) ? sm.t0 : sm.t1;
+              T* tout = (j & 1) ? sm.t1 : sm.t0;
+              matvec<T, CLUSTER>(sm.W, p, own, r_lo, tin, tout, j);
+              sync_all<CLUSTER>();
+              if (tid < D) sm.acc[tid] = add_rn(sm.acc[tid], tout[tid]);
+            }
+            __syncthreads();
+            if (tid < D) sm.v[tid] = sm.acc[tid];
+            __syncthreads();
+          }
         } else {
-          // m = 8: X = B1 + c8 A4, Y = B0; Y = A4 X + Y
-          VEC_ODE_PASS(ps_blocks_batch, W, A2, A3, A4, (T)FACT_INV[8], 1, X, 0, Y, D);
-          gemm<T>(A4, X, Y, D, T(1), Y, T(1), As, Bs);
-          P = Y;
+          // 3b. formed: As = 2^-s W, T_m(As) by Paterson-Stockmeyer, s
+          // squarings, each block its rows, the cluster's blocks ordered
+          // by barriers; then P's rows back into W_s and one product
+          T* const As = buf;
+          T* const A2 = buf + n;
+          T* const A3 = buf + 2 * n;
+          T* const A4 = buf + 3 * n;
+          T* const X = buf + 4 * n;
+          T* const Y = buf + 5 * n;
+          for (int idx = tid; idx < own * D; idx += THREADS) {
+            const int i = idx / D, col = idx - i * D;
+            As[(size_t)(r_lo + i) * D + col] = mul_rn(sm.W[(size_t)i * p.dp + col], scale);
+          }
+          sync_all<CLUSTER>();
+          auto store = [=](T* C) {
+            return [=](int i, int col, T v) { C[(size_t)i * D + col] = v; };
+          };
+          auto accumulate = [=](T* C) {
+            return [=](int i, int col, T v) {
+              T* cp = C + (size_t)i * D + col;
+              *cp = add_rn(*cp, v);
+            };
+          };
+          rows_product<T, false>(As, As, nullptr, nullptr, D, r_lo, r_hi, p, sm.ring, store(A2));
+          sync_all<CLUSTER>();
+          rows_product<T, false>(A2, As, nullptr, nullptr, D, r_lo, r_hi, p, sm.ring, store(A3));
+          sync_all<CLUSTER>();
+          rows_product<T, false>(A3, As, nullptr, nullptr, D, r_lo, r_hi, p, sm.ring, store(A4));
+          sync_all<CLUSTER>();
+          // m = 12: X = B2 + c12 A4, Y = B1; Y = A4 X + Y; X = B0;
+          // X = A4 Y + X. m = 8: X = B1 + c8 A4, Y = B0; Y = A4 X + Y.
+          const bool m12 = tb.m == 12;
+          const T c_top = (T)FACT_INV[m12 ? 12 : 8];
+          for (int idx = tid; idx < own * D; idx += THREADS) {
+            const int i = r_lo + idx / D, col = idx % D;
+            const size_t at = (size_t)i * D + col;
+            const bool diag = i == col;
+            X[at] = add_rn(ps_block<T>(m12 ? 2 : 1, diag, As[at], A2[at], A3[at]),
+                           mul_rn(c_top, A4[at]));
+            Y[at] = ps_block<T>(m12 ? 1 : 0, diag, As[at], A2[at], A3[at]);
+          }
+          sync_all<CLUSTER>();
+          rows_product<T, false>(A4, X, nullptr, nullptr, D, r_lo, r_hi, p, sm.ring,
+                                 accumulate(Y));
+          sync_all<CLUSTER>();
+          T* P = Y;
+          if (m12) {
+            for (int idx = tid; idx < own * D; idx += THREADS) {
+              const int i = r_lo + idx / D, col = idx % D;
+              const size_t at = (size_t)i * D + col;
+              X[at] = ps_block<T>(0, i == col, As[at], A2[at], A3[at]);
+            }
+            sync_all<CLUSTER>();
+            rows_product<T, false>(A4, Y, nullptr, nullptr, D, r_lo, r_hi, p, sm.ring,
+                                   accumulate(X));
+            sync_all<CLUSTER>();
+            P = X;
+          }
+          for (int it = 0; it < s; ++it) {
+            T* const Q = P == X ? Y : X;
+            rows_product<T, false>(P, P, nullptr, nullptr, D, r_lo, r_hi, p, sm.ring, store(Q));
+            sync_all<CLUSTER>();
+            P = Q;
+          }
+          for (int idx = tid; idx < own * p.dpr; idx += THREADS) {
+            const int i = idx / p.dpr, col = idx - i * p.dpr;
+            sm.W[(size_t)i * p.dp + col] = col < D ? P[(size_t)(r_lo + i) * D + col] : T(0);
+          }
+          __syncthreads();
+          matvec<T, CLUSTER>(sm.W, p, own, r_lo, sm.v, sm.t0, 0);
+          sync_all<CLUSTER>();
+          if (tid < D) sm.v[tid] = sm.t0[tid];
+          __syncthreads();
         }
-        // s squarings, between X and Y
-        for (int i = 0; i < s; ++i) {
-          T* const Q = P == X ? Y : X;
-          gemm<T>(P, P, Q, D, T(1), nullptr, T(0), As, Bs);
-          P = Q;
-        }
-
-        // 3. v <- P v: a warp per row, lanes over the columns
-        for (int i = warp; i < D; i += THREADS / 32) {
-          T part = T(0);
-          for (int j = lane; j < D; j += 32) part += P[(size_t)i * D + j] * v[j];
-#pragma unroll
-          for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
-          if (lane == 0) v2[i] = part;
-        }
-        __syncthreads();
-        if (tid < D) v[tid] = v2[tid];
-        __syncthreads();
       }
       if (c == 0) {
         if (tid < D) {
-          y[(size_t)b * D + tid] = v[tid];
-          ymain[tid] = v[tid];
+          if (rank == 0) y[(size_t)b * D + tid] = sm.v[tid];
+          sm.ymain[tid] = sm.v[tid];
         }
-        if (tb.n_chains == 1 && tid == 0) err[b] = T(0);
+        if (tb.n_chains == 1 && tid == 0 && rank == 0) err[b] = T(0);
       } else {
         // the declared norm of the chains' difference: a weight per
         // column, then l2 or a NaN-propagating max, then the post factor
         T dv = T(0);
         if (tid < D) {
-          dv = v[tid] - ymain[tid];
+          dv = sm.v[tid] - sm.ymain[tid];
           if (w_row != nullptr) dv = dv * w_row[tid];
         }
-        red[tid] = kind_max ? fabs(dv) : dv * dv;
+        sm.red[tid] = kind_max ? fabs(dv) : dv * dv;
         __syncthreads();
-        for (int h = THREADS / 2; h > 0; h >>= 1) {
-          if (tid < h)
-            red[tid] = kind_max ? nan_max(red[tid], red[tid + h]) : red[tid] + red[tid + h];
+        for (int hh = THREADS / 2; hh > 0; hh >>= 1) {
+          if (tid < hh)
+            sm.red[tid] = kind_max ? nan_max(sm.red[tid], sm.red[tid + hh])
+                                   : sm.red[tid] + sm.red[tid + hh];
           __syncthreads();
         }
-        if (tid == 0) {
-          T norm = kind_max ? red[0] : sqrt(red[0]);
+        if (tid == 0 && rank == 0) {
+          T norm = kind_max ? sm.red[0] : sqrt(sm.red[0]);
           if (post != T(1)) norm = norm * post;
           err[b] = norm;
         }
@@ -515,6 +732,8 @@ dense_chains_kernel(const T* __restrict__ node_ops, long long stride_b, long lon
       __syncthreads();
     }
   }
+  // no block leaves while another of its cluster may still write into it
+  sync_all<CLUSTER>();
 }
 
 // the flat table of ops/dense_chains.py:ChainTable.kernel_array: n_nodes,
@@ -541,17 +760,17 @@ bool parse_table(const double* t, int len, Table* tb) {
       !(tb->theta > 0.0))
     return false;
   if (len != TABLE_HEAD + n_exp * tb->n_nodes + 4 * tb->n_comm) return false;
-  const double* p = t + TABLE_HEAD;
+  const double* q = t + TABLE_HEAD;
   for (int e = 0; e < MAX_EXPONENTS; ++e)
-    for (int q = 0; q < MAX_NODES; ++q)
-      tb->lin[e][q] = (e < n_exp && q < tb->n_nodes) ? p[e * tb->n_nodes + q] : 0.0;
-  p += n_exp * tb->n_nodes;
+    for (int k = 0; k < MAX_NODES; ++k)
+      tb->lin[e][k] = (e < n_exp && k < tb->n_nodes) ? q[e * tb->n_nodes + k] : 0.0;
+  q += n_exp * tb->n_nodes;
   for (int k = 0; k < MAX_COMMS; ++k) {
     const bool in = k < tb->n_comm;
-    tb->comm_exp[k] = in ? (int)p[4 * k] : -1;
-    tb->comm_p[k] = in ? (int)p[4 * k + 1] : 0;
-    tb->comm_q[k] = in ? (int)p[4 * k + 2] : 0;
-    tb->comm_g[k] = in ? p[4 * k + 3] : 0.0;
+    tb->comm_exp[k] = in ? (int)q[4 * k] : -1;
+    tb->comm_p[k] = in ? (int)q[4 * k + 1] : 0;
+    tb->comm_q[k] = in ? (int)q[4 * k + 2] : 0;
+    tb->comm_g[k] = in ? q[4 * k + 3] : 0.0;
     if (in && (tb->comm_exp[k] < 0 || tb->comm_exp[k] >= n_exp || tb->comm_p[k] < 0 ||
                tb->comm_p[k] >= tb->n_nodes || tb->comm_q[k] < 0 || tb->comm_q[k] >= tb->n_nodes))
       return false;
@@ -559,69 +778,144 @@ bool parse_table(const double* t, int len, Table* tb) {
   return true;
 }
 
-// blocks of the persistent grid: as many as the card keeps resident, at
-// most one per trajectory; negative: a CUDA error code
+// the card's limits, read once per device
+struct Limits {
+  int max_smem, n_sm, smem_sm, reserved;
+};
+
+cudaError_t limits_of(int* dev, Limits* out) {
+  static Limits seen[MAX_DEVICES];
+  cudaError_t st = cudaGetDevice(dev);
+  if (st != cudaSuccess) return st;
+  if (*dev < 0 || *dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  Limits& l = seen[*dev];
+  if (l.n_sm == 0) {
+    Limits q;
+    st = cudaDeviceGetAttribute(&q.max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, *dev);
+    if (st == cudaSuccess)
+      st = cudaDeviceGetAttribute(&q.n_sm, cudaDevAttrMultiProcessorCount, *dev);
+    if (st == cudaSuccess)
+      st = cudaDeviceGetAttribute(&q.smem_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, *dev);
+    if (st == cudaSuccess)
+      st = cudaDeviceGetAttribute(&q.reserved, cudaDevAttrReservedSharedMemoryPerBlock, *dev);
+    if (st != cudaSuccess) return st;
+    l = q;
+  }
+  *out = l;
+  return cudaSuccess;
+}
+
+// The plan of a launch over B trajectories of width D: out[0..7] = blocks
+// a cluster, rows a block, rows a product chunk, W's padded row, threads a
+// matrix-vector row, shared memory a block (bytes), clusters of the grid,
+// scratch values the wrapper allocates. A CUDA error code, or 0.
 template <typename T>
-int grid_blocks(int B) {
-  int dev = 0, n_sm = 0, per_sm = 0;
-  cudaError_t st = cudaGetDevice(&dev);
-  if (st == cudaSuccess) st = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-  if (st == cudaSuccess)
-    st = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dense_chains_kernel<T>, THREADS, 0);
-  if (st != cudaSuccess) return -(int)st;
-  if (B < 1 || n_sm < 1) return -(int)cudaErrorInvalidValue;
-  const long long g = (long long)n_sm * (per_sm < 1 ? 1 : per_sm);
-  return (int)(B < g ? B : g);
+int plan_query(int B, int D, long long* out) {
+  if (B < 1 || D < 1 || D > MAX_DIM || out == nullptr) return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  Limits l;
+  const cudaError_t st = limits_of(&dev, &l);
+  if (st != cudaSuccess) return (int)st;
+  const Plan p = dense_plan<T>(D, (size_t)l.max_smem);
+  if (p.cs == 0) return (int)cudaErrorInvalidValue;
+  const int g = grid_clusters<T>(p, B, l.n_sm, l.smem_sm, l.reserved);
+  const long long vals[8] = {p.cs, p.rows, p.rc, p.dp, p.tpr, (long long)p.smem, g,
+                             (long long)g * N_BUF * D * D};
+  for (int i = 0; i < 8; ++i) out[i] = vals[i];
+  return 0;
+}
+
+template <typename T, bool CLUSTER>
+int run(const Plan& p, int g, int dev, const T* node_ops, long long stride_b, long long stride_q,
+        const T* dt, const T* x, T* y, T* err, T* scratch, int B, int D, const Table& tb,
+        const T* w_row, T post, int kind_max, void* stream) {
+  static size_t smem_allowed[MAX_DEVICES];
+  auto kernel = dense_chains_kernel<T, CLUSTER>;
+  if (p.smem > smem_allowed[dev]) {
+    const cudaError_t st =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+    if (st != cudaSuccess) return (int)st;
+    smem_allowed[dev] = p.smem;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(g * p.cs));
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)p.cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = CLUSTER ? 1 : 0;
+  const cudaError_t st = cudaLaunchKernelEx(&cfg, kernel, node_ops, stride_b, stride_q, dt, x, y,
+                                            err, scratch, B, D, tb, w_row, post, kind_max, p);
+  if (st != cudaSuccess) return (int)st;
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* node_ops, long long stride_b, long long stride_q, const void* dt,
-           const void* x, void* y, void* err, void* scratch, int n_blocks, int B, int D,
+           const void* x, void* y, void* err, void* scratch, long long scratch_len, int B, int D,
            const double* table, int table_len, const void* w_row, double post, int kind_max,
            void* stream) {
   Table tb;
-  if (B <= 0 || D <= 0 || D > MAX_DIM || n_blocks < 1 || n_blocks > B || scratch == nullptr ||
+  if (B <= 0 || D <= 0 || D > MAX_DIM || scratch == nullptr ||
       !parse_table(table, table_len, &tb))
     return (int)cudaErrorInvalidValue;
-  dense_chains_kernel<T><<<n_blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      (const T*)node_ops, stride_b, stride_q, (const T*)dt, (const T*)x, (T*)y, (T*)err,
-      (T*)scratch, B, D, tb, (const T*)w_row, (T)post, kind_max);
-  return (int)cudaGetLastError();
+  int dev = 0;
+  Limits l;
+  const cudaError_t st = limits_of(&dev, &l);
+  if (st != cudaSuccess) return (int)st;
+  const Plan p = dense_plan<T>(D, (size_t)l.max_smem);
+  if (p.cs == 0) return (int)cudaErrorInvalidValue;
+  const int g = grid_clusters<T>(p, B, l.n_sm, l.smem_sm, l.reserved);
+  if (scratch_len < (long long)g * N_BUF * D * D) return (int)cudaErrorInvalidValue;
+  if (p.cs > 1)
+    return run<T, true>(p, g, dev, (const T*)node_ops, stride_b, stride_q, (const T*)dt,
+                        (const T*)x, (T*)y, (T*)err, (T*)scratch, B, D, tb, (const T*)w_row,
+                        (T)post, kind_max, stream);
+  return run<T, false>(p, g, dev, (const T*)node_ops, stride_b, stride_q, (const T*)dt,
+                       (const T*)x, (T*)y, (T*)err, (T*)scratch, B, D, tb, (const T*)w_row,
+                       (T)post, kind_max, stream);
 }
-
-#undef VEC_ODE_EW
-#undef VEC_ODE_ENTRIES
-#undef VEC_ODE_PASS
 
 }  // namespace
 
 extern "C" {
 
-// The blocks a launch over B trajectories takes: the wrapper sizes the
-// scratch, n_blocks * 6 * D * D values, with it. Negative: a CUDA error.
-int vec_ode_dense_chains_blocks_f32(int B) { return grid_blocks<float>(B); }
-int vec_ode_dense_chains_blocks_f64(int B) { return grid_blocks<double>(B); }
+// The plan of a launch (plan_query): out[8] as there. 0 or a CUDA error.
+int vec_ode_dense_chains_plan_f32(int B, int D, long long* out) {
+  return plan_query<float>(B, D, out);
+}
+int vec_ode_dense_chains_plan_f64(int B, int D, long long* out) {
+  return plan_query<double>(B, D, out);
+}
 
 // One step of every trajectory: node_ops the operator samples, sample q of
 // trajectory b a contiguous (D, D) block at b * stride_b + q * stride_q
-// (in values); dt (B,), x (B, D); writes y (B, D) and err (B,), 0 where
-// the table has one chain. table: the float64 values of
-// ops/dense_chains.py:ChainTable.kernel_array, in host memory. w_row: D
-// weights in device memory in the state's type, or null; post and kind_max
-// (0: l2, 1: max) complete the declared error norm.
+// (in values, any alignment); dt (B,), x (B, D); writes y (B, D) and err
+// (B,), 0 where the table has one chain. scratch: scratch_len values, at
+// least the plan's (out[7]), for the formed route. table: the float64
+// values of ops/dense_chains.py:ChainTable.kernel_array, in host memory.
+// w_row: D weights in device memory in the state's type, or null; post
+// and kind_max (0: l2, 1: max) complete the declared error norm.
 int vec_ode_dense_chains_f32(const void* node_ops, long long stride_b, long long stride_q,
                              const void* dt, const void* x, void* y, void* err, void* scratch,
-                             int n_blocks, int B, int D, const double* table, int table_len,
-                             const void* w_row, double post, int kind_max, void* stream) {
-  return launch<float>(node_ops, stride_b, stride_q, dt, x, y, err, scratch, n_blocks, B, D,
+                             long long scratch_len, int B, int D, const double* table,
+                             int table_len, const void* w_row, double post, int kind_max,
+                             void* stream) {
+  return launch<float>(node_ops, stride_b, stride_q, dt, x, y, err, scratch, scratch_len, B, D,
                        table, table_len, w_row, post, kind_max, stream);
 }
 
 int vec_ode_dense_chains_f64(const void* node_ops, long long stride_b, long long stride_q,
                              const void* dt, const void* x, void* y, void* err, void* scratch,
-                             int n_blocks, int B, int D, const double* table, int table_len,
-                             const void* w_row, double post, int kind_max, void* stream) {
-  return launch<double>(node_ops, stride_b, stride_q, dt, x, y, err, scratch, n_blocks, B, D,
+                             long long scratch_len, int B, int D, const double* table,
+                             int table_len, const void* w_row, double post, int kind_max,
+                             void* stream) {
+  return launch<double>(node_ops, stride_b, stride_q, dt, x, y, err, scratch, scratch_len, B, D,
                         table, table_len, w_row, post, kind_max, stream);
 }
 

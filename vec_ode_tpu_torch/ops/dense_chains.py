@@ -22,15 +22,21 @@ with every exponent of the one declared shape
   plain twin and the stacked reference (``exp/dense_fast.py``) all read.
 * :func:`torch_dense_chains` is the plain twin with the kernel's
   arithmetic: table -> exponents, the squaring count per trajectory and
-  exponent (``ops/expm.squaring_count``: the least s >= 0 with
-  norm / theta <= 2^s, s = 0 for a non-finite norm), the
-  Paterson-Stockmeyer polynomial, s squarings, the chain application and
-  the error norm. The JAX kernel takes ceil(log2(.)) per trajectory and its
-  XLA twin one count per batch; the results differ by rounding.
+  exponent (:func:`scaling`: ``ops/expm.squaring_count``, the least s >= 0
+  with norm / theta <= 2^s, s = 0 for a NaN norm and ``max_squarings`` for
+  an infinite one), then per exponent the route of :func:`takes_actions`:
+  2^s passes of the degree-m Taylor polynomial of 2^-s W applied to the
+  running vector (one matrix-vector product a term), or, past the rule,
+  the Paterson-Stockmeyer polynomial formed as a matrix, s squarings and
+  one product; then the error norm. The JAX kernel takes ceil(log2(.)) per
+  trajectory and its XLA twin one count per batch, and both form every
+  propagator; the results differ by rounding.
 * :func:`fused_dense_chain_apply` is the wrapper of the hand-written CUDA
   kernel ``csrc/dense_chains.cu`` (K9): CPU tensors run the twin, CUDA
   tensors launch the kernel or raise.
   ``fused_dense_chain_apply.launches`` counts the launches.
+* :func:`dense_plan` mirrors the kernel's launch plan (the cluster, the
+  rows of W a block keeps in shared memory, the grid) from the shape.
 """
 
 from __future__ import annotations
@@ -38,7 +44,6 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Sequence
 
 import torch
 
@@ -47,12 +52,98 @@ from . import _build
 from .expm import one_norm, squaring_count, taylor_ps
 from .fused_rk import kernel_norm_args, wnorm_on
 
-# the kernel's limits (csrc/dense_chains.cu)
+# the kernel's limits and launch constants (csrc/dense_chains.cu)
 MAX_DIM = 256
 MAX_NODES = 8
 MAX_EXPONENTS = 12
 MAX_COMMS = 12
-N_BUF = 6          # (D, D) scratch buffers per block
+THREADS = 256
+JC = 8             # contraction indices a panel of a product
+MAX_RC = 64        # rows a chunk of a product at most
+MAX_CLUSTER = 8
+RM = {4: 8, 8: 4}  # product rows a thread, by element size
+MIN_BLOCKS = {4: 2, 8: 1}  # blocks an SM the launch bounds keep registers for
+N_BUF = 6          # (D, D) scratch buffers a cluster, formed route
+N_VEC = 5          # (D,) vectors a block
+CN = 4             # columns a thread of a product; the vectors' rounding
+
+
+def ps_products(m: int) -> int:
+    """The formed route's products before its squarings:
+    Paterson-Stockmeyer's five at m = 12 (``taylor_ps``), four at m = 8."""
+    return 5 if m == 12 else 4
+
+
+def takes_actions(s, m: int, D: int):
+    """The route rule of csrc/dense_chains.cu (``takes_actions``): an
+    exponent with squaring count s is applied as 2^s passes of m Taylor
+    actions (2 D^2 each) while those cost less than the formed route's
+    ``ps_products(m) + s`` products (2 D^3 each), in integer arithmetic.
+    ``s`` an int or an integer tensor; returns a bool or a bool tensor."""
+    if isinstance(s, torch.Tensor):
+        s64 = s.to(torch.int64)
+        lhs = torch.bitwise_left_shift(torch.ones_like(s64),
+                                       torch.clamp(s64, 0, 30)) * m
+        return (s64 < 31) & (lhs < (ps_products(m) + s64) * D)
+    return s < 31 and (1 << s) * m < (ps_products(m) + s) * D
+
+
+def scaling(W, theta: float, max_squarings: int):
+    """The squaring count of each (D, D) in W: ``squaring_count`` of its
+    1-norm (0 for a NaN norm), and ``max_squarings`` where norm / theta is
+    infinite, as the kernel counts."""
+    norm = one_norm(W)
+    s = squaring_count(norm, theta, max_squarings)
+    return torch.where(torch.isinf(norm / theta), max_squarings, s)
+
+
+def _align16(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
+
+
+def _layout(D: int, elem: int, cs: int) -> dict:
+    """csrc/dense_chains.cu's plan_with: the shape of a block of a cluster
+    of ``cs`` blocks and its shared memory in bytes."""
+    rows = -(-D // cs)
+    dpr = -(-D // CN) * CN
+    q = 128 // elem
+    dp = -(-D // q) * q + 32 // elem
+    ncg = dpr // CN
+    nrg = min(THREADS // ncg, MAX_RC // RM[elem], -(-rows // RM[elem]))
+    rc = nrg * RM[elem]
+    tpr = 1
+    while tpr * 2 <= THREADS // rows and tpr < 32:
+        tpr *= 2
+    smem = (_align16(rows * dp * elem)
+            + _align16(2 * 2 * JC * (rc + 4 + dpr) * elem)
+            + _align16(N_VEC * dpr * elem) + _align16(cs * dpr * elem)
+            + _align16(THREADS * elem) + 16)
+    return dict(cs=cs, rows=rows, rc=rc, dp=dp, tpr=tpr, smem=smem)
+
+
+def dense_plan(B: int, D: int, elem: int, n_sm: int = 132,
+               max_smem: int = 232448, smem_sm: int = 233472,
+               reserved: int = 1024) -> dict:
+    """K9's launch plan (csrc/dense_chains.cu: dense_plan, grid_clusters)
+    on a card of ``n_sm`` SMs: the least cluster size ``cs`` in 1, 2, 4, 8
+    whose blocks, each keeping ceil(D / cs) rows of the exponent W in
+    shared memory, fit ``max_smem``; ``rows`` a block, ``rc`` rows a
+    product chunk, ``dp`` W's padded row, ``tpr`` threads a row of a
+    matrix-vector product, ``smem`` bytes a block; ``clusters`` of the
+    persistent grid (what the SMs hold by shared memory, at most
+    MIN_BLOCKS a SM, at most one per trajectory), ``blocks`` and the
+    ``scratch`` values of the formed route. None where nothing fits."""
+    cs = 1
+    while cs <= MAX_CLUSTER and cs <= D:
+        lay = _layout(D, elem, cs)
+        if lay["smem"] <= max_smem:
+            per_sm = max(1, min(MIN_BLOCKS[elem],
+                                smem_sm // (lay["smem"] + reserved)))
+            clusters = min(B, max(1, n_sm * per_sm // cs))
+            return dict(lay, clusters=clusters, blocks=clusters * cs,
+                        per_sm=per_sm, scratch=clusters * N_BUF * D * D)
+        cs *= 2
+    return None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,27 +242,46 @@ class ChainTable:
 def torch_dense_chains(table: ChainTable, node_ops, dt, xw, *, m: int,
                        theta: float, max_squarings: int = 16, wnorm=None,
                        counts: list = None):
-    """Plain twin of K9: per trajectory and exponent, scaling by its own
-    1-norm, T_m by Paterson-Stockmeyer, its own number of squarings (rows
-    past their count keep their value), then the chains applied to xw
-    (B, D). Returns (y (B, D), err (B,) or None with one chain); err is
-    the l2 distance of the two chains, or their distance in the declared
-    norm ``wnorm = (w_row, post, kind)`` (``lc.WeightedNorm.kernel_parts``).
+    """Plain twin of K9: per trajectory and exponent, the squaring count of
+    its own 1-norm (:func:`scaling`) and the route of
+    :func:`takes_actions`: 2^s passes of T_m(2^-s W) on the running vector,
+    each term (2^-s W term) / j added in order; or T_m(2^-s W) by
+    Paterson-Stockmeyer, its own number of squarings (rows past their count
+    keep their value) and one product. Then the chains applied to xw (B,
+    D). Returns (y (B, D), err (B,) or None with one chain); err is the l2
+    distance of the two chains, or their distance in the declared norm
+    ``wnorm = (w_row, post, kind)`` (``lc.WeightedNorm.kernel_parts``).
     ``counts``, if a list, receives each exponent's (B,) squaring counts."""
     chains = table.exponents(node_ops.to(xw.dtype), dt)
+    D = xw.shape[-1]
     outs = []
     for chain in chains:
         v = xw
         for W in chain:
-            s = squaring_count(one_norm(W), theta, max_squarings)
+            s = scaling(W, theta, max_squarings)
             if counts is not None:
                 counts.append(s)
             As = W * torch.ldexp(torch.ones_like(dt, dtype=W.dtype),
                                  -s)[:, None, None]
-            P = taylor_ps(As, m)
-            for i in range(int(s.max()) if s.numel() else 0):
-                P = torch.where((s > i)[:, None, None], P @ P, P)
-            v = (P @ v[..., None])[..., 0]
+            act = takes_actions(s, m, D)
+            new = v
+            if bool(act.any()):
+                n_pass = torch.where(act, torch.bitwise_left_shift(
+                    torch.ones_like(s), torch.clamp(s, 0, 30)), 0)
+                for p in range(int(n_pass.max())):
+                    acc = term = new
+                    for j in range(1, m + 1):
+                        term = (As @ term[..., None])[..., 0] / j
+                        acc = acc + term
+                    new = torch.where((n_pass > p)[:, None], acc, new)
+            if not bool(act.all()):
+                P = taylor_ps(As, m)
+                sf = torch.where(act, 0, s)
+                for i in range(int(sf.max())):
+                    P = torch.where((sf > i)[:, None, None], P @ P, P)
+                new = torch.where(act[:, None], new,
+                                  (P @ v[..., None])[..., 0])
+            v = new
         outs.append(v)
     if len(outs) < 2:
         return outs[0], None
@@ -186,14 +296,37 @@ def _kernel_lib() -> ctypes.CDLL:
     vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for fn in (lib.vec_ode_dense_chains_f32, lib.vec_ode_dense_chains_f64):
         fn.restype = ci
-        fn.argtypes = [vp, ll, ll, vp, vp, vp, vp, vp, ci, ci, ci,
+        fn.argtypes = [vp, ll, ll, vp, vp, vp, vp, vp, ll, ci, ci,
                        ctypes.POINTER(ctypes.c_double), ci, vp,
                        ctypes.c_double, ci, vp]
-    for fn in (lib.vec_ode_dense_chains_blocks_f32,
-               lib.vec_ode_dense_chains_blocks_f64):
+    for fn in (lib.vec_ode_dense_chains_plan_f32,
+               lib.vec_ode_dense_chains_plan_f64):
         fn.restype = ci
-        fn.argtypes = [ci]
+        fn.argtypes = [ci, ci, ctypes.POINTER(ctypes.c_longlong)]
     return lib
+
+
+PLAN_KEYS = ("cs", "rows", "rc", "dp", "tpr", "smem", "clusters", "scratch")
+
+
+def kernel_plan(B: int, D: int, dtype) -> dict:
+    """The plan the kernel launches with on the current card
+    (``vec_ode_dense_chains_plan_*``), keyed as :func:`dense_plan`."""
+    return dict(_kernel_plan(B, D, dtype == torch.float32,
+                             torch.cuda.current_device()))
+
+
+@functools.lru_cache(maxsize=256)
+def _kernel_plan(B: int, D: int, f32: bool, _device: int) -> tuple:
+    lib = _kernel_lib()
+    fn = (lib.vec_ode_dense_chains_plan_f32 if f32
+          else lib.vec_ode_dense_chains_plan_f64)
+    out = (ctypes.c_longlong * len(PLAN_KEYS))()
+    rc = fn(B, D, out)
+    if rc != 0:
+        raise RuntimeError("fused_dense_chain_apply: the plan query failed "
+                           f"with CUDA error {rc}")
+    return tuple(zip(PLAN_KEYS, (int(v) for v in out)))
 
 
 def check_table(table: ChainTable) -> None:
@@ -211,25 +344,12 @@ def check_table(table: ChainTable) -> None:
                          f"{MAX_COMMS} commutator terms, got {table.n_comms}")
 
 
-def _grid_blocks(lib, xw) -> int:
-    """Blocks of the persistent grid: what the card keeps resident, at most
-    one per trajectory."""
-    f32 = xw.dtype == torch.float32
-    resident = (lib.vec_ode_dense_chains_blocks_f32 if f32
-                else lib.vec_ode_dense_chains_blocks_f64)(xw.shape[0])
-    if resident < 1:
-        raise RuntimeError("fused_dense_chain_apply: the occupancy query "
-                           f"failed with CUDA error {-resident}")
-    return resident
-
-
 def fused_dense_chain_apply(table: ChainTable, node_ops, dt, xw, *, m: int,
                             theta: float, max_squarings: int = 16,
                             wnorm=None):
     """One step of every trajectory (K9): ``node_ops`` (n_nodes, B, D, D)
-    the operator samples (each (D, D) sample contiguous; the strides over
-    nodes and trajectories free, but multiples of 16 bytes where D is a
-    multiple of 128 and the kernel reads in 16-byte vectors), dt (B,), xw
+    the operator samples (each (D, D) sample contiguous, at any offset; the
+    strides over nodes and trajectories free), dt (B,), xw
     (B, D) the widened state. Returns (y (B, D), err (B,)); err is the
     distance of the two chains, l2 or in the declared norm ``wnorm =
     (w_row, post, kind)`` (``lc.WeightedNorm.kernel_parts``), and zero
@@ -280,15 +400,6 @@ def fused_dense_chain_apply(table: ChainTable, node_ops, dt, xw, *, m: int,
     if D > 1 and (node_ops.stride(3) != 1 or node_ops.stride(2) != D):
         raise ValueError("fused_dense_chain_apply: each (D, D) sample of "
                          "node_ops must be contiguous")
-    # where its product tiles are full (D a multiple of 128) the kernel
-    # reads the samples in 16-byte vectors
-    if D % 128 == 0 and any(
-            v % 16 for v in (node_ops.data_ptr(),
-                             node_ops.stride(0) * node_ops.element_size(),
-                             node_ops.stride(1) * node_ops.element_size())):
-        raise ValueError("fused_dense_chain_apply: node_ops must be aligned "
-                         "to 16 bytes, with strides over nodes and "
-                         "trajectories that are multiples of 16 bytes")
     wn = wnorm_on(wnorm, xw)
     if wn is not None and wn[0] is not None and wn[0].shape != (D,):
         raise ValueError(f"fused_dense_chain_apply: the norm's weight row "
@@ -300,12 +411,13 @@ def fused_dense_chain_apply(table: ChainTable, node_ops, dt, xw, *, m: int,
     y = torch.empty_like(xw)
     err = torch.empty_like(dt)
     with torch.cuda.device(xw.device):
-        n_blocks = _grid_blocks(lib, xw)
-        scratch = torch.empty(n_blocks * N_BUF * D * D, dtype=xw.dtype,
-                              device=xw.device)
+        # the formed route's buffers: untouched where every exponent takes
+        # the actions
+        n_scratch = kernel_plan(B, D, xw.dtype)["scratch"]
+        scratch = torch.empty(n_scratch, dtype=xw.dtype, device=xw.device)
         rc = fn(node_ops.data_ptr(), node_ops.stride(1), node_ops.stride(0),
                 dt.data_ptr(), xw.data_ptr(), y.data_ptr(), err.data_ptr(),
-                scratch.data_ptr(), n_blocks, B, D, arr, len(arr),
+                scratch.data_ptr(), n_scratch, B, D, arr, len(arr),
                 *kernel_norm_args(wn),
                 torch.cuda.current_stream(xw.device).cuda_stream)
     if rc != 0:
@@ -316,13 +428,3 @@ def fused_dense_chain_apply(table: ChainTable, node_ops, dt, xw, *, m: int,
 
 
 fused_dense_chain_apply.launches = 0
-
-
-def chain_products(table: ChainTable, counts: Sequence) -> int:
-    """The (D, D) x (D, D) products one step of every trajectory takes: two
-    per commutator term, and per exponent five for the polynomial and its
-    squarings (``counts``: per exponent the (B,) counts of
-    :func:`torch_dense_chains`), summed over the batch."""
-    B = counts[0].shape[0]
-    return (2 * table.n_comms * B
-            + sum(5 * B + int(s.sum()) for s in counts))
