@@ -41,7 +41,9 @@ drives the port's paths once at full width through
   with NaN rows and the declared norms, counting each route's exponents;
 * the reversible adjoint (K6, K7, K8) on ``PulseControl``: fixed-step,
   with saves and anchors, and adaptive at Magnus orders 4 and 6 and over
-  CFM-4 rows, against f64 ``matrix_exp`` oracles;
+  CFM-4 rows, and adaptive at order 4 over four basis terms (K' = 10,
+  ``FourControls``), against f64 ``matrix_exp`` oracles; K6 against its
+  twin also at K' = 10 and 36;
 * ``Lindblad`` open-system ensembles (256 density matrices, d = 8) with
   Magnus-4 and Magnus-6, the trace kept;
 * events and dense output: the loop kernel with its event / dense switch
@@ -71,10 +73,11 @@ drives the port's paths once at full width through
 Then it times the paths and each kernel against its plain version, its
 bound and, for K4 (at 256 on its cluster route and 16 384 on its tiled
 one, also at K' = 6 and 36, each with its launch plan, ptxas lines and
-masked share of passes), K6-K8 (at 256 and 4096; K7 and K8 with their
-launch shapes and ptxas lines, and the value-and-grad wall with K7's and
-K8's shares of it) and K9 (at 4096 and 256, with its launch plan and
-its bound by the least work, k9_flop_bytes), a library yardstick. Every
+masked share of passes), K6-K8 (at 256 and 4096; K6 with its launch
+plan and ptxas line, K7 and K8 with their launch shapes and ptxas lines,
+and the value-and-grad wall with K7's and K8's shares of it) and K9 (at
+4096 and 256, with its launch plan and its bound by the least work,
+k9_flop_bytes), a library yardstick. Every
 phase raises on failure, so
 any failure exits non-zero; without a CUDA card it exits non-zero before
 any result.
@@ -187,9 +190,11 @@ def device_phase() -> str:
 
 def ptxas_summary(name: str) -> str:
     """Registers and spill stores of each instantiation (f32, f64; the RK or
-    chain step; K4's tiled or cluster route with its rows a thread; the
-    loop kernel with its events / dense switch on; K9 on one block or a
-    cluster) of the kernel, from ptxas's report in its build log."""
+    chain step; K4's and K6's tiled or cluster route with its rows and
+    columns a thread, K6's stack frame (its partial cbar); K7's and K8's
+    rows a thread; the loop kernel with its events / dense switch on; K9
+    on one block or a cluster) of the kernel, from ptxas's report in its
+    build log."""
     log = _build.build_log(name)
     if not log.exists():   # a library built before logs were kept
         return "no build log"
@@ -199,17 +204,18 @@ def ptxas_summary(name: str) -> str:
                       r"'\S*?([a-z_]+?)_kernelI([fd])(\S*)'", line)
         if m:
             inst, spill = {"f": "f32", "d": "f64"}[m.group(2)], "?"
-            if name == "adjoint":  # three kernels, narrow and wide blocks
-                inst = f"{m.group(1)} {inst}" + (" wide" if "Lb1E" in
-                                                 m.group(3) else "")
+            frame, stack = "?", m.group(1) == "adjoint_row"
+            if name == "adjoint":  # three kernels
+                inst = f"{m.group(1)} {inst}"
             route = re.match(r"Li(\d+)ELi(\d+)ELb([01])E", m.group(3))
-            rm = re.match(r"Li(\d+)E", m.group(3))
-            if name == "chain_expmv" and route:  # K4: the route, RM x CN
+            rm = re.match(r"Li(\d+)E(?:Li(\d+)E)?", m.group(3))
+            if name in ("chain_expmv", "adjoint") and route:
+                # K4, K6: the route, RM x CN
                 inst += (" cluster" if route.group(3) == "1" else " tiled")
                 inst += f" RM={route.group(1)} CN={route.group(2)}"
-            elif name == "adjoint" and rm:  # K8's rows a thread, else K'
-                inst += (" RM=" if m.group(1).endswith("sweep_bwd")
-                         else " KP=") + rm.group(1)
+            elif name == "adjoint" and rm:  # K7's, K8's rows a thread
+                inst += f" RM={rm.group(1)}" + (
+                    " wide" if rm.group(2) == "1024" else "")
             elif "RKLoopStep" in m.group(3):
                 inst += " rk"
             elif "ChainLoopStep" in m.group(3):
@@ -219,12 +225,14 @@ def ptxas_summary(name: str) -> str:
             if name == "dense_chains":  # K9: one block, or a cluster
                 inst += " cluster" if "Lb1E" in m.group(3) else " one block"
             continue
-        m = re.search(r"(\d+) bytes spill stores", line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                      line)
         if inst and m:
-            spill = m.group(1)
+            frame, spill = m.groups()
         m = re.search(r"Used (\d+) registers", line)
         if inst and m:
-            out.append(f"{inst} {m.group(1)} registers, {spill} B spilled")
+            out.append(f"{inst} {m.group(1)} registers, {spill} B spilled"
+                       + (f", {frame} B stack frame" if stack else ""))
             inst = None
     return "; ".join(out)
 
@@ -2272,6 +2280,9 @@ def rel(a, b) -> float:
 # (the products' checked loads), K' = 6 at a small D
 ADJ_CASES = ((256, 128, 3, 8, 0.02), (77, 128, 3, 5, 0.25),
              (256, 102, 2, 4, 0.25), (33, 16, 6, 3, 0.5))
+# K6 alone past K7's and K8's K' = 6: four basis terms at order 4 (K' =
+# 10) and eight (K' = 36, K4's largest), rows past theta (16 to 64 passes)
+ROW_CASES = ((256, 128, 10, 0, 0.1), (256, 128, 36, 0, 0.05))
 
 
 def adj_tolerances(dtype):
@@ -2282,33 +2293,37 @@ def adj_tolerances(dtype):
 
 
 def check_adjoint_case(B, D, Kp, R, dtype, seed, scale) -> dict:
-    """K6, K7 and K8 on adjoint_case's inputs against their twins; raises
-    on a disagreement. Returns the relative and absolute differences."""
+    """K6, K7 and K8 on adjoint_case's inputs against their twins (K6 alone
+    past K7's and K8's K' = 6 or with no shared rows, R = 0); raises on a
+    disagreement. Returns the
+    relative and absolute differences and the passes per lane and row."""
     m, theta = _taylor_params(dtype)
     kw = dict(m=m, theta=theta, max_squarings=16)
     tol, cb_tol = adj_tolerances(dtype)
     W, c, c_all, x, a = adjoint_case(B, D, Kp, R, dtype, seed, scale)
     mt, ms, norms = adj_operands(W)
     _, n_pass = expmv.scale_rows(c[:, None], norms, theta, 16)
-    _, n_row = expmv.scale_rows(c_all[:, None], norms, theta, 16)
     k6 = tadj.adjoint_bwd(c, x, a, mt, ms, norms, **kw)
     p6 = tadj.torch_adjoint_row(c, x, a, mt, ms, norms, **kw)
-    y7 = tadj.adjoint_sweep_fwd(c_all, x, mt, norms, **kw)
-    p7 = tadj.torch_adjoint_sweep_fwd(c_all, x, mt, norms, **kw)
-    k8 = tadj.adjoint_sweep_bwd(c_all, y7, a, mt, ms, norms, **kw)
-    p8 = tadj.torch_adjoint_sweep_bwd(c_all, y7, a, mt, ms, norms, **kw)
     torch.cuda.synchronize()
     d = dict(xn=rel(k6[0], p6[0]), an=rel(k6[1], p6[1]), cb6=rel(k6[2], p6[2]),
-             y=rel(y7, p7), a0=rel(k8[0], p8[0]), cb8=rel(k8[1], p8[1]),
              k6=float(max((k6[j] - p6[j]).abs().max() for j in (0, 1))),
-             k7=float((y7 - p7).abs().max()),
-             k8=float((k8[0] - p8[0]).abs().max()),
-             passes=(int(n_pass.min()), int(n_pass.max()), int(n_row.min()),
-                     int(n_row.max())))
-    assert max(d["xn"], d["an"], d["y"], d["a0"]) <= tol, d
-    assert max(d["cb6"], d["cb8"]) <= cb_tol, d
-    if scale > 0.1:  # rows past theta: squarings ran
-        assert int(n_pass.max()) > 1 and int(n_row.max()) > 1, d
+             passes=(int(n_pass.min()), int(n_pass.max())))
+    if Kp <= tadj.MAX_KP and R > 0:
+        _, n_row = expmv.scale_rows(c_all[:, None], norms, theta, 16)
+        y7 = tadj.adjoint_sweep_fwd(c_all, x, mt, norms, **kw)
+        p7 = tadj.torch_adjoint_sweep_fwd(c_all, x, mt, norms, **kw)
+        k8 = tadj.adjoint_sweep_bwd(c_all, y7, a, mt, ms, norms, **kw)
+        p8 = tadj.torch_adjoint_sweep_bwd(c_all, y7, a, mt, ms, norms, **kw)
+        torch.cuda.synchronize()
+        d.update(y=rel(y7, p7), a0=rel(k8[0], p8[0]), cb8=rel(k8[1], p8[1]),
+                 k7=float((y7 - p7).abs().max()),
+                 k8=float((k8[0] - p8[0]).abs().max()),
+                 passes=(*d["passes"], int(n_row.min()), int(n_row.max())))
+    assert max(d.get(k, 0.0) for k in ("xn", "an", "y", "a0")) <= tol, d
+    assert max(d.get(k, 0.0) for k in ("cb6", "cb8")) <= cb_tol, d
+    if scale > 0.09:  # rows past theta: squarings ran
+        assert all(v > 1 for v in d["passes"][1::2]), d
     return d
 
 
@@ -2339,18 +2354,22 @@ def check_adjoint_nan(dtype) -> None:
 
 def adjoint_kernel_phase():
     """K6, K7 and K8 against their twins on the card, f32 and f64, on
-    ADJ_CASES and a NaN state row. Returns the f32 max |d| at the path's
-    shape (K6 x_n / a_n, K7 y, K8 a0)."""
+    ADJ_CASES, K6 alone on ROW_CASES (K' = 10 and 36), and a NaN state
+    row. Returns the f32 max |d| at the path's shape (K6 x_n / a_n, K7 y,
+    K8 a0)."""
     errs = {}
     for dtype in (torch.float64, torch.float32):
-        for i, (B, D, Kp, R, scale) in enumerate(ADJ_CASES):
+        for i, (B, D, Kp, R, scale) in enumerate(ADJ_CASES + ROW_CASES):
             d = check_adjoint_case(B, D, Kp, R, dtype, 80 + i, scale)
             p = d["passes"]
+            sweeps = (f", per row {p[2]}..{p[3]}" if len(p) > 2 else "")
             print(f"[adjoint-kernels] {str(dtype)[6:]} B={B} D={D} K'={Kp} "
-                  f"R={R}, passes per lane {p[0]}..{p[1]}, per row "
-                  f"{p[2]}..{p[3]}: relative max|d| K6 x_n {d['xn']:.2e} a_n "
-                  f"{d['an']:.2e} cbar {d['cb6']:.2e}; K7 y {d['y']:.2e}; K8 "
-                  f"a0 {d['a0']:.2e} cbar {d['cb8']:.2e}", flush=True)
+                  f"R={R}, passes per lane {p[0]}..{p[1]}{sweeps}: relative "
+                  f"max|d| K6 x_n {d['xn']:.2e} a_n {d['an']:.2e} cbar "
+                  f"{d['cb6']:.2e}" + (
+                      f"; K7 y {d['y']:.2e}; K8 a0 {d['a0']:.2e} cbar "
+                      f"{d['cb8']:.2e}" if "y" in d else " (K6 alone)"),
+                  flush=True)
             if dtype == torch.float32 and i == 0:
                 errs = {k: d[k] for k in ("k6", "k7", "k8")}
         check_adjoint_nan(dtype)
@@ -2494,17 +2513,40 @@ def recorded_times(basis, pc, y0, theta, **scheme):
                                    t0, tf, h0)[2]
 
 
-def adaptive_adjoint_check(label, card=None, **scheme):
+class FourControls:
+    """A control problem over four basis terms, multi_basis(4) (-i H0 of
+    DrivenDense(64) and three controls -i V_s), with the coefficients
+    [1, th0 cos(th1 t), th2 sin(th3 t), th4 cos(th5 t)]: a working basis
+    of K' = 10 at order 4, past K7's and K8's K' = 6."""
+
+    T = 1.0
+    fidelity = staticmethod(PulseControl.fidelity)
+
+    @staticmethod
+    def basis_pair(dtype=torch.float64, device="cuda"):
+        return multi_basis(4, dtype, device)
+
+    @staticmethod
+    def coeff_fn(t, th):
+        return torch.stack([torch.ones_like(t), th[0] * torch.cos(th[1] * t),
+                            th[2] * torch.sin(th[3] * t),
+                            th[4] * torch.cos(th[5] * t)], -1)
+
+
+def adaptive_adjoint_check(label, card=None, model=None, **scheme):
     """adjoint_solve_adaptive at 256x64c f32, rtol 1e-5 (ADJ_CTL, the
-    Magnus-4 adaptive configuration) with ``scheme`` (order= or scheme=): all lanes DONE,
-    one K4 launch per forward iteration, n_sub K6 launches per replayed
-    iteration (one reverse row per exponential: 1 at Magnus order 4, 3 at
-    order 6, 2 for cfm4), no twin call, the gradient against the
+    Magnus-4 adaptive configuration) with ``scheme`` (order= or scheme=)
+    on PulseControl or ``model`` (its basis_pair, coeff_fn, fidelity):
+    all lanes DONE, one K4 launch per forward iteration, n_sub K6
+    launches per replayed iteration (one reverse row per exponential: 1
+    at Magnus order 4, 3 at order 6, 2 for cfm4), no twin call, the
+    gradient against the
     frozen-step-sequence f64 matrix_exp oracle over the same rows
     (tests/test_adjoint.py:169-250). With ``card`` the value-and-grad wall
     is timed (median of 3 after a warm run). Returns the K6 launches and
     the recorded times (n_it + 1, B)."""
     pc, y0, tg, theta = adjoint_inputs(torch.float32)
+    pc = model or pc
     basis = pc.basis_pair(torch.float32)
 
     def value_and_grad():
@@ -2571,9 +2613,13 @@ def adaptive_adjoint_check(label, card=None, **scheme):
 
 
 def adjoint_adaptive_phase():
-    """The adaptive adjoint at Magnus order 4. Returns the K6 launches and
-    the recorded times (n_it + 1, B)."""
-    return adaptive_adjoint_check("Magnus-4", order=4)
+    """The adaptive adjoint at Magnus order 4, on PulseControl (K' = 3) and
+    on FourControls (K' = 10, K6 past K' = 6). Returns the K6 launches
+    and the recorded times (n_it + 1, B) of the first."""
+    out = adaptive_adjoint_check("Magnus-4", order=4)
+    adaptive_adjoint_check("Magnus-4, four basis terms (K' = 10)",
+                           model=FourControls(), order=4)
+    return out
 
 
 def adj_flops(n_pass, B: int, D: int, Kp: int, m: int,
@@ -2663,6 +2709,55 @@ def sweep_shape(x, B: int, Kp: int, name: str) -> str:
             f"{ptxas_of('adjoint', f'adjoint_{key} f32')}")
 
 
+def row_plan_text(B: int, D: int, Kp: int, m: int) -> str:
+    """K6's plan at B in f32 (ops/adjoint.py:row_plan on this card, held
+    to the kernel's own, kernel_row_plan) and its ptxas line."""
+    props = torch.cuda.get_device_properties(0)
+    plan = tadj.row_plan(B, D, Kp, 4, m, n_sm=props.multi_processor_count,
+                         max_smem=getattr(props,
+                                          "shared_memory_per_block_optin",
+                                          232448))
+    got = tadj.kernel_row_plan(B, D, Kp, m, torch.float32)
+    assert all(plan[k] == v for k, v in got.items()), (plan, got)
+    return (f"; plan {plan['route']}, {plan['n']} block(s) a tile of "
+            f"{plan['lanes']} lanes, {plan['blocks']} blocks of "
+            f"{plan['threads']} threads, {plan['smem']} B shared memory, "
+            f"basis {'resident' if plan['resident'] else 'ringed'}; ptxas "
+            f"{ptxas_of('adjoint', 'adjoint_row f32 ' + plan['route'])}")
+
+
+def k6_rows(B: int, ts, basis_f32):
+    """K6's inputs on the adaptive path's own rows at B x 64c f32: the
+    states x and cotangents a (B, D), each recorded iteration's per-lane
+    rows c_lane (n_it, B, K') from the recorded times ts (n_it + 1, 256),
+    its lanes repeated above 256; the adjoint core and its operands (mt,
+    ms, norms, m, theta)."""
+    pc, y0, _, theta = adjoint_inputs(torch.float32, B)
+    core = tdiff._adjoint_core(basis_f32, pc.coeff_fn, order=4)
+    x = torch.cat([y0.re, y0.im], -1)
+    rng = np.random.default_rng(9)
+    a = torch.tensor(rng.standard_normal(x.shape) / np.sqrt(x.shape[1]),
+                     dtype=torch.float32, device="cuda")
+    n_it = ts.shape[0] - 1
+    lanes = torch.arange(B, device="cuda") % ts.shape[1]
+    t_r, dt_r = ts[:-1][:, lanes], (ts[1:] - ts[:-1])[:, lanes]
+    c_lane = torch.func.vmap(lambda t_, d_: core.cols(theta, t_, d_))(
+        t_r.reshape(-1), dt_r.reshape(-1)).reshape(n_it, B,
+                                                   core.Kp).contiguous()
+    return x, a, c_lane, core, core.operands(x)
+
+
+def k6_replay(row, c_lane, x, a):
+    """One replay as the adaptive path runs K6: row(c, x, a) over the
+    recorded iterations in reverse; returns the final (x, a)."""
+    def run():
+        xr, ar = x, a
+        for r in range(c_lane.shape[0] - 1, -1, -1):
+            xr, ar, _ = row(c_lane[r], xr, ar)
+        return xr, ar
+    return run
+
+
 def adj_timing_at(B: int, card: str, basis_f32, c_all, ts):
     """K7, K8 and K6 per launch at B x 64c f32 on the path's basis: the
     fixed-step rows c_all (R, K'); for K6 the adaptive path's own per-lane
@@ -2670,29 +2765,14 @@ def adj_timing_at(B: int, card: str, basis_f32, c_all, ts):
     above 256, timed as the path runs them: one replay of n_it launches in
     reverse, per launch its mean. At the path's batch in turns with their
     twins and the library yardstick; above it the kernels alone."""
-    pc, y0, _, theta = adjoint_inputs(torch.float32, B)
-    core = tdiff._adjoint_core(basis_f32, pc.coeff_fn, order=4)
-    x = torch.cat([y0.re, y0.im], -1)
-    rng = np.random.default_rng(9)
-    a = torch.tensor(rng.standard_normal(x.shape) / np.sqrt(x.shape[1]),
-                     dtype=torch.float32, device="cuda")
-    mt, ms, norms, m, th_t = core.operands(x)
+    x, a, c_lane, core, (mt, ms, norms, m, th_t) = k6_rows(B, ts, basis_f32)
     kw = dict(m=m, theta=th_t, max_squarings=16)
     D, Kp, R = x.shape[1], core.Kp, c_all.shape[0]
-    n_it = ts.shape[0] - 1
-    lanes = torch.arange(B, device="cuda") % ts.shape[1]
-    t_r, dt_r = ts[:-1][:, lanes], (ts[1:] - ts[:-1])[:, lanes]
-    c_lane = torch.func.vmap(lambda t_, d_: core.cols(theta, t_, d_))(
-        t_r.reshape(-1), dt_r.reshape(-1)).reshape(n_it, B, Kp).contiguous()
+    n_it = c_lane.shape[0]
     W = core.W
 
     def replay(row):
-        def run():
-            xr, ar = x, a
-            for r in range(n_it - 1, -1, -1):
-                xr, ar, _ = row(c_lane[r], xr, ar)
-            return xr, ar
-        return run
+        return k6_replay(row, c_lane, x, a)
 
     # (kernel, plain, library, the kernel's and the library's first launch,
     # launches per timed call)
@@ -2761,7 +2841,8 @@ def adj_timing_at(B: int, card: str, basis_f32, c_all, ts):
             what = (f", the adaptive path's per-lane rows over {n_it} "
                     f"launches: {formed} advancing trajectory rows, "
                     f"{passes} passes, {passes / max(formed, 1):.3f} a row, "
-                    f"{n_it * B - formed} rows with dt = 0")
+                    f"{n_it * B - formed} rows with dt = 0"
+                    + row_plan_text(B, D, Kp, m))
         else:
             _, n_pass = expmv.scale_rows(c_all[:, None], norms, th_t, 16)
             passes = int(n_pass.sum()) * B

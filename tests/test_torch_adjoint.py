@@ -337,6 +337,52 @@ def test_adaptive_matches_jax():
     _compare(jfn, tfn, theta, z, 0.0, 1.0, rtol=1e-10)
 
 
+FOUR = dict(ADAPTIVE, rtol=1e-6, max_steps=512)
+
+
+def test_adaptive_four_terms_match_jax():
+    """adjoint_solve_adaptive over four basis terms (a working basis of K' =
+    10 at order 4, past K7's and K8's K' = 6; K6 takes up to 36), d = 4,
+    three states, h0 = 0.4 forcing rejects: the same status per lane,
+    value and theta, y0, t0, tf gradients; held to 1e-10. Its four random
+    Hermitian terms take 294 iterations at ADAPTIVE's rtol (past its
+    max_steps), 140 at rtol 1e-6 (FOUR)."""
+    jb, tb = _pair(*_basis(4, 4, 17))
+    z = _states(3, 4, 18)
+    theta = np.array([0.8, 2.5, -0.6, 1.4, 0.5, 3.1])
+
+    def jcf(t, p):
+        t = jnp.asarray(t)
+        return jnp.stack([jnp.ones_like(t), p[0] * jnp.cos(p[1] * t),
+                          p[2] * jnp.sin(p[3] * t), p[4] * jnp.cos(p[5] * t)],
+                         axis=-1)
+
+    def tcf(t, p):
+        return torch.stack([torch.ones_like(t), p[0] * torch.cos(p[1] * t),
+                            p[2] * torch.sin(p[3] * t),
+                            p[4] * torch.cos(p[5] * t)], dim=-1)
+
+    _, jst = jdiff.adjoint_solve_adaptive(
+        jb, jcf, jnp.asarray(theta), jcp.from_complex(z, jnp.float64), 0.0,
+        1.0, ctl=vo.StepControl(**FOUR), h0=0.4, return_status=True)
+    _, tst = tdiff.adjoint_solve_adaptive(
+        tb, tcf, torch.as_tensor(theta),
+        Cplx(torch.as_tensor(z.real), torch.as_tensor(z.imag)), 0.0, 1.0,
+        ctl=vt.StepControl(**FOUR), h0=0.4, return_status=True)
+    np.testing.assert_array_equal(tst.numpy(), np.asarray(jst))
+    assert (tst == vt.DONE).all()
+
+    def jfn(th, y, t0, tf):
+        return _jloss(jdiff.adjoint_solve_adaptive(
+            jb, jcf, th, y, t0, tf, ctl=vo.StepControl(**FOUR), h0=0.4))
+
+    def tfn(th, y, t0, tf):
+        return _tloss(tdiff.adjoint_solve_adaptive(
+            tb, tcf, th, y, t0, tf, ctl=vt.StepControl(**FOUR), h0=0.4))
+
+    _compare(jfn, tfn, theta, z, 0.0, 1.0, rtol=1e-10)
+
+
 def test_adaptive_truncation_is_loud():
     """Lanes out of max_steps come back NaN, or with ERR_MAX_STEPS under
     return_status=True, per lane as in the JAX package."""

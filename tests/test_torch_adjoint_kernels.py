@@ -117,12 +117,13 @@ def _f64_inputs(seed, B=5, D=6, Kp=3, R=4, scale=1.5, antisym=False):
     return W, c, c_all, x, a
 
 
-@pytest.mark.parametrize("Kp", [2, 6])
+@pytest.mark.parametrize("Kp", [2, 6, 10])
 def test_row_twin_matches_xla_composition_f64(Kp):
     """K6's twin against diff._bwd_row on the XLA path (the (2D)-wide
     augmented embedding, one count per batch and a transposed basis) with
-    rows past theta: the same function up to truncation below f64
-    rounding; measured <= 4e-15 relative, held to rtol 1e-10."""
+    rows past theta, K' = 10 past K7's and K8's 6: the same function up
+    to truncation below f64 rounding; measured <= 4e-15 relative, held to
+    rtol 1e-10."""
     W, c, _, x, a = _f64_inputs(31 + Kp, Kp=Kp)
     core = _xla_core(W)
     xr, ar, cr = jdiff._bwd_row(core, jnp.asarray(c), jnp.asarray(x),
@@ -134,6 +135,86 @@ def test_row_twin_matches_xla_composition_f64(Kp):
     for got, ref in ((xn, xr), (an, ar), (cb, cr)):
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-10,
                                    atol=1e-12)
+
+
+@pytest.mark.parametrize("Kp,scale", [(2, 3.0), (3, 3.0), (6, 2.0),
+                                      (10, 3.0)])
+def test_row_twin_pairs_at_pass_ends_on_a_non_normal_basis_f64(Kp, scale):
+    """K6's twin pairs the a chain's pass j with the x chain's state after
+    j + 1 passes of T_m(-A/2^s), which stands for T_m(A/2^s)^(N-1-j) x_n up
+    to the Taylor remainder: on rows of s >= 3 (8 to 512 passes) over a
+    non-normal basis, where cbar reaches 1.9e8 and the rounding of the
+    reconstruction grows like e^{|A|}, against diff._bwd_row on the XLA
+    path (which differentiates e^A at x_n exactly); measured <= 1.4e-14
+    relative to the largest entry, held to rtol 1e-10."""
+    W, c, _, x, a = _f64_inputs(90 + Kp, Kp=Kp, scale=scale)
+    xr, ar, cr = jdiff._bwd_row(_xla_core(W), jnp.asarray(c), jnp.asarray(x),
+                                jnp.asarray(a), reduce=False)
+    mt, ms, norms = _operands(_t(W, torch.float64))
+    ct = _t(c, torch.float64)
+    assert int(scale_rows(ct[:, None], norms, 0.25, 16)[1].min()) >= 8
+    got = tadj.torch_adjoint_row(ct, _t(x, torch.float64),
+                                 _t(a, torch.float64), mt, ms, norms, m=12,
+                                 theta=0.25)
+    for g, ref in zip(got, (xr, ar, cr)):
+        ref = np.asarray(ref)
+        assert np.abs(g.numpy() - ref).max() <= 1e-10 * np.abs(ref).max()
+
+
+def _chain_row(c, x, a, mt, ms, norms, m, theta):
+    """The reverse row by K' + 1 Fréchet chains, the JAX kernel's
+    block-triangular recurrence (pallas_expmv.py:_adjoint_row_chains) that
+    K6's twin ran before its pairing route: x_n and a_n by their Taylor
+    chains, then u_k = D_{W_k} e^{A} x_n by u_k' = (A u_k + 2^-s W_k w) / j,
+    w' = (A w) / j from w = x_n, u_k = 0; cbar_k = <a, u_k>."""
+    cs, scale, n_pass = tadj._scaled(c, norms, theta, 16)
+    D, Kp = x.shape[1], cs.shape[1]
+    chains = {}
+    for name, v, sgn, mat in (("x", x, -1.0, mt), ("a", a, 1.0, ms)):
+        for p in range(int(n_pass.max())):
+            acc = term = v
+            for j in range(1, m + 1):
+                term = tadj._combine(sgn * cs, term @ mat, D) / j
+                acc = acc + term
+            v = torch.where((n_pass > p)[:, None], acc, v)
+        chains[name] = v
+    us, w = [torch.zeros_like(x) for _ in range(Kp)], chains["x"]
+    for p in range(int(n_pass.max())):
+        acc_u, term_u, acc_w, term_w = list(us), list(us), w, w
+        for j in range(1, m + 1):
+            mw = term_w @ mt
+            term_u = [(tadj._combine(cs, term_u[k] @ mt, D) + scale[:, None]
+                       * mw[:, k * D:(k + 1) * D]) / j for k in range(Kp)]
+            term_w = tadj._combine(cs, mw, D) / j
+            acc_w = acc_w + term_w
+            acc_u = [u + t for u, t in zip(acc_u, term_u)]
+        live = (n_pass > p)[:, None]
+        us = [torch.where(live, u, v) for u, v in zip(acc_u, us)]
+        w = torch.where(live, acc_w, w)
+    cb = torch.stack([(a * u).sum(-1) for u in us], dim=-1)
+    return chains["x"], chains["a"], cb
+
+
+@pytest.mark.parametrize("antisym", [True, False])
+@pytest.mark.parametrize("Kp,scale", [(3, 0.005), (10, 0.002), (3, 2.0)])
+def test_row_twin_pairing_is_the_chain_recurrence(Kp, scale, antisym):
+    """K6's twin (the pairing route, 2K' actions a Taylor term) against the
+    K' + 1 Fréchet chains it replaced (_chain_row, K'^2 + 3K'): at s = 0
+    (one pass, the scale of 0.005 / 0.002) the same function by the same
+    Taylor polynomial, x_n and a_n bit for bit, cbar to rounding (measured
+    <= 4.7e-16 relative to the largest entry); rows of 128 and 256 passes
+    agree to rounding as well (measured <= 6.6e-15). Held to rtol 1e-13."""
+    W, c, _, x, a = _f64_inputs(70 + Kp, D=12, Kp=Kp, scale=scale,
+                                antisym=antisym)
+    W, c, x, a = (_t(v, torch.float64) for v in (W, c, x, a))
+    mt, ms, norms = _operands(W)
+    n_pass = scale_rows(c[:, None], norms, 0.25, 16)[1]
+    assert (int(n_pass.max()) == 1) == (scale < 0.1)
+    got = tadj.torch_adjoint_row(c, x, a, mt, ms, norms, m=12, theta=0.25)
+    ref = _chain_row(c, x, a, mt, ms, norms, 12, 0.25)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert float((got[2] - ref[2]).abs().max()) <= 1e-13 * float(
+        ref[2].abs().max())
 
 
 @pytest.mark.parametrize("Kp", [1, 2, 3, 4, 5, 6])
@@ -454,3 +535,45 @@ def test_bwd_plan_matches_the_kernel_and_fits():
                     assert got["tile"] % got["rm"] == 0
                     assert got["ks"] * (Kp + 1) * per <= got["threads"]
                     assert got["ks1"] * per <= got["threads"]
+
+
+def test_row_plan_matches_the_kernel_and_fits():
+    """K6's launch plan: ops/adjoint.py's mirror reads csrc/adjoint_row.cuh's
+    constants, and every (type, D, K') the wrapper accepts (D up to 512,
+    K' 1 to 36, each type's Taylor degree) has a plan at every batch: its
+    threads within GEMM_THREADS, each thread's rows of one chain, its
+    shared memory within 227 KB. The plans at the adaptive path's D = 128,
+    K' = 3 in f32 (the kernel's own on an H100): at B = 256 clusters of 4
+    blocks of 128 threads over 4 lanes, the basis resident, 110 976 B a
+    block; at 4096 tiled, 16 lanes a block, 256 threads, the basis
+    streamed, 148 224 B."""
+    src = (pathlib.Path(tadj.__file__).parents[1] / "csrc"
+           / "adjoint_row.cuh").read_text()
+    consts = dict(re.findall(r"constexpr int (ROW_\w+) = (\d+);", src))
+    for name in ("ROW_MAX_LANES", "ROW_CLUSTER_MAX", "ROW_CLUSTER_LANES",
+                 "ROW_STAGE_BYTES"):
+        assert int(consts[name]) == getattr(tadj, name), name
+    assert re.search(r"ROW_CLUSTER_RM = (\d+), ROW_CLUSTER_CN = (\d+);",
+                     src).groups() == ("1", "2")
+    assert (tadj.ROW_CLUSTER_RM, tadj.ROW_CLUSTER_CN) == (1, 2)
+    assert re.search(r"row_rm\(\) \{\n  return sizeof\(T\) == 4 \? (\d+) : "
+                     r"(\d+);", src).groups() == ("4", "2")
+    assert tadj.ROW_RM == {4: 4, 8: 2}
+    assert tadj.ROW_MAX_KP == 36
+    want = {(256, 128, 3, 4): ("cluster", 4, 4, 128, 256, 110976, 1),
+            (4096, 128, 3, 4): ("tiled", 1, 16, 256, 256, 148224, 0)}
+    for (Bn, D, Kp, elem), shape in want.items():
+        got = tadj.row_plan(Bn, D, Kp, elem, 8)
+        assert (got["route"], got["n"], got["lanes"], got["threads"],
+                got["blocks"], got["smem"], got["resident"]) == shape, got
+    for elem, m in ((4, 8), (8, 12)):
+        for Kp in range(1, tadj.ROW_MAX_KP + 1):
+            for D in range(1, tadj.MAX_WIDTH + 1):
+                for Bn in (1, 256, 1 << 20):
+                    got = tadj.row_plan(Bn, D, Kp, elem, m)
+                    assert got is not None, (elem, Kp, D, Bn)
+                    assert got["smem"] <= 232448
+                    assert got["threads"] <= tadj.GEMM_THREADS
+                    assert got["lanes"] % got["rm"] == 0
+                    assert got["n"] * got["dc"] >= D
+

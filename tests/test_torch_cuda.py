@@ -5,7 +5,7 @@ norm, the whole-loop kernel (K2) with its RK step (K3) and its chain step
 R > 1 exponentials per chain (Magnus-6, CFM), the per-trajectory
 dense chain kernel (K9) with the generic exponential path over it, and the
 adjoint kernels (K6, K7, K8) with the fixed-step and adaptive adjoint over
-them, the chain kernels over 3 to 8 basis terms and the loop kernel
+them (K6 over 1 to 36 basis terms on both of its launch routes), the chain kernels over 3 to 8 basis terms and the loop kernel
 sampling a ChebForm, with black-box operators through auto_modulated on
 both routes, K4's one body on its two launch routes (tiled, and a
 thread-block cluster per tile below the card's SM count of tiled blocks)
@@ -915,16 +915,75 @@ def test_adjoint_sweep_bwd_is_deterministic(card):
         assert all(torch.equal(u, v) for u, v in zip(first, again))
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("Kp,scale", [(3, 0.3), (10, 0.1), (36, 0.05)])
+@pytest.mark.parametrize("B", [1, 7, 256, 4096])
+def test_row_kernel_matches_twin(card, dtype, Kp, scale, B):
+    """K6 alone against torch_adjoint_row at K' = 3, 10 and 36 (past K7's
+    and K8's 6), rows past theta, on both launch routes: the cluster
+    route at B = 1, 7 and 256, tiled at 4096; its plan the mirror's
+    (ops/adjoint.py:row_plan, read back from the kernel)."""
+    before = tadj.adjoint_bwd.launches
+    d = chip_smoke.check_adjoint_case(B, 128, Kp, 0, dtype, 20 + Kp, scale)
+    assert tadj.adjoint_bwd.launches == before + 1 and "y" not in d
+    m, _ = _taylor_params(dtype)
+    props = torch.cuda.get_device_properties(0)
+    plan = tadj.row_plan(B, 128, Kp, 4 if dtype == torch.float32 else 8, m,
+                         n_sm=props.multi_processor_count,
+                         max_smem=getattr(props,
+                                          "shared_memory_per_block_optin",
+                                          232448))
+    got = tadj.kernel_row_plan(B, 128, Kp, m, dtype)
+    assert all(plan[k] == v for k, v in got.items()), (plan, got)
+    assert plan["route"] == ("tiled" if B == 4096 else "cluster")
+
+
+@pytest.mark.parametrize("B,D,Kp", [(5, 512, 36), (300, 8, 10), (40, 18, 3),
+                                    (3, 1, 2), (9, 3, 12)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_row_kernel_edges(card, dtype, B, D, Kp):
+    """K6 at the largest D with K' = 36 (the ring of both operands), D not a
+    multiple of 4 or of the cluster's blocks, D = 1 (the tiled route at
+    any batch) and D = 3 (a cluster of two blocks, the second owning one
+    column), against its twin."""
+    chip_smoke.check_adjoint_case(B, D, Kp, 0, dtype, 3 + D,
+                                  0.15 / max(Kp, 2))
+
+
+@pytest.mark.parametrize("B", [256, 4096])
+def test_row_kernel_is_deterministic(card, B):
+    """K6's cbar is summed in a fixed order (column groups, then the
+    cluster's blocks): the same bits from run to run, on both routes."""
+    W, c, _, x, a = chip_smoke.adjoint_case(B, 128, 10, 0, torch.float32, 4,
+                                            0.1)
+    mt, ms, norms = chip_smoke.adj_operands(W)
+    kw = dict(m=8, theta=0.35)
+    first = tadj.adjoint_bwd(c, x, a, mt, ms, norms, **kw)
+    for _ in range(3):
+        again = tadj.adjoint_bwd(c, x, a, mt, ms, norms, **kw)
+        assert all(torch.equal(u, v) for u, v in zip(first, again))
+
+
 def test_adjoint_wrappers_refuse_what_the_kernels_do_not_take(card):
     W, c, c_all, x, a = chip_smoke.adjoint_case(4, 16, 3, 2, torch.float32,
                                                 1, 0.3)
     mt, ms, norms = chip_smoke.adj_operands(W)
     kw = dict(m=8, theta=0.35)
-    W7, c7, _, x7, a7 = chip_smoke.adjoint_case(4, 16, 7, 2, torch.float32,
-                                                1, 0.3)
+    W7, c7, c7_all, x7, a7 = chip_smoke.adjoint_case(4, 16, 7, 2,
+                                                     torch.float32, 1, 0.3)
     mt7, ms7, n7 = chip_smoke.adj_operands(W7)
-    with pytest.raises(ValueError, match="1 to 6 basis terms"):
-        tadj.adjoint_bwd(c7, x7, a7, mt7, ms7, n7, **kw)
+    got = tadj.adjoint_bwd(c7, x7, a7, mt7, ms7, n7, **kw)  # K6 takes 7
+    want = tadj.torch_adjoint_row(c7, x7, a7, mt7, ms7, n7, **kw)
+    assert chip_smoke.rel(got[2], want[2]) <= 1e-3
+    with pytest.raises(ValueError, match="1 to 6 basis terms.*queue 2"):
+        tadj.adjoint_sweep_fwd(c7_all, x7, mt7, n7, **kw)
+    with pytest.raises(ValueError, match="1 to 6 basis terms.*queue 2"):
+        tadj.adjoint_sweep_bwd(c7_all, x7, a7, mt7, ms7, n7, **kw)
+    W37, c37, _, x37, a37 = chip_smoke.adjoint_case(4, 16, 37, 2,
+                                                    torch.float32, 1, 0.3)
+    mt37, ms37, n37 = chip_smoke.adj_operands(W37)
+    with pytest.raises(ValueError, match="1 to 36 basis terms"):
+        tadj.adjoint_bwd(c37, x37, a37, mt37, ms37, n37, **kw)
     xb = torch.zeros(4, 520, device=card)
     with pytest.raises(ValueError, match="D <= 512"):
         tadj.adjoint_sweep_fwd(c_all, xb, torch.zeros(520, 3 * 520,
@@ -994,6 +1053,41 @@ def test_adaptive_adjoint_on_the_card_matches_the_cpu_path_f64(card):
             0.0, pc.T, ctl=ctl, h0=0.3, return_status=True)
         n_fwd = fused_chain_apply.launches - before[1]
         value = torch.sum(pc.fidelity(yf, tg))
+        grads = torch.autograd.grad(value, (th, yr, yi))
+        n_bwd = tadj.adjoint_bwd.launches - before[0]
+        assert bool((st == DONE).all())
+        assert n_bwd == (n_fwd if dev == card else 0)
+        out[dev] = ([st.cpu(), n_fwd], [value.detach().cpu()]
+                    + [g.cpu() for g in grads])
+    assert torch.equal(out[card][0][0], out["cpu"][0][0])
+    assert out[card][0][1] > 0
+    for u, v in zip(out[card][1], out["cpu"][1]):
+        np.testing.assert_allclose(u.numpy(), v.numpy(), rtol=1e-8,
+                                   atol=1e-12)
+
+
+def test_adaptive_adjoint_past_six_terms_on_the_card_matches_the_cpu_path(
+        card):
+    """The adaptive adjoint over four basis terms (K' = 10 at order 4: K4
+    forward, K6 backward, past K7's and K8's cap) against the twins in
+    f64: the same status and iterations, one K6 launch per iteration,
+    value and gradients to f64 rounding."""
+    ctl = StepControl(rtol=1e-7, atol=1e-10, min_dt=1e-7, max_dt=0.4,
+                      max_steps=400)
+    model = chip_smoke.FourControls()
+    out = {}
+    for dev in (card, "cpu"):
+        _, y0, tg, _ = _small_pulse(dev, d=64)
+        theta = torch.tensor([0.6, 2.0, -0.4, 3.0, 0.3, 5.0],
+                             dtype=torch.float64, device=dev)
+        th = theta.clone().requires_grad_(True)
+        yr, yi = (v.clone().requires_grad_(True) for v in (y0.re, y0.im))
+        before = (tadj.adjoint_bwd.launches, fused_chain_apply.launches)
+        yf, st = tdiff.adjoint_solve_adaptive(
+            model.basis_pair(torch.float64, dev), model.coeff_fn, th,
+            Cplx(yr, yi), 0.0, model.T, ctl=ctl, h0=0.3, return_status=True)
+        n_fwd = fused_chain_apply.launches - before[1]
+        value = torch.sum(model.fidelity(yf, tg))
         grads = torch.autograd.grad(value, (th, yr, yi))
         n_bwd = tadj.adjoint_bwd.launches - before[0]
         assert bool((st == DONE).all())

@@ -24,6 +24,7 @@ NAMES = {"exp": ["MagnusModulated6", "CFMModulated", "CFM4Modulated",
          "models": ["Lindblad"],
          "ops.expmv": ["CfmTable", "identity_rows", "n_rows", "n_nodes",
                        "ChebForm", "MAX_KP"],
+         "ops.adjoint": ["ROW_MAX_KP", "row_plan", "kernel_row_plan"],
          "events": ["Event", "EventConfig", "LinearObservable",
                     "QuadraticObservable", "KernelEvents", "event_step"],
          "dense": ["integrate_interp", "hermite_from_endpoints"],
@@ -74,6 +75,7 @@ def test_sources_name_no_jax_import():
         assert PKG / (name.replace(".", "/") + ".py") in sources, name
     sources += [ROOT / "chip_smoke.py", ROOT / "tools" / "profile_solve.py",
                 ROOT / "tools" / "compare_parent.py",
-                ROOT / "tools" / "k9_breakdown.py"]
+                ROOT / "tools" / "k9_breakdown.py",
+                ROOT / "tools" / "k6_breakdown.py"]
     for path in sources:
         assert not pattern.search(path.read_text()), path

@@ -1,23 +1,22 @@
-"""This checkout's chain kernels against another checkout's, on one CUDA card,
-in turns, on chip_smoke.py's inputs.
+"""This checkout's chain, dense chain and reverse-row kernels (K4, K2 + K5,
+K9, K6) against another checkout's, on one CUDA card, in turns, on
+chip_smoke.py's inputs.
 
     python -m tools.compare_parent PARENT_DIR [--only REGEX]
 
 Run from the repository root on a machine with one CUDA card and nvcc.
 PARENT_DIR holds another checkout of the repository whose
-``vec_ode_tpu_torch/csrc/chain_expmv.cu`` (K4) and ``fused_loop.cu`` (K2
-with its chain step K5) keep the same C entry points, and whose
-``dense_chains.cu`` (K9) has the entry points it had before its actions
-route (``vec_ode_dense_chains_blocks_*`` and a launch taking the grid's
-block count), for example one unpacked by ``git archive <commit> | tar -x
--C build/parent``. Its three libraries are built with this checkout's nvcc
-flags into ``build/parent_kernels/``; this checkout's are built as usual.
-Then each case runs on both, in turns (parent, this, this, parent; each
-run the median of CUDA-event times), and prints, beside the card's name
-and power limit, both times and whether the two gave the same bits, or,
-for K9, whose route changes the rounding, whether they agree within the
-f32 tolerance (states and errors within 2e-5 + 1e-3 of their size; the
-solve's states within 1e-4 and its counters within 2):
+``vec_ode_tpu_torch/csrc/chain_expmv.cu`` (K4), ``fused_loop.cu`` (K2
+with its chain step K5), ``dense_chains.cu`` (K9) and ``adjoint.cu`` (K6,
+K7, K8) keep the same C entry points, for example one unpacked by ``git
+archive <commit> | tar -x -C build/parent``. Its four libraries are
+built with this checkout's nvcc flags into ``build/parent_kernels/``;
+this checkout's are built as usual. Then each case runs on both, in
+turns (parent, this, this, parent; each run the median of CUDA-event
+times), through this checkout's wrappers, and prints, beside the card's
+name and power limit, both times and whether the two gave the same bits,
+or, for K6, whose route changes the rounding, whether they agree within
+the f32 tolerance:
 
 * K4 per launch, f32: the Magnus-4 pair, Magnus-6 and CFM-4 steps on
   DrivenDense(64) at 256 and 16 384 trajectories, the I/Q drive (K' = 6)
@@ -30,10 +29,15 @@ solve's states within 1e-4 and its counters within 2):
   forward iteration; K6 is this checkout's in both);
 * K9 per launch, f32: the Magnus-4 pair step on the generic path's own
   samples at 4096 and 256 trajectories, and the generic path's solve at
-  4096 (K9 per driver iteration; the parent's through its own wrapper).
+  4096 (K9 per driver iteration);
+* K6 per launch, f32: the adaptive Magnus-4 adjoint's own rows at 256 and
+  4096 lanes (one replay of its recorded iterations in reverse, per
+  launch its mean, as ``chip_smoke.adj_timing_at``), held within the f32
+  tolerance (``chip_smoke.adj_tolerances``: states 1e-4, cbar 1e-3 of
+  their largest entry).
 
 ``--only`` runs the cases whose label matches REGEX. It exits non-zero if
-any case's bits differ (K9: if any case disagrees).
+any case's bits differ (K6: if any case disagrees).
 """
 
 from __future__ import annotations
@@ -56,23 +60,25 @@ from vec_ode_tpu_torch.exp import MagnusModulated4
 from vec_ode_tpu_torch.exp import dense_fast
 from vec_ode_tpu_torch.exp import magnus as tmagnus
 from vec_ode_tpu_torch.ops import _build, dense_chains, expmv, fused_loop
+from vec_ode_tpu_torch.ops import adjoint as tadj
 from vec_ode_tpu_torch.ops.cplx import Cplx
-from vec_ode_tpu_torch.ops.fused_rk import kernel_norm_args, wnorm_on
 from vec_ode_tpu_torch.ops.fused_loop import (ChainStep, fused_loop_chunk,
                                               fused_loop_integrate,
                                               init_carries)
+from tools.k6_breakdown import load_k6
 
-MODULES = {"chain_expmv": expmv, "fused_loop": fused_loop}
+MODULES = {"chain_expmv": expmv, "fused_loop": fused_loop,
+           "dense_chains": dense_chains}
 OUT = _build.BUILD_DIR.parent / "parent_kernels"
 
 
 def build_parent(parent: pathlib.Path) -> dict:
-    """The parent's K4, K2 and K9 libraries, built together; K4's and K2's
-    loaded with the argument types this checkout's wrappers set, K9's with
-    its own (``parent_k9``)."""
+    """The parent's K4, K2, K9 and K6 libraries, built together, loaded with
+    the argument types this checkout's wrappers set (K6's: its entry
+    points')."""
     OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in (*MODULES, "dense_chains"):
+    for name in (*MODULES, "adjoint"):
         src = parent / "vec_ode_tpu_torch" / "csrc" / f"{name}.cu"
         so = OUT / f"lib{name}.so"
         log = open(OUT / f"{name}.log", "w")
@@ -86,10 +92,10 @@ def build_parent(parent: pathlib.Path) -> dict:
         if rc != 0:
             raise RuntimeError(f"nvcc failed on the parent's {name}.cu:\n"
                                + (OUT / f"{name}.log").read_text())
-        lib = ctypes.CDLL(str(so))
-        if name == "dense_chains":
-            libs[name] = lib
+        if name == "adjoint":
+            libs[name] = load_k6(so)
             continue
+        lib = ctypes.CDLL(str(so))
         load = _build.load
         _build.load = lambda _n, lib=lib: lib   # the wrapper sets argtypes
         try:
@@ -99,61 +105,19 @@ def build_parent(parent: pathlib.Path) -> dict:
     return libs
 
 
-def parent_k9(lib):
-    """The parent's K9 wrapper, on its C entry points: the grid's blocks
-    from ``vec_ode_dense_chains_blocks_*``, six (D, D) scratch buffers a
-    block, the block count passed to the launch."""
-    vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for fn in (lib.vec_ode_dense_chains_f32, lib.vec_ode_dense_chains_f64):
-        fn.restype = ci
-        fn.argtypes = [vp, ll, ll, vp, vp, vp, vp, vp, ci, ci, ci,
-                       ctypes.POINTER(ctypes.c_double), ci, vp,
-                       ctypes.c_double, ci, vp]
-    for fn in (lib.vec_ode_dense_chains_blocks_f32,
-               lib.vec_ode_dense_chains_blocks_f64):
-        fn.restype = ci
-        fn.argtypes = [ci]
+class K6Using:
+    """Runs K6's wrapper on the parent's library (None: this checkout's)."""
 
-    def apply(table, node_ops, dt, xw, *, m, theta, max_squarings=16,
-              wnorm=None):
-        f32 = xw.dtype == torch.float32
-        B, D = xw.shape
-        n_blocks = (lib.vec_ode_dense_chains_blocks_f32 if f32 else
-                    lib.vec_ode_dense_chains_blocks_f64)(B)
-        if n_blocks < 1:
-            raise RuntimeError(f"parent K9: CUDA error {-n_blocks}")
-        scratch = torch.empty(n_blocks * 6 * D * D, dtype=xw.dtype,
-                              device=xw.device)
-        y, err = torch.empty_like(xw), torch.empty_like(dt)
-        arr = table.kernel_array(m, theta, max_squarings)
-        rc = (lib.vec_ode_dense_chains_f32 if f32 else
-              lib.vec_ode_dense_chains_f64)(
-            node_ops.data_ptr(), node_ops.stride(1), node_ops.stride(0),
-            dt.data_ptr(), xw.data_ptr(), y.data_ptr(), err.data_ptr(),
-            scratch.data_ptr(), n_blocks, B, D, arr, len(arr),
-            *kernel_norm_args(wnorm_on(wnorm, xw)),
-            torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"parent K9: launch failed with CUDA error {rc}")
-        return y, err
-
-    return apply
-
-
-class K9Using:
-    """Runs the generic steppers' K9 calls on the parent's wrapper (None:
-    this checkout's)."""
-
-    def __init__(self, apply):
-        self.apply = apply
+    def __init__(self, lib):
+        self.lib = lib
 
     def __enter__(self):
-        self.saved = dense_fast.fused_dense_chain_apply
-        if self.apply is not None:
-            dense_fast.fused_dense_chain_apply = self.apply
+        self.saved = tadj._kernel_lib
+        if self.lib is not None:
+            tadj._kernel_lib = lambda lib=self.lib: lib
 
     def __exit__(self, *exc):
-        dense_fast.fused_dense_chain_apply = self.saved
+        tadj._kernel_lib = self.saved
 
 
 class Using:
@@ -167,10 +131,12 @@ class Using:
         if self.libs is not None:
             for n, m in MODULES.items():
                 m._kernel_lib = (lambda lib=self.libs[n]: lib)
+        dense_chains._kernel_plan.cache_clear()
 
     def __exit__(self, *exc):
         for n, m in MODULES.items():
             m._kernel_lib = self.saved[n]
+        dense_chains._kernel_plan.cache_clear()
 
 
 def flat(out) -> list:
@@ -195,35 +161,30 @@ def same_bits(a, b) -> bool:
         for x, y in zip(fa, fb))
 
 
-def k9_close(ref, new) -> tuple:
-    """K9's results within the f32 tolerance: (ok, text). A step's y and
-    err within 2e-5 + 1e-3 of their size; a solve's states within 1e-4
-    and its counters within 2 (a step at the controller's edge may fall
-    the other way)."""
-    if isinstance(ref, tuple):
-        d = max(float(((a - b).abs() / (2e-5 + 1e-3 * b.abs())).max())
-                for a, b in zip(ref, new))
-        return d <= 1.0, f"max |diff| / limit {d:.3f} (<= 1)"
-    dy = cs.max_dy(ref, new)
-    dc = max(int((getattr(ref, k) - getattr(new, k)).abs().max())
-             for k in ("n_accept", "n_reject", "n_iters"))
-    ok = dy <= 1e-4 and dc <= 2 and bool(torch.equal(ref.status, new.status))
-    return ok, f"max|dy| {dy:.3e} (<= 1e-4), counters within {dc} (<= 2)"
+def k6_close(ref, new) -> tuple:
+    """K6's results within the f32 tolerance (chip_smoke.adj_tolerances):
+    the replay's states and one launch's x_n, a_n within 1e-4 of their
+    largest entry, its cbar within 1e-3."""
+    tol, cb_tol = cs.adj_tolerances(torch.float32)
+    d = [cs.rel(a, b) for a, b in zip(new, ref)]
+    ok = max(d[:-1]) <= tol and d[-1] <= cb_tol
+    return ok, (f"max rel |diff| states {max(d[:-1]):.2e} (<= {tol:g}), "
+                f"cbar {d[-1]:.2e} (<= {cb_tol:g})")
 
 
-def compare(label, fn, parent, card, inner=1, only=None, k9=False) -> bool:
+def compare(label, fn, parent, card, inner=1, only=None, k6=False,
+            per=1) -> bool:
     """fn on the parent's libraries and on this checkout's: the results'
-    bits (``k9``: their agreement, k9_close), then the times in turns
-    (parent, this, this, parent). A case whose label ``only`` does not
-    match is skipped (True)."""
+    bits (``k6``: their agreement, k6_close), then the times in turns (parent, this, this, parent), divided by
+    ``per`` (the launches a call makes, where a time per launch is read).
+    A case whose label ``only`` does not match is skipped (True)."""
     if only is not None and not re.search(only, label):
         return True
     fn = fn()
 
     def using(who):
-        if k9:
-            return K9Using(parent_k9(parent["dense_chains"]) if who ==
-                           "parent" else None)
+        if k6:
+            return K6Using(parent["adjoint"] if who == "parent" else None)
         return Using(parent if who == "parent" else None)
 
     with using("parent"):
@@ -231,8 +192,8 @@ def compare(label, fn, parent, card, inner=1, only=None, k9=False) -> bool:
     with using("this"):
         new = fn()
     torch.cuda.synchronize()
-    if k9:
-        ok, text = k9_close(ref, new)
+    if k6:
+        ok, text = k6_close(ref, new)
         text = f"within the f32 tolerance: {ok}, {text}"
     else:
         ok = same_bits(ref, new)
@@ -240,7 +201,7 @@ def compare(label, fn, parent, card, inner=1, only=None, k9=False) -> bool:
     runs = {"parent": [], "this": []}
     for who in ("parent", "this", "this", "parent"):
         with using(who):
-            runs[who].append(cs.timed_ms(fn, reps=1, inner=inner))
+            runs[who].append(cs.timed_ms(fn, reps=1, inner=inner) / per)
     p, t = (statistics.median(runs[w]) for w in ("parent", "this"))
     print(f"[parent] {label}: parent {p:.4f} ms "
           f"{[round(v, 4) for v in runs['parent']]}, this {t:.4f} ms "
@@ -250,8 +211,7 @@ def compare(label, fn, parent, card, inner=1, only=None, k9=False) -> bool:
 
 
 def k9_case(B):
-    """One Magnus-4 pair step on the generic path's samples; the K9 in
-    force (K9Using) is looked up at each call."""
+    """One Magnus-4 pair step on the generic path's samples."""
     table = tmagnus.magnus4_table(pair=True)
     node_ops, dt, xw = cs.model_dense_inputs(B)
     m, theta = dense_fast.ps_params(torch.float32)
@@ -293,6 +253,30 @@ def loop_case(st, y0, **extra):
                                         **extra)
 
 
+def adaptive_times():
+    """The recorded times of the adaptive Magnus-4 adjoint's forward at
+    256x64c f32 (K4 per iteration), whose rows K6 replays."""
+    pc, y0, _, theta = cs.adjoint_inputs(torch.float32)
+    return cs.recorded_times(pc.basis_pair(torch.float32), pc, y0, theta,
+                             order=4)
+
+
+def k6_case(B, ts):
+    """One replay of K6 over the adaptive rows at B lanes (its final x, a)
+    and one launch on the replay's first row (x_n, a_n, cbar); the K6 in
+    force (K6Using) is looked up at each call."""
+    pc = cs.adjoint_inputs(torch.float32)[0]
+    x, a, c_lane, _, (mt, ms, norms, m, th) = cs.k6_rows(
+        B, ts, pc.basis_pair(torch.float32))
+
+    def row(c, xr, ar):
+        return tadj.adjoint_bwd(c, xr, ar, mt, ms, norms, m=m, theta=th,
+                                max_squarings=16)
+
+    replay = cs.k6_replay(row, c_lane, x, a)
+    return lambda: (*replay(), *row(c_lane[-1], x, a))
+
+
 def value_and_grad_case():
     pc, y0, tg, theta = cs.adjoint_inputs(torch.float32)
     basis = pc.basis_pair(torch.float32)
@@ -317,7 +301,7 @@ def main() -> None:
     args = ap.parse_args()
     t0 = time.perf_counter()
     card = cs.device_phase()
-    _build.build(*MODULES, "dense_chains")
+    _build.build(*MODULES, "adjoint")
     parent = build_parent(args.parent.resolve())
     print(f"[parent] built {sorted(parent)} from {args.parent} and this "
           f"checkout's in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -371,13 +355,24 @@ def main() -> None:
     for B in (cs.GEN_TRAJ, cs.GEN_SMALL):
         ok.append(compare(f"K9 Magnus-4 pair {B}x{cs.DIM}c f32",
                           lambda B=B: k9_case(B), parent, card,
-                          inner=10 if B > cs.GEN_SMALL else 50, only=only,
-                          k9=True))
+                          inner=10 if B > cs.GEN_SMALL else 50,
+                          only=only))
     ok.append(compare(f"K9 generic path solve {cs.GEN_TRAJ}x{cs.DIM}c f32 "
                       "(K9 per iteration)", generic_case, parent, card,
-                      only=only, k9=True))
+                      only=only))
+    ts = None
+    for B in (cs.ADJ_B, cs.ADJ_BIG):
+        if only is not None and not re.search(only, f"K6 {B}"):
+            continue
+        if ts is None:
+            ts = adaptive_times()
+        ok.append(compare(f"K6 {B}x{cs.DIM}c f32, the adaptive Magnus-4 "
+                          f"adjoint's rows (a replay of {ts.shape[0] - 1} "
+                          "launches and one more; ms per launch)",
+                          lambda B=B: k6_case(B, ts), parent, card,
+                          only=only, k6=True, per=ts.shape[0]))
     print(f"[parent] {sum(ok)}/{len(ok)} cases with the parent's bits "
-          f"(K9: within the f32 tolerance), "
+          f"(K6: within the f32 tolerance), "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     print(card, flush=True)
     if not all(ok):

@@ -8,7 +8,8 @@
 //   K8 adjoint_sweep_bwd_pallas (:643): the whole reverse sweep, a0 and the
 //      coefficient cotangents of every row.
 // K6 runs adjoint_row.cuh's adjoint_row_tile (its note has what it
-// computes, the layout and the precision rules). In K7 and K8 each block
+// computes, the pairing route, the layout and the precision rules) on one
+// of two launch routes (row_plan below). In K7 and K8 each block
 // carries its trajectories through all R rows in one launch; the rows are
 // shared, so every block takes the same count per row (one per row,
 // ops/adjoint.py, not the TPU kernels' single count over all rows) and no
@@ -17,7 +18,10 @@
 // not change from run to run.
 //
 // What bounds them: FP32 (or FP64) FMA throughput, by the work the rows
-// need, once each shared row's exponent is formed. K7 and K8 form it.
+// need, once each shared row's exponent is formed. K7 and K8 form it. K6's
+// rows are per lane, so it runs the basis actions (2K' a Taylor term a
+// lane), each basis panel read once for a tile of lanes: resident in the
+// blocks of a cluster at small batches, streamed from L2 at large ones.
 //
 // K7's design. The rows are shared by the batch, so the function needs
 // the exponent once per row: y = e^{A_{R-1}} ... e^{A_0} x with A_r =
@@ -65,7 +69,7 @@
 // K8's design. A reverse row over the shared row c_r computes, per
 // trajectory, x_n = e^{-A} x, a_n = e^{A^T} a and cbar_k = <a, u_k> with
 // u_k = D_{W_k} e^{A} x_n (adjoint_row.cuh's note). The first version ran
-// it per trajectory as K6 does: K' basis actions per chain and term, so
+// it per trajectory as K6 then did: K' basis actions per chain and term, so
 // K'^2 + 3K' actions a term (18 at K' = 3), two trajectories a block, the
 // basis streamed from L2 for 8 chain rows (68.78 ms at 256 x 64c and
 // 645.24 ms at 4096 on an H100 80 GB, 700 W, 5.5x behind the library's
@@ -132,64 +136,54 @@ template <typename T>
 AdjParams<T> parse(int KP, const double* norms, int m, double theta, int max_sq) {
   AdjParams<T> p{};
   p.KP = KP, p.m = m, p.max_sq = max_sq, p.theta = (T)theta;
-  for (int k = 0; k < KP && k < ADJ_MAX_KP; ++k) p.norms[k] = (T)norms[k];
+  for (int k = 0; k < KP && k < MAX_KP; ++k) p.norms[k] = (T)norms[k];
   return p;
 }
 
-inline bool params_ok(int B, int D, int KP, int m, int max_sq) {
-  return B >= 1 && D >= 1 && D <= MAX_WIDTH && KP >= 1 && KP <= ADJ_MAX_KP && m >= 1 &&
+// K6 takes 1 to MAX_KP working terms, K7 and K8 up to ADJ_MAX_KP (max_kp).
+inline bool params_ok(int B, int D, int KP, int m, int max_sq, int max_kp = ADJ_MAX_KP) {
+  return B >= 1 && D >= 1 && D <= MAX_WIDTH && KP >= 1 && KP <= max_kp && m >= 1 &&
          max_sq >= 0 && max_sq <= 30;
 }
 
-// Loads rows [row0, row0 + rows) of src (B, D) into the (tile, D) slot dst,
-// zeros past them.
-template <typename T>
-__device__ void load_tile(T* dst, const T* __restrict__ src, long row0, int rows, int tile,
-                          int D) {
-  for (size_t e = threadIdx.x; e < (size_t)tile * D; e += blockDim.x)
-    dst[e] = e < (size_t)rows * D ? src[row0 * D + e] : T(0);
-}
+// K6's launch (see row_plan below): the route, blocks a tile (the
+// cluster's size, 1 tiled), lanes a tile, the columns a block owns (the
+// last block of a cluster fewer where they do not divide D), threads and
+// shared memory a block.
+struct RowPlan {
+  int cluster, n, lanes, dc, threads;
+  size_t smem;
+};
 
-template <typename T>
-__device__ void store_tile(T* __restrict__ dst, const T* src, long row0, int rows, int D) {
-  for (size_t e = threadIdx.x; e < (size_t)rows * D; e += blockDim.x) dst[row0 * D + e] = src[e];
-}
-
-// The scaling of each trajectory's own row of c (B, KP); rows past the
-// batch get no passes.
-template <typename T>
-__device__ void scale_tile(const T* __restrict__ c, long row0, int rows, int tile,
-                           const AdjSmem<T>& s, const AdjParams<T>& p) {
-  for (int lr = threadIdx.x; lr < tile; lr += blockDim.x) {
-    T row[ADJ_MAX_KP];
-    const bool ok = lr < rows;
-    for (int k = 0; k < p.KP; ++k) row[k] = ok ? c[(row0 + lr) * p.KP + k] : T(0);
-    adj_scale_row(row, ok, lr, s, p);
-  }
-}
-
-// narrow blocks: up to 128 registers a thread, two blocks per SM
-#define ADJ_BOUNDS(WIDE) \
-  __launch_bounds__((WIDE) ? ADJ_MAX_THREADS : ADJ_NARROW_THREADS, (WIDE) ? 1 : 2)
-
-template <typename T, int KP, bool WIDE>
-__global__ void ADJ_BOUNDS(WIDE)
-adjoint_bwd_kernel(const T* __restrict__ c, const T* __restrict__ x, const T* __restrict__ a,
+// K6 (see adjoint_row.cuh): one tile of lanes (CLUSTER: one block of the
+// tile's cluster, owning the columns [rank dc, rank dc + dc) clipped to D).
+template <typename T, int RM, int CN, bool CLUSTER>
+__global__ void __launch_bounds__(GEMM_THREADS, 1)
+adjoint_row_kernel(const T* __restrict__ c, const T* __restrict__ x, const T* __restrict__ a,
                    const T* __restrict__ mt, const T* __restrict__ ms, T* __restrict__ xn,
-                   T* __restrict__ an, T* __restrict__ cb, int B, int D, int tile,
+                   T* __restrict__ an, T* __restrict__ cb, int B, int D, int lanes, int dc,
                    AdjParams<T> p) {
-  extern __shared__ unsigned char smem_raw[];
-  const AdjSmem<T> s = AdjSmem<T>::carve(reinterpret_cast<T*>(smem_raw), tile, D, KP);
-  const long row0 = (long)blockIdx.x * tile;
-  const int rows = (int)(B - row0 < tile ? B - row0 : tile);
-  load_tile(s.x, x, row0, rows, tile, D);
-  load_tile(s.a, a, row0, rows, tile, D);
-  scale_tile(c, row0, rows, tile, s, p);
+  extern __shared__ __align__(16) unsigned char row_smem[];
+  const RowLayout<T> L(lanes, D, dc, p.KP, p.m);
+  const RowSmem<T> sm(row_smem, L);
+  int t = blockIdx.x, rank = 0;
+  if constexpr (CLUSTER) {
+    const auto cluster = cooperative_groups::this_cluster();
+    rank = (int)cluster.block_rank();
+    t = blockIdx.x / (int)cluster.num_blocks();
+  }
+  const int c0 = rank * dc, dcb = D - c0 < dc ? D - c0 : dc;
+  PairRing<T> ring(mt, ms, sm.ring, D, p.KP, c0, dcb, dc);
+  const long row0 = (long)t * lanes;
+  const int rows = (int)(B - row0 < lanes ? B - row0 : lanes);
+  ring.prologue();  // streamed: the first panels land while the rows are scaled
+  adj_scale_rows(c + row0 * p.KP, rows, lanes, sm, p);
+  pair_coefs(sm.coef, p.m);
   __syncthreads();
-  adjoint_row_tile<T, KP>(s, rows, tile, D, mt, ms, p.m);
-  store_tile(xn, s.x, row0, rows, D);
-  store_tile(an, s.an, row0, rows, D);
-  for (int i = threadIdx.x; i < rows * KP; i += blockDim.x) cb[row0 * KP + i] = s.cbr[i];
+  adjoint_row_tile<T, RM, CN, CLUSTER>(x + row0 * D, a + row0 * D, xn + row0 * D, an + row0 * D,
+                                       cb + row0 * p.KP, sm, ring, rows, lanes, D, c0, dcb, dc,
+                                       p.m, p.KP);
+  ring.drain();  // the stream's last speculative panels
 }
 
 // K7's plans (see the note above).
@@ -962,56 +956,82 @@ adjoint_sweep_bwd_kernel(const T* __restrict__ c_all, int R, const T* __restrict
   }
 }
 
-// K6's launch geometry.
-template <typename T>
-struct Geometry {
-  int tile, blocks, threads;
-  size_t smem;
-};
-
-template <typename T>
-int geometry(int B, int D, int KP, Geometry<T>* g) {
-  int dev = 0, max_smem = 0, n_sm = 0;
-  const cudaError_t st = device_limits(&dev, &max_smem, &n_sm);
-  if (st != cudaSuccess) return (int)st;
-  g->tile = adj_tile<T>(B, D, KP, n_sm, max_smem);
-  const int ncg = (D + CT - 1) / CT;
-  const int items = (KP + 1) * g->tile * ncg;
-  g->threads = (items + 31) / 32 * 32;
-  g->smem = adj_smem_bytes<T>(g->tile, D, KP);
-  g->blocks = (B + g->tile - 1) / g->tile;
-  if (g->threads > ADJ_MAX_THREADS || g->smem > (size_t)max_smem)
-    return (int)cudaErrorInvalidValue;
-  return 0;
-}
-
 template <typename K>
 int allow_smem(K kernel, size_t smem) {
   if (smem <= 48 * 1024) return 0;
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <typename T, int KP, bool WIDE>
-int launch_bwd(const Geometry<T>& g, const void* c, const void* x, const void* a,
-               const void* mt, const void* ms, void* xn, void* an, void* cb, int B, int D,
-               const AdjParams<T>& p, void* stream) {
-  const int rc = allow_smem(adjoint_bwd_kernel<T, KP, WIDE>, g.smem);
-  if (rc != 0) return rc;
-  adjoint_bwd_kernel<T, KP, WIDE><<<g.blocks, g.threads, g.smem, (cudaStream_t)stream>>>(
-      (const T*)c, (const T*)x, (const T*)a, (const T*)mt, (const T*)ms, (T*)xn, (T*)an, (T*)cb,
-      B, D, g.tile, p);
-  return (int)cudaGetLastError();
+// K6's plan, the two routes of chain_expmv.cu's chain_plan for a tile of
+// lanes (2L chain rows). Tiled: the largest power of two up to
+// ROW_MAX_LANES lanes whose threads (2L / RM) x DP / 4 fit GEMM_THREADS
+// and whose shared memory fits, halved while the batch gives fewer blocks
+// than SMs, down to RM; RM = 4 rows a thread in f32, 2 in f64, 4 columns.
+// If that still gives fewer blocks than SMs, the cluster route: dc =
+// ceil(D / ROW_CLUSTER_MAX) columns a block (rounded up to
+// ROW_CLUSTER_CN), n = ceil(D / dc) >= 2 blocks a tile, 1 x 2 outputs a
+// thread, and tiles of the largest power of two up to ROW_CLUSTER_LANES
+// lanes that fits, halved while the clusters' blocks are fewer than SMs.
+// At 256 x 64c, K' = 3 in f32: clusters of 4 blocks of 128 threads over 4
+// lanes, the basis resident (96 KB a block); at 4096: 16 lanes a block,
+// 256 threads, the basis streamed. ops/adjoint.py:row_plan mirrors it.
+template <typename T>
+RowPlan row_plan(int B, int D, int KP, int m, int n_sm, size_t max_smem) {
+  constexpr int RM = row_rm<T>();
+  const int ncg = gemm_dp(D) / GEMM_CN;
+  int L = ROW_MAX_LANES;
+  while (L > RM && ((2 * L / RM) * ncg > GEMM_THREADS ||
+                    RowLayout<T>(L, D, D, KP, m).total > max_smem))
+    L /= 2;
+  while (L > RM && (B + L - 1) / L < n_sm) L /= 2;
+  const int per = (D + ROW_CLUSTER_MAX - 1) / ROW_CLUSTER_MAX;
+  const int dc = (per + ROW_CLUSTER_CN - 1) / ROW_CLUSTER_CN * ROW_CLUSTER_CN;
+  const int n = (D + dc - 1) / dc;
+  if ((B + L - 1) / L >= n_sm || n < 2)
+    return RowPlan{0, 1, L, D, ((2 * L / RM) * ncg + 31) / 32 * 32,
+                   RowLayout<T>(L, D, D, KP, m).total};
+  const int ncl = (dc + ROW_CLUSTER_CN - 1) / ROW_CLUSTER_CN;
+  int ct = ROW_CLUSTER_LANES;
+  while (ct > 1 && (2 * ct * ncl > GEMM_THREADS || RowLayout<T>(ct, D, dc, KP, m).total > max_smem))
+    ct /= 2;
+  while (ct > 1 && (B + ct - 1) / ct * n < n_sm) ct /= 2;
+  return RowPlan{1, n, ct, dc, (2 * ct * ncl + 31) / 32 * 32, RowLayout<T>(ct, D, dc, KP, m).total};
 }
 
-template <typename T, int KP>
-int run_bwd(const void* c, const void* x, const void* a, const void* mt, const void* ms,
-            void* xn, void* an, void* cb, int B, int D, const AdjParams<T>& p, void* stream) {
-  Geometry<T> g;
-  const int rc = geometry<T>(B, D, KP, &g);
+template <typename T>
+int row_plan_here(int B, int D, int KP, int m, RowPlan* pl) {
+  int dev = 0, max_smem = 0, n_sm = 0;
+  const cudaError_t st = device_limits(&dev, &max_smem, &n_sm);
+  if (st != cudaSuccess) return (int)st;
+  *pl = row_plan<T>(B, D, KP, m, n_sm, (size_t)max_smem);
+  if (pl->threads > GEMM_THREADS || pl->smem > (size_t)max_smem) return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+template <typename T, int RM, int CN, bool CLUSTER>
+int launch_row(const RowPlan& pl, const void* c, const void* x, const void* a, const void* mt,
+               const void* ms, void* xn, void* an, void* cb, int B, int D, const AdjParams<T>& p,
+               void* stream) {
+  auto kernel = adjoint_row_kernel<T, RM, CN, CLUSTER>;
+  const int rc = allow_smem(kernel, pl.smem);
   if (rc != 0) return rc;
-  return g.threads > ADJ_NARROW_THREADS
-             ? launch_bwd<T, KP, true>(g, c, x, a, mt, ms, xn, an, cb, B, D, p, stream)
-             : launch_bwd<T, KP, false>(g, c, x, a, mt, ms, xn, an, cb, B, D, p, stream);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(((B + pl.lanes - 1) / pl.lanes) * pl.n));
+  cfg.blockDim = dim3((unsigned)pl.threads);
+  cfg.dynamicSmemBytes = pl.smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)pl.n;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = CLUSTER ? 1 : 0;
+  const cudaError_t st =
+      cudaLaunchKernelEx(&cfg, kernel, (const T*)c, (const T*)x, (const T*)a, (const T*)mt,
+                         (const T*)ms, (T*)xn, (T*)an, (T*)cb, B, D, pl.lanes, pl.dc, p);
+  if (st != cudaSuccess) return (int)st;
+  return (int)cudaGetLastError();
 }
 
 // K7's launch shape (see the note above): trajectories per block (the
@@ -1168,27 +1188,20 @@ int run_sweep_bwd(const void* c_all, int R, const void* x, const void* a, const 
 #undef ARGS
 }
 
-// Dispatches f<KP>() over the instantiated working-basis sizes.
-#define ADJ_DISPATCH(KP, CALL)                           \
-  switch (KP) {                                          \
-    case 1: return CALL(1);                              \
-    case 2: return CALL(2);                              \
-    case 3: return CALL(3);                              \
-    case 4: return CALL(4);                              \
-    case 5: return CALL(5);                              \
-    case 6: return CALL(6);                              \
-    default: return (int)cudaErrorInvalidValue;          \
-  }
-
 template <typename T>
 int bwd(const void* c, const void* x, const void* a, const void* mt, const void* ms, void* xn,
         void* an, void* cb, int B, int D, int KP, const double* norms, int m, double theta,
         int max_sq, void* stream) {
-  if (!params_ok(B, D, KP, m, max_sq)) return (int)cudaErrorInvalidValue;
+  if (!params_ok(B, D, KP, m, max_sq, MAX_KP)) return (int)cudaErrorInvalidValue;
   const AdjParams<T> p = parse<T>(KP, norms, m, theta, max_sq);
-#define CALL(K) run_bwd<T, K>(c, x, a, mt, ms, xn, an, cb, B, D, p, stream)
-  ADJ_DISPATCH(KP, CALL)
-#undef CALL
+  RowPlan pl;
+  const int rc = row_plan_here<T>(B, D, KP, m, &pl);
+  if (rc != 0) return rc;
+  if (pl.cluster)
+    return launch_row<T, ROW_CLUSTER_RM, ROW_CLUSTER_CN, true>(pl, c, x, a, mt, ms, xn, an, cb, B,
+                                                               D, p, stream);
+  return launch_row<T, row_rm<T>(), GEMM_CN, false>(pl, c, x, a, mt, ms, xn, an, cb, B, D, p,
+                                                    stream);
 }
 
 template <typename T>
@@ -1223,9 +1236,27 @@ int vec_ode_adjoint_blocks(int B, int D, int KP, int elem_bytes) {
   return rc != 0 ? -rc : s.blocks;
 }
 
+// K6's plan on the current card for B lanes of width D over KP terms at
+// Taylor degree m in elements of elem_bytes: out[0..6] = cluster, n,
+// lanes, dc, threads, shared memory a block, resident (ops/adjoint.py:
+// row_plan's keys). 0, or the CUDA error.
+int vec_ode_adjoint_row_plan(int B, int D, int KP, int m, int elem_bytes, long long* out) {
+  if (!params_ok(B, D, KP, m, 0, MAX_KP) || (elem_bytes != 4 && elem_bytes != 8))
+    return (int)cudaErrorInvalidValue;
+  RowPlan pl;
+  const int rc = elem_bytes == 4 ? row_plan_here<float>(B, D, KP, m, &pl)
+                                 : row_plan_here<double>(B, D, KP, m, &pl);
+  if (rc != 0) return rc;
+  const bool res = elem_bytes == 4 ? ring_resident<float>(D, KP, pl.dc)
+                                   : ring_resident<double>(D, KP, pl.dc);
+  const long long v[7] = {pl.cluster, pl.n, pl.lanes, pl.dc, pl.threads, (long long)pl.smem, res};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  return 0;
+}
+
 // K6: c (B, KP) per-lane rows, x and a (B, D), mt = [W_0^T | ...] and
 // ms = [W_0 | ...] (D, KP*D); writes xn, an (B, D) and cb (B, KP). norms:
-// the KP values ||W_k||_1 in host memory.
+// the KP values ||W_k||_1 in host memory. KP up to MAX_KP (36).
 int vec_ode_adjoint_bwd_f32(const void* c, const void* x, const void* a, const void* mt,
                             const void* ms, void* xn, void* an, void* cb, int B, int D, int KP,
                             const double* norms, int m, double theta, int max_sq, void* stream) {

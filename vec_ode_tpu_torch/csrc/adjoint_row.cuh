@@ -1,370 +1,533 @@
-// One reverse row of the reversible adjoint with per-lane rows for a tile
-// of trajectories, as device functions that every thread of a block calls
-// together: the counterpart of
-// vec_ode_tpu/ops/pallas_expmv.py:_adjoint_row_chains, run by the
-// single-row kernel K6 of adjoint.cu (the reverse sweep K8 shares the rows
-// of the batch and forms their exponents instead; adjoint.cu's note).
+// K6's body: one reverse row of the reversible adjoint with per-lane rows
+// for a tile of lanes (trajectories), as a device function that every
+// thread of a block (of a thread-block cluster) calls together; the
+// counterpart of vec_ode_tpu/ops/pallas_expmv.py:_adjoint_row_chains, run
+// by adjoint.cu's K6 kernel on both of its launch routes. K7 and K8 share
+// only the parameters and the scaling rule below.
 //
-// With A = sum_k c_k W_k over the working basis (K' = KP terms), scaled by
-// 2^-s (ops/adjoint.py: one count per lane from sum_k |c_k| ||W_k||_1; the
-// Fréchet direction adds nothing to it), a row computes
-//   1. x_n = e^{-A} x and a_n = e^{A^T} a: 2^s passes of the degree-m
-//      Taylor polynomial each, side by side in two thread groups;
-//   2. u_k = D_{W_k} e^{A} x_n for every k by the block-triangular
-//      recurrence: per Taylor term u_k' = (A u_k + 2^-s W_k w) / j and
-//      w' = (A w) / j from w = x_n, u_k = 0; KP + 1 thread groups, one per
-//      chain, and the w group's K' actions W_k w serve both A w and the
-//      direction terms, so a term costs K'^2 + K' actions;
-//   3. cbar_k = <a, u_k> per trajectory, summed over its columns in a
-//      fixed order.
-// Every lane has its own row, so no exponent is shared: every action of a
-// Taylor term is row_products below (one (rows, D) @ (D, KP*D) product;
-// MT = [W_0^T | ...] for W v and MS = [W_0 | ...] for W^T v), the KP actions combined in k order with explicitly rounded
+// What a row computes, per lane, with A = sum_k c_k W_k over the working
+// basis (K' = KP terms):
+//   x_n = e^{-A} x,  a_n = e^{A^T} a,  cbar_k = <a, D_{W_k} e^{A} x_n>.
+// Scaling: one count s per lane from sum_k |c_k| ||W_k||_1 (adj_scale_rows;
+// the Fréchet direction adds nothing to it); A_s = 2^-s A, N = 2^s passes,
+// P = T_m(A_s) and Q = T_m(-A_s) the degree-m Taylor polynomials.
+//
+// The pairing route. D_V(P^N) = sum_{p<N} P^{N-1-p} (D_V P) P^p, and with
+// the Taylor terms alpha_i = (A_s^T)^i z / i! of a pass start z and t_l =
+// A_s^l v / l! of v,
+//   <z, D_V P v> = sum_{i + l <= m - 1} i! l! / (i + l + 1)! <alpha_i, V t_l>.
+// The a chain's pass j starts at z_j = (P^T)^j a. It is paired with v =
+// y_{j+1}, the x chain's state after j + 1 passes of Q, which stands for
+// P^{N-1-j} x_n up to the Taylor remainder (P Q = I to below the type's
+// eps at the port's (m, theta); for N = 1 the pairing is exact). The t
+// chain from y_{j+1} is the x chain's own pass j + 1: its terms are
+// (-1)^l t_l and its K' actions W_k t_l up to sign, bit for bit. So a row
+// runs N + 1 stages: stage p runs the x chain's pass p from y_p and, for
+// p >= 1, the a chain's pass p - 1 from z_{p-1}, and pairs them; the x
+// chain's last pass (p = N) only pairs, its state stays y_N = x_n. A
+// Taylor term costs K' actions a chain (W_k v through MT = [W_0^T | ...],
+// W_k^T v through MS = [W_0 | ...]), 2K' a stage: where the K' + 1
+// Fréchet chains of the JAX kernel ran K'^2 + 3K' a term.
+// Each pair is taken when its later term arrives: at term step s (the
+// actions of term s - 1) the x side pairs W_k T^x_{s-1} with alpha_i for i
+// <= min(s - 2, m - s), the a side W_k^T alpha_{s-1} with t_l for l <=
+// min(s - 1, m - s), each side first combining the stored vectors it
+// pairs with into one g (coefficients in index order, explicitly rounded),
+// so a pass keeps only the first H = floor((m - 1) / 2) + 1 terms of each
+// chain, and each pairing is one dot product of g with an action per k.
+// Lanes that have finished their passes are masked while the tile runs to
+// its largest count.
+//
+// Layout. The tile's 2L chain rows (rows < L the lanes' x chains, the rest
+// their a chains) share every basis panel: a Taylor term is one (2L, D)
+// product per k over gemm_tile.cuh's microtile, the term transposed in
+// shared memory (D, 2L), two term buffers alternating; a thread owns RM
+// rows of one chain x CN columns, its chain's running sum in registers.
+// The basis comes through a PairRing: each stage (or, resident, each
+// block) carries the same rows of W_k^T and of W_k, so that x rows and a
+// rows run side by side. On the cluster route each block owns a slice of
+// the columns, publishes its slice of each new term into every block's
+// term buffer (distributed shared memory) and meets the cluster at one
+// barrier a term. The first H terms of each chain (hist) stay in the
+// block at its own columns. Each thread keeps its partial inner products
+// (K' x RM) in local memory; at the end they are summed over the block's
+// column groups in order, x rows then a rows, then over the cluster's
+// blocks in rank order, and scaled by 2^-s: no atomics, the same bits run
+// to run.
+//
+// Precision. Products accumulate by IEEE FMA in the state's type, never
+// TF32; the K' actions are combined in k order with explicitly rounded
 // operations and divided by the term's index, as the twin
-// ops/adjoint.py:torch_adjoint_row does. Trajectories that have finished
-// their passes are masked while the block runs to its largest count.
-//
-// Layout. Each thread owns one trajectory (RT = 1) and CT columns of one
-// chain (thread group); the chains' running sums stay in registers, their
-// Taylor terms in shared memory (one (tile, D) slot each), and the basis
-// streams from device memory (L2) at every term, as in K4. Per trajectory
-// the row keeps x, a, a_n, the KP + 1 terms and the w group's KP actions
-// in shared memory: (2 KP + 4) D values.
-//
-// Precision. IEEE FMA in the state's type inside the products, explicitly
-// rounded combination (no contraction), IEEE division; never TF32, never
-// --use_fast_math.
+// ops/adjoint.py:torch_adjoint_row does. Build without --use_fast_math.
 
 #pragma once
 
+#include <cooperative_groups.h>
+
+#include <type_traits>
+
 #include "chain_step.cuh"
+#include "gemm_tile.cuh"
 
 namespace vec_ode {
 
-constexpr int ADJ_MAX_KP = 6;         // ops/adjoint.py: MAX_KP
-// Blocks of at most ADJ_NARROW_THREADS threads keep up to 128 registers a
-// thread (the products spill under the 64 of a 1024-thread block); only a
-// trajectory whose chains need more threads (K' + 1 groups of ceil(D / CT),
-// up to 896) takes a wide block.
-constexpr int ADJ_NARROW_THREADS = 256;
-constexpr int ADJ_MAX_THREADS = 1024;
-constexpr int ADJ_MAX_TILE = 8;
-
-// The body of row_products. FULL: every column of the thread lies inside
-// the row (D a multiple of CT), so the basis loads carry no bounds check
-// and a thread's loads of one j go out together.
-template <bool FULL, typename T, int RT, int KP>
-__device__ __forceinline__ void row_products_body(const T* trow, const T* __restrict__ mt,
-                                                    int D, int cg, int ncg,
-                                                    T (&y)[KP][RT][CT]) {
-  const size_t ld = (size_t)KP * D;
-#pragma unroll 2
-  for (int j = 0; j < D; ++j) {
-    T xv[RT];
-#pragma unroll
-    for (int q = 0; q < RT; ++q) xv[q] = trow[(size_t)q * D + j];
-    const T* mrow = mt + (size_t)j * ld;
-#pragma unroll
-    for (int k = 0; k < KP; ++k) {
-      T mv[CT];
-#pragma unroll
-      for (int c = 0; c < CT; ++c) {
-        const int col = cg + c * ncg;
-        mv[c] = (FULL || col < D) ? __ldg(mrow + (size_t)k * D + col) : T(0);
-      }
-#pragma unroll
-      for (int q = 0; q < RT; ++q)
-#pragma unroll
-        for (int c = 0; c < CT; ++c) y[k][q][c] = fma_full(xv[q], mv[c], y[k][q][c]);
-    }
-  }
-}
-
-// y_k[q][c] = sum_j term[row q][j] M_k[col c][j] for the thread's RT rows and
-// CT columns (cg, cg + ncg, ...), k < KP, from the (tile, D) slot `term`
-// and MT (D, KP*D) read from L2 at every term: all KP products of a Taylor
-// term in registers.
-template <typename T, int RT, int KP>
-__device__ __forceinline__ void row_products(const T* term, const T* __restrict__ mt, int D,
-                                               int rg, int cg, int ncg, T (&y)[KP][RT][CT]) {
-#pragma unroll
-  for (int k = 0; k < KP; ++k)
-#pragma unroll
-    for (int q = 0; q < RT; ++q)
-#pragma unroll
-      for (int c = 0; c < CT; ++c) y[k][q][c] = T(0);
-  const T* trow = term + (size_t)(rg * RT) * D;
-  if (D % CT == 0)
-    row_products_body<true, T, RT, KP>(trow, mt, D, cg, ncg, y);
-  else
-    row_products_body<false, T, RT, KP>(trow, mt, D, cg, ncg, y);
-}
+constexpr int ADJ_MAX_KP = 6;          // K7 and K8 (ops/adjoint.py: MAX_KP); K6: MAX_KP
+constexpr int ROW_MAX_LANES = 32;      // lanes a tiled block at most
+constexpr int ROW_CLUSTER_MAX = 4;     // blocks a cluster
+constexpr int ROW_CLUSTER_LANES = 8;   // lanes a cluster at most
+constexpr int ROW_CLUSTER_RM = 1, ROW_CLUSTER_CN = 2;  // the cluster route's outputs a thread
+constexpr int ROW_STAGE_BYTES = 16384;  // a stage of the streamed PairRing, both panels
 
 template <typename T>
 struct AdjParams {
   int KP, m, max_sq;
   T theta;
-  T norms[ADJ_MAX_KP];  // ||W_k||_1
+  T norms[MAX_KP];  // ||W_k||_1
 };
 
-// The scratch of one tile in shared memory, carved from one block of T.
+// The tiled route's chain rows a thread.
 template <typename T>
-struct AdjSmem {
-  T* x;     // (tile, D): the state, x_n after the row
-  T* a;     // (tile, D): the cotangent a (a_{n+1})
-  T* an;    // (tile, D): a_n
-  T* term;  // (G, tile, D): each chain's Taylor term
-  T* prod;  // (KP, tile, D): the w group's actions; then cbar partials
-  T* cs;    // (tile, KP): the scaled rows
-  T* scl;   // (tile): 2^-s
-  T* cbr;   // (tile, KP): cbar per trajectory
-  int* np;  // (tile): 2^s, 0 for rows past the batch
+__host__ __device__ constexpr int row_rm() {
+  return sizeof(T) == 4 ? 4 : 2;
+}
 
-  __host__ __device__ static size_t elems(int tile, int D, int KP) {
-    const size_t slots = 3 + (KP + 1) + KP;
-    const size_t ints = (size_t)tile * sizeof(int);
-    return slots * tile * D + 2 * (size_t)tile * KP + tile + (ints + sizeof(T) - 1) / sizeof(T);
+// The terms of each chain a pass keeps for the pairing.
+__host__ __device__ inline int row_hist(int m) { return (m - 1) / 2 + 1; }
+
+// Contraction rows of a stage of the streamed PairRing: a multiple of 4 up
+// to 32 whose two panels (width columns each) fill ROW_STAGE_BYTES, at
+// least 4.
+template <typename T>
+__host__ __device__ inline int pair_jc(int width) {
+  const int jc = ROW_STAGE_BYTES / (2 * gemm_dp(width) * (int)sizeof(T)) / 4 * 4;
+  return jc < 4 ? 4 : (jc > 32 ? 32 : jc);
+}
+
+// Bytes of the PairRing: both operands' slices resident where one takes
+// no more than gemm_tile.cuh's ring, else GEMM_STAGES stages.
+template <typename T>
+__host__ __device__ inline size_t pair_ring_bytes(int D, int kp, int width) {
+  return ring_resident<T>(D, kp, width)
+             ? 2 * (size_t)kp * D * gemm_dp(width) * sizeof(T)
+             : (size_t)GEMM_STAGES * 2 * pair_jc<T>(width) * gemm_dp(width) * sizeof(T);
+}
+
+// K6's shared memory, byte offsets (16-byte aligned): two term buffers (D,
+// 2L) (at the end the column groups' partial sums); the first H terms of
+// each chain at the block's columns (H, 2L, DP of the slice); the
+// PairRing; the scaled rows (L, K'); the block's sums of cbar (L, K');
+// the pairing coefficients (m, m); 2^-s (L); the pass counts (L).
+// ops/adjoint.py:row_smem_bytes mirrors it.
+template <typename T>
+struct RowLayout {
+  size_t term, hist, ring, cs, blk, coef, scl, np, total;
+  __host__ __device__ RowLayout(int lanes, int D, int width, int kp, int m) {
+    const size_t r2 = 2 * (size_t)lanes;
+    size_t at = 0;
+    term = at, at += align16(2 * (size_t)D * r2 * sizeof(T));
+    hist = at, at += align16((size_t)row_hist(m) * r2 * gemm_dp(width) * sizeof(T));
+    ring = at, at += align16(pair_ring_bytes<T>(D, kp, width));
+    cs = at, at += align16((size_t)lanes * kp * sizeof(T));
+    blk = at, at += align16((size_t)lanes * kp * sizeof(T));
+    coef = at, at += align16((size_t)m * m * sizeof(T));
+    scl = at, at += align16((size_t)lanes * sizeof(T));
+    np = at, at += align16((size_t)lanes * sizeof(int));
+    total = at;
   }
-  __device__ static AdjSmem carve(T* base, int tile, int D, int KP) {
-    AdjSmem s;
-    const size_t n = (size_t)tile * D;
-    s.x = base;
-    s.a = s.x + n;
-    s.an = s.a + n;
-    s.term = s.an + n;
-    s.prod = s.term + (size_t)(KP + 1) * n;
-    s.cs = s.prod + (size_t)KP * n;
-    s.scl = s.cs + (size_t)tile * KP;
-    s.cbr = s.scl + tile;
-    s.np = reinterpret_cast<int*>(s.cbr + (size_t)tile * KP);
+};
+
+template <typename T>
+struct RowSmem {
+  T *term, *hist, *ring, *cs, *blk, *coef, *scl;
+  int* np;
+  __device__ RowSmem(unsigned char* base, const RowLayout<T>& L)
+      : term(reinterpret_cast<T*>(base + L.term)),
+        hist(reinterpret_cast<T*>(base + L.hist)),
+        ring(reinterpret_cast<T*>(base + L.ring)),
+        cs(reinterpret_cast<T*>(base + L.cs)),
+        blk(reinterpret_cast<T*>(base + L.blk)),
+        coef(reinterpret_cast<T*>(base + L.coef)),
+        scl(reinterpret_cast<T*>(base + L.scl)),
+        np(reinterpret_cast<int*>(base + L.np)) {}
+};
+
+// The basis of a row in shared memory: columns [c0, c0 + dc) of every
+// W_k^T (MT) and of every W_k (MS), each (D, KP*D), read as panels of jc
+// contraction rows, k outer, j inner, KP * npan a term; a stage carries the
+// same rows of both, the MT panel first, the MS panel `half` values on.
+//  * resident (ring_resident at `width`): all of both slices, loaded once
+//    by prologue(), block b's panels at panel(b, .);
+//  * streamed: GEMM_STAGES stages taken in turn by acquire(), as
+//    gemm_tile.cuh's PanelRing (which this mirrors for two operands).
+// Every thread copies and waits; padding columns are never written.
+template <typename T>
+struct PairRing {
+  static constexpr int V = 16 / sizeof(T);
+  const T* mt;
+  const T* ms;
+  T* ring;
+  size_t ld;      // KP * D
+  int D, DP, kp, jc, npan, nst;
+  size_t stride;  // values from one stage (resident: block) to the next
+  size_t half;    // from a stage's MT panel to its MS panel
+  bool resident, vec16;
+  int chunks, jj0, ci0, djj, dci;
+  int nb = 0, nj = 0, ns = 0, cs = 0;
+
+  __device__ PairRing(const T* mt_, const T* ms_, T* ring_, int D_, int kp_, int c0, int dc,
+                      int width)
+      : mt(mt_ + c0), ms(ms_ + c0), ring(ring_), ld((size_t)kp_ * D_), D(D_),
+        DP(gemm_dp(width)), kp(kp_) {
+    resident = ring_resident<T>(D_, kp_, width);
+    jc = resident ? D_ : pair_jc<T>(width);
+    npan = (D_ + jc - 1) / jc;
+    nst = resident ? kp_ : GEMM_STAGES;
+    stride = resident ? (size_t)D_ * DP : 2 * (size_t)jc * DP;
+    half = resident ? (size_t)kp_ * D_ * DP : (size_t)jc * DP;
+    vec16 = D % V == 0 && c0 % V == 0 && dc % V == 0 && ((size_t)mt_ % 16) == 0 &&
+            ((size_t)ms_ % 16) == 0;
+    chunks = vec16 ? dc / V : dc;
+    jj0 = threadIdx.x / chunks, ci0 = threadIdx.x % chunks;
+    djj = blockDim.x / chunks, dci = blockDim.x % chunks;
+  }
+  __device__ int rows_of(int j0) const { return D - j0 < jc ? D - j0 : jc; }
+
+  __device__ void issue() {
+    const int j0 = nj * jc, jn = rows_of(j0);
+    T* dst = ring + (size_t)ns * stride;
+    const size_t off = (size_t)j0 * ld + (size_t)nb * D;
+    const T* sx = mt + off;
+    const T* sa = ms + off;
+    int jj = jj0, ci = ci0;
+    if (vec16) {
+      while (jj < jn) {
+        const size_t d = (size_t)jj * DP + ci * V, s = (size_t)jj * ld + ci * V;
+        cp_async<16>(dst + d, sx + s);
+        cp_async<16>(dst + half + d, sa + s);
+        jj += djj, ci += dci;
+        if (ci >= chunks) ci -= chunks, ++jj;
+      }
+    } else {
+      while (jj < jn) {
+        const size_t d = (size_t)jj * DP + ci, s = (size_t)jj * ld + ci;
+        cp_async<sizeof(T)>(dst + d, sx + s);
+        cp_async<sizeof(T)>(dst + half + d, sa + s);
+        jj += djj, ci += dci;
+        if (ci >= chunks) ci -= chunks, ++jj;
+      }
+    }
+    cp_async_commit();
+    if (++nj == npan) {
+      nj = 0;
+      if (++nb == kp) nb = 0;
+    }
+    if (++ns == nst) ns = 0;
+  }
+  __device__ void prologue() {
+    if (resident) {
+      for (int p = 0; p < kp; ++p) issue();
+      cp_async_wait<0>();
+      __syncthreads();
+      return;
+    }
+    for (int p = 0; p < GEMM_STAGES - 1; ++p) issue();
+  }
+  __device__ const T* acquire() {
+    cp_async_wait<GEMM_STAGES - 2>();
+    __syncthreads();
+    issue();
+    const T* s = ring + (size_t)cs * stride;
+    if (++cs == nst) cs = 0;
     return s;
   }
+  // Resident: block b's panel of MT (a = false) or of MS.
+  __device__ const T* panel(int b, bool a) const {
+    return ring + (size_t)b * stride + (a ? half : 0);
+  }
+  __device__ void drain() { cp_async_wait<0>(); }
 };
 
-// Bytes of shared memory a block takes.
+// The scaling of each lane's own row of c (B, KP) by the port's rule: the
+// least s >= 0 with bound / theta <= 2^s, at most max_sq, s = 0 for a
+// non-finite bound; the scaled row into cs, 2^-s into scl, 2^s into np (0
+// for lanes past the batch). One thread per lane.
 template <typename T>
-inline size_t adj_smem_bytes(int tile, int D, int KP) {
-  return AdjSmem<T>::elems(tile, D, KP) * sizeof(T);
-}
-
-// Trajectories per block: the largest power of two up to ADJ_MAX_TILE
-// whose threads (KP + 1 groups x tile x ceil(D / CT)) fit a narrow block
-// (a wide one where one trajectory needs more) and whose shared memory
-// fits, halved while the batch gives fewer than n_sm / 2 blocks (at B =
-// 256, D = 128, K' = 3: 2 trajectories, 128 blocks). The results do not
-// depend on it.
-template <typename T>
-inline int adj_tile(int B, int D, int KP, int n_sm, int max_smem) {
-  const int ncg = (D + CT - 1) / CT;
-  const int G = KP + 1;
-  const long limit = G * ncg <= ADJ_NARROW_THREADS ? ADJ_NARROW_THREADS : ADJ_MAX_THREADS;
-  int tile = ADJ_MAX_TILE;
-  while (tile > 1 && ((long)G * tile * ncg > limit ||
-                      adj_smem_bytes<T>(tile, D, KP) > (size_t)max_smem))
-    tile /= 2;
-  while (tile > 1 && (B + tile - 1) / tile < n_sm / 2) tile /= 2;
-  return tile;
-}
-
-// The scaling of one row c (KP values) by the port's rule: the least s >= 0
-// with bound / theta <= 2^s, at most max_sq, s = 0 for a non-finite bound.
-// Writes the scaled row, 2^-s and 2^s (0 when !ok) for trajectory lr.
-template <typename T>
-__device__ void adj_scale_row(const T* c, bool ok, int lr, const AdjSmem<T>& s,
-                              const AdjParams<T>& p) {
-  T bound = T(0);
-  for (int k = 0; k < p.KP; ++k) {
-    const T term = mul_rn(fabs(c[k]), p.norms[k]);
-    bound = k == 0 ? term : add_rn(bound, term);
-  }
-  const T ratio = bound / p.theta;
-  int e2 = 0;
-  if (isfinite(bound) && ratio > T(1)) {
-    int e = 0;
-    const T mant = frexp_full(ratio, &e);
-    e2 = e - (mant == T(0.5) ? 1 : 0);
-    e2 = e2 < 0 ? 0 : (e2 > p.max_sq ? p.max_sq : e2);
-  }
-  const int n_pass = 1 << e2;
-  const T scale = T(1) / T(n_pass);  // exact
-  for (int k = 0; k < p.KP; ++k) s.cs[(size_t)lr * p.KP + k] = c[k] * scale;
-  s.scl[lr] = scale;
-  s.np[lr] = ok ? n_pass : 0;
-}
-
-// Where a thread sits: its chain (group), trajectory and column group.
-struct AdjLane {
-  int grp, lr, cg, ncg;
-  __device__ AdjLane(int tile, int D) {
-    ncg = (D + CT - 1) / CT;
-    const int per = tile * ncg;
-    grp = threadIdx.x / per;
-    const int r = threadIdx.x % per;
-    lr = r / ncg;
-    cg = r % ncg;
-  }
-};
-
-// sum_k sgn c_k y_k in k order, explicitly rounded.
-template <typename T, int KP>
-__device__ __forceinline__ T adj_combine(const T* c, T sgn, const T (&y)[KP][1][CT], int col) {
-  T w = mul_rn(sgn * c[0], y[0][0][col]);
-#pragma unroll
-  for (int b = 1; b < KP; ++b) w = add_rn(w, mul_rn(sgn * c[b], y[b][0][col]));
-  return w;
-}
-
-// Phase 1: group 0 takes x to e^{-A} x in place (MT), group 1 takes a to
-// e^{A^T} a into s.an (MS). Every thread calls it.
-template <typename T, int KP>
-__device__ void adj_state_chains(const AdjSmem<T>& s, int tile, int D, const T* __restrict__ mt,
-                                 const T* __restrict__ ms, int m) {
-  const AdjLane ln(tile, D);
-  const bool in = ln.grp <= 1;
-  const bool is_x = ln.grp == 0;
-  T* slot = s.term + (size_t)(in ? ln.grp : 0) * tile * D;
-  const T* mat = is_x ? mt : ms;
-  const T* src = is_x ? s.x : s.a;
-  const T sgn = is_x ? T(-1) : T(1);
-  const int my_np = in ? s.np[ln.lr] : 0;
-  const T* cq = s.cs + (size_t)(in ? ln.lr : 0) * KP;
-  const size_t row = (size_t)ln.lr * D;
-  T acc[CT];
-#pragma unroll
-  for (int c = 0; c < CT; ++c) {
-    const int col = ln.cg + c * ln.ncg;
-    acc[c] = (in && col < D) ? src[row + col] : T(0);
-  }
-  for (int pass = 0;; ++pass) {
-    if (in) {
-#pragma unroll
-      for (int c = 0; c < CT; ++c) {
-        const int col = ln.cg + c * ln.ncg;
-        if (col < D) slot[row + col] = acc[c];
-      }
+__device__ void adj_scale_rows(const T* __restrict__ c, int rows, int lanes, const RowSmem<T>& s,
+                               const AdjParams<T>& p) {
+  for (int lr = threadIdx.x; lr < lanes; lr += blockDim.x) {
+    const bool ok = lr < rows;
+    const T* cr = c + (size_t)(ok ? lr : 0) * p.KP;
+    T bound = T(0);
+    for (int k = 0; k < p.KP; ++k) {
+      const T term = mul_rn(fabs(ok ? cr[k] : T(0)), p.norms[k]);
+      bound = k == 0 ? term : add_rn(bound, term);
     }
-    // the pass's start state is written; go on while any row has passes
-    if (!__syncthreads_or(in && my_np > pass)) break;
-    for (int kk = 1; kk <= m; ++kk) {
-      T y[KP][1][CT];
-      if (in) row_products<T, 1, KP>(slot, mat, D, ln.lr, ln.cg, ln.ncg, y);
-      __syncthreads();  // every read of the terms is done
-      if (in) {
-        const T div = T(kk);
+    const T ratio = bound / p.theta;
+    int e2 = 0;
+    if (isfinite(bound) && ratio > T(1)) {
+      int e = 0;
+      const T mant = frexp_full(ratio, &e);
+      e2 = e - (mant == T(0.5) ? 1 : 0);
+      e2 = e2 < 0 ? 0 : (e2 > p.max_sq ? p.max_sq : e2);
+    }
+    const int n_pass = 1 << e2;
+    const T scale = T(1) / T(n_pass);  // exact
+    for (int k = 0; k < p.KP; ++k) s.cs[(size_t)lr * p.KP + k] = (ok ? cr[k] : T(0)) * scale;
+    s.scl[lr] = scale;
+    s.np[lr] = ok ? n_pass : 0;
+  }
+}
+
+// The pairing coefficients c(i, l) = i! l! / (i + l + 1)! = 1 / ((i + l +
+// 1) C(i + l, i)) for i + l < m into coef[i m + l], once a block: each
+// denominator exact in double, rounded once to T, then one IEEE division
+// (the twin's _pair_coef).
+template <typename T>
+__device__ void pair_coefs(T* coef, int m) {
+  for (int e = threadIdx.x; e < m * m; e += blockDim.x) {
+    const int i = e / m, l = e % m;
+    double bin = 1.0;
+    for (int u = 1; u <= i; ++u) bin = bin * (double)(l + u) / (double)u;
+    coef[e] = i + l < m ? T(1) / T((double)(i + l + 1) * bin) : T(0);
+  }
+}
+
+// One reverse row of the tile (see the note above); every thread of the
+// block (of every block of the cluster, CLUSTER) calls it. Before the call
+// the ring's prologue is issued and the scaled rows, 2^-s and the pass
+// counts of the tile's lanes are in shared memory, the same in every block
+// of a cluster. x, a (rows, D) are read, xn, an (rows, D) and cb (rows,
+// K') written (cb by the cluster's first block). The block owns the
+// columns [c0, c0 + dc) (width: the slice its layout holds) and needs (2L
+// / RM) * ceil(dc / CN) threads or more.
+template <typename T, int RM, int CN, bool CLUSTER>
+__device__ void adjoint_row_tile(const T* __restrict__ x, const T* __restrict__ a,
+                                 T* __restrict__ xn, T* __restrict__ an, T* __restrict__ cb,
+                                 const RowSmem<T>& sm, PairRing<T>& ring, int rows, int lanes,
+                                 int D, int c0, int dc, int width, int m, int kp) {
+  namespace cg = cooperative_groups;
+  const int r2 = 2 * lanes;
+  const int ncl = (dc + CN - 1) / CN;  // the block's column groups
+  const int tid = threadIdx.x;
+  const bool active = tid < (r2 / RM) * ncl;
+  const int cg_ = tid % ncl;
+  const int lc0 = cg_ * CN, col0 = c0 + lc0, lr0 = (tid / ncl) * RM;
+  const int cend = c0 + dc;
+  const bool is_x = lr0 < lanes;
+  const int ln0 = is_x ? lr0 : lr0 - lanes;  // the lane of the thread's first row
+  const int H = row_hist(m), HS = gemm_dp(width);
+  const size_t tsz = (size_t)D * r2, hsz = (size_t)r2 * HS;
+  int nblk = 1, rank = 0;
+  if constexpr (CLUSTER) {
+    nblk = (int)cg::this_cluster().num_blocks();
+    rank = (int)cg::this_cluster().block_rank();
+  }
+  auto xsync = [&]() {
+    if constexpr (CLUSTER)
+      cg::this_cluster().sync();
+    else
+      __syncthreads();
+  };
+  if constexpr (CLUSTER) cg::this_cluster().sync();  // every block has started
+  // v as term s into buffer buf of every block, and as the chain's stored
+  // term s (s < H) into this block's hist, zeros past the columns
+  auto publish = [&](const T (&v)[RM][CN], int buf, int s) {
+    if (!active) return;
+    for (int blk = 0; blk < nblk; ++blk) {
+      T* dst = sm.term + buf * tsz;
+      if constexpr (CLUSTER) dst = cg::this_cluster().map_shared_rank(dst, blk);
 #pragma unroll
-        for (int c = 0; c < CT; ++c) {
-          const int col = ln.cg + c * ln.ncg;
-          if (col >= D) continue;
-          const T nt = adj_combine<T, KP>(cq, sgn, y, c) / div;
-          slot[row + col] = nt;
-          if (pass < my_np) acc[c] = acc[c] + nt;
+      for (int q = 0; q < RM; ++q)
+#pragma unroll
+        for (int k = 0; k < CN; ++k)
+          if (col0 + k < cend) dst[(size_t)(col0 + k) * r2 + lr0 + q] = v[q][k];
+    }
+    if (s < H) {
+      T* h = sm.hist + s * hsz + (size_t)lr0 * HS + lc0;
+#pragma unroll
+      for (int q = 0; q < RM; ++q)
+#pragma unroll
+        for (int k = 0; k < CN; ++k) h[(size_t)q * HS + k] = col0 + k < cend ? v[q][k] : T(0);
+    }
+  };
+
+  T acc[RM][CN], w[RM][CN], g[RM][CN];
+  const T* src = is_x ? x : a;
+  int np[RM];
+#pragma unroll
+  for (int q = 0; q < RM; ++q) {
+    np[q] = active ? sm.np[ln0 + q] : 0;
+#pragma unroll
+    for (int k = 0; k < CN; ++k)
+      acc[q][k] = active && ln0 + q < rows && col0 + k < cend
+                      ? src[(size_t)(ln0 + q) * D + col0 + k] : T(0);
+  }
+  int np_max = 0;
+  for (int lr = 0; lr < lanes; ++lr) np_max = max(np_max, sm.np[lr]);
+  T part[MAX_KP][RM];  // this thread's partial cbar, local memory
+  for (int b = 0; b < kp; ++b)
+#pragma unroll
+    for (int q = 0; q < RM; ++q) part[b][q] = T(0);
+  const T sgn = is_x ? T(-1) : T(1);  // x: e^{-A}
+
+  int cur = 0;
+  for (int p = 0; p <= np_max; ++p) {
+    const bool a_on = p >= 1;                   // the a chain's pass p - 1 runs
+    const bool work = active && (is_x || a_on);  // this thread's products run
+    bool upd[RM], pair[RM];
+#pragma unroll
+    for (int q = 0; q < RM; ++q) {
+      upd[q] = is_x ? p < np[q] : (a_on && p - 1 < np[q]);
+      pair[q] = a_on && p <= np[q];
+    }
+    publish(acc, cur ^ 1, 0);  // the pass starts: y_p and z_{p-1}
+    xsync();
+    cur ^= 1;
+    for (int s = 1; s <= m; ++s) {
+      // g: the stored terms of the other chain this step pairs with
+      const int top = is_x ? min(s - 2, m - s) : min(s - 1, m - s);
+      const bool pairs = work && a_on && top >= 0;
+      if (pairs) {
+        const T* hs = sm.hist + (size_t)(is_x ? lr0 + lanes : lr0 - lanes) * HS + lc0;
+        for (int h = 0; h <= top; ++h) {
+          // x side: c(h, s-1) alpha_h; a side: c(s-1, h) t_h, t_h = (-1)^h T^x_h
+          T coef = sm.coef[is_x ? h * m + s - 1 : (s - 1) * m + h];
+          if (!is_x && (h & 1)) coef = -coef;
+#pragma unroll
+          for (int q = 0; q < RM; ++q) {
+            T v[CN];
+            lds_vec<T, CN>(hs + h * hsz + (size_t)q * HS, v);
+#pragma unroll
+            for (int k = 0; k < CN; ++k) {
+              const T t = mul_rn(coef, v[k]);
+              g[q][k] = h == 0 ? t : add_rn(g[q][k], t);
+            }
+          }
+        }
+        if (is_x && ((s - 1) & 1)) {  // W_k t_{s-1} = (-1)^{s-1} W_k T^x_{s-1}
+#pragma unroll
+          for (int q = 0; q < RM; ++q)
+#pragma unroll
+            for (int k = 0; k < CN; ++k) g[q][k] = -g[q][k];
         }
       }
-      __syncthreads();  // the new terms are written
-    }
-  }
-  if (in) {
-    T* dst = is_x ? s.x : s.an;
+      // the K' actions of term s - 1: each folded at once into w in k order
+      // and, where this step pairs, dotted with g into part
+      auto fold = [&](int b, const T (&yv)[RM][CN]) {
 #pragma unroll
-    for (int c = 0; c < CT; ++c) {
-      const int col = ln.cg + c * ln.ncg;
-      if (col < D) dst[row + col] = acc[c];
-    }
-  }
-  __syncthreads();
-}
-
-// Phases 2 and 3: the Fréchet chains from w = x_n (s.x) and cbar_k =
-// <a, u_k> into s.cbr. Every thread calls it.
-template <typename T, int KP>
-__device__ void adj_frechet(const AdjSmem<T>& s, int rows, int tile, int D,
-                            const T* __restrict__ mt, int m) {
-  const AdjLane ln(tile, D);
-  const bool in = ln.grp <= KP;
-  const bool is_w = ln.grp == KP;
-  const size_t n = (size_t)tile * D;
-  T* slot = s.term + (size_t)(in ? ln.grp : 0) * n;
-  const int my_np = in ? s.np[ln.lr] : 0;
-  const T* cq = s.cs + (size_t)(in ? ln.lr : 0) * KP;
-  const T sc = in ? s.scl[ln.lr] : T(0);
-  const size_t row = (size_t)ln.lr * D;
-  const T* dir = s.prod + (size_t)(in && !is_w ? ln.grp : 0) * n;
-  T acc[CT];
+        for (int q = 0; q < RM; ++q) {
+          const T cq = sgn * sm.cs[(size_t)(ln0 + q) * kp + b];
 #pragma unroll
-  for (int c = 0; c < CT; ++c) {
-    const int col = ln.cg + c * ln.ncg;
-    acc[c] = (is_w && col < D) ? s.x[row + col] : T(0);
-  }
-  for (int pass = 0;; ++pass) {
-    if (in) {
+          for (int k = 0; k < CN; ++k) {
+            const T t = mul_rn(cq, yv[q][k]);
+            w[q][k] = b == 0 ? t : add_rn(w[q][k], t);
+          }
+          if (pairs && pair[q]) {
+            T d = part[b][q];
 #pragma unroll
-      for (int c = 0; c < CT; ++c) {
-        const int col = ln.cg + c * ln.ncg;
-        if (col < D) slot[row + col] = acc[c];
+            for (int k = 0; k < CN; ++k)
+              if (col0 + k < cend) d = fma_full(g[q][k], yv[q][k], d);
+            part[b][q] = d;
+          }
+        }
+      };
+      tile_zero<T, RM, CN>(w);
+      const T* tm = sm.term + cur * tsz + lr0;
+      if (ring.resident) {
+        constexpr int KB = RM * CN < 8 ? 4 : 1;
+        auto block = [&](auto nb, int b) {
+          constexpr int N = decltype(nb)::value;
+          T yv[N][RM][CN];
+#pragma unroll
+          for (int n = 0; n < N; ++n) tile_zero<T, RM, CN>(yv[n]);
+          tile_fma_n<T, RM, CN, N>(tm, r2, ring.panel(b, !is_x) + lc0, ring.stride, ring.DP, D,
+                                   yv);
+#pragma unroll
+          for (int n = 0; n < N; ++n) fold(b + n, yv[n]);
+        };
+        if (work) {
+          int b = 0;
+          for (; b + KB <= kp; b += KB) block(std::integral_constant<int, KB>{}, b);
+          if constexpr (KB > 1) {
+            const int left = kp - b;
+            if (left == 1) block(std::integral_constant<int, 1>{}, b);
+            if (left == 2) block(std::integral_constant<int, 2>{}, b);
+            if (left == 3) block(std::integral_constant<int, 3>{}, b);
+          }
+        }
+      } else {
+        for (int b = 0; b < kp; ++b) {
+          T yv[RM][CN];
+          tile_zero<T, RM, CN>(yv);
+          for (int j0 = 0; j0 < D; j0 += ring.jc) {
+            const T* st = ring.acquire();
+            if (work)
+              tile_fma<T, RM, false, CN>(tm + (size_t)j0 * r2, r2,
+                                         st + (is_x ? 0 : ring.half) + lc0, ring.DP,
+                                         ring.rows_of(j0), yv);
+          }
+          if (work) fold(b, yv);
+        }
       }
-    }
-    if (!__syncthreads_or(in && my_np > pass)) break;
-    for (int kk = 1; kk <= m; ++kk) {
-      T y[KP][1][CT];
-      if (in) row_products<T, 1, KP>(slot, mt, D, ln.lr, ln.cg, ln.ncg, y);
-      if (is_w) {  // W_k w for the direction terms of every u_k
+      // the new term w / s
+      if (work) {
+        const T div = T(s);
 #pragma unroll
-        for (int k = 0; k < KP; ++k)
+        for (int q = 0; q < RM; ++q)
 #pragma unroll
-          for (int c = 0; c < CT; ++c) {
-            const int col = ln.cg + c * ln.ncg;
-            if (col < D) s.prod[k * n + row + col] = y[k][0][c];
+          for (int k = 0; k < CN; ++k) {
+            const T nt = w[q][k] / div;
+            w[q][k] = nt;
+            if (upd[q]) acc[q][k] = acc[q][k] + nt;
           }
       }
-      __syncthreads();  // every read of the terms is done, the actions written
-      if (in) {
-        const T div = T(kk);
-#pragma unroll
-        for (int c = 0; c < CT; ++c) {
-          const int col = ln.cg + c * ln.ncg;
-          if (col >= D) continue;
-          T w = adj_combine<T, KP>(cq, T(1), y, c);
-          if (!is_w) w = add_rn(w, mul_rn(sc, dir[row + col]));
-          const T nt = w / div;
-          slot[row + col] = nt;
-          if (pass < my_np) acc[c] = acc[c] + nt;
-        }
+      if (s < m) {
+        publish(w, cur ^ 1, s);
+        cur ^= 1;
       }
-      __syncthreads();  // the new terms are written
+      xsync();  // the new term is written; every read of the old one and of hist done
     }
   }
-  // cbar_k = <a, u_k>: per thread over its columns, then over the column
-  // groups in order; the action slots take the partials
-  T part = T(0);
-  const bool is_u = in && !is_w && ln.lr < rows;
-  if (is_u) {
-#pragma unroll
-    for (int c = 0; c < CT; ++c) {
-      const int col = ln.cg + c * ln.ncg;
-      if (col < D) part = add_rn(part, mul_rn(s.a[row + col], acc[c]));
-    }
-  }
-  T* red = s.prod;  // (KP, tile, ncg)
-  if (in && !is_w) red[((size_t)ln.grp * tile + ln.lr) * ln.ncg + ln.cg] = part;
-  __syncthreads();
-  for (int i = threadIdx.x; i < KP * tile; i += blockDim.x) {
-    const int k = i / tile, lr = i % tile;
-    const T* pr = red + ((size_t)k * tile + lr) * ln.ncg;
-    T sum = T(0);
-    for (int g = 0; g < ln.ncg; ++g) sum = add_rn(sum, pr[g]);
-    s.cbr[(size_t)lr * KP + k] = sum;
-  }
-  __syncthreads();
-}
 
-// One reverse row of the tile (see the note above): x -> x_n in s.x, a_n in
-// s.an, cbar in s.cbr; s.a is left as it was. Before the call s.x, s.a,
-// s.cs, s.scl and s.np hold the tile's rows (zeros and np = 0 past `rows`).
-template <typename T, int KP>
-__device__ void adjoint_row_tile(const AdjSmem<T>& s, int rows, int tile, int D,
-                                 const T* __restrict__ mt, const T* __restrict__ ms, int m) {
-  adj_state_chains<T, KP>(s, tile, D, mt, ms, m);
-  adj_frechet<T, KP>(s, rows, tile, D, mt, m);
+  // cbar: per lane and k over the block's column groups in order, x row
+  // then a row, into blk; then (CLUSTER) over the blocks in rank order
+  T* red = sm.term;  // (2L, ncl)
+  for (int b = 0; b < kp; ++b) {
+    if (active) {
+#pragma unroll
+      for (int q = 0; q < RM; ++q) red[(size_t)(lr0 + q) * ncl + cg_] = part[b][q];
+    }
+    __syncthreads();
+    for (int lr = tid; lr < lanes; lr += blockDim.x) {
+      T sum = T(0);
+      for (int c = 0; c < ncl; ++c) sum = add_rn(sum, red[(size_t)lr * ncl + c]);
+      for (int c = 0; c < ncl; ++c) sum = add_rn(sum, red[(size_t)(lanes + lr) * ncl + c]);
+      sm.blk[(size_t)lr * kp + b] = sum;
+    }
+    __syncthreads();
+  }
+  if constexpr (CLUSTER) cg::this_cluster().sync();  // every block's sums are written
+  if (rank == 0) {
+    for (int e = tid; e < rows * kp; e += blockDim.x) {
+      T sum = sm.blk[e];
+      for (int blk = 1; blk < nblk; ++blk) {
+        const T* other = sm.blk;
+        if constexpr (CLUSTER) other = cg::this_cluster().map_shared_rank(sm.blk, blk);
+        sum = add_rn(sum, other[e]);
+      }
+      cb[e] = mul_rn(sm.scl[e / kp], sum);  // 2^-s: exact
+    }
+  }
+  if (active) {
+    T* dst = is_x ? xn : an;
+#pragma unroll
+    for (int q = 0; q < RM; ++q)
+#pragma unroll
+      for (int k = 0; k < CN; ++k)
+        if (ln0 + q < rows && col0 + k < cend)
+          dst[(size_t)(ln0 + q) * D + col0 + k] = acc[q][k];
+  }
+  if constexpr (CLUSTER) cg::this_cluster().sync();  // no block leaves while the first reads
 }
 
 }  // namespace vec_ode

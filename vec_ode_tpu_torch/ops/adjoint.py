@@ -8,13 +8,6 @@ A = sum_k c_k W_k, takes the state x_{n+1} and its cotangent a_{n+1} to
     a_n   = e^{A^T} a_{n+1}                   (cotangent transport)
     cbar_k = <a_{n+1}, D_{W_k} e^{A} x_n>      (coefficient cotangents)
 
-The Fréchet derivatives come from the block-triangular recurrence of
-``_adjoint_row_chains`` (``pallas_expmv.py:347-417``): for the augmented
-vector (u_k; w) one Taylor term is u_k' = (A u_k + 2^-s W_k w) / j with
-the w-chain w' = (A w) / j shared by all K' directions, so a term costs
-K'^2 + K' actions (the w-chain's K' actions serve both), not the (2D)-wide
-embedding of ``vec_ode_tpu/diff.py:703-716``.
-
 Scaling follows the port's rule (``ops/expmv.scale_rows``): one squaring
 count per row (per trajectory and row for per-lane rows), from the bound
 sum_k |c_k| ||W_k||_1 alone; the Fréchet series is linear in its
@@ -27,10 +20,17 @@ Three kernels, each a wrapper and a plain twin with the kernel's
 arithmetic:
 
 * K6 :func:`adjoint_bwd` (twin :func:`torch_adjoint_row`): one reverse
-  row with per-lane coefficients (B, K'); every Taylor term one (B, D) @
-  (D, K'D) product with ``mt`` = [W_0^T | ...] for W v, or ``ms`` =
-  [W_0 | ...] for W^T v, the K' actions combined in k order and divided
-  by the term's index (K'^2 + 3K' actions a term);
+  row with per-lane coefficients (B, K'), K' up to 36. The Fréchet terms
+  come by pairing, not from the JAX kernel's block-triangular recurrence
+  (``_adjoint_row_chains``, K'^2 + 3K' actions a term): with the Taylor
+  terms alpha_i of the a chain's pass start z and t_l of v,
+  <z, D_V T_m(A) v> = sum_{i + l <= m - 1} i! l! / (i + l + 1)!
+  <alpha_i, V t_l>, and the a chain's pass j is paired with the x
+  chain's state after j + 1 passes, whose next pass is the t chain (see
+  ``csrc/adjoint_row.cuh``). Every Taylor term is one (B, D) @ (D, K'D)
+  product per chain with ``mt`` = [W_0^T | ...] (x) or ``ms`` = [W_0 |
+  ...] (a), the K' actions combined in k order and divided by the term's
+  index: 2K' actions a term;
 * K7 :func:`adjoint_sweep_fwd` (twin :func:`torch_adjoint_sweep_fwd`):
   all R rows of a fixed-step forward, y = e^{A_{R-1}} ... e^{A_0} x; the
   rows are shared by the batch, so each row's exponent A^T = sum_k cs_k
@@ -42,7 +42,9 @@ arithmetic:
   same formed exponents: per term one product with -A^T (x), A^T (each
   u_k, plus 2^-s W_k w) and A (a), and the w chain's K' actions W_k w,
   which also give A w combined in k order: 2K' + 2 actions a term, each
-  term scaled by RN(1/j); the per-action row's arithmetic to rounding.
+  term scaled by RN(1/j). The Fréchet terms by the block-triangular
+  recurrence: u_k' = (A u_k + 2^-s W_k w) / j with the w chain w' = (A w)
+  / j shared by all K' directions.
 
 CPU tensors run the twin; CUDA tensors launch the kernel of
 ``csrc/adjoint.cu`` or raise. Each wrapper counts its launches
@@ -53,17 +55,20 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Sequence
 
 import torch
 
 from . import _build
-from .expmv import (GEMM_CN, GEMM_RM, GEMM_THREADS, _align16, gemm_dp,
-                    gemm_jc, scale_rows)
+from .expmv import (GEMM_CN, GEMM_RM, GEMM_STAGES, GEMM_THREADS, _align16,
+                    gemm_dp, gemm_jc, ring_resident, scale_rows)
+from .expmv import MAX_KP as ROW_MAX_KP
 from .fused_rk import MAX_WIDTH
 
-# the kernels' limit on the working basis (csrc/adjoint_row.cuh:
-# ADJ_MAX_KP): K' = 3 for one control at order 4, 6 for two
+# K7's and K8's limit on the working basis (csrc/adjoint_row.cuh:
+# ADJ_MAX_KP): K' = 3 for one control at order 4, 6 for two. K6 takes up
+# to ROW_MAX_KP = 36 terms, as K4 does (eight basis terms at order 4)
 MAX_KP = 6
 
 
@@ -76,55 +81,66 @@ def _combine(coeffs, mv, D: int):
     return w
 
 
-def _taylor_chain(v, coeffs, mat, n_pass, m: int):
-    """n_pass[b] passes of the degree-m Taylor polynomial of sum_k
-    coeffs[b, k] M_k on v[b], ``mat`` the stacked operand of the action;
-    rows past their count keep their value."""
-    D = v.shape[1]
-    for p in range(int(n_pass.max())):
-        acc = term = v
-        for j in range(1, m + 1):
-            term = _combine(coeffs, term @ mat, D) / j
-            acc = acc + term
-        v = torch.where((n_pass > p)[:, None], acc, v)
-    return v
-
-
-def _frechet_chains(x_n, cs, scale, mt, n_pass, m: int) -> list:
-    """u_k = D_{W_k} e^{A} x_n for every k by the shared-w recurrence (see
-    the module note), cs the scaled rows (B, K'), scale = 2^-s (B,)."""
-    B, D = x_n.shape
-    Kp = cs.shape[1]
-    us = [torch.zeros_like(x_n) for _ in range(Kp)]
-    w = x_n
-    for p in range(int(n_pass.max())):
-        acc_u, term_u = list(us), list(us)
-        acc_w = term_w = w
-        for j in range(1, m + 1):
-            mw = term_w @ mt
-            new_u = []
-            for k in range(Kp):
-                base = _combine(cs, term_u[k] @ mt, D)
-                base = base + scale[:, None] * mw[:, k * D:(k + 1) * D]
-                new_u.append(base / j)
-            term_w = _combine(cs, mw, D) / j
-            acc_w = acc_w + term_w
-            acc_u = [acc_u[k] + new_u[k] for k in range(Kp)]
-            term_u = new_u
-        live = (n_pass > p)[:, None]
-        us = [torch.where(live, acc_u[k], us[k]) for k in range(Kp)]
-        w = torch.where(live, acc_w, w)
-    return us
+def _pair_coef(i: int, l: int, like):
+    """i! l! / (i + l + 1)! in like's type: the denominator (i + l + 1)
+    C(i + l, i), exact as a float, rounded once, then one division (the
+    kernel's pair_coefs)."""
+    den = like.new_tensor(float((i + l + 1) * math.comb(i + l, i)))
+    return like.new_ones(()) / den
 
 
 def _row(cs, scale, n_pass, x, a, mt, ms, m: int):
-    """One reverse row from the scaled rows cs (B, K'): (x_n, a_n, cbar
-    (B, K')), cbar_k = <a, u_k> per lane."""
-    x_n = _taylor_chain(x, -cs, mt, n_pass, m)
-    a_n = _taylor_chain(a, cs, ms, n_pass, m)
-    us = _frechet_chains(x_n, cs, scale, mt, n_pass, m)
-    cb = torch.stack([(a * u).sum(-1) for u in us], dim=-1)
-    return x_n, a_n, cb
+    """One reverse row from the scaled rows cs (B, K') by the pairing
+    route (the module note, ``csrc/adjoint_row.cuh``): stage p runs the x
+    chain's pass p and, from p = 1, the a chain's pass p - 1, pairing
+    them at every term step s: the x side W_k T^x_{s-1} with g = (-1)^(s-1)
+    sum_i c(i, s-1) alpha_i, the a side W_k^T alpha_{s-1} with g = sum_l
+    c(s-1, l) (-1)^l T^x_l, over the first H terms of each pass. Returns
+    (x_n, a_n, cbar (B, K'))."""
+    B, D = x.shape
+    Kp = cs.shape[1]
+    H = (m - 1) // 2 + 1
+    cb = x.new_zeros((B, Kp))
+    acc_x, acc_a = x, a
+    for p in range(int(n_pass.max()) + 1):
+        a_on = p >= 1
+        pair = (n_pass >= p)[:, None] & a_on
+        sum_x, sum_a = acc_x, acc_a
+        tx, ta = acc_x, acc_a
+        hx, ha = [tx], [ta]
+        for s in range(1, m + 1):
+            yx = tx @ mt
+            ya = ta @ ms if a_on else None
+            if a_on:
+                sides = []
+                top = min(s - 2, m - s)
+                if top >= 0:  # the x side
+                    g = None
+                    for i in range(top + 1):
+                        t = _pair_coef(i, s - 1, x) * ha[i]
+                        g = t if g is None else g + t
+                    sides.append((-g if (s - 1) % 2 else g, yx))
+                g = None
+                for l in range(min(s - 1, m - s) + 1):  # the a side
+                    coef = _pair_coef(s - 1, l, x)
+                    t = (-coef if l % 2 else coef) * hx[l]
+                    g = t if g is None else g + t
+                sides.append((g, ya))
+                for g, y in sides:
+                    dots = (g[:, None, :] * y.view(B, Kp, D)).sum(-1)
+                    cb = torch.where(pair, cb + dots, cb)
+            tx = _combine(-cs, yx, D) / s
+            sum_x = sum_x + tx
+            if a_on:
+                ta = _combine(cs, ya, D) / s
+                sum_a = sum_a + ta
+            if s < H:
+                hx.append(tx)
+                ha.append(ta)
+        acc_x = torch.where((n_pass > p)[:, None], sum_x, acc_x)
+        if a_on:
+            acc_a = torch.where((n_pass > p - 1)[:, None], sum_a, acc_a)
+    return acc_x, acc_a, cb * scale[:, None]
 
 
 def _scaled(c, norms, theta: float, max_squarings: int):
@@ -244,7 +260,111 @@ def _kernel_lib() -> ctypes.CDLL:
                        cd, ci, vp]
     lib.vec_ode_adjoint_blocks.restype = ci
     lib.vec_ode_adjoint_blocks.argtypes = [ci, ci, ci, ci]
+    lib.vec_ode_adjoint_row_plan.restype = ci
+    lib.vec_ode_adjoint_row_plan.argtypes = [
+        ci, ci, ci, ci, ci, ctypes.POINTER(ctypes.c_longlong)]
     return lib
+
+
+# K6's plans and limits (csrc/adjoint_row.cuh: ROW_*): tiled, or a
+# thread-block cluster a tile below the card's SM count of tiled blocks
+ROW_MAX_LANES, ROW_CLUSTER_MAX, ROW_CLUSTER_LANES = 32, 4, 8
+ROW_CLUSTER_RM, ROW_CLUSTER_CN = 1, 2
+ROW_STAGE_BYTES = 16384
+ROW_RM = {4: 4, 8: 2}
+ROW_PLAN_KEYS = ("cluster", "n", "lanes", "dc", "threads", "smem",
+                 "resident")
+
+
+def row_hist(m: int) -> int:
+    """The terms of each chain a pass of K6 keeps for the pairing."""
+    return (m - 1) // 2 + 1
+
+
+def pair_jc(width: int, elem: int) -> int:
+    """Contraction rows of a stage of K6's streamed ring (csrc/
+    adjoint_row.cuh: pair_jc): a multiple of 4 up to 32 whose two panels
+    fill ROW_STAGE_BYTES, at least 4."""
+    jc = ROW_STAGE_BYTES // (2 * gemm_dp(width) * elem) // 4 * 4
+    return min(32, max(4, jc))
+
+
+def row_smem_bytes(lanes: int, D: int, width: int, Kp: int, elem: int,
+                   m: int) -> int:
+    """K6's shared memory (csrc/adjoint_row.cuh: RowLayout): two term
+    buffers (D, 2L), the first H terms of each chain at the block's
+    columns, the ring of both operands (resident or GEMM_STAGES stages),
+    the scaled rows and the block's cbar (L, K'), the pairing coefficients
+    (m, m), 2^-s and the pass counts (L)."""
+    dp, r2 = gemm_dp(width), 2 * lanes
+    ring = (2 * Kp * D * dp * elem if ring_resident(D, Kp, width, elem)
+            else GEMM_STAGES * 2 * pair_jc(width, elem) * dp * elem)
+    return (_align16(2 * D * r2 * elem)
+            + _align16(row_hist(m) * r2 * dp * elem) + _align16(ring) + 2 * _align16(lanes * Kp * elem)
+            + _align16(m * m * elem) + _align16(lanes * elem)
+            + _align16(lanes * 4))
+
+
+def row_plan(B: int, D: int, Kp: int, elem: int, m: int, n_sm: int = 132,
+             max_smem: int = 232448) -> dict:
+    """K6's launch plan (csrc/adjoint.cu: row_plan) on a card of ``n_sm``
+    SMs with ``max_smem`` bytes of shared memory a block (an H100's by
+    default): the tiled route (lanes a block the largest power of two up
+    to ROW_MAX_LANES whose threads and shared memory fit, halved while the
+    batch gives fewer blocks than SMs, down to RM) unless it gives fewer
+    blocks than SMs, then the cluster route (dc = ceil(D / ROW_CLUSTER_MAX)
+    columns a block, rounded up to ROW_CLUSTER_CN, n = ceil(D / dc) >= 2
+    blocks a tile, lanes the largest power of two up to ROW_CLUSTER_LANES
+    that fits, halved while the clusters' blocks are fewer than SMs).
+    Returns {route, cluster, n, lanes, dc, rm, cn, threads, blocks, smem,
+    resident}, or None where the shape does not fit."""
+    rm, ncg = ROW_RM[elem], gemm_dp(D) // GEMM_CN
+    lanes = ROW_MAX_LANES
+    while lanes > rm and ((2 * lanes // rm) * ncg > GEMM_THREADS
+                          or row_smem_bytes(lanes, D, D, Kp, elem, m)
+                          > max_smem):
+        lanes //= 2
+    while lanes > rm and -(-B // lanes) < n_sm:
+        lanes //= 2
+    dc = -(-(-(-D // ROW_CLUSTER_MAX)) // ROW_CLUSTER_CN) * ROW_CLUSTER_CN
+    n = -(-D // dc)
+    if -(-B // lanes) >= n_sm or n < 2:
+        cn, n, dc, cluster = GEMM_CN, 1, D, False
+        items = (2 * lanes // rm) * ncg
+    else:
+        rm, cn, cluster = ROW_CLUSTER_RM, ROW_CLUSTER_CN, True
+        ncl = -(-dc // cn)
+        lanes = ROW_CLUSTER_LANES
+        while lanes > 1 and (2 * lanes * ncl > GEMM_THREADS
+                             or row_smem_bytes(lanes, D, dc, Kp, elem, m)
+                             > max_smem):
+            lanes //= 2
+        while lanes > 1 and -(-B // lanes) * n < n_sm:
+            lanes //= 2
+        items = 2 * lanes * ncl
+    threads = -(-items // 32) * 32
+    smem = row_smem_bytes(lanes, D, dc, Kp, elem, m)
+    if threads > GEMM_THREADS or smem > max_smem:
+        return None
+    return dict(route="cluster" if cluster else "tiled", cluster=int(cluster),
+                n=n, lanes=lanes, dc=dc, rm=rm, cn=cn, threads=threads,
+                blocks=-(-B // lanes) * n, smem=smem,
+                resident=int(ring_resident(D, Kp, dc, elem)))
+
+
+_row_plan_cached = functools.lru_cache(maxsize=256)(row_plan)
+
+
+def kernel_row_plan(B: int, D: int, Kp: int, m: int, dtype) -> dict:
+    """The plan K6 launches with on the current card
+    (``vec_ode_adjoint_row_plan``), keyed as ROW_PLAN_KEYS."""
+    out = (ctypes.c_longlong * len(ROW_PLAN_KEYS))()
+    rc = _kernel_lib().vec_ode_adjoint_row_plan(
+        B, D, Kp, m, 4 if dtype == torch.float32 else 8, out)
+    if rc != 0:
+        raise RuntimeError(f"adjoint_bwd: the plan query failed with CUDA "
+                           f"error {rc}")
+    return dict(zip(ROW_PLAN_KEYS, (int(v) for v in out)))
 
 
 # K7's plans and limits (csrc/adjoint.cu: SWEEP_*): both exponents in
@@ -381,8 +501,10 @@ def bwd_plan(B: int, D: int, Kp: int, elem: int, n_sm: int = 132,
     return None
 
 
-def _check(kernel: str, x, mats: dict, norms, rows, n_rows: int) -> int:
-    """Raise on what the adjoint kernels do not take; returns K'."""
+def _check(kernel: str, x, mats: dict, norms, rows, n_rows: int,
+           max_kp: int = MAX_KP) -> int:
+    """Raise on what the adjoint kernels do not take (K' up to ``max_kp``);
+    returns K'."""
     if x.device.type != "cuda":
         raise ValueError(f"{kernel}: unsupported device {x.device}")
     if x.dtype not in (torch.float32, torch.float64):
@@ -393,12 +515,13 @@ def _check(kernel: str, x, mats: dict, norms, rows, n_rows: int) -> int:
                          f"{tuple(x.shape)}")
     D = x.shape[1]
     Kp = rows.shape[-1]
-    if not 1 <= D <= MAX_WIDTH or not 1 <= Kp <= MAX_KP:
+    if not 1 <= D <= MAX_WIDTH or not 1 <= Kp <= max_kp:
+        more = ("" if max_kp != MAX_KP else
+                f" (K' > {MAX_KP}, an operator of four or more terms at "
+                "order 4, is ROADMAP queue 2's 'K7 / K8, K' > 6')")
         raise ValueError(
             f"{kernel}: the kernel takes a state width D <= {MAX_WIDTH} and "
-            f"1 to {MAX_KP} basis terms, got D = {D}, K' = {Kp} (K' > "
-            f"{MAX_KP}, an operator of four or more terms at order 4, is "
-            "ROADMAP queue 2's 'K6, K' > 6')")
+            f"1 to {max_kp} basis terms, got D = {D}, K' = {Kp}{more}")
     if rows.shape != (n_rows, Kp):
         raise ValueError(f"{kernel}: the rows must be ({n_rows}, {Kp}), got "
                          f"{tuple(rows.shape)}")
@@ -440,15 +563,18 @@ def adjoint_bwd(c, x_next, a_next, mt, ms, norms, *, m: int, theta: float,
     (B, D); ``mt`` / ``ms`` from ``expmv.stacked_transpose`` /
     ``stacked_basis`` of the working basis, ``norms`` its K' 1-norms
     (floats). Returns (x_n, a_n, cbar (B, K')). CUDA tensors go to the
-    kernel (float32 or float64, D <= 512, K' <= 6); CPU tensors run
-    :func:`torch_adjoint_row`."""
+    kernel (float32 or float64, D <= 512, K' <= 36; its plan:
+    :func:`row_plan`); CPU tensors run :func:`torch_adjoint_row`."""
     if _on_cpu(c, x_next, a_next, mt, ms):
         return torch_adjoint_row(c, x_next, a_next, mt, ms, norms, m=m,
                                  theta=theta, max_squarings=max_squarings)
     B = x_next.shape[0] if x_next.ndim == 2 else 0
     Kp = _check("adjoint_bwd", x_next, {"x": x_next, "a": a_next, "mt": mt,
-                                        "ms": ms}, norms, c, B)
+                                        "ms": ms}, norms, c, B, ROW_MAX_KP)
     D = x_next.shape[1]
+    if _row_plan_cached(B, D, Kp, x_next.element_size(), m) is None:
+        raise ValueError(f"adjoint_bwd: no launch shape fits D = {D}, K' = "
+                         f"{Kp} at Taylor degree m = {m}")
     fn = getattr(_kernel_lib(), "vec_ode_adjoint_bwd_"
                  + ("f32" if x_next.dtype == torch.float32 else "f64"))
     x_n, a_n = torch.empty_like(x_next), torch.empty_like(a_next)
