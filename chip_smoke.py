@@ -68,7 +68,10 @@ drives the port's paths once at full width through
 * K4's two launch routes: its cluster route at the JAX record's 256 on
   every recipe in f32 and f64 against its twin, two launches equal bit
   for bit, and the same rows on the tiled route at 16 384 with the same
-  bits ([cluster]).
+  bits ([cluster]);
+* the RK stage body that K1 and K2's RK step share: each launch plan
+  against its Python mirror, and one K2 iteration against one K1 launch
+  on the same rows, t and h, bit for bit, in f32 and f64 ([rk-body]).
 
 Then it times the paths and each kernel against its plain version, its
 bound and, for K4 (at 256 on its cluster route and 16 384 on its tiled
@@ -77,7 +80,9 @@ masked share of passes), K6-K8 (at 256 and 4096; K6 with its launch
 plan and ptxas line, K7 and K8 with their launch shapes and ptxas lines,
 and the value-and-grad wall with K7's and K8's shares of it) and K9 (at
 4096 and 256, with its launch plan and its bound by the least work,
-k9_flop_bytes), a library yardstick. Every
+k9_flop_bytes), a library yardstick; K1 and K2's RK step with their
+launch plans and ptxas lines, K1 beside its six stage products alone
+(``torch.matmul``, TF32 off, timed in turns). Every
 phase raises on failure, so
 any failure exits non-zero; without a CUDA card it exits non-zero before
 any result.
@@ -190,7 +195,9 @@ def device_phase() -> str:
 
 def ptxas_summary(name: str) -> str:
     """Registers and spill stores of each instantiation (f32, f64; the RK or
-    chain step; K4's and K6's tiled or cluster route with its rows and
+    chain step; K1's rows a thread and stages in registers (KS, 0: in
+    shared memory) and, for K1 and K2's RK step, the stack frame; K4's and
+    K6's tiled or cluster route with its rows and
     columns a thread, K6's stack frame (its partial cbar); K7's and K8's
     rows a thread; the loop kernel with its events / dense switch on; K9
     on one block or a cluster) of the kernel, from ptxas's report in its
@@ -204,7 +211,9 @@ def ptxas_summary(name: str) -> str:
                       r"'\S*?([a-z_]+?)_kernelI([fd])(\S*)'", line)
         if m:
             inst, spill = {"f": "f32", "d": "f64"}[m.group(2)], "?"
-            frame, stack = "?", m.group(1) == "adjoint_row"
+            frame = "?"
+            stack = (m.group(1) in ("adjoint_row", "fused_rk_step")
+                     or "RKLoopStep" in m.group(3))
             if name == "adjoint":  # three kernels
                 inst = f"{m.group(1)} {inst}"
             route = re.match(r"Li(\d+)ELi(\d+)ELb([01])E", m.group(3))
@@ -216,6 +225,8 @@ def ptxas_summary(name: str) -> str:
             elif name == "adjoint" and rm:  # K7's, K8's rows a thread
                 inst += f" RM={rm.group(1)}" + (
                     " wide" if rm.group(2) == "1024" else "")
+            elif name == "fused_rk_step" and rm:  # K1: RM, stages in registers
+                inst += f" RM={rm.group(1)} KS={rm.group(2)}"
             elif "RKLoopStep" in m.group(3):
                 inst += " rk"
             elif "ChainLoopStep" in m.group(3):
@@ -503,6 +514,58 @@ def loop_kernel_phase() -> float:
     return check_loop_pair("loop_path", LOOP_TRAJ, DIM, torch.float32)
 
 
+def one_loop_step(st, t, dt, xw, tab=RKF45):
+    """One K2 iteration on the rows (t, dt, xw): the grid cursor past t0
+    (so that the first iteration steps), h = dt, a far end (dt = h) and a
+    loose rtol, so that every row takes and accepts one step of dt.
+    Returns (x, the error measure) after it."""
+    B = xw.shape[0]
+    grid = torch.tensor([0.0, 1e6], dtype=xw.dtype, device=xw.device)
+    fs = torch.stack([t, dt, dt, torch.zeros_like(t), torch.zeros_like(t)],
+                     dim=1)
+    ist = torch.zeros(B, 8, dtype=torch.int32, device=xw.device)
+    ist[:, 0] = 1
+    saves = torch.zeros(0, B, xw.shape[1], dtype=xw.dtype, device=xw.device)
+    step = RKStep(M0=st.M0, M1=st.M1, w=st.w, tableau=tab)
+    fs, ist, x, _ = fused_loop_chunk(grid, fs, ist, xw, saves, step,
+                                     ctl=StepControl(rtol=1.0), chunk=1)
+    assert bool((ist[:, 3] == 1).all()), "a row did not accept its step"
+    return x, fs[:, 3]
+
+
+def rk_body_phase() -> None:
+    """[rk-body] K1 and K2's RK step run one stage body: their launch plans
+    equal their mirrors, and one K2 iteration gives one K1 launch's state
+    and error measure bit for bit on the same rows, t and h, at the main
+    path's batch and at a ragged one with an odd width, in f32 and f64,
+    RKF45 and DOPRI5 (the stages in registers and in shared memory)."""
+    for dtype in (torch.float32, torch.float64):
+        elem = 4 if dtype == torch.float32 else 8
+        for B, d, tab in ((N_TRAJ, DIM, RKF45), (LOOP_TRAJ, DIM, DOPRI5),
+                          (1000, 5, RKF45), (33, 3, DOPRI5)):
+            st, t, dt, xw = step_inputs(B, d, dtype)
+            s = tab.stages
+            p1 = fused_rk.rk_plan(B, 2 * d, s, elem)
+            assert fused_rk.kernel_rk_plan(B, 2 * d, s, dtype) == p1, p1
+            for extra in (False, True):
+                p2 = fused_loop.rk_loop_plan(B, 2 * d, s, elem, extra)
+                assert fused_loop.kernel_rk_loop_plan(
+                    B, 2 * d, s, dtype, extra) == p2, (p2, extra)
+            xk, ek = fused_rk_step(t, dt, xw, st.M0, st.M1, w=st.w, tab=tab)
+            xl, el = one_loop_step(st, t, dt, xw, tab)
+            same = torch.equal(xk, xl) and torch.equal(ek, el)
+            print(f"[rk-body] {tab.name} {str(dtype)[6:]} B={B} d={d}: "
+                  f"K1 plan {p1['tile']} rows, {p1['rm']} x 4, ks "
+                  f"{p1['ks']}, {'resident' if p1['resident'] else 'ring'};"
+                  f" K2 plan {p2['tile']} rows, {p2['rm']} x 4, ks "
+                  f"{p2['ks']}, {'resident' if p2['resident'] else 'ring'}"
+                  f" (mirrors = kernels); one K2 iteration = one K1 launch "
+                  f"bit for bit (state and error): {same}", flush=True)
+            if not same:
+                raise AssertionError(f"K2's RK step differs from K1: {tab.name}"
+                                     f" {dtype} B={B} d={d}")
+
+
 def main_inputs(n: int = N_TRAJ):
     model = DrivenDense.make(d=DIM, seed=0)
     rng = np.random.default_rng(42)
@@ -707,14 +770,68 @@ def timing_phase(card: str):
     k_ms, p_ms = statistics.median(k_runs), statistics.median(p_runs)
     flop, nbytes = k1_flop_bytes(N_TRAJ, 2 * DIM, RKF45.stages, 4)
     b_ms, b_by = bound(flop, nbytes)
+    y_ms, y_runs = products_alone(xw, sk, RKF45.stages)
     print(f"[time] K1 one RKF45 step at B={N_TRAJ}, d={DIM}, f32: kernel "
           f"{k_ms:.4f} ms ({flop / k_ms / 1e9:.2f} TFLOP/s), plain torch "
           f"{p_ms:.4f} ms ({flop / p_ms / 1e9:.2f} TFLOP/s); runs "
           f"kernel {[round(v, 4) for v in k_runs]}, plain "
           f"{[round(v, 4) for v in p_runs]}; bound {b_ms:.4f} ms by {b_by} "
           f"({flop / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB), kernel at "
-          f"{b_ms / k_ms:.1%} of it ({card})", flush=True)
+          f"{b_ms / k_ms:.1%} of it; products alone ({RKF45.stages} x "
+          f"torch.matmul ({N_TRAJ}, {2 * DIM}) @ ({2 * DIM}, {4 * DIM}), "
+          f"TF32 off) {y_ms:.4f} ms ({flop / y_ms / 1e9:.2f} TFLOP/s, runs "
+          f"{[round(v, 4) for v in y_runs]}); "
+          f"{k1_plan_text(N_TRAJ, 2 * DIM, RKF45.stages)} ({card})",
+          flush=True)
     return k_ms, p_ms, b_ms, b_by
+
+
+def products_alone(xw, st, stages: int, n: int = 3):
+    """The step's stage products alone, a yardstick: ``stages`` calls of
+    torch.matmul of the (B, D) state with [M0^T | M1^T] (D, 2D) in the
+    state's type (TF32 off), timed in turns with K1 (n rounds of 20).
+    Returns (median ms for the stages, runs)."""
+    mt = torch.cat([st.M0.T, st.M1.T], dim=1).contiguous()
+    out = torch.empty(xw.shape[0], mt.shape[1], dtype=xw.dtype,
+                      device=xw.device)
+
+    def run():
+        for _ in range(stages):
+            torch.matmul(xw, mt, out=out)
+
+    run()
+    runs = [timed_ms(run, reps=1, inner=20) for _ in range(n)]
+    return statistics.median(runs), runs
+
+
+def k1_plan_text(B: int, D: int, s: int, dtype=torch.float32) -> str:
+    """K1's launch plan (its mirror, fused_rk.rk_plan, held equal to the
+    kernel's own, kernel_rk_plan) and the ptxas lines of both builds."""
+    plan = fused_rk.rk_plan(B, D, s, 4 if dtype == torch.float32 else 8)
+    got = fused_rk.kernel_rk_plan(B, D, s, dtype)
+    assert got == {k: plan[k] for k in fused_rk.RK_PLAN_KEYS}, (got, plan)
+    return (f"plan (mirror = kernel): {plan['tile']} rows a block, "
+            f"{plan['rm']} x 4 outputs a thread, stages "
+            f"{'in registers' if plan['ks'] else 'in shared memory'}, "
+            f"{plan['threads']} threads, {plan['blocks']} blocks, "
+            f"{plan['smem']} B shared, operator "
+            f"{'resident' if plan['resident'] else 'streamed'}; ptxas "
+            f"{ptxas_of('fused_rk_step', 'RM=')}")
+
+
+def k2_plan_text(B: int, D: int, s: int, dtype=torch.float32) -> str:
+    """The RK step's plan in K2 (its mirror, fused_loop.rk_loop_plan, held
+    equal to the kernel's own) and the ptxas lines of its builds."""
+    plan = fused_loop.rk_loop_plan(B, D, s,
+                                   4 if dtype == torch.float32 else 8)
+    got = fused_loop.kernel_rk_loop_plan(B, D, s, dtype)
+    assert got == plan, (got, plan)
+    return (f"RK step plan (mirror = kernel): {plan['tile']} rows a block, "
+            f"{plan['rm']} x 4 outputs a thread, stages "
+            f"{'in registers' if plan['ks'] else 'in shared memory'}, "
+            f"{plan['threads']} threads, {plan['smem']} B shared, operator "
+            f"{'resident' if plan['resident'] else 'streamed'}; ptxas "
+            f"{ptxas_of('fused_loop', ' rk')}")
 
 
 def k2_bound(ist, B, D, stages, n_grid, nbytes):
@@ -758,8 +875,9 @@ def loop_timing_phase(card: str):
           f"{[round(v, 4) for v in k_runs]}), plain twin {p_ms:.4f} ms "
           f"(runs {[round(v, 4) for v in p_runs]}); bound {b_ms:.4f} ms by "
           f"{b_by} ({steps} steps), kernel at {b_ms / k_ms:.1%} of it; loop "
-          f"path {loop_ms:.3f} ms vs per-step path {step_ms:.3f} ms "
-          f"({card})", flush=True)
+          f"path {loop_ms:.3f} ms vs per-step path {step_ms:.3f} ms; "
+          f"{k2_plan_text(LOOP_TRAJ, 2 * DIM, RKF45.stages)} ({card})",
+          flush=True)
 
     # the loop kernel below the 2048 gate, at the main path's 16 384
     st, y0 = main_inputs()
@@ -791,7 +909,9 @@ def loop_timing_phase(card: str):
           f"{accepted} accepted steps, {accepted / (big_ms / 1e3):.4e} "
           f"accepted steps/s, peak memory {peak / 2**20:.1f} MiB; bound "
           f"{bb_ms:.4f} ms by {bb_by} ({bsteps} steps), kernel at "
-          f"{bb_ms / big_ms:.1%} of it ({card})", flush=True)
+          f"{bb_ms / big_ms:.1%} of it; "
+          f"{k2_plan_text(N_TRAJ, 2 * DIM, RKF45.stages)} ({card})",
+          flush=True)
     return k_ms, p_ms, b_ms, b_by
 
 
@@ -3997,6 +4117,7 @@ def main() -> None:
     k1_err = step_phase()
     norm_phase()
     k2_err = loop_kernel_phase()
+    rk_body_phase()
     k4_err = chain_step_phase()
     cluster_err = cluster_phase()
     k5_err = chain_loop_kernel_phase()

@@ -35,6 +35,8 @@ from vec_ode_tpu_torch.models import DrivenDense, PulseControl
 from vec_ode_tpu_torch.exp.modulated import _taylor_params
 from vec_ode_tpu_torch.ops import adjoint as tadj
 from vec_ode_tpu_torch.ops import expmv
+from vec_ode_tpu_torch.ops import fused_loop as floop
+from vec_ode_tpu_torch.ops import fused_rk as frk
 from vec_ode_tpu_torch.ops.expmv import fused_chain_apply
 from vec_ode_tpu_torch.ops.cplx import Cplx, from_complex
 from vec_ode_tpu_torch.ops import dense_chains as dc
@@ -295,6 +297,97 @@ def test_loop_wrapper_refuses_what_the_kernel_does_not_take(card):
     with pytest.raises(TypeError):
         fused_loop_chunk(t_grid.double(), fs.double(), ist, x.double(),
                          saves, step, ctl=ctl)
+
+
+# -- the RK stage body that K1 and the loop kernel's RK step (K3) share --
+
+def _card_limits():
+    """(SM count, opt-in shared memory a block) of the current card."""
+    props = torch.cuda.get_device_properties(0)
+    return (props.multi_processor_count,
+            getattr(props, "shared_memory_per_block_optin", 232448))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("s", [3, 4, 6, 7])
+@pytest.mark.parametrize("B,D", [(1, 2), (33, 6), (257, 10), (1000, 128),
+                                 (2048, 128), (16384, 128), (300, 256),
+                                 (64, 512)])
+def test_rk_plans_match_their_mirrors(card, B, D, s, dtype):
+    """K1's plan (ops/fused_rk.py:rk_plan) and the loop kernel's RK step
+    plan (ops/fused_loop.py:rk_loop_plan, with and without the events /
+    dense switch), read back from the kernels on this card."""
+    n_sm, max_smem = _card_limits()
+    elem = 4 if dtype == torch.float32 else 8
+    assert frk.kernel_rk_plan(B, D, s, dtype) == frk.rk_plan(
+        B, D, s, elem, n_sm, max_smem)
+    for extra in (False, True):
+        assert floop.kernel_rk_loop_plan(B, D, s, dtype, extra) == \
+            floop.rk_loop_plan(B, D, s, elem, extra, n_sm, max_smem)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("tab", ["rkf45", "dopri5", "bosh32"])
+@pytest.mark.parametrize("B,d", [(31, 3), (1000, 5), (4097, 3), (16385, 64),
+                                 (130, 6)])
+def test_kernel_matches_plain_step_at_ragged_tiles_and_odd_widths(
+        card, B, d, tab, dtype):
+    """Ragged last tiles (and on the persistent route tiles past the
+    grid) and widths whose last column group is partly padding."""
+    st, t, dt, xw = _inputs(B, d, dtype, card)
+    tab = ttab.TABLEAUS[tab]
+    kx, ke = fused_rk_step(t, dt, xw, st.M0, st.M1, w=st.w, tab=tab)
+    px, pe = torch_rk_step(t, dt, xw, st.M0, st.M1,
+                           u_fn=lambda ti: torch.cos(st.w * ti), tab=tab)
+    e_lim, _ = err_norm_limit(st, t, dt, xw, pe, tab)
+    torch.cuda.synchronize()
+    x_tol = (1e-5 * max(float(px.abs().max()), 1.0)
+             if dtype == torch.float32 else 1e-12)
+    np.testing.assert_allclose(kx.cpu().numpy(), px.cpu().numpy(),
+                               rtol=0, atol=x_tol)
+    excess = (ke - pe).abs() - e_lim
+    assert bool((excess <= 0).all()), float(excess.max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,d,tab", [(1000, 64, "rkf45"), (257, 5, "dopri5"),
+                                     (16384, 64, "rkf45")])
+def test_kernel_keeps_a_nan_row_in_its_row(card, B, d, tab, dtype):
+    """A NaN entry makes its row's state and error NaN (the controller
+    rejects it) and leaves every other row's bits as they were."""
+    st, t, dt, xw = _inputs(B, d, dtype, card)
+    tab = ttab.TABLEAUS[tab]
+    bad = xw.clone()
+    bad[7, 3] = float("nan")
+    cx, ce = fused_rk_step(t, dt, xw, st.M0, st.M1, w=st.w, tab=tab)
+    kx, ke = fused_rk_step(t, dt, bad, st.M0, st.M1, w=st.w, tab=tab)
+    assert bool(torch.isnan(kx[7]).all()) and bool(torch.isnan(ke[7]))
+    keep = torch.arange(B, device=card) != 7
+    assert torch.equal(kx[keep], cx[keep]) and torch.equal(ke[keep], ce[keep])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("tab", ["rkf45", "dopri5", "bosh32", "cash_karp"])
+@pytest.mark.parametrize("B,d", [(16384, 64), (2048, 64), (1000, 5),
+                                 (33, 3), (64, 256)])
+def test_one_loop_iteration_gives_the_step_kernels_bits(card, B, d, tab,
+                                                        dtype):
+    """K1 and the loop kernel's RK step run one stage body on different
+    launch plans: one loop iteration (``fused_loop_chunk(chunk=1)``) on the
+    same rows, t and h gives K1's state and error measure bit for bit."""
+    st, t, dt, xw = _inputs(B, d, dtype, card)
+    tab = ttab.TABLEAUS[tab]
+    kx, ke = fused_rk_step(t, dt, xw, st.M0, st.M1, w=st.w, tab=tab)
+    lx, le = chip_smoke.one_loop_step(st, t, dt, xw, tab)
+    assert torch.equal(kx, lx)
+    assert torch.equal(ke, le)
+
+
+def test_rk_kernels_are_deterministic(card):
+    st, t, dt, xw = _inputs(16384, 64, torch.float32, card)
+    a = fused_rk_step(t, dt, xw, st.M0, st.M1, w=st.w)
+    b = fused_rk_step(t, dt, xw, st.M0, st.M1, w=st.w)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
 
 
 # -- the modulated exponential path: K4 and the loop kernel's chain step --

@@ -76,6 +76,7 @@ def test_sources_name_no_jax_import():
     sources += [ROOT / "chip_smoke.py", ROOT / "tools" / "profile_solve.py",
                 ROOT / "tools" / "compare_parent.py",
                 ROOT / "tools" / "k9_breakdown.py",
-                ROOT / "tools" / "k6_breakdown.py"]
+                ROOT / "tools" / "k6_breakdown.py",
+                ROOT / "tools" / "rk_breakdown.py"]
     for path in sources:
         assert not pattern.search(path.read_text()), path

@@ -1,22 +1,35 @@
-"""This checkout's chain, dense chain and reverse-row kernels (K4, K2 + K5,
-K9, K6) against another checkout's, on one CUDA card, in turns, on
-chip_smoke.py's inputs.
+"""This checkout's RK step, loop, chain, dense chain and reverse-row
+kernels (K1, K2 + K3, K4, K2 + K5, K9, K6) against another checkout's, on
+one CUDA card, in turns, on chip_smoke.py's inputs.
 
     python -m tools.compare_parent PARENT_DIR [--only REGEX]
 
 Run from the repository root on a machine with one CUDA card and nvcc.
 PARENT_DIR holds another checkout of the repository whose
-``vec_ode_tpu_torch/csrc/chain_expmv.cu`` (K4), ``fused_loop.cu`` (K2
-with its chain step K5), ``dense_chains.cu`` (K9) and ``adjoint.cu`` (K6,
-K7, K8) keep the same C entry points, for example one unpacked by ``git
-archive <commit> | tar -x -C build/parent``. Its four libraries are
-built with this checkout's nvcc flags into ``build/parent_kernels/``;
-this checkout's are built as usual. Then each case runs on both, in
-turns (parent, this, this, parent; each run the median of CUDA-event
-times), through this checkout's wrappers, and prints, beside the card's
-name and power limit, both times and whether the two gave the same bits,
-or, for K6, whose route changes the rounding, whether they agree within
-the f32 tolerance:
+``vec_ode_tpu_torch/csrc/fused_rk_step.cu`` (K1), ``chain_expmv.cu`` (K4),
+``fused_loop.cu`` (K2 with its RK step K3 and chain step K5),
+``dense_chains.cu`` (K9) and ``adjoint.cu`` (K6, K7, K8) keep the same C
+entry points, for example one unpacked by ``git archive <commit> | tar -x
+-C build/parent``. Its five libraries are built with this checkout's nvcc
+flags into ``build/parent_kernels/``; this checkout's are built as usual.
+Then each case runs on both, in turns (parent, this, this, parent; each
+run the median of CUDA-event times), through this checkout's wrappers,
+and prints, beside the card's name and power limit, both times and
+whether the two gave the same bits, or, for K6 and the RK step, whose
+redesigns change the rounding, whether they agree within the tolerance:
+
+* K1 per launch: one RKF45 step at 16 384 x 64c in f32 and f64 on
+  chip_smoke's step inputs; the largest state deviation and, per row,
+  the error measures within ``chip_smoke.err_norm_limit`` of the
+  parent's (f32: 1e-4 of each norm plus four times the plain f32 step's
+  own distance from the f64 step, the rounding level of these inputs;
+  f64: 1e-9 of each norm), the states within 1e-5 of their largest entry
+  in f32 (bench.py's kernel-vs-XLA limit) and 1e-12 in f64;
+* K2 + K3 per solve, f32: the RK loop at 16 384 x 64c without saves and
+  at the loop path's 2048 with nine saves; the largest state and save
+  deviation and the counters' agreement per trajectory, within
+  chip_smoke's f32 loop check (rtol 1e-8 sits at f32 rounding, so a
+  marginal accept may flip: counters within 2, states within 1e-4);
 
 * K4 per launch, f32: the Magnus-4 pair, Magnus-6 and CFM-4 steps on
   DrivenDense(64) at 256 and 16 384 trajectories, the I/Q drive (K' = 6)
@@ -37,7 +50,7 @@ the f32 tolerance:
   their largest entry).
 
 ``--only`` runs the cases whose label matches REGEX. It exits non-zero if
-any case's bits differ (K6: if any case disagrees).
+any case's bits differ (K6, K1, K2 + K3: if any case disagrees).
 """
 
 from __future__ import annotations
@@ -59,16 +72,18 @@ from vec_ode_tpu_torch import driver
 from vec_ode_tpu_torch.exp import MagnusModulated4
 from vec_ode_tpu_torch.exp import dense_fast
 from vec_ode_tpu_torch.exp import magnus as tmagnus
-from vec_ode_tpu_torch.ops import _build, dense_chains, expmv, fused_loop
+from vec_ode_tpu_torch.ops import (_build, dense_chains, expmv, fused_loop,
+                                   fused_rk)
 from vec_ode_tpu_torch.ops import adjoint as tadj
 from vec_ode_tpu_torch.ops.cplx import Cplx
-from vec_ode_tpu_torch.ops.fused_loop import (ChainStep, fused_loop_chunk,
+from vec_ode_tpu_torch.ops.fused_loop import (ChainStep, RKStep,
+                                              fused_loop_chunk,
                                               fused_loop_integrate,
                                               init_carries)
 from tools.k6_breakdown import load_k6
 
-MODULES = {"chain_expmv": expmv, "fused_loop": fused_loop,
-           "dense_chains": dense_chains}
+MODULES = {"fused_rk_step": fused_rk, "chain_expmv": expmv,
+           "fused_loop": fused_loop, "dense_chains": dense_chains}
 OUT = _build.BUILD_DIR.parent / "parent_kernels"
 
 
@@ -172,12 +187,45 @@ def k6_close(ref, new) -> tuple:
                 f"cbar {d[-1]:.2e} (<= {cb_tol:g})")
 
 
+def k1_close(case):
+    """A check of K1's results against the parent's (the module note)."""
+    st, t, dt, xw = case
+
+    def check(ref, new):
+        (xp, ep), (xn, en) = ref, new
+        lim, _ = cs.err_norm_limit(st, t, dt, xw, ep)
+        x_tol = (1e-5 * max(float(xp.abs().max()), 1.0)
+                 if xw.dtype == torch.float32 else 1e-12)
+        dx = float((xn - xp).abs().max())
+        de = float(((en - ep).abs() / lim).max())
+        ok = dx <= x_tol and de <= 1.0
+        return ok, (f"max|dx| {dx:.3e} (<= {x_tol:.1e}), max|derr|/limit "
+                    f"{de:.3f} (<= 1)")
+    return check
+
+
+def k2_close(ref, new):
+    """K2's final carries against the parent's: counters per trajectory
+    within 2, states and saves within 1e-4 (the module note)."""
+    cols = cs.INT_COLS
+    dcount = (new[1][:, cols] - ref[1][:, cols]).abs().max(dim=1).values
+    dx = float((new[2] - ref[2]).abs().max())
+    ds = (float((new[3] - ref[3]).abs().max()) if ref[3].numel() else 0.0)
+    ok = int(dcount.max()) <= 2 and dx <= 1e-4 and ds <= 1e-4
+    return ok, (f"counters equal on {int((dcount == 0).sum())}/"
+                f"{dcount.shape[0]} trajectories, max|dcount| "
+                f"{int(dcount.max())} (<= 2), max|dx| {dx:.3e}, max|dsaves| "
+                f"{ds:.3e} (<= 1e-4)")
+
+
 def compare(label, fn, parent, card, inner=1, only=None, k6=False,
-            per=1) -> bool:
+            per=1, check=None) -> bool:
     """fn on the parent's libraries and on this checkout's: the results'
-    bits (``k6``: their agreement, k6_close), then the times in turns (parent, this, this, parent), divided by
-    ``per`` (the launches a call makes, where a time per launch is read).
-    A case whose label ``only`` does not match is skipped (True)."""
+    bits (``k6``: their agreement, k6_close; ``check(ref, new)``: its
+    verdict and text), then the times in turns (parent, this, this,
+    parent), divided by ``per`` (the launches a call makes, where a time
+    per launch is read). A case whose label ``only`` does not match is
+    skipped (True)."""
     if only is not None and not re.search(only, label):
         return True
     fn = fn()
@@ -195,6 +243,9 @@ def compare(label, fn, parent, card, inner=1, only=None, k6=False,
     if k6:
         ok, text = k6_close(ref, new)
         text = f"within the f32 tolerance: {ok}, {text}"
+    elif check is not None:
+        ok, text = check(ref, new)
+        text = f"within the tolerance: {ok}, {text}"
     else:
         ok = same_bits(ref, new)
         text = f"the same bits: {ok}"
@@ -253,6 +304,18 @@ def loop_case(st, y0, **extra):
                                         **extra)
 
 
+def rk_loop_case(B, save_at):
+    """The RK loop (RKF45, rtol 1e-8) on the main path's states, one
+    persistent launch."""
+    st, y0 = cs.main_inputs(B)
+    grid = driver.make_grid(0.0, cs.TF, save_at, dtype=torch.float32,
+                            device="cuda")
+    step = RKStep(M0=st.M0, M1=st.M1, w=st.w)
+    carries = init_carries(grid, torch.cat([y0.re, y0.im], 1), cs.H0)
+    return lambda: fused_loop_chunk(*carries[:4], carries[4].clone(), step,
+                                    ctl=cs.CTL)
+
+
 def adaptive_times():
     """The recorded times of the adaptive Magnus-4 adjoint's forward at
     256x64c f32 (K4 per iteration), whose rows K6 replays."""
@@ -306,6 +369,21 @@ def main() -> None:
     print(f"[parent] built {sorted(parent)} from {args.parent} and this "
           f"checkout's in {time.perf_counter() - t0:.1f} s", flush=True)
     ok, only = [], args.only
+    for dtype in (torch.float32, torch.float64):
+        case = cs.step_inputs(cs.N_TRAJ, cs.DIM, dtype)
+        st, t, dt, xw = case
+        ok.append(compare(
+            f"K1 one RKF45 step {cs.N_TRAJ}x{cs.DIM}c {str(dtype)[6:]}",
+            lambda st=st, t=t, dt=dt, xw=xw: (
+                lambda: fused_rk.fused_rk_step(t, dt, xw, st.M0, st.M1,
+                                               w=st.w)),
+            parent, card, inner=20, only=only, check=k1_close(case)))
+    for B, save_at in ((cs.N_TRAJ, None), (cs.LOOP_TRAJ, cs.SAVE_AT)):
+        ok.append(compare(
+            f"K2 + K3 RK loop {B}x{cs.DIM}c f32, "
+            f"{len(save_at) if save_at else 'no'} saves",
+            lambda B=B, save_at=save_at: rk_loop_case(B, save_at), parent,
+            card, only=only, check=k2_close))
     for kind in ("magnus4", "magnus6", "cfm4"):
         st, _ = cs.r_inputs(kind)
         for B in (cs.REC_B, cs.N_TRAJ):
@@ -372,7 +450,7 @@ def main() -> None:
                           lambda B=B: k6_case(B, ts), parent, card,
                           only=only, k6=True, per=ts.shape[0]))
     print(f"[parent] {sum(ok)}/{len(ok)} cases with the parent's bits "
-          f"(K6: within the f32 tolerance), "
+          f"(K6, K1, K2 + K3: within the tolerance), "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     print(card, flush=True)
     if not all(ok):

@@ -336,7 +336,7 @@ adjoint_sweep_gemm_kernel(const T* __restrict__ c_all, int R, const T* __restric
   auto put_term = [&]() {  // acc's new term yv, row-major
     if (!owner) return;
 #pragma unroll
-    for (int q = 0; q < RM; ++q) sts_vec4(term + (size_t)(lr0 + q) * TS + col0, yv[q]);
+    for (int q = 0; q < RM; ++q) sts_vec(term + (size_t)(lr0 + q) * TS + col0, yv[q]);
   };
 
   T cs[ADJ_MAX_KP];
@@ -377,7 +377,7 @@ adjoint_sweep_gemm_kernel(const T* __restrict__ c_all, int R, const T* __restric
           if (active && kg > 0) {
 #pragma unroll
             for (int q = 0; q < RM; ++q)
-              sts_vec4(red + ((size_t)(kg - 1) * tile + lr0 + q) * TS + col0, yv[q]);
+              sts_vec(red + ((size_t)(kg - 1) * tile + lr0 + q) * TS + col0, yv[q]);
           }
           bar();  // every read of the term is done; the partials are written
           if (owner) {
@@ -748,7 +748,7 @@ adjoint_sweep_bwd_kernel(const T* __restrict__ c_all, int R, const T* __restrict
 #pragma unroll
         for (int i = 0; i < GEMM_CN; ++i) d[acol[i]] = acol[i] < D ? v[q][i] : T(0);
       } else {
-        sts_vec4(d + c0, v[q]);
+        sts_vec(d + c0, v[q]);
       }
     }
   };

@@ -35,7 +35,7 @@
 //      finished row r;
 //   4. the error: chain1 - chain0, or for magnus4_fast
 //      sum_{k >= K0} w2_k (M_k y) on the advanced state; measured as
-//      rk_step.cuh's ErrNorm (scaled_error, weight row, l2 or max, post).
+//      numerics.cuh's ErrNorm (scaled_error, weight row, l2 or max, post).
 // A row whose dt is 0 runs one pass with zero coefficients per exponential
 // and returns x exactly.
 //
@@ -82,7 +82,6 @@
 #include <type_traits>
 
 #include "gemm_tile.cuh"
-#include "rk_step.cuh"
 
 namespace vec_ode {
 
@@ -172,24 +171,6 @@ bool chain_params_ok(const ChainParams<T>& p) {
 template <typename T>
 __host__ __device__ __forceinline__ bool identity_row(const ChainParams<T>& p, int c, int r) {
   return p.recipe == RECIPE_MAGNUS6 && c == 1 && r >= 1;
-}
-
-// The device's opt-in shared memory per block and SM count, read once.
-inline cudaError_t device_limits(int* dev, int* max_smem, int* n_sm) {
-  static int max_smem_of[MAX_DEVICES], n_sm_of[MAX_DEVICES];
-  cudaError_t st = cudaGetDevice(dev);
-  if (st != cudaSuccess) return st;
-  if (*dev < 0 || *dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  if (max_smem_of[*dev] == 0) {
-    st = cudaDeviceGetAttribute(&max_smem_of[*dev], cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                                *dev);
-    if (st != cudaSuccess) return st;
-    st = cudaDeviceGetAttribute(&n_sm_of[*dev], cudaDevAttrMultiProcessorCount, *dev);
-    if (st != cudaSuccess) return st;
-  }
-  *max_smem = max_smem_of[*dev];
-  *n_sm = n_sm_of[*dev];
-  return cudaSuccess;
 }
 
 // Rows per block of the loop kernel's chain step: the largest power of two
@@ -361,39 +342,6 @@ __device__ __forceinline__ int pass_count(T bound, const ChainParams<T>& p) {
     s = s < 0 ? 0 : (s > p.max_sq ? p.max_sq : s);
   }
   return 1 << s;
-}
-
-// The error measure of each row lr < rows from the error vector dv
-// (tile, D) in shared memory: rk_step.cuh's ErrNorm (scaled_error against
-// x and x_out, the weight row, l2 or a NaN-propagating max, post), column
-// group cg of ceil(D / CT) summing columns cg, cg + ncg, ..., then the
-// groups in order, into err_out. One thread per row.
-template <typename T>
-__device__ __forceinline__ void chain_err_measure(const T* dv, const T* x, const T* x_out,
-                                                  T* __restrict__ err_out, int rows, int D,
-                                                  const ErrNorm<T>& en) {
-  const int ncg = (D + CT - 1) / CT;
-  for (int lr = threadIdx.x; lr < rows; lr += blockDim.x) {
-    T a = T(0);
-    for (int cg = 0; cg < ncg; ++cg) {
-      T part = T(0);
-      for (int k = 0; k < CT; ++k) {
-        const int col = cg + k * ncg;
-        if (col >= D) continue;
-        const size_t e = (size_t)lr * D + col;
-        T v = dv[e];
-        if (en.scaled)
-          v = v / add_rn(en.atol, mul_rn(en.rtol, nan_max(fabs(x[e]), fabs(x_out[e]))));
-        if (en.w_row != nullptr) v = v * en.w_row[col];
-        part = en.kind_max ? nan_max(fabs(v), part) : part + v * v;
-      }
-      a = en.kind_max ? nan_max(part, a) : a + part;
-    }
-    T norm = en.kind_max ? a : sqrt_full(a);
-    if (en.scaled) norm = norm * en.rtol;
-    if (en.post != T(1)) norm = norm * en.post;
-    err_out[lr] = norm;
-  }
 }
 
 // The Magnus-4 row [w1, w2] over the node samples ga, gb and the step dts:

@@ -536,7 +536,7 @@ dense_chains_kernel(const T* __restrict__ node_ops, long long stride_b, long lon
 #pragma unroll
               for (int c = 0; c < GEMM_CN; ++c)
                 w[c] = g4 + c < D ? mul_rn(dtb, first ? T(0) : a[u][c]) : T(0);
-              sts_vec4(sm.W + (size_t)i * p.dp + g4, w);
+              sts_vec(sm.W + (size_t)i * p.dp + g4, w);
             }
           }
         }

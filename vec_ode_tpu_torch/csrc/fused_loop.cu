@@ -8,7 +8,8 @@
 // _make_loop_kernel, launched by fused_loop_chunk (pallas_call at :1135),
 // with the step of make_rk_step_builder (:890) or make_chain_step_builder
 // (:680) inside it. The step is a template argument: RKLoopStep runs
-// rk_step.cuh's rk_step_tile, which the per-step kernel K1 runs too;
+// rk_step.cuh's rk_step_tile, which the per-step kernel K1 runs too (the
+// same bits on the same rows, t and dt);
 // ChainLoopStep samples the declared coefficient form at the step's nodes
 // and runs chain_step.cuh's chain_step_tile, which the per-step kernel K4
 // runs too. Per trajectory the kernel runs driver iterations as
@@ -56,8 +57,9 @@
 // of its tile is RUNNING (__syncthreads_or), or for `iters` iterations
 // when iters > 0 (chunked). ctl.max_steps bounds every row. Between
 // iterations nothing leaves the block: its rows' state x, the trial state
-// y and the step's scratch (the s stage values, or the chain step's
-// Taylor term and per-row coefficients) live in shared memory, and the
+// y and the step's scratch (the RK step's stage input, its operator and,
+// in f64, its stage values; the chain step's Taylor term, basis and
+// per-row coefficients) live in shared memory, and the
 // per-row scalars (t, h, prev_h, err_prev, t_lo, tgt, status, event,
 // counters, streak) in the registers of thread r of the block, which runs
 // row r's controller. The grid point comes from device memory, chk_t =
@@ -66,13 +68,16 @@
 // (no cap, no window). The ragged last tile is masked. The carries are
 // read at entry and written back at exit.
 //
-// Choice of R, RK step: the largest of 16, 8, 4 rows whose (s + 2) x R x D
-// state slots take at most 64 KB and whose RT = 4 rows x CT = 4 columns per
-// thread need at most 256 threads. At B = 2048, d = 64, RKF45 that is
-// R = 16 in f32 (64 KB, 128 threads, 128 blocks for the 132 SMs) and
-// R = 8 in f64 (the same 64 KB, 256 blocks); widths up to 2d = 512 and
-// 7 stages fit down to R = 4. More rows per block would leave SMs idle at
-// B = 2048; fewer would reread the operators from L2 for fewer rows.
+// Choice of R, RK step (rk_loop_plan below, mirrored by ops/fused_loop.py:
+// rk_loop_plan): RK_LOOP_RM = 2 rows x 4 contiguous columns a thread, the
+// stage values in registers in f32 and in the thread's own shared memory
+// in f64; R from chain_tile as for the chain step (below) over the RK
+// step's shared memory with the operator streamed; the operator
+// [M0^T | M1^T] then resident where the block's shared memory holds it at
+// that R (D = 128 in f32: 128 KB), else streamed through the ring from
+// step to step. At B = 2048 and 16 384, d = 64, RKF45: R = 16, 256
+// threads, the operator resident in f32 (about 161 KB a block), streamed
+// in f64.
 // Chain step: the largest power of two up to 256 rows whose threads
 // (R / 4 x ceil(D / 4): CHAIN_RM = 4 rows x 4 contiguous columns a thread)
 // stay within 256 and whose three (R, D) slots (x, y, the Taylor term)
@@ -112,11 +117,9 @@ namespace {
 
 using namespace vec_ode;
 
-constexpr int RT = 4;                        // rows per thread in the RK step
+constexpr int RK_LOOP_RM = 2;                // rows per thread in the RK step
 constexpr int CHAIN_RM = 4;                  // rows per thread in the chain step
-constexpr int MAX_ROWS = 16;                 // rows per block, at most
 constexpr int MAX_THREADS = 256;
-constexpr size_t SLOT_BUDGET = 64 * 1024;    // bytes of state slots per block (RK)
 constexpr int N_F = 5;                       // t, h, prev_h, err_norm, t_lo
 constexpr int N_I = 8;                       // tgt, status, event, n_acc, n_rej, n_it, streak, bits
 
@@ -132,28 +135,43 @@ struct Ctl {
 };
 
 // A step keeps a State across the block's iterations (start() at entry,
-// finish() at exit) and its scratch in shared memory (scratch_bytes, a
-// multiple of 16 for the chain step).
+// finish() at exit), its scratch in shared memory (scratch_bytes, a
+// multiple of 16) and needs items(tile, D) threads.
 //
-// The RK step: rk_step_tile over s stage slots of (tile, D).
-template <typename T>
+// The RK step: rk_step_tile at RK_LOOP_RM x 4 outputs a thread, the stage
+// values in registers (KS stages, f32) or in the thread's own shared
+// memory (KS = 0, f64). Its State is the operator's PanelRing (resident or
+// streamed), started once and carried from step to step.
+template <typename T, int KS>
 struct RKLoopStep {
   const T* mt;
   Tableau<T> tab;
   int s, advance_lower;
   T w;
+  int resident;
 
-  struct State {};
-  __host__ __device__ size_t scratch_bytes(int tile, int D) const {
-    return (size_t)s * tile * D * sizeof(T);
+  using State = PanelRing<T>;
+  __host__ __device__ RKLayout<T> layout(int tile, int D) const {
+    return RKLayout<T>(tile, D, s, KS == 0, resident != 0);
   }
-  __device__ State start(unsigned char*, int, int) const { return State{}; }
-  __device__ void finish(State&) const {}
-  __device__ void operator()(State&, const T* s_t, const T* s_dt, T* xs, T* ys, T* s_err,
+  __host__ __device__ size_t scratch_bytes(int tile, int D) const {
+    return layout(tile, D).total;
+  }
+  __host__ __device__ int items(int tile, int D) const {
+    return (tile / RK_LOOP_RM) * (gemm_dp(D) / GEMM_CN);
+  }
+  __device__ State start(unsigned char* scratch, int tile, int D) const {
+    State ring(mt, reinterpret_cast<T*>(scratch + layout(tile, D).ring), D, 2, 0, D, D,
+               resident != 0);
+    ring.prologue();
+    return ring;
+  }
+  __device__ void finish(State& ring) const { ring.drain(); }
+  __device__ void operator()(State& ring, const T* s_t, const T* s_dt, T* xs, T* ys, T* s_err,
                              unsigned char* scratch, int rows, int tile, int D,
                              const ErrNorm<T>& en) const {
-    rk_step_tile<T, RT>(s_t, s_dt, xs, ys, s_err, reinterpret_cast<T*>(scratch), rows, tile, D,
-                        mt, tab, s, 1, advance_lower, w, en);
+    rk_step_tile<T, RK_LOOP_RM, KS>(s_t, s_dt, xs, ys, s_err, scratch, layout(tile, D), ring,
+                                    rows, tile, D, tab, s, 1, advance_lower, w, en);
   }
 };
 
@@ -173,6 +191,9 @@ struct ChainLoopStep {
   }
   __host__ __device__ size_t scratch_bytes(int tile, int D) const {
     return layout(tile, D).total;
+  }
+  __host__ __device__ int items(int tile, int D) const {
+    return (tile / CHAIN_RM) * (gemm_dp(D) / GEMM_CN);
   }
   __device__ State start(unsigned char* scratch, int tile, int D) const {
     State ring(mt, reinterpret_cast<T*>(scratch + layout(tile, D).ring), D, p.KP, 0, D, D);
@@ -218,30 +239,26 @@ struct LoopExtra {
 
 // g of every event at the trial states ys of the tile's rows into
 // ex.g_new, reduced over D in the twin's order (ops/fused_loop.py:
-// row_reduce); red: (tile, ceil(D / CT)) of free scratch. Every thread of
-// the block calls it.
+// row_reduce); red: (tile, ceil(D / CT)) of free scratch, each entry one
+// thread's sum. Every thread of the block calls it.
 template <typename T>
 __device__ void event_values(const T* ys, T* red, int rows, int tile, int D, long row0,
                              const LoopExtra<T>& ex) {
   const int ncg = (D + CT - 1) / CT;
-  const int items = (tile / RT) * ncg;
   const int tid = threadIdx.x;
-  const int cg = tid % ncg, rg = tid / ncg;
   for (int e = 0; e < ex.n_ev; ++e) {
     const T* w = ex.rows + (size_t)e * D;
     const bool quad = ex.par[e * 4] != T(0);
-    if (tid < items) {
-      for (int q = 0; q < RT; ++q) {
-        const int lr = rg * RT + q;
-        T part = T(0);
-        for (int k = 0; k < CT; ++k) {
-          const int col = cg + k * ncg;
-          if (col >= D || lr >= rows) continue;
-          const T y = ys[(size_t)lr * D + col];
-          part = add_rn(part, mul_rn(quad ? mul_rn(y, y) : y, w[col]));
-        }
-        red[lr * ncg + cg] = part;
+    for (int it = tid; it < tile * ncg; it += blockDim.x) {
+      const int lr = it / ncg, cg = it % ncg;
+      T part = T(0);
+      for (int k = 0; k < CT; ++k) {
+        const int col = cg + k * ncg;
+        if (col >= D || lr >= rows) continue;
+        const T y = ys[(size_t)lr * D + col];
+        part = add_rn(part, mul_rn(quad ? mul_rn(y, y) : y, w[col]));
       }
+      red[it] = part;
     }
     __syncthreads();
     if (tid < rows) {
@@ -593,8 +610,7 @@ int run(const Step& step, int tile, const void* t_grid, int n_grid, const void* 
         void* saves, int B, int D, const ErrNorm<T>& en, const Ctl<T>& ctl, int iters,
         int adaptive, const LoopExtra<T>& ex, int dev, int max_smem, void* stream) {
   static size_t smem_allowed[MAX_DEVICES];
-  const int ncg = (D + CT - 1) / CT;
-  const int items = (tile / RT) * ncg;
+  const int items = step.items(tile, D);
   const size_t smem = loop_smem<T>(step, tile, D, EXTRA);
   if (items > MAX_THREADS || smem > (size_t)max_smem) return (int)cudaErrorInvalidValue;
   const int threads = ((items > tile ? items : tile) + 31) / 32 * 32;
@@ -626,6 +642,32 @@ int run_any(const Step& step, int tile, const void* t_grid, int n_grid, const vo
                              stream);
 }
 
+// The RK step's plan in the loop kernel: rows a thread, stages in
+// registers (0: in shared memory), rows a block, threads, shared memory a
+// block with the events / dense switch `extra`, the operator resident.
+struct RKLoopPlan {
+  int rm, ks, tile, threads;
+  size_t smem;
+  int resident;
+};
+
+template <typename T, int KS>
+RKLoopPlan rk_loop_plan(const RKLoopStep<T, KS>& step, int B, int D, int n_sm, int max_smem,
+                        bool extra) {
+  RKLoopStep<T, KS> res = step, str = step;
+  res.resident = 1, str.resident = 0;
+  const int tile = chain_tile<T>(B, D, n_sm, RK_LOOP_RM, MAX_THREADS, (size_t)max_smem,
+                                 [&](int tl) { return loop_smem<T>(str, tl, D, true); });
+  const bool r = loop_smem<T>(res, tile, D, true) <= (size_t)max_smem;
+  const int items = step.items(tile, D);
+  return RKLoopPlan{RK_LOOP_RM, KS, tile, ((items > tile ? items : tile) + 31) / 32 * 32,
+                    loop_smem<T>(r ? res : str, tile, D, extra), r};
+}
+
+// The RK step of the loop kernel in the state's type.
+template <typename T>
+using RKStepOf = RKLoopStep<T, sizeof(T) == 4 ? MAX_STAGES : 0>;
+
 template <typename T>
 int launch(const void* t_grid, int n_grid, const void* fs_in, const void* ist_in,
            const void* x_in, void* fs_out, void* ist_out, void* x_out, void* saves, int B, int D,
@@ -636,23 +678,16 @@ int launch(const void* t_grid, int n_grid, const void* fs_in, const void* ist_in
   if (B <= 0 || D <= 0 || D > MAX_WIDTH || s <= 0 || s > MAX_STAGES || n_grid < 2 || iters < 0 ||
       !parse_extra<T>(ex_ptr, ex_par, n_grid, &ex))
     return (int)cudaErrorInvalidValue;
-  RKLoopStep<T> step;
+  RKStepOf<T> step;
   step.mt = (const T*)mt;
-  for (int i = 0; i < MAX_STAGES; ++i) {
-    for (int j = 0; j < MAX_STAGES; ++j) step.tab.a[i][j] = (T)tab_in[i * MAX_STAGES + j];
-    step.tab.b[i] = (T)tab_in[MAX_STAGES * MAX_STAGES + i];
-    step.tab.db[i] = (T)tab_in[MAX_STAGES * MAX_STAGES + MAX_STAGES + i];
-    step.tab.c[i] = (T)tab_in[MAX_STAGES * MAX_STAGES + 2 * MAX_STAGES + i];
-  }
+  step.tab = parse_tableau<T>(tab_in);
   step.s = s, step.advance_lower = advance_lower, step.w = (T)w;
   int dev = 0, max_smem = 0, n_sm = 0;
   cudaError_t st = device_limits(&dev, &max_smem, &n_sm);
   if (st != cudaSuccess) return (int)st;
-  const int ncg = (D + CT - 1) / CT;
-  auto slots_of = [&](int r) { return (size_t)(s + 2) * r * D * sizeof(T); };
-  int tile = MAX_ROWS;
-  while (tile > RT && ((tile / RT) * ncg > MAX_THREADS || slots_of(tile) > SLOT_BUDGET)) tile /= 2;
-  return run_any<T>(step, tile, t_grid, n_grid, fs_in, ist_in, x_in, fs_out, ist_out, x_out,
+  const RKLoopPlan pl = rk_loop_plan(step, B, D, n_sm, max_smem, true);
+  step.resident = pl.resident;
+  return run_any<T>(step, pl.tile, t_grid, n_grid, fs_in, ist_in, x_in, fs_out, ist_out, x_out,
                     saves, B, D, parse_norm<T>(w_row, post, kind_max, c), parse_ctl<T>(c), iters,
                     adaptive, ex, dev, max_smem, stream);
 }
@@ -742,6 +777,33 @@ int vec_ode_fused_loop_chain_f64(const void* t_grid, int n_grid, const void* fs_
   return launch_chain<double>(t_grid, n_grid, fs_in, ist_in, x_in, fs_out, ist_out, x_out, saves,
                               B, D, mt, chain, cheb, w_row, post, kind_max, ctl, iters, adaptive,
                               ex_ptr, ex_par, stream);
+}
+
+// The RK step's plan in the loop kernel on the current card for B rows of
+// width D and s stages in elements of elem_bytes, with the events / dense
+// switch `extra`: out[0..5] = rows a thread, stages in registers, rows a
+// block, threads, shared memory a block, resident (ops/fused_loop.py:
+// RK_LOOP_PLAN_KEYS). 0, or the CUDA error.
+int vec_ode_fused_loop_rk_plan(int B, int D, int s, int elem_bytes, int extra, long long* out) {
+  if (B <= 0 || D <= 0 || D > MAX_WIDTH || s <= 0 || s > MAX_STAGES ||
+      (elem_bytes != 4 && elem_bytes != 8))
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, max_smem = 0, n_sm = 0;
+  const cudaError_t st = device_limits(&dev, &max_smem, &n_sm);
+  if (st != cudaSuccess) return (int)st;
+  RKLoopPlan pl;
+  if (elem_bytes == 4) {
+    RKStepOf<float> step{};
+    step.s = s;
+    pl = rk_loop_plan(step, B, D, n_sm, max_smem, extra != 0);
+  } else {
+    RKStepOf<double> step{};
+    step.s = s;
+    pl = rk_loop_plan(step, B, D, n_sm, max_smem, extra != 0);
+  }
+  const long long v[6] = {pl.rm, pl.ks, pl.tile, pl.threads, (long long)pl.smem, pl.resident};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  return 0;
 }
 
 }  // extern "C"

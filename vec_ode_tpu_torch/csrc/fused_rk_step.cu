@@ -13,26 +13,31 @@
 // stages), so RKF45, DOPRI5, BOSH32 and Cash-Karp share this one kernel.
 // Without b_err the error norm is zero. The step itself is the device
 // function rk_step_tile of rk_step.cuh, which the whole-loop kernel
-// (fused_loop.cu) runs too; the header's note has the layout and the
-// precision rules.
+// (fused_loop.cu) runs too, with the same bits; the header's note has the
+// layout and the precision rules.
 //
-// Blocks. One block takes a tile of rows; the stage inputs and all s
-// stage values stay in shared memory (s slots of tile x D) and never reach
-// device memory. The block writes only x_out (B, D) and err_out (B,). Each
-// thread owns RT = 8 rows x CT = 4 columns. The ragged last tile is
-// masked; any D up to MAX_WIDTH is taken (the wrapper raises above it).
+// The plan (rk_plan below; ops/fused_rk.py:rk_plan mirrors it; no option
+// picks any of it):
+//  * outputs a thread: f32 with at most 6 stages 4 x 4, its stage values
+//    in registers; f32 with 7 stages 2 x 4, in registers; f64 2 x 4, in
+//    its own region of shared memory;
+//  * rows a block: the largest power of two up to 128 whose microtiles
+//    fill at most 256 threads and whose shared memory fits, halved while
+//    the batch gives fewer tiles than SMs, down to 8;
+//  * the operator MT = [M0^T | M1^T] resident in shared memory where the
+//    block's shared memory holds it at that tile (D = 128 in f32: 128 KB
+//    of panels and 32 KB of term buffers at 32 rows), each block then
+//    persistent: one block an SM, looping over tiles, the operator loaded
+//    once; else streamed from L2 through the ring (three panels of 16 KB),
+//    one block a tile.
+// At B = 16384, d = 64 in f32 (RKF45): 32 rows, 256 threads, the operator
+// resident, 132 blocks over 512 tiles.
 //
 // What bounds it: FP32 FMA throughput. A step at 16384 x 64 complex is
 // 6 stages x (B * 128 * 256 * 2) = about 6.4 GFLOP against 8 MB in and
 // 8 MB out: 0.096 ms at the card's 67 TFLOP/s FP32 (non-tensor) rate.
-// TF32 would be faster but must not enter an error estimate: at
-// rtol = 1e-8 in f32 the embedded error (~1e-9 per component) sits near
-// rounding level.
-//
-// This first version is a plain SIMT kernel with one block of <= 256
-// threads per tile. Making it fast (mma or wgmma in 3xTF32 or another
-// FP32-emulating form, TMA loads of the operators, a persistent block per
-// SM) is later work.
+// TF32 must not enter an error estimate: at rtol = 1e-8 in f32 the
+// embedded error (~1e-9 per component) sits near rounding level.
 
 #include "rk_step.cuh"
 
@@ -40,23 +45,94 @@ namespace {
 
 using namespace vec_ode;
 
-constexpr int RT = 8;            // rows per thread
-constexpr int MAX_THREADS = 256;
-constexpr int MAX_TILE = 64;     // rows per block
+constexpr int RK_MAX_TILE = 128;  // rows a block at most
+constexpr int RK_MIN_TILE = 8;    // rows a block at least where the batch is small
+constexpr int RK_RM_REG = 4;      // f32, s <= RK_KS_REG: rows a thread
+constexpr int RK_KS_REG = 6;      // stages in registers at RK_RM_REG
+constexpr int RK_RM = 2;          // otherwise: rows a thread
 
+// K1's launch: rows a thread, stages in registers (0: in shared memory),
+// rows a tile, threads and blocks, shared memory a block, the operator
+// resident.
+struct RKPlan {
+  int rm, ks, tile, threads, blocks;
+  size_t smem;
+  int resident;
+};
+
+// The plan (see the note above).
 template <typename T>
-__global__ void __launch_bounds__(MAX_THREADS)
+RKPlan rk_plan(int B, int D, int s, int n_sm, size_t max_smem) {
+  const bool reg4 = sizeof(T) == 4 && s <= RK_KS_REG;
+  const int rm = reg4 ? RK_RM_REG : RK_RM;
+  const int ks = sizeof(T) == 4 ? (reg4 ? RK_KS_REG : MAX_STAGES) : 0;
+  const int ncl = gemm_dp(D) / GEMM_CN;
+  auto smem_of = [&](int tl, bool res) { return RKLayout<T>(tl, D, s, ks == 0, res).total; };
+  int tile = RK_MAX_TILE;
+  while (tile > rm && ((tile / rm) * ncl > GEMM_THREADS || smem_of(tile, false) > max_smem))
+    tile /= 2;
+  const int floor_ = rm > RK_MIN_TILE ? rm : RK_MIN_TILE;
+  while (tile > floor_ && (B + tile - 1) / tile < n_sm) tile /= 2;
+  const int n_tiles = (B + tile - 1) / tile;
+  const bool res = smem_of(tile, true) <= max_smem;
+  return RKPlan{rm, ks, tile, ((tile / rm) * ncl + 31) / 32 * 32,
+                res ? (n_tiles < n_sm ? n_tiles : n_sm) : n_tiles, smem_of(tile, res), res};
+}
+
+// Blocks take tiles blockIdx.x, blockIdx.x + gridDim.x, ... (one each
+// where the operator streams), the operator kept across them.
+template <typename T, int RM, int KS>
+__global__ void __launch_bounds__(GEMM_THREADS, 1)
 fused_rk_step_kernel(const T* __restrict__ t, const T* __restrict__ dt,
                      const T* __restrict__ x, const T* __restrict__ mt,
-                     T* __restrict__ x_out, T* __restrict__ err_out,
-                     int B, int D, int tile, Tableau<T> tab, int s,
-                     int has_err, int advance_lower, T w, ErrNorm<T> en) {
-  extern __shared__ unsigned char smem_raw[];
-  T* ks = reinterpret_cast<T*>(smem_raw);  // s slots of (tile, D)
-  const long row0 = (long)blockIdx.x * tile;
-  const int rows = (int)(B - row0 < tile ? B - row0 : tile);
-  rk_step_tile<T, RT>(t + row0, dt + row0, x + row0 * D, x_out + row0 * D, err_out + row0, ks,
-                      rows, tile, D, mt, tab, s, has_err, advance_lower, w, en);
+                     T* __restrict__ x_out, T* __restrict__ err_out, int B, int D, int tile,
+                     int resident, Tableau<T> tab, int s, int has_err, int advance_lower, T w,
+                     ErrNorm<T> en) {
+  extern __shared__ __align__(16) unsigned char rk_smem[];
+  const RKLayout<T> L(tile, D, s, KS == 0, resident != 0);
+  PanelRing<T> ring(mt, reinterpret_cast<T*>(rk_smem + L.ring), D, 2, 0, D, D, resident != 0);
+  ring.prologue();
+  const int n_tiles = (B + tile - 1) / tile;
+  for (int tl = blockIdx.x; tl < n_tiles; tl += gridDim.x) {
+    const long row0 = (long)tl * tile;
+    const int rows = (int)(B - row0 < tile ? B - row0 : tile);
+    rk_step_tile<T, RM, KS>(t + row0, dt + row0, x + row0 * D, x_out + row0 * D, err_out + row0,
+                            rk_smem, L, ring, rows, tile, D, tab, s, has_err, advance_lower, w,
+                            en);
+  }
+  ring.drain();
+}
+
+template <typename T, int RM, int KS>
+int run(const RKPlan& pl, const void* t, const void* dt, const void* x, const void* mt,
+        void* x_out, void* err_out, int B, int D, const Tableau<T>& tab, int s, int has_err,
+        int advance_lower, T w, const ErrNorm<T>& en, int dev, void* stream) {
+  static size_t smem_allowed[MAX_DEVICES];
+  auto kernel = fused_rk_step_kernel<T, RM, KS>;
+  if (pl.smem > smem_allowed[dev]) {
+    const cudaError_t st =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem);
+    if (st != cudaSuccess) return (int)st;
+    smem_allowed[dev] = pl.smem;
+  }
+  kernel<<<pl.blocks, pl.threads, pl.smem, (cudaStream_t)stream>>>(
+      (const T*)t, (const T*)dt, (const T*)x, (const T*)mt, (T*)x_out, (T*)err_out, B, D, pl.tile,
+      pl.resident, tab, s, has_err, advance_lower, w, en);
+  return (int)cudaGetLastError();
+}
+
+bool shape_ok(int B, int D, int s) {
+  return B > 0 && D > 0 && D <= MAX_WIDTH && s > 0 && s <= MAX_STAGES;
+}
+
+template <typename T>
+int plan_here(int B, int D, int s, RKPlan* pl, int* dev) {
+  int max_smem = 0, n_sm = 0;
+  const cudaError_t st = device_limits(dev, &max_smem, &n_sm);
+  if (st != cudaSuccess) return (int)st;
+  *pl = rk_plan<T>(B, D, s, n_sm, (size_t)max_smem);
+  if (pl->threads > GEMM_THREADS || pl->smem > (size_t)max_smem) return (int)cudaErrorInvalidValue;
+  return 0;
 }
 
 template <typename T>
@@ -64,51 +140,23 @@ int launch(const void* t, const void* dt, const void* x, const void* mt,
            void* x_out, void* err_out, int B, int D, const double* tab_in,
            int s, int has_err, int advance_lower, double w, const void* w_row,
            double post, int kind_max, void* stream) {
-  if (B <= 0 || D <= 0 || D > MAX_WIDTH || s <= 0 || s > MAX_STAGES)
-    return (int)cudaErrorInvalidValue;
-  Tableau<T> tab;
-  for (int i = 0; i < MAX_STAGES; ++i) {
-    for (int j = 0; j < MAX_STAGES; ++j) tab.a[i][j] = (T)tab_in[i * MAX_STAGES + j];
-    tab.b[i] = (T)tab_in[MAX_STAGES * MAX_STAGES + i];
-    tab.db[i] = (T)tab_in[MAX_STAGES * MAX_STAGES + MAX_STAGES + i];
-    tab.c[i] = (T)tab_in[MAX_STAGES * MAX_STAGES + 2 * MAX_STAGES + i];
-  }
+  if (!shape_ok(B, D, s)) return (int)cudaErrorInvalidValue;
+  const Tableau<T> tab = parse_tableau<T>(tab_in);
   const ErrNorm<T> en{(const T*)w_row, (T)post, kind_max, 0, T(0), T(0)};
+  RKPlan pl;
   int dev = 0;
-  cudaError_t st = cudaGetDevice(&dev);
-  if (st != cudaSuccess) return (int)st;
-  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  // per device, kept across launches: the opt-in shared-memory limit, and
-  // the dynamic shared memory this instantiation has been allowed so far
-  static int max_smem_of[MAX_DEVICES];
-  static size_t smem_allowed[MAX_DEVICES];
-  if (max_smem_of[dev] == 0) {
-    st = cudaDeviceGetAttribute(&max_smem_of[dev], cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (st != cudaSuccess) return (int)st;
+  const int rc = plan_here<T>(B, D, s, &pl, &dev);
+  if (rc != 0) return rc;
+  if constexpr (sizeof(T) == 4) {
+    if (pl.rm == RK_RM_REG)
+      return run<T, RK_RM_REG, RK_KS_REG>(pl, t, dt, x, mt, x_out, err_out, B, D, tab, s, has_err,
+                                          advance_lower, (T)w, en, dev, stream);
+    return run<T, RK_RM, MAX_STAGES>(pl, t, dt, x, mt, x_out, err_out, B, D, tab, s, has_err,
+                                     advance_lower, (T)w, en, dev, stream);
+  } else {
+    return run<T, RK_RM, 0>(pl, t, dt, x, mt, x_out, err_out, B, D, tab, s, has_err,
+                            advance_lower, (T)w, en, dev, stream);
   }
-  const int max_smem = max_smem_of[dev];
-
-  // the largest tile whose thread count and stage slots fit one block
-  const int ncg = (D + CT - 1) / CT;
-  int tile = MAX_TILE;
-  auto smem_of = [&](int tl) { return (size_t)s * tl * D * sizeof(T); };
-  while (tile > RT && ((tile / RT) * ncg > MAX_THREADS || smem_of(tile) > (size_t)max_smem))
-    tile /= 2;
-  const int items = (tile / RT) * ncg;
-  if (items > MAX_THREADS || smem_of(tile) > (size_t)max_smem) return (int)cudaErrorInvalidValue;
-  const int threads = ((items + 31) / 32) * 32;
-  const size_t smem = smem_of(tile);
-  if (smem > smem_allowed[dev]) {
-    st = cudaFuncSetAttribute(fused_rk_step_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
-    if (st != cudaSuccess) return (int)st;
-    smem_allowed[dev] = smem;
-  }
-  const int blocks = (B + tile - 1) / tile;
-  fused_rk_step_kernel<T><<<blocks, threads, smem, (cudaStream_t)stream>>>(
-      (const T*)t, (const T*)dt, (const T*)x, (const T*)mt, (T*)x_out, (T*)err_out, B, D, tile, tab,
-      s, has_err, advance_lower, (T)w, en);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -133,6 +181,24 @@ int vec_ode_fused_rk_step_f64(const void* t, const void* dt, const void* x, cons
                               const void* w_row, double post, int kind_max, void* stream) {
   return launch<double>(t, dt, x, mt, x_out, err_out, B, D, tab, s, has_err, advance_lower, w,
                         w_row, post, kind_max, stream);
+}
+
+// K1's plan on the current card for B rows of width D and s stages in
+// elements of elem_bytes: out[0..6] = rows a thread, stages in registers,
+// rows a tile, threads, blocks, shared memory a block, resident
+// (ops/fused_rk.py: RK_PLAN_KEYS). 0, or the CUDA error.
+int vec_ode_fused_rk_plan(int B, int D, int s, int elem_bytes, long long* out) {
+  if (!shape_ok(B, D, s) || (elem_bytes != 4 && elem_bytes != 8))
+    return (int)cudaErrorInvalidValue;
+  RKPlan pl;
+  int dev = 0;
+  const int rc = elem_bytes == 4 ? plan_here<float>(B, D, s, &pl, &dev)
+                                 : plan_here<double>(B, D, s, &pl, &dev);
+  if (rc != 0) return rc;
+  const long long v[7] = {pl.rm, pl.ks, pl.tile, pl.threads, pl.blocks, (long long)pl.smem,
+                          pl.resident};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  return 0;
 }
 
 }  // extern "C"

@@ -1,7 +1,9 @@
 // Tiled SIMT products for Hopper (sm_90a), shared by K4 and the loop
-// kernel's chain step K5 (chain_step.cuh) and by K7 (adjoint.cu): a Taylor
-// term of a tile of trajectories is a (tile, D) @ (D, D) product whose
-// right operand sits in shared memory, either the basis M_k^T (K4, K5:
+// kernel's chain step K5 (chain_step.cuh), by the RK step of K1 and of the
+// loop kernel (K3, rk_step.cuh), by K6 (adjoint_row.cuh) and by K7
+// (adjoint.cu): a Taylor term or a stage input of a tile of trajectories
+// is a (tile, D) @ (D, D) product whose right operand sits in shared
+// memory, either a basis M_k^T (K4, K5, K6; [M0^T | M1^T] for the RK step:
 // resident, loaded once, or streamed through a ring of panels, slab by
 // slab) or formed there once per row (K7: the row's exponent).
 //
@@ -22,7 +24,7 @@
 
 #pragma once
 
-#include "rk_step.cuh"
+#include "numerics.cuh"
 
 namespace vec_ode {
 
@@ -148,14 +150,24 @@ __device__ __forceinline__ void tile_fma_n(const T* a, int as, const T* b, size_
   for (; j < jn; ++j) step(j);
 }
 
-// v[0 .. 3] to shared memory at p (16-byte aligned), in 16-byte stores.
-template <typename T>
-__device__ __forceinline__ void sts_vec4(T* p, const T (&v)[GEMM_CN]) {
-  if constexpr (sizeof(T) == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+// v[0 .. N) to shared memory at p, in 16-byte stores where N values fill
+// them (p aligned to them), else 8-byte (two f32) or single stores.
+template <typename T, int N>
+__device__ __forceinline__ void sts_vec(T* p, const T (&v)[N]) {
+  if constexpr (sizeof(T) * N % 16 == 0) {
+    constexpr int per = 16 / sizeof(T);
+#pragma unroll
+    for (int i = 0; i < N; i += per) {
+      if constexpr (sizeof(T) == 4)
+        *reinterpret_cast<float4*>(p + i) = make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);
+      else
+        *reinterpret_cast<double2*>(p + i) = make_double2(v[i], v[i + 1]);
+    }
+  } else if constexpr (sizeof(T) == 4 && N == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
   } else {
-    *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
-    *reinterpret_cast<double2*>(p + 2) = make_double2(v[2], v[3]);
+#pragma unroll
+    for (int i = 0; i < N; ++i) p[i] = v[i];
   }
 }
 
@@ -218,8 +230,13 @@ struct PanelRing {
   int cs = 0;                  // the stage of the next panel to acquire
 
   __device__ PanelRing(const T* mt_, T* ring_, int D_, int kp_, int c0, int dc, int width)
+      : PanelRing(mt_, ring_, D_, kp_, c0, dc, width, ring_resident<T>(D_, kp_, width)) {}
+  // resident_: the caller's plan decides (the RK step keeps [M0^T | M1^T]
+  // resident wherever its block's shared memory holds it)
+  __device__ PanelRing(const T* mt_, T* ring_, int D_, int kp_, int c0, int dc, int width,
+                       bool resident_)
       : mt(mt_ + c0), ring(ring_), ld((size_t)kp_ * D_), D(D_), DP(gemm_dp(width)), kp(kp_) {
-    resident = ring_resident<T>(D_, kp_, width);
+    resident = resident_;
     jc = resident ? D_ : gemm_jc<T>(width);
     npan = (D_ + jc - 1) / jc;
     nst = resident ? kp_ : GEMM_STAGES;

@@ -6,267 +6,342 @@
 // K3).
 //
 // It computes what vec_ode_tpu/ops/pallas_rk.py:_make_kernel computes:
-// every stage K_i = f(t + c_i dt, x + dt sum_j a_ij K_j), with both
-// operator actions of a stage in one pass over MT = [M0^T | M1^T] (a
-// (D, 2D) row-major matrix, so for a fixed contraction index the threads
-// of a warp read consecutive columns); the advance x + dt sum_j b_j K_j
+// every stage K_i = y0 + u_i y1 with y0 = x_i M0^T, y1 = x_i M1^T at the
+// stage input x_i = x + dt sum_{j<i} a_ij K_j and u_i = cos(w t_i),
+// t_i = t + c_i dt (t itself at stage 0); the advance x + dt sum_j b_j K_j
 // (minus the error when advance_lower); the embedded error
-// dt sum_j (b_j - b_err_j) K_j; and its per-row measure ErrNorm:
-// optionally divided by atol + rtol max(|x|, |x_next|) (scaled_error),
-// multiplied by a weight row, reduced by l2 or max, then multiplied by
-// rtol (scaled_error) and by post (WeightedNorm rms), in that order, as
-// make_rk_step_builder does.
+// dt sum_j (b_j - b_err_j) K_j; and its per-row measure ErrNorm
+// (numerics.cuh: chain_err_measure, which the chain step ends with too).
 //
-// Layout. The tile's rows are trajectories of width D = 2d ([re | im]).
-// The stage inputs and all s stage values live in ks, s slots of
-// (tile, D) in shared memory; x and x_out may be in device or shared
-// memory (generic pointers), t_rows and dt_rows too. Each thread owns RT
-// rows x CT columns (columns cg, cg + ncg, ...), so every operator value
-// it loads serves RT rows and every stage value serves 2*CT products.
-// Rows at or past `rows` are computed on zeros and never written.
+// Layout. A thread owns RM rows x CN = 4 contiguous columns of the tile and
+// keeps every stage value K_j of its outputs to itself: in registers
+// (KS > 0: up to KS stages, the plan's choice for f32) or in a region of
+// shared memory that only that thread touches ([stage][row][thread][4],
+// no barrier). The stage input is formed at the thread's outputs and is
+// the only value other threads read: it is published transposed, (D,
+// tile), into one of two term buffers that alternate, with one block
+// barrier a stage, and read as the left operand of the stage's two
+// products (gemm_tile.cuh) against MT = [M0^T | M1^T] (two panels of
+// D x DP): resident in shared memory, loaded once per block, both read
+// with one load of the stage's rows (tile_fma_n<2>), or streamed from L2
+// through the ring of panels (M0^T, then M1^T, each in slabs of jc
+// contraction rows; one term buffer, the ring's barriers ordering it). A
+// warp spans wc column groups (the largest power of two up to 8 dividing
+// DP / 4) x 32 / wc row groups, row groups fastest, so that a load of the
+// operator serves 32 / wc row groups, a load of the stage's rows wc column
+// groups, and a thread's RM rows of a column are one store of the stage
+// input. u_i is computed once a row and stage, before the stage's
+// barrier, into one of two slots that alternate.
+// After the last stage the error vector goes row-major (tile, D) into the
+// first term buffer, where chain_err_measure reduces it one row a thread.
+// Rows at or past `rows` are computed on zeros and never written;
+// padding columns are computed and never written.
 //
-// Precision. Accumulation is IEEE FMA in the state's type, never TF32.
-// The node t + c_i dt, the drive argument w t and the scaled_error
-// denominator atol + rtol*m are rounded step by step (no contraction),
-// cos is the full-precision one, and max and min propagate NaN as
-// jnp.maximum and torch.maximum do (fmax would drop a NaN error and
-// accept a step the controller must reject). Build without
-// --use_fast_math.
+// Precision. Each element of a product is one IEEE FMA chain over j in
+// increasing order from zero in the state's type (never TF32), so the
+// panel split and the launch shape change no bit: K1 and K2 give the same
+// bits on the same rows. Everything else is rounded as the plain twin
+// (ops/fused_rk.py:torch_rk_step) rounds it, with mul_rn / add_rn /
+// sub_rn: term = a_ij K_j, acc = acc + term (zero a_ij skipped, j in
+// order), x_i = x + dt acc; t_i = t + c_i dt, u_i = cos(w t_i) (the full
+// cosine); K_i = y0 + u_i y1; x_b = x + dt (b_0 K_0 + ...), err = dt
+// (db_0 K_0 + ...), x_out = x_b - err. A NaN row stays in its row and
+// gives a NaN error. Build without --use_fast_math.
 
 #pragma once
 
-#include <cuda_runtime.h>
-#include <float.h>
-#include <stddef.h>
+#include <type_traits>
+#include <utility>
+
+#include "gemm_tile.cuh"
 
 namespace vec_ode {
 
-constexpr int MAX_STAGES = 7;
-constexpr int MAX_WIDTH = 512;  // widened state width D = 2d (ops/fused_rk.py: MAX_WIDTH)
-constexpr int CT = 4;           // columns per thread
-constexpr int MAX_DEVICES = 64;
+// The warp's column groups: the largest power of two up to 8 that divides
+// the ncl column groups of 4 (ops/fused_rk.py: rk_wc).
+__host__ __device__ inline int rk_wc(int ncl) {
+  int wc = 1;
+  while (wc < 8 && ncl % (2 * wc) == 0) wc *= 2;
+  return wc;
+}
 
+// The shared memory of the RK step, byte offsets of each region (each
+// 16-byte aligned): the term buffers (nbuf x (D, tile): two with the
+// operator resident, one streamed; the first takes the error vector), the
+// operator (two resident panels of D x DP, or the ring), the drive (two
+// slots of tile values) and, without registers for them (kshared), the
+// stage values (s x tile x DP). ops/fused_rk.py:rk_smem_bytes mirrors it.
 template <typename T>
-struct Tableau {
-  T a[MAX_STAGES][MAX_STAGES];
-  T b[MAX_STAGES];
-  T db[MAX_STAGES];  // b - b_err
-  T c[MAX_STAGES];
-};
-
-// the per-row error measure of the step (see the note above)
-template <typename T>
-struct ErrNorm {
-  const T* w_row;  // (D,) weights in device memory, or nullptr
-  T post;          // multiplies the reduced norm (1 for l2 and max)
-  int kind_max;    // 0: l2, 1: max
-  int scaled;      // scaled_error: divide by atol + rtol max(|x|, |x_next|)
-  T atol, rtol;
-};
-
-__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
-__device__ __forceinline__ float cos_full(float a) { return cosf(a); }
-__device__ __forceinline__ double cos_full(double a) { return cos(a); }
-__device__ __forceinline__ float pow_full(float a, float b) { return powf(a, b); }
-__device__ __forceinline__ double pow_full(double a, double b) { return pow(a, b); }
-__device__ __forceinline__ float fma_full(float a, float b, float c) { return fmaf(a, b, c); }
-__device__ __forceinline__ double fma_full(double a, double b, double c) { return fma(a, b, c); }
-__device__ __forceinline__ float sqrt_full(float a) { return sqrtf(a); }
-__device__ __forceinline__ double sqrt_full(double a) { return sqrt(a); }
-
-template <typename T> __device__ __forceinline__ T eps_of();
-template <> __device__ __forceinline__ float eps_of<float>() { return FLT_EPSILON; }
-template <> __device__ __forceinline__ double eps_of<double>() { return DBL_EPSILON; }
-
-template <typename T>
-__device__ __forceinline__ bool is_nan(T a) { return a != a; }
-// NaN-propagating max / min / clip (jnp.maximum, torch.clamp semantics)
-template <typename T>
-__device__ __forceinline__ T nan_max(T a, T b) { return (is_nan(a) || a > b) ? a : b; }
-template <typename T>
-__device__ __forceinline__ T nan_min(T a, T b) { return (is_nan(a) || a < b) ? a : b; }
-template <typename T>
-__device__ __forceinline__ T nan_clip(T a, T lo, T hi) { return nan_min(nan_max(a, lo), hi); }
-
-// One embedded RK step of a tile; every thread of the block calls it (it
-// synchronises the block). ks: s slots of (tile, D) in shared memory; the
-// block needs (tile / RT) * ceil(D / CT) threads or more. Writes x_out
-// (rows, D) and err_out (rows,); err_out is zero without an embedded pair.
-template <typename T, int RT>
-__device__ void rk_step_tile(const T* __restrict__ t_rows, const T* __restrict__ dt_rows,
-                             const T* __restrict__ x, T* __restrict__ x_out,
-                             T* __restrict__ err_out, T* ks, int rows, int tile, int D,
-                             const T* __restrict__ mt, const Tableau<T>& tab, int s,
-                             int has_err, int advance_lower, T w, const ErrNorm<T>& en) {
-  const size_t slot = (size_t)tile * D;
-  const int ncg = (D + CT - 1) / CT;
-  const int items = (tile / RT) * ncg;
-  const int tid = threadIdx.x;
-  const bool active = tid < items;
-  const int cg = tid % ncg;
-  const int rg = tid / ncg;
-
-  T tr[RT], dtr[RT];
-#pragma unroll
-  for (int q = 0; q < RT; ++q) {
-    const int lr = rg * RT + q;
-    const bool ok = active && lr < rows;
-    tr[q] = ok ? t_rows[lr] : T(0);
-    dtr[q] = ok ? dt_rows[lr] : T(0);
+struct RKLayout {
+  size_t term, ring, u, ks, total;
+  int nbuf;
+  __host__ __device__ RKLayout(int tile, int D, int s, bool kshared, bool resident) {
+    const size_t dp = gemm_dp(D);
+    nbuf = resident ? 2 : 1;
+    size_t at = 0;
+    term = at, at += align16((size_t)nbuf * D * tile * sizeof(T));
+    ring = at;
+    at += align16(resident ? 2 * D * dp * sizeof(T)
+                           : (size_t)GEMM_STAGES * gemm_jc<T>(D) * dp * sizeof(T));
+    u = at, at += align16(2 * (size_t)tile * sizeof(T));
+    ks = at;
+    if (kshared) at += align16((size_t)s * tile * dp * sizeof(T));
+    total = at;
   }
+};
+
+// The outputs of this thread: rows [lr0, lr0 + RM) and columns [col0,
+// col0 + 4) of the tile; item: its index among the (tile / RM) x DP / 4
+// microtiles (the block's threads, rounded up to a warp, cover them all).
+struct RKThread {
+  int lr0, col0, item;
+  bool active;
+};
+
+template <int RM>
+__device__ __forceinline__ RKThread rk_thread(int tile, int D) {
+  const int ncl = gemm_dp(D) / GEMM_CN, ngr = tile / RM;
+  const int wc = rk_wc(ncl), ncb = ncl / wc;
+  const int rgs = 32 / wc < ngr ? 32 / wc : ngr;
+  const int tid = threadIdx.x;
+  const int t1 = tid / rgs, t2 = t1 / wc;
+  const int cg = (t2 % ncb) * wc + t1 % wc, rg = (t2 / ncb) * rgs + tid % rgs;
+  return RKThread{rg * RM, cg * GEMM_CN, rg * ncl + cg, rg < ngr};
+}
+
+// u(t_i) = cos(w t_i) at stage i's node t_i = t + c_i dt (t itself at the
+// first stage), rounded as the twin: the one place the step reads its
+// drive.
+template <typename T>
+__device__ __forceinline__ T rk_drive(T w, T t, T dt, T ci, int i) {
+  const T ti = i == 0 ? t : add_rn(t, mul_rn(ci, dt));
+  return cos_full(mul_rn(w, ti));
+}
+
+// A stage index, from a constant (stage_switch) or at run time.
+template <int I>
+__device__ __forceinline__ constexpr int stage_of(std::integral_constant<int, I>) {
+  return I;
+}
+__device__ __forceinline__ constexpr int stage_of(int i) { return i; }
+
+// f(std::integral_constant<int, i>) for i < N: a stage index as a constant,
+// so that registers indexed by it stay registers.
+template <class F, int... I>
+__device__ __forceinline__ void stage_switch_(int i, F& f, std::integer_sequence<int, I...>) {
+  ((i == I ? (f(std::integral_constant<int, I>{}), 0) : 0), ...);
+}
+template <int N, class F>
+__device__ __forceinline__ void stage_switch(int i, F& f) {
+  stage_switch_(i, f, std::make_integer_sequence<int, N>{});
+}
+
+// One embedded RK step of a tile (see the note above); every thread of
+// the block calls it. t_rows, dt_rows (rows,), x and x_out (rows, D) may be
+// in device or shared memory; err_out (rows,) gets the error measure, zero
+// without an embedded pair. scratch holds the layout L; ring streams or
+// holds MT (two terms of the PanelRing) and is left at the start of a
+// stage, so that the next tile or step goes on with it. KS > 0 keeps the
+// stage values in registers and needs s <= KS. The block needs
+// (tile / RM) x DP / 4 threads or more.
+template <typename T, int RM, int KS>
+__device__ void rk_step_tile(const T* __restrict__ t_rows, const T* __restrict__ dt_rows,
+                             const T* x, T* x_out, T* __restrict__ err_out,
+                             unsigned char* scratch, const RKLayout<T>& L, PanelRing<T>& ring,
+                             int rows, int tile, int D, const Tableau<T>& tab, int s, int has_err,
+                             int advance_lower, T w, const ErrNorm<T>& en) {
+  constexpr int CN = GEMM_CN;
+  constexpr int JN = KS > 0 ? KS : MAX_STAGES;  // stages a loop over j may reach
+  const RKThread th = rk_thread<RM>(tile, D);
+  const size_t tsz = (size_t)D * tile;
+  const int items = (tile / RM) * (gemm_dp(D) / CN);
+  T* term = reinterpret_cast<T*>(scratch + L.term);
+  T* su = reinterpret_cast<T*>(scratch + L.u);
+  T* kss = reinterpret_cast<T*>(scratch + L.ks);
+
+  // this thread's rows' dt, its outputs of x
+  T dtr[RM], xv[RM][CN];
+#pragma unroll
+  for (int q = 0; q < RM; ++q) {
+    const int lr = th.lr0 + q;
+    const bool ok = th.active && lr < rows;
+    dtr[q] = ok ? dt_rows[lr] : T(0);
+#pragma unroll
+    for (int c = 0; c < CN; ++c)
+      xv[q][c] = ok && th.col0 + c < D ? x[(size_t)lr * D + th.col0 + c] : T(0);
+  }
+
+  // the stage values at this thread's outputs
+  T kr[KS > 0 ? KS : 1][RM][CN];
+  auto kslot = [&](int j, int q) { return kss + (((size_t)j * RM + q) * items + th.item) * CN; };
+  auto kload = [&](int j, int q, T (&v)[CN]) {
+    if constexpr (KS > 0) {
+#pragma unroll
+      for (int c = 0; c < CN; ++c) v[c] = kr[j][q][c];
+    } else {
+      lds_vec<T, CN>(kslot(j, q), v);
+    }
+  };
+
+  // the stage input into term buffer b, transposed: a thread's RM rows of
+  // a column in one store
+  auto publish = [&](const T (&v)[RM][CN], int b) {
+    if (!th.active) return;
+    T* dst = term + b * tsz + th.lr0;
+#pragma unroll
+    for (int c = 0; c < CN; ++c) {
+      if (th.col0 + c >= D) break;
+      T col[RM];
+#pragma unroll
+      for (int q = 0; q < RM; ++q) col[q] = v[q][c];
+      sts_vec(dst + (size_t)(th.col0 + c) * tile, col);
+    }
+  };
+  int cur = 0;
+  T xin[RM][CN];
+#pragma unroll
+  for (int q = 0; q < RM; ++q)
+#pragma unroll
+    for (int c = 0; c < CN; ++c) xin[q][c] = xv[q][c];
 
   for (int i = 0; i < s; ++i) {
-    T* xi = ks + i * slot;
-    // stage input x + dt * sum_j a_ij K_j into slot i (zero-weight terms
-    // skipped, the sum taken in stage order, as the plain step does)
-    if (active) {
+    // u_i = cos(w t_i) once a row, read after the barrier below
+    T* sui = su + (i & 1) * tile;
+    for (int lr = threadIdx.x; lr < tile; lr += blockDim.x)
+      sui[lr] = lr < rows ? rk_drive(w, t_rows[lr], dt_rows[lr], tab.c[i], i) : T(0);
+    // (b) publish the stage input: into the other buffer, then the barrier;
+    // with one buffer after the barrier, read after the ring's next one
+    if (L.nbuf == 2) {
+      publish(xin, cur ^ 1);
+      __syncthreads();
+      cur ^= 1;
+    } else {
+      __syncthreads();
+      publish(xin, 0);
+    }
+    // (c) y0 = x_i M0^T, y1 = x_i M1^T
+    T y[2][RM][CN];
 #pragma unroll
-      for (int q = 0; q < RT; ++q) {
-        const int lr = rg * RT + q;
+    for (int b = 0; b < 2; ++b) tile_zero<T, RM, CN>(y[b]);
+    const T* tm = term + cur * tsz + th.lr0;
+    if (ring.resident) {
+      if (th.active)
+        tile_fma_n<T, RM, CN, 2>(tm, tile, ring.panel(0) + th.col0, ring.stage, ring.DP, D, y);
+    } else {
 #pragma unroll
-        for (int k = 0; k < CT; ++k) {
-          const int col = cg + k * ncg;
-          if (col >= D) continue;
-          const T xv = lr < rows ? x[(size_t)lr * D + col] : T(0);
-          T acc = T(0);
-          bool any = false;
-          for (int j = 0; j < i; ++j) {
-            const T aij = tab.a[i][j];
-            if (aij == T(0)) continue;
-            const T term = aij * ks[j * slot + (size_t)lr * D + col];
-            acc = any ? acc + term : term;
-            any = true;
+      for (int b = 0; b < 2; ++b)
+        for (int j0 = 0; j0 < D; j0 += ring.jc) {
+          const T* st = ring.acquire();
+          if (th.active)
+            tile_fma<T, RM, false, CN>(tm + (size_t)j0 * tile, tile, st + th.col0, ring.DP,
+                                       ring.rows_of(j0), y[b]);
+        }
+    }
+    // (d, e) K_i = y0 + u_i y1, kept; (a) the next stage's input
+    T u[RM];
+#pragma unroll
+    for (int q = 0; q < RM; ++q) u[q] = th.active ? sui[th.lr0 + q] : T(0);
+    auto tail = [&](auto I) {
+      if (!th.active) return;  // no outputs, no stage values
+      const int si = stage_of(I);
+#pragma unroll
+      for (int q = 0; q < RM; ++q) {
+        T kv[CN];
+#pragma unroll
+        for (int c = 0; c < CN; ++c) kv[c] = add_rn(y[0][q][c], mul_rn(u[q], y[1][q][c]));
+        if constexpr (KS > 0) {
+#pragma unroll
+          for (int c = 0; c < CN; ++c) kr[si][q][c] = kv[c];
+        } else {
+          sts_vec(kslot(si, q), kv);
+        }
+      }
+      const int nx = si + 1;
+      if (nx >= s) return;
+#pragma unroll
+      for (int q = 0; q < RM; ++q) {
+        T acc[CN];
+        bool any = false;
+#pragma unroll
+        for (int j = 0; j < JN; ++j) {
+          if (j >= nx) break;
+          const T aij = tab.a[nx][j];
+          if (aij == T(0)) continue;
+          T kj[CN];
+          kload(j, q, kj);
+#pragma unroll
+          for (int c = 0; c < CN; ++c) {
+            const T t_ = mul_rn(aij, kj[c]);
+            acc[c] = any ? add_rn(acc[c], t_) : t_;
           }
-          xi[(size_t)lr * D + col] = any ? xv + dtr[q] * acc : xv;
-        }
-      }
-    }
-    __syncthreads();
-
-    // both operator actions: y0 = x_i M0^T, y1 = x_i M1^T
-    T y0[RT][CT], y1[RT][CT];
-#pragma unroll
-    for (int q = 0; q < RT; ++q)
-#pragma unroll
-      for (int k = 0; k < CT; ++k) {
-        y0[q][k] = T(0);
-        y1[q][k] = T(0);
-      }
-    if (active) {
-      const T* xrow = xi + (size_t)(rg * RT) * D;
-#pragma unroll 4
-      for (int j = 0; j < D; ++j) {
-        T xv[RT];
-#pragma unroll
-        for (int q = 0; q < RT; ++q) xv[q] = xrow[(size_t)q * D + j];
-        const T* mrow = mt + (size_t)j * 2 * D;
-        T m0[CT], m1[CT];
-#pragma unroll
-        for (int k = 0; k < CT; ++k) {
-          const int col = cg + k * ncg;
-          m0[k] = col < D ? __ldg(mrow + col) : T(0);
-          m1[k] = col < D ? __ldg(mrow + D + col) : T(0);
+          any = true;
         }
 #pragma unroll
-        for (int q = 0; q < RT; ++q)
-#pragma unroll
-          for (int k = 0; k < CT; ++k) {
-            y0[q][k] = fma_full(xv[q], m0[k], y0[q][k]);
-            y1[q][k] = fma_full(xv[q], m1[k], y1[q][k]);
-          }
+        for (int c = 0; c < CN; ++c)
+          xin[q][c] = any ? add_rn(xv[q][c], mul_rn(dtr[q], acc[c])) : xv[q][c];
       }
-    }
-    __syncthreads();  // every read of slot i is done
-
-    // K_i = y0 + u(t_i) y1 replaces the stage input in slot i
-    if (active) {
-      const T ci = tab.c[i];
-#pragma unroll
-      for (int q = 0; q < RT; ++q) {
-        // the first node is t itself, as in the plain step
-        const T ti = i == 0 ? tr[q] : add_rn(tr[q], mul_rn(ci, dtr[q]));
-        const T u = cos_full(mul_rn(w, ti));
-        const int lr = rg * RT + q;
-#pragma unroll
-        for (int k = 0; k < CT; ++k) {
-          const int col = cg + k * ncg;
-          if (col < D) ks[i * slot + (size_t)lr * D + col] = y0[q][k] + u * y1[q][k];
-        }
-      }
-    }
-    __syncthreads();
+    };
+    if constexpr (KS > 0)
+      stage_switch<KS>(i, tail);
+    else
+      tail(i);
   }
 
-  // advance, embedded error and the per-row partial l2 sums or maxima
-  T part[RT];
+  // the advance and the error vector at this thread's outputs
+  T ev[RM][CN];
 #pragma unroll
-  for (int q = 0; q < RT; ++q) part[q] = T(0);
-  if (active) {
+  for (int q = 0; q < RM; ++q) {
+    if (!th.active) break;
+    T sb[CN], se[CN];
+    bool anyb = false, anye = false;
 #pragma unroll
-    for (int q = 0; q < RT; ++q) {
-      const int lr = rg * RT + q;
+    for (int c = 0; c < CN; ++c) sb[c] = se[c] = T(0);
 #pragma unroll
-      for (int k = 0; k < CT; ++k) {
-        const int col = cg + k * ncg;
-        if (col >= D || lr >= rows) continue;
-        const size_t e = (size_t)lr * D + col;
-        T sb = T(0), se = T(0);
-        bool anyb = false, anye = false;
-        for (int j = 0; j < s; ++j) {
-          const T kj = ks[j * slot + e];
-          if (tab.b[j] != T(0)) {
-            const T term = tab.b[j] * kj;
-            sb = anyb ? sb + term : term;
-            anyb = true;
-          }
-          if (has_err && tab.db[j] != T(0)) {
-            const T term = tab.db[j] * kj;
-            se = anye ? se + term : term;
-            anye = true;
-          }
+    for (int j = 0; j < JN; ++j) {
+      if (j >= s) break;
+      const T bj = tab.b[j], dbj = has_err ? tab.db[j] : T(0);
+      if (bj == T(0) && dbj == T(0)) continue;
+      T kj[CN];
+      kload(j, q, kj);
+#pragma unroll
+      for (int c = 0; c < CN; ++c) {
+        if (bj != T(0)) {
+          const T t_ = mul_rn(bj, kj[c]);
+          sb[c] = anyb ? add_rn(sb[c], t_) : t_;
         }
-        const T xv = x[e];
-        const T xb = xv + dtr[q] * sb;
-        T out = xb;
-        if (has_err) {
-          const T err = dtr[q] * se;
-          if (advance_lower) out = xb - err;
-          T v = err;
-          if (en.scaled)
-            v = v / add_rn(en.atol, mul_rn(en.rtol, nan_max(fabs(xv), fabs(out))));
-          if (en.w_row != nullptr) v = v * en.w_row[col];
-          part[q] = en.kind_max ? nan_max(fabs(v), part[q]) : part[q] + v * v;
+        if (dbj != T(0)) {
+          const T t_ = mul_rn(dbj, kj[c]);
+          se[c] = anye ? add_rn(se[c], t_) : t_;
         }
-        x_out[e] = out;
       }
+      anyb = anyb || bj != T(0);
+      anye = anye || dbj != T(0);
+    }
+    const int lr = th.lr0 + q;
+#pragma unroll
+    for (int c = 0; c < CN; ++c) {
+      const T xb = add_rn(xv[q][c], mul_rn(dtr[q], sb[c]));
+      ev[q][c] = mul_rn(dtr[q], se[c]);
+      const T out = has_err && advance_lower ? sub_rn(xb, ev[q][c]) : xb;
+      if (lr < rows && th.col0 + c < D) x_out[(size_t)lr * D + th.col0 + c] = out;
     }
   }
-  __syncthreads();  // the stage slots are free: slot 0 takes the partials
-  T* red = ks;      // (tile, ncg)
-  if (active) {
+
+  // every read of the term buffers is done: the error vector into the first
+  __syncthreads();
+  if (!has_err) {
+    for (int lr = threadIdx.x; lr < rows; lr += blockDim.x) err_out[lr] = T(0);
+    return;
+  }
+  if (th.active) {
 #pragma unroll
-    for (int q = 0; q < RT; ++q) red[(rg * RT + q) * ncg + cg] = part[q];
+    for (int q = 0; q < RM; ++q)
+#pragma unroll
+      for (int c = 0; c < CN; ++c)
+        if (th.col0 + c < D) term[(size_t)(th.lr0 + q) * D + th.col0 + c] = ev[q][c];
   }
   __syncthreads();
-  for (int lr = tid; lr < rows; lr += blockDim.x) {
-    T acc = T(0);
-    for (int g = 0; g < ncg; ++g) {
-      const T p = red[lr * ncg + g];
-      acc = en.kind_max ? nan_max(p, acc) : acc + p;
-    }
-    T norm = T(0);
-    if (has_err) {
-      norm = en.kind_max ? acc : sqrt_full(acc);
-      if (en.scaled) norm = norm * en.rtol;
-      if (en.post != T(1)) norm = norm * en.post;
-    }
-    err_out[lr] = norm;
-  }
+  chain_err_measure(term, x, x_out, err_out, rows, D, en);
 }
 
 }  // namespace vec_ode

@@ -60,11 +60,12 @@ from ..driver import (DONE, DONE_EVENT, ERR_BAD_GRID, ERR_MAX_STEPS,
 from ..events import KernelEvents
 from ..tableaus import RKF45, ButcherTableau
 from . import _build
-from .expmv import (CfmTable, ChebForm, CoeffForm, chain_params,
-                    check_chain_operands, has_error_estimate, node_times,
-                    torch_chain_step)
-from .fused_rk import (check_kernel_inputs, kernel_norm_args,
-                       kernel_operands, torch_rk_step, wnorm_on)
+from .expmv import (GEMM_CN, LOOP_THREADS, CfmTable, ChebForm, CoeffForm,
+                    chain_params, check_chain_operands, gemm_dp,
+                    has_error_estimate, node_times, torch_chain_step)
+from .fused_rk import (MAX_STAGES, check_kernel_inputs, kernel_norm_args,
+                       kernel_operands, rk_smem_bytes, torch_rk_step,
+                       wnorm_on)
 
 N_F = 5   # float carry columns: t, h, prev_h, err_norm, t_lo
 N_I = 8   # int carry columns: tgt, status, event, n_acc, n_rej, n_it,
@@ -74,6 +75,10 @@ N_I = 8   # int carry columns: tgt, status, event, n_acc, n_rej, n_it,
 # path (pallas_rk.py:385). It decides only which path runs, not what is
 # computed; the port keeps it until the card's own times move it.
 LOOP_MAX_BATCH = 2048
+# the RK step in the loop kernel (csrc/fused_loop.cu: RK_LOOP_RM,
+# rk_loop_plan): rows a thread, and the plan's keys
+RK_LOOP_RM = 2
+RK_LOOP_PLAN_KEYS = ("rm", "ks", "tile", "threads", "smem", "resident")
 
 _INT_MAX = 2**31 - 1
 
@@ -427,6 +432,58 @@ def torch_fused_loop(t_grid, fs, ist, x, saves, step, *, ctl: StepControl,
     ist = torch.stack([tgt, status, event, n_acc, n_rej, n_it, streak,
                        torch.zeros_like(bits)], dim=1)
     return fs, ist, x, saves
+
+
+def rk_loop_plan(B: int, D: int, s: int, elem: int, extra: bool = False,
+                 n_sm: int = 132, max_smem: int = 232448) -> dict:
+    """The RK step's plan in the loop kernel (csrc/fused_loop.cu:
+    rk_loop_plan) for B rows of width D and s stages in elements of
+    ``elem`` bytes: RK_LOOP_RM rows a thread, the stages in registers in
+    f32 (ks = MAX_STAGES) and in shared memory in f64 (ks = 0); rows a
+    block as the chain step's (``expmv.loop_plan``: the largest power of
+    two up to 256 whose threads fit LOOP_THREADS, whose three (tile, D)
+    slots take at most 96 KB and whose shared memory with the operator
+    streamed and the events / dense switch on fits, halved while the batch
+    gives fewer than two blocks per SM, down to 16); the operator resident
+    where the block holds it at that tile. ``extra`` gives the shared
+    memory of that instantiation. Keyed as RK_LOOP_PLAN_KEYS."""
+    ncg = gemm_dp(D) // GEMM_CN
+    ks = MAX_STAGES if elem == 4 else 0
+
+    def smem(tile, res, ext):
+        return (rk_smem_bytes(tile, D, s, elem, ks == 0, res)
+                + (2 * tile * D + (4 if ext else 3) * tile) * elem
+                + tile * 4)
+
+    tile = 256
+    while tile > RK_LOOP_RM and (
+            tile > LOOP_THREADS
+            or (tile // RK_LOOP_RM) * ncg > LOOP_THREADS
+            or 3 * tile * D * elem > 96 * 1024
+            or smem(tile, False, True) > max_smem):
+        tile //= 2
+    while tile > 16 and -(-B // tile) < 2 * n_sm:
+        tile //= 2
+    res = smem(tile, True, True) <= max_smem
+    items = (tile // RK_LOOP_RM) * ncg
+    return dict(rm=RK_LOOP_RM, ks=ks, tile=tile,
+                threads=-(-max(items, tile) // 32) * 32,
+                smem=smem(tile, res, extra), resident=int(res))
+
+
+def kernel_rk_loop_plan(B: int, D: int, s: int, dtype,
+                        extra: bool = False) -> dict:
+    """The RK step's plan the loop kernel launches with on the current
+    card (``vec_ode_fused_loop_rk_plan``), keyed as RK_LOOP_PLAN_KEYS."""
+    out = (ctypes.c_longlong * len(RK_LOOP_PLAN_KEYS))()
+    fn = _kernel_lib().vec_ode_fused_loop_rk_plan
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
+    rc = fn(B, D, s, 4 if dtype == torch.float32 else 8, int(extra), out)
+    if rc != 0:
+        raise RuntimeError(f"fused_loop_chunk: the plan query failed with "
+                           f"CUDA error {rc}")
+    return dict(zip(RK_LOOP_PLAN_KEYS, (int(v) for v in out)))
 
 
 @functools.cache

@@ -18,6 +18,11 @@ driven Hamiltonian H(t) = H0 + cos(w t) V in real-pair form. States are
 * :func:`kernel_operands` and :func:`launch` are the wrapper's two
   halves: the stepper packs the operators and the tableau once per solve
   and launches with them at every step.
+* :func:`rk_plan` mirrors the kernel's launch plan (rows and stages a
+  thread keeps in registers, rows a block, the operator resident and the
+  blocks persistent, or streamed) and :func:`kernel_rk_plan` reads the
+  plan the kernel launches with on the card; the loop kernel's RK step
+  runs the same stage body (``csrc/rk_step.cuh``), with the same bits.
 * :class:`FusedModulatedLinearRK` is the natively batched stepper the
   driver runs; its :meth:`~FusedModulatedLinearRK.fused_loop_solve` runs
   the whole adaptive loop in one launch of ``csrc/fused_loop.cu``
@@ -39,9 +44,16 @@ from ..tableaus import RKF45, ButcherTableau
 from . import _build
 from .cplx import Cplx
 
-# the kernel's limits (MAX_STAGES and MAX_WIDTH in csrc/fused_rk_step.cu)
+# the kernel's limits (MAX_STAGES and MAX_WIDTH in csrc/numerics.cuh)
 MAX_STAGES = 7    # tableau stages
 MAX_WIDTH = 512   # widened state width 2d (d <= 256)
+# K1's plan (csrc/fused_rk_step.cu: rk_plan): rows a block at most and, for
+# small batches, at least; f32 with at most RK_KS_REG stages RK_RM_REG rows
+# a thread, its stages in registers; else RK_RM rows a thread (f32: the 7
+# stages in registers, f64: in shared memory)
+RK_MAX_TILE, RK_MIN_TILE = 128, 8
+RK_RM_REG, RK_KS_REG, RK_RM = 4, 6, 2
+RK_PLAN_KEYS = ("rm", "ks", "tile", "threads", "blocks", "smem", "resident")
 
 
 def _row_matmul(x: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
@@ -128,6 +140,81 @@ def _kernel_lib() -> ctypes.CDLL:
         fn.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci,
                        ctypes.POINTER(cd), ci, ci, ci, cd, vp, cd, ci, vp]
     return lib
+
+
+def rk_wc(ncl: int) -> int:
+    """The column groups of 4 a warp of the RK step spans: the largest
+    power of two up to 8 dividing ``ncl`` (csrc/rk_step.cuh: rk_wc)."""
+    wc = 1
+    while wc < 8 and ncl % (2 * wc) == 0:
+        wc *= 2
+    return wc
+
+
+def rk_smem_bytes(tile: int, D: int, s: int, elem: int, kshared: bool,
+                  resident: bool) -> int:
+    """The RK step's shared memory (csrc/rk_step.cuh: RKLayout): the term
+    buffers (two with the operator resident, one streamed), the operator
+    (two panels of D x DP, or the ring), the drive's two slots of a value
+    a row and, for ``kshared``, the s stage values of every thread."""
+    # expmv imports this module: its mirror of csrc/gemm_tile.cuh is taken
+    # at call time
+    from .expmv import GEMM_STAGES, _align16, gemm_dp, gemm_jc
+    dp = gemm_dp(D)
+    ring = (2 * D * dp * elem if resident
+            else GEMM_STAGES * gemm_jc(D, elem) * dp * elem)
+    return (_align16((2 if resident else 1) * D * tile * elem)
+            + _align16(ring) + _align16(2 * tile * elem)
+            + (_align16(s * tile * dp * elem) if kshared else 0))
+
+
+def rk_plan(B: int, D: int, s: int, elem: int, n_sm: int = 132,
+            max_smem: int = 232448) -> dict:
+    """K1's launch plan (csrc/fused_rk_step.cu: rk_plan) for B rows of
+    width D and s stages in elements of ``elem`` bytes on a card of
+    ``n_sm`` SMs with ``max_smem`` bytes of shared memory a block (an
+    H100's by default): rows and stages in registers a thread, rows a
+    block (the largest power of two up to RK_MAX_TILE whose microtiles
+    fill at most 256 threads and whose shared memory with the operator
+    streamed fits, halved while the batch gives fewer tiles than SMs, down
+    to RK_MIN_TILE), the operator resident where the block holds it at
+    that tile (then one persistent block an SM at most), else streamed
+    (one block a tile). Keyed as RK_PLAN_KEYS."""
+    from .expmv import GEMM_CN, GEMM_THREADS, gemm_dp
+    reg4 = elem == 4 and s <= RK_KS_REG
+    rm = RK_RM_REG if reg4 else RK_RM
+    ks = (RK_KS_REG if reg4 else MAX_STAGES) if elem == 4 else 0
+    ncl = gemm_dp(D) // GEMM_CN
+
+    def smem(tile, res):
+        return rk_smem_bytes(tile, D, s, elem, ks == 0, res)
+
+    tile = RK_MAX_TILE
+    while tile > rm and ((tile // rm) * ncl > GEMM_THREADS
+                         or smem(tile, False) > max_smem):
+        tile //= 2
+    while tile > max(rm, RK_MIN_TILE) and -(-B // tile) < n_sm:
+        tile //= 2
+    n_tiles = -(-B // tile)
+    res = smem(tile, True) <= max_smem
+    return dict(rm=rm, ks=ks, tile=tile,
+                threads=-(-((tile // rm) * ncl) // 32) * 32,
+                blocks=min(n_tiles, n_sm) if res else n_tiles,
+                smem=smem(tile, res), resident=int(res))
+
+
+def kernel_rk_plan(B: int, D: int, s: int, dtype) -> dict:
+    """The plan K1 launches with on the current card
+    (``vec_ode_fused_rk_plan``), keyed as RK_PLAN_KEYS."""
+    out = (ctypes.c_longlong * len(RK_PLAN_KEYS))()
+    fn = _kernel_lib().vec_ode_fused_rk_plan
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+    rc = fn(B, D, s, 4 if dtype == torch.float32 else 8, out)
+    if rc != 0:
+        raise RuntimeError(f"fused_rk_step: the plan query failed with CUDA "
+                           f"error {rc}")
+    return dict(zip(RK_PLAN_KEYS, (int(v) for v in out)))
 
 
 def check_kernel_inputs(kernel: str, xw, mt, w_row=None, **rows) -> None:
