@@ -71,7 +71,17 @@ drives the port's paths once at full width through
   bits ([cluster]);
 * the RK stage body that K1 and K2's RK step share: each launch plan
   against its Python mirror, and one K2 iteration against one K1 launch
-  on the same rows, t and h, bit for bit, in f32 and f64 ([rk-body]).
+  on the same rows, t and h, bit for bit, in f32 and f64 ([rk-body]);
+* the front door, whose paths launch no hand kernel (every launch count
+  stays 0; TF32 off): the JAX package's flagship entry, the generic
+  vmapped RKF45 ensemble ``ensemble_solve(rhs_pair, stepper=None)`` at
+  16 384 x 64c f32 against the K1 main path on the same states, its first
+  64 rows in f64 against the CPU, timed beside the K1 path
+  ([generic-rk]); 4096 Van der Pol trajectories in 1000 fixed RK4 steps
+  ([vdp-rk4]); ``solve_ivp`` on an 8-dim linear ODE in f64 against its
+  closed form and the CPU, backward with two saves, and ``solve_linear``
+  over the split solvers on the driven tight-binding chain, unitary
+  ([solve-ivp]).
 
 Then it times the paths and each kernel against its plain version, its
 bound and, for K4 (at 256 on its cluster route and 16 384 on its tiled
@@ -108,7 +118,9 @@ import torch
 
 from vec_ode_tpu_torch import diff as tdiff
 from vec_ode_tpu_torch import (DONE, DONE_EVENT, DOPRI5, ERR_MAX_STEPS,
-                               ERR_STALLED, RKF45, StepControl, driver, lc)
+                               ERR_STALLED, RK4, RKF45, RungeKutta,
+                               StepControl, driver, lc, solve_ivp,
+                               solve_linear)
 from vec_ode_tpu_torch import tableaus as ttab
 from vec_ode_tpu_torch import exp as texp
 from vec_ode_tpu_torch.exp import (CFM4Modulated, CFMModulated,
@@ -123,7 +135,9 @@ from vec_ode_tpu_torch.events import (Event, EventConfig, LinearObservable,
                                      QuadraticObservable)
 from vec_ode_tpu_torch.exp.modulated import _taylor_params
 from vec_ode_tpu_torch.models import (DrivenDense, LandauZener, Lindblad,
-                                      PulseControl)
+                                      LinearConstant, PulseControl,
+                                      TightBindingChain, VanDerPol,
+                                      stable_dense_matrix)
 from vec_ode_tpu_torch.ops import adjoint as tadj
 from vec_ode_tpu_torch.ops import (_build, dense_chains, expmv, fused_loop,
                                    fused_rk)
@@ -584,21 +598,27 @@ def solve(st, y0, save_at=None):
                           time_dtype=torch.float32)
 
 
+# every kernel wrapper, K1-K9, the one list that the counts below read:
+# K1, K2 and K4 first (``counts``)
+WRAPPERS = (fused_rk_step, fused_loop_chunk, fused_chain_apply,
+            fused_dense_chain_apply, tadj.adjoint_bwd, tadj.adjoint_sweep_fwd,
+            tadj.adjoint_sweep_bwd)
+
+
 def reset_counts() -> None:
     """Every kernel wrapper's launch count to 0."""
-    fused_rk_step.launches = 0
-    fused_loop_chunk.launches = 0
-    fused_chain_apply.launches = 0
-    fused_dense_chain_apply.launches = 0
-    tadj.adjoint_bwd.launches = 0
-    tadj.adjoint_sweep_fwd.launches = 0
-    tadj.adjoint_sweep_bwd.launches = 0
+    for w in WRAPPERS:
+        w.launches = 0
+
+
+def all_launches() -> tuple:
+    """Every kernel wrapper's launch count, K1-K9."""
+    return tuple(w.launches for w in WRAPPERS)
 
 
 def counts() -> tuple:
     """The launch counts of K1, K2 and K4."""
-    return (fused_rk_step.launches, fused_loop_chunk.launches,
-            fused_chain_apply.launches)
+    return all_launches()[:3]
 
 
 def main_path_phase(card: str) -> int:
@@ -725,23 +745,29 @@ def timed_runs(fn, reps: int = 3, inner: int = 1) -> list:
     return out
 
 
+def walls_of(fn) -> tuple:
+    """A warm call, then three CUDA-event timed calls: (median ms, the
+    three, the first timed result, peak device memory in MiB)."""
+    fn()
+    torch.cuda.reset_peak_memory_stats()
+    outs = []
+    walls = timed_runs(lambda: outs.append(fn()))
+    return (statistics.median(walls), walls, outs[0],
+            torch.cuda.max_memory_allocated() / 2**20)
+
+
 def timed_solve(fn, label: str, card: str):
     """Median of 3 CUDA-event timed solves after one warm solve, with
     accepted steps per second and peak device memory. Returns (ms, the
     first timed solution)."""
-    fn()
-    torch.cuda.reset_peak_memory_stats()
-    sols = []
-    walls = timed_runs(lambda: sols.append(fn()))
-    peak = torch.cuda.max_memory_allocated()
-    wall_ms = statistics.median(walls)
-    accepted = int(sols[0].n_accept.sum())
+    wall_ms, walls, sol, peak = walls_of(fn)
+    accepted = int(sol.n_accept.sum())
     print(f"[time] {label}: median wall {wall_ms:.3f} ms of "
-          f"{[round(w, 3) for w in walls]}, {int(sols[0].n_iters.max())} "
+          f"{[round(w, 3) for w in walls]}, {int(sol.n_iters.max())} "
           f"iterations at most, {accepted} accepted steps, "
           f"{accepted / (wall_ms / 1e3):.4e} accepted steps/s, peak memory "
-          f"{peak / 2**20:.1f} MiB ({card})", flush=True)
-    return wall_ms, sols[0]
+          f"{peak:.1f} MiB ({card})", flush=True)
+    return wall_ms, sol
 
 
 def k1_flop_bytes(B, D, stages, nbytes):
@@ -4110,6 +4136,239 @@ def extra_timing_phase(card):
     return out["rk"]
 
 
+# -- the front door: the generic RK ensemble and the scalar tier ------------
+
+GRK_ROWS = 64               # rows held in f64 on the card against the CPU
+VDP_TRAJ, VDP_STEPS = 4096, 1000    # BASELINE config 2 (benchmarks.py:63)
+
+
+def check_no_hand_kernel(label: str) -> None:
+    launches = all_launches()
+    assert launches == (0,) * len(launches), (label, launches)
+
+
+def check_ieee_products() -> None:
+    """The error estimates below run through cuBLAS: no TF32."""
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.get_float32_matmul_precision() == "highest"
+
+
+def generic_rk_solve(model, y0, dtype=torch.float32):
+    """The JAX package's flagship entry (``__graft_entry__.py:99-114``):
+    the generic vmapped RKF45 ensemble, ``stepper=None``, over
+    ``DrivenDense.rhs_pair``."""
+    return ensemble_solve(lambda t, y: model.rhs_pair(t, y, dtype), y0, 0.0,
+                          TF, h0=H0, ctl=CTL, time_dtype=dtype)
+
+
+def rows_of(y, n: int, dtype, device) -> Cplx:
+    return Cplx(y.re[:n].to(device=device, dtype=dtype),
+                y.im[:n].to(device=device, dtype=dtype))
+
+
+def generic_rk_phase(card: str) -> None:
+    """The generic vmapped RKF45 ensemble at 16 384 x 64c f32 (BASELINE
+    config 5): no hand kernel on its path; held against the K1 main path
+    on the same states, and its first 64 rows in f64 against the CPU."""
+    check_ieee_products()
+    st, y0 = main_inputs()
+    model = DrivenDense.make(d=DIM, seed=0)
+    reset_counts()
+    sol = generic_rk_solve(model, y0)
+    torch.cuda.synchronize()
+    check_no_hand_kernel("generic-rk")
+    assert sol.path == "torch-driver", sol.path
+    assert sol.y_final.re.shape == (N_TRAJ, DIM)
+    assert bool(torch.isfinite(sol.y_final.re).all()
+                & torch.isfinite(sol.y_final.im).all()), "non-finite state"
+    n_done = int((sol.status == DONE).sum())
+    assert n_done == N_TRAJ, f"{N_TRAJ - n_done} trajectories not DONE"
+    norm = torch.sqrt((sol.y_final.re ** 2 + sol.y_final.im ** 2).sum(-1))
+    norm_dev = float((norm - 1).abs().max())
+    assert norm_dev <= 1e-4, f"|psi| drifted by {norm_dev}"
+    print(f"[generic-rk] {N_TRAJ}x{DIM}c ensemble_solve(rhs_pair, "
+          f"stepper=None) RKF45 rtol={CTL.rtol:g} f32: all DONE, "
+          f"max||psi|-1|={norm_dev:.3e} (<= 1e-4), path={sol.path}, hand "
+          f"kernel launches {all_launches()} (all 0), n_iters up to "
+          f"{int(sol.n_iters.max())}, n_accept "
+          f"{int(sol.n_accept.min())}..{int(sol.n_accept.max())}, n_reject "
+          f"{int(sol.n_reject.min())}..{int(sol.n_reject.max())}", flush=True)
+
+    # the K1 main path on the same states: rtol 1e-8 sits at f32 rounding,
+    # so a step at the controller's edge may fall the other way
+    k1 = solve(st, y0)
+    dy = max_dy(sol, k1)
+    dcount = max(int((sol.n_accept - k1.n_accept).abs().max()),
+                 int((sol.n_reject - k1.n_reject).abs().max()))
+    assert dy <= 1e-4 and dcount <= 2, (dy, dcount)
+    print(f"[generic-rk] vs the K1 main path on the same y0: max|dy|="
+          f"{dy:.3e} (<= 1e-4), max|dcount|={dcount} (<= 2) on "
+          f"{int((sol.n_iters != k1.n_iters).sum())} rows with another "
+          f"n_iters", flush=True)
+
+    on_card = generic_rk_solve(
+        model, rows_of(y0, GRK_ROWS, torch.float64, "cuda"), torch.float64)
+    on_cpu = generic_rk_solve(
+        model, rows_of(y0, GRK_ROWS, torch.float64, "cpu"), torch.float64)
+    for k in ("status", "n_accept", "n_reject", "n_iters"):
+        assert torch.equal(getattr(on_card, k).cpu(), getattr(on_cpu, k)), k
+    dys = max(float((a.cpu() - b).abs().max())
+              for a, b in zip(on_card.ys, on_cpu.ys))
+    assert dys <= 1e-10, dys
+    print(f"[generic-rk] first {GRK_ROWS} rows in f64, card vs CPU: equal "
+          f"status / n_accept / n_reject / n_iters, max|dys|={dys:.3e} "
+          f"(<= 1e-10)", flush=True)
+
+    ms, walls, tsol, peak = walls_of(lambda: generic_rk_solve(model, y0))
+    k1_ms, k1_walls, k1_sol, k1_peak = walls_of(lambda: solve(st, y0))
+    acc = int(tsol.n_accept.sum())
+    print(f"[generic-rk] wall: median {ms:.3f} ms of "
+          f"{[round(w, 3) for w in walls]} after a warm solve, "
+          f"{int(tsol.n_iters.max())} iterations, {acc} accepted steps, "
+          f"{acc / (ms / 1e3):.4e} accepted steps/s, peak memory "
+          f"{peak:.1f} MiB; the K1 main path on the same inputs: median "
+          f"{k1_ms:.3f} ms of {[round(w, 3) for w in k1_walls]}, "
+          f"{int(k1_sol.n_iters.max())} iterations, "
+          f"{int(k1_sol.n_accept.sum()) / (k1_ms / 1e3):.4e} accepted "
+          f"steps/s, peak {k1_peak:.1f} MiB ({card})", flush=True)
+
+
+def vdp_solve(y0, dtype):
+    """BASELINE config 2 (``benchmarks.py:63-87``): fixed-step RK4 over Van
+    der Pol (mu = 1.5), h = 10 / 1000 on [0, 10]."""
+    return ensemble_solve(VanDerPol(mu=1.5).rhs, y0, 0.0, 10.0,
+                          stepper=RungeKutta(RK4), adaptive=False,
+                          h0=10.0 / VDP_STEPS, time_dtype=dtype)
+
+
+def vdp_rk4_phase(card: str) -> None:
+    y_np = np.random.default_rng(0).uniform(-2, 2, (VDP_TRAJ, 2))
+    y0 = torch.as_tensor(y_np, dtype=torch.float32, device="cuda")
+    reset_counts()
+    sol = vdp_solve(y0, torch.float32)
+    torch.cuda.synchronize()
+    check_no_hand_kernel("vdp-rk4")
+    assert sol.path == "torch-driver", sol.path
+    assert bool((sol.status == DONE).all()), "not all DONE"
+    assert bool((sol.n_accept == VDP_STEPS).all()), (
+        int(sol.n_accept.min()), int(sol.n_accept.max()))
+    assert bool(torch.isfinite(sol.y_final).all())
+    ref = vdp_solve(torch.as_tensor(y_np[:GRK_ROWS]), torch.float64)
+    dy = float((sol.y_final[:GRK_ROWS].double().cpu() - ref.y_final)
+               .abs().max())
+    assert dy <= 1e-3, dy
+    ms, walls, tsol, peak = walls_of(lambda: vdp_solve(y0, torch.float32))
+    steps = int(tsol.n_accept.sum())
+    print(f"[vdp-rk4] {VDP_TRAJ} Van der Pol trajectories, RungeKutta(RK4) "
+          f"fixed h=0.01 on [0, 10] f32: all DONE, n_accept == {VDP_STEPS} "
+          f"on every row, path={sol.path}, hand kernel launches "
+          f"{all_launches()} (all 0); first {GRK_ROWS} rows vs the f64 CPU "
+          f"solve: max|dy|={dy:.3e} (<= 1e-3); wall: median {ms:.3f} ms of "
+          f"{[round(w, 3) for w in walls]}, {steps / (ms / 1e3):.4e} "
+          f"steps/s, peak memory {peak:.1f} MiB ({card})", flush=True)
+
+
+def solve_ivp_phase(card: str) -> None:
+    """BASELINE config 1 through the scalar tier on the card: adaptive
+    RKF45 on an 8-dim linear ODE in f64 against its closed form and the
+    same solve on the CPU, a backward solve with two saves, and
+    solve_linear over the split solvers on the driven chain."""
+    A = stable_dense_matrix(8, seed=0, device="cuda")
+    model, cpu_model = LinearConstant(A), LinearConstant(A.cpu())
+    y0 = torch.linspace(0.3, 1.0, 8, dtype=torch.float64, device="cuda")
+    ctl = StepControl(rtol=1e-10, min_dt=1e-10, max_dt=0.5)
+
+    def fwd(m, y):
+        return solve_ivp(m.rhs, 0.0, 2.0, y, ctl=ctl, h0=1e-3)
+
+    def back(m, y):
+        return solve_ivp(m.rhs, 2.0, 0.0, y, ctl=ctl, h0=1e-3,
+                         save_at=[0.5, 1.5])
+
+    def same(a, b, label, tol=1e-12):
+        for k in ("status", "n_accept", "n_reject", "n_iters",
+                  "n_rhs_evals"):
+            assert torch.equal(getattr(a, k).cpu(), getattr(b, k)), (label, k)
+        leaves = torch.utils._pytree.tree_leaves
+        d = max(float((x.cpu() - y).abs().max())
+                for x, y in zip(leaves((a.y_final, a.ys)),
+                                leaves((b.y_final, b.ys))))
+        assert d <= tol, (label, d)
+        return d
+
+    reset_counts()
+    sol = fwd(model, y0)
+    bsol = back(model, sol.y_final)
+    torch.cuda.synchronize()
+    check_no_hand_kernel("solve-ivp")
+    assert sol.path == bsol.path == "torch-driver"
+    assert int(sol.status) == int(bsol.status) == DONE
+    err = float((sol.y_final - model.exact(2.0, y0)).abs().max())
+    assert err <= 1e-8, err
+    d_cpu = same(sol, fwd(cpu_model, y0.cpu()), "forward")
+    ts = bsol.ts.cpu().tolist()
+    assert ts == [0.0, 0.5, 1.5, 2.0], ts
+    exact_ys = torch.stack([model.exact(t, y0) for t in ts])
+    err_b = float((bsol.ys - exact_ys).abs().max())
+    assert err_b <= 1e-8, err_b
+    db_cpu = same(bsol, back(cpu_model, sol.y_final.cpu()), "backward")
+    ms = statistics.median(timed_runs(lambda: fwd(model, y0)))
+    print(f"[solve-ivp] LinearConstant(stable_dense_matrix(8)) RKF45 "
+          f"rtol=1e-10 f64 on the card: DONE, {int(sol.n_accept)} accepted /"
+          f" {int(sol.n_reject)} rejected, n_rhs_evals "
+          f"{int(sol.n_rhs_evals)}, max|y - exp(2A) y0|={err:.3e} (<= 1e-8),"
+          f" vs the CPU: equal counters, max|dy|={d_cpu:.3e} (<= 1e-12); "
+          f"backward 2 -> 0 with saves at 0.5, 1.5: ts={ts}, max|ys - "
+          f"exact|={err_b:.3e} (<= 1e-8), vs the CPU max|dy|={db_cpu:.3e} "
+          f"(<= 1e-12), hand kernel launches {all_launches()} (all 0); "
+          f"forward wall median {ms:.3f} ms ({card})", flush=True)
+
+    # a python y0, no device named: the solve runs on the card
+    def decay(**kw):
+        return solve_ivp(lambda t, y: -y, 0.0, 2.0, 1.0, ctl=ctl, **kw)
+
+    reset_counts()
+    psol = decay()
+    check_no_hand_kernel("solve-ivp python y0")
+    assert psol.y_final.device.type == psol.ts.device.type == "cuda"
+    assert int(psol.status) == DONE
+    dp = same(psol, decay(device="cpu"), "python y0")
+    print(f"[solve-ivp] y' = -y from the python float y0 = 1.0, no device "
+          f"named: solved on {psol.y_final.device} in "
+          f"{psol.y_final.dtype}, vs device='cpu': equal counters, "
+          f"max|dy|={dp:.3e} (<= 1e-12) ({card})", flush=True)
+
+    chain = TightBindingChain(n=8, J=1.0, seed=3, w=2.0)
+    psi0 = np.zeros(8, np.complex128)
+    psi0[4] = 1.0
+    for st in (texp.SplitMidpoint(texp.DenseCplxSplit(),
+                                  texp.DiagonalCplxSplit()),
+               texp.ExpMidpoint(texp.StrangSplit(texp.DenseCplxSplit(),
+                                                 texp.DiagonalCplxSplit()))):
+        def lin(dev):
+            return solve_linear(
+                lambda t: chain.ops_pair(t, torch.float64, device=dev), 0.0,
+                2.0, from_complex(psi0, torch.float64, device=dev),
+                stepper=st, h0=0.05)
+
+        reset_counts()
+        lsol = lin("cuda")
+        torch.cuda.synchronize()
+        check_no_hand_kernel("solve-linear")
+        assert int(lsol.status) == DONE and lsol.path == "torch-driver"
+        d = same(lsol, lin("cpu"), type(st).__name__)
+        n2 = float((lsol.y_final.re ** 2 + lsol.y_final.im ** 2).sum())
+        assert abs(n2 - 1.0) <= 1e-12, n2
+        ms = statistics.median(timed_runs(lambda: lin("cuda")))
+        name = (f"ExpMidpoint({type(st.split).__name__})"
+                if isinstance(st, texp.ExpMidpoint) else type(st).__name__)
+        print(f"[solve-ivp] solve_linear TightBindingChain(8) {name} h=0.05"
+              f" f64 on the card: DONE, {int(lsol.n_accept)} steps, vs the "
+              f"CPU max|dy|={d:.3e} (<= 1e-12), ||psi||^2 - 1 = "
+              f"{n2 - 1:.3e} (within 1e-12); wall median {ms:.3f} ms "
+              f"({card})", flush=True)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = device_phase()
@@ -4152,6 +4411,9 @@ def main() -> None:
     cheb_launches = auto_phase()
     auto_lz_phase()
     k0_k4_launches, k0_k2_launches, k0_k4_err = k0_path_phase()
+    generic_rk_phase(card)
+    vdp_rk4_phase(card)
+    solve_ivp_phase(card)
     k1 = timing_phase(card)
     k2 = loop_timing_phase(card)
     k4 = k4_timing_phase(card)

@@ -10,8 +10,10 @@ sampling a ChebForm, with black-box operators through auto_modulated on
 both routes, K4's one body on its two launch routes (tiled, and a
 thread-block cluster per tile below the card's SM count of tiled blocks)
 with the same bits on both, and K7 and K8 with their formed exponents on
-every launch shape. Every test here carries the
-``cuda`` marker and skips without a card. The file imports no jax, so on a machine with a card but without
+every launch shape; and the front door, which runs no hand kernel: the
+vmapped and scalar tiers on the card against the CPU in f64, and
+``DrivenDense.rhs_pair`` under vmap against the unbatched call. Every
+test here carries the ``cuda`` marker and skips without a card. The file imports no jax, so on a machine with a card but without
 jax it runs as
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -1707,3 +1709,153 @@ def test_adjoint_sweep_bwd_keeps_a_nan_row(card, D, dtype):
     bad = torch.isnan(a0).any(1)
     assert bad.tolist() == [r == 3 for r in range(40)]
     assert chip_smoke.rel(a0[~bad], a0p[~bad]) <= tol
+
+
+# -- the front door: the vmapped and scalar tiers on the card -----------------
+
+def _leaves_close(a, b, atol):
+    leaves = torch.utils._pytree.tree_leaves
+    for x, y in zip(leaves(a), leaves(b)):
+        np.testing.assert_allclose(x.cpu().numpy(), y.numpy(), rtol=0,
+                                   atol=atol)
+
+
+def _same_on_both(run, atol=1e-10):
+    """run(device) on the card and on the CPU: no hand kernel launched,
+    equal status and counters, states within ``atol``."""
+    before = chip_smoke.all_launches()
+    gpu = run("cuda")
+    torch.cuda.synchronize()
+    assert chip_smoke.all_launches() == before
+    cpu = run("cpu")
+    assert gpu.path == cpu.path == "torch-driver"
+    for k in ("status", "n_accept", "n_reject", "n_iters"):
+        assert torch.equal(getattr(gpu, k).cpu(), getattr(cpu, k)), k
+    _leaves_close((gpu.y_final, gpu.ys), (cpu.y_final, cpu.ys), atol)
+    return gpu
+
+
+@pytest.mark.parametrize("case", ["rk_rhs_pair", "rk_vdp_params",
+                                  "rk4_vdp", "magnus4_unbatched",
+                                  "split_midpoint_diagonal"])
+def test_vmapped_tier_on_the_card_matches_the_cpu_f64(card, case):
+    from vec_ode_tpu_torch import RK4, RungeKutta
+    from vec_ode_tpu_torch.models import TightBindingChain, VanDerPol
+
+    model = DrivenDense.make(d=16, seed=0)
+    rng = np.random.default_rng(42)
+    psi = rng.standard_normal((40, 16)) + 1j * rng.standard_normal((40, 16))
+    psi /= np.linalg.norm(psi, axis=-1, keepdims=True)
+    y_vdp = rng.uniform(-2, 2, (40, 2))
+    ctl = StepControl(rtol=1e-8, min_dt=1e-6, max_dt=0.25)
+
+    def run(dev):
+        y = from_complex(psi, torch.float64, device=dev)
+        if case == "rk_rhs_pair":
+            return ensemble_solve(
+                lambda t, x: model.rhs_pair(t, x, torch.float64), y, 0.0,
+                1.0, ctl=ctl, h0=1e-3, save_at=(0.5,))
+        if case == "rk_vdp_params":
+            def f(t, x, p):
+                return torch.stack([x[1], p * (1 - x[0] ** 2) * x[1] - x[0]])
+            return ensemble_solve(
+                f, torch.as_tensor(y_vdp, device=dev), 0.0, 2.0, ctl=ctl,
+                h0=torch.full((40,), 1e-2, dtype=torch.float64, device=dev),
+                params=torch.linspace(0.5, 3.0, 40, dtype=torch.float64,
+                                      device=dev))
+        if case == "rk4_vdp":
+            return ensemble_solve(
+                VanDerPol(mu=1.5).rhs, torch.as_tensor(y_vdp, device=dev),
+                0.0, 1.0, stepper=RungeKutta(RK4), adaptive=False, h0=0.01)
+        if case == "magnus4_unbatched":
+            return ensemble_solve(
+                lambda t: model.op_pair(t, torch.float64, device=dev), y,
+                0.0, 1.0, stepper=texp.Magnus4(texp.DenseCplxSplit(),
+                                               batched=False),
+                ctl=StepControl(rtol=1e-6, min_dt=1e-6, max_dt=0.25),
+                h0=1e-2)
+        chain = TightBindingChain(n=16, J=1.0, seed=3, w=2.0)
+        return ensemble_solve(
+            lambda t: chain.ops_pair(t, torch.float64, device=dev), y, 0.0,
+            1.0, stepper=texp.SplitMidpoint(texp.DenseCplxSplit(),
+                                            texp.DiagonalCplxSplit()),
+            adaptive=False, h0=0.05)
+
+    gpu = _same_on_both(run)
+    assert bool((gpu.status == DONE).all())
+
+
+@pytest.mark.parametrize("case", ["rkf45_events", "backward_saves",
+                                  "magnus4_dense", "strang_split"])
+def test_scalar_tier_on_the_card_matches_the_cpu_f64(card, case):
+    from vec_ode_tpu_torch import solve_ivp, solve_linear
+    from vec_ode_tpu_torch.events import Event
+    from vec_ode_tpu_torch.models import (LinearConstant, TightBindingChain,
+                                          stable_dense_matrix)
+
+    A = stable_dense_matrix(8, seed=0, device="cpu")
+    ctl = StepControl(rtol=1e-10, min_dt=1e-10, max_dt=0.5)
+    model = DrivenDense.make(d=8, seed=0)
+    chain = TightBindingChain(n=8, J=1.0, seed=3, w=2.0)
+    psi = np.zeros(8, complex)
+    psi[4] = 1.0
+
+    def run(dev):
+        m = LinearConstant(A.to(dev))
+        y0 = torch.linspace(0.3, 1.0, 8, dtype=torch.float64, device=dev)
+        if case == "rkf45_events":
+            return solve_ivp(m.rhs, 0.0, 2.0, y0, ctl=ctl, h0=1e-3,
+                             events=Event(lambda t, y: y[0] - 0.1))
+        if case == "backward_saves":
+            return solve_ivp(m.rhs, 2.0, 0.0, y0, ctl=ctl, h0=1e-3,
+                             save_at=[0.5, 1.5])
+        y = from_complex(psi, torch.float64, device=dev)
+        if case == "magnus4_dense":
+            return solve_linear(
+                lambda t: model.op_pair(t, torch.float64, device=dev), 0.0,
+                1.0, y, stepper=texp.Magnus4(texp.DenseCplxSplit()),
+                adaptive=True, ctl=StepControl(rtol=1e-8), h0=1e-2)
+        return solve_linear(
+            lambda t: chain.ops_pair(t, torch.float64, device=dev), 0.0,
+            2.0, y, stepper=texp.ExpMidpoint(texp.StrangSplit(
+                texp.DenseCplxSplit(), texp.DiagonalCplxSplit())), h0=0.05)
+
+    gpu = _same_on_both(run, atol=1e-12)
+    assert int(gpu.status) == DONE
+
+
+def test_solve_ivp_puts_a_python_y0_on_the_card(card):
+    """A float y0 with no device named is solved on the card: its state,
+    times and counters lie there and equal the CPU solve's."""
+    from vec_ode_tpu_torch import solve_ivp
+
+    ctl = StepControl(rtol=1e-10)
+
+    def run(dev):
+        kw = {} if dev == "cuda" else dict(device=dev)
+        return solve_ivp(lambda t, y: -y, 0.0, 2.0, 1.0, ctl=ctl,
+                         save_at=[0.5, 1.0], **kw)
+
+    gpu = _same_on_both(run)
+    assert gpu.y_final.device.type == gpu.ts.device.type == "cuda"
+    assert gpu.y_final.dtype == torch.float64
+    assert int(gpu.status) == DONE
+
+
+def test_rhs_pair_under_vmap_matches_the_unbatched_call_on_the_card(card):
+    model = DrivenDense.make(d=64, seed=0)
+    rng = np.random.default_rng(3)
+    psi = rng.standard_normal((256, 64)) + 1j * rng.standard_normal(
+        (256, 64))
+    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-13)):
+        y = from_complex(psi, dtype, device="cuda")
+        ts = torch.linspace(0.0, 1.0, 256, dtype=dtype, device="cuda")
+        got = torch.func.vmap(lambda t, x: model.rhs_pair(t, x, dtype))(
+            ts, y)
+        for b in (0, 77, 255):
+            one = model.rhs_pair(ts[b], Cplx(y.re[b], y.im[b]), dtype)
+            assert (got.re[b] - one.re).abs().max().item() <= tol
+            assert (got.im[b] - one.im).abs().max().item() <= tol
+        cpu = model.rhs_pair(ts.cpu()[:, None], Cplx(y.re.cpu(), y.im.cpu()),
+                             dtype)
+        assert (got.re.cpu() - cpu.re).abs().max().item() <= tol

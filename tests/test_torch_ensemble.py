@@ -4,6 +4,7 @@ ensemble_solve`` over the fused RKF45 stepper, against the JAX package's
 inputs, and against the native C++ oracle for a constant operator."""
 
 import dataclasses
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +21,7 @@ import vec_ode_tpu_torch as vt
 from vec_ode_tpu_torch import convert
 from vec_ode_tpu_torch import exp as texp
 from vec_ode_tpu_torch.parallel import ensemble_solve
+from test_torch_rk import H_FINAL_TIGHT
 
 torch.set_num_threads(1)
 
@@ -144,16 +146,12 @@ def test_bad_inputs_raise_value_error(kw):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(stepper=None), dict(mesh=object()), dict(method="scan"),
-    # the vmapped tier: a generic exponential stepper asked not to batch
-    dict(stepper=texp.Magnus4(texp.DenseCplxSplit(), batched=False)),
-    # scaled_error with an auto-batched generic stepper, and dense output
-    # on the vmapped tier (events and dense output on batched steppers are
-    # ported: tests/test_torch_events.py, test_torch_dense.py)
-    dict(stepper=texp.Magnus4(texp.DenseCplxSplit()),
-         ctl=vt.StepControl(scaled_error=True)),
+    dict(mesh=object()), dict(method="scan"),
+    # dense output on the vmapped tier (events and dense output on batched
+    # steppers are ported: tests/test_torch_events.py, test_torch_dense.py)
     dict(stepper=texp.Magnus4(texp.DenseCplxSplit(), batched=False),
          dense=True),
+    # an opaque norm on a natively batched stepper
     dict(error_norm=lambda e: e),
 ])
 def test_unported_options_raise_not_implemented(kw):
@@ -163,6 +161,63 @@ def test_unported_options_raise_not_implemented(kw):
     y0 = convert.state_from_numpy(psi.real, psi.imag, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ensemble_solve(None, y0, 0.0, 1.0, h0=1e-3, **kw)
+
+
+# the calls the vmapped tier now runs, which raised before it was ported:
+# stepper=None (RKF45 over a per-trajectory RHS), a generic exponential
+# stepper asked not to batch, and scaled_error with an auto-batched one
+VMAPPED = {
+    "stepper_none": lambda lib: dict(stepper=None),
+    "magnus4_unbatched": lambda lib: dict(stepper=lib.Magnus4(
+        lib.DenseCplxSplit(), batched=False)),
+    "magnus4_scaled_error": lambda lib: dict(stepper=lib.Magnus4(
+        lib.DenseCplxSplit())),
+}
+
+
+@functools.cache
+def _vmapped_want(name):
+    model, _, _, psi = _problem(2, d=3)
+    ctl = dict(rtol=1e-8, max_dt=0.25,
+               scaled_error=name == "magnus4_scaled_error")
+    if name == "stepper_none":
+        fn = (lambda t, y: model.rhs_pair(t, y, jnp.float64))
+    else:
+        fn = (lambda t: model.op_pair(t, jnp.float64))
+    from vec_ode_tpu import exp as vexp
+    return jax_ensemble_solve(fn, jcp.from_complex(psi, jnp.float64), 0.0,
+                              1.0, h0=1e-3, ctl=vo.StepControl(**ctl),
+                              **VMAPPED[name](vexp))
+
+
+@pytest.mark.parametrize("name", sorted(VMAPPED))
+def test_vmapped_tier_calls_match_jax(name):
+    model, _, _, psi = _problem(2, d=3)
+    from vec_ode_tpu_torch.models import DrivenDense
+    tmodel = DrivenDense(H0=np.array(model.H0), V=np.array(model.V),
+                         w=model.w)
+    ctl = dict(rtol=1e-8, max_dt=0.25,
+               scaled_error=name == "magnus4_scaled_error")
+    if name == "stepper_none":
+        fn = (lambda t, y: tmodel.rhs_pair(t, y, torch.float64))
+    else:
+        fn = (lambda t: tmodel.op_pair(t, torch.float64, device="cpu"))
+    got = ensemble_solve(fn, convert.state_from_numpy(psi.real, psi.imag,
+                                                      device="cpu"),
+                         0.0, 1.0, h0=1e-3, ctl=vt.StepControl(**ctl),
+                         **VMAPPED[name](texp))
+    want = _vmapped_want(name)
+    assert got.path == "torch-driver"
+    g = convert.solution_to_numpy(got)
+    for k in COUNTERS:
+        np.testing.assert_array_equal(g[k], np.asarray(getattr(want, k)),
+                                      err_msg=k)
+    for part in ("re", "im"):
+        np.testing.assert_allclose(getattr(g["y_final"], part),
+                                   np.asarray(getattr(want.y_final, part)),
+                                   rtol=1e-12, atol=1e-14)
+    np.testing.assert_allclose(g["h_final"], np.asarray(want.h_final),
+                               rtol=H_FINAL_TIGHT)
 
 
 def test_scaled_error_needs_the_loop_kernel():

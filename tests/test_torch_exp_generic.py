@@ -456,21 +456,15 @@ def test_refusals_name_what_is_missing():
                            lo=y0)
     with pytest.raises(NotImplementedError, match="item 26"):
         texp.Magnus4(sp, norm=lambda e: e)
-    # the vmapped tier: batched=False, or a split that cannot batch
-    for st in (texp.Magnus4(sp, batched=False),
-               texp.Magnus4(texp.DiagonalCplxSplit()),
-               texp.SplitMidpoint(sp, texp.DiagonalCplxSplit())):
-        with pytest.raises(NotImplementedError, match="item"):
-            ensemble_solve(_top(), y0, 0.0, TF, stepper=st, h0=0.02)
+    # the vmapped tier (batched=False, a split that cannot batch, and
+    # scaled_error on an auto-batched stepper) runs: see
+    # test_vmapped_tier_steppers_match_jax
     with pytest.raises(ValueError, match="dense split"):
         ensemble_solve(_top(), y0, 0.0, TF, h0=0.02, stepper=texp.Magnus4(
             texp.DiagonalCplxSplit(), batched=True))
-    # scaled_error needs the error vector: the JAX package drops an
-    # auto-batched stepper to the vmapped tier and refuses batched=True
+    # scaled_error needs the error vector: the JAX package refuses it for
+    # batched=True
     ctl = vt.StepControl(scaled_error=True, **CTL)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ensemble_solve(_top(), y0, 0.0, TF, stepper=texp.Magnus4(sp),
-                       ctl=ctl, h0=0.02)
     with pytest.raises(ValueError, match="scaled_error"):
         ensemble_solve(_top(), y0, 0.0, TF, ctl=ctl, h0=0.02,
                        stepper=texp.Magnus4(sp, batched=True))
@@ -490,6 +484,69 @@ def test_refusals_name_what_is_missing():
     with pytest.raises(ValueError, match="weights"):
         ensemble_solve(_top(), y0, 0.0, TF, stepper=texp.Magnus4(sp),
                        error_norm=lc.WeightedNorm("l2", (1.0, 2.0)), h0=0.02)
+
+
+def _diag(op):
+    """The diagonal of a dense Cplx operator callback."""
+    def fn(t):
+        L = op(t)
+        return type(L)(L.re.diagonal(0, -2, -1), L.im.diagonal(0, -2, -1))
+    return fn
+
+
+# the steppers the vmapped tier runs, which raised before it was ported:
+# (stepper, operator callback kind, controller)
+VMAPPED = {
+    "magnus4_unbatched": (lambda ex: ex.Magnus4(ex.DenseCplxSplit(),
+                                                batched=False), "dense", {}),
+    "magnus4_diagonal": (lambda ex: ex.Magnus4(ex.DiagonalCplxSplit()),
+                         "diag", {}),
+    "split_midpoint_diagonal": (lambda ex: ex.SplitMidpoint(
+        ex.DenseCplxSplit(), ex.DiagonalCplxSplit()), "pair", None),
+    "magnus4_scaled_error": (lambda ex: ex.Magnus4(ex.DenseCplxSplit()),
+                             "dense", dict(scaled_error=True)),
+}
+
+
+def _vmapped_fn(kind, side):
+    """The dense operator, its diagonal, or the (dense, diagonal) pair."""
+    op = _jop if side == "jax" else _top()
+    if side == "jax":
+        diag = (lambda t: jcp.Cplx(jnp.diagonal(op(t).re),
+                                   jnp.diagonal(op(t).im)))
+    else:
+        diag = _diag(op)
+    return {"dense": op, "diag": diag,
+            "pair": lambda t: (op(t), diag(t))}[kind]
+
+
+@functools.cache
+def _vmapped_want(name):
+    make, kind, ctl = VMAPPED[name]
+    kw = (dict(adaptive=False) if ctl is None else
+          dict(ctl=vo.StepControl(**dict(CTL, **ctl))))
+    return jensemble_solve(_vmapped_fn(kind, "jax"),
+                           jcp.from_complex(_psi((B,)), jnp.float64), 0.0,
+                           TF, stepper=make(vexp), h0=0.02, **kw)
+
+
+@pytest.mark.parametrize("name", sorted(VMAPPED))
+def test_vmapped_tier_steppers_match_jax(name):
+    make, kind, ctl = VMAPPED[name]
+    kw = (dict(adaptive=False) if ctl is None else
+          dict(ctl=vt.StepControl(**dict(CTL, **ctl))))
+    got = ensemble_solve(_vmapped_fn(kind, "torch"),
+                         tcp.from_complex(_psi((B,)), device="cpu"), 0.0,
+                         TF, stepper=make(texp), h0=0.02, **kw)
+    want = _vmapped_want(name)
+    assert got.path == "torch-driver"
+    for k in ("status", "n_accept", "n_reject", "n_iters"):
+        np.testing.assert_array_equal(getattr(got, k).numpy(),
+                                      np.asarray(getattr(want, k)),
+                                      err_msg=k)
+    _pair_close(got.y_final, want.y_final, 1e-12)
+    np.testing.assert_allclose(got.h_final.numpy(), np.asarray(want.h_final),
+                               rtol=1e-9)
 
 
 def test_state_layout_helpers_round_trip():

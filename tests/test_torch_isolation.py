@@ -16,9 +16,10 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "vec_ode_tpu_torch"
 
 # the modules of the adjoint and generic exponential paths, beside the
-# earlier ones; NAMES, what the order-6 / CFM modulated path, the events
-# and dense output, and the black-box front door (auto_modulated,
-# ChebForm) and quadrature added to them
+# earlier ones, and those of the front door (rk, api, the models, the
+# splits); NAMES, what the order-6 / CFM modulated path, the events and
+# dense output, the black-box front door (auto_modulated, ChebForm),
+# quadrature and the front door added to them
 NAMES = {"exp": ["MagnusModulated6", "CFMModulated", "CFM4Modulated",
                  "CfmTable"],
          "models": ["Lindblad"],
@@ -32,12 +33,26 @@ NAMES = {"exp": ["MagnusModulated6", "CFMModulated", "CFM4Modulated",
          "exp.auto": ["auto_modulated"],
          "quad": ["gauss_legendre", "fixed_quad", "trapezoid",
                   "averaged_operator"],
-         "": ["auto_modulated", "ChebForm", "quad"]}
+         "": ["auto_modulated", "ChebForm", "quad", "solve_ivp",
+              "solve_linear", "RungeKutta", "rk_step", "TABLEAUS"],
+         "rk": ["rk_step", "rk_step_stages", "RungeKutta"],
+         "api": ["solve_ivp", "solve_linear"],
+         "lc": ["axpy", "zeros_like", "norm_max", "norm_rms", "vdot"],
+         "models.linear": ["stable_dense_matrix", "LinearConstant",
+                           "DecayDiag"],
+         "models.nonlinear": ["VanDerPol", "LotkaVolterra", "Brusselator"],
+         "models.chains": ["TightBindingChain"],
+         "exp.splits": ["CommutativeSplit", "StrangSplit",
+                        "SemiComplexO4Split", "TripleJumpSplit",
+                        "RKNR4Split"],
+         "tableaus": ["RKN_O4_A", "TJ_O4_B", "SEMI_COMPLEX_O4_B"]}
 MODULES = ["exp.auto", "quad", "events", "dense", "diff", "ops.adjoint",
            "ops.expm", "ops.dense_chains", "ops.cplx", "ops.expmv",
            "ops.fused_rk", "ops.fused_loop", "exp.protocol", "exp.leaves",
            "exp.dense_fast", "exp.magnus", "exp.cfm", "exp.split_solvers",
-           "exp.modulated", "models.quantum", "parallel.ensemble", "convert"]
+           "exp.modulated", "models.quantum", "parallel.ensemble", "convert",
+           "rk", "api", "models.linear", "models.nonlinear", "models.chains",
+           "exp.splits"]
 
 PROBE = f"MODULES = {MODULES!r}; NAMES = {NAMES!r}" + """
 import importlib, pkgutil, sys

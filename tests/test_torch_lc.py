@@ -137,3 +137,89 @@ def test_vector_space_ops_keep_the_state_dtype_and_check_lengths():
         lc.lincomb([], [])
     with pytest.raises(ValueError):
         lc.lincomb([x], [1.0, 2.0])
+
+
+# -- the norms on complex leaves, and the rest of the vector space ------------
+
+def _complex_trees(dtype):
+    """A complex leaf, a batch of them, and a mixed pytree (a complex and
+    a real leaf), as numpy arrays of ``dtype``."""
+    rng = np.random.default_rng(9)
+    rdt = np.float32 if dtype == np.complex64 else np.float64
+    z = (rng.standard_normal((B, D)) + 1j * rng.standard_normal((B, D)))
+    r = rng.standard_normal((B, 3)).astype(rdt)
+    return z.astype(dtype), {"a": z.astype(dtype), "b": r}
+
+
+def _to(lib, tree):
+    conv = jnp.asarray if lib == "jax" else torch.as_tensor
+    if isinstance(tree, dict):
+        return {k: conv(v) for k, v in tree.items()}
+    return conv(tree)
+
+
+@pytest.mark.parametrize("dtype", [np.complex64, np.complex128])
+def test_norms_are_real_on_complex_leaves(dtype):
+    """|a|^2 is real(a conj(a)), as in the JAX package: a * a would give a
+    complex 'norm' (0.4859+2.0582j for [1+1j, 2j] on the parent)."""
+    tol = 1e-6 if dtype == np.complex64 else 1e-14
+    got = lc.norm_l2(torch.tensor([1 + 1j, 2j], dtype=getattr(
+        torch, np.dtype(dtype).name)))
+    assert not got.is_complex()
+    np.testing.assert_allclose(got.item(), np.sqrt(6.0), rtol=tol)
+    z, tree = _complex_trees(dtype)
+    for v in (z, tree):
+        for fn in ("norm_l2", "norm_l2_batched"):
+            want = np.asarray(getattr(jlc, fn)(_to("jax", v)))
+            g = getattr(lc, fn)(_to("torch", v))
+            assert not g.is_complex()
+            assert g.dtype == getattr(torch, want.dtype.name), fn
+            np.testing.assert_allclose(g.numpy(), want, rtol=tol)
+
+
+def test_norms_on_real_leaves_keep_their_bits():
+    """On real leaves the repaired norms reduce a * a as before."""
+    re, im = _errs()
+    x = Cplx(torch.as_tensor(re), torch.as_tensor(im))
+    want = torch.sqrt(torch.sum(x.re * x.re) + torch.sum(x.im * x.im))
+    assert torch.equal(lc.norm_l2(x), want)
+    want_b = torch.sqrt(torch.sum(x.re * x.re, dim=1)
+                        + torch.sum(x.im * x.im, dim=1))
+    assert torch.equal(lc.norm_l2_batched(x), want_b)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.complex128])
+def test_axpy_norms_vdot_match_jax(dtype):
+    rng = np.random.default_rng(4)
+
+    def tree(seed):
+        r = np.random.default_rng(seed)
+        a = r.standard_normal((3, 4)).astype(dtype)
+        if dtype == np.complex128:
+            a = a + 1j * r.standard_normal((3, 4))
+        return {"a": a, "b": (r.standard_normal(2), r.standard_normal(()))}
+
+    u, v = tree(1), tree(2)
+    ju = {"a": jnp.asarray(u["a"]), "b": tuple(jnp.asarray(x)
+                                             for x in u["b"])}
+    jv = {"a": jnp.asarray(v["a"]), "b": tuple(jnp.asarray(x)
+                                             for x in v["b"])}
+    tu = {"a": torch.as_tensor(u["a"]), "b": tuple(torch.as_tensor(x)
+                                                 for x in u["b"])}
+    tv = {"a": torch.as_tensor(v["a"]), "b": tuple(torch.as_tensor(x)
+                                                 for x in v["b"])}
+    k = float(rng.uniform())
+    want = jlc.axpy(k, ju, jv)
+    got = lc.axpy(k, tu, tv)
+    np.testing.assert_allclose(got["a"].numpy(), np.asarray(want["a"]),
+                               rtol=1e-15)
+    for g, w in zip(got["b"], want["b"]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-15)
+    for fn in ("norm_l2", "norm_max", "norm_rms"):
+        np.testing.assert_allclose(getattr(lc, fn)(tu).numpy(),
+                                   np.asarray(getattr(jlc, fn)(ju)),
+                                   rtol=1e-14, err_msg=fn)
+    np.testing.assert_allclose(lc.vdot(tu, tv).numpy(),
+                               np.asarray(jlc.vdot(ju, jv)), rtol=1e-14)
+    z = lc.zeros_like(tu)
+    assert z["a"].dtype == tu["a"].dtype and not z["a"].any()

@@ -38,7 +38,9 @@ def test_tableau_equal(name):
 
 @pytest.mark.parametrize("name", ["C_GAUSS_LEGENDRE_4", "C_GAUSS_LEGENDRE_6",
                                   "CFM_R2_J1_GL", "CFM_R4_J2_GL",
-                                  "BLANES17_R4_J4"])
+                                  "BLANES17_R4_J4", "RKN_O4_A", "RKN_O4_B",
+                                  "TJ_O4_A", "TJ_O4_B", "SEMI_COMPLEX_O4_A",
+                                  "SEMI_COMPLEX_O4_B"])
 def test_quadrature_and_cfm_tables_equal(name):
     want, got = getattr(jt, name), getattr(tt, name)
     assert got.dtype == want.dtype and got.shape == want.shape

@@ -1,14 +1,16 @@
 """Where the time of one main-path solve goes on a CUDA card.
 
-    python -m tools.profile_solve [--out DIR]
+    python -m tools.profile_solve [--path main|generic-rk] [--out DIR]
 
 Run from the repository root, on a machine with one CUDA card and nvcc.
 It builds the kernels, warms up, and times five plain solves of
 chip_smoke.py's main path (16 384 trajectories of the 64-dim complex
 driven system, adaptive RKF45, f32, through
-``vec_ode_tpu_torch.parallel.ensemble_solve``), then runs one more solve
-under ``torch.profiler`` and prints, each on a line with the card's name
-and power limit:
+``vec_ode_tpu_torch.parallel.ensemble_solve``; with ``--path
+generic-rk`` the same states through the generic vmapped RKF45 ensemble
+over ``DrivenDense.rhs_pair``, which runs no hand kernel and needs no
+build), then runs one more solve under ``torch.profiler`` and prints,
+each on a line with the card's name and power limit:
 
 * the host wall time of the profiled solve and its driver iterations;
 * device busy time: the union of the intervals of every device activity
@@ -17,7 +19,9 @@ and power limit:
 * device kernels launched, in all and per driver iteration, with the
   runtime's kernel-launch calls, the host syncs and the aten operators
   (outermost ones, and all levels) that issued them;
-* the device kernels by total time.
+* the device kernels by total time;
+* on the generic path, the GEMM kernels a stage (six stages an
+  iteration) and the other kernels an iteration.
 
 The full operator table, a Chrome trace and a JSON summary go to DIR
 (default ``build/profile``).
@@ -61,10 +65,10 @@ def busy_us(intervals) -> float:
     return total
 
 
-def host_wall_ms(st, y0) -> float:
+def host_wall_ms(run) -> float:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    chip_smoke.solve(st, y0)
+    run()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3
 
@@ -106,6 +110,8 @@ def summarize(prof, wall_ms: float, n_iters: int, k1_launches: int) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--path", choices=("main", "generic-rk"),
+                    default="main", help="the solve to profile")
     ap.add_argument("--out", default="build/profile",
                     help="directory for the table, trace and summary")
     args = ap.parse_args()
@@ -113,11 +119,22 @@ def main() -> None:
     out.mkdir(parents=True, exist_ok=True)
 
     card = chip_smoke.device_phase()
-    chip_smoke.build_phase(card)
+    generic = args.path == "generic-rk"
+    if not generic:
+        chip_smoke.build_phase(card)
     st, y0 = chip_smoke.main_inputs()
+    if generic:
+        chip_smoke.check_ieee_products()
+        model = chip_smoke.DrivenDense.make(d=chip_smoke.DIM, seed=0)
+
+        def run():
+            return chip_smoke.generic_rk_solve(model, y0)
+    else:
+        def run():
+            return chip_smoke.solve(st, y0)
     for _ in range(2):
-        chip_smoke.solve(st, y0)
-    walls = [host_wall_ms(st, y0) for _ in range(5)]
+        run()
+    walls = [host_wall_ms(run) for _ in range(5)]
     print(f"[profile] unprofiled solves, host wall: median "
           f"{statistics.median(walls):.3f} ms of "
           f"{[round(w, 3) for w in walls]} ({card})", flush=True)
@@ -127,7 +144,7 @@ def main() -> None:
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        sol = chip_smoke.solve(st, y0)
+        sol = run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     s = summarize(prof, wall_ms, int(sol.n_iters.max()),
@@ -152,6 +169,15 @@ def main() -> None:
           f"({s['k1_ms'] / max(s['k1_count'], 1):.4f} ms each), "
           f"{s['k1_ms'] / s['device_busy_ms']:.1%} of device busy time "
           f"({card})", flush=True)
+    if generic:
+        stages = it * chip_smoke.RKF45.stages
+        gemm = sum(c for n, c, _ in s["kernels_by_time"]
+                   if "gemm" in n.lower())
+        print(f"[profile] generic path: {gemm} GEMM kernels, "
+              f"{gemm / stages:.2f} a stage over {stages} stages; "
+              f"{(s['device_kernels'] - gemm) / it:.1f} other kernels an "
+              f"iteration ({card})", flush=True)
+        s["gemm_kernels"], s["stages"] = gemm, stages
     for name, count, ms in s["kernels_by_time"][:12]:
         print(f"[profile]   {ms:9.3f} ms {count:6d}x  {name[:110]}",
               flush=True)

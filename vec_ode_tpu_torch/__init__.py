@@ -1,7 +1,15 @@
 """vec_ode_tpu_torch: the PyTorch / CUDA port of vec_ode_tpu.
 
-Grows beside the JAX package, which stays the reference. So far it runs
-three ensemble paths through ``parallel.ensemble_solve``: the adaptive
+Grows beside the JAX package, which stays the reference. Its front door
+is the JAX package's: ``solve_ivp`` (dx/dt = f(t, y) over any pytree
+state with ``RungeKutta``, default RKF45) and ``solve_linear`` (an
+exponential stepper over ``op_fn(t)``, with the split solvers and the
+composite splits of ``exp.splits``) solve one problem on the driver's
+scalar carry, and ``parallel.ensemble_solve(f, y0_batch, ...)`` a batch
+of them on the vmapped tier (``torch.func.vmap`` of the per-trajectory
+step); the models of ``models`` (linear, nonlinear, chains, quantum) come
+with them. Beside that it runs three natively batched ensemble paths
+through ``parallel.ensemble_solve``: the adaptive
 embedded-RK stepper ``ops.fused_rk.FusedModulatedLinearRK`` (dx/dt =
 (M0 + cos(wt) M1) x with shared matrices), the modulated exponential
 steppers ``exp.MidpointModulated`` / ``MagnusModulated4`` /
@@ -25,8 +33,9 @@ Gauss-Legendre and trapezoid quadratures. This package imports neither
 jax nor vec_ode_tpu.
 """
 
-from . import (controller, convert, dense, diff, driver, events, exp, lc,
-               models, ops, parallel, quad, tableaus)
+from . import (api, controller, convert, dense, diff, driver, events, exp,
+               lc, models, ops, parallel, quad, rk, tableaus)
+from .api import solve_ivp, solve_linear
 from .controller import StepControl
 from .driver import (
     DONE,
@@ -52,6 +61,7 @@ from .events import (Event, EventConfig, LinearObservable,
                      QuadraticObservable)
 from .exp import ChebForm, auto_modulated
 from .models import PulseControl
+from .rk import RungeKutta, rk_step
 from .tableaus import (
     BOSH32,
     CASH_KARP,
@@ -69,6 +79,12 @@ from .tableaus import (
 __version__ = "0.1.0"
 
 __all__ = [
+    "api",
+    "rk",
+    "solve_ivp",
+    "solve_linear",
+    "RungeKutta",
+    "rk_step",
     "controller",
     "convert",
     "dense",

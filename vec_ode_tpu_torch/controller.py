@@ -20,6 +20,7 @@ import math
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,20 +136,15 @@ def controller_update(h: torch.Tensor, err_norm: torch.Tensor,
 
 def error_measure(err_norm_fn, x, x_next, err, ctl: StepControl):
     """The value the controller compares against rtol: ``||err||``, or with
-    ``scaled_error`` ``||err / (atol + rtol*max(|x|, |x_next|))|| * rtol``.
-    ``x``, ``x_next`` and ``err`` are tensors or ``Cplx`` pairs."""
+    ``scaled_error`` ``||err / (atol + rtol*max(|x|, |x_next|))|| * rtol``,
+    leaf by leaf over the state's pytree."""
     if not ctl.scaled_error:
         return err_norm_fn(err)
 
     def scale(e, a, b):
         return e / (ctl.atol + ctl.rtol * torch.maximum(a.abs(), b.abs()))
 
-    if isinstance(err, tuple):
-        scaled = type(err)(*(scale(e, a, b)
-                             for e, a, b in zip(err, x, x_next)))
-    else:
-        scaled = scale(err, x, x_next)
-    return err_norm_fn(scaled) * ctl.rtol
+    return err_norm_fn(pytree.tree_map(scale, err, x, x_next)) * ctl.rtol
 
 
 def end_tolerance(t_ref: torch.Tensor, strict: bool = False) -> torch.Tensor:

@@ -1,6 +1,7 @@
-"""The batched integration driver: the step-control state machine of
-``vec_ode_tpu/driver.py`` (``step_once`` / ``integrate``) over a natively
-batched carry, in eager torch.
+"""The integration driver: the step-control state machine of
+``vec_ode_tpu/driver.py`` (``step_once`` / ``integrate``) in eager torch,
+over one trajectory (``batch_shape=()``, the scalar carry) or a natively
+batched carry.
 
 Each iteration computes boolean masks per trajectory (stepping /
 at-checkpoint / at-end / accept) and applies ``where``-selected updates,
@@ -56,7 +57,8 @@ EVT_END = 4      # end reached
 
 
 class IntState(NamedTuple):
-    """Loop carry; every per-trajectory field has a leading batch axis."""
+    """Loop carry; every per-trajectory field has the leading batch axes
+    (none for the scalar carry)."""
 
     t: torch.Tensor
     t_lo: torch.Tensor    # residual word of the compensated (hi, lo) time
@@ -98,9 +100,10 @@ def make_grid(t0, tf, save_at=None, dtype=torch.float64, device="cuda"):
 
 
 def init_state(x0: Pytree, t_grid: torch.Tensor, h0,
-               batch_shape: tuple, event_state: Pytree = ()) -> IntState:
-    """The batched loop carry at t0. Every leaf of ``x0`` carries the
-    leading ``batch_shape``; ``h0`` is a scalar or per-trajectory;
+               batch_shape: tuple = (), event_state: Pytree = ()) -> IntState:
+    """The loop carry at t0. Every leaf of ``x0`` carries the leading
+    ``batch_shape`` (``()``: one trajectory); ``h0`` is a scalar or
+    per-trajectory;
     ``event_state`` is an ``events.EventState`` or ()."""
     tdt, dev = t_grid.dtype, t_grid.device
     n_grid = t_grid.shape[0]
@@ -134,22 +137,32 @@ def init_state(x0: Pytree, t_grid: torch.Tensor, h0,
     )
 
 
-def step_once(state: IntState, step_fn: Callable, *, adaptive: bool,
-              ctl: StepControl, error_norm: Callable = lc.norm_l2_batched,
-              record_ys: bool = True, event_cfg=None) -> IntState:
-    """One driver iteration over the whole batch (the batched branch of
-    the JAX ``step_once``, without ``grad_safe``).
+def _default_norm(batched: bool) -> Callable:
+    return lc.norm_l2_batched if batched else lc.norm_l2
 
-    ``step_fn(t, x, dt) -> (x_next, err)`` is called for every lane;
-    lanes that do not step get dt = 0. ``err`` may be None for a stepper
+
+def step_once(state: IntState, step_fn: Callable, *, adaptive: bool,
+              ctl: StepControl, error_norm: Optional[Callable] = None,
+              record_ys: bool = True, event_cfg=None) -> IntState:
+    """One driver iteration over one trajectory or the whole batch (the
+    JAX ``step_once``, without ``grad_safe``).
+
+    ``step_fn(t, x, dt) -> (x_next, err)`` is called on every iteration;
+    lanes that do not step get dt = 0, and their results are discarded
+    (the scalar JAX driver skips the call on such iterations instead: the
+    same result, one evaluation fewer). ``err`` may be None for a stepper
     with no error estimate, which adaptive mode refuses. ``error_norm``
-    reduces ``err`` per trajectory (the identity for steppers that return
-    norms already). ``record_ys=False`` skips recording the save grid.
+    reduces ``err`` per trajectory (default ``lc.norm_l2`` for the scalar
+    carry, ``lc.norm_l2_batched`` for a batched one; the identity for
+    steppers that return norms already). ``record_ys=False`` skips
+    recording the save grid.
     ``event_cfg`` (an ``events.EventConfig``, with ``state.ev`` its state)
     runs the event search as step control: a search vetoes the advance
     before it is applied, and its step size overrides the controller's
     after the grid-hit restore.
     """
+    if error_norm is None:
+        error_norm = _default_norm(state.t.ndim > 0)
     t_grid = state.ts_grid
     n_grid = t_grid.shape[0]
     running = state.status == RUNNING
@@ -341,14 +354,23 @@ class Solution:
         )
 
 
+_SCAN = ("method='scan', grad_safe and remat_levels (gradients through "
+         "the driver) are ROADMAP queue 1 item 22")
+
+
 def integrate(step_fn: Callable, x0: Pytree, t_grid: torch.Tensor, h0, *,
               adaptive: bool = True, ctl: StepControl = StepControl(),
-              error_norm: Callable = lc.norm_l2_batched,
-              method: str = "while", batch_shape: tuple,
-              event_cfg=None) -> Solution:
-    """Run the batched loop over [t_grid[0], t_grid[-1]] until no
-    trajectory is RUNNING; ``event_cfg`` (``events.EventConfig``) locates
-    events on the way."""
+              error_norm: Optional[Callable] = None,
+              method: str = "while", batch_shape: tuple = (),
+              event_cfg=None, remat_levels: int = 0,
+              grad_safe: bool = False) -> Solution:
+    """Run the loop over [t_grid[0], t_grid[-1]] until no trajectory is
+    RUNNING: one trajectory for ``batch_shape=()``, else a natively
+    batched carry; ``event_cfg`` (``events.EventConfig``) locates events
+    on the way. ``remat_levels`` and ``grad_safe`` raise
+    ``NotImplementedError`` (item 22)."""
+    if remat_levels or grad_safe:
+        raise NotImplementedError(_SCAN)
     ev0 = ()
     if event_cfg is not None:
         from .events import init_event_state
@@ -362,7 +384,7 @@ def integrate(step_fn: Callable, x0: Pytree, t_grid: torch.Tensor, h0, *,
 
 def resume(state: IntState, step_fn: Callable, *, adaptive: bool = True,
            ctl: StepControl = StepControl(),
-           error_norm: Callable = lc.norm_l2_batched,
+           error_norm: Optional[Callable] = None,
            method: str = "while", event_cfg=None) -> Solution:
     """Continue integration from an existing carry.
 
@@ -371,10 +393,10 @@ def resume(state: IntState, step_fn: Callable, *, adaptive: bool = True,
     trajectories that did not reach the end (the JAX driver does the
     same)."""
     if method != "while":
-        raise NotImplementedError(
-            f"method={method!r}: only the while-loop driver is ported "
-            "(method='scan' and gradients are ROADMAP slice 6)"
-        )
+        raise NotImplementedError(f"method={method!r}: {_SCAN}")
+    bn = state.t.ndim
+    if error_norm is None:
+        error_norm = _default_norm(bn > 0)
     elide_ys = state.ts_grid.shape[0] == 2
     init_x, init_ys, init_tgt = state.x, state.ys, state.tgt_idx
 
@@ -387,10 +409,12 @@ def resume(state: IntState, step_fn: Callable, *, adaptive: bool = True,
     ys = state.ys
     if elide_ys:
         ys0 = lc.tree_where(init_tgt == 0, init_x,
-                            pytree.tree_map(lambda a: a[:, 0], init_ys))
+                            pytree.tree_map(lambda a: a.select(bn, 0),
+                                            init_ys))
         ys1 = lc.tree_where(state.tgt_idx >= 2, state.x,
-                            pytree.tree_map(lambda a: a[:, 1], init_ys))
-        ys = pytree.tree_map(lambda a, b: torch.stack([a, b], dim=1),
+                            pytree.tree_map(lambda a: a.select(bn, 1),
+                                            init_ys))
+        ys = pytree.tree_map(lambda a, b: torch.stack([a, b], dim=bn),
                              ys0, ys1)
     ev_kw = {}
     if event_cfg is not None and len(pytree.tree_leaves(state.ev)) > 0:

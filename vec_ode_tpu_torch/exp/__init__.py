@@ -1,7 +1,7 @@
 """Exponential integrators, the counterpart of ``vec_ode_tpu/exp``: the
 modulated-operator fast path (with ``auto_modulated``, which recovers it
-from a black-box operator), and the generic steppers (Magnus, CFM, split
-solvers) over the split leaves."""
+from a black-box operator), the generic steppers (Magnus, CFM, split
+solvers) over the split leaves, and the composite splits."""
 
 from .auto import auto_modulated
 from .cfm import CFM, CFM4, CFM4_BLANES17, cfm_exp, cfm_step
@@ -18,6 +18,8 @@ from .modulated import (CFM4Modulated, CFMModulated, CfmTable, ChebForm,
 from .protocol import ExponentialSplit, index_u
 from .split_solvers import (SplitCFM, SplitMidpoint, split_cfm_step,
                             split_midpoint_step)
+from .splits import (CommutativeSplit, RKNR4Split, SemiComplexO4Split,
+                     StrangSplit, TripleJumpSplit)
 
 __all__ = [
     "AntiHermitianCplxSplit",
@@ -26,6 +28,11 @@ __all__ = [
     "CFM4",
     "CFM4_BLANES17",
     "CFM4Modulated",
+    "CommutativeSplit",
+    "RKNR4Split",
+    "SemiComplexO4Split",
+    "StrangSplit",
+    "TripleJumpSplit",
     "CFMModulated",
     "CfmTable",
     "ChebForm",

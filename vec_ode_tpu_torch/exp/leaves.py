@@ -59,14 +59,19 @@ class _SkewExpm(torch.autograd.Function):
     eigenvalue gaps) is ill-posed on every input. The backward is the
     exact Fréchet adjoint L*(M, G) = L(M^T, G) by the block exponential."""
 
+    generate_vmap_rule = True
+
     @staticmethod
-    def forward(ctx, M):
-        ctx.save_for_backward(M)
+    def forward(M):
         V, theta, MV = _skew_parts(M)
         # sin(theta) / theta, safe at 0
         sinc = torch.sinc(theta / math.pi)
         return (V * torch.cos(theta)[..., None, :]
                 + MV * sinc[..., None, :]) @ V.transpose(-1, -2)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0])
 
     @staticmethod
     def backward(ctx, G):

@@ -1,7 +1,8 @@
-"""Vector-space helpers over states that are tensors or ``Cplx`` pairs
-(scale, add, sub, lincomb, norms, ``tree_where``) and the declared error
-norm ``WeightedNorm`` (the parts of ``vec_ode_tpu/lc.py`` the batched
-driver, the exponential steppers and the kernels use)."""
+"""Vector-space helpers over pytree states (tensors, ``Cplx`` pairs,
+tuples, dicts): scale, add, sub, axpy, lincomb, ``zeros_like``, the l2 /
+max / rms norms, ``vdot``, ``tree_where``, and the declared error norm
+``WeightedNorm`` (the counterpart of ``vec_ode_tpu/lc.py``). The norms
+are real for complex leaves: they reduce |a|^2 = real(a conj(a))."""
 
 from __future__ import annotations
 
@@ -44,6 +45,11 @@ def sub(v, u):
     return pytree.tree_map(torch.sub, v, u)
 
 
+def axpy(k, u, v):
+    """v + k * u."""
+    return pytree.tree_map(lambda a, b: a + _match_scalar(k, b) * b, v, u)
+
+
 def lincomb(vs, ks):
     """sum_i ks[i] * vs[i] over same-structure pytrees, summed in order."""
     if len(vs) == 0 or len(ks) == 0:
@@ -60,9 +66,34 @@ def lincomb(vs, ks):
     return pytree.tree_map(leaf_comb, *vs)
 
 
+def zeros_like(v):
+    return pytree.tree_map(torch.zeros_like, v)
+
+
+def _abs2(a: torch.Tensor) -> torch.Tensor:
+    """|a|^2, real: a * a for a real leaf (the same bits as before complex
+    leaves were taken), real(a conj(a)) for a complex one."""
+    return torch.real(a * torch.conj(a)) if a.is_complex() else a * a
+
+
+def _reduce_leaves(v, leaf_fn, combine):
+    vals = [leaf_fn(a) for a in pytree.tree_leaves(v)]
+    acc = vals[0]
+    for x in vals[1:]:
+        acc = combine(acc, x)
+    return acc
+
+
 def norm_l2(v) -> torch.Tensor:
-    """Flat L2 norm over all leaves."""
-    return torch.sqrt(sum(torch.sum(a * a) for a in pytree.tree_leaves(v)))
+    """Flat L2 norm over all leaves (real, also for complex leaves)."""
+    return torch.sqrt(_reduce_leaves(v, lambda a: torch.sum(_abs2(a)),
+                                     torch.add))
+
+
+def norm_max(v) -> torch.Tensor:
+    """max |v_i| over all leaves."""
+    return _reduce_leaves(v, lambda a: torch.amax(torch.abs(a)),
+                          torch.maximum)
 
 
 def norm_l2_batched(v) -> torch.Tensor:
@@ -70,9 +101,27 @@ def norm_l2_batched(v) -> torch.Tensor:
     leading batch axis."""
     acc = None
     for a in pytree.tree_leaves(v):
-        s = torch.sum(a * a, dim=tuple(range(1, a.ndim)))
+        # torch reads an empty dim tuple as "every axis": a (B,) leaf is
+        # one value a trajectory and takes no reduction
+        axes = tuple(range(1, a.ndim))
+        s = torch.sum(_abs2(a), dim=axes) if axes else _abs2(a)
         acc = s if acc is None else acc + s
     return torch.sqrt(acc)
+
+
+def norm_rms(v) -> torch.Tensor:
+    """RMS norm: L2 / sqrt(n), n the number of entries over all leaves."""
+    n = sum(a.numel() for a in pytree.tree_leaves(v))
+    n2 = norm_l2(v)
+    return n2 / torch.sqrt(torch.tensor(float(n), dtype=n2.dtype,
+                                        device=n2.device))
+
+
+def vdot(u, v) -> torch.Tensor:
+    """<u, v> with conjugation on u, summed over all leaves."""
+    return _reduce_leaves(
+        pytree.tree_map(lambda a, b: torch.sum(torch.conj(a) * b), u, v),
+        lambda a: a, torch.add)
 
 
 def tree_where(mask: torch.Tensor, a, b):

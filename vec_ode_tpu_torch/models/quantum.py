@@ -99,7 +99,8 @@ class DrivenDense:
     w: float = 1.0
 
     def __post_init__(self):
-        # op_pair's operators by (dtype, device), made at first use
+        # the operators of op_pair, rhs and rhs_pair by (dtype, device),
+        # made at first use
         object.__setattr__(self, "_op_fns", {})
 
     @staticmethod
@@ -142,11 +143,54 @@ class DrivenDense:
         from ..convert import driven_op_from_numpy
 
         t = _time_on(t, device, "DrivenDense")
-        key = (dtype, t.device)
+        return self._cached((dtype, t.device), lambda: driven_op_from_numpy(
+            self.H0, self.V, self.w, dtype=dtype, device=t.device))(t)
+
+    def _cached(self, key, make):
+        """What ``make()`` returns, made once per key (the operators on
+        each (dtype, device))."""
         if key not in self._op_fns:
-            self._op_fns[key] = driven_op_from_numpy(
-                self.H0, self.V, self.w, dtype=dtype, device=t.device)
-        return self._op_fns[key](t)
+            self._op_fns[key] = make()
+        return self._op_fns[key]
+
+    def rhs(self, t, psi):
+        """dpsi/dt = -i H(t) psi on complex states (..., d): the operator
+        in complex128 (the cosine in float64) on psi's device, the product
+        in the promoted dtype. H0 and V go to the device once."""
+        dev = psi.device
+        td = _time_on(t, dev, "DrivenDense").to(torch.float64)
+        H0, V = self._cached(("rhs", dev), lambda: (
+            torch.as_tensor(self.H0, dtype=torch.complex128, device=dev),
+            torch.as_tensor(self.V, dtype=torch.complex128, device=dev)))
+        A = -1j * (H0 + torch.cos(self.w * td).to(torch.complex128) * V)
+        dt = torch.promote_types(A.dtype, psi.dtype)
+        return torch.einsum("ij,...j->...i", A.to(dt), psi.to(dt))
+
+    def rhs_pair(self, t, psi, dtype=torch.float32):
+        """dpsi/dt = -i H(t) psi on Cplx states (..., d), the ensemble RHS
+        of the JAX package's flagship entry: the cosine taken in ``dtype``
+        and applied to the V term's output, so that both terms are ONE
+        product of the widened state [re | im] with the shared (2d, 4d)
+        matrix [embed(-i H0)^T | embed(-i V)^T]; under ``torch.func.vmap``
+        that is one (B, 2d) x (2d, 4d) GEMM a stage, no (B, d, d) operator.
+        The matrix is made on psi's device once per (dtype, device)."""
+        from ..ops.cplx import Cplx, embed, from_complex
+
+        dev, d = psi.re.device, psi.re.shape[-1]
+
+        def make():
+            H0, V = (from_complex(m, dtype, device=dev)
+                     for m in (self.H0, self.V))
+            return torch.cat([embed(Cplx(H.im, -H.re)).T for H in (H0, V)],
+                             dim=-1).contiguous()
+
+        W = self._cached(("pair", dtype, dev), make)
+        c = torch.cos(self.w * _time_on(t, dev, "DrivenDense").to(dtype))
+        y = torch.cat([psi.re, psi.im], dim=-1) @ W
+        cv = c * y[..., 2 * d:]
+        # re and im each made contiguous, so that the stepper's stage sums
+        # over them take torch's vectorised elementwise kernels
+        return Cplx(y[..., :d] + cv[..., :d], y[..., d:2 * d] + cv[..., d:])
 
     def modulated(self, dtype=torch.float32, device="cuda"):
         """A(t) = -i H0 + cos(w t) (-i V) as a ModulatedOperator with the

@@ -8,9 +8,12 @@ for float64. These are batched products outside any kernel, so they are
 
 The squaring count is ONE scalar for the whole stack, from the largest
 1-norm over it (non-finite norms left out, so one NaN matrix does not take
-the others' squarings away). The loop over it needs the count on the
-host: every call of ``expm`` / ``expm_m1`` / ``expm_frechet`` costs one
-host sync (``int(s)``). The alternative without a sync, always running
+the others' squarings away). Under ``torch.func.vmap`` the count is one
+per mapped sample, from that sample's own stack, as ``jax.vmap`` of the
+JAX package's ``expm`` gives it; the samples are squared together up to
+the largest count, each masked past its own. The loop over it needs the
+count on the host: every call of ``expm`` / ``expm_m1`` /
+``expm_frechet`` costs one host sync (``int(s)``), a vmapped call too. The alternative without a sync, always running
 ``max_squarings`` masked squarings, costs up to 16 products of d^3 per call
 where a step of the integrators needs none or a few; the port chose the
 sync. The host driver reads one flag from the card per iteration anyway.
@@ -116,7 +119,10 @@ def _pade13(A, A2, A4, A6, ident):
 
 
 def _expm_impl(A: torch.Tensor, max_squarings: int, method: str = "auto",
-               minus_one: bool = False) -> torch.Tensor:
+               minus_one: bool = False, lead: int = 0) -> torch.Tensor:
+    """``lead``: the number of leading axes whose entries (samples) take a
+    squaring count each, from the largest 1-norm over the sample's own
+    stack (0: one count for the whole stack)."""
     if A.ndim < 2 or A.shape[-2] != A.shape[-1]:
         raise ValueError(f"expm expects (..., d, d), got {tuple(A.shape)}")
     is_f64 = (A.real.dtype if A.is_complex() else A.dtype) == torch.float64
@@ -127,12 +133,20 @@ def _expm_impl(A: torch.Tensor, max_squarings: int, method: str = "auto",
     theta = {"pade13": _THETA13 if is_f64 else _THETA13_F32,
              "taylor": _THETA_TAYLOR12}[method]
 
-    # one squaring count for the whole stack, read on the host
+    # one squaring count per sample (for the whole stack at lead = 0)
     norms = one_norm(A)
     norms = torch.where(torch.isfinite(norms), norms, 0.0)
-    s = int(squaring_count(norms.max() if norms.numel() else
-                           norms.new_zeros(()), theta, max_squarings))
-    As = A * 2.0 ** -s
+    norms = norms.reshape(norms.shape[:lead] + (-1,))
+    top = (norms.amax(-1) if norms.shape[-1] else
+           norms.new_zeros(norms.shape[:-1]))
+    s_each = squaring_count(top, theta, max_squarings)
+    # read on the host: the squaring loop's length
+    s = int(s_each.max()) if s_each.numel() else 0
+    if lead:
+        s_b = s_each.reshape(s_each.shape + (1,) * (A.ndim - lead))
+        As = A * torch.pow(2.0, -s_b).to(A.dtype)
+    else:
+        As = A * 2.0 ** -s
 
     if method == "taylor":
         R = taylor_ps(As, 12, minus_one)
@@ -141,11 +155,12 @@ def _expm_impl(A: torch.Tensor, max_squarings: int, method: str = "auto",
         A4 = A2 @ A2
         A6 = A4 @ A2
         U, V = _pade13(As, A2, A4, A6, _eye_like(As))
-        # minus_one: Q^{-1} P - I = Q^{-1} (P - Q) = Q^{-1} (2 U) exactly
+        # minus_one: Q^{-1} P - I = Q^{-1} (2 U) exactly
         R = torch.linalg.solve(V - U, 2.0 * U if minus_one else V + U)
-    for _ in range(s):
+    for k in range(s):
         # (I + phi)^2 - I = phi^2 + 2 phi: every term stays O(|phi|)
-        R = R @ R + R + R if minus_one else R @ R
+        Rk = R @ R + R + R if minus_one else R @ R
+        R = torch.where(k < s_b, Rk, R) if lead else Rk
     return R
 
 
@@ -166,20 +181,34 @@ def expm_frechet(A: torch.Tensor, E: torch.Tensor, *,
 class _ExpmFn(torch.autograd.Function):
     """expm / expm_m1 with the exact Fréchet-adjoint backward: the adjoint
     of L(A, .) is L(A^H, .), since exp has real Taylor coefficients (Higham
-    2008, ch. 10): one block (2d, 2d) expm per backward."""
+    2008, ch. 10): one block (2d, 2d) expm per backward. Its vmap rule
+    gives every mapped sample its own squaring count (``lead``)."""
 
     @staticmethod
-    def forward(ctx, A, max_squarings, method, minus_one):
+    def forward(A, max_squarings, method, minus_one, lead):
+        return _expm_impl(A, max_squarings, method, minus_one, lead)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        A, max_squarings, method, _, _ = inputs
         ctx.save_for_backward(A)
         ctx.max_squarings, ctx.method = max_squarings, method
-        return _expm_impl(A, max_squarings, method, minus_one)
 
     @staticmethod
     def backward(ctx, G):
         (A,) = ctx.saved_tensors
         AH = A.transpose(-1, -2).conj()
         return (expm_frechet(AH, G, max_squarings=ctx.max_squarings,
-                             method=ctx.method), None, None, None)
+                             method=ctx.method), None, None, None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, A, max_squarings, method, minus_one, lead):
+        if in_dims[0] is None:
+            return _ExpmFn.apply(A, max_squarings, method, minus_one,
+                                 lead), None
+        A = A.movedim(in_dims[0], 0)
+        return _ExpmFn.apply(A, max_squarings, method, minus_one,
+                             lead + 1), 0
 
 
 def expm(A: torch.Tensor, *, max_squarings: int = 16,
@@ -192,7 +221,7 @@ def expm(A: torch.Tensor, *, max_squarings: int = 16,
     f32 eps) or "auto" (taylor for float32, pade13 for float64).
     Differentiable by the Fréchet adjoint; for forward sensitivities use
     :func:`expm_frechet`."""
-    return _ExpmFn.apply(A, max_squarings, method, False)
+    return _ExpmFn.apply(A, max_squarings, method, False, 0)
 
 
 def expm_m1(A: torch.Tensor, *, max_squarings: int = 16,
@@ -201,7 +230,7 @@ def expm_m1(A: torch.Tensor, *, max_squarings: int = 16,
     the Taylor path drops the identity of block 0, the Padé path solves
     Q phi = 2 U, and the squaring is phi^2 + 2 phi, so for small |A| the
     result keeps relative accuracy."""
-    return _ExpmFn.apply(A, max_squarings, method, True)
+    return _ExpmFn.apply(A, max_squarings, method, True, 0)
 
 
 def expm_apply(A: torch.Tensor, x: torch.Tensor, **kw) -> torch.Tensor:

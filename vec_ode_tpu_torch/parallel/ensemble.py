@@ -1,12 +1,22 @@
-"""Ensemble propagation: many independent trajectories in one batched
-solve (the natively batched, unsharded branch of
-``vec_ode_tpu/parallel/ensemble.py:ensemble_solve``): the whole loop in
-one kernel launch where the stepper's ``fused_loop_solve`` takes the
-configuration, else one driver loop over per-step launches."""
+"""Ensemble propagation: many independent trajectories in one solve (the
+unsharded branches of ``vec_ode_tpu/parallel/ensemble.py:
+ensemble_solve``):
+
+* natively batched steppers: the whole loop in one kernel launch where
+  the stepper's ``fused_loop_solve`` takes the configuration, else one
+  driver loop over per-step launches;
+* the vmapped tier (the generic ``rk.RungeKutta``, ``stepper=None``, and
+  exponential steppers with ``batched=False`` or over a split that cannot
+  batch): one batched driver loop whose step is ``torch.func.vmap`` of
+  the per-trajectory step over (t, x, dt) (and ``params``); the driver's
+  lane masking gives each trajectory the branch sequence that the JAX
+  package's vmapped ``while_loop`` gives it.
+"""
 
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from typing import Callable, Optional
 
 import torch
@@ -16,19 +26,23 @@ from .. import lc
 from ..controller import StepControl, check_h0
 from ..driver import Solution, integrate, make_grid
 from ..events import as_event_config
+from ..rk import RungeKutta
+
+
+def _declares_norm(stepper) -> bool:
+    return dataclasses.is_dataclass(stepper) and any(
+        f.name == "norm" for f in dataclasses.fields(stepper))
 
 
 def _install_norm(stepper, error_norm):
     """The stepper with a declared ``lc.WeightedNorm`` installed as its
     ``norm`` (its kernels and plain step execute it), as the JAX package's
     ``ensemble_solve`` does for norm-returning steppers."""
-    declares = dataclasses.is_dataclass(stepper) and any(
-        f.name == "norm" for f in dataclasses.fields(stepper))
-    if not declares:
-        raise NotImplementedError(
-            "error_norm=: only steppers that declare a norm take a "
-            "WeightedNorm; vector-returning batched steppers are ROADMAP "
-            "queue 1 item 9")
+    if not _declares_norm(stepper):
+        raise ValueError(
+            "this stepper computes its own per-trajectory error norms and "
+            "declares no norm=; pass batched=False for the vmapped tier, "
+            "which applies error_norm= per trajectory")
     existing = stepper.norm
     if existing is None:
         return dataclasses.replace(stepper, norm=error_norm)
@@ -60,57 +74,49 @@ def ensemble_solve(
     dense: bool = False,
 ) -> Solution:
     """Integrate a batch of independent trajectories (leading axis of every
-    leaf of ``y0_batch``) with a natively batched ``stepper``
-    (``ops.fused_rk.FusedModulatedLinearRK``, ``exp.MidpointModulated``,
-    ``exp.MagnusModulated4``, ``exp.MagnusModulated6``,
-    ``exp.CFMModulated`` / ``CFM4Modulated``, or a generic exponential
-    stepper over a
-    dense leaf: ``exp.ExpMidpoint``, ``Magnus4``, ``Magnus6``, ``CFM``,
-    ``SplitMidpoint``, ``SplitCFM``), on ``y0_batch``'s device.
+    leaf of ``y0_batch``) on ``y0_batch``'s device.
 
-    ``rhs_or_op`` is the generic steppers' operator assembly ``op_fn(t)``
-    for ONE trajectory (scalar time in, operator out; the steppers vmap it
-    over the batch), or None for a stepper that embeds its operator. With
-    ``params`` (a pytree with the same leading batch axis) the signature
-    becomes ``op_fn(t, p)``, so an ensemble can sweep model parameters;
-    only steppers with ``supports_batched_params`` take it.
+    ``rhs_or_op`` is the per-trajectory RHS ``f(t, y)`` (RK steppers) or
+    operator assembly ``op_fn(t)`` (exponential steppers), unbatched: the
+    steppers map it over the batch. With ``params`` (a pytree with the
+    same leading batch axis) the signature becomes ``f(t, y, p)`` /
+    ``op_fn(t, p)``, so an ensemble can sweep model parameters. None for a
+    stepper that embeds its operator.
 
-    The stepper's ``fused_loop_solve`` runs the whole loop (adaptive, or
-    fixed steps with ``adaptive=False``) in one launch of the CUDA loop
-    kernel where it takes the configuration; where it declines (returns
-    None), one driver loop runs over the whole batch with a kernel launch
-    per step on the card, or the plain torch step on the CPU.
-    ``Solution.path`` names the path taken.
+    Natively batched steppers (``ops.fused_rk.FusedModulatedLinearRK``,
+    the modulated ``exp.MidpointModulated`` / ``MagnusModulated4`` /
+    ``MagnusModulated6`` / ``CFMModulated``, and the generic exponential
+    steppers over ``DenseSplit`` / ``DenseCplxSplit``) run the whole loop
+    in one launch of the CUDA loop kernel where their ``fused_loop_solve``
+    takes the configuration, else one driver loop over the whole batch
+    with a kernel launch per step on the card, or the plain torch step on
+    the CPU. Every other stepper (``stepper=None``, i.e. ``RungeKutta()``;
+    ``batched=False``; a split that cannot batch) runs the vmapped tier:
+    one driver loop over ``torch.func.vmap`` of the per-trajectory step,
+    with ``error_norm`` applied per trajectory (``lc.norm_l2``, a declared
+    ``lc.WeightedNorm`` or an opaque callable), ``scaled_error``, opaque
+    event callables and per-trajectory ``h0``; an auto-batched generic
+    stepper takes it too where its batched conventions cannot express the
+    call (``scaled_error``, which needs the error vector).
+    ``Solution.path`` names the path taken (``"torch-driver"`` on the
+    vmapped tier, on either device).
 
     ``events`` (an ``events.EventConfig``, an ``Event``, a callable or a
     sequence of them) locates event crossings: declared observables run
     in the loop kernel, opaque callables in the host driver (the
     ``Solution.event_*`` fields). ``dense=True`` makes the interior
-    ``save_at`` times free-running interpolated saves: the loop kernel
-    records the crossing steps' endpoints, else the host driver's
-    ``dense.integrate_interp`` runs; the path name gains ``-dense``.
-    ``dense=True`` with events needs the loop kernel.
+    ``save_at`` times free-running interpolated saves on the batched
+    steppers: the loop kernel records the crossing steps' endpoints, else
+    the host driver's ``dense.integrate_interp`` runs; the path name gains
+    ``-dense``. ``dense=True`` with events needs the loop kernel.
 
-    The signature is the JAX package's. ``error_norm`` may be a declared
-    ``lc.WeightedNorm`` (installed as the stepper's ``norm``).
-    ``scaled_error`` needs the loop kernel (a norm-returning stepper's
-    errors cannot be rescaled by the driver) and raises ``ValueError``
-    where it declines. What this port does not run yet raises
-    ``NotImplementedError`` naming its ROADMAP item. ``time_dtype``
-    defaults to float64 (the JAX package's default under x64); ``h0`` may
-    be per-trajectory (B,). ``axis_name`` belongs to ``mesh``.
+    The signature is the JAX package's. ``time_dtype`` defaults to
+    float64 (the JAX package's default under x64); ``h0`` may be
+    per-trajectory (B,). What this port does not run yet raises
+    ``NotImplementedError`` naming its ROADMAP item: ``mesh=`` (27),
+    ``method="scan"`` (22), dense output on the vmapped tier (13), opaque
+    norms on natively batched steppers (26).
     """
-    if stepper is None or not getattr(stepper, "is_batched", False):
-        raise NotImplementedError(
-            "only natively batched steppers are ported "
-            "(FusedModulatedLinearRK, the modulated steppers "
-            "MidpointModulated, MagnusModulated4, MagnusModulated6, "
-            "CFMModulated, and the generic exponential steppers over "
-            "DenseSplit / DenseCplxSplit); the vmapped tier (the generic "
-            "RungeKutta stepper, exponential steppers with batched=False or "
-            "over another split) is ROADMAP queue 1, items 6 and 9"
-            + ("; its dense output (solve_ivp_dense / solve_linear_dense) "
-               "is item 13" if dense else ""))
     if mesh is not None:
         raise NotImplementedError(
             "mesh=: sharded ensembles are ROADMAP slice 7, queue 1 item 27")
@@ -118,22 +124,19 @@ def ensemble_solve(
         raise NotImplementedError(
             f"method={method!r}: the scan driver is ROADMAP slice 6, "
             "queue 1 item 22")
-    if params is not None and not getattr(stepper, "supports_batched_params",
-                                          False):
-        raise ValueError(
-            "params is unsupported for this natively batched stepper (it "
-            "embeds its own operator)")
+    if stepper is None:
+        stepper = RungeKutta()
     event_cfg = as_event_config(events)
-    if isinstance(error_norm, lc.WeightedNorm):
-        if ctl.scaled_error:
-            raise ValueError(
-                "scaled_error and a WeightedNorm are mutually exclusive "
-                "(both redefine the error measure)")
-        stepper = _install_norm(stepper, error_norm)
-    elif error_norm is not lc.norm_l2:
-        raise NotImplementedError(
-            "error_norm=: opaque norm callables are ROADMAP queue 1 item "
-            "26; declare an lc.WeightedNorm")
+    use_batched = bool(getattr(stepper, "is_batched", False))
+    auto = bool(getattr(stepper, "auto_batched", False))
+    if use_batched and auto and (
+            (ctl.scaled_error
+             and getattr(stepper, "fused_loop_solve", None) is None)
+            or (isinstance(error_norm, lc.WeightedNorm)
+                and not _declares_norm(stepper))):
+        # the JAX package keeps the vmapped tier for calls that an
+        # auto-batched stepper's batched conventions cannot express
+        use_batched = False
 
     leaves = pytree.tree_leaves(y0_batch)
     b = leaves[0].shape[0]
@@ -142,6 +145,30 @@ def ensemble_solve(
         time_dtype = torch.float64
     t_grid = make_grid(t0, tf, save_at, dtype=time_dtype, device=device)
     h0 = check_h0(h0, ctl, adaptive)
+    if not use_batched:
+        sol = _vmapped_solve(rhs_or_op, y0_batch, t_grid, h0,
+                             stepper=stepper, adaptive=adaptive, ctl=ctl,
+                             error_norm=error_norm, params=params,
+                             event_cfg=event_cfg, dense=dense)
+        sol.ts = t_grid.expand(b, t_grid.shape[0])
+        return sol
+
+    if params is not None and not getattr(stepper, "supports_batched_params",
+                                          False):
+        raise ValueError(
+            "params is unsupported for this natively batched stepper (it "
+            "embeds its own operator)")
+    if isinstance(error_norm, lc.WeightedNorm):
+        if ctl.scaled_error:
+            raise ValueError(
+                "scaled_error and a WeightedNorm are mutually exclusive "
+                "(both redefine the error measure)")
+        stepper = _install_norm(stepper, error_norm)
+    elif error_norm is not lc.norm_l2:
+        raise NotImplementedError(
+            "error_norm=: opaque norm callables on natively batched "
+            "steppers are ROADMAP queue 1 item 26; declare an "
+            "lc.WeightedNorm")
 
     fused = getattr(stepper, "fused_loop_solve", None)
     if fused is not None:
@@ -154,17 +181,12 @@ def ensemble_solve(
         if sol is not None:
             return sol
     if ctl.scaled_error:
-        if fused is None and getattr(stepper, "auto_batched", False):
-            # the JAX package runs this call on the vmapped path, where
-            # the driver holds the error vector
-            raise NotImplementedError(
-                "scaled_error with an auto-batched generic exponential "
-                "stepper runs on the vmapped tier, ROADMAP queue 1 item 9")
         raise ValueError(
             "scaled_error with a norm-returning stepper requires the fused "
             "loop kernel, which did not engage for this configuration (see "
             "the stepper's fused_loop_solve: e.g. the time dtype must be "
-            "the state's)")
+            "the state's; generic exponential steppers take batched=False "
+            "for the vmapped tier)")
     if params is None:
         step_fn = stepper.make_step_fn(rhs_or_op)
     else:
@@ -185,6 +207,77 @@ def ensemble_solve(
         sol.path = stepper.step_path(y0_batch)
     # the shared save grid, per trajectory (as the JAX package returns it)
     sol.ts = t_grid.expand(b, t_grid.shape[0])
+    return sol
+
+
+def _check_arity(fn: Callable, takes_state: bool) -> None:
+    """With ``params`` the callable takes (t, y, p) (RK) or (t, p)
+    (exponential steppers), as the JAX package checks it."""
+    want = 3 if takes_state else 2
+    try:
+        n_args = len(inspect.signature(fn).parameters)
+    except (TypeError, ValueError):
+        n_args = want
+    if n_args != want:
+        sig = "(t, y, p)" if takes_state else "(t, p)"
+        raise ValueError(
+            f"with params, this stepper expects rhs_or_op{sig}; got a "
+            f"{n_args}-parameter callable")
+
+
+def _batched_norm(error_norm: Callable) -> Callable:
+    """A per-trajectory error norm over the batch: ``lc.norm_l2`` as
+    ``lc.norm_l2_batched``, a declared ``WeightedNorm`` by its ``.batched``
+    form, any other callable through ``torch.func.vmap``."""
+    if error_norm is lc.norm_l2:
+        return lc.norm_l2_batched
+    if isinstance(error_norm, lc.WeightedNorm):
+        return error_norm.batched
+    return torch.func.vmap(error_norm)
+
+
+def _vmapped_solve(rhs_or_op, y0_batch, t_grid, h0, *, stepper, adaptive,
+                   ctl, error_norm, params, event_cfg, dense) -> Solution:
+    """The vmapped tier: one batched driver loop over ``torch.func.vmap``
+    of the per-trajectory step. A missing error estimate crosses the vmap
+    as an empty tuple."""
+    if dense:
+        raise NotImplementedError(
+            "dense=True on the vmapped tier (solve_ivp_dense / "
+            "solve_linear_dense and the RK stage interpolants) is ROADMAP "
+            "queue 1 item 13")
+    takes_state = bool(getattr(stepper, "takes_state", False))
+
+    def packed(step):
+        def run(t, x, dt):
+            x_next, err = step(t, x, dt)
+            return x_next, (() if err is None else err)
+
+        return run
+
+    if params is None:
+        mapped = torch.func.vmap(packed(stepper.make_step_fn(rhs_or_op)))
+        args = ()
+    else:
+        _check_arity(rhs_or_op, takes_state)
+
+        def single(t, x, dt, p):
+            fn = ((lambda tt, y: rhs_or_op(tt, y, p)) if takes_state
+                  else (lambda tt: rhs_or_op(tt, p)))
+            return packed(stepper.make_step_fn(fn))(t, x, dt)
+
+        mapped = torch.func.vmap(single)
+        args = (params,)
+
+    def step_fn(t, x, dt):
+        x_next, err = mapped(t, x, dt, *args)
+        return x_next, (err if pytree.tree_leaves(err) else None)
+
+    b = pytree.tree_leaves(y0_batch)[0].shape[0]
+    sol = integrate(step_fn, y0_batch, t_grid, h0, adaptive=adaptive,
+                    ctl=ctl, error_norm=_batched_norm(error_norm),
+                    batch_shape=(b,), event_cfg=event_cfg)
+    sol.path = "torch-driver"
     return sol
 
 

@@ -280,6 +280,38 @@ GAUSS_LEGENDRE = {
                   (322.0 - 13.0 * math.sqrt(70.0)) / 1800.0])),
 }
 
+# --- Operator-splitting coefficients (copies of vec_ode_tpu/tableaus.py:
+# 259-290) --------------------------------------------------------------------
+# Blanes & Moan (2002) RKN order-4, BAB convention.
+RKN_O4_A = np.array(
+    [0.209515106613362, -0.143851773179818, 0.434336666566456],
+    dtype=np.float64,
+)
+RKN_O4_B = np.array(
+    [0.0792036964311957, 0.353172906049774, -0.0420650803577195,
+     0.21937695575349958],
+    dtype=np.float64,
+)
+
+# Complex triple-jump order-4.
+TJ_O4_A = np.array(
+    [0.32439640402017118298 + 0.13458627249080669679j,
+     0.35120719195965763405 - 0.26917254498161339358j],
+    dtype=np.complex128,
+)
+TJ_O4_B = np.array(
+    [0.16219820201008559149 + 0.06729313624540334839j,
+     0.33780179798991440851 - 0.06729313624540334839j],
+    dtype=np.complex128,
+)
+
+# Semi-complex order-4.
+SEMI_COMPLEX_O4_A = np.array([0.25 + 0.0j, 0.25 + 0.0j], dtype=np.complex128)
+SEMI_COMPLEX_O4_B = np.array(
+    [0.1 - 1j / 30.0, 4.0 / 15.0 + 2j / 15.0, 4.0 / 15.0 - 1j / 5.0],
+    dtype=np.complex128,
+)
+
 # --- Commutator-free Magnus coefficient matrices -------------------------------
 # Rows = exponentials, columns = Gauss-Legendre samples of A(t).
 CFM_R2_J1_GL = np.array([[0.5, 0.5]], dtype=np.float64)               # 1 exp, order 2
