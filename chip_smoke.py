@@ -42,8 +42,19 @@ drives the port's paths once at full width through
 * the reversible adjoint (K6, K7, K8) on ``PulseControl``: fixed-step,
   with saves and anchors, and adaptive at Magnus orders 4 and 6 and over
   CFM-4 rows, and adaptive at order 4 over four basis terms (K' = 10,
-  ``FourControls``), against f64 ``matrix_exp`` oracles; K6 against its
-  twin also at K' = 10 and 36;
+  ``FourControls``), against f64 ``matrix_exp`` oracles; K6, K7 and K8
+  against their twins also at K' = 10 and 36;
+* the adjoint past K' = 6 and the rest of it: the fixed-step adjoint
+  over four and eight basis terms (K' = 10 at 256, [adjoint-k10]; K' =
+  36 at 256 and 4096, [adjoint-k36]; one K7 and one K8 launch each,
+  against the f64 oracle and, in f64, K7 and K8 against their twins on
+  the path's rows); basis gradients (``basis_grad=True``, one K7 launch
+  and one K6 a row, against a central difference in f64,
+  [basis-grad]); the dense-operator adjoint over DrivenDense's black box
+  (no hand kernel, [adjoint-dense]); PulseControl under
+  ``torch.func.vmap`` over four pulses against the per-pulse loop
+  ([pulse-vmap]); ``fit_loop`` against the five Adam steps
+  ([fit-loop]);
 * ``Lindblad`` open-system ensembles (256 density matrices, d = 8) with
   Magnus-4 and Magnus-6, the trace kept;
 * events and dense output: the loop kernel with its event / dense switch
@@ -88,7 +99,8 @@ bound and, for K4 (at 256 on its cluster route and 16 384 on its tiled
 one, also at K' = 6 and 36, each with its launch plan, ptxas lines and
 masked share of passes), K6-K8 (at 256 and 4096; K6 with its launch
 plan and ptxas line, K7 and K8 with their launch shapes and ptxas lines,
-and the value-and-grad wall with K7's and K8's shares of it) and K9 (at
+also at K' = 10 and 36, and the value-and-grad wall with K7's and K8's
+shares of it; the basis-grad and dense-adjoint walls) and K9 (at
 4096 and 256, with its launch plan and its bound by the least work,
 k9_flop_bytes), a library yardstick; K1 and K2's RK step with their
 launch plans and ptxas lines, K1 beside its six stage products alone
@@ -2426,9 +2438,11 @@ def rel(a, b) -> float:
 # (the products' checked loads), K' = 6 at a small D
 ADJ_CASES = ((256, 128, 3, 8, 0.02), (77, 128, 3, 5, 0.25),
              (256, 102, 2, 4, 0.25), (33, 16, 6, 3, 0.5))
-# K6 alone past K7's and K8's K' = 6: four basis terms at order 4 (K' =
-# 10) and eight (K' = 36, K4's largest), rows past theta (16 to 64 passes)
-ROW_CASES = ((256, 128, 10, 0, 0.1), (256, 128, 36, 0, 0.05))
+# K6 alone past K' = 6: four basis terms at order 4 (K' = 10) and eight
+# (K' = 36, K4's largest), rows past theta (16 to 64 passes); K6 with K7
+# and K8 there too, on fewer rows
+ROW_CASES = ((256, 128, 10, 0, 0.1), (256, 128, 36, 0, 0.05),
+             (256, 128, 10, 3, 0.1), (256, 128, 36, 2, 0.05))
 
 
 def adj_tolerances(dtype):
@@ -2440,8 +2454,7 @@ def adj_tolerances(dtype):
 
 def check_adjoint_case(B, D, Kp, R, dtype, seed, scale) -> dict:
     """K6, K7 and K8 on adjoint_case's inputs against their twins (K6 alone
-    past K7's and K8's K' = 6 or with no shared rows, R = 0); raises on a
-    disagreement. Returns the
+    with no shared rows, R = 0); raises on a disagreement. Returns the
     relative and absolute differences and the passes per lane and row."""
     m, theta = _taylor_params(dtype)
     kw = dict(m=m, theta=theta, max_squarings=16)
@@ -2455,7 +2468,7 @@ def check_adjoint_case(B, D, Kp, R, dtype, seed, scale) -> dict:
     d = dict(xn=rel(k6[0], p6[0]), an=rel(k6[1], p6[1]), cb6=rel(k6[2], p6[2]),
              k6=float(max((k6[j] - p6[j]).abs().max() for j in (0, 1))),
              passes=(int(n_pass.min()), int(n_pass.max())))
-    if Kp <= tadj.MAX_KP and R > 0:
+    if R > 0:
         _, n_row = expmv.scale_rows(c_all[:, None], norms, theta, 16)
         y7 = tadj.adjoint_sweep_fwd(c_all, x, mt, norms, **kw)
         p7 = tadj.torch_adjoint_sweep_fwd(c_all, x, mt, norms, **kw)
@@ -2500,9 +2513,8 @@ def check_adjoint_nan(dtype) -> None:
 
 def adjoint_kernel_phase():
     """K6, K7 and K8 against their twins on the card, f32 and f64, on
-    ADJ_CASES, K6 alone on ROW_CASES (K' = 10 and 36), and a NaN state
-    row. Returns the f32 max |d| at the path's shape (K6 x_n / a_n, K7 y,
-    K8 a0)."""
+    ADJ_CASES and ROW_CASES (K' = 10 and 36), and a NaN state row. Returns
+    the f32 max |d| at the path's shape (K6 x_n / a_n, K7 y, K8 a0)."""
     errs = {}
     for dtype in (torch.float64, torch.float32):
         for i, (B, D, Kp, R, scale) in enumerate(ADJ_CASES + ROW_CASES):
@@ -2628,7 +2640,8 @@ def adjoint_path_phase():
 
 
 def adjoint_training_phase():
-    """Five Adam(lr=0.05) steps on the f32 infidelity: the loss falls."""
+    """Five Adam(lr=0.05) steps on the f32 infidelity: the loss falls.
+    Returns the parameters and the losses."""
     pc, y0, tg, theta = adjoint_inputs(torch.float32)
     th = theta.clone().requires_grad_(True)
     opt = torch.optim.Adam([th], lr=0.05)
@@ -2643,6 +2656,7 @@ def adjoint_training_phase():
     assert losses[-1] < losses[0] and all(np.isfinite(losses)), losses
     print(f"[adjoint-train] five Adam(lr=0.05) steps on the infidelity: "
           f"{[round(v, 6) for v in losses]}", flush=True)
+    return th.detach(), losses
 
 
 def recorded_times(basis, pc, y0, theta, **scheme):
@@ -2655,28 +2669,51 @@ def recorded_times(basis, pc, y0, theta, **scheme):
                                stepper, step_rows)
     t0, tf, h0 = (torch.tensor(v, dtype=torch.float32, device="cuda")
                   for v in (0.0, 1.0, ADJ_H0))
-    return tdiff._adaptive_forward(plan, theta, torch.cat([y0.re, y0.im], -1),
+    return tdiff._adaptive_forward(plan, core, theta,
+                                   torch.cat([y0.re, y0.im], -1),
                                    t0, tf, h0)[2]
 
 
-class FourControls:
-    """A control problem over four basis terms, multi_basis(4) (-i H0 of
-    DrivenDense(64) and three controls -i V_s), with the coefficients
-    [1, th0 cos(th1 t), th2 sin(th3 t), th4 cos(th5 t)]: a working basis
-    of K' = 10 at order 4, past K7's and K8's K' = 6."""
+@dataclasses.dataclass(frozen=True)
+class ManyControls:
+    """A control problem over K0 basis terms, multi_basis(K0) (-i H0 of
+    DrivenDense(64) and K0 - 1 controls -i V_s, random Hermitian terms from
+    numpy seeds), with the coefficients [1, th0 cos(th1 t), th2 sin(th3
+    t), th4 cos(th5 t), ...] (cosine modes on odd controls, sine modes on
+    even ones): a working basis of K' = K0 + K0 (K0 - 1) / 2 at order 4,
+    10 at K0 = 4 and 36 at 8."""
 
+    K0: int = 4
     T = 1.0
     fidelity = staticmethod(PulseControl.fidelity)
 
-    @staticmethod
-    def basis_pair(dtype=torch.float64, device="cuda"):
-        return multi_basis(4, dtype, device)
+    @property
+    def Kp(self) -> int:
+        return self.K0 + self.K0 * (self.K0 - 1) // 2
 
-    @staticmethod
-    def coeff_fn(t, th):
-        return torch.stack([torch.ones_like(t), th[0] * torch.cos(th[1] * t),
-                            th[2] * torch.sin(th[3] * t),
-                            th[4] * torch.cos(th[5] * t)], -1)
+    def basis_pair(self, dtype=torch.float64, device="cuda"):
+        return multi_basis(self.K0, dtype, device)
+
+    def coeff_fn(self, t, th):
+        cols = [torch.ones_like(t)]
+        for k in range(1, self.K0):
+            mode = torch.cos if k % 2 else torch.sin
+            cols.append(th[2 * k - 2] * mode(th[2 * k - 1] * t))
+        return torch.stack(cols, -1)
+
+    def theta(self, dtype, device="cuda"):
+        return torch.tensor(MANY_THETA[:2 * self.K0 - 2], dtype=dtype,
+                            device=device)
+
+
+# the controls' amplitudes and frequencies (ManyControls.theta)
+MANY_THETA = (0.6, 2.0, -0.4, 3.0, 0.3, 5.0, 0.2, 4.0, -0.3, 6.0, 0.25, 7.0,
+              -0.2, 2.5)
+
+
+def FourControls():
+    """Four basis terms (K' = 10 at order 4), past K' = 6."""
+    return ManyControls(4)
 
 
 def adaptive_adjoint_check(label, card=None, model=None, **scheme):
@@ -2766,6 +2803,279 @@ def adjoint_adaptive_phase():
     adaptive_adjoint_check("Magnus-4, four basis terms (K' = 10)",
                            model=FourControls(), order=4)
     return out
+
+
+def sweep_check(core, c_all, x, a) -> dict:
+    """K7 and K8 on the rows c_all over the core's basis against their
+    twins (the same inputs): relative max |d| of K7's y, K8's a0 and cbar,
+    and K7's and K8's (a0) max |d|."""
+    mt, ms, norms, m, theta = core.operands(x)
+    kw = dict(m=m, theta=theta, max_squarings=16)
+    y7 = tadj.adjoint_sweep_fwd(c_all, x, mt, norms, **kw)
+    p7 = tadj.torch_adjoint_sweep_fwd(c_all, x, mt, norms, **kw)
+    k8 = tadj.adjoint_sweep_bwd(c_all, y7, a, mt, ms, norms, **kw)
+    p8 = tadj.torch_adjoint_sweep_bwd(c_all, y7, a, mt, ms, norms, **kw)
+    torch.cuda.synchronize()
+    return dict(y=rel(y7, p7), a0=rel(k8[0], p8[0]), cb=rel(k8[1], p8[1]),
+                k7=float((y7 - p7).abs().max()),
+                k8=float((k8[0] - p8[0]).abs().max()))
+
+
+def model_rows(model, theta, n_steps: int, dtype):
+    """The model's adjoint core at order 4 and its fixed-step rows (R, K')
+    over [0, T] in ``dtype``."""
+    core = tdiff._adjoint_core(model.basis_pair(dtype), model.coeff_fn,
+                               order=4)
+    t0, tf = (torch.tensor(v, dtype=torch.float64, device="cuda")
+              for v in (0.0, model.T))
+    return core, tdiff._make_rows_all(core.cols, 4, n_steps)(
+        theta, t0, tf).to(dtype).contiguous()
+
+
+def cotangents(B: int, dtype, seed: int = 9):
+    rng = np.random.default_rng(seed)
+    return torch.tensor(rng.standard_normal((B, 2 * DIM)) / np.sqrt(2 * DIM),
+                        dtype=dtype, device="cuda")
+
+
+def adjoint_many_phase(K0: int, batches) -> dict:
+    """The fixed-step adjoint past K' = 6 ([adjoint-k10], [adjoint-k36]):
+    the infidelity of ManyControls(K0) over ADJ_STEPS Magnus-4 steps, f32,
+    value and theta / psi0 gradients at each batch: one K7 and one K8
+    launch and no twin call, the gradients against the f64 matrix_exp
+    oracle (the f64 port too at ADJ_B, <= 1e-8), and K7 and K8 against
+    their twins in f64 on the path's rows (<= 1e-12). Returns the
+    launches, the f64 check, the f32 gradient differences and the f32
+    value-and-grad at ADJ_B (``vg``) for the timing."""
+    model = ManyControls(K0)
+    label = f"[adjoint-k{model.Kp}]"
+    out = {}
+    for B in batches:
+        _, y0, tg, _ = adjoint_inputs(torch.float32, B)
+        theta = model.theta(torch.float32)
+        reset_counts()
+        with TwinCalls() as tw:
+            value, grads = value_and_grads(model, y0, tg, theta, order=4)
+            torch.cuda.synchronize()
+        k6, k7, k8, k4 = adj_counts()
+        assert (k6, k7, k8, k4, tw.n) == (0, 1, 1, 0, 0), (k6, k7, k8, k4,
+                                                           tw.n)
+        assert all(bool(torch.isfinite(g).all()) for g in grads)
+        _, y64, tg64, _ = adjoint_inputs(torch.float64, B)
+        th64 = model.theta(torch.float64)
+        vo, go = adjoint_oracle(model, y64, tg64, th64, ADJ_STEPS)
+        d32 = grad_diff(grads, go)
+        dv32 = abs(float(value) - float(vo)) / abs(float(vo))
+        assert d32 <= 1e-3 and dv32 <= 1e-4, (d32, dv32)
+        f64 = ""
+        if B == ADJ_B:
+            v64, g64 = value_and_grads(model, y64, tg64, th64, order=4)
+            d64 = grad_diff(g64, go)
+            dv64 = abs(float(v64) - float(vo)) / abs(float(vo))
+            assert d64 <= 1e-8 and dv64 <= 1e-8, (d64, dv64)
+            core, c_all = model_rows(model, th64, ADJ_STEPS, torch.float64)
+            d = sweep_check(core, c_all, torch.cat([y64.re, y64.im], -1),
+                            cotangents(B, torch.float64))
+            assert max(d["y"], d["a0"], d["cb"]) <= 1e-12, d
+            out["f64"] = d
+            f64 = (f"; f64 port vs the oracle: value {dv64:.2e}, gradients "
+                   f"{d64:.2e} (<= 1e-8); K7 / K8 vs their twins on the "
+                   f"path's {c_all.shape[0]} rows in f64: y {d['y']:.2e}, "
+                   f"a0 {d['a0']:.2e}, cbar {d['cb']:.2e} (<= 1e-12)")
+        out[B] = dict(k7=k7, k8=k8, grads=d32)
+        if B == ADJ_B:
+            out["vg"] = lambda y0=y0, tg=tg, theta=theta: value_and_grads(
+                model, y0, tg, theta, order=4)
+        print(f"{label} {B}x{DIM}c ManyControls({K0}) infidelity, "
+              f"{ADJ_STEPS} Magnus-4 steps, f32: value {float(value):.6f}, "
+              f"K7 {k7} and K8 {k8} launch (K6 {k6}, K4 {k4}), no twin "
+              f"call; f32 vs the f64 matrix_exp oracle: value {dv32:.2e}, "
+              f"gradients (theta, psi0) {d32:.2e} relative{f64}", flush=True)
+    return out
+
+
+BASIS_STEPS = 64   # [basis-grad] and [adjoint-dense]
+
+
+def basis_loss(model, basis, y0, tg, theta):
+    yf = tdiff.adjoint_solve(basis, model.coeff_fn, theta, y0, 0.0, model.T,
+                             BASIS_STEPS, order=4, basis_grad=True)
+    return 1.0 - torch.sum(model.fidelity(yf, tg))
+
+
+def basis_grad_phase():
+    """adjoint_solve(basis_grad=True) at 256x64c over four basis terms,
+    BASIS_STEPS Magnus-4 steps: in f32 one K7 launch and one K6 launch a
+    row and no twin call; the basis gradient along a seeded direction
+    against a central difference in f64 on the card; the f32 gradients
+    (theta, the basis pair) against the f64 ones. Returns the K6
+    launches and the value-and-grad closure (f32) for the timing."""
+    model = ManyControls(4)
+
+    def run(dtype):
+        _, y0, tg, _ = adjoint_inputs(dtype)
+        b = model.basis_pair(dtype)
+        b = Cplx(b.re.clone().requires_grad_(True),
+                 b.im.clone().requires_grad_(True))
+        th = model.theta(dtype).requires_grad_(True)
+
+        def vg():
+            value = basis_loss(model, b, y0, tg, th)
+            return value, torch.autograd.grad(value, (th, b.re, b.im))
+        return vg, (y0, tg, th, b)
+
+    vg32, _ = run(torch.float32)
+    reset_counts()
+    with TwinCalls() as tw:
+        value, g32 = vg32()
+        torch.cuda.synchronize()
+    k6, k7, k8, k4 = adj_counts()
+    R = BASIS_STEPS
+    assert (k6, k7, k8, k4, tw.n) == (R, 1, 0, 0, 0), (k6, k7, k8, k4, tw.n)
+    vg64, (y0, tg, th, b) = run(torch.float64)
+    v64, g64 = vg64()
+    d32 = grad_diff(g32, g64)
+    assert d32 <= 1e-3, d32
+    rng = np.random.default_rng(17)
+    V = [torch.tensor(rng.standard_normal(b.re.shape), dtype=torch.float64,
+                      device="cuda") for _ in range(2)]
+    V = [v / float(torch.sqrt(V[0].square().sum() + V[1].square().sum()))
+         for v in V]
+    eps = 1e-5
+    with torch.no_grad():
+        lp, lm = (float(basis_loss(model, Cplx(b.re + s * eps * V[0],
+                                               b.im + s * eps * V[1]),
+                                   y0, tg, th)) for s in (1.0, -1.0))
+    fd = (lp - lm) / (2 * eps)
+    an = float((g64[1] * V[0]).sum() + (g64[2] * V[1]).sum())
+    dfd = abs(an - fd) / max(abs(fd), 1e-30)
+    assert dfd <= 1e-6, (an, fd, dfd)
+    print(f"[basis-grad] {ADJ_B}x{DIM}c ManyControls(4) infidelity, "
+          f"basis_grad=True, {R} Magnus-4 steps, f32: value "
+          f"{float(value):.6f}, K7 {k7} launch and K6 {k6} (one a row; K8 "
+          f"{k8}, K4 {k4}), no twin call; f64 on the card: the basis "
+          f"gradient along a seeded unit direction {an:.10e} against the "
+          f"central difference {fd:.10e} (eps {eps:g}): {dfd:.2e} relative "
+          f"(<= 1e-6); f32 gradients (theta, basis re / im) vs f64 "
+          f"{d32:.2e} relative (<= 1e-3)", flush=True)
+    return k6, vg32
+
+
+def dense_op_fn(dtype):
+    """DrivenDense(64)'s black-box operator with a pulse amplitude and a
+    time scale: A(t; theta) = theta0 op_pair(theta1 t) = -i theta0 (H0 +
+    cos(w theta1 t) V), a Cplx pair in ``dtype``."""
+    model = DrivenDense.make(d=DIM, seed=0)
+
+    def op_fn(t, th):
+        A = model.op_pair(th[1] * t, dtype, device="cuda")
+        return Cplx(th[0] * A.re, th[0] * A.im)
+    return op_fn
+
+
+def adjoint_dense_phase():
+    """adjoint_solve_dense over dense_op_fn at 256x64c, BASIS_STEPS
+    Magnus-4 steps, f64 (no hand kernel on this path: every launch count
+    stays 0): the infidelity's theta gradient along a seeded direction
+    against a central difference, the state's norm kept. Returns the
+    value-and-grad closure for the timing."""
+    op_fn = dense_op_fn(torch.float64)
+    _, y0, tg, _ = adjoint_inputs(torch.float64)
+    theta = torch.tensor([1.0, 0.8], dtype=torch.float64, device="cuda")
+
+    def loss(th):
+        yf = tdiff.adjoint_solve_dense(op_fn, th, y0, 0.0, 1.0, BASIS_STEPS,
+                                       order=4)
+        return yf, 1.0 - torch.sum(PulseControl.fidelity(yf, tg))
+
+    def vg():
+        th = theta.clone().requires_grad_(True)
+        yf, value = loss(th)
+        return yf, value, torch.autograd.grad(value, th)[0]
+
+    reset_counts()
+    yf, value, g = vg()
+    torch.cuda.synchronize()
+    check_no_hand_kernel("adjoint-dense")
+    norm = float((yf.re.square() + yf.im.square()).sum(-1).sqrt()
+                 .sub(1.0).abs().max())
+    assert norm <= 1e-10, norm
+    u = torch.tensor(np.random.default_rng(19).standard_normal(2),
+                     dtype=torch.float64, device="cuda")
+    u = u / u.norm()
+    eps = 1e-6
+    with torch.no_grad():
+        lp, lm = (float(loss(theta + s * eps * u)[1]) for s in (1.0, -1.0))
+    fd = (lp - lm) / (2 * eps)
+    an = float((g * u).sum())
+    dfd = abs(an - fd) / max(abs(fd), 1e-30)
+    assert dfd <= 1e-6, (an, fd, dfd)
+    print(f"[adjoint-dense] {ADJ_B}x{DIM}c DrivenDense black-box operator, "
+          f"adjoint_solve_dense, {BASIS_STEPS} Magnus-4 steps, f64: value "
+          f"{float(value):.10f}, every hand kernel's launch count 0, max "
+          f"||psi| - 1| {norm:.2e}; theta gradient along a seeded unit "
+          f"direction {an:.10e} vs the central difference {fd:.10e}: "
+          f"{dfd:.2e} relative (<= 1e-6)", flush=True)
+    return vg
+
+
+PULSES, PULSE_STATES = 4, 64   # [pulse-vmap]
+
+
+def pulse_vmap_phase():
+    """torch.func.vmap of torch.func.grad_and_value of PulseControl's f32
+    infidelity over PULSES pulses x PULSE_STATES states at 64c: one K7 and
+    one K8 launch per pulse (the operators' vmap rule runs the samples in
+    turn), no twin call; values and gradients against the per-pulse loop.
+    Returns the largest relative difference."""
+    pc, y0, tg, _ = adjoint_inputs(torch.float32, PULSE_STATES)
+    rng = np.random.default_rng(23)
+    thetas = torch.tensor(0.1 + 0.05 * rng.standard_normal((PULSES, 6)),
+                          dtype=torch.float32, device="cuda")
+
+    def loss(th):
+        return pc.infidelity(th, y0, tg, n_steps=ADJ_STEPS,
+                             dtype=torch.float32)
+
+    reset_counts()
+    with TwinCalls() as tw:
+        gv, vv = torch.func.vmap(torch.func.grad_and_value(loss))(thetas)
+        torch.cuda.synchronize()
+    k6, k7, k8, k4 = adj_counts()
+    assert (k6, k7, k8, k4, tw.n) == (0, PULSES, PULSES, 0, 0), (
+        k6, k7, k8, k4, tw.n)
+    dv = dg = 0.0
+    for p in range(PULSES):
+        th = thetas[p].clone().requires_grad_(True)
+        v = loss(th)
+        (g,) = torch.autograd.grad(v, th)
+        dv = max(dv, abs(float(vv[p]) - float(v)) / abs(float(v)))
+        dg = max(dg, rel(gv[p], g))
+    assert dv <= 1e-6 and dg <= 1e-6, (dv, dg)
+    print(f"[pulse-vmap] PulseControl({DIM}c) infidelity, {PULSES} pulses x "
+          f"{PULSE_STATES} states, {ADJ_STEPS} Magnus-4 steps, f32, "
+          f"torch.func.vmap(grad_and_value): K7 {k7} and K8 {k8} launches "
+          f"(one a pulse), no twin call; vs the per-pulse loop: values "
+          f"{dv:.2e}, gradients {dg:.2e} relative (<= 1e-6)", flush=True)
+    return max(dv, dg)
+
+
+def fit_loop_phase(trained):
+    """fit_loop with Adam(lr=0.05), five iterations on the f32 infidelity
+    of adjoint_training_phase: its parameters and losses (``trained``)."""
+    pc, y0, tg, theta = adjoint_inputs(torch.float32)
+    res = tdiff.fit_loop(
+        lambda th: pc.infidelity(th, y0, tg, n_steps=ADJ_STEPS,
+                                 dtype=torch.float32),
+        theta, optimizer=lambda p: torch.optim.Adam(p, lr=0.05), n_iters=5)
+    params, losses = trained
+    dp = float((res.params - params).abs().max())
+    dl = max(abs(a - b) for a, b in zip(res.losses.tolist(), losses))
+    assert res.n_done == 5 and dp <= 1e-6 and dl <= 1e-6, (dp, dl)
+    print(f"[fit-loop] fit_loop, Adam(lr=0.05), five iterations on the "
+          f"infidelity: losses {[round(v, 6) for v in res.losses.tolist()]}; "
+          f"vs [adjoint-train]'s loop: parameters max |d| {dp:.2e}, losses "
+          f"{dl:.2e} (<= 1e-6)", flush=True)
 
 
 def adj_flops(n_pass, B: int, D: int, Kp: int, m: int,
@@ -3037,8 +3347,8 @@ def adjoint_timing_phase(card: str, ts):
     torch.cuda.synchronize()
     _, n7, n8, _ = adj_counts()
     # K7's and K8's spans inside the timed wall: CUDA events around each
-    # wrapper call that diff.py makes (the launch; K8's also the sum of its
-    # partials), read after each run
+    # operator call that diff.py makes (the launch; K8's also the sum of
+    # its partials), read after each run
     spans = {"K7": [], "K8": []}
 
     def evented(name, fn):
@@ -3051,9 +3361,9 @@ def adjoint_timing_phase(card: str, ts):
             return res
         return run
 
-    plain_fns = tdiff.adjoint_sweep_fwd, tdiff.adjoint_sweep_bwd
-    tdiff.adjoint_sweep_fwd = evented("K7", plain_fns[0])
-    tdiff.adjoint_sweep_bwd = evented("K8", plain_fns[1])
+    plain_fns = tdiff.sweep_fwd_op, tdiff.sweep_bwd_op
+    tdiff.sweep_fwd_op = evented("K7", plain_fns[0])
+    tdiff.sweep_bwd_op = evented("K8", plain_fns[1])
     walls, in_wall = [], {"K7": [], "K8": []}
     try:
         for _ in range(3):
@@ -3063,7 +3373,7 @@ def adjoint_timing_phase(card: str, ts):
             for name, v in spans.items():
                 in_wall[name].append(sum(a.elapsed_time(b) for a, b in v))
     finally:
-        tdiff.adjoint_sweep_fwd, tdiff.adjoint_sweep_bwd = plain_fns
+        tdiff.sweep_fwd_op, tdiff.sweep_bwd_op = plain_fns
     wall = statistics.median(walls)
     k7_ms, k8_ms = (statistics.median(in_wall[n]) for n in ("K7", "K8"))
     peaks = {}
@@ -3091,6 +3401,90 @@ def adjoint_timing_phase(card: str, ts):
                       for n, (v, t) in peaks.items())
           + f" ({card})", flush=True)
     return out
+
+
+def many_timing_phase(card: str) -> dict:
+    """K7 and K8 per launch past K' = 6, at K' = 10 and 36 (ManyControls(4)
+    and (8), the path's f32 rows of ADJ_STEPS Magnus-4 steps) at 256 and
+    4096 trajectories: kernel (median of 3), the plain twin at 256, the
+    library yardstick (matrix_exp of the rows and of the Fréchet blocks,
+    and products; adj_library) and the bound by the least work
+    (adj_flops, as for K' = 3), with the launch shape and ptxas lines.
+    Returns {(name, K'): (ms at 256, plain ms, bound ms, bound by, library
+    ms)}."""
+    out = {}
+    for K0 in (4, 8):
+        model = ManyControls(K0)
+        core, c_all = model_rows(model, model.theta(torch.float32),
+                                 ADJ_STEPS, torch.float32)
+        R, Kp = c_all.shape
+        for B in (ADJ_B, ADJ_BIG):
+            _, y0, _, _ = adjoint_inputs(torch.float32, B)
+            x, a = torch.cat([y0.re, y0.im], -1), cotangents(B, torch.float32)
+            D = x.shape[1]
+            mt, ms, norms, m, th = core.operands(x)
+            kw = dict(m=m, theta=th, max_squarings=16)
+            _, n_pass = expmv.scale_rows(c_all[:, None], norms, th, 16)
+            cases = {
+                "K7": (lambda: tadj.adjoint_sweep_fwd(c_all, x, mt, norms,
+                                                      **kw),
+                       lambda: tadj.torch_adjoint_sweep_fwd(c_all, x, mt,
+                                                            norms, **kw),
+                       lambda: adj_library(core.W, c_all, x, a, False)),
+                "K8": (lambda: tadj.adjoint_sweep_bwd(c_all, x, a, mt, ms,
+                                                      norms, **kw),
+                       lambda: tadj.torch_adjoint_sweep_bwd(
+                           c_all, x, a, mt, ms, norms, **kw),
+                       lambda: adj_library(core.W, c_all, x, a, True))}
+            for name, (kern, plain, lib) in cases.items():
+                got, lb = kern(), lib()
+                got, lb = ((got,), (lb,)) if name == "K7" else (got, lb)
+                d_lib = max(rel(u, v) for u, v in zip(got, lb))
+                assert d_lib <= 1e-3, (name, Kp, B, d_lib)
+                del got, lb
+                with_plain = B == ADJ_B
+                runs = {"kernel": [], "plain": [], "library": []}
+                for _ in range(3):  # in turns
+                    runs["kernel"].append(timed_ms(kern, reps=1))
+                    if with_plain:
+                        runs["plain"].append(timed_ms(plain, reps=1))
+                    runs["library"].append(timed_ms(lib, reps=1))
+                k_ms = statistics.median(runs["kernel"])
+                p_ms = statistics.median(runs["plain"]) if with_plain else None
+                l_ms = statistics.median(runs["library"])
+                nbytes = 4 * ((2 if name == "K7" else 3) * B * D + R * Kp
+                              + (1 if name == "K7" else 2) * Kp * D * D)
+                flop = adj_flops(n_pass.flatten().tolist(), B, D, Kp, m,
+                                 name == "K8")
+                b_ms, b_by = bound(flop, nbytes)
+                print(f"[time] {name} at B={B}, d={DIM}, K'={Kp}, f32, R={R} "
+                      f"rows ({int(n_pass.sum()) * B} trajectory-row "
+                      f"passes){sweep_shape(x, B, Kp, name)}: kernel "
+                      f"{k_ms:.4f} ms per launch "
+                      f"({flop / k_ms / 1e9:.2f} TFLOP/s)"
+                      + (f", plain twin {p_ms:.4f} ms" if with_plain else "")
+                      + f", library {l_ms:.4f} ms (max rel |d| {d_lib:.2e})"
+                      + "; runs " + ", ".join(
+                          f"{k} {[round(v, 4) for v in r]}"
+                          for k, r in runs.items() if r)
+                      + f"; bound {b_ms:.4f} ms by {b_by} "
+                      f"({flop / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB a "
+                      f"launch), kernel at {b_ms / k_ms:.1%} of it ({card})",
+                      flush=True)
+                if B == ADJ_B:
+                    out[(name, Kp)] = (k_ms, p_ms, b_ms, b_by, l_ms)
+    return out
+
+
+def wall_phase(label: str, vg, card: str) -> float:
+    """A value-and-grad wall: median of 3 CUDA-event timed calls after a
+    warm one."""
+    vg()
+    walls = timed_runs(vg)
+    wall = statistics.median(walls)
+    print(f"[time] {label}: median wall {wall:.3f} ms of "
+          f"{[round(w, 3) for w in walls]} ({card})", flush=True)
+    return wall
 
 
 # -- events and dense output (slice 3b): K2's event and dense switches -----
@@ -4398,8 +4792,14 @@ def main() -> None:
     k9_launches = generic_path_phase()
     adj_errs = adjoint_kernel_phase()
     k7_launches, k8_launches = adjoint_path_phase()
-    adjoint_training_phase()
+    trained = adjoint_training_phase()
     k6_launches, adaptive_ts = adjoint_adaptive_phase()
+    many = {10: adjoint_many_phase(4, (ADJ_B,)),
+            36: adjoint_many_phase(8, (ADJ_B, ADJ_BIG))}
+    basis_k6, basis_vg = basis_grad_phase()
+    dense_vg = adjoint_dense_phase()
+    pulse_vmap_phase()
+    fit_loop_phase(trained)
     adaptive_adjoint_check("Magnus-6", card, order=6)
     adaptive_adjoint_check("CFM-4", card, scheme="cfm4")
     lindblad_phase(card)
@@ -4421,6 +4821,17 @@ def main() -> None:
     r_times = {kind: r_timing_phase(kind, card) for kind in R_KINDS}
     k9 = k9_timing_phase(card)
     adj = adjoint_timing_phase(card, adaptive_ts)
+    many_t = many_timing_phase(card)
+    for Kp in (10, 36):
+        wall_phase(f"adjoint-k{Kp} value-and-grad {ADJ_B}x{DIM}c f32, "
+                   f"{ADJ_STEPS} Magnus-4 steps (1 K7 + 1 K8 launch)",
+                   many[Kp]["vg"], card)
+    wall_phase(f"basis-grad value-and-grad {ADJ_B}x{DIM}c f32, four basis "
+               f"terms, {BASIS_STEPS} Magnus-4 steps (1 K7 + {basis_k6} K6 "
+               f"launches)", basis_vg, card)
+    wall_phase(f"adjoint-dense value-and-grad {ADJ_B}x{DIM}c f64, "
+               f"{BASIS_STEPS} Magnus-4 steps (no hand kernel)", dense_vg,
+               card)
     extra = extra_timing_phase(card)
     k0_times = k0_timing_phase(card)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -4442,6 +4853,11 @@ def main() -> None:
             ("adjoint_bwd", k6_launches, adj_errs["k6"], adj["K6"]),
             ("adjoint_sweep_fwd", k7_launches, adj_errs["k7"], adj["K7"]),
             ("adjoint_sweep_bwd", k8_launches, adj_errs["k8"], adj["K8"]),
+            *((f"{name}/k{Kp}", many[Kp][ADJ_B][key], many[Kp]["f64"][key],
+               many_t[(nm, Kp)])
+              for Kp in (10, 36)
+              for name, key, nm in (("adjoint_sweep_fwd", "k7", "K7"),
+                                    ("adjoint_sweep_bwd", "k8", "K8"))),
             ("fused_loop/events", ev_launches, extra_errs["events"],
              extra["events"]),
             ("fused_loop/dense", dense_launches, extra_errs["dense"],

@@ -420,7 +420,7 @@ def _per_action_sweep_bwd(c_all, x, a, mt, ms, norms, **kw):
 
 
 @pytest.mark.parametrize("antisym", [True, False])
-@pytest.mark.parametrize("Kp", [1, 2, 3, 4, 5, 6])
+@pytest.mark.parametrize("Kp", [1, 2, 3, 4, 5, 6, 10])
 def test_sweep_bwd_twin_matches_the_per_action_rows_f64(Kp, antisym):
     """K8's twin, over formed exponents (2K' + 2 actions a term), against
     the same sweep in K6's per-action arithmetic (K'^2 + 3K'), rows past
@@ -487,21 +487,23 @@ def test_sweep_bwd_twin_forms_the_exponent_bitwise():
 
 def test_bwd_plan_matches_the_kernel_and_fits():
     """K8's launch plan: ops/adjoint.py's mirror reads csrc/adjoint.cu's
-    constants, and every (type, D, K') the wrapper accepts has a shape at
-    every batch, its threads within BWD_THREADS (BWD_WIDE_THREADS only at
-    one trajectory a block), its contraction groups' threads within the
-    block, its shared memory within 227 KB. The shapes at the adjoint
-    path's D = 128, K' = 3: the exponent and mt's ring in shared memory,
-    2 trajectories a block at B = 256 (2 rows a thread, 4 contraction
-    groups, 512 threads), 16 at 4096 (4 rows a thread, 512 threads) in
-    f32, 4 in f64;
+    constants, and every (type, D, K') the wrapper accepts (K' 1 to 36)
+    has a shape at every batch, its threads within BWD_THREADS
+    (BWD_WIDE_THREADS only at one trajectory a block), its contraction
+    groups' threads within the block, its shared memory within 227 KB.
+    The shapes at the adjoint path's D = 128, K' = 3: the exponent and
+    mt's ring in shared memory, 2 trajectories a block at B = 256 (2 rows
+    a thread, 4 contraction groups, 512 threads), 16 at 4096 (4 rows a
+    thread, 512 threads) in f32, 4 in f64;
     panels at D = 512, where K' >= 4 takes a wide block, and in f64 at D =
-    128 with K' = 6 (the ring does not fit)."""
+    128 with K' = 6 (the ring does not fit); past K' = 6 term groups of
+    G = 5 (K' = 10) and 6 (K' = 36) terms, G + 2 chain items."""
     src = (pathlib.Path(tadj.__file__).parents[1] / "csrc"
            / "adjoint.cu").read_text()
     consts = dict(re.findall(r"constexpr int (BWD_\w+) = (\d+);", src))
     for name in ("BWD_STAGES", "BWD_RING_BYTES", "BWD_THREADS",
-                 "BWD_WIDE_THREADS", "BWD_MAX_TILE", "BWD_MAX_GROUPS"):
+                 "BWD_WIDE_THREADS", "BWD_MAX_TILE", "BWD_MAX_GROUPS",
+                 "BWD_GROUP_TERMS"):
         assert int(consts[name]) == getattr(tadj, name), name
     plans = re.search(r"constexpr int BWD_BUFFER = (\d+), BWD_PANEL = "
                       r"(\d+);", src).groups()
@@ -515,13 +517,23 @@ def test_bwd_plan_matches_the_kernel_and_fits():
             (4096, 128, 3, 8): ("buffer", 2, 2, 1, 128),
             (256, 128, 6, 8): ("buffer", 1, 1, 1, 224),
             (5, 512, 3, 4): ("panel", 1, 1, 1, 512),
-            (5, 512, 6, 8): ("panel", 1, 1, 1, 896)}
+            (5, 512, 6, 8): ("panel", 1, 1, 1, 896),
+            (256, 128, 10, 4): ("buffer", 2, 2, 2, 448),
+            (4096, 128, 10, 4): ("buffer", 8, 4, 1, 448),
+            (256, 128, 36, 4): ("buffer", 2, 2, 2, 512),
+            (4096, 128, 36, 4): ("buffer", 8, 4, 1, 512),
+            (256, 128, 36, 8): ("buffer", 1, 1, 1, 256),
+            (5, 512, 36, 8): ("panel", 1, 1, 1, 1024)}
     for (Bn, D, Kp, elem), shape in want.items():
         got = tadj.bwd_plan(Bn, D, Kp, elem)
         assert (got["plan"], got["tile"], got["rm"], got["ks"],
                 got["threads"]) == shape, (Bn, D, Kp, got)
+    assert [tadj.bwd_group(k) for k in (1, 6, 7, 10, 13, 36)] == [
+        1, 6, 4, 5, 5, 6]
     for elem in (4, 8):
-        for Kp in range(1, tadj.MAX_KP + 1):
+        for Kp in range(1, tadj.ROW_MAX_KP + 1):
+            G = tadj.bwd_group(Kp)
+            chains = G + (1 if G == Kp else 2)
             for D in range(1, tadj.MAX_WIDTH + 1):
                 per_col = tadj.gemm_dp(D) // tadj.GEMM_CN
                 for Bn in (1, 256, 4096, 1 << 20):
@@ -533,8 +545,96 @@ def test_bwd_plan_matches_the_kernel_and_fits():
                         else tadj.BWD_THREADS), (elem, Kp, D, got)
                     per = got["tile"] // got["rm"] * per_col
                     assert got["tile"] % got["rm"] == 0
-                    assert got["ks"] * (Kp + 1) * per <= got["threads"]
+                    assert got["ks"] * chains * per <= got["threads"]
                     assert got["ks1"] * per <= got["threads"]
+                    assert got["G"] == G
+
+
+def _one_group_bwd_plan(B, D, Kp, elem, n_sm=132, max_smem=232448):
+    """K8's plan as it was before its term groups (K' <= 6 only): K' + 1
+    chain items, K' ring blocks and 2K' + 5 slabs, no coefficients in
+    shared memory."""
+    ncg = tadj.gemm_dp(D) // tadj.GEMM_CN
+    ts = tadj.gemm_dp(D) + (0 if ncg >= 32 else tadj.GEMM_CN)
+    al = tadj._align16
+
+    def smem(plan, tile, ks, ks1):
+        nred = max((ks - 1) * (2 * Kp + 1), ks1 - 1 - (2 * Kp + 2))
+        if plan == "panel":
+            exp = 2 * al(tadj.gemm_jc(D, elem) * tadj.gemm_dp(D) * elem)
+        else:
+            exp = al(D * tadj.bwd_as(D) * elem) + tadj.BWD_STAGES * al(
+                tadj.bwd_jw(D, Kp, elem, ks) * Kp * tadj.gemm_dp(D) * elem)
+        return exp + (2 * Kp + 5 + nred) * al(tile * ts * elem)
+
+    start = tadj.BWD_MAX_TILE
+    while start > 1 and -(-B // start) < n_sm // 2:
+        start //= 2
+    for plan in tadj.BWD_PLANS:
+        tile = start
+        while True:
+            rm = min(tile, tadj.BWD_RM_MAX[elem])
+            per = tile // rm * ncg
+            ks = 1
+            while (plan == "buffer" and ks < tadj.BWD_MAX_GROUPS
+                   and 2 * ks * (Kp + 1) * per <= tadj.BWD_THREADS
+                   and D >= 64 * ks):
+                ks *= 2
+            while ks >= 1:
+                threads = -(-ks * (Kp + 1) * per // 32) * 32
+                ks1 = (min(tadj.BWD_MAX_GROUPS, threads // per)
+                       if plan == "buffer" else 1)
+                if smem(plan, tile, ks, ks1) <= max_smem and (
+                        threads <= tadj.BWD_THREADS or (
+                            tile == 1 and threads <= tadj.BWD_WIDE_THREADS)):
+                    return (plan, tile, rm, ks, ks1, threads)
+                ks //= 2
+            if tile == 1:
+                break
+            tile //= 2
+    return None
+
+
+def test_bwd_plan_keeps_the_one_group_shapes():
+    """At K' <= 6 K8 runs one term group: its plan is the one it had before
+    the groups (the same blocks, threads and contraction groups, so the
+    same bits), over the whole grid of batches, widths and types; its
+    shared memory grows only by the row's coefficients."""
+    for elem in (4, 8):
+        for Kp in range(1, tadj.BWD_GROUP_TERMS + 1):
+            for D in range(1, tadj.MAX_WIDTH + 1):
+                for Bn in (1, 256, 4096):
+                    got = tadj.bwd_plan(Bn, D, Kp, elem)
+                    assert got["G"] == Kp
+                    assert (got["plan"], got["tile"], got["rm"], got["ks"],
+                            got["ks1"], got["threads"]) == \
+                        _one_group_bwd_plan(Bn, D, Kp, elem), (elem, Kp, D, Bn)
+
+
+@pytest.mark.parametrize("Kp", [10, 36])
+def test_sweep_twins_past_six_terms_match_xla_f64(Kp):
+    """K7's and K8's twins past K' = 6 (four and eight basis terms at
+    order 4; K8's twin then takes the w chain as one product with the
+    exponent, as its kernel's term groups do) against diff._rows_forward /
+    _rows_backward on the XLA path over a norm-preserving basis, rows past
+    theta (up to 128 passes): measured <= 4.1e-15 relative to each
+    output's largest entry (y, a0, cbar), held to 1e-13."""
+    W, _, c_all, x, a = _f64_inputs(51 + Kp, D=8, R=5, Kp=Kp,
+                                    scale=6.0 / Kp, antisym=True)
+    core = _xla_core(W)
+    yr = jdiff._rows_forward(core, jnp.asarray(c_all), jnp.asarray(x))
+    a0r, cbr = jdiff._rows_backward(core, jnp.asarray(c_all), yr,
+                                    jnp.asarray(a))
+    mt, ms, norms = _operands(_t(W, torch.float64))
+    ca = _t(c_all, torch.float64)
+    assert int(scale_rows(ca[:, None], norms, 0.25, 16)[1].max()) > 1
+    y = tadj.torch_adjoint_sweep_fwd(ca, _t(x, torch.float64), mt, norms,
+                                     m=12, theta=0.25)
+    a0, cb = tadj.torch_adjoint_sweep_bwd(ca, y, _t(a, torch.float64), mt,
+                                          ms, norms, m=12, theta=0.25)
+    for got, ref in ((y, yr), (a0, a0r), (cb, cbr)):
+        ref = np.asarray(ref)
+        assert np.abs(got.numpy() - ref).max() <= 1e-13 * np.abs(ref).max()
 
 
 def test_row_plan_matches_the_kernel_and_fits():

@@ -1067,18 +1067,27 @@ def test_adjoint_wrappers_refuse_what_the_kernels_do_not_take(card):
     W7, c7, c7_all, x7, a7 = chip_smoke.adjoint_case(4, 16, 7, 2,
                                                      torch.float32, 1, 0.3)
     mt7, ms7, n7 = chip_smoke.adj_operands(W7)
-    got = tadj.adjoint_bwd(c7, x7, a7, mt7, ms7, n7, **kw)  # K6 takes 7
+    # K6, K7 and K8 take 7 basis terms (K7's and K8's cap was 6 before
+    # K8's term groups) and refuse 37, with one message
+    got = tadj.adjoint_bwd(c7, x7, a7, mt7, ms7, n7, **kw)
     want = tadj.torch_adjoint_row(c7, x7, a7, mt7, ms7, n7, **kw)
     assert chip_smoke.rel(got[2], want[2]) <= 1e-3
-    with pytest.raises(ValueError, match="1 to 6 basis terms.*queue 2"):
-        tadj.adjoint_sweep_fwd(c7_all, x7, mt7, n7, **kw)
-    with pytest.raises(ValueError, match="1 to 6 basis terms.*queue 2"):
-        tadj.adjoint_sweep_bwd(c7_all, x7, a7, mt7, ms7, n7, **kw)
-    W37, c37, _, x37, a37 = chip_smoke.adjoint_case(4, 16, 37, 2,
-                                                    torch.float32, 1, 0.3)
+    y7 = tadj.adjoint_sweep_fwd(c7_all, x7, mt7, n7, **kw)
+    assert chip_smoke.rel(y7, tadj.torch_adjoint_sweep_fwd(
+        c7_all, x7, mt7, n7, **kw)) <= 1e-4
+    got = tadj.adjoint_sweep_bwd(c7_all, x7, a7, mt7, ms7, n7, **kw)
+    want = tadj.torch_adjoint_sweep_bwd(c7_all, x7, a7, mt7, ms7, n7, **kw)
+    assert chip_smoke.rel(got[0], want[0]) <= 1e-4
+    assert chip_smoke.rel(got[1], want[1]) <= 1e-3
+    W37, c37, c37_all, x37, a37 = chip_smoke.adjoint_case(
+        4, 16, 37, 2, torch.float32, 1, 0.3)
     mt37, ms37, n37 = chip_smoke.adj_operands(W37)
     with pytest.raises(ValueError, match="1 to 36 basis terms"):
         tadj.adjoint_bwd(c37, x37, a37, mt37, ms37, n37, **kw)
+    with pytest.raises(ValueError, match="1 to 36 basis terms"):
+        tadj.adjoint_sweep_fwd(c37_all, x37, mt37, n37, **kw)
+    with pytest.raises(ValueError, match="1 to 36 basis terms"):
+        tadj.adjoint_sweep_bwd(c37_all, x37, a37, mt37, ms37, n37, **kw)
     xb = torch.zeros(4, 520, device=card)
     with pytest.raises(ValueError, match="D <= 512"):
         tadj.adjoint_sweep_fwd(c_all, xb, torch.zeros(520, 3 * 520,
@@ -1709,6 +1718,196 @@ def test_adjoint_sweep_bwd_keeps_a_nan_row(card, D, dtype):
     bad = torch.isnan(a0).any(1)
     assert bad.tolist() == [r == 3 for r in range(40)]
     assert chip_smoke.rel(a0[~bad], a0p[~bad]) <= tol
+
+
+# K7 and K8 past K' = 6 (K8's term groups): (B, D, K')
+PAST_SIX = [(256, 128, 7), (4096, 128, 7), (256, 128, 10), (4096, 128, 10),
+            (256, 128, 36), (4096, 128, 36), (5, 512, 10), (40, 18, 13)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("B,D,Kp", PAST_SIX)
+def test_adjoint_sweeps_past_six_terms_match_twins(card, B, D, Kp, dtype):
+    """K7 and K8 at K' = 7, 10, 13 and 36 (K8 in term groups of 4, 5, 5
+    and 6) against their twins on rows that need squarings: f64 to 1e-12
+    relative to the largest entry, f32 as check_adjoint_case; K8's
+    partials' block count the plan mirror's, its term group bwd_group's;
+    the panels at D = 512."""
+    W, _, c_all, x, a = chip_smoke.adjoint_case(B, D, Kp, 4, dtype, 31 + Kp,
+                                                1.2 / Kp)
+    mt, ms, norms = chip_smoke.adj_operands(W)
+    m, theta = _taylor_params(dtype)
+    kw = dict(m=m, theta=theta, max_squarings=16)
+    before = (tadj.adjoint_sweep_fwd.launches,
+              tadj.adjoint_sweep_bwd.launches)
+    y = tadj.adjoint_sweep_fwd(c_all, x, mt, norms, **kw)
+    a0, cb = tadj.adjoint_sweep_bwd(c_all, y, a, mt, ms, norms, **kw)
+    assert (tadj.adjoint_sweep_fwd.launches,
+            tadj.adjoint_sweep_bwd.launches) == tuple(b + 1 for b in before)
+    yp = tadj.torch_adjoint_sweep_fwd(c_all, x, mt, norms, **kw)
+    a0p, cbp = tadj.torch_adjoint_sweep_bwd(c_all, y, a, mt, ms, norms, **kw)
+    _, n_row = expmv.scale_rows(c_all[:, None], norms, theta, 16)
+    assert int(n_row.max()) > 1
+    tol, cb_tol = _bwd_tolerances(dtype)
+    assert chip_smoke.rel(y, yp) <= tol
+    assert chip_smoke.rel(a0, a0p) <= tol
+    assert chip_smoke.rel(cb, cbp) <= cb_tol
+    props = torch.cuda.get_device_properties(0)
+    shape = tadj.bwd_plan(B, D, Kp, a0.element_size(),
+                          n_sm=props.multi_processor_count,
+                          max_smem=getattr(props,
+                                           "shared_memory_per_block_optin",
+                                           232448))
+    assert shape["G"] == tadj.bwd_group(Kp) < Kp
+    assert shape["plan"] == ("panel" if D == 512 else "buffer"), shape
+    assert tadj._kernel_lib().vec_ode_adjoint_blocks(
+        B, D, Kp, a0.element_size()) == shape["blocks"]
+
+
+def test_adjoint_sweep_bwd_past_six_terms_is_deterministic(card):
+    """K8 over term groups: the same bits from run to run."""
+    W, _, c_all, x, a = chip_smoke.adjoint_case(4096, 128, 10, 6,
+                                                torch.float32, 3, 0.1)
+    mt, ms, norms = chip_smoke.adj_operands(W)
+    kw = dict(m=8, theta=0.35)
+    first = tadj.adjoint_sweep_bwd(c_all, x, a, mt, ms, norms, **kw)
+    for _ in range(2):
+        again = tadj.adjoint_sweep_bwd(c_all, x, a, mt, ms, norms, **kw)
+        assert all(torch.equal(u, v) for u, v in zip(first, again))
+
+
+def _four_term_basis(dev, d=4, K=4, seed=5):
+    rng = np.random.default_rng(seed)
+    H = rng.standard_normal((K, d, d)) + 1j * rng.standard_normal((K, d, d))
+    H = 0.5 * (H + np.conj(np.swapaxes(H, -1, -2)))
+    return from_complex(-1j * H, torch.float64, device=dev)
+
+
+def _four_coeff(t, th):
+    return torch.stack([torch.ones_like(t), th[0] * torch.cos(th[1] * t),
+                        th[2] * torch.sin(th[3] * t),
+                        th[0] * torch.cos(th[2] * t)], -1)
+
+
+def test_fixed_step_adjoint_past_six_terms_on_the_card_matches_the_cpu_path(
+        card):
+    """The fixed-step adjoint over four basis terms at order 4 (K' = 10:
+    one K7 and one K8 launch) against the twins in f64: value and theta /
+    psi0 gradients to f64 rounding."""
+    out = {}
+    for dev in (card, "cpu"):
+        _, y0, tg, _ = _small_pulse(dev)
+        th = torch.tensor([0.6, 2.0, -0.4, 3.0], dtype=torch.float64,
+                          device=dev, requires_grad=True)
+        yr, yi = (v.clone().requires_grad_(True) for v in (y0.re, y0.im))
+        before = (tadj.adjoint_sweep_fwd.launches,
+                  tadj.adjoint_sweep_bwd.launches)
+        yf = tdiff.adjoint_solve(_four_term_basis(dev), _four_coeff, th,
+                                 Cplx(yr, yi), 0.0, 1.0, 16, order=4)
+        value = torch.sum(PulseControl.fidelity(yf, tg))
+        grads = torch.autograd.grad(value, (th, yr, yi))
+        assert (tadj.adjoint_sweep_fwd.launches - before[0],
+                tadj.adjoint_sweep_bwd.launches - before[1]) == (
+                    (1, 1) if dev == card else (0, 0))
+        out[dev] = [value.detach().cpu()] + [g.cpu() for g in grads]
+    for u, v in zip(out[card], out["cpu"]):
+        np.testing.assert_allclose(u.numpy(), v.numpy(), rtol=1e-10,
+                                   atol=1e-13)
+
+
+def test_basis_grad_on_the_card_matches_the_cpu_path_f64(card):
+    """adjoint_solve(basis_grad=True) over four basis terms: one K7 launch
+    and one K6 launch a row on the card; value and the gradients (theta,
+    psi0, the basis pair) against the twins in f64."""
+    out = {}
+    for dev in (card, "cpu"):
+        _, y0, tg, _ = _small_pulse(dev)
+        b = _four_term_basis(dev)
+        b = Cplx(b.re.requires_grad_(True), b.im.requires_grad_(True))
+        th = torch.tensor([0.6, 2.0, -0.4, 3.0], dtype=torch.float64,
+                          device=dev, requires_grad=True)
+        yr, yi = (v.clone().requires_grad_(True) for v in (y0.re, y0.im))
+        before = (tadj.adjoint_sweep_fwd.launches, tadj.adjoint_bwd.launches,
+                  tadj.adjoint_sweep_bwd.launches)
+        yf = tdiff.adjoint_solve(b, _four_coeff, th, Cplx(yr, yi), 0.0, 1.0,
+                                 12, order=4, basis_grad=True)
+        value = torch.sum(PulseControl.fidelity(yf, tg))
+        grads = torch.autograd.grad(value, (th, yr, yi, b.re, b.im))
+        assert (tadj.adjoint_sweep_fwd.launches - before[0],
+                tadj.adjoint_bwd.launches - before[1],
+                tadj.adjoint_sweep_bwd.launches - before[2]) == (
+                    (1, 12, 0) if dev == card else (0, 0, 0))
+        out[dev] = [value.detach().cpu()] + [g.cpu() for g in grads]
+    for u, v in zip(out[card], out["cpu"]):
+        np.testing.assert_allclose(u.numpy(), v.numpy(), rtol=1e-10,
+                                   atol=1e-13)
+
+
+@pytest.mark.parametrize("adaptive", [False, True],
+                         ids=["fixed_step", "adaptive"])
+def test_pulse_vmap_on_the_card_matches_the_cpu_path_f64(card, adaptive):
+    """torch.func.vmap(torch.func.grad_and_value) over three pulses through
+    the fixed-step adjoint (one K7 and one K8 launch a pulse) and the
+    adaptive one (K4 per iteration, K6 per row, each pulse in turn): the
+    card against the per-pulse loop on the card and against the CPU."""
+    ctl = StepControl(rtol=1e-7, atol=1e-10, min_dt=1e-7, max_dt=0.4,
+                      max_steps=400)
+    out = {}
+    for dev in (card, "cpu"):
+        pc, y0, tg, _ = _small_pulse(dev)
+        basis = pc.basis_pair(torch.float64, dev)
+        thetas = torch.tensor(np.random.default_rng(4).standard_normal(
+            (3, 4)) * 0.2, dtype=torch.float64, device=dev)
+
+        def loss(th):
+            if adaptive:
+                yf = tdiff.adjoint_solve_adaptive(basis, pc.coeff_fn, th, y0,
+                                                  0.0, pc.T, ctl=ctl, h0=0.3)
+            else:
+                yf = tdiff.adjoint_solve(basis, pc.coeff_fn, th, y0, 0.0,
+                                         pc.T, 16)
+            return torch.sum(pc.fidelity(yf, tg))
+
+        before = tadj.adjoint_sweep_fwd.launches
+        gv, vv = torch.func.vmap(torch.func.grad_and_value(loss))(thetas)
+        if dev == card and not adaptive:
+            assert tadj.adjoint_sweep_fwd.launches - before == 3
+        for p in range(3):
+            th = thetas[p].clone().requires_grad_(True)
+            v = loss(th)
+            (g,) = torch.autograd.grad(v, th)
+            np.testing.assert_allclose(float(vv[p]), float(v), rtol=1e-12)
+            np.testing.assert_allclose(gv[p].cpu().numpy(), g.cpu().numpy(),
+                                       rtol=1e-10, atol=1e-14)
+        out[dev] = (vv.cpu(), gv.cpu())
+    for u, v in zip(out[card], out["cpu"]):
+        np.testing.assert_allclose(u.numpy(), v.numpy(), rtol=1e-10,
+                                   atol=1e-13)
+
+
+def test_dense_adjoint_on_the_card_matches_the_cpu_path_f64(card):
+    """adjoint_solve_dense over a Cplx black box at d = 8 (no hand kernel:
+    every launch count unchanged) against the CPU in f64."""
+    out = {}
+    for dev in (card, "cpu"):
+        model = DrivenDense.make(d=8, seed=1)
+
+        def op_fn(t, th):
+            A = model.op_pair(th[1] * t, torch.float64, device=dev)
+            return Cplx(th[0] * A.re, th[0] * A.im)
+
+        _, y0, tg, _ = _small_pulse(dev, d=8)
+        th = torch.tensor([1.0, 0.8], dtype=torch.float64, device=dev,
+                          requires_grad=True)
+        before = chip_smoke.all_launches()
+        yf = tdiff.adjoint_solve_dense(op_fn, th, y0, 0.0, 1.0, 16, order=4)
+        value = torch.sum(PulseControl.fidelity(yf, tg))
+        (g,) = torch.autograd.grad(value, th)
+        assert chip_smoke.all_launches() == before
+        out[dev] = (value.detach().cpu(), g.cpu())
+    for u, v in zip(out[card], out["cpu"]):
+        np.testing.assert_allclose(u.numpy(), v.numpy(), rtol=1e-10,
+                                   atol=1e-13)
 
 
 # -- the front door: the vmapped and scalar tiers on the card -----------------

@@ -19,13 +19,20 @@ PKG = ROOT / "vec_ode_tpu_torch"
 # earlier ones, and those of the front door (rk, api, the models, the
 # splits); NAMES, what the order-6 / CFM modulated path, the events and
 # dense output, the black-box front door (auto_modulated, ChebForm),
-# quadrature and the front door added to them
+# quadrature, the front door and the rest of the adjoint (basis gradients,
+# the dense adjoint, K8's term groups, the kernels' operators, fit_loop)
+# added to them
 NAMES = {"exp": ["MagnusModulated6", "CFMModulated", "CFM4Modulated",
                  "CfmTable"],
          "models": ["Lindblad"],
          "ops.expmv": ["CfmTable", "identity_rows", "n_rows", "n_nodes",
                        "ChebForm", "MAX_KP"],
-         "ops.adjoint": ["ROW_MAX_KP", "row_plan", "kernel_row_plan"],
+         "ops.adjoint": ["ROW_MAX_KP", "row_plan", "kernel_row_plan",
+                         "bwd_group", "BWD_GROUP_TERMS", "sweep_fwd_op",
+                         "sweep_bwd_op", "row_op"],
+         "diff": ["make_adjoint_basis_solver", "make_adjoint_dense_solver",
+                  "adjoint_solve_dense", "FitResult", "make_fit_loop",
+                  "fit_loop"],
          "events": ["Event", "EventConfig", "LinearObservable",
                     "QuadraticObservable", "KernelEvents", "event_step"],
          "dense": ["integrate_interp", "hermite_from_endpoints"],

@@ -1,6 +1,6 @@
-"""This checkout's RK step, loop, chain, dense chain and reverse-row
-kernels (K1, K2 + K3, K4, K2 + K5, K9, K6) against another checkout's, on
-one CUDA card, in turns, on chip_smoke.py's inputs.
+"""This checkout's RK step, loop, chain, dense chain, reverse-row and sweep
+kernels (K1, K2 + K3, K4, K2 + K5, K9, K6, K7, K8) against another
+checkout's, on one CUDA card, in turns, on chip_smoke.py's inputs.
 
     python -m tools.compare_parent PARENT_DIR [--only REGEX]
 
@@ -47,7 +47,9 @@ redesigns change the rounding, whether they agree within the tolerance:
   4096 lanes (one replay of its recorded iterations in reverse, per
   launch its mean, as ``chip_smoke.adj_timing_at``), held within the f32
   tolerance (``chip_smoke.adj_tolerances``: states 1e-4, cbar 1e-3 of
-  their largest entry).
+  their largest entry);
+* K7 and K8 per launch, f32: the fixed-step PulseControl adjoint's 256
+  Magnus-4 rows (K' = 3) at 256 and 4096 trajectories, the same bits.
 
 ``--only`` runs the cases whose label matches REGEX. It exits non-zero if
 any case's bits differ (K6, K1, K2 + K3: if any case disagrees).
@@ -80,7 +82,6 @@ from vec_ode_tpu_torch.ops.fused_loop import (ChainStep, RKStep,
                                               fused_loop_chunk,
                                               fused_loop_integrate,
                                               init_carries)
-from tools.k6_breakdown import load_k6
 
 MODULES = {"fused_rk_step": fused_rk, "chain_expmv": expmv,
            "fused_loop": fused_loop, "dense_chains": dense_chains}
@@ -88,9 +89,8 @@ OUT = _build.BUILD_DIR.parent / "parent_kernels"
 
 
 def build_parent(parent: pathlib.Path) -> dict:
-    """The parent's K4, K2, K9 and K6 libraries, built together, loaded with
-    the argument types this checkout's wrappers set (K6's: its entry
-    points')."""
+    """The parent's K4, K2, K9 and adjoint libraries, built together,
+    loaded with the argument types this checkout's wrappers set."""
     OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in (*MODULES, "adjoint"):
@@ -107,14 +107,12 @@ def build_parent(parent: pathlib.Path) -> dict:
         if rc != 0:
             raise RuntimeError(f"nvcc failed on the parent's {name}.cu:\n"
                                + (OUT / f"{name}.log").read_text())
-        if name == "adjoint":
-            libs[name] = load_k6(so)
-            continue
         lib = ctypes.CDLL(str(so))
         load = _build.load
         _build.load = lambda _n, lib=lib: lib   # the wrapper sets argtypes
         try:
-            libs[name] = MODULES[name]._kernel_lib.__wrapped__()
+            libs[name] = (tadj if name == "adjoint" else MODULES[name]
+                          )._kernel_lib.__wrapped__()
         finally:
             _build.load = load
     return libs
@@ -219,19 +217,19 @@ def k2_close(ref, new):
 
 
 def compare(label, fn, parent, card, inner=1, only=None, k6=False,
-            per=1, check=None) -> bool:
-    """fn on the parent's libraries and on this checkout's: the results'
-    bits (``k6``: their agreement, k6_close; ``check(ref, new)``: its
-    verdict and text), then the times in turns (parent, this, this,
-    parent), divided by ``per`` (the launches a call makes, where a time
-    per launch is read). A case whose label ``only`` does not match is
-    skipped (True)."""
+            per=1, check=None, adjoint=False) -> bool:
+    """fn on the parent's libraries and on this checkout's (``adjoint``:
+    the adjoint library's): the results' bits (``k6``: their agreement,
+    k6_close; ``check(ref, new)``: its verdict and text), then the times
+    in turns (parent, this, this, parent), divided by ``per`` (the
+    launches a call makes, where a time per launch is read). A case whose
+    label ``only`` does not match is skipped (True)."""
     if only is not None and not re.search(only, label):
         return True
     fn = fn()
 
     def using(who):
-        if k6:
+        if k6 or adjoint:
             return K6Using(parent["adjoint"] if who == "parent" else None)
         return Using(parent if who == "parent" else None)
 
@@ -338,6 +336,20 @@ def k6_case(B, ts):
 
     replay = cs.k6_replay(row, c_lane, x, a)
     return lambda: (*replay(), *row(c_lane[-1], x, a))
+
+
+def sweep_case(name, B):
+    """K7 (y) or K8 (a0, cbar) on the fixed-step PulseControl adjoint's
+    f32 rows at B trajectories; the library in force (K6Using) is looked
+    up at each call."""
+    pc, y0, _, theta = cs.adjoint_inputs(torch.float32, B)
+    core, c_all = cs.model_rows(pc, theta, cs.ADJ_STEPS, torch.float32)
+    x, a = torch.cat([y0.re, y0.im], -1), cs.cotangents(B, torch.float32)
+    mt, ms, norms, m, th = core.operands(x)
+    kw = dict(m=m, theta=th, max_squarings=16)
+    if name == "K7":
+        return lambda: tadj.adjoint_sweep_fwd(c_all, x, mt, norms, **kw)
+    return lambda: tadj.adjoint_sweep_bwd(c_all, x, a, mt, ms, norms, **kw)
 
 
 def value_and_grad_case():
@@ -449,6 +461,12 @@ def main() -> None:
                           "launches and one more; ms per launch)",
                           lambda B=B: k6_case(B, ts), parent, card,
                           only=only, k6=True, per=ts.shape[0]))
+    for name in ("K7", "K8"):
+        for B in (cs.ADJ_B, cs.ADJ_BIG):
+            ok.append(compare(f"{name} {B}x{cs.DIM}c f32, PulseControl's "
+                              f"{cs.ADJ_STEPS} fixed-step rows (K' = 3)",
+                              lambda name=name, B=B: sweep_case(name, B),
+                              parent, card, only=only, adjoint=True))
     print(f"[parent] {sum(ok)}/{len(ok)} cases with the parent's bits "
           f"(K6, K1, K2 + K3: within the tolerance), "
           f"{time.perf_counter() - t0:.1f} s", flush=True)

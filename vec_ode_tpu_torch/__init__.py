@@ -24,8 +24,9 @@ operator callback over ``exp.DenseSplit`` / ``exp.DenseCplxSplit``. On
 CUDA tensors they run hand-written kernels (``csrc/``): a step kernel per
 driver iteration, or the whole loop in one launch; on CPU tensors the
 plain torch twins run. ``diff`` holds the O(1)-memory reversible adjoint
-(``adjoint_solve``, ``adjoint_solve_adaptive``) over the adjoint kernels,
-whose workload is ``models.PulseControl``. ``events`` (declared
+(``adjoint_solve``, ``adjoint_solve_adaptive``, ``basis_grad=True``)
+over the adjoint kernels, whose workload is ``models.PulseControl``, the
+dense-operator adjoint (``adjoint_solve_dense``) and ``fit_loop``. ``events`` (declared
 observables, run in the loop kernel, or callables, run by the host
 driver) and ``dense`` (free-running interpolated saves) are taken by
 ``ensemble_solve(events=..., dense=True)``. ``quad`` holds the

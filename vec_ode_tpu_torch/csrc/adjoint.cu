@@ -39,7 +39,9 @@
 // term, then a block barrier. This one:
 //   - forms A_r^T = sum_k cs_k W_k^T in shared memory, in the twin's k
 //     order with explicitly rounded operations (bit for bit the twin's
-//     matrix), and runs 2^s_r passes of the degree-m Taylor polynomial,
+//     matrix; the K' <= 36 scaled coefficients in shared memory, two
+//     slots, the terms streamed into the sum one at a time), and runs
+//     2^s_r passes of the degree-m Taylor polynomial,
 //     each term one (tile, D) @ (D, D) product from that copy through
 //     gemm_tile.cuh's register microtile (RM rows x 4 columns a thread;
 //     the term row-major in rows of DP + 4 values, so its 16-byte stores
@@ -94,7 +96,17 @@
 //   3. cbar_k = <a, u_k> per trajectory over its columns, then over the
 //      column groups and the block's trajectories in order.
 // That is 2K' + 2 (D, D) actions a term per trajectory (8 at K' = 3), no
-// K'^2 term: 139.5 GFLOP at the path's 256 x 64c. The function needs
+// K'^2 term: 139.5 GFLOP at the path's 256 x 64c. Past K' =
+// BWD_GROUP_TERMS (6) the u_k chains run in term groups of G =
+// bwd_group(K') <= 6 terms (10 = 5 + 5, 36 = 6 x 6), one after another
+// per row: each group runs its G u_k chains and the w chain anew from
+// x_n, the w chain as one product with A (a chain item of its own; the
+// ring streams only the group's G blocks of mt and is drained between
+// groups), the a chain in the first group, and writes its G cbar
+// entries. That is ceil(K' / 6) (2G + 1) + 1 actions a term (2K' +
+// ceil(K' / 6) + 1: 79 at K' = 36), and threads, ring stages and slabs
+// bounded by G, not by K'. At K' <= 6 the kernel is the one-group kernel
+// above, with its bits and its shapes. The function needs
 // less, 36.8 GFLOP (chip_smoke.py:adj_flops, the bound): cbar is summed
 // over the batch, so cbar_k = <W_k, L>, L one adjoint Frechet chain of
 // the row's polynomial in the direction G = sum_b a_b x_b^T per row (3
@@ -117,12 +129,13 @@
 // shared memory, the exponent formed between rows; f32 up to D ~ 200,
 // f64 ~ 140 but at K' = 6) or else BWD_PANEL (panels of A^T and A formed
 // from mt and ms at every term and mt read from L2, as K7's SWEEP_PANEL;
-// D = 512); trajectories per block the largest power of two up to
+// D = 512); G + 1 chains besides the x chain with one group, G + 2 with
+// more; trajectories per block the largest power of two up to
 // BWD_MAX_TILE that leaves n_sm / 2 blocks, halved while the block does
 // not fit (2 a block at B = 256, with 2 rows a thread and 4 groups, and
 // 16 at 4096, with 4 rows a thread, for D = 128, K' = 3 in f32: 512
 // threads); a block of up to BWD_WIDE_THREADS threads where one
-// trajectory needs more (D > 292 with K' + 1 chains). ops/adjoint.py:
+// trajectory needs more (D > 292 with G + 1 or G + 2 chains). ops/adjoint.py:
 // bwd_plan mirrors it.
 
 #include "adjoint_row.cuh"
@@ -140,9 +153,9 @@ AdjParams<T> parse(int KP, const double* norms, int m, double theta, int max_sq)
   return p;
 }
 
-// K6 takes 1 to MAX_KP working terms, K7 and K8 up to ADJ_MAX_KP (max_kp).
-inline bool params_ok(int B, int D, int KP, int m, int max_sq, int max_kp = ADJ_MAX_KP) {
-  return B >= 1 && D >= 1 && D <= MAX_WIDTH && KP >= 1 && KP <= max_kp && m >= 1 &&
+// K6, K7 and K8 take 1 to ROW_MAX_KP working terms.
+inline bool params_ok(int B, int D, int KP, int m, int max_sq) {
+  return B >= 1 && D >= 1 && D <= MAX_WIDTH && KP >= 1 && KP <= ROW_MAX_KP && m >= 1 &&
          max_sq >= 0 && max_sq <= 30;
 }
 
@@ -198,11 +211,12 @@ __host__ __device__ inline int sweep_ts(int D) { return gemm_dp(D) + GEMM_CN; }
 // K7's shared memory, byte offsets (16-byte aligned): the exponent (D, DP)
 // or, for SWEEP_PANEL, one panel of it (jc, DP); the second exponent
 // (SWEEP_DOUBLE); the term, row-major (tile, TS); the partial products of
-// the ks - 1 later contraction groups (ks - 1, tile, TS).
+// the ks - 1 later contraction groups (ks - 1, tile, TS); two slots of a
+// scaled row (ROW_MAX_KP values each; row r in slot r mod 2).
 // ops/adjoint.py:sweep_plan mirrors it.
 template <typename T>
 struct SweepLayout {
-  size_t a0, a1, term, red, total;
+  size_t a0, a1, term, red, cs, total;
   __host__ __device__ SweepLayout(int plan, int tile, int ks, int D) {
     const size_t row = (size_t)gemm_dp(D) * sizeof(T), trow = (size_t)sweep_ts(D) * sizeof(T);
     size_t at = 0;
@@ -211,19 +225,17 @@ struct SweepLayout {
     if (plan == SWEEP_DOUBLE) at += align16(D * row);
     term = at, at += align16(tile * trow);
     red = at, at += align16((size_t)(ks - 1) * tile * trow);
+    cs = at, at += 2 * align16(ROW_MAX_KP * sizeof(T));
     total = at;
   }
 };
 
-// A shared row's scaling (adj_scale_row's rule): the scaled row into cs,
-// returns 2^s.
+// A shared row's pass count 2^s by adj_scale_row's rule, the bound
+// summed in k order.
 template <typename T>
-__device__ __forceinline__ int sweep_row(const T* __restrict__ c, const AdjParams<T>& p,
-                                         T (&cs)[ADJ_MAX_KP]) {
+__device__ __forceinline__ int sweep_passes(const T* __restrict__ c, const AdjParams<T>& p) {
   T bound = T(0);
-#pragma unroll
-  for (int k = 0; k < ADJ_MAX_KP; ++k) {
-    if (k >= p.KP) break;
+  for (int k = 0; k < p.KP; ++k) {
     const T term = mul_rn(fabs(c[k]), p.norms[k]);
     bound = k == 0 ? term : add_rn(bound, term);
   }
@@ -235,10 +247,18 @@ __device__ __forceinline__ int sweep_row(const T* __restrict__ c, const AdjParam
     e2 = e - (mant == T(0.5) ? 1 : 0);
     e2 = e2 < 0 ? 0 : (e2 > p.max_sq ? p.max_sq : e2);
   }
-  const int n_pass = 1 << e2;
+  return 1 << e2;
+}
+
+// A shared row's scaling: every calling thread takes the count, threads
+// t, t + nt, ... write the scaled row into cs (shared memory, K' values;
+// the caller meets a barrier before reading it); returns 2^s.
+template <typename T>
+__device__ __forceinline__ int sweep_row(const T* __restrict__ c, const AdjParams<T>& p, T* cs,
+                                         int t, int nt) {
+  const int n_pass = sweep_passes(c, p);
   const T scale = T(1) / T(n_pass);  // exact
-#pragma unroll
-  for (int k = 0; k < ADJ_MAX_KP; ++k) cs[k] = k < p.KP ? c[k] * scale : T(0);
+  for (int k = t; k < p.KP; k += nt) cs[k] = c[k] * scale;
   return n_pass;
 }
 
@@ -253,46 +273,81 @@ __device__ __forceinline__ void ldg_vec(const T* p, T (&v)[N]) {
   }
 }
 
+// Terms a chunk of form_rows loads together: K' <= 6 in one chunk.
+constexpr int FORM_CHUNK = 6;
+
+// a (+)= sum_k c_k v_k over terms [k0, min(k0 + FORM_CHUNK, kp)) of V
+// values each (term k at src + k D), in k order with explicitly rounded
+// operations, the chunk's loads in flight together.
+template <typename T, int V>
+__device__ __forceinline__ void form_chunk(T (&a)[V], const T* __restrict__ src, int D,
+                                           const T* c, int k0, int kp) {
+  T v[FORM_CHUNK][V];
+#pragma unroll
+  for (int k = 0; k < FORM_CHUNK; ++k)
+    if (k0 + k < kp) {
+      if constexpr (V == 1)
+        v[k][0] = __ldg(src + (size_t)(k0 + k) * D);
+      else
+        ldg_vec<T, V>(src + (size_t)(k0 + k) * D, v[k]);
+    }
+#pragma unroll
+  for (int k = 0; k < FORM_CHUNK; ++k)
+    if (k0 + k < kp) {
+      const T ck = c[k0 + k];
+#pragma unroll
+      for (int u = 0; u < V; ++u)
+        a[u] = k0 + k == 0 ? mul_rn(ck, v[k][u]) : add_rn(a[u], mul_rn(ck, v[k][u]));
+    }
+}
+
 // Rows [j0, j0 + jn) of A^T = sum_k cs_k W_k^T (row j of each of mt's K'
 // blocks, combined in k order with explicitly rounded operations, as the
 // twin's _exponent) into dst (row stride DP), by threads t, t + nt, ...;
-// 16-byte loads where D allows.
+// cs the scaled row in shared memory. The terms stream into the sum in
+// chunks of FORM_CHUNK whose loads are in flight together; K' <= 6 takes
+// one chunk with the row in registers, so that two elements' loads
+// overlap; 16-byte loads where D allows. Not inlined: inlined into K7
+// and K8, its registers raised their spills and their times (H100, K' =
+// 3: 1-7% more).
 template <typename T>
-__device__ void form_rows(T* dst, int DP, const T (&cs)[ADJ_MAX_KP], int kp,
-                          const T* __restrict__ mt, int D, int j0, int jn, int t, int nt) {
+__device__ __noinline__ void form_rows(T* dst, int DP, const T* cs, int kp,
+                                       const T* __restrict__ mt, int D, int j0, int jn, int t,
+                                       int nt) {
   const size_t ld = (size_t)kp * D;
-  constexpr int V = 16 / sizeof(T);
-  if (D % V == 0 && (size_t)mt % 16 == 0) {
+  constexpr int W = 16 / sizeof(T);
+  // V values an element (16-byte loads, or 1); ONE: K' <= FORM_CHUNK
+  auto run = [&](auto vals, auto one, const T* c) {
+    constexpr int V = decltype(vals)::value;
     const int per = D / V;
 #pragma unroll 2
     for (int e = t; e < jn * per; e += nt) {
       const int jj = e / per, i = (e - jj * per) * V;
       const T* src = mt + (size_t)(j0 + jj) * ld + i;
-      T v[ADJ_MAX_KP][V], a[V];
-#pragma unroll
-      for (int k = 0; k < ADJ_MAX_KP; ++k)
-        if (k < kp) ldg_vec<T, V>(src + (size_t)k * D, v[k]);
-#pragma unroll
-      for (int u = 0; u < V; ++u) a[u] = mul_rn(cs[0], v[0][u]);
-#pragma unroll
-      for (int k = 1; k < ADJ_MAX_KP; ++k)
-        if (k < kp) {
-#pragma unroll
-          for (int u = 0; u < V; ++u) a[u] = add_rn(a[u], mul_rn(cs[k], v[k][u]));
-        }
+      T a[V];
+      if constexpr (decltype(one)::value)
+        form_chunk<T, V>(a, src, D, c, 0, kp);
+      else
+        for (int k0 = 0; k0 < kp; k0 += FORM_CHUNK) form_chunk<T, V>(a, src, D, c, k0, kp);
 #pragma unroll
       for (int u = 0; u < V; ++u) dst[(size_t)jj * DP + i + u] = a[u];
     }
-  } else {
-    for (int e = t; e < jn * D; e += nt) {
-      const int jj = e / D, i = e - jj * D;
-      const T* src = mt + (size_t)(j0 + jj) * ld + i;
-      T a = mul_rn(cs[0], __ldg(src));
+  };
+  using Vec = std::integral_constant<int, W>;
+  using Scalar = std::integral_constant<int, 1>;
+  const bool vec = D % W == 0 && (size_t)mt % 16 == 0;
+  if (kp <= FORM_CHUNK) {
+    T c[FORM_CHUNK];
 #pragma unroll
-      for (int k = 1; k < ADJ_MAX_KP; ++k)
-        if (k < kp) a = add_rn(a, mul_rn(cs[k], __ldg(src + (size_t)k * D)));
-      dst[(size_t)jj * DP + i] = a;
-    }
+    for (int k = 0; k < FORM_CHUNK; ++k) c[k] = k < kp ? cs[k] : T(0);
+    if (vec)
+      run(Vec{}, std::true_type{}, c);
+    else
+      run(Scalar{}, std::true_type{}, c);
+  } else if (vec) {
+    run(Vec{}, std::false_type{}, cs);
+  } else {
+    run(Scalar{}, std::false_type{}, cs);
   }
 }
 
@@ -301,7 +356,8 @@ __device__ void form_rows(T* dst, int DP, const T (&cs)[ADJ_MAX_KP], int kp,
 // columns [cg 4, cg 4 + 4) of the tile (t mod per = rg DP / 4 + cg) over
 // contraction group kg = t / per, j in [kg dk, kg dk + dk); group 0 adds
 // the later groups' partial products in group order and keeps the state.
-// Under SWEEP_DOUBLE the warps past nc form the next row's exponent.
+// Under SWEEP_DOUBLE the warps past nc form the next row's exponent and
+// scale its row into the other coefficient slot.
 template <typename T, int RM>
 __global__ void __launch_bounds__(GEMM_THREADS + 32 * SWEEP_PRODUCER_WARPS, 1)
 adjoint_sweep_gemm_kernel(const T* __restrict__ c_all, int R, const T* __restrict__ x,
@@ -313,6 +369,8 @@ adjoint_sweep_gemm_kernel(const T* __restrict__ c_all, int R, const T* __restric
   T* const a1 = reinterpret_cast<T*>(sweep_smem + L.a1);
   T* term = reinterpret_cast<T*>(sweep_smem + L.term);
   T* red = reinterpret_cast<T*>(sweep_smem + L.red);
+  T* const cs0 = reinterpret_cast<T*>(sweep_smem + L.cs);
+  T* const cs1 = cs0 + align16(ROW_MAX_KP * sizeof(T)) / sizeof(T);
   const int DP = gemm_dp(D), TS = sweep_ts(D), ncg = DP / GEMM_CN, kp = p.KP;
   const int jc = gemm_jc<T>(D), per = (tile / RM) * ncg, dk = (D + ks - 1) / ks;
   const int tid = threadIdx.x;
@@ -339,16 +397,20 @@ adjoint_sweep_gemm_kernel(const T* __restrict__ c_all, int R, const T* __restric
     for (int q = 0; q < RM; ++q) sts_vec(term + (size_t)(lr0 + q) * TS + col0, yv[q]);
   };
 
-  T cs[ADJ_MAX_KP];
-  int np = R > 0 ? sweep_row(c_all, p, cs) : 0;
-  if (plan != SWEEP_PANEL && R > 0) form_rows(a0, DP, cs, kp, mt, D, 0, D, tid, blockDim.x);
+  const int nt = blockDim.x;
+  int np = R > 0 ? sweep_row(c_all, p, cs0, tid, nt) : 0;
+  __syncthreads();  // row 0's coefficients are written
+  if (plan != SWEEP_PANEL && R > 0) form_rows(a0, DP, cs0, kp, mt, D, 0, D, tid, nt);
   __syncthreads();
   for (int r = 0; r < R; ++r) {
+    const T* cs = (r & 1) ? cs1 : cs0;  // row r's slot
+    T* const cn = (r & 1) ? cs0 : cs1;  // row r + 1's
     if (!consumer) {  // SWEEP_DOUBLE's producers: A_{r+1} while row r runs
       if (r + 1 < R) {
-        T cn[ADJ_MAX_KP];
-        sweep_row(c_all + (size_t)(r + 1) * kp, p, cn);
-        form_rows((r & 1) ? a0 : a1, DP, cn, kp, mt, D, 0, D, tid - nc, blockDim.x - nc);
+        sweep_row(c_all + (size_t)(r + 1) * kp, p, cn, tid - nc, nt - nc);
+        // the producers' own barrier (named barrier 2): cn is written
+        asm volatile("bar.sync 2, %0;\n" ::"r"(nt - nc) : "memory");
+        form_rows((r & 1) ? a0 : a1, DP, cn, kp, mt, D, 0, D, tid - nc, nt - nc);
       }
     } else {
       const T* A = plan == SWEEP_DOUBLE && (r & 1) ? a1 : a0;
@@ -405,10 +467,14 @@ adjoint_sweep_gemm_kernel(const T* __restrict__ c_all, int R, const T* __restric
       }
     }
     if (r + 1 < R) {
-      np = sweep_row(c_all + (size_t)(r + 1) * kp, p, cs);
-      if (plan == SWEEP_SINGLE) {  // every read of A_r is done: A_{r+1} in its place
+      if (plan == SWEEP_DOUBLE) {  // the producers wrote row r + 1's slot
+        np = sweep_passes(c_all + (size_t)(r + 1) * kp, p);
+      } else {
+        // every read of A_r is done (SWEEP_SINGLE: A_{r+1} in its place);
+        // row r + 1's slot is written
+        np = sweep_row(c_all + (size_t)(r + 1) * kp, p, cn, tid, nt);
         __syncthreads();
-        form_rows(a0, DP, cs, kp, mt, D, 0, D, tid, blockDim.x);
+        if (plan == SWEEP_SINGLE) form_rows(a0, DP, cn, kp, mt, D, 0, D, tid, nt);
       }
     }
     __syncthreads();  // A_{r+1} is formed; row r is done with A_r
@@ -425,14 +491,23 @@ adjoint_sweep_gemm_kernel(const T* __restrict__ c_all, int R, const T* __restric
 // K8's plans and limits (see the note above).
 constexpr int BWD_BUFFER = 0, BWD_PANEL = 1;
 constexpr int BWD_THREADS = 512;        // up to 128 registers a thread
-constexpr int BWD_WIDE_THREADS = 1024;  // one trajectory's K' + 1 chains at D > 292
+constexpr int BWD_WIDE_THREADS = 1024;  // one trajectory's G + 2 chains at D > 292
 constexpr int BWD_MAX_TILE = 64;
 constexpr int BWD_MAX_GROUPS = 8;       // contraction groups
 constexpr int BWD_STAGES = 3;           // BWD_BUFFER: stages of mt's ring
 constexpr int BWD_RING_BYTES = 24576;   // one stage at most, but for 4 rows a group
+constexpr int BWD_GROUP_TERMS = 6;      // the w chain's actions a term group at most
 
 template <typename T>
 __host__ __device__ constexpr int bwd_rm_max() { return sizeof(T) == 4 ? 4 : 2; }
+
+// The terms of a term group: K' itself up to BWD_GROUP_TERMS (one group:
+// the w chain from its K' actions), else K' split evenly into
+// ceil(K' / BWD_GROUP_TERMS) groups.
+__host__ __device__ inline int bwd_group(int KP) {
+  const int ng = (KP + BWD_GROUP_TERMS - 1) / BWD_GROUP_TERMS;
+  return (KP + ng - 1) / ng;
+}
 
 // The exponent buffer's row: DP values where DP / 4 is odd, else DP + 4,
 // so that the transposed read (a warp's threads on consecutive rows, 16
@@ -450,11 +525,11 @@ __host__ __device__ inline int bwd_ts(int D) {
 }
 
 // Rows of mt a stage of BWD_BUFFER's ring carries: a multiple of 4 up to
-// 32 whose K' blocks of DP values fill at most BWD_RING_BYTES, and at
+// 32 whose G blocks of DP values fill at most BWD_RING_BYTES, and at
 // least 4 for each of the ks contraction groups.
 template <typename T>
-__host__ __device__ inline int bwd_jw(int D, int KP, int ks) {
-  int jw = BWD_RING_BYTES / (KP * gemm_dp(D) * (int)sizeof(T)) / 4 * 4;
+__host__ __device__ inline int bwd_jw(int D, int G, int ks) {
+  int jw = BWD_RING_BYTES / (G * gemm_dp(D) * (int)sizeof(T)) / 4 * 4;
   jw = jw > 32 ? 32 : jw;
   return jw < 4 * ks ? 4 * ks : jw;
 }
@@ -464,73 +539,90 @@ __host__ __device__ inline int bwd_dk(int n, int groups) {
   return ((n + groups - 1) / groups + 3) / 4 * 4;
 }
 
-// K8's shared memory, byte offsets (16-byte aligned): the exponent A_r^T
-// (D, AS) or, for BWD_PANEL, one panel of A^T rows and one of A rows (jc,
-// DP) each; then slabs of (tile, TS) values: the state x, the cotangent
-// a, the K' u terms, the a term, the w term, the w chain's K' actions,
-// its running sum, and the later contraction groups' partial products
-// ((ks - 1) (2 K' + 1) slabs in phase 2; phase 1's ks1 - 1 start at the
-// second u slab); for BWD_BUFFER last the ring of mt's rows, BWD_STAGES
-// stages of (jw, K' DP). ops/adjoint.py:bwd_smem_bytes mirrors it.
+// K8's shared memory, byte offsets (16-byte aligned), for term groups of
+// G terms and nch = 1 (one group) or 2 (more) chains beside the u_k
+// chains: the exponent A_r^T (D, AS) or, for BWD_PANEL, one panel of A^T
+// rows and one of A rows (jc, DP) each; then slabs of (tile, TS) values:
+// the state x, the cotangent a, the G u terms, the a term, the w term,
+// the w chain's G actions, its running sum, and the later contraction
+// groups' partial products ((ks - 1) (2 G + nch) slabs in phase 2; phase
+// 1's ks1 - 1 start at the second u slab); for BWD_BUFFER the ring of
+// mt's rows, BWD_STAGES stages of (jw, G DP); last the row's K' scaled
+// coefficients. ops/adjoint.py:bwd_smem_bytes mirrors it.
 template <typename T>
 struct BwdLayout {
-  size_t ab, pa, x, a, tu, ta, tw, yw, sw, red, ring, stage, total, slab;
-  __host__ __device__ BwdLayout(int plan, int tile, int KP, int D, int ks, int ks1) {
+  size_t ab, pa, x, a, tu, ta, tw, yw, sw, red, ring, cs, stage, total, slab;
+  __host__ __device__ BwdLayout(int plan, int tile, int KP, int G, int D, int ks, int ks1) {
+    const int nch = G < KP ? 2 : 1;
     slab = align16((size_t)tile * bwd_ts(D) * sizeof(T));
     const size_t panel = align16((size_t)gemm_jc<T>(D) * gemm_dp(D) * sizeof(T));
     stage = plan == BWD_PANEL
                 ? 0
-                : align16((size_t)bwd_jw<T>(D, KP, ks) * KP * gemm_dp(D) * sizeof(T));
-    int nred = (ks - 1) * (2 * KP + 1);
-    if (ks1 - 1 - (2 * KP + 2) > nred) nred = ks1 - 1 - (2 * KP + 2);
+                : align16((size_t)bwd_jw<T>(D, G, ks) * G * gemm_dp(D) * sizeof(T));
+    int nred = (ks - 1) * (2 * G + nch);
+    if (ks1 - 1 - (2 * G + 2) > nred) nred = ks1 - 1 - (2 * G + 2);
     size_t at = 0;
     ab = at, at += plan == BWD_PANEL ? panel : align16((size_t)D * bwd_as(D) * sizeof(T));
     pa = at, at += plan == BWD_PANEL ? panel : 0;
     x = at, at += slab;
     a = at, at += slab;
-    tu = at, at += KP * slab;
+    tu = at, at += G * slab;
     ta = at, at += slab;
     tw = at, at += slab;
-    yw = at, at += KP * slab;
+    yw = at, at += G * slab;
     sw = at, at += slab;
     red = at, at += nred * slab;
     ring = at, at += BWD_STAGES * stage;
+    cs = at, at += align16((size_t)KP * sizeof(T));
     total = at;
   }
 };
 
-// BWD_BUFFER's stream of mt's rows (D, K' D) through BWD_STAGES stages in
-// shared memory, jw rows a stage, each row K' blocks of DP values (the
-// pads stay zero): rows 0 .. D - 1 in order, again for every Taylor term,
-// so a later term's first copies overlap this one's products. Every
-// thread copies (cp.async) and waits; acquire() returns the next stage
-// once every thread's copy of it has landed and reissues the stage every
-// thread has finished with (the barrier).
+// BWD_BUFFER's stream of a term group's blocks of mt's rows (D, K' D):
+// the nb blocks from column block k0, through BWD_STAGES stages in shared
+// memory, jw rows a stage, each row nb blocks of DP values (the pads stay
+// zero): rows 0 .. D - 1 in order, again for every Taylor term, so a
+// later term's first copies overlap this one's products (with one group,
+// across rows too; with more, restart() drains the ring and starts the
+// next group's stream). Every thread copies (cp.async) and waits;
+// acquire() returns the next stage once every thread's copy of it has
+// landed and reissues the stage every thread has finished with (the
+// barrier).
 template <typename T>
 struct MtRing {
   const T* mt;
   T* base;
-  size_t stage;
-  int D, DP, kp, jw, npan;
+  size_t stage, ld;
+  int D, DP, nb, jw, npan;
   bool vec;  // 16-byte copies: D a multiple of 4, mt 16-byte aligned
   int nj = 0, ns = 0, cs = 0;
 
-  __device__ MtRing(const T* mt_, T* base_, size_t stage_, int D_, int kp_, int jw_, bool vec_)
-      : mt(mt_), base(base_), stage(stage_), D(D_), DP(gemm_dp(D_)), kp(kp_), jw(jw_),
-        npan((D_ + jw_ - 1) / jw_), vec(vec_) {}
+  __device__ MtRing(const T* mt_, T* base_, size_t stage_, int D_, int kp, int nb_, int jw_,
+                    bool vec_)
+      : mt(mt_), base(base_), stage(stage_), ld((size_t)kp * D_), D(D_), DP(gemm_dp(D_)), nb(nb_),
+        jw(jw_), npan((D_ + jw_ - 1) / jw_), vec(vec_) {}
 
   __device__ void issue() {
-    const int j0 = nj * jw, jn = D - j0 < jw ? D - j0 : jw, ld = kp * D;
+    const int j0 = nj * jw, jn = D - j0 < jw ? D - j0 : jw;
     T* dst = base + (size_t)ns * stage;
     const T* src = mt + (size_t)j0 * ld;
-    if (vec) {  // DP = D: the stage's rows are mt's
+    if (vec) {  // DP = D: a stage row is the group's nb D contiguous values
       constexpr int V = 16 / sizeof(T);
-      for (int i = threadIdx.x; i < jn * ld / V; i += blockDim.x)
-        cp_async<16>(dst + (size_t)i * V, src + (size_t)i * V);
+      const int rv = nb * D / V;
+      if ((size_t)nb * D == ld) {  // one group: the stage's rows are contiguous in mt
+        for (int i = threadIdx.x; i < jn * rv; i += blockDim.x)
+          cp_async<16>(dst + (size_t)i * V, src + (size_t)i * V);
+      } else {
+        for (int i = threadIdx.x; i < jn * rv; i += blockDim.x) {
+          const int jj = i / rv, w = i - jj * rv;
+          cp_async<16>(dst + (size_t)jj * nb * D + (size_t)w * V, src + jj * ld + (size_t)w * V);
+        }
+      }
     } else {
-      for (int i = threadIdx.x; i < jn * ld; i += blockDim.x) {
-        const int jj = i / ld, r = i - jj * ld, k = r / D;
-        cp_async<sizeof(T)>(dst + ((size_t)jj * kp + k) * DP + (r - k * D), src + i);
+      const int rw = nb * D;
+      for (int i = threadIdx.x; i < jn * rw; i += blockDim.x) {
+        const int jj = i / rw, r = i - jj * rw, k = r / D;
+        cp_async<sizeof(T)>(dst + ((size_t)jj * nb + k) * DP + (r - k * D), src + jj * ld + r);
       }
     }
     cp_async_commit();
@@ -547,6 +639,14 @@ struct MtRing {
     const T* st = base + (size_t)cs * stage;
     if (++cs == BWD_STAGES) cs = 0;
     return st;
+  }
+  // the group of nb blocks from column block k0: every copy in flight
+  // lands, every thread is done with the stages, the stream starts anew
+  __device__ void restart(const T* mt0, int k0, int nb_) {
+    cp_async_wait<0>();
+    __syncthreads();
+    mt = mt0 + (size_t)k0 * D, nb = nb_, nj = ns = cs = 0;
+    prologue();
   }
 };
 
@@ -654,46 +754,50 @@ __device__ __forceinline__ void mm_dot(const T* L, int LS, const T* A, int AS,
         y[q][i] = fma_full(L[(size_t)q * LS + j], A[(size_t)crow[i] * AS + j], y[q][i]);
 }
 
-// K8 (see the note above). Phase 2: thread t < ks (K' + 1) per, per =
-// tile / RM * ncg, is contraction group t / ((K' + 1) per) of item (g,
-// rows [lr0, lr0 + RM), column group cg): the u_g chain and W_g w for
-// g < K', the a chain and w's running sum for g = K'. Phase 1: thread
-// t < ks1 per is group t / per of an x item. Group 0 owns an item's
-// running sums and adds the later groups' partial products in group
-// order.
+// K8 (see the note above), over term groups of G terms (one group, G =
+// K', where K' <= BWD_GROUP_TERMS). Phase 2: thread t < ks (G + nch) per,
+// per = tile / RM * ncg, is contraction group t / ((G + nch) per) of item
+// (g, rows [lr0, lr0 + RM), column group cg): the u chain of the group's
+// term g and its W w for g < G; the a chain (in the first group), and
+// with one group w's running sum, for g = G; with more groups the w
+// chain's product with A for g = G + 1. Phase 1: thread t < ks1 per is
+// group t / per of an x item. Group 0 owns an item's running sums and
+// adds the later groups' partial products in group order.
 template <typename T, int RM, int NT>
 __global__ void __launch_bounds__(NT, 1)
 adjoint_sweep_bwd_kernel(const T* __restrict__ c_all, int R, const T* __restrict__ x,
                          const T* __restrict__ a, const T* __restrict__ mt,
                          const T* __restrict__ ms, T* __restrict__ a0, T* __restrict__ part,
-                         int B, int D, int tile, int plan, int ks, int ks1, AdjParams<T> p) {
+                         int B, int D, int tile, int plan, int ks, int ks1, int G,
+                         AdjParams<T> p) {
   extern __shared__ __align__(16) unsigned char bwd_smem[];
-  const int kp = p.KP;
-  const BwdLayout<T> L(plan, tile, kp, D, ks, ks1);
+  const int kp = p.KP, ng = (kp + G - 1) / G, nch = ng > 1 ? 2 : 1;
+  const BwdLayout<T> L(plan, tile, kp, G, D, ks, ks1);
   auto at = [&](size_t off) { return reinterpret_cast<T*>(bwd_smem + off); };
   T* const ab = at(L.ab);  // A_r^T (D, AS), or a panel of its rows (jc, DP)
   T* const pa = at(L.pa);  // BWD_PANEL: the panel's rows of A
   T* const X = at(L.x);    // x, x_n after phase 1
   T* const Aa = at(L.a);   // a, a_n at the end of the row
-  T* const Tu = at(L.tu);  // the u_k terms; the x term in phase 1
+  T* const Tu = at(L.tu);  // the group's u terms; the x term in phase 1
   T* const Ta = at(L.ta);
   T* const Tw = at(L.tw);
-  T* const Yw = at(L.yw);  // W_k w (group 0's); then cbar's partials (K', tile, ncg)
-  T* const Sw = at(L.sw);  // w's running sum
-  T* const R1 = at(L.red);  // later groups' A u_k and A^T a: (ks - 1, K' + 1) slabs
+  T* const Yw = at(L.yw);  // W_k w (group 0's); then cbar's partials (G, tile, ncg)
+  T* const Sw = at(L.sw);  // w's running sum (one term group)
+  T* const R1 = at(L.red);  // later groups' A u_k, A^T a, A w: (ks - 1, G + nch) slabs
+  T* const cs = at(L.cs);   // the row's K' scaled coefficients
   const size_t slab = L.slab / sizeof(T);
-  T* const R2 = R1 + (size_t)(ks - 1) * (kp + 1) * slab;  // their W_k w: (ks - 1, K')
+  T* const R2 = R1 + (size_t)(ks - 1) * (G + nch) * slab;  // their W_k w: (ks - 1, G)
   T* const P1 = Tu + slab;  // phase 1's later groups' partial products
   const bool panel = plan == BWD_PANEL;
   const int DP = gemm_dp(D), TS = bwd_ts(D), AS = bwd_as(D), ncg = DP / GEMM_CN;
   const int jc = panel ? gemm_jc<T>(D) : D, BS = panel ? DP : AS;
   const int tid = threadIdx.x, nt = blockDim.x, per = tile / RM * ncg;
-  const int nitem = (kp + 1) * per;
+  const int nitem = (G + nch) * per;
   // phase 2's item and group
   const int kg = tid / nitem, it = tid % nitem;
-  const int g = kg < ks ? it / per : kp + 1;
+  const int g = kg < ks ? it / per : G + 2;
   const int lr0 = it % per / ncg * RM, cg = it % per % ncg, col0 = cg * GEMM_CN;
-  const bool is_u = g < kp, is_a = g == kp, own = kg == 0;
+  const bool is_u = g < G, is_a = g == G, is_w = g == G + 1, own = kg == 0;
   const size_t off = (size_t)lr0 * TS;
   // phase 1's
   const int kg1 = tid / per;
@@ -720,8 +824,8 @@ adjoint_sweep_bwd_kernel(const T* __restrict__ c_all, int R, const T* __restrict
   // every value starts at zero: the pads past D stay zero
   for (size_t i = tid; i < L.total / sizeof(T); i += nt) at(0)[i] = T(0);
   __syncthreads();
-  MtRing<T> ring(mt, at(L.ring), L.stage / sizeof(T), D, kp, bwd_jw<T>(D, kp, ks), vec);
-  if (!panel) ring.prologue();
+  MtRing<T> ring(mt, at(L.ring), L.stage / sizeof(T), D, kp, G, bwd_jw<T>(D, G, ks), vec);
+  if (!panel && ng == 1) ring.prologue();
   for (size_t e = tid; e < (size_t)rows * D; e += nt) {
     const size_t lr = e / D, c = e - lr * D;
     X[lr * TS + c] = x[row0 * D + e];
@@ -765,7 +869,6 @@ adjoint_sweep_bwd_kernel(const T* __restrict__ c_all, int R, const T* __restrict
       for (int c = 0; c < GEMM_CN; ++c) v[q][c] = v[q][c] + pv[c];
     }
   };
-  T cs[ADJ_MAX_KP];
   // The products of one Taylor term over the exponent: body(j0, jn, Bt)
   // with Bt its row j0 (row stride BS); BWD_PANEL forms the panels of rows
   // [j0, j0 + jn) first (of A^T, and of A when with_a).
@@ -785,9 +888,9 @@ adjoint_sweep_bwd_kernel(const T* __restrict__ c_all, int R, const T* __restrict
   };
 
   for (int r = R - 1; r >= 0; --r) {
-    const int np = sweep_row(c_all + (size_t)r * kp, p, cs);
+    const int np = sweep_row(c_all + (size_t)r * kp, p, cs, tid, nt);
     const T sc = T(1) / T(np);  // 2^-s, exact
-    __syncthreads();  // the last row's a_n and cbar reads are done
+    __syncthreads();  // the last row's a_n and cbar reads are done; cs is written
     if (!panel) form_rows(ab, AS, cs, kp, mt, D, 0, D, tid, nt);
 
     // phase 1: x_n = e^{-A} x
@@ -825,126 +928,161 @@ adjoint_sweep_bwd_kernel(const T* __restrict__ c_all, int R, const T* __restrict
     if (own1) put(X, off1, col1, acc);
     __syncthreads();  // x_n is written
 
-    // phase 2: u_k from u = 0, w from x_n; a_n from a
-    if (own && is_u) tile_zero<T, RM>(acc);
-    if (own && is_a) get(Aa, off, ACols{}, acc);
-    for (int e = tid; e < tile * D; e += nt) Sw[e / D * TS + e % D] = X[e / D * TS + e % D];
-    for (int pass = 0; pass < np; ++pass) {
-      if (own && is_u) put(tu, off, col0, acc);
-      if (own && is_a) put(Ta, off, ACols{}, acc);
-      __syncthreads();  // Sw is written (pass 0), or the last term's
-      for (int e = tid; e < tile * D; e += nt) Tw[e / D * TS + e % D] = Sw[e / D * TS + e % D];
-      __syncthreads();  // the pass's start terms are written
-      for (int kk = 1; kk <= p.m; ++kk) {
-        // W_g w: from the ring of mt's rows, each group its share of a
-        // stage's rows (BWD_PANEL: from L2, one group)
-        tile_zero<T, RM>(y2);
-        if (panel) {
-          if (is_u)
-            mm_rows<T, RM>(Tw + off, TS, D,
-                           ldg_rows(mt + (size_t)g * D + col0, (size_t)kp * D, vec, D - col0), y2);
-        } else {
-          for (int j0 = 0; j0 < D; j0 += ring.jw) {
-            const T* st = ring.acquire();
-            const int jn = D - j0 < ring.jw ? D - j0 : ring.jw, sub = bwd_dk(jn, ks);
-            const int lo = kg * sub < jn ? kg * sub : jn, hi = lo + sub < jn ? lo + sub : jn;
-            if (is_u && hi > lo)
-              mm_rows<T, RM>(Tw + off + j0 + lo, TS, hi - lo,
-                             smem_rows(st + (size_t)lo * kp * DP + (size_t)g * DP + col0, kp * DP),
+    // phase 2, per term group [k0, k0 + gn): the group's u_k from u = 0, w
+    // from x_n; a_n from a in the first group
+    for (int gi = 0; gi < ng; ++gi) {
+      const int k0 = gi * G, gn = kp - k0 < G ? kp - k0 : G;
+      const bool u_on = is_u && g < gn, a_on = is_a && gi == 0;
+      if (ng > 1 && !panel) ring.restart(mt, k0, gn);
+      if (own && u_on) tile_zero<T, RM>(acc);
+      if (own && a_on) get(Aa, off, ACols{}, acc);
+      if (own && is_w) get(X, off, col0, acc);
+      if (ng == 1)
+        for (int e = tid; e < tile * D; e += nt) Sw[e / D * TS + e % D] = X[e / D * TS + e % D];
+      for (int pass = 0; pass < np; ++pass) {
+        if (own && u_on) put(tu, off, col0, acc);
+        if (own && a_on) put(Ta, off, ACols{}, acc);
+        if (own && is_w) put(Tw, off, col0, acc);
+        __syncthreads();  // Sw is written (pass 0), or the last term's
+        if (ng == 1) {
+          for (int e = tid; e < tile * D; e += nt) Tw[e / D * TS + e % D] = Sw[e / D * TS + e % D];
+          __syncthreads();  // the pass's start terms are written
+        }
+        for (int kk = 1; kk <= p.m; ++kk) {
+          // W_k w for the group's term g: from the ring of mt's rows, each
+          // contraction group its share of a stage's rows (BWD_PANEL: from
+          // L2, one group)
+          tile_zero<T, RM>(y2);
+          if (panel) {
+            if (u_on)
+              mm_rows<T, RM>(Tw + off, TS, D,
+                             ldg_rows(mt + (size_t)(k0 + g) * D + col0, (size_t)kp * D, vec,
+                                      D - col0),
                              y2);
-          }
-        }
-        if (is_u) put(own ? Yw + (size_t)g * slab : R2 + ((size_t)(kg - 1) * kp + g) * slab, off,
-                      col0, y2);
-        // A u_g, and A^T a
-        tile_zero<T, RM>(y1);
-        over_exponent(true, [&](int j0, int jn, const T* Bt) {
-          if (is_u) {
-            if (panel)
-              mm_rows<T, RM>(tu + off + j0, TS, jn, smem_rows(Bt + col0, BS), y1);
-            else if (hi2 > lo2)
-              mm_rows<T, RM>(tu + off + lo2, TS, hi2 - lo2,
-                             smem_rows(ab + (size_t)lo2 * AS + col0, AS), y1);
-          } else if (is_a) {
-            if (panel)
-              mm_rows<T, RM>(Ta + off + j0, TS, jn, smem_rows(pa + col0, DP), y1);
-            else if (hi2 > lo2)
-              mm_dot<T, RM>(Ta + off + lo2, TS, ab + lo2, AS, crow, hi2 - lo2, y1);
-          }
-        });
-        if (!own && is_u) put(R1 + ((size_t)(kg - 1) * (kp + 1) + g) * slab, off, col0, y1);
-        if (!own && is_a) put(R1 + ((size_t)(kg - 1) * (kp + 1) + kp) * slab, off, ACols{}, y1);
-        __syncthreads();  // every read of the terms is done, the partials written
-        const T rj = T(1) / T(kk);  // the term's scale, RN(1/j)
-        if (own && is_u) {
-          get(Yw + (size_t)g * slab, off, col0, y2);
-          for (int q = 1; q < ks; ++q) {
-            add(R1 + ((size_t)(q - 1) * (kp + 1) + g) * slab, off, col0, y1);
-            add(R2 + ((size_t)(q - 1) * kp + g) * slab, off, col0, y2);
-          }
-#pragma unroll
-          for (int q = 0; q < RM; ++q)
-#pragma unroll
-            for (int c = 0; c < GEMM_CN; ++c) {
-              y1[q][c] = add_rn(y1[q][c], mul_rn(sc, y2[q][c])) * rj;
-              acc[q][c] = acc[q][c] + y1[q][c];
+          } else {
+            for (int j0 = 0; j0 < D; j0 += ring.jw) {
+              const T* st = ring.acquire();
+              const int jn = D - j0 < ring.jw ? D - j0 : ring.jw, sub = bwd_dk(jn, ks);
+              const int lo = kg * sub < jn ? kg * sub : jn, hi = lo + sub < jn ? lo + sub : jn;
+              if (u_on && hi > lo)
+                mm_rows<T, RM>(Tw + off + j0 + lo, TS, hi - lo,
+                               smem_rows(st + (size_t)lo * gn * DP + (size_t)g * DP + col0,
+                                         gn * DP),
+                               y2);
             }
-          put(tu, off, col0, y1);
-        } else if (own && is_a) {
-          for (int q = 1; q < ks; ++q)
-            add(R1 + ((size_t)(q - 1) * (kp + 1) + kp) * slab, off, ACols{}, y1);
-#pragma unroll
-          for (int q = 0; q < RM; ++q)
-#pragma unroll
-            for (int i = 0; i < GEMM_CN; ++i) {
-              y1[q][i] = y1[q][i] * rj;
-              acc[q][i] = acc[q][i] + y1[q][i];
-            }
-          put(Ta, off, ACols{}, y1);
-        }
-        // w' = (A w) RN(1/j), A w = sum_k cs_k W_k w in k order, each W_k w
-        // summed over the groups in order: elementwise, by every thread
-        for (int e = tid; e < tile * D; e += nt) {
-          const size_t o = (size_t)(e / D) * TS + e % D;
-          T w = T(0);
-          for (int k = 0; k < kp; ++k) {
-            T yk = Yw[(size_t)k * slab + o];
-            for (int h = 1; h < ks; ++h) yk = yk + R2[((size_t)(h - 1) * kp + k) * slab + o];
-            w = k == 0 ? mul_rn(cs[0], yk) : add_rn(w, mul_rn(cs[k], yk));
           }
-          w = w * rj;
-          Tw[o] = w;
-          Sw[o] = Sw[o] + w;
+          if (u_on)
+            put(own ? Yw + (size_t)g * slab : R2 + ((size_t)(kg - 1) * G + g) * slab, off, col0,
+                y2);
+          // A u_g and A w, and A^T a
+          tile_zero<T, RM>(y1);
+          T* const tv = is_w ? Tw : tu;  // the term of the item's chain
+          over_exponent(gi == 0, [&](int j0, int jn, const T* Bt) {
+            if (u_on || is_w) {
+              if (panel)
+                mm_rows<T, RM>(tv + off + j0, TS, jn, smem_rows(Bt + col0, BS), y1);
+              else if (hi2 > lo2)
+                mm_rows<T, RM>(tv + off + lo2, TS, hi2 - lo2,
+                               smem_rows(ab + (size_t)lo2 * AS + col0, AS), y1);
+            } else if (a_on) {
+              if (panel)
+                mm_rows<T, RM>(Ta + off + j0, TS, jn, smem_rows(pa + col0, DP), y1);
+              else if (hi2 > lo2)
+                mm_dot<T, RM>(Ta + off + lo2, TS, ab + lo2, AS, crow, hi2 - lo2, y1);
+            }
+          });
+          if (!own && (u_on || is_w))
+            put(R1 + ((size_t)(kg - 1) * (G + nch) + g) * slab, off, col0, y1);
+          if (!own && a_on) put(R1 + ((size_t)(kg - 1) * (G + nch) + G) * slab, off, ACols{}, y1);
+          __syncthreads();  // every read of the terms is done, the partials written
+          const T rj = T(1) / T(kk);  // the term's scale, RN(1/j)
+          if (own && u_on) {
+            get(Yw + (size_t)g * slab, off, col0, y2);
+            for (int q = 1; q < ks; ++q) {
+              add(R1 + ((size_t)(q - 1) * (G + nch) + g) * slab, off, col0, y1);
+              add(R2 + ((size_t)(q - 1) * G + g) * slab, off, col0, y2);
+            }
+#pragma unroll
+            for (int q = 0; q < RM; ++q)
+#pragma unroll
+              for (int c = 0; c < GEMM_CN; ++c) {
+                y1[q][c] = add_rn(y1[q][c], mul_rn(sc, y2[q][c])) * rj;
+                acc[q][c] = acc[q][c] + y1[q][c];
+              }
+            put(tu, off, col0, y1);
+          } else if (own && is_w) {  // w' = (A w) RN(1/j), more than one group
+            for (int q = 1; q < ks; ++q)
+              add(R1 + ((size_t)(q - 1) * (G + nch) + g) * slab, off, col0, y1);
+#pragma unroll
+            for (int q = 0; q < RM; ++q)
+#pragma unroll
+              for (int c = 0; c < GEMM_CN; ++c) {
+                y1[q][c] = y1[q][c] * rj;
+                acc[q][c] = acc[q][c] + y1[q][c];
+              }
+            put(Tw, off, col0, y1);
+          } else if (own && a_on) {
+            for (int q = 1; q < ks; ++q)
+              add(R1 + ((size_t)(q - 1) * (G + nch) + G) * slab, off, ACols{}, y1);
+#pragma unroll
+            for (int q = 0; q < RM; ++q)
+#pragma unroll
+              for (int i = 0; i < GEMM_CN; ++i) {
+                y1[q][i] = y1[q][i] * rj;
+                acc[q][i] = acc[q][i] + y1[q][i];
+              }
+            put(Ta, off, ACols{}, y1);
+          }
+          // one group: w' = (A w) RN(1/j), A w = sum_k cs_k W_k w in k
+          // order, each W_k w summed over the contraction groups in order:
+          // elementwise, by every thread
+          if (ng == 1) {
+            for (int e = tid; e < tile * D; e += nt) {
+              const size_t o = (size_t)(e / D) * TS + e % D;
+              T w = T(0);
+              for (int k = 0; k < kp; ++k) {
+                T yk = Yw[(size_t)k * slab + o];
+                for (int h = 1; h < ks; ++h) yk = yk + R2[((size_t)(h - 1) * G + k) * slab + o];
+                w = k == 0 ? mul_rn(cs[0], yk) : add_rn(w, mul_rn(cs[k], yk));
+              }
+              w = w * rj;
+              Tw[o] = w;
+              Sw[o] = Sw[o] + w;
+            }
+          }
+          __syncthreads();  // the new terms are written
         }
-        __syncthreads();  // the new terms are written
       }
-    }
 
-    // cbar_k = <a, u_k>: per u item over its columns, then over the column
-    // groups and the block's trajectories in order
-    T* const red = Yw;  // (K', tile, ncg)
-    if (own && is_u) {
+      // cbar_k = <a, u_k> for the group's terms: per u item over its
+      // columns, then over the column groups and the block's trajectories
+      // in order
+      T* const red = Yw;  // (G, tile, ncg)
+      if (own && u_on) {
 #pragma unroll
-      for (int q = 0; q < RM; ++q) {
-        T sum = T(0);
+        for (int q = 0; q < RM; ++q) {
+          T sum = T(0);
 #pragma unroll
-        for (int c = 0; c < GEMM_CN; ++c)
-          if (col0 + c < D) sum = add_rn(sum, mul_rn(Aa[off + (size_t)q * TS + col0 + c], acc[q][c]));
-        red[((size_t)g * tile + lr0 + q) * ncg + cg] = sum;
+          for (int c = 0; c < GEMM_CN; ++c)
+            if (col0 + c < D)
+              sum = add_rn(sum, mul_rn(Aa[off + (size_t)q * TS + col0 + c], acc[q][c]));
+          red[((size_t)g * tile + lr0 + q) * ncg + cg] = sum;
+        }
       }
-    }
-    __syncthreads();
-    for (int i = tid; i < kp * tile; i += nt) {  // per trajectory, into Sw
-      const T* pr = red + (size_t)i * ncg;
-      T ck = T(0);
-      for (int c = 0; c < ncg; ++c) ck = add_rn(ck, pr[c]);
-      Sw[i] = ck;
-    }
-    __syncthreads();
-    for (int k = tid; k < kp; k += nt) {
-      T sum = T(0);
-      for (int lr = 0; lr < rows; ++lr) sum = add_rn(sum, Sw[(size_t)k * tile + lr]);
-      part[((size_t)blockIdx.x * R + r) * kp + k] = sum;
+      __syncthreads();
+      for (int i = tid; i < gn * tile; i += nt) {  // per trajectory, into Sw
+        const T* pr = red + (size_t)i * ncg;
+        T ck = T(0);
+        for (int c = 0; c < ncg; ++c) ck = add_rn(ck, pr[c]);
+        Sw[i] = ck;
+      }
+      __syncthreads();
+      for (int k = tid; k < gn; k += nt) {
+        T sum = T(0);
+        for (int lr = 0; lr < rows; ++lr) sum = add_rn(sum, Sw[(size_t)k * tile + lr]);
+        part[((size_t)blockIdx.x * R + r) * kp + k0 + k] = sum;
+      }
+      if (ng > 1) __syncthreads();  // every read of Sw is done
     }
     if (own && is_a) put(Aa, off, ACols{}, acc);  // a_n is the next row's cotangent
   }
@@ -1105,7 +1243,8 @@ int run_sweep_fwd(const void* c_all, int R, const void* x, const void* mt, void*
   }
 }
 
-// K8's launch shape (see the note above): the first plan of BWD_BUFFER,
+// K8's launch shape (see the note above): term groups of G = bwd_group(K')
+// terms; the first plan of BWD_BUFFER,
 // BWD_PANEL with a tile that fits; the tile from the batch (the largest
 // power of two up to BWD_MAX_TILE leaving n_sm / 2 blocks), halved while
 // the block (BWD_THREADS; BWD_WIDE_THREADS at one trajectory) or its
@@ -1116,20 +1255,20 @@ int run_sweep_fwd(const void* c_all, int R, const void* x, const void* mt, void*
 // (as many as the block's threads hold, up to BWD_MAX_GROUPS).
 // ops/adjoint.py:bwd_plan mirrors it.
 struct BwdShape {
-  int plan, tile, rm, ks, ks1, threads, blocks, bound;
+  int plan, tile, rm, ks, ks1, G, threads, blocks, bound;
   size_t smem;
 };
 
 template <typename T>
 int bwd_shape(int B, int D, int KP, int n_sm, size_t max_smem, BwdShape* s) {
-  const int ncg = gemm_dp(D) / GEMM_CN;
+  const int ncg = gemm_dp(D) / GEMM_CN, G = bwd_group(KP), nch = G < KP ? 2 : 1;
   int start = BWD_MAX_TILE;
   while (start > 1 && (B + start - 1) / start < n_sm / 2) start /= 2;
   for (int plan = BWD_BUFFER; plan <= BWD_PANEL; ++plan) {
     for (int tile = start;; tile /= 2) {
       const int rm = tile < bwd_rm_max<T>() ? tile : bwd_rm_max<T>();
       const int cap = BWD_THREADS;
-      const int per = tile / rm * ncg, items = (KP + 1) * per;
+      const int per = tile / rm * ncg, items = (G + nch) * per;
       int ks = 1;
       while (plan == BWD_BUFFER && ks < BWD_MAX_GROUPS && 2 * ks * items <= cap && D >= 64 * ks)
         ks *= 2;
@@ -1138,9 +1277,9 @@ int bwd_shape(int B, int D, int KP, int n_sm, size_t max_smem, BwdShape* s) {
         int ks1 = plan == BWD_BUFFER ? threads / per : 1;
         ks1 = ks1 > BWD_MAX_GROUPS ? BWD_MAX_GROUPS : ks1;
         const int bound = threads <= cap ? cap : BWD_WIDE_THREADS;
-        const size_t smem = BwdLayout<T>(plan, tile, KP, D, ks, ks1).total;
+        const size_t smem = BwdLayout<T>(plan, tile, KP, G, D, ks, ks1).total;
         if (smem <= max_smem && (threads <= cap || (tile == 1 && threads <= BWD_WIDE_THREADS))) {
-          *s = BwdShape{plan, tile, rm, ks, ks1, threads, (B + tile - 1) / tile, bound, smem};
+          *s = BwdShape{plan, tile, rm, ks, ks1, G, threads, (B + tile - 1) / tile, bound, smem};
           return 0;
         }
       }
@@ -1166,7 +1305,7 @@ int launch_sweep_bwd(const BwdShape& s, const void* c_all, int R, const void* x,
   if (rc != 0) return rc;
   adjoint_sweep_bwd_kernel<T, RM, NT><<<s.blocks, s.threads, s.smem, (cudaStream_t)stream>>>(
       (const T*)c_all, R, (const T*)x, (const T*)a, (const T*)mt, (const T*)ms, (T*)a0, (T*)part,
-      B, D, s.tile, s.plan, s.ks, s.ks1, p);
+      B, D, s.tile, s.plan, s.ks, s.ks1, s.G, p);
   return (int)cudaGetLastError();
 }
 
@@ -1192,7 +1331,7 @@ template <typename T>
 int bwd(const void* c, const void* x, const void* a, const void* mt, const void* ms, void* xn,
         void* an, void* cb, int B, int D, int KP, const double* norms, int m, double theta,
         int max_sq, void* stream) {
-  if (!params_ok(B, D, KP, m, max_sq, MAX_KP)) return (int)cudaErrorInvalidValue;
+  if (!params_ok(B, D, KP, m, max_sq)) return (int)cudaErrorInvalidValue;
   const AdjParams<T> p = parse<T>(KP, norms, m, theta, max_sq);
   RowPlan pl;
   const int rc = row_plan_here<T>(B, D, KP, m, &pl);
@@ -1241,7 +1380,7 @@ int vec_ode_adjoint_blocks(int B, int D, int KP, int elem_bytes) {
 // lanes, dc, threads, shared memory a block, resident (ops/adjoint.py:
 // row_plan's keys). 0, or the CUDA error.
 int vec_ode_adjoint_row_plan(int B, int D, int KP, int m, int elem_bytes, long long* out) {
-  if (!params_ok(B, D, KP, m, 0, MAX_KP) || (elem_bytes != 4 && elem_bytes != 8))
+  if (!params_ok(B, D, KP, m, 0) || (elem_bytes != 4 && elem_bytes != 8))
     return (int)cudaErrorInvalidValue;
   RowPlan pl;
   const int rc = elem_bytes == 4 ? row_plan_here<float>(B, D, KP, m, &pl)

@@ -71,7 +71,7 @@
 
 namespace vec_ode {
 
-constexpr int ADJ_MAX_KP = 6;          // K7 and K8 (ops/adjoint.py: MAX_KP); K6: MAX_KP
+constexpr int ROW_MAX_KP = MAX_KP;     // K6, K7 and K8 (ops/adjoint.py: ROW_MAX_KP)
 constexpr int ROW_MAX_LANES = 32;      // lanes a tiled block at most
 constexpr int ROW_CLUSTER_MAX = 4;     // blocks a cluster
 constexpr int ROW_CLUSTER_LANES = 8;   // lanes a cluster at most

@@ -1,6 +1,7 @@
 """Differentiation: the O(1)-memory reversible adjoint for modulated linear
-ODEs dx/dt = (sum_k coeff_fn(t, theta)[k] basis[k]) x, the counterpart of
-``vec_ode_tpu/diff.py:141-1186``.
+ODEs dx/dt = (sum_k coeff_fn(t, theta)[k] basis[k]) x, and for black-box
+operators, and the optimisation loop over it: the counterpart of
+``vec_ode_tpu/diff.py:141-1557``.
 
 The forward keeps no autograd graph and stores only its result; the
 backward reconstructs the trajectory with inverse propagators instead of
@@ -10,9 +11,8 @@ the state cotangent by transposed-basis exponential actions, and forms
 each row's coefficient cotangents by the Fréchet recurrence of
 ``ops/adjoint.py``. These are the gradients of the DISCRETE scheme. The
 row table (every exponential's coefficients over the working basis) is
-recomputed in the backward with autograd on, and ONE
-``torch.autograd.grad`` of it gives the theta, t0 and tf cotangents of
-all rows at once.
+recomputed in the backward, and ONE ``torch.func.vjp`` of it gives the
+theta, t0 and tf cotangents of all rows at once.
 
 The exponential actions are the adjoint kernels of ``ops/adjoint.py``:
 on CUDA tensors a fixed-step solve is one launch of K7
@@ -21,7 +21,17 @@ backward (one of each per segment with ``save_at_steps`` or
 ``anchor_every``), the adaptive backward one launch of K6
 (``adjoint_bwd``) per recorded iteration, and the adaptive forward one
 launch of the chain kernel K4 per iteration; on CPU tensors their plain
-twins run. There is no other executor and no option for one.
+twins run. There is no other executor and no option for one. The
+basis-gradient solver (``basis_grad=True``) runs K7 forward and K6 per
+row backward; the dense adjoint (``adjoint_solve_dense``) has no kernel
+(``ops/expm``, as the JAX package's runs XLA's expm).
+
+The Functions take ``setup_context`` and call the kernels through the
+custom operators of ``ops/adjoint.py``, so ``torch.func.vmap`` of
+``torch.func.grad`` maps them over pulses (theta batched): the fixed-step
+one by the generated vmap rule (each operator runs the mapped samples in
+turn, one launch each), the adaptive one by its own rule (each sample's
+forward in turn). The basis-gradient one does not vmap.
 
 Each ``jax.custom_vjp`` of the JAX package is a ``torch.autograd.Function``
 here. ``theta`` is a tensor or a tuple, list or dict of tensors (flattened
@@ -32,17 +42,16 @@ for the adaptive one the type of the solve, the promotion of the state's
 type with that of every time given as a tensor (a Python number is weak,
 as in JAX).
 
-Not ported: ``basis_grad=True`` (``make_adjoint_basis_solver``, gradients
-with respect to the basis, no kernel) and the dense adjoint
-(``adjoint_solve_dense``), ROADMAP queue 1 item 23; ``solve_for_grad``
-(item 22) and ``fit_loop`` (item 24).
+``fit_loop`` runs eagerly over ``torch.optim``; the JAX package's ``jit``
+and ``unroll`` are XLA compile options with no counterpart. Not ported:
+``solve_for_grad`` (ROADMAP queue 1 item 22).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Callable, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -59,15 +68,19 @@ from .exp.magnus import _SUB_OFF as _YOSHIDA_OFF
 from .exp.modulated import (CFM4Modulated, MagnusModulated4,
                             MagnusModulated6, ModulatedOperator, _real_basis,
                             _taylor_params, _unwiden, _widen)
-from .ops.adjoint import adjoint_bwd, adjoint_sweep_bwd, adjoint_sweep_fwd
-from .ops.cplx import Cplx
-from .ops.expmv import basis_norms, stacked_basis, stacked_transpose
+from .ops.adjoint import row_op, sweep_bwd_op, sweep_fwd_op
+from .ops.cplx import Cplx, embed
+from .ops.expm import expm, expm_frechet
+from .ops.expmv import (basis_norms, pairs_of, stacked_basis,
+                        stacked_transpose)
 
 Pytree = Any
 
 __all__ = ["adjoint_solve", "adjoint_solve_adaptive", "make_adjoint_solver",
            "make_adjoint_saves_solver", "make_adjoint_cfm_solver",
-           "make_adaptive_adjoint_solver", "rows_per_step"]
+           "make_adaptive_adjoint_solver", "make_adjoint_basis_solver",
+           "make_adjoint_dense_solver", "adjoint_solve_dense", "FitResult",
+           "make_fit_loop", "fit_loop", "rows_per_step"]
 
 
 def _magnus_cols(coeff_fn, K0, pairs, order, theta, t, dt):
@@ -111,6 +124,12 @@ class _Core:
     @property
     def D(self) -> int:
         return self.W.shape[1]
+
+    def on(self, W):
+        """This core over the working basis W: the autograd Functions take
+        W as an input, so that a basis made under a ``torch.func``
+        transform reaches them unwrapped."""
+        return dataclasses.replace(self, W=W, _ops={})
 
     def operands(self, x):
         """(mt, ms, norms, m, theta) for states like x: the stacked basis
@@ -184,8 +203,13 @@ def _make_rows_all_multi(multi_cols, rps, n_steps):
 
 
 def _flat(core, y):
-    """y (..., D) as a contiguous (B, D) batch."""
-    return y.reshape(-1, core.D).contiguous()
+    """y (..., D) as a contiguous (B, D) batch, detached: the kernels'
+    operators are not differentiable, the Functions around them are."""
+    return y.detach().reshape(-1, core.D).contiguous()
+
+
+def _rows_of(c, dtype):
+    return c.detach().to(dtype).contiguous()
 
 
 def _rows_forward(core, c_all, y0w):
@@ -193,8 +217,8 @@ def _rows_forward(core, c_all, y0w):
     launch of K7 (its twin on CPU tensors)."""
     x = _flat(core, y0w)
     mt, _, norms, m, theta = core.operands(x)
-    y = adjoint_sweep_fwd(c_all.to(x.dtype).contiguous(), x, mt, norms, m=m,
-                          theta=theta, max_squarings=core.max_squarings)
+    y = sweep_fwd_op(_rows_of(c_all, x.dtype), x, mt.detach(), list(norms),
+                     m, theta, core.max_squarings)
     return y.reshape(y0w.shape)
 
 
@@ -205,9 +229,9 @@ def _rows_backward(core, c_all, yf, ybar):
     x = _flat(core, yf)
     a = _flat(core, ybar.to(x.dtype))
     mt, ms, norms, m, theta = core.operands(x)
-    a0, cb = adjoint_sweep_bwd(c_all.to(x.dtype).contiguous(), x, a, mt, ms,
-                               norms, m=m, theta=theta,
-                               max_squarings=core.max_squarings)
+    a0, cb = sweep_bwd_op(_rows_of(c_all, x.dtype), x, a, mt.detach(),
+                          ms.detach(), list(norms), m, theta,
+                          core.max_squarings)
     return a0.reshape(yf.shape), cb
 
 
@@ -218,9 +242,9 @@ def _bwd_row(core, c, x_next, a_next):
     x = _flat(core, x_next)
     a = _flat(core, a_next.to(x.dtype))
     mt, ms, norms, m, theta = core.operands(x)
-    x_n, a_n, cb = adjoint_bwd(c.to(x.dtype).contiguous(), x, a, mt, ms,
-                               norms, m=m, theta=theta,
-                               max_squarings=core.max_squarings)
+    x_n, a_n, cb = row_op(_rows_of(c, x.dtype), x, a, mt.detach(),
+                          ms.detach(), list(norms), m, theta,
+                          core.max_squarings)
     return x_n.reshape(x_next.shape), a_n.reshape(a_next.shape), \
         cb.to(c.dtype)
 
@@ -245,75 +269,76 @@ def _fixed_times(t0, tf, device):
                  for t in (t0, tf))
 
 
-def _grads_of(out, wrt, needs, cotangent):
-    """autograd.grad of ``out`` against the tensors of ``wrt`` whose
-    ``needs`` is set, with zeros where ``out`` does not depend on one;
-    None where nothing is needed."""
-    picked = [v for v, n in zip(wrt, needs) if n]
-    got = iter(torch.autograd.grad(out, picked, grad_outputs=cotangent,
-                                   allow_unused=True)
-               if picked and out.requires_grad else [None] * len(picked))
-    res = []
-    for v, n in zip(wrt, needs):
-        g = next(got) if n else None
-        res.append(torch.zeros_like(v) if n and g is None else g)
-    return res
+def _rows_vjp(rows, spec, args, leaves):
+    """(rows(theta, *args), vjp) by ``torch.func.vjp`` over args and
+    theta's leaves: ``vjp(cotangent)`` gives their cotangents in that
+    order. A function transform, so the backwards below compose with
+    ``torch.func.vmap`` and ``grad`` (autograd.grad inside a backward does
+    not)."""
+    n = len(args)
+
+    def f(*xs):
+        return rows(pytree.tree_unflatten(list(xs[n:]), spec), *xs[:n])
+
+    return torch.func.vjp(f, *args, *leaves)
 
 
-def _recompute(leaves, spec, times, needs):
-    """Detached copies of theta's leaves and the times, each requiring
-    grad where its cotangent is needed, and theta rebuilt from them."""
-    lv = [v.detach().requires_grad_(bool(n)) for v, n in
-          zip(leaves, needs[len(times):])]
-    ts = [t.detach().requires_grad_(bool(n)) for t, n in zip(times, needs)]
-    return lv, ts, pytree.tree_unflatten(lv, spec)
+def _needed(grads, needs):
+    """The cotangents whose ``needs`` is set, None for the others."""
+    return [g if n else None for g, n in zip(grads, needs)]
 
 
 @dataclasses.dataclass(eq=False)
 class _FixedPlan:
-    """A fixed-step adjoint: the row builder, and the forward (c_all, y0w)
-    -> out and backward (c_all, out, out_bar) -> (a0, cbar (R, K')) over
-    the rows."""
+    """A fixed-step adjoint: the core, the row builder, and the forward
+    (core, c_all, y0w) -> out and backward (core, c_all, out, out_bar) ->
+    (a0, cbar (R, K')) over the rows."""
 
     spec: Any
+    core: _Core
     rows: Callable
     forward: Callable
     backward: Callable
 
 
 class _FixedStepAdjoint(torch.autograd.Function):
-    """apply(plan, y0w, t0, tf, *theta_leaves) -> the plan's output (the
-    final state, or the saved states)."""
+    """apply(plan, W, y0w, t0, tf, *theta_leaves) -> the plan's output (the
+    final state, or the saved states) over the working basis W. Its
+    forward and backward are torch operations and the kernels' operators
+    (``ops/adjoint.py``), so ``torch.func.vmap`` maps them (over pulses:
+    each operator runs the mapped samples in turn)."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, plan, y0w, t0, tf, *leaves):
+    def forward(plan, W, y0w, t0, tf, *leaves):
         theta = pytree.tree_unflatten(list(leaves), plan.spec)
-        out = plan.forward(plan.rows(theta, t0, tf), y0w)
-        ctx.plan = plan
-        ctx.save_for_backward(out, t0, tf, *leaves)
-        return out
+        return plan.forward(plan.core.on(W), plan.rows(theta, t0, tf), y0w)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        plan, W, _, t0, tf, *leaves = inputs
+        # the basis is an input, a constant of the solve: held, not saved
+        ctx.plan, ctx.W = plan, W
+        ctx.save_for_backward(output, t0, tf, *leaves)
 
     @staticmethod
     def backward(ctx, out_bar):
         out, t0, tf, *leaves = ctx.saved_tensors
-        plan = ctx.plan
+        plan, W = ctx.plan, ctx.W
         needs = ctx.needs_input_grad
-        with torch.enable_grad():
-            lv, (t0g, tfg), theta = _recompute(leaves, plan.spec, (t0, tf),
-                                               needs[2:])
-            c_all = plan.rows(theta, t0g, tfg)
-        a0, cb = plan.backward(c_all.detach(), out, out_bar)
-        grads = _grads_of(c_all, [t0g, tfg, *lv], needs[2:],
-                          cb.to(c_all.dtype))
-        return (None, a0 if needs[1] else None, *grads)
+        c_all, vjp = _rows_vjp(plan.rows, plan.spec, (t0, tf), leaves)
+        a0, cb = plan.backward(plan.core.on(W), c_all, out, out_bar)
+        grads = _needed(vjp(cb.to(c_all.dtype)), needs[3:])
+        return (None, None, a0 if needs[2] else None, *grads)
 
 
-def _solver(rows_all, forward, backward):
+def _solver(core, rows_all, forward=_rows_forward, backward=_rows_backward):
     def solve(theta, y0w, t0, tf):
         leaves, spec = _theta_leaves(theta, y0w.device)
         t0, tf = _fixed_times(t0, tf, y0w.device)
-        plan = _FixedPlan(spec, rows_all, forward, backward)
-        return _FixedStepAdjoint.apply(plan, y0w, t0, tf, *leaves)
+        plan = _FixedPlan(spec, core, rows_all, forward, backward)
+        return _FixedStepAdjoint.apply(plan, core.W, y0w, t0, tf, *leaves)
 
     return solve
 
@@ -338,11 +363,7 @@ def make_adjoint_solver(basis, coeff_fn: Callable, *, n_steps: int,
     reconstruction drift (~n_steps eps for norm-preserving operators)."""
     core = _adjoint_core(basis, coeff_fn, order=order, m=m,
                          max_squarings=max_squarings)
-    rows_all = _make_rows_all(core.cols, order, n_steps)
-    return _solver(rows_all,
-                   lambda c_all, y0w: _rows_forward(core, c_all, y0w),
-                   lambda c_all, yf, ybar: _rows_backward(core, c_all, yf,
-                                                          ybar))
+    return _solver(core, _make_rows_all(core.cols, order, n_steps))
 
 
 def make_adjoint_saves_solver(basis, coeff_fn: Callable, *, n_steps: int,
@@ -369,14 +390,14 @@ def make_adjoint_saves_solver(basis, coeff_fn: Callable, *, n_steps: int,
     rb = tuple(b * rps for b in bounds)
     rows_all = _make_rows_all(core.cols, order, n_steps)
 
-    def forward(c_all, y0w):
+    def forward(core, c_all, y0w):
         parts, x = [], y0w
         for a, b in zip(rb[:-1], rb[1:]):
             x = _rows_forward(core, c_all[a:b], x)
             parts.append(x)
         return torch.stack(parts)
 
-    def backward(c_all, ys, ysbar):
+    def backward(core, c_all, ys, ysbar):
         # segment j's backward starts from its anchor ys[j] with the
         # cotangent transported from segment j + 1 plus ysbar[j]
         a_in = torch.zeros_like(ysbar[-1])
@@ -387,7 +408,7 @@ def make_adjoint_saves_solver(basis, coeff_fn: Callable, *, n_steps: int,
         rest = c_all.new_zeros((c_all.shape[0] - rb[-1], core.Kp))
         return a_in, torch.cat([*chunks, rest.to(chunks[0].dtype)])
 
-    return _solver(rows_all, forward, backward)
+    return _solver(core, rows_all, forward, backward)
 
 
 def _cfm_multi_cols(coeff_fn, alpha, c_nodes):
@@ -432,12 +453,117 @@ def make_adjoint_cfm_solver(basis, coeff_fn: Callable, *, n_steps: int,
     # the order-2 core: the un-extended basis, no commutator directions
     core = _adjoint_core(basis, coeff_fn, order=2, m=m,
                          max_squarings=max_squarings)
-    rows_all = _make_rows_all_multi(
-        _cfm_multi_cols(coeff_fn, alpha, c_nodes), alpha.shape[0], n_steps)
-    return _solver(rows_all,
-                   lambda c_all, y0w: _rows_forward(core, c_all, y0w),
-                   lambda c_all, yf, ybar: _rows_backward(core, c_all, yf,
-                                                          ybar))
+    return _solver(core, _make_rows_all_multi(
+        _cfm_multi_cols(coeff_fn, alpha, c_nodes), alpha.shape[0], n_steps))
+
+
+def _extend_w(W0, pairs):
+    """The real working basis W0 (K0, D, D) followed by the commutators
+    [W0_j, W0_k] of ``pairs``: the differentiable counterpart of
+    ``ModulatedOperator.commutator_extension`` (``vec_ode_tpu/diff.py:
+    _extend_w``)."""
+    if not pairs:
+        return W0
+    comms = [W0[j] @ W0[k] - W0[k] @ W0[j] for j, k in pairs]
+    return torch.cat([W0, torch.stack(comms)])
+
+
+@dataclasses.dataclass(eq=False)
+class _BasisPlan:
+    """A basis-gradient adjoint: the rows over the extended basis and
+    ``core(W_ext)``, the adjoint core over a given working basis."""
+
+    spec: Any
+    pairs: list
+    rows: Callable
+    m: Optional[int]
+    max_squarings: int
+
+    def core(self, W_ext):
+        return _Core(W=W_ext, K0=W_ext.shape[0] - len(self.pairs),
+                     pairs=self.pairs, cols=None, m=self.m,
+                     max_squarings=self.max_squarings)
+
+
+class _BasisAdjoint(torch.autograd.Function):
+    """apply(plan, y0w, t0, tf, W0, *theta_leaves) -> y_final_w. Forward:
+    one K7 launch over W_ext = _extend_w(W0). Backward: per row, in
+    reverse, one K6 launch (the row broadcast to the batch) reconstructs
+    x_r and transports a_r (its cbar is not used); G_r = sum_b a_{r+1,b}
+    x_{r,b}^T; one batched Fréchet adjoint Gbar_r = L(M_r^T, G_r) gives
+    the coefficient cotangents <W_k, Gbar_r> and the basis cotangent
+    sum_r c_{r,k} Gbar_r, through _extend_w's vjp to W0. Memory O(R D^2)
+    for the stacked G_r. Not mapped by ``torch.func.vmap`` (the Fréchet
+    adjoint reads its squaring count on the host)."""
+
+    @staticmethod
+    def forward(plan, y0w, t0, tf, W0, *leaves):
+        theta = pytree.tree_unflatten(list(leaves), plan.spec)
+        return _rows_forward(plan.core(_extend_w(W0, plan.pairs)),
+                             plan.rows(theta, t0, tf), y0w)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        plan, _, t0, tf, W0, *leaves = inputs
+        ctx.plan = plan
+        ctx.save_for_backward(output, t0, tf, W0, *leaves)
+
+    @staticmethod
+    def backward(ctx, ybar):
+        yf, t0, tf, W0, *leaves = ctx.saved_tensors
+        plan = ctx.plan
+        needs = ctx.needs_input_grad
+        W_ext, ext_vjp = torch.func.vjp(lambda w: _extend_w(w, plan.pairs),
+                                        W0)
+        c_all, rows_vjp = _rows_vjp(plan.rows, plan.spec, (t0, tf), leaves)
+        core = plan.core(W_ext)
+        x, a = _flat(core, yf), _flat(core, ybar.to(yf.dtype))
+        B, R = x.shape[0], c_all.shape[0]
+        ck = c_all.to(x.dtype)
+        G = [None] * R
+        for r in range(R - 1, -1, -1):
+            x_n, a_n, _ = _bwd_row(core, ck[r].expand(B, core.Kp), x, a)
+            G[r] = torch.einsum("bi,bj->ij", a, x_n)
+            x, a = x_n, a_n
+        G_all = torch.stack(G) if G else x.new_zeros((0, core.D, core.D))
+        M_all = torch.einsum("rk,kij->rij", c_all.to(W_ext.dtype), W_ext)
+        Gbar = expm_frechet(M_all.transpose(-1, -2), G_all,
+                            max_squarings=plan.max_squarings)
+        cb_all = torch.einsum("kij,rij->rk", W_ext, Gbar)
+        wext_bar = torch.einsum("rk,rij->kij", c_all.to(Gbar.dtype), Gbar)
+        (w0_bar,) = ext_vjp(wext_bar.to(W_ext.dtype))
+        t0_bar, tf_bar, *grads = _needed(rows_vjp(cb_all.to(c_all.dtype)),
+                                         needs[2:4] + needs[5:])
+        return (None, a.reshape(yf.shape) if needs[1] else None, t0_bar,
+                tf_bar, w0_bar if needs[4] else None, *grads)
+
+
+def make_adjoint_basis_solver(basis, coeff_fn: Callable, *, n_steps: int,
+                              order: int = 4, m: Optional[int] = None,
+                              max_squarings: int = 16):
+    """Like :func:`make_adjoint_solver`, but ALSO differentiable with
+    respect to the basis matrices (Hamiltonian learning): ``solve(theta,
+    y0w, t0, tf, W0) -> y_final_w`` with ``W0`` the (K0, D, D) REAL
+    working basis (``exp.modulated._real_basis(basis)``: for a Cplx basis
+    the ring embedding, plain differentiable concatenation outside, so
+    gradients reach the Cplx pair). ``basis`` gives K0 only. Forward: one
+    K7 launch over the commutator-extended W0; backward (see
+    :class:`_BasisAdjoint`): one K6 launch a row and one batched Fréchet
+    adjoint, O(n_steps D^2) memory."""
+    if order not in (2, 4, 6):
+        raise ValueError(f"order must be 2, 4 or 6, got {order}")
+    K0 = (basis.re if isinstance(basis, Cplx) else basis).shape[0]
+    pairs = pairs_of(K0) if order in (4, 6) else []
+    cols = functools.partial(_magnus_cols, coeff_fn, K0, pairs, min(order, 4))
+    rows_all = _make_rows_all(cols, order, n_steps)
+
+    def solve(theta, y0w, t0, tf, W0):
+        leaves, spec = _theta_leaves(theta, y0w.device)
+        t0, tf = _fixed_times(t0, tf, y0w.device)
+        plan = _BasisPlan(spec, pairs, rows_all, m, max_squarings)
+        return _BasisAdjoint.apply(plan, y0w, t0, tf, W0, *leaves)
+
+    return solve
 
 
 @dataclasses.dataclass(eq=False)
@@ -456,7 +582,7 @@ class _AdaptivePlan:
     step_rows: Callable
 
 
-def _adaptive_forward(plan, theta, y0w, t0, tf, h0):
+def _adaptive_forward(plan, core, theta, y0w, t0, tf, h0):
     """The adaptive driver forward (``driver.step_once`` with the plan's
     stepper, ``MagnusModulated4`` / ``MagnusModulated6`` /
     ``CFM4Modulated`` over coeff_fn(., theta)): one chain-kernel launch
@@ -470,7 +596,7 @@ def _adaptive_forward(plan, theta, y0w, t0, tf, h0):
             "the adaptive adjoint needs a BATCHED state: y0 with a leading "
             f"trajectory axis, widened to (B, 2d); got ndim={y0w.ndim}. For "
             "a single trajectory add a length-1 batch axis (y0[None]).")
-    core, ctl = plan.core, plan.ctl
+    ctl = plan.ctl
     is_cplx = isinstance(plan.basis, Cplx)
     op = ModulatedOperator(plan.basis, lambda t: plan.coeff_fn(t, theta),
                            ext_basis=core.W)
@@ -491,51 +617,81 @@ def _adaptive_forward(plan, theta, y0w, t0, tf, h0):
 
 
 class _AdaptiveAdjoint(torch.autograd.Function):
-    """apply(plan, y0w, t0, tf, h0, *theta_leaves) -> (y_final_w,
-    status)."""
+    """apply(plan, W, y0w, t0, tf, h0, *theta_leaves) -> (y_final_w,
+    status, ts (n_it + 1, B)) over the working basis W, the recorded times
+    non-differentiable. Its vmap rule
+    runs the forward per mapped sample (the adaptive driver reads its
+    state on the host) and pads each sample's times to the longest with
+    its final times, rows with dt = 0: the identity, with a zero
+    coefficient Jacobian, as the JAX package's rows past the last
+    iteration; the backward is torch operations and K6's operator."""
 
     @staticmethod
-    def forward(ctx, plan, y0w, t0, tf, h0, *leaves):
+    def forward(plan, W, y0w, t0, tf, h0, *leaves):
         theta = pytree.tree_unflatten(list(leaves), plan.spec)
-        yfw, status, ts_all = _adaptive_forward(plan, theta, y0w, t0, tf, h0)
-        ctx.mark_non_differentiable(status)
-        ctx.plan = plan
-        ctx.save_for_backward(yfw, ts_all, t0, tf, h0, *leaves)
-        return yfw, status
+        return _adaptive_forward(plan, plan.core.on(W), theta, y0w, t0, tf,
+                                 h0)
 
     @staticmethod
-    def backward(ctx, ybar, _status_bar):
+    def setup_context(ctx, inputs, output):
+        plan, W, _, t0, tf, h0, *leaves = inputs
+        yfw, status, ts_all = output
+        ctx.mark_non_differentiable(status, ts_all)
+        ctx.plan, ctx.W = plan, W
+        ctx.save_for_backward(yfw, ts_all, t0, tf, h0, *leaves)
+
+    @staticmethod
+    def vmap(info, in_dims, plan, *args):
+        outs = []
+        for i in range(info.batch_size):
+            sample = [a.select(d, i) if d is not None else a
+                      for a, d in zip(args, in_dims[1:])]
+            outs.append(_AdaptiveAdjoint.forward(plan, *sample))
+        n = max(o[2].shape[0] for o in outs)
+        ts = [torch.cat([o[2], o[2][-1:].expand(n - o[2].shape[0], -1)])
+              for o in outs]
+        return ((torch.stack([o[0] for o in outs]),
+                 torch.stack([o[1] for o in outs]), torch.stack(ts)),
+                (0, 0, 0))
+
+    @staticmethod
+    def backward(ctx, ybar, _status_bar, _ts_bar):
         yfw, ts_all, t0, tf, h0, *leaves = ctx.saved_tensors
-        plan, core = ctx.plan, ctx.plan.core
+        plan = ctx.plan
+        core = plan.core.on(ctx.W)
         needs = ctx.needs_input_grad
         n_it, B = ts_all.shape[0] - 1, ts_all.shape[1]
         ybar = ybar.to(yfw.dtype)
-        with torch.enable_grad():
-            lv, _, theta = _recompute(leaves, plan.spec, (), needs[5:])
-            # the (n_it, n_sub, B, K') rows of every recorded iteration at
-            # once: the same sum as one vjp per iteration, in another
-            # order; rows with dt = 0 are zero
-            t_r = ts_all[:-1].reshape(-1)
-            dt_r = (ts_all[1:] - ts_all[:-1]).reshape(-1)
+        # the (n_it, n_sub, B, K') rows of every recorded iteration at
+        # once: the same sum as one vjp per iteration, in another order;
+        # rows with dt = 0 are zero
+        t_r = ts_all[:-1].reshape(-1)
+        dt_r = (ts_all[1:] - ts_all[:-1]).reshape(-1)
+
+        def all_rows(theta):
             rows = torch.func.vmap(
                 lambda t_, d_: plan.step_rows(theta, t_, d_))(t_r, dt_r)
-            rows = rows.reshape(n_it, B, -1, core.Kp).transpose(1, 2)
-        rk = rows.detach().to(yfw.dtype).contiguous()
-        cbs = torch.empty_like(rk)
+            return rows.reshape(n_it, B, -1, core.Kp).transpose(1, 2)
+
+        rows, vjp = _rows_vjp(all_rows, plan.spec, (), leaves)
+        rk = rows.to(yfw.dtype).contiguous()
+        cbs = []
         x, a = yfw, ybar
         # one K6 launch per exponential, the steps and their sub-rows in
         # reverse
         for r in range(n_it - 1, -1, -1):
             for j in range(rk.shape[1] - 1, -1, -1):
-                x, a, cbs[r, j] = _bwd_row(core, rk[r, j], x, a)
-        grads = _grads_of(rows, lv, needs[5:], cbs.to(rows.dtype))
+                x, a, cb = _bwd_row(core, rk[r, j], x, a)
+                cbs.append(cb)
+        cbs = torch.stack(cbs[::-1]).reshape(rk.shape) if cbs else \
+            torch.zeros_like(rk)
+        grads = _needed(vjp(cbs.to(rows.dtype)), needs[6:])
 
         # the endpoints by the continuous adjoint identity dL/dtf =
         # <a(tf), A(tf) x(tf)>, dL/dt0 = -<a(t0), A(t0) x(t0)>, per-lane
         # final times (the frozen step sequence has no endpoint dependence
         # of its own); h0 shapes the frozen sequence: its cotangent is 0
-        theta0 = pytree.tree_unflatten([v.detach() for v in leaves],
-                                       plan.spec)
+        theta0 = pytree.tree_unflatten(list(leaves), plan.spec)
 
         def a_times_x(t_b, xw):
             g = torch.func.vmap(lambda t: plan.coeff_fn(t, theta0))(t_b)
@@ -547,10 +703,10 @@ class _AdaptiveAdjoint(torch.autograd.Function):
 
         tf_bar = torch.sum(ybar * a_times_x(ts_all[-1], yfw))
         t0_bar = -torch.sum(a * a_times_x(ts_all[0], x))
-        return (None, a if needs[1] else None,
-                t0_bar.to(t0.dtype) if needs[2] else None,
-                tf_bar.to(tf.dtype) if needs[3] else None,
-                torch.zeros_like(h0) if needs[4] else None, *grads)
+        return (None, None, a if needs[2] else None,
+                t0_bar.to(t0.dtype) if needs[3] else None,
+                tf_bar.to(tf.dtype) if needs[4] else None,
+                torch.zeros_like(h0) if needs[5] else None, *grads)
 
 
 def _adaptive_scheme(basis, coeff_fn: Callable, *, order: int = 4,
@@ -623,8 +779,9 @@ def make_adaptive_adjoint_solver(basis, coeff_fn: Callable, *,
         plan = _AdaptivePlan(spec, core, basis, coeff_fn, ctl, stepper,
                              step_rows)
         # one time type for the solve; the cotangents keep their own
-        return _AdaptiveAdjoint.apply(plan, y0w, t0.to(tdt), tf.to(tdt),
-                                      h0.to(tdt), *leaves)
+        yfw, status, _ = _AdaptiveAdjoint.apply(
+            plan, core.W, y0w, t0.to(tdt), tf.to(tdt), h0.to(tdt), *leaves)
+        return yfw, status
 
     return solve
 
@@ -671,9 +828,11 @@ def adjoint_solve(basis, coeff_fn: Callable, theta: Pytree, y0, t0, tf,
     state every k steps and starts each backward segment from its anchor,
     for dissipative operators whose reconstruction by inverse propagators
     amplifies rounding (~e^{2 gamma T}); pick k with gamma k dt <~ 1.
-    ``basis_grad=True`` raises ``NotImplementedError`` (ROADMAP queue 1
-    item 23). ``basis`` and ``y0`` may be Cplx; the widening is ordinary
-    differentiable concatenation outside the adjoint."""
+    ``basis_grad=True`` makes the result differentiable with respect to
+    the basis matrices too (:func:`make_adjoint_basis_solver`; O(n_steps
+    D^2) backward memory; not with ``save_at_steps``). ``basis`` and
+    ``y0`` may be Cplx; the widening is ordinary differentiable
+    concatenation outside the adjoint."""
     is_cplx = isinstance(y0, Cplx)
     kw = dict(order=order, m=m, max_squarings=max_squarings)
     if anchor_every is not None:
@@ -690,9 +849,14 @@ def adjoint_solve(basis, coeff_fn: Callable, theta: Pytree, y0, t0, tf,
         return _unwiden(solver(theta, _widen(y0, is_cplx), t0, tf)[-1],
                         is_cplx)
     if basis_grad:
-        raise NotImplementedError(
-            "basis_grad=True (gradients with respect to the basis, "
-            "make_adjoint_basis_solver) is ROADMAP queue 1 item 23")
+        if save_at_steps is not None:
+            raise ValueError("basis_grad with save_at_steps is unsupported")
+        solver = make_adjoint_basis_solver(basis, coeff_fn, n_steps=n_steps,
+                                           **kw)
+        # the embedding is differentiable concatenation outside the
+        # adjoint: gradients reach a Cplx basis pair
+        return _unwiden(solver(theta, _widen(y0, is_cplx), t0, tf,
+                               _real_basis(basis)), is_cplx)
     if save_at_steps is not None:
         solver = make_adjoint_saves_solver(
             basis, coeff_fn, n_steps=n_steps, save_at_steps=save_at_steps,
@@ -700,3 +864,230 @@ def adjoint_solve(basis, coeff_fn: Callable, theta: Pytree, y0, t0, tf,
     else:
         solver = make_adjoint_solver(basis, coeff_fn, n_steps=n_steps, **kw)
     return _unwiden(solver(theta, _widen(y0, is_cplx), t0, tf), is_cplx)
+
+
+# -- the reversible adjoint for black-box dense operators -------------------
+
+@dataclasses.dataclass(eq=False)
+class _DensePlan:
+    """A dense-operator adjoint: the theta spec, the row map
+    ``row_map(theta, t0, tf, r, x)`` = e^{Omega_r} x, ``omega(theta, t0,
+    tf, r)`` and the segments [s0, s1) of rows (one without anchors)."""
+
+    spec: Any
+    row_map: Callable
+    omega: Callable
+    segs: list
+    max_squarings: int
+
+
+class _DenseAdjoint(torch.autograd.Function):
+    """apply(plan, y0w, t0, tf, *theta_leaves) -> (y_final_w, the earlier
+    segments' end states), the anchors non-differentiable."""
+
+    @staticmethod
+    def forward(plan, y0w, t0, tf, *leaves):
+        theta = pytree.tree_unflatten(list(leaves), plan.spec)
+        x, anchors = y0w, []
+        for s0, s1 in plan.segs:
+            for r in range(s0, s1):
+                x = plan.row_map(theta, t0, tf, r, x)
+            anchors.append(x)
+        return (anchors[-1], *anchors[:-1])
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        plan, _, t0, tf, *leaves = inputs
+        ctx.mark_non_differentiable(*output[1:])
+        ctx.plan, ctx.n_leaves = plan, len(leaves)
+        ctx.save_for_backward(t0, tf, *leaves, *output[1:], output[0])
+
+    @staticmethod
+    def backward(ctx, ybar, *_anchor_bars):
+        t0, tf, *rest = ctx.saved_tensors
+        leaves, anchors = rest[:ctx.n_leaves], rest[ctx.n_leaves:]
+        plan = ctx.plan
+        needs = ctx.needs_input_grad
+        theta = pytree.tree_unflatten(list(leaves), plan.spec)
+        n = len(leaves)
+        acc = [torch.zeros_like(v) for v in (t0, tf, *leaves)]
+        a = ybar
+        for (s0, s1), x in reversed(list(zip(plan.segs, anchors))):
+            # each segment re-anchors the reconstruction on its stored end
+            for r in range(s1 - 1, s0 - 1, -1):
+                om = plan.omega(theta, t0, tf, r)
+                x = _mv(expm(-om, max_squarings=plan.max_squarings), x)
+
+                def f(t0_, tf_, x_, *lv, r=r):
+                    return plan.row_map(
+                        pytree.tree_unflatten(list(lv), plan.spec), t0_, tf_,
+                        r, x_)
+
+                _, vjp = torch.func.vjp(f, t0, tf, x, *leaves)
+                t0_b, tf_b, a, *lb = vjp(a)
+                acc = [g + b for g, b in zip(acc, (t0_b, tf_b, *lb))]
+        t0_bar, tf_bar, *grads = _needed(acc, needs[2:4] + needs[4:4 + n])
+        return (None, a if needs[1] else None, t0_bar, tf_bar, *grads)
+
+
+def _mv(P, x):
+    """P x over the trailing axis of x (..., D)."""
+    return torch.einsum("ij,...j->...i", P, x)
+
+
+def make_adjoint_dense_solver(op_fn: Callable, *, n_steps: int,
+                              order: int = 4, max_squarings: int = 16,
+                              anchor_every: Optional[int] = None):
+    """``solve(theta, y0w, t0, tf) -> y_final_w`` for a BLACK-BOX operator
+    ``op_fn(t, theta) -> A``, a real (D, D) tensor or a Cplx (d, d) (ring
+    embedded inside the differentiated assembly), with an O(1)-memory
+    reversible-adjoint backward with respect to theta, y0w, t0 and tf.
+
+    Fixed-step Magnus exponents per row: order 2 the exponential midpoint,
+    order 4 Magnus-4 over the Gauss-Legendre pair and its commutator,
+    order 6 the Yoshida triple jump of the symmetric order-4 step (three
+    rows a step), each row e^{Omega_r} by ``ops/expm.expm`` (its own
+    squaring count). The backward recomputes Omega_r from ``op_fn``,
+    reconstructs x_r = e^{-Omega_r} x_{r+1} and takes the row's vjp
+    (``torch.func.vjp`` through ``expm``'s Fréchet-adjoint backward) for
+    a_r and the theta, t0, tf cotangents. ``anchor_every=k`` stores the
+    state every k steps and starts each backward segment from it (for
+    dissipative operators). ``y0w`` may carry leading batch axes, which
+    broadcast against the shared exponents. No hand kernel: the JAX
+    package's counterpart runs XLA's expm, no Pallas kernel."""
+    if order not in (2, 4, 6):
+        raise ValueError(f"order must be 2, 4 or 6, got {order}")
+    if anchor_every is not None and int(anchor_every) < 1:
+        raise ValueError(f"anchor_every must be >= 1, got {anchor_every}")
+    rps = rows_per_step(order)
+    R = n_steps * rps
+    seg = R if anchor_every is None else int(anchor_every) * rps
+    segs = [(s0, min(s0 + seg, R)) for s0 in range(0, R, seg)]
+
+    def assemble(t, theta):
+        A = op_fn(t, theta)
+        return embed(A) if isinstance(A, Cplx) else A
+
+    def row_td(t0, tf, r):
+        dt = (tf - t0) / n_steps
+        if order == 6:
+            n, j = divmod(r, rps)
+            return (t0 + n * dt) + _YOSHIDA_OFF[j] * dt, _YOSHIDA_LEN[j] * dt
+        return t0 + r * dt, dt
+
+    def omega(theta, t0, tf, r):
+        t_r, dt_r = row_td(t0, tf, r)
+        if order == 2:
+            return dt_r * assemble(t_r + 0.5 * dt_r, theta)
+        t_mid = t_r + 0.5 * dt_r
+        A1 = assemble(t_mid - _C_MID * dt_r, theta)
+        A2 = assemble(t_mid + _C_MID * dt_r, theta)
+        comm = A1 @ A2 - A2 @ A1
+        return 0.5 * dt_r * (A1 + A2) + (_B2 * dt_r * dt_r) * comm
+
+    def row_map(theta, t0, tf, r, x):
+        return _mv(expm(omega(theta, t0, tf, r),
+                        max_squarings=max_squarings), x)
+
+    def solve(theta, y0w, t0, tf):
+        leaves, spec = _theta_leaves(theta, y0w.device)
+        t0, tf = _fixed_times(t0, tf, y0w.device)
+        plan = _DensePlan(spec, row_map, omega, segs, max_squarings)
+        return _DenseAdjoint.apply(plan, y0w, t0, tf, *leaves)[0]
+
+    return solve
+
+
+def adjoint_solve_dense(op_fn: Callable, theta: Pytree, y0, t0, tf,
+                        n_steps: int, *, order: int = 4,
+                        max_squarings: int = 16,
+                        anchor_every: Optional[int] = None):
+    """Terminal state of dx/dt = A(t; theta) x for a black-box operator
+    ``op_fn(t, theta)`` (real or Cplx) after ``n_steps`` fixed Magnus
+    steps, differentiable with respect to theta, y0, t0 and tf with O(1)
+    memory in n_steps (:func:`make_adjoint_dense_solver`; for a modulated
+    operator :func:`adjoint_solve` runs the hand kernels and is much
+    faster). ``y0``: Cplx or real."""
+    solver = make_adjoint_dense_solver(op_fn, n_steps=n_steps, order=order,
+                                       max_squarings=max_squarings,
+                                       anchor_every=anchor_every)
+    is_cplx = isinstance(y0, Cplx)
+    return _unwiden(solver(theta, _widen(y0, is_cplx), t0, tf), is_cplx)
+
+
+# -- optimisation loops --------------------------------------------------
+
+class FitResult(NamedTuple):
+    """What :func:`fit_loop` returns. ``losses[i]`` is the loss at the
+    PRE-update parameters of iteration i (``losses[0]`` at theta0); with
+    ``tol`` the entries past ``n_done`` are NaN. ``opt_state`` is the
+    optimizer (its state inside). ``aux`` stacks the loss's auxiliary
+    output per iteration under ``has_aux`` (None under ``tol``)."""
+
+    params: Any
+    opt_state: Any
+    losses: torch.Tensor
+    n_done: int
+    aux: Any = None
+
+
+def make_fit_loop(loss_fn: Callable, optimizer: Callable, *, n_iters: int,
+                  has_aux: bool = False, tol: Optional[float] = None,
+                  verbose_every: int = 0):
+    """``fit(theta0, *args) -> FitResult``: ``n_iters`` iterations of the
+    loss's value and gradient (``torch.autograd.grad``) and one optimizer
+    step. ``loss_fn(theta, *args) -> scalar`` (or ``(scalar, aux)`` with
+    ``has_aux``), theta a tensor or a pytree of tensors; ``optimizer`` a
+    factory ``params -> torch.optim.Optimizer`` over the list of theta's
+    leaves (copies; theta0 is not changed), e.g. ``lambda p:
+    torch.optim.Adam(p, lr=0.2)``; ``*args`` pass through. ``tol`` stops
+    after the first iteration whose loss is <= tol (its update applied).
+    ``verbose_every=k`` prints the iteration and loss every k iterations.
+    The JAX package's ``jit`` and ``unroll`` are XLA compile options and
+    have no counterpart: the loop runs eagerly, one host read of the loss
+    an iteration only under ``tol`` or ``verbose_every``."""
+    if n_iters < 1:
+        raise ValueError(f"n_iters must be >= 1, got {n_iters}")
+
+    def fit(theta0, *args):
+        leaves0, spec = pytree.tree_flatten(theta0)
+        leaves = [v.detach().clone().requires_grad_(True) for v in leaves0]
+        opt = optimizer(leaves)
+        losses, auxes, n_done = [], [], 0
+        for i in range(n_iters):
+            out = loss_fn(pytree.tree_unflatten(leaves, spec), *args)
+            v, aux = out if has_aux else (out, None)
+            grads = torch.autograd.grad(v, leaves, allow_unused=True)
+            for p, g in zip(leaves, grads):
+                p.grad = torch.zeros_like(p) if g is None else g
+            opt.step()
+            losses.append(v.detach())
+            if has_aux and tol is None:
+                auxes.append(pytree.tree_map(
+                    lambda t: t.detach() if isinstance(t, torch.Tensor)
+                    else torch.as_tensor(t), aux))
+            n_done = i + 1
+            if verbose_every > 0 and i % verbose_every == 0:
+                print(f"fit_loop iter {i}  loss {float(v)}", flush=True)
+            if tol is not None and float(v) <= tol:
+                break
+        hist = torch.stack(losses)
+        if n_done < n_iters:
+            hist = torch.cat([hist, hist.new_full((n_iters - n_done,),
+                                                  float("nan"))])
+        params = pytree.tree_unflatten([p.detach() for p in leaves], spec)
+        stacked = (pytree.tree_map(lambda *xs: torch.stack(xs), *auxes)
+                   if auxes else None)
+        return FitResult(params, opt, hist, n_done, stacked)
+
+    return fit
+
+
+def fit_loop(loss_fn: Callable, theta0: Pytree, *args, optimizer: Callable,
+             n_iters: int, has_aux: bool = False, tol: Optional[float] = None,
+             verbose_every: int = 0) -> FitResult:
+    """``n_iters`` optimizer iterations of ``loss_fn`` from ``theta0`` (see
+    :func:`make_fit_loop`)."""
+    fit = make_fit_loop(loss_fn, optimizer, n_iters=n_iters, has_aux=has_aux,
+                        tol=tol, verbose_every=verbose_every)
+    return fit(theta0, *args)

@@ -44,11 +44,24 @@ arithmetic:
   which also give A w combined in k order: 2K' + 2 actions a term, each
   term scaled by RN(1/j). The Fréchet terms by the block-triangular
   recurrence: u_k' = (A u_k + 2^-s W_k w) / j with the w chain w' = (A w)
-  / j shared by all K' directions.
+  / j shared by all K' directions. Past K' = BWD_GROUP_TERMS the kernel
+  runs the u_k chains in term groups (:func:`bwd_group`), the w chain
+  anew in each as one product with the formed exponent; the twin's w
+  chain is then that product too.
+
+All three take 1 to ROW_MAX_KP = 36 working terms (eight basis terms at
+order 4), as K4 does.
 
 CPU tensors run the twin; CUDA tensors launch the kernel of
 ``csrc/adjoint.cu`` or raise. Each wrapper counts its launches
 (``.launches``).
+
+``diff.py`` calls the three through custom operators (:data:`sweep_fwd_op`,
+:data:`sweep_bwd_op`, :data:`row_op`), so that its autograd Functions
+compose with ``torch.func``: a ctypes launch cannot run on functorch's
+wrapped tensors, an operator's implementation gets plain ones. Each
+operator's vmap rule runs the mapped samples one after another, each
+with its own launch (P samples: P launches, P times the work of one).
 """
 
 from __future__ import annotations
@@ -56,7 +69,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Sequence
+from typing import List, Sequence
 
 import torch
 
@@ -65,11 +78,6 @@ from .expmv import (GEMM_CN, GEMM_RM, GEMM_STAGES, GEMM_THREADS, _align16,
                     gemm_dp, gemm_jc, ring_resident, scale_rows)
 from .expmv import MAX_KP as ROW_MAX_KP
 from .fused_rk import MAX_WIDTH
-
-# K7's and K8's limit on the working basis (csrc/adjoint_row.cuh:
-# ADJ_MAX_KP): K' = 3 for one control at order 4, 6 for two. K6 takes up
-# to ROW_MAX_KP = 36 terms, as K4 does (eight basis terms at order 4)
-MAX_KP = 6
 
 
 def _combine(coeffs, mv, D: int):
@@ -197,13 +205,17 @@ def torch_adjoint_sweep_bwd(c_all, x_final, a_final, mt, ms, norms, *,
     product with -A^T; then from u_k = 0, w = x_n and a side by side, per
     term u_k' = (u_k A^T + 2^-s W_k w) r_j, w' = (sum_k cs_k W_k w) r_j
     from the K' actions W_k w (``w @ mt``) and a' = (a A) r_j; cbar_k =
-    <a, u_k> summed over the batch. Each term is scaled by r_j = RN(1/j),
+    <a, u_k> summed over the batch. Past K' = BWD_GROUP_TERMS, where the
+    kernel runs the u_k chains in term groups, w' = (w A^T) r_j, one
+    product with the exponent, as the kernel's w chain takes it. Each
+    term is scaled by r_j = RN(1/j),
     the reciprocal rounded to the state's type, not divided by j (the
     kernel's IEEE divisions had cost a tenth of its time). Returns (a0
     (B, D), cbar (R, K'))."""
     B, D = x_final.shape
     Kp = c_all.shape[-1]
     cs, scale, n_pass = _scaled(c_all, norms, theta, max_squarings)
+    grouped = Kp > BWD_GROUP_TERMS
     # the term scales RN(1/j), as the kernel rounds them
     rj = [None] + [x_final.new_ones(()) / j for j in range(1, m + 1)]
     x, a = x_final, a_final
@@ -227,7 +239,8 @@ def torch_adjoint_sweep_bwd(c_all, x_final, a_final, mt, ms, norms, *,
                 mw = term_w @ mt
                 dirs = mw.view(B, Kp, D).transpose(0, 1)
                 term_u = ((term_u @ at) + scale[r] * dirs) * rj[j]
-                term_w = _combine(cs_b, mw, D) * rj[j]
+                term_w = ((term_w @ at) if grouped
+                          else _combine(cs_b, mw, D)) * rj[j]
                 term_a = (term_a @ at.T) * rj[j]
                 acc_u, acc_w = acc_u + term_u, acc_w + term_w
                 acc_a = acc_a + term_a
@@ -378,11 +391,13 @@ def sweep_smem_bytes(plan: str, tile: int, ks: int, D: int,
                      elem: int) -> int:
     """K7's shared memory (csrc/adjoint.cu: SweepLayout): the exponent or
     its panel, the second exponent, the term rows of DP + 4 values, the
-    partial products of ks - 1 contraction groups."""
+    partial products of ks - 1 contraction groups, two slots of a scaled
+    row (ROW_MAX_KP values each)."""
     row, trow = gemm_dp(D) * elem, (gemm_dp(D) + GEMM_CN) * elem
     a = (gemm_jc(D, elem) if plan == "panel" else D) * row
     return (_align16(a) + (_align16(D * row) if plan == "double" else 0)
-            + _align16(tile * trow) + _align16((ks - 1) * tile * trow))
+            + _align16(tile * trow) + _align16((ks - 1) * tile * trow)
+            + 2 * _align16(ROW_MAX_KP * elem))
 
 
 def sweep_plan(B: int, D: int, elem: int, n_sm: int = 132,
@@ -426,7 +441,16 @@ BWD_PLANS = ("buffer", "panel")
 BWD_THREADS, BWD_WIDE_THREADS = 512, 1024
 BWD_MAX_TILE, BWD_MAX_GROUPS = 64, 8
 BWD_STAGES, BWD_RING_BYTES = 3, 24576
+BWD_GROUP_TERMS = 6
 BWD_RM_MAX = {4: 4, 8: 2}
+
+
+def bwd_group(Kp: int) -> int:
+    """The terms of one of K8's term groups (csrc/adjoint.cu: bwd_group):
+    K' itself up to BWD_GROUP_TERMS (one group), else K' split evenly
+    into ceil(K' / BWD_GROUP_TERMS) groups."""
+    ng = -(-Kp // BWD_GROUP_TERMS)
+    return -(-Kp // ng)
 
 
 def bwd_as(D: int) -> int:
@@ -436,40 +460,46 @@ def bwd_as(D: int) -> int:
     return dp if (dp // GEMM_CN) % 2 else dp + GEMM_CN
 
 
-def bwd_jw(D: int, Kp: int, elem: int, ks: int) -> int:
+def bwd_jw(D: int, G: int, elem: int, ks: int) -> int:
     """Rows of ``mt`` a stage of K8's ring carries (csrc/adjoint.cu:
-    bwd_jw): a multiple of 4 up to 32 with K' blocks of DP values within
-    BWD_RING_BYTES, at least 4 for each of the ks contraction groups."""
-    jw = min(32, BWD_RING_BYTES // (Kp * gemm_dp(D) * elem) // 4 * 4)
+    bwd_jw): a multiple of 4 up to 32 with a term group's G blocks of DP
+    values within BWD_RING_BYTES, at least 4 for each of the ks
+    contraction groups."""
+    jw = min(32, BWD_RING_BYTES // (G * gemm_dp(D) * elem) // 4 * 4)
     return max(jw, 4 * ks)
 
 
 def bwd_smem_bytes(plan: str, tile: int, Kp: int, D: int, elem: int,
                    ks: int = 1, ks1: int = 1) -> int:
-    """K8's shared memory (csrc/adjoint.cu: BwdLayout): the exponent (D,
-    AS) or two panels (jc, DP); 2K' + 5 slabs of (tile, TS) values (TS =
-    DP at D > 124, else DP + 4) and the later contraction groups' partial
-    products; for the buffer plan the ring of BWD_STAGES stages of (jw,
-    K' DP)."""
+    """K8's shared memory (csrc/adjoint.cu: BwdLayout) over term groups of
+    G = bwd_group(K') terms, nch = 1 (one group) or 2 chains beside them:
+    the exponent (D, AS) or two panels (jc, DP); 2G + 5 slabs of (tile,
+    TS) values (TS = DP at D > 124, else DP + 4) and the later contraction
+    groups' partial products ((ks - 1) (2G + nch)); for the buffer plan the
+    ring of BWD_STAGES stages of (jw, G DP); the row's K' coefficients."""
+    G = bwd_group(Kp)
+    nch = 2 if G < Kp else 1
     ts = gemm_dp(D) + (0 if gemm_dp(D) // GEMM_CN >= 32 else GEMM_CN)
     slab = _align16(tile * ts * elem)
-    nred = max((ks - 1) * (2 * Kp + 1), ks1 - 1 - (2 * Kp + 2))
+    nred = max((ks - 1) * (2 * G + nch), ks1 - 1 - (2 * G + 2))
     if plan == "panel":
         exp = 2 * _align16(gemm_jc(D, elem) * gemm_dp(D) * elem)
     else:
         exp = _align16(D * bwd_as(D) * elem) + BWD_STAGES * _align16(
-            bwd_jw(D, Kp, elem, ks) * Kp * gemm_dp(D) * elem)
-    return exp + (2 * Kp + 5 + nred) * slab
+            bwd_jw(D, G, elem, ks) * G * gemm_dp(D) * elem)
+    return exp + (2 * G + 5 + nred) * slab + _align16(Kp * elem)
 
 
 def bwd_plan(B: int, D: int, Kp: int, elem: int, n_sm: int = 132,
              max_smem: int = 232448) -> dict:
     """K8's launch shape (csrc/adjoint.cu: bwd_shape) on a card of ``n_sm``
     SMs with ``max_smem`` bytes of shared memory a block (an H100's by
-    default): {plan, tile, rm, ks, ks1, threads, smem, blocks} (rm rows a
-    thread, ks and ks1 contraction groups in phases 2 and 1), or None
-    where no shape fits."""
+    default): {plan, tile, rm, ks, ks1, G, threads, smem, blocks} (rm rows
+    a thread, ks and ks1 contraction groups in phases 2 and 1, G terms a
+    term group), or None where no shape fits."""
     ncg = gemm_dp(D) // GEMM_CN
+    G = bwd_group(Kp)
+    nch = 2 if G < Kp else 1
     start = BWD_MAX_TILE
     while start > 1 and -(-B // start) < n_sm // 2:
         start //= 2
@@ -479,7 +509,7 @@ def bwd_plan(B: int, D: int, Kp: int, elem: int, n_sm: int = 132,
             rm = min(tile, BWD_RM_MAX[elem])
             cap = BWD_THREADS
             per = tile // rm * ncg
-            items = (Kp + 1) * per
+            items = (G + nch) * per
             ks = 1
             while (plan == "buffer" and ks < BWD_MAX_GROUPS
                    and 2 * ks * items <= cap and D >= 64 * ks):
@@ -492,7 +522,7 @@ def bwd_plan(B: int, D: int, Kp: int, elem: int, n_sm: int = 132,
                 if smem <= max_smem and (threads <= cap or (
                         tile == 1 and threads <= BWD_WIDE_THREADS)):
                     return dict(plan=plan, tile=tile, rm=rm, ks=ks, ks1=ks1,
-                                threads=threads, smem=smem,
+                                G=G, threads=threads, smem=smem,
                                 blocks=-(-B // tile))
                 ks //= 2
             if tile == 1:
@@ -501,10 +531,8 @@ def bwd_plan(B: int, D: int, Kp: int, elem: int, n_sm: int = 132,
     return None
 
 
-def _check(kernel: str, x, mats: dict, norms, rows, n_rows: int,
-           max_kp: int = MAX_KP) -> int:
-    """Raise on what the adjoint kernels do not take (K' up to ``max_kp``);
-    returns K'."""
+def _check(kernel: str, x, mats: dict, norms, rows, n_rows: int) -> int:
+    """Raise on what the adjoint kernels do not take; returns K'."""
     if x.device.type != "cuda":
         raise ValueError(f"{kernel}: unsupported device {x.device}")
     if x.dtype not in (torch.float32, torch.float64):
@@ -515,13 +543,10 @@ def _check(kernel: str, x, mats: dict, norms, rows, n_rows: int,
                          f"{tuple(x.shape)}")
     D = x.shape[1]
     Kp = rows.shape[-1]
-    if not 1 <= D <= MAX_WIDTH or not 1 <= Kp <= max_kp:
-        more = ("" if max_kp != MAX_KP else
-                f" (K' > {MAX_KP}, an operator of four or more terms at "
-                "order 4, is ROADMAP queue 2's 'K7 / K8, K' > 6')")
+    if not 1 <= D <= MAX_WIDTH or not 1 <= Kp <= ROW_MAX_KP:
         raise ValueError(
             f"{kernel}: the kernel takes a state width D <= {MAX_WIDTH} and "
-            f"1 to {max_kp} basis terms, got D = {D}, K' = {Kp}{more}")
+            f"1 to {ROW_MAX_KP} basis terms, got D = {D}, K' = {Kp}")
     if rows.shape != (n_rows, Kp):
         raise ValueError(f"{kernel}: the rows must be ({n_rows}, {Kp}), got "
                          f"{tuple(rows.shape)}")
@@ -570,7 +595,7 @@ def adjoint_bwd(c, x_next, a_next, mt, ms, norms, *, m: int, theta: float,
                                  theta=theta, max_squarings=max_squarings)
     B = x_next.shape[0] if x_next.ndim == 2 else 0
     Kp = _check("adjoint_bwd", x_next, {"x": x_next, "a": a_next, "mt": mt,
-                                        "ms": ms}, norms, c, B, ROW_MAX_KP)
+                                        "ms": ms}, norms, c, B)
     D = x_next.shape[1]
     if _row_plan_cached(B, D, Kp, x_next.element_size(), m) is None:
         raise ValueError(f"adjoint_bwd: no launch shape fits D = {D}, K' = "
@@ -658,3 +683,86 @@ def adjoint_sweep_bwd(c_all, x_final, a_final, mt, ms, norms, *, m: int,
 
 
 adjoint_sweep_bwd.launches = 0
+
+
+def _fresh(out, *inputs):
+    """out, copied where it is one of the inputs (the twins return the
+    state itself when there are no rows): an operator's outputs may not
+    alias its inputs."""
+    return out.clone() if any(out is t for t in inputs) else out
+
+
+def _looped(op, n_out: int):
+    """A vmap rule that runs ``op`` on each mapped sample in turn (its
+    tensors sliced contiguous, unmapped arguments as they are) and stacks
+    the results on a new leading axis."""
+
+    def rule(info, in_dims, *args):
+        outs = []
+        for i in range(info.batch_size):
+            outs.append(op(*(a.select(d, i).contiguous()
+                             if isinstance(a, torch.Tensor) and d is not None
+                             else a for a, d in zip(args, in_dims))))
+        if n_out == 1:
+            return torch.stack(outs), 0
+        return tuple(torch.stack(o) for o in zip(*outs)), (0,) * n_out
+
+    return rule
+
+
+@torch.library.custom_op("vec_ode_tpu_torch::adjoint_sweep_fwd",
+                         mutates_args=())
+def sweep_fwd_op(c_all: torch.Tensor, x: torch.Tensor, mt: torch.Tensor,
+                 norms: List[float], m: int, theta: float,
+                 max_squarings: int) -> torch.Tensor:
+    """:func:`adjoint_sweep_fwd` as an operator."""
+    return _fresh(adjoint_sweep_fwd(c_all, x, mt, norms, m=m, theta=theta,
+                                    max_squarings=max_squarings), x)
+
+
+@sweep_fwd_op.register_fake
+def _(c_all, x, mt, norms, m, theta, max_squarings):
+    return torch.empty_like(x)
+
+
+sweep_fwd_op.register_vmap(_looped(sweep_fwd_op, 1))
+
+
+@torch.library.custom_op("vec_ode_tpu_torch::adjoint_sweep_bwd",
+                         mutates_args=())
+def sweep_bwd_op(c_all: torch.Tensor, x_final: torch.Tensor,
+                 a_final: torch.Tensor, mt: torch.Tensor, ms: torch.Tensor,
+                 norms: List[float], m: int, theta: float,
+                 max_squarings: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`adjoint_sweep_bwd` as an operator."""
+    a0, cb = adjoint_sweep_bwd(c_all, x_final, a_final, mt, ms, norms, m=m,
+                               theta=theta, max_squarings=max_squarings)
+    return _fresh(a0, x_final, a_final), cb
+
+
+@sweep_bwd_op.register_fake
+def _(c_all, x_final, a_final, mt, ms, norms, m, theta, max_squarings):
+    return torch.empty_like(a_final), c_all.new_empty(c_all.shape)
+
+
+sweep_bwd_op.register_vmap(_looped(sweep_bwd_op, 2))
+
+
+@torch.library.custom_op("vec_ode_tpu_torch::adjoint_bwd", mutates_args=())
+def row_op(c: torch.Tensor, x_next: torch.Tensor, a_next: torch.Tensor,
+           mt: torch.Tensor, ms: torch.Tensor, norms: List[float], m: int,
+           theta: float, max_squarings: int
+           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`adjoint_bwd` as an operator."""
+    x_n, a_n, cb = adjoint_bwd(c, x_next, a_next, mt, ms, norms, m=m,
+                               theta=theta, max_squarings=max_squarings)
+    return _fresh(x_n, x_next), _fresh(a_n, a_next), cb
+
+
+@row_op.register_fake
+def _(c, x_next, a_next, mt, ms, norms, m, theta, max_squarings):
+    return (torch.empty_like(x_next), torch.empty_like(a_next),
+            torch.empty_like(c))
+
+
+row_op.register_vmap(_looped(row_op, 3))
