@@ -92,7 +92,19 @@ drives the port's paths once at full width through
   ([vdp-rk4]); ``solve_ivp`` on an 8-dim linear ODE in f64 against its
   closed form and the CPU, backward with two saves, and ``solve_linear``
   over the split solvers on the driven tight-binding chain, unitary
-  ([solve-ivp]).
+  ([solve-ivp]);
+* the driver finished: the K1 main path with ``method="scan"`` (exactly
+  max_steps = 48 K1 launches, bitwise the while path, the loop under
+  ``torch.cuda.set_sync_debug_mode("error")``, an M1 that requires grad
+  refused by K1's wrapper) ([scan-k1]); value and gradient in a drive
+  amplitude through the flagship ensemble with scan, ``grad_safe`` and
+  ``remat_levels``, 256 rows in f64 against the CPU and a central
+  difference ([grad-flagship]); BASELINE config 2 differentiated, remat
+  levels 0 / 1 / 2 bitwise equal ([grad-vdp]); dense output on the
+  vmapped tier (DOPRI5 with FSAL and its continuous extension) and the
+  scalar tier (``solve_ivp_dense``, ``solve_linear_dense``)
+  ([dense-tiers]); DOPRI5 with and without the FSAL carry ([fsal]).
+  No hand kernel runs on these gradient and dense paths.
 
 Then it times the paths and each kernel against its plain version, its
 bound and, for K4 (at 256 on its cluster route and 16 384 on its tiled
@@ -132,7 +144,8 @@ from vec_ode_tpu_torch import diff as tdiff
 from vec_ode_tpu_torch import (DONE, DONE_EVENT, DOPRI5, ERR_MAX_STEPS,
                                ERR_STALLED, RK4, RKF45, RungeKutta,
                                StepControl, driver, lc, solve_ivp,
-                               solve_linear)
+                               solve_ivp_dense, solve_linear,
+                               solve_linear_dense)
 from vec_ode_tpu_torch import tableaus as ttab
 from vec_ode_tpu_torch import exp as texp
 from vec_ode_tpu_torch.exp import (CFM4Modulated, CFMModulated,
@@ -4763,6 +4776,396 @@ def solve_ivp_phase(card: str) -> None:
               f"({card})", flush=True)
 
 
+# -- the driver finished: scan, gradients, dense tiers, FSAL ------------------
+
+SCAN_STEPS = 48                    # the main path's while loop takes 33
+SCAN_CTL = dataclasses.replace(CTL, max_steps=SCAN_STEPS)
+GRAD_ROWS = 256                    # [grad-flagship]'s f64 card-vs-CPU rows
+VDP_GRAD_ROWS = 64                 # [grad-vdp]'s f64 central difference
+VDP_SCAN = VDP_STEPS + 2           # 1000 steps and the t0 / tf grid hits
+DENSE_CTL = StepControl(rtol=1e-6, min_dt=1e-6, max_dt=0.25)
+
+
+def scan_solve(st, y0, method, ctl=SCAN_CTL):
+    return ensemble_solve(None, y0, 0.0, TF, stepper=st, ctl=ctl, h0=H0,
+                          adaptive=True, time_dtype=torch.float32,
+                          method=method)
+
+
+def same_counters(a, b, label) -> None:
+    for k in ("status", "n_accept", "n_reject", "n_iters"):
+        assert torch.equal(getattr(a, k).cpu(), getattr(b, k).cpu()), (label,
+                                                                       k)
+
+
+def scan_k1_phase(card: str) -> int:
+    """The main path with method="scan": exactly SCAN_STEPS K1 launches,
+    no host sync inside the loop, bitwise the while path's result; K1
+    refuses an operator that requires grad."""
+    st, y0 = main_inputs()
+    reset_counts()
+    sol = scan_solve(st, y0, "scan")
+    torch.cuda.synchronize()
+    launches = all_launches()
+    assert launches == (SCAN_STEPS,) + (0,) * (len(launches) - 1), launches
+    assert sol.path == "torch-driver+cuda-step", sol.path
+    ref = scan_solve(st, y0, "while")
+    assert int((ref.status == DONE).sum()) == N_TRAJ
+    same_counters(sol, ref, "scan-k1")
+    assert torch.equal(sol.y_final.re, ref.y_final.re)
+    assert torch.equal(sol.y_final.im, ref.y_final.im)
+
+    # the loop alone under the sync check: driver.resume from a carry made
+    # outside it, the step's operands made by one warm call
+    step = st.make_step_fn()
+    grid = driver.make_grid(0.0, TF, dtype=torch.float32, device="cuda")
+    state = driver.init_state(y0, grid, H0, (N_TRAJ,))
+    step(state.t, state.x, torch.zeros_like(state.t))
+    torch.cuda.synchronize()
+    reset_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dsol = driver.resume(state, step, ctl=SCAN_CTL, batched=True,
+                             error_norm=st.error_norm, method="scan")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert fused_rk_step.launches == SCAN_STEPS, fused_rk_step.launches
+    assert torch.equal(dsol.y_final.re, sol.y_final.re)
+
+    gst = dataclasses.replace(st, M1=st.M1.detach().clone().requires_grad_())
+    with torch.enable_grad():
+        try:
+            scan_solve(gst, y0, "scan")
+        except TypeError as e:
+            refusal = str(e)
+        else:
+            raise AssertionError("K1 ran an operator that requires grad")
+    assert "no backward" in refusal, refusal
+
+    scan_ms, scan_walls, _, scan_peak = walls_of(
+        lambda: scan_solve(st, y0, "scan"))
+    while_ms, while_walls, _, while_peak = walls_of(
+        lambda: scan_solve(st, y0, "while"))
+    print(f"[scan-k1] {N_TRAJ}x{DIM}c RKF45 method='scan' max_steps="
+          f"{SCAN_STEPS}: K1 launches {launches[0]} == max_steps (the rest "
+          f"{launches[1:]}), path={sol.path}, status / n_accept / n_reject "
+          f"/ n_iters and y_final bitwise the while path's (n_iters up to "
+          f"{int(ref.n_iters.max())}); the loop ran under "
+          f"set_sync_debug_mode('error') with no sync; an M1 that requires "
+          f"grad: TypeError ({refusal[:60]}...); wall: scan median "
+          f"{scan_ms:.3f} ms of {[round(w, 3) for w in scan_walls]} (peak "
+          f"{scan_peak:.1f} MiB), while {while_ms:.3f} ms of "
+          f"{[round(w, 3) for w in while_walls]} (peak {while_peak:.1f} "
+          f"MiB) ({card})", flush=True)
+    return launches[0]
+
+
+def flagship_rhs(model, eps, dtype, device):
+    """DrivenDense.rhs_pair with the drive's operator scaled by ``eps``:
+    dpsi/dt = -i (H0 + eps cos(w t) V) psi, the same single product of
+    [re | im] with [embed(-i H0)^T | embed(-i V)^T] a stage."""
+    H0m, V = (from_complex(m, dtype, device=device)
+              for m in (model.H0, model.V))
+    W = torch.cat([embed(Cplx(H.im, -H.re)).T for H in (H0m, V)],
+                  dim=-1).contiguous()
+
+    def f(t, psi):
+        c = torch.cos(model.w * t.to(dtype))
+        y = torch.cat([psi.re, psi.im], dim=-1) @ W
+        cv = (eps * c) * y[..., 2 * DIM:]
+        return Cplx(y[..., :DIM] + cv[..., :DIM],
+                    y[..., DIM:2 * DIM] + cv[..., DIM:])
+
+    return f
+
+
+def flagship_loss(model, eps, y0, dtype, method="scan", **kw):
+    """The mean of |z_0(tf)|^2 over the flagship ensemble (stepper=None,
+    RKF45 on the vmapped tier), and its Solution."""
+    dev = y0.re.device
+    sol = ensemble_solve(flagship_rhs(model, eps, dtype, dev), y0, 0.0, TF,
+                         h0=H0, ctl=SCAN_CTL, time_dtype=dtype,
+                         method=method, **kw)
+    return (sol.y_final.re[:, 0] ** 2 + sol.y_final.im[:, 0] ** 2).mean(), sol
+
+
+def flagship_value_and_grad(model, y0, dtype, device, levels):
+    eps = torch.tensor(1.0, dtype=dtype, device=device, requires_grad=True)
+    loss, sol = flagship_loss(model, eps, y0, dtype, grad_safe=True,
+                              remat_levels=levels)
+    (g,) = torch.autograd.grad(loss, eps)
+    return loss.detach(), g, sol
+
+
+def grad_flagship_phase(card: str) -> dict:
+    """Value and gradient through the driver on the flagship: the vmapped
+    RKF45 ensemble with method="scan", grad_safe and remat_levels; no hand
+    kernel."""
+    check_ieee_products()
+    _, y0 = main_inputs()
+    model = DrivenDense.make(d=DIM, seed=0)
+    one = torch.tensor(1.0, device="cuda")
+    reset_counts()
+    v, g, sol = flagship_value_and_grad(model, y0, torch.float32, "cuda", 1)
+    torch.cuda.synchronize()
+    check_no_hand_kernel("grad-flagship")
+    assert int((sol.status == DONE).sum()) == N_TRAJ, "not all DONE"
+    assert sol.path == "torch-driver", sol.path
+    assert bool(torch.isfinite(g)), g
+    with torch.no_grad():
+        v_while, _ = flagship_loss(model, one, y0, torch.float32,
+                                   method="while")
+    dv = abs(float(v) / float(v_while) - 1)
+    assert dv <= 1e-5, (float(v), float(v_while))
+
+    rows = rows_of(y0, GRAD_ROWS, torch.float64, "cuda")
+    _, g_card, _ = flagship_value_and_grad(model, rows, torch.float64,
+                                           "cuda", 0)
+    _, g_cpu, _ = flagship_value_and_grad(
+        model, rows_of(y0, GRAD_ROWS, torch.float64, "cpu"), torch.float64,
+        "cpu", 0)
+    d_cpu = abs(float(g_card) - float(g_cpu))
+    assert d_cpu <= 1e-10, (float(g_card), float(g_cpu))
+    step = 1e-6
+    with torch.no_grad():
+        lp, _ = flagship_loss(model, torch.tensor(1.0 + step,
+                                                  dtype=torch.float64,
+                                                  device="cuda"),
+                              rows, torch.float64)
+        lm, _ = flagship_loss(model, torch.tensor(1.0 - step,
+                                                  dtype=torch.float64,
+                                                  device="cuda"),
+                              rows, torch.float64)
+    fd = float(lp - lm) / (2 * step)
+    d_fd = abs(float(g_card) / fd - 1)
+    assert d_fd <= 1e-6, (float(g_card), fd)
+
+    out = {}
+    for levels in (0, 1):
+        # warm already: three timed runs, the peak over them
+        torch.cuda.reset_peak_memory_stats()
+        res = []
+        walls = timed_runs(lambda: res.append(flagship_value_and_grad(
+            model, y0, torch.float32, "cuda", levels)))
+        ms = statistics.median(walls)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        res = res[0]
+        out[levels] = (ms, peak)
+        print(f"[grad-flagship] remat_levels={levels}: value-and-grad wall "
+              f"median {ms:.3f} ms of {[round(w, 3) for w in walls]}, peak "
+              f"memory {peak:.1f} MiB, d/d eps = {float(res[1]):.6e} "
+              f"({card})", flush=True)
+    print(f"[grad-flagship] {N_TRAJ}x{DIM}c ensemble_solve(rhs_pair with "
+          f"eps V, stepper=None) RKF45 method='scan' max_steps={SCAN_STEPS} "
+          f"grad_safe=True remat_levels=1 f32: all DONE, loss mean|z_0(tf)|^2"
+          f" = {float(v):.8e} vs the while path's {float(v_while):.8e} "
+          f"(rel {dv:.2e} <= 1e-5), d/d eps = {float(g):.6e}, hand kernel "
+          f"launches {all_launches()} (all 0); first {GRAD_ROWS} rows in f64"
+          f" (remat_levels=0): card {float(g_card):.12e} vs CPU "
+          f"{float(g_cpu):.12e} "
+          f"(|d| {d_cpu:.2e} <= 1e-10), vs the central difference "
+          f"{fd:.12e} (rel {d_fd:.2e} <= 1e-6) ({card})", flush=True)
+    return out
+
+
+def vdp_loss(mu, y0, levels, dtype):
+    """BASELINE config 2 differentiated: the mean of y_0(10)^2 over Van
+    der Pol ensembles, 1000 fixed RK4 steps by the scan driver."""
+    sol = ensemble_solve(VanDerPol(mu=mu).rhs, y0, 0.0, 10.0,
+                         stepper=RungeKutta(RK4), adaptive=False,
+                         h0=10.0 / VDP_STEPS, time_dtype=dtype,
+                         method="scan", remat_levels=levels,
+                         ctl=StepControl(max_steps=VDP_SCAN))
+    return (sol.y_final[:, 0] ** 2).mean(), sol
+
+
+def vdp_grad(y0, levels, dtype):
+    mu = torch.tensor(1.5, dtype=dtype, device=y0.device, requires_grad=True)
+    loss, sol = vdp_loss(mu, y0, levels, dtype)
+    (g,) = torch.autograd.grad(loss, mu)
+    return loss.detach(), g, sol
+
+
+def grad_vdp_phase(card: str) -> dict:
+    y_np = np.random.default_rng(0).uniform(-2, 2, (VDP_TRAJ, 2))
+    y0 = torch.as_tensor(y_np, dtype=torch.float32, device="cuda")
+    reset_counts()
+    grads, peaks, walls_ms = {}, {}, {}
+    for levels in (0, 1, 2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        v, g, sol = vdp_grad(y0, levels, torch.float32)
+        torch.cuda.synchronize()
+        walls_ms[levels] = (time.perf_counter() - t0) * 1e3
+        peaks[levels] = (torch.cuda.max_memory_allocated() - base) / 2**20
+        grads[levels] = g
+        assert bool((sol.status == DONE).all()), levels
+        assert bool((sol.n_accept == VDP_STEPS).all()), levels
+    check_no_hand_kernel("grad-vdp")
+    assert torch.equal(grads[0], grads[1]) and torch.equal(grads[0],
+                                                           grads[2]), grads
+    assert peaks[2] < peaks[0], peaks
+    rows = torch.as_tensor(y_np[:VDP_GRAD_ROWS], dtype=torch.float64,
+                           device="cuda")
+    _, g64, _ = vdp_grad(rows, 0, torch.float64)
+    step = 1e-6
+    with torch.no_grad():
+        lp, _ = vdp_loss(torch.tensor(1.5 + step, dtype=torch.float64,
+                                      device="cuda"), rows, 0, torch.float64)
+        lm, _ = vdp_loss(torch.tensor(1.5 - step, dtype=torch.float64,
+                                      device="cuda"), rows, 0, torch.float64)
+    fd = float(lp - lm) / (2 * step)
+    d_fd = abs(float(g64) / fd - 1)
+    assert d_fd <= 1e-6, (float(g64), fd)
+    print(f"[grad-vdp] {VDP_TRAJ} Van der Pol, mu=1.5, RK4 h=0.01 on [0, 10]"
+          f" f32, method='scan' max_steps={VDP_SCAN}: all DONE with "
+          f"n_accept == {VDP_STEPS}; d/d mu mean y_0(10)^2 = "
+          f"{float(grads[0]):.8e}, bitwise equal at remat_levels 0/1/2 "
+          f"(levels {[driver.scan_lengths(VDP_SCAN, k) for k in (0, 1, 2)]});"
+          f" peak memory above the inputs "
+          f"{[round(peaks[k], 1) for k in (0, 1, 2)]} MiB, value-and-grad "
+          f"wall {[round(walls_ms[k], 1) for k in (0, 1, 2)]} ms (one run "
+          f"each, host clock); hand kernel launches {all_launches()} (all "
+          f"0); first {VDP_GRAD_ROWS} rows in f64: {float(g64):.12e} vs the "
+          f"central difference {fd:.12e} (rel {d_fd:.2e} <= 1e-6) ({card})",
+          flush=True)
+    return peaks
+
+
+def dense_flagship(model, y0, stepper, save_at, dense, ctl=DENSE_CTL):
+    return ensemble_solve(lambda t, y: model.rhs_pair(t, y, torch.float32),
+                          y0, 0.0, TF, stepper=stepper, h0=H0, ctl=ctl,
+                          time_dtype=torch.float32, save_at=save_at,
+                          dense=dense)
+
+
+def dense_tiers_phase(card: str) -> None:
+    """Dense output on the vmapped tier (DOPRI5 with FSAL and its
+    continuous extension at 16 384 x 64c) and on the scalar tier
+    (solve_ivp_dense, solve_linear_dense over Magnus-4, one trajectory,
+    f64 card vs CPU)."""
+    check_ieee_products()
+    _, y0 = main_inputs()
+    model = DrivenDense.make(d=DIM, seed=0)
+    st = RungeKutta(DOPRI5, advance_lower=False)
+    assert st.use_fsal
+    reset_counts()
+    sol = dense_flagship(model, y0, st, SAVE_AT, True)
+    torch.cuda.synchronize()
+    check_no_hand_kernel("dense-tiers")
+    assert int((sol.status == DONE).sum()) == N_TRAJ, "not all DONE"
+    bare = dense_flagship(model, y0, st, None, False)
+    assert torch.equal(sol.n_accept, bare.n_accept)
+    ys = torch.complex(sol.ys.re, sol.ys.im)
+    assert ys.shape == (N_TRAJ, len(SAVE_AT) + 2, DIM), ys.shape
+    norm_dev = float((ys.abs().pow(2).sum(-1).sqrt() - 1).abs().max())
+    assert norm_dev <= 1e-4, norm_dev
+    hit = dense_flagship(model, y0, st, SAVE_AT, False)
+    dy = float(torch.maximum((sol.ys.re - hit.ys.re).abs(),
+                             (sol.ys.im - hit.ys.im).abs()).max())
+    assert dy <= 10 * DENSE_CTL.rtol, dy
+    ms, walls, _, peak = walls_of(
+        lambda: dense_flagship(model, y0, st, SAVE_AT, True))
+    print(f"[dense-tiers] vmapped tier: {N_TRAJ}x{DIM}c ensemble_solve("
+          f"rhs_pair, RungeKutta(DOPRI5, advance_lower=False) (FSAL, "
+          f"p_dense), dense=True, {len(SAVE_AT)} saves, rtol="
+          f"{DENSE_CTL.rtol:g}) f32: all DONE, n_accept per row == the run "
+          f"without saves, max||psi|-1| over saves {norm_dev:.3e} (<= 1e-4),"
+          f" vs the grid-hitting run max|dy| {dy:.3e} (<= 10 rtol), hand "
+          f"kernel launches {all_launches()} (all 0); wall median {ms:.3f} "
+          f"ms of {[round(w, 3) for w in walls]}, peak {peak:.1f} MiB "
+          f"({card})", flush=True)
+
+    psi = from_complex(np.asarray(model.H0[0]) / np.linalg.norm(
+        model.H0[0]), torch.float64, device="cpu")
+    ctl = StepControl(rtol=1e-10, min_dt=1e-8, max_dt=0.25)
+
+    def ivp(dev):
+        y = Cplx(psi.re.to(dev), psi.im.to(dev))
+        return solve_ivp_dense(
+            lambda t, p: model.rhs_pair(t, p, torch.float64), 0.0, TF, y,
+            tableau=DOPRI5, ctl=ctl, h0=H0, save_at=SAVE_AT)
+
+    def lin(dev):
+        y = Cplx(psi.re.to(dev), psi.im.to(dev))
+        return solve_linear_dense(
+            lambda t: model.op_pair(t, torch.float64, device=dev), 0.0, TF,
+            y, stepper=texp.Magnus4(texp.DenseCplxSplit()), adaptive=True,
+            ctl=StepControl(rtol=1e-9, min_dt=1e-8, max_dt=0.25), h0=1e-2,
+            save_at=SAVE_AT)
+
+    for label, run in (("solve_ivp_dense DOPRI5", ivp),
+                       ("solve_linear_dense Magnus-4", lin)):
+        reset_counts()
+        a = run("cuda")
+        torch.cuda.synchronize()
+        check_no_hand_kernel("dense-tiers scalar")
+        b = run("cpu")
+        assert int(a.status) == DONE, label
+        same_counters(a, b, label)
+        d = max(float((x.cpu() - y).abs().max()) for x, y in zip(
+            (a.ys.re, a.ys.im, a.y_final.re, a.y_final.im),
+            (b.ys.re, b.ys.im, b.y_final.re, b.y_final.im)))
+        assert d <= 1e-12, (label, d)
+        n2 = float((a.ys.re ** 2 + a.ys.im ** 2).sum(-1).sub(1).abs().max())
+        print(f"[dense-tiers] scalar tier: {label} over DrivenDense(d={DIM})"
+              f" f64, one trajectory, {len(SAVE_AT)} saves: DONE, "
+              f"{int(a.n_accept)} accepted / {int(a.n_reject)} rejected, "
+              f"card vs CPU equal counters, max|d| {d:.3e} (<= 1e-12), "
+              f"max| ||psi||^2 - 1 | over saves {n2:.3e} ({card})",
+              flush=True)
+
+
+def fsal_phase(card: str) -> None:
+    """FSAL on the flagship: DOPRI5 with the last stage carried against
+    every stage evaluated, 16 384 x 64c f32 on the vmapped tier."""
+    _, y0 = main_inputs()
+    model = DrivenDense.make(d=DIM, seed=0)
+    calls = {}
+
+    def counted_rhs(key):
+        def f(t, y):
+            calls[key] += 1
+            return model.rhs_pair(t, y, torch.float32)
+
+        return f
+
+    # the plain clock: the carried stage was evaluated at fl(t + 1.0 dt),
+    # which the compensated clock's t_next may differ from by an ulp
+    ctl = dataclasses.replace(CTL, time_compensated=False)
+    sols = {}
+    for fsal in (True, False):
+        st = RungeKutta(DOPRI5, advance_lower=False, fsal=fsal)
+        calls[fsal] = 0
+        sols[fsal] = ensemble_solve(counted_rhs(fsal), y0, 0.0, TF,
+                                    stepper=st, h0=H0, ctl=ctl,
+                                    time_dtype=torch.float32)
+        assert int((sols[fsal].status == DONE).sum()) == N_TRAJ, fsal
+    a, b = sols[True], sols[False]
+    same_counters(a, b, "fsal")
+    dy = max_dy(a, b)
+    assert dy <= 1e-5, dy
+    n = int(a.n_iters.max())
+    fs, pl = (RungeKutta(DOPRI5, advance_lower=False, fsal=x)
+              for x in (True, False))
+    assert (fs.nfev_per_step, fs.nfev_init) == (6, 1)
+    assert (pl.nfev_per_step, pl.nfev_init) == (7, 0)
+    # the vmapped tier evaluates every lane on every iteration
+    assert calls[True] == 1 + 6 * n and calls[False] == 7 * n, (calls, n)
+    attempts = int((a.n_accept + a.n_reject).sum())
+    print(f"[fsal] {N_TRAJ}x{DIM}c DOPRI5 advancing b, fsal=True vs False, "
+          f"rtol={CTL.rtol:g}, plain clock, f32: all DONE, equal status / "
+          f"n_accept / "
+          f"n_reject / n_iters (up to {n}), max|dy| {dy:.3e} (<= 1e-5); "
+          f"RHS calls over the batch {calls[True]} (= 1 + 6 x {n}) against "
+          f"{calls[False]} (= 7 x {n}); nfev summed over the rows {N_TRAJ} "
+          f"+ 6 x {attempts} attempts = {N_TRAJ + 6 * attempts} against 7 x"
+          f" {attempts} = {7 * attempts} ({card})", flush=True)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = device_phase()
@@ -4814,6 +5217,11 @@ def main() -> None:
     generic_rk_phase(card)
     vdp_rk4_phase(card)
     solve_ivp_phase(card)
+    k1_scan_launches = scan_k1_phase(card)
+    grad_flagship_phase(card)
+    grad_vdp_phase(card)
+    dense_tiers_phase(card)
+    fsal_phase(card)
     k1 = timing_phase(card)
     k2 = loop_timing_phase(card)
     k4 = k4_timing_phase(card)
@@ -4839,6 +5247,7 @@ def main() -> None:
     rows = []
     for name, launches, err, (ms, plain_ms, b_ms, b_by, *lib) in (
             ("fused_rk_step", k1_launches, k1_err, k1),
+            ("fused_rk_step/scan", k1_scan_launches, k1_err, k1),
             ("fused_loop", k2_launches, k2_err, k2),
             ("rk_step_tile", k2_launches, k2_err, k2),
             ("fused_chain_apply", k4_launches, k4_err, k4),

@@ -2058,3 +2058,108 @@ def test_rhs_pair_under_vmap_matches_the_unbatched_call_on_the_card(card):
         cpu = model.rhs_pair(ts.cpu()[:, None], Cplx(y.re.cpu(), y.im.cpu()),
                              dtype)
         assert (got.re.cpu() - cpu.re).abs().max().item() <= tol
+
+
+# -- the driver finished: gradients refused by the kernels, scan, dense ------
+
+def test_kernel_wrappers_refuse_inputs_that_require_grad(card):
+    """K1, K2, K4 and K9 write their outputs through raw pointers (no
+    grad_fn): under autograd an input that requires grad raises TypeError
+    naming the kernel, instead of a silent zero gradient. Without grad
+    mode the launch runs."""
+    st, t, dt, xw = _inputs(64, 8, torch.float32, card)
+    wants = xw.clone().requires_grad_()
+    with torch.enable_grad():
+        with pytest.raises(TypeError, match="fused_rk_step.*no backward"):
+            fused_rk_step(t, dt, wants, st.M0, st.M1, w=st.w)
+        with pytest.raises(TypeError, match="fused_rk_step"):
+            fused_rk_step(t, dt, xw, st.M0, st.M1.clone().requires_grad_(),
+                          w=st.w)
+    with torch.no_grad():
+        fused_rk_step(t, dt, wants, st.M0, st.M1, w=st.w)
+
+    carries, step, ctl, _ = chip_smoke.loop_case("plain", 16, 4,
+                                                 torch.float32)
+    with torch.enable_grad(), pytest.raises(TypeError,
+                                            match="fused_loop_chunk"):
+        fused_loop_chunk(*carries[:3], carries[3].clone().requires_grad_(),
+                         carries[4], step, ctl=ctl)
+
+    cst = chip_smoke.chain_stepper(torch.float32, d=8)
+    samples, dt4, xw4 = chip_smoke.chain_inputs(cst, 16, torch.float32)
+    mt, norms, m, theta = chip_smoke.chain_operands(cst, torch.float32)
+    with torch.enable_grad(), pytest.raises(TypeError,
+                                            match="fused_chain_apply"):
+        fused_chain_apply(samples, dt4, xw4.clone().requires_grad_(), mt,
+                          norms, recipe="magnus4", C=2, m=m, theta=theta)
+
+    table = chip_smoke.dense_tables()["magnus4 pair"]
+    node_ops, dt9, xw9 = chip_smoke.dense_inputs(table, 8, 4, torch.float32)
+    with torch.enable_grad(), pytest.raises(TypeError,
+                                            match="fused_dense_chain_apply"):
+        fused_dense_chain_apply(table, node_ops.clone().requires_grad_(), dt9,
+                                xw9, m=12, theta=1.0)
+
+
+def test_scan_on_the_card_matches_the_cpu_f64(card):
+    """method="scan" on the card (K1 once an iteration) and on the CPU
+    (its twin): equal counters, states within 1e-12; and the vmapped tier
+    under scan, which launches nothing."""
+    psi = chip_smoke.unit_states(300, 16, torch.float64, seed=3)
+    ctl = StepControl(rtol=1e-8, min_dt=1e-6, max_dt=0.25, max_steps=60)
+    sols = {}
+    for dev in ("cpu", card):
+        st = FusedModulatedLinearRK.from_driven_dense(
+            DrivenDense.make(d=16, seed=0), torch.float64, device=dev)
+        before = fused_rk_step.launches
+        sols[dev] = ensemble_solve(
+            None, Cplx(psi.re.to(dev), psi.im.to(dev)), 0.0, 0.5, stepper=st,
+            ctl=ctl, h0=1e-3, time_dtype=torch.float64, method="scan",
+            save_at=(0.2,))
+        if dev != "cpu":
+            assert fused_rk_step.launches - before == ctl.max_steps
+    gpu, cpu = sols[card], sols["cpu"]
+    assert bool((cpu.status == DONE).all())
+    assert gpu.path == "torch-driver+cuda-step"
+    for k in ("status", "n_accept", "n_reject", "n_iters"):
+        assert torch.equal(getattr(gpu, k).cpu(), getattr(cpu, k)), k
+    _leaves_close((gpu.y_final, gpu.ys), (cpu.y_final, cpu.ys), 1e-12)
+
+    model = DrivenDense.make(d=16, seed=0)
+
+    def run(dev):
+        return ensemble_solve(
+            lambda t, x: model.rhs_pair(t, x, torch.float64),
+            Cplx(psi.re[:40].to(dev), psi.im[:40].to(dev)), 0.0, 1.0,
+            ctl=ctl, h0=1e-3, method="scan", save_at=(0.5,))
+
+    assert bool((_same_on_both(run, atol=1e-12).status == DONE).all())
+
+
+@pytest.mark.parametrize("case", ["dopri5_p_dense", "rkf45_hermite",
+                                  "magnus4_unbatched"])
+def test_dense_vmapped_tier_on_the_card_matches_the_cpu_f64(card, case):
+    from vec_ode_tpu_torch import DOPRI5, RungeKutta
+
+    model = DrivenDense.make(d=16, seed=0)
+    psi = chip_smoke.unit_states(40, 16, torch.float64, seed=5)
+    save = (0.2, 0.45, 0.7)
+
+    def run(dev):
+        y = Cplx(psi.re.to(dev), psi.im.to(dev))
+        if case == "magnus4_unbatched":
+            return ensemble_solve(
+                lambda t: model.op_pair(t, torch.float64, device=dev), y, 0.0,
+                1.0, stepper=texp.Magnus4(texp.DenseCplxSplit(),
+                                          batched=False),
+                ctl=StepControl(rtol=1e-7, min_dt=1e-6, max_dt=0.25),
+                h0=1e-2, save_at=save, dense=True)
+        stepper = (RungeKutta(DOPRI5, advance_lower=False)
+                   if case == "dopri5_p_dense" else None)
+        return ensemble_solve(
+            lambda t, x: model.rhs_pair(t, x, torch.float64), y, 0.0, 1.0,
+            stepper=stepper, ctl=StepControl(rtol=1e-8, min_dt=1e-6,
+                                             max_dt=0.25),
+            h0=1e-3, save_at=save, dense=True)
+
+    assert bool((_same_on_both(run, atol=1e-12).status == DONE).all())

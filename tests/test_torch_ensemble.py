@@ -146,11 +146,13 @@ def test_bad_inputs_raise_value_error(kw):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(mesh=object()), dict(method="scan"),
-    # dense output on the vmapped tier (events and dense output on batched
-    # steppers are ported: tests/test_torch_events.py, test_torch_dense.py)
+    dict(mesh=object()),
+    # method="scan" and dense output on the vmapped tier run
+    # (tests/test_torch_scan.py, test_torch_dense_tiers.py); what is still
+    # unported is refused under them too
+    dict(method="scan", mesh=object()),
     dict(stepper=texp.Magnus4(texp.DenseCplxSplit(), batched=False),
-         dense=True),
+         dense=True, mesh=object()),
     # an opaque norm on a natively batched stepper
     dict(error_norm=lambda e: e),
 ])

@@ -252,9 +252,11 @@ def test_pytree_state_matches_jax():
 
 @pytest.mark.parametrize("kw", [
     dict(compensated=True),
-    # an FSAL tableau advancing b reuses its last stage (automatic)
-    dict(tableau=vt.DOPRI5, advance_lower=False),
-    dict(tableau=vt.BOSH32, advance_lower=False, fsal=True),
+    # FSAL runs through the driver's carry (tests/test_torch_fsal.py); the
+    # compensated state carry is refused with it too
+    dict(tableau=vt.DOPRI5, advance_lower=False, compensated=True),
+    dict(tableau=vt.BOSH32, advance_lower=False, fsal=True,
+         compensated=True),
 ])
 def test_stepper_carry_refusals_name_item_25(kw):
     with pytest.raises(NotImplementedError, match="item 25"):
@@ -267,11 +269,18 @@ def test_fsal_needs_an_fsal_tableau():
 
 
 @pytest.mark.parametrize("kw", [dict(method="scan"), dict(grad_safe=True),
-                                dict(remat_levels=2)])
+                                dict(remat_levels=2, method="scan")])
 def test_gradient_options_name_item_22(kw):
-    with pytest.raises(NotImplementedError, match="item 22"):
-        vt.solve_ivp(lambda t, y: -y, 0.0, 1.0,
-                     torch.tensor(1.0, dtype=torch.float64), **kw)
+    """The options of item 22 (gradients through the driver) run: the
+    same solve as the plain while loop (tests/test_torch_scan.py holds
+    them against the JAX package)."""
+    y0 = torch.tensor(1.0, dtype=torch.float64)
+    ctl = vt.StepControl(rtol=1e-8, max_steps=64)
+    want = vt.solve_ivp(lambda t, y: -y, 0.0, 1.0, y0, ctl=ctl)
+    got = vt.solve_ivp(lambda t, y: -y, 0.0, 1.0, y0, ctl=ctl, **kw)
+    for k in ("status", "n_accept", "n_reject"):
+        assert torch.equal(getattr(got, k), getattr(want, k)), k
+    assert torch.equal(got.y_final, want.y_final)
 
 
 def test_adaptive_needs_an_error_estimate():

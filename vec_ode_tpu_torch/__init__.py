@@ -26,10 +26,14 @@ driver iteration, or the whole loop in one launch; on CPU tensors the
 plain torch twins run. ``diff`` holds the O(1)-memory reversible adjoint
 (``adjoint_solve``, ``adjoint_solve_adaptive``, ``basis_grad=True``)
 over the adjoint kernels, whose workload is ``models.PulseControl``, the
-dense-operator adjoint (``adjoint_solve_dense``) and ``fit_loop``. ``events`` (declared
+dense-operator adjoint (``adjoint_solve_dense``), ``fit_loop``, and
+gradients through the driver (``solve_for_grad``, ``grad_terminal``,
+``value_and_grad_terminal``: autograd through ``method="scan"``, with
+``remat_levels`` and ``grad_safe``). ``events`` (declared
 observables, run in the loop kernel, or callables, run by the host
 driver) and ``dense`` (free-running interpolated saves) are taken by
-``ensemble_solve(events=..., dense=True)``. ``quad`` holds the
+``ensemble_solve(events=..., dense=True)``; ``solve_ivp_dense`` and
+``solve_linear_dense`` are the dense front doors. ``quad`` holds the
 Gauss-Legendre and trapezoid quadratures. This package imports neither
 jax nor vec_ode_tpu.
 """
@@ -37,6 +41,7 @@ jax nor vec_ode_tpu.
 from . import (api, controller, convert, dense, diff, driver, events, exp,
                lc, models, ops, parallel, quad, rk, tableaus)
 from .api import solve_ivp, solve_linear
+from .dense import solve_ivp_dense, solve_linear_dense
 from .controller import StepControl
 from .driver import (
     DONE,
@@ -84,6 +89,8 @@ __all__ = [
     "rk",
     "solve_ivp",
     "solve_linear",
+    "solve_ivp_dense",
+    "solve_linear_dense",
     "RungeKutta",
     "rk_step",
     "controller",

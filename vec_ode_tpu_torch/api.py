@@ -12,8 +12,10 @@ Both run the driver's scalar carry (``driver.integrate`` with
 error norm; ``Solution.path`` is ``"torch-driver"``. Backward integration
 (tf < t0) runs by time reversal: s in [0, t0 - tf] with the negated,
 mirrored callable, save times and event functions mirrored too, and the
-result mapped back to user time. ``method="scan"``, ``grad_safe`` and
-``remat_levels`` raise ``NotImplementedError`` (ROADMAP queue 1 item 22).
+result mapped back to user time. ``method="scan"`` (exactly
+``ctl.max_steps`` iterations, which autograd differentiates), with
+``remat_levels`` and ``grad_safe``, runs as ``driver.integrate`` runs it;
+a stepper with a carry (the FSAL slope) seeds it at (t0, y0).
 """
 
 from __future__ import annotations
@@ -140,10 +142,13 @@ def _solve(fn, t0, tf, y0, *, stepper, h0, adaptive, ctl, save_at,
     t_grid = make_grid(t0, tf, save_at, dtype=time_dtype,
                        device=_device_of(y0))
     h0 = check_h0(h0, ctl, adaptive)
+    init_carry_fn = (stepper.make_init_carry(fn)
+                     if getattr(stepper, "has_carry", False) else None)
     sol = integrate(stepper.make_step_fn(fn), y0, t_grid, h0,
                     adaptive=adaptive, ctl=ctl, error_norm=error_norm,
-                    method=method, event_cfg=event_cfg,
-                    remat_levels=remat_levels, grad_safe=grad_safe)
+                    method=method, init_carry_fn=init_carry_fn,
+                    event_cfg=event_cfg, remat_levels=remat_levels,
+                    grad_safe=grad_safe)
     sol = _attach_nfev(sol, stepper)
     if backward:
         sol = _reverse_result(sol, t0_orig)
@@ -174,6 +179,11 @@ def solve_ivp(f: Callable, t0, tf, y0: Pytree, *, stepper=None,
     ``Solution.event_t`` / ``event_found`` / ``event_y`` / ``event_t_k`` /
     ``event_count``, and a terminal event ends the solve with status
     ``DONE_EVENT``. ``Solution.n_rhs_evals`` counts the RHS evaluations.
+
+    ``method="scan"`` runs exactly ``ctl.max_steps`` iterations (pick it
+    tight) with no read of the device, and autograd differentiates it;
+    ``remat_levels`` (nested ``torch.utils.checkpoint``) and
+    ``grad_safe`` (overflow-safe rejects) are ``driver.integrate``'s.
     """
     if stepper is None:
         stepper = RungeKutta()
@@ -189,18 +199,19 @@ def solve_linear(op_fn: Callable, t0, tf, y0: Pytree, *, stepper,
                  h0: Optional[float] = None, adaptive: bool = False,
                  ctl: StepControl = StepControl(), save_at=None,
                  error_norm: Callable = lc.norm_l2, time_dtype=None,
-                 method: str = "while", events=None,
-                 device="cuda") -> Solution:
+                 method: str = "while", events=None, remat_levels: int = 0,
+                 grad_safe: bool = False, device="cuda") -> Solution:
     """Integrate the linear system dx/dt = A(t) x with an exponential
     stepper. ``op_fn(t) -> L`` assembles the operator at one time (the
     steppers call it under ``torch.func.vmap`` over their quadrature
     nodes); a split solver's returns the pair (La, Lb). Backward
-    integration reverses the operator: B(s) = -A(t0 - s). ``device`` is
-    :func:`solve_ivp`'s: it places only leaves of y0 that are not
-    tensors."""
+    integration reverses the operator: B(s) = -A(t0 - s). ``device``,
+    ``method``, ``remat_levels`` and ``grad_safe`` are :func:`solve_ivp`'s
+    (``device`` places only leaves of y0 that are not tensors)."""
     return _solve(op_fn, t0, tf, y0, stepper=stepper, h0=h0,
                   adaptive=adaptive, ctl=ctl, save_at=save_at,
                   error_norm=error_norm, time_dtype=time_dtype,
                   method=method, events=events, device=device,
+                  remat_levels=remat_levels, grad_safe=grad_safe,
                   negate=lambda fn, t0o: (
                       lambda s: lc.scale(fn(t0o - s), -1.0)))

@@ -1,7 +1,14 @@
-"""Differentiation: the O(1)-memory reversible adjoint for modulated linear
-ODEs dx/dt = (sum_k coeff_fn(t, theta)[k] basis[k]) x, and for black-box
-operators, and the optimisation loop over it: the counterpart of
-``vec_ode_tpu/diff.py:141-1557``.
+"""Differentiation: gradients through the driver (:func:`solve_for_grad`,
+:func:`grad_terminal`, :func:`value_and_grad_terminal`: autograd through
+``method="scan"``), the O(1)-memory reversible adjoint for modulated
+linear ODEs dx/dt = (sum_k coeff_fn(t, theta)[k] basis[k]) x, and for
+black-box operators, and the optimisation loop over it: the counterpart
+of ``vec_ode_tpu/diff.py``.
+
+Gradients through the driver run no hand-written kernel: the step
+functions they differentiate are plain torch (the kernel wrappers refuse
+inputs that require grad), as the JAX package's run XLA and never
+Pallas.
 
 The forward keeps no autograd graph and stores only its result; the
 backward reconstructs the trajectory with inverse propagators instead of
@@ -43,8 +50,7 @@ type with that of every time given as a tensor (a Python number is weak,
 as in JAX).
 
 ``fit_loop`` runs eagerly over ``torch.optim``; the JAX package's ``jit``
-and ``unroll`` are XLA compile options with no counterpart. Not ported:
-``solve_for_grad`` (ROADMAP queue 1 item 22).
+and ``unroll`` are XLA compile options with no counterpart.
 """
 
 from __future__ import annotations
@@ -59,7 +65,8 @@ from torch.utils import _pytree as pytree
 
 from . import tableaus as tb
 from .controller import StepControl
-from .driver import DONE, RUNNING, init_state, step_once
+from .driver import (DONE, RUNNING, Solution, init_state, integrate,
+                     make_grid, step_once)
 from .exp.magnus import _B2, _C_MID
 # Yoshida triple-jump sub-steps: composing the symmetric Magnus-4 step
 # over [g1, 1 - 2 g1, g1] dt, g1 = 1 / (2 - 2^(1/5)), raises the order to 6
@@ -76,11 +83,92 @@ from .ops.expmv import (basis_norms, pairs_of, stacked_basis,
 
 Pytree = Any
 
-__all__ = ["adjoint_solve", "adjoint_solve_adaptive", "make_adjoint_solver",
+__all__ = ["solve_for_grad", "grad_terminal", "value_and_grad_terminal",
+           "adjoint_solve", "adjoint_solve_adaptive", "make_adjoint_solver",
            "make_adjoint_saves_solver", "make_adjoint_cfm_solver",
            "make_adaptive_adjoint_solver", "make_adjoint_basis_solver",
            "make_adjoint_dense_solver", "adjoint_solve_dense", "FitResult",
            "make_fit_loop", "fit_loop", "rows_per_step"]
+
+
+def solve_for_grad(step_fn_factory: Callable, params: Pytree, y0: Pytree,
+                   t0, tf, h0, *, adaptive: bool = False,
+                   ctl: StepControl = StepControl(max_steps=4096),
+                   remat: bool = False, remat_levels: int = 0,
+                   grad_safe: Optional[bool] = None, device="cuda",
+                   **kw) -> Solution:
+    """A solve that autograd differentiates: ``step_fn_factory(params) ->
+    step_fn``, run by the scan driver (exactly ``ctl.max_steps``
+    iterations: pick it tight). Its Solution's tensors carry gradients
+    with respect to ``params`` and ``y0``.
+
+    ``remat=True`` runs each step under ``torch.utils.checkpoint``
+    (recomputed in the backward pass instead of stored);
+    ``remat_levels=k`` nests the scan k + 1 levels deep
+    (``driver.integrate``). ``grad_safe`` (default: on for adaptive runs)
+    decides accept / reject outside autograd, so a rejected trial that
+    overflowed cannot NaN the gradient. The solve runs where ``y0`` lies
+    (``device`` places leaves that are not tensors); ``kw`` goes to
+    ``driver.integrate``."""
+    from torch.utils.checkpoint import checkpoint
+
+    from .api import _as_state, _device_of, _time_dtype
+
+    step_fn = step_fn_factory(params)
+    if remat:
+        inner = step_fn
+
+        def step_fn(*args):
+            return checkpoint(inner, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+    if grad_safe is None:
+        grad_safe = bool(adaptive)
+    y0 = _as_state(y0, device)
+    t_grid = make_grid(t0, tf, dtype=_time_dtype(t0, tf),
+                       device=_device_of(y0))
+    return integrate(step_fn, y0, t_grid, h0, adaptive=adaptive, ctl=ctl,
+                     method="scan", remat_levels=remat_levels,
+                     grad_safe=grad_safe, **kw)
+
+
+def _terminal_value_and_grad(loss_fn, step_fn_factory, y0, t0, tf, h0, kw,
+                             params):
+    """(loss_fn(y_final), its gradient over the ``params`` pytree): python
+    and numpy leaves become float tensors on y0's device."""
+    from .api import _as_state, _device_of
+
+    y0 = _as_state(y0, kw.get("device", "cuda"))
+    dev = _device_of(y0)
+    leaves, spec = pytree.tree_flatten(params)
+    leaves = [(a.detach() if isinstance(a, torch.Tensor)
+               else torch.as_tensor(np.asarray(a, np.float64), device=dev)
+               ).requires_grad_() for a in leaves]
+    with torch.enable_grad():
+        sol = solve_for_grad(step_fn_factory,
+                             pytree.tree_unflatten(leaves, spec), y0, t0, tf,
+                             h0, **kw)
+        value = loss_fn(sol.y_final)
+        grads = torch.autograd.grad(value, leaves, allow_unused=True)
+    grads = [torch.zeros_like(a) if g is None else g
+             for g, a in zip(grads, leaves)]
+    return value.detach(), pytree.tree_unflatten(grads, spec)
+
+
+def grad_terminal(loss_fn: Callable, step_fn_factory: Callable, y0: Pytree,
+                  t0, tf, h0, **kw) -> Callable:
+    """``grad(params)``: the gradient of ``loss_fn(y_final)`` with respect
+    to the stepper's parameters (a pytree) through the whole solve
+    (:func:`solve_for_grad`, which takes ``kw``)."""
+    return lambda params: _terminal_value_and_grad(
+        loss_fn, step_fn_factory, y0, t0, tf, h0, kw, params)[1]
+
+
+def value_and_grad_terminal(loss_fn: Callable, step_fn_factory: Callable,
+                            y0: Pytree, t0, tf, h0, **kw) -> Callable:
+    """``value_and_grad(params) -> (loss_fn(y_final), gradient)``: as
+    :func:`grad_terminal`, with the loss's value."""
+    return functools.partial(_terminal_value_and_grad, loss_fn,
+                             step_fn_factory, y0, t0, tf, h0, kw)
 
 
 def _magnus_cols(coeff_fn, K0, pairs, order, theta, t, dt):

@@ -6,18 +6,25 @@ batched carry.
 Each iteration computes boolean masks per trajectory (stepping /
 at-checkpoint / at-end / accept) and applies ``where``-selected updates,
 exactly as the JAX driver does, so the two agree per trajectory on
-status, counters and the sequence of accepted and rejected steps. The
-loop itself is a Python ``while`` whose condition reads one bool from the
-device per iteration.
+status, counters and the sequence of accepted and rejected steps. Two
+loops run the iteration: ``method="while"``, a Python ``while`` whose
+condition reads one bool from the device per iteration, and
+``method="scan"``, exactly ``ctl.max_steps`` iterations with no read of
+the device at all (lanes no longer RUNNING step with dt = 0 and keep
+their state), which autograd differentiates, ``remat_levels`` nesting it
+under ``torch.utils.checkpoint``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 from torch.utils import _pytree as pytree
+from torch.utils.checkpoint import checkpoint
 
 from . import lc
 from .controller import (StepControl, controller_update, end_tolerance,
@@ -75,6 +82,7 @@ class IntState(NamedTuple):
     reject_streak: torch.Tensor
     ys: Pytree            # (B, n_grid, ...) states recorded on the grid
     ts_grid: torch.Tensor  # (n_grid,) save grid, [0] = t0, [-1] = tf
+    carry: Pytree = ()    # the stepper's carry (e.g. the FSAL slope), or ()
     ev: Pytree = ()       # events.EventState, or () without events
 
 
@@ -100,11 +108,12 @@ def make_grid(t0, tf, save_at=None, dtype=torch.float64, device="cuda"):
 
 
 def init_state(x0: Pytree, t_grid: torch.Tensor, h0,
-               batch_shape: tuple = (), event_state: Pytree = ()) -> IntState:
+               batch_shape: tuple = (), stepper_carry: Pytree = (),
+               event_state: Pytree = ()) -> IntState:
     """The loop carry at t0. Every leaf of ``x0`` carries the leading
     ``batch_shape`` (``()``: one trajectory); ``h0`` is a scalar or
-    per-trajectory;
-    ``event_state`` is an ``events.EventState`` or ()."""
+    per-trajectory; ``stepper_carry`` is the stepper's carry at (t0, x0)
+    or (); ``event_state`` is an ``events.EventState`` or ()."""
     tdt, dev = t_grid.dtype, t_grid.device
     n_grid = t_grid.shape[0]
     t0 = t_grid[0].expand(batch_shape).clone()
@@ -133,6 +142,7 @@ def init_state(x0: Pytree, t_grid: torch.Tensor, h0,
         reject_streak=zero_i,
         ys=ys,
         ts_grid=t_grid,
+        carry=stepper_carry,
         ev=event_state,
     )
 
@@ -141,35 +151,85 @@ def _default_norm(batched: bool) -> Callable:
     return lc.norm_l2_batched if batched else lc.norm_l2
 
 
+def masked_measure(error_norm: Callable, x, x_next, err, ctl: StepControl,
+                   valid: torch.Tensor) -> torch.Tensor:
+    """The controller's error measure, 1 on lanes that are not ``valid``.
+    Masked lanes get a unit error and a unit measure (a double where): a
+    zero error's norm has a NaN derivative and f = rtol / 0 an infinite
+    one. Under autograd a valid lane whose error is exactly zero (a step
+    so short that its stages agree to the last bit, which the JAX
+    package's fused arithmetic rounds to a tiny nonzero instead) keeps
+    its measure 0, f = inf, with no gradient through it, for the same
+    reason."""
+    ones = pytree.tree_map(torch.ones_like, err)
+    measure = error_measure(error_norm, x, x_next,
+                            lc.tree_where(valid, err, ones), ctl)
+    if torch.is_grad_enabled() and any(
+            a.requires_grad for a in pytree.tree_leaves(err)):
+        exact = valid & (measure.detach() == 0)
+        measure = torch.where(exact, measure.detach(), error_measure(
+            error_norm, x, x_next, lc.tree_where(valid & ~exact, err, ones),
+            ctl))
+    return torch.where(valid, measure, 1.0)
+
+
+def _check_batched(state: IntState, batched) -> int:
+    """The carry's batch rank; ``batched`` (None: taken from the carry)
+    must agree with it."""
+    bn = state.t.ndim
+    if batched is not None and bool(batched) != (bn > 0):
+        raise ValueError(
+            f"batched={batched!r} disagrees with the carry: state.t has "
+            f"shape {tuple(state.t.shape)} (init_state's batch_shape)")
+    return bn
+
+
+def _detached(tree: Pytree) -> Pytree:
+    return pytree.tree_map(
+        lambda a: a.detach() if isinstance(a, torch.Tensor) else a, tree)
+
+
 def step_once(state: IntState, step_fn: Callable, *, adaptive: bool,
               ctl: StepControl, error_norm: Optional[Callable] = None,
-              record_ys: bool = True, event_cfg=None) -> IntState:
+              batched: Optional[bool] = None, record_ys: bool = True,
+              event_cfg=None, grad_safe: bool = False) -> IntState:
     """One driver iteration over one trajectory or the whole batch (the
-    JAX ``step_once``, without ``grad_safe``).
+    JAX ``step_once``).
 
-    ``step_fn(t, x, dt) -> (x_next, err)`` is called on every iteration;
-    lanes that do not step get dt = 0, and their results are discarded
-    (the scalar JAX driver skips the call on such iterations instead: the
-    same result, one evaluation fewer). ``err`` may be None for a stepper
-    with no error estimate, which adaptive mode refuses. ``error_norm``
-    reduces ``err`` per trajectory (default ``lc.norm_l2`` for the scalar
-    carry, ``lc.norm_l2_batched`` for a batched one; the identity for
-    steppers that return norms already). ``record_ys=False`` skips
-    recording the save grid.
+    ``step_fn(t, x, dt) -> (x_next, err)`` is called on every iteration,
+    or ``step_fn(t, x, dt, carry) -> (x_next, err, carry_next)`` where
+    ``state.carry`` is not empty (the carry advances only with the
+    state); lanes that do not step get dt = 0, and their results are
+    discarded (the scalar JAX driver skips the call on such iterations
+    instead: the same result, one evaluation fewer). ``err`` may be None
+    for a stepper with no error estimate, which adaptive mode refuses.
+    ``error_norm`` reduces ``err`` per trajectory (default ``lc.norm_l2``
+    for the scalar carry, ``lc.norm_l2_batched`` for a batched one; the
+    identity for steppers that return norms already). ``batched`` is
+    checked against the carry (``state.t.ndim``). ``record_ys=False``
+    skips recording the save grid.
     ``event_cfg`` (an ``events.EventConfig``, with ``state.ev`` its state)
     runs the event search as step control: a search vetoes the advance
     before it is applied, and its step size overrides the controller's
     after the grid-hit restore.
+
+    ``grad_safe=True`` (adaptive only) decides accept / reject on a pass
+    outside autograd and re-runs the stepper with dt = 0 on rejected
+    lanes, so that a rejected trial which overflowed never enters the
+    backward pass (0 cotangent x inf = NaN); the controller is then
+    recomputed with gradients on the accepted lanes, which keeps their
+    step-size sensitivity. It costs a second stepper evaluation.
     """
+    bn = _check_batched(state, batched)
     if error_norm is None:
-        error_norm = _default_norm(state.t.ndim > 0)
+        error_norm = _default_norm(bn > 0)
     t_grid = state.ts_grid
     n_grid = t_grid.shape[0]
     running = state.status == RUNNING
 
     # consult the save grid: remaining time to the next grid point
     idx = torch.clamp(state.tgt_idx, max=n_grid - 1)
-    chk_t = t_grid[idx.long()]
+    chk_t = t_grid.index_select(0, idx.reshape(-1).long()).reshape(idx.shape)
     # compensated remaining time subtracts the residual word too
     rem = (chk_t - state.t) - state.t_lo
     at_grid = rem.abs() <= end_tolerance(chk_t, ctl.strict_end_test)
@@ -178,31 +238,60 @@ def step_once(state: IntState, step_fn: Callable, *, adaptive: bool,
     is_chkpt = running & at_grid & ~past_end
     bad_grid = running & ~at_grid & (rem < 0)
     stepping = running & ~at_grid & ~bad_grid
-    # masked-out lanes step with dt = 0 (a no-op step)
+    # masked-out lanes step with dt = 0 (a no-op step), which keeps their
+    # discarded evaluations finite for the backward pass
     dt = torch.where(stepping, torch.minimum(state.h, rem), 0.0)
 
-    x_next, err = step_fn(state.t, state.x, dt)
+    has_carry = len(pytree.tree_leaves(state.carry)) > 0
 
-    if adaptive:
-        if err is None:
+    def call_step(t, x, dt_, carry):
+        if has_carry:
+            return step_fn(t, x, dt_, carry)
+        x_next_, err_ = step_fn(t, x, dt_)
+        return x_next_, err_, ()
+
+    def controller_block(x_next_c, err_c, x_ref, prev_err, valid):
+        if err_c is None:
             raise ValueError("adaptive integration requires an error estimate")
-        # masked lanes get a unit error and a unit measure: their h and
-        # accept are discarded below
-        err_safe = lc.tree_where(
-            stepping, err, pytree.tree_map(torch.ones_like, err))
-        measure = error_measure(error_norm, state.x, x_next, err_safe, ctl)
-        if measure.ndim != stepping.ndim:
+        measure_c = masked_measure(error_norm, x_ref, x_next_c, err_c, ctl,
+                                   valid)
+        if measure_c.ndim != stepping.ndim:
             raise ValueError(
                 "error_norm reduced a batched state to shape "
-                f"{tuple(measure.shape)} but the batch is "
+                f"{tuple(measure_c.shape)} but the batch is "
                 f"{tuple(stepping.shape)}; use a PER-TRAJECTORY norm "
                 "(lc.norm_l2_batched)"
             )
-        measure = torch.where(stepping, measure, 1.0)
-        new_h, accept = controller_update(
-            state.h, measure, ctl, prev_err_norm=state.err_norm,
+        new_h_c, accept_c = controller_update(
+            state.h, measure_c, ctl, prev_err_norm=prev_err,
             prev_rejected=state.reject_streak > 0,
         )
+        return measure_c, new_h_c, accept_c
+
+    if adaptive and grad_safe:
+        # the decision pass: no autograd on its inputs or outputs, so an
+        # overflowed trial leaves no trace in the backward pass; the
+        # controller reads state.h with its gradient, as the JAX
+        # package's does
+        with torch.no_grad():
+            x_dec, err_dec, _ = call_step(*_detached(
+                (state.t, state.x, dt, state.carry)))
+        measure_dec, new_h_dec, accept = controller_block(
+            x_dec, err_dec, _detached(state.x), state.err_norm.detach(),
+            stepping)
+        dt = torch.where(accept & stepping, dt, 0.0)
+    x_next, err, carry_next = call_step(state.t, state.x, dt, state.carry)
+
+    if adaptive and grad_safe:
+        # accepted lanes recompute the same values with gradients; the
+        # rejected ones keep the decision pass's
+        measure2, new_h2, _ = controller_block(
+            x_next, err, state.x, state.err_norm, accept & stepping)
+        measure = torch.where(accept, measure2, measure_dec)
+        new_h = torch.where(accept, new_h2, new_h_dec)
+    elif adaptive:
+        measure, new_h, accept = controller_block(
+            x_next, err, state.x, state.err_norm, stepping)
     else:
         measure = state.err_norm
         new_h, accept = state.h, torch.ones_like(stepping)
@@ -227,6 +316,10 @@ def step_once(state: IntState, step_fn: Callable, *, adaptive: bool,
         t = torch.where(do_advance, state.t + dt, state.t)
         t_lo = state.t_lo
     x = lc.tree_where(do_advance, x_next, state.x)
+    # the stepper's carry advances only with the state: on a reject or a
+    # no-op the old carry (e.g. the FSAL slope f(t, x)) still holds
+    carry = (lc.tree_where(do_advance, carry_next, state.carry)
+             if has_carry else state.carry)
 
     # the step size is updated on every attempted step ...
     if adaptive:
@@ -299,6 +392,7 @@ def step_once(state: IntState, step_fn: Callable, *, adaptive: bool,
         reject_streak=streak,
         ys=ys,
         ts_grid=state.ts_grid,
+        carry=carry,
         ev=eo.ev_next if has_events else state.ev,
     )
 
@@ -354,57 +448,146 @@ class Solution:
         )
 
 
-_SCAN = ("method='scan', grad_safe and remat_levels (gradients through "
-         "the driver) are ROADMAP queue 1 item 22")
+SCAN_GUARD = 65536
+
+
+def scan_lengths(max_steps: int, remat_levels: int = 0) -> list:
+    """The iteration counts of the nested scan levels, outermost first:
+    ``[max_steps]`` without remat; with ``remat_levels = k`` k + 1 levels
+    of about max_steps^(1/(k+1)) each, trimmed level by level while the
+    product stays >= max_steps (the JAX package's rule; the extra
+    iterations are no-ops that still pay a stepper evaluation)."""
+    if remat_levels <= 0:
+        return [int(max_steps)]
+    L = int(remat_levels) + 1
+    n = max(2, math.ceil(max_steps ** (1.0 / L)))
+    lengths = [n] * L
+    for i in range(L):
+        while (lengths[i] > 1
+               and (math.prod(lengths) // lengths[i])
+               * (lengths[i] - 1) >= max_steps):
+            lengths[i] -= 1
+    return lengths
+
+
+def _checkpointed(fn: Callable, state: IntState) -> IntState:
+    """``fn(state)`` under ``torch.utils.checkpoint``: the floating
+    tensors of the carry are its arguments, the integer ones (status,
+    counters) ride along in the closure; the backward pass recomputes
+    ``fn`` from the arguments instead of keeping its intermediates."""
+    leaves, spec = pytree.tree_flatten(state)
+    pos = [i for i, a in enumerate(leaves)
+           if isinstance(a, torch.Tensor)
+           and (a.is_floating_point() or a.is_complex())]
+
+    def run(*floats):
+        ls = list(leaves)
+        for i, a in zip(pos, floats):
+            ls[i] = a
+        return tuple(pytree.tree_leaves(fn(pytree.tree_unflatten(ls, spec))))
+
+    out = checkpoint(run, *[leaves[i] for i in pos], use_reentrant=False,
+                     preserve_rng_state=False)
+    return pytree.tree_unflatten(list(out), spec)
+
+
+def _run_scan(body: Callable, state: IntState, lengths) -> IntState:
+    """``prod(lengths)`` iterations of ``body``; every level inside the
+    outermost runs under :func:`_checkpointed`. Nothing reads the device
+    to decide a branch."""
+    if len(lengths) == 1:
+        for _ in range(lengths[0]):
+            state = body(state)
+        return state
+    inner = functools.partial(_run_scan, body, lengths=lengths[1:])
+    for _ in range(lengths[0]):
+        state = _checkpointed(inner, state)
+    return state
 
 
 def integrate(step_fn: Callable, x0: Pytree, t_grid: torch.Tensor, h0, *,
               adaptive: bool = True, ctl: StepControl = StepControl(),
               error_norm: Optional[Callable] = None,
               method: str = "while", batch_shape: tuple = (),
+              init_carry_fn: Optional[Callable] = None,
               event_cfg=None, remat_levels: int = 0,
               grad_safe: bool = False) -> Solution:
-    """Run the loop over [t_grid[0], t_grid[-1]] until no trajectory is
-    RUNNING: one trajectory for ``batch_shape=()``, else a natively
-    batched carry; ``event_cfg`` (``events.EventConfig``) locates events
-    on the way. ``remat_levels`` and ``grad_safe`` raise
-    ``NotImplementedError`` (item 22)."""
-    if remat_levels or grad_safe:
-        raise NotImplementedError(_SCAN)
+    """Run the loop over [t_grid[0], t_grid[-1]]: one trajectory for
+    ``batch_shape=()``, else a natively batched carry; ``event_cfg``
+    (``events.EventConfig``) locates events on the way.
+    ``init_carry_fn(t0, x0)`` seeds a stepper carry threaded through the
+    loop as ``step_fn(t, x, dt, carry) -> (x_next, err, carry_next)``
+    (e.g. the FSAL first-stage slope, ``rk.RungeKutta.make_init_carry``).
+
+    ``method="while"`` runs until no trajectory is RUNNING (one read of
+    the device per iteration). ``method="scan"`` runs exactly
+    ``ctl.max_steps`` iterations with no read of the device, so pick a
+    tight ``max_steps``: autograd differentiates it. ``remat_levels=k``
+    (scan only) nests k + 1 levels (:func:`scan_lengths`), each inner one
+    under ``torch.utils.checkpoint``: the backward pass keeps the carries
+    at level boundaries and recomputes the rest, and the 65536-iteration
+    guard is lifted. ``grad_safe``: see :func:`step_once`."""
+    carry0 = () if init_carry_fn is None else init_carry_fn(t_grid[0], x0)
     ev0 = ()
     if event_cfg is not None:
         from .events import init_event_state
 
         ev0 = init_event_state(event_cfg, t_grid[0].expand(batch_shape), x0,
                                batch_shape=batch_shape)
-    state = init_state(x0, t_grid, h0, batch_shape, event_state=ev0)
+    state = init_state(x0, t_grid, h0, batch_shape, stepper_carry=carry0,
+                       event_state=ev0)
     return resume(state, step_fn, adaptive=adaptive, ctl=ctl,
-                  error_norm=error_norm, method=method, event_cfg=event_cfg)
+                  error_norm=error_norm, method=method,
+                  batched=bool(batch_shape), event_cfg=event_cfg,
+                  remat_levels=remat_levels, grad_safe=grad_safe)
 
 
 def resume(state: IntState, step_fn: Callable, *, adaptive: bool = True,
            ctl: StepControl = StepControl(),
            error_norm: Optional[Callable] = None,
-           method: str = "while", event_cfg=None) -> Solution:
-    """Continue integration from an existing carry.
+           method: str = "while", batched: Optional[bool] = None,
+           event_cfg=None, remat_levels: int = 0,
+           grad_safe: bool = False) -> Solution:
+    """Continue integration from an existing carry (the save-grid cursor,
+    step size, counters and stepper carry carry over); ``method``,
+    ``remat_levels`` and ``grad_safe`` as in :func:`integrate`,
+    ``batched`` checked against the carry.
 
     On the default [t0, tf] grid the loop records nothing: ys is rebuilt
     afterwards as [x0, x_final], with the final slot left as it was for
     trajectories that did not reach the end (the JAX driver does the
     same)."""
-    if method != "while":
-        raise NotImplementedError(f"method={method!r}: {_SCAN}")
-    bn = state.t.ndim
+    bn = _check_batched(state, batched)
     if error_norm is None:
         error_norm = _default_norm(bn > 0)
     elide_ys = state.ts_grid.shape[0] == 2
     init_x, init_ys, init_tgt = state.x, state.ys, state.tgt_idx
+    body = functools.partial(
+        step_once, step_fn=step_fn, adaptive=adaptive, ctl=ctl,
+        error_norm=error_norm, record_ys=not elide_ys, event_cfg=event_cfg,
+        grad_safe=grad_safe)
 
-    # one host sync per iteration: the loop's condition
-    while bool((state.status == RUNNING).any()):
-        state = step_once(state, step_fn, adaptive=adaptive, ctl=ctl,
-                          error_norm=error_norm, record_ys=not elide_ys,
-                          event_cfg=event_cfg)
+    if method == "while":
+        if remat_levels > 0:
+            raise ValueError(
+                "remat_levels only applies to method='scan' (reverse-mode "
+                "checkpointing of a fixed-length scan); the default "
+                "while-loop driver is not reverse-differentiable")
+        # one host sync per iteration: the loop's condition
+        while bool((state.status == RUNNING).any()):
+            state = body(state)
+    elif method == "scan":
+        if ctl.max_steps > SCAN_GUARD and remat_levels == 0:
+            raise ValueError(
+                f"method='scan' runs EXACTLY ctl.max_steps={ctl.max_steps} "
+                "iterations (every one pays a stepper evaluation). Set a "
+                "tight StepControl.max_steps (the default 1,000,000 is a "
+                "while-loop safety cap, not a scan length), or pass "
+                "remat_levels >= 1 for checkpointed O(T^(1/(k+1))) memory.")
+        state = _run_scan(body, state, scan_lengths(ctl.max_steps,
+                                                    remat_levels))
+    else:
+        raise ValueError(f"unknown integrate method: {method!r}")
 
     ys = state.ys
     if elide_ys:

@@ -252,6 +252,10 @@ class _ChainStepper:
 
         def step_fn(t, x, dt):
             xw = _widen(x, is_cplx)
+            single = xw.ndim == 1
+            if single:
+                # one trajectory on the scalar carry: a batch of one
+                xw, t, dt = xw[None], t.reshape(1), dt.reshape(1)
             mt, norms = self._operands(xw.device, xw.dtype)
             m, theta = _taylor_params(xw.dtype, self.m)
             samples = [coeff_fn(tn).to(xw.dtype).contiguous()
@@ -261,6 +265,8 @@ class _ChainStepper:
                 recipe=recipe, C=C, m=m, theta=theta,
                 max_squarings=self.max_squarings,
                 wnorm=self._wnorm_of(x) if has_err else None, table=table)
+            if single:
+                y, err = y[0], err[0]
             # no error estimate -> None makes the adaptive driver raise
             # instead of accepting on a zero estimate
             return _unwiden(y, is_cplx), (err if has_err else None)

@@ -9,7 +9,9 @@ name carries a hash of the source,
 the shared headers ``csrc/*.cuh`` and the flags, so an edited source or
 header is rebuilt and a built one is reused.
 Nothing here runs at import time: machines without ``nvcc`` import the
-package and run the plain torch versions on CPU tensors.
+package and run the plain torch versions on CPU tensors. The wrappers
+of K1, K2, K4 and K9 call :func:`refuse_grad` before a launch (K6-K8
+launch inside custom operators with their own backward).
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ import pathlib
 import shutil
 import subprocess
 import time
+
+import torch
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 # the step kernel K1, the loop kernel K2 (with the steps K3 and K5), the
@@ -36,6 +40,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict = {}
+
+
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise ``TypeError`` where autograd would record a launch of
+    ``kernel``: its outputs come back through raw pointers with no
+    ``grad_fn``, so an input that requires grad would get a zero gradient
+    and no error."""
+    if torch.is_grad_enabled() and any(
+            isinstance(a, torch.Tensor) and a.requires_grad for a in tensors):
+        raise TypeError(
+            f"{kernel}: an input requires grad, and this CUDA kernel has no "
+            "backward; for gradients run the stepper's torch version on CPU "
+            "tensors (method='scan' through the driver, diff.solve_for_grad) "
+            "or the reversible adjoint of diff.py")
 
 
 def nvcc() -> str:

@@ -404,6 +404,8 @@ def fused_dense_chain_apply(table: ChainTable, node_ops, dt, xw, *, m: int,
     if wn is not None and wn[0] is not None and wn[0].shape != (D,):
         raise ValueError(f"fused_dense_chain_apply: the norm's weight row "
                          f"must have {D} entries, got {tuple(wn[0].shape)}")
+    _build.refuse_grad("fused_dense_chain_apply", node_ops, dt, xw,
+                       None if wn is None else wn[0])
     lib = _kernel_lib()
     fn = (lib.vec_ode_dense_chains_f32 if xw.dtype == torch.float32
           else lib.vec_ode_dense_chains_f64)

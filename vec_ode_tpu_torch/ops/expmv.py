@@ -813,6 +813,7 @@ def fused_chain_apply(samples, dt, xw, mt, norms, *, recipe: str, C: int,
         if tuple(a.shape) != shape or not a.is_contiguous():
             raise ValueError(f"fused_chain_apply: {name} must be a "
                              f"contiguous {shape}, got {tuple(a.shape)}")
+    _build.refuse_grad("fused_chain_apply", g, dt, xw, mt)
     lib = _kernel_lib()
     fn = (lib.vec_ode_chain_expmv_f32 if xw.dtype == torch.float32
           else lib.vec_ode_chain_expmv_f64)

@@ -647,6 +647,8 @@ def fused_loop_chunk(t_grid, fs, ist, x, saves, step, *, ctl: StepControl,
                                 ev=ev, dense=dense)
     wn = wnorm_on(step.wnorm, x)
     w_row = None if wn is None else wn[0]
+    _build.refuse_grad("fused_loop_chunk", t_grid, fs, x, saves, *ops, w_row,
+                       getattr(step, "cheb", None))
     B, D = x.shape
     lib = _kernel_lib()
     f32 = x.dtype == torch.float32

@@ -303,6 +303,8 @@ def launch(t, dt, xw, mt, tab_c, *, w: float, tab, advance_lower: bool,
     (x_next (B, D), err_norm (B,))."""
     check_kernel_inputs("fused_rk_step", xw, mt,
                         None if wnorm is None else wnorm[0], t=t, dt=dt)
+    _build.refuse_grad("fused_rk_step", t, dt, xw, mt,
+                       None if wnorm is None else wnorm[0])
     B, D = xw.shape
     lib = _kernel_lib()
     fn = (lib.vec_ode_fused_rk_step_f32 if xw.dtype == torch.float32

@@ -8,14 +8,22 @@ ensemble_solve``):
 * the vmapped tier (the generic ``rk.RungeKutta``, ``stepper=None``, and
   exponential steppers with ``batched=False`` or over a split that cannot
   batch): one batched driver loop whose step is ``torch.func.vmap`` of
-  the per-trajectory step over (t, x, dt) (and ``params``); the driver's
-  lane masking gives each trajectory the branch sequence that the JAX
-  package's vmapped ``while_loop`` gives it.
+  the per-trajectory step over (t, x, dt) (and ``params`` and the
+  stepper's carry); the driver's lane masking gives each trajectory the
+  branch sequence that the JAX package's vmapped ``while_loop`` gives it.
+  ``dense=True`` there is one batched ``dense.integrate_interp`` over the
+  vmapped per-trajectory dense step.
+
+``method="scan"`` runs the host driver on every tier (exactly
+``ctl.max_steps`` iterations, no read of the device), so a natively
+batched stepper skips its whole-loop kernel and launches its step kernel
+once an iteration, as the JAX package skips ``fused_loop_solve``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import inspect
 from typing import Callable, Optional
 
@@ -72,6 +80,8 @@ def ensemble_solve(
     params=None,
     events=None,
     dense: bool = False,
+    remat_levels: int = 0,
+    grad_safe: bool = False,
 ) -> Solution:
     """Integrate a batch of independent trajectories (leading axis of every
     leaf of ``y0_batch``) on ``y0_batch``'s device.
@@ -108,22 +118,30 @@ def ensemble_solve(
     ``save_at`` times free-running interpolated saves on the batched
     steppers: the loop kernel records the crossing steps' endpoints, else
     the host driver's ``dense.integrate_interp`` runs; the path name gains
-    ``-dense``. ``dense=True`` with events needs the loop kernel.
+    ``-dense``. On the vmapped tier ``dense=True`` interpolates from the
+    RK stage slopes (``p_dense``) or cubic Hermite, as
+    ``dense.solve_ivp_dense`` / ``solve_linear_dense`` do per trajectory.
+    ``dense=True`` with events needs the loop kernel.
 
-    The signature is the JAX package's. ``time_dtype`` defaults to
-    float64 (the JAX package's default under x64); ``h0`` may be
-    per-trajectory (B,). What this port does not run yet raises
-    ``NotImplementedError`` naming its ROADMAP item: ``mesh=`` (27),
-    ``method="scan"`` (22), dense output on the vmapped tier (13), opaque
-    norms on natively batched steppers (26).
+    ``method="scan"`` runs exactly ``ctl.max_steps`` driver iterations
+    with no read of the device, on every tier (never the whole-loop
+    kernel); autograd differentiates it. ``remat_levels`` and
+    ``grad_safe`` are ``driver.integrate``'s, passed to every driver loop
+    but the dense one (the JAX package's ``ensemble_solve`` has neither:
+    its callers differentiate a jitted solve).
+
+    The signature is the JAX package's, with those two added.
+    ``time_dtype`` defaults to float64 (the JAX package's default under
+    x64); ``h0`` may be per-trajectory (B,). What this port does not run
+    yet raises ``NotImplementedError`` naming its ROADMAP item: ``mesh=``
+    (27), opaque norms on natively batched steppers (26).
     """
     if mesh is not None:
         raise NotImplementedError(
             "mesh=: sharded ensembles are ROADMAP slice 7, queue 1 item 27")
-    if method != "while":
-        raise NotImplementedError(
-            f"method={method!r}: the scan driver is ROADMAP slice 6, "
-            "queue 1 item 22")
+    if dense and (remat_levels or grad_safe):
+        raise ValueError("dense=True: the dense driver takes neither "
+                         "remat_levels nor grad_safe")
     if stepper is None:
         stepper = RungeKutta()
     event_cfg = as_event_config(events)
@@ -145,11 +163,13 @@ def ensemble_solve(
         time_dtype = torch.float64
     t_grid = make_grid(t0, tf, save_at, dtype=time_dtype, device=device)
     h0 = check_h0(h0, ctl, adaptive)
+    loop = dict(method=method, remat_levels=remat_levels,
+                grad_safe=grad_safe)
     if not use_batched:
         sol = _vmapped_solve(rhs_or_op, y0_batch, t_grid, h0,
                              stepper=stepper, adaptive=adaptive, ctl=ctl,
                              error_norm=error_norm, params=params,
-                             event_cfg=event_cfg, dense=dense)
+                             event_cfg=event_cfg, dense=dense, loop=loop)
         sol.ts = t_grid.expand(b, t_grid.shape[0])
         return sol
 
@@ -171,7 +191,7 @@ def ensemble_solve(
             "lc.WeightedNorm")
 
     fused = getattr(stepper, "fused_loop_solve", None)
-    if fused is not None:
+    if fused is not None and method == "while" and not grad_safe:
         kw = {}
         if event_cfg is not None:
             kw["events"] = event_cfg
@@ -191,6 +211,9 @@ def ensemble_solve(
         step_fn = stepper.make_step_fn(rhs_or_op)
     else:
         step_fn = stepper.make_step_fn(rhs_or_op, params=params)
+    # a batched stepper's carry seed is shape-polymorphic over the batch
+    init_cf = (stepper.make_init_carry(rhs_or_op)
+               if getattr(stepper, "has_carry", False) else None)
     if dense:
         if event_cfg is not None:
             raise ValueError(
@@ -199,11 +222,12 @@ def ensemble_solve(
                 "carries no event state; see fused_loop_solve eligibility)")
         sol = _batched_dense_fallback(
             stepper, step_fn, y0_batch, t_grid, h0, adaptive=adaptive,
-            ctl=ctl, batch_shape=(b,))
+            ctl=ctl, method=method, batch_shape=(b,), init_carry_fn=init_cf)
     else:
         sol = integrate(step_fn, y0_batch, t_grid, h0, adaptive=adaptive,
                         ctl=ctl, error_norm=stepper.error_norm,
-                        batch_shape=(b,), event_cfg=event_cfg)
+                        batch_shape=(b,), init_carry_fn=init_cf,
+                        event_cfg=event_cfg, **loop)
         sol.path = stepper.step_path(y0_batch)
     # the shared save grid, per trajectory (as the JAX package returns it)
     sol.ts = t_grid.expand(b, t_grid.shape[0])
@@ -237,56 +261,121 @@ def _batched_norm(error_norm: Callable) -> Callable:
 
 
 def _vmapped_solve(rhs_or_op, y0_batch, t_grid, h0, *, stepper, adaptive,
-                   ctl, error_norm, params, event_cfg, dense) -> Solution:
+                   ctl, error_norm, params, event_cfg, dense,
+                   loop) -> Solution:
     """The vmapped tier: one batched driver loop over ``torch.func.vmap``
-    of the per-trajectory step. A missing error estimate crosses the vmap
-    as an empty tuple."""
-    if dense:
-        raise NotImplementedError(
-            "dense=True on the vmapped tier (solve_ivp_dense / "
-            "solve_linear_dense and the RK stage interpolants) is ROADMAP "
-            "queue 1 item 13")
+    of the per-trajectory step, its carry seeded by the vmapped
+    ``make_init_carry`` (FSAL); with ``dense`` one batched
+    ``dense.integrate_interp`` over the vmapped per-trajectory dense step.
+    A missing error estimate crosses the vmap as an empty tuple."""
+    from ..dense import integrate_interp, linear_slope, rk_dense_step
+
     takes_state = bool(getattr(stepper, "takes_state", False))
-
-    def packed(step):
-        def run(t, x, dt):
-            x_next, err = step(t, x, dt)
-            return x_next, (() if err is None else err)
-
-        return run
-
-    if params is None:
-        mapped = torch.func.vmap(packed(stepper.make_step_fn(rhs_or_op)))
-        args = ()
-    else:
+    if params is not None:
         _check_arity(rhs_or_op, takes_state)
 
-        def single(t, x, dt, p):
-            fn = ((lambda tt, y: rhs_or_op(tt, y, p)) if takes_state
-                  else (lambda tt: rhs_or_op(tt, p)))
-            return packed(stepper.make_step_fn(fn))(t, x, dt)
+    def fn_of(p):
+        if p is None:
+            return rhs_or_op
+        return ((lambda tt, y: rhs_or_op(tt, y, p)) if takes_state
+                else (lambda tt: rhs_or_op(tt, p)))
 
+    interp = {}
+    if dense:
+        if event_cfg is not None:
+            raise ValueError(
+                "dense=True with events= needs the fused loop kernel "
+                "(batched modulated steppers); the vmapped dense driver "
+                "carries no event state")
+        if takes_state and not isinstance(stepper, RungeKutta):
+            raise ValueError("dense=True supports RungeKutta and exp "
+                             "steppers on the vmapped tier")
+        if getattr(stepper, "compensated", False):
+            raise ValueError(
+                "dense=True has no compensated variant (the dense driver "
+                "carries no lo word); use compensated=False")
+        if takes_state:
+            # the JAX package's solve_ivp_dense per trajectory
+            def make(p):
+                return rk_dense_step(fn_of(p), stepper.tableau,
+                                     stepper.advance_lower)[:2]
+
+            _, init, kind = rk_dense_step(rhs_or_op, stepper.tableau,
+                                          stepper.advance_lower)
+            has_init = init is not None
+            interp = dict(interp_kind=kind, tab=stepper.tableau)
+        else:
+            # solve_linear_dense per trajectory: Hermite over A(t) x
+            def make(p):
+                op_fn = fn_of(p)
+                slope = linear_slope(stepper, op_fn)
+                inner = stepper.make_step_fn(op_fn)
+
+                def step_dense(t, x, dt):
+                    x_next, err = inner(t, x, dt)
+                    return x_next, err, (slope(t, x), slope(t + dt, x_next))
+
+                return step_dense, None
+
+            has_init = False
+    else:
+        has_init = bool(getattr(stepper, "has_carry", False))
+
+        def make(p):
+            fn = fn_of(p)
+            return (stepper.make_step_fn(fn),
+                    stepper.make_init_carry(fn) if has_init else None)
+
+    def single(p, t, x, dt, *carry):
+        out = make(p)[0](t, x, dt, *carry)
+        return (out[0], () if out[1] is None else out[1]) + tuple(out[2:])
+
+    def single_init(p, t, x):
+        return make(p)[1](t, x)
+
+    if params is None:
+        mapped = torch.func.vmap(functools.partial(single, None))
+        mapped_init = torch.func.vmap(functools.partial(single_init, None))
+        args = ()
+    else:
         mapped = torch.func.vmap(single)
+        mapped_init = torch.func.vmap(single_init)
         args = (params,)
 
-    def step_fn(t, x, dt):
-        x_next, err = mapped(t, x, dt, *args)
-        return x_next, (err if pytree.tree_leaves(err) else None)
+    def step_fn(t, x, dt, *carry):
+        out = mapped(*args, t, x, dt, *carry)
+        err = out[1] if pytree.tree_leaves(out[1]) else None
+        return (out[0], err) + tuple(out[2:])
 
     b = pytree.tree_leaves(y0_batch)[0].shape[0]
-    sol = integrate(step_fn, y0_batch, t_grid, h0, adaptive=adaptive,
-                    ctl=ctl, error_norm=_batched_norm(error_norm),
-                    batch_shape=(b,), event_cfg=event_cfg)
+    init_carry_fn = None
+    if has_init:
+        def init_carry_fn(t0, x0):
+            return mapped_init(*args, t0.expand(b), x0)
+
+    enorm = _batched_norm(error_norm)
+    if dense:
+        sol = integrate_interp(step_fn, y0_batch, t_grid, h0,
+                               adaptive=adaptive, ctl=ctl, error_norm=enorm,
+                               method=loop["method"], batch_shape=(b,),
+                               init_carry_fn=init_carry_fn, **interp)
+    else:
+        sol = integrate(step_fn, y0_batch, t_grid, h0, adaptive=adaptive,
+                        ctl=ctl, error_norm=enorm, batch_shape=(b,),
+                        init_carry_fn=init_carry_fn, event_cfg=event_cfg,
+                        **loop)
     sol.path = "torch-driver"
     return sol
 
 
 def _batched_dense_fallback(stepper, fn, y0, t_grid, h0, *, adaptive, ctl,
-                            batch_shape) -> Solution:
+                            batch_shape, method="while",
+                            init_carry_fn=None) -> Solution:
     """The host driver's dense tier for a natively batched stepper:
     free-running ``dense.integrate_interp`` with cubic-Hermite saves whose
     endpoint slopes are the stepper's ``hermite_slope``, or the operator
-    action A(t) x of its ``ModulatedOperator``."""
+    action A(t) x of its ``ModulatedOperator``; a stepper with a carry
+    threads it (``init_carry_fn``)."""
     from ..dense import integrate_interp
 
     slope = getattr(stepper, "hermite_slope", None)
@@ -304,12 +393,18 @@ def _batched_dense_fallback(stepper, fn, y0, t_grid, h0, *, adaptive, ctl,
         def slope(t, x):
             return operator_slope(op, t, x)
 
-    def sfd(t, x, dt):
-        xn, err = fn(t, x, dt)
-        return xn, err, (slope(t, x), slope(t + dt, xn))
+    if init_carry_fn is not None:
+        def sfd(t, x, dt, carry):
+            xn, err, c2 = fn(t, x, dt, carry)
+            return xn, err, (slope(t, x), slope(t + dt, xn)), c2
+    else:
+        def sfd(t, x, dt):
+            xn, err = fn(t, x, dt)
+            return xn, err, (slope(t, x), slope(t + dt, xn))
 
     sol = integrate_interp(sfd, y0, t_grid, h0, adaptive=adaptive, ctl=ctl,
-                           error_norm=stepper.error_norm,
-                           batch_shape=batch_shape)
+                           error_norm=stepper.error_norm, method=method,
+                           batch_shape=batch_shape,
+                           init_carry_fn=init_carry_fn)
     sol.path = stepper.step_path(y0) + "-dense"
     return sol

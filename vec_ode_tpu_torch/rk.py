@@ -13,11 +13,12 @@ evaluations are matrix products. The same semantics as the JAX package:
 * zero tableau entries are skipped, as the JAX package skips them, so the
   stage sums round alike.
 
-The FSAL slope reuse and the compensated (double-word) state carry live
-in the driver's stepper carry, which is not ported (ROADMAP queue 1 item
-25): a ``RungeKutta`` that would use either raises ``NotImplementedError``
-rather than run without it (which would change ``n_rhs_evals`` and the
-bits).
+FSAL tableaus (DOPRI5, BOSH32) advancing the b solution reuse the last
+stage of an accepted step as the next step's first (:func:`rk_step_fsal`),
+through the driver's stepper carry: s - 1 RHS evaluations an attempt and
+one to seed the carry. The compensated (double-word) state carry is not
+ported (ROADMAP queue 1 item 25): ``compensated=True`` raises
+``NotImplementedError`` rather than run without it.
 """
 
 from __future__ import annotations
@@ -30,8 +31,8 @@ from .tableaus import RKF45, ButcherTableau
 
 Pytree = Any
 
-_CARRY = ("the driver's stepper carry (FSAL slope reuse, the compensated "
-          "state) is ROADMAP queue 1 item 25")
+_COMP = ("the compensated (double-word) state carry is ROADMAP queue 1 "
+         "item 25")
 
 
 def rk_step(f: Callable, t, x0: Pytree, dt, tab: ButcherTableau, *,
@@ -84,6 +85,19 @@ def rk_step_stages(f: Callable, t, x0: Pytree, dt, tab: ButcherTableau, *,
     return x_b, err, K, incr_b
 
 
+def rk_step_fsal(f: Callable, t, x0: Pytree, dt, tab: ButcherTableau,
+                 k0: Pytree, *, embedded: bool = True):
+    """FSAL variant of :func:`rk_step`: the first stage K[0] = f(t, x0)
+    comes from the carry (the last accepted step's last stage) and the
+    last stage K[s-1] = f(t + dt, x_b) is returned as the next carry, so
+    an attempt costs s - 1 RHS evaluations. Needs an FSAL tableau and
+    advances the b solution (the last stage sits at x_b). Returns
+    (x_b, err, K[s-1])."""
+    x_b, err, K, _ = rk_step_stages(f, t, x0, dt, tab, embedded=embedded,
+                                    advance_lower=False, k0=k0)
+    return x_b, err, K[-1]
+
+
 @dataclasses.dataclass(frozen=True)
 class RungeKutta:
     """Stepper factory for the driver over any :class:`ButcherTableau`
@@ -91,10 +105,11 @@ class RungeKutta:
     ``f(t, y)`` (``takes_state``), so ``ensemble_solve`` maps
     per-trajectory ``params`` as ``f(t, y, p)``.
 
-    ``fsal`` (None: on for an FSAL tableau advancing the b solution) and
-    ``compensated`` need the driver's stepper carry and raise
-    ``NotImplementedError`` (ROADMAP queue 1 item 25); ``fsal=False`` runs
-    an FSAL tableau with every stage evaluated."""
+    ``fsal`` (None: on for an FSAL tableau advancing the b solution)
+    threads the last stage through the driver's stepper carry
+    (``has_carry``, ``make_init_carry``); ``fsal=False`` runs an FSAL
+    tableau with every stage evaluated. ``compensated=True`` raises
+    ``NotImplementedError`` (ROADMAP queue 1 item 25)."""
 
     tableau: ButcherTableau = RKF45
     advance_lower: bool = True
@@ -107,12 +122,8 @@ class RungeKutta:
     def __post_init__(self):
         if self.compensated:
             raise NotImplementedError(f"RungeKutta(compensated=True): "
-                                      f"{_CARRY}")
-        if self.use_fsal:
-            raise NotImplementedError(
-                f"RungeKutta over the FSAL tableau {self.tableau.name!r} "
-                f"advancing the b solution reuses the last stage: "
-                f"{_CARRY}; pass fsal=False to evaluate every stage")
+                                      f"{_COMP}")
+        self.use_fsal  # raises on fsal=True where FSAL cannot apply
 
     @property
     def use_fsal(self) -> bool:
@@ -126,12 +137,29 @@ class RungeKutta:
         return self.fsal
 
     @property
-    def nfev_per_step(self) -> int:
-        return self.tableau.stages
+    def has_carry(self) -> bool:
+        return self.use_fsal
 
-    nfev_init = 0
+    @property
+    def nfev_per_step(self) -> int:
+        return self.tableau.stages - (1 if self.use_fsal else 0)
+
+    @property
+    def nfev_init(self) -> int:
+        return 1 if self.use_fsal else 0
+
+    def make_init_carry(self, f: Callable) -> Callable:
+        """The carry at (t0, x0): the first stage slope f(t0, x0)."""
+        return f
 
     def make_step_fn(self, f: Callable) -> Callable:
+        if self.use_fsal:
+            def step_fn_fsal(t, x, dt, k0):
+                return rk_step_fsal(f, t, x, dt, self.tableau, k0,
+                                    embedded=self.embedded)
+
+            return step_fn_fsal
+
         def step_fn(t, x, dt):
             return rk_step(f, t, x, dt, self.tableau, embedded=self.embedded,
                            advance_lower=self.advance_lower)
