@@ -104,7 +104,23 @@ drives the port's paths once at full width through
   vmapped tier (DOPRI5 with FSAL and its continuous extension) and the
   scalar tier (``solve_ivp_dense``, ``solve_linear_dense``)
   ([dense-tiers]); DOPRI5 with and without the FSAL carry ([fsal]).
-  No hand kernel runs on these gradient and dense paths.
+  No hand kernel runs on these gradient and dense paths;
+* the last single-device modules: K1 and K3 on declared drives (a
+  CoeffForm with every term nonzero and a 16-coefficient ChebForm of a
+  chirped drive) against their twins in f32 and f64, the main path at
+  16 384 on K1 with each drive (the cos form: its 33 iterations, bitwise
+  the ``w=`` shorthand), the 2048 loop path on K2 + K3 against K1 per
+  step, a callable drive on the twin step with no launch ([drive-form]);
+  the compensated tier, Magnus-4 over DrivenDense's black box at 4096
+  and RKF45 on the flagship's vmapped tier at 16 384, against plain f32
+  and an f64 solve, no kernel launched ([compensated]); hand-written l2
+  norms promoted to ``lc.TracedNorm`` on the RK and Magnus-4 natively
+  batched steppers, on the twin step with no launch ([traced-norm]);
+  ``ensemble_solve_compact`` of the main path (one K1 launch an
+  iteration, bitwise ``ensemble_solve``) and of 4096 Van der Pol
+  trajectories, its efficiency against ``step_efficiency`` ([compact]);
+  the main path's carry saved after 10 iterations, loaded and resumed,
+  bitwise the uninterrupted solve ([checkpoint]).
 
 Then it times the paths and each kernel against its plain version, its
 bound and, for K4 (at 256 on its cluster route and 16 384 on its tiled
@@ -116,7 +132,8 @@ shares of it; the basis-grad and dense-adjoint walls) and K9 (at
 4096 and 256, with its launch plan and its bound by the least work,
 k9_flop_bytes), a library yardstick; K1 and K2's RK step with their
 launch plans and ptxas lines, K1 beside its six stage products alone
-(``torch.matmul``, TF32 off, timed in turns). Every
+(``torch.matmul``, TF32 off, timed in turns), K1 on each declared drive
+against the cos drive in turns and K2 + K3 on the ChebForm. Every
 phase raises on failure, so
 any failure exits non-zero; without a CUDA card it exits non-zero before
 any result.
@@ -179,8 +196,12 @@ from vec_ode_tpu_torch.ops.fused_loop import (ChainStep, RKStep,
                                               torch_fused_loop)
 from vec_ode_tpu_torch.ops.fused_rk import (FusedModulatedLinearRK,
                                             fused_rk_step, torch_rk_step)
-from vec_ode_tpu_torch.parallel import ensemble_solve
+from vec_ode_tpu_torch.ops.forms import ChebForm, CoeffForm
+from vec_ode_tpu_torch.parallel import (ensemble_solve,
+                                        ensemble_solve_compact,
+                                        step_efficiency)
 from vec_ode_tpu_torch.parallel.ensemble import _batched_dense_fallback
+from vec_ode_tpu_torch.utils import load_state, save_state
 
 N_TRAJ, DIM = 16384, 64
 LOOP_TRAJ = 2048             # fused_loop.LOOP_MAX_BATCH
@@ -330,7 +351,7 @@ def step_inputs(B, d, dtype, seed=7, dt_range=(1e-3, 5e-2)):
 
 def plain_step(st, t, dt, xw, tab=RKF45, advance_lower=True, wnorm=None):
     return torch_rk_step(t, dt, xw, st.M0, st.M1,
-                         u_fn=lambda ti: torch.cos(st.w * ti), tab=tab,
+                         u_fn=fused_rk.drive_fn(st.u_fn), tab=tab,
                          advance_lower=advance_lower, wnorm=wnorm)
 
 
@@ -350,7 +371,7 @@ def err_norm_limit(st, t, dt, xw, ep, tab=RKF45, advance_lower=True,
     if ep.dtype == torch.float64:
         return 1e-9 * ep.abs() + 1e-18, 1e-18
     _, e64 = torch_rk_step(*(a.double() for a in (t, dt, xw, st.M0, st.M1)),
-                           u_fn=lambda ti: torch.cos(st.w * ti), tab=tab,
+                           u_fn=fused_rk.drive_fn(st.u_fn), tab=tab,
                            advance_lower=advance_lower, wnorm=wnorm)
     floor = 4 * float((ep.double() - e64).abs().max())
     return (1e-4 * ep.abs() + floor).to(ep.dtype), floor
@@ -364,12 +385,15 @@ def weighted(kind: str, d: int, weights: bool = True):
 
 
 def compare_step(B, d, dtype, tab=RKF45, advance_lower=True,
-                 dt_range=(1e-3, 5e-2), wnorm=None, label=""):
+                 dt_range=(1e-3, 5e-2), wnorm=None, label="", u_fn=None):
     """Kernel vs plain step on the card; returns (max |dx|, rows on which
     the error-norm check would catch a norm 10% off). The f32 state limit
-    is bench.py's on-device limit; f64 differs only by summation order."""
+    is bench.py's on-device limit; f64 differs only by summation order.
+    ``u_fn``: a declared drive in place of the model's cos(w t)."""
     st, t, dt, xw = step_inputs(B, d, dtype, dt_range=dt_range)
-    xk, ek = fused_rk_step(t, dt, xw, st.M0, st.M1, w=st.w, tab=tab,
+    if u_fn is not None:
+        st = dataclasses.replace(st, u_fn=u_fn)
+    xk, ek = fused_rk_step(t, dt, xw, st.M0, st.M1, u_fn=st.u_fn, tab=tab,
                            advance_lower=advance_lower, wnorm=wnorm)
     xp, ep = plain_step(st, t, dt, xw, tab, advance_lower, wnorm)
     e_lim, floor = err_norm_limit(st, t, dt, xw, ep, tab, advance_lower,
@@ -565,7 +589,7 @@ def one_loop_step(st, t, dt, xw, tab=RKF45):
     ist = torch.zeros(B, 8, dtype=torch.int32, device=xw.device)
     ist[:, 0] = 1
     saves = torch.zeros(0, B, xw.shape[1], dtype=xw.dtype, device=xw.device)
-    step = RKStep(M0=st.M0, M1=st.M1, w=st.w, tableau=tab)
+    step = RKStep(M0=st.M0, M1=st.M1, u_fn=st.u_fn, tableau=tab)
     fs, ist, x, _ = fused_loop_chunk(grid, fs, ist, xw, saves, step,
                                      ctl=StepControl(rtol=1.0), chunk=1)
     assert bool((ist[:, 3] == 1).all()), "a row did not accept its step"
@@ -5166,6 +5190,540 @@ def fsal_phase(card: str) -> None:
           f" {attempts} = {7 * attempts} ({card})", flush=True)
 
 
+# -- the last single-device modules: the declared drive on K1 and K3, the
+# compensated tier, traced norms, compact ensembles, checkpoints ------------
+
+MAIN_ITERS = 33       # the RK main path's iterations with the cos(w t) drive
+COMP_STEPS = 100      # fixed Magnus-4 steps of [compensated]
+COMP_RK_STEPS = 500   # fixed RKF45 steps of [compensated]
+COMP_B, COMP_REF = 4096, 256
+VDP_B = 4096
+
+
+def drive_forms() -> dict:
+    """The declared drives of [drive-form] beside the model's cos(w t): a
+    CoeffForm with every term nonzero, and a 16-coefficient ChebForm of
+    the chirped drive cos(w t + 3 t^2) on [0, TF], fitted at 64
+    Chebyshev nodes."""
+    w = DrivenDense.make(d=DIM, seed=0).w
+    u = np.cos(np.pi * (np.arange(64) + 0.5) / 64)
+    tt = 0.5 * TF * (u + 1.0)
+    series = np.polynomial.chebyshev.chebfit(u, np.cos(w * tt + 3 * tt ** 2),
+                                             15)
+    return {"coeff": CoeffForm(a=(0.3,), b=(0.1,), c=(0.8,), w=(w,)),
+            "cheb": ChebForm(series[:, None], 0.0, TF)}
+
+
+def check_drive_loop(form, B, dtype) -> tuple:
+    """K2 with K3 on the declared drive against torch_fused_loop on the
+    RK loop path's model, states and nine saves: f64 counters equal and
+    states within 1e-10; f32 counters within 2 and states within 1e-4 (as
+    [loop]). Returns (max |dx|, K2 launches)."""
+    st, y0 = main_inputs(B)
+    if dtype == torch.float64:
+        y0 = Cplx(y0.re.double(), y0.im.double())
+    step = RKStep(M0=st.M0.to(dtype), M1=st.M1.to(dtype), u_fn=form)
+    grid = driver.make_grid(0.0, TF, SAVE_AT, dtype=dtype, device="cuda")
+    carries = init_carries(grid, torch.cat([y0.re, y0.im], 1), H0)
+    before = fused_loop_chunk.launches
+    got = fused_loop_chunk(*carries[:4], carries[4].clone(), step, ctl=CTL)
+    launches = fused_loop_chunk.launches - before
+    want = torch_fused_loop(*carries, step, ctl=CTL)
+    torch.cuda.synchronize()
+    dcount = int((got[1][:, INT_COLS] - want[1][:, INT_COLS]).abs().max())
+    dx = float((got[2] - want[2]).abs().max())
+    ds = float((got[3] - want[3]).abs().max())
+    f64 = dtype == torch.float64
+    lim_c, lim_x = (0, 1e-10) if f64 else (2, 1e-4)
+    n_done = int((got[1][:, 1] == DONE).sum())
+    ok = dcount <= lim_c and max(dx, ds) <= lim_x and n_done == B
+    print(f"[drive-form] K2 + K3 vs twin, {type(form).__name__} "
+          f"{str(dtype)[6:]} B={B}, {len(SAVE_AT)} saves: DONE {n_done}/{B}, "
+          f"max|dcount|={dcount} (<= {lim_c}), max|dx|={dx:.3e}, "
+          f"max|dsaves|={ds:.3e} (<= {lim_x:.0e}), iterations up to "
+          f"{int(got[1][:, 5].max())}; {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"K2 + K3 disagree with the twin on "
+                             f"{type(form).__name__} {dtype}")
+    return dx, launches
+
+
+def counter_rows(a, b) -> int:
+    """Rows whose n_accept, n_reject, n_iters or status differ."""
+    return int(((a.n_accept != b.n_accept) | (a.n_reject != b.n_reject)
+                | (a.n_iters != b.n_iters) | (a.status != b.status)).sum())
+
+
+def drive_form_phase() -> dict:
+    """[drive-form]: K1 and K3 on each declared drive against their twins
+    (f32 at the main path's shape, f64 at 256), the main path at 16 384
+    on K1 with each drive, the 2048 loop path on K2 + K3 against K1 per
+    step, and a callable drive on the twin step (no kernel)."""
+    forms = drive_forms()
+    out = {"err": {}, "k1": {}, "loop_err": {}, "k2": {}}
+    for name, form in forms.items():
+        out["err"][name] = compare_step(N_TRAJ, DIM, torch.float32,
+                                        u_fn=form, label=f" drive {name}")[0]
+        compare_step(256, DIM, torch.float64, u_fn=form,
+                     label=f" drive {name}")
+        out["loop_err"][name], _ = check_drive_loop(form, LOOP_TRAJ,
+                                                    torch.float32)
+        check_drive_loop(form, 256, torch.float64)
+
+    st, y0 = main_inputs()
+    w = st.w
+    base = solve(st, y0)
+    for name, form in (("cos", fused_rk.cos_drive(w)), *forms.items()):
+        stf = dataclasses.replace(st, u_fn=form)
+        reset_counts()
+        sol = solve(stf, y0)
+        torch.cuda.synchronize()
+        k1, k2, k4 = counts()
+        n_it = int(sol.n_iters.max())
+        assert sol.path == "torch-driver+cuda-step", sol.path
+        assert int((sol.status == DONE).sum()) == N_TRAJ, name
+        assert (k1, k2, k4) == (n_it, 0, 0), (name, k1, k2, k4, n_it)
+        assert bool(torch.isfinite(sol.y_final.re).all()), name
+        out["k1"][name] = k1
+        extra = ""
+        if name == "cos":
+            same = (counter_rows(sol, base) == 0
+                    and torch.equal(sol.y_final.re, base.y_final.re)
+                    and torch.equal(sol.y_final.im, base.y_final.im))
+            assert n_it == MAIN_ITERS and same, (n_it, same)
+            extra = (f", bitwise the w= shorthand's solve, the main "
+                     f"path's {MAIN_ITERS} iterations")
+        print(f"[drive-form] main path {N_TRAJ}x{DIM}c RKF45 drive {name}: "
+              f"all DONE, {k1} K1 launches == {n_it} iterations, n_accept "
+              f"{int(sol.n_accept.min())}..{int(sol.n_accept.max())}{extra}",
+              flush=True)
+        # 2048 with nine saves: K1 per step against K2 + K3
+        if name == "cos":
+            continue
+        sub = Cplx(y0.re[:LOOP_TRAJ].contiguous(),
+                   y0.im[:LOOP_TRAJ].contiguous())
+        reset_counts()
+        loop = solve(stf, sub, SAVE_AT)
+        k1l, k2l, _ = counts()
+        step = per_step_solve(stf, sub)
+        torch.cuda.synchronize()
+        assert loop.path == "cuda-loop-persistent", loop.path
+        assert (k1l, k2l) == (0, 1), (k1l, k2l)
+        out["k2"][name] = k2l
+        rows = counter_rows(loop, step)
+        dy = float(torch.maximum((loop.ys.re - step.ys.re).abs(),
+                                 (loop.ys.im - step.ys.im).abs()).max())
+        assert rows == 0 and dy <= 1e-4, (name, rows, dy)
+        print(f"[drive-form] {LOOP_TRAJ}x{DIM}c, {len(SAVE_AT)} saves, drive "
+              f"{name}: K2 + K3 ({k2l} launch) vs K1 per step: counters "
+              f"equal on every row ({rows} differ), max|dy| over saves "
+              f"{dy:.3e} (<= 1e-4)", flush=True)
+
+    # a callable drive: no kernel runs it, the twin step does, on the card
+    stc = dataclasses.replace(st, u_fn=lambda t: torch.cos(w * t))
+    reset_counts()
+    sol = solve(stc, y0)
+    torch.cuda.synchronize()
+    assert all_launches() == (0,) * len(WRAPPERS), all_launches()
+    assert sol.path == "torch-driver+twin-step", sol.path
+    assert int((sol.status == DONE).sum()) == N_TRAJ
+    dy = float(torch.maximum((sol.y_final.re - base.y_final.re).abs(),
+                             (sol.y_final.im - base.y_final.im).abs()).max())
+    dcount = int((sol.n_iters - base.n_iters).abs().max())
+    assert dy <= 1e-4 and dcount <= 2, (dy, dcount)
+    print(f"[drive-form] callable drive at {N_TRAJ}: path {sol.path}, every "
+          f"kernel launch count 0, all DONE; vs the K1 main path max|dy|="
+          f"{dy:.3e} (<= 1e-4), max|dn_iters|={dcount} (<= 2)", flush=True)
+    return out
+
+
+def drive_timing_phase(card: str) -> dict:
+    """K1 with each declared drive against the cos drive, in turns (3
+    rounds of 20 launches, CUDA-event medians), each beside its plain
+    twin; K2 + K3 on the ChebForm at the 2048 loop path against its
+    twin."""
+    forms = {"cos": None, **drive_forms()}
+    sk, t, dt, xw = step_inputs(N_TRAJ, DIM, torch.float32)
+    mt, tab_c = fused_rk.kernel_operands(sk.M0, sk.M1, RKF45)
+    drives = {n: fused_rk.kernel_drive(f or sk.u_fn, xw)
+              for n, f in forms.items()}
+    steppers = {n: dataclasses.replace(sk, u_fn=f or sk.u_fn)
+                for n, f in forms.items()}
+
+    def k1(n):
+        return fused_rk.launch(t, dt, xw, mt, tab_c, drive=drives[n],
+                               tab=RKF45, advance_lower=True)
+
+    for n in forms:
+        k1(n)
+        plain_step(steppers[n], t, dt, xw)
+    runs = {n: [] for n in forms}
+    for _ in range(3):   # in turns
+        for n in forms:
+            runs[n].append(timed_ms(lambda: k1(n), reps=1, inner=20))
+    flop, nbytes = k1_flop_bytes(N_TRAJ, 2 * DIM, RKF45.stages, 4)
+    b_ms, b_by = bound(flop, nbytes)
+    out = {}
+    for n in forms:
+        ms = statistics.median(runs[n])
+        p_ms = timed_ms(lambda: plain_step(steppers[n], t, dt, xw), reps=3,
+                        inner=5)
+        out[n] = (ms, p_ms, b_ms, b_by)
+        print(f"[time] K1 drive {n} at B={N_TRAJ}, d={DIM}, f32: "
+              f"{ms:.4f} ms (runs {[round(v, 4) for v in runs[n]]}; "
+              f"{ms / statistics.median(runs['cos']):.4f}x the cos drive's), "
+              f"plain twin {p_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
+              f"({b_ms / ms:.1%}) ({card})", flush=True)
+
+    st, y0 = main_inputs(LOOP_TRAJ)
+    grid = driver.make_grid(0.0, TF, SAVE_AT, dtype=torch.float32,
+                            device="cuda")
+    carries = init_carries(grid, torch.cat([y0.re, y0.im], 1), H0)
+    k2_runs = {}
+    outs = {}
+    for n in ("cos", "cheb"):
+        step = RKStep(M0=st.M0, M1=st.M1, u_fn=forms[n] or st.u_fn)
+        outs[n] = (step, fused_loop_chunk(*carries, step, ctl=CTL))
+        k2_runs[n] = []
+    for _ in range(3):
+        for n, (step, _) in outs.items():
+            k2_runs[n].append(timed_ms(
+                lambda: fused_loop_chunk(*carries, step, ctl=CTL), reps=1))
+    step, got = outs["cheb"]
+    p_ms = timed_ms(lambda: torch_fused_loop(*carries[:4], carries[4].clone(),
+                                             step, ctl=CTL), reps=1)
+    (kb_ms, kb_by), steps = k2_bound(got[1], LOOP_TRAJ, 2 * DIM,
+                                     RKF45.stages, grid.shape[0], 4)
+    k_ms = statistics.median(k2_runs["cheb"])
+    print(f"[time] K2 + K3 drive cheb at the loop path ({LOOP_TRAJ}x{DIM}c, "
+          f"{len(SAVE_AT)} saves, f32): {k_ms:.4f} ms (runs "
+          f"{[round(v, 4) for v in k2_runs['cheb']]}), cos drive "
+          f"{statistics.median(k2_runs['cos']):.4f} ms (runs "
+          f"{[round(v, 4) for v in k2_runs['cos']]}), plain twin "
+          f"{p_ms:.4f} ms; bound {kb_ms:.4f} ms by {kb_by} ({steps} steps, "
+          f"{kb_ms / k_ms:.1%}); "
+          f"{k2_plan_text(LOOP_TRAJ, 2 * DIM, RKF45.stages)} ({card})",
+          flush=True)
+    out["k2_cheb"] = (k_ms, p_ms, kb_ms, kb_by)
+    return out
+
+
+def count_syncs(fn):
+    """(fn's result, host syncs it made): torch's sync debug mode warns at
+    each synchronizing call."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            res = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return res, sum("synchroniz" in str(r.message) for r in rec)
+
+
+def quantized_op_fn(dtype):
+    """DrivenDense's black box sampled in float32 at float32 times and
+    cast to ``dtype``: the f64 reference solves the f32 solves' operator,
+    so the comparison isolates the state's arithmetic."""
+    model = DrivenDense.make(d=DIM, seed=0)
+
+    def op_fn(t):
+        a = model.op_pair(t.to(torch.float32), torch.float32)
+        return type(a)(*(x.to(dtype) for x in a))
+
+    return op_fn
+
+
+def quantized_rhs(dtype):
+    """The flagship's RHS (DrivenDense.rhs_pair) over float32 operators
+    and a float32 cosine, cast to ``dtype`` (see quantized_op_fn)."""
+    model = DrivenDense.make(d=DIM, seed=0)
+    H0m, V = (from_complex(m, torch.float32, device="cuda")
+              for m in (model.H0, model.V))
+    W = torch.cat([embed(Cplx(H.im, -H.re)).T for H in (H0m, V)],
+                  dim=-1).contiguous().to(dtype)
+
+    def f(t, psi):
+        c = torch.cos(model.w * t.to(torch.float32)).to(dtype)
+        y = torch.cat([psi.re, psi.im], dim=-1) @ W
+        cv = c * y[..., 2 * DIM:]
+        return Cplx(y[..., :DIM] + cv[..., :DIM],
+                    y[..., DIM:2 * DIM] + cv[..., DIM:])
+
+    return f
+
+
+def max_row_err(sol, ref, n: int) -> float:
+    """The largest l2 distance of the first n rows' final states from the
+    f64 reference's."""
+    d2 = ((sol.y_final.re[:n].double() - ref.y_final.re) ** 2
+          + (sol.y_final.im[:n].double() - ref.y_final.im) ** 2)
+    return float(d2.sum(-1).sqrt().max())
+
+
+def compensated_phase(card: str) -> dict:
+    """[compensated]: Magnus-4 over DrivenDense's black box at 4096 x 64c
+    (COMP_STEPS fixed steps, the generic steppers' batched tier: torch
+    on the card, K9 not launched) and RKF45 on the flagship's vmapped
+    tier at 16 384 x 64c (rtol 1e-8, and COMP_RK_STEPS fixed steps), each
+    compensated against plain f32, both against an f64 solve of the first
+    COMP_REF rows on the same f32-quantized operator. The fixed-step
+    errors must fall by the factor tests/test_compensated.py asserts for
+    the tier: 5."""
+    y0 = unit_states(COMP_B, DIM, torch.float32, 42)
+    ref0 = Cplx(y0.re[:COMP_REF].double(), y0.im[:COMP_REF].double())
+    kw = dict(adaptive=False, h0=TF / COMP_STEPS, time_dtype=torch.float64,
+              ctl=StepControl(max_steps=COMP_STEPS + 10, min_dt=1e-9))
+
+    def magnus(y, dtype, comp):
+        return ensemble_solve(quantized_op_fn(dtype), y, 0.0, TF,
+                              stepper=texp.Magnus4(texp.DenseCplxSplit(),
+                                                   compensated=comp), **kw)
+
+    ref = magnus(ref0, torch.float64, False)
+    reset_counts()
+    plain = magnus(y0, torch.float32, False)
+    k9_plain = fused_dense_chain_apply.launches
+    reset_counts()
+    comp, syncs = count_syncs(lambda: magnus(y0, torch.float32, True))
+    torch.cuda.synchronize()
+    assert all_launches() == (0,) * len(WRAPPERS), all_launches()
+    assert comp.path == "torch-driver+comp-step", comp.path
+    assert int((comp.status == DONE).sum()) == COMP_B
+    e_p, e_c = (max_row_err(s, ref, COMP_REF) for s in (plain, comp))
+    assert e_c < e_p / 5.0, (e_c, e_p)
+    # one timed run each (the checks above warmed both)
+    torch.cuda.reset_peak_memory_stats()
+    _, m_ms = timed_call(lambda: magnus(y0, torch.float32, True))
+    m_peak = torch.cuda.max_memory_allocated() / 2**20
+    _, mp_ms = timed_call(lambda: magnus(y0, torch.float32, False))
+    print(f"[compensated] Magnus-4 over DrivenDense's black box, {COMP_B}x"
+          f"{DIM}c f32, {COMP_STEPS} fixed steps: plain (K9, {k9_plain} "
+          f"launches) max error {e_p:.3e}, compensated (torch, every kernel "
+          f"launch count 0, path {comp.path}) {e_c:.3e} (< plain / 5; "
+          f"{e_p / e_c:.1f}x), against f64 on {COMP_REF} rows; walls "
+          f"compensated {m_ms:.3f} ms (peak {m_peak:.1f} MiB), plain "
+          f"{mp_ms:.3f} ms; {syncs / COMP_STEPS:.2f} host syncs an "
+          f"iteration ({card})", flush=True)
+
+    y0 = unit_states(N_TRAJ, DIM, torch.float32, 42)
+    ref0 = Cplx(y0.re[:COMP_REF].double(), y0.im[:COMP_REF].double())
+    out = {"magnus4": (m_ms, e_p, e_c)}
+    for label, rkw in (
+            ("rtol 1e-8", dict(adaptive=True, h0=H0, ctl=CTL)),
+            (f"{COMP_RK_STEPS} fixed steps",
+             dict(adaptive=False, h0=TF / COMP_RK_STEPS,
+                  ctl=StepControl(max_steps=COMP_RK_STEPS + 10,
+                                  min_dt=1e-9)))):
+        def rk(y, dtype, comp):
+            return ensemble_solve(quantized_rhs(dtype), y, 0.0, TF,
+                                  stepper=RungeKutta(compensated=comp),
+                                  time_dtype=torch.float64, **rkw)
+
+        ref = rk(ref0, torch.float64, False)
+        plain = rk(y0, torch.float32, False)
+        reset_counts()
+        comp, syncs = count_syncs(lambda: rk(y0, torch.float32, True))
+        torch.cuda.synchronize()
+        assert all_launches() == (0,) * len(WRAPPERS), all_launches()
+        assert int((comp.status == DONE).sum()) == N_TRAJ
+        e_p, e_c = (max_row_err(s, ref, COMP_REF) for s in (plain, comp))
+        fixed = not rkw["adaptive"]
+        assert e_c < (e_p / 5.0 if fixed else e_p), (label, e_c, e_p)
+        n_it = int(comp.n_iters.max())
+        walls = ""
+        if not fixed:   # the fixed run's walls are its iterations' (~9 ms)
+            r_ms, r_walls, _, r_peak = walls_of(lambda: rk(y0, torch.float32,
+                                                           True))
+            p_ms = walls_of(lambda: rk(y0, torch.float32, False))[0]
+            walls = (f"; walls compensated {r_ms:.3f} ms of "
+                     f"{[round(v, 3) for v in r_walls]} (peak {r_peak:.1f} "
+                     f"MiB), plain {p_ms:.3f} ms")
+            out[label] = (r_ms, e_p, e_c)
+        print(f"[compensated] RKF45 on the flagship's vmapped tier, {N_TRAJ}"
+              f"x{DIM}c f32, {label}: plain max error {e_p:.3e} ("
+              f"{int(plain.n_iters.max())} iterations), compensated "
+              f"{e_c:.3e} ({n_it} iterations; {e_p / e_c:.1f}x, < plain"
+              f"{' / 5' if fixed else ''}), against f64 on {COMP_REF} rows; "
+              f"every kernel launch count 0{walls}; "
+              f"{syncs / max(n_it, 1):.2f} host syncs an iteration "
+              f"({card})", flush=True)
+    return out
+
+
+def hand_l2(err):
+    """A hand-written l2 over the Cplx pair: what WeightedNorm("l2")
+    declares, written as plain torch."""
+    return torch.sqrt(torch.sum(err.re ** 2) + torch.sum(err.im ** 2))
+
+
+def traced_norm_phase(card: str) -> None:
+    """[traced-norm]: an opaque error_norm= on the natively batched
+    FusedModulatedLinearRK (main path) and MagnusModulated4 (16 384):
+    promoted to lc.TracedNorm, run on the twin step on the card (no K1,
+    K2 or K4 launch), against the same solve with the declared l2."""
+    st, y0 = main_inputs()
+    model = DrivenDense.make(d=DIM, seed=0)
+    mod = model.modulated(torch.float32)
+    for label, stepper, ctl, h0 in (
+            ("RKF45", st, CTL, H0),
+            ("Magnus-4", MagnusModulated4(mod), MAG_CTL, H0)):
+        def run(norm):
+            return ensemble_solve(None, y0, 0.0, TF, stepper=stepper,
+                                  ctl=ctl, h0=h0, error_norm=norm,
+                                  time_dtype=torch.float32)
+
+        reset_counts()
+        sol, wall = timed_call(lambda: run(hand_l2))
+        torch.cuda.synchronize()
+        assert all_launches() == (0,) * len(WRAPPERS), all_launches()
+        assert sol.path == "torch-driver+twin-step", sol.path
+        assert int((sol.status == DONE).sum()) == N_TRAJ
+        # the declared l2 on the same twin step (a TracedNorm of the
+        # declaration, whose per-trajectory sum is the hand-written one's)
+        twin = ensemble_solve(None, y0, 0.0, TF, stepper=dataclasses.replace(
+            stepper, norm=lc.TracedNorm(lc.WeightedNorm("l2"))), ctl=ctl,
+            h0=h0, time_dtype=torch.float32)
+        rows_twin = counter_rows(sol, twin)
+        same = (rows_twin == 0 and torch.equal(sol.y_final.re,
+                                               twin.y_final.re))
+        assert same, (label, rows_twin)
+        ref = run(lc.WeightedNorm("l2"))
+        rows = counter_rows(sol, ref)
+        dy = float(torch.maximum((sol.y_final.re - ref.y_final.re).abs(),
+                                 (sol.y_final.im - ref.y_final.im).abs())
+                   .max())
+        dcount = int((sol.n_iters - ref.n_iters).abs().max())
+        assert dcount <= 2 and dy <= 1e-4, (label, dcount, dy)
+        print(f"[traced-norm] {label} {N_TRAJ}x{DIM}c f32 with a hand-written"
+              f" l2: path {sol.path}, every kernel launch count 0, all DONE,"
+              f" {int(sol.n_iters.max())} iterations, wall {wall:.1f} ms; "
+              f"per-trajectory counters and y_final bitwise the declared l2 "
+              f"on the same twin step; vs the declared l2 on the kernel path "
+              f"({ref.path}): counters differ on {rows}/{N_TRAJ} rows "
+              f"(kernel against twin rounding), max|dn_iters|={dcount} "
+              f"(<= 2), max|dy|={dy:.3e} (<= 1e-4) ({card})", flush=True)
+
+
+def timed_call(fn):
+    """(fn's result, its CUDA-event wall in ms)."""
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    res = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return res, a.elapsed_time(b)
+
+
+def compact_phase(card: str) -> dict:
+    """[compact]: ensemble_solve_compact of the main path at 16 384
+    (chunks of 8, K1 once an iteration on the compacted batch) against
+    ensemble_solve; 4096 Van der Pol with amplitudes over 0.1-4 on the
+    vmapped tier, compact's efficiency against step_efficiency of the
+    plain solve."""
+    st, y0 = main_inputs()
+    base = solve(st, y0)
+    calls = [0]
+    orig = driver.step_once
+
+    def counting(*a, **k):
+        calls[0] += 1
+        return orig(*a, **k)
+
+    def compact():
+        return ensemble_solve_compact(None, y0, 0.0, TF, stepper=st, ctl=CTL,
+                                      h0=H0, time_dtype=torch.float32,
+                                      chunk_iters=8)
+
+    reset_counts()
+    driver.step_once = counting
+    try:
+        sol, stats = compact()
+    finally:
+        driver.step_once = orig
+    torch.cuda.synchronize()
+    k1, k2, k4 = counts()
+    assert (k1, k2, k4) == (calls[0], 0, 0), (k1, k2, k4, calls[0])
+    rows = counter_rows(sol, base)
+    same = (torch.equal(sol.y_final.re, base.y_final.re)
+            and torch.equal(sol.y_final.im, base.y_final.im)
+            and torch.equal(sol.t_final, base.t_final)
+            and torch.equal(sol.h_final, base.h_final))
+    assert rows == 0 and same, (rows, same)
+    eff_plain = float(step_efficiency(base))
+    c_ms, c_walls, _, _ = walls_of(lambda: compact()[0])
+    p_ms = walls_of(lambda: solve(st, y0))[0]
+    print(f"[compact] main path {N_TRAJ}x{DIM}c, chunks of 8: {k1} K1 "
+          f"launches == {calls[0]} chunk iterations (loop kernel {k2}), "
+          f"counters equal on every row and y_final, t_final, h_final "
+          f"bitwise ensemble_solve's; efficiency {stats['efficiency']:.4f} "
+          f"(executed {stats['executed_lane_iters']}, useful "
+          f"{stats['useful_lane_iters']}) against step_efficiency "
+          f"{eff_plain:.4f}; wall median {c_ms:.3f} ms of "
+          f"{[round(v, 3) for v in c_walls]} against ensemble_solve's "
+          f"{p_ms:.3f} ({card})", flush=True)
+
+    rng = np.random.default_rng(0)
+    amp = np.linspace(0.1, 4.0, VDP_B)
+    ang = rng.uniform(0, 2 * np.pi, VDP_B)
+    v0 = torch.as_tensor(np.stack([amp * np.cos(ang), amp * np.sin(ang)], 1),
+                         dtype=torch.float32, device="cuda")
+    vkw = dict(h0=1e-2, ctl=StepControl(rtol=1e-6, atol=1e-8, max_dt=0.5),
+               time_dtype=torch.float32)
+    rhs = VanDerPol(mu=1.5).rhs
+    plain = ensemble_solve(rhs, v0, 0.0, 10.0, **vkw)
+    vsol, vstats = ensemble_solve_compact(rhs, v0, 0.0, 10.0, chunk_iters=8,
+                                          **vkw)
+    torch.cuda.synchronize()
+    eff_p = float(step_efficiency(plain))
+    assert int((vsol.status == DONE).sum()) == VDP_B
+    assert vstats["efficiency"] > eff_p, (vstats["efficiency"], eff_p)
+    rows = counter_rows(vsol, plain)
+    print(f"[compact] Van der Pol {VDP_B} x 2 (mu = 1.5, amplitudes 0.1-4), "
+          f"vmapped RKF45: compact efficiency {vstats['efficiency']:.4f} > "
+          f"step_efficiency of ensemble_solve {eff_p:.4f}; iterations "
+          f"{int(plain.n_iters.min())}..{int(plain.n_iters.max())}; counters"
+          f" differ from ensemble_solve's on {rows}/{VDP_B} rows ({card})",
+          flush=True)
+    return {"k1": k1, "wall": c_ms}
+
+
+def checkpoint_phase() -> None:
+    """[checkpoint]: the main path at 16 384, its carry saved after 10
+    iterations (utils.save_state), loaded (load_state) and resumed
+    (driver.resume): bitwise the uninterrupted solve."""
+    import tempfile
+
+    st, y0 = main_inputs()
+    base = solve(st, y0)
+    grid = driver.make_grid(0.0, TF, dtype=torch.float32, device="cuda")
+    step_fn = st.make_step_fn()
+    state = driver.init_state(y0, grid, H0, batch_shape=(N_TRAJ,))
+    for _ in range(10):
+        state = driver.step_once(state, step_fn, adaptive=True, ctl=CTL,
+                                 error_norm=st.error_norm, batched=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/main.iter10"
+        save_state(path, state)
+        loaded = load_state(path, like=state)
+    sol = driver.resume(loaded, step_fn, ctl=CTL, error_norm=st.error_norm,
+                        batched=True)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in (
+        (sol.y_final.re, base.y_final.re), (sol.y_final.im, base.y_final.im),
+        (sol.t_final, base.t_final), (sol.h_final, base.h_final),
+        (sol.n_accept, base.n_accept), (sol.n_reject, base.n_reject),
+        (sol.n_iters, base.n_iters), (sol.status, base.status)))
+    assert same, "the resumed solve differs from the uninterrupted one"
+    print(f"[checkpoint] main path {N_TRAJ}x{DIM}c: carry saved after 10 "
+          f"iterations, loaded and resumed: y_final, t_final, h_final and "
+          f"every counter bitwise the uninterrupted solve's "
+          f"({int(base.n_iters.max())} iterations)", flush=True)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = device_phase()
@@ -5222,7 +5780,13 @@ def main() -> None:
     grad_vdp_phase(card)
     dense_tiers_phase(card)
     fsal_phase(card)
+    drive = drive_form_phase()
+    compensated_phase(card)
+    traced_norm_phase(card)
+    compact = compact_phase(card)
+    checkpoint_phase()
     k1 = timing_phase(card)
+    drive_t = drive_timing_phase(card)
     k2 = loop_timing_phase(card)
     k4 = k4_timing_phase(card)
     k5 = k5_timing_phase(card)
@@ -5248,6 +5812,11 @@ def main() -> None:
     for name, launches, err, (ms, plain_ms, b_ms, b_by, *lib) in (
             ("fused_rk_step", k1_launches, k1_err, k1),
             ("fused_rk_step/scan", k1_scan_launches, k1_err, k1),
+            *((f"fused_rk_step/{n}", drive["k1"][n], drive["err"][n],
+               drive_t[n]) for n in ("coeff", "cheb")),
+            ("fused_rk_step/compact", compact["k1"], k1_err, k1),
+            ("rk_step_tile/cheb", drive["k2"]["cheb"],
+             drive["loop_err"]["cheb"], drive_t["k2_cheb"]),
             ("fused_loop", k2_launches, k2_err, k2),
             ("rk_step_tile", k2_launches, k2_err, k2),
             ("fused_chain_apply", k4_launches, k4_err, k4),

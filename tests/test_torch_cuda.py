@@ -2163,3 +2163,208 @@ def test_dense_vmapped_tier_on_the_card_matches_the_cpu_f64(card, case):
             h0=1e-3, save_at=save, dense=True)
 
     assert bool((_same_on_both(run, atol=1e-12).status == DONE).all())
+
+
+# -- the last single-device modules: declared drives on K1 and K3, the
+# compensated tier, traced norms, compact ensembles, checkpoints ----------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", ["coeff", "cheb"])
+@pytest.mark.parametrize("B,d,tab", [(1000, 64, "rkf45"), (257, 5, "dopri5"),
+                                     (16384, 64, "rkf45")])
+def test_kernel_matches_plain_step_on_declared_drives(card, name, dtype, B, d,
+                                                      tab):
+    """K1 sampling a declared drive (chip_smoke.drive_forms) against its
+    twin, to the cos drive's tolerances."""
+    st, t, dt, xw = _inputs(B, d, dtype, card)
+    st = dataclasses.replace(st, u_fn=chip_smoke.drive_forms()[name])
+    tab = ttab.TABLEAUS[tab]
+    before = fused_rk_step.launches
+    kx, ke = fused_rk_step(t, dt, xw, st.M0, st.M1, u_fn=st.u_fn, tab=tab)
+    assert fused_rk_step.launches == before + 1
+    px, pe = torch_rk_step(t, dt, xw, st.M0, st.M1,
+                           u_fn=frk.drive_fn(st.u_fn), tab=tab)
+    e_lim, _ = err_norm_limit(st, t, dt, xw, pe, tab)
+    torch.cuda.synchronize()
+    x_tol = (1e-5 * max(float(px.abs().max()), 1.0)
+             if dtype == torch.float32 else 1e-12)
+    np.testing.assert_allclose(kx.cpu().numpy(), px.cpu().numpy(), rtol=0,
+                               atol=x_tol)
+    assert bool(((ke - pe).abs() <= e_lim).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cos_form_is_the_shorthands_kernel(card, dtype):
+    """The cos CoeffForm is the w= shorthand: the same launch, bit for bit,
+    within the earlier cases' tolerances of the twin."""
+    st, t, dt, xw = _inputs(1000, 64, dtype, card)
+    a = fused_rk_step(t, dt, xw, st.M0, st.M1, w=st.w)
+    b = fused_rk_step(t, dt, xw, st.M0, st.M1, u_fn=frk.cos_drive(st.w))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    px, _ = torch_rk_step(t, dt, xw, st.M0, st.M1,
+                          u_fn=lambda ti: torch.cos(st.w * ti))
+    x_tol = (1e-5 * max(float(px.abs().max()), 1.0)
+             if dtype == torch.float32 else 1e-12)
+    np.testing.assert_allclose(a[0].cpu().numpy(), px.cpu().numpy(), rtol=0,
+                               atol=x_tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", ["coeff", "cheb"])
+def test_loop_kernel_on_declared_drives_matches_twin(card, name, dtype):
+    """K2 with K3 on a declared drive, nine saves: f64 counters equal and
+    states within 1e-10 of the twin's; f32 as chip_smoke's [loop] check;
+    one K2 iteration gives K1's bits on the same rows."""
+    form = chip_smoke.drive_forms()[name]
+    B = 512 if dtype == torch.float64 else 2048
+    dx, launches = chip_smoke.check_drive_loop(form, B, dtype)
+    assert launches == 1
+    st, t, dt, xw = _inputs(300, 64, dtype, card)
+    st = dataclasses.replace(st, u_fn=form)
+    x1, e1 = fused_rk_step(t, dt, xw, st.M0, st.M1, u_fn=form)
+    x2, e2 = chip_smoke.one_loop_step(st, t, dt, xw)
+    assert torch.equal(x1, x2) and torch.equal(e1, e2)
+
+
+def test_callable_drive_and_traced_norm_take_the_twin_on_the_card(card):
+    """A callable drive and a traced norm run the twin step on the card:
+    no launch, the twin path named, the loop kernel declined, and the CPU
+    run's counters and states (f64)."""
+    psi = chip_smoke.unit_states(64, 16, torch.float64, seed=5)
+    model = DrivenDense.make(d=16, seed=0)
+    ctl = StepControl(rtol=1e-8, min_dt=1e-6, max_dt=0.25)
+    w = model.w
+
+    def run(dev, **kw):
+        st = FusedModulatedLinearRK.from_driven_dense(
+            model, torch.float64, device=dev, **kw)
+        return ensemble_solve(None, Cplx(psi.re.to(dev), psi.im.to(dev)),
+                              0.0, 0.5, stepper=st, ctl=ctl, h0=1e-3,
+                              time_dtype=torch.float64)
+
+    for kw in (dict(u_fn=lambda t: torch.cos(w * t)),
+               dict(norm=lc.TracedNorm(chip_smoke.hand_l2))):
+        before = chip_smoke.all_launches()
+        gpu = run("cuda", **kw)
+        torch.cuda.synchronize()
+        assert chip_smoke.all_launches() == before
+        assert gpu.path == "torch-driver+twin-step"
+        cpu = run("cpu", **kw)
+        for k in ("status", "n_accept", "n_reject", "n_iters"):
+            assert torch.equal(getattr(gpu, k).cpu(), getattr(cpu, k)), k
+        _leaves_close(gpu.y_final, cpu.y_final, 1e-12)
+
+
+def test_traced_norm_on_modulated_stepper_on_the_card(card):
+    mod = DrivenDense.make(d=16, seed=0).modulated(torch.float64)
+    psi = chip_smoke.unit_states(64, 16, torch.float64, seed=6)
+    kw = dict(ctl=StepControl(rtol=1e-7, min_dt=1e-6, max_dt=0.3), h0=1e-2,
+              time_dtype=torch.float64)
+    before = chip_smoke.all_launches()
+    gpu = ensemble_solve(None, psi, 0.0, 1.0,
+                         stepper=MagnusModulated4(mod),
+                         error_norm=chip_smoke.hand_l2, **kw)
+    torch.cuda.synchronize()
+    assert chip_smoke.all_launches() == before
+    assert gpu.path == "torch-driver+twin-step"
+    ref = ensemble_solve(None, psi, 0.0, 1.0, stepper=MagnusModulated4(mod),
+                         error_norm=lc.WeightedNorm("l2"), **kw)
+    assert torch.equal(gpu.n_accept, ref.n_accept)
+    _leaves_close(gpu.y_final, Cplx(ref.y_final.re.cpu(),
+                                    ref.y_final.im.cpu()), 1e-10)
+
+
+@pytest.mark.parametrize("case", ["magnus4", "magnus4_fast", "magnus6",
+                                  "cfm4", "rk_vmapped"])
+def test_compensated_tier_on_the_card_matches_the_cpu_f64(card, case):
+    """The compensated tier (torch on the card: no launch) against the
+    CPU, f64: equal counters, states within 1e-12."""
+    model = DrivenDense.make(d=8, seed=0)
+    psi = chip_smoke.unit_states(16, 8, torch.float64, seed=4)
+    ctl = StepControl(rtol=1e-9, min_dt=1e-9, max_dt=0.5)
+    makers = {
+        "magnus4": lambda: texp.Magnus4(texp.DenseCplxSplit(),
+                                        compensated=True),
+        "magnus4_fast": lambda: texp.Magnus4(texp.DenseCplxSplit(),
+                                             compensated=True,
+                                             fast_error=True),
+        "magnus6": lambda: texp.Magnus6(texp.DenseCplxSplit(),
+                                        compensated=True),
+        "cfm4": lambda: texp.CFM4(texp.DenseCplxSplit(), compensated=True),
+    }
+
+    def run(dev):
+        y0 = Cplx(psi.re.to(dev), psi.im.to(dev))
+        if case == "rk_vmapped":
+            return ensemble_solve(
+                lambda t, x: model.rhs_pair(t, x, torch.float64), y0, 0.0,
+                1.0, stepper=chip_smoke.RungeKutta(compensated=True),
+                ctl=ctl, h0=1e-3)
+        return ensemble_solve(
+            lambda t: model.op_pair(t, torch.float64, device=dev), y0, 0.0,
+            1.0, stepper=makers[case](), ctl=ctl, h0=1e-2)
+
+    before = chip_smoke.all_launches()
+    gpu = run("cuda")
+    torch.cuda.synchronize()
+    assert chip_smoke.all_launches() == before
+    cpu = run("cpu")
+    for k in ("status", "n_accept", "n_reject", "n_iters"):
+        assert torch.equal(getattr(gpu, k).cpu(), getattr(cpu, k)), k
+    _leaves_close(gpu.y_final, cpu.y_final, 1e-12)
+
+
+def test_compact_on_the_card_matches_ensemble_solve(card):
+    """ensemble_solve_compact of the RK stepper on the card: one K1 launch
+    an iteration on the compacted batch, bitwise ensemble_solve's per-step
+    path, and the CPU run's counters (f64)."""
+    from vec_ode_tpu_torch.parallel import ensemble_solve_compact
+
+    psi = chip_smoke.unit_states(3000, 16, torch.float64, seed=8)
+    scale = torch.linspace(0.1, 4.0, 3000, dtype=torch.float64,
+                           device=card)[:, None]
+    y0 = Cplx(psi.re * scale, psi.im * scale)
+    ctl = StepControl(rtol=1e-8, min_dt=1e-6, max_dt=0.25)
+    model = DrivenDense.make(d=16, seed=0)
+    st = FusedModulatedLinearRK.from_driven_dense(model, torch.float64,
+                                                  device=card)
+    kw = dict(stepper=st, ctl=ctl, h0=1e-3, time_dtype=torch.float64)
+    plain = ensemble_solve(None, y0, 0.0, 1.0, **kw)
+    before = fused_rk_step.launches
+    sol, stats = ensemble_solve_compact(None, y0, 0.0, 1.0, chunk_iters=4,
+                                        **kw)
+    assert fused_rk_step.launches - before >= int(sol.n_iters.max())
+    for k in ("status", "n_accept", "n_reject", "n_iters"):
+        assert torch.equal(getattr(sol, k), getattr(plain, k)), k
+    assert torch.equal(sol.y_final.re, plain.y_final.re)
+    st_cpu = FusedModulatedLinearRK.from_driven_dense(model, torch.float64,
+                                                      device="cpu")
+    cpu, cstats = ensemble_solve_compact(
+        None, Cplx(y0.re.cpu(), y0.im.cpu()), 0.0, 1.0, chunk_iters=4,
+        **dict(kw, stepper=st_cpu))
+    assert torch.equal(sol.n_iters.cpu(), cpu.n_iters)
+    _leaves_close(sol.y_final, cpu.y_final, 1e-12)
+    assert stats == cstats
+
+
+def test_checkpoint_resumes_on_the_card_bitwise(card, tmp_path):
+    """The RK main path's carry on the card saved after 5 iterations,
+    loaded and resumed: bitwise the uninterrupted solve."""
+    from vec_ode_tpu_torch import driver
+    from vec_ode_tpu_torch.utils import load_state, save_state
+
+    st, y0 = chip_smoke.main_inputs(1024)
+    base = chip_smoke.solve(st, y0)
+    grid = driver.make_grid(0.0, 1.0, dtype=torch.float32, device="cuda")
+    step_fn = st.make_step_fn()
+    state = driver.init_state(y0, grid, chip_smoke.H0, batch_shape=(1024,))
+    for _ in range(5):
+        state = driver.step_once(state, step_fn, adaptive=True,
+                                 ctl=chip_smoke.CTL, error_norm=st.error_norm,
+                                 batched=True)
+    save_state(tmp_path / "rk.iter5", state)
+    sol = driver.resume(load_state(tmp_path / "rk.iter5", like=state),
+                        step_fn, ctl=chip_smoke.CTL,
+                        error_norm=st.error_norm, batched=True)
+    assert torch.equal(sol.y_final.re, base.y_final.re)
+    assert torch.equal(sol.n_iters, base.n_iters)

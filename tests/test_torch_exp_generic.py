@@ -449,12 +449,11 @@ def test_step_path_names_the_kernel_on_the_card(make):
 def test_refusals_name_what_is_missing():
     sp = texp.DenseCplxSplit()
     y0 = tcp.from_complex(_psi((B,)), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 25"):
-        texp.Magnus4(sp, compensated=True)
-    with pytest.raises(NotImplementedError, match="item 25"):
-        run_batched_chains(sp, y0, torch.ones(B), None, None, adaptive=True,
-                           lo=y0)
-    with pytest.raises(NotImplementedError, match="item 26"):
+    # items 25 and 26 are ported (tests/test_torch_compensated.py,
+    # test_torch_traced_norm.py): the compensated tier carries lo, and
+    # norm= takes a declared or a traced norm, nothing else
+    assert texp.Magnus4(sp, compensated=True).has_carry
+    with pytest.raises(TypeError, match="TracedNorm"):
         texp.Magnus4(sp, norm=lambda e: e)
     # the vmapped tier (batched=False, a split that cannot batch, and
     # scaled_error on an auto-batched stepper) runs: see

@@ -416,3 +416,44 @@ def test_multi_exp_with_complex_scalings_on_a_real_operator():
     got32 = tleaves.DenseSplit().multi_exp(
         torch.as_tensor(L, dtype=torch.float32), ks)
     assert got32.dtype == torch.complex64
+
+
+def test_cplx_builds_the_jax_pair():
+    """ops.cplx.cplx (item 4's rest): a pair from its real part, with a
+    zero imaginary part unless given, as the JAX package's."""
+    re = np.arange(6.0).reshape(2, 3)
+    im = -re / 3
+    for args in ((re,), (re, im)):
+        got = tcp.cplx(*(torch.as_tensor(a) for a in args))
+        want = jcp.cplx(*(jnp.asarray(a) for a in args))
+        np.testing.assert_array_equal(got.re.numpy(), np.asarray(want.re))
+        np.testing.assert_array_equal(got.im.numpy(), np.asarray(want.im))
+    assert tcp.cplx([1.0, 2.0]).im.shape == (2,)
+
+
+def test_cexpm_apply_matches_jax():
+    rng = np.random.default_rng(4)
+    A = (rng.standard_normal((3, 5, 5))
+         + 1j * rng.standard_normal((3, 5, 5))) * 0.4
+    x = rng.standard_normal((3, 5)) + 1j * rng.standard_normal((3, 5))
+    got = tcp.cexpm_apply(tcp.from_complex(A, device="cpu"),
+                          tcp.from_complex(x, device="cpu"))
+    want = jcp.cexpm_apply(jcp.from_complex(A, jnp.float64),
+                           jcp.from_complex(x, jnp.float64))
+    np.testing.assert_allclose(got.re.numpy(), np.asarray(want.re),
+                               atol=1e-13)
+    np.testing.assert_allclose(got.im.numpy(), np.asarray(want.im),
+                               atol=1e-13)
+    from scipy.linalg import expm as sexpm
+
+    ref = np.stack([sexpm(a) @ v for a, v in zip(A, x)])
+    np.testing.assert_allclose(got.re.numpy() + 1j * got.im.numpy(), ref,
+                               atol=1e-12)
+
+
+def test_cp_embed_matches_jax():
+    rng = np.random.default_rng(6)
+    L = rng.standard_normal((4, 4)) + 1j * rng.standard_normal((4, 4))
+    got = tleaves.cp_embed(tcp.from_complex(L, device="cpu"))
+    want = jleaves.cp_embed(jcp.from_complex(L, jnp.float64))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))

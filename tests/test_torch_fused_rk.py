@@ -169,7 +169,7 @@ def test_stepper_declarations():
     M0 = torch.zeros(4, 4)
     with pytest.raises(TypeError, match="w"):   # the drive is declared
         FusedModulatedLinearRK(M0=M0, M1=M0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="TracedNorm"):  # not a norm
         FusedModulatedLinearRK(M0=M0, M1=M0, w=1.0, norm=object())
     st = FusedModulatedLinearRK(M0=M0, M1=M0, w=1.0, tableau=ttab.DOPRI5)
     assert st.nfev_per_step == 7 and st.is_batched

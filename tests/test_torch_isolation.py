@@ -52,14 +52,28 @@ NAMES = {"exp": ["MagnusModulated6", "CFMModulated", "CFM4Modulated",
          "exp.splits": ["CommutativeSplit", "StrangSplit",
                         "SemiComplexO4Split", "TripleJumpSplit",
                         "RKNR4Split"],
-         "tableaus": ["RKN_O4_A", "TJ_O4_B", "SEMI_COMPLEX_O4_B"]}
+         "tableaus": ["RKN_O4_A", "TJ_O4_B", "SEMI_COMPLEX_O4_B"],
+         # the last single-device modules: the declared drive, the
+         # compensated tier, traced norms, compact ensembles, checkpoints
+         # and config
+         "ops.forms": ["CoeffForm", "ChebForm", "FORMS"],
+         "ops.fused_rk": ["cos_drive", "kernel_drive", "KernelDrive"],
+         "comp": ["two_sum", "update", "zero_lo", "chain_increment"],
+         "lc": ["TracedNorm", "try_trace_norm"],
+         "parallel": ["ensemble_solve_compact", "step_efficiency",
+                      "cost_sorted_permutation", "inverse_permutation"],
+         "utils.checkpointing": ["save_state", "load_state"],
+         "config": ["warn_on_fallback", "_warn_fallback"],
+         "ops.cplx": ["cplx", "cexpm_apply"],
+         "exp.leaves": ["cp_embed"]}
 MODULES = ["exp.auto", "quad", "events", "dense", "diff", "ops.adjoint",
            "ops.expm", "ops.dense_chains", "ops.cplx", "ops.expmv",
            "ops.fused_rk", "ops.fused_loop", "exp.protocol", "exp.leaves",
            "exp.dense_fast", "exp.magnus", "exp.cfm", "exp.split_solvers",
            "exp.modulated", "models.quantum", "parallel.ensemble", "convert",
            "rk", "api", "models.linear", "models.nonlinear", "models.chains",
-           "exp.splits"]
+           "exp.splits", "ops.forms", "comp", "config",
+           "utils.checkpointing"]
 
 PROBE = f"MODULES = {MODULES!r}; NAMES = {NAMES!r}" + """
 import importlib, pkgutil, sys
@@ -99,6 +113,7 @@ def test_sources_name_no_jax_import():
                 ROOT / "tools" / "compare_parent.py",
                 ROOT / "tools" / "k9_breakdown.py",
                 ROOT / "tools" / "k6_breakdown.py",
-                ROOT / "tools" / "rk_breakdown.py"]
+                ROOT / "tools" / "rk_breakdown.py",
+                ROOT / "tools" / "parent_bits.py"]
     for path in sources:
         assert not pattern.search(path.read_text()), path

@@ -81,12 +81,14 @@ def test_rejections():
             lc.WeightedNorm(bad)
         with pytest.raises(ValueError, match="kind"):
             jlc.WeightedNorm(bad)
-    with pytest.raises(NotImplementedError, match="item 26"):
-        lc.WeightedNorm("l2", weights=(np.ones(3), np.ones(4)))
-    with pytest.raises(NotImplementedError, match="item 26"):
-        lc.WeightedNorm("l2", weights=np.ones((2, 3)))
-    with pytest.raises(NotImplementedError, match="item 26"):
-        lc.TracedNorm(lambda e: e)
+    # item 26 is ported: pytree weights are taken (one array per leaf)
+    # but cannot be laid out for the kernels, on both sides; a TracedNorm
+    # needs a callable (tests/test_torch_traced_norm.py)
+    for w in ((np.ones(3), np.ones(4)), np.ones((2, 3))):
+        assert lc.WeightedNorm("l2", weights=w).kernel_parts(3, 2) is None
+        assert jlc.WeightedNorm("l2", weights=w).kernel_parts(3, 2) is None
+    with pytest.raises(TypeError, match="callable"):
+        lc.TracedNorm(3.0)
     # weights that do not fit the layout: no kernel parts, on both sides
     assert lc.WeightedNorm("l2", WEIGHTS).kernel_parts(D + 1, 2) is None
     assert jlc.WeightedNorm("l2", WEIGHTS).kernel_parts(D + 1, 2) is None

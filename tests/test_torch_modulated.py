@@ -298,6 +298,6 @@ def test_chain_step_edges():
     with pytest.raises(ValueError, match="C = 1"):
         expmv.fused_chain_apply([t[:, None]], dt, xw, mt, norms,
                                 recipe="midpoint", C=2, m=12, theta=0.25)
-    with pytest.raises(NotImplementedError, match="item 26"):
+    with pytest.raises(TypeError, match="TracedNorm"):  # not a norm
         texp.MagnusModulated4(top, norm=lambda e: e)
     assert dataclasses.replace(st, fast_error=True)._recipe == "magnus4_fast"

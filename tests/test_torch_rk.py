@@ -259,8 +259,15 @@ def test_pytree_state_matches_jax():
          compensated=True),
 ])
 def test_stepper_carry_refusals_name_item_25(kw):
-    with pytest.raises(NotImplementedError, match="item 25"):
-        vt.RungeKutta(**kw)
+    """Item 25's compensated carry is ported: the stepper takes it (the
+    residual word alone, or (k0, lo) with FSAL; tests/
+    test_torch_compensated.py holds the solves against the JAX package)."""
+    st = vt.RungeKutta(**kw)
+    assert st.has_carry and st.compensated
+    x = torch.tensor([1.0, 2.0], dtype=torch.float64)
+    carry = st.make_init_carry(lambda t, y: -y)(torch.tensor(0.0), x)
+    lo = carry[1] if st.use_fsal else carry
+    assert torch.equal(lo, torch.zeros_like(x))
 
 
 def test_fsal_needs_an_fsal_tableau():

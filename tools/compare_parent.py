@@ -10,7 +10,9 @@ PARENT_DIR holds another checkout of the repository whose
 ``fused_loop.cu`` (K2 with its RK step K3 and chain step K5),
 ``dense_chains.cu`` (K9) and ``adjoint.cu`` (K6, K7, K8) keep the same C
 entry points, for example one unpacked by ``git archive <commit> | tar -x
--C build/parent``. Its five libraries are built with this checkout's nvcc
+-C build/parent`` (K1's and K2's RK entries take the declared drive, an
+8-value array and a series pointer, in place of the cos frequency w: a
+parent older than that change runs only the other cases, ``--only``). Its five libraries are built with this checkout's nvcc
 flags into ``build/parent_kernels/``; this checkout's are built as usual.
 Then each case runs on both, in turns (parent, this, this, parent; each
 run the median of CUDA-event times), through this checkout's wrappers,

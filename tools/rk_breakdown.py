@@ -77,7 +77,7 @@ VARIANTS = {
     "no error measure": [
         (RK, "  chain_err_measure(term, x, x_out, err_out, rows, D, en);\n", "")],
     "no drive": [
-        (RK, "rk_drive(w, t_rows[lr], dt_rows[lr], tab.c[i], i)", "T(1)")],
+        (RK, "rk_drive(dr, t_rows[lr], dt_rows[lr], tab.c[i], i)", "T(1)")],
     "no publish": [
         (RK, "      publish(xin, cur ^ 1);\n", ""),
         (RK, "      publish(xin, 0);\n", "")],

@@ -11,7 +11,7 @@ step); the models of ``models`` (linear, nonlinear, chains, quantum) come
 with them. Beside that it runs three natively batched ensemble paths
 through ``parallel.ensemble_solve``: the adaptive
 embedded-RK stepper ``ops.fused_rk.FusedModulatedLinearRK`` (dx/dt =
-(M0 + cos(wt) M1) x with shared matrices), the modulated exponential
+(M0 + u(t) M1) x with shared matrices and a declared drive u), the modulated exponential
 steppers ``exp.MidpointModulated`` / ``MagnusModulated4`` /
 ``MagnusModulated6`` / ``CFMModulated`` (A(t) = sum_k c_k(t) M_k; the
 models ``DrivenDense``, ``LandauZener`` and the open-system
@@ -34,12 +34,18 @@ observables, run in the loop kernel, or callables, run by the host
 driver) and ``dense`` (free-running interpolated saves) are taken by
 ``ensemble_solve(events=..., dense=True)``; ``solve_ivp_dense`` and
 ``solve_linear_dense`` are the dense front doors. ``quad`` holds the
-Gauss-Legendre and trapezoid quadratures. This package imports neither
+Gauss-Legendre and trapezoid quadratures. ``compensated=True`` on
+``RungeKutta`` and the generic exponential steppers carries the state as
+a double-word pair (``comp``); ``parallel.ensemble_solve_compact``
+re-batches the running lanes between chunks; ``utils.save_state`` /
+``load_state`` checkpoint the driver's carry; ``config.warn_on_fallback``
+names the rule wherever a batched solve declines a kernel path. This package imports neither
 jax nor vec_ode_tpu.
 """
 
-from . import (api, controller, convert, dense, diff, driver, events, exp,
-               lc, models, ops, parallel, quad, rk, tableaus)
+from . import (api, comp, config, controller, convert, dense, diff, driver,
+               events, exp, lc, models, ops, parallel, quad, rk, tableaus,
+               utils)
 from .api import solve_ivp, solve_linear
 from .dense import solve_ivp_dense, solve_linear_dense
 from .controller import StepControl
@@ -86,6 +92,9 @@ __version__ = "0.1.0"
 
 __all__ = [
     "api",
+    "comp",
+    "config",
+    "utils",
     "rk",
     "solve_ivp",
     "solve_linear",

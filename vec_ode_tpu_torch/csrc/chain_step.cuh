@@ -91,7 +91,6 @@ constexpr int MAX_R = 4;      // exponentials per chain (ops/expmv.py: MAX_R)
 constexpr int MAX_NODES = 8;  // quadrature nodes per step (ops/expmv.py: MAX_NODES)
 constexpr int RECIPE_MIDPOINT = 0, RECIPE_MAGNUS4 = 1, RECIPE_MAGNUS4_FAST = 2,
               RECIPE_MAGNUS6 = 3, RECIPE_CFM = 4;
-constexpr int FORM_COEFF = 0, FORM_CHEB = 1;  // the declared form (ops/expmv.py: FORMS)
 // the parameter array of ops/expmv.py:chain_params: a 16-value header, then
 // fixed-size blocks at these offsets
 constexpr int P_NORMS = 16, P_SUB = P_NORMS + MAX_KP, P_NODES = P_SUB + 9,
@@ -246,28 +245,6 @@ struct ChainSmem {
         nbuf(L.nbuf) {}
 };
 
-// c_k(t) of the declared form, its terms added in the order a, b t,
-// c cos(w t), the zero ones left out (ops/expmv.py:CoeffForm.sample).
-template <typename T>
-__device__ __forceinline__ T form_at(const T* f, T t) {
-  T col = T(0);
-  bool any = false;
-  if (f[0] != T(0)) {
-    col = f[0];
-    any = true;
-  }
-  if (f[1] != T(0)) {
-    const T bt = mul_rn(f[1], t);
-    col = any ? add_rn(col, bt) : bt;
-    any = true;
-  }
-  if (f[2] != T(0)) {
-    const T ct = mul_rn(f[2], cos_full(mul_rn(f[3], t)));
-    col = any ? add_rn(col, ct) : ct;
-  }
-  return col;
-}
-
 // Node nd of a step from t over dt (ops/expmv.py:node_times): tm = t + dt/2
 // (midpoint); tm -/+ c_mid dt (Magnus-4, and Magnus-6's nodes 6 and 7);
 // Magnus-6's sub-interval i = nd / 2: tm_i -/+ (c_mid ln_i) dt with
@@ -287,26 +264,13 @@ __device__ __forceinline__ T node_time(const ChainParams<T>& p, int nd, T t, T d
   return nd % 2 == 0 ? sub_rn(tm, off) : add_rn(tm, off);
 }
 
-// c_k(t), k < K0, of the declared Chebyshev form (ops/expmv.py:
-// ChebForm.sample) into out[k]: u = (2 t - (lo + hi)) (1 / (hi - lo)), then
-// per term Clenshaw over its series c_0 .. c_{n-1}: b1, b2 = ((2 u) b1 -
-// b2) + c_j, b1 for j = n - 1 .. 1, and c_k = (u b1 - b2) + c_0. No term
-// is skipped (u 0 still carries a NaN), every operation rounded on its own.
+// c_k(t), k < K0, of the declared Chebyshev form (ops/forms.py:
+// ChebForm.sample) into out[k]: numerics.cuh's cheb_series of each term at
+// u = cheb_arg(t).
 template <typename T>
 __device__ __forceinline__ void cheb_at(const ChainParams<T>& p, T t, T* out) {
-  const T u = mul_rn(sub_rn(mul_rn(T(2), t), p.cheb_mid), p.cheb_inv);
-  const T u2 = mul_rn(T(2), u);
-  const int n = p.cheb_n;
-  for (int k = 0; k < p.K0; ++k) {
-    const T* c = p.cheb + (size_t)k * n;
-    T b1 = T(0), b2 = T(0);
-    for (int j = n - 1; j >= 1; --j) {
-      const T nb = add_rn(sub_rn(mul_rn(u2, b1), b2), c[j]);
-      b2 = b1;
-      b1 = nb;
-    }
-    out[k] = add_rn(sub_rn(mul_rn(u, b1), b2), c[0]);
-  }
+  const T u = cheb_arg(t, p.cheb_mid, p.cheb_inv);
+  for (int k = 0; k < p.K0; ++k) out[k] = cheb_series(p.cheb + (size_t)k * p.cheb_n, p.cheb_n, u);
 }
 
 // Fills sm.g with the declared form (a CoeffForm or a ChebForm, by

@@ -1,6 +1,7 @@
 // The whole driver loop for an ensemble of trajectories of a linear system
 // with shared operators, written by hand for Hopper (sm_90a): the
-// modulated-linear RK stepper dx/dt = (M0 + cos(w t) M1) x, or the
+// modulated-linear RK stepper dx/dt = (M0 + u(t) M1) x with a declared
+// drive u (a one-term CoeffForm or ChebForm), or the
 // modulated exponential steppers (exponential midpoint, Magnus-4, Magnus-6,
 // commutator-free Magnus over a declared table) on A(t) = sum_k c_k(t) M_k.
 //
@@ -147,7 +148,7 @@ struct RKLoopStep {
   const T* mt;
   Tableau<T> tab;
   int s, advance_lower;
-  T w;
+  Drive<T> dr;  // the declared drive u(t)
   int resident;
 
   using State = PanelRing<T>;
@@ -171,7 +172,7 @@ struct RKLoopStep {
                              unsigned char* scratch, int rows, int tile, int D,
                              const ErrNorm<T>& en) const {
     rk_step_tile<T, RK_LOOP_RM, KS>(s_t, s_dt, xs, ys, s_err, scratch, layout(tile, D), ring,
-                                    rows, tile, D, tab, s, 1, advance_lower, w, en);
+                                    rows, tile, D, tab, s, 1, advance_lower, dr, en);
   }
 };
 
@@ -671,8 +672,8 @@ using RKStepOf = RKLoopStep<T, sizeof(T) == 4 ? MAX_STAGES : 0>;
 template <typename T>
 int launch(const void* t_grid, int n_grid, const void* fs_in, const void* ist_in,
            const void* x_in, void* fs_out, void* ist_out, void* x_out, void* saves, int B, int D,
-           const void* mt, const double* tab_in, int s, int advance_lower, double w,
-           const void* w_row, double post, int kind_max, const double* c, int iters,
+           const void* mt, const double* tab_in, int s, int advance_lower, const double* drive,
+           const void* cheb, const void* w_row, double post, int kind_max, const double* c, int iters,
            int adaptive, const void* const* ex_ptr, const double* ex_par, void* stream) {
   LoopExtra<T> ex;
   if (B <= 0 || D <= 0 || D > MAX_WIDTH || s <= 0 || s > MAX_STAGES || n_grid < 2 || iters < 0 ||
@@ -681,7 +682,9 @@ int launch(const void* t_grid, int n_grid, const void* fs_in, const void* ist_in
   RKStepOf<T> step;
   step.mt = (const T*)mt;
   step.tab = parse_tableau<T>(tab_in);
-  step.s = s, step.advance_lower = advance_lower, step.w = (T)w;
+  step.s = s, step.advance_lower = advance_lower;
+  step.dr = parse_drive<T>(drive, cheb);
+  if (!drive_ok(step.dr)) return (int)cudaErrorInvalidValue;
   int dev = 0, max_smem = 0, n_sm = 0;
   cudaError_t st = device_limits(&dev, &max_smem, &n_sm);
   if (st != cudaSuccess) return (int)st;
@@ -724,31 +727,33 @@ extern "C" {
 // Advances every row of the carries (fs (B, 5), ist (B, 8) int32, x (B, D))
 // by `iters` driver iterations, or until it leaves RUNNING when iters == 0,
 // writing fs_out, ist_out and x_out; saves ((n_grid - 2), B, D) is updated
-// in place. The RK step: tab as for the per-step kernel; w_row, post,
-// kind_max declare the error norm; ctl: the 17 float64 values of
+// in place. The RK step: tab, drive and cheb as for the per-step kernel;
+// w_row, post, kind_max declare the error norm; ctl: the 17 float64 values of
 // parse_ctl, in host memory; adaptive = 0 takes fixed steps; ex_ptr and
 // ex_par: the events and dense output of parse_extra (null: off), whose
 // carries are updated in place.
 int vec_ode_fused_loop_f32(const void* t_grid, int n_grid, const void* fs_in, const void* ist_in,
                            const void* x_in, void* fs_out, void* ist_out, void* x_out,
                            void* saves, int B, int D, const void* mt, const double* tab, int s,
-                           int advance_lower, double w, const void* w_row, double post,
-                           int kind_max, const double* ctl, int iters, int adaptive,
-                           const void* const* ex_ptr, const double* ex_par, void* stream) {
+                           int advance_lower, const double* drive, const void* cheb,
+                           const void* w_row, double post, int kind_max, const double* ctl,
+                           int iters, int adaptive, const void* const* ex_ptr,
+                           const double* ex_par, void* stream) {
   return launch<float>(t_grid, n_grid, fs_in, ist_in, x_in, fs_out, ist_out, x_out, saves, B, D,
-                       mt, tab, s, advance_lower, w, w_row, post, kind_max, ctl, iters, adaptive,
-                       ex_ptr, ex_par, stream);
+                       mt, tab, s, advance_lower, drive, cheb, w_row, post, kind_max, ctl, iters,
+                       adaptive, ex_ptr, ex_par, stream);
 }
 
 int vec_ode_fused_loop_f64(const void* t_grid, int n_grid, const void* fs_in, const void* ist_in,
                            const void* x_in, void* fs_out, void* ist_out, void* x_out,
                            void* saves, int B, int D, const void* mt, const double* tab, int s,
-                           int advance_lower, double w, const void* w_row, double post,
-                           int kind_max, const double* ctl, int iters, int adaptive,
-                           const void* const* ex_ptr, const double* ex_par, void* stream) {
+                           int advance_lower, const double* drive, const void* cheb,
+                           const void* w_row, double post, int kind_max, const double* ctl,
+                           int iters, int adaptive, const void* const* ex_ptr,
+                           const double* ex_par, void* stream) {
   return launch<double>(t_grid, n_grid, fs_in, ist_in, x_in, fs_out, ist_out, x_out, saves, B, D,
-                        mt, tab, s, advance_lower, w, w_row, post, kind_max, ctl, iters, adaptive,
-                        ex_ptr, ex_par, stream);
+                        mt, tab, s, advance_lower, drive, cheb, w_row, post, kind_max, ctl, iters,
+                        adaptive, ex_ptr, ex_par, stream);
 }
 
 // The same loop with the chain step: mt = [M_0^T | ... ] (D, KP*D), chain:

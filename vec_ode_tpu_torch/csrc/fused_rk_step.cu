@@ -1,6 +1,7 @@
 // One whole embedded explicit Runge-Kutta step for an ensemble of
-// trajectories of dx/dt = (M0 + cos(w t) M1) x, written by hand for Hopper
-// (sm_90a).
+// trajectories of dx/dt = (M0 + u(t) M1) x, written by hand for Hopper
+// (sm_90a), with u a declared drive: a one-term CoeffForm (cos(w t) is
+// (0, 0, 1, w)) or a one-term ChebForm (numerics.cuh: Drive).
 //
 // Replaces the Pallas TPU kernel vec_ode_tpu/ops/pallas_rk.py:_make_kernel,
 // launched by vec_ode_tpu/ops/pallas_rk.py:fused_rk_step. It computes the
@@ -86,8 +87,8 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1)
 fused_rk_step_kernel(const T* __restrict__ t, const T* __restrict__ dt,
                      const T* __restrict__ x, const T* __restrict__ mt,
                      T* __restrict__ x_out, T* __restrict__ err_out, int B, int D, int tile,
-                     int resident, Tableau<T> tab, int s, int has_err, int advance_lower, T w,
-                     ErrNorm<T> en) {
+                     int resident, Tableau<T> tab, int s, int has_err, int advance_lower,
+                     Drive<T> dr, ErrNorm<T> en) {
   extern __shared__ __align__(16) unsigned char rk_smem[];
   const RKLayout<T> L(tile, D, s, KS == 0, resident != 0);
   PanelRing<T> ring(mt, reinterpret_cast<T*>(rk_smem + L.ring), D, 2, 0, D, D, resident != 0);
@@ -97,7 +98,7 @@ fused_rk_step_kernel(const T* __restrict__ t, const T* __restrict__ dt,
     const long row0 = (long)tl * tile;
     const int rows = (int)(B - row0 < tile ? B - row0 : tile);
     rk_step_tile<T, RM, KS>(t + row0, dt + row0, x + row0 * D, x_out + row0 * D, err_out + row0,
-                            rk_smem, L, ring, rows, tile, D, tab, s, has_err, advance_lower, w,
+                            rk_smem, L, ring, rows, tile, D, tab, s, has_err, advance_lower, dr,
                             en);
   }
   ring.drain();
@@ -106,7 +107,7 @@ fused_rk_step_kernel(const T* __restrict__ t, const T* __restrict__ dt,
 template <typename T, int RM, int KS>
 int run(const RKPlan& pl, const void* t, const void* dt, const void* x, const void* mt,
         void* x_out, void* err_out, int B, int D, const Tableau<T>& tab, int s, int has_err,
-        int advance_lower, T w, const ErrNorm<T>& en, int dev, void* stream) {
+        int advance_lower, const Drive<T>& dr, const ErrNorm<T>& en, int dev, void* stream) {
   static size_t smem_allowed[MAX_DEVICES];
   auto kernel = fused_rk_step_kernel<T, RM, KS>;
   if (pl.smem > smem_allowed[dev]) {
@@ -117,7 +118,7 @@ int run(const RKPlan& pl, const void* t, const void* dt, const void* x, const vo
   }
   kernel<<<pl.blocks, pl.threads, pl.smem, (cudaStream_t)stream>>>(
       (const T*)t, (const T*)dt, (const T*)x, (const T*)mt, (T*)x_out, (T*)err_out, B, D, pl.tile,
-      pl.resident, tab, s, has_err, advance_lower, w, en);
+      pl.resident, tab, s, has_err, advance_lower, dr, en);
   return (int)cudaGetLastError();
 }
 
@@ -138,9 +139,10 @@ int plan_here(int B, int D, int s, RKPlan* pl, int* dev) {
 template <typename T>
 int launch(const void* t, const void* dt, const void* x, const void* mt,
            void* x_out, void* err_out, int B, int D, const double* tab_in,
-           int s, int has_err, int advance_lower, double w, const void* w_row,
-           double post, int kind_max, void* stream) {
-  if (!shape_ok(B, D, s)) return (int)cudaErrorInvalidValue;
+           int s, int has_err, int advance_lower, const double* drive, const void* cheb,
+           const void* w_row, double post, int kind_max, void* stream) {
+  const Drive<T> dr = parse_drive<T>(drive, cheb);
+  if (!shape_ok(B, D, s) || !drive_ok(dr)) return (int)cudaErrorInvalidValue;
   const Tableau<T> tab = parse_tableau<T>(tab_in);
   const ErrNorm<T> en{(const T*)w_row, (T)post, kind_max, 0, T(0), T(0)};
   RKPlan pl;
@@ -150,12 +152,12 @@ int launch(const void* t, const void* dt, const void* x, const void* mt,
   if constexpr (sizeof(T) == 4) {
     if (pl.rm == RK_RM_REG)
       return run<T, RK_RM_REG, RK_KS_REG>(pl, t, dt, x, mt, x_out, err_out, B, D, tab, s, has_err,
-                                          advance_lower, (T)w, en, dev, stream);
+                                          advance_lower, dr, en, dev, stream);
     return run<T, RK_RM, MAX_STAGES>(pl, t, dt, x, mt, x_out, err_out, B, D, tab, s, has_err,
-                                     advance_lower, (T)w, en, dev, stream);
+                                     advance_lower, dr, en, dev, stream);
   } else {
     return run<T, RK_RM, 0>(pl, t, dt, x, mt, x_out, err_out, B, D, tab, s, has_err,
-                            advance_lower, (T)w, en, dev, stream);
+                            advance_lower, dr, en, dev, stream);
   }
 }
 
@@ -165,22 +167,27 @@ extern "C" {
 
 // tab: MAX_STAGES*MAX_STAGES values of a, then b, b - b_err and c, each
 // MAX_STAGES long, zero-padded, row-major, in float64 host memory.
-// w_row: D weights in device memory in the state's type, or null; post
-// and kind_max (0: l2, 1: max) complete the declared error norm.
+// drive: the 8 float64 values [kind, n, a, b, c, w, mid, inv] of the
+// declared drive (numerics.cuh: parse_drive) in host memory; cheb: a
+// ChebForm's n coefficients in device memory in the state's type (null for
+// a CoeffForm). w_row: D weights in device memory in the state's type, or
+// null; post and kind_max (0: l2, 1: max) complete the declared error norm.
 int vec_ode_fused_rk_step_f32(const void* t, const void* dt, const void* x, const void* mt,
                               void* x_out, void* err_out, int B, int D, const double* tab,
-                              int s, int has_err, int advance_lower, double w,
-                              const void* w_row, double post, int kind_max, void* stream) {
-  return launch<float>(t, dt, x, mt, x_out, err_out, B, D, tab, s, has_err, advance_lower, w,
-                       w_row, post, kind_max, stream);
+                              int s, int has_err, int advance_lower, const double* drive,
+                              const void* cheb, const void* w_row, double post, int kind_max,
+                              void* stream) {
+  return launch<float>(t, dt, x, mt, x_out, err_out, B, D, tab, s, has_err, advance_lower, drive,
+                       cheb, w_row, post, kind_max, stream);
 }
 
 int vec_ode_fused_rk_step_f64(const void* t, const void* dt, const void* x, const void* mt,
                               void* x_out, void* err_out, int B, int D, const double* tab,
-                              int s, int has_err, int advance_lower, double w,
-                              const void* w_row, double post, int kind_max, void* stream) {
-  return launch<double>(t, dt, x, mt, x_out, err_out, B, D, tab, s, has_err, advance_lower, w,
-                        w_row, post, kind_max, stream);
+                              int s, int has_err, int advance_lower, const double* drive,
+                              const void* cheb, const void* w_row, double post, int kind_max,
+                              void* stream) {
+  return launch<double>(t, dt, x, mt, x_out, err_out, B, D, tab, s, has_err, advance_lower, drive,
+                        cheb, w_row, post, kind_max, stream);
 }
 
 // K1's plan on the current card for B rows of width D and s stages in

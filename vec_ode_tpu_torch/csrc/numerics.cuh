@@ -74,6 +74,91 @@ __device__ __forceinline__ double fma_full(double a, double b, double c) { retur
 __device__ __forceinline__ float sqrt_full(float a) { return sqrtf(a); }
 __device__ __forceinline__ double sqrt_full(double a) { return sqrt(a); }
 
+// The declared forms a kernel samples in-kernel (ops/forms.py: FORMS): the
+// chain steps (chain_step.cuh) take K0 of them as coefficient functions,
+// the RK step (rk_step.cuh) one as its drive u(t).
+constexpr int FORM_COEFF = 0, FORM_CHEB = 1;
+
+// f(t) = a + b t + c cos(w t) of a CoeffForm term f = (a, b, c, w), its
+// terms added in the order a, b t, c cos(w t), the zero ones left out
+// (ops/forms.py:CoeffForm.sample).
+template <typename T>
+__device__ __forceinline__ T form_at(const T* f, T t) {
+  T col = T(0);
+  bool any = false;
+  if (f[0] != T(0)) {
+    col = f[0];
+    any = true;
+  }
+  if (f[1] != T(0)) {
+    const T bt = mul_rn(f[1], t);
+    col = any ? add_rn(col, bt) : bt;
+    any = true;
+  }
+  if (f[2] != T(0)) {
+    const T ct = mul_rn(f[2], cos_full(mul_rn(f[3], t)));
+    col = any ? add_rn(col, ct) : ct;
+  }
+  return col;
+}
+
+// A ChebForm's argument u = (2 t - (lo + hi)) (1 / (hi - lo)) from its
+// folded mid = lo + hi and inv = 1 / (hi - lo) (ops/forms.py:ChebForm).
+template <typename T>
+__device__ __forceinline__ T cheb_arg(T t, T mid, T inv) {
+  return mul_rn(sub_rn(mul_rn(T(2), t), mid), inv);
+}
+
+// One term's Chebyshev series c_0 .. c_{n-1} at u by Clenshaw in
+// ChebForm.sample's order: b1, b2 = ((2 u) b1 - b2) + c_j, b1 for j = n - 1
+// .. 1, then (u b1 - b2) + c_0. No term is skipped (u 0 still carries a
+// NaN), every operation rounded on its own.
+template <typename T>
+__device__ __forceinline__ T cheb_series(const T* c, int n, T u) {
+  const T u2 = mul_rn(T(2), u);
+  T b1 = T(0), b2 = T(0);
+  for (int j = n - 1; j >= 1; --j) {
+    const T nb = add_rn(sub_rn(mul_rn(u2, b1), b2), c[j]);
+    b2 = b1;
+    b1 = nb;
+  }
+  return add_rn(sub_rn(mul_rn(u, b1), b2), c[0]);
+}
+
+// The RK step's declared drive u(t): a one-term CoeffForm (f = a, b, c, w)
+// or a one-term ChebForm (its n coefficients in device memory, mid and
+// inv folded in float64 and rounded once). From the 8 float64 values
+// [kind, n, a, b, c, w, mid, inv] of ops/fused_rk.py:kernel_drive.
+template <typename T>
+struct Drive {
+  int kind, n;
+  T f[4];
+  T mid, inv;
+  const T* cheb;
+};
+
+template <typename T>
+Drive<T> parse_drive(const double* d, const void* cheb) {
+  Drive<T> dr{};
+  dr.kind = (int)d[0], dr.n = (int)d[1];
+  for (int i = 0; i < 4; ++i) dr.f[i] = (T)d[2 + i];
+  dr.mid = (T)d[6], dr.inv = (T)d[7];
+  dr.cheb = (const T*)cheb;
+  return dr;
+}
+
+// Whether the launcher can run the drive (a ChebForm needs its table).
+template <typename T>
+bool drive_ok(const Drive<T>& dr) {
+  return dr.kind == FORM_COEFF || (dr.kind == FORM_CHEB && dr.n >= 1 && dr.cheb != nullptr);
+}
+
+template <typename T>
+__device__ __forceinline__ T drive_at(const Drive<T>& dr, T t) {
+  if (dr.kind == FORM_CHEB) return cheb_series(dr.cheb, dr.n, cheb_arg(t, dr.mid, dr.inv));
+  return form_at(dr.f, t);
+}
+
 template <typename T> __device__ __forceinline__ T eps_of();
 template <> __device__ __forceinline__ float eps_of<float>() { return FLT_EPSILON; }
 template <> __device__ __forceinline__ double eps_of<double>() { return DBL_EPSILON; }

@@ -1,5 +1,6 @@
 // The embedded Runge-Kutta step of one tile of trajectories of
-// dx/dt = (M0 + cos(w t) M1) x, as a device function that every thread of
+// dx/dt = (M0 + u(t) M1) x, with a declared drive u (numerics.cuh: Drive),
+// as a device function that every thread of
 // a block calls together. Shared by the per-step kernel (fused_rk_step.cu,
 // K1) and the whole-loop kernel (fused_loop.cu, K2, whose step this is:
 // the counterpart of vec_ode_tpu/ops/pallas_loop.py:make_rk_step_builder,
@@ -7,8 +8,10 @@
 //
 // It computes what vec_ode_tpu/ops/pallas_rk.py:_make_kernel computes:
 // every stage K_i = y0 + u_i y1 with y0 = x_i M0^T, y1 = x_i M1^T at the
-// stage input x_i = x + dt sum_{j<i} a_ij K_j and u_i = cos(w t_i),
-// t_i = t + c_i dt (t itself at stage 0); the advance x + dt sum_j b_j K_j
+// stage input x_i = x + dt sum_{j<i} a_ij K_j and u_i = u(t_i),
+// t_i = t + c_i dt (t itself at stage 0), u a one-term CoeffForm (a + b t +
+// c cos(w t); the cos(w t) drive is (0, 0, 1, w), whose zero terms the
+// sampler leaves out) or a one-term ChebForm read from device memory; the advance x + dt sum_j b_j K_j
 // (minus the error when advance_lower); the embedded error
 // dt sum_j (b_j - b_err_j) K_j; and its per-row measure ErrNorm
 // (numerics.cuh: chain_err_measure, which the chain step ends with too).
@@ -43,8 +46,8 @@
 // bits on the same rows. Everything else is rounded as the plain twin
 // (ops/fused_rk.py:torch_rk_step) rounds it, with mul_rn / add_rn /
 // sub_rn: term = a_ij K_j, acc = acc + term (zero a_ij skipped, j in
-// order), x_i = x + dt acc; t_i = t + c_i dt, u_i = cos(w t_i) (the full
-// cosine); K_i = y0 + u_i y1; x_b = x + dt (b_0 K_0 + ...), err = dt
+// order), x_i = x + dt acc; t_i = t + c_i dt, u_i = u(t_i) (numerics.cuh:
+// drive_at, the full cosine, ChebForm by Clenshaw); K_i = y0 + u_i y1; x_b = x + dt (b_0 K_0 + ...), err = dt
 // (db_0 K_0 + ...), x_out = x_b - err. A NaN row stays in its row and
 // gives a NaN error. Build without --use_fast_math.
 
@@ -109,13 +112,13 @@ __device__ __forceinline__ RKThread rk_thread(int tile, int D) {
   return RKThread{rg * RM, cg * GEMM_CN, rg * ncl + cg, rg < ngr};
 }
 
-// u(t_i) = cos(w t_i) at stage i's node t_i = t + c_i dt (t itself at the
-// first stage), rounded as the twin: the one place the step reads its
-// drive.
+// u(t_i) of the declared drive at stage i's node t_i = t + c_i dt (t
+// itself at the first stage), rounded as the twin: the one place the step
+// reads its drive.
 template <typename T>
-__device__ __forceinline__ T rk_drive(T w, T t, T dt, T ci, int i) {
+__device__ __forceinline__ T rk_drive(const Drive<T>& dr, T t, T dt, T ci, int i) {
   const T ti = i == 0 ? t : add_rn(t, mul_rn(ci, dt));
-  return cos_full(mul_rn(w, ti));
+  return drive_at(dr, ti);
 }
 
 // A stage index, from a constant (stage_switch) or at run time.
@@ -149,7 +152,7 @@ __device__ void rk_step_tile(const T* __restrict__ t_rows, const T* __restrict__
                              const T* x, T* x_out, T* __restrict__ err_out,
                              unsigned char* scratch, const RKLayout<T>& L, PanelRing<T>& ring,
                              int rows, int tile, int D, const Tableau<T>& tab, int s, int has_err,
-                             int advance_lower, T w, const ErrNorm<T>& en) {
+                             int advance_lower, const Drive<T>& dr, const ErrNorm<T>& en) {
   constexpr int CN = GEMM_CN;
   constexpr int JN = KS > 0 ? KS : MAX_STAGES;  // stages a loop over j may reach
   const RKThread th = rk_thread<RM>(tile, D);
@@ -205,10 +208,10 @@ __device__ void rk_step_tile(const T* __restrict__ t_rows, const T* __restrict__
     for (int c = 0; c < CN; ++c) xin[q][c] = xv[q][c];
 
   for (int i = 0; i < s; ++i) {
-    // u_i = cos(w t_i) once a row, read after the barrier below
+    // u_i = u(t_i) once a row, read after the barrier below
     T* sui = su + (i & 1) * tile;
     for (int lr = threadIdx.x; lr < tile; lr += blockDim.x)
-      sui[lr] = lr < rows ? rk_drive(w, t_rows[lr], dt_rows[lr], tab.c[i], i) : T(0);
+      sui[lr] = lr < rows ? rk_drive(dr, t_rows[lr], dt_rows[lr], tab.c[i], i) : T(0);
     // (b) publish the stage input: into the other buffer, then the barrier;
     // with one buffer after the barrier, read after the ring's next one
     if (L.nbuf == 2) {

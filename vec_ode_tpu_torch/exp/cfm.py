@@ -22,7 +22,7 @@ from typing import Callable, Optional
 
 import numpy as np
 
-from .. import lc
+from .. import comp, lc
 from .. import tableaus as tb
 from ..ops.dense_chains import ChainTable, Exponent
 from . import dense_fast as df
@@ -71,6 +71,41 @@ def cfm_step(op_fn, split: ExponentialSplit, t, x, dt, alpha: np.ndarray,
     return xf, lc.sub(xe, xf)
 
 
+def cfm_step_comp(op_fn, split: ExponentialSplit, t, x, dt, alpha, c,
+                  alpha_err, lo):
+    """Compensated CFM step (``comp.py``): the main and the error chains
+    in increment form over ``exp_m1``, the estimate their difference, the
+    advance folded into the (x, lo) pair."""
+    t, dt = as_time(t), as_time(dt)
+    alpha = np.asarray(alpha)
+    samples = sample_nodes(op_fn, [t + float(ci) * dt for ci in np.asarray(c)])
+
+    def row_op(a_row):
+        return split.scale_l(split.lincomb_l(samples, list(a_row)), dt)
+
+    n_main = alpha.shape[0]
+    rows = [row_op(alpha[i]) for i in range(n_main)]
+    if alpha_err is not None:
+        alpha_err = np.asarray(alpha_err)
+        rows += [row_op(alpha_err[i]) for i in range(alpha_err.shape[0])]
+    phis = split.exp_many_m1(rows) if len(rows) > 1 else None
+
+    def phi_at(i):
+        return (index_u(phis, i) if phis is not None
+                else split.exp_m1(rows[0]))
+
+    D = comp.chain_increment(split.map_exp,
+                             [phi_at(i) for i in range(n_main)], x)
+    err = None
+    if alpha_err is not None:
+        De = comp.chain_increment(
+            split.map_exp,
+            [phi_at(n_main + i) for i in range(alpha_err.shape[0])], x)
+        err = lc.sub(De, D)
+    hi, lo2 = comp.update(x, lo, D)
+    return hi, err, lo2
+
+
 def cfm_table(alpha, alpha_err=None) -> ChainTable:
     """Chain 0 the rows of ``alpha``, chain 1 the rows of ``alpha_err``,
     each row one exponent dt * sum_j a_j M_j. The chains may differ in
@@ -102,7 +137,7 @@ class CFM(_DenseBatchedStepper):
     batched: Optional[bool] = None   # None = auto (see _DenseBatchedStepper)
     max_squarings: int = 16
     norm: Optional[object] = None    # declared WeightedNorm (batched tier)
-    compensated: bool = False        # not ported
+    compensated: bool = False        # double-word state pair (comp.py)
 
     def __post_init__(self):
         self._check_fields()
@@ -120,18 +155,21 @@ class CFM(_DenseBatchedStepper):
                      else np.asarray(self.alpha_err))
         table = cfm_table(alpha, alpha_err)
 
-        def step_fn(t, x, dt):
+        def step_core(t, x, dt, lo=None):
             if self._batched_mode(t):
                 ts = [t + float(cj) * dt for cj in c]
                 return df.run_batched_chains(
                     self.split, x, dt, self._node_ops(assemble, ts), table,
                     adaptive=alpha_err is not None,
                     max_squarings=self.max_squarings,
-                    wnorm=self._wnorm_parts(x))
+                    wnorm=self._wnorm_parts(x), lo=lo)
             self._scalar_guard(params)
+            if lo is not None:
+                return cfm_step_comp(fn, self.split, t, x, dt, alpha, c,
+                                     alpha_err, lo)
             return cfm_step(fn, self.split, t, x, dt, alpha, c, alpha_err)
 
-        return step_fn
+        return self._wrap_comp(step_core)
 
 
 def _tupled(a):

@@ -30,8 +30,9 @@ import torch
 
 from .. import lc
 from ..ops.cplx import Cplx, embed
-from ..ops.dense_chains import ChainTable, fused_dense_chain_apply
-from ..ops.expm import expm
+from ..ops.dense_chains import (ChainTable, fused_dense_chain_apply,
+                                torch_dense_chains)
+from ..ops.expm import expm, expm_m1
 from .protocol import ExponentialSplit
 
 # (PS degree, theta) per dtype: degree 12 costs the same five products as
@@ -39,10 +40,6 @@ from .protocol import ExponentialSplit
 # eps), so adaptive steps with dt * ||A|| <~ 1 pay no squaring; f64 keeps
 # the tight theta for ~eps truncation (2.4e-18 at 0.25).
 _PS_CFG = {32: (12, 1.0), 64: (12, 0.25)}
-
-_COMPENSATED = ("the compensated (double-word) tier of the generic "
-                "exponential steppers is ROADMAP queue 1 item 25")
-
 
 def ps_params(dtype):
     return _PS_CFG[torch.finfo(dtype).bits]
@@ -87,18 +84,57 @@ def run_batched_chains(split: ExponentialSplit, x, dt, node_ops,
     PER-TRAJECTORY NORM (the batched driver uses error_norm = identity).
 
     ``wnorm = (w_row, post, kind)`` (lc.WeightedNorm.kernel_parts) is a
-    declared error norm over the widened layout. ``lo`` would select the
-    compensated tier, which is not ported."""
-    if lo is not None:
-        raise NotImplementedError(_COMPENSATED)
+    declared error norm over the widened layout, which K9 computes; a
+    callable ``wnorm`` (an ``lc.TracedNorm``'s executor) runs the twin
+    ``torch_dense_chains`` on the tensors' device, which applies it.
+
+    ``lo`` (the state's residual word) selects the compensated tier
+    (:func:`_run_batched_chains_comp`), which returns (y, err_norm,
+    lo_next) and runs torch, never K9, as the JAX package runs it on XLA:
+    no kernel has an increment form."""
     parts = split_parts(split, x)
     dtype = parts[0].dtype
     m, theta = ps_params(dtype)
-    y, e = fused_dense_chain_apply(
-        table, node_ops.to(dtype), dt.to(dtype).contiguous(),
-        widen(parts).contiguous(), m=m, theta=theta,
-        max_squarings=max_squarings, wnorm=wnorm)
+    if lo is not None:
+        return _run_batched_chains_comp(
+            split, parts, lo, dt, node_ops, table, adaptive=adaptive,
+            max_squarings=max_squarings, wnorm=wnorm)
+    run = torch_dense_chains if callable(wnorm) else fused_dense_chain_apply
+    y, e = run(table, node_ops.to(dtype), dt.to(dtype).contiguous(),
+               widen(parts).contiguous(), m=m, theta=theta,
+               max_squarings=max_squarings, wnorm=wnorm)
     return unwiden(split, y), (e if adaptive else None)
+
+
+def _run_batched_chains_comp(split, parts, lo, dt, node_ops,
+                             table: ChainTable, *, adaptive: bool,
+                             max_squarings: int, wnorm):
+    """The compensated executor: one stacked batched ``ops.expm.expm_m1``
+    of every chain exponent (one host sync for its squaring count, as
+    ``expm``), the chains in increment form D <- D + phi_i (x + D), the
+    error the difference of the two chains' increments, and TwoSum of the
+    advance into the (x, lo) pair, all on the widened real layout."""
+    from .. import comp
+
+    xw = widen(parts)
+    lo_w = widen(split_parts(split, lo))
+    chains = table.exponents(node_ops.to(xw.dtype), dt.to(xw.dtype))
+    Phi = expm_m1(torch.stack([W for chain in chains for W in chain]),
+                  max_squarings=max_squarings)
+
+    def increment(idx0, chain_len):
+        D = (Phi[idx0] @ xw[..., None])[..., 0]
+        for i in range(1, chain_len):
+            D = D + (Phi[idx0 + i] @ (xw + D)[..., None])[..., 0]
+        return D
+
+    D = increment(0, len(chains[0]))
+    e = None
+    if len(chains) >= 2 and adaptive:
+        e = lc.apply_weighted_norm(
+            increment(len(chains[0]), len(chains[1])) - D, wnorm)
+    hi2, lo2 = comp._update_leaf(xw, lo_w, D)
+    return unwiden(split, hi2), e, unwiden(split, lo2)
 
 
 def run_stacked_chains(split: ExponentialSplit, x, dt, node_ops,

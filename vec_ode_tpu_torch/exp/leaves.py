@@ -39,6 +39,13 @@ def _check_max_squarings(v):
             f"(got {type(v).__name__})")
 
 
+def cp_embed(L):
+    """The real ring embedding of a Cplx operator (``ops.cplx.embed``)."""
+    from ..ops import cplx as cp
+
+    return cp.embed(L)
+
+
 def _matvec(U, x):
     return (U @ x[..., None])[..., 0]
 

@@ -16,6 +16,13 @@ time in, operator pytree out); steps that need several time samples
 The adaptive error is the actual error vector e^{Omega_1} x0 - e^{Omega} x0
 of the order-2 against the order-4 propagator (the batched tier returns
 its per-trajectory norm).
+
+``compensated=True`` (``comp.py``) carries the state as a double-word
+pair: the advance is the increment D = (e^Omega - I) x from
+``exp_m1``, folded in by TwoSum, the error a difference of increments,
+the ``lo`` word riding the stepper carry. The batched tier then runs
+``dense_fast.run_batched_chains(lo=...)``'s compensated executor (torch on
+the tensors' device, no kernel), as the JAX package runs it on XLA.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ from typing import Callable, Optional
 import torch
 from torch.utils import _pytree as pytree
 
-from .. import lc
+from .. import comp, lc
 from ..ops.dense_chains import ChainTable, Exponent
 from . import dense_fast as df
 from .protocol import ExponentialSplit, index_u
@@ -41,10 +48,6 @@ _B2 = -math.sqrt(3.0) / 12.0
 _G1 = 1.0 / (2.0 - 2.0 ** 0.2)
 _SUB_OFF = (0.0, _G1, 1.0 - _G1)
 _SUB_LEN = (_G1, 1.0 - 2.0 * _G1, _G1)
-
-_COMPENSATED = ("compensated=True: the compensated (double-word) tier of "
-                "the generic exponential steppers is ROADMAP queue 1 item 25")
-
 
 def as_time(t) -> torch.Tensor:
     """A time or step as a tensor: tensors pass, python numbers become
@@ -66,6 +69,15 @@ def midpoint_step(op_fn, split: ExponentialSplit, t, x, dt):
     t, dt = as_time(t), as_time(dt)
     u = split.exp(split.scale_l(op_fn(t + 0.5 * dt), dt))
     return split.map_exp(u, x), None
+
+
+def midpoint_step_comp(op_fn, split: ExponentialSplit, t, x, dt, lo):
+    """Compensated exponential midpoint: the increment D = (e^{dt A} - I) x
+    from ``exp_m1``, folded into the (x, lo) pair."""
+    t, dt = as_time(t), as_time(dt)
+    phi = split.exp_m1(split.scale_l(op_fn(t + 0.5 * dt), dt))
+    hi, lo2 = comp.update(x, lo, split.map_exp(phi, x))
+    return hi, None, lo2
 
 
 def _m4_omega(op_fn, split: ExponentialSplit, t, dt):
@@ -100,6 +112,44 @@ def magnus4_step(op_fn, split: ExponentialSplit, t, x, dt, *,
     u_pair = split.exp_many([omega, w1])
     xf = split.map_exp(index_u(u_pair, 0), x)
     return xf, lc.sub(split.map_exp(index_u(u_pair, 1), x), xf)
+
+
+def magnus4_step_comp(op_fn, split: ExponentialSplit, t, x, dt, lo, *,
+                      adaptive: bool = True, fast_error: bool = False):
+    """Compensated Magnus-4: the advance D = (e^Omega - I) x folded into
+    the (x, lo) pair; the estimate the difference of increments
+    (e^{Omega_1} - I) x - D (``fast_error``: w2 on the advanced hi)."""
+    omega, w1, w2 = _m4_omega(op_fn, split, t, dt)
+    if not adaptive or fast_error:
+        D = split.map_exp(split.exp_m1(omega), x)
+        hi, lo2 = comp.update(x, lo, D)
+        err = split.apply_l(w2, hi) if (adaptive and fast_error) else None
+        return hi, err, lo2
+    phis = split.exp_many_m1([omega, w1])
+    D = split.map_exp(index_u(phis, 0), x)
+    err = lc.sub(split.map_exp(index_u(phis, 1), x), D)
+    hi, lo2 = comp.update(x, lo, D)
+    return hi, err, lo2
+
+
+def magnus6_step_comp(op_fn, split: ExponentialSplit, t, x, dt, lo, *,
+                      adaptive: bool = True):
+    """Compensated Magnus-6: the triple jump in increment form
+    (``comp.chain_increment``), the order-4 comparison an increment
+    difference."""
+    t, dt = as_time(t), as_time(dt)
+    omegas = [_m4_omega(op_fn, split, t + o * dt, g * dt)[0]
+              for o, g in zip(_SUB_OFF, _SUB_LEN)]
+    if adaptive:
+        omegas.append(_m4_omega(op_fn, split, t, dt)[0])
+    phis = split.exp_many_m1(omegas)
+    D = comp.chain_increment(split.map_exp,
+                             [index_u(phis, i) for i in range(3)], x)
+    err = None
+    if adaptive:
+        err = lc.sub(split.map_exp(index_u(phis, 3), x), D)
+    hi, lo2 = comp.update(x, lo, D)
+    return hi, err, lo2
 
 
 def magnus6_step(op_fn, split: ExponentialSplit, t, x, dt, *,
@@ -166,28 +216,52 @@ class _DenseBatchedStepper:
     batched (t, x, dt), the step's chains run on the fused kernel, and
     the step returns the per-trajectory error NORM
     (``error_norm`` = identity). ``batched=False`` asks for the vmapped
-    scalar path."""
+    scalar path. ``compensated=True``: the residual word ``lo`` rides the
+    stepper carry (``step_fn(t, x, dt, lo) -> (x_next, err, lo)``)."""
 
     error_norm = staticmethod(lambda e: e)
     # ensemble_solve params support: op_fn(t, p) vmapped over (t, params)
     supports_batched_params = True
 
     def _check_fields(self):
-        if getattr(self, "compensated", False):
-            raise NotImplementedError(_COMPENSATED)
         norm = getattr(self, "norm", None)
-        if norm is not None and not isinstance(norm, lc.WeightedNorm):
-            raise NotImplementedError(
-                "norm=: only a declared lc.WeightedNorm runs on the batched "
-                "dense tier; other norms (lc.TracedNorm, opaque callables) "
-                "are ROADMAP queue 1 item 26")
+        if norm is not None and not isinstance(
+                norm, (lc.WeightedNorm, lc.TracedNorm)):
+            raise TypeError(
+                "norm=: a declared lc.WeightedNorm or an lc.TracedNorm; "
+                "opaque callables go through error_norm=")
+
+    @property
+    def has_carry(self) -> bool:
+        return bool(getattr(self, "compensated", False))
+
+    def make_init_carry(self, fn=None, params=None):
+        """The compensated tier's carry at (t0, x0): the zero ``lo``."""
+        return lambda t, x: comp.zero_lo(x)
+
+    def _wrap_comp(self, step_core):
+        """The step function of the stepper's tier: with ``compensated``
+        it takes and returns the ``lo`` carry."""
+        if getattr(self, "compensated", False):
+            return lambda t, x, dt, lo: step_core(t, x, dt, lo)
+        return lambda t, x, dt: step_core(t, x, dt)
 
     def _wnorm_parts(self, x):
         """kernel_parts of the declared ``norm`` (lc.WeightedNorm) over
-        this split's widened layout, or None."""
+        this split's widened layout, the widened executor of an
+        ``lc.TracedNorm`` (a callable, which only the twin runs), or
+        None."""
         wn = getattr(self, "norm", None)
         if wn is None:
             return None
+        if isinstance(wn, lc.TracedNorm):
+            split = self.split
+
+            def traced_exec(dv):
+                err = df.unwiden(split, dv)
+                return wn(err) if dv.ndim == 1 else wn.batched(err)
+
+            return traced_exec
         parts = df.split_parts(self.split, x)
         kp = wn.kernel_parts(parts[0].shape[-1], len(parts))
         if kp is None:
@@ -247,10 +321,16 @@ class _DenseBatchedStepper:
     def step_path(self, y0) -> str:
         """The per-step path's tag for ``Solution.path``: the host driver
         with one K9 launch per iteration on the card, the kernel's twin on
-        CPU tensors."""
-        if pytree.tree_leaves(y0)[0].is_cuda:
-            return "torch-driver+cuda-step"
-        return "torch-driver"
+        CPU tensors; on the card a traced norm runs the twin
+        (``+twin-step``) and the compensated tier its torch executor
+        (``+comp-step``), as the JAX package runs it on XLA."""
+        if not pytree.tree_leaves(y0)[0].is_cuda:
+            return "torch-driver"
+        if getattr(self, "compensated", False):
+            return "torch-driver+comp-step"
+        if isinstance(getattr(self, "norm", None), lc.TracedNorm):
+            return "torch-driver+twin-step"
+        return "torch-driver+cuda-step"
 
     def _scalar_guard(self, params):
         if params is not None:
@@ -269,7 +349,7 @@ class ExpMidpoint(_DenseBatchedStepper):
     op_fn: Callable = None  # or the argument of make_step_fn
     batched: Optional[bool] = None   # None = auto (see _DenseBatchedStepper)
     max_squarings: int = 16
-    compensated: bool = False        # not ported
+    compensated: bool = False        # double-word state pair (comp.py)
 
     nfev_per_step = 1
 
@@ -281,16 +361,18 @@ class ExpMidpoint(_DenseBatchedStepper):
         assemble = self._assembler(fn, params)
         table = midpoint_table()
 
-        def step_fn(t, x, dt):
+        def step_core(t, x, dt, lo=None):
             if self._batched_mode(t):
                 return df.run_batched_chains(
                     self.split, x, dt,
                     self._node_ops(assemble, [t + 0.5 * dt]), table,
-                    adaptive=False, max_squarings=self.max_squarings)
+                    adaptive=False, max_squarings=self.max_squarings, lo=lo)
             self._scalar_guard(params)
+            if lo is not None:
+                return midpoint_step_comp(fn, self.split, t, x, dt, lo)
             return midpoint_step(fn, self.split, t, x, dt)
 
-        return step_fn
+        return self._wrap_comp(step_core)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -309,7 +391,7 @@ class Magnus4(_DenseBatchedStepper):
     max_squarings: int = 16
     norm: Optional[object] = None
     fast_error: bool = False
-    compensated: bool = False        # not ported
+    compensated: bool = False        # double-word state pair (comp.py)
 
     nfev_per_step = 2
 
@@ -322,32 +404,37 @@ class Magnus4(_DenseBatchedStepper):
         fast = self.adaptive and self.fast_error
         table = magnus4_table(pair=self.adaptive and not fast)
 
-        def batched_step(t, x, dt):
+        def batched_step(t, x, dt, lo):
             node_ops = self._node_ops(assemble, gl2_times(t, dt))
             wnorm = self._wnorm_parts(x)
-            y, e = df.run_batched_chains(
+            out = df.run_batched_chains(
                 self.split, x, dt, node_ops, table,
                 adaptive=self.adaptive and not fast,
                 max_squarings=self.max_squarings,
-                wnorm=None if fast else wnorm)
+                wnorm=None if fast else wnorm, lo=lo)
             if not fast:
-                return y, e
+                return out
+            y = out[0]
             yw = df.widen(df.split_parts(self.split, y))
             E1, E2 = node_ops.to(yw.dtype)
             dt3 = dt.to(yw.dtype)[:, None, None]
             w2 = ((_B2 * dt3) * dt3) * (E1 @ E2 - E2 @ E1)
             dv = (w2 @ yw[..., None])[..., 0]
-            return y, lc.apply_weighted_norm(dv, wnorm)
+            return (y, lc.apply_weighted_norm(dv, wnorm)) + tuple(out[2:])
 
-        def step_fn(t, x, dt):
+        def step_core(t, x, dt, lo=None):
             if self._batched_mode(t):
-                return batched_step(t, x, dt)
+                return batched_step(t, x, dt, lo)
             self._scalar_guard(params)
+            if lo is not None:
+                return magnus4_step_comp(fn, self.split, t, x, dt, lo,
+                                         adaptive=self.adaptive,
+                                         fast_error=self.fast_error)
             return magnus4_step(fn, self.split, t, x, dt,
                                 adaptive=self.adaptive,
                                 fast_error=self.fast_error)
 
-        return step_fn
+        return self._wrap_comp(step_core)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -363,7 +450,7 @@ class Magnus6(_DenseBatchedStepper):
     batched: Optional[bool] = None   # None = auto (see _DenseBatchedStepper)
     max_squarings: int = 16
     norm: Optional[object] = None    # declared WeightedNorm (batched tier)
-    compensated: bool = False        # not ported
+    compensated: bool = False        # double-word state pair (comp.py)
 
     def __post_init__(self):
         self._check_fields()
@@ -381,16 +468,19 @@ class Magnus6(_DenseBatchedStepper):
         if self.adaptive:
             spans.append((0.0, 1.0))
 
-        def step_fn(t, x, dt):
+        def step_core(t, x, dt, lo=None):
             if self._batched_mode(t):
                 ts = [tn for o, ln in spans for tn in gl2_times(t, dt, o, ln)]
                 return df.run_batched_chains(
                     self.split, x, dt, self._node_ops(assemble, ts), table,
                     adaptive=self.adaptive,
                     max_squarings=self.max_squarings,
-                    wnorm=self._wnorm_parts(x))
+                    wnorm=self._wnorm_parts(x), lo=lo)
             self._scalar_guard(params)
+            if lo is not None:
+                return magnus6_step_comp(fn, self.split, t, x, dt, lo,
+                                         adaptive=self.adaptive)
             return magnus6_step(fn, self.split, t, x, dt,
                                 adaptive=self.adaptive)
 
-        return step_fn
+        return self._wrap_comp(step_core)

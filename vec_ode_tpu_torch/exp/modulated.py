@@ -41,11 +41,13 @@ import torch
 
 from .. import lc
 from .. import tableaus as tb
+from ..config import _decline
 from ..ops.cplx import Cplx, cmatmul, embed
 from ..ops.expmv import (CfmTable, ChebForm, CoeffForm, basis_norms,
                          fused_chain_apply, has_error_estimate,
                          n_working_terms, node_times, pairs_of, scale_rows,
-                         stacked_transpose, torch_chain_expmv)
+                         stacked_transpose, torch_chain_expmv,
+                         torch_chain_step)
 
 __all__ = ["ModulatedOperator", "CoeffForm", "ChebForm", "CfmTable",
            "MidpointModulated", "MagnusModulated4", "MagnusModulated6",
@@ -185,11 +187,16 @@ def operator_slope(op: ModulatedOperator, t, x):
 
 def _stepper_wnorm(stepper, d_part: int, n_parts: int):
     """(w_row, post, kind) of the stepper's declared ``norm``
-    (lc.WeightedNorm) over the kernels' widened-real layout, or None.
+    (lc.WeightedNorm) over the kernels' widened-real layout, the widened
+    executor of an ``lc.TracedNorm`` (which only the twin runs), or None.
     Raises for weights the batched layout cannot express."""
     wn = getattr(stepper, "norm", None)
     if wn is None:
         return None
+    if isinstance(wn, lc.TracedNorm):
+        if n_parts == 1:
+            return wn.batched
+        return lambda dv: wn.batched(Cplx(dv[..., :d_part], dv[..., d_part:]))
     kp = wn.kernel_parts(d_part, n_parts)
     if kp is None:
         raise ValueError(
@@ -199,17 +206,27 @@ def _stepper_wnorm(stepper, d_part: int, n_parts: int):
 
 
 def _check_norm(norm):
-    if norm is not None and not isinstance(norm, lc.WeightedNorm):
-        raise NotImplementedError(
-            "norm=: only a declared lc.WeightedNorm runs in the port's "
-            "kernels; other norms (lc.TracedNorm, opaque callables) are "
-            "ROADMAP queue 1 item 26")
+    if norm is not None and not isinstance(norm,
+                                           (lc.WeightedNorm, lc.TracedNorm)):
+        raise TypeError(
+            "norm=: a declared lc.WeightedNorm or an lc.TracedNorm; "
+            "ensemble_solve promotes an opaque error_norm= callable to the "
+            "latter (lc.try_trace_norm)")
+
+
+def _traced(stepper) -> bool:
+    return isinstance(getattr(stepper, "norm", None), lc.TracedNorm)
 
 
 def _modulated_step_path(self, y0) -> str:
-    """Execution-path tag of the per-step path for ``Solution.path``."""
+    """Execution-path tag of the per-step path for ``Solution.path``: K4
+    on the card, its twin there under a traced norm (no kernel runs a
+    Python callable), the twin on the CPU."""
     leaf = y0.re if isinstance(y0, Cplx) else y0
-    return "torch-driver+cuda-step" if leaf.is_cuda else "torch-driver"
+    if not leaf.is_cuda:
+        return "torch-driver"
+    return "torch-driver+twin-step" if _traced(self) else \
+        "torch-driver+cuda-step"
 
 
 class _ChainStepper:
@@ -260,7 +277,9 @@ class _ChainStepper:
             m, theta = _taylor_params(xw.dtype, self.m)
             samples = [coeff_fn(tn).to(xw.dtype).contiguous()
                        for tn in node_times(recipe, t, dt, C, table)]
-            y, err = fused_chain_apply(
+            # a traced norm runs the twin on the tensors' device
+            run = torch_chain_step if _traced(self) else fused_chain_apply
+            y, err = run(
                 samples, dt.to(xw.dtype).contiguous(), xw, mt, norms,
                 recipe=recipe, C=C, m=m, theta=theta,
                 max_squarings=self.max_squarings,
@@ -297,17 +316,27 @@ class _ChainStepper:
         from ..ops.fused_loop import (ChainStep, fused_loop_integrate,
                                       loop_solution)
 
-        if adaptive != self._adaptive or self.op.form is None:
-            return None
+        if adaptive != self._adaptive:
+            return _decline("adaptive= differs from the stepper's")
+        if self.op.form is None:
+            return _decline("the operator declares no CoeffForm / "
+                            "ChebForm coefficient form")
+        if _traced(self):
+            return _decline("a traced error norm: the loop kernel takes "
+                            "a declared WeightedNorm")
         is_cplx = self.op.is_cplx
         leaf = y0.re if is_cplx else y0
-        if leaf.ndim != 2 or t_grid.dtype != leaf.dtype:
-            return None
+        if leaf.ndim != 2:
+            return _decline("the state is not (B, d)")
+        if t_grid.dtype != leaf.dtype:
+            return _decline(f"time dtype {t_grid.dtype} is not the state's "
+                            f"{leaf.dtype}")
         ev_spec = None
         if events is not None:
             ev_spec = events.kernel_spec(leaf.shape[-1], 2 if is_cplx else 1)
             if ev_spec is None:
-                return None
+                return _decline("events= has an opaque callable; the loop "
+                                "kernel takes declared observables")
         dense = dense and t_grid.shape[0] > 2
         wnorm = None
         if getattr(self, "norm", None) is not None:

@@ -1,7 +1,8 @@
 """Vector-space helpers over pytree states (tensors, ``Cplx`` pairs,
 tuples, dicts): scale, add, sub, axpy, lincomb, ``zeros_like``, the l2 /
 max / rms norms, ``vdot``, ``tree_where``, and the declared error norm
-``WeightedNorm`` (the counterpart of ``vec_ode_tpu/lc.py``). The norms
+``WeightedNorm`` with ``TracedNorm`` / ``try_trace_norm`` for opaque
+norms (the counterpart of ``vec_ode_tpu/lc.py``). The norms
 are real for complex leaves: they reduce |a|^2 = real(a conj(a))."""
 
 from __future__ import annotations
@@ -141,10 +142,6 @@ def tree_where(mask: torch.Tensor, a, b):
     return pytree.tree_map(sel, a, b)
 
 
-_TRACED = ("lc.TracedNorm and opaque error-norm callables are ROADMAP "
-           "queue 1 item 26")
-
-
 @dataclasses.dataclass(frozen=True)
 class WeightedNorm:
     """A declared error norm that the kernels execute natively: weighted
@@ -155,11 +152,12 @@ class WeightedNorm:
           "rms" -> l2 / sqrt(n_real_components)
           "max" -> max |w e|
 
-    ``weights``: None (all ones), or one array broadcast against each
-    leaf's trailing axis, stored as a tuple so the declaration stays
-    hashable. Pytree weights (one array per leaf) raise
-    ``NotImplementedError``. Callable per trajectory; ``.batched`` reduces
-    per trajectory over a leading batch axis.
+    ``weights``: None (all ones), one array broadcast against each leaf's
+    trailing axis (stored as a tuple so the declaration stays hashable),
+    or a pytree matching the error's structure, one array per leaf (kept
+    as it is; the kernels cannot lay it out, so the natively batched
+    steppers refuse it, as the JAX package's do). Callable per trajectory;
+    ``.batched`` reduces per trajectory over a leading batch axis.
     """
 
     kind: str = "l2"
@@ -174,21 +172,42 @@ class WeightedNorm:
         try:
             w = np.asarray(self.weights, np.float64)
         except (TypeError, ValueError):
-            w = None
-        if w is None or w.ndim > 1:
-            raise NotImplementedError(
-                "WeightedNorm: pytree weights (one array per leaf) are not "
-                f"ported; pass one per-component array ({_TRACED})")
-        object.__setattr__(self, "weights",
-                           tuple(w.tolist()) if w.ndim else float(w))
+            return  # a pytree of per-leaf arrays stays as it is
+        if w.ndim == 1:
+            object.__setattr__(self, "weights", tuple(w.tolist()))
+        elif w.ndim == 0:
+            object.__setattr__(self, "weights", float(w))
 
-    def _reduce(self, err, batch_ndim: int) -> torch.Tensor:
+    def _flat(self) -> bool:
+        """Whether the weights are one array (a tuple of floats) or one
+        number, broadcast to every leaf, rather than a pytree."""
+        w = self.weights
+        return isinstance(w, float) or (isinstance(w, tuple) and all(
+            isinstance(v, float) for v in w))
+
+    def _weighted_leaves(self, err):
+        """(the weighted leaves, the leaves): pytree weights leaf by leaf
+        where their structure matches the error's, else one array
+        broadcast to every leaf."""
         leaves = pytree.tree_leaves(err)
         if self.weights is None:
-            wl = leaves
-        else:
-            wl = [a * torch.as_tensor(self.weights, dtype=a.dtype,
-                                      device=a.device) for a in leaves]
+            return leaves, leaves
+
+        def mul(a, w):
+            return a * torch.as_tensor(np.asarray(w) if not isinstance(
+                w, torch.Tensor) else w, dtype=a.dtype, device=a.device)
+
+        if not self._flat():
+            try:
+                return pytree.tree_leaves(
+                    pytree.tree_map(mul, err, self.weights)), leaves
+            except (ValueError, TypeError, RuntimeError):
+                pass  # not a matching pytree: broadcast
+        w = self.weights
+        return [mul(a, w) for a in leaves], leaves
+
+    def _reduce(self, err, batch_ndim: int) -> torch.Tensor:
+        wl, leaves = self._weighted_leaves(err)
 
         def reduce(op, a):
             # torch reads an empty dim tuple as "every axis"
@@ -223,29 +242,80 @@ class WeightedNorm:
         if self.weights is None:
             row = None
         else:
+            if not self._flat() or isinstance(self.weights, float):
+                return None
             w = np.asarray(self.weights, np.float64)
-            if w.ndim != 1 or w.shape[0] != d_part:
+            if w.shape[0] != d_part:
                 return None
             row = np.concatenate([w] * n_parts)[None, :]
         post = (1.0 / math.sqrt(n_parts * d_part) if self.kind == "rms"
                 else 1.0)
         return row, post, ("max" if self.kind == "max" else "l2")
 
+    def same_as(self, other) -> bool:
+        """Whether ``other`` declares the same norm (pytree weights compare
+        by identity, as their arrays do not compare to one truth value)."""
+        try:
+            return bool(self == other)
+        except (RuntimeError, ValueError, TypeError):
+            return self is other
+
 
 class TracedNorm:
-    """An opaque per-trajectory norm callable promoted to the batched tier
-    (``vec_ode_tpu.lc.TracedNorm``): not ported."""
+    """An opaque per-trajectory error-norm callable promoted to the
+    batched tier, the counterpart of ``vec_ode_tpu.lc.TracedNorm``:
+    ``ensemble_solve`` probes an opaque ``error_norm=`` with
+    :func:`try_trace_norm` and, where it maps to a scalar per trajectory,
+    installs it here in a natively batched stepper's ``norm`` slot. No
+    kernel runs a Python callable, so such a stepper runs its plain twin
+    step on the tensors' device and applies the norm there."""
+
+    __slots__ = ("fn",)
 
     def __init__(self, fn):
-        raise NotImplementedError(_TRACED)
+        if not callable(fn):
+            raise TypeError(f"TracedNorm needs a callable, got {fn!r}")
+        self.fn = fn
+
+    def __call__(self, err):
+        return self.fn(err)
+
+    def batched(self, err):
+        return torch.func.vmap(self.fn)(err)
+
+
+def try_trace_norm(fn, example_err):
+    """Probe ``fn`` (a per-trajectory error-norm callable) on the shapes
+    and types of one trajectory's error ``example_err`` (a pytree of
+    tensors, which is not read): under ``torch.func.vmap`` over a batch of
+    two zero copies, on the CPU and, failing that, on the meta device, so
+    that the probe launches nothing on the card and leaves nothing there.
+    Returns a :class:`TracedNorm` where it maps to one scalar per
+    trajectory, else None (the caller keeps its fallback paths)."""
+    for device in ("cpu", "meta"):
+        probe = pytree.tree_map(
+            lambda a: torch.zeros((2,) + tuple(a.shape), dtype=a.dtype,
+                                  device=device), example_err)
+        try:
+            out = torch.func.vmap(fn)(probe)
+        except Exception:  # noqa: BLE001 - any failure means "not traceable"
+            continue
+        if isinstance(out, torch.Tensor) and tuple(out.shape) == (2,):
+            return TracedNorm(fn)
+        return None
+    return None
 
 
 def apply_weighted_norm(dv: torch.Tensor, wnorm, axis: int = -1):
     """post * ||w_row * dv|| with kind l2|max over ``axis``: the plain
     executor of a ``WeightedNorm.kernel_parts`` declaration
-    ``(w_row, post, kind)``, or the plain l2 norm for ``wnorm=None``."""
+    ``(w_row, post, kind)``, the plain l2 norm for ``wnorm=None``, or a
+    callable ``wnorm`` (a ``TracedNorm``'s executor over the widened error
+    rows, built by the steppers) applied to ``dv`` as it is."""
     if wnorm is None:
         return torch.sqrt(torch.sum(dv * dv, dim=axis))
+    if callable(wnorm):
+        return wnorm(dv)
     w_row, post, kind = wnorm
     if w_row is not None:
         dv = dv * torch.as_tensor(w_row, dtype=dv.dtype,

@@ -1,9 +1,9 @@
 """Complex pairs, the matrix exponential and the fused steps (with their
 CUDA kernels)."""
 
-from .cplx import (Cplx, apply_embedded, cabs2, cconj, cexp, cexpm, cexpm1,
-                   cmatmul, cmatvec, cscale, cscale_any, embed, extract,
-                   from_complex, to_complex)
+from .cplx import (Cplx, apply_embedded, cabs2, cconj, cexp, cexpm,
+                   cexpm1, cexpm_apply, cmatmul, cmatvec, cscale, cscale_any,
+                   embed, extract, from_complex, to_complex)
 from .dense_chains import (ChainTable, Exponent, fused_dense_chain_apply,
                            torch_dense_chains)
 from .expm import expm, expm_apply, expm_frechet, expm_m1
@@ -24,6 +24,7 @@ __all__ = [
     "cexp",
     "cexpm",
     "cexpm1",
+    "cexpm_apply",
     "cmatmul",
     "cmatvec",
     "cscale",

@@ -77,6 +77,15 @@ class Cplx(NamedTuple):
     __radd__ = __add__
 
 
+def cplx(re, im=None) -> Cplx:
+    """A pair from its real part and, optionally, its imaginary part (zeros
+    like ``re`` without one); tensors stay where they lie, anything else
+    becomes a tensor on the CPU."""
+    re = torch.as_tensor(re)
+    return Cplx(re, torch.zeros_like(re) if im is None
+                else torch.as_tensor(im, device=re.device))
+
+
 def from_complex(z, dtype=torch.float64, device="cuda") -> Cplx:
     """Split a complex numpy array or tensor into a real pair, on the card
     unless ``device`` names another."""
@@ -189,3 +198,9 @@ def cexpm(A: Cplx, *, max_squarings: int = 16) -> Cplx:
     from .expm import expm
 
     return extract(expm(embed(A), max_squarings=max_squarings))
+
+
+def cexpm_apply(A: Cplx, x: Cplx, **kw) -> Cplx:
+    """exp(A) x for a (..., d, d) Cplx A and (..., d) Cplx x (``kw`` as
+    :func:`cexpm`)."""
+    return cmatvec(cexpm(A, **kw), x)

@@ -63,9 +63,10 @@ from . import _build
 from .expmv import (GEMM_CN, LOOP_THREADS, CfmTable, ChebForm, CoeffForm,
                     chain_params, check_chain_operands, gemm_dp,
                     has_error_estimate, node_times, torch_chain_step)
-from .fused_rk import (MAX_STAGES, check_kernel_inputs, kernel_norm_args,
-                       kernel_operands, rk_smem_bytes, torch_rk_step,
-                       wnorm_on)
+from .fused_rk import (MAX_STAGES, check_kernel_inputs, cos_drive,
+                       cos_frequency, drive_fn, is_declared, kernel_drive,
+                       kernel_norm_args, kernel_operands, rk_smem_bytes,
+                       torch_rk_step, wnorm_on)
 
 N_F = 5   # float carry columns: t, h, prev_h, err_norm, t_lo
 N_I = 8   # int carry columns: tgt, status, event, n_acc, n_rej, n_it,
@@ -85,30 +86,47 @@ _INT_MAX = 2**31 - 1
 
 @dataclasses.dataclass(frozen=True)
 class RKStep:
-    """The step the loop kernel runs: dx/dt = (M0 + cos(w t) M1) x over
-    the widened state, with ``tableau``, and the error measure
-    ``scaled=(atol, rtol)`` (scaled_error) or ``wnorm=(w_row, post,
+    """The step the loop kernel runs: dx/dt = (M0 + u(t) M1) x over the
+    widened state, with ``tableau``, the declared drive ``u_fn`` (a
+    one-term ``CoeffForm`` or ``ChebForm``, whose series is put beside the
+    operators once; ``w=`` is the shorthand for cos(w t)), and the error
+    measure ``scaled=(atol, rtol)`` (scaled_error) or ``wnorm=(w_row, post,
     kind)`` (``lc.WeightedNorm.kernel_parts``) or plain l2."""
 
     M0: torch.Tensor        # (2d, 2d), in the state's type and device
     M1: torch.Tensor
-    w: float
+    u_fn: Union[CoeffForm, ChebForm, None] = None
     tableau: ButcherTableau = RKF45
     advance_lower: bool = True
     scaled: Optional[tuple] = None
     wnorm: Optional[tuple] = None
+    w: dataclasses.InitVar[Optional[float]] = None
+
+    def __post_init__(self, w):
+        if self.u_fn is None and w is None:
+            raise TypeError("RKStep: missing the drive: pass u_fn= or w=")
+        if self.u_fn is None:   # u_fn decides where both are given
+            object.__setattr__(self, "u_fn", cos_drive(w))
+        if not is_declared(self.u_fn):
+            raise TypeError("RKStep: the loop kernel takes a declared drive "
+                            "(a one-term CoeffForm or ChebForm)")
+        object.__setattr__(self, "drive",
+                           kernel_drive(self.u_fn, self.M0)
+                           if self.M0.is_cuda else None)
 
     def plain(self, t, dt, xw):
         """The step in plain torch (``torch_rk_step``)."""
         return torch_rk_step(t, dt, xw, self.M0, self.M1,
-                             u_fn=lambda ti: torch.cos(self.w * ti),
-                             tab=self.tableau,
+                             u_fn=drive_fn(self.u_fn), tab=self.tableau,
                              advance_lower=self.advance_lower,
                              wnorm=self.wnorm, scaled=self.scaled)
 
     @property
     def has_err(self) -> bool:
         return self.tableau.b_err is not None
+
+
+RKStep.w = property(lambda self: cos_frequency(self.u_fn))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -496,7 +514,7 @@ def _kernel_lib() -> ctypes.CDLL:
     for fn in (lib.vec_ode_fused_loop_f32, lib.vec_ode_fused_loop_f64):
         fn.restype = ci
         fn.argtypes = [vp, ci, vp, vp, vp, vp, vp, vp, vp, ci, ci, vp, pd,
-                       ci, ci, cd, vp, cd, ci, pd, ci, ci, pv, pd, vp]
+                       ci, ci, pd, vp, vp, cd, ci, pd, ci, ci, pv, pd, vp]
     for fn in (lib.vec_ode_fused_loop_chain_f32,
                lib.vec_ode_fused_loop_chain_f64):
         fn.restype = ci
@@ -656,8 +674,13 @@ def fused_loop_chunk(t_grid, fs, ist, x, saves, step, *, ctl: StepControl,
         mt, tab_c = kernel_operands(step.M0, step.M1, step.tableau)
         check_kernel_inputs("fused_loop_chunk", x, mt, w_row)
         fn = lib.vec_ode_fused_loop_f32 if f32 else lib.vec_ode_fused_loop_f64
+        drive = step.drive
+        if drive is None or (drive.cheb is not None and (
+                drive.cheb.device != x.device or drive.cheb.dtype != x.dtype)):
+            drive = kernel_drive(step.u_fn, x)
         step_args = (mt.data_ptr(), tab_c, step.tableau.stages,
-                     int(step.advance_lower), float(step.w))
+                     int(step.advance_lower), drive.params,
+                     None if drive.cheb is None else drive.cheb.data_ptr())
     else:
         K0 = step.form.n_terms
         Kp = check_chain_operands("fused_loop_chunk", x, step.mt, step.norms,

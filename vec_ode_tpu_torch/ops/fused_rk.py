@@ -9,8 +9,11 @@ driven Hamiltonian H(t) = H0 + cos(w t) V in real-pair form. States are
 * :func:`fused_rk_step` is the wrapper of the hand-written CUDA kernel
   ``csrc/fused_rk_step.cu``: the whole embedded step (all stages, the
   advance, the embedded error and its per-trajectory l2 or declared
-  ``WeightedNorm`` norm) in one launch. It takes the declared drive
-  u(t) = cos(w t).
+  ``WeightedNorm`` norm) in one launch. It takes a declared drive u(t):
+  a one-term :class:`~.forms.CoeffForm` (``w=`` is the shorthand for
+  cos(w t), :func:`cos_drive`) or a one-term :class:`~.forms.ChebForm`,
+  sampled in-kernel in the twins' order. A callable drive runs no kernel:
+  the stepper runs the twin step on the tensors' device.
 * :func:`torch_rk_step` is its plain torch twin, the counterpart of
   ``xla_rk_step``, and also of the step inside the whole-loop kernel
   (``scaled=``). The wrapper runs it only for tensors on the CPU; for CUDA
@@ -34,15 +37,17 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
 
 from .. import lc
+from ..config import _decline
 from ..tableaus import RKF45, ButcherTableau
 from . import _build
 from .cplx import Cplx
+from .forms import FORMS, ChebForm, CoeffForm
 
 # the kernel's limits (MAX_STAGES and MAX_WIDTH in csrc/numerics.cuh)
 MAX_STAGES = 7    # tableau stages
@@ -61,6 +66,81 @@ def _row_matmul(x: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
     return x @ M.T
 
 
+def cos_drive(w: float) -> CoeffForm:
+    """The drive u(t) = cos(w t) as the declared one-term form (0, 0, 1,
+    w): its sampler leaves out the zero terms and multiplies by c = 1, so
+    it gives the bits of cos(w t) itself."""
+    return CoeffForm(a=(0.0,), b=(0.0,), c=(1.0,), w=(float(w),))
+
+
+def is_declared(u_fn) -> bool:
+    """Whether a drive is a declared form a kernel samples (else a callable
+    that only the twin step can run)."""
+    return isinstance(u_fn, (CoeffForm, ChebForm))
+
+
+def check_drive(u_fn) -> None:
+    """Raise on what is not a drive: a one-term CoeffForm or ChebForm, or a
+    torch callable t -> u(t)."""
+    if is_declared(u_fn):
+        if u_fn.n_terms != 1:
+            raise ValueError(
+                f"the RK drive is one function u(t); the declared form has "
+                f"{u_fn.n_terms} terms")
+    elif not callable(u_fn):
+        raise TypeError(
+            f"u_fn must be a one-term CoeffForm / ChebForm or a callable "
+            f"t -> u(t), got {type(u_fn).__name__}")
+
+
+def drive_fn(u_fn) -> Callable:
+    """u(t) as the twins evaluate it: a declared form by its ``sample`` (in
+    the kernels' order), a callable as it is."""
+    if is_declared(u_fn):
+        return lambda ti: u_fn.sample(ti)[..., 0]
+    return u_fn
+
+
+def cos_frequency(u_fn) -> Optional[float]:
+    """w where the drive is the declared cos(w t) (:func:`cos_drive`), else
+    None."""
+    if (isinstance(u_fn, CoeffForm) and u_fn.n_terms == 1
+            and (u_fn.a[0], u_fn.b[0], u_fn.c[0]) == (0.0, 0.0, 1.0)):
+        return u_fn.w[0]
+    return None
+
+
+class KernelDrive(NamedTuple):
+    """A declared drive as K1 and K2's RK step read it: the 8 float64
+    values [kind, n, a, b, c, w, mid, inv] (csrc/numerics.cuh:
+    parse_drive) and a ChebForm's (1, n) series on the card (None for a
+    CoeffForm), made once per stepper and device."""
+
+    params: ctypes.Array
+    cheb: Optional[torch.Tensor]
+
+
+def kernel_drive(u_fn, like: torch.Tensor) -> KernelDrive:
+    """The kernel's drive arguments for a declared ``u_fn`` in ``like``'s
+    type and on its device; a callable drive raises (no kernel runs a
+    Python callable)."""
+    check_drive(u_fn)
+    if isinstance(u_fn, ChebForm):
+        mid, inv = u_fn.folded()
+        vals = [FORMS["cheb"], u_fn.n_coeffs, 0.0, 0.0, 0.0, 0.0, mid, inv]
+        cheb = u_fn.kernel_table(like.dtype, like.device)
+    elif isinstance(u_fn, CoeffForm):
+        vals = [FORMS["coeff"], 0, u_fn.a[0], u_fn.b[0], u_fn.c[0],
+                u_fn.w[0], 0.0, 0.0]
+        cheb = None
+    else:
+        raise TypeError(
+            "the RK kernels take a declared drive (a one-term CoeffForm or "
+            "ChebForm); a callable u_fn runs the twin step (ROADMAP rule "
+            "'Kernels take declared forms')")
+    return KernelDrive((ctypes.c_double * 8)(*vals), cheb)
+
+
 def _step_error_measure(err, xw, x_next, *, wnorm=None, scaled=None):
     """The per-row measure of the error vector ``err`` (B, 2d) that the
     kernels compute, in their order (``make_rk_step_builder``):
@@ -68,7 +148,10 @@ def _step_error_measure(err, xw, x_next, *, wnorm=None, scaled=None):
     then ``wnorm=(w_row, post, kind)`` (``lc.WeightedNorm.kernel_parts``)
     multiplies by the weight row and reduces by l2 or max; then the
     scaled measure is multiplied by rtol, and last by post. Without either
-    it is the plain per-row l2 norm."""
+    it is the plain per-row l2 norm; a callable ``wnorm`` (a
+    ``TracedNorm``'s executor) takes the error rows as they are."""
+    if callable(wnorm):
+        return wnorm(err)
     if scaled is not None:
         atol, rtol = scaled
         err = err / (atol + rtol * torch.maximum(xw.abs(), x_next.abs()))
@@ -137,8 +220,8 @@ def _kernel_lib() -> ctypes.CDLL:
     vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     for fn in (lib.vec_ode_fused_rk_step_f32, lib.vec_ode_fused_rk_step_f64):
         fn.restype = ci
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci,
-                       ctypes.POINTER(cd), ci, ci, ci, cd, vp, cd, ci, vp]
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ctypes.POINTER(cd),
+                       ci, ci, ci, ctypes.POINTER(cd), vp, vp, cd, ci, vp]
     return lib
 
 
@@ -295,16 +378,21 @@ def kernel_norm_args(wnorm):
             int(kind == "max"))
 
 
-def launch(t, dt, xw, mt, tab_c, *, w: float, tab, advance_lower: bool,
-           wnorm=None):
+def launch(t, dt, xw, mt, tab_c, *, drive: KernelDrive, tab,
+           advance_lower: bool, wnorm=None):
     """Launch the kernel on CUDA tensors with operands from
-    :func:`kernel_operands` and a declared norm from :func:`wnorm_on`;
-    raises on anything the kernel does not take. Returns
-    (x_next (B, D), err_norm (B,))."""
+    :func:`kernel_operands`, a drive from :func:`kernel_drive` and a
+    declared norm from :func:`wnorm_on`; raises on anything the kernel
+    does not take. Returns (x_next (B, D), err_norm (B,))."""
     check_kernel_inputs("fused_rk_step", xw, mt,
                         None if wnorm is None else wnorm[0], t=t, dt=dt)
     _build.refuse_grad("fused_rk_step", t, dt, xw, mt,
-                       None if wnorm is None else wnorm[0])
+                       None if wnorm is None else wnorm[0], drive.cheb)
+    if drive.cheb is not None and (drive.cheb.device != xw.device
+                                   or drive.cheb.dtype != xw.dtype):
+        raise TypeError(
+            f"fused_rk_step: the drive's series is {drive.cheb.dtype} on "
+            f"{drive.cheb.device}, xw {xw.dtype} on {xw.device}")
     B, D = xw.shape
     lib = _kernel_lib()
     fn = (lib.vec_ode_fused_rk_step_f32 if xw.dtype == torch.float32
@@ -315,7 +403,9 @@ def launch(t, dt, xw, mt, tab_c, *, w: float, tab, advance_lower: bool,
         rc = fn(t.data_ptr(), dt.data_ptr(), xw.data_ptr(), mt.data_ptr(),
                 x_out.data_ptr(), err_out.data_ptr(), B, D, tab_c,
                 tab.stages, int(tab.b_err is not None), int(advance_lower),
-                float(w), *kernel_norm_args(wnorm),
+                drive.params,
+                None if drive.cheb is None else drive.cheb.data_ptr(),
+                *kernel_norm_args(wnorm),
                 torch.cuda.current_stream(xw.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(
@@ -324,10 +414,11 @@ def launch(t, dt, xw, mt, tab_c, *, w: float, tab, advance_lower: bool,
     return x_out, err_out
 
 
-def fused_rk_step(t, dt, xw, M0, M1, *, w: float, tab=RKF45,
-                  advance_lower: bool = True, wnorm=None):
-    """One fused RK step over the whole ensemble, with the drive
-    u(t) = cos(w t).
+def fused_rk_step(t, dt, xw, M0, M1, *, u_fn=None, w: Optional[float] = None,
+                  tab=RKF45, advance_lower: bool = True, wnorm=None):
+    """One fused RK step over the whole ensemble, with the drive ``u_fn``
+    (a one-term ``CoeffForm`` or ``ChebForm``, or on CPU tensors any
+    callable t -> u(t)) or its shorthand ``w``: u(t) = cos(w t).
 
     t, dt: (B,); xw: (B, 2d) widened state [re | im]; M0, M1: (2d, 2d),
     applied as xw @ M^T; ``wnorm``: a declared error norm
@@ -336,13 +427,18 @@ def fused_rk_step(t, dt, xw, M0, M1, *, w: float, tab=RKF45,
     tableau has no embedded pair.
 
     CUDA tensors go to the kernel (float32 or float64, 2d <= MAX_WIDTH,
-    at most MAX_STAGES stages); anything else it does not take raises.
-    CPU tensors run :func:`torch_rk_step`. ``fused_rk_step.launches``
-    counts the kernel's launches.
+    at most MAX_STAGES stages, a declared drive); anything else it does
+    not take raises. CPU tensors run :func:`torch_rk_step`.
+    ``fused_rk_step.launches`` counts the kernel's launches.
     """
+    if (u_fn is None) == (w is None):
+        raise ValueError("fused_rk_step: pass exactly one of u_fn and w")
+    if u_fn is None:
+        u_fn = cos_drive(w)
+    check_drive(u_fn)
     if all(a.device.type == "cpu" for a in (t, dt, xw, M0, M1)):
         x_next, err = torch_rk_step(
-            t, dt, xw, M0, M1, u_fn=lambda ti: torch.cos(w * ti), tab=tab,
+            t, dt, xw, M0, M1, u_fn=drive_fn(u_fn), tab=tab,
             advance_lower=advance_lower, wnorm=wnorm)
         return x_next, (torch.zeros_like(t) if err is None else err)
     D = xw.shape[-1]
@@ -357,7 +453,8 @@ def fused_rk_step(t, dt, xw, M0, M1, *, w: float, tab=RKF45,
         raise ValueError(
             f"fused_rk_step: M0 and M1 must be ({D}, {D}), got "
             f"{tuple(M0.shape)} and {tuple(M1.shape)}")
-    return launch(t, dt, xw, *kernel_operands(M0, M1, tab), w=w, tab=tab,
+    return launch(t, dt, xw, *kernel_operands(M0, M1, tab),
+                  drive=kernel_drive(u_fn, xw), tab=tab,
                   advance_lower=advance_lower, wnorm=wnorm_on(wnorm, xw))
 
 
@@ -367,36 +464,70 @@ fused_rk_step.launches = 0
 @dataclasses.dataclass(frozen=True)
 class FusedModulatedLinearRK:
     """Natively batched stepper for dx/dt = (M0 + u(t) M1) x over Cplx
-    pairs, with the declared drive u(t) = cos(w t): each driver iteration
-    is one :func:`fused_rk_step`, which returns per-trajectory error norms
-    (``error_norm`` is the identity), or the whole adaptive loop runs in
-    one launch (:meth:`fused_loop_solve`). ``norm``: a declared
-    ``lc.WeightedNorm`` that both kernels and the plain step execute."""
+    pairs: each driver iteration is one :func:`fused_rk_step`, which
+    returns per-trajectory error norms (``error_norm`` is the identity),
+    or the whole adaptive loop runs in one launch (:meth:`fused_loop_solve`).
+
+    ``u_fn`` is the drive, the JAX field's name: a one-term
+    ``CoeffForm`` or ``ChebForm``, which both kernels sample in-kernel, or
+    any torch callable t -> u(t), which no kernel can run: the stepper
+    then runs the twin step :func:`torch_rk_step` on the tensors' device
+    and the loop kernel declines (``Solution.path`` says which). ``w=`` is
+    the shorthand for u(t) = cos(w t) (:func:`cos_drive`), and ``.w``
+    reads it back (None for another drive; ``u_fn`` decides where both
+    are given). ``norm``: a declared ``lc.WeightedNorm`` that both
+    kernels and the twin execute, or an ``lc.TracedNorm``, which only the
+    twin can apply (so it runs the twin step, as for a callable drive)."""
 
     M0: torch.Tensor                 # (2d, 2d) embedded -i*H0 (or A0)
     M1: torch.Tensor                 # (2d, 2d) embedded -i*V (or A1)
-    w: float                         # the drive u(t) = cos(w t)
+    u_fn: object = None              # the drive u(t)
     tableau: ButcherTableau = RKF45
     advance_lower: bool = True
-    norm: Optional[lc.WeightedNorm] = None   # declared error norm
+    norm: Optional[object] = None    # WeightedNorm or TracedNorm
+    w: dataclasses.InitVar[Optional[float]] = None  # shorthand: cos(w t)
 
     is_batched = True
     error_norm = staticmethod(lambda e: e)
 
-    def __post_init__(self):
-        if self.norm is not None and not isinstance(self.norm,
-                                                    lc.WeightedNorm):
-            raise NotImplementedError(
-                "norm=: only a declared lc.WeightedNorm runs in the port's "
-                "kernels; other norms (lc.TracedNorm, opaque callables) are "
-                "ROADMAP queue 1 item 26")
+    def __post_init__(self, w):
+        if self.u_fn is None and w is None:
+            raise TypeError("FusedModulatedLinearRK: missing the drive: "
+                            "pass u_fn= or its cos(w t) shorthand w=")
+        # dataclasses.replace passes .w back: the drive's own cos
+        # frequency, or None
+        # where both are given u_fn decides: dataclasses.replace passes
+        # .w back beside a new u_fn
+        if self.u_fn is None:
+            object.__setattr__(self, "u_fn", cos_drive(w))
+        check_drive(self.u_fn)
+        if self.norm is not None and not isinstance(
+                self.norm, (lc.WeightedNorm, lc.TracedNorm)):
+            raise TypeError(
+                "norm=: a declared lc.WeightedNorm or an lc.TracedNorm; "
+                "ensemble_solve promotes an opaque error_norm= callable "
+                "to the latter (lc.try_trace_norm)")
+        # per (device, dtype) of the state: the operators, the declared
+        # norm and, on a card, the kernel's operands and drive, made once
+        object.__setattr__(self, "_operands", {})
+
+    @property
+    def twin_only(self) -> bool:
+        """Whether the step runs its twin on every device: a callable
+        drive or a traced norm, neither of which a kernel can run."""
+        return (not is_declared(self.u_fn)
+                or isinstance(self.norm, lc.TracedNorm))
 
     def _wnorm(self, d: int):
         """(w_row, post, kind) of the declared ``norm`` over the widened
-        [re | im] layout (``lc.WeightedNorm.kernel_parts``), or None.
-        Raises for weights the batched layout cannot express."""
+        [re | im] layout (``lc.WeightedNorm.kernel_parts``), the widened
+        executor of a ``TracedNorm``, or None. Raises for weights the
+        batched layout cannot express."""
         if self.norm is None:
             return None
+        if isinstance(self.norm, lc.TracedNorm):
+            tn = self.norm
+            return lambda dv: tn.batched(Cplx(dv[..., :d], dv[..., d:]))
         kp = self.norm.kernel_parts(d, 2)
         if kp is None:
             raise ValueError(
@@ -413,7 +544,8 @@ class FusedModulatedLinearRK:
         """Build from a ``models.quantum.DrivenDense`` (H(t) = H0 +
         cos(wt) V): the same embedded matrices as the JAX package's
         ``from_driven_dense``, made by the same numpy code, on the card
-        unless ``device`` names another."""
+        unless ``device`` names another, with the drive
+        ``cos_drive(model.w)`` (``u_fn=`` in ``kw`` replaces it)."""
 
         def embed_np(re, im):
             return np.block([[re, -im], [im, re]])
@@ -424,51 +556,64 @@ class FusedModulatedLinearRK:
         # -i H = (Hi, -Hr) as a (re, im) pair
         M0 = torch.as_tensor(embed_np(H0i, -H0r), device=device)
         M1 = torch.as_tensor(embed_np(Vi, -Vr), device=device)
-        return FusedModulatedLinearRK(M0=M0, M1=M1, w=float(model.w), **kw)
+        kw.setdefault("u_fn", cos_drive(model.w))
+        return FusedModulatedLinearRK(M0=M0, M1=M1, **kw)
 
     def hermite_slope(self, t, x: Cplx) -> Cplx:
-        """Endpoint slope f(t, x) = (M0 + u(t) M1) x (plain torch)."""
+        """Endpoint slope f(t, x) = (M0 + u(t) M1) x (plain torch), the
+        drive sampled as the twin samples it."""
         xw = torch.cat([x.re, x.im], dim=-1)
         M0 = self.M0.to(device=xw.device, dtype=xw.dtype)
         M1 = self.M1.to(device=xw.device, dtype=xw.dtype)
-        u = torch.cos(self.w * torch.as_tensor(t, dtype=xw.dtype,
-                                               device=xw.device))[..., None]
+        tt = torch.as_tensor(t, dtype=xw.dtype, device=xw.device)
+        u = drive_fn(self.u_fn)(tt)[..., None]
         fw = _row_matmul(xw, M0) + u * _row_matmul(xw, M1)
         d = x.re.shape[-1]
         return Cplx(fw[..., :d], fw[..., d:])
 
     def step_path(self, y0: Cplx) -> str:
-        """Execution-path tag of the per-step path for ``Solution.path``."""
-        return ("torch-driver+cuda-step" if y0.re.is_cuda
-                else "torch-driver")
+        """Execution-path tag of the per-step path for ``Solution.path``:
+        the step kernel on the card, or the twin step there where the
+        drive or the norm is a callable."""
+        if not y0.re.is_cuda:
+            return "torch-driver"
+        return ("torch-driver+twin-step" if self.twin_only
+                else "torch-driver+cuda-step")
+
+    def _ops_for(self, xw):
+        key = (xw.device, xw.dtype)
+        if key not in self._operands:
+            d = xw.shape[-1] // 2
+            M0 = self.M0.to(device=xw.device, dtype=xw.dtype)
+            M1 = self.M1.to(device=xw.device, dtype=xw.dtype)
+            wn = self._wnorm(d)
+            if xw.device.type == "cpu" or self.twin_only:
+                ops = ((M0, M1), None)
+            else:
+                ops = (kernel_operands(M0, M1, self.tableau),
+                       kernel_drive(self.u_fn, xw))
+            self._operands[key] = ops, (wn if callable(wn)
+                                        else wnorm_on(wn, xw))
+        return self._operands[key]
 
     def make_step_fn(self, rhs=None):
         if rhs is not None:
             raise ValueError(
                 "FusedModulatedLinearRK embeds its own RHS; pass rhs=None")
         has_err = self.tableau.b_err is not None
-        tab, w, lower = self.tableau, self.w, self.advance_lower
-        # per (device, dtype) of the state: the operators and the declared
-        # norm in its type and, on a card, the kernel's operands, made once
-        # for the whole solve
-        operands = {}
+        tab, lower = self.tableau, self.advance_lower
+        u = drive_fn(self.u_fn)
 
         def step_fn(t, x: Cplx, dt):
             d = x.re.shape[-1]
             xw = torch.cat([x.re, x.im], dim=-1)
-            key = (xw.device, xw.dtype)
-            if key not in operands:
-                M0 = self.M0.to(device=xw.device, dtype=xw.dtype)
-                M1 = self.M1.to(device=xw.device, dtype=xw.dtype)
-                wn = wnorm_on(self._wnorm(d), xw)
-                operands[key] = ((M0, M1) if xw.device.type == "cpu"
-                                 else kernel_operands(M0, M1, tab)), wn
-            ops, wn = operands[key]
-            if xw.device.type == "cpu":
-                ox, oe = fused_rk_step(t, dt, xw, *ops, w=w, tab=tab,
+            (ops, drive), wn = self._ops_for(xw)
+            if drive is None:
+                # the twin: CPU tensors, a callable drive or a traced norm
+                ox, oe = torch_rk_step(t, dt, xw, *ops, u_fn=u, tab=tab,
                                        advance_lower=lower, wnorm=wn)
             else:
-                ox, oe = launch(t, dt, xw, *ops, w=w, tab=tab,
+                ox, oe = launch(t, dt, xw, *ops, drive=drive, tab=tab,
                                 advance_lower=lower, wnorm=wn)
             # no embedded pair -> no error estimate: None makes the
             # adaptive driver raise instead of accepting on a zero estimate
@@ -493,26 +638,38 @@ class FusedModulatedLinearRK:
         runs the per-step path: fixed steps or a tableau without an
         embedded pair, a state that is not (B, d), a time dtype other than
         the state's, more than ``LOOP_MAX_BATCH`` trajectories, tensors
-        on the CPU (the JAX package declines off the TPU), or an event
-        that is not a declared observable (the kernel runs no Python
-        callable)."""
+        on the CPU (the JAX package declines off the TPU), an event that
+        is not a declared observable, a callable drive or a traced norm
+        (the kernel runs no Python callable); ``config.warn_on_fallback``
+        names the rule on the card."""
         from .fused_loop import (LOOP_MAX_BATCH, RKStep,
                                  fused_loop_integrate, loop_solution)
 
         if not y0.re.is_cuda:
             return None
         if not adaptive or self.tableau.b_err is None:
-            return None
+            return _decline("fixed steps or no embedded pair")
         if y0.re.ndim != 2:
-            return None
+            return _decline("the state is not (B, d)")
+        if not is_declared(self.u_fn):
+            return _decline("a callable drive u_fn: the loop kernel takes "
+                            "a declared CoeffForm or ChebForm")
+        if isinstance(self.norm, lc.TracedNorm):
+            return _decline("a traced error norm: the loop kernel takes "
+                            "a declared WeightedNorm")
         B, d = y0.re.shape
-        if B > LOOP_MAX_BATCH or t_grid.dtype != y0.re.dtype:
-            return None
+        if B > LOOP_MAX_BATCH:
+            return _decline(f"{B} trajectories > LOOP_MAX_BATCH = "
+                            f"{LOOP_MAX_BATCH}")
+        if t_grid.dtype != y0.re.dtype:
+            return _decline(f"time dtype {t_grid.dtype} is not the state's "
+                            f"{y0.re.dtype}")
         ev_spec = None
         if events is not None:
             ev_spec = events.kernel_spec(d, 2)
             if ev_spec is None:
-                return None
+                return _decline("events= has an opaque callable; the loop "
+                                "kernel takes declared observables")
         dense = dense and t_grid.shape[0] > 2
         wnorm = None
         if self.norm is not None:
@@ -524,7 +681,7 @@ class FusedModulatedLinearRK:
         dtype, dev = y0.re.dtype, y0.re.device
         step = RKStep(
             M0=self.M0.to(device=dev, dtype=dtype),
-            M1=self.M1.to(device=dev, dtype=dtype), w=self.w,
+            M1=self.M1.to(device=dev, dtype=dtype), u_fn=self.u_fn,
             tableau=self.tableau, advance_lower=self.advance_lower,
             scaled=(ctl.atol, ctl.rtol) if ctl.scaled_error else None,
             wnorm=wnorm)
@@ -545,3 +702,13 @@ class FusedModulatedLinearRK:
         return loop_solution(
             t_grid, x0, out, unwiden=unwiden, slope=slope,
             path="cuda-loop-persistent" if persistent else "cuda-loop-chunked")
+
+
+def _cos_w(self) -> Optional[float]:
+    """The frequency w of the drive cos(w t) (``from_driven_dense`` and
+    the ``w=`` shorthand), None for any other drive."""
+    return cos_frequency(self.u_fn)
+
+
+# ``w=`` is an init-only shorthand; ``.w`` reads it back from the drive
+FusedModulatedLinearRK.w = property(_cos_w)

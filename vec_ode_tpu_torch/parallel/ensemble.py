@@ -27,6 +27,7 @@ import functools
 import inspect
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
@@ -42,23 +43,55 @@ def _declares_norm(stepper) -> bool:
         f.name == "norm" for f in dataclasses.fields(stepper))
 
 
-def _install_norm(stepper, error_norm):
-    """The stepper with a declared ``lc.WeightedNorm`` installed as its
-    ``norm`` (its kernels and plain step execute it), as the JAX package's
-    ``ensemble_solve`` does for norm-returning steppers."""
-    if not _declares_norm(stepper):
+def _batched_norm_dispatch(stepper, error_norm, y0_batch, ctl):
+    """How a natively batched stepper takes ``error_norm`` (the JAX
+    package's ``ensemble_solve``, ``ensemble.py:104-181``): a declared
+    ``lc.WeightedNorm`` is installed in the stepper's ``norm`` (its
+    kernels execute it); an opaque callable is probed
+    (``lc.try_trace_norm`` on one trajectory's state) and, where it maps
+    to a scalar, installed as an ``lc.TracedNorm`` (the stepper then runs
+    its twin step on the tensors' device). An auto-batched stepper takes
+    the vmapped tier for what its batched conventions cannot express
+    (``scaled_error`` without a loop kernel, a norm it cannot hold); an
+    explicitly batched one raises. Returns (stepper, error_norm,
+    use_batched)."""
+    auto = bool(getattr(stepper, "auto_batched", False))
+    declares = _declares_norm(stepper)
+    custom = error_norm is not lc.norm_l2
+    if custom and isinstance(error_norm, lc.WeightedNorm):
+        if ctl.scaled_error:
+            raise ValueError(
+                "scaled_error and a WeightedNorm are mutually exclusive "
+                "(both redefine the error measure)")
+        if declares:
+            existing = stepper.norm
+            if existing is None:
+                stepper = dataclasses.replace(stepper, norm=error_norm)
+            elif not error_norm.same_as(existing):
+                raise ValueError(
+                    "stepper already declares a different norm= than the "
+                    "error_norm= passed to ensemble_solve")
+            custom = False
+    elif custom and not ctl.scaled_error:
+        traced = lc.try_trace_norm(
+            error_norm, pytree.tree_map(lambda a: a[0], y0_batch))
+        if traced is not None and declares and stepper.norm is None:
+            stepper = dataclasses.replace(stepper, norm=traced)
+            custom = False
+    scaled_conflict = (ctl.scaled_error
+                       and getattr(stepper, "fused_loop_solve", None) is None)
+    if (custom or scaled_conflict) and auto:
+        # the JAX package keeps the vmapped tier for calls that an
+        # auto-batched stepper's batched conventions cannot express
+        return stepper, error_norm, False
+    if custom:
         raise ValueError(
-            "this stepper computes its own per-trajectory error norms and "
-            "declares no norm=; pass batched=False for the vmapped tier, "
-            "which applies error_norm= per trajectory")
-    existing = stepper.norm
-    if existing is None:
-        return dataclasses.replace(stepper, norm=error_norm)
-    if existing != error_norm:
-        raise ValueError(
-            "stepper already declares a different norm= than the "
-            "error_norm= passed to ensemble_solve")
-    return stepper
+            "this stepper computes its own per-trajectory error norms; an "
+            "OPAQUE error_norm callable that does not map to one scalar "
+            "per trajectory cannot be applied (declare an lc.WeightedNorm, "
+            "or use batched=False dense-split steppers for the vmapped "
+            "path)")
+    return stepper, lc.norm_l2, True
 
 
 def ensemble_solve(
@@ -134,11 +167,20 @@ def ensemble_solve(
     ``time_dtype`` defaults to float64 (the JAX package's default under
     x64); ``h0`` may be per-trajectory (B,). What this port does not run
     yet raises ``NotImplementedError`` naming its ROADMAP item: ``mesh=``
-    (27), opaque norms on natively batched steppers (26).
+    (27).
+
+    ``error_norm`` on a natively batched stepper: a declared
+    ``WeightedNorm`` goes into the stepper's ``norm`` (its kernels run
+    it); an opaque callable that maps one trajectory's error to a scalar
+    goes in as an ``lc.TracedNorm`` (the stepper runs its twin step on
+    the tensors' device, path ``torch-driver+twin-step``); anything else
+    takes the vmapped tier on an auto-batched stepper and raises on an
+    explicitly batched one.
     """
     if mesh is not None:
         raise NotImplementedError(
-            "mesh=: sharded ensembles are ROADMAP slice 7, queue 1 item 27")
+            "mesh=: sharded ensembles are ROADMAP queue 1 item 27 (its mesh "
+            "half)")
     if dense and (remat_levels or grad_safe):
         raise ValueError("dense=True: the dense driver takes neither "
                          "remat_levels nor grad_safe")
@@ -146,15 +188,9 @@ def ensemble_solve(
         stepper = RungeKutta()
     event_cfg = as_event_config(events)
     use_batched = bool(getattr(stepper, "is_batched", False))
-    auto = bool(getattr(stepper, "auto_batched", False))
-    if use_batched and auto and (
-            (ctl.scaled_error
-             and getattr(stepper, "fused_loop_solve", None) is None)
-            or (isinstance(error_norm, lc.WeightedNorm)
-                and not _declares_norm(stepper))):
-        # the JAX package keeps the vmapped tier for calls that an
-        # auto-batched stepper's batched conventions cannot express
-        use_batched = False
+    if use_batched:
+        stepper, error_norm, use_batched = _batched_norm_dispatch(
+            stepper, error_norm, y0_batch, ctl)
 
     leaves = pytree.tree_leaves(y0_batch)
     b = leaves[0].shape[0]
@@ -178,18 +214,6 @@ def ensemble_solve(
         raise ValueError(
             "params is unsupported for this natively batched stepper (it "
             "embeds its own operator)")
-    if isinstance(error_norm, lc.WeightedNorm):
-        if ctl.scaled_error:
-            raise ValueError(
-                "scaled_error and a WeightedNorm are mutually exclusive "
-                "(both redefine the error measure)")
-        stepper = _install_norm(stepper, error_norm)
-    elif error_norm is not lc.norm_l2:
-        raise NotImplementedError(
-            "error_norm=: opaque norm callables on natively batched "
-            "steppers are ROADMAP queue 1 item 26; declare an "
-            "lc.WeightedNorm")
-
     fused = getattr(stepper, "fused_loop_solve", None)
     if fused is not None and method == "while" and not grad_safe:
         kw = {}
@@ -326,6 +350,30 @@ def _vmapped_solve(rhs_or_op, y0_batch, t_grid, h0, *, stepper, adaptive,
             return (stepper.make_step_fn(fn),
                     stepper.make_init_carry(fn) if has_init else None)
 
+    step_fn, init_carry_fn = _vmap_step(make, params, has_init)
+    b = pytree.tree_leaves(y0_batch)[0].shape[0]
+    enorm = _batched_norm(error_norm)
+    if dense:
+        sol = integrate_interp(step_fn, y0_batch, t_grid, h0,
+                               adaptive=adaptive, ctl=ctl, error_norm=enorm,
+                               method=loop["method"], batch_shape=(b,),
+                               init_carry_fn=init_carry_fn, **interp)
+    else:
+        sol = integrate(step_fn, y0_batch, t_grid, h0, adaptive=adaptive,
+                        ctl=ctl, error_norm=enorm, batch_shape=(b,),
+                        init_carry_fn=init_carry_fn, event_cfg=event_cfg,
+                        **loop)
+    sol.path = "torch-driver"
+    return sol
+
+
+def _vmap_step(make: Callable, params, has_init: bool):
+    """The batched (step_fn, init_carry_fn or None) of the vmapped tier:
+    ``torch.func.vmap`` of the per-trajectory step and carry seed that
+    ``make(p)`` builds for one trajectory's params ``p`` (None without
+    params). A missing error estimate crosses the vmap as an empty
+    tuple."""
+
     def single(p, t, x, dt, *carry):
         out = make(p)[0](t, x, dt, *carry)
         return (out[0], () if out[1] is None else out[1]) + tuple(out[2:])
@@ -347,25 +395,13 @@ def _vmapped_solve(rhs_or_op, y0_batch, t_grid, h0, *, stepper, adaptive,
         err = out[1] if pytree.tree_leaves(out[1]) else None
         return (out[0], err) + tuple(out[2:])
 
-    b = pytree.tree_leaves(y0_batch)[0].shape[0]
     init_carry_fn = None
     if has_init:
         def init_carry_fn(t0, x0):
+            b = pytree.tree_leaves(x0)[0].shape[0]
             return mapped_init(*args, t0.expand(b), x0)
 
-    enorm = _batched_norm(error_norm)
-    if dense:
-        sol = integrate_interp(step_fn, y0_batch, t_grid, h0,
-                               adaptive=adaptive, ctl=ctl, error_norm=enorm,
-                               method=loop["method"], batch_shape=(b,),
-                               init_carry_fn=init_carry_fn, **interp)
-    else:
-        sol = integrate(step_fn, y0_batch, t_grid, h0, adaptive=adaptive,
-                        ctl=ctl, error_norm=enorm, batch_shape=(b,),
-                        init_carry_fn=init_carry_fn, event_cfg=event_cfg,
-                        **loop)
-    sol.path = "torch-driver"
-    return sol
+    return step_fn, init_carry_fn
 
 
 def _batched_dense_fallback(stepper, fn, y0, t_grid, h0, *, adaptive, ctl,
@@ -408,3 +444,175 @@ def _batched_dense_fallback(stepper, fn, y0, t_grid, h0, *, adaptive, ctl,
                            init_carry_fn=init_carry_fn)
     sol.path = stepper.step_path(y0) + "-dense"
     return sol
+
+
+def step_efficiency(sol: Solution, n_shards: int = 1,
+                    per_shard: bool = False):
+    """Straggler accounting of a batched Solution: the batched loop runs
+    every lane until the slowest trajectory of its shard finishes, so it
+    executes max(n_iters) * B lane iterations a shard where sum(n_iters)
+    are useful. Returns useful / executed in [0, 1] (1: no waste);
+    ``n_shards`` splits the leading batch axis as a mesh would (each
+    shard its own loop), ``per_shard=True`` returns the (n_shards,)
+    efficiencies instead of the aggregate."""
+    ni = sol.n_iters.reshape(n_shards, -1).to(torch.float64)
+    per = ni.sum(dim=1) / (ni.amax(dim=1) * ni.shape[1])
+    if per_shard:
+        return per
+    return ni.sum() / (ni.amax(dim=1) * ni.shape[1]).sum()
+
+
+def cost_sorted_permutation(cost_hint) -> np.ndarray:
+    """Straggler mitigation by placement: a permutation that sorts the
+    trajectories by an expected cost (a sweep rate, a stiffness estimate,
+    ``h_final`` or ``n_iters`` of an earlier solve), so that contiguous
+    shards hold work of one size. Apply it to ``y0_batch`` (and params,
+    h0) with ``a[perm]``, and undo it on the outputs with
+    :func:`inverse_permutation`. A stable sort."""
+    if isinstance(cost_hint, torch.Tensor):
+        cost_hint = cost_hint.detach().cpu().numpy()
+    return np.argsort(np.asarray(cost_hint), kind="stable")
+
+
+def inverse_permutation(perm) -> np.ndarray:
+    """The permutation that undoes ``perm``: inv[perm] = arange."""
+    if isinstance(perm, torch.Tensor):
+        perm = perm.detach().cpu().numpy()
+    perm = np.asarray(perm)
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(perm.size)
+    return inv
+
+
+def _run_chunk(state, step_fn, *, adaptive, ctl, error_norm, chunk):
+    """Advance a batched carry by at most ``chunk`` driver iterations,
+    stopping early where no lane is RUNNING (the one read of the device
+    an iteration)."""
+    from ..driver import RUNNING, step_once
+
+    for _ in range(chunk):
+        if not bool((state.status == RUNNING).any()):
+            break
+        state = step_once(state, step_fn, adaptive=adaptive, ctl=ctl,
+                          error_norm=error_norm, batched=True)
+    return state
+
+
+def ensemble_solve_compact(
+    rhs_or_op: Optional[Callable],
+    y0_batch,
+    t0,
+    tf,
+    *,
+    stepper=None,
+    h0: Optional[float] = None,
+    adaptive: bool = True,
+    ctl: StepControl = StepControl(),
+    save_at=None,
+    error_norm: Callable = lc.norm_l2,
+    time_dtype: Optional[torch.dtype] = None,
+    chunk_iters: int = 64,
+    min_batch: int = 8,
+    bucket_multiple: Optional[int] = None,
+):
+    """Straggler-mitigated ensemble integration: the host driver runs
+    chunks of at most ``chunk_iters`` iterations and, between chunks,
+    COMPACTS the batch to the lanes still RUNNING (an ``index_select`` on
+    the tensors' device), padded up to a multiple of ``bucket_multiple``
+    (default max(min_batch, B // 16)) and never below ``min_batch``; the
+    padding lanes repeat a running lane, frozen DONE. Finished lanes are
+    written back to their place in the full batch (``index_copy``).
+
+    A natively batched stepper takes one step (a K1 launch for
+    ``FusedModulatedLinearRK`` on the card) an iteration on the
+    compacted batch, never the loop kernel; any other stepper runs the
+    vmapped tier. The rules are the JAX package's
+    (``parallel/ensemble.py:ensemble_solve_compact``). Returns
+    ``(Solution, {"executed_lane_iters", "useful_lane_iters",
+    "efficiency"})``, efficiency = useful / executed, the number
+    :func:`step_efficiency` gives the plain path afterwards."""
+    from ..driver import DONE, RUNNING, init_state
+
+    if stepper is None:
+        stepper = RungeKutta()
+    has_carry = bool(getattr(stepper, "has_carry", False))
+    use_batched = bool(getattr(stepper, "is_batched", False))
+    if use_batched:
+        stepper, error_norm, use_batched = _batched_norm_dispatch(
+            stepper, error_norm, y0_batch, ctl)
+    if use_batched:
+        step_fn = stepper.make_step_fn(rhs_or_op)
+        enorm = stepper.error_norm
+        init_cf = stepper.make_init_carry(rhs_or_op) if has_carry else None
+        path = stepper.step_path(y0_batch)
+    else:
+        step_fn, init_cf = _vmap_step(
+            lambda p: (stepper.make_step_fn(rhs_or_op),
+                       stepper.make_init_carry(rhs_or_op) if has_carry
+                       else None), None, has_carry)
+        enorm = _batched_norm(error_norm)
+        path = "torch-driver"
+
+    leaves = pytree.tree_leaves(y0_batch)
+    B, device = leaves[0].shape[0], leaves[0].device
+    t_grid = make_grid(t0, tf, save_at, dtype=time_dtype or torch.float64,
+                       device=device)
+    h0 = check_h0(h0, ctl, adaptive)
+    carry0 = () if init_cf is None else init_cf(t_grid[0], y0_batch)
+    state = init_state(y0_batch, t_grid, h0, batch_shape=(B,),
+                       stepper_carry=carry0)
+
+    def lanes(st):
+        return st._replace(ts_grid=())
+
+    # the whole batch's result, lanes written back in their places
+    out = lanes(state)
+    active = torch.arange(B, device=device)
+    executed = 0
+    m = bucket_multiple or max(min_batch, B // 16, 1)
+
+    def bucket(n):
+        return max(min_batch, -(-n // m) * m, 1)
+
+    while True:
+        n_act = active.shape[0]
+        before = state.n_iters[:n_act].clone()
+        state = _run_chunk(state, step_fn, adaptive=adaptive, ctl=ctl,
+                           error_norm=enorm, chunk=chunk_iters)
+        executed += int((state.n_iters[:n_act] - before).max()) * n_act
+        running = state.status[:n_act] == RUNNING
+        n_run = int(running.sum())
+        if n_run == 0:
+            done = torch.arange(n_act, device=device)
+            out = pytree.tree_map(
+                lambda o, a: o.index_copy(0, active, a.index_select(0, done)),
+                out, lanes(state))
+            break
+        new_b = bucket(n_run)
+        if new_b >= n_act:
+            continue
+        # write the finished lanes back, compact to the running ones
+        fin = torch.nonzero(~running).reshape(-1)
+        out = pytree.tree_map(
+            lambda o, a: o.index_copy(0, active.index_select(0, fin),
+                                      a.index_select(0, fin)),
+            out, lanes(state))
+        keep = torch.nonzero(running).reshape(-1)
+        pad = torch.cat([keep, keep[:1].expand(new_b - n_run)])
+        state = pytree.tree_map(lambda a: a.index_select(0, pad),
+                                lanes(state))._replace(ts_grid=t_grid)
+        if new_b > n_run:
+            # padding lanes: frozen DONE, so that they step no more
+            status = state.status.clone()
+            status[n_run:] = DONE
+            state = state._replace(status=status)
+        active = active.index_select(0, keep)
+
+    sol = Solution(ts=t_grid.expand(B, t_grid.shape[0]), ys=out.ys,
+                   t_final=out.t, y_final=out.x, status=out.status,
+                   n_accept=out.n_accept, n_reject=out.n_reject,
+                   n_iters=out.n_iters, h_final=out.h, path=path)
+    useful = int(sol.n_iters.sum())
+    return sol, {"executed_lane_iters": executed,
+                 "useful_lane_iters": useful,
+                 "efficiency": useful / max(executed, 1)}

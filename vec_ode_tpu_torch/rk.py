@@ -16,9 +16,10 @@ evaluations are matrix products. The same semantics as the JAX package:
 FSAL tableaus (DOPRI5, BOSH32) advancing the b solution reuse the last
 stage of an accepted step as the next step's first (:func:`rk_step_fsal`),
 through the driver's stepper carry: s - 1 RHS evaluations an attempt and
-one to seed the carry. The compensated (double-word) state carry is not
-ported (ROADMAP queue 1 item 25): ``compensated=True`` raises
-``NotImplementedError`` rather than run without it.
+one to seed the carry. ``compensated=True`` carries the state as a
+double-word pair (``comp.py``): the step's increment, summed from the
+stages and never taken by subtraction, is folded into (x, lo) by TwoSum,
+the ``lo`` word riding the same carry (with FSAL the carry is (k0, lo)).
 """
 
 from __future__ import annotations
@@ -26,13 +27,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Optional, Tuple
 
-from . import lc
+from . import comp, lc
 from .tableaus import RKF45, ButcherTableau
 
 Pytree = Any
-
-_COMP = ("the compensated (double-word) state carry is ROADMAP queue 1 "
-         "item 25")
 
 
 def rk_step(f: Callable, t, x0: Pytree, dt, tab: ButcherTableau, *,
@@ -108,8 +106,9 @@ class RungeKutta:
     ``fsal`` (None: on for an FSAL tableau advancing the b solution)
     threads the last stage through the driver's stepper carry
     (``has_carry``, ``make_init_carry``); ``fsal=False`` runs an FSAL
-    tableau with every stage evaluated. ``compensated=True`` raises
-    ``NotImplementedError`` (ROADMAP queue 1 item 25)."""
+    tableau with every stage evaluated. ``compensated=True`` folds each
+    step's increment into a double-word (x, lo) pair (``comp.update``),
+    ``lo`` riding the stepper carry."""
 
     tableau: ButcherTableau = RKF45
     advance_lower: bool = True
@@ -120,9 +119,6 @@ class RungeKutta:
     takes_state = True
 
     def __post_init__(self):
-        if self.compensated:
-            raise NotImplementedError(f"RungeKutta(compensated=True): "
-                                      f"{_COMP}")
         self.use_fsal  # raises on fsal=True where FSAL cannot apply
 
     @property
@@ -138,7 +134,7 @@ class RungeKutta:
 
     @property
     def has_carry(self) -> bool:
-        return self.use_fsal
+        return self.use_fsal or self.compensated
 
     @property
     def nfev_per_step(self) -> int:
@@ -149,10 +145,36 @@ class RungeKutta:
         return 1 if self.use_fsal else 0
 
     def make_init_carry(self, f: Callable) -> Callable:
-        """The carry at (t0, x0): the first stage slope f(t0, x0)."""
+        """The carry at (t0, x0): the first stage slope f(t0, x0), the zero
+        residual word, or both as (k0, lo)."""
+        if self.use_fsal and self.compensated:
+            return lambda t, x: (f(t, x), comp.zero_lo(x))
+        if self.compensated:
+            return lambda t, x: comp.zero_lo(x)
         return f
 
     def make_step_fn(self, f: Callable) -> Callable:
+        if self.use_fsal and self.compensated:
+            def step_fn_fsal_comp(t, x, dt, carry):
+                k0, lo = carry
+                _, err, K, incr = rk_step_stages(
+                    f, t, x, dt, self.tableau, k0=k0,
+                    embedded=self.embedded, advance_lower=False)
+                hi, lo2 = comp.update(x, lo, incr)
+                return hi, err, (K[-1], lo2)
+
+            return step_fn_fsal_comp
+
+        if self.compensated:
+            def step_fn_comp(t, x, dt, lo):
+                _, err, _, incr = rk_step_stages(
+                    f, t, x, dt, self.tableau, embedded=self.embedded,
+                    advance_lower=self.advance_lower)
+                hi, lo2 = comp.update(x, lo, incr)
+                return hi, err, lo2
+
+            return step_fn_comp
+
         if self.use_fsal:
             def step_fn_fsal(t, x, dt, k0):
                 return rk_step_fsal(f, t, x, dt, self.tableau, k0,
