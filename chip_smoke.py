@@ -120,7 +120,26 @@ drives the port's paths once at full width through
   iteration, bitwise ``ensemble_solve``) and of 4096 Van der Pol
   trajectories, its efficiency against ``step_efficiency`` ([compact]);
   the main path's carry saved after 10 iterations, loaded and resumed,
-  bitwise the uninterrupted solve ([checkpoint]).
+  bitwise the uninterrupted solve ([checkpoint]);
+* the last modules, over a torch.distributed DeviceMesh of world =
+  min(cards, 4) ranks (torch.multiprocessing.spawn, NCCL over a FileStore
+  in a temporary directory, one card a rank; the world size printed on
+  each line): the main path through ``ensemble_solve(None,
+  shard_batch(y0, mesh), ..., mesh=mesh)`` (K1 launches per rank,
+  [mesh-main]), 2048 rows a rank with nine saves (one K2 + K3 launch a
+  rank, [mesh-loop]) and the 4096 x 64c generic Magnus-4 path (K9,
+  [mesh-generic]), each against the one-card ensemble_solve of the rank's
+  rows (counters equal, states within 1e-6; bitwise expected); a CPU
+  batch on the CUDA mesh refused; ``solve_linear_state_sharded`` of a real
+  antisymmetric D = 16 384 f64 operator (2 GiB) row-sharded over the
+  world against the unsharded solve_ivp (counters equal, states within
+  1e-10, ||y|| within 1e-7), its RHS evaluations and the HBM rate reached
+  ([state-sharded]); ``ensemble_solve_state_sharded`` of 256 x 4096 f32
+  states under a time-dependent ``local_rows`` on a (world / 2, 2) mesh
+  against the unsharded batched solve ([state-2d]); then the seven
+  examples (``vec_ode_tpu_torch.examples``, each with its own check) and
+  ``ensemble_sweep --mesh`` under torchrun, run together as processes of
+  their own ([examples]).
 
 Then it times the paths and each kernel against its plain version, its
 bound and, for K4 (at 256 on its cluster route and 16 384 on its tiled
@@ -5724,6 +5743,425 @@ def checkpoint_phase() -> None:
           f"({int(base.n_iters.max())} iterations)", flush=True)
 
 
+# the last modules: sharded ensembles and state sharding over a DeviceMesh
+# of world = min(cards, 4) ranks, each on its own card (NCCL), launched by
+# torch.multiprocessing.spawn; the ranks re-import this script and write
+# their numbers to RANK_OUT in a temporary directory
+MESH_TIMEOUT = 600.0         # seconds from the spawn to the last rank's exit
+STATE_D = 16384              # [state-sharded]: f64, 2 GiB of operator
+STATE_CTL = StepControl(rtol=1e-8)
+S2D_B, S2D_D, S2D_W = 256, 4096, 1.3   # [state-2d]: f32, A0 + cos(w t) A1
+S2D_CTL = StepControl(rtol=1e-5, min_dt=1e-6, max_dt=0.25)
+RANK_OUT = "rank{}.json"
+
+
+def mesh_world() -> int:
+    return min(torch.cuda.device_count(), 4)
+
+
+def local_rows_of(y, rank: int, world: int):
+    """A Cplx batch's contiguous rows of ``rank``."""
+    b = y.re.shape[0] // world
+    return Cplx(y.re[rank * b:(rank + 1) * b], y.im[rank * b:(rank + 1) * b])
+
+
+def shard_check(sol, ref, label: str) -> dict:
+    """A sharded Solution's rows on this rank against the one-card solve of
+    the same rows: counters equal, states within 1e-6 (bitwise expected),
+    every row DONE; returns the numbers the parent prints."""
+    loc = {k: getattr(sol, k).to_local() for k in
+           ("status", "n_accept", "n_reject", "n_iters", "t_final",
+            "h_final")}
+    yre, yim = sol.y_final.re.to_local(), sol.y_final.im.to_local()
+    assert int((loc["status"] == DONE).sum()) == loc["status"].shape[0], (
+        f"{label}: rows not DONE")
+    for k in ("status", "n_accept", "n_reject", "n_iters"):
+        assert torch.equal(loc[k], getattr(ref, k)), f"{label}: {k} differs"
+    dy = float(torch.maximum((yre - ref.y_final.re).abs(),
+                             (yim - ref.y_final.im).abs()).max())
+    assert dy <= 1e-6, (label, dy)
+    bitwise = (dy == 0.0 and torch.equal(loc["h_final"], ref.h_final)
+               and torch.equal(loc["t_final"], ref.t_final))
+    return {"dy": dy, "bitwise": bitwise, "rows": int(yre.shape[0]),
+            "n_iters": int(loc["n_iters"].max()), "path": sol.path}
+
+
+def host_wall(fn):
+    """(fn's result, its wall in ms from a synchronised start to a
+    synchronised end, on the host's clock)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, (time.perf_counter() - t) * 1e3
+
+
+def mesh_ensemble_phases(rank: int, world: int) -> dict:
+    """[mesh-main], [mesh-loop], [mesh-generic] on this rank: the main path
+    (16 384 x 64c RKF45, K1 per step), 2048 rows a rank with nine saves
+    (K2 + K3, one launch) and the 4096 x 64c generic Magnus-4 path (K9 per
+    step), each through ensemble_solve(..., shard_batch(y0, mesh),
+    mesh=mesh) against the unsharded ensemble_solve of the rank's rows."""
+    from vec_ode_tpu_torch.parallel import ensemble_mesh, shard_batch
+
+    mesh = ensemble_mesh(world, device="cuda")
+    out = {}
+    st, y0 = main_inputs()
+
+    def sharded_main():
+        return ensemble_solve(None, shard_batch(y0, mesh), 0.0, TF,
+                              stepper=st, ctl=CTL, h0=H0,
+                              time_dtype=torch.float32, mesh=mesh)
+
+    sharded_main()                                   # warm
+    reset_counts()
+    sol, wall = host_wall(sharded_main)
+    launches = all_launches()
+    rec = shard_check(sol, solve(st, local_rows_of(y0, rank, world)),
+                      "mesh-main")
+    assert launches[0] == rec["n_iters"] and launches[1:3] == (0, 0), (
+        launches, rec)
+    out["main"] = dict(rec, wall=wall, k1=launches[0])
+
+    st, y0 = main_inputs(LOOP_TRAJ * world)
+    reset_counts()
+    sol, wall = host_wall(lambda: ensemble_solve(
+        None, shard_batch(y0, mesh), 0.0, TF, stepper=st, ctl=CTL, h0=H0,
+        save_at=SAVE_AT, time_dtype=torch.float32, mesh=mesh))
+    launches = all_launches()
+    assert launches[:3] == (0, 1, 0), launches
+    assert sol.path == "cuda-loop-persistent", sol.path
+    ref = solve(st, local_rows_of(y0, rank, world), SAVE_AT)
+    rec = shard_check(sol, ref, "mesh-loop")
+    saves_equal = (torch.equal(sol.ys.re.to_local(), ref.ys.re)
+                   and torch.equal(sol.ys.im.to_local(), ref.ys.im))
+    out["loop"] = dict(rec, wall=wall, k2=launches[1], saves=saves_equal)
+
+    _, y0 = main_inputs(GEN_TRAJ)
+    reset_counts()
+    sol, wall = host_wall(lambda: ensemble_solve(
+        generic_op_fn(), shard_batch(y0, mesh), 0.0, TF,
+        stepper=texp.Magnus4(texp.DenseCplxSplit()), adaptive=True,
+        ctl=GEN_CTL, h0=GEN_H0, time_dtype=torch.float32, mesh=mesh))
+    k9 = fused_dense_chain_apply.launches
+    rec = shard_check(sol, generic_solve(local_rows_of(y0, rank, world)),
+                      "mesh-generic")
+    assert k9 == rec["n_iters"] and counts() == (0, 0, 0), (k9, counts())
+    out["generic"] = dict(rec, wall=wall, k9=k9)
+
+    # no host staging: a CPU batch on the CUDA mesh is refused
+    try:
+        ensemble_solve(None, Cplx(y0.re.cpu(), y0.im.cpu()), 0.0, TF,
+                       stepper=st, mesh=mesh)
+        refused = False
+    except ValueError:
+        refused = True
+    assert refused, "a CPU batch ran on the CUDA mesh"
+    return out
+
+
+def antisymmetric_rows(D: int, rows: slice, seed: int, dtype):
+    """Rows of (G - G^T) / sqrt(2 D) for a seeded Gaussian G made on the
+    card (the same on every card): a real antisymmetric operator of norm
+    ~2, so exp(A t) keeps ||y||. Returns (its rows, G)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    G = torch.randn(D, D, generator=g, device="cuda", dtype=dtype)
+    return (G[rows] - G[:, rows].T) / math.sqrt(2 * D), G
+
+
+def counted_gathers(fn):
+    """(fn's result, the state-sharded all-gathers it made: its RHS
+    evaluations)."""
+    from vec_ode_tpu_torch.parallel import state_parallel
+
+    n, orig = [0], state_parallel._all_gather
+
+    def counting(*a, **k):
+        n[0] += 1
+        return orig(*a, **k)
+
+    state_parallel._all_gather = counting
+    try:
+        return fn(), n[0]
+    finally:
+        state_parallel._all_gather = orig
+
+
+def state_sharded_phase(rank: int, world: int) -> dict:
+    """[state-sharded]: dx/dt = A x, A real antisymmetric, D = 16 384 in
+    f64 (2 GiB) row-sharded over the world (each card D/world rows, given
+    as a DTensor), RKF45 at rtol 1e-8 on [0, 1], against the unsharded
+    solve_ivp of the same A on one card (rank 0)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    from vec_ode_tpu_torch.parallel import (ensemble_mesh,
+                                            solve_linear_state_sharded)
+
+    mesh = ensemble_mesh(world, axis="state", device="cuda")
+    dl = STATE_D // world
+    A_loc, G = antisymmetric_rows(STATE_D, slice(rank * dl, (rank + 1) * dl),
+                                  0, torch.float64)
+    A_full = (G - G.T) / math.sqrt(2 * STATE_D) if rank == 0 else None
+    del G
+    A = DTensor.from_local(A_loc, mesh, [Shard(0)], run_check=False,
+                           shape=(STATE_D, STATE_D), stride=(STATE_D, 1))
+    g = torch.Generator(device="cuda").manual_seed(1)
+    y0 = torch.randn(STATE_D, generator=g, device="cuda",
+                     dtype=torch.float64)
+    y0 /= torch.linalg.vector_norm(y0)
+
+    def run():
+        return solve_linear_state_sharded(A, y0, 0.0, 1.0, mesh=mesh,
+                                          ctl=STATE_CTL, h0=1e-2)
+
+    run()                                            # warm
+    (sol, wall), evals = counted_gathers(lambda: host_wall(run))
+    y = sol.y_final.full_tensor()
+    out = {"wall": wall, "evals": evals, "n_accept": int(sol.n_accept),
+           "n_reject": int(sol.n_reject), "status": int(sol.status)}
+    # the bytes a card streams an evaluation: its rows of A, the gathered
+    # state in and its block out
+    out["bytes"] = 8 * (dl * STATE_D + STATE_D + dl)
+    prod_ms = timed_ms(lambda: torch.matmul(y0, A_loc.mT), inner=20)
+    out["prod_ms"] = prod_ms
+    if rank == 0:
+        ref = solve_ivp(lambda t, x: A_full @ x, 0.0, 1.0, y0, ctl=STATE_CTL,
+                        h0=1e-2)
+        rel = float(torch.linalg.vector_norm(y - ref.y_final)
+                    / torch.linalg.vector_norm(ref.y_final))
+        drift = abs(float(torch.linalg.vector_norm(y)) - 1.0)
+        assert out["status"] == DONE == int(ref.status), (out, ref.status)
+        assert (out["n_accept"], out["n_reject"]) == (
+            int(ref.n_accept), int(ref.n_reject)), (out, ref.n_accept)
+        assert rel <= 1e-10 and drift <= 1e-7, (rel, drift)
+        out.update(rel=rel, drift=drift, ref_accept=int(ref.n_accept))
+    return out
+
+
+def state_2d_phase(rank: int, world: int) -> dict:
+    """[state-2d]: 256 trajectories of dx/dt = (A0 + cos(w t) A1) x, D =
+    4096 in f32, A0 and A1 real antisymmetric, through
+    ensemble_solve_state_sharded with local_rows of the global assembly on
+    a (world / 2, 2) mesh ((1, 1) on one card), against the unsharded
+    batched solve (the host driver over the per-trajectory operators) on
+    rank 0."""
+    from vec_ode_tpu_torch.parallel import (ensemble_solve_state_sharded,
+                                            local_rows, mesh_2d)
+
+    n_state = 2 if world >= 2 else 1
+    mesh = mesh_2d(world // n_state, n_state, device="cuda")
+    all_rows = slice(0, S2D_D)
+    A0 = antisymmetric_rows(S2D_D, all_rows, 2, torch.float32)[0]
+    A1 = antisymmetric_rows(S2D_D, all_rows, 3, torch.float32)[0]
+    torch.cuda.empty_cache()
+
+    def assemble(t):
+        return A0 + torch.cos(S2D_W * t) * A1
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    y0 = torch.randn(S2D_B, S2D_D, generator=g, device="cuda")
+    y0 /= torch.linalg.vector_norm(y0, dim=-1, keepdim=True)
+    out = {}
+    if mesh.get_coordinate() is not None:
+        (sol, wall), evals = counted_gathers(lambda: host_wall(
+            lambda: ensemble_solve_state_sharded(
+                local_rows(assemble, mesh), y0, 0.0, 1.0, mesh=mesh,
+                ctl=S2D_CTL, h0=1e-2)))
+        got = {k: getattr(sol, k).full_tensor() for k in
+               ("y_final", "status", "n_accept", "n_reject")}
+        out.update(wall=wall, evals=evals, mesh=list(mesh.shape),
+                   n_iters=int(sol.n_iters.full_tensor().max()))
+    if rank == 0:
+        def rhs(t, x):
+            if t.ndim == 0:
+                return torch.matmul(x, assemble(t).mT)
+            return torch.matmul(torch.func.vmap(assemble)(t),
+                                x.unsqueeze(-1)).squeeze(-1)
+
+        grid = driver.make_grid(0.0, 1.0, dtype=torch.float64, device="cuda")
+        ref = driver.integrate(RungeKutta().make_step_fn(rhs), y0, grid,
+                               1e-2, ctl=S2D_CTL,
+                               error_norm=lc.norm_l2_batched,
+                               batch_shape=(S2D_B,))
+        dcount = max(int((got[k] - getattr(ref, k)).abs().max())
+                     for k in ("n_accept", "n_reject"))
+        rows = int(((got["n_accept"] != ref.n_accept)
+                    | (got["n_reject"] != ref.n_reject)).sum())
+        dy = float((got["y_final"] - ref.y_final).abs().max())
+        n_done = int((got["status"] == DONE).sum())
+        assert n_done == S2D_B and int((ref.status == DONE).sum()) == S2D_B
+        assert dy <= 1e-4 and dcount <= 2, (dy, dcount)
+        out.update(dy=dy, dcount=dcount, rows=rows)
+    return out
+
+
+def mesh_rank(rank: int, world: int, tmp: str) -> None:
+    """One rank of the mesh phases (the target of torch.multiprocessing
+    .spawn): card ``rank``, NCCL over a FileStore in ``tmp``; writes its
+    numbers to tmp/rank{rank}.json. Any failure raises, which fails the
+    spawn and the script."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                            rank=rank, world_size=world)
+    try:
+        out = mesh_ensemble_phases(rank, world)
+        out["state"] = state_sharded_phase(rank, world)
+        out["state2d"] = state_2d_phase(rank, world)
+    finally:
+        dist.destroy_process_group()
+    with open(f"{tmp}/{RANK_OUT.format(rank)}", "w") as f:
+        json.dump(out, f)
+
+
+def spawn_world(world: int, tmp: str) -> None:
+    """Run mesh_rank on ``world`` ranks; a rank that fails, or a world that
+    outlives MESH_TIMEOUT, fails the script (every rank is stopped)."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(mesh_rank, args=(world, tmp), nprocs=world,
+                             join=False, start_method="spawn")
+    deadline = time.monotonic() + MESH_TIMEOUT
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"the mesh world outlived {MESH_TIMEOUT} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+
+
+def mesh_phase(card: str) -> dict:
+    """The sharded phases: spawn the world (kernels already built: the
+    ranks load the cached libraries), then print each rank's numbers.
+    Returns the rows' launches and errors, rank 0's."""
+    import tempfile
+
+    world = mesh_world()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        spawn_world(world, tmp)
+        spawn_s = time.perf_counter() - t
+        ranks = []
+        for r in range(world):
+            with open(f"{tmp}/{RANK_OUT.format(r)}") as f:
+                ranks.append(json.load(f))
+    print(f"[mesh] world of {world} rank(s), NCCL, one card a rank, "
+          f"torch.multiprocessing.spawn over a FileStore: {spawn_s:.1f} s "
+          f"from spawn to the last exit ({card})", flush=True)
+    for key, label, kernel in (("main", "mesh-main", "k1"),
+                               ("loop", "mesh-loop", "k2"),
+                               ("generic", "mesh-generic", "k9")):
+        for r, o in enumerate(ranks):
+            rec = o[key]
+            extra = (f", saves bitwise: {rec['saves']}" if key == "loop"
+                     else "")
+            print(f"[{label}] world {world}, rank {r}: {rec['rows']} rows, "
+                  f"path {rec['path']}, {kernel.upper()} launches "
+                  f"{rec[kernel]} (max n_iters {rec['n_iters']}), all DONE, "
+                  f"counters equal to the one-card ensemble_solve of the "
+                  f"same rows, max|dy| {rec['dy']:.3e} (<= 1e-6; bitwise: "
+                  f"{rec['bitwise']}){extra}; sharded wall "
+                  f"{rec['wall']:.3f} ms ({card})", flush=True)
+    s = ranks[0]["state"]
+    bw = s["evals"] * s["bytes"] / (s["wall"] / 1e3)
+    prod_bw = s["bytes"] / (s["prod_ms"] / 1e3)
+    print(f"[state-sharded] world {world}: D = {STATE_D} f64, A row-sharded "
+          f"({STATE_D // world} rows a card), RKF45 rtol {STATE_CTL.rtol:g} "
+          f"on [0, 1]: status {s['status']}, n_accept {s['n_accept']} "
+          f"n_reject {s['n_reject']} equal to the unsharded solve_ivp's; "
+          f"|y - y_ref| / |y_ref| = {s['rel']:.3e} (<= 1e-10), ||y|| - 1 = "
+          f"{s['drift']:.3e} (<= 1e-7); wall {s['wall']:.3f} ms, "
+          f"{s['evals']} RHS evaluations, {s['bytes']} B a card streams an "
+          f"evaluation: {bw / 1e12:.3f} TB/s over the wall, the local "
+          f"product alone {s['prod_ms']:.4f} ms = {prod_bw / 1e12:.3f} TB/s, "
+          f"against the card's {HBM_BYTE_S / 1e12:.2f} TB/s ({card})",
+          flush=True)
+    s2 = ranks[0]["state2d"]
+    print(f"[state-2d] world {world}, mesh {s2['mesh']}: B = {S2D_B} x D = "
+          f"{S2D_D} f32, A0 + cos({S2D_W} t) A1 through local_rows, RKF45 "
+          f"rtol {S2D_CTL.rtol:g} on [0, 1]: all DONE, {s2['n_iters']} "
+          f"iterations at most, {s2['evals']} RHS evaluations on rank 0; "
+          f"against the unsharded batched solve max|dy| {s2['dy']:.3e} "
+          f"(<= 1e-4), counters differ on {s2['rows']} of {S2D_B} rows by "
+          f"at most {s2['dcount']} (<= 2); wall {s2['wall']:.3f} ms "
+          f"({card})", flush=True)
+    return {"k1": ranks[0]["main"]["k1"], "k1_err": ranks[0]["main"]["dy"],
+            "k2": ranks[0]["loop"]["k2"], "k2_err": ranks[0]["loop"]["dy"],
+            "k9": ranks[0]["generic"]["k9"],
+            "k9_err": ranks[0]["generic"]["dy"]}
+
+
+EXAMPLES_TIMEOUT = 420.0     # seconds; impact_events, the longest, ~140
+EXAMPLES = ("ensemble_sweep", "blackbox_fast_path", "hamiltonian_learning",
+            "impact_events", "lindblad_open_system", "pulse_control",
+            "threshold_events_kernel")
+
+
+def examples_phase(card: str) -> None:
+    """[examples]: each of the seven examples (``python -m
+    vec_ode_tpu_torch.examples.<name> --device cuda``, its main() with its
+    own check) and ``ensemble_sweep --mesh`` under torchrun on the world's
+    cards, as processes of their own run together (the examples are
+    host-bound: one card serves them all). Any that fails or outlives
+    EXAMPLES_TIMEOUT fails the script."""
+    import os
+    import sys
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    mod = "vec_ode_tpu_torch.examples."
+    cmds = {name: [sys.executable, "-m", mod + name, "--device", "cuda"]
+            for name in EXAMPLES}
+    cmds["ensemble_sweep --mesh"] = [
+        sys.executable, "-m", "torch.distributed.run", "--standalone",
+        f"--nproc-per-node={mesh_world()}", "-m", mod + "ensemble_sweep",
+        "--mesh"]
+    env = dict(os.environ, PYTHONPATH=root)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs, walls = {}, {}
+        t0 = time.perf_counter()
+        for i, (name, cmd) in enumerate(cmds.items()):
+            with open(f"{tmp}/{i}.log", "w") as log:
+                procs[name] = (subprocess.Popen(
+                    cmd, cwd=root, env=env, stdout=log,
+                    stderr=subprocess.STDOUT), f"{tmp}/{i}.log")
+        try:
+            while len(walls) < len(procs):
+                if time.perf_counter() - t0 > EXAMPLES_TIMEOUT:
+                    raise RuntimeError(
+                        f"examples still running after {EXAMPLES_TIMEOUT} s:"
+                        f" {sorted(set(procs) - set(walls))}")
+                for name, (p, _) in procs.items():
+                    if name not in walls and p.poll() is not None:
+                        walls[name] = time.perf_counter() - t0
+                time.sleep(0.2)
+        finally:
+            for p, _ in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        failed = []
+        for name, (p, path) in procs.items():
+            with open(path) as f:
+                lines = f.read().splitlines()
+            last = lines[-1] if lines else ""
+            print(f"[examples] {name}: exit {p.returncode} after "
+                  f"{walls[name]:.2f} s (from the common start), last line "
+                  f"{last!r} ({card})", flush=True)
+            if p.returncode != 0:
+                failed.append(name)
+                print("\n".join(lines[-40:]), flush=True)
+    assert not failed, f"examples failed: {failed}"
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = device_phase()
@@ -5785,6 +6223,8 @@ def main() -> None:
     traced_norm_phase(card)
     compact = compact_phase(card)
     checkpoint_phase()
+    mesh = mesh_phase(card)
+    examples_phase(card)
     k1 = timing_phase(card)
     drive_t = drive_timing_phase(card)
     k2 = loop_timing_phase(card)
@@ -5815,9 +6255,11 @@ def main() -> None:
             *((f"fused_rk_step/{n}", drive["k1"][n], drive["err"][n],
                drive_t[n]) for n in ("coeff", "cheb")),
             ("fused_rk_step/compact", compact["k1"], k1_err, k1),
+            ("fused_rk_step/mesh", mesh["k1"], mesh["k1_err"], k1),
             ("rk_step_tile/cheb", drive["k2"]["cheb"],
              drive["loop_err"]["cheb"], drive_t["k2_cheb"]),
             ("fused_loop", k2_launches, k2_err, k2),
+            ("fused_loop/mesh", mesh["k2"], mesh["k2_err"], k2),
             ("rk_step_tile", k2_launches, k2_err, k2),
             ("fused_chain_apply", k4_launches, k4_err, k4),
             ("chain_step_tile", k5_launches, k5_err, k5),
@@ -5828,6 +6270,7 @@ def main() -> None:
             ("fused_chain_apply/cluster", r_launches["magnus6"][1],
              cluster_err, r_times["magnus6"][2]),
             ("fused_dense_chain_apply", k9_launches, k9_err, k9),
+            ("fused_dense_chain_apply/mesh", mesh["k9"], mesh["k9_err"], k9),
             ("adjoint_bwd", k6_launches, adj_errs["k6"], adj["K6"]),
             ("adjoint_sweep_fwd", k7_launches, adj_errs["k7"], adj["K7"]),
             ("adjoint_sweep_bwd", k8_launches, adj_errs["k8"], adj["K8"]),

@@ -163,8 +163,10 @@ def test_unported_options_raise_not_implemented(kw):
     kw = dict(dict(stepper=convert.stepper_from_numpy(M0, M1, 1.0,
                                                       device="cpu")), **kw)
     y0 = convert.state_from_numpy(psi.real, psi.imag, device="cpu")
+    # mesh= runs over a torch.distributed DeviceMesh (tests/test_torch_mesh
+    # .py); anything else is refused
     exc, match = ((ValueError, "OPAQUE") if "error_norm" in kw
-                  else (NotImplementedError, "ROADMAP"))
+                  else (TypeError, "DeviceMesh"))
     with pytest.raises(exc, match=match):
         ensemble_solve(None, y0, 0.0, 1.0, h0=1e-3, **kw)
 

@@ -61,11 +61,26 @@ NAMES = {"exp": ["MagnusModulated6", "CFMModulated", "CFM4Modulated",
          "comp": ["two_sum", "update", "zero_lo", "chain_increment"],
          "lc": ["TracedNorm", "try_trace_norm"],
          "parallel": ["ensemble_solve_compact", "step_efficiency",
-                      "cost_sorted_permutation", "inverse_permutation"],
+                      "cost_sorted_permutation", "inverse_permutation",
+                      "ensemble_mesh", "shard_batch", "local_rows",
+                      "solve_linear_state_sharded",
+                      "ensemble_solve_state_sharded", "mesh_2d"],
          "utils.checkpointing": ["save_state", "load_state"],
          "config": ["warn_on_fallback", "_warn_fallback"],
          "ops.cplx": ["cplx", "cexpm_apply"],
-         "exp.leaves": ["cp_embed"]}
+         "exp.leaves": ["cp_embed"],
+         # the last modules: sharded ensembles over a DeviceMesh, state
+         # sharding, and the examples
+         "parallel.ensemble": ["ensemble_mesh", "shard_batch"],
+         "parallel.state_parallel": ["local_rows",
+                                     "solve_linear_state_sharded",
+                                     "ensemble_solve_state_sharded",
+                                     "mesh_2d"],
+         "examples": ["device_arg"]}
+EXAMPLES = ["ensemble_sweep", "blackbox_fast_path", "hamiltonian_learning",
+            "impact_events", "lindblad_open_system", "pulse_control",
+            "threshold_events_kernel"]
+NAMES.update({"examples." + name: ["main"] for name in EXAMPLES})
 MODULES = ["exp.auto", "quad", "events", "dense", "diff", "ops.adjoint",
            "ops.expm", "ops.dense_chains", "ops.cplx", "ops.expmv",
            "ops.fused_rk", "ops.fused_loop", "exp.protocol", "exp.leaves",
@@ -73,7 +88,8 @@ MODULES = ["exp.auto", "quad", "events", "dense", "diff", "ops.adjoint",
            "exp.modulated", "models.quantum", "parallel.ensemble", "convert",
            "rk", "api", "models.linear", "models.nonlinear", "models.chains",
            "exp.splits", "ops.forms", "comp", "config",
-           "utils.checkpointing"]
+           "utils.checkpointing", "parallel.state_parallel",
+           "parallel._mesh"] + ["examples." + n for n in EXAMPLES]
 
 PROBE = f"MODULES = {MODULES!r}; NAMES = {NAMES!r}" + """
 import importlib, pkgutil, sys
@@ -102,6 +118,26 @@ def test_import_loads_no_jax_and_builds_nothing():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+# the entry points of the ranks that the mesh tests (tests/torch_mesh_ranks
+# .py) and chip_smoke.py (its spawned ranks re-import it) launch
+RANKS_PROBE = """
+import sys
+sys.path[:0] = ["tests", "."]
+import torch_mesh_ranks, chip_smoke
+assert callable(chip_smoke.mesh_rank)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "vec_ode_tpu"))
+print("BAD", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_rank_entry_points_load_no_jax():
+    proc = subprocess.run([sys.executable, "-c", RANKS_PROBE], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_sources_name_no_jax_import():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|vec_ode_tpu)\b"
                          r"(?!_torch)", re.M)
@@ -114,6 +150,7 @@ def test_sources_name_no_jax_import():
                 ROOT / "tools" / "k9_breakdown.py",
                 ROOT / "tools" / "k6_breakdown.py",
                 ROOT / "tools" / "rk_breakdown.py",
-                ROOT / "tools" / "parent_bits.py"]
+                ROOT / "tools" / "parent_bits.py",
+                ROOT / "tests" / "torch_mesh_ranks.py"]
     for path in sources:
         assert not pattern.search(path.read_text()), path

@@ -210,8 +210,9 @@ def test_params_arity_is_checked():
     dict(method="scan", mesh=object()),
 ])
 def test_vmapped_tier_refusals_name_their_item(kw):
+    # mesh= takes a torch.distributed DeviceMesh (tests/test_torch_mesh.py)
     err, match = ((ValueError, "events") if "dense" in kw
-                  else (NotImplementedError, "item 27"))
+                  else (TypeError, "DeviceMesh"))
     with pytest.raises(err, match=match):
         ensemble_solve(lambda t, y: -y, torch.ones(B, dtype=torch.float64),
                        0.0, 1.0, h0=1e-2, **kw)

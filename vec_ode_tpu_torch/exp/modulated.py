@@ -273,6 +273,9 @@ class _ChainStepper:
             if single:
                 # one trajectory on the scalar carry: a batch of one
                 xw, t, dt = xw[None], t.reshape(1), dt.reshape(1)
+            elif dt.ndim == 0:
+                # a (B, d) state on the scalar carry: one t and dt for all
+                t, dt = t.expand(xw.shape[0]), dt.expand(xw.shape[0])
             mt, norms = self._operands(xw.device, xw.dtype)
             m, theta = _taylor_params(xw.dtype, self.m)
             samples = [coeff_fn(tn).to(xw.dtype).contiguous()

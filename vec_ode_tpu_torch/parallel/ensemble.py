@@ -1,6 +1,5 @@
 """Ensemble propagation: many independent trajectories in one solve (the
-unsharded branches of ``vec_ode_tpu/parallel/ensemble.py:
-ensemble_solve``):
+counterpart of ``vec_ode_tpu/parallel/ensemble.py``):
 
 * natively batched steppers: the whole loop in one kernel launch where
   the stepper's ``fused_loop_solve`` takes the configuration, else one
@@ -18,6 +17,14 @@ ensemble_solve``):
 ``ctl.max_steps`` iterations, no read of the device), so a natively
 batched stepper skips its whole-loop kernel and launches its step kernel
 once an iteration, as the JAX package skips ``fused_loop_solve``.
+
+``mesh=`` shards the batch over a ``torch.distributed`` DeviceMesh
+(:func:`ensemble_mesh`; :func:`shard_batch` places a batch): every rank
+runs the unsharded solve above on its own contiguous rows, so the route
+(loop kernel or step kernel, ``fused_loop.LOOP_MAX_BATCH`` included)
+follows the rank's own batch, as the JAX package's ``shard_map`` of the
+same body does, and the outputs come back as DTensors sharded on the
+batch dim (no gather).
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from ..controller import StepControl, check_h0
 from ..driver import Solution, integrate, make_grid
 from ..events import as_event_config
 from ..rk import RungeKutta
+from . import _mesh
 
 
 def _declares_norm(stepper) -> bool:
@@ -165,9 +173,18 @@ def ensemble_solve(
 
     The signature is the JAX package's, with those two added.
     ``time_dtype`` defaults to float64 (the JAX package's default under
-    x64); ``h0`` may be per-trajectory (B,). What this port does not run
-    yet raises ``NotImplementedError`` naming its ROADMAP item: ``mesh=``
-    (27).
+    x64); ``h0`` may be per-trajectory (B,).
+
+    ``mesh`` (a ``torch.distributed`` DeviceMesh, :func:`ensemble_mesh`)
+    shards the batch over the mesh's first dimension; every rank of the
+    mesh calls ``ensemble_solve`` alike. ``y0_batch``, ``params`` and a
+    per-trajectory ``h0`` are global tensors (every rank holds the same;
+    each takes its contiguous rows) or DTensors sharded on dim 0
+    (:func:`shard_batch`), on the mesh's device type. The batch size must
+    divide the mesh size. Each rank runs the unsharded solve on its rows
+    (its route, and ``Solution.path``, are its own); every batched field
+    of the Solution comes back as a DTensor sharded on dim 0
+    (``.full_tensor()`` gathers it).
 
     ``error_norm`` on a natively batched stepper: a declared
     ``WeightedNorm`` goes into the stepper's ``norm`` (its kernels run
@@ -177,10 +194,52 @@ def ensemble_solve(
     takes the vmapped tier on an auto-batched stepper and raises on an
     explicitly batched one.
     """
+    kw = dict(stepper=stepper, h0=h0, adaptive=adaptive, ctl=ctl,
+              save_at=save_at, error_norm=error_norm, time_dtype=time_dtype,
+              method=method, params=params, events=events, dense=dense,
+              remat_levels=remat_levels, grad_safe=grad_safe)
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh=: sharded ensembles are ROADMAP queue 1 item 27 (its mesh "
-            "half)")
+        return _sharded_solve(rhs_or_op, y0_batch, t0, tf, mesh, kw)
+    return _solve(rhs_or_op, y0_batch, t0, tf, **kw)
+
+
+def _sharded_solve(rhs_or_op, y0_batch, t0, tf, mesh, kw) -> Solution:
+    """``shard_map`` of the unsharded body (``ensemble.py:404-432``): the
+    rank's rows of the batched inputs through :func:`_solve`, every
+    batched output a DTensor sharded on dim 0 over the mesh's first
+    dimension."""
+    _mesh.check_mesh(mesh)
+    lead = pytree.tree_leaves(y0_batch)[0].shape[0]
+    n_shards = mesh.size()
+    if lead % n_shards != 0:
+        raise ValueError(
+            f"ensemble size {lead} must divide the mesh size {n_shards}")
+    rows = {0: 0}
+
+    def local(tree):
+        return pytree.tree_map(lambda a: _mesh.take(a, mesh, rows), tree)
+
+    h0 = kw["h0"]
+    if isinstance(h0, torch.Tensor) and h0.ndim:
+        kw = dict(kw, h0=local(h0))
+    sol = _solve(rhs_or_op, local(y0_batch), t0, tf,
+                 **dict(kw, params=local(kw["params"])))
+    b = lead // mesh.size(0)
+
+    def out(a):
+        if isinstance(a, torch.Tensor) and a.ndim and a.shape[0] == b:
+            return _mesh.shard(a, mesh, rows)
+        return a
+
+    return dataclasses.replace(sol, **{
+        f.name: pytree.tree_map(out, getattr(sol, f.name))
+        for f in dataclasses.fields(sol) if f.name != "path"})
+
+
+def _solve(rhs_or_op, y0_batch, t0, tf, *, stepper, h0, adaptive, ctl,
+           save_at, error_norm, time_dtype, method, params, events, dense,
+           remat_levels, grad_safe) -> Solution:
+    """The unsharded ensemble solve on ``y0_batch``'s device."""
     if dense and (remat_levels or grad_safe):
         raise ValueError("dense=True: the dense driver takes neither "
                          "remat_levels nor grad_safe")
@@ -454,8 +513,10 @@ def step_efficiency(sol: Solution, n_shards: int = 1,
     are useful. Returns useful / executed in [0, 1] (1: no waste);
     ``n_shards`` splits the leading batch axis as a mesh would (each
     shard its own loop), ``per_shard=True`` returns the (n_shards,)
-    efficiencies instead of the aggregate."""
-    ni = sol.n_iters.reshape(n_shards, -1).to(torch.float64)
+    efficiencies instead of the aggregate. A sharded Solution (DTensor
+    fields) is read through its full view: every rank of its mesh calls
+    this alike."""
+    ni = _mesh.full(sol.n_iters).reshape(n_shards, -1).to(torch.float64)
     per = ni.sum(dim=1) / (ni.amax(dim=1) * ni.shape[1])
     if per_shard:
         return per
@@ -616,3 +677,29 @@ def ensemble_solve_compact(
     return sol, {"executed_lane_iters": executed,
                  "useful_lane_iters": useful,
                  "efficiency": useful / max(executed, 1)}
+
+
+def ensemble_mesh(n_devices: Optional[int] = None, axis: str = "traj",
+                  device: str = "cuda"):
+    """A 1-D ``torch.distributed`` DeviceMesh named ``axis`` over the
+    world's first ``n_devices`` ranks (default: all), one rank a device:
+    NCCL on ``"cuda"`` (each rank on its own card), gloo on ``"cpu"``.
+    A process group not yet initialised is set up from the environment,
+    as ``torchrun`` sets it; every rank of the world calls this alike.
+    More devices than the world holds raise ``ValueError``."""
+    world = _mesh.world_size(device)
+    n = world if n_devices is None else n_devices
+    return _mesh.make_mesh(device, (n,), (axis,))
+
+
+def shard_batch(y0_batch, mesh):
+    """Every tensor leaf of the host batch ``y0_batch`` (the same on every
+    rank, as a JAX host array is one array) as a DTensor sharded on dim 0
+    over the mesh's first dimension: each rank takes its own contiguous
+    rows, with no collective, so that ``ensemble_solve(..., mesh=mesh)``
+    runs without a gather. The leaves must lie on the mesh's device type
+    and their leading size divide the mesh's first dimension."""
+    _mesh.check_mesh(mesh)
+    return pytree.tree_map(
+        lambda a: _mesh.shard(_mesh.take(a, mesh, {0: 0}), mesh, {0: 0})
+        if isinstance(a, torch.Tensor) else a, y0_batch)
