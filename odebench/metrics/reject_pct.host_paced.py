@@ -1,0 +1,5 @@
+"""``reject_pct`` in the host-paced cells (rkf45-2k-saves-loop,
+magnus4-16k-step), where it moves traj_per_s.host_paced:
+the same reader."""
+
+from .reject_pct import read  # noqa: F401

@@ -1,0 +1,5 @@
+"""``solve_mfu`` in the host-paced cells (rkf45-2k-saves-loop,
+magnus4-16k-step), where it moves traj_per_s.host_paced:
+the same reader."""
+
+from .solve_mfu import read  # noqa: F401
