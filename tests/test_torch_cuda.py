@@ -19,6 +19,7 @@ jax it runs as
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import collections
 import dataclasses
 
 import numpy as np
@@ -28,6 +29,8 @@ import torch
 import chip_smoke
 from chip_smoke import err_norm_limit
 from vec_ode_tpu_torch import DONE, StepControl, lc, tableaus as ttab
+from vec_ode_tpu_torch import telemetry
+from vec_ode_tpu_torch.driver import make_grid
 from vec_ode_tpu_torch import diff as tdiff
 from vec_ode_tpu_torch import exp as texp
 from vec_ode_tpu_torch.exp import (CFM4Modulated, CFMModulated, CoeffForm,
@@ -2368,3 +2371,110 @@ def test_checkpoint_resumes_on_the_card_bitwise(card, tmp_path):
                         error_norm=st.error_norm, batched=True)
     assert torch.equal(sol.y_final.re, base.y_final.re)
     assert torch.equal(sol.n_iters, base.n_iters)
+
+
+def _profiled(fn):
+    """``fn()`` under the profiler, host and card: (its result, the port's
+    spans, the profiler's events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    telemetry.clear()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, telemetry.spans(), list(prof.profiler.kineto_results.events())
+
+
+def _reads_are_syncs(spans, events):
+    """Every read of the card by the host lies in a ``vec_ode.sync``
+    span."""
+    syncs = [s for s in spans if s.name.startswith(telemetry.SYNC)]
+    for e in events:
+        if e.name() == "aten::_local_scalar_dense":
+            assert any(s.start_ns <= e.start_ns() and e.end_ns() <= s.end_ns
+                       for s in syncs)
+
+
+def _magnus_inputs(n, declared):
+    model = DrivenDense.make(d=64, seed=0)
+    op = model.modulated(torch.float32, device="cuda")
+    if not declared:
+        w = float(model.w)
+        op = ModulatedOperator(basis=op.basis, coeff_fn=lambda t: torch.stack(
+            [torch.ones_like(t), torch.cos(w * t)], dim=-1))
+    rng = np.random.default_rng(7)
+    psi = rng.standard_normal((n, 64)) + 1j * rng.standard_normal((n, 64))
+    psi /= np.linalg.norm(psi, axis=-1, keepdims=True)
+    return MagnusModulated4(op), from_complex(psi, torch.float32,
+                                              device="cuda")
+
+
+@pytest.mark.parametrize("route", ["rk_saves", "magnus"])
+def test_persistent_loop_route_spans(card, route):
+    """The benchmark's loop routes on the card: one entry, one
+    ``vec_ode.loop.launch`` (the preparation and the one launch), one
+    solution; the save grid's five reads, else none; every read of the
+    card a sync span."""
+    if route == "rk_saves":
+        st, y0 = chip_smoke.main_inputs(512)
+        save_at = chip_smoke.SAVE_AT
+    else:
+        st, y0 = _magnus_inputs(1024, declared=True)
+        save_at = None
+    ctl = StepControl(rtol=1e-5, min_dt=1e-5, max_dt=0.2)
+    sol, spans, events = _profiled(lambda: ensemble_solve(
+        None, y0, 0.0, 1.0, stepper=st, ctl=ctl, h0=1e-3, save_at=save_at,
+        time_dtype=torch.float32))
+    assert sol.path == "cuda-loop-persistent"
+    names = collections.Counter(s.name for s in spans)
+    assert dict(names) == {
+        "vec_ode.entry": 1, "vec_ode.loop.launch": 1, "vec_ode.solution": 1,
+        **({"vec_ode.sync.grid": 5} if save_at else {})}
+    _reads_are_syncs(spans, events)
+
+
+def test_chunked_loop_spans(card):
+    """``persistent=False``: a launch span and a ``loop_cond`` read for
+    each chunk's launch, one read more to end the loop, and the
+    preparation's launch span first."""
+    st, y0 = chip_smoke.main_inputs(512)
+    grid = make_grid(0.0, 1.0, chip_smoke.SAVE_AT, dtype=torch.float32,
+                     device="cuda")
+    before = fused_loop_chunk.launches
+
+    def run():
+        with telemetry.call():
+            return st.fused_loop_solve(y0, grid, chip_smoke.H0,
+                                       ctl=chip_smoke.CTL, adaptive=True,
+                                       persistent=False, chunk=8)
+
+    sol, spans, events = _profiled(run)
+    n = fused_loop_chunk.launches - before
+    assert sol.path == "cuda-loop-chunked" and n > 1
+    top = [s.name for s in spans if s.parent < 0]
+    assert top == (["vec_ode.loop.launch"]
+                   + ["vec_ode.sync.loop_cond", "vec_ode.loop.launch"] * n
+                   + ["vec_ode.sync.loop_cond", "vec_ode.solution"])
+    _reads_are_syncs(spans, events)
+
+
+def test_step_route_spans(card):
+    """The benchmark's step route on the card (a callable drive): a
+    ``driver.step`` span an iteration with its K4 launch, one
+    ``driver_cond`` read more than steps and no other read."""
+    st, y0 = _magnus_inputs(1024, declared=False)
+    ctl = StepControl(rtol=1e-5, min_dt=1e-5, max_dt=0.2)
+    before = fused_chain_apply.launches
+    sol, spans, events = _profiled(lambda: ensemble_solve(
+        None, y0, 0.0, 1.0, stepper=st, ctl=ctl, h0=1e-3,
+        time_dtype=torch.float32))
+    steps = int(sol.n_iters.max())
+    assert sol.path == "torch-driver+cuda-step"
+    assert fused_chain_apply.launches - before == steps
+    names = collections.Counter(s.name for s in spans)
+    assert names["vec_ode.driver.step"] == steps
+    assert names["vec_ode.sync.driver_cond"] == steps + 1
+    assert sum(n for k, n in names.items()
+               if k.startswith(telemetry.SYNC)) == steps + 1
+    _reads_are_syncs(spans, events)

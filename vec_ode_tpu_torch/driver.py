@@ -26,7 +26,7 @@ import torch
 from torch.utils import _pytree as pytree
 from torch.utils.checkpoint import checkpoint
 
-from . import lc
+from . import lc, telemetry
 from .controller import (StepControl, controller_update, end_tolerance,
                          error_measure)
 
@@ -95,10 +95,11 @@ def make_grid(t0, tf, save_at=None, dtype=torch.float64, device="cuda"):
     if save_at is None:
         return torch.cat([t0, tf])
     save_at = torch.as_tensor(save_at, dtype=dtype, device=device).reshape(-1)
-    lo, hi = float(t0), float(tf)
+    lo, hi = telemetry.read("grid", t0), telemetry.read("grid", tf)
     if save_at.numel() and (
-        bool((save_at <= lo).any()) or bool((save_at >= hi).any())
-        or bool((torch.diff(save_at) <= 0).any())
+        telemetry.read("grid", (save_at <= lo).any())
+        or telemetry.read("grid", (save_at >= hi).any())
+        or telemetry.read("grid", (torch.diff(save_at) <= 0).any())
     ):
         raise ValueError(
             f"save_at must be strictly increasing and strictly inside "
@@ -527,15 +528,17 @@ def integrate(step_fn: Callable, x0: Pytree, t_grid: torch.Tensor, h0, *,
     under ``torch.utils.checkpoint``: the backward pass keeps the carries
     at level boundaries and recomputes the rest, and the 65536-iteration
     guard is lifted. ``grad_safe``: see :func:`step_once`."""
-    carry0 = () if init_carry_fn is None else init_carry_fn(t_grid[0], x0)
-    ev0 = ()
-    if event_cfg is not None:
-        from .events import init_event_state
+    with telemetry.span("vec_ode.driver.init"):
+        carry0 = (() if init_carry_fn is None
+                  else init_carry_fn(t_grid[0], x0))
+        ev0 = ()
+        if event_cfg is not None:
+            from .events import init_event_state
 
-        ev0 = init_event_state(event_cfg, t_grid[0].expand(batch_shape), x0,
-                               batch_shape=batch_shape)
-    state = init_state(x0, t_grid, h0, batch_shape, stepper_carry=carry0,
-                       event_state=ev0)
+            ev0 = init_event_state(event_cfg, t_grid[0].expand(batch_shape),
+                                   x0, batch_shape=batch_shape)
+        state = init_state(x0, t_grid, h0, batch_shape, stepper_carry=carry0,
+                           event_state=ev0)
     return resume(state, step_fn, adaptive=adaptive, ctl=ctl,
                   error_norm=error_norm, method=method,
                   batched=bool(batch_shape), event_cfg=event_cfg,
@@ -574,8 +577,12 @@ def resume(state: IntState, step_fn: Callable, *, adaptive: bool = True,
                 "checkpointing of a fixed-length scan); the default "
                 "while-loop driver is not reverse-differentiable")
         # one host sync per iteration: the loop's condition
-        while bool((state.status == RUNNING).any()):
-            state = body(state)
+        it = 0
+        while telemetry.read("driver_cond",
+                             (state.status == RUNNING).any()):
+            with telemetry.span("vec_ode.driver.step", it):
+                state = body(state)
+            it += 1
     elif method == "scan":
         if ctl.max_steps > SCAN_GUARD and remat_levels == 0:
             raise ValueError(
@@ -589,34 +596,35 @@ def resume(state: IntState, step_fn: Callable, *, adaptive: bool = True,
     else:
         raise ValueError(f"unknown integrate method: {method!r}")
 
-    ys = state.ys
-    if elide_ys:
-        ys0 = lc.tree_where(init_tgt == 0, init_x,
-                            pytree.tree_map(lambda a: a.select(bn, 0),
-                                            init_ys))
-        ys1 = lc.tree_where(state.tgt_idx >= 2, state.x,
-                            pytree.tree_map(lambda a: a.select(bn, 1),
-                                            init_ys))
-        ys = pytree.tree_map(lambda a, b: torch.stack([a, b], dim=bn),
-                             ys0, ys1)
-    ev_kw = {}
-    if event_cfg is not None and len(pytree.tree_leaves(state.ev)) > 0:
-        ev_kw = dict(
-            event_t=state.ev.t_ev[..., 0],
-            event_found=state.ev.found,
-            event_y=state.ev.y_ev if event_cfg.record_y else None,
-            event_t_k=state.ev.t_ev,
-            event_count=state.ev.count,
+    with telemetry.span("vec_ode.solution"):
+        ys = state.ys
+        if elide_ys:
+            ys0 = lc.tree_where(init_tgt == 0, init_x,
+                                pytree.tree_map(lambda a: a.select(bn, 0),
+                                                init_ys))
+            ys1 = lc.tree_where(state.tgt_idx >= 2, state.x,
+                                pytree.tree_map(lambda a: a.select(bn, 1),
+                                                init_ys))
+            ys = pytree.tree_map(lambda a, b: torch.stack([a, b], dim=bn),
+                                 ys0, ys1)
+        ev_kw = {}
+        if event_cfg is not None and len(pytree.tree_leaves(state.ev)) > 0:
+            ev_kw = dict(
+                event_t=state.ev.t_ev[..., 0],
+                event_found=state.ev.found,
+                event_y=state.ev.y_ev if event_cfg.record_y else None,
+                event_t_k=state.ev.t_ev,
+                event_count=state.ev.count,
+            )
+        return Solution(
+            ts=state.ts_grid,
+            ys=ys,
+            t_final=state.t,
+            y_final=state.x,
+            status=state.status,
+            n_accept=state.n_accept,
+            n_reject=state.n_reject,
+            n_iters=state.n_iters,
+            h_final=state.h,
+            **ev_kw,
         )
-    return Solution(
-        ts=state.ts_grid,
-        ys=ys,
-        t_final=state.t,
-        y_final=state.x,
-        status=state.status,
-        n_accept=state.n_accept,
-        n_reject=state.n_reject,
-        n_iters=state.n_iters,
-        h_final=state.h,
-        **ev_kw,
-    )

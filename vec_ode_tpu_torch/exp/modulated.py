@@ -39,7 +39,7 @@ from typing import Any, Callable, Optional, Union
 
 import torch
 
-from .. import lc
+from .. import lc, telemetry
 from .. import tableaus as tb
 from ..config import _decline
 from ..ops.cplx import Cplx, cmatmul, embed
@@ -341,25 +341,26 @@ class _ChainStepper:
                 return _decline("events= has an opaque callable; the loop "
                                 "kernel takes declared observables")
         dense = dense and t_grid.shape[0] > 2
-        wnorm = None
-        if getattr(self, "norm", None) is not None:
-            if ctl.scaled_error:
-                raise ValueError(
-                    "scaled_error and a declared WeightedNorm are "
-                    "mutually exclusive (both redefine the controller's "
-                    "error measure)")
-            wnorm = self._wnorm_of(y0)
-        dtype, dev = leaf.dtype, leaf.device
-        mt, norms = self._operands(dev, dtype)
-        m, theta = _taylor_params(dtype, self.m)
-        step = ChainStep(
-            mt=mt, norms=norms, form=self.op.form, recipe=self._recipe,
-            C=self._chains, m=m, theta=theta,
-            max_squarings=self.max_squarings,
-            scaled=(ctl.atol, ctl.rtol) if ctl.scaled_error else None,
-            wnorm=wnorm, table=self._table)
-        persistent = persistent is None or persistent
-        x0 = _widen(y0, is_cplx)
+        with telemetry.span("vec_ode.loop.launch"):
+            wnorm = None
+            if getattr(self, "norm", None) is not None:
+                if ctl.scaled_error:
+                    raise ValueError(
+                        "scaled_error and a declared WeightedNorm are "
+                        "mutually exclusive (both redefine the controller's "
+                        "error measure)")
+                wnorm = self._wnorm_of(y0)
+            dtype, dev = leaf.dtype, leaf.device
+            mt, norms = self._operands(dev, dtype)
+            m, theta = _taylor_params(dtype, self.m)
+            step = ChainStep(
+                mt=mt, norms=norms, form=self.op.form, recipe=self._recipe,
+                C=self._chains, m=m, theta=theta,
+                max_squarings=self.max_squarings,
+                scaled=(ctl.atol, ctl.rtol) if ctl.scaled_error else None,
+                wnorm=wnorm, table=self._table)
+            persistent = persistent is None or persistent
+            x0 = _widen(y0, is_cplx)
         out = fused_loop_integrate(
             t_grid[[0, -1]] if dense else t_grid, x0, h0, step, ctl=ctl,
             chunk=chunk, persistent=persistent, adaptive=adaptive,

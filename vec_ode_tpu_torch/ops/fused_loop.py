@@ -53,6 +53,7 @@ from typing import NamedTuple, Optional, Union
 
 import torch
 
+from .. import telemetry
 from ..controller import StepControl, controller_update, end_tolerance
 from ..driver import (DONE, DONE_EVENT, ERR_BAD_GRID, ERR_MAX_STEPS,
                       ERR_STALLED, EVT_CHKPT, EVT_END, EVT_NONE, EVT_REJECT,
@@ -750,19 +751,21 @@ def fused_loop_integrate(t_grid, x0, h0, step, *, ctl: StepControl,
     ``dense._dense_step`` has no t0 iteration (``pallas_loop.py:1433``).
     With either, the return grows the final :class:`EventCarry` (or None)
     and :class:`DenseCarry` (or None)."""
-    t_grid, fs, ist, x, saves = init_carries(t_grid, x0, h0)
-    ev = None if events is None else init_event_carry(events, x)
-    dn = None
-    if dense_times is not None:
-        dn = init_dense_carry(dense_times, x)
-        ist[:, 0] = 1
-    kw = dict(ctl=ctl, adaptive=adaptive, events=events, ev=ev, dense=dn)
-    if persistent:
-        out = fused_loop_chunk(t_grid, fs, ist, x, saves, step, **kw)
-    else:
+    with telemetry.span("vec_ode.loop.launch"):
+        t_grid, fs, ist, x, saves = init_carries(t_grid, x0, h0)
+        ev = None if events is None else init_event_carry(events, x)
+        dn = None
+        if dense_times is not None:
+            dn = init_dense_carry(dense_times, x)
+            ist[:, 0] = 1
+        kw = dict(ctl=ctl, adaptive=adaptive, events=events, ev=ev, dense=dn)
         out = fs, ist, x, saves
-        while bool((out[1][:, 1] == RUNNING).any()):
-            out = fused_loop_chunk(t_grid, *out, step, chunk=chunk, **kw)
+        if persistent:
+            out = fused_loop_chunk(t_grid, *out, step, **kw)
+    if not persistent:
+        while telemetry.read("loop_cond", (out[1][:, 1] == RUNNING).any()):
+            with telemetry.span("vec_ode.loop.launch"):
+                out = fused_loop_chunk(t_grid, *out, step, chunk=chunk, **kw)
     if events is None and dn is None:
         return out
     return (*out, ev, dn)
@@ -780,28 +783,29 @@ def loop_solution(t_grid, x0w, out, *, path: str, unwiden, slope=None):
     from ..dense import hermite_from_endpoints
     from ..driver import Solution
 
-    fs, ist, x, saves = out[:4]
-    ev, dn = out[4:] if len(out) > 4 else (None, None)
-    B = x.shape[0]
-    n_grid = t_grid.shape[0]
-    if dn is not None:
-        interior = hermite_from_endpoints(t_grid[1:-1], dn.td, dn.dtd,
-                                          dn.dx[0::2], dn.dx[1::2], slope)
-        n_grid_k = 2
-    else:
-        interior, n_grid_k = saves, n_grid
-    reached = (ist[:, 0] >= n_grid_k)[:, None, None]
-    yw = torch.cat([x0w[:, None], interior.transpose(0, 1),
-                    torch.where(reached, x[:, None],
-                                torch.zeros_like(x[:, None]))], dim=1)
-    ev_kw = {}
-    if ev is not None:
-        ev_kw = dict(event_t=ev.t_ev[..., 0], event_found=ev.found != 0,
-                     event_y=(None if ev.y_ev is None
-                              else unwiden(ev.y_ev.transpose(0, 1))),
-                     event_t_k=ev.t_ev, event_count=ev.count)
-    return Solution(
-        ts=t_grid.expand(B, n_grid), ys=unwiden(yw), t_final=fs[:, 0],
-        y_final=unwiden(x), status=ist[:, 1], n_accept=ist[:, 3],
-        n_reject=ist[:, 4], n_iters=ist[:, 5], h_final=fs[:, 1],
-        path=path + ("-dense" if dn is not None else ""), **ev_kw)
+    with telemetry.span("vec_ode.solution"):
+        fs, ist, x, saves = out[:4]
+        ev, dn = out[4:] if len(out) > 4 else (None, None)
+        B = x.shape[0]
+        n_grid = t_grid.shape[0]
+        if dn is not None:
+            interior = hermite_from_endpoints(t_grid[1:-1], dn.td, dn.dtd,
+                                              dn.dx[0::2], dn.dx[1::2], slope)
+            n_grid_k = 2
+        else:
+            interior, n_grid_k = saves, n_grid
+        reached = (ist[:, 0] >= n_grid_k)[:, None, None]
+        yw = torch.cat([x0w[:, None], interior.transpose(0, 1),
+                        torch.where(reached, x[:, None],
+                                    torch.zeros_like(x[:, None]))], dim=1)
+        ev_kw = {}
+        if ev is not None:
+            ev_kw = dict(event_t=ev.t_ev[..., 0], event_found=ev.found != 0,
+                         event_y=(None if ev.y_ev is None
+                                  else unwiden(ev.y_ev.transpose(0, 1))),
+                         event_t_k=ev.t_ev, event_count=ev.count)
+        return Solution(
+            ts=t_grid.expand(B, n_grid), ys=unwiden(yw), t_final=fs[:, 0],
+            y_final=unwiden(x), status=ist[:, 1], n_accept=ist[:, 3],
+            n_reject=ist[:, 4], n_iters=ist[:, 5], h_final=fs[:, 1],
+            path=path + ("-dense" if dn is not None else ""), **ev_kw)

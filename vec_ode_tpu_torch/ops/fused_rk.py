@@ -42,7 +42,7 @@ from typing import Callable, NamedTuple, Optional, Union
 import numpy as np
 import torch
 
-from .. import lc
+from .. import lc, telemetry
 from ..config import _decline
 from ..tableaus import RKF45, ButcherTableau
 from . import _build
@@ -671,22 +671,23 @@ class FusedModulatedLinearRK:
                 return _decline("events= has an opaque callable; the loop "
                                 "kernel takes declared observables")
         dense = dense and t_grid.shape[0] > 2
-        wnorm = None
-        if self.norm is not None:
-            if ctl.scaled_error:
-                raise ValueError(
-                    "scaled_error and a declared WeightedNorm are "
-                    "mutually exclusive")
-            wnorm = self._wnorm(d)
-        dtype, dev = y0.re.dtype, y0.re.device
-        step = RKStep(
-            M0=self.M0.to(device=dev, dtype=dtype),
-            M1=self.M1.to(device=dev, dtype=dtype), u_fn=self.u_fn,
-            tableau=self.tableau, advance_lower=self.advance_lower,
-            scaled=(ctl.atol, ctl.rtol) if ctl.scaled_error else None,
-            wnorm=wnorm)
-        persistent = persistent is None or persistent
-        x0 = torch.cat([y0.re, y0.im], dim=1)
+        with telemetry.span("vec_ode.loop.launch"):
+            wnorm = None
+            if self.norm is not None:
+                if ctl.scaled_error:
+                    raise ValueError(
+                        "scaled_error and a declared WeightedNorm are "
+                        "mutually exclusive")
+                wnorm = self._wnorm(d)
+            dtype, dev = y0.re.dtype, y0.re.device
+            step = RKStep(
+                M0=self.M0.to(device=dev, dtype=dtype),
+                M1=self.M1.to(device=dev, dtype=dtype), u_fn=self.u_fn,
+                tableau=self.tableau, advance_lower=self.advance_lower,
+                scaled=(ctl.atol, ctl.rtol) if ctl.scaled_error else None,
+                wnorm=wnorm)
+            persistent = persistent is None or persistent
+            x0 = torch.cat([y0.re, y0.im], dim=1)
         out = fused_loop_integrate(
             t_grid[[0, -1]] if dense else t_grid, x0, h0, step, ctl=ctl,
             chunk=chunk, persistent=persistent, events=ev_spec,

@@ -38,7 +38,7 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
-from .. import lc
+from .. import lc, telemetry
 from ..controller import StepControl, check_h0
 from ..driver import Solution, integrate, make_grid
 from ..events import as_event_config
@@ -198,9 +198,10 @@ def ensemble_solve(
               save_at=save_at, error_norm=error_norm, time_dtype=time_dtype,
               method=method, params=params, events=events, dense=dense,
               remat_levels=remat_levels, grad_safe=grad_safe)
-    if mesh is not None:
-        return _sharded_solve(rhs_or_op, y0_batch, t0, tf, mesh, kw)
-    return _solve(rhs_or_op, y0_batch, t0, tf, **kw)
+    with telemetry.call():
+        if mesh is not None:
+            return _sharded_solve(rhs_or_op, y0_batch, t0, tf, mesh, kw)
+        return _solve(rhs_or_op, y0_batch, t0, tf, **kw)
 
 
 def _sharded_solve(rhs_or_op, y0_batch, t0, tf, mesh, kw) -> Solution:
@@ -240,40 +241,42 @@ def _solve(rhs_or_op, y0_batch, t0, tf, *, stepper, h0, adaptive, ctl,
            save_at, error_norm, time_dtype, method, params, events, dense,
            remat_levels, grad_safe) -> Solution:
     """The unsharded ensemble solve on ``y0_batch``'s device."""
-    if dense and (remat_levels or grad_safe):
-        raise ValueError("dense=True: the dense driver takes neither "
-                         "remat_levels nor grad_safe")
-    if stepper is None:
-        stepper = RungeKutta()
-    event_cfg = as_event_config(events)
-    use_batched = bool(getattr(stepper, "is_batched", False))
-    if use_batched:
-        stepper, error_norm, use_batched = _batched_norm_dispatch(
-            stepper, error_norm, y0_batch, ctl)
+    with telemetry.span("vec_ode.entry"):
+        if dense and (remat_levels or grad_safe):
+            raise ValueError("dense=True: the dense driver takes neither "
+                             "remat_levels nor grad_safe")
+        if stepper is None:
+            stepper = RungeKutta()
+        event_cfg = as_event_config(events)
+        use_batched = bool(getattr(stepper, "is_batched", False))
+        if use_batched:
+            stepper, error_norm, use_batched = _batched_norm_dispatch(
+                stepper, error_norm, y0_batch, ctl)
 
-    leaves = pytree.tree_leaves(y0_batch)
-    b = leaves[0].shape[0]
-    device = leaves[0].device
-    if time_dtype is None:
-        time_dtype = torch.float64
-    t_grid = make_grid(t0, tf, save_at, dtype=time_dtype, device=device)
-    h0 = check_h0(h0, ctl, adaptive)
-    loop = dict(method=method, remat_levels=remat_levels,
-                grad_safe=grad_safe)
+        leaves = pytree.tree_leaves(y0_batch)
+        b = leaves[0].shape[0]
+        device = leaves[0].device
+        if time_dtype is None:
+            time_dtype = torch.float64
+        t_grid = make_grid(t0, tf, save_at, dtype=time_dtype, device=device)
+        h0 = check_h0(h0, ctl, adaptive)
+        loop = dict(method=method, remat_levels=remat_levels,
+                    grad_safe=grad_safe)
+        if use_batched and params is not None and not getattr(
+                stepper, "supports_batched_params", False):
+            raise ValueError(
+                "params is unsupported for this natively batched stepper (it "
+                "embeds its own operator)")
+        fused = getattr(stepper, "fused_loop_solve", None)
     if not use_batched:
         sol = _vmapped_solve(rhs_or_op, y0_batch, t_grid, h0,
                              stepper=stepper, adaptive=adaptive, ctl=ctl,
                              error_norm=error_norm, params=params,
                              event_cfg=event_cfg, dense=dense, loop=loop)
-        sol.ts = t_grid.expand(b, t_grid.shape[0])
+        with telemetry.span("vec_ode.solution"):
+            sol.ts = t_grid.expand(b, t_grid.shape[0])
         return sol
 
-    if params is not None and not getattr(stepper, "supports_batched_params",
-                                          False):
-        raise ValueError(
-            "params is unsupported for this natively batched stepper (it "
-            "embeds its own operator)")
-    fused = getattr(stepper, "fused_loop_solve", None)
     if fused is not None and method == "while" and not grad_safe:
         kw = {}
         if event_cfg is not None:
@@ -283,20 +286,21 @@ def _solve(rhs_or_op, y0_batch, t0, tf, *, stepper, h0, adaptive, ctl,
         sol = fused(y0_batch, t_grid, h0, ctl=ctl, adaptive=adaptive, **kw)
         if sol is not None:
             return sol
-    if ctl.scaled_error:
-        raise ValueError(
-            "scaled_error with a norm-returning stepper requires the fused "
-            "loop kernel, which did not engage for this configuration (see "
-            "the stepper's fused_loop_solve: e.g. the time dtype must be "
-            "the state's; generic exponential steppers take batched=False "
-            "for the vmapped tier)")
-    if params is None:
-        step_fn = stepper.make_step_fn(rhs_or_op)
-    else:
-        step_fn = stepper.make_step_fn(rhs_or_op, params=params)
-    # a batched stepper's carry seed is shape-polymorphic over the batch
-    init_cf = (stepper.make_init_carry(rhs_or_op)
-               if getattr(stepper, "has_carry", False) else None)
+    with telemetry.span("vec_ode.driver.init"):
+        if ctl.scaled_error:
+            raise ValueError(
+                "scaled_error with a norm-returning stepper requires the "
+                "fused loop kernel, which did not engage for this "
+                "configuration (see the stepper's fused_loop_solve: e.g. the "
+                "time dtype must be the state's; generic exponential "
+                "steppers take batched=False for the vmapped tier)")
+        if params is None:
+            step_fn = stepper.make_step_fn(rhs_or_op)
+        else:
+            step_fn = stepper.make_step_fn(rhs_or_op, params=params)
+        # a batched stepper's carry seed is shape-polymorphic over the batch
+        init_cf = (stepper.make_init_carry(rhs_or_op)
+                   if getattr(stepper, "has_carry", False) else None)
     if dense:
         if event_cfg is not None:
             raise ValueError(
@@ -313,7 +317,8 @@ def _solve(rhs_or_op, y0_batch, t0, tf, *, stepper, h0, adaptive, ctl,
                         event_cfg=event_cfg, **loop)
         sol.path = stepper.step_path(y0_batch)
     # the shared save grid, per trajectory (as the JAX package returns it)
-    sol.ts = t_grid.expand(b, t_grid.shape[0])
+    with telemetry.span("vec_ode.solution"):
+        sol.ts = t_grid.expand(b, t_grid.shape[0])
     return sol
 
 
