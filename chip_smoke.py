@@ -666,6 +666,14 @@ def solve(st, y0, save_at=None):
                           time_dtype=torch.float32)
 
 
+def driver_launches(sol) -> int:
+    """Step-kernel launches of the host-driver solve just made on the
+    card: one an iteration, and one for the iteration that the driver
+    enqueued past the last where it ended running ahead
+    (``driver.last_dropped``)."""
+    return int(sol.n_iters.max()) + driver.last_dropped
+
+
 # every kernel wrapper, K1-K9, the one list that the counts below read:
 # K1, K2 and K4 first (``counts``)
 WRAPPERS = (fused_rk_step, fused_loop_chunk, fused_chain_apply,
@@ -706,12 +714,13 @@ def main_path_phase(card: str) -> int:
     norm_dev = float((norm - 1).abs().max())
     assert norm_dev <= 1e-4, f"|psi| drifted by {norm_dev}"
     assert sol.path == "torch-driver+cuda-step", sol.path
-    assert launches == n_iters, (launches, n_iters)
+    assert launches == driver_launches(sol), (launches, n_iters)
     assert (loop_launches, chain_launches) == (0, 0), (loop_launches,
                                                        chain_launches)
     print(f"[main] {N_TRAJ}x{DIM}c RKF45 rtol={CTL.rtol:g}: all DONE, "
           f"max||psi|-1|={norm_dev:.3e}, path={sol.path}, "
-          f"kernel launches={launches} == max n_iters={n_iters} (loop "
+          f"kernel launches={launches} == max n_iters={n_iters} + "
+          f"{driver.last_dropped} dropped (loop "
           f"kernel {loop_launches}), "
           f"n_accept {int(sol.n_accept.min())}..{int(sol.n_accept.max())}, "
           f"n_reject {int(sol.n_reject.min())}..{int(sol.n_reject.max())}",
@@ -1856,7 +1865,8 @@ def r_step_path_phase(kind, loop_sol):
     k1, k2, k4 = counts()
     n_iters = int(sol.n_iters.max())
     assert sol.path == "torch-driver+cuda-step", sol.path
-    assert (k1, k2) == (0, 0) and k4 == n_iters, (k1, k2, k4, n_iters)
+    assert (k1, k2) == (0, 0) and k4 == driver_launches(sol), (k1, k2, k4,
+                                                               n_iters)
     check_unit_solution(sol, N_TRAJ, kind)
     dcount = max(int((getattr(sol, k) - getattr(loop_sol, k)).abs().max())
                  for k in ("n_accept", "n_reject", "n_iters"))
@@ -1874,11 +1884,12 @@ def r_step_path_phase(kind, loop_sol):
     torch.cuda.synchronize()
     k4_256 = counts()[2]
     assert sol256.path == "torch-driver+cuda-step"
-    assert k4_256 == int(sol256.n_iters.max())
+    assert k4_256 == driver_launches(sol256)
     check_unit_solution(sol256, REC_B, kind)
     assert k4_plan(REC_B, 2 * DIM, st256, 2)["route"] == "cluster"
     print(f"[{kind}-step] {N_TRAJ}x{DIM}c, operator without a declared "
-          f"form: path={sol.path}, K4 launches={k4} == max n_iters={n_iters} "
+          f"form: path={sol.path}, K4 launches={k4} == max n_iters={n_iters}"
+          f" + {k4 - n_iters} dropped "
           f"(K1/K2 {k1}/{k2}); vs the loop path: max|dcount|={dcount} (<= 1),"
           f" max|dy|={dy:.3e} (<= 1e-4; the first 64: {dy_first:.3e}); the "
           f"JAX record's configuration at {REC_B}: {k4_256} K4 launches "
@@ -1939,7 +1950,7 @@ def lindblad_phase(card):
         k1, k2, k4 = counts()
         assert sol.path == path, sol.path
         want = ((0, 1, 0) if path == "cuda-loop-persistent"
-                else (0, 0, int(sol.n_iters.max())))
+                else (0, 0, driver_launches(sol)))
         assert (k1, k2, k4) == want, (name, k1, k2, k4)
         assert bool((sol.status == DONE).all()), name
         tr_re, tr_im = Lindblad.trace(sol.y_final)
@@ -2209,7 +2220,8 @@ def generic_path_phase() -> int:
     k9 = fused_dense_chain_apply.launches
     n_iters = int(sol.n_iters.max())
     assert sol.path == "torch-driver+cuda-step", sol.path
-    assert k9 == n_iters and counts() == (0, 0, 0), (k9, n_iters, counts())
+    assert k9 == driver_launches(sol) and counts() == (0, 0, 0), (
+        k9, n_iters, counts())
     n_done = int((sol.status == DONE).sum())
     assert n_done == GEN_TRAJ, f"{GEN_TRAJ - n_done} trajectories not DONE"
     y = torch.complex(sol.y_final.re, sol.y_final.im)
@@ -2220,7 +2232,8 @@ def generic_path_phase() -> int:
     print(f"[generic] {GEN_TRAJ}x{DIM}c Magnus4(DenseCplxSplit) rtol="
           f"{GEN_CTL.rtol:g}, op_fn callback: all DONE, max||psi|-1|="
           f"{norm_dev:.3e} (<= 1e-4), path={sol.path}, K9 launches={k9} == "
-          f"max n_iters={n_iters} (K1/K2/K4 {counts()}), n_accept "
+          f"max n_iters={n_iters} + {k9 - n_iters} dropped (K1/K2/K4 "
+          f"{counts()}), n_accept "
           f"{int(sol.n_accept.min())}..{int(sol.n_accept.max())}, n_reject "
           f"{int(sol.n_reject.min())}..{int(sol.n_reject.max())}", flush=True)
 
@@ -2256,11 +2269,12 @@ def generic_path_phase() -> int:
     torch.cuda.synchronize()
     k9w, dyw = fused_dense_chain_apply.launches, max_dy(sol, wsol)
     assert wsol.path == "torch-driver+cuda-step", wsol.path
-    assert k9w == int(wsol.n_iters.max()) and counts() == (0, 0, 0)
+    assert k9w == driver_launches(wsol) and counts() == (0, 0, 0)
     assert int((wsol.status == DONE).sum()) == GEN_TRAJ
     assert dyw <= 5e-4, dyw
     print(f"[generic] under WeightedNorm(l2, weights): path={wsol.path}, K9 "
-          f"launches={k9w} == max n_iters; n_accept "
+          f"launches={k9w} == max n_iters + {driver.last_dropped} dropped; "
+          f"n_accept "
           f"{int(wsol.n_accept.min())}..{int(wsol.n_accept.max())}, max|dy| "
           f"vs the plain l2 solve={dyw:.3e} (<= 5e-4)", flush=True)
 
@@ -3869,7 +3883,7 @@ def events_loop_phase():
                            batch_shape=(LOOP_TRAJ,), event_cfg=cfg)
     torch.cuda.synchronize()
     k_ref = counts()
-    assert k_ref == (int(ref.n_iters.max()), 0, 0), k_ref
+    assert k_ref == (driver_launches(ref), 0, 0), k_ref
     print(f"[events-loop] {LOOP_TRAJ}x{DIM}c RKF45 with Re z_3 (K = 3) and "
           f"a terminal |z_0|^2 = 0.03: path={sol.path}, launches K1/K2/K4 = "
           f"{k[0]}/{k[1]}/{k[2]}; the host driver's run: {k_ref[0]} K1 "
@@ -3884,7 +3898,7 @@ def events_loop_phase():
     torch.cuda.synchronize()
     k1 = counts()
     assert main.path == "torch-driver+cuda-step", main.path
-    assert k1 == (int(main.n_iters.max()), 0, 0), k1
+    assert k1 == (driver_launches(main), 0, 0), k1
     check_event_solution(main, N_TRAJ, "events-main")
     x0 = torch.cat([y0.re, y0.im], 1)
     out = fused_loop_integrate(grid, x0, H0, RKStep(M0=st.M0, M1=st.M1,
@@ -3931,9 +3945,10 @@ def events_chain_phase():
     torch.cuda.synchronize()
     k = counts()
     assert ref.path == "torch-driver+cuda-step", ref.path
-    assert k == (0, 0, int(ref.n_iters.max())), k
+    assert k == (0, 0, driver_launches(ref)), k
     print(f"[events-chain] the per-step path (no declared form): path="
-          f"{ref.path}, {k[2]} K4 launches == max n_iters", flush=True)
+          f"{ref.path}, {k[2]} K4 launches == max n_iters + "
+          f"{driver.last_dropped} dropped", flush=True)
     compare_events(sols["magnus4"], ref, "events-chain loop vs per-step",
                    EV_TOL)
 
@@ -3966,7 +3981,7 @@ def events_lz_phase():
                 h0=LZ_EV_H0, time_dtype=torch.float32, events=lz_events(v))
             torch.cuda.synchronize()
             k = counts()
-            want = (0, 1, 0) if form else (0, 0, int(out[form].n_iters.max()))
+            want = (0, 1, 0) if form else (0, 0, driver_launches(out[form]))
             assert k == want, (v, form, k)
         loop, step = out[True], out[False]
         assert loop.path == "cuda-loop-persistent", loop.path
@@ -4279,11 +4294,13 @@ def auto_solve(mod, y0):
 
 
 def counted(fn):
-    """(fn(), (K1, K2, K4 launches), K9 launches) of one run."""
+    """(fn(), (K1, K2, K4 launches), K9 launches, the driver's dropped
+    iterations) of one run."""
     reset_counts()
     out = fn()
     torch.cuda.synchronize()
-    return out, counts(), fused_dense_chain_apply.launches
+    return (out, counts(), fused_dense_chain_apply.launches,
+            driver.last_dropped)
 
 
 def dcounts(a, b) -> tuple:
@@ -4298,12 +4315,12 @@ def check_routes(label, loop, step, n, *others):
     other (f32 rounding moves a step at the controller's edge); each of
     ``others`` (label, solution, state limit) within its limit of the
     loop route."""
-    (sol, c_loop, _), (ssol, c_step, _) = loop, step
+    (sol, c_loop, _, _), (ssol, c_step, _, dropped) = loop, step
     assert sol.path == "cuda-loop-persistent", sol.path
     assert ssol.path == "torch-driver+cuda-step", ssol.path
     assert c_loop == (0, 1, 0), c_loop
-    assert c_step[:2] == (0, 0) and c_step[2] == int(ssol.n_iters.max()), \
-        c_step
+    assert c_step[:2] == (0, 0) and \
+        c_step[2] == int(ssol.n_iters.max()) + dropped, c_step
     dev = max(check_unit_solution(sol, n, label),
               check_unit_solution(ssol, n, label))
     dc, dy = dcounts(sol, ssol), max_dy(sol, ssol)
@@ -4352,9 +4369,9 @@ def auto_phase() -> int:
         dsol = ensemble_solve(None, y0, 0.0, TF, stepper=declared,
                               ctl=GEN_CTL, h0=GEN_H0,
                               time_dtype=torch.float32)
-        gen, c_gen, k9 = counted(lambda: generic_solve(y0))
+        gen, c_gen, k9, _ = counted(lambda: generic_solve(y0))
         assert gen.path == "torch-driver+cuda-step" and c_gen == (0, 0, 0)
-        assert k9 == int(gen.n_iters.max()), (k9, int(gen.n_iters.max()))
+        assert k9 == driver_launches(gen), (k9, int(gen.n_iters.max()))
         check_routes("auto", loop, step, n,
                      ("declared CoeffForm loop", dsol, 1e-4),
                      (f"generic Magnus4 over op_fn ({k9} K9 launches)", gen,
@@ -4377,7 +4394,7 @@ def auto_lz_phase() -> None:
     psi[:, 0] = 1.0
     y0 = from_complex(psi, torch.float32, device="cuda")
     ctl = StepControl(rtol=1e-5, max_steps=20000)
-    sol, c, _ = counted(lambda: ensemble_solve(
+    sol, c, _, _ = counted(lambda: ensemble_solve(
         None, y0, -LZ_T, LZ_T, stepper=MagnusModulated4(mod), ctl=ctl,
         h0=0.05, time_dtype=torch.float32))
     assert sol.path == "cuda-loop-persistent" and c == (0, 1, 0), (sol.path,
@@ -4450,7 +4467,7 @@ def k0_timing_phase(card):
     # the eight-term drive per step (K4 at K' = 36 each iteration)
     eight = counted(lambda: auto_solve(multi_op(8, torch.float32), y0))
     check_unit_solution(eight[0], N_TRAJ, "eight-term per-step route")
-    assert eight[1][2] == int(eight[0].n_iters.max()), eight[1]
+    assert eight[1][2] == int(eight[0].n_iters.max()) + eight[3], eight[1]
     timed_solve(lambda: auto_solve(multi_op(8, torch.float32), y0),
                 f"eight-term per-step route {N_TRAJ}x{DIM}c f32 (K' = 36): "
                 f"{eight[1][2]} K4 launches a solve", card)
@@ -5179,13 +5196,14 @@ def fsal_phase(card: str) -> None:
     # the plain clock: the carried stage was evaluated at fl(t + 1.0 dt),
     # which the compensated clock's t_next may differ from by an ulp
     ctl = dataclasses.replace(CTL, time_compensated=False)
-    sols = {}
+    sols, dropped = {}, {}
     for fsal in (True, False):
         st = RungeKutta(DOPRI5, advance_lower=False, fsal=fsal)
         calls[fsal] = 0
         sols[fsal] = ensemble_solve(counted_rhs(fsal), y0, 0.0, TF,
                                     stepper=st, h0=H0, ctl=ctl,
                                     time_dtype=torch.float32)
+        dropped[fsal] = driver.last_dropped
         assert int((sols[fsal].status == DONE).sum()) == N_TRAJ, fsal
     a, b = sols[True], sols[False]
     same_counters(a, b, "fsal")
@@ -5196,15 +5214,19 @@ def fsal_phase(card: str) -> None:
               for x in (True, False))
     assert (fs.nfev_per_step, fs.nfev_init) == (6, 1)
     assert (pl.nfev_per_step, pl.nfev_init) == (7, 0)
-    # the vmapped tier evaluates every lane on every iteration
-    assert calls[True] == 1 + 6 * n and calls[False] == 7 * n, (calls, n)
+    # the vmapped tier evaluates every lane on every iteration, and on the
+    # one the driver enqueued past the last where it ran ahead
+    nt, nf = n + dropped[True], n + dropped[False]
+    assert calls[True] == 1 + 6 * nt and calls[False] == 7 * nf, (
+        calls, n, dropped)
     attempts = int((a.n_accept + a.n_reject).sum())
     print(f"[fsal] {N_TRAJ}x{DIM}c DOPRI5 advancing b, fsal=True vs False, "
           f"rtol={CTL.rtol:g}, plain clock, f32: all DONE, equal status / "
           f"n_accept / "
           f"n_reject / n_iters (up to {n}), max|dy| {dy:.3e} (<= 1e-5); "
-          f"RHS calls over the batch {calls[True]} (= 1 + 6 x {n}) against "
-          f"{calls[False]} (= 7 x {n}); nfev summed over the rows {N_TRAJ} "
+          f"RHS calls over the batch {calls[True]} (= 1 + 6 x {nt}) "
+          f"against {calls[False]} (= 7 x {nf}); nfev summed over the rows"
+          f" {N_TRAJ} "
           f"+ 6 x {attempts} attempts = {N_TRAJ + 6 * attempts} against 7 x"
           f" {attempts} = {7 * attempts} ({card})", flush=True)
 
@@ -5301,7 +5323,8 @@ def drive_form_phase() -> dict:
         n_it = int(sol.n_iters.max())
         assert sol.path == "torch-driver+cuda-step", sol.path
         assert int((sol.status == DONE).sum()) == N_TRAJ, name
-        assert (k1, k2, k4) == (n_it, 0, 0), (name, k1, k2, k4, n_it)
+        assert (k1, k2, k4) == (driver_launches(sol), 0, 0), (
+            name, k1, k2, k4, n_it)
         assert bool(torch.isfinite(sol.y_final.re).all()), name
         out["k1"][name] = k1
         extra = ""
@@ -5816,10 +5839,11 @@ def mesh_ensemble_phases(rank: int, world: int) -> dict:
     sharded_main()                                   # warm
     reset_counts()
     sol, wall = host_wall(sharded_main)
-    launches = all_launches()
+    launches, dropped = all_launches(), driver.last_dropped
     rec = shard_check(sol, solve(st, local_rows_of(y0, rank, world)),
                       "mesh-main")
-    assert launches[0] == rec["n_iters"] and launches[1:3] == (0, 0), (
+    assert launches[0] == rec["n_iters"] + dropped and \
+        launches[1:3] == (0, 0), (
         launches, rec)
     out["main"] = dict(rec, wall=wall, k1=launches[0])
 
@@ -5843,10 +5867,11 @@ def mesh_ensemble_phases(rank: int, world: int) -> dict:
         generic_op_fn(), shard_batch(y0, mesh), 0.0, TF,
         stepper=texp.Magnus4(texp.DenseCplxSplit()), adaptive=True,
         ctl=GEN_CTL, h0=GEN_H0, time_dtype=torch.float32, mesh=mesh))
-    k9 = fused_dense_chain_apply.launches
+    k9, dropped = fused_dense_chain_apply.launches, driver.last_dropped
     rec = shard_check(sol, generic_solve(local_rows_of(y0, rank, world)),
                       "mesh-generic")
-    assert k9 == rec["n_iters"] and counts() == (0, 0, 0), (k9, counts())
+    assert k9 == rec["n_iters"] + dropped and counts() == (0, 0, 0), (
+        k9, counts())
     out["generic"] = dict(rec, wall=wall, k9=k9)
 
     # no host staging: a CPU batch on the CUDA mesh is refused

@@ -504,7 +504,7 @@ def test_magnus_ensemble_on_the_card_matches_the_cpu_path_f64(card):
         elif form:
             assert launched == (1, 0) and sol.path == "cuda-loop-persistent"
         else:
-            assert launched == (0, int(sol.n_iters.max()))
+            assert launched == (0, chip_smoke.driver_launches(sol))
             assert sol.path == "torch-driver+cuda-step"
         sols[(dev, form)] = sol
     cpu = sols[("cpu", True)]
@@ -701,7 +701,7 @@ def test_r_ensemble_on_the_card_matches_the_cpu_path_f64(card, stepper):
         elif form:
             assert launched == (1, 0) and sol.path == "cuda-loop-persistent"
         else:
-            assert launched == (0, int(sol.n_iters.max()))
+            assert launched == (0, chip_smoke.driver_launches(sol))
             assert sol.path == "torch-driver+cuda-step"
         sols[(dev, form)] = sol
     cpu = sols[("cpu", True)]
@@ -898,7 +898,8 @@ def test_generic_ensemble_on_the_card_matches_the_cpu_path_f64(card, name):
             adaptive=name != "midpoint")
         assert bool((sol.status == DONE).all()), dev
         launched = fused_dense_chain_apply.launches - before
-        assert launched == (int(sol.n_iters.max()) if dev == card else 0)
+        assert launched == (chip_smoke.driver_launches(sol) if dev == card
+                            else 0)
         sols[dev] = sol
     assert sols[card].path == "torch-driver+cuda-step"
     assert sols["cpu"].path == "torch-driver"
@@ -927,7 +928,7 @@ def test_generic_path_stays_on_the_kernel_under_a_declared_norm(card):
             ctl=chip_smoke.GEN_CTL, h0=chip_smoke.GEN_H0,
             time_dtype=torch.float32)
         launched = fused_dense_chain_apply.launches - before
-        assert launched == int(sols[key].n_iters.max())
+        assert launched == chip_smoke.driver_launches(sols[key])
         assert bool((sols[key].status == DONE).all())
         assert sols[key].path == "torch-driver+cuda-step"
     assert torch.equal(sols["k9"].y_final.re, sols["norm"].y_final.re)
@@ -1291,7 +1292,7 @@ def test_ensemble_names_the_event_and_dense_paths(card):
         lambda t, x: x.re[0] - 0.05),))
     sol, k = run(st, y0, events=opaque)
     assert sol.path == "torch-driver+cuda-step"
-    assert k == (int(sol.n_iters.max()), 0, 0)
+    assert k == (chip_smoke.driver_launches(sol), 0, 0)
     big_st, big = chip_smoke.main_inputs(2049)
     sol, k = run(big_st, big, events=cfg)
     assert sol.path == "torch-driver+cuda-step" and k[1] == 0
@@ -2459,22 +2460,128 @@ def test_chunked_loop_spans(card):
     _reads_are_syncs(spans, events)
 
 
-def test_step_route_spans(card):
+def test_step_route_spans(card, monkeypatch):
     """The benchmark's step route on the card (a callable drive): a
-    ``driver.step`` span an iteration with its K4 launch, one
-    ``driver_cond`` read more than steps and no other read."""
+    ``driver.step`` span and a K4 launch an iteration, and where the
+    driver runs ahead (its policy made to say so here, and not) one more
+    of each for the iteration enqueued past the last; one
+    ``driver_cond`` read more than steps either way, and no other
+    read."""
+    from vec_ode_tpu_torch import driver
+
     st, y0 = _magnus_inputs(1024, declared=False)
     ctl = StepControl(rtol=1e-5, min_dt=1e-5, max_dt=0.2)
-    before = fused_chain_apply.launches
-    sol, spans, events = _profiled(lambda: ensemble_solve(
-        None, y0, 0.0, 1.0, stepper=st, ctl=ctl, h0=1e-3,
-        time_dtype=torch.float32))
-    steps = int(sol.n_iters.max())
+    for ahead in (False, True):
+        monkeypatch.setattr(driver, "_pays_ahead",
+                            lambda *a, ahead=ahead: ahead)
+        before = fused_chain_apply.launches
+        sol, spans, events = _profiled(lambda: ensemble_solve(
+            None, y0, 0.0, 1.0, stepper=st, ctl=ctl, h0=1e-3,
+            time_dtype=torch.float32))
+        steps, extra = int(sol.n_iters.max()), int(ahead)
+        assert sol.path == "torch-driver+cuda-step"
+        assert driver.last_dropped == extra
+        assert fused_chain_apply.launches - before == steps + extra
+        names = collections.Counter(s.name for s in spans)
+        assert names["vec_ode.driver.step"] == steps + extra
+        assert names["vec_ode.sync.driver_cond"] == steps + 1
+        assert sum(n for k, n in names.items()
+                   if k.startswith(telemetry.SYNC)) == steps + 1
+        _reads_are_syncs(spans, events)
+
+
+def _driver_route(route, monkeypatch):
+    """(stepper, states, ctl, the step kernel's wrapper) of a host-driver
+    route at 1024 rows: Magnus-4 on a callable drive (K4), or the RK
+    stepper's per-step route (K1), which batches above ``LOOP_MAX_BATCH``
+    take, the limit lowered here below 1024."""
+    if route == "k4":
+        st, y0 = _magnus_inputs(1024, declared=False)
+        return (st, y0, StepControl(rtol=1e-5, min_dt=1e-5, max_dt=0.2),
+                fused_chain_apply)
+    monkeypatch.setattr(floop, "LOOP_MAX_BATCH", 512)
+    st, y0 = chip_smoke.main_inputs(1024)
+    return st, y0, chip_smoke.CTL, fused_rk_step
+
+
+@pytest.mark.parametrize("route", ["k4", "k1"])
+def test_lagged_condition_gives_the_plain_loops_bits(card, route,
+                                                     monkeypatch):
+    """The host driver running ahead (its condition read one iteration
+    late from the first iteration on, its policy made to say so) against
+    the plain loop (the condition read before each iteration) on the same
+    card: every ``Solution`` field bitwise equal, and the step kernel
+    launched once more (the dropped iteration)."""
+    from torch.utils import _pytree as pytree
+
+    from vec_ode_tpu_torch import driver
+
+    st, y0, ctl, kernel = _driver_route(route, monkeypatch)
+
+    def solve():
+        before = kernel.launches
+        sol = ensemble_solve(None, y0, 0.0, 1.0, stepper=st, ctl=ctl,
+                             h0=1e-3, time_dtype=torch.float32)
+        torch.cuda.synchronize()
+        return sol, kernel.launches - before
+
+    with monkeypatch.context() as m:
+        m.setattr(driver, "_pays_ahead", lambda *a: True)
+        sol, n = solve()
+    with monkeypatch.context() as m:
+        m.setattr(driver, "_pays_ahead", lambda *a: False)
+        plain, n_plain = solve()
+    assert sol.path == plain.path == "torch-driver+cuda-step"
+    assert bool((plain.status == DONE).all())
+    steps = int(plain.n_iters.max())
+    assert (n_plain, n) == (steps, steps + 1)
+    for f in dataclasses.fields(plain):
+        a, b = getattr(sol, f.name), getattr(plain, f.name)
+        if f.name == "path" or a is None or b is None:
+            assert a == b, f.name
+            continue
+        for x, y in zip(pytree.tree_leaves(a), pytree.tree_leaves(b),
+                        strict=True):
+            assert torch.equal(x, y), f.name
+
+
+BLOCKING = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpy",
+            "cudaEventSynchronize", "aten::_local_scalar_dense")
+
+
+@pytest.mark.parametrize("norm", ["l2", "weighted"])
+def test_no_host_blocking_call_inside_a_driver_step(card, norm,
+                                                    monkeypatch):
+    """On the K4 route, with l2 or a declared weighted norm (its weight
+    row copied to the card once), no iteration blocks the host on the
+    card: no stream, device or event synchronisation, synchronous copy or
+    read of a value lies inside a ``vec_ode.driver.step`` span, so the
+    lagged condition keeps the next K4 queued (the driver made to run
+    ahead). The trace does record such calls: the lagged reads' event
+    waits, and the synchronisation after the solve. The solve is the
+    stepper's second: its first step makes the kernel's operands, whose
+    norms it reads back once a device and type."""
+    from vec_ode_tpu_torch import driver
+
+    monkeypatch.setattr(driver, "_pays_ahead", lambda *a: True)
+    st, y0 = _magnus_inputs(1024, declared=False)
+    if norm == "weighted":
+        st = dataclasses.replace(st, norm=lc.WeightedNorm(
+            "l2", tuple(np.linspace(0.5, 2.0, 64))))
+    ctl = StepControl(rtol=1e-5, min_dt=1e-5, max_dt=0.2)
+
+    def solve():
+        return ensemble_solve(None, y0, 0.0, 1.0, stepper=st, ctl=ctl,
+                              h0=1e-3, time_dtype=torch.float32)
+
+    solve()
+    sol, spans, events = _profiled(solve)
     assert sol.path == "torch-driver+cuda-step"
-    assert fused_chain_apply.launches - before == steps
-    names = collections.Counter(s.name for s in spans)
-    assert names["vec_ode.driver.step"] == steps
-    assert names["vec_ode.sync.driver_cond"] == steps + 1
-    assert sum(n for k, n in names.items()
-               if k.startswith(telemetry.SYNC)) == steps + 1
-    _reads_are_syncs(spans, events)
+    steps = [s for s in spans if s.name == "vec_ode.driver.step"]
+    assert len(steps) == int(sol.n_iters.max()) + 1
+    blocking = [e for e in events if e.name() in BLOCKING]
+    assert {"cudaEventSynchronize", "cudaDeviceSynchronize"} <= {
+        e.name() for e in blocking}
+    inside = [(e.name(), s.iteration) for e in blocking for s in steps
+              if s.start_ns <= e.start_ns() <= s.end_ns]
+    assert not inside, inside

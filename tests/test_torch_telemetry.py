@@ -275,13 +275,15 @@ def _planted():
     ]
 
 
-def _run(spans, dropped=0, monkeypatch=None):
+def _run(spans, dropped=0, monkeypatch=None, intervals=None):
     monkeypatch.setattr(telemetry, "spans", lambda: list(spans))
     monkeypatch.setattr(telemetry, "dropped", lambda: dropped)
     # the device busy 0-4, 6-9 and 22-30 ms (in us); the window 40 ms
+    if intervals is None:
+        intervals = [(0.0, 4_000.0), (6_000.0, 9_000.0),
+                     (22_000.0, 30_000.0)]
     trace = _Trace(host=[(-1.0, 2_000.0), (2_000.0, 40_000.0)],
-                   intervals=[(0.0, 4_000.0), (6_000.0, 9_000.0),
-                              (22_000.0, 30_000.0)],
+                   intervals=intervals,
                    by_name={"k4": [6, 0.0], "copy": [2, 0.0]})
     return Run(cell=None, system=None, n_calls=2, window_s=0.04,
                trace=trace)
@@ -301,7 +303,9 @@ WANT = {"port_host_ms_per_solve": HOST_MS,
         "syncs_per_solve": SYNCS, "syncs_per_solve.host_paced": SYNCS,
         "port_idle_pct": IDLE, "port_idle_pct.host_paced": IDLE,
         "driver_ms_per_iter.host_paced": 4.0 - 1.0,
-        "device_ops_per_iter.host_paced": 8 / 1}
+        "device_ops_per_iter.host_paced": 8 / 1,
+        # the one step begins at 3 ms, with the device busy 0-4
+        "driver_ahead_pct.host_paced": 100.0}
 
 
 @pytest.mark.parametrize("name", sorted(WANT))
@@ -313,6 +317,43 @@ def test_span_readers_on_planted_numbers(name, monkeypatch):
                             monkeypatch=monkeypatch)) is None
     run.trace = None
     assert _read(name, run) is None
+
+
+def _driver_call():
+    """One call of three driver iterations, in ns: steps of 2 ms at 2, 5
+    and 8 ms, each followed by its condition read, and a span of an
+    earlier profile at -100 ms."""
+    S = telemetry.Span
+    spans = [S("vec_ode.driver.step", -100 * MS, -99 * MS, 7, 0, -1),
+             S("vec_ode.entry", 0, 1 * MS, 0, -1, -1)]
+    for k in range(3):
+        at = (2 + 3 * k) * MS
+        spans += [S("vec_ode.driver.step", at, at + 2 * MS, 0, k, -1),
+                  S("vec_ode.sync.driver_cond", at + 2 * MS, at + 3 * MS, 0,
+                    -1, -1)]
+    return spans + [S("vec_ode.solution", 11 * MS, 12 * MS, 0, -1, -1)]
+
+
+def test_driver_ahead_pct_on_plain_spans(monkeypatch):
+    """The condition read before each step drains the device: it runs
+    from 0.5 ms into each step to the end of the read that follows (in
+    us), idle as each step begins."""
+    busy = [(a + 500.0, a + 3_000.0) for a in (2_000.0, 5_000.0, 8_000.0)]
+    run = _run(_driver_call(), monkeypatch=monkeypatch, intervals=busy)
+    assert _read("driver_ahead_pct.host_paced", run) == 0.0
+
+
+def test_driver_ahead_pct_on_lagged_spans(monkeypatch):
+    """The condition read one step late: the device still runs as each
+    step begins (busy 1.5-12 ms, in us), or as all but the second begin,
+    which starts after the device went idle (4.8-5.2 ms)."""
+    name = "driver_ahead_pct.host_paced"
+    run = _run(_driver_call(), monkeypatch=monkeypatch,
+               intervals=[(1_500.0, 12_000.0)])
+    assert _read(name, run) == 100.0
+    run = _run(_driver_call(), monkeypatch=monkeypatch,
+               intervals=[(1_500.0, 4_800.0), (5_200.0, 12_000.0)])
+    assert _read(name, run) == pytest.approx(100.0 * 2 / 3, rel=1e-12)
 
 
 def test_every_reader_is_listed():

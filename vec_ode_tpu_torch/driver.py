@@ -8,7 +8,9 @@ at-checkpoint / at-end / accept) and applies ``where``-selected updates,
 exactly as the JAX driver does, so the two agree per trajectory on
 status, counters and the sequence of accepted and rejected steps. Two
 loops run the iteration: ``method="while"``, a Python ``while`` whose
-condition reads one bool from the device per iteration, and
+condition reads one bool from the device per iteration (on a CUDA card
+where the device is the slower side, one iteration late, so that the
+next iteration is queued while the card runs the last), and
 ``method="scan"``, exactly ``ctl.max_steps`` iterations with no read of
 the device at all (lanes no longer RUNNING step with dt = 0 and keep
 their state), which autograd differentiates, ``remat_levels`` nesting it
@@ -20,6 +22,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import time
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
@@ -506,6 +509,114 @@ def _run_scan(body: Callable, state: IntState, lengths) -> IntState:
     return state
 
 
+# the share of an iteration's enqueuing time that a read of the condition
+# after it must wait for the device before the loop runs ahead
+AHEAD_WAIT_SHARE = 0.5
+# iterations the latest ``method="while"`` loop enqueued past its last and
+# dropped: 1 where it ended running ahead, else 0
+last_dropped = 0
+
+
+class _Conditions:
+    """The loop's condition on its way to the host. On a CUDA carry each
+    one is copied without blocking into one of two pinned host slots and
+    an event is recorded after the copy, so that reading it waits for
+    that copy alone; elsewhere it is read where it lies."""
+
+    def __init__(self, device: torch.device):
+        self.events = None
+        if device.type == "cuda":
+            self.stream = torch.cuda.current_stream(device)
+            self.slots = torch.empty(2, dtype=torch.bool, pin_memory=True)
+            self.events = (torch.cuda.Event(), torch.cuda.Event())
+
+    def post(self, k: int, state: IntState):
+        """Enqueue the condition of the carry after ``k`` iterations."""
+        cond = (state.status == RUNNING).any()
+        if self.events is None:
+            return cond, None
+        slot, done = self.slots[k % 2], self.events[k % 2]
+        slot.copy_(cond, non_blocking=True)
+        done.record(self.stream)
+        return slot, done
+
+    @staticmethod
+    def read(posted) -> bool:
+        return telemetry.read("driver_cond", *posted)
+
+
+def _lockstep() -> bool:
+    """Whether other ranks of a process group may run the same loop: a
+    body may then hold collectives, which pair only if every rank runs as
+    many iterations."""
+    import torch.distributed as dist
+
+    return (dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1)
+
+
+def _pays_ahead(device: torch.device, waited: float,
+                enqueued: float) -> bool:
+    """Whether the loop should enqueue each next iteration before it
+    reads the condition that admits it: on a CUDA device, where the read
+    after an iteration waited for the device at least
+    ``AHEAD_WAIT_SHARE`` of the time the host took to enqueue that
+    iteration (``waited``, ``enqueued``, seconds). Running ahead hides
+    about that wait an iteration and costs one dropped iteration a solve;
+    where the device keeps up with the host, or the iteration itself
+    waits for the device (a copy from host memory, a read of a value),
+    the read waits little and running ahead would only add the dropped
+    iteration. A CPU carry has no queue to run ahead on."""
+    return device.type == "cuda" and waited >= AHEAD_WAIT_SHARE * enqueued
+
+
+def _run_while(body: Callable, state: IntState) -> IntState:
+    """``body`` while any trajectory is RUNNING, one read of the condition
+    an iteration. The loop reads the condition before each iteration
+    until :func:`_pays_ahead` finds, at a read, that the device is the
+    slower side; from then on it reads it one iteration late: iteration
+    k + 1 is enqueued from carry k before the condition of carry k is
+    read, so the device has it queued when it finishes iteration k (so
+    ``body`` must not write into its input carry). Either way the carry
+    returned is the first whose condition reads false, and the condition
+    is read as often; running ahead, the iteration enqueued from that
+    carry is dropped (``last_dropped``). An error raised while enqueuing
+    an iteration surfaces only if the condition that admits it reads
+    true. Ranks of a process group never run ahead, so that each runs
+    the same iterations."""
+    global last_dropped
+    last_dropped = 0
+    device = state.status.device
+    lockstep = _lockstep()
+    conds = _Conditions(device)
+    posted = conds.post(0, state)
+    ahead, enqueued, it = False, math.inf, 0
+    while True:
+        admitted = not ahead
+        if admitted:
+            t0 = time.perf_counter()
+            if not conds.read(posted):
+                return state
+            ahead = not lockstep and _pays_ahead(
+                device, time.perf_counter() - t0, enqueued)
+        t0 = time.perf_counter()
+        try:
+            with telemetry.span("vec_ode.driver.step", it):
+                nxt = body(state)
+                posted_nxt = conds.post(it + 1, nxt)
+        except Exception:
+            if not admitted and not conds.read(posted):
+                last_dropped = 1
+                return state
+            raise
+        enqueued = time.perf_counter() - t0
+        if not admitted and not conds.read(posted):
+            last_dropped = 1
+            return state
+        state, posted = nxt, posted_nxt
+        it += 1
+
+
 def integrate(step_fn: Callable, x0: Pytree, t_grid: torch.Tensor, h0, *,
               adaptive: bool = True, ctl: StepControl = StepControl(),
               error_norm: Optional[Callable] = None,
@@ -559,7 +670,15 @@ def resume(state: IntState, step_fn: Callable, *, adaptive: bool = True,
     On the default [t0, tf] grid the loop records nothing: ys is rebuilt
     afterwards as [x0, x_final], with the final slot left as it was for
     trajectories that did not reach the end (the JAX driver does the
-    same)."""
+    same).
+
+    ``method="while"`` on a CUDA carry reads its condition one iteration
+    late once the device is the slower side (:func:`_run_while`). It then
+    enqueues one iteration past the last and drops it: ``step_fn``, and
+    the callables it calls (an RHS, an ``op_fn``, a drive's
+    ``coeff_fn``), run once more than the iterations, at each
+    trajectory's final time with dt = 0, and nothing of that iteration
+    reaches the ``Solution``."""
     bn = _check_batched(state, batched)
     if error_norm is None:
         error_norm = _default_norm(bn > 0)
@@ -576,13 +695,9 @@ def resume(state: IntState, step_fn: Callable, *, adaptive: bool = True,
                 "remat_levels only applies to method='scan' (reverse-mode "
                 "checkpointing of a fixed-length scan); the default "
                 "while-loop driver is not reverse-differentiable")
-        # one host sync per iteration: the loop's condition
-        it = 0
-        while telemetry.read("driver_cond",
-                             (state.status == RUNNING).any()):
-            with telemetry.span("vec_ode.driver.step", it):
-                state = body(state)
-            it += 1
+        # one host sync per iteration: the loop's condition, read one
+        # iteration late where the device is the slower side
+        state = _run_while(body, state)
     elif method == "scan":
         if ctl.max_steps > SCAN_GUARD and remat_levels == 0:
             raise ValueError(

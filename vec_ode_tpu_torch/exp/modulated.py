@@ -48,6 +48,7 @@ from ..ops.expmv import (CfmTable, ChebForm, CoeffForm, basis_norms,
                          n_working_terms, node_times, pairs_of, scale_rows,
                          stacked_transpose, torch_chain_expmv,
                          torch_chain_step)
+from ..ops.fused_rk import wnorm_on
 
 __all__ = ["ModulatedOperator", "CoeffForm", "ChebForm", "CfmTable",
            "MidpointModulated", "MagnusModulated4", "MagnusModulated6",
@@ -253,6 +254,17 @@ class _ChainStepper:
             cache[key] = (stacked_transpose(bw), basis_norms(bw))
         return cache[key]
 
+    def _wnorm_on(self, x, xw):
+        """:meth:`_wnorm_of` with its weight row on ``xw``'s device in its
+        type, made once per (device, dtype) beside the operands: a step
+        copies nothing from host memory."""
+        key = ("wnorm", xw.device, xw.dtype)
+        cache = self._cache
+        if key not in cache:
+            wn = self._wnorm_of(x)
+            cache[key] = wn if callable(wn) else wnorm_on(wn, xw)
+        return cache[key]
+
     def _wnorm_of(self, x):
         leaf = x.re if self.op.is_cplx else x
         return _stepper_wnorm(self, leaf.shape[-1], 2 if self.op.is_cplx
@@ -286,7 +298,8 @@ class _ChainStepper:
                 samples, dt.to(xw.dtype).contiguous(), xw, mt, norms,
                 recipe=recipe, C=C, m=m, theta=theta,
                 max_squarings=self.max_squarings,
-                wnorm=self._wnorm_of(x) if has_err else None, table=table)
+                wnorm=self._wnorm_on(x, xw) if has_err else None,
+                table=table)
             if single:
                 y, err = y[0], err[0]
             # no error estimate -> None makes the adaptive driver raise

@@ -150,7 +150,13 @@ def ensemble_solve(
     stepper takes it too where its batched conventions cannot express the
     call (``scaled_error``, which needs the error vector).
     ``Solution.path`` names the path taken (``"torch-driver"`` on the
-    vmapped tier, on either device).
+    vmapped tier, on either device). On the card the host driver
+    (``method="while"``) reads its loop's condition one iteration late
+    once it finds the card the slower side (``driver.resume``); it then
+    enqueues one iteration past the last and drops it, so the stepper and
+    the callables it calls (``f``, ``op_fn``, a drive's ``coeff_fn``) run
+    once more in that solve, at each trajectory's final time with dt = 0,
+    and nothing of that iteration reaches the ``Solution``.
 
     ``events`` (an ``events.EventConfig``, an ``Event``, a callable or a
     sequence of them) locates event crossings: declared observables run

@@ -160,12 +160,18 @@ def call():
     return _Call()
 
 
-def read(site: str, value: torch.Tensor):
+def read(site: str, value: torch.Tensor, done=None):
     """``value.item()``, a read of the device by the host, recorded as the
-    span ``vec_ode.sync.<site>`` where the profiler is on."""
+    span ``vec_ode.sync.<site>`` where the profiler is on. ``done``: a
+    CUDA event recorded after a copy from the device fills the host
+    tensor ``value`` (a lagged read), waited for before the read."""
     if not _profiling():
+        if done is not None:
+            done.synchronize()
         return value.item()
     with _Span(SYNC + site, -1, False):
+        if done is not None:
+            done.synchronize()
         return value.item()
 
 
